@@ -1,0 +1,436 @@
+"""Dynamic request batching: many concurrent ``/act`` requests, one device
+dispatch (a copy of ``sheeprl_tpu/serving/batcher.py``, pure Python).
+
+Requests queue for up to ``max_delay_ms`` (or until a full bucket is
+waiting), the group is padded to the nearest bucket width — every width the
+service ever dispatches is one of ``batch_buckets``, so the per-bucket step
+cache stays at ``len(buckets)`` entries — and ONE dispatch fans its rows back
+out to the waiting requests.
+
+The batcher owns queueing, grouping, timing and stats; what a dispatch *is*
+(slab assembly, the policy step) is the ``dispatch_fn`` the service injects.
+
+Threading model: HTTP handler threads block in :meth:`DynamicBatcher.submit`;
+one daemon dispatcher thread drains the queue.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from sheeprl_tpu_torch.diagnostics.tracing import NullTracer
+
+#: default widths; ``configs/serving/default.yaml`` mirrors this
+DEFAULT_BUCKETS: Tuple[int, ...] = (8, 16, 32, 64, 128)
+
+
+class ServeError(RuntimeError):
+    """Request-level failure with an HTTP status (the server maps it).
+    ``retry_after`` (seconds, load-shed 503s) becomes the ``Retry-After``
+    header so well-behaved clients back off instead of hammering."""
+
+    def __init__(self, status: int, message: str, retry_after: Optional[float] = None):
+        super().__init__(message)
+        self.status = int(status)
+        self.retry_after = None if retry_after is None else max(1, int(round(retry_after)))
+
+
+def pick_bucket(n: int, buckets: Sequence[int]) -> int:
+    """Smallest bucket >= ``n`` (callers cap group size at ``max(buckets)``,
+    so there is always one)."""
+    for b in sorted(int(x) for x in buckets):
+        if b >= int(n):
+            return b
+    raise ValueError(f"group of {n} exceeds the largest bucket {max(buckets)}")
+
+
+class _Request:
+    __slots__ = (
+        "row",
+        "greedy",
+        "t_enqueue",
+        "event",
+        "result",
+        "error",
+        "abandoned",
+        "group_key",
+        "request_id",
+        "depth_enqueue",
+    )
+
+    def __init__(
+        self,
+        row: Dict[str, np.ndarray],
+        greedy: bool,
+        t_enqueue: float,
+        group_key: Optional[Any] = None,
+        request_id: Optional[str] = None,
+    ):
+        self.row = row
+        self.greedy = bool(greedy)
+        self.t_enqueue = t_enqueue
+        # trace/forensics identity: honored from the client's X-Request-Id
+        # header or generated by the server; threads through every span and
+        # the slow_request journal event
+        self.request_id = request_id
+        # queue depth observed at enqueue (forensics: was the slow request
+        # slow because it arrived behind a backlog?)
+        self.depth_enqueue = 0
+        # rows sharing a non-None group_key never share a dispatch: the
+        # session layer keys this by session id so one batch gathers each
+        # session's state at most once (per-session FIFO stays exact)
+        self.group_key = group_key
+        self.event = threading.Event()
+        self.result: Optional[Dict[str, Any]] = None
+        self.error: Optional[ServeError] = None
+        # set when the client's submit() gave up: if still queued the request
+        # is removed outright; if already in flight its stats are skipped so
+        # one stalled dispatch cannot poison the latency percentiles
+        self.abandoned = False
+
+
+class DynamicBatcher:
+    """FIFO queue + one dispatcher thread + request/latency accounting.
+
+    ``dispatch_fn(rows, greedy)`` must return ``(actions, meta)`` where
+    ``actions`` is array-like with one leading row per *valid* request (padded
+    rows already sliced off) and ``meta`` is a dict merged into every
+    response (``ckpt_step``, ``batch_width``, ``params_version``, ...).
+    """
+
+    def __init__(
+        self,
+        dispatch_fn: Callable[[List[Dict[str, np.ndarray]], bool], Tuple[Any, Dict[str, Any]]],
+        buckets: Sequence[int] = DEFAULT_BUCKETS,
+        max_delay_ms: float = 5.0,
+        max_queue: int = 4096,
+        clock: Callable[[], float] = time.monotonic,
+        tracer: Optional[Any] = None,
+        on_request_done: Optional[Callable[[Dict[str, Any]], None]] = None,
+    ):
+        if not buckets:
+            raise ValueError("batch_buckets must not be empty")
+        self._dispatch_fn = dispatch_fn
+        # per-request phase spans land in the serving trace; the completion
+        # callback feeds the service's histogram/SLO layer.  Both are
+        # observability-only: a callback failure must never kill the
+        # dispatcher thread.
+        self._tracer = tracer if tracer is not None else NullTracer()
+        self._on_request_done = on_request_done
+        self.buckets = tuple(sorted(int(b) for b in buckets))
+        if self.buckets[0] < 1:
+            raise ValueError(f"batch buckets must be >= 1, got {self.buckets}")
+        self.max_batch = self.buckets[-1]
+        self.max_delay_s = max(0.0, float(max_delay_ms)) / 1000.0
+        self.max_queue = int(max_queue)
+        self._clock = clock
+        self._queue: deque = deque()
+        self._cond = threading.Condition()
+        self._stop = False
+        self._thread: Optional[threading.Thread] = None
+        # stats (all under _cond to keep one lock discipline)
+        self.requests_total = 0
+        self.responses_total = 0
+        self.errors_total = 0
+        self.shed_total = 0
+        self.dispatches_total = 0
+        self.rows_total = 0
+        self.width_hist: Dict[int, int] = {}
+        self._latency_ms: deque = deque(maxlen=4096)
+        self._done_t: deque = deque(maxlen=4096)
+        # time a request spent inside submit() before the 503 shed fired
+        # (lock-contention wait under overload): without it, overload
+        # analysis only sees survivors
+        self._shed_wait_ms: deque = deque(maxlen=1024)
+
+    # -- lifecycle ---------------------------------------------------------
+    def start(self) -> "DynamicBatcher":
+        if self._thread is None:
+            self._thread = threading.Thread(
+                target=self._run, name="sheeprl-serve-batcher", daemon=True
+            )
+            self._thread.start()
+        return self
+
+    def close(self) -> None:
+        with self._cond:
+            self._stop = True
+            pending = list(self._queue)
+            self._queue.clear()
+            self._cond.notify_all()
+        for req in pending:
+            req.error = ServeError(503, "server shutting down")
+            req.event.set()
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None
+
+    # -- client side -------------------------------------------------------
+    def submit(
+        self,
+        row: Dict[str, np.ndarray],
+        greedy: bool,
+        timeout_s: float = 30.0,
+        group_key: Optional[Any] = None,
+        request_id: Optional[str] = None,
+    ) -> Dict[str, Any]:
+        """Enqueue one observation row; block until its batch dispatched.
+
+        Returns ``{"action": np.ndarray, **dispatch_meta, "queued_ms": float,
+        "request_id": ...}``.  Raises :class:`ServeError` on overload (503 +
+        Retry-After: load is shed at the door, never buffered unboundedly),
+        shutdown (503) or timeout (504).
+        """
+        req = _Request(row, greedy, self._clock(), group_key=group_key, request_id=request_id)
+        with self._cond:
+            if self._stop:
+                raise ServeError(503, "server shutting down")
+            if len(self._queue) >= self.max_queue:
+                self.errors_total += 1
+                self.shed_total += 1
+                self._shed_wait_ms.append((self._clock() - req.t_enqueue) * 1000.0)
+                raise ServeError(
+                    503,
+                    f"request queue full ({self.max_queue})",
+                    retry_after=self._shed_retry_after_locked(),
+                )
+            req.depth_enqueue = len(self._queue)
+            self.requests_total += 1
+            self._queue.append(req)
+            self._cond.notify_all()
+        if not req.event.wait(timeout_s):
+            with self._cond:
+                self.errors_total += 1
+                req.abandoned = True
+                try:
+                    # still queued: drop it so it never wastes a batch slot
+                    self._queue.remove(req)
+                except ValueError:
+                    pass  # already popped for dispatch; stats are skipped
+            raise ServeError(504, f"no dispatch within {timeout_s:g}s")
+        if req.error is not None:
+            raise req.error
+        assert req.result is not None
+        return req.result
+
+    # -- dispatcher thread -------------------------------------------------
+    def _run(self) -> None:
+        while True:
+            with self._cond:
+                while not self._queue and not self._stop:
+                    self._cond.wait()
+                if self._stop:
+                    return
+                head = self._queue[0]
+                # batch formation starts the moment the dispatcher adopts
+                # this head: requests already queued spent [enqueue, t_form)
+                # in serve-queue; everything from here to the pop is
+                # serve-batch-form (co-rider wait)
+                t_form = self._clock()
+                deadline = head.t_enqueue + self.max_delay_s
+                while not self._stop:
+                    ready = self._group_len()
+                    now = self._clock()
+                    if ready >= self.max_batch or now >= deadline:
+                        break
+                    self._cond.wait(max(0.001, deadline - now))
+                if self._stop:
+                    return
+                group: List[_Request] = []
+                taken: set = set()
+                while (
+                    self._queue
+                    and len(group) < self.max_batch
+                    and self._queue[0].greedy == head.greedy
+                    and (self._queue[0].group_key is None or self._queue[0].group_key not in taken)
+                ):
+                    req = self._queue.popleft()
+                    if req.group_key is not None:
+                        taken.add(req.group_key)
+                    group.append(req)
+            self._dispatch_group(group, t_form)
+
+    def _group_len(self) -> int:
+        """Contiguous head run with one greedy flag and unique non-None group
+        keys (a mixed queue dispatches the head mode first; a repeated
+        session stays queued — per-session order is exact FIFO)."""
+        if not self._queue:
+            return 0
+        flag = self._queue[0].greedy
+        taken: set = set()
+        n = 0
+        for req in self._queue:
+            if req.greedy != flag or n >= self.max_batch:
+                break
+            if req.group_key is not None:
+                if req.group_key in taken:
+                    break
+                taken.add(req.group_key)
+            n += 1
+        return n
+
+    def _shed_retry_after_locked(self) -> float:
+        """Advisory Retry-After for a shed request: the time the current
+        backlog needs to drain at the observed service rate, floored at 1s.
+        Caller holds ``_cond``."""
+        done = list(self._done_t)
+        if len(done) >= 2 and done[-1] > done[0]:
+            rate = (len(done) - 1) / (done[-1] - done[0])
+            if rate > 0:
+                return min(60.0, max(1.0, len(self._queue) / rate))
+        return 1.0
+
+    def _dispatch_group(self, group: List[_Request], t_form: Optional[float] = None) -> None:
+        t_pop = self._clock()
+        if t_form is None:
+            t_form = t_pop
+        try:
+            actions, meta = self._dispatch_fn([r.row for r in group], group[0].greedy)
+        except Exception as err:  # noqa: BLE001 - every waiter must wake
+            error = err if isinstance(err, ServeError) else ServeError(500, f"dispatch failed: {err!r}")
+            with self._cond:
+                self.errors_total += len(group)
+            for req in group:
+                req.error = error
+                req.event.set()
+            return
+        now = self._clock()
+        width = int(meta.get("batch_width", len(group)))
+        with self._cond:
+            self.dispatches_total += 1
+            self.rows_total += len(group)  # device work actually dispatched
+            self.width_hist[width] = self.width_hist.get(width, 0) + 1
+            for req in group:
+                if req.abandoned:
+                    continue  # its client already took the 504
+                self._latency_ms.append((now - req.t_enqueue) * 1000.0)
+                self._done_t.append(now)
+                self.responses_total += 1
+        for i, req in enumerate(group):
+            req.result = {
+                "action": np.asarray(actions[i]),
+                "queued_ms": round((now - req.t_enqueue) * 1000.0, 3),
+                "request_id": req.request_id,
+                **meta,
+            }
+            req.event.set()
+        self._finish_group(group, meta, width, t_form, t_pop, t_dispatched=now)
+
+    def _finish_group(
+        self,
+        group: List[_Request],
+        meta: Dict[str, Any],
+        width: int,
+        t_form: float,
+        t_pop: float,
+        t_dispatched: float,
+    ) -> None:
+        """Off the waiters' critical path (they are already released): emit
+        the per-request phase spans retroactively and feed the service's
+        histogram/SLO layer.
+
+        The phases TILE each request's life exactly — queue (enqueue ->
+        batch-form start, clamped for co-riders that arrived later), form
+        (-> pop), dispatch (-> dispatch_fn return, per group), scatter
+        (-> fan-out done, per group) — so their sum reconstructs the
+        end-to-end latency, which is what the golden-trace e2e asserts.
+        The trace-clock coordinates are back-computed from one ``now_us``
+        anchor so durations stay on the batcher's own clock.
+        """
+        tracer = self._tracer
+        t_done = self._clock()
+        now_us = tracer.now_us()
+
+        def _us(t: float) -> int:
+            return int(now_us - (t_done - t) * 1e6)
+
+        dispatch_ms = (t_dispatched - t_pop) * 1000.0
+        scatter_ms = (t_done - t_dispatched) * 1000.0
+        tracer.emit_complete(
+            "serve-dispatch", _us(t_pop), int(dispatch_ms * 1000), rows=len(group), width=width
+        )
+        tracer.emit_complete("serve-scatter", _us(t_dispatched), int(scatter_ms * 1000), rows=len(group))
+        for req in group:
+            q_end = min(max(req.t_enqueue, t_form), t_pop)
+            queue_ms = (q_end - req.t_enqueue) * 1000.0
+            form_ms = (t_pop - q_end) * 1000.0
+            rid = req.request_id
+            tracer.emit_complete(
+                "serve-queue", _us(req.t_enqueue), int(queue_ms * 1000), request_id=rid
+            )
+            tracer.emit_complete(
+                "serve-batch-form", _us(q_end), int(form_ms * 1000), request_id=rid
+            )
+            if self._on_request_done is None:
+                continue
+            try:
+                self._on_request_done(
+                    {
+                        "request_id": rid,
+                        "phases": {
+                            "queue_ms": queue_ms,
+                            "batch_form_ms": form_ms,
+                            "dispatch_ms": dispatch_ms,
+                            "scatter_ms": scatter_ms,
+                        },
+                        "total_ms": (t_done - req.t_enqueue) * 1000.0,
+                        "width": width,
+                        "rows": len(group),
+                        "queue_depth": req.depth_enqueue,
+                        "greedy": req.greedy,
+                        "abandoned": req.abandoned,
+                        "meta": meta,
+                    }
+                )
+            except Exception:  # noqa: BLE001 - observability must not kill dispatch
+                pass
+
+    # -- stats -------------------------------------------------------------
+    def queue_depth(self) -> int:
+        with self._cond:
+            return len(self._queue)
+
+    def stats(self) -> Dict[str, Any]:
+        """One consistent stats snapshot (the service folds it into its
+        ``/metrics`` snapshot and the journal's interval events)."""
+        with self._cond:
+            latencies = sorted(self._latency_ms)
+            done = list(self._done_t)
+            shed_waits = list(self._shed_wait_ms)
+            out: Dict[str, Any] = {
+                "requests_total": self.requests_total,
+                "responses_total": self.responses_total,
+                "errors_total": self.errors_total,
+                "shed_total": self.shed_total,
+                "dispatches_total": self.dispatches_total,
+                "rows_total": self.rows_total,
+                "queue_depth": len(self._queue),
+                "width_hist": dict(self.width_hist),
+            }
+        if latencies:
+            out["latency_p50_ms"] = round(_percentile(latencies, 50.0), 3)
+            out["latency_p99_ms"] = round(_percentile(latencies, 99.0), 3)
+        if shed_waits:
+            out["shed_wait_ms"] = round(sum(shed_waits) / len(shed_waits), 3)
+        # from the snapshot, not the live counters: a dispatch completing
+        # between the lock release and here must not skew the mean
+        if out["dispatches_total"]:
+            out["batch_width_mean"] = round(out["rows_total"] / out["dispatches_total"], 3)
+        if len(done) >= 2:
+            window = done[-1] - done[0]
+            if window > 0:
+                out["requests_per_sec"] = round((len(done) - 1) / window, 3)
+        return out
+
+
+def _percentile(sorted_values: List[float], pct: float) -> float:
+    """Nearest-rank percentile over an already-sorted list."""
+    if not sorted_values:
+        return 0.0
+    rank = max(0, min(len(sorted_values) - 1, int(round(pct / 100.0 * (len(sorted_values) - 1)))))
+    return float(sorted_values[rank])

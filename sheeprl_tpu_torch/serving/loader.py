@@ -1,0 +1,259 @@
+"""Checkpoint discovery and the per-algorithm policy adapters of the serving
+tier (counterpart of ``sheeprl_tpu/serving/loader.py``).
+
+A :class:`PolicyHandle` is everything the server needs to turn a checkpoint
+into a servable policy: how a request's observation row is validated, how a
+group of rows is assembled into one padded batch, and the policy step.  The
+port serves ``dreamer_v3``, a stateful family: its handle exposes
+``make_state_step(greedy)``, a ``(params, state, obs, is_first, generator,
+noise=None) -> (actions, new_state)`` step whose ``is_first`` reset is the
+same masked blend as ``PlayerDV3``.  The ``ppo``/``a2c``/``sac``/
+``ppo_recurrent`` adapters are listed in ROADMAP.md Queue 1 and raise here.
+"""
+
+from __future__ import annotations
+
+import os
+import re
+from dataclasses import dataclass, field
+from math import prod
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from sheeprl_tpu_torch.envs import spaces
+
+#: algo name -> handle builder (signature: (cfg, obs_space, action_space,
+#: agent_state, device))
+SERVABLE_BUILDERS: Dict[str, Callable] = {}
+#: servable in the JAX package, not ported yet (ROADMAP.md Queue 1)
+NOT_PORTED = ("ppo", "a2c", "sac", "ppo_recurrent")
+
+_CKPT_RE = re.compile(r"ckpt_(\d+)_\d+\.ckpt$")
+
+
+def checkpoint_step(path: str) -> Optional[int]:
+    """Policy step encoded in a checkpoint filename (``ckpt_{step}_{rank}``),
+    or None for foreign spellings (those sort by mtime instead)."""
+    match = _CKPT_RE.search(os.path.basename(str(path)))
+    return int(match.group(1)) if match else None
+
+
+def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """Newest checkpoint in a directory: highest encoded step, falling back
+    to mtime for filenames the step pattern does not match."""
+    try:
+        names = [n for n in os.listdir(str(ckpt_dir)) if n.endswith(".ckpt")]
+    except OSError:
+        return None
+    if not names:
+        return None
+
+    def sort_key(name: str) -> Tuple[int, float]:
+        step = checkpoint_step(name)
+        try:
+            mtime = os.path.getmtime(os.path.join(str(ckpt_dir), name))
+        except OSError:
+            mtime = 0.0
+        return (step if step is not None else -1, mtime)
+
+    return os.path.join(str(ckpt_dir), max(names, key=sort_key))
+
+
+@dataclass
+class PolicyHandle:
+    """One servable policy: the algorithm-specific closures the service
+    drives.  ``params`` holds the policy's modules on their device;
+    ``assemble(rows, width)`` pads a request group to the bucket width with
+    zero rows that are sliced off before any response sees them."""
+
+    algo: str
+    obs_spec: Dict[str, Tuple[Tuple[int, ...], str]]
+    action_shape: Tuple[int, ...]
+    params: Any
+    assemble: Callable[[List[Dict[str, np.ndarray]], int], Any]
+    validate: Callable[[Any], Dict[str, np.ndarray]]
+    device: torch.device
+    ckpt_path: str = ""
+    ckpt_step: int = 0
+    meta: Dict[str, Any] = field(default_factory=dict)
+    stateful: bool = False
+    state_spec: Dict[str, Tuple[Tuple[int, ...], str]] = field(default_factory=dict)
+    make_state_step: Optional[Callable[[bool], Callable]] = None
+
+    def zero_obs(self, width: int) -> Any:
+        return self.assemble([], width)
+
+
+def _row_validator(
+    obs_spec: Dict[str, Tuple[Tuple[int, ...], str]],
+) -> Callable[[Any], Dict[str, np.ndarray]]:
+    def validate(obs: Any) -> Dict[str, np.ndarray]:
+        if not isinstance(obs, dict):
+            raise ValueError(f"obs must be a dict of observation keys, got {type(obs).__name__}")
+        row: Dict[str, np.ndarray] = {}
+        for key, (shape, dtype) in obs_spec.items():
+            if key not in obs:
+                raise ValueError(f"obs is missing key {key!r} (expected {sorted(obs_spec)})")
+            arr = np.asarray(obs[key], dtype=dtype)
+            if int(arr.size) != int(prod(shape) if shape else 1):
+                raise ValueError(f"obs[{key!r}] has {arr.size} elements, expected shape {tuple(shape)}")
+            row[key] = arr.reshape(shape)
+        return row
+
+    return validate
+
+
+def _dict_assembler(
+    obs_spec: Dict[str, Tuple[Tuple[int, ...], str]],
+) -> Callable[[List[Dict[str, np.ndarray]], int], Dict[str, np.ndarray]]:
+    def assemble(rows: List[Dict[str, np.ndarray]], width: int) -> Dict[str, np.ndarray]:
+        slab: Dict[str, np.ndarray] = {}
+        for key, (shape, dtype) in obs_spec.items():
+            buf = np.zeros((int(width),) + tuple(shape), dtype=dtype)
+            for i, row in enumerate(rows):
+                buf[i] = row[key]
+            slab[key] = buf
+        return slab
+
+    return assemble
+
+
+def _actions_dim(action_space) -> Tuple[Tuple[int, ...], bool, bool]:
+    is_continuous = isinstance(action_space, spaces.Box)
+    is_multidiscrete = isinstance(action_space, spaces.MultiDiscrete)
+    actions_dim = tuple(
+        action_space.shape
+        if is_continuous
+        else (action_space.nvec.tolist() if is_multidiscrete else [action_space.n])
+    )
+    return tuple(int(a) for a in actions_dim), is_continuous, is_multidiscrete
+
+
+def _dreamer_v3_handle(cfg, obs_space, action_space, agent_state, device) -> PolicyHandle:
+    """dreamer_v3: the world-model policy served statefully.  Per-session
+    state is the RSSM triplet ``{recurrent, stochastic, actions}``; resets
+    blend the initial state in by the ``is_first`` mask (``PlayerDV3``'s
+    masked reset) and the step follows ``PlayerDV3``'s op order: encode ->
+    recurrent_step -> representation -> actor.act.  Image keys travel as raw
+    uint8 and are scaled on the device."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+
+    actions_dim, is_continuous, _ = _actions_dim(action_space)
+    world_model, actor = build_agent(actions_dim, is_continuous, cfg, obs_space, agent_state, device)
+    mlp_keys = list(cfg.algo.mlp_keys.encoder)
+    cnn_keys = list(cfg.algo.cnn_keys.encoder)
+    obs_spec: Dict[str, Tuple[Tuple[int, ...], str]] = {}
+    for k in cnn_keys:
+        obs_spec[k] = (tuple(obs_space[k].shape), "uint8")
+    for k in mlp_keys:
+        obs_spec[k] = ((int(prod(obs_space[k].shape)),), "float32")
+    wm_cfg = cfg.algo.world_model
+    act_sum = int(sum(actions_dim))
+    state_spec = {
+        "recurrent": ((int(wm_cfg.recurrent_model.recurrent_state_size),), "float32"),
+        "stochastic": ((int(wm_cfg.stochastic_size) * int(wm_cfg.discrete_size),), "float32"),
+        "actions": ((act_sum,), "float32"),
+    }
+
+    def make_state_step(greedy: bool) -> Callable:
+        @torch.no_grad()
+        def step(p, state, obs, is_first, generator, noise=None):
+            """``noise`` may hold ``"representation"`` (Gumbel, ``[B, stoch,
+            discrete]``) and ``"actor"`` (one tensor per head)."""
+            wm, policy = p["world_model"], p["actor"]
+            noise = noise or {}
+            n = is_first.shape[0]
+            h0, z0 = wm.initial_states((n,))
+            init = {"recurrent": h0, "stochastic": z0, "actions": torch.zeros((n, act_sum), device=h0.device)}
+            st = {k: is_first * init[k] + (1.0 - is_first) * state[k] for k in init}
+            prepared = {k: obs[k].float() / 255.0 - 0.5 for k in cnn_keys}
+            prepared.update({k: obs[k] for k in mlp_keys})
+            embedded = wm.encode(prepared)
+            recurrent = wm.recurrent_step(st["stochastic"], st["actions"], st["recurrent"])
+            _, stochastic = wm.representation(
+                None if wm.decoupled_rssm else recurrent, embedded, generator, noise.get("representation")
+            )
+            latent = torch.cat([stochastic, recurrent], dim=-1)
+            actions = policy.act(latent, generator, greedy, noise.get("actor"))
+            return actions, {"recurrent": recurrent, "stochastic": stochastic, "actions": actions}
+
+        return step
+
+    # dreamer actions are the actor's raw output: the one-hot concat for
+    # discrete heads (clients argmax per head), the squashed vector otherwise
+    return PolicyHandle(
+        algo="dreamer_v3",
+        obs_spec=obs_spec,
+        action_shape=(act_sum,),
+        params={"world_model": world_model, "actor": actor},
+        assemble=_dict_assembler(obs_spec),
+        validate=_row_validator(obs_spec),
+        device=torch.device(device),
+        meta={"is_continuous": is_continuous, "actions_dim": list(actions_dim)},
+        stateful=True,
+        state_spec=state_spec,
+        make_state_step=make_state_step,
+    )
+
+
+SERVABLE_BUILDERS["dreamer_v3"] = _dreamer_v3_handle
+
+#: checkpoint keys that make up a Dreamer-family agent state
+DREAMER_STATE_KEYS = ("world_model", "actor", "critic", "target_critic")
+
+
+def agent_state_from_checkpoint(state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The servable agent state inside a loaded checkpoint: ``state["agent"]``
+    for the single-tree families, the per-module dict for the Dreamer family."""
+    if "agent" in state:
+        return state["agent"]
+    if "world_model" in state:
+        return {k: state[k] for k in DREAMER_STATE_KEYS if k in state}
+    raise ValueError(
+        f"checkpoint has no servable agent state (keys: {sorted(state)}); expected "
+        f"'agent' or the Dreamer module keys {list(DREAMER_STATE_KEYS)}"
+    )
+
+
+def build_policy(
+    cfg, obs_space, action_space, agent_state: Optional[Dict[str, Any]] = None, device: torch.device | str = "cpu"
+) -> PolicyHandle:
+    """Adapter dispatch: ``cfg.algo.name`` -> :class:`PolicyHandle` (weights
+    from the seed when ``agent_state`` is None)."""
+    algo = str(cfg.algo.name)
+    builder = SERVABLE_BUILDERS.get(algo)
+    if builder is None:
+        if algo in NOT_PORTED:
+            raise NotImplementedError(
+                f"serving {algo!r} is not ported yet: see ROADMAP.md Queue 1, item 'Serving'"
+            )
+        raise ValueError(f"Algorithm {algo!r} has no servable adapter; registered builders: {sorted(SERVABLE_BUILDERS)}")
+    return builder(cfg, obs_space, action_space, agent_state, device)
+
+
+def load_policy(cfg, ckpt_path: str, device: torch.device | str = "cpu") -> PolicyHandle:
+    """Checkpoint -> :class:`PolicyHandle`: read the state, rebuild the obs /
+    action spaces from one throwaway env (the spaces are not archived
+    anywhere else), then adapter-dispatch."""
+    from sheeprl_tpu_torch.envs.env import make_env
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    state = load_state(str(ckpt_path))
+    try:
+        agent_state = agent_state_from_checkpoint(state)
+    except ValueError as err:
+        raise ValueError(f"Checkpoint '{ckpt_path}': {err}") from None
+    env = make_env(cfg, cfg.seed, 0, None, "serve")()
+    try:
+        obs_space = env.observation_space
+        action_space = env.action_space
+    finally:
+        env.close()
+    if not isinstance(obs_space, spaces.Dict):
+        raise RuntimeError(f"Unexpected observation space (need a Dict): {obs_space}")
+    handle = build_policy(cfg, obs_space, action_space, agent_state, device)
+    handle.ckpt_path = str(ckpt_path)
+    handle.ckpt_step = checkpoint_step(ckpt_path) or 0
+    return handle

@@ -1,0 +1,81 @@
+"""Checkpoint files: pickled trees of numpy arrays (counterpart of
+``sheeprl_tpu/utils/checkpoint.py::save_state``/``load_state``).
+
+Both packages write the same format, so the port reads a checkpoint the JAX
+package wrote and the other way round.  A JAX training checkpoint also holds
+optax optimizer states, pickled as optax classes; the port reads those
+without importing optax: every class outside numpy and a few builtins loads
+as a :class:`ForeignObject` that keeps its constructor arguments.  That
+restriction also keeps an unpickled file from calling arbitrary code.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+from typing import Any, Dict, Tuple
+
+_SAFE_BUILTINS = {("builtins", n) for n in ("set", "frozenset", "complex", "slice", "range", "bytearray")}
+_SAFE_BUILTINS.add(("collections", "OrderedDict"))
+
+
+class ForeignObject(tuple):
+    """Stand-in for an object of a class the port does not load (optax
+    states, flax containers): a tuple of its constructor arguments plus the
+    pickled state, tagged with the original ``module.name``."""
+
+    qualname = ""
+
+    def __new__(cls, *args):
+        return super().__new__(cls, args)
+
+    def __setstate__(self, state: Any) -> None:
+        self.__dict__["state"] = state
+
+    def __repr__(self) -> str:
+        return f"ForeignObject<{self.qualname}>{tuple(self)!r}"
+
+
+_FOREIGN: Dict[Tuple[str, str], type] = {}
+
+
+class _Unpickler(pickle.Unpickler):
+    def find_class(self, module: str, name: str) -> Any:
+        if module == "numpy" or module.startswith("numpy.") or (module, name) in _SAFE_BUILTINS:
+            return super().find_class(module, name)
+        key = (module, name)
+        if key not in _FOREIGN:
+            _FOREIGN[key] = type(name, (ForeignObject,), {"qualname": f"{module}.{name}"})
+        return _FOREIGN[key]
+
+
+def npify(tree: Any) -> Any:
+    """A copy of ``tree`` with every tensor turned into a host numpy array."""
+    if isinstance(tree, dict):
+        return {k: npify(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(npify(v) for v in tree)
+    if hasattr(tree, "detach") and hasattr(tree, "cpu"):
+        return tree.detach().cpu().numpy()
+    return tree
+
+
+def save_state(path: str, state: Dict[str, Any]) -> None:
+    """Atomic tmp+rename checkpoint write, fsync'd before the rename."""
+    path = str(path)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as fp:
+        pickle.dump(npify(state), fp, protocol=pickle.HIGHEST_PROTOCOL)
+        fp.flush()
+        os.fsync(fp.fileno())
+    os.replace(tmp, path)
+
+
+def load_state(path: str) -> Dict[str, Any]:
+    with open(path, "rb") as fp:
+        state = _Unpickler(fp).load()
+    if not isinstance(state, dict):
+        raise ValueError(f"Checkpoint '{path}' holds a {type(state).__name__}, expected a dict")
+    return state
+

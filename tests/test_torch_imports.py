@@ -1,0 +1,77 @@
+"""The port stands alone: importing every module of ``sheeprl_tpu_torch``
+and ``chip_smoke.py`` loads neither JAX nor the JAX package, the port's
+entry points refuse to fall back to the CPU, and the chip smoke refuses to
+run without a CUDA device."""
+
+from __future__ import annotations
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from sheeprl_tpu_torch import cli
+from sheeprl_tpu_torch.utils.utils import dotdict
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import sheeprl_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(sheeprl_tpu_torch.__path__, "sheeprl_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sheeprl_tpu"))
+print(len(names), leaked)
+"""
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT) + os.pathsep + env.get("PYTHONPATH", "")
+    return env
+
+
+def test_port_and_chip_smoke_import_no_jax():
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_ALL], cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    count, leaked = out.stdout.strip().split(" ", 1)
+    assert int(count) >= 20 and leaked == "[]", out.stdout
+
+
+def test_serve_without_cpu_accelerator_raises_where_no_cuda_device(monkeypatch):
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    for accelerator in ("auto", "cuda", "gpu"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cli.select_device(dotdict({"fabric": {"accelerator": accelerator}}))
+    assert str(cli.select_device(dotdict({"fabric": {"accelerator": "cpu"}}))) == "cpu"
+
+
+def test_serve_entry_point_raises_where_no_cuda_device(tmp_path, monkeypatch):
+    (tmp_path / "checkpoint").mkdir()
+    (tmp_path / "config.yaml").write_text("fabric:\n  accelerator: auto\n")
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.serve([f"checkpoint_path={tmp_path / 'checkpoint' / 'ckpt_0_0.ckpt'}"])
+
+
+def test_chip_smoke_fails_and_prints_no_result_without_cuda():
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout and "kernels" not in out.stdout
+
+
+def test_chip_smoke_alone_fails(tmp_path):
+    (tmp_path / "chip_smoke.py").write_text((ROOT / "chip_smoke.py").read_text())
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode != 0 and '"ok"' not in out.stdout
