@@ -14,9 +14,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. kernel — the LayerNorm-GRU kernel against its plain PyTorch version on the
             card, fp32 and bf16, at the DreamerV3-S shape (K=1024, H=512;
             B = 1, 8, 37, 128) and the XL shape (K=5120, H=4096; B = 8, 128),
-            with device times of the kernel, the plain version, the projection
-            alone as one torch.matmul (a partial yardstick the port never
-            calls) and the bound;
+            with device times of the kernel (warm L2, and cold: rotating over
+            copies of the inputs that exceed the 50 MB L2), the plain version,
+            the projection alone as one torch.matmul (a partial yardstick the
+            port never calls) and the bound; then a sweep of the shapes the
+            plan cuts differently (ragged H of DV1/DV2, M and L, row chunks,
+            a K that needs padding), checked but not timed;
 4. slice  — compose ``exp=dreamer_v3 env=dummy``, build DreamerV3-S on the card
             from a seed, write a run directory in the JAX package's checkpoint
             format, start the port's ``serve`` entry point and send /act
@@ -33,6 +36,7 @@ every thread it starts.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -57,6 +61,12 @@ TOLERANCE = {"float32": 1e-4, "bfloat16": 8e-3}
 S_SHAPE = (512, 512)  # (H, D): K = H + D = 1024
 XL_SHAPE = (4096, 1024)  # K = 5120
 KERNEL_CASES = [(S_SHAPE, b) for b in (1, 8, 37, 128)] + [(XL_SHAPE, b) for b in (8, 128)]
+# (H, D, B): DV1 (ragged last CTA), DV2, M, L, row chunks at S and XL, and a K
+# whose rows are not 16-byte multiples
+SWEEP_CASES = [(200, 400, 5), (600, 400, 37), (1024, 640, 8), (2048, 768, 128), (512, 512, 3000),
+               (4096, 1024, 300), (64, 13, 9)]
+# rotate over enough copies of (joint, w, h) to exceed the L2 twice over
+COLD_BYTES = 100 * 2**20
 SESSIONS = 32
 REQUESTS_PER_SESSION = 10
 
@@ -69,23 +79,44 @@ def _card_line() -> str:
     return out[0].strip()
 
 
+def _ptxas_summary(report: str) -> list:
+    """One line per compiled kernel instance: its template arguments,
+    registers and spill bytes, from nvcc's ``-Xptxas -v`` output."""
+    lines, name = [], None
+    for line in report.splitlines():
+        entry = re.search(r"Compiling entry function '.*?kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", line)
+        if entry:
+            name = f"<{'float' if entry.group(1) == 'f' else 'bf16'},{entry.group(2)},{entry.group(3)}>"
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        if spill and name:
+            lines.append([name, None, int(spill.group(1))])
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and lines and lines[-1][0] == name and lines[-1][1] is None:
+            lines[-1][1] = int(regs.group(1))
+    return [f"{n}: {r} registers, {s} bytes spilled" for n, r, s in lines]
+
+
 def _device_ms(fn, calls: int = 20, reps: int = 11) -> float:
     """Median device time of one call: ``calls`` calls captured in one CUDA
     graph, replayed ``reps`` times between CUDA events.  Replaying a graph
-    keeps host-side launch overhead out of the number; the L2 stays warm,
-    as it does between a policy's steps."""
+    keeps host-side launch overhead out of the number.  ``fn`` is one thunk
+    (the L2 stays warm, as it does between a policy's steps) or a list of
+    thunks called in turn (each on its own copy of the inputs, so that the
+    L2 is cold when a copy comes round again)."""
     import torch
 
+    fns = fn if isinstance(fn, list) else [fn]
+    calls = max(calls, len(fns))
     stream = torch.cuda.Stream()
     stream.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(stream):
-        for _ in range(3):
-            fn()
+        for f in fns[:3]:
+            f()
     torch.cuda.current_stream().wait_stream(stream)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
+        for i in range(calls):
+            fns[i % len(fns)]()
     graph.replay()
     torch.cuda.synchronize()
     times = []
@@ -99,11 +130,13 @@ def _device_ms(fn, calls: int = 20, reps: int = 11) -> float:
     return statistics.median(times)
 
 
-def measure_ln_gru(batch: int, hidden: int, in_dim: int, dtype_name: str, seed: int = 0) -> dict:
+def measure_ln_gru(batch: int, hidden: int, in_dim: int, dtype_name: str, seed: int = 0, timed: bool = True) -> dict:
     """Kernel vs plain version on the card at one shape: max error (with and
-    without a bias) and device times.  Launches made here do not count."""
+    without a bias) and, if ``timed``, device times.  Launches made here do
+    not count."""
     import torch
 
+    from sheeprl_tpu_torch.ops import cuda_build, ln_gru
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru, ln_gru_reference
 
     dtype = getattr(torch, dtype_name)
@@ -133,15 +166,26 @@ def measure_ln_gru(batch: int, hidden: int, in_dim: int, dtype_name: str, seed: 
             f"ln_gru disagrees with its plain version at B={batch} K={k} H={hidden} {dtype_name}: "
             f"max_abs_err {err} > {TOLERANCE[dtype_name]}"
         )
+    plan = ln_gru._launch_plan(batch, k, hidden, joint.element_size(),
+                               *ln_gru._device_limits(cuda_build.load("ln_gru"), joint.device))
+    row = {"B": batch, "K": k, "H": hidden, "dtype": dtype_name, "max_abs_err": err,
+           "tolerance": TOLERANCE[dtype_name],
+           "plan": f"{len(plan.chunks)} launch(es) x {plan.ctas} CTAs of {plan.units} units, {plan.segs} segments "
+                   f"x {plan.stages} stages, {plan.smem_bytes} B shared"}
+    if not timed:
+        return row
     size = torch.finfo(dtype).bits // 8
     n_bytes = (batch * k + 3 * hidden * k + 2 * 3 * hidden + 2 * batch * hidden) * size
     n_ops = 2 * batch * k * 3 * hidden
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     ops_ms = n_ops / PEAK_OPS_PER_S[dtype_name] * 1e3
+    set_bytes = (joint.numel() + w.numel() + h.numel()) * size
+    copies = [(joint.clone(), w.clone(), h.clone()) for _ in range(max(2, -(-COLD_BYTES // set_bytes)))]
+    cold = [lambda c=c: fused_layernorm_gru(c[0], c[1], None, g, beta, c[2], 1e-3) for c in copies]
     return {
-        "B": batch, "K": k, "H": hidden, "dtype": dtype_name,
-        "max_abs_err": err, "tolerance": TOLERANCE[dtype_name],
+        **row,
         "ms": _device_ms(lambda: fused_layernorm_gru(joint, w, None, g, beta, h, 1e-3)),
+        "ms_cold": _device_ms(cold),
         "plain_ms": _device_ms(lambda: ln_gru_reference(joint, w, None, g, beta, h, 1e-3)),
         "library_ms": _device_ms(lambda: torch.matmul(joint, w.t())),
         "bound_ms": max(bytes_ms, ops_ms),
@@ -316,8 +360,9 @@ def main() -> int:
     report = cuda_build.build()
     print(f"[build] {len(report)} kernel(s) in {time.monotonic() - t0:.1f} s", flush=True)
     for name, rep in report.items():
-        lines = [ln.strip() for ln in str(rep["ptxas"]).splitlines() if "Used" in ln]
-        print(f"[build] {name}: {rep['path']} ({rep['seconds']:.1f} s) {' | '.join(lines)}", flush=True)
+        print(f"[build] {name}: {rep['path']} ({rep['seconds']:.1f} s)", flush=True)
+        for line in _ptxas_summary(str(rep["ptxas"])):
+            print(f"[build] {name} ptxas {line}", flush=True)
 
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in true fp32
     torch.backends.cudnn.allow_tf32 = False
@@ -329,10 +374,15 @@ def main() -> int:
             print(
                 f"[kernel] ln_gru B={batch:<4d} K={row['K']:<5d} H={hidden:<5d} {dtype_name:<8s} "
                 f"max_abs_err={row['max_abs_err']:.3g} (tol {row['tolerance']:g})  ms={row['ms']:.5f} "
-                f"plain_ms={row['plain_ms']:.5f} matmul_ms={row['library_ms']:.5f} "
-                f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']})  [{card}]",
+                f"ms_cold={row['ms_cold']:.5f} plain_ms={row['plain_ms']:.5f} matmul_ms={row['library_ms']:.5f} "
+                f"bound_ms={row['bound_ms']:.5f} ({row['bound_by']}); {row['plan']}  [{card}]",
                 flush=True,
             )
+    for hidden, in_dim, batch in SWEEP_CASES:
+        for dtype_name in ("float32", "bfloat16"):
+            row = measure_ln_gru(batch, hidden, in_dim, dtype_name, seed=1, timed=False)
+            print(f"[kernel] ln_gru sweep B={batch:<4d} K={row['K']:<5d} H={hidden:<5d} {dtype_name:<8s} "
+                  f"max_abs_err={row['max_abs_err']:.3g} (tol {row['tolerance']:g})", flush=True)
 
     slice_report = run_slice(build_dir)
     print(
@@ -358,6 +408,7 @@ def main() -> int:
         "launches": slice_report["ln_gru_launches"],
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
+        "ms_cold": main["ms_cold"],
         "plain_ms": main["plain_ms"],
         "bound_ms": main["bound_ms"],
         "bound_by": main["bound_by"],

@@ -5,7 +5,9 @@ shared library with a plain C interface, loaded with ``ctypes``.  Libraries
 go to ``build/torch_kernels/`` at the root of the checkout, named by a hash
 of their source, so an edited source is rebuilt and an unchanged one is
 built once per checkout.  ``build`` starts one ``nvcc`` per source, all at
-once.  Nothing here runs when the module is imported.
+once.  A variant (``VARIANTS``) is a kernel's source built with extra
+flags, only when asked for: ``ln_gru_phases`` records per-phase clocks for
+``ops/ln_gru_phases.py``.  Nothing here runs when the module is imported.
 """
 
 from __future__ import annotations
@@ -24,14 +26,26 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 CSRC = Path(__file__).resolve().parent / "csrc"
 #: kernel name -> source; one shared library each
 SOURCES: Dict[str, Path] = {"ln_gru": CSRC / "ln_gru.cu"}
+#: variant name -> (kernel, extra nvcc flags); built by name only
+VARIANTS: Dict[str, Tuple[str, Tuple[str, ...]]] = {"ln_gru_phases": ("ln_gru", ("-DLN_GRU_PHASES",))}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: kernel name -> {C function: (restype, argtypes)}, applied when loaded
 SIGNATURES: Dict[str, Dict[str, Tuple[Any, List[Any]]]] = {
     "ln_gru": {
-        # (dtype, joint, w, b, g, beta, h, out, scratch, B, K, H, eps, stream)
-        "ln_gru_forward": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P]),
+        # (dtype, joint, w, b, g, beta, h, out, partials, rows, K, H, eps,
+        #  units, ctas, unit_block, batch_tile, vec, groups, kgroups, klanes,
+        #  unit_tile, segs, stages, smem_bytes, stream): the plan of
+        #  ops/ln_gru.py::_launch_plan
+        "ln_gru_forward": (_I, [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F] + [_I] * 12 + [_P]),
+        # (device, *sm_count, *smem_per_block)
+        "ln_gru_device_limits": (_I, [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]),
         "ln_gru_error_string": (ctypes.c_char_p, [_I]),
     }
+}
+SIGNATURES["ln_gru_phases"] = {
+    **SIGNATURES["ln_gru"],
+    # (out [ctas, 7] uint64, ctas)
+    "ln_gru_phases": (_I, [_P, _I]),
 }
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a",
@@ -58,13 +72,21 @@ def _nvcc() -> str:
     return found
 
 
+def _source_and_flags(name: str) -> Tuple[Path, Tuple[str, ...]]:
+    if name in VARIANTS:
+        kernel, extra = VARIANTS[name]
+        return SOURCES[kernel], NVCC_FLAGS + extra
+    return SOURCES[name], NVCC_FLAGS
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    source, flags = _source_and_flags(name)
+    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 
 def build(names: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, object]]:
-    """Compile the named kernels (default: all) that are not built yet, one
+    """Compile the named kernels (default: all, no variants) that are not built yet, one
     ``nvcc`` process per source started together.  Returns, per kernel, the
     build seconds (0 when it was already built) and ptxas' register and
     shared-memory report."""
@@ -79,12 +101,13 @@ def build(names: Optional[Sequence[str]] = None) -> Dict[str, Dict[str, object]]
             report[name] = {"seconds": 0.0, "ptxas": "", "path": str(target)}
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCES[name])]
+        source, flags = _source_and_flags(name)
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(source)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), tmp)
     for name, (proc, tmp) in procs.items():
         stdout, stderr = proc.communicate()
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {SOURCES[name]} (exit {proc.returncode}):\n{stdout}{stderr}")
+            raise RuntimeError(f"nvcc failed for {name} (exit {proc.returncode}):\n{stdout}{stderr}")
         os.replace(tmp, library_path(name))  # atomic: a concurrent build never sees a partial library
         report[name] = {
             "seconds": time.monotonic() - t0,
