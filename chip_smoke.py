@@ -13,13 +13,17 @@ Phases, in order; any failure raises and the script exits non-zero:
             (one nvcc per source, started together);
 3. kernel — the LayerNorm-GRU kernel against its plain PyTorch version on the
             card, fp32 and bf16, at the DreamerV3-S shape (K=1024, H=512;
-            B = 1, 8, 37, 128) and the XL shape (K=5120, H=4096; B = 8, 128),
-            with device times of the kernel (warm L2, and cold: rotating over
-            copies of the inputs that exceed the 50 MB L2), the plain version,
-            the projection alone as one torch.matmul (a partial yardstick the
-            port never calls) and the bound; then a sweep of the shapes the
-            plan cuts differently (ragged H of DV1/DV2, M and L, row chunks,
-            a K that needs padding), checked but not timed;
+            B = 1, 8, 37, 128 for serving, 16 and 1024 for the training
+            path's dynamic and imagination scans) and the XL shape (K=5120,
+            H=4096; B = 8, 128), with device times of the kernel (warm L2,
+            and cold: rotating over copies of the inputs that exceed the
+            50 MB L2), the plain version, the projection alone as one
+            torch.matmul (a partial yardstick the port never calls) and the
+            bound; then a sweep of the shapes the plan cuts differently
+            (ragged H of DV1/DV2, M and L, row chunks, a K that needs
+            padding), checked but not timed; then a check that the
+            ``autograd.Function`` on the card carries a graph and gives all
+            six inputs a gradient, at S B=16 and B=1024 fp32;
 4. slice  — compose ``exp=dreamer_v3 env=dummy``, build DreamerV3-S on the card
             from a seed, write a run directory in the JAX package's checkpoint
             format, start the port's ``serve`` entry point and send /act
@@ -27,7 +31,16 @@ Phases, in order; any failure raises and the script exits non-zero:
             200 with a valid one-hot action, the kernel's launch count must
             equal the number of policy steps the server ran, and one batch
             recomputed through the plain path must agree;
-5. the ``kernels`` JSON line, then the result line.
+5. train  — ``run exp=dreamer_v3 env=dummy diagnostics=off`` in-process at
+            DreamerV3-S (batch 16 x 64, horizon 15, fp32) for at least 8
+            gradient steps: every metric finite, the world model, actor and
+            critic all changed, the kernel's launches equal to what the run's
+            counters predict, the checkpoint served by ``serve``'s loader;
+            then one gradient step through the kernel and through the plain
+            path from the same state, batch and noise, which must agree (the
+            numerical check of the gradients through the kernel), and the
+            time of a gradient step;
+6. the ``kernels`` JSON line, then the result line.
 
 It needs no network, writes only under ``build/`` in the checkout, and stops
 every thread it starts.
@@ -60,7 +73,36 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 TOLERANCE = {"float32": 1e-4, "bfloat16": 8e-3}
 S_SHAPE = (512, 512)  # (H, D): K = H + D = 1024
 XL_SHAPE = (4096, 1024)  # K = 5120
-KERNEL_CASES = [(S_SHAPE, b) for b in (1, 8, 37, 128)] + [(XL_SHAPE, b) for b in (8, 128)]
+# S: serving widths, then the training path's (B = per_rank_batch_size 16 in
+# the dynamic scan, T*B = 1024 rows in imagination)
+KERNEL_CASES = [(S_SHAPE, b) for b in (1, 8, 37, 128, 16, 1024)] + [(XL_SHAPE, b) for b in (8, 128)]
+GRAD_CASES = (16, 1024)
+# the graph check: the Function's backward is autograd through the plain
+# version on the saved inputs, so its gradients equal autograd through the
+# plain version by construction, up to the order of the card's reductions
+# (relative to the largest gradient).  It fails on a missing graph or
+# gradient, not on a wrong kernel: the kernel-vs-plain gradient step does that
+GRAD_TOLERANCE = 1e-5
+# the training phase: batch 16 x 64, horizon 15 (exp=dreamer_v3); 4 envs, the
+# buffer must hold 64 rows of each before the first sample, so learning
+# starts at 256 policy steps and each later iteration owes 4 gradient steps
+TRAIN_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "diagnostics=off", "env.capture_video=False", "run_name=chip_smoke",
+                   "algo.learning_starts=256", "algo.total_steps=268", "buffer.size=1024", "checkpoint.every=100000",
+                   "metric.logger=null", "seed=5"]
+MIN_GRADIENT_STEPS = 8
+# kernel vs plain gradient step from one state: the recurrent state agrees to
+# ~1e-6 per step, so the losses and the gradients (read from Adam's first
+# moments, 0.1 g after one step) agree to ~1e-5 relative.  Adam's first step
+# moves a parameter by lr * g / (|g| + eps), lr <= 1e-4: where |g| is within
+# a few eps of 0 its direction is the gradient's noise and two runs may
+# differ by up to 2 lr; elsewhere they agree to far less than a fifth of a
+# step (2e-5), which all but a 1e-4 fraction of the parameters must.  The
+# largest difference is printed but not held: it can never exceed 2 lr.
+STEP_METRIC_RTOL = 1e-3
+STEP_GRAD_RTOL = 1e-3
+STEP_PARAM_ATOL = 2e-5
+STEP_PARAM_OUTLIERS = 1e-4
+TIMED_STEPS = 5
 # (H, D, B): DV1 (ragged last CTA), DV2, M, L, row chunks at S and XL, and a K
 # whose rows are not 16-byte multiples
 SWEEP_CASES = [(200, 400, 5), (600, 400, 37), (1024, 640, 8), (2048, 768, 128), (512, 512, 3000),
@@ -193,6 +235,42 @@ def measure_ln_gru(batch: int, hidden: int, in_dim: int, dtype_name: str, seed: 
     }
 
 
+def check_ln_gru_graph(batch: int, hidden: int, in_dim: int, seed: int = 2) -> float:
+    """On the card, fp32: the Function's output carries an autograd graph
+    and all six inputs get a finite gradient, equal to autograd through the
+    plain version (see ``GRAD_TOLERANCE``).  Returns the largest error
+    relative to the largest gradient."""
+    import torch
+
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru, ln_gru_reference
+
+    k = hidden + in_dim
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (shift + scale * torch.randn(*shape, device="cuda", generator=gen)).requires_grad_(True)
+
+    inputs = [randn(batch, k), randn(3 * hidden, k, scale=k**-0.5), randn(3 * hidden, scale=0.1),
+              randn(3 * hidden, scale=0.1, shift=1.0), randn(3 * hidden, scale=0.1), randn(batch, hidden, scale=0.5)]
+    cot = torch.randn(batch, hidden, device="cuda", generator=gen)
+    out = fused_layernorm_gru(*inputs, 1e-3)
+    if out.grad_fn is None:
+        raise AssertionError("ln_gru: the output on the card carries no autograd graph")
+    grads = torch.autograd.grad(out, inputs, cot)
+    plain = [t.detach().clone().requires_grad_(True) for t in inputs]
+    want = torch.autograd.grad(ln_gru_reference(*plain, 1e-3), plain, cot)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, g, w in zip(("joint", "w", "b", "g", "beta", "h"), grads, want):
+        if g is None or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"ln_gru: no finite gradient for {name} at B={batch}")
+        err = ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+        if err > GRAD_TOLERANCE:
+            raise AssertionError(f"ln_gru gradient of {name} at B={batch}: relative error {err} > {GRAD_TOLERANCE}")
+        worst = max(worst, err)
+    return worst
+
+
 def _post(url: str, payload: dict, timeout: float = 60.0):
     req = urllib.request.Request(url + "/act", data=json.dumps(payload).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -230,14 +308,14 @@ def run_slice(build_dir: Path, device_name: str = "cuda") -> dict:
     obs_space, action_space = env.observation_space, env.action_space
     env.close()
     actions_dim, is_continuous, _ = _actions_dim(action_space)
-    world_model, actor = build_agent(actions_dim, is_continuous, cfg, obs_space, None, device_name)
+    agent = build_agent(actions_dim, is_continuous, cfg, obs_space, None, device_name)
     run_dir = build_dir / "run"
     ckpt = run_dir / "checkpoint" / "ckpt_0_0.ckpt"
     run_dir.mkdir(parents=True, exist_ok=True)
     with open(run_dir / "config.yaml", "w") as fp:
         yaml.safe_dump(cfg.as_dict(), fp, sort_keys=False)
-    save_state(str(ckpt), to_flax(world_model, actor))
-    del world_model, actor
+    save_state(str(ckpt), to_flax(*agent))
+    del agent
 
     cfg, ckpt_path, device = cli.serve_config(
         [f"checkpoint_path={ckpt}", "serving.port=0", "serving.batch_buckets=[8,16,32,64,128]",
@@ -341,6 +419,182 @@ def run_slice(build_dir: Path, device_name: str = "cuda") -> dict:
     }
 
 
+def _dv3_s_widths(cfg) -> None:
+    wm_cfg = cfg.algo.world_model
+    widths = (wm_cfg.recurrent_model.recurrent_state_size, cfg.algo.dense_units, wm_cfg.representation_model.hidden_size,
+              cfg.algo.mlp_layers, wm_cfg.encoder.cnn_channels_multiplier, wm_cfg.stochastic_size, wm_cfg.discrete_size,
+              cfg.algo.world_model.reward_model.bins, cfg.algo.critic.bins, cfg.algo.per_rank_batch_size,
+              cfg.algo.per_rank_sequence_length, cfg.algo.horizon, cfg.fabric.precision, cfg.env.screen_size)
+    if widths != (512, 512, 512, 2, 32, 32, 32, 255, 255, 16, 64, 15, "32-true", 64):
+        raise AssertionError(f"the training config is not DreamerV3-S at batch 16 x 64, horizon 15, fp32: {widths}")
+
+
+def _launch_chunks(rows: int, hidden: int, joint_dim: int) -> int:
+    """Kernel launches of one fp32 cell call of ``rows`` rows."""
+    import torch
+
+    from sheeprl_tpu_torch.ops import cuda_build, ln_gru
+
+    limits = ln_gru._device_limits(cuda_build.load("ln_gru"), torch.device("cuda"))
+    return len(ln_gru._launch_plan(rows, joint_dim, hidden, 4, *limits).chunks)
+
+
+def _train_noise(cfg, actions_dim, gen, device: str = "cuda"):
+    """Every draw of one gradient step, pre-drawn on the card."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import gumbel_like
+
+    T, B, H = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, cfg.algo.horizon
+    S, D = cfg.algo.world_model.stochastic_size, cfg.algo.world_model.discrete_size
+
+    def gumbel(*shape):
+        return gumbel_like(torch.empty(*shape, device=device), gen)
+
+    return {
+        "dynamic": (gumbel(T, B, S, D), gumbel(T, B, S, D)),
+        "imagination": gumbel(H, T * B, S, D),
+        "actor": [[gumbel(T * B, d) for d in actions_dim] for _ in range(H + 1)],
+    }
+
+
+def run_train(build_dir: Path, device_name: str = "cuda") -> dict:
+    """Phase 5: DreamerV3-S trains on the card through ``run``."""
+    device = device_name
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_ORDER, make_optimizers, make_train_step
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import synthetic_batch, time_gradient_steps
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments_state
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs.env import make_env
+    from sheeprl_tpu_torch.interop.flax_params import to_flax
+    from sheeprl_tpu_torch.models import blocks
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru, ln_gru_reference
+    from sheeprl_tpu_torch.serving.loader import _actions_dim, agent_state_from_checkpoint, load_policy
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    overrides = TRAIN_OVERRIDES + [f"root_dir={(build_dir / 'train').resolve()}", f"fabric.accelerator={device}"]
+    cfg = compose(overrides)
+    _dv3_s_widths(cfg)
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    out = cli.run(overrides)
+    torch.cuda.synchronize()
+    launches = fused_layernorm_gru.launches  # the main path ends here
+
+    rows = out["metric_rows"]
+    if out["gradient_steps"] < MIN_GRADIENT_STEPS or rows.shape != (out["gradient_steps"], len(METRIC_ORDER)):
+        raise AssertionError(f"{out['gradient_steps']} gradient steps, metric rows {rows.shape}")
+    if not np.isfinite(rows).all():
+        raise AssertionError(f"non-finite training metrics: {rows}")
+    T, B, H = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, cfg.algo.horizon
+    hidden = cfg.algo.world_model.recurrent_model.recurrent_state_size
+    joint_dim = hidden + cfg.algo.world_model.recurrent_model.dense_units
+    predicted = (out["player_steps"] * _launch_chunks(out["player_width"], hidden, joint_dim)
+                 + out["gradient_steps"] * (T * _launch_chunks(B, hidden, joint_dim)
+                                            + H * _launch_chunks(T * B, hidden, joint_dim))
+                 + out["test_steps"] * _launch_chunks(1, hidden, joint_dim))
+    if launches != predicted:
+        raise AssertionError(
+            f"ln_gru launched {launches} times; the run predicts {predicted} ({out['player_steps']} player steps, "
+            f"{out['gradient_steps']} gradient steps x (T={T} + H={H}), {out['test_steps']} test steps)"
+        )
+
+    # every trained tree moved away from its seeded initialization
+    ckpt = out["checkpoints"][-1]
+    state = load_state(ckpt)
+    env = make_env(cfg, cfg.seed, 0)()
+    obs_space, action_space = env.observation_space, env.action_space
+    env.close()
+    actions_dim, is_continuous, _ = _actions_dim(action_space)
+    initial = to_flax(*build_agent(actions_dim, is_continuous, cfg, obs_space, None, "cpu"))
+    changed = {}
+    for tree in ("world_model", "actor", "critic"):
+        before = dict(_leaves(initial[tree]))
+        after = dict(_leaves(state[tree]))
+        changed[tree] = sum(not np.array_equal(before[p], after[p]) for p in before)
+        if changed[tree] == 0:
+            raise AssertionError(f"training left every parameter of {tree} unchanged")
+
+    # the checkpoint serves through serve's loader on the card
+    serve_cfg, ckpt_path, _ = cli.serve_config([f"checkpoint_path={ckpt}"])
+    handle = load_policy(serve_cfg, ckpt_path, device)
+    n = 3
+    gen = torch.Generator(device=device).manual_seed(9)
+    obs = {"rgb": torch.randint(0, 256, (n, 3, cfg.env.screen_size, cfg.env.screen_size), device=device, generator=gen,
+                                dtype=torch.uint8)}
+    st = {k: torch.zeros((n,) + shape, device=device) for k, (shape, _) in handle.state_spec.items()}
+    actions, _ = handle.make_state_step(True)(handle.params, st, obs, torch.ones((n, 1), device=device), None)
+    torch.cuda.synchronize()
+    if actions.shape != (n, sum(actions_dim)) or not torch.equal(actions.sum(-1), torch.ones(n, device=device)):
+        raise AssertionError(f"the trained checkpoint served a bad greedy action: {actions}")
+
+    # one gradient step from the same state, batch and noise, through the
+    # kernel and through the plain path
+    agent_state = agent_state_from_checkpoint(state)
+    batch = synthetic_batch(cfg, actions_dim, gen, device)
+    noise = _train_noise(cfg, actions_dim, gen, device)
+    results = []
+    for plain in (False, True):
+        agent = build_agent(actions_dim, is_continuous, cfg, obs_space, agent_state, device)
+        optimizers = make_optimizers(cfg, agent)
+        step = make_train_step(agent, optimizers, cfg, is_continuous)
+        with mock.patch.object(blocks, "fused_layernorm_gru", ln_gru_reference if plain else fused_layernorm_gru):
+            _, metrics = step(init_moments_state(device), batch, 0.02, None, noise)
+        torch.cuda.synchronize()
+        grads = {name: torch.cat([opt.state[p]["exp_avg"].reshape(-1) for p in getattr(agent, name).parameters()])
+                 for name, opt in optimizers.items()}
+        params = torch.cat([p.detach().reshape(-1) for name in optimizers for p in getattr(agent, name).parameters()])
+        results.append((metrics.cpu().numpy(), grads, params))
+    (m_kernel, g_kernel, p_kernel), (m_plain, g_plain, p_plain) = results
+    metric_err = float(np.max(np.abs(m_kernel - m_plain) / np.maximum(np.abs(m_plain), 1e-3)))
+    grad_err = max(((g_kernel[k] - g_plain[k]).abs().max() / g_plain[k].abs().max()).item() for k in g_plain)
+    diff = (p_kernel - p_plain).abs()
+    param_err, outliers = diff.max().item(), (diff > STEP_PARAM_ATOL).float().mean().item()
+    if (not np.isfinite(m_kernel).all() or metric_err > STEP_METRIC_RTOL or grad_err > STEP_GRAD_RTOL
+            or outliers > STEP_PARAM_OUTLIERS):
+        raise AssertionError(
+            f"kernel vs plain gradient step: metrics relative error {metric_err} (tol {STEP_METRIC_RTOL}), "
+            f"gradients relative error {grad_err} (tol {STEP_GRAD_RTOL}), share of params off by more than "
+            f"{STEP_PARAM_ATOL}: {outliers} (tol {STEP_PARAM_OUTLIERS}), params max_abs_err {param_err}; "
+            f"kernel {m_kernel}, plain {m_plain}"
+        )
+
+    # the time of a gradient step at DV3-S (the launches here do not count)
+    agent = build_agent(actions_dim, is_continuous, cfg, obs_space, agent_state, device)
+    step = make_train_step(agent, make_optimizers(cfg, agent), cfg, is_continuous)
+    timing = time_gradient_steps(step, init_moments_state(device), batch, gen, TIMED_STEPS)
+    return {
+        "gradient_steps": out["gradient_steps"],
+        "player_steps": out["player_steps"],
+        "test_steps": out["test_steps"],
+        "policy_steps": out["policy_steps"],
+        "ln_gru_launches": launches,
+        "launches_per_gradient_step": T * _launch_chunks(B, hidden, joint_dim) + H * _launch_chunks(T * B, hidden,
+                                                                                                     joint_dim),
+        "changed_leaves": changed,
+        "final_metrics": dict(zip(METRIC_ORDER, rows[-1].tolist())),
+        "step_metric_rel_err": metric_err,
+        "step_grad_rel_err": grad_err,
+        "step_param_max_abs_err": param_err,
+        "step_param_outliers": outliers,
+        "gradient_step_ms": timing["step_ms"],
+        "gradient_steps_per_s": timing["steps_per_s"],
+        "checkpoint": ckpt,
+    }
+
+
+def _leaves(tree, prefix=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}/{k}")
+        else:
+            yield f"{prefix}/{k}", v
+
+
 def main() -> int:
     import torch
 
@@ -383,6 +637,11 @@ def main() -> int:
             row = measure_ln_gru(batch, hidden, in_dim, dtype_name, seed=1, timed=False)
             print(f"[kernel] ln_gru sweep B={batch:<4d} K={row['K']:<5d} H={hidden:<5d} {dtype_name:<8s} "
                   f"max_abs_err={row['max_abs_err']:.3g} (tol {row['tolerance']:g})", flush=True)
+    for batch in GRAD_CASES:
+        err = check_ln_gru_graph(batch, *S_SHAPE)
+        print(f"[kernel] ln_gru autograd graph B={batch:<4d} K=1024 H=512 float32: the output carries a graph; "
+              f"joint, w, b, g, beta, h all get a finite gradient, equal to autograd through the plain version "
+              f"(the backward's own recompute) to {err:.3g} relative (tol {GRAD_TOLERANCE:g})", flush=True)
 
     slice_report = run_slice(build_dir)
     print(
@@ -395,17 +654,48 @@ def main() -> int:
         flush=True,
     )
 
-    # the kernels line reports the shape the main path gave the kernel most
-    main = next((c for c in cases if c["B"] == slice_report["main_width"] and c["H"] == 512
-                 and c["dtype"] == "float32"), None)
-    if main is None:
-        main = measure_ln_gru(slice_report["main_width"], *S_SHAPE, "float32")
+    train = run_train(build_dir)
+    s_fp32 = {c["B"]: c for c in cases if c["H"] == 512 and c["dtype"] == "float32"}
+    T, H = 64, 15
+    kernel_fwd_ms = T * s_fp32[16]["ms"] + H * s_fp32[1024]["ms"]
+    print(
+        f"[train] DreamerV3-S run (batch 16 x 64, horizon 15, fp32): {train['gradient_steps']} gradient steps, "
+        f"{train['player_steps']} player steps, {train['test_steps']} test-episode steps, {train['policy_steps']} "
+        f"policy steps; {train['ln_gru_launches']} ln_gru launches = predicted "
+        f"({train['launches_per_gradient_step']} per gradient step); every metric finite, final "
+        f"{json.dumps(train['final_metrics'])}; leaves changed {train['changed_leaves']}; checkpoint served greedy "
+        f"actions through serve's loader  [{card}]",
+        flush=True,
+    )
+    print(
+        f"[train] kernel vs plain gradient step from one state, batch and noise: metrics max relative error "
+        f"{train['step_metric_rel_err']:.3g} (tol {STEP_METRIC_RTOL:g}), gradients max relative error "
+        f"{train['step_grad_rel_err']:.3g} (tol {STEP_GRAD_RTOL:g}), updated params: share off by more than "
+        f"{STEP_PARAM_ATOL:g} {train['step_param_outliers']:.3g} (tol {STEP_PARAM_OUTLIERS:g}), max_abs_err "
+        f"{train['step_param_max_abs_err']:.3g} (not held: at most 2 lr)  [{card}]",
+        flush=True,
+    )
+    print(
+        f"[train] gradient step: median stream time {train['gradient_step_ms']:.3f} ms (CUDA events; the step is "
+        f"host-bound, so this is about its wall time), {train['gradient_steps_per_s']:.3f} gradient steps/s over "
+        f"{TIMED_STEPS} steps; ln_gru forward "
+        f"{T} x {s_fp32[16]['ms']:.5f} + {H} x {s_fp32[1024]['ms']:.5f} = {kernel_fwd_ms:.4f} ms, "
+        f"{100 * kernel_fwd_ms / train['gradient_step_ms']:.3f} % of the step  [{card}]",
+        flush=True,
+    )
+
+    # the kernels line reports the shape the main paths gave the kernel most:
+    # the serving dispatch width or the dynamic scan's B=16
+    main_b = 16 if train["gradient_steps"] * T >= max(slice_report["width_hist"].values()) \
+        else slice_report["main_width"]
+    main = s_fp32.get(main_b) or measure_ln_gru(main_b, *S_SHAPE, "float32")
     kernels = [{
         "name": "ln_gru",
         "route": "cuda",
         "source": "sheeprl_tpu_torch/ops/csrc/ln_gru.cu",
         "replaces": "sheeprl_tpu/ops/pallas_gru.py:64",
-        "launches": slice_report["ln_gru_launches"],
+        "launches": slice_report["ln_gru_launches"] + train["ln_gru_launches"],
+        "launches_by_path": {"serve": slice_report["ln_gru_launches"], "train": train["ln_gru_launches"]},
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
         "ms_cold": main["ms_cold"],
@@ -414,7 +704,7 @@ def main() -> int:
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "shape": {"B": main["B"], "K": main["K"], "H": main["H"], "dtype": main["dtype"]},
-        "phase": "kernel+slice",
+        "phase": "kernel+slice+train",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

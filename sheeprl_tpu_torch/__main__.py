@@ -1,11 +1,17 @@
-"""``python -m sheeprl_tpu_torch serve checkpoint_path=...`` -> the policy server."""
+"""``python -m sheeprl_tpu_torch run exp=... | serve checkpoint_path=...``."""
 
 import sys
 
-from sheeprl_tpu_torch.cli import serve
+from sheeprl_tpu_torch.cli import run, serve
+
+USAGE = (
+    "usage: python -m sheeprl_tpu_torch run exp=dreamer_v3 env=dummy diagnostics=off [dotted.key=value ...]\n"
+    "       python -m sheeprl_tpu_torch serve checkpoint_path=<run>/checkpoint/ckpt_<step>_<rank>.ckpt "
+    "[dotted.key=value ...]"
+)
 
 if __name__ == "__main__":
-    if len(sys.argv) < 2 or sys.argv[1] != "serve":
-        sys.exit("usage: python -m sheeprl_tpu_torch serve checkpoint_path=<run>/checkpoint/ckpt_<step>_<rank>.ckpt "
-                 "[dotted.key=value ...]  (training is not ported yet: see ROADMAP.md)")
-    serve(sys.argv[2:])
+    commands = {"run": run, "serve": serve}
+    if len(sys.argv) < 2 or sys.argv[1] not in commands:
+        sys.exit(USAGE)
+    commands[sys.argv[1]](sys.argv[2:])

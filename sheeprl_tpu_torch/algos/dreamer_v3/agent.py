@@ -1,18 +1,24 @@
-"""DreamerV3 agent, the part a policy server runs (counterpart of
-``sheeprl_tpu/algos/dreamer_v3/agent.py``).
+"""DreamerV3 agent (counterpart of ``sheeprl_tpu/algos/dreamer_v3/agent.py``).
 
-Ported: the dense stack, the CNN and MLP encoders, the recurrent model, the
-RSSM's initial states, representation and transition, the world model's
-``encode``/``initial_states``/``representation``/``recurrent_step``, the
-actor's ``act`` for discrete heads and the continuous ``scaled_normal`` head,
-``build_agent`` and ``PlayerDV3``.  The decoders, the reward and continue
-heads, the critic and ``MinedojoActor`` come with the training slice
-(ROADMAP.md, Queue 1).
+Ported: the dense stack, the CNN and MLP encoders and decoders, the recurrent
+model, the RSSM (initial states, representation, transition, ``dynamic`` and
+``imagination``), the reward and continue heads, the world model's methods,
+the actor's ``act`` and ``log_prob_entropy`` for discrete heads and the
+continuous ``scaled_normal`` head, the critic, ``build_agent`` and
+``PlayerDV3``.  ``MinedojoActor`` and the ``normal``/``tanh_normal``/
+``trunc_normal`` actor heads are still to port (ROADMAP.md, Queue 1).
 
 Layouts follow the JAX package at every public function: observations are
 CHW, stochastic states flat ``[..., stochastic * discrete]``.  The conv
 stack runs NCHW and permutes to NHWC before its flatten, so the embedding
 has the JAX package's (h, w, c) order and converted weights line up.
+
+The decoder's transposed convolutions take the flax ``ConvTranspose``
+weights through the converter (``interop/flax_params.py``): flax keeps the
+kernel ``[kh, kw, in, out]`` and does not flip it, torch's
+``ConvTranspose2d`` is the gradient of a convolution, so the converter flips
+the kernel; flax's ``"SAME"`` at kernel 4, stride 2 pads the dilated input by
+(2, 2), which is ``padding=1`` here.
 
 Sampling takes optional pre-drawn noise (``compute_stochastic_state``'s and
 the discrete heads' Gumbel noise, the continuous head's standard normal):
@@ -23,9 +29,10 @@ Without noise, draws come from the ``torch.Generator`` passed in.
 
 from __future__ import annotations
 
+import copy
 import math
 from math import prod
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -111,6 +118,76 @@ class MLPEncoderDV3(nn.Module):
     def forward(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
         x = torch.cat([symlog(obs[k]) if self.symlog_inputs else obs[k] for k in self.keys], dim=-1)
         return self.stack(x)
+
+
+class CNNDecoderDV3(nn.Module):
+    """Inverse of the encoder: a dense projection to a
+    ``start x start`` map, then stride-2 transposed convolutions back to the
+    image size.  Returns the channel-concat reconstruction, CHW."""
+
+    def __init__(self, latent_size: int, total_channels: int, channels_multiplier: int, image_size: Tuple[int, int],
+                 stages: int = 4, eps: float = 1e-3, act: str = "silu", layer_norm: bool = True):
+        super().__init__()
+        self.act = get_activation(act)
+        self.start = image_size[0] // (2**stages)
+        self.top_channels = (2 ** (stages - 1)) * channels_multiplier
+        self.dense = nn.Linear(latent_size, self.start * self.start * self.top_channels)
+        channels = [self.top_channels] + [(2 ** (stages - i - 2)) * channels_multiplier for i in range(stages - 1)]
+        self.deconvs = nn.ModuleList(
+            nn.ConvTranspose2d(channels[i], channels[i + 1], 4, stride=2, padding=1, bias=not layer_norm)
+            for i in range(stages - 1)
+        )
+        self.norms = (
+            nn.ModuleList(LayerNormChannelLast(channels[i + 1], eps=eps) for i in range(stages - 1))
+            if layer_norm
+            else None
+        )
+        self.out = nn.ConvTranspose2d(channels[-1], total_channels, 4, stride=2, padding=1)
+
+    def forward(self, latent: torch.Tensor) -> torch.Tensor:
+        lead = latent.shape[:-1]
+        # the dense output is laid out (h, w, c), as the JAX package reshapes it
+        x = self.dense(latent).reshape(-1, self.start, self.start, self.top_channels).permute(0, 3, 1, 2)
+        for i, deconv in enumerate(self.deconvs):
+            x = deconv(x)
+            if self.norms is not None:
+                x = self.norms[i](x)
+            x = self.act(x)
+        x = self.out(x)
+        return x.reshape(tuple(lead) + tuple(x.shape[1:]))
+
+
+class MLPDecoderDV3(nn.Module):
+    """Dense decoder with one linear head per vector key."""
+
+    def __init__(self, latent_size: int, keys: Sequence[str], output_dims: Sequence[int], dense_units: int,
+                 mlp_layers: int, eps: float = 1e-3, act: str = "silu", layer_norm: bool = True):
+        super().__init__()
+        self.keys = tuple(keys)
+        self.stack = DenseStack(latent_size, dense_units, mlp_layers, eps, act, layer_norm)
+        self.heads = nn.ModuleList(nn.Linear(self.stack.out_features, int(d)) for d in output_dims)
+
+    def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
+        x = self.stack(latent)
+        return {k: head(x) for k, head in zip(self.keys, self.heads)}
+
+
+class PredictionHead(nn.Module):
+    """Dense stack + linear head: the reward (zero-initialized head) and
+    continue (uniform head) models, and the critic's body."""
+
+    def __init__(self, in_features: int, dense_units: int, mlp_layers: int, out_dim: int, eps: float = 1e-3,
+                 act: str = "silu", layer_norm: bool = True):
+        super().__init__()
+        self.stack = DenseStack(in_features, dense_units, mlp_layers, eps, act, layer_norm)
+        self.head = nn.Linear(self.stack.out_features, out_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.head(self.stack(x))
+
+
+#: the two-hot critic: a dense stack and a zero-initialized head of ``bins``
+Critic = PredictionHead
 
 
 class RecurrentModel(nn.Module):
@@ -217,19 +294,48 @@ class RSSM(nn.Module):
         logits = _unimix(self.transition_model(recurrent_out), self.discrete_size, self.unimix)
         return logits, compute_stochastic_state(logits, self.discrete_size, generator, sample_state, noise)
 
+    def dynamic(self, posterior, recurrent_state, action, embedded_obs, is_first, generator=None, noise=None):
+        """One step of dynamic learning; ``is_first`` (``[B, 1]``) resets to
+        the learned initial state.  ``noise`` is ``(prior, posterior)``
+        Gumbel noise, each ``[B, stoch, discrete]``.  Returns
+        ``(recurrent, posterior, prior, posterior_logits, prior_logits)``."""
+        prior_noise, post_noise = noise if noise is not None else (None, None)
+        action = (1 - is_first) * action
+        initial_recurrent, initial_posterior = self.get_initial_states(recurrent_state.shape[:-1])
+        recurrent_state = (1 - is_first) * recurrent_state + is_first * initial_recurrent
+        posterior = (1 - is_first) * posterior + is_first * initial_posterior
+        recurrent_state = self.recurrent_model(torch.cat([posterior, action], dim=-1), recurrent_state)
+        prior_logits, prior = self._transition(recurrent_state, generator, noise=prior_noise)
+        posterior_logits, posterior = self._representation(recurrent_state, embedded_obs, generator, post_noise)
+        return recurrent_state, posterior, prior, posterior_logits, prior_logits
+
+    def imagination(self, prior, recurrent_state, actions, generator=None, noise=None):
+        """One step of latent imagination: ``(imagined_prior, recurrent)``."""
+        recurrent_state = self.recurrent_model(torch.cat([prior, actions], dim=-1), recurrent_state)
+        _, imagined_prior = self._transition(recurrent_state, generator, noise=noise)
+        return imagined_prior, recurrent_state
+
 
 class WorldModel(nn.Module):
-    """The world model's encoders and RSSM (the parts a policy step runs)."""
+    """Encoders, RSSM, decoders, reward and continue heads: one module, one
+    optimizer, as the JAX package keeps them in one params tree."""
 
     def __init__(self, cnn_keys: Sequence[str], mlp_keys: Sequence[str], cnn_input_channels: int, mlp_input_dim: int,
                  image_size: Tuple[int, int], channels_multiplier: int, cnn_stages: int, encoder_dense_units: int,
                  encoder_mlp_layers: int, recurrent_state_size: int, stochastic_size: int, discrete_size: int,
-                 actions_dim: int, rssm_dense_units: int, rssm_hidden_size: int, unimix: float = 0.01,
+                 actions_dim: int, rssm_dense_units: int, rssm_hidden_size: int, cnn_decoder_keys: Sequence[str] = (),
+                 cnn_decoder_channels: Sequence[int] = (), mlp_decoder_keys: Sequence[str] = (),
+                 mlp_output_dims: Sequence[int] = (), decoder_dense_units: int = 512, decoder_mlp_layers: int = 2,
+                 reward_dense_units: int = 512, reward_mlp_layers: int = 2, reward_bins: int = 255,
+                 continue_dense_units: int = 512, continue_mlp_layers: int = 2, unimix: float = 0.01,
                  eps: float = 1e-3, learnable_initial_recurrent_state: bool = True, decoupled_rssm: bool = False,
                  dense_act: str = "silu", cnn_act: str = "silu", layer_norm: bool = True,
                  gru_layer_norm: bool = True, symlog_inputs: bool = True):
         super().__init__()
         self.decoupled_rssm = decoupled_rssm
+        latent_size = stochastic_size * discrete_size + recurrent_state_size
+        self.cnn_decoder_keys = tuple(cnn_decoder_keys)
+        self.cnn_decoder_channels = tuple(int(c) for c in cnn_decoder_channels)
         self.cnn_encoder = (
             CNNEncoderDV3(cnn_keys, cnn_input_channels, channels_multiplier, cnn_stages, eps, cnn_act, layer_norm)
             if cnn_keys
@@ -253,6 +359,22 @@ class WorldModel(nn.Module):
             embedded, unimix, eps, learnable_initial_recurrent_state, decoupled_rssm, dense_act, layer_norm,
             gru_layer_norm,
         )
+        self.cnn_decoder = (
+            CNNDecoderDV3(latent_size, sum(self.cnn_decoder_channels), channels_multiplier, image_size, cnn_stages,
+                          eps, cnn_act, layer_norm)
+            if cnn_decoder_keys
+            else None
+        )
+        self.mlp_decoder = (
+            MLPDecoderDV3(latent_size, mlp_decoder_keys, mlp_output_dims, decoder_dense_units, decoder_mlp_layers, eps,
+                          dense_act, layer_norm)
+            if mlp_decoder_keys
+            else None
+        )
+        self.reward_model = PredictionHead(latent_size, reward_dense_units, reward_mlp_layers, reward_bins, eps,
+                                           dense_act, layer_norm)
+        self.continue_model = PredictionHead(latent_size, continue_dense_units, continue_mlp_layers, 1, eps,
+                                             dense_act, layer_norm)
 
     def encode(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
         feats = []
@@ -270,6 +392,30 @@ class WorldModel(nn.Module):
 
     def recurrent_step(self, stochastic, actions, recurrent_state):
         return self.rssm.recurrent_model(torch.cat([stochastic, actions], dim=-1), recurrent_state)
+
+    def decode(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out: Dict[str, torch.Tensor] = {}
+        if self.cnn_decoder is not None:
+            recon = self.cnn_decoder(latent)
+            start = 0
+            for k, c in zip(self.cnn_decoder_keys, self.cnn_decoder_channels):
+                out[k] = recon[..., start : start + c, :, :]
+                start += c
+        if self.mlp_decoder is not None:
+            out.update(self.mlp_decoder(latent))
+        return out
+
+    def reward_logits(self, latent: torch.Tensor) -> torch.Tensor:
+        return self.reward_model(latent)
+
+    def continue_logits(self, latent: torch.Tensor) -> torch.Tensor:
+        return self.continue_model(latent)
+
+    def dynamic(self, posterior, recurrent_state, action, embedded_obs, is_first, generator=None, noise=None):
+        return self.rssm.dynamic(posterior, recurrent_state, action, embedded_obs, is_first, generator, noise)
+
+    def imagination(self, prior, recurrent_state, actions, generator=None, noise=None):
+        return self.rssm.imagination(prior, recurrent_state, actions, generator, noise)
 
 
 class Actor(nn.Module):
@@ -307,6 +453,31 @@ class Actor(nn.Module):
         x = self.model(state)
         return [h(x) for h in self.heads]
 
+    def _continuous_dist_params(self, pre: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``scaled_normal``: tanh mean, std squashed into [min_std, max_std]."""
+        mean, std = torch.chunk(pre, 2, dim=-1)
+        std = (self.max_std - self.min_std) * torch.sigmoid(std + self.init_std) + self.min_std
+        return torch.tanh(mean), std
+
+    def log_prob_entropy(self, state: torch.Tensor, actions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Log-prob of the given (concatenated) actions and the policy
+        entropy, both ``[..., 1]``."""
+        pre_dist = self(state)
+        if self.is_continuous:
+            mean, std = self._continuous_dist_params(pre_dist[0])
+            lp = -((actions - mean) ** 2) / (2 * std**2) - torch.log(std) - 0.5 * math.log(2 * math.pi)
+            ent = 0.5 + 0.5 * math.log(2 * math.pi) + torch.log(std)
+            return lp.sum(dim=-1, keepdim=True), ent.sum(dim=-1, keepdim=True)
+        log_prob, entropy = 0.0, 0.0
+        start = 0
+        for logits in pre_dist:
+            d = logits.shape[-1]
+            logits = torch.log_softmax(_unimix(logits, d, self.unimix), dim=-1)
+            log_prob = log_prob + (actions[..., start : start + d] * logits).sum(dim=-1, keepdim=True)
+            entropy = entropy - (logits.exp() * logits).sum(dim=-1, keepdim=True)
+            start += d
+        return log_prob, entropy
+
     def act(
         self,
         state: torch.Tensor,
@@ -320,9 +491,7 @@ class Actor(nn.Module):
         continuous head."""
         pre_dist = self(state)
         if self.is_continuous:
-            mean, std = torch.chunk(pre_dist[0], 2, dim=-1)
-            std = (self.max_std - self.min_std) * torch.sigmoid(std + self.init_std) + self.min_std
-            mean = torch.tanh(mean)
+            mean, std = self._continuous_dist_params(pre_dist[0])
             if greedy:
                 actions = mean
             else:
@@ -360,19 +529,45 @@ def _uniform_fan_avg_(weight: torch.Tensor, fan_in: int, fan_out: int, generator
     nn.init.uniform_(weight, -limit, limit, generator=generator)
 
 
+class Agent(NamedTuple):
+    """The four module trees of a DreamerV3 agent, as a checkpoint holds
+    them."""
+
+    world_model: WorldModel
+    actor: Actor
+    critic: Critic
+    target_critic: Critic
+
+
 @torch.no_grad()
-def init_weights(world_model: WorldModel, actor: Actor, generator: torch.Generator) -> None:
+def init_weights(world_model: WorldModel, actor: Actor, critic: Optional[Critic], generator: torch.Generator) -> None:
     """Hafner initialization from a seeded generator: truncated-normal
-    fan-avg for every dense and conv kernel, uniform fan-avg for the
-    stochastic-state and actor heads, zero biases, unit LayerNorm scales."""
-    heads = {id(world_model.rssm.representation_model.head), id(world_model.rssm.transition_model.head)}
-    heads.update(id(h) for h in actor.heads)
-    for module in list(world_model.modules()) + list(actor.modules()):
-        if isinstance(module, (nn.Linear, nn.Conv2d)):
+    fan-avg for every dense and conv kernel; uniform fan-avg for the
+    stochastic-state, actor, continue and decoder output heads; zero reward
+    and critic heads; zero biases, unit LayerNorm scales.  The critic comes
+    last in the draws, so leaving it out changes no other module's weights."""
+    uniform = [world_model.rssm.representation_model.head, world_model.rssm.transition_model.head,
+               world_model.continue_model.head, *actor.heads]
+    if world_model.cnn_decoder is not None:
+        uniform.append(world_model.cnn_decoder.out)
+    if world_model.mlp_decoder is not None:
+        uniform.extend(world_model.mlp_decoder.heads)
+    zero = {id(world_model.reward_model.head)} | ({id(critic.head)} if critic is not None else set())
+    uniform_ids = {id(m) for m in uniform}
+    critic_modules = list(critic.modules()) if critic is not None else []
+    for module in list(world_model.modules()) + list(actor.modules()) + critic_modules:
+        if isinstance(module, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             w = module.weight
+            # fan-avg is symmetric in (in, out), so torch's two conv layouts
+            # need no distinction
             receptive = prod(w.shape[2:]) if w.dim() > 2 else 1
             fan_in, fan_out = w.shape[1] * receptive, w.shape[0] * receptive
-            (_uniform_fan_avg_ if id(module) in heads else _trunc_normal_fan_avg_)(w, fan_in, fan_out, generator)
+            if id(module) in zero:
+                w.zero_()
+            elif id(module) in uniform_ids:
+                _uniform_fan_avg_(w, fan_in, fan_out, generator)
+            else:
+                _trunc_normal_fan_avg_(w, fan_in, fan_out, generator)
             if module.bias is not None:
                 module.bias.zero_()
         elif isinstance(module, nn.LayerNorm):
@@ -380,29 +575,23 @@ def init_weights(world_model: WorldModel, actor: Actor, generator: torch.Generat
             module.bias.zero_()
 
 
-def build_agent(
-    actions_dim: Sequence[int],
-    is_continuous: bool,
-    cfg,
-    obs_space,
-    agent_state: Optional[Mapping[str, Any]] = None,
-    device: torch.device | str = "cpu",
-) -> Tuple[WorldModel, Actor]:
-    """Build the world model and actor in eval mode on ``device``.  Weights
-    come from ``agent_state`` when given (a checkpoint's
-    ``{"world_model": {"params": ...}, "actor": {"params": ...}, ...}`` in
-    the JAX package's layout), else from ``init_weights`` seeded with
-    ``cfg.seed``."""
+def _world_model_and_actor(actions_dim: Sequence[int], is_continuous: bool, cfg,
+                           obs_space) -> Tuple[WorldModel, Actor, int, float]:
+    """The configured world model and actor, uninitialized, on the CPU, with
+    the latent size and the LayerNorm epsilon the critic shares."""
     wm_cfg = cfg.algo.world_model
     actor_cfg = cfg.algo.actor
     eps = float(cfg.algo.mlp_layer_norm.kw.get("eps", 1e-3)) if cfg.algo.get("mlp_layer_norm") else 1e-3
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
+    cnn_decoder_keys = list(cfg.algo.cnn_keys.decoder)
+    mlp_decoder_keys = list(cfg.algo.mlp_keys.decoder)
     image_size = tuple(obs_space[cnn_keys[0]].shape[-2:]) if cnn_keys else (64, 64)
     cnn_stages = int(math.log2(cfg.env.screen_size) - math.log2(4)) if cnn_keys else 4
     recurrent_state_size = wm_cfg.recurrent_model.recurrent_state_size
     stochastic_size = wm_cfg.stochastic_size
     discrete_size = wm_cfg.discrete_size
+    latent_state_size = stochastic_size * discrete_size + recurrent_state_size
     world_model = WorldModel(
         cnn_keys=cnn_keys,
         mlp_keys=mlp_keys,
@@ -419,13 +608,24 @@ def build_agent(
         actions_dim=int(sum(actions_dim)),
         rssm_dense_units=wm_cfg.recurrent_model.dense_units,
         rssm_hidden_size=wm_cfg.representation_model.hidden_size,
+        cnn_decoder_keys=cnn_decoder_keys,
+        cnn_decoder_channels=[int(prod(obs_space[k].shape[:-2])) for k in cnn_decoder_keys],
+        mlp_decoder_keys=mlp_decoder_keys,
+        mlp_output_dims=[int(prod(obs_space[k].shape)) for k in mlp_decoder_keys],
+        decoder_dense_units=wm_cfg.observation_model.dense_units,
+        decoder_mlp_layers=wm_cfg.observation_model.mlp_layers,
+        reward_dense_units=wm_cfg.reward_model.dense_units,
+        reward_mlp_layers=wm_cfg.reward_model.mlp_layers,
+        reward_bins=wm_cfg.reward_model.bins,
+        continue_dense_units=wm_cfg.discount_model.dense_units,
+        continue_mlp_layers=wm_cfg.discount_model.mlp_layers,
         unimix=cfg.algo.unimix,
         eps=eps,
         learnable_initial_recurrent_state=wm_cfg.learnable_initial_recurrent_state,
         decoupled_rssm=wm_cfg.decoupled_rssm,
     )
     actor = Actor(
-        latent_state_size=stochastic_size * discrete_size + recurrent_state_size,
+        latent_state_size=latent_state_size,
         actions_dim=actions_dim,
         is_continuous=is_continuous,
         distribution=cfg.distribution.type,
@@ -438,13 +638,62 @@ def build_agent(
         action_clip=actor_cfg.action_clip,
         eps=eps,
     )
-    generator = torch.Generator().manual_seed(int(cfg.seed or 0))
-    init_weights(world_model, actor, generator)
+    return world_model, actor, latent_state_size, eps
+
+
+def build_agent(
+    actions_dim: Sequence[int],
+    is_continuous: bool,
+    cfg,
+    obs_space,
+    agent_state: Optional[Mapping[str, Any]] = None,
+    device: torch.device | str = "cpu",
+) -> Agent:
+    """Build the world model, actor, critic and target critic on ``device``.
+    Weights come from ``agent_state`` when given (a checkpoint's
+    ``{"world_model": {"params": ...}, "actor": ..., "critic": ...,
+    "target_critic": ...}`` in the JAX package's layout, all four trees),
+    else from ``init_weights`` seeded with ``cfg.seed``, the target critic a
+    copy of the critic.  The target critic never takes a gradient."""
+    world_model, actor, latent_state_size, eps = _world_model_and_actor(actions_dim, is_continuous, cfg, obs_space)
+    critic_cfg = cfg.algo.critic
+    critic = Critic(latent_state_size, critic_cfg.dense_units, critic_cfg.mlp_layers, critic_cfg.bins, eps)
+    init_weights(world_model, actor, critic, torch.Generator().manual_seed(int(cfg.seed or 0)))
+    target_critic = copy.deepcopy(critic)
     if agent_state is not None:
         from sheeprl_tpu_torch.interop.flax_params import from_flax
 
-        from_flax(agent_state, world_model, actor)
-    return world_model.to(device).eval(), actor.to(device).eval()
+        from_flax(agent_state, world_model, actor, critic, target_critic)
+    target_critic.requires_grad_(False)
+    return Agent(world_model.to(device), actor.to(device), critic.to(device), target_critic.to(device))
+
+
+def build_policy_modules(
+    actions_dim: Sequence[int],
+    is_continuous: bool,
+    cfg,
+    obs_space,
+    agent_state: Optional[Mapping[str, Any]] = None,
+    device: torch.device | str = "cpu",
+) -> Tuple[WorldModel, Actor]:
+    """The two modules a policy acts with, for serving: the world model
+    without its decoders and reward and continue heads, and the actor, on
+    ``device``; no critic is built.  Weights come from ``agent_state``
+    through the converter's policy spec, which reads the world model's
+    encoders and RSSM and the actor, strictly, and leaves the critics,
+    decoders and heads unread whether the checkpoint holds them or not (the
+    JAX package's ``build_policy`` serves a checkpoint without the critics
+    too).  Without ``agent_state`` the weights are ``build_agent``'s for the
+    same seed."""
+    world_model, actor, *_ = _world_model_and_actor(actions_dim, is_continuous, cfg, obs_space)
+    init_weights(world_model, actor, None, torch.Generator().manual_seed(int(cfg.seed or 0)))
+    if agent_state is not None:
+        from sheeprl_tpu_torch.interop.flax_params import from_flax_policy
+
+        from_flax_policy(agent_state, world_model, actor)
+    world_model.cnn_decoder = world_model.mlp_decoder = None
+    world_model.reward_model = world_model.continue_model = None
+    return world_model.to(device), actor.to(device)
 
 
 class PlayerDV3:

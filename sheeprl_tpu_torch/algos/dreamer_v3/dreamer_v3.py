@@ -1,0 +1,474 @@
+"""DreamerV3 training (counterpart of
+``sheeprl_tpu/algos/dreamer_v3/dreamer_v3.py``): the gradient step and the
+loop of env interaction, sequential replay and checkpoints.
+
+A gradient step follows the JAX package's ``make_train_step`` in order: the
+Polyak update of the target critic; the world-model loss over the dynamic
+scan and its update; the actor loss over the imagination scan, against the
+world model as just updated, with the Moments update; the critic loss and
+update; the 11-entry metric vector.  JAX differentiates only the tree handed
+to ``value_and_grad``; here each loss is differentiated with
+``torch.autograd.grad`` over its own module's parameters, and the modules a
+loss only reads have ``requires_grad`` off while it runs, so no gradient of
+one loss reaches another optimizer.  The metric vector stays on the device;
+the loop fetches the rows at log time.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import os
+from typing import Any, Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from sheeprl_tpu_torch.algos.dreamer_v3.agent import Agent, PlayerDV3, build_agent
+from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
+from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
+    chunked_dynamic_scan,
+    init_moments_state,
+    prepare_obs,
+    real_actions_of,
+    test,
+    update_moments,
+)
+from sheeprl_tpu_torch.ops.distributions import Bernoulli, MSEDistribution, SymlogDistribution, TwoHotEncodingDistribution
+from sheeprl_tpu_torch.ops.numerics import compute_lambda_values
+from sheeprl_tpu_torch.utils.optim import clip_by_global_norm, global_norm
+from sheeprl_tpu_torch.utils.registry import register_algorithm
+
+METRIC_ORDER = [
+    "Loss/world_model_loss",
+    "Loss/observation_loss",
+    "Loss/reward_loss",
+    "Loss/state_loss",
+    "Loss/continue_loss",
+    "State/kl",
+    "Loss/policy_loss",
+    "Loss/value_loss",
+    "Grads/world_model",
+    "Grads/actor",
+    "Grads/critic",
+]
+TRAINED = ("world_model", "actor", "critic")
+
+
+@contextlib.contextmanager
+def frozen(*modules: nn.Module) -> Iterator[None]:
+    """``requires_grad`` off on the parameters of ``modules`` for the block:
+    a loss that only reads a module builds no graph into it."""
+    params = [p for m in modules for p in m.parameters() if p.requires_grad]
+    for p in params:
+        p.requires_grad_(False)
+    try:
+        yield
+    finally:
+        for p in params:
+            p.requires_grad_(True)
+
+
+def make_optimizers(cfg, agent: Agent) -> Dict[str, torch.optim.Optimizer]:
+    """One optimizer per trained module, from ``algo.<module>.optimizer``."""
+    from sheeprl_tpu_torch.config import instantiate
+
+    return {name: instantiate(cfg.algo[name].optimizer)(getattr(agent, name).parameters()) for name in TRAINED}
+
+
+def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, is_continuous: bool):
+    """Build one gradient step:
+    ``train_step(moments_state, batch, tau, generator=None, noise=None) ->
+    (moments_state, metrics)``.  The modules and optimizers update in place.
+
+    ``batch`` leaves are ``[T, B, ...]`` float tensors on the device, pixels
+    already in [-0.5, 0.5].  ``noise`` holds pre-drawn draws, each taken from
+    ``generator`` when absent: ``"dynamic"`` the ``(prior, posterior)``
+    Gumbel noise ``[T, B, stoch, discrete]`` of the dynamic scan;
+    ``"imagination"`` the prior Gumbel noise ``[H, T*B, stoch, discrete]``;
+    ``"actor"`` a list of ``H + 1`` per-head lists (Gumbel noise of each
+    discrete head, or the standard-normal draw of the continuous head) for
+    the first action and each imagined step's."""
+    world_model, actor, critic, target_critic = agent
+    wm_cfg = cfg.algo.world_model
+    stoch, discrete = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
+    recurrent_size = int(wm_cfg.recurrent_model.recurrent_state_size)
+    horizon = int(cfg.algo.horizon)
+    if int(cfg.algo.get("rssm_chunks", 1) or 1) != 1:
+        raise NotImplementedError(
+            "algo.rssm_chunks > 1 (the chunked stored-state scan) is not ported yet: see ROADMAP.md Queue 1"
+        )
+    gamma, lmbda = float(cfg.algo.gamma), float(cfg.algo.lmbda)
+    cnn_dec_keys = list(cfg.algo.cnn_keys.decoder)
+    mlp_dec_keys = list(cfg.algo.mlp_keys.decoder)
+    moments_cfg = cfg.algo.actor.moments
+    clip = {
+        "world_model": float(wm_cfg.clip_gradients),
+        "actor": float(cfg.algo.actor.clip_gradients),
+        "critic": float(cfg.algo.critic.clip_gradients),
+    }
+    params = {name: list(getattr(agent, name).parameters()) for name in TRAINED}
+
+    def update(name: str, loss: torch.Tensor) -> torch.Tensor:
+        """Gradient of ``loss`` over one module, clipped by global norm, one
+        optimizer step; returns the norm before clipping."""
+        grads = torch.autograd.grad(loss, params[name], allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params[name], grads)]
+        norm = global_norm(grads)
+        for p, g in zip(params[name], clip_by_global_norm(grads, clip[name])):
+            p.grad = g
+        optimizers[name].step()
+        optimizers[name].zero_grad(set_to_none=True)
+        return norm
+
+    def train_step(moments_state: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], tau: float,
+                   generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
+        noise = noise or {}
+        T, B = batch["actions"].shape[:2]
+
+        # --- target critic Polyak update -----------------------------------
+        with torch.no_grad():
+            for c, t in zip(critic.parameters(), target_critic.parameters()):
+                t.copy_(tau * c + (1 - tau) * t)
+
+        # --- dynamic learning ----------------------------------------------
+        target_obs = {k: batch[k] for k in set(cnn_dec_keys + mlp_dec_keys)}
+        # actions shift right by one: a_0 = 0
+        batch_actions = torch.cat([torch.zeros_like(batch["actions"][:1]), batch["actions"][:-1]], dim=0)
+        is_first = batch["is_first"].clone()
+        is_first[0] = 1.0
+        embedded = world_model.encode(batch)
+        recurrents, posteriors, post_logits, prior_logits = chunked_dynamic_scan(
+            world_model, batch_actions, embedded, is_first, stoch_flat=stoch * discrete,
+            recurrent_size=recurrent_size, generator=generator, noise=noise.get("dynamic"),
+        )
+        latents = torch.cat([posteriors, recurrents], dim=-1)
+        recon = world_model.decode(latents)
+        po = {k: MSEDistribution(recon[k], dims=recon[k].dim() - 2) for k in cnn_dec_keys}
+        po.update({k: SymlogDistribution(recon[k], dims=recon[k].dim() - 2) for k in mlp_dec_keys})
+        pr = TwoHotEncodingDistribution(world_model.reward_logits(latents), dims=1)
+        pc = Bernoulli(world_model.continue_logits(latents), event_dims=1)
+        rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = reconstruction_loss(
+            po, target_obs, pr, batch["rewards"],
+            prior_logits.reshape(T, B, stoch, discrete), post_logits.reshape(T, B, stoch, discrete),
+            wm_cfg.kl_dynamic, wm_cfg.kl_representation, wm_cfg.kl_free_nats, wm_cfg.kl_regularizer,
+            pc, 1 - batch["terminated"], wm_cfg.continue_scale_factor,
+        )
+        wm_norm = update("world_model", rec_loss)
+
+        # --- behaviour learning, against the world model as just updated --
+        posteriors = posteriors.detach().reshape(T * B, stoch * discrete)
+        recurrents = recurrents.detach().reshape(T * B, recurrent_size)
+        true_continue = (1 - batch["terminated"]).reshape(T * B, 1)
+        img_noise = noise.get("imagination")
+        act_noise = noise.get("actor") or [None] * (horizon + 1)
+        with frozen(world_model, critic):
+            latent0 = torch.cat([posteriors, recurrents], dim=-1)
+            actions = actor.act(latent0, generator, False, act_noise[0])
+            prior, recurrent = posteriors, recurrents
+            latents_h, actions_h = [latent0], [actions]
+            for h in range(horizon):
+                prior, recurrent = world_model.imagination(
+                    prior, recurrent, actions, generator, None if img_noise is None else img_noise[h]
+                )
+                latent = torch.cat([prior, recurrent], dim=-1)
+                actions = actor.act(latent.detach(), generator, False, act_noise[h + 1])
+                latents_h.append(latent)
+                actions_h.append(actions)
+            imagined_trajectories = torch.stack(latents_h)  # [H+1, TB, L]
+            imagined_actions = torch.stack(actions_h)
+            predicted_values = TwoHotEncodingDistribution(critic(imagined_trajectories), dims=1).mean
+            predicted_rewards = TwoHotEncodingDistribution(
+                world_model.reward_logits(imagined_trajectories), dims=1
+            ).mean
+            continues = Bernoulli(world_model.continue_logits(imagined_trajectories), event_dims=1).mode
+            continues = torch.cat([true_continue[None], continues[1:]], dim=0)
+            lambda_values = compute_lambda_values(
+                predicted_rewards[1:], predicted_values[1:], continues[1:] * gamma, lmbda=lmbda
+            )
+            discount = (torch.cumprod(continues * gamma, dim=0) / gamma).detach()
+            baseline = predicted_values[:-1]
+            offset, invscale, moments_state = update_moments(
+                moments_state, lambda_values, moments_cfg.decay, moments_cfg.max, moments_cfg.percentile.low,
+                moments_cfg.percentile.high,
+            )
+            advantage = (lambda_values - offset) / invscale - (baseline - offset) / invscale
+            log_probs, entropies = actor.log_prob_entropy(imagined_trajectories.detach(), imagined_actions.detach())
+            objective = advantage if is_continuous else log_probs[:-1] * advantage.detach()
+            entropy = cfg.algo.actor.ent_coef * entropies
+            policy_loss = -torch.mean(discount[:-1] * (objective + entropy[:-1]))
+            actor_norm = update("actor", policy_loss)
+
+        # --- critic learning -------------------------------------------------
+        imagined_trajectories = imagined_trajectories.detach()[:-1]
+        lambda_values = lambda_values.detach()
+        qv = TwoHotEncodingDistribution(critic(imagined_trajectories), dims=1)
+        with torch.no_grad():
+            target_values = TwoHotEncodingDistribution(target_critic(imagined_trajectories), dims=1).mean
+        value_loss = -qv.log_prob(lambda_values) - qv.log_prob(target_values)
+        value_loss = torch.mean(value_loss * discount[:-1, ..., 0])
+        critic_norm = update("critic", value_loss)
+
+        metrics = torch.stack([
+            rec_loss, observation_loss, reward_loss, state_loss, continue_loss, kl, policy_loss, value_loss,
+            wm_norm, actor_norm, critic_norm,
+        ]).detach()
+        return moments_state, metrics
+
+    return train_step
+
+
+def stage_batch(sample: Dict[str, np.ndarray], cnn_keys: Sequence[str], device: torch.device) -> Dict[str, torch.Tensor]:
+    """One gradient step's host sample -> float32 device tensors, pixels
+    (raw uint8 on the wire) scaled to [-0.5, 0.5] on the device."""
+    batch = {}
+    for k, v in sample.items():
+        t = torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True).float()
+        batch[k] = t / 255.0 - 0.5 if k in cnn_keys else t
+    return batch
+
+
+def _unported_options(cfg) -> List[str]:
+    """The options this slice reads and does not run (ROADMAP.md Queue 1);
+    the runtime (precision, devices), the checkpoint callback (export), the
+    replay factory (``buffer.device``) and the train step (``rssm_chunks``)
+    refuse theirs where they are built, before the loop starts."""
+    out = []
+    if cfg.checkpoint.get("resume_from"):
+        out.append("checkpoint.resume_from (resume)")
+    if (cfg.get("diagnostics") or {}).get("enabled", False):
+        out.append("diagnostics.enabled=True (journal, sentinel, tracing; pass diagnostics=off)")
+    if (cfg.algo.get("offline") or {}).get("enabled", False):
+        out.append("algo.offline.enabled=True (offline training)")
+    if cfg.env.get("executor") not in (None, "", "auto", "sync") or not cfg.env.get("sync_env", True):
+        out.append("env.executor/sync_env other than the synchronous vector env")
+    if not cfg.model_manager.get("disabled", True):
+        out.append("model_manager.disabled=False (model registry)")
+    if cfg.metric.get("profiler", {}).get("enabled", False):
+        out.append("metric.profiler.enabled=True")
+    return out
+
+
+@register_algorithm()
+def main(runtime, cfg) -> Dict[str, Any]:
+    """The DreamerV3 loop: prefill with random actions, then per iteration a
+    policy step of every env, a replay write, the gradient steps the replay
+    ratio owes, logging and checkpoints; one test episode at the end when
+    ``algo.run_test``.  Returns what the run did: its counters, the metric
+    rows of every gradient step, the checkpoints written and the log dir."""
+    from sheeprl_tpu_torch.config import instantiate
+    from sheeprl_tpu_torch.data.factory import make_dreamer_replay_buffer
+    from sheeprl_tpu_torch.data.slab import step_slab
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.envs.env import make_env_fns, vectorized_env
+    from sheeprl_tpu_torch.interop.flax_params import to_flax
+    from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
+    from sheeprl_tpu_torch.utils.utils import Ratio, save_configs
+
+    unported = _unported_options(cfg)
+    if unported:
+        raise NotImplementedError(f"not ported yet (see ROADMAP.md Queue 1): {'; '.join(unported)}")
+    device = runtime.device
+    num_envs = int(cfg.env.num_envs)
+    cfg.env.frame_stack = -1
+    if 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
+        raise ValueError(f"The screen size must be a power of 2, got: {cfg.env.screen_size}")
+
+    logger = get_logger(runtime, cfg)
+    log_dir = get_log_dir(runtime, cfg.root_dir, cfg.run_name)
+    save_configs(cfg, log_dir)
+    logger.log_hyperparams(cfg.as_dict())
+    aggregator = instantiate(cfg.metric.aggregator)
+    if cfg.metric.log_level == 0:
+        aggregator.disabled = True
+
+    generator = runtime.seed_everything(cfg.seed)
+    envs = vectorized_env(make_env_fns(cfg, log_dir, "train"))
+    action_space = envs.single_action_space
+    observation_space = envs.single_observation_space
+    is_continuous = isinstance(action_space, spaces.Box)
+    is_multidiscrete = isinstance(action_space, spaces.MultiDiscrete)
+    actions_dim = tuple(
+        int(a) for a in (action_space.shape if is_continuous
+                         else (action_space.nvec.tolist() if is_multidiscrete else [action_space.n]))
+    )
+    if not isinstance(observation_space, spaces.Dict):
+        raise RuntimeError(f"Unexpected observation type, should be of type Dict, got: {observation_space}")
+    has_decoders = len(cfg.algo.cnn_keys.decoder) + len(cfg.algo.mlp_keys.decoder) > 0
+    if has_decoders and (
+        not set(cfg.algo.cnn_keys.encoder) & set(cfg.algo.cnn_keys.decoder)
+        and not set(cfg.algo.mlp_keys.encoder) & set(cfg.algo.mlp_keys.decoder)
+    ):
+        raise RuntimeError("The CNN keys or the MLP keys of the encoder and decoder must not be disjointed")
+    cnn_keys = list(cfg.algo.cnn_keys.encoder)
+    mlp_keys = list(cfg.algo.mlp_keys.encoder)
+    obs_keys = cnn_keys + mlp_keys
+
+    agent = build_agent(actions_dim, is_continuous, cfg, observation_space, None, device)
+    player = PlayerDV3(agent.world_model, agent.actor, actions_dim, num_envs)
+    optimizers = make_optimizers(cfg, agent)
+    moments_state = init_moments_state(device)
+    train_step = make_train_step(agent, optimizers, cfg, is_continuous)
+
+    buffer_size = cfg.buffer.size // num_envs if not cfg.dry_run else 2
+    rb = make_dreamer_replay_buffer(cfg, num_envs, log_dir, buffer_size)
+    rb.seed(cfg.seed)
+
+    policy_step_count = 0
+    last_log = last_checkpoint = 0
+    gradient_steps = player_steps = 0
+    policy_steps_per_iter = num_envs
+    total_iters = int(cfg.algo.total_steps // policy_steps_per_iter) if not cfg.dry_run else 1
+    learning_starts = cfg.algo.learning_starts // policy_steps_per_iter if not cfg.dry_run else 0
+    prefill_steps = learning_starts - int(learning_starts > 0)
+    ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
+    target_freq = cfg.algo.critic.get("per_rank_target_network_update_freq", 0)
+    action_rng = np.random.default_rng(cfg.seed)
+
+    obs = envs.reset(seed=cfg.seed)[0]
+    step_data: Dict[str, np.ndarray] = step_slab(num_envs, {k: obs[k] for k in obs_keys})
+    step_data["rewards"] = np.zeros((1, num_envs, 1), np.float32)
+    step_data["truncated"] = np.zeros((1, num_envs, 1), np.float32)
+    step_data["terminated"] = np.zeros((1, num_envs, 1), np.float32)
+    step_data["is_first"] = np.ones_like(step_data["terminated"])
+    player.init_states()
+
+    pending: List[torch.Tensor] = []
+    metric_rows: List[np.ndarray] = []
+    checkpoints: List[str] = []
+    for iter_num in range(1, total_iters + 1):
+        policy_step_count += policy_steps_per_iter
+
+        # ---- policy step + replay write ---------------------------------
+        if iter_num <= learning_starts:
+            real_actions = envs.sample_actions(action_rng)
+            if is_continuous:
+                actions = real_actions.astype(np.float32)
+            else:
+                actions = np.concatenate(
+                    [np.eye(d, dtype=np.float32)[real_actions.reshape(num_envs, -1)[:, i]]
+                     for i, d in enumerate(actions_dim)],
+                    axis=-1,
+                )
+        else:
+            torch_obs = prepare_obs(obs, cnn_keys=cnn_keys, mlp_keys=mlp_keys, num_envs=num_envs, device=device)
+            actions = player.get_actions(torch_obs, generator).cpu().numpy()  # the iteration's one fetch
+            player_steps += 1
+            real_actions = real_actions_of(actions, actions_dim, is_continuous)
+        step_data["actions"] = actions.reshape(1, num_envs, -1)
+        rb.add(step_data, validate_args=cfg.buffer.validate_args)
+
+        # ---- the gradient steps the replay ratio owes -------------------
+        if iter_num >= learning_starts:
+            n = ratio(policy_step_count - prefill_steps * policy_steps_per_iter)
+            if cfg.dry_run:
+                n = 1
+            if n > 0:
+                local_data = rb.sample(
+                    cfg.algo.per_rank_batch_size, sequence_length=cfg.algo.per_rank_sequence_length, n_samples=n
+                )
+                for i in range(n):
+                    batch = stage_batch({k: v[i] for k, v in local_data.items()}, cnn_keys, device)
+                    if target_freq and gradient_steps % target_freq == 0:
+                        tau = 1.0 if gradient_steps == 0 else float(cfg.algo.critic.get("tau", 1.0))
+                    else:
+                        tau = 0.0
+                    moments_state, metrics = train_step(moments_state, batch, tau, generator)
+                    pending.append(metrics)
+                    gradient_steps += 1
+
+        # ---- env step results ----------------------------------------------
+        next_obs, rewards, terminated, truncated, infos = envs.step(real_actions.reshape(envs.batched_action_shape))
+        dones = np.logical_or(terminated, truncated).astype(np.uint8)
+        step_data["is_first"] = np.zeros_like(step_data["terminated"])
+        for r, length in infos.get("episodes", ()):
+            aggregator.update("Rewards/rew_avg", float(r))
+            aggregator.update("Game/ep_len_avg", float(length))
+        real_next_obs = {k: np.asarray(next_obs[k]).copy() for k in obs_keys}
+        for idx, final_obs in enumerate(infos["final_obs"]):
+            if final_obs is not None:
+                for k in obs_keys:
+                    real_next_obs[k][idx] = np.asarray(final_obs[k])
+        step_data.update(
+            step_slab(
+                num_envs,
+                {**{k: next_obs[k] for k in obs_keys}, "terminated": terminated, "truncated": truncated,
+                 "rewards": rewards},
+                dtypes={"terminated": np.float32, "truncated": np.float32, "rewards": np.float32},
+            )
+        )
+        obs = next_obs
+        if cfg.env.clip_rewards:
+            step_data["rewards"] = np.tanh(step_data["rewards"])
+        dones_idxes = dones.nonzero()[0].tolist()
+        if dones_idxes:
+            reset_data = {k: real_next_obs[k][dones_idxes][np.newaxis] for k in obs_keys}
+            reset_data["terminated"] = step_data["terminated"][:, dones_idxes]
+            reset_data["truncated"] = step_data["truncated"][:, dones_idxes]
+            reset_data["actions"] = np.zeros((1, len(dones_idxes), int(sum(actions_dim))), np.float32)
+            reset_data["rewards"] = step_data["rewards"][:, dones_idxes]
+            reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
+            rb.add(reset_data, dones_idxes, validate_args=cfg.buffer.validate_args)
+            step_data["rewards"][:, dones_idxes] = 0
+            step_data["terminated"][:, dones_idxes] = 0
+            step_data["truncated"][:, dones_idxes] = 0
+            step_data["is_first"][:, dones_idxes] = 1
+            reset_mask = np.zeros((num_envs, 1), np.float32)
+            reset_mask[dones_idxes] = 1.0
+            player.init_states(torch.from_numpy(reset_mask).to(device))
+
+        # ---- log: the metric rows cross to the host here, in one copy ----
+        if policy_step_count - last_log >= cfg.metric.log_every or iter_num == total_iters or cfg.dry_run:
+            if pending:
+                rows = torch.stack(pending).cpu().numpy()
+                pending.clear()
+                metric_rows.extend(rows)
+                for row in rows:
+                    for name, value in zip(METRIC_ORDER, row):
+                        aggregator.update(name, float(value))
+            metrics_dict = aggregator.compute()
+            if policy_step_count > 0:
+                metrics_dict["Params/replay_ratio"] = gradient_steps / policy_step_count
+            logger.log_metrics(metrics_dict, policy_step_count)
+            aggregator.reset()
+            last_log = policy_step_count
+
+        # ---- checkpoint --------------------------------------------------
+        if (
+            (cfg.checkpoint.every > 0 and policy_step_count - last_checkpoint >= cfg.checkpoint.every)
+            or cfg.dry_run
+            or (iter_num == total_iters and cfg.checkpoint.save_last)
+        ):
+            last_checkpoint = policy_step_count
+            ckpt_state = {
+                **to_flax(*agent),
+                "opt_states": {name: opt.state_dict() for name, opt in optimizers.items()},
+                "moments": dict(moments_state),
+                "ratio": ratio.state_dict(),
+                "iter_num": iter_num,
+                "batch_size": cfg.algo.per_rank_batch_size,
+                "last_log": last_log,
+                "last_checkpoint": last_checkpoint,
+            }
+            ckpt_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step_count}_0.ckpt")
+            runtime.call("on_checkpoint_coupled", ckpt_path=ckpt_path, state=ckpt_state,
+                         replay_buffer=rb if cfg.buffer.checkpoint else None)
+            checkpoints.append(ckpt_path)
+
+    envs.close()
+    test_reward, test_steps = None, 0
+    if cfg.algo.run_test:
+        test_reward, test_steps = test(player, cfg, log_dir, generator, greedy=False)
+        logger.log_metrics({"Test/cumulative_reward": test_reward}, policy_step_count)
+    logger.finalize()
+    return {
+        "policy_steps": policy_step_count,
+        "player_steps": player_steps,
+        "player_width": num_envs,
+        "gradient_steps": gradient_steps,
+        "test_steps": test_steps,
+        "test_reward": test_reward,
+        "metric_rows": np.asarray(metric_rows, np.float32).reshape(-1, len(METRIC_ORDER)),
+        "checkpoints": checkpoints,
+        "log_dir": log_dir,
+    }

@@ -1,0 +1,161 @@
+"""The time of a DreamerV3 gradient step on a CUDA card, and where its
+device time goes: the one place that times a gradient step.
+
+    python -m sheeprl_tpu_torch.algos.dreamer_v3.step_profile [--steps 5] [--trace PATH]
+
+Builds DreamerV3-S (``exp=dreamer_v3 env=dummy``: batch 16 x 64, horizon
+15, fp32) from a seed on the card and calls :func:`time_gradient_steps` with
+the profiler on.  That warms up, then times ``--steps`` gradient steps
+between CUDA events on the stream (a step is host-bound, so its stream time
+is about its wall time), then traces as many more with ``torch.profiler``
+(CUDA activities through CUPTI) for the device-busy time (the union of the
+kernels' intervals), the top kernels and the share of the LayerNorm-GRU
+kernel.  The idle share is ``1 - busy / stream time`` of the untraced
+steps: tracing slows a step, so the traced steps' own times are not used.
+With ``--trace`` it also writes the Chrome trace.  No CPU fallback: without
+a CUDA device it raises.  ``chip_smoke.py`` times its gradient steps through
+the same function, without the profiler.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import statistics
+import subprocess
+import time
+from typing import Any, Callable, Dict, Optional, Sequence
+
+import torch
+
+
+def synthetic_batch(cfg, actions_dim: Sequence[int], generator: torch.Generator,
+                    device: torch.device | str) -> Dict[str, torch.Tensor]:
+    """One replay sample at the run's shapes, staged as the training loop
+    stages it (uint8 pixels scaled to [-0.5, 0.5] on the device)."""
+    T, B = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size
+    n, size = int(sum(actions_dim)), cfg.env.screen_size
+
+    def rand(*shape):
+        return torch.rand(shape, device=device, generator=generator)
+
+    rgb = torch.randint(0, 256, (T, B, 3, size, size), device=device, generator=generator).float() / 255.0 - 0.5
+    actions = torch.nn.functional.one_hot(torch.randint(0, n, (T, B), device=device, generator=generator), n).float()
+    return {"rgb": rgb, "actions": actions, "terminated": (rand(T, B, 1) < 0.02).float(),
+            "is_first": (rand(T, B, 1) < 0.02).float(), "rewards": torch.randn((T, B, 1), device=device,
+                                                                               generator=generator)}
+
+
+def _union_us(intervals) -> float:
+    total, end = 0.0, None
+    for a, b in sorted(intervals):
+        if end is None or a > end:
+            total += b - a
+            end = b
+        elif b > end:
+            total += b - end
+            end = b
+    return total
+
+
+def time_gradient_steps(step: Callable, moments: Any, batch: Dict[str, torch.Tensor], generator: torch.Generator,
+                        steps: int, warmup: int = 2, profile: bool = False,
+                        trace: Optional[str] = None) -> Dict[str, Any]:
+    """Time ``steps`` calls of a ``make_train_step`` step on ``batch``
+    after ``warmup`` calls: ``step_ms`` is the median stream time between
+    CUDA events around one step (about its wall time: the host issues a
+    step slower than the card runs it) and ``steps_per_s`` the rate over
+    the wall clock.  With ``profile``, ``steps`` more steps are traced for
+    ``busy_ms`` (device-busy time a step), ``idle_share`` (``1 - busy_ms /
+    step_ms``) and ``kernels`` (name -> [calls, microseconds] over the
+    traced steps); ``trace`` writes their Chrome trace."""
+    for _ in range(warmup):
+        moments, _ = step(moments, batch, 0.02, generator)
+    torch.cuda.synchronize()
+    stream_ms, wall = [], time.perf_counter()
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        moments, _ = step(moments, batch, 0.02, generator)
+        end.record()
+        torch.cuda.synchronize()
+        stream_ms.append(start.elapsed_time(end))
+    wall = time.perf_counter() - wall
+    result: Dict[str, Any] = {"step_ms": statistics.median(stream_ms), "stream_ms": stream_ms,
+                              "steps_per_s": steps / wall, "steps": steps}
+    if not profile:
+        return result
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, record_function
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(steps):
+            with record_function(f"gradient_step_{i}"):
+                moments, _ = step(moments, batch, 0.02, generator)
+                torch.cuda.synchronize()
+    # device activity: the kernels and copies, not the annotation ranges
+    # (record_function, Optimizer.step) that the trace mirrors on the device
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False) and not e.name.startswith("gradient_step_")
+               and "#" not in e.name]
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no device activity on this machine")
+    by_name = collections.defaultdict(lambda: [0, 0.0])
+    for e in kernels:
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += e.time_range.elapsed_us()
+    busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / steps
+    if trace:
+        prof.export_chrome_trace(trace)
+    return {**result, "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / result["step_ms"],
+            "launches": len(kernels) // steps, "kernels": dict(by_name)}
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--steps", type=int, default=5)
+    parser.add_argument("--trace", default=None, help="write the Chrome trace here")
+    args = parser.parse_args(argv)
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers, make_train_step
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments_state
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs.env import make_env
+    from sheeprl_tpu_torch.parallel.runtime import resolve_device
+    from sheeprl_tpu_torch.serving.loader import _actions_dim
+
+    device = resolve_device("cuda")
+    cfg = compose(["exp=dreamer_v3", "env=dummy", "diagnostics=off", "run_name=step_profile", "seed=5"])
+    env = make_env(cfg, cfg.seed, 0)()
+    actions_dim, is_continuous, _ = _actions_dim(env.action_space)
+    agent = build_agent(actions_dim, is_continuous, cfg, env.observation_space, None, device)
+    env.close()
+    step = make_train_step(agent, make_optimizers(cfg, agent), cfg, is_continuous)
+    gen = torch.Generator(device=device).manual_seed(5)
+    batch = synthetic_batch(cfg, actions_dim, gen, device)
+    out = time_gradient_steps(step, init_moments_state(device), batch, gen, args.steps, warmup=3, profile=True,
+                              trace=args.trace)
+
+    # the card's name and power limit, beside every number printed
+    name = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], check=True,
+                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
+    steps, by_name = args.steps, out["kernels"]
+    total = sum(v[1] for v in by_name.values())
+    print(f"[profile] DreamerV3-S gradient step: {out['step_ms']:.3f} ms median stream time (CUDA events), "
+          f"{out['steps_per_s']:.3f} steps/s over {steps} steps; device busy {out['busy_ms']:.3f} ms a step "
+          f"(kernel time summed {total / 1e3 / steps:.3f} ms) in {out['launches']} launches, idle share "
+          f"{out['idle_share']:.4f}  [{name}]")
+    gru = [v for k, v in by_name.items() if "ln_gru" in k]
+    gru_us = sum(v[1] for v in gru)
+    print(f"[profile] ln_gru kernel: {sum(v[0] for v in gru) // steps} launches a step, "
+          f"{gru_us / 1e3 / steps:.4f} ms a step, {100 * gru_us / total:.3f} % of kernel time  [{name}]")
+    for kname, (calls, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
+        print(f"[profile] {100 * us / total:6.2f} %  {us / 1e3 / steps:8.3f} ms/step  {calls // steps:6d} "
+              f"calls/step  {kname[:110]}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,5 +1,6 @@
-"""Command-line entry points (counterpart of ``sheeprl_tpu/cli.py``; the
-serving slice ports ``serve``)."""
+"""Command-line entry points (counterpart of ``sheeprl_tpu/cli.py``):
+``run`` trains, ``serve`` serves a checkpoint.  Evaluation, resume and
+registration are still to port (ROADMAP.md Queue 1)."""
 
 from __future__ import annotations
 
@@ -10,27 +11,16 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 import yaml
 
-from sheeprl_tpu_torch.config import compose_group, deep_merge
+from sheeprl_tpu_torch.config import compose, compose_group, deep_merge, instantiate
+from sheeprl_tpu_torch.parallel.runtime import resolve_device
 from sheeprl_tpu_torch.utils.utils import dotdict, nest_dotted
 
 
 def select_device(cfg) -> torch.device:
     """``fabric.accelerator=cpu`` runs on the CPU; anything else means CUDA,
-    and then a missing CUDA device is an error, not a reason to fall back."""
-    if str(cfg.fabric.get("accelerator", "auto")) == "cpu":
-        return torch.device("cpu")
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            f"fabric.accelerator={cfg.fabric.get('accelerator')!r} selects a CUDA device and none is available; "
-            "pass fabric.accelerator=cpu to run on the CPU"
-        )
-    # fp32 everywhere on the serving path: a policy served from a checkpoint
-    # should act as the trained one did, and TF32 (about three decimal
-    # digits) can flip a near-tied argmax.  PyTorch's default already keeps
-    # matmuls in fp32; convolutions default to TF32 through cuDNN.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
+    and then a missing CUDA device is an error, not a reason to fall back
+    (:func:`~sheeprl_tpu_torch.parallel.runtime.resolve_device`)."""
+    return resolve_device(cfg.fabric.get("accelerator", "auto"))
 
 
 def serve_config(args: Optional[Sequence[str]] = None) -> Tuple[dotdict, str, torch.device]:
@@ -68,3 +58,48 @@ def serve(args: Optional[Sequence[str]] = None) -> None:
     from sheeprl_tpu_torch.serving.server import serve_checkpoint
 
     serve_checkpoint(*serve_config(args))
+
+
+def check_configs(cfg: dotdict) -> None:
+    """The checks of the JAX package's ``check_configs`` that a ported
+    algorithm needs; options the port does not run raise where the
+    algorithm reads them."""
+    from sheeprl_tpu_torch.utils.registry import find_algorithm
+
+    if find_algorithm(cfg.algo.name) is None:
+        raise NotImplementedError(
+            f"Algorithm {cfg.algo.name!r} is not ported yet (see ROADMAP.md Queue 1); the port trains: dreamer_v3"
+        )
+    if cfg.metric.log_level not in (0, 1):
+        raise ValueError(f"metric.log_level must be 0 or 1, got {cfg.metric.log_level}")
+    learning_starts = cfg.algo.get("learning_starts")
+    if learning_starts is not None and learning_starts < 0:
+        raise ValueError("The `algo.learning_starts` parameter must be greater or equal to zero")
+
+
+def run_algorithm(cfg: dotdict) -> Any:
+    """Registry lookup -> runtime -> the algorithm's entry point; returns
+    what the entry point returns."""
+    import importlib
+
+    from sheeprl_tpu_torch.utils.registry import find_algorithm
+
+    entry = find_algorithm(cfg.algo.name)
+    algo_utils = importlib.import_module(entry["module"].rsplit(".", 1)[0] + ".utils")
+    keys = getattr(algo_utils, "AGGREGATOR_KEYS", None)
+    metrics_cfg = cfg.metric.aggregator.get("metrics", {})
+    if keys is not None and isinstance(metrics_cfg, dict):
+        cfg.metric.aggregator.metrics = dotdict({k: v for k, v in metrics_cfg.items() if k in keys})
+    entrypoint = getattr(importlib.import_module(entry["module"]), entry["entrypoint"])
+    runtime = instantiate(cfg.fabric)
+    return runtime.launch(entrypoint, cfg)
+
+
+def run(args: Optional[Sequence[str]] = None) -> Any:
+    """``python -m sheeprl_tpu_torch run exp=dreamer_v3 env=dummy
+    diagnostics=off [fabric.accelerator=cpu] ...``: compose the config from
+    Hydra-style overrides and train.  On the card unless
+    ``fabric.accelerator=cpu``."""
+    cfg = compose(list(args if args is not None else sys.argv[1:]))
+    check_configs(cfg)
+    return run_algorithm(cfg)

@@ -13,13 +13,14 @@ The subset of Hydra semantics the config tree uses:
 - ``${a.b}`` absolute interpolation and the ``${now:%fmt}`` resolver;
 - ``???`` mandatory-value markers (validated eagerly after composition).
 
-The port composes configs but instantiates no ``_target_``: the targets in
-``configs/`` that name modules not ported yet are listed in ROADMAP.md.
+:func:`instantiate` builds a ``_target_``; the targets in ``configs/`` that
+name modules not ported yet are listed in ROADMAP.md.
 """
 
 from __future__ import annotations
 
 import datetime
+import importlib
 import os
 import re
 from pathlib import Path
@@ -329,3 +330,24 @@ def compose_group(group: str, option: str = "default") -> dotdict:
     backfill the ``serving`` block of an archived run config."""
     sub = _compose_group_file(group, option)
     return dotdict(resolve_interpolations(sub))
+
+
+def instantiate(node: Mapping[str, Any] | Any, **kwargs: Any) -> Any:
+    """Recursive ``_target_`` instantiation (Hydra's
+    ``hydra.utils.instantiate``, without ``_partial_``: no config of the
+    port uses it)."""
+    if not isinstance(node, Mapping) or "_target_" not in node:
+        return node
+    module_name, _, attr = str(node["_target_"]).rpartition(".")
+    obj = getattr(importlib.import_module(module_name), attr)
+
+    def _inst(v: Any) -> Any:
+        if isinstance(v, Mapping):
+            return instantiate(v) if "_target_" in v else {kk: _inst(vv) for kk, vv in v.items()}
+        if isinstance(v, list):
+            return [_inst(item) for item in v]
+        return v
+
+    call_kwargs = {k: _inst(v) for k, v in node.items() if k != "_target_"}
+    call_kwargs.update(kwargs)
+    return obj(**call_kwargs)

@@ -1,0 +1,215 @@
+"""Replay buffers: host-side numpy storage, optionally memory-mapped
+(counterpart of ``sheeprl_tpu/data/buffers.py``).
+
+The same ``[time, n_envs, ...]`` layout and the same sampling, draw for draw
+from a seeded ``numpy`` generator, as the JAX package's ``ReplayBuffer``,
+``SequentialReplayBuffer`` and ``EnvIndependentReplayBuffer``.  Only the
+sampled minibatch crosses to the device, staged by the training loop.  The
+device-resident ring (``buffer.device=True``) and the episode buffer are not
+ported yet (ROADMAP.md Queue 1).
+"""
+
+from __future__ import annotations
+
+import os
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence, Type
+
+import numpy as np
+
+from sheeprl_tpu_torch.data.memmap import MemmapArray
+
+
+def _validate_add_data(data: Dict[str, np.ndarray]) -> None:
+    if not isinstance(data, dict):
+        raise ValueError(f"'data' must be a dictionary containing Numpy arrays, got type '{type(data)}'")
+    for k, v in data.items():
+        if not isinstance(v, np.ndarray):
+            raise ValueError(f"'data' must contain Numpy arrays. Key '{k}' has type '{type(v)}'")
+        if v.ndim < 2:
+            raise RuntimeError(f"'data' must have at least 2 dims [time, n_envs, ...]; '{k}' has shape {v.shape}")
+    shapes = {k: v.shape[:2] for k, v in data.items()}
+    if len(set(shapes.values())) > 1:
+        raise RuntimeError(f"Every array in 'data' must agree in the first 2 dims, got {shapes}")
+
+
+class ReplayBuffer:
+    """Circular buffer over dict-of-ndarray storage."""
+
+    batch_axis: int = 1
+
+    def __init__(self, buffer_size: int, n_envs: int = 1, memmap: bool = False,
+                 memmap_dir: str | os.PathLike | None = None):
+        if buffer_size <= 0:
+            raise ValueError(f"The buffer size must be greater than zero, got: {buffer_size}")
+        if n_envs <= 0:
+            raise ValueError(f"The number of environments must be greater than zero, got: {n_envs}")
+        self._buffer_size = buffer_size
+        self._n_envs = n_envs
+        self._memmap = memmap
+        self._memmap_dir = memmap_dir
+        if self._memmap:
+            if memmap_dir is None:
+                raise ValueError("memmap=True requires a 'memmap_dir'")
+            self._memmap_dir = Path(memmap_dir)
+            self._memmap_dir.mkdir(parents=True, exist_ok=True)
+        self._buf: Dict[str, np.ndarray | MemmapArray] = {}
+        self._pos = 0
+        self._full = False
+        self._rng: np.random.Generator = np.random.default_rng()
+
+    @property
+    def buffer(self) -> Dict[str, np.ndarray | MemmapArray]:
+        return self._buf
+
+    @property
+    def buffer_size(self) -> int:
+        return self._buffer_size
+
+    @property
+    def empty(self) -> bool:
+        return len(self._buf) == 0
+
+    def seed(self, seed: Optional[int]) -> None:
+        self._rng = np.random.default_rng(seed)
+
+    def _allocate(self, key: str, per_step_shape: tuple, dtype: Any) -> None:
+        full_shape = (self._buffer_size, self._n_envs, *per_step_shape)
+        if self._memmap:
+            self._buf[key] = MemmapArray(shape=full_shape, dtype=dtype, filename=Path(self._memmap_dir) / f"{key}.memmap")
+        else:
+            self._buf[key] = np.empty(shape=full_shape, dtype=dtype)
+
+    def add(self, data: Dict[str, np.ndarray], validate_args: bool = False) -> None:
+        """Insert ``[T, n_envs, ...]`` rows at the write head, wrapping; an
+        add longer than the buffer keeps its newest ``buffer_size`` rows."""
+        if validate_args:
+            _validate_add_data(data)
+        steps = next(iter(data.values())).shape[0]
+        if steps > self._buffer_size:
+            data = {k: v[steps - self._buffer_size :] for k, v in data.items()}
+            steps = self._buffer_size
+        head = self._pos
+        tail_span = min(steps, self._buffer_size - head)
+        was_empty = self.empty
+        for k, v in data.items():
+            if k not in self._buf:
+                if not was_empty:
+                    raise KeyError(f"Unknown buffer key '{k}'; the buffer was initialized with {sorted(self._buf)}")
+                self._allocate(k, v.shape[2:], v.dtype)
+            storage = self._buf[k]
+            storage[head : head + tail_span] = v[:tail_span]
+            if steps > tail_span:
+                storage[: steps - tail_span] = v[tail_span:]
+        if head + steps >= self._buffer_size:
+            self._full = True
+        self._pos = (head + steps) % self._buffer_size
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"buffer": {k: np.asarray(v).copy() for k, v in self._buf.items()}, "pos": self._pos,
+                "full": self._full}
+
+
+class SequentialReplayBuffer(ReplayBuffer):
+    """Samples fixed-length contiguous sequences, ignoring episode bounds:
+    ``[n_samples, sequence_length, batch_size, ...]``."""
+
+    batch_axis: int = 2
+
+    def sample(self, batch_size: int, n_samples: int = 1, sequence_length: int = 1) -> Dict[str, np.ndarray]:
+        batch_dim = batch_size * n_samples
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError(f"'batch_size' ({batch_size}) and 'n_samples' ({n_samples}) must be both greater than 0")
+        if not self._full and self._pos == 0:
+            raise ValueError("No sample has been added to the buffer. Call 'add' first")
+        if not self._full and self._pos - sequence_length + 1 < 1:
+            raise ValueError(f"Cannot sample a sequence of length {sequence_length}. Data added so far: {self._pos}")
+        if self._full and sequence_length > self._buffer_size:
+            raise ValueError(
+                f"The sequence length ({sequence_length}) is greater than the buffer size ({self._buffer_size})"
+            )
+        if self._full:
+            # a window lies inside the logical stream: its start's age (the
+            # newest row is age 0) is in [sequence_length - 1, size)
+            start_ages = self._rng.integers(sequence_length - 1, self._buffer_size, size=(batch_dim,), dtype=np.intp)
+            start_idxes = (self._pos - 1 - start_ages) % self._buffer_size
+        else:
+            start_idxes = self._rng.integers(0, self._pos - sequence_length + 1, size=(batch_dim,), dtype=np.intp)
+        idxes = (start_idxes[:, None] + np.arange(sequence_length, dtype=np.intp)[None, :]) % self._buffer_size
+        flat_batch_idxes = np.ravel(idxes)
+        if self._n_envs == 1:
+            env_idxes = np.zeros((batch_dim * sequence_length,), dtype=np.intp)
+        else:
+            env_idxes = self._rng.integers(0, self._n_envs, size=(batch_dim,), dtype=np.intp)
+            env_idxes = np.ravel(np.tile(env_idxes.reshape(-1, 1), (1, sequence_length)))
+        flat_idxes = flat_batch_idxes * self._n_envs + env_idxes
+        samples: Dict[str, np.ndarray] = {}
+        for k, v in self._buf.items():
+            taken = np.take(np.reshape(np.asarray(v), (-1, *v.shape[2:])), flat_idxes, axis=0)
+            batched = np.reshape(taken, (n_samples, batch_size, sequence_length) + taken.shape[1:])
+            samples[k] = np.swapaxes(batched, 1, 2)
+        return samples
+
+
+class EnvIndependentReplayBuffer:
+    """One sub-buffer per environment: envs finish episodes at different
+    times, and each keeps its own write head."""
+
+    def __init__(self, buffer_size: int, n_envs: int = 1, memmap: bool = False,
+                 memmap_dir: str | os.PathLike | None = None, buffer_cls: Type[ReplayBuffer] = SequentialReplayBuffer):
+        if buffer_size <= 0:
+            raise ValueError(f"The buffer size must be greater than zero, got: {buffer_size}")
+        if n_envs <= 0:
+            raise ValueError(f"The number of environments must be greater than zero, got: {n_envs}")
+        if memmap and memmap_dir is None:
+            raise ValueError("memmap=True requires a 'memmap_dir'")
+        self._buf: List[ReplayBuffer] = [
+            buffer_cls(buffer_size=buffer_size, n_envs=1, memmap=memmap,
+                       memmap_dir=Path(memmap_dir) / f"env_{i}" if memmap else None)
+            for i in range(n_envs)
+        ]
+        self._buffer_size = buffer_size
+        self._n_envs = n_envs
+        self._rng: np.random.Generator = np.random.default_rng()
+        self._concat_along_axis = buffer_cls.batch_axis
+
+    @property
+    def buffer(self) -> Sequence[ReplayBuffer]:
+        return tuple(self._buf)
+
+    @property
+    def buffer_size(self) -> int:
+        return self._buffer_size
+
+    def seed(self, seed: Optional[int]) -> None:
+        self._rng = np.random.default_rng(seed)
+        for i, b in enumerate(self._buf):
+            b.seed(None if seed is None else seed + i)
+
+    def add(self, data: Dict[str, np.ndarray], indices: Optional[Sequence[int]] = None,
+            validate_args: bool = False) -> None:
+        """Column ``j`` of ``data`` goes to the sub-buffer of env
+        ``indices[j]`` (all envs by default)."""
+        if indices is None:
+            indices = tuple(range(self._n_envs))
+        elif len(indices) != next(iter(data.values())).shape[1]:
+            raise ValueError(
+                f"The length of 'indices' ({len(indices)}) must equal the env dim of 'data' "
+                f"({next(iter(data.values())).shape[1]})"
+            )
+        if validate_args:
+            _validate_add_data(data)
+        for data_idx, env_idx in enumerate(indices):
+            self._buf[env_idx].add({k: v[:, data_idx : data_idx + 1] for k, v in data.items()})
+
+    def sample(self, batch_size: int, n_samples: int = 1, **kwargs: Any) -> Dict[str, np.ndarray]:
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError(f"'batch_size' ({batch_size}) and 'n_samples' ({n_samples}) must be both greater than 0")
+        bs_per_buf = np.bincount(self._rng.integers(0, self._n_envs, (batch_size,)), minlength=self._n_envs)
+        per_buf = [
+            b.sample(batch_size=int(bs), n_samples=n_samples, **kwargs) for b, bs in zip(self._buf, bs_per_buf) if bs > 0
+        ]
+        return {k: np.concatenate([s[k] for s in per_buf], axis=self._concat_along_axis) for k in per_buf[0]}
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"buffers": [b.state_dict() for b in self._buf]}

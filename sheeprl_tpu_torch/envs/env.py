@@ -1,21 +1,22 @@
-"""Environment factory (counterpart of ``sheeprl_tpu/envs/env.py::make_env``)
-for the dummy envs.
+"""Environment factory (counterpart of ``sheeprl_tpu/envs/env.py``) for the
+dummy envs: ``make_env``, ``make_env_fns`` and a synchronous vector env.
 
-The serving slice builds one env only to learn the observation and action
-spaces of a checkpoint's run.  The other env backends (Atari, DMC, Crafter,
-MineRL, MineDojo, DIAMBRA, Super Mario Bros) and the frame-stack,
-actions-as-observation, reward-as-observation and mask-velocity wrappers
-raise ``NotImplementedError`` until ROADMAP.md Queue 1 item "Envs" lands.
+Serving builds one env to learn a checkpoint's spaces; training steps a
+:class:`SyncVectorEnv` of them.  The other env backends (Atari, DMC,
+Crafter, MineRL, MineDojo, DIAMBRA, Super Mario Bros), the frame-stack,
+actions-as-observation, reward-as-observation and mask-velocity wrappers and
+the pipelined executors raise ``NotImplementedError`` until ROADMAP.md
+Queue 1 item "Envs" lands.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from sheeprl_tpu_torch.envs import spaces
-from sheeprl_tpu_torch.envs.wrappers import ActionRepeat, Wrapper
+from sheeprl_tpu_torch.envs.wrappers import ActionRepeat, TimeLimit, Wrapper
 
 _NOT_PORTED = "not ported yet: see ROADMAP.md Queue 1, item 'Envs'"
 
@@ -149,6 +150,91 @@ def make_env(
             env = _PixelPipeline(env, cnn_keys, cfg.env.screen_size, cfg.env.grayscale)
         env.action_space.seed(seed)
         env.observation_space.seed(seed)
+        if cfg.env.get("max_episode_steps") and cfg.env.max_episode_steps > 0:
+            env = TimeLimit(env, cfg.env.max_episode_steps)
         return env
 
     return thunk
+
+
+def make_env_fns(cfg, log_dir: Optional[str] = None, prefix: str = "train") -> List[Callable[[], Any]]:
+    """One thunk per env of ``env.num_envs``, env ``i`` seeded ``seed + i``.
+    (The JAX package also wraps each in ``RestartOnException``; the dummy
+    envs never raise, and that wrapper is still to port.)"""
+    return [make_env(cfg, cfg.seed + i, 0, log_dir, prefix) for i in range(cfg.env.num_envs)]
+
+
+class SyncVectorEnv:
+    """The envs stepped one after another in this process, with the
+    same-step autoreset of the JAX package's vector envs: when an env ends
+    its episode, the observation returned is the new episode's first and the
+    last one rides in ``infos["final_obs"]``.  ``infos["episodes"]`` lists
+    the (return, length) of every episode that ended in the step."""
+
+    def __init__(self, env_fns: Sequence[Callable[[], Any]]):
+        self.envs = [fn() for fn in env_fns]
+        self.num_envs = len(self.envs)
+        self.single_observation_space = self.envs[0].observation_space
+        self.single_action_space = self.envs[0].action_space
+        self._returns = np.zeros(self.num_envs, np.float64)
+        self._lengths = np.zeros(self.num_envs, np.int64)
+
+    @property
+    def batched_action_shape(self) -> Tuple[int, ...]:
+        return (self.num_envs,) + tuple(self.single_action_space.shape)
+
+    def sample_actions(self, rng: np.random.Generator) -> np.ndarray:
+        """Uniform random actions for every env (the prefill's)."""
+        space, n = self.single_action_space, self.num_envs
+        if isinstance(space, spaces.Discrete):
+            return rng.integers(0, space.n, size=(n,))
+        if isinstance(space, spaces.MultiDiscrete):
+            return rng.integers(0, space.nvec, size=(n,) + space.nvec.shape)
+        if isinstance(space, spaces.Box):
+            # uniform where both bounds are finite, a standard normal elsewhere
+            shape = (n,) + space.shape
+            bounded = np.isfinite(space.low) & np.isfinite(space.high)
+            low, high = np.where(bounded, space.low, 0.0), np.where(bounded, space.high, 0.0)
+            uniform = low + (high - low) * rng.random(shape)
+            return np.where(bounded, uniform, rng.standard_normal(shape)).astype(space.dtype)
+        raise NotImplementedError(f"sampling {space!r} is not ported")
+
+    def _stack(self, obs: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+        return {k: np.stack([o[k] for o in obs]) for k in obs[0]}
+
+    def reset(self, seed: Optional[int] = None):
+        obs = [env.reset(seed=None if seed is None else seed + i)[0] for i, env in enumerate(self.envs)]
+        self._returns[:] = 0
+        self._lengths[:] = 0
+        return self._stack(obs), {}
+
+    def step(self, actions: np.ndarray):
+        obs, rewards, terminated, truncated = [], [], [], []
+        final_obs: List[Optional[Dict[str, np.ndarray]]] = [None] * self.num_envs
+        episodes = []
+        for i, env in enumerate(self.envs):
+            o, r, term, trunc, _ = env.step(actions[i])
+            self._returns[i] += r
+            self._lengths[i] += 1
+            if term or trunc:
+                final_obs[i] = o
+                episodes.append((self._returns[i], self._lengths[i]))
+                self._returns[i], self._lengths[i] = 0, 0
+                o = env.reset()[0]
+            obs.append(o)
+            rewards.append(r)
+            terminated.append(term)
+            truncated.append(trunc)
+        infos = {"final_obs": final_obs, "episodes": episodes}
+        return (self._stack(obs), np.asarray(rewards, np.float32), np.asarray(terminated, bool),
+                np.asarray(truncated, bool), infos)
+
+    def close(self) -> None:
+        for env in self.envs:
+            env.close()
+
+
+def vectorized_env(env_fns: Sequence[Callable[[], Any]]) -> SyncVectorEnv:
+    """The synchronous vector env; the JAX package's async and shared-memory
+    executors are still to port (ROADMAP.md Queue 1)."""
+    return SyncVectorEnv(env_fns)

@@ -1,5 +1,6 @@
 """Env wrappers (counterpart of ``sheeprl_tpu/envs/wrappers.py``): the base
-wrapper and the ``ActionRepeat`` that ``make_env`` applies to the dummy envs."""
+wrapper, the ``ActionRepeat`` that ``make_env`` applies to the dummy envs
+and the episode ``TimeLimit`` (gymnasium's, which the JAX package uses)."""
 
 from __future__ import annotations
 
@@ -45,3 +46,23 @@ class ActionRepeat(Wrapper):
             total_reward += reward
             current_step += 1
         return obs, total_reward, done, truncated, info
+
+
+class TimeLimit(Wrapper):
+    """Truncate an episode after ``max_episode_steps`` steps."""
+
+    def __init__(self, env, max_episode_steps: int):
+        super().__init__(env)
+        self._max_episode_steps = int(max_episode_steps)
+        self._elapsed = 0
+
+    def step(self, action):
+        obs, reward, done, truncated, info = self.env.step(action)
+        self._elapsed += 1
+        if self._elapsed >= self._max_episode_steps:
+            truncated = True
+        return obs, reward, done, truncated, info
+
+    def reset(self, seed=None, options=None):
+        self._elapsed = 0
+        return self.env.reset(seed=seed, options=options)

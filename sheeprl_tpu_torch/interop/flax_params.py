@@ -2,18 +2,23 @@
 (numpy, as its checkpoints store them) to the port's DV3 modules and back.
 
 Rules: Dense ``kernel[in, out]`` <-> Linear ``weight[out, in]``; Conv
-``kernel`` HWIO <-> ``weight`` OIHW; LayerNorm ``scale``/``bias`` <->
+``kernel`` HWIO <-> ``weight`` OIHW; ConvTranspose ``kernel``
+``[kh, kw, in, out]`` <-> ``ConvTranspose2d.weight`` ``[in, out, kh, kw]``
+flipped in both spatial axes (flax's ``lax.conv_transpose`` correlates with
+the kernel as stored, torch's transposed convolution is the gradient of a
+convolution and so applies it flipped); LayerNorm ``scale``/``bias`` <->
 ``weight``/``bias``; ``rssm/initial_recurrent_state`` as is.  Both
 directions walk one spec of the port's modules, laid out in the flax tree's
 own names, so they cannot disagree.  The walk is strict: a key missing on
-either side or a shape that differs raises.  The only keys skipped are the
-subtrees the serving slice does not build yet, named in
-``SKIPPED_WORLD_MODEL`` and ``SKIPPED_TOP``.
+either side or a shape that differs raises.  Training reads and writes all
+four trees; serving reads only what a policy acts with
+(:func:`from_flax_policy`), and the subtrees it does not act with
+(:data:`NOT_ACTED_WITH`) may be in the checkpoint or not.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Set
 
 import numpy as np
 import torch
@@ -22,20 +27,18 @@ from torch import nn
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     RSSM,
     Actor,
+    CNNDecoderDV3,
     CNNEncoderDV3,
+    Critic,
     DenseStack,
+    MLPDecoderDV3,
     MLPEncoderDV3,
+    PredictionHead,
     RecurrentModel,
     WorldModel,
     _StochHead,
 )
 from sheeprl_tpu_torch.models.blocks import LayerNormGRUCell
-
-#: world-model subtrees the training slice will build
-SKIPPED_WORLD_MODEL = ("cnn_decoder", "mlp_decoder", "reward_model", "continue_model")
-#: top-level checkpoint trees the training slice will build
-SKIPPED_TOP = ("critic", "target_critic")
-
 
 
 def _linear(m: nn.Linear) -> Dict[str, Any]:
@@ -51,6 +54,13 @@ def _norm(m: nn.LayerNorm) -> Dict[str, Any]:
 
 def _conv(m: nn.Conv2d) -> Dict[str, Any]:
     spec: Dict[str, Any] = {"kernel": (m.weight, "conv")}
+    if m.bias is not None:
+        spec["bias"] = (m.bias, "same")
+    return spec
+
+
+def _conv_transpose(m: nn.ConvTranspose2d) -> Dict[str, Any]:
+    spec: Dict[str, Any] = {"kernel": (m.weight, "conv_transpose")}
     if m.bias is not None:
         spec["bias"] = (m.bias, "same")
     return spec
@@ -81,8 +91,25 @@ def _cnn(m: CNNEncoderDV3) -> Dict[str, Any]:
     return spec
 
 
-def _head(m: _StochHead) -> Dict[str, Any]:
+def _head(m: _StochHead | PredictionHead) -> Dict[str, Any]:
     return {"DenseStack_0": _stack(m.stack), "Dense_0": _linear(m.head)}
+
+
+def _cnn_decoder(m: CNNDecoderDV3) -> Dict[str, Any]:
+    spec: Dict[str, Any] = {"Dense_0": _linear(m.dense)}
+    for i, deconv in enumerate(m.deconvs):
+        spec[f"ConvTranspose_{i}"] = _conv_transpose(deconv)
+        if m.norms is not None:
+            spec[f"LayerNorm_{i}"] = _norm(m.norms[i])
+    spec[f"ConvTranspose_{len(m.deconvs)}"] = _conv_transpose(m.out)
+    return spec
+
+
+def _mlp_decoder(m: MLPDecoderDV3) -> Dict[str, Any]:
+    spec: Dict[str, Any] = {"DenseStack_0": _stack(m.stack)}
+    for i, head in enumerate(m.heads):
+        spec[f"Dense_{i}"] = _linear(head)
+    return spec
 
 
 def _rssm(m: RSSM) -> Dict[str, Any]:
@@ -97,9 +124,19 @@ def _rssm(m: RSSM) -> Dict[str, Any]:
     return spec
 
 
-def param_spec(world_model: WorldModel, actor: Actor) -> Dict[str, Any]:
-    """The port's parameters in the layout of the flax trees; each leaf is
-    ``(tensor, kind)``, the kind naming how the flax array maps onto it."""
+#: by path in the trees, the subtrees a policy does not act with: serving
+#: reads a checkpoint whether it holds them or not, as the JAX package's
+#: ``build_policy`` does
+NOT_ACTED_WITH: Dict[str, Set[str]] = {
+    "": {"critic", "target_critic"},
+    "/world_model/params": {"cnn_decoder", "mlp_decoder", "reward_model", "continue_model"},
+}
+
+
+def policy_spec(world_model: WorldModel, actor: Actor) -> Dict[str, Any]:
+    """What a policy acts with, in the layout of the flax trees: the world
+    model's encoders and RSSM, and the actor.  Each leaf is ``(tensor,
+    kind)``, the kind naming how the flax array maps onto it."""
     wm: Dict[str, Any] = {"rssm": _rssm(world_model.rssm)}
     if world_model.cnn_encoder is not None:
         wm["cnn_encoder"] = _cnn(world_model.cnn_encoder)
@@ -112,11 +149,29 @@ def param_spec(world_model: WorldModel, actor: Actor) -> Dict[str, Any]:
     return {"world_model": {"params": wm}, "actor": {"params": act}}
 
 
+def param_spec(world_model: WorldModel, actor: Actor, critic: Critic, target_critic: Critic) -> Dict[str, Any]:
+    """The port's parameters, all four trees, in the layout of the flax
+    trees (see :func:`policy_spec`)."""
+    spec = policy_spec(world_model, actor)
+    wm = spec["world_model"]["params"]
+    wm["reward_model"] = _head(world_model.reward_model)
+    wm["continue_model"] = _head(world_model.continue_model)
+    if world_model.cnn_decoder is not None:
+        wm["cnn_decoder"] = _cnn_decoder(world_model.cnn_decoder)
+    if world_model.mlp_decoder is not None:
+        wm["mlp_decoder"] = _mlp_decoder(world_model.mlp_decoder)
+    spec["critic"] = {"params": _head(critic)}
+    spec["target_critic"] = {"params": _head(target_critic)}
+    return spec
+
+
 def _to_torch(array: np.ndarray, kind: str) -> np.ndarray:
     if kind == "dense":
         return array.T
     if kind == "conv":
         return array.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+    if kind == "conv_transpose":
+        return array.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]  # [kh, kw, in, out] -> [in, out, kh, kw], flipped
     return array
 
 
@@ -125,41 +180,42 @@ def _to_flax(array: np.ndarray, kind: str) -> np.ndarray:
         return array.T
     if kind == "conv":
         return array.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+    if kind == "conv_transpose":
+        return array[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
     return array
 
 
-def _skipped(path: str) -> Tuple[str, ...]:
-    if path == "/world_model/params":
-        return SKIPPED_WORLD_MODEL
-    if path == "":
-        return SKIPPED_TOP
-    return ()
-
-
 @torch.no_grad()
-def _load(spec: Mapping[str, Any], tree: Any, path: str) -> None:
+def _load(spec: Mapping[str, Any], tree: Any, path: str, unread: Mapping[str, Set[str]]) -> None:
     if not isinstance(tree, Mapping):
         raise TypeError(f"flax params at '{path or '/'}' must be a mapping, got {type(tree).__name__}")
-    unknown = set(tree) - set(spec) - set(_skipped(path))
+    unknown = set(tree) - set(spec) - unread.get(path, set())
     missing = set(spec) - set(tree)
     if unknown or missing:
         raise KeyError(f"flax params at '{path or '/'}': unknown keys {sorted(unknown)}, missing keys {sorted(missing)}")
     for key, sub in spec.items():
         where = f"{path}/{key}"
         if isinstance(sub, dict):
-            _load(sub, tree[key], where)
+            _load(sub, tree[key], where, unread)
             continue
         tensor, kind = sub
         value = _to_torch(np.asarray(tree[key]), kind)
         if tuple(value.shape) != tuple(tensor.shape):
             raise ValueError(f"flax param '{where}' maps to shape {tuple(value.shape)}, the port has {tuple(tensor.shape)}")
-        tensor.copy_(torch.tensor(value))  # a copy: checkpoint arrays may be read-only
+        tensor.copy_(torch.tensor(np.ascontiguousarray(value)))  # a copy: checkpoint arrays may be read-only
 
 
-def from_flax(tree: Mapping[str, Any], world_model: WorldModel, actor: Actor) -> None:
-    """Copy ``{"world_model": {"params": ...}, "actor": {"params": ...}}``
-    (plus, skipped, the critics) into the port's modules, strictly."""
-    _load(param_spec(world_model, actor), tree, "")
+def from_flax(tree: Mapping[str, Any], world_model: WorldModel, actor: Actor, critic: Critic,
+              target_critic: Critic) -> None:
+    """Copy ``{"world_model": {"params": ...}, "actor": ..., "critic": ...,
+    "target_critic": ...}`` into the port's modules, strictly."""
+    _load(param_spec(world_model, actor, critic, target_critic), tree, "", {})
+
+
+def from_flax_policy(tree: Mapping[str, Any], world_model: WorldModel, actor: Actor) -> None:
+    """Copy what a policy acts with out of a checkpoint's trees, strictly;
+    the subtrees of :data:`NOT_ACTED_WITH` are not read and may be absent."""
+    _load(policy_spec(world_model, actor), tree, "", NOT_ACTED_WITH)
 
 
 def _dump(spec: Mapping[str, Any]) -> Dict[str, Any]:
@@ -173,6 +229,6 @@ def _dump(spec: Mapping[str, Any]) -> Dict[str, Any]:
     return out
 
 
-def to_flax(world_model: WorldModel, actor: Actor) -> Dict[str, Any]:
-    """The port's weights as the JAX package's param trees (numpy)."""
-    return _dump(param_spec(world_model, actor))
+def to_flax(world_model: WorldModel, actor: Actor, critic: Critic, target_critic: Critic) -> Dict[str, Any]:
+    """The port's weights as the JAX package's four param trees (numpy)."""
+    return _dump(param_spec(world_model, actor, critic, target_critic))

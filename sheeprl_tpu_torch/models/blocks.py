@@ -50,7 +50,8 @@ class LayerNormGRUCell(nn.Module):
 
     With LayerNorm on and 2-D input the cell runs
     :func:`~sheeprl_tpu_torch.ops.ln_gru.fused_layernorm_gru`, which launches
-    the hand-written kernel on a CUDA tensor.  The JAX package chose between
+    the hand-written kernel on a CUDA tensor and carries gradients to every
+    input, the initial state's broadcast included.  The JAX package chose between
     its Pallas kernel and XLA's own fusion with ``algo.rssm_pallas`` /
     ``recurrent_model.fused_kernel``; the port has no second fused path, so it
     reads neither flag (ROADMAP.md, Queue 2).

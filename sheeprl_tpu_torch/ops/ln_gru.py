@@ -4,7 +4,12 @@ launch plan and its plain PyTorch version.
 Replaces the TPU kernel ``sheeprl_tpu/ops/pallas_gru.py::_gru_kernel``
 (launched by ``_gru_pallas`` through ``pl.pallas_call``), the RSSM's
 recurrent step: ``new_h = GRU(LayerNorm(joint @ w^T + b; g, beta), h)``,
-run once per serving dispatch.  The kernel is ``csrc/ln_gru.cu``.
+run once per serving dispatch and per player step, and 64 + 15 times per
+DreamerV3 gradient step (the dynamic scan at B=16, imagination at
+T*B=1024).  The kernel is ``csrc/ln_gru.cu``.  Under autograd it is the
+forward of :class:`_FusedLayerNormGRU`, whose backward recomputes through
+:func:`ln_gru_reference`: the JAX package's ``custom_vjp`` has no backward
+kernel either.
 
 Bound on an H100.  The kernel must read the weight ``w`` (3H·K elements) and
 the joint input (B·K), and it does 2·B·K·3H operations.  At DV3-S (K=1024,
@@ -228,6 +233,39 @@ def _check(joint, w, b, g, beta, h) -> None:
             raise ValueError(f"{name} must be [{3 * hidden}], got {tuple(tensors[name].shape)}")
 
 
+class _FusedLayerNormGRU(torch.autograd.Function):
+    """The cell under autograd.  Forward: the kernel on a CUDA tensor,
+    :func:`ln_gru_reference` on a CPU tensor.  Backward: recompute through
+    :func:`ln_gru_reference` on the saved inputs and differentiate that, the
+    design of the JAX package's ``_fused_bwd`` (``custom_vjp`` over
+    ``_gru_reference``): the TPU kernel has no backward kernel, so neither
+    does the port."""
+
+    @staticmethod
+    def forward(ctx, joint, w, b, g, beta, h, eps):
+        ctx.eps = eps
+        ctx.save_for_backward(joint, w, b, g, beta, h)
+        if joint.device.type == "cpu":
+            return ln_gru_reference(joint, w, b, g, beta, h, eps)
+        from sheeprl_tpu_torch.ops import cuda_build
+
+        return _launch(cuda_build.load("ln_gru"), joint, w, b, g, beta, h, eps)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:6]
+        with torch.enable_grad():
+            inputs = [None if t is None else t.detach().requires_grad_(need) for t, need in zip(saved, needs)]
+            out = ln_gru_reference(*inputs, ctx.eps)
+            wrt = [i for i, (t, need) in enumerate(zip(inputs, needs)) if need and t is not None]
+            grads = torch.autograd.grad(out, [inputs[i] for i in wrt], grad_out) if wrt else ()
+        result = [None] * 7
+        for i, grad in zip(wrt, grads):
+            result[i] = grad
+        return tuple(result)
+
+
 def fused_layernorm_gru(
     joint: torch.Tensor,
     w: torch.Tensor,
@@ -243,18 +281,16 @@ def fused_layernorm_gru(
     ``[3H, K]`` (``nn.Linear.weight`` layout; gate order reset | candidate |
     update), ``b`` is ``[3H]`` or None, ``g``/``beta`` the LayerNorm scale and
     shift ``[3H]``, ``h`` is ``[B, H]``.  All contiguous, one dtype (float32
-    or bfloat16), one device.  On a CPU tensor this is
+    or bfloat16), one device.  On a CPU tensor the forward is
     :func:`ln_gru_reference`; on a CUDA tensor it launches the kernel, or
-    raises.  ``fused_layernorm_gru.launches`` counts kernel launches.
+    raises.  Either way the result carries a gradient for every input that
+    requires one (:class:`_FusedLayerNormGRU`).
+    ``fused_layernorm_gru.launches`` counts kernel launches.
     """
     _check(joint, w, b, g, beta, h)
-    if joint.device.type == "cpu":
-        return ln_gru_reference(joint, w, b, g, beta, h, eps)
-    if joint.device.type != "cuda":
+    if joint.device.type not in ("cpu", "cuda"):
         raise RuntimeError(f"fused_layernorm_gru runs on cpu or cuda tensors, got {joint.device}")
-    from sheeprl_tpu_torch.ops import cuda_build
-
-    return _launch(cuda_build.load("ln_gru"), joint, w, b, g, beta, h, eps)
+    return _FusedLayerNormGRU.apply(joint, w, b, g, beta, h, eps)
 
 
 def _launch(lib, joint, w, b, g, beta, h, eps) -> torch.Tensor:

@@ -138,10 +138,11 @@ def _dreamer_v3_handle(cfg, obs_space, action_space, agent_state, device) -> Pol
     masked reset) and the step follows ``PlayerDV3``'s op order: encode ->
     recurrent_step -> representation -> actor.act.  Image keys travel as raw
     uint8 and are scaled on the device."""
-    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_policy_modules
 
     actions_dim, is_continuous, _ = _actions_dim(action_space)
-    world_model, actor = build_agent(actions_dim, is_continuous, cfg, obs_space, agent_state, device)
+    world_model, actor = build_policy_modules(actions_dim, is_continuous, cfg, obs_space, agent_state, device)
+    world_model, actor = world_model.eval(), actor.eval()
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     obs_spec: Dict[str, Tuple[Tuple[int, ...], str]] = {}

@@ -1,5 +1,6 @@
 """Checkpoint files: pickled trees of numpy arrays (counterpart of
-``sheeprl_tpu/utils/checkpoint.py::save_state``/``load_state``).
+``sheeprl_tpu/utils/checkpoint.py``: ``save_state``/``load_state`` and the
+``CheckpointCallback``).
 
 Both packages write the same format, so the port reads a checkpoint the JAX
 package wrote and the other way round.  A JAX training checkpoint also holds
@@ -13,7 +14,9 @@ from __future__ import annotations
 
 import os
 import pickle
-from typing import Any, Dict, Tuple
+import re
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
 
 _SAFE_BUILTINS = {("builtins", n) for n in ("set", "frozenset", "complex", "slice", "range", "bytearray")}
 _SAFE_BUILTINS.add(("collections", "OrderedDict"))
@@ -79,3 +82,41 @@ def load_state(path: str) -> Dict[str, Any]:
         raise ValueError(f"Checkpoint '{path}' holds a {type(state).__name__}, expected a dict")
     return state
 
+
+_STEP_RE = re.compile(r"ckpt_(\d+)_\d+\.ckpt$")
+
+
+class CheckpointCallback:
+    """The checkpoint hook (``runtime.call("on_checkpoint_coupled", ...)``).
+    With a replay buffer, its state is saved with the last stored step of
+    every env marked truncated, so that an episode in flight does not
+    bootstrap across the checkpoint, and unmarked after the save.
+    ``keep_last`` keeps that many newest checkpoints of the directory."""
+
+    def __init__(self, keep_last: Optional[int] = None, export: bool = False):
+        if export:
+            raise NotImplementedError("buffer.export=True (dataset export) is not ported yet: see ROADMAP.md Queue 1")
+        self.keep_last = keep_last
+
+    def on_checkpoint_coupled(self, runtime, ckpt_path: str, state: Dict[str, Any], replay_buffer: Any = None) -> None:
+        saved = []
+        if replay_buffer is not None:
+            for b in replay_buffer.buffer:
+                if "truncated" in b.buffer:
+                    last = (b._pos - 1) % b.buffer_size
+                    saved.append((b, last, b.buffer["truncated"][last].copy()))
+                    b.buffer["truncated"][last] = 1
+            state = {**state, "rb": replay_buffer.state_dict()}
+        try:
+            runtime.save(ckpt_path, state)
+        finally:
+            for b, last, value in saved:
+                b.buffer["truncated"][last] = value
+        if self.keep_last:
+            self._delete_old_checkpoints(Path(ckpt_path).parent)
+
+    def _delete_old_checkpoints(self, ckpt_folder: Path) -> None:
+        ckpts = [p for p in ckpt_folder.glob("ckpt_*.ckpt") if _STEP_RE.search(p.name)]
+        ckpts.sort(key=lambda p: int(_STEP_RE.search(p.name).group(1)))
+        for old in ckpts[: max(0, len(ckpts) - int(self.keep_last))]:
+            old.unlink()

@@ -1,8 +1,11 @@
-"""Host-side config containers (counterpart of ``sheeprl_tpu/utils/utils.py``)."""
+"""Host-side helpers (counterpart of ``sheeprl_tpu/utils/utils.py``): the
+config containers, the replay-ratio budgeter and the run-config archive."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+import os
+import warnings
+from typing import Any, Dict, Mapping, Optional
 
 
 class dotdict(dict):
@@ -41,3 +44,56 @@ def nest_dotted(flat: Mapping[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(part, {})
         node[parts[-1]] = value
     return out
+
+
+class Ratio:
+    """Gradient-step budgeter: how many optimizer steps the trainer owes the
+    policy-step counter at a replay ratio.  Every call banks
+    ``(step - last_step) * ratio`` of credit and pays out its integer part,
+    so over a run exactly ``ratio`` gradient steps happen per policy step.
+    The first call pays a pretrain burst of ``pretrain_steps * ratio``
+    instead (clamped to the steps taken so far)."""
+
+    def __init__(self, ratio: float, pretrain_steps: int = 0):
+        if pretrain_steps < 0:
+            raise ValueError(f"'pretrain_steps' must be non-negative, got {pretrain_steps}")
+        if ratio < 0:
+            raise ValueError(f"'ratio' must be non-negative, got {ratio}")
+        self._ratio = float(ratio)
+        self._pretrain_steps = int(pretrain_steps)
+        self._last_step: Optional[float] = None
+        self._credit = 0.0
+
+    def __call__(self, step: int) -> int:
+        if self._ratio == 0:
+            return 0
+        if self._last_step is None:
+            self._last_step = step
+            burst = self._pretrain_steps
+            if burst > 0 and step < burst:
+                warnings.warn(
+                    f"pretrain_steps ({burst}) exceeds the policy steps taken so far ({step}); "
+                    f"clamping the pretrain burst to {step} steps to keep the effective "
+                    f"replay ratio at {self._ratio}."
+                )
+                self._pretrain_steps = burst = step
+            return int((burst if burst > 0 else step) * self._ratio)
+        self._credit += (step - self._last_step) * self._ratio
+        self._last_step = step
+        repeats = int(self._credit)
+        self._credit -= repeats
+        return repeats
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {"ratio": self._ratio, "last_step": self._last_step, "credit": self._credit,
+                "pretrain_steps": self._pretrain_steps}
+
+
+def save_configs(cfg: dotdict, log_dir: str) -> None:
+    """Archive the run config as ``<log_dir>/config.yaml``, which ``serve``
+    reads back next to the checkpoints."""
+    import yaml
+
+    os.makedirs(log_dir, exist_ok=True)
+    with open(os.path.join(log_dir, "config.yaml"), "w") as fp:
+        yaml.safe_dump(cfg.as_dict() if isinstance(cfg, dotdict) else dict(cfg), fp, sort_keys=False)

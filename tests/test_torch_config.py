@@ -1,6 +1,8 @@
 """The port's config composition against the JAX package's: the same
 overrides compose to the same dict once the package prefix of the
-``_target_`` strings is normalized."""
+``_target_`` strings is normalized (and the port's optimizer factories,
+``sheeprl_tpu_torch.utils.optim.*``, read as the optax functions they
+stand for)."""
 
 from __future__ import annotations
 
@@ -19,7 +21,7 @@ def _normalized(node: Any) -> Any:
     if isinstance(node, list):
         return [_normalized(v) for v in node]
     if isinstance(node, str):
-        return node.replace("sheeprl_tpu_torch.", "sheeprl_tpu.")
+        return node.replace("sheeprl_tpu_torch.utils.optim.", "optax.").replace("sheeprl_tpu_torch.", "sheeprl_tpu.")
     return node
 
 
@@ -59,6 +61,10 @@ def test_dreamer_v3_composes_to_dv3_s_with_port_targets():
 
     walk(cfg.as_dict())
     assert not [s for s in strings if s.startswith("sheeprl_tpu.")]
+    # the DV3 path instantiates no optax target
+    assert not [s for s in strings if s.startswith("optax.")]
+    for name in ("world_model", "actor", "critic"):
+        assert cfg.algo[name].optimizer._target_ == "sheeprl_tpu_torch.utils.optim.adam"
 
 
 def test_no_yaml_names_the_jax_package():

@@ -33,10 +33,17 @@ from sheeprl_tpu.config import compose as jax_compose
 from sheeprl_tpu.serving.loader import build_policy as jax_build_policy
 from sheeprl_tpu.utils.checkpoint import save_state as jax_save_state
 from sheeprl_tpu_torch import cli
-from sheeprl_tpu_torch.algos.dreamer_v3.agent import Actor, PlayerDV3, _unimix, build_agent
+from sheeprl_tpu_torch.algos.dreamer_v3.agent import Actor, PlayerDV3, _unimix, build_agent, build_policy_modules
 from sheeprl_tpu_torch.config import compose
 from sheeprl_tpu_torch.envs import spaces
-from sheeprl_tpu_torch.interop.flax_params import from_flax, to_flax
+from sheeprl_tpu_torch.interop.flax_params import (
+    NOT_ACTED_WITH,
+    _dump,
+    from_flax,
+    from_flax_policy,
+    policy_spec,
+    to_flax,
+)
 from sheeprl_tpu_torch.serving.batcher import pick_bucket
 from sheeprl_tpu_torch.serving.loader import (
     PolicyHandle,
@@ -147,7 +154,8 @@ def tiny():
         return handle.params, handle
 
     _, jax_handle = _jit_build(build_handle)
-    world_model, actor = build_agent(ACTIONS_DIM, False, cfg, obs_space, params, "cpu")
+    agent = build_agent(ACTIONS_DIM, False, cfg, obs_space, params, "cpu")
+    world_model, actor = agent.world_model, agent.actor
     wm_params = params["world_model"]
     return {
         "jax_cfg": jax_cfg,
@@ -169,6 +177,7 @@ def tiny():
         "heads": jax.jit(lambda l: actor_def.apply(params["actor"], l)),
         "wm": world_model,
         "actor": actor,
+        "agent": agent,
     }
 
 
@@ -256,7 +265,8 @@ def test_continuous_scaled_normal_actor_act_matches(tiny, greedy):
     key = jax.random.PRNGKey(9)
     want = np.asarray(jax.jit(lambda l, k: flax_actor.apply(actor_params, l, k, greedy, None, method="act"))(latent, key))
     actor = Actor(latent_size, (3,), True, dense_units=8, mlp_layers=2)
-    from_flax({"world_model": tiny["params"]["world_model"], "actor": actor_params}, tiny["wm"], actor)
+    agent = tiny["agent"]
+    from_flax({**tiny["params"], "actor": actor_params}, tiny["wm"], actor, agent.critic, agent.target_critic)
     noise = None if greedy else [torch.from_numpy(np.array(jax.random.normal(key, (4, 3))))]
     with torch.no_grad():
         got = actor.act(torch.from_numpy(latent), None, greedy, noise)
@@ -269,11 +279,8 @@ def test_continuous_scaled_normal_actor_act_matches(tiny, greedy):
 
 
 def test_converter_round_trip_is_bit_exact(tiny):
-    back = to_flax(tiny["wm"], tiny["actor"])
-    params = tiny["params"]
-    built = {k: v for k, v in params["world_model"]["params"].items()
-             if k not in ("cnn_decoder", "mlp_decoder", "reward_model", "continue_model")}
-    want = {"world_model": {"params": built}, "actor": params["actor"]}
+    back = to_flax(*tiny["agent"])
+    want = tiny["params"]  # all four trees: the converter skips nothing
     want_leaves = {jax.tree_util.keystr(p): v for p, v in jax.tree_util.tree_leaves_with_path(want)}
     got_leaves = {jax.tree_util.keystr(p): v for p, v in jax.tree_util.tree_leaves_with_path(back)}
     assert sorted(got_leaves) == sorted(want_leaves)
@@ -282,9 +289,9 @@ def test_converter_round_trip_is_bit_exact(tiny):
         assert got.dtype == value.dtype and got.shape == value.shape and np.array_equal(got, value), path
 
 
-@pytest.mark.parametrize("fault", ["unknown_key", "missing_key", "wrong_shape"])
+@pytest.mark.parametrize("fault", ["unknown_key", "missing_key", "wrong_shape", "missing_tree"])
 def test_converter_is_strict(tiny, fault):
-    tree = jax.tree_util.tree_map(np.copy, {"world_model": tiny["params"]["world_model"], "actor": tiny["params"]["actor"]})
+    tree = jax.tree_util.tree_map(np.copy, tiny["params"])
     rssm = tree["world_model"]["params"]["rssm"]
     if fault == "unknown_key":
         rssm["bogus"] = np.zeros(3, np.float32)
@@ -292,12 +299,51 @@ def test_converter_is_strict(tiny, fault):
     elif fault == "missing_key":
         del rssm["initial_recurrent_state"]
         error = KeyError
-    else:
+    elif fault == "wrong_shape":
         rssm["initial_recurrent_state"] = np.zeros(9, np.float32)
         error = ValueError
-    world_model, actor = build_agent(ACTIONS_DIM, False, tiny["cfg"], tiny["obs_space"], None, "cpu")
+    else:  # training reads all four trees (serving reads two: see below)
+        del tree["target_critic"]
+        error = KeyError
+    agent = build_agent(ACTIONS_DIM, False, tiny["cfg"], tiny["obs_space"], None, "cpu")
     with pytest.raises(error):
-        from_flax(tree, world_model, actor)
+        from_flax(tree, *agent)
+
+
+def _policy_trees(params):
+    """A checkpoint's trees cut down to the world model's encoders and RSSM
+    and the actor: no critics, decoders or reward and continue heads."""
+    wm = {k: v for k, v in params["world_model"]["params"].items() if k not in NOT_ACTED_WITH["/world_model/params"]}
+    return {"world_model": {"params": wm}, "actor": params["actor"]}
+
+
+def _leaf_dict(tree):
+    return {jax.tree_util.keystr(p): v for p, v in jax.tree_util.tree_leaves_with_path(tree)}
+
+
+@pytest.mark.parametrize("case", ["two_trees", "four_trees", "seeded", "missing_actor", "unknown_key"])
+def test_policy_converter_reads_only_what_the_policy_acts_with(tiny, case):
+    cfg, obs_space = tiny["cfg"], tiny["obs_space"]
+    trees = jax.tree_util.tree_map(np.copy, tiny["params"] if case == "four_trees" else _policy_trees(tiny["params"]))
+    world_model, actor = build_policy_modules(ACTIONS_DIM, False, cfg, obs_space, None, "cpu")
+    assert world_model.cnn_decoder is None and world_model.reward_model is None
+    if case == "seeded":  # the seed's weights are build_agent's
+        want = _policy_trees(to_flax(*build_agent(ACTIONS_DIM, False, cfg, obs_space, None, "cpu")))
+    elif case in ("two_trees", "four_trees"):
+        from_flax_policy(trees, world_model, actor)
+        want = _policy_trees(tiny["params"])
+    else:
+        if case == "missing_actor":
+            del trees["actor"]
+        else:
+            trees["world_model"]["params"]["rssm"]["bogus"] = np.zeros(3, np.float32)
+        with pytest.raises(KeyError):
+            from_flax_policy(trees, world_model, actor)
+        return
+    got, want = _leaf_dict(_dump(policy_spec(world_model, actor))), _leaf_dict(want)
+    assert sorted(got) == sorted(want)
+    for path, value in want.items():
+        assert np.array_equal(got[path], value), path
 
 
 # ---------------------------------------------------------------------------
@@ -415,6 +461,37 @@ def test_jax_written_checkpoint_is_served_with_the_same_greedy_actions(tiny, tmp
     jstate = {k: np.zeros((batch,) + shape, dtype) for k, (shape, dtype) in handle.state_spec.items()}
     key = jax.random.PRNGKey(0)
     want, _ = tiny["jax_steps"][True](params, jstate, obs, is_first, key)
+    noise = _port_noise(key, batch, True)
+    got, _ = _margins_hold(
+        handle,
+        lambda: handle.make_state_step(True)(handle.params, _torch(jstate), _torch(obs), torch.from_numpy(is_first),
+                                             None, noise),
+        noise,
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6, rtol=0)
+
+
+def test_two_tree_checkpoint_is_served_with_the_same_greedy_actions(tiny, tmp_path):
+    """A checkpoint holding only what the policy acts with (no critics,
+    decoders or reward and continue heads) serves, as the JAX package's
+    ``build_policy`` serves it."""
+    from sheeprl_tpu_torch.utils.checkpoint import save_state
+
+    run_dir = tmp_path / "run"
+    (run_dir / "checkpoint").mkdir(parents=True)
+    with open(run_dir / "config.yaml", "w") as fp:
+        yaml.safe_dump(tiny["cfg"].as_dict(), fp)
+    ckpt = run_dir / "checkpoint" / "ckpt_16_0.ckpt"
+    save_state(str(ckpt), _policy_trees(tiny["params"]))
+    cfg, ckpt_path, device = cli.serve_config([f"checkpoint_path={ckpt}", "fabric.accelerator=cpu"])
+    handle = load_policy(cfg, ckpt_path, device)
+    assert handle.ckpt_step == 16
+    batch = 3
+    obs = _obs_np(batch, seed=41)
+    is_first = np.ones((batch, 1), np.float32)
+    jstate = {k: np.zeros((batch,) + shape, dtype) for k, (shape, dtype) in handle.state_spec.items()}
+    key = jax.random.PRNGKey(1)
+    want, _ = tiny["jax_steps"][True](tiny["params"], jstate, obs, is_first, key)
     noise = _port_noise(key, batch, True)
     got, _ = _margins_hold(
         handle,
@@ -588,7 +665,7 @@ def test_http_act_and_healthz_with_sessions_padding_and_eviction(tiny, tmp_path)
     ckpt = run_dir / "checkpoint" / "ckpt_8_0.ckpt"
     from sheeprl_tpu_torch.utils.checkpoint import save_state
 
-    save_state(str(ckpt), to_flax(tiny["wm"], tiny["actor"]))
+    save_state(str(ckpt), to_flax(*tiny["agent"]))
     cfg, ckpt_path, device = cli.serve_config(
         [f"checkpoint_path={ckpt}", "fabric.accelerator=cpu", "serving.batch_buckets=[2,4]",
          "serving.sessions.capacity=2", "serving.max_delay_ms=1.0"]

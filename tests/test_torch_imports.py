@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of ``sheeprl_tpu_torch``
 and ``chip_smoke.py`` loads neither JAX nor the JAX package, the port's
-entry points refuse to fall back to the CPU, and the chip smoke refuses to
-run without a CUDA device."""
+entry points (``serve`` and ``run``) refuse to fall back to the CPU, and the
+chip smoke refuses to run without a CUDA device."""
 
 from __future__ import annotations
 
@@ -58,6 +58,14 @@ def test_serve_entry_point_raises_where_no_cuda_device(tmp_path, monkeypatch):
     monkeypatch.setattr("torch.cuda.is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.serve([f"checkpoint_path={tmp_path / 'checkpoint' / 'ckpt_0_0.ckpt'}"])
+
+
+def test_run_entry_point_raises_where_no_cuda_device(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.run(["exp=dreamer_v3", "env=dummy", "diagnostics=off"])
+    assert not (tmp_path / "logs").exists()  # refused before the run started
 
 
 def test_chip_smoke_fails_and_prints_no_result_without_cuda():
