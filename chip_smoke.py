@@ -23,7 +23,10 @@ Phases, in order; any failure raises and the script exits non-zero:
             (ragged H of DV1/DV2, M and L, row chunks, a K that needs
             padding), checked but not timed; then a check that the
             ``autograd.Function`` on the card carries a graph and gives all
-            six inputs a gradient, at S B=16 and B=1024 fp32;
+            six inputs a gradient, at S B=16 and B=1024, fp32 and bf16 (in
+            bf16 the gradients arrive in bf16, and in fp32 at fp32 masters
+            through the cast); S B=64 and B=48 are the chunked scan's rows
+            and its burn-in's at ``rssm_chunks=4``;
 4. slice  — compose ``exp=dreamer_v3 env=dummy``, build DreamerV3-S on the card
             from a seed, write a run directory in the JAX package's checkpoint
             format, start the port's ``serve`` entry point and send /act
@@ -40,7 +43,21 @@ Phases, in order; any failure raises and the script exits non-zero:
             path from the same state, batch and noise, which must agree (the
             numerical check of the gradients through the kernel), and the
             time of a gradient step;
-6. the ``kernels`` JSON line, then the result line.
+6. chunked — ``run`` at DreamerV3-S under ``fabric.precision=bf16-mixed
+            algo.rssm_chunks=4 algo.rssm_chunk_burn_in=2 buffer.device=True
+            buffer.checkpoint=True`` for 16 gradient steps, a checkpoint
+            mid-run: launches = 33 a gradient step (16 chunked steps at 64
+            rows, 2 burn-in steps at 48, 15 imagination steps at 1024) +
+            player + test steps, every metric finite, and a kernel-vs-plain
+            bf16 gradient step from one state within bf16 tolerances;
+7. resume — ``run checkpoint.resume_from=<that run's directory>``: the
+            counters, Ratio, Moments, Adam state and the device ring
+            restored as saved, and the run trains on;
+8. eval   — ``eval checkpoint_path=<that checkpoint>``: the test reward;
+9. timers — a gradient step's stream time, device-busy time, idle share
+            and launches (``step_profile.time_gradient_steps``) for the fp32
+            ``rssm_chunks=1`` step and the chunked bf16 one;
+10. the ``kernels`` JSON line, then the result line.
 
 It needs no network, writes only under ``build/`` in the checkout, and stops
 every thread it starts.
@@ -74,15 +91,16 @@ TOLERANCE = {"float32": 1e-4, "bfloat16": 8e-3}
 S_SHAPE = (512, 512)  # (H, D): K = H + D = 1024
 XL_SHAPE = (4096, 1024)  # K = 5120
 # S: serving widths, then the training path's (B = per_rank_batch_size 16 in
-# the dynamic scan, T*B = 1024 rows in imagination)
-KERNEL_CASES = [(S_SHAPE, b) for b in (1, 8, 37, 128, 16, 1024)] + [(XL_SHAPE, b) for b in (8, 128)]
-GRAD_CASES = (16, 1024)
+# the dynamic scan, T*B = 1024 rows in imagination; 64 = K*B rows of the
+# chunked scan and 48 = (K-1)*B of its burn-in at rssm_chunks=4)
+KERNEL_CASES = [(S_SHAPE, b) for b in (1, 8, 37, 128, 16, 1024, 64, 48)] + [(XL_SHAPE, b) for b in (8, 128)]
+GRAD_CASES = [(b, d) for d in ("float32", "bfloat16") for b in (16, 1024)]
 # the graph check: the Function's backward is autograd through the plain
 # version on the saved inputs, so its gradients equal autograd through the
 # plain version by construction, up to the order of the card's reductions
 # (relative to the largest gradient).  It fails on a missing graph or
 # gradient, not on a wrong kernel: the kernel-vs-plain gradient step does that
-GRAD_TOLERANCE = 1e-5
+GRAD_TOLERANCE = {"float32": 1e-5, "bfloat16": 1e-5}
 # the training phase: batch 16 x 64, horizon 15 (exp=dreamer_v3); 4 envs, the
 # buffer must hold 64 rows of each before the first sample, so learning
 # starts at 256 policy steps and each later iteration owes 4 gradient steps
@@ -103,6 +121,29 @@ STEP_GRAD_RTOL = 1e-3
 STEP_PARAM_ATOL = 2e-5
 STEP_PARAM_OUTLIERS = 1e-4
 TIMED_STEPS = 5
+# the chunked phase: the options the DV3 presets train with, at DreamerV3-S.
+# A resumed run waits learning_starts (64 iterations of 4 envs) before it
+# trains again, as the JAX package's does, and cannot change total_steps; so
+# the run checkpoints at iteration 110 (policy step 440, the next would be
+# 880 > 876) and runs to 219, at a replay ratio that gives it 16 gradient
+# steps (4 before the checkpoint) and the resumed run about 4
+CHUNKED_STEP_OPTIONS = ["fabric.precision=bf16-mixed", "algo.rssm_chunks=4", "algo.rssm_chunk_burn_in=2"]
+CHUNKED_OPTIONS = CHUNKED_STEP_OPTIONS + ["buffer.device=True", "buffer.checkpoint=True"]
+CHUNKED_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "diagnostics=off", "env.capture_video=False",
+                     "run_name=chip_smoke_chunked", "algo.learning_starts=256", "algo.total_steps=876",
+                     "algo.replay_ratio=0.026", "buffer.size=1024", "checkpoint.every=440",
+                     "checkpoint.save_last=False", "metric.logger=null", "seed=5", *CHUNKED_OPTIONS]
+CHUNKED_GRADIENT_STEPS = 16
+# kernel vs plain gradient step in bf16 from one state: both round the
+# cell's fp32 result to bf16 once, so they differ by a bf16 step (2^-8) here
+# and there, and a straight-through sample may flip where two classes tie in
+# bf16.  The losses are held to 3e-2 relative, the gradient norms to 0.2,
+# Adam's first moments of each tree as a whole (||kernel - plain|| /
+# ||plain||) to 0.1, the critic's to 0.3 (its gradient is a small difference
+# of two log-prob terms): the tolerances the CPU tests hold the port's bf16
+# step to against the JAX package's (tests/test_torch_dv3_precision.py)
+BF16_LOSS_RTOL, BF16_NORM_RTOL = 3e-2, 0.2
+BF16_MOMENT_REL = {"world_model": 0.1, "actor": 0.1, "critic": 0.3}
 # (H, D, B): DV1 (ragged last CTA), DV2, M, L, row chunks at S and XL, and a K
 # whose rows are not 16-byte multiples
 SWEEP_CASES = [(200, 400, 5), (600, 400, 37), (1024, 640, 8), (2048, 768, 128), (512, 512, 3000),
@@ -235,39 +276,48 @@ def measure_ln_gru(batch: int, hidden: int, in_dim: int, dtype_name: str, seed: 
     }
 
 
-def check_ln_gru_graph(batch: int, hidden: int, in_dim: int, seed: int = 2) -> float:
-    """On the card, fp32: the Function's output carries an autograd graph
-    and all six inputs get a finite gradient, equal to autograd through the
-    plain version (see ``GRAD_TOLERANCE``).  Returns the largest error
-    relative to the largest gradient."""
+def check_ln_gru_graph(batch: int, hidden: int, in_dim: int, dtype_name: str = "float32", seed: int = 2) -> float:
+    """On the card: the Function's output carries an autograd graph and all
+    six inputs get a finite gradient of their own dtype, equal to autograd
+    through the plain version (see ``GRAD_TOLERANCE``); in bf16 the inputs
+    are bf16 casts of fp32 masters, as a ``bf16-mixed`` loss makes them, and
+    the masters get finite fp32 gradients through the cast.  Returns the
+    largest error relative to the largest gradient."""
     import torch
 
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru, ln_gru_reference
 
+    dtype = getattr(torch, dtype_name)
     k = hidden + in_dim
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape, scale=1.0, shift=0.0):
         return (shift + scale * torch.randn(*shape, device="cuda", generator=gen)).requires_grad_(True)
 
-    inputs = [randn(batch, k), randn(3 * hidden, k, scale=k**-0.5), randn(3 * hidden, scale=0.1),
-              randn(3 * hidden, scale=0.1, shift=1.0), randn(3 * hidden, scale=0.1), randn(batch, hidden, scale=0.5)]
-    cot = torch.randn(batch, hidden, device="cuda", generator=gen)
+    masters = [randn(batch, k), randn(3 * hidden, k, scale=k**-0.5), randn(3 * hidden, scale=0.1),
+               randn(3 * hidden, scale=0.1, shift=1.0), randn(3 * hidden, scale=0.1), randn(batch, hidden, scale=0.5)]
+    inputs = [m.to(dtype) for m in masters]
+    cot = torch.randn(batch, hidden, device="cuda", generator=gen).to(dtype)
     out = fused_layernorm_gru(*inputs, 1e-3)
-    if out.grad_fn is None:
-        raise AssertionError("ln_gru: the output on the card carries no autograd graph")
-    grads = torch.autograd.grad(out, inputs, cot)
+    if out.grad_fn is None or out.dtype != dtype:
+        raise AssertionError(f"ln_gru: the {dtype_name} output on the card carries no autograd graph or is {out.dtype}")
+    grads = torch.autograd.grad(out, inputs + masters, cot)
     plain = [t.detach().clone().requires_grad_(True) for t in inputs]
     want = torch.autograd.grad(ln_gru_reference(*plain, 1e-3), plain, cot)
     torch.cuda.synchronize()
     worst = 0.0
-    for name, g, w in zip(("joint", "w", "b", "g", "beta", "h"), grads, want):
-        if g is None or not bool(torch.isfinite(g).all()):
-            raise AssertionError(f"ln_gru: no finite gradient for {name} at B={batch}")
-        err = ((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
-        if err > GRAD_TOLERANCE:
-            raise AssertionError(f"ln_gru gradient of {name} at B={batch}: relative error {err} > {GRAD_TOLERANCE}")
+    names = ("joint", "w", "b", "g", "beta", "h")
+    for name, g, w in zip(names, grads, want):
+        if g is None or g.dtype != dtype or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"ln_gru: no finite {dtype_name} gradient for {name} at B={batch}")
+        err = ((g.float() - w.float()).abs().max() / w.float().abs().max().clamp_min(1e-30)).item()
+        if err > GRAD_TOLERANCE[dtype_name]:
+            raise AssertionError(f"ln_gru gradient of {name} at B={batch} {dtype_name}: relative error {err} > "
+                                 f"{GRAD_TOLERANCE[dtype_name]}")
         worst = max(worst, err)
+    for name, g in zip(names, grads[len(inputs):]):
+        if g is None or g.dtype != torch.float32 or not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"ln_gru: no finite fp32 gradient reached the master of {name} at B={batch}")
     return worst
 
 
@@ -419,24 +469,47 @@ def run_slice(build_dir: Path, device_name: str = "cuda") -> dict:
     }
 
 
-def _dv3_s_widths(cfg) -> None:
+def _dv3_s_widths(cfg, precision: str = "32-true") -> None:
     wm_cfg = cfg.algo.world_model
     widths = (wm_cfg.recurrent_model.recurrent_state_size, cfg.algo.dense_units, wm_cfg.representation_model.hidden_size,
               cfg.algo.mlp_layers, wm_cfg.encoder.cnn_channels_multiplier, wm_cfg.stochastic_size, wm_cfg.discrete_size,
               cfg.algo.world_model.reward_model.bins, cfg.algo.critic.bins, cfg.algo.per_rank_batch_size,
               cfg.algo.per_rank_sequence_length, cfg.algo.horizon, cfg.fabric.precision, cfg.env.screen_size)
-    if widths != (512, 512, 512, 2, 32, 32, 32, 255, 255, 16, 64, 15, "32-true", 64):
-        raise AssertionError(f"the training config is not DreamerV3-S at batch 16 x 64, horizon 15, fp32: {widths}")
+    if widths != (512, 512, 512, 2, 32, 32, 32, 255, 255, 16, 64, 15, precision, 64):
+        raise AssertionError(f"the training config is not DreamerV3-S at batch 16 x 64, horizon 15, {precision}: {widths}")
 
 
-def _launch_chunks(rows: int, hidden: int, joint_dim: int) -> int:
-    """Kernel launches of one fp32 cell call of ``rows`` rows."""
+def _launch_chunks(rows: int, hidden: int, joint_dim: int, itemsize: int = 4) -> int:
+    """Kernel launches of one cell call of ``rows`` rows."""
     import torch
 
     from sheeprl_tpu_torch.ops import cuda_build, ln_gru
 
     limits = ln_gru._device_limits(cuda_build.load("ln_gru"), torch.device("cuda"))
-    return len(ln_gru._launch_plan(rows, joint_dim, hidden, 4, *limits).chunks)
+    return len(ln_gru._launch_plan(rows, joint_dim, hidden, itemsize, *limits).chunks)
+
+
+def _launches(cfg, out: dict) -> tuple:
+    """``(predicted launches of a run, launches a gradient step)`` from the
+    run's counters: a gradient step's chunked scan (``T/K`` steps at ``K*B``
+    rows), burn-in (``burn_in`` steps at ``(K-1)*B``) and imagination (``H``
+    steps at ``T*B``) in the compute dtype, and one fp32 call per player
+    step (at the envs' width) and test step (one row)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import rssm_scan_spec
+    from sheeprl_tpu_torch.parallel.precision import compute_dtype_of
+
+    T, B, H = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, cfg.algo.horizon
+    hidden = cfg.algo.world_model.recurrent_model.recurrent_state_size
+    joint_dim = hidden + cfg.algo.world_model.recurrent_model.dense_units
+    chunks, burn_in = rssm_scan_spec(cfg)
+    item = 2 if "bfloat16" in str(compute_dtype_of(cfg)) else 4
+    per_step = (T // chunks) * _launch_chunks(chunks * B, hidden, joint_dim, item) \
+        + (burn_in * _launch_chunks((chunks - 1) * B, hidden, joint_dim, item) if chunks > 1 else 0) \
+        + H * _launch_chunks(T * B, hidden, joint_dim, item)
+    predicted = (out["gradient_steps"] * per_step + out["player_steps"] * _launch_chunks(out["player_width"], hidden,
+                                                                                        joint_dim)
+                 + out["test_steps"] * _launch_chunks(1, hidden, joint_dim))
+    return predicted, per_step
 
 
 def _train_noise(cfg, actions_dim, gen, device: str = "cuda"):
@@ -444,6 +517,7 @@ def _train_noise(cfg, actions_dim, gen, device: str = "cuda"):
     import torch
 
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import gumbel_like
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import rssm_scan_spec
 
     T, B, H = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, cfg.algo.horizon
     S, D = cfg.algo.world_model.stochastic_size, cfg.algo.world_model.discrete_size
@@ -451,11 +525,43 @@ def _train_noise(cfg, actions_dim, gen, device: str = "cuda"):
     def gumbel(*shape):
         return gumbel_like(torch.empty(*shape, device=device), gen)
 
-    return {
+    noise = {
         "dynamic": (gumbel(T, B, S, D), gumbel(T, B, S, D)),
         "imagination": gumbel(H, T * B, S, D),
         "actor": [[gumbel(T * B, d) for d in actions_dim] for _ in range(H + 1)],
     }
+    chunks, burn_in = rssm_scan_spec(cfg)
+    if chunks > 1 and burn_in:
+        noise["burn_in"] = (gumbel(burn_in, (chunks - 1) * B, S, D), gumbel(burn_in, (chunks - 1) * B, S, D))
+    return noise
+
+
+def _kernel_vs_plain_step(cfg, agent_state, spaces_, batch, noise, device: str = "cuda"):
+    """One gradient step from one state, batch and noise, through the kernel
+    and through the plain path: ``[(metrics, {tree: Adam first moments},
+    params)]`` for each."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers, make_train_step
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments_state
+    from sheeprl_tpu_torch.models import blocks
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru, ln_gru_reference
+
+    actions_dim, is_continuous, obs_space = spaces_
+    results = []
+    for plain in (False, True):
+        agent = build_agent(actions_dim, is_continuous, cfg, obs_space, agent_state, device)
+        optimizers = make_optimizers(cfg, agent)
+        step = make_train_step(agent, optimizers, cfg, is_continuous)
+        with mock.patch.object(blocks, "fused_layernorm_gru", ln_gru_reference if plain else fused_layernorm_gru):
+            _, metrics = step(init_moments_state(device), batch, 0.02, None, noise)
+        torch.cuda.synchronize()
+        grads = {name: torch.cat([opt.state[p]["exp_avg"].reshape(-1) for p in getattr(agent, name).parameters()])
+                 for name, opt in optimizers.items()}
+        params = torch.cat([p.detach().reshape(-1) for name in optimizers for p in getattr(agent, name).parameters()])
+        results.append((metrics.cpu().numpy(), grads, params))
+    return results
 
 
 def run_train(build_dir: Path, device_name: str = "cuda") -> dict:
@@ -466,14 +572,12 @@ def run_train(build_dir: Path, device_name: str = "cuda") -> dict:
 
     from sheeprl_tpu_torch import cli
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_ORDER, make_optimizers, make_train_step
-    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import synthetic_batch, time_gradient_steps
-    from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments_state
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_ORDER
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import synthetic_batch
     from sheeprl_tpu_torch.config import compose
     from sheeprl_tpu_torch.envs.env import make_env
     from sheeprl_tpu_torch.interop.flax_params import to_flax
-    from sheeprl_tpu_torch.models import blocks
-    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru, ln_gru_reference
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
     from sheeprl_tpu_torch.serving.loader import _actions_dim, agent_state_from_checkpoint, load_policy
     from sheeprl_tpu_torch.utils.checkpoint import load_state
 
@@ -490,13 +594,8 @@ def run_train(build_dir: Path, device_name: str = "cuda") -> dict:
         raise AssertionError(f"{out['gradient_steps']} gradient steps, metric rows {rows.shape}")
     if not np.isfinite(rows).all():
         raise AssertionError(f"non-finite training metrics: {rows}")
-    T, B, H = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, cfg.algo.horizon
-    hidden = cfg.algo.world_model.recurrent_model.recurrent_state_size
-    joint_dim = hidden + cfg.algo.world_model.recurrent_model.dense_units
-    predicted = (out["player_steps"] * _launch_chunks(out["player_width"], hidden, joint_dim)
-                 + out["gradient_steps"] * (T * _launch_chunks(B, hidden, joint_dim)
-                                            + H * _launch_chunks(T * B, hidden, joint_dim))
-                 + out["test_steps"] * _launch_chunks(1, hidden, joint_dim))
+    T, H = cfg.algo.per_rank_sequence_length, cfg.algo.horizon
+    predicted, per_step = _launches(cfg, out)
     if launches != predicted:
         raise AssertionError(
             f"ln_gru launched {launches} times; the run predicts {predicted} ({out['player_steps']} player steps, "
@@ -534,22 +633,10 @@ def run_train(build_dir: Path, device_name: str = "cuda") -> dict:
 
     # one gradient step from the same state, batch and noise, through the
     # kernel and through the plain path
-    agent_state = agent_state_from_checkpoint(state)
     batch = synthetic_batch(cfg, actions_dim, gen, device)
     noise = _train_noise(cfg, actions_dim, gen, device)
-    results = []
-    for plain in (False, True):
-        agent = build_agent(actions_dim, is_continuous, cfg, obs_space, agent_state, device)
-        optimizers = make_optimizers(cfg, agent)
-        step = make_train_step(agent, optimizers, cfg, is_continuous)
-        with mock.patch.object(blocks, "fused_layernorm_gru", ln_gru_reference if plain else fused_layernorm_gru):
-            _, metrics = step(init_moments_state(device), batch, 0.02, None, noise)
-        torch.cuda.synchronize()
-        grads = {name: torch.cat([opt.state[p]["exp_avg"].reshape(-1) for p in getattr(agent, name).parameters()])
-                 for name, opt in optimizers.items()}
-        params = torch.cat([p.detach().reshape(-1) for name in optimizers for p in getattr(agent, name).parameters()])
-        results.append((metrics.cpu().numpy(), grads, params))
-    (m_kernel, g_kernel, p_kernel), (m_plain, g_plain, p_plain) = results
+    (m_kernel, g_kernel, p_kernel), (m_plain, g_plain, p_plain) = _kernel_vs_plain_step(
+        cfg, agent_state_from_checkpoint(state), (actions_dim, is_continuous, obs_space), batch, noise, device)
     metric_err = float(np.max(np.abs(m_kernel - m_plain) / np.maximum(np.abs(m_plain), 1e-3)))
     grad_err = max(((g_kernel[k] - g_plain[k]).abs().max() / g_plain[k].abs().max()).item() for k in g_plain)
     diff = (p_kernel - p_plain).abs()
@@ -562,29 +649,233 @@ def run_train(build_dir: Path, device_name: str = "cuda") -> dict:
             f"{STEP_PARAM_ATOL}: {outliers} (tol {STEP_PARAM_OUTLIERS}), params max_abs_err {param_err}; "
             f"kernel {m_kernel}, plain {m_plain}"
         )
-
-    # the time of a gradient step at DV3-S (the launches here do not count)
-    agent = build_agent(actions_dim, is_continuous, cfg, obs_space, agent_state, device)
-    step = make_train_step(agent, make_optimizers(cfg, agent), cfg, is_continuous)
-    timing = time_gradient_steps(step, init_moments_state(device), batch, gen, TIMED_STEPS)
     return {
         "gradient_steps": out["gradient_steps"],
         "player_steps": out["player_steps"],
         "test_steps": out["test_steps"],
         "policy_steps": out["policy_steps"],
         "ln_gru_launches": launches,
-        "launches_per_gradient_step": T * _launch_chunks(B, hidden, joint_dim) + H * _launch_chunks(T * B, hidden,
-                                                                                                     joint_dim),
+        "launches_per_gradient_step": per_step,
         "changed_leaves": changed,
         "final_metrics": dict(zip(METRIC_ORDER, rows[-1].tolist())),
         "step_metric_rel_err": metric_err,
         "step_grad_rel_err": grad_err,
         "step_param_max_abs_err": param_err,
         "step_param_outliers": outliers,
-        "gradient_step_ms": timing["step_ms"],
-        "gradient_steps_per_s": timing["steps_per_s"],
         "checkpoint": ckpt,
     }
+
+
+def _moment_rel(kernel: dict, plain: dict) -> dict:
+    return {k: ((kernel[k] - plain[k]).norm() / plain[k].norm().clamp_min(1e-30)).item() for k in plain}
+
+
+def run_chunked(build_dir: Path, device_name: str = "cuda") -> dict:
+    """Phase 6: DreamerV3-S trains through ``run`` with the options the DV3
+    presets train with (``CHUNKED_OPTIONS``) and checkpoints mid-run."""
+    device = device_name
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_ORDER
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import synthetic_batch
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs.env import make_env
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.serving.loader import _actions_dim, agent_state_from_checkpoint
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    overrides = CHUNKED_OVERRIDES + [f"root_dir={(build_dir / 'chunked').resolve()}", f"fabric.accelerator={device}"]
+    cfg = compose(overrides)
+    _dv3_s_widths(cfg, "bf16-mixed")
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    out = cli.run(overrides)
+    torch.cuda.synchronize()
+    launches = fused_layernorm_gru.launches  # the main path ends here
+
+    rows = out["metric_rows"]
+    if out["gradient_steps"] != CHUNKED_GRADIENT_STEPS or not np.isfinite(rows).all():
+        raise AssertionError(f"{out['gradient_steps']} gradient steps (expected {CHUNKED_GRADIENT_STEPS}), "
+                             f"metrics {rows}")
+    predicted, per_step = _launches(cfg, out)
+    if launches != predicted or per_step != 64 // 4 + 2 + 15:
+        raise AssertionError(f"ln_gru launched {launches} times; the run predicts {predicted} "
+                             f"({out['gradient_steps']} gradient steps x {per_step} + {out['player_steps']} player "
+                             f"steps + {out['test_steps']} test steps)")
+    (ckpt,) = out["checkpoints"]
+    state = load_state(ckpt)
+    if set(state["rb"]) != {"buffer", "pos", "filled", "added"} or "rssm_recurrent" not in state["rb"]["buffer"]:
+        raise AssertionError(f"the checkpoint's replay is not the device ring with stored states: {sorted(state['rb'])}")
+
+    # one bf16 gradient step from the checkpoint's state, through the kernel
+    # and through the plain path
+    env = make_env(cfg, cfg.seed, 0)()
+    actions_dim, is_continuous, _ = _actions_dim(env.action_space)
+    spaces_ = (actions_dim, is_continuous, env.observation_space)
+    env.close()
+    gen = torch.Generator(device=device).manual_seed(11)
+    batch = synthetic_batch(cfg, actions_dim, gen, device)
+    noise = _train_noise(cfg, actions_dim, gen, device)
+    (m_kernel, g_kernel, _), (m_plain, g_plain, _) = _kernel_vs_plain_step(
+        cfg, agent_state_from_checkpoint(state), spaces_, batch, noise, device)
+    rel = np.abs(m_kernel - m_plain) / np.maximum(np.abs(m_plain), 1e-3)
+    loss_err, norm_err = float(rel[:8].max()), float(rel[8:].max())
+    moments = _moment_rel(g_kernel, g_plain)
+    if (not np.isfinite(m_kernel).all() or loss_err > BF16_LOSS_RTOL or norm_err > BF16_NORM_RTOL
+            or any(moments[k] > BF16_MOMENT_REL[k] for k in moments)):
+        raise AssertionError(
+            f"bf16 kernel vs plain gradient step: losses relative error {loss_err} (tol {BF16_LOSS_RTOL}), grad "
+            f"norms {norm_err} (tol {BF16_NORM_RTOL}), Adam first moments {moments} (tol {BF16_MOMENT_REL}); "
+            f"kernel {m_kernel}, plain {m_plain}")
+    return {
+        "gradient_steps": out["gradient_steps"],
+        "player_steps": out["player_steps"],
+        "test_steps": out["test_steps"],
+        "policy_steps": out["policy_steps"],
+        "ln_gru_launches": launches,
+        "launches_per_gradient_step": per_step,
+        "final_metrics": dict(zip(METRIC_ORDER, rows[-1].tolist())),
+        "step_loss_rel_err": loss_err,
+        "step_norm_rel_err": norm_err,
+        "step_moment_rel_err": moments,
+        "checkpoint": ckpt,
+        "run_dir": str(Path(ckpt).parent.parent),
+        "overrides": overrides,
+    }
+
+
+def run_resume(chunked: dict) -> dict:
+    """Phase 7: ``run checkpoint.resume_from=<run dir>`` picks the chunked
+    run's checkpoint, restores it as saved, and trains on."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.data.device_buffer import DeviceSequentialReplayBuffer
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+    from sheeprl_tpu_torch.utils.utils import Ratio
+
+    saved = load_state(chunked["checkpoint"])
+    restored = {}
+    load_learner_state = dv3.load_learner_state
+    ring_load, ratio_load = DeviceSequentialReplayBuffer.load_state_dict, Ratio.load_state_dict
+
+    def spy_learner(state, agent, optimizers, device):
+        moments = load_learner_state(state, agent, optimizers, device)
+        restored["adam"] = {n: {i: {k: v.detach().cpu().clone() for k, v in e.items()}
+                                for i, e in o.state_dict()["state"].items()} for n, o in optimizers.items()}
+        restored["moments"] = {k: float(v) for k, v in moments.items()}
+        return moments
+
+    def spy_ring(self, state):
+        out = ring_load(self, state)
+        restored["rb"] = self.state_dict()
+        return out
+
+    def spy_ratio(self, state):
+        out = ratio_load(self, state)
+        restored["ratio"] = self.state_dict()
+        return out
+
+    overrides = chunked["overrides"] + [f"checkpoint.resume_from={chunked['run_dir']}", "checkpoint.save_last=True"]
+    cfg = compose(overrides)
+    with mock.patch.object(dv3, "load_learner_state", spy_learner), \
+            mock.patch.object(DeviceSequentialReplayBuffer, "load_state_dict", spy_ring), \
+            mock.patch.object(Ratio, "load_state_dict", spy_ratio):
+        fused_layernorm_gru.launches = 0  # the main path starts here
+        out = cli.run(overrides)
+        torch.cuda.synchronize()
+        launches = fused_layernorm_gru.launches  # the main path ends here
+
+    problems = []
+    if out["start_iter"] != saved["iter_num"] + 1:
+        problems.append(f"start_iter {out['start_iter']} after iteration {saved['iter_num']}")
+    if restored.get("ratio") != saved["ratio"]:
+        problems.append(f"Ratio {restored.get('ratio')} != {saved['ratio']}")
+    if restored.get("moments") != {k: float(v) for k, v in saved["moments"].items()}:
+        problems.append(f"Moments {restored.get('moments')} != {saved['moments']}")
+    for name, entries in saved["opt_states"].items():
+        for i, entry in entries["state"].items():
+            for k, v in entry.items():
+                if not np.array_equal(restored["adam"][name][i][k].numpy(), np.asarray(v)):
+                    problems.append(f"Adam {name} parameter {i} {k}")
+    for k, v in saved["rb"]["buffer"].items():
+        if not np.array_equal(restored["rb"]["buffer"][k], v):
+            problems.append(f"replay key {k}")
+    for k in ("pos", "filled", "added"):
+        if not np.array_equal(restored["rb"][k], saved["rb"][k]):
+            problems.append(f"replay {k}")
+    predicted, _ = _launches(cfg, out)
+    if out["gradient_steps"] < 1 or not np.isfinite(out["metric_rows"]).all() or launches != predicted:
+        problems.append(f"{out['gradient_steps']} gradient steps after resuming, {launches} launches (predicted "
+                        f"{predicted}), metrics {out['metric_rows']}")
+    final = load_state(out["checkpoints"][-1])
+    if all(np.array_equal(a, b) for (_, a), (_, b) in zip(_leaves(final["world_model"]),
+                                                          _leaves(saved["world_model"]))):
+        problems.append("the resumed run left the world model as saved")
+    if problems:
+        raise AssertionError(f"resume from {chunked['run_dir']}: " + "; ".join(problems[:10]))
+    return {"resumed_from": str(cfg.checkpoint.resume_from), "start_iter": out["start_iter"],
+            "gradient_steps": out["gradient_steps"], "player_steps": out["player_steps"],
+            "test_steps": out["test_steps"], "ln_gru_launches": launches,
+            "adam_entries": sum(len(e["state"]) for e in saved["opt_states"].values()),
+            "replay_rows": int(np.asarray(saved["rb"]["filled"]).sum())}
+
+
+def run_eval(chunked: dict) -> dict:
+    """Phase 8: ``eval checkpoint_path=<the chunked run's checkpoint>``."""
+    import math
+
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    reward = cli.evaluation([f"checkpoint_path={chunked['checkpoint']}"])
+    torch.cuda.synchronize()
+    launches = fused_layernorm_gru.launches  # the main path ends here
+    if not math.isfinite(reward) or launches < 1:
+        raise AssertionError(f"eval: test reward {reward}, {launches} ln_gru launches")
+    return {"test_reward": reward, "ln_gru_launches": launches}
+
+
+def run_timers(device_name: str = "cuda") -> dict:
+    """Phase 9: the one gradient-step timer, profiled, for the fp32
+    ``rssm_chunks=1`` step and the chunked bf16 one (launches here do not
+    count)."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers, make_train_step
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import synthetic_batch, time_gradient_steps
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments_state
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs.env import make_env
+    from sheeprl_tpu_torch.serving.loader import _actions_dim
+
+    out = {}
+    for name, extra in (("fp32", []), ("bf16_chunked", CHUNKED_STEP_OPTIONS)):
+        cfg = compose(["exp=dreamer_v3", "env=dummy", "diagnostics=off", "run_name=chip_smoke", "seed=5", *extra])
+        env = make_env(cfg, cfg.seed, 0)()
+        actions_dim, is_continuous, _ = _actions_dim(env.action_space)
+        agent = build_agent(actions_dim, is_continuous, cfg, env.observation_space, None, device_name)
+        env.close()
+        step = make_train_step(agent, make_optimizers(cfg, agent), cfg, is_continuous)
+        gen = torch.Generator(device=device_name).manual_seed(5)
+        batch = synthetic_batch(cfg, actions_dim, gen, device_name)
+        timing = time_gradient_steps(step, init_moments_state(device_name), batch, gen, TIMED_STEPS, warmup=3,
+                                     profile=True)
+        gru = [v for k, v in timing["kernels"].items() if "ln_gru" in k]
+        out[name] = {"step_ms": timing["step_ms"], "steps_per_s": timing["steps_per_s"], "busy_ms": timing["busy_ms"],
+                     "idle_share": timing["idle_share"], "launches": timing["launches"],
+                     "ln_gru_launches": sum(v[0] for v in gru) // TIMED_STEPS,
+                     "ln_gru_ms": sum(v[1] for v in gru) / 1e3 / TIMED_STEPS}
+    return out
 
 
 def _leaves(tree, prefix=""):
@@ -637,11 +928,12 @@ def main() -> int:
             row = measure_ln_gru(batch, hidden, in_dim, dtype_name, seed=1, timed=False)
             print(f"[kernel] ln_gru sweep B={batch:<4d} K={row['K']:<5d} H={hidden:<5d} {dtype_name:<8s} "
                   f"max_abs_err={row['max_abs_err']:.3g} (tol {row['tolerance']:g})", flush=True)
-    for batch in GRAD_CASES:
-        err = check_ln_gru_graph(batch, *S_SHAPE)
-        print(f"[kernel] ln_gru autograd graph B={batch:<4d} K=1024 H=512 float32: the output carries a graph; "
-              f"joint, w, b, g, beta, h all get a finite gradient, equal to autograd through the plain version "
-              f"(the backward's own recompute) to {err:.3g} relative (tol {GRAD_TOLERANCE:g})", flush=True)
+    for batch, dtype_name in GRAD_CASES:
+        err = check_ln_gru_graph(batch, *S_SHAPE, dtype_name)
+        print(f"[kernel] ln_gru autograd graph B={batch:<4d} K=1024 H=512 {dtype_name}: the output carries a graph; "
+              f"joint, w, b, g, beta, h all get a finite {dtype_name} gradient, equal to autograd through the plain "
+              f"version (the backward's own recompute) to {err:.3g} relative (tol {GRAD_TOLERANCE[dtype_name]:g}), "
+              f"and their fp32 masters a finite fp32 gradient through the cast", flush=True)
 
     slice_report = run_slice(build_dir)
     print(
@@ -655,9 +947,7 @@ def main() -> int:
     )
 
     train = run_train(build_dir)
-    s_fp32 = {c["B"]: c for c in cases if c["H"] == 512 and c["dtype"] == "float32"}
-    T, H = 64, 15
-    kernel_fwd_ms = T * s_fp32[16]["ms"] + H * s_fp32[1024]["ms"]
+    s_cases = {(c["B"], c["dtype"]): c for c in cases if c["H"] == 512}
     print(
         f"[train] DreamerV3-S run (batch 16 x 64, horizon 15, fp32): {train['gradient_steps']} gradient steps, "
         f"{train['player_steps']} player steps, {train['test_steps']} test-episode steps, {train['policy_steps']} "
@@ -675,27 +965,63 @@ def main() -> int:
         f"{train['step_param_max_abs_err']:.3g} (not held: at most 2 lr)  [{card}]",
         flush=True,
     )
-    print(
-        f"[train] gradient step: median stream time {train['gradient_step_ms']:.3f} ms (CUDA events; the step is "
-        f"host-bound, so this is about its wall time), {train['gradient_steps_per_s']:.3f} gradient steps/s over "
-        f"{TIMED_STEPS} steps; ln_gru forward "
-        f"{T} x {s_fp32[16]['ms']:.5f} + {H} x {s_fp32[1024]['ms']:.5f} = {kernel_fwd_ms:.4f} ms, "
-        f"{100 * kernel_fwd_ms / train['gradient_step_ms']:.3f} % of the step  [{card}]",
-        flush=True,
-    )
 
-    # the kernels line reports the shape the main paths gave the kernel most:
-    # the serving dispatch width or the dynamic scan's B=16
-    main_b = 16 if train["gradient_steps"] * T >= max(slice_report["width_hist"].values()) \
+    chunked = run_chunked(build_dir)
+    print(
+        f"[chunked] DreamerV3-S run ({' '.join(CHUNKED_OPTIONS)}): {chunked['gradient_steps']} gradient steps, "
+        f"{chunked['player_steps']} player steps, {chunked['test_steps']} test-episode steps, "
+        f"{chunked['policy_steps']} policy steps; {chunked['ln_gru_launches']} ln_gru launches = predicted "
+        f"({chunked['launches_per_gradient_step']} per gradient step: 16 x 64 rows + 2 x 48 + 15 x 1024, bf16); "
+        f"every metric finite, final {json.dumps(chunked['final_metrics'])}; checkpoint {chunked['checkpoint']}  "
+        f"[{card}]", flush=True)
+    print(
+        f"[chunked] bf16 kernel vs plain gradient step from one state, batch and noise: losses max relative error "
+        f"{chunked['step_loss_rel_err']:.3g} (tol {BF16_LOSS_RTOL:g}), gradient norms {chunked['step_norm_rel_err']:.3g} "
+        f"(tol {BF16_NORM_RTOL:g}), Adam first moments ||kernel - plain|| / ||plain|| "
+        f"{json.dumps(chunked['step_moment_rel_err'])} (tol {json.dumps(BF16_MOMENT_REL)})  [{card}]", flush=True)
+    resumed = run_resume(chunked)
+    print(
+        f"[resume] run checkpoint.resume_from={resumed['resumed_from']}: started at iteration "
+        f"{resumed['start_iter']}; counters, Ratio, Moments, Adam state ({resumed['adam_entries']} tensors' entries) "
+        f"and the device ring ({resumed['replay_rows']} rows) restored as saved; then {resumed['gradient_steps']} "
+        f"gradient steps, {resumed['player_steps']} player steps, {resumed['test_steps']} test steps, "
+        f"{resumed['ln_gru_launches']} ln_gru launches = predicted; the world model moved  [{card}]", flush=True)
+    evaluated = run_eval(chunked)
+    print(f"[eval] eval checkpoint_path={chunked['checkpoint']}: Test/cumulative_reward {evaluated['test_reward']}, "
+          f"{evaluated['ln_gru_launches']} ln_gru launches  [{card}]", flush=True)
+
+    timers = run_timers()
+    for name, t in timers.items():
+        widths = (16, 1024) if name == "fp32" else (64, 1024)
+        dtype_name = "float32" if name == "fp32" else "bfloat16"
+        steps = (64, 15) if name == "fp32" else (16, 15)
+        fwd = steps[0] * s_cases[(widths[0], dtype_name)]["ms"] + steps[1] * s_cases[(widths[1], dtype_name)]["ms"]
+        if name != "fp32":
+            fwd += 2 * s_cases[(48, dtype_name)]["ms"]
+        print(
+            f"[timer] DreamerV3-S gradient step, {name}: median stream time {t['step_ms']:.3f} ms (CUDA events; "
+            f"host-bound, so about its wall time), {t['steps_per_s']:.3f} steps/s over {TIMED_STEPS} steps; "
+            f"device busy {t['busy_ms']:.3f} ms a step (torch.profiler), idle share {t['idle_share']:.4f}, "
+            f"{t['launches']} kernel launches a step, ln_gru {t['ln_gru_launches']} launches {t['ln_gru_ms']:.4f} ms "
+            f"a step (the kernel cases predict a forward of {fwd:.4f} ms)  [{card}]", flush=True)
+
+    # the kernels line: the kernel at the shape the main paths gave it most
+    # (the serving dispatch width or the dynamic scan's B=16), and every case
+    # it was held at
+    main_b = 16 if train["gradient_steps"] * 64 >= max(slice_report["width_hist"].values()) \
         else slice_report["main_width"]
-    main = s_fp32.get(main_b) or measure_ln_gru(main_b, *S_SHAPE, "float32")
+    main = s_cases.get((main_b, "float32")) or measure_ln_gru(main_b, *S_SHAPE, "float32")
+    by_path = {"serve": slice_report["ln_gru_launches"], "train": train["ln_gru_launches"],
+               "train_bf16_chunked": chunked["ln_gru_launches"], "resume": resumed["ln_gru_launches"],
+               "eval": evaluated["ln_gru_launches"]}
+    case_keys = ("B", "K", "H", "dtype", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms", "bound_ms", "bound_by")
     kernels = [{
         "name": "ln_gru",
         "route": "cuda",
         "source": "sheeprl_tpu_torch/ops/csrc/ln_gru.cu",
         "replaces": "sheeprl_tpu/ops/pallas_gru.py:64",
-        "launches": slice_report["ln_gru_launches"] + train["ln_gru_launches"],
-        "launches_by_path": {"serve": slice_report["ln_gru_launches"], "train": train["ln_gru_launches"]},
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": main["max_abs_err"],
         "ms": main["ms"],
         "ms_cold": main["ms_cold"],
@@ -704,7 +1030,8 @@ def main() -> int:
         "bound_by": main["bound_by"],
         "library_ms": main["library_ms"],
         "shape": {"B": main["B"], "K": main["K"], "H": main["H"], "dtype": main["dtype"]},
-        "phase": "kernel+slice+train",
+        "cases": [{k: c[k] for k in case_keys} for c in cases],
+        "phase": "kernel+slice+train+chunked+resume+eval",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -40,6 +40,7 @@ from torch import nn
 
 from sheeprl_tpu_torch.models.blocks import LayerNormChannelLast, LayerNormGRUCell, get_activation
 from sheeprl_tpu_torch.ops.numerics import symlog
+from sheeprl_tpu_torch.parallel.precision import call_cast
 
 _NOT_PORTED = "not ported yet: see ROADMAP.md Queue 1"
 
@@ -231,7 +232,8 @@ def compute_stochastic_state(
     if sample:
         if noise is None:
             noise = gumbel_like(logits, generator)
-        idx = torch.argmax(logits + noise.reshape(logits.shape), dim=-1)
+        # in the logits' dtype, as jax.random.categorical draws its noise
+        idx = torch.argmax(logits + noise.reshape(logits.shape).to(logits.dtype), dim=-1)
         hard = F.one_hot(idx, discrete).to(logits.dtype)
         probs = torch.softmax(logits, dim=-1)
         out = hard + probs - probs.detach()  # straight-through
@@ -498,7 +500,7 @@ class Actor(nn.Module):
                 eps = noise[0] if noise is not None else torch.randn(
                     mean.shape, dtype=mean.dtype, device=mean.device, generator=generator
                 )
-                actions = mean + std * eps
+                actions = mean + std * eps.to(mean.dtype)
             if self.action_clip > 0.0:
                 clip = torch.full_like(actions, self.action_clip)
                 actions = actions * (clip / torch.maximum(clip, torch.abs(actions))).detach()
@@ -510,7 +512,8 @@ class Actor(nn.Module):
                 one_hot = F.one_hot(torch.argmax(logits, dim=-1), logits.shape[-1]).to(logits.dtype)
             else:
                 gumbel = noise[i] if noise is not None else gumbel_like(logits, generator)
-                hard = F.one_hot(torch.argmax(logits + gumbel, dim=-1), logits.shape[-1]).to(logits.dtype)
+                hard = F.one_hot(torch.argmax(logits + gumbel.to(logits.dtype), dim=-1), logits.shape[-1]).to(
+                    logits.dtype)
                 probs = torch.softmax(logits, dim=-1)
                 one_hot = hard + probs - probs.detach()
             outs.append(one_hot)
@@ -698,7 +701,10 @@ def build_policy_modules(
 
 class PlayerDV3:
     """Stateful env-interaction wrapper: per-env recurrent, stochastic and
-    action state as device tensors; resets are mask-based blends."""
+    action state as device tensors; resets are mask-based blends.  The
+    player computes in fp32 whatever the parameters' dtype: under
+    ``bf16-true`` its calls see fp32 casts of the bf16 weights, as flax
+    promotes bf16 weights and fp32 observations to fp32 in the JAX player."""
 
     def __init__(self, world_model: WorldModel, actor: Actor, actions_dim: Sequence[int], num_envs: int):
         self.world_model = world_model
@@ -711,11 +717,14 @@ class PlayerDV3:
         h0, z0 = self.world_model.initial_states((n,))
         return {"recurrent": h0, "stochastic": z0, "actions": torch.zeros((n, sum(self.actions_dim)), device=h0.device)}
 
+    def _fp32(self, fn):
+        return call_cast((self.world_model, self.actor), torch.float32, fn)
+
     @torch.no_grad()
     def init_states(self, reset_mask: Optional[torch.Tensor] = None) -> None:
         """Full or masked state reset; ``reset_mask`` is ``[num_envs, 1]``
         float (1 = reset that env)."""
-        init = self._init_state(self.num_envs)
+        init = self._fp32(lambda: self._init_state(self.num_envs))
         if self.state is None or reset_mask is None:
             self.state = init
         else:
@@ -731,7 +740,9 @@ class PlayerDV3:
     ) -> torch.Tensor:
         """One policy step.  ``noise`` may hold ``"representation"`` (Gumbel
         ``[B, stoch, discrete]``) and ``"actor"`` (one tensor per head)."""
-        noise = noise or {}
+        return self._fp32(lambda: self._step(obs, generator, greedy, noise or {}))
+
+    def _step(self, obs, generator, greedy, noise) -> torch.Tensor:
         wm = self.world_model
         embedded = wm.encode(obs)
         recurrent = wm.recurrent_step(self.state["stochastic"], self.state["actions"], self.state["recurrent"])

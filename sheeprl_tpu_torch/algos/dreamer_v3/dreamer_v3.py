@@ -31,11 +31,13 @@ from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
     init_moments_state,
     prepare_obs,
     real_actions_of,
+    rssm_scan_spec,
     test,
     update_moments,
 )
 from sheeprl_tpu_torch.ops.distributions import Bernoulli, MSEDistribution, SymlogDistribution, TwoHotEncodingDistribution
 from sheeprl_tpu_torch.ops.numerics import compute_lambda_values
+from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
 from sheeprl_tpu_torch.utils.optim import clip_by_global_norm, global_norm
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
@@ -82,9 +84,14 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
     (moments_state, metrics)``.  The modules and optimizers update in place.
 
     ``batch`` leaves are ``[T, B, ...]`` float tensors on the device, pixels
-    already in [-0.5, 0.5].  ``noise`` holds pre-drawn draws, each taken from
-    ``generator`` when absent: ``"dynamic"`` the ``(prior, posterior)``
-    Gumbel noise ``[T, B, stoch, discrete]`` of the dynamic scan;
+    already in [-0.5, 0.5]; with ``algo.rssm_chunks > 1`` it also holds the
+    stored states (``RSSM_STATE_KEYS``).  Each loss runs its modules in the
+    compute dtype of ``fabric.precision`` (``parallel/precision.py``): the
+    parameters and network inputs are cast inside the loss, the targets and
+    distributions stay fp32.  ``noise`` holds pre-drawn draws, each taken
+    from ``generator`` when absent: ``"dynamic"`` the ``(prior, posterior)``
+    Gumbel noise ``[T, B, stoch, discrete]`` of the dynamic scan and
+    ``"burn_in"`` that of its burn-in steps (see ``chunked_dynamic_scan``);
     ``"imagination"`` the prior Gumbel noise ``[H, T*B, stoch, discrete]``;
     ``"actor"`` a list of ``H + 1`` per-head lists (Gumbel noise of each
     discrete head, or the standard-normal draw of the continuous head) for
@@ -94,11 +101,10 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
     stoch, discrete = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
     recurrent_size = int(wm_cfg.recurrent_model.recurrent_state_size)
     horizon = int(cfg.algo.horizon)
-    if int(cfg.algo.get("rssm_chunks", 1) or 1) != 1:
-        raise NotImplementedError(
-            "algo.rssm_chunks > 1 (the chunked stored-state scan) is not ported yet: see ROADMAP.md Queue 1"
-        )
+    cdt = compute_dtype_of(cfg)
+    chunks, burn_in = rssm_scan_spec(cfg)
     gamma, lmbda = float(cfg.algo.gamma), float(cfg.algo.lmbda)
+    obs_keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
     cnn_dec_keys = list(cfg.algo.cnn_keys.decoder)
     mlp_dec_keys = list(cfg.algo.mlp_keys.decoder)
     moments_cfg = cfg.algo.actor.moments
@@ -132,28 +138,39 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
                 t.copy_(tau * c + (1 - tau) * t)
 
         # --- dynamic learning ----------------------------------------------
-        target_obs = {k: batch[k] for k in set(cnn_dec_keys + mlp_dec_keys)}
+        target_obs = {k: batch[k] for k in set(cnn_dec_keys + mlp_dec_keys)}  # fp32 targets
+        batch_obs = {k: batch[k].to(cdt) for k in obs_keys}  # the network's input
         # actions shift right by one: a_0 = 0
-        batch_actions = torch.cat([torch.zeros_like(batch["actions"][:1]), batch["actions"][:-1]], dim=0)
+        batch_actions = torch.cat([torch.zeros_like(batch["actions"][:1]), batch["actions"][:-1]], dim=0).to(cdt)
         is_first = batch["is_first"].clone()
         is_first[0] = 1.0
-        embedded = world_model.encode(batch)
-        recurrents, posteriors, post_logits, prior_logits = chunked_dynamic_scan(
-            world_model, batch_actions, embedded, is_first, stoch_flat=stoch * discrete,
-            recurrent_size=recurrent_size, generator=generator, noise=noise.get("dynamic"),
-        )
-        latents = torch.cat([posteriors, recurrents], dim=-1)
-        recon = world_model.decode(latents)
-        po = {k: MSEDistribution(recon[k], dims=recon[k].dim() - 2) for k in cnn_dec_keys}
-        po.update({k: SymlogDistribution(recon[k], dims=recon[k].dim() - 2) for k in mlp_dec_keys})
-        pr = TwoHotEncodingDistribution(world_model.reward_logits(latents), dims=1)
-        pc = Bernoulli(world_model.continue_logits(latents), event_dims=1)
-        rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = reconstruction_loss(
-            po, target_obs, pr, batch["rewards"],
-            prior_logits.reshape(T, B, stoch, discrete), post_logits.reshape(T, B, stoch, discrete),
-            wm_cfg.kl_dynamic, wm_cfg.kl_representation, wm_cfg.kl_free_nats, wm_cfg.kl_regularizer,
-            pc, 1 - batch["terminated"], wm_cfg.continue_scale_factor,
-        )
+        is_first = is_first.to(cdt)
+
+        def world_model_loss():
+            embedded = world_model.encode(batch_obs)
+            recurrents, posteriors, post_logits, prior_logits = chunked_dynamic_scan(
+                world_model, batch_actions, embedded, is_first, stoch_flat=stoch * discrete,
+                recurrent_size=recurrent_size, chunks=chunks, burn_in=burn_in,
+                stored_recurrent=batch.get("rssm_recurrent"), stored_posterior=batch.get("rssm_posterior"),
+                stored_valid=batch.get("rssm_valid"), generator=generator, noise=noise.get("dynamic"),
+                burn_in_noise=noise.get("burn_in"),
+            )
+            latents = torch.cat([posteriors, recurrents], dim=-1)
+            recon = world_model.decode(latents)
+            po = {k: MSEDistribution(recon[k], dims=recon[k].dim() - 2) for k in cnn_dec_keys}
+            po.update({k: SymlogDistribution(recon[k], dims=recon[k].dim() - 2) for k in mlp_dec_keys})
+            pr = TwoHotEncodingDistribution(world_model.reward_logits(latents), dims=1)
+            pc = Bernoulli(world_model.continue_logits(latents), event_dims=1)
+            losses = reconstruction_loss(
+                po, target_obs, pr, batch["rewards"],
+                prior_logits.reshape(T, B, stoch, discrete), post_logits.reshape(T, B, stoch, discrete),
+                wm_cfg.kl_dynamic, wm_cfg.kl_representation, wm_cfg.kl_free_nats, wm_cfg.kl_regularizer,
+                pc, 1 - batch["terminated"], wm_cfg.continue_scale_factor,
+            )
+            return losses, posteriors, recurrents
+
+        losses, posteriors, recurrents = call_cast((world_model,), cdt, world_model_loss)
+        rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
         wm_norm = update("world_model", rec_loss)
 
         # --- behaviour learning, against the world model as just updated --
@@ -162,7 +179,8 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
         true_continue = (1 - batch["terminated"]).reshape(T * B, 1)
         img_noise = noise.get("imagination")
         act_noise = noise.get("actor") or [None] * (horizon + 1)
-        with frozen(world_model, critic):
+
+        def actor_loss():
             latent0 = torch.cat([posteriors, recurrents], dim=-1)
             actions = actor.act(latent0, generator, False, act_noise[0])
             prior, recurrent = posteriors, recurrents
@@ -188,7 +206,7 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
             )
             discount = (torch.cumprod(continues * gamma, dim=0) / gamma).detach()
             baseline = predicted_values[:-1]
-            offset, invscale, moments_state = update_moments(
+            offset, invscale, new_moments = update_moments(
                 moments_state, lambda_values, moments_cfg.decay, moments_cfg.max, moments_cfg.percentile.low,
                 moments_cfg.percentile.high,
             )
@@ -197,45 +215,64 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
             objective = advantage if is_continuous else log_probs[:-1] * advantage.detach()
             entropy = cfg.algo.actor.ent_coef * entropies
             policy_loss = -torch.mean(discount[:-1] * (objective + entropy[:-1]))
+            return policy_loss, imagined_trajectories.detach(), lambda_values.detach(), discount, new_moments
+
+        with frozen(world_model, critic):
+            policy_loss, imagined_trajectories, lambda_values, discount, moments_state = call_cast(
+                (world_model, actor, critic), cdt, actor_loss
+            )
             actor_norm = update("actor", policy_loss)
 
         # --- critic learning -------------------------------------------------
-        imagined_trajectories = imagined_trajectories.detach()[:-1]
-        lambda_values = lambda_values.detach()
-        qv = TwoHotEncodingDistribution(critic(imagined_trajectories), dims=1)
-        with torch.no_grad():
-            target_values = TwoHotEncodingDistribution(target_critic(imagined_trajectories), dims=1).mean
-        value_loss = -qv.log_prob(lambda_values) - qv.log_prob(target_values)
-        value_loss = torch.mean(value_loss * discount[:-1, ..., 0])
+        def critic_loss():
+            qv = TwoHotEncodingDistribution(critic(imagined_trajectories[:-1]), dims=1)
+            with torch.no_grad():
+                target_values = TwoHotEncodingDistribution(target_critic(imagined_trajectories[:-1]), dims=1).mean
+            value_loss = -qv.log_prob(lambda_values) - qv.log_prob(target_values)
+            return torch.mean(value_loss * discount[:-1, ..., 0])
+
+        value_loss = call_cast((critic, target_critic), cdt, critic_loss)
         critic_norm = update("critic", value_loss)
 
         metrics = torch.stack([
             rec_loss, observation_loss, reward_loss, state_loss, continue_loss, kl, policy_loss, value_loss,
             wm_norm, actor_norm, critic_norm,
-        ]).detach()
+        ]).float().detach()
         return moments_state, metrics
 
     return train_step
 
 
-def stage_batch(sample: Dict[str, np.ndarray], cnn_keys: Sequence[str], device: torch.device) -> Dict[str, torch.Tensor]:
-    """One gradient step's host sample -> float32 device tensors, pixels
-    (raw uint8 on the wire) scaled to [-0.5, 0.5] on the device."""
+def stage_batch(sample: Dict[str, Any], cnn_keys: Sequence[str], device: torch.device) -> Dict[str, torch.Tensor]:
+    """One gradient step's sample (host arrays, or the device ring's
+    tensors) -> float32 device tensors, pixels (raw uint8) scaled to
+    [-0.5, 0.5] on the device."""
     batch = {}
     for k, v in sample.items():
-        t = torch.from_numpy(np.ascontiguousarray(v)).to(device, non_blocking=True).float()
+        t = v if isinstance(v, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(v))
+        t = t.to(device, non_blocking=True).float()
         batch[k] = t / 255.0 - 0.5 if k in cnn_keys else t
     return batch
 
 
+def load_learner_state(state: Dict[str, Any], agent: Agent, optimizers: Dict[str, torch.optim.Optimizer],
+                       device: torch.device | str) -> Dict[str, torch.Tensor]:
+    """A checkpoint's optimizer states (the port's or the JAX package's
+    optax states) into ``optimizers``; returns its Moments state."""
+    from sheeprl_tpu_torch.interop.flax_params import optimizer_state_dict, param_spec
+
+    spec = param_spec(*agent)
+    for name, opt in optimizers.items():
+        opt.load_state_dict(optimizer_state_dict(state["opt_states"][name], opt, spec[name]))
+    return {k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=device) for k, v in state["moments"].items()}
+
+
 def _unported_options(cfg) -> List[str]:
     """The options this slice reads and does not run (ROADMAP.md Queue 1);
-    the runtime (precision, devices), the checkpoint callback (export), the
-    replay factory (``buffer.device``) and the train step (``rssm_chunks``)
-    refuse theirs where they are built, before the loop starts."""
+    the runtime (devices), the checkpoint callback (export) and the actor
+    (its other distributions) refuse theirs where they are built, before the
+    loop starts."""
     out = []
-    if cfg.checkpoint.get("resume_from"):
-        out.append("checkpoint.resume_from (resume)")
     if (cfg.get("diagnostics") or {}).get("enabled", False):
         out.append("diagnostics.enabled=True (journal, sentinel, tracing; pass diagnostics=off)")
     if (cfg.algo.get("offline") or {}).get("enabled", False):
@@ -254,11 +291,15 @@ def main(runtime, cfg) -> Dict[str, Any]:
     """The DreamerV3 loop: prefill with random actions, then per iteration a
     policy step of every env, a replay write, the gradient steps the replay
     ratio owes, logging and checkpoints; one test episode at the end when
-    ``algo.run_test``.  Returns what the run did: its counters, the metric
-    rows of every gradient step, the checkpoints written and the log dir."""
+    ``algo.run_test``.  With ``checkpoint.resume_from`` (a file, resolved by
+    ``cli.run``) it restores the weights, optimizer states, Moments, replay
+    ratio, counters and, with ``buffer.checkpoint``, the replay buffer, and
+    waits ``algo.learning_starts`` more steps before training, as the JAX
+    package does.  Returns what the run did: its counters, the metric rows
+    of every gradient step, the checkpoints written and the log dir."""
     from sheeprl_tpu_torch.config import instantiate
     from sheeprl_tpu_torch.data.factory import make_dreamer_replay_buffer
-    from sheeprl_tpu_torch.data.slab import step_slab
+    from sheeprl_tpu_torch.data.slab import rssm_state_slab, step_slab
     from sheeprl_tpu_torch.envs import spaces
     from sheeprl_tpu_torch.envs.env import make_env_fns, vectorized_env
     from sheeprl_tpu_torch.interop.flax_params import to_flax
@@ -270,6 +311,8 @@ def main(runtime, cfg) -> Dict[str, Any]:
         raise NotImplementedError(f"not ported yet (see ROADMAP.md Queue 1): {'; '.join(unported)}")
     device = runtime.device
     num_envs = int(cfg.env.num_envs)
+    resume_from = cfg.checkpoint.get("resume_from")
+    state = runtime.load(resume_from) if resume_from else None
     cfg.env.frame_stack = -1
     if 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
         raise ValueError(f"The screen size must be a power of 2, got: {cfg.env.screen_size}")
@@ -282,6 +325,8 @@ def main(runtime, cfg) -> Dict[str, Any]:
     if cfg.metric.log_level == 0:
         aggregator.disabled = True
 
+    # reseeded from cfg.seed on resume too, as the JAX package does: a
+    # resumed run's random stream is not the uninterrupted run's
     generator = runtime.seed_everything(cfg.seed)
     envs = vectorized_env(make_env_fns(cfg, log_dir, "train"))
     action_space = envs.single_action_space
@@ -304,43 +349,73 @@ def main(runtime, cfg) -> Dict[str, Any]:
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
     obs_keys = cnn_keys + mlp_keys
 
-    agent = build_agent(actions_dim, is_continuous, cfg, observation_space, None, device)
+    trees = None if state is None else {k: state[k] for k in ("world_model", "actor", "critic", "target_critic")}
+    agent = build_agent(actions_dim, is_continuous, cfg, observation_space, trees, device)
+    # bf16-true stores the weights themselves in bf16; *-mixed keeps fp32
+    # masters and casts inside each loss
+    for module in agent:
+        module.to(runtime.param_dtype)
     player = PlayerDV3(agent.world_model, agent.actor, actions_dim, num_envs)
     optimizers = make_optimizers(cfg, agent)
-    moments_state = init_moments_state(device)
+    moments_state = init_moments_state(device) if state is None else load_learner_state(state, agent, optimizers,
+                                                                                         device)
     train_step = make_train_step(agent, optimizers, cfg, is_continuous)
 
     buffer_size = cfg.buffer.size // num_envs if not cfg.dry_run else 2
-    rb = make_dreamer_replay_buffer(cfg, num_envs, log_dir, buffer_size)
+    rb, use_device_buffer = make_dreamer_replay_buffer(cfg, num_envs, log_dir, buffer_size, device)
     rb.seed(cfg.seed)
+    chunks = rssm_scan_spec(cfg)[0]
+    if state is not None and cfg.buffer.checkpoint and state.get("rb") is not None:
+        rb.load_state_dict(state["rb"])
+        loaded = rb.buffer[0].buffer if isinstance(rb.buffer, tuple) else rb.buffer
+        if chunks > 1 and loaded and "rssm_recurrent" not in loaded:
+            raise ValueError(
+                "algo.rssm_chunks > 1 needs replay rows carrying the player's RSSM state (rssm_recurrent/"
+                "rssm_posterior/rssm_valid), but the restored buffer was collected without them: resume with "
+                "rssm_chunks=1 or start a fresh buffer"
+            )
 
-    policy_step_count = 0
-    last_log = last_checkpoint = 0
+    start_iter = (state["iter_num"] if state else 0) + 1
+    policy_step_count = state["iter_num"] * num_envs if state else 0
+    last_log = state["last_log"] if state else 0
+    last_checkpoint = state["last_checkpoint"] if state else 0
     gradient_steps = player_steps = 0
     policy_steps_per_iter = num_envs
     total_iters = int(cfg.algo.total_steps // policy_steps_per_iter) if not cfg.dry_run else 1
     learning_starts = cfg.algo.learning_starts // policy_steps_per_iter if not cfg.dry_run else 0
     prefill_steps = learning_starts - int(learning_starts > 0)
+    if state is not None:
+        learning_starts += start_iter
+        prefill_steps += start_iter
     ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
+    if state is not None and "ratio" in state:
+        ratio.load_state_dict(state["ratio"])
     target_freq = cfg.algo.critic.get("per_rank_target_network_update_freq", 0)
     action_rng = np.random.default_rng(cfg.seed)
 
     obs = envs.reset(seed=cfg.seed)[0]
-    step_data: Dict[str, np.ndarray] = step_slab(num_envs, {k: obs[k] for k in obs_keys})
+    step_data: Dict[str, Any] = step_slab(num_envs, {k: obs[k] for k in obs_keys})
     step_data["rewards"] = np.zeros((1, num_envs, 1), np.float32)
     step_data["truncated"] = np.zeros((1, num_envs, 1), np.float32)
     step_data["terminated"] = np.zeros((1, num_envs, 1), np.float32)
     step_data["is_first"] = np.ones_like(step_data["terminated"])
     player.init_states()
+    # with the chunked scan every replay row also holds the player's
+    # post-step state; rows without one (prefill, bookkeeping) hold zeros
+    # and valid=0
+    store_rssm_state = chunks > 1
+    wm_cfg = cfg.algo.world_model
+    zero_recurrent = np.zeros((num_envs, int(wm_cfg.recurrent_model.recurrent_state_size)), np.float32)
+    zero_stochastic = np.zeros((num_envs, int(wm_cfg.stochastic_size * wm_cfg.discrete_size)), np.float32)
 
     pending: List[torch.Tensor] = []
     metric_rows: List[np.ndarray] = []
     checkpoints: List[str] = []
-    for iter_num in range(1, total_iters + 1):
+    for iter_num in range(start_iter, total_iters + 1):
         policy_step_count += policy_steps_per_iter
 
         # ---- policy step + replay write ---------------------------------
-        if iter_num <= learning_starts:
+        if iter_num <= learning_starts and state is None:
             real_actions = envs.sample_actions(action_rng)
             if is_continuous:
                 actions = real_actions.astype(np.float32)
@@ -350,12 +425,32 @@ def main(runtime, cfg) -> Dict[str, Any]:
                      for i, d in enumerate(actions_dim)],
                     axis=-1,
                 )
+            step_data["actions"] = actions.reshape(1, num_envs, -1)
+            if store_rssm_state:
+                step_data.update(rssm_state_slab(num_envs, zero_recurrent, zero_stochastic, valid=False))
         else:
             torch_obs = prepare_obs(obs, cnn_keys=cnn_keys, mlp_keys=mlp_keys, num_envs=num_envs, device=device)
-            actions = player.get_actions(torch_obs, generator).cpu().numpy()  # the iteration's one fetch
+            actions_t = player.get_actions(torch_obs, generator)
             player_steps += 1
+            if use_device_buffer:
+                # the actions and the player's state go into the ring on the
+                # device; the action values cross once, for the envs
+                step_data["actions"] = actions_t.reshape(1, num_envs, -1)
+                if store_rssm_state:
+                    step_data.update(rssm_state_slab(num_envs, player.state["recurrent"],
+                                                     player.state["stochastic"], valid=True))
+                actions = actions_t.cpu().numpy()
+            elif store_rssm_state:
+                # the stored state rides the same copy as the action values
+                fetched = torch.cat([actions_t, player.state["recurrent"], player.state["stochastic"]], -1)
+                actions, recurrent, stochastic = np.split(
+                    fetched.cpu().numpy(), np.cumsum([actions_t.shape[-1], zero_recurrent.shape[-1]]), axis=-1)
+                step_data.update(rssm_state_slab(num_envs, recurrent, stochastic, valid=True))
+                step_data["actions"] = actions.reshape(1, num_envs, -1)
+            else:
+                actions = actions_t.cpu().numpy()  # the iteration's one fetch
+                step_data["actions"] = actions.reshape(1, num_envs, -1)
             real_actions = real_actions_of(actions, actions_dim, is_continuous)
-        step_data["actions"] = actions.reshape(1, num_envs, -1)
         rb.add(step_data, validate_args=cfg.buffer.validate_args)
 
         # ---- the gradient steps the replay ratio owes -------------------
@@ -367,8 +462,10 @@ def main(runtime, cfg) -> Dict[str, Any]:
                 local_data = rb.sample(
                     cfg.algo.per_rank_batch_size, sequence_length=cfg.algo.per_rank_sequence_length, n_samples=n
                 )
-                for i in range(n):
-                    batch = stage_batch({k: v[i] for k, v in local_data.items()}, cnn_keys, device)
+                if not use_device_buffer:
+                    local_data = [{k: v[i] for k, v in local_data.items()} for i in range(n)]
+                for sample in local_data:
+                    batch = stage_batch(sample, cnn_keys, device)
                     if target_freq and gradient_steps % target_freq == 0:
                         tau = 1.0 if gradient_steps == 0 else float(cfg.algo.critic.get("tau", 1.0))
                     else:
@@ -408,6 +505,11 @@ def main(runtime, cfg) -> Dict[str, Any]:
             reset_data["actions"] = np.zeros((1, len(dones_idxes), int(sum(actions_dim))), np.float32)
             reset_data["rewards"] = step_data["rewards"][:, dones_idxes]
             reset_data["is_first"] = np.zeros_like(reset_data["terminated"])
+            if store_rssm_state:
+                # bookkeeping rows hold no player state (the env just reset)
+                n_done = len(dones_idxes)
+                reset_data.update(rssm_state_slab(n_done, zero_recurrent[:n_done], zero_stochastic[:n_done],
+                                                  valid=False))
             rb.add(reset_data, dones_idxes, validate_args=cfg.buffer.validate_args)
             step_data["rewards"][:, dones_idxes] = 0
             step_data["terminated"][:, dones_idxes] = 0
@@ -462,6 +564,7 @@ def main(runtime, cfg) -> Dict[str, Any]:
         logger.log_metrics({"Test/cumulative_reward": test_reward}, policy_step_count)
     logger.finalize()
     return {
+        "start_iter": start_iter,
         "policy_steps": policy_step_count,
         "player_steps": player_steps,
         "player_width": num_envs,

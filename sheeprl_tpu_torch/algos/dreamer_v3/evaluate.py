@@ -1,0 +1,41 @@
+"""DreamerV3 evaluation (counterpart of
+``sheeprl_tpu/algos/dreamer_v3/evaluate.py``): one test episode of a
+checkpoint's policy, sampled (``greedy=False``), its reward logged."""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerDV3, build_policy_modules
+from sheeprl_tpu_torch.algos.dreamer_v3.utils import test
+from sheeprl_tpu_torch.envs import spaces
+from sheeprl_tpu_torch.envs.env import make_env
+from sheeprl_tpu_torch.serving.loader import agent_state_from_checkpoint
+from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
+from sheeprl_tpu_torch.utils.registry import register_evaluation
+
+
+@register_evaluation(algorithms="dreamer_v3")
+def evaluate_dreamer_v3(runtime, cfg, state: Dict[str, Any]) -> float:
+    """Returns the test episode's cumulative reward.  Builds only what the
+    policy acts with (the world model's encoders and RSSM, the actor), from a
+    checkpoint of either package."""
+    logger = get_logger(runtime, cfg)
+    log_dir = get_log_dir(runtime, cfg.root_dir, cfg.run_name)
+    env = make_env(cfg, cfg.seed, 0, log_dir, "test")()
+    action_space, observation_space = env.action_space, env.observation_space
+    env.close()
+    is_continuous = isinstance(action_space, spaces.Box)
+    is_multidiscrete = isinstance(action_space, spaces.MultiDiscrete)
+    actions_dim = tuple(
+        int(a) for a in (action_space.shape if is_continuous
+                         else (action_space.nvec.tolist() if is_multidiscrete else [action_space.n]))
+    )
+    world_model, actor = build_policy_modules(actions_dim, is_continuous, cfg, observation_space,
+                                              agent_state_from_checkpoint(state), runtime.device)
+    player = PlayerDV3(world_model, actor, actions_dim, 1)
+    generator = runtime.seed_everything(cfg.seed)
+    cumulative_rew, _ = test(player, cfg, log_dir, generator, greedy=False)
+    logger.log_metrics({"Test/cumulative_reward": cumulative_rew}, 0)
+    logger.finalize()
+    return cumulative_rew

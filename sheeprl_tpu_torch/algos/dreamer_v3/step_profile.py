@@ -1,10 +1,12 @@
 """The time of a DreamerV3 gradient step on a CUDA card, and where its
 device time goes: the one place that times a gradient step.
 
-    python -m sheeprl_tpu_torch.algos.dreamer_v3.step_profile [--steps 5] [--trace PATH]
+    python -m sheeprl_tpu_torch.algos.dreamer_v3.step_profile [--steps 5] [--trace PATH] [dotted.key=value ...]
 
 Builds DreamerV3-S (``exp=dreamer_v3 env=dummy``: batch 16 x 64, horizon
-15, fp32) from a seed on the card and calls :func:`time_gradient_steps` with
+15, fp32; the dotted overrides on top, e.g. ``fabric.precision=bf16-mixed
+algo.rssm_chunks=4 algo.rssm_chunk_burn_in=2``) from a seed on the card and
+calls :func:`time_gradient_steps` with
 the profiler on.  That warms up, then times ``--steps`` gradient steps
 between CUDA events on the stream (a step is host-bound, so its stream time
 is about its wall time), then traces as many more with ``torch.profiler``
@@ -28,11 +30,14 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
+from sheeprl_tpu_torch.algos.dreamer_v3.utils import rssm_scan_spec
+
 
 def synthetic_batch(cfg, actions_dim: Sequence[int], generator: torch.Generator,
                     device: torch.device | str) -> Dict[str, torch.Tensor]:
     """One replay sample at the run's shapes, staged as the training loop
-    stages it (uint8 pixels scaled to [-0.5, 0.5] on the device)."""
+    stages it (uint8 pixels scaled to [-0.5, 0.5] on the device), with the
+    stored states of ``algo.rssm_chunks > 1``."""
     T, B = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size
     n, size = int(sum(actions_dim)), cfg.env.screen_size
 
@@ -41,9 +46,20 @@ def synthetic_batch(cfg, actions_dim: Sequence[int], generator: torch.Generator,
 
     rgb = torch.randint(0, 256, (T, B, 3, size, size), device=device, generator=generator).float() / 255.0 - 0.5
     actions = torch.nn.functional.one_hot(torch.randint(0, n, (T, B), device=device, generator=generator), n).float()
-    return {"rgb": rgb, "actions": actions, "terminated": (rand(T, B, 1) < 0.02).float(),
-            "is_first": (rand(T, B, 1) < 0.02).float(), "rewards": torch.randn((T, B, 1), device=device,
-                                                                               generator=generator)}
+    batch = {"rgb": rgb, "actions": actions, "terminated": (rand(T, B, 1) < 0.02).float(),
+             "is_first": (rand(T, B, 1) < 0.02).float(), "rewards": torch.randn((T, B, 1), device=device,
+                                                                                generator=generator)}
+    if rssm_scan_spec(cfg)[0] > 1:
+        # the player's stored states: one-hot posteriors, tanh recurrents, a
+        # few rows written without one
+        wm = cfg.algo.world_model
+        stoch, discrete = wm.stochastic_size, wm.discrete_size
+        idx = torch.randint(0, discrete, (T, B, stoch), device=device, generator=generator)
+        batch["rssm_posterior"] = torch.nn.functional.one_hot(idx, discrete).float().reshape(T, B, stoch * discrete)
+        batch["rssm_recurrent"] = torch.tanh(torch.randn((T, B, wm.recurrent_model.recurrent_state_size),
+                                                         device=device, generator=generator))
+        batch["rssm_valid"] = (rand(T, B, 1) >= 0.05).float()
+    return batch
 
 
 def _union_us(intervals) -> float:
@@ -117,6 +133,7 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--trace", default=None, help="write the Chrome trace here")
+    parser.add_argument("overrides", nargs="*", help="dotted config overrides")
     args = parser.parse_args(argv)
 
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
@@ -124,14 +141,18 @@ def main(argv=None) -> None:
     from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments_state
     from sheeprl_tpu_torch.config import compose
     from sheeprl_tpu_torch.envs.env import make_env
+    from sheeprl_tpu_torch.parallel.precision import resolve_precision
     from sheeprl_tpu_torch.parallel.runtime import resolve_device
     from sheeprl_tpu_torch.serving.loader import _actions_dim
 
     device = resolve_device("cuda")
-    cfg = compose(["exp=dreamer_v3", "env=dummy", "diagnostics=off", "run_name=step_profile", "seed=5"])
+    cfg = compose(["exp=dreamer_v3", "env=dummy", "diagnostics=off", "run_name=step_profile", "seed=5",
+                   *args.overrides])
     env = make_env(cfg, cfg.seed, 0)()
     actions_dim, is_continuous, _ = _actions_dim(env.action_space)
     agent = build_agent(actions_dim, is_continuous, cfg, env.observation_space, None, device)
+    for module in agent:  # bf16-true stores the weights in bf16, as the training loop does
+        module.to(resolve_precision(cfg.fabric.precision)[0])
     env.close()
     step = make_train_step(agent, make_optimizers(cfg, agent), cfg, is_continuous)
     gen = torch.Generator(device=device).manual_seed(5)
@@ -144,7 +165,7 @@ def main(argv=None) -> None:
                           capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     steps, by_name = args.steps, out["kernels"]
     total = sum(v[1] for v in by_name.values())
-    print(f"[profile] DreamerV3-S gradient step: {out['step_ms']:.3f} ms median stream time (CUDA events), "
+    print(f"[profile] DreamerV3-S gradient step ({' '.join(args.overrides) or 'fp32'}): {out['step_ms']:.3f} ms median stream time (CUDA events), "
           f"{out['steps_per_s']:.3f} steps/s over {steps} steps; device busy {out['busy_ms']:.3f} ms a step "
           f"(kernel time summed {total / 1e3 / steps:.3f} ms) in {out['launches']} launches, idle share "
           f"{out['idle_share']:.4f}  [{name}]")

@@ -1,9 +1,11 @@
 """Command-line entry points (counterpart of ``sheeprl_tpu/cli.py``):
-``run`` trains, ``serve`` serves a checkpoint.  Evaluation, resume and
-registration are still to port (ROADMAP.md Queue 1)."""
+``run`` trains or, with ``checkpoint.resume_from``, resumes; ``eval`` scores
+a checkpoint; ``serve`` serves one.  Model registration is still to port
+(ROADMAP.md Queue 1)."""
 
 from __future__ import annotations
 
+import os
 import pathlib
 import sys
 from typing import Any, Dict, Optional, Sequence, Tuple
@@ -11,7 +13,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 import yaml
 
-from sheeprl_tpu_torch.config import compose, compose_group, deep_merge, instantiate
+from sheeprl_tpu_torch.config import compose, compose_group, deep_merge, instantiate, own_targets, yaml_load
 from sheeprl_tpu_torch.parallel.runtime import resolve_device
 from sheeprl_tpu_torch.utils.utils import dotdict, nest_dotted
 
@@ -23,24 +25,34 @@ def select_device(cfg) -> torch.device:
     return resolve_device(cfg.fabric.get("accelerator", "auto"))
 
 
-def serve_config(args: Optional[Sequence[str]] = None) -> Tuple[dotdict, str, torch.device]:
-    """``serve``'s configuration: the checkpoint's archived ``config.yaml``
-    (two levels up from the checkpoint), the ``serving`` group defaults under
-    it, dotted overrides on top, and the device it selects."""
-    overrides = list(args if args is not None else sys.argv[1:])
+def _dotted_overrides(overrides: Sequence[str]) -> Dict[str, Any]:
     flat: Dict[str, Any] = {}
     for ov in overrides:
         key, _, value = ov.partition("=")
         flat[key.lstrip("+")] = yaml.safe_load(value) if value != "" else None
-    ckpt = flat.pop("checkpoint_path", None)
-    if ckpt is None:
-        raise ValueError("You must specify the checkpoint path: checkpoint_path=...")
-    ckpt_path = pathlib.Path(ckpt)
+    return flat
+
+
+def _archived_config(ckpt_path: pathlib.Path) -> dotdict:
+    """The run config archived two levels up from a checkpoint, its targets
+    the port's (:func:`~sheeprl_tpu_torch.config.own_targets`)."""
     cfg_path = ckpt_path.parent.parent / "config.yaml"
     if not cfg_path.is_file():
         raise FileNotFoundError(f"Archived run config not found at '{cfg_path}'")
     with open(cfg_path) as fp:
-        cfg = dotdict(yaml.safe_load(fp))
+        return dotdict(own_targets(yaml.safe_load(fp)))
+
+
+def serve_config(args: Optional[Sequence[str]] = None) -> Tuple[dotdict, str, torch.device]:
+    """``serve``'s configuration: the checkpoint's archived ``config.yaml``
+    (two levels up from the checkpoint), the ``serving`` group defaults under
+    it, dotted overrides on top, and the device it selects."""
+    flat = _dotted_overrides(list(args if args is not None else sys.argv[1:]))
+    ckpt = flat.pop("checkpoint_path", None)
+    if ckpt is None:
+        raise ValueError("You must specify the checkpoint path: checkpoint_path=...")
+    ckpt_path = pathlib.Path(ckpt)
+    cfg = _archived_config(ckpt_path)
     deep_merge(cfg, dotdict(nest_dotted(flat)))
     # the group defaults underpin whatever the archive / overrides carry, so
     # every serving knob has a value
@@ -95,11 +107,118 @@ def run_algorithm(cfg: dotdict) -> Any:
     return runtime.launch(entrypoint, cfg)
 
 
+def resume_from_checkpoint(cfg: dotdict, overrides: Sequence[str] = ()) -> dotdict:
+    """The config of a resumed run.  ``checkpoint.resume_from`` is a
+    checkpoint file or any directory above one; it resolves to the newest
+    checkpoint that verifies (``resilience/manifest.py``), which
+    ``keep_last`` then never deletes.  The run config archived beside it is
+    the base; the allowed top-level keys come from ``cfg``, and of ``env``,
+    ``diagnostics`` and ``algo.offline`` only what ``overrides`` passes
+    explicitly (a group swap takes the whole composed block), so that every
+    archived setting the user did not type keeps its value.  The env id and
+    the algorithm must match the archive's."""
+    from sheeprl_tpu_torch.resilience.manifest import resolve_resume_from
+    from sheeprl_tpu_torch.utils.checkpoint import protect_checkpoint
+
+    resolved = resolve_resume_from(str(cfg.checkpoint.resume_from))
+    protect_checkpoint(resolved)
+    ckpt_path = pathlib.Path(resolved)
+    old_cfg = _archived_config(ckpt_path)
+    if old_cfg.env.id != cfg.env.id:
+        raise ValueError(
+            "This experiment is run with a different environment from the one of the experiment you want to "
+            f"restart: got '{cfg.env.id}', expected '{old_cfg.env.id}'"
+        )
+    if old_cfg.algo.name != cfg.algo.name:
+        raise ValueError(
+            "This experiment is run with a different algorithm from the one of the experiment you want to "
+            f"restart: got '{cfg.algo.name}', expected '{old_cfg.algo.name}'"
+        )
+    merged = dotdict(old_cfg)
+    for key in ("checkpoint", "fabric", "metric", "run_name", "exp_name", "seed", "dry_run", "total_steps"):
+        if key in cfg:
+            merged[key] = cfg[key]
+    explicit: Dict[str, Any] = {}
+    for ov in overrides:
+        key, _, value = ov.partition("=")
+        key = key.lstrip("+~")
+        offline_key = key == "algo.offline" or key.startswith("algo.offline.")
+        if key.split(".", 1)[0] not in ("env", "diagnostics") and not offline_key:
+            continue
+        if "." in key and key != "algo.offline":
+            explicit[key] = yaml_load(value) if value != "" else None
+        else:
+            explicit[key] = cfg.get(key) if "." not in key else yaml_load(value)
+    if explicit:
+        deep_merge(merged, dotdict(nest_dotted(explicit)))
+    merged.checkpoint.resume_from = str(ckpt_path)
+    merged.root_dir = old_cfg.root_dir
+    return merged
+
+
 def run(args: Optional[Sequence[str]] = None) -> Any:
     """``python -m sheeprl_tpu_torch run exp=dreamer_v3 env=dummy
     diagnostics=off [fabric.accelerator=cpu] ...``: compose the config from
-    Hydra-style overrides and train.  On the card unless
-    ``fabric.accelerator=cpu``."""
-    cfg = compose(list(args if args is not None else sys.argv[1:]))
+    Hydra-style overrides and train, or with ``checkpoint.resume_from=<file
+    or run dir>`` resume (:func:`resume_from_checkpoint`).  On the card
+    unless ``fabric.accelerator=cpu``."""
+    overrides = list(args if args is not None else sys.argv[1:])
+    cfg = compose(overrides)
+    if cfg.checkpoint.get("resume_from"):
+        cfg = resume_from_checkpoint(cfg, overrides)
     check_configs(cfg)
     return run_algorithm(cfg)
+
+
+def eval_algorithm(cfg: dotdict) -> Any:
+    """Registry lookup -> runtime -> the checkpoint -> the algorithm's
+    evaluation; returns what it returns (DV3: the test reward)."""
+    import importlib
+
+    from sheeprl_tpu_torch.utils.registry import find_evaluation
+
+    entry = find_evaluation(cfg.algo.name)
+    if entry is None:
+        raise NotImplementedError(f"Evaluation of {cfg.algo.name!r} is not ported yet (see ROADMAP.md Queue 1); "
+                                  "the port evaluates: dreamer_v3")
+    entrypoint = getattr(importlib.import_module(entry["module"]), entry["entrypoint"])
+    runtime = instantiate(cfg.fabric)
+    return runtime.launch(entrypoint, cfg, runtime.load(cfg.checkpoint_path))
+
+
+def evaluation(args: Optional[Sequence[str]] = None) -> Any:
+    """``python -m sheeprl_tpu_torch eval checkpoint_path=... [dotted.key=value
+    ...]``: the checkpoint's archived config with the overrides on top, run
+    as ``<run>_evaluation`` with the archived logger re-rooted there (unless
+    ``metric.logger`` is overridden), on one device and one env, at the
+    archived precision.  Returns what the evaluation returns."""
+    flat = _dotted_overrides(list(args if args is not None else sys.argv[1:]))
+    if flat.get("checkpoint_path") is None:
+        raise ValueError("You must specify the evaluation checkpoint path: checkpoint_path=...")
+    ckpt_path = pathlib.Path(flat.pop("checkpoint_path"))
+    cfg = _archived_config(ckpt_path)
+    deep_merge(cfg, dotdict(nest_dotted(flat)))
+    if "run_name" not in flat:
+        cfg.run_name = f"{os.path.basename(str(ckpt_path.parent.parent))}_evaluation"
+    user_logger = any(k == "metric.logger" or k.startswith("metric.logger.") for k in flat) or (
+        isinstance(flat.get("metric"), dict) and "logger" in flat["metric"])
+    logger_cfg = cfg.metric.get("logger")
+    if logger_cfg is not None and not user_logger:
+        # the archived paths point inside the trained run: the evaluation
+        # logs under its own run name
+        for key in ("root_dir", "save_dir"):
+            if key in logger_cfg:
+                logger_cfg[key] = os.path.join("logs", "runs", str(cfg.root_dir))
+        if "name" in logger_cfg:
+            logger_cfg.name = cfg.run_name
+    cfg.checkpoint_path = str(ckpt_path)
+    cfg.fabric = dotdict({
+        "_target_": "sheeprl_tpu_torch.parallel.runtime.Runtime",
+        "devices": 1,
+        "num_nodes": 1,
+        "strategy": "auto",
+        "accelerator": cfg.fabric.get("accelerator", "auto"),
+        "precision": cfg.fabric.get("precision", "32-true"),
+    })
+    cfg.env.num_envs = 1
+    return eval_algorithm(cfg)

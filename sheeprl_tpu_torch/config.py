@@ -332,6 +332,29 @@ def compose_group(group: str, option: str = "default") -> dotdict:
     return dotdict(resolve_interpolations(sub))
 
 
+#: ``_target_`` prefix of a config archived by the JAX package -> the port's
+#: (the port mirrors its module paths), and the optax factories it has
+_FOREIGN_PREFIX = ("sheeprl_tpu.", "sheeprl_tpu_torch.")
+_FOREIGN_TARGETS = {"optax.adam": "sheeprl_tpu_torch.utils.optim.adam"}
+
+
+def own_targets(node: Any) -> Any:
+    """A copy of an archived run config with every ``_target_`` the JAX
+    package wrote (``sheeprl_tpu.…``, ``optax.adam``) naming the port's
+    counterpart, so that a JAX run resumes and evaluates here."""
+    if isinstance(node, Mapping):
+        out = {k: own_targets(v) for k, v in node.items()}
+        target = out.get("_target_")
+        if isinstance(target, str):
+            if target.startswith(_FOREIGN_PREFIX[0]):
+                target = _FOREIGN_PREFIX[1] + target[len(_FOREIGN_PREFIX[0]):]
+            out["_target_"] = _FOREIGN_TARGETS.get(target, target)
+        return dotdict(out) if isinstance(node, dotdict) else out
+    if isinstance(node, list):
+        return [own_targets(v) for v in node]
+    return node
+
+
 def instantiate(node: Mapping[str, Any] | Any, **kwargs: Any) -> Any:
     """Recursive ``_target_`` instantiation (Hydra's
     ``hydra.utils.instantiate``, without ``_partial_``: no config of the

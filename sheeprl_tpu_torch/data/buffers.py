@@ -5,8 +5,8 @@ The same ``[time, n_envs, ...]`` layout and the same sampling, draw for draw
 from a seeded ``numpy`` generator, as the JAX package's ``ReplayBuffer``,
 ``SequentialReplayBuffer`` and ``EnvIndependentReplayBuffer``.  Only the
 sampled minibatch crosses to the device, staged by the training loop.  The
-device-resident ring (``buffer.device=True``) and the episode buffer are not
-ported yet (ROADMAP.md Queue 1).
+device-resident ring (``buffer.device=True``) is ``data/device_buffer.py``;
+the episode buffer is not ported yet (ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -108,6 +108,16 @@ class ReplayBuffer:
     def state_dict(self) -> Dict[str, Any]:
         return {"buffer": {k: np.asarray(v).copy() for k, v in self._buf.items()}, "pos": self._pos,
                 "full": self._full}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> "ReplayBuffer":
+        for k, v in state["buffer"].items():
+            if self._memmap:
+                self._buf[k] = MemmapArray.from_array(v, filename=Path(self._memmap_dir) / f"{k}.memmap")
+            else:
+                self._buf[k] = np.array(v)  # a copy: checkpoint arrays may be read-only
+        self._pos = int(state["pos"])
+        self._full = bool(state["full"])
+        return self
 
 
 class SequentialReplayBuffer(ReplayBuffer):
@@ -213,3 +223,21 @@ class EnvIndependentReplayBuffer:
 
     def state_dict(self) -> Dict[str, Any]:
         return {"buffers": [b.state_dict() for b in self._buf]}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> "EnvIndependentReplayBuffer":
+        """Its own format, or the device ring's (``filled`` per env over
+        storage stacked along the env axis), so that a checkpoint survives
+        toggling ``buffer.device``."""
+        if "filled" in state:
+            for e, b in enumerate(self._buf):
+                b.load_state_dict({
+                    "buffer": {k: np.asarray(v[:, e : e + 1]) for k, v in state["buffer"].items()},
+                    "pos": int(state["pos"][e]),
+                    "full": bool(state["filled"][e] >= self._buffer_size),
+                })
+            return self
+        if len(state["buffers"]) != self._n_envs:
+            raise ValueError(f"the saved buffer has {len(state['buffers'])} envs, this one {self._n_envs}")
+        for b, s in zip(self._buf, state["buffers"]):
+            b.load_state_dict(s)
+        return self

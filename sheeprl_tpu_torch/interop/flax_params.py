@@ -14,11 +14,20 @@ either side or a shape that differs raises.  Training reads and writes all
 four trees; serving reads only what a policy acts with
 (:func:`from_flax_policy`), and the subtrees it does not act with
 (:data:`NOT_ACTED_WITH`) may be in the checkpoint or not.
+
+Optimizer state crosses one way, JAX to the port
+(:func:`optimizer_state_dict`): optax's ``chain(clip_by_global_norm,
+adam)`` state holds ``ScaleByAdamState(count, mu, nu)``, whose ``mu`` and
+``nu`` are trees laid out like the params; they become ``torch.optim.Adam``'s
+``exp_avg`` and ``exp_avg_sq`` by the same layout rules, and ``count`` its
+``step``.  The port writes its optimizer state as torch ``state_dict``s,
+which the JAX package cannot read.  bf16 weights are written as float32,
+which holds them exactly.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Set
+from typing import Any, Dict, Iterator, Mapping, Set, Tuple
 
 import numpy as np
 import torch
@@ -185,8 +194,10 @@ def _to_flax(array: np.ndarray, kind: str) -> np.ndarray:
     return array
 
 
-@torch.no_grad()
-def _load(spec: Mapping[str, Any], tree: Any, path: str, unread: Mapping[str, Set[str]]) -> None:
+def _walk(spec: Mapping[str, Any], tree: Any, path: str,
+          unread: Mapping[str, Set[str]]) -> Iterator[Tuple[torch.Tensor, np.ndarray]]:
+    """``(tensor, value)`` for every leaf of ``spec``, ``value`` the flax
+    array of ``tree`` at the same path in the port's layout; strict."""
     if not isinstance(tree, Mapping):
         raise TypeError(f"flax params at '{path or '/'}' must be a mapping, got {type(tree).__name__}")
     unknown = set(tree) - set(spec) - unread.get(path, set())
@@ -196,13 +207,19 @@ def _load(spec: Mapping[str, Any], tree: Any, path: str, unread: Mapping[str, Se
     for key, sub in spec.items():
         where = f"{path}/{key}"
         if isinstance(sub, dict):
-            _load(sub, tree[key], where, unread)
+            yield from _walk(sub, tree[key], where, unread)
             continue
         tensor, kind = sub
         value = _to_torch(np.asarray(tree[key]), kind)
         if tuple(value.shape) != tuple(tensor.shape):
             raise ValueError(f"flax param '{where}' maps to shape {tuple(value.shape)}, the port has {tuple(tensor.shape)}")
-        tensor.copy_(torch.tensor(np.ascontiguousarray(value)))  # a copy: checkpoint arrays may be read-only
+        yield tensor, np.ascontiguousarray(value)  # a copy: checkpoint arrays may be read-only
+
+
+@torch.no_grad()
+def _load(spec: Mapping[str, Any], tree: Any, path: str, unread: Mapping[str, Set[str]]) -> None:
+    for tensor, value in _walk(spec, tree, path, unread):
+        tensor.copy_(torch.tensor(value))
 
 
 def from_flax(tree: Mapping[str, Any], world_model: WorldModel, actor: Actor, critic: Critic,
@@ -225,10 +242,52 @@ def _dump(spec: Mapping[str, Any]) -> Dict[str, Any]:
             out[key] = _dump(sub)
         else:
             tensor, kind = sub
-            out[key] = np.ascontiguousarray(_to_flax(tensor.detach().cpu().numpy(), kind))
+            out[key] = np.ascontiguousarray(_to_flax(tensor.detach().cpu().float().numpy(), kind))
     return out
 
 
 def to_flax(world_model: WorldModel, actor: Actor, critic: Critic, target_critic: Critic) -> Dict[str, Any]:
     """The port's weights as the JAX package's four param trees (numpy)."""
     return _dump(param_spec(world_model, actor, critic, target_critic))
+
+
+def _adam_state(node: Any) -> Any:
+    """optax's ``ScaleByAdamState`` anywhere in a chain's nested state (the
+    port reads optax classes as ``ForeignObject`` tuples of their fields)."""
+    if getattr(node, "qualname", "").endswith("ScaleByAdamState"):
+        return node
+    if isinstance(node, (tuple, list)):
+        for sub in node:
+            found = _adam_state(sub)
+            if found is not None:
+                return found
+    return None
+
+
+def optimizer_state_dict(saved: Any, optimizer: torch.optim.Optimizer, spec: Mapping[str, Any]) -> Dict[str, Any]:
+    """``optimizer``'s ``state_dict`` restored from a checkpoint's
+    ``opt_states[name]``, for ``optimizer.load_state_dict``: the port's own
+    (a torch ``state_dict`` stored as numpy) or the JAX package's optax
+    chain state, whose Adam moments map through ``spec``, the module's
+    subtree of :func:`param_spec`.  The hyperparameters stay those of
+    ``optimizer``, as a JAX resume rebuilds its optax chain from the
+    config."""
+    groups = optimizer.state_dict()["param_groups"]
+    if isinstance(saved, Mapping) and "state" in saved:
+        state = {int(i): {k: torch.as_tensor(np.asarray(v)) for k, v in entry.items()}
+                 for i, entry in saved["state"].items()}
+        return {"state": state, "param_groups": groups}
+    adam = _adam_state(saved)
+    if adam is None:
+        raise ValueError(f"no torch state_dict and no optax ScaleByAdamState in the saved optimizer state: {saved!r:.200}")
+    count, mu, nu = adam[:3]
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    index = {id(p): i for i, p in enumerate(params)}
+    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+    state = {}
+    for (tensor, exp_avg), (_, exp_avg_sq) in zip(_walk(spec, mu, "", {}), _walk(spec, nu, "", {})):
+        state[index[id(tensor)]] = {"step": step.clone(), "exp_avg": torch.tensor(exp_avg),
+                                    "exp_avg_sq": torch.tensor(exp_avg_sq)}
+    if len(state) != len(index):
+        raise KeyError(f"the optax state covers {len(state)} of the optimizer's {len(index)} parameters")
+    return {"state": state, "param_groups": groups}

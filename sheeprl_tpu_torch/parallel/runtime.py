@@ -1,7 +1,8 @@
 """The one-device ``Runtime`` (counterpart of
-``sheeprl_tpu/parallel/runtime.py``): the device, the seeding, checkpoint
-save/load and the callback hooks.  ``world_size`` is 1; multi-device runs,
-``bf16-*`` precision and FSDP are still to port (ROADMAP.md Queue 1)."""
+``sheeprl_tpu/parallel/runtime.py``): the device, the precision policy
+(``param_dtype``, ``compute_dtype``; see ``parallel/precision.py``), the
+seeding, checkpoint save/load and the callback hooks.  ``world_size`` is 1;
+multi-device runs and FSDP are still to port (ROADMAP.md Queue 1)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,8 @@ from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+from sheeprl_tpu_torch.parallel.precision import resolve_precision
 
 _NOT_PORTED = "is not ported yet: see ROADMAP.md Queue 1"
 
@@ -51,8 +54,11 @@ class Runtime:
             raise NotImplementedError(
                 f"fabric.devices={devices}, num_nodes={num_nodes}, fsdp={fsdp}: multi-device training {_NOT_PORTED}"
             )
-        if precision != "32-true":
-            raise NotImplementedError(f"fabric.precision={precision!r} {_NOT_PORTED} (32-true is)")
+        self.param_dtype, self.compute_dtype = resolve_precision(precision)
+        if self.compute_dtype == torch.float64:
+            raise NotImplementedError(
+                f"fabric.precision={precision!r}: the LayerNorm-GRU kernel takes float32 or bfloat16"
+            )
         self.device = resolve_device(accelerator)
         self.callbacks = list(callbacks or [])
 

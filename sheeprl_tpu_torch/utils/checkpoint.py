@@ -16,7 +16,7 @@ import os
 import pickle
 import re
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Set, Tuple
 
 _SAFE_BUILTINS = {("builtins", n) for n in ("set", "frozenset", "complex", "slice", "range", "bytearray")}
 _SAFE_BUILTINS.add(("collections", "OrderedDict"))
@@ -59,7 +59,9 @@ def npify(tree: Any) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(npify(v) for v in tree)
     if hasattr(tree, "detach") and hasattr(tree, "cpu"):
-        return tree.detach().cpu().numpy()
+        tree = tree.detach().cpu()
+        # numpy has no bfloat16: stored as float32, which holds it exactly
+        return (tree.float() if str(tree.dtype) == "torch.bfloat16" else tree).numpy()
     return tree
 
 
@@ -85,13 +87,24 @@ def load_state(path: str) -> Dict[str, Any]:
 
 _STEP_RE = re.compile(r"ckpt_(\d+)_\d+\.ckpt$")
 
+#: checkpoints ``keep_last`` never deletes: the one the run resumed from
+#: (``cli.resume_from_checkpoint`` registers it), so that a crash before the
+#: first new save still has it to fall back to
+PROTECTED_CHECKPOINTS: Set[str] = set()
+
+
+def protect_checkpoint(path: str) -> None:
+    PROTECTED_CHECKPOINTS.add(os.path.abspath(str(path)))
+
 
 class CheckpointCallback:
     """The checkpoint hook (``runtime.call("on_checkpoint_coupled", ...)``).
     With a replay buffer, its state is saved with the last stored step of
     every env marked truncated, so that an episode in flight does not
-    bootstrap across the checkpoint, and unmarked after the save.
-    ``keep_last`` keeps that many newest checkpoints of the directory."""
+    bootstrap across the checkpoint: the host buffer is marked and unmarked
+    around the save, the device ring's host snapshot is marked (the ring on
+    the card stays as it is).  ``keep_last`` keeps that many newest
+    checkpoints of the directory, and never the protected ones."""
 
     def __init__(self, keep_last: Optional[int] = None, export: bool = False):
         if export:
@@ -99,8 +112,18 @@ class CheckpointCallback:
         self.keep_last = keep_last
 
     def on_checkpoint_coupled(self, runtime, ckpt_path: str, state: Dict[str, Any], replay_buffer: Any = None) -> None:
+        from sheeprl_tpu_torch.data.device_buffer import DeviceSequentialReplayBuffer
+
         saved = []
-        if replay_buffer is not None:
+        if isinstance(replay_buffer, DeviceSequentialReplayBuffer):
+            rb_state = replay_buffer.state_dict()
+            truncated = rb_state["buffer"].get("truncated")
+            if truncated is not None:
+                for e in range(replay_buffer.n_envs):
+                    if rb_state["filled"][e] > 0:
+                        truncated[(rb_state["pos"][e] - 1) % replay_buffer.buffer_size, e] = 1
+            state = {**state, "rb": rb_state}
+        elif replay_buffer is not None:
             for b in replay_buffer.buffer:
                 if "truncated" in b.buffer:
                     last = (b._pos - 1) % b.buffer_size
@@ -119,4 +142,5 @@ class CheckpointCallback:
         ckpts = [p for p in ckpt_folder.glob("ckpt_*.ckpt") if _STEP_RE.search(p.name)]
         ckpts.sort(key=lambda p: int(_STEP_RE.search(p.name).group(1)))
         for old in ckpts[: max(0, len(ckpts) - int(self.keep_last))]:
-            old.unlink()
+            if os.path.abspath(old) not in PROTECTED_CHECKPOINTS:
+                old.unlink()

@@ -1,6 +1,7 @@
-"""Algorithm registry (counterpart of ``sheeprl_tpu/utils/registry.py``):
-an algorithm's training module registers its entry point at import time,
-and the CLI looks it up by name."""
+"""Algorithm and evaluation registries (counterpart of
+``sheeprl_tpu/utils/registry.py``): an algorithm's training module registers
+its entry point at import time, its ``evaluate`` module its evaluation, and
+the CLI looks them up by name."""
 
 from __future__ import annotations
 
@@ -9,31 +10,53 @@ from typing import Any, Callable, Dict, List, Optional
 
 #: module path -> [{name, entrypoint}]
 algorithm_registry: Dict[str, List[Dict[str, Any]]] = {}
-#: the training modules the port has; importing one registers it
+evaluation_registry: Dict[str, List[Dict[str, Any]]] = {}
+#: the modules the port has; importing one registers it
 PORTED_ALGORITHM_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",)
+PORTED_EVALUATION_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.evaluate",)
+
+
+def _register(registry: Dict[str, List[Dict[str, Any]]], fn: Callable, name: str) -> Callable:
+    entry = {"name": name, "entrypoint": fn.__name__}
+    registered = registry.setdefault(fn.__module__, [])
+    if entry not in registered:
+        registered.append(entry)
+    return fn
 
 
 def register_algorithm() -> Callable:
     """Register ``fn`` as the entry point of the algorithm named after its
     module (``.../dreamer_v3/dreamer_v3.py`` -> ``dreamer_v3``)."""
+    return lambda fn: _register(algorithm_registry, fn, fn.__module__.split(".")[-1])
+
+
+def register_evaluation(algorithms: str | List[str]) -> Callable:
+    """Register ``fn`` as the evaluation of each algorithm named."""
+    names = [algorithms] if isinstance(algorithms, str) else list(algorithms)
 
     def inner(fn: Callable) -> Callable:
-        module = fn.__module__
-        entry = {"name": module.split(".")[-1], "entrypoint": fn.__name__}
-        registered = algorithm_registry.setdefault(module, [])
-        if entry not in registered:
-            registered.append(entry)
+        for name in names:
+            _register(evaluation_registry, fn, name)
         return fn
 
     return inner
 
 
-def find_algorithm(name: str) -> Optional[Dict[str, Any]]:
-    """``{module, name, entrypoint}`` of a ported algorithm, or None."""
-    for module in PORTED_ALGORITHM_MODULES:
+def _find(registry: Dict[str, List[Dict[str, Any]]], modules, name: str) -> Optional[Dict[str, Any]]:
+    for module in modules:
         importlib.import_module(module)
-    for module, entries in algorithm_registry.items():
+    for module, entries in registry.items():
         for meta in entries:
             if meta["name"] == name:
                 return {"module": module, **meta}
     return None
+
+
+def find_algorithm(name: str) -> Optional[Dict[str, Any]]:
+    """``{module, name, entrypoint}`` of a ported algorithm, or None."""
+    return _find(algorithm_registry, PORTED_ALGORITHM_MODULES, name)
+
+
+def find_evaluation(name: str) -> Optional[Dict[str, Any]]:
+    """``{module, name, entrypoint}`` of a ported evaluation, or None."""
+    return _find(evaluation_registry, PORTED_EVALUATION_MODULES, name)

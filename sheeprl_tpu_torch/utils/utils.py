@@ -88,6 +88,16 @@ class Ratio:
         return {"ratio": self._ratio, "last_step": self._last_step, "credit": self._credit,
                 "pretrain_steps": self._pretrain_steps}
 
+    def load_state_dict(self, state_dict: Mapping[str, Any]) -> "Ratio":
+        # the older key names too, as the JAX package reads them
+        self._ratio = state_dict.get("ratio", state_dict.get("_ratio"))
+        self._last_step = state_dict.get("last_step", state_dict.get("_prev"))
+        self._credit = state_dict.get("credit", 0.0)
+        self._pretrain_steps = state_dict.get("pretrain_steps", state_dict.get("_pretrain_steps", 0))
+        if self._ratio is None:
+            raise KeyError(f"Unrecognized Ratio state: {sorted(state_dict)}")
+        return self
+
 
 def save_configs(cfg: dotdict, log_dir: str) -> None:
     """Archive the run config as ``<log_dir>/config.yaml``, which ``serve``

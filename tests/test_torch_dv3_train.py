@@ -620,9 +620,20 @@ def test_run_refuses_options_it_does_not_port(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     with pytest.raises(NotImplementedError, match="diagnostics"):
         cli.run([o for o in RUN if o != "diagnostics=off"])
-    with pytest.raises(NotImplementedError, match="rssm_chunks"):
-        cli.run(RUN + ["algo.rssm_chunks=2"])
-    with pytest.raises(NotImplementedError, match="precision"):
-        cli.run(RUN + ["fabric.precision=bf16-mixed"])
+    with pytest.raises(NotImplementedError, match="executor"):
+        cli.run(RUN + ["env.sync_env=False"])
+    with pytest.raises(NotImplementedError, match="offline"):
+        cli.run(RUN + ["algo.offline.enabled=True"])
+    with pytest.raises(NotImplementedError, match="model_manager"):
+        cli.run(RUN + ["model_manager.disabled=False"])
+    with pytest.raises(NotImplementedError, match="profiler"):
+        cli.run(RUN + ["metric.profiler.enabled=True"])
+    # DDP/FSDP, and with them the device ring over more than one device
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        cli.run(RUN + ["fabric.devices=2", "buffer.device=True"])
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        cli.run(RUN + ["fabric.fsdp=2"])
+    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
+        cli.run(RUN + ["fabric.precision=64-true"])
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.run(RUN + ["exp=ppo"])

@@ -200,6 +200,6 @@ def test_runtime_seeds_a_generator_and_refuses_what_it_does_not_port():
     b = torch.rand(3, generator=runtime.seed_everything(4))
     assert torch.equal(a, b) and runtime.world_size == 1 and runtime.is_global_zero
     with pytest.raises(NotImplementedError):
-        Runtime(accelerator="cpu", precision="bf16-mixed")
+        Runtime(accelerator="cpu", precision="64-true")
     with pytest.raises(NotImplementedError):
         Runtime(accelerator="cpu", devices=2)
