@@ -34,30 +34,44 @@ Phases, in order; any failure raises and the script exits non-zero:
             200 with a valid one-hot action, the kernel's launch count must
             equal the number of policy steps the server ran, and one batch
             recomputed through the plain path must agree;
-5. train  — ``run exp=dreamer_v3 env=dummy diagnostics=off`` in-process at
-            DreamerV3-S (batch 16 x 64, horizon 15, fp32) for at least 8
-            gradient steps: every metric finite, the world model, actor and
-            critic all changed, the kernel's launches equal to what the run's
-            counters predict, the checkpoint served by ``serve``'s loader;
-            then one gradient step through the kernel and through the plain
-            path from the same state, batch and noise, which must agree (the
-            numerical check of the gradients through the kernel), and the
-            time of a gradient step;
+5. train  — ``run exp=dreamer_v3 env=dummy`` in-process at DreamerV3-S (batch
+            16 x 64, horizon 15, fp32) under the default diagnostics with
+            ``diagnostics.transfers=log`` for at least 8 gradient steps: every
+            metric finite, the world model, actor and critic all changed, the
+            kernel's launches equal to what the run's counters predict, the
+            journal's FLOPs, MFU, health gauges and card memory, the
+            synchronizing calls a step, the checkpoint verified by its manifest
+            and served by ``serve``'s loader; then one gradient step through the
+            kernel and through the plain path from the same state, batch and
+            noise, which must agree (the numerical check of the gradients
+            through the kernel);
 6. chunked — ``run`` at DreamerV3-S under ``fabric.precision=bf16-mixed
             algo.rssm_chunks=4 algo.rssm_chunk_burn_in=2 buffer.device=True
-            buffer.checkpoint=True`` for 16 gradient steps, a checkpoint
-            mid-run: launches = 33 a gradient step (16 chunked steps at 64
-            rows, 2 burn-in steps at 48, 15 imagination steps at 1024) +
-            player + test steps, every metric finite, and a kernel-vs-plain
-            bf16 gradient step from one state within bf16 tolerances;
+            buffer.checkpoint=True`` and the default diagnostics for 16
+            gradient steps, an async checkpoint mid-run: launches = 33 a
+            gradient step (16 chunked steps at 64 rows, 2 burn-in steps at 48,
+            15 imagination steps at 1024) + player + test steps, every metric
+            finite, the journal as in phase 5, and a kernel-vs-plain bf16
+            gradient step from one state within bf16 tolerances;
 7. resume — ``run checkpoint.resume_from=<that run's directory>``: the
-            counters, Ratio, Moments, Adam state and the device ring
-            restored as saved, and the run trains on;
+            counters, Ratio, Moments, Adam state (optax's layout) and the
+            device ring restored as saved, and the run trains on;
 8. eval   — ``eval checkpoint_path=<that checkpoint>``: the test reward;
-9. timers — a gradient step's stream time, device-busy time, idle share
+9. drill  — ``run`` under ``diagnostics=full`` with the presets' options at
+            DreamerV3-S widths, sequences of 16: a poisoned batch under
+            ``skip_update`` leaves params, Adam state, target critic and
+            Moments bit-identical; a preemption writes a verified emergency
+            checkpoint, journals ``preempted`` and exits 75 (held here as the
+            expected end); ``/metrics`` and ``/healthz`` answer during the run;
+            ``trace.json`` loads; a resume from the emergency checkpoint trains;
+10. timers — a gradient step's stream time, device-busy time, idle share
             and launches (``step_profile.time_gradient_steps``) for the fp32
-            ``rssm_chunks=1`` step and the chunked bf16 one;
-10. the ``kernels`` JSON line, then the result line.
+            ``rssm_chunks=1`` step and the chunked bf16 one, each with the
+            diagnostics off and on (health stats, instrumented: its FLOPs and
+            MFU); the CPU's FLOP count of the fp32 step, equal to the card's;
+            the journals' MFU, the syncs a step, ``ckpt_end``'s ``write_ms``
+            (async and blocking) and every run's kernel launches;
+11. the ``kernels`` JSON line, then the result line.
 
 It needs no network, writes only under ``build/`` in the checkout, and stops
 every thread it starts.
@@ -104,9 +118,13 @@ GRAD_TOLERANCE = {"float32": 1e-5, "bfloat16": 1e-5}
 # the training phase: batch 16 x 64, horizon 15 (exp=dreamer_v3); 4 envs, the
 # buffer must hold 64 rows of each before the first sample, so learning
 # starts at 256 policy steps and each later iteration owes 4 gradient steps
-TRAIN_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "diagnostics=off", "env.capture_video=False", "run_name=chip_smoke",
-                   "algo.learning_starts=256", "algo.total_steps=268", "buffer.size=1024", "checkpoint.every=100000",
-                   "metric.logger=null", "seed=5"]
+# It runs under the default diagnostics with the sync guard counting
+# (``diagnostics.transfers=log``), logging every iteration: the journal's
+# last interval is the steady state's MFU
+TRAIN_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "diagnostics.transfers=log", "metric.log_every=4",
+                   "env.capture_video=False", "run_name=chip_smoke", "algo.learning_starts=256",
+                   "algo.total_steps=268", "buffer.size=1024", "checkpoint.every=100000", "metric.logger=null",
+                   "seed=5"]
 MIN_GRADIENT_STEPS = 8
 # kernel vs plain gradient step from one state: the recurrent state agrees to
 # ~1e-6 per step, so the losses and the gradients (read from Adam's first
@@ -129,11 +147,25 @@ TIMED_STEPS = 5
 # steps (4 before the checkpoint) and the resumed run about 4
 CHUNKED_STEP_OPTIONS = ["fabric.precision=bf16-mixed", "algo.rssm_chunks=4", "algo.rssm_chunk_burn_in=2"]
 CHUNKED_OPTIONS = CHUNKED_STEP_OPTIONS + ["buffer.device=True", "buffer.checkpoint=True"]
-CHUNKED_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "diagnostics=off", "env.capture_video=False",
+CHUNKED_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.capture_video=False",
                      "run_name=chip_smoke_chunked", "algo.learning_starts=256", "algo.total_steps=876",
                      "algo.replay_ratio=0.026", "buffer.size=1024", "checkpoint.every=440",
                      "checkpoint.save_last=False", "metric.logger=null", "seed=5", *CHUNKED_OPTIONS]
 CHUNKED_GRADIENT_STEPS = 16
+# the drills, under diagnostics=full with the presets' options at DreamerV3-S
+# widths and a cut depth (sequences of 16, learning from policy step 64, one
+# gradient step an iteration): a poisoned batch at iteration 20 under
+# skip_update, a preemption at iteration 24 (a blocking emergency save, so
+# its ckpt_end's write_ms is the blocking one), then a resume that trains
+# from iteration 41 to 56
+DRILL_NAN_ITER, DRILL_PREEMPT_ITER = 20, 24
+DRILL_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "diagnostics=full", "env.capture_video=False",
+                   "run_name=chip_smoke_drill", "algo.learning_starts=64", "algo.per_rank_sequence_length=16",
+                   "algo.total_steps=224", "algo.replay_ratio=0.25", "buffer.size=1024", "checkpoint.every=100000",
+                   "metric.logger=null", "metric.log_every=4", "seed=5", *CHUNKED_OPTIONS,
+                   f"diagnostics.sentinel.inject_nan_iter={DRILL_NAN_ITER}",
+                   f"diagnostics.resilience.inject_preempt_iter={DRILL_PREEMPT_ITER}",
+                   "diagnostics.resilience.async_checkpoint=False"]
 # kernel vs plain gradient step in bf16 from one state: both round the
 # cell's fp32 result to bf16 once, so they differ by a bf16 step (2^-8) here
 # and there, and a straight-through sample may flip where two classes tie in
@@ -469,14 +501,15 @@ def run_slice(build_dir: Path, device_name: str = "cuda") -> dict:
     }
 
 
-def _dv3_s_widths(cfg, precision: str = "32-true") -> None:
+def _dv3_s_widths(cfg, precision: str = "32-true", sequence_length: int = 64) -> None:
     wm_cfg = cfg.algo.world_model
     widths = (wm_cfg.recurrent_model.recurrent_state_size, cfg.algo.dense_units, wm_cfg.representation_model.hidden_size,
               cfg.algo.mlp_layers, wm_cfg.encoder.cnn_channels_multiplier, wm_cfg.stochastic_size, wm_cfg.discrete_size,
               cfg.algo.world_model.reward_model.bins, cfg.algo.critic.bins, cfg.algo.per_rank_batch_size,
               cfg.algo.per_rank_sequence_length, cfg.algo.horizon, cfg.fabric.precision, cfg.env.screen_size)
-    if widths != (512, 512, 512, 2, 32, 32, 32, 255, 255, 16, 64, 15, precision, 64):
-        raise AssertionError(f"the training config is not DreamerV3-S at batch 16 x 64, horizon 15, {precision}: {widths}")
+    if widths != (512, 512, 512, 2, 32, 32, 32, 255, 255, 16, sequence_length, 15, precision, 64):
+        raise AssertionError(f"the training config is not DreamerV3-S at batch 16 x {sequence_length}, horizon 15, "
+                             f"{precision}: {widths}")
 
 
 def _launch_chunks(rows: int, hidden: int, joint_dim: int, itemsize: int = 4) -> int:
@@ -510,6 +543,57 @@ def _launches(cfg, out: dict) -> tuple:
                                                                                         joint_dim)
                  + out["test_steps"] * _launch_chunks(1, hidden, joint_dim))
     return predicted, per_step
+
+
+def _journal_of(log_dir: str) -> dict:
+    """What a run's journal says of the diagnostics: the FLOPs counted per
+    step, the last metric interval's MFU and TFLOP/s (and every interval's
+    that trained), the synchronizing calls per gradient step under
+    ``transfers=log``, the checkpoints' ``ckpt_end`` records and the event
+    kinds."""
+    from sheeprl_tpu_torch.diagnostics.journal import read_journal
+
+    events = read_journal(str(Path(log_dir) / "journal.jsonl"))
+    kinds = [e["event"] for e in events]
+    if kinds[:1] != ["run_start"] or kinds[-1:] != ["run_end"]:
+        raise AssertionError(f"journal of {log_dir}: starts {kinds[:1]}, ends {kinds[-1:]}")
+    intervals = [e["metrics"] for e in events if e["event"] == "metrics" and "Telemetry/tflops_per_sec" in e["metrics"]]
+    summary = next((e for e in events if e["event"] == "memory_summary"), {})
+    telemetry = next((e for e in events if e["event"] == "telemetry_summary"), {})
+    phases = telemetry.get("phase_seconds", {})
+    syncs = [e for e in events if e["event"] == "host_transfer" and "syncs_per_dispatch" in e]
+    return {
+        "kinds": sorted(set(kinds)),
+        "status": events[-1].get("status"),
+        "flops_per_step": [e["flops_per_call"] for e in events if e["event"] == "telemetry_cost"],
+        "mfu": [m.get("Telemetry/mfu") for m in intervals],
+        "tflops_per_sec": [m["Telemetry/tflops_per_sec"] for m in intervals],
+        "gauges": sorted({k for e in events if e["event"] == "metrics" for k in e["metrics"]}),
+        "syncs_per_step": [(e["call"], e["syncs_per_dispatch"], e.get("sites", [])) for e in syncs],
+        "host_transfers": summary.get("host_transfers"),
+        "train_dispatches": summary.get("train_dispatches"),
+        "ckpt_end": [{k: e.get(k) for k in ("blocking", "write_ms", "bytes", "status", "verified")}
+                     for e in events if e["event"] == "ckpt_end"],
+        "checkpoint_span_s": phases.get("checkpoint"),
+        "recompiles": telemetry.get("recompiles"),
+        "events": events,
+    }
+
+
+def _check_diagnostics_journal(journal: dict, where: str) -> None:
+    """The default diagnostics' record: metrics with Telemetry/* and the
+    health gauges, the card's memory, the checkpoints, FLOPs and MFU."""
+    need_kinds = {"run_start", "metrics", "ckpt_begin", "ckpt_end", "checkpoint", "telemetry_cost",
+                  "memory_breakdown", "run_end"}
+    need_gauges = {"Telemetry/mfu", "Telemetry/tflops_per_sec", "Telemetry/hbm_bytes_in_use",
+                   "Telemetry/health/grad_norm", "Telemetry/health/update_ratio", "Telemetry/health/dead_frac",
+                   "Telemetry/goodput", "Telemetry/phase_pct/train"}
+    missing = (need_kinds - set(journal["kinds"])) | (need_gauges - set(journal["gauges"]))
+    if missing or journal["status"] != "completed" or not journal["flops_per_step"] or not journal["mfu"]:
+        raise AssertionError(f"{where}: the journal lacks {sorted(missing)}, status {journal['status']}, FLOPs "
+                             f"{journal['flops_per_step']}, MFU {journal['mfu']}")
+    if not all(e["status"] == "ok" and e["verified"] for e in journal["ckpt_end"]):
+        raise AssertionError(f"{where}: a checkpoint write failed: {journal['ckpt_end']}")
 
 
 def _train_noise(cfg, actions_dim, gen, device: str = "cuda"):
@@ -578,6 +662,7 @@ def run_train(build_dir: Path, device_name: str = "cuda") -> dict:
     from sheeprl_tpu_torch.envs.env import make_env
     from sheeprl_tpu_torch.interop.flax_params import to_flax
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
     from sheeprl_tpu_torch.serving.loader import _actions_dim, agent_state_from_checkpoint, load_policy
     from sheeprl_tpu_torch.utils.checkpoint import load_state
 
@@ -602,8 +687,16 @@ def run_train(build_dir: Path, device_name: str = "cuda") -> dict:
             f"{out['gradient_steps']} gradient steps x (T={T} + H={H}), {out['test_steps']} test steps)"
         )
 
+    journal = _journal_of(out["log_dir"])
+    _check_diagnostics_journal(journal, "train")
+    if journal["train_dispatches"] != out["gradient_steps"] or journal["host_transfers"] is None:
+        raise AssertionError(f"train: {journal['train_dispatches']} guarded dispatches for {out['gradient_steps']} "
+                             f"gradient steps")
+
     # every trained tree moved away from its seeded initialization
     ckpt = out["checkpoints"][-1]
+    if verify_checkpoint(ckpt) != (True, "verified"):
+        raise AssertionError(f"train: checkpoint {ckpt} does not verify by its manifest: {verify_checkpoint(ckpt)}")
     state = load_state(ckpt)
     env = make_env(cfg, cfg.seed, 0)()
     obs_space, action_space = env.observation_space, env.action_space
@@ -663,6 +756,7 @@ def run_train(build_dir: Path, device_name: str = "cuda") -> dict:
         "step_param_max_abs_err": param_err,
         "step_param_outliers": outliers,
         "checkpoint": ckpt,
+        "journal": journal,
     }
 
 
@@ -683,6 +777,7 @@ def run_chunked(build_dir: Path, device_name: str = "cuda") -> dict:
     from sheeprl_tpu_torch.config import compose
     from sheeprl_tpu_torch.envs.env import make_env
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
     from sheeprl_tpu_torch.serving.loader import _actions_dim, agent_state_from_checkpoint
     from sheeprl_tpu_torch.utils.checkpoint import load_state
 
@@ -704,6 +799,10 @@ def run_chunked(build_dir: Path, device_name: str = "cuda") -> dict:
                              f"({out['gradient_steps']} gradient steps x {per_step} + {out['player_steps']} player "
                              f"steps + {out['test_steps']} test steps)")
     (ckpt,) = out["checkpoints"]
+    journal = _journal_of(out["log_dir"])
+    _check_diagnostics_journal(journal, "chunked")
+    if [e["blocking"] for e in journal["ckpt_end"]] != [False] or verify_checkpoint(ckpt) != (True, "verified"):
+        raise AssertionError(f"chunked: the checkpoint was not one verified async write: {journal['ckpt_end']}")
     state = load_state(ckpt)
     if set(state["rb"]) != {"buffer", "pos", "filled", "added"} or "rssm_recurrent" not in state["rb"]["buffer"]:
         raise AssertionError(f"the checkpoint's replay is not the device ring with stored states: {sorted(state['rb'])}")
@@ -742,6 +841,7 @@ def run_chunked(build_dir: Path, device_name: str = "cuda") -> dict:
         "checkpoint": ckpt,
         "run_dir": str(Path(ckpt).parent.parent),
         "overrides": overrides,
+        "journal": journal,
     }
 
 
@@ -755,6 +855,7 @@ def run_resume(chunked: dict) -> dict:
     from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
     from sheeprl_tpu_torch.config import compose
     from sheeprl_tpu_torch.data.device_buffer import DeviceSequentialReplayBuffer
+    from sheeprl_tpu_torch.interop.flax_params import optax_state, param_spec
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
     from sheeprl_tpu_torch.utils.checkpoint import load_state
     from sheeprl_tpu_torch.utils.utils import Ratio
@@ -766,8 +867,8 @@ def run_resume(chunked: dict) -> dict:
 
     def spy_learner(state, agent, optimizers, device):
         moments = load_learner_state(state, agent, optimizers, device)
-        restored["adam"] = {n: {i: {k: v.detach().cpu().clone() for k, v in e.items()}
-                                for i, e in o.state_dict()["state"].items()} for n, o in optimizers.items()}
+        spec = param_spec(*agent)
+        restored["adam"] = {n: _optax_leaves(optax_state(o, spec[n])) for n, o in optimizers.items()}
         restored["moments"] = {k: float(v) for k, v in moments.items()}
         return moments
 
@@ -798,11 +899,11 @@ def run_resume(chunked: dict) -> dict:
         problems.append(f"Ratio {restored.get('ratio')} != {saved['ratio']}")
     if restored.get("moments") != {k: float(v) for k, v in saved["moments"].items()}:
         problems.append(f"Moments {restored.get('moments')} != {saved['moments']}")
-    for name, entries in saved["opt_states"].items():
-        for i, entry in entries["state"].items():
-            for k, v in entry.items():
-                if not np.array_equal(restored["adam"][name][i][k].numpy(), np.asarray(v)):
-                    problems.append(f"Adam {name} parameter {i} {k}")
+    for name, entry in saved["opt_states"].items():
+        # optax's (EmptyState, (ScaleByAdamState(count, mu, nu), EmptyState))
+        for path, value in _optax_leaves(entry).items():
+            if not np.array_equal(restored["adam"][name].get(path), value):
+                problems.append(f"Adam {name} {path}")
     for k, v in saved["rb"]["buffer"].items():
         if not np.array_equal(restored["rb"]["buffer"][k], v):
             problems.append(f"replay key {k}")
@@ -822,8 +923,163 @@ def run_resume(chunked: dict) -> dict:
     return {"resumed_from": str(cfg.checkpoint.resume_from), "start_iter": out["start_iter"],
             "gradient_steps": out["gradient_steps"], "player_steps": out["player_steps"],
             "test_steps": out["test_steps"], "ln_gru_launches": launches,
-            "adam_entries": sum(len(e["state"]) for e in saved["opt_states"].values()),
+            "adam_entries": sum(len(_optax_leaves(e)) for e in saved["opt_states"].values()),
             "replay_rows": int(np.asarray(saved["rb"]["filled"]).sum())}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _state_of(agent, optimizers, moments) -> dict:
+    """Copies of everything ``skip_update`` reverts: the four modules'
+    parameters, every Adam state tensor, the Moments."""
+    out = {f"{name}.{i}": p.detach().clone() for name in ("world_model", "actor", "critic", "target_critic")
+           for i, p in enumerate(getattr(agent, name).parameters())}
+    for name, opt in optimizers.items():
+        for i, st in enumerate(opt.state.values()):
+            out.update({f"adam.{name}.{i}.{k}": v.detach().clone() for k, v in st.items()})
+    out.update({f"moments.{k}": v.detach().clone() for k, v in moments.items()})
+    return out
+
+
+def run_drill(build_dir: Path, device_name: str = "cuda") -> dict:
+    """Phase 7: ``run`` under ``diagnostics=full`` (``DRILL_OVERRIDES``):
+    the poisoned batch under ``skip_update`` leaves every state bit-identical
+    on the card; the preemption drill saves a verified emergency checkpoint,
+    journals ``preempted`` and raises ``PreemptedExit`` (75), held here as
+    the expected end; ``/metrics`` and ``/healthz`` answer while it runs;
+    its ``trace.json`` loads; then a resume from that checkpoint trains on,
+    its launches as counted."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.diagnostics import Diagnostics
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
+    from sheeprl_tpu_torch.resilience.preemption import PREEMPTED_EXIT_CODE, PreemptedExit
+
+    port = _free_port()
+    overrides = DRILL_OVERRIDES + [f"root_dir={(build_dir / 'drill').resolve()}", f"fabric.accelerator={device_name}",
+                                   f"diagnostics.telemetry.http.port={port}"]
+    _dv3_s_widths(compose(overrides), "bf16-mixed", 16)
+
+    poisoned, drills = [], []
+    make_train_step, maybe_inject_nan = dv3.make_train_step, Diagnostics.maybe_inject_nan
+
+    def spy_inject(self, iter_num, tree):
+        out = maybe_inject_nan(self, iter_num, tree)
+        if out is not tree:
+            poisoned.append(iter_num)  # a host flag: nothing waits for the card
+        return out
+
+    def spy_make(agent, optimizers, cfg_, is_continuous):
+        step = make_train_step(agent, optimizers, cfg_, is_continuous)
+
+        def checked(moments, batch, tau, generator=None, noise=None):
+            if not poisoned:
+                return step(moments, batch, tau, generator, noise)
+            iter_num = poisoned.pop()
+            before = _state_of(agent, optimizers, moments)
+            moments, metrics = step(moments, batch, tau, generator, noise)
+            after = _state_of(agent, optimizers, moments)
+            drills.append({"iter": iter_num, "tensors": len(before),
+                           "finite_metrics": bool(torch.isfinite(metrics[:len(dv3.METRIC_ORDER)]).any()),
+                           "changed": [k for k in before if not torch.equal(before[k], after[k])]})
+            return moments, metrics
+
+        checked.health_names = step.health_names
+        return checked
+
+    scraped, stop = {}, threading.Event()
+
+    def scrape() -> None:
+        while not stop.is_set() and "metrics" not in scraped:
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=5) as resp:
+                    text = resp.read().decode()
+                if "sheeprl_run_state" in text and "sheeprl_train_flops_total" in text:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{port}/healthz", timeout=5) as resp:
+                        scraped["healthz"] = json.loads(resp.read())
+                    scraped["metrics"] = text
+            except (OSError, ValueError):
+                pass
+            stop.wait(0.5)
+
+    scraper = threading.Thread(target=scrape, name="chip-smoke-scraper", daemon=True)
+    scraper.start()
+    exit_code = None
+    try:
+        with mock.patch.object(dv3, "make_train_step", spy_make), \
+                mock.patch.object(Diagnostics, "maybe_inject_nan", spy_inject):
+            cli.run(overrides)
+    except PreemptedExit as exc:
+        exit_code = exc.code
+    finally:
+        stop.set()
+        scraper.join(timeout=30)
+    if exit_code != PREEMPTED_EXIT_CODE:
+        raise AssertionError(f"the preemption drill ended with exit code {exit_code}, not {PREEMPTED_EXIT_CODE}")
+    if not drills or any(d["changed"] or d["finite_metrics"] for d in drills):
+        raise AssertionError(f"skip_update drill: {drills[:2]}")
+    if "metrics" not in scraped or scraped["healthz"].get("status") != "ok":
+        raise AssertionError(f"/metrics was not scraped during the run: {sorted(scraped)}")
+
+    (journal_path,) = sorted((build_dir / "drill").resolve().rglob("journal.jsonl"))
+    run_dir = journal_path.parent
+    journal = _journal_of(str(run_dir))
+    events = journal["events"]
+    preempted = [e for e in events if e["event"] == "preempted"]
+    divergence = [e for e in events if e["event"] == "divergence" and e.get("kind") == "nonfinite_update"]
+    if (journal["status"] != "preempted" or len(preempted) != 1 or not preempted[0]["snapshot_durable"]
+            or not divergence or not journal["ckpt_end"] or not journal["ckpt_end"][-1]["blocking"]):
+        raise AssertionError(f"drill journal: status {journal['status']}, preempted {preempted}, divergence "
+                             f"{divergence[:1]}, ckpt_end {journal['ckpt_end']}")
+    ckpt = preempted[0]["path"]
+    if verify_checkpoint(ckpt) != (True, "verified"):
+        raise AssertionError(f"the emergency checkpoint does not verify: {verify_checkpoint(ckpt)}")
+    trace = json.loads((run_dir / "trace.json").read_text())
+    spans = {e.get("name") for e in trace if e.get("ph") == "X"}
+    if not {"rollout", "train", "buffer-sample", "env_wait", "checkpoint"} <= spans:
+        raise AssertionError(f"trace.json spans: {sorted(spans)}")
+
+    resume = overrides[:-1] + ["diagnostics.telemetry.http.enabled=False", f"checkpoint.resume_from={run_dir}"]
+    resume = [o for o in resume if "inject_" not in o]
+    resume_cfg = compose(resume)
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    out = cli.run(resume)
+    torch.cuda.synchronize()
+    launches = fused_layernorm_gru.launches  # the main path ends here
+    predicted, per_step = _launches(resume_cfg, out)
+    if (out["start_iter"] != DRILL_PREEMPT_ITER + 1 or out["gradient_steps"] < 1 or launches != predicted
+            or not np.isfinite(out["metric_rows"]).all()):
+        raise AssertionError(f"resume after the preemption: start_iter {out['start_iter']}, {out['gradient_steps']} "
+                             f"gradient steps, {launches} launches (predicted {predicted})")
+    resumed_journal = _journal_of(out["log_dir"])
+    return {
+        "exit_code": exit_code,
+        "skip_update": drills,
+        "emergency_checkpoint": ckpt,
+        "blocking_write_ms": journal["ckpt_end"][-1]["write_ms"],
+        "checkpoint_span_s": journal["checkpoint_span_s"],
+        "metrics_lines": sum(1 for line in scraped["metrics"].splitlines() if line.startswith("sheeprl_")),
+        "trace_events": len(trace),
+        "journal_kinds": journal["kinds"],
+        "resume_start_iter": out["start_iter"],
+        "resume_gradient_steps": out["gradient_steps"],
+        "resume_player_steps": out["player_steps"],
+        "resume_test_steps": out["test_steps"],
+        "ln_gru_launches": launches,
+        "launches_per_gradient_step": per_step,
+        "resume_mfu": resumed_journal["mfu"],
+    }
 
 
 def run_eval(chunked: dict) -> dict:
@@ -845,37 +1101,64 @@ def run_eval(chunked: dict) -> dict:
 
 
 def run_timers(device_name: str = "cuda") -> dict:
-    """Phase 9: the one gradient-step timer, profiled, for the fp32
-    ``rssm_chunks=1`` step and the chunked bf16 one (launches here do not
-    count)."""
+    """Phase 10: the one gradient-step timer, profiled, for the fp32
+    ``rssm_chunks=1`` step and the chunked bf16 one, each built as
+    ``diagnostics=off`` runs it and as the default diagnostics run it (the
+    health stats in the step, telemetry's instrumentation around it, which
+    counts the step's FLOPs at its first call); launches here do not count.
+    The step's MFU is its counted FLOPs over its stream time, against the
+    card's peak for its precision."""
     import torch
 
-    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers, make_train_step
-    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import synthetic_batch, time_gradient_steps
-    from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments_state
-    from sheeprl_tpu_torch.config import compose
-    from sheeprl_tpu_torch.envs.env import make_env
-    from sheeprl_tpu_torch.serving.loader import _actions_dim
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import profiled_step, time_gradient_steps
+    from sheeprl_tpu_torch.diagnostics.telemetry import resolve_peak_flops
 
     out = {}
     for name, extra in (("fp32", []), ("bf16_chunked", CHUNKED_STEP_OPTIONS)):
-        cfg = compose(["exp=dreamer_v3", "env=dummy", "diagnostics=off", "run_name=chip_smoke", "seed=5", *extra])
-        env = make_env(cfg, cfg.seed, 0)()
-        actions_dim, is_continuous, _ = _actions_dim(env.action_space)
-        agent = build_agent(actions_dim, is_continuous, cfg, env.observation_space, None, device_name)
-        env.close()
-        step = make_train_step(agent, make_optimizers(cfg, agent), cfg, is_continuous)
-        gen = torch.Generator(device=device_name).manual_seed(5)
-        batch = synthetic_batch(cfg, actions_dim, gen, device_name)
-        timing = time_gradient_steps(step, init_moments_state(device_name), batch, gen, TIMED_STEPS, warmup=3,
-                                     profile=True)
-        gru = [v for k, v in timing["kernels"].items() if "ln_gru" in k]
-        out[name] = {"step_ms": timing["step_ms"], "steps_per_s": timing["steps_per_s"], "busy_ms": timing["busy_ms"],
-                     "idle_share": timing["idle_share"], "launches": timing["launches"],
-                     "ln_gru_launches": sum(v[0] for v in gru) // TIMED_STEPS,
-                     "ln_gru_ms": sum(v[1] for v in gru) / 1e3 / TIMED_STEPS}
+        # in turns, off, on, on, off: the step is host-bound and its time
+        # moves with the host
+        for turn, diagnostics in enumerate((False, True, True, False)):
+            step, moments, batch, gen = profiled_step(extra, device_name, diagnostics)
+            timing = time_gradient_steps(step, moments, batch, gen, TIMED_STEPS, warmup=3, profile=True)
+            gru = [v for k, v in timing["kernels"].items() if "ln_gru" in k]
+            row = {"step_ms": timing["step_ms"], "steps_per_s": timing["steps_per_s"], "busy_ms": timing["busy_ms"],
+                   "idle_share": timing["idle_share"], "launches": timing["launches"],
+                   "ln_gru_launches": sum(v[0] for v in gru) // TIMED_STEPS,
+                   "ln_gru_ms": sum(v[1] for v in gru) / 1e3 / TIMED_STEPS}
+            if diagnostics:
+                peak = resolve_peak_flops(torch.cuda.get_device_name(0), "bf16-mixed" if extra else "32-true")
+                row["flops_per_step"] = step.flops_per_call
+                row["step_mfu"] = step.flops_per_call / (timing["step_ms"] / 1e3) / peak if peak else None
+            out[f"{name}_{'diagnostics' if diagnostics else 'off'}_{turn}"] = row
+            del step, moments, batch
     return out
+
+
+def count_cpu_flops() -> float:
+    """The FLOPs ``FlopCounterMode`` counts for one fp32 DreamerV3-S
+    gradient step on the CPU (the same config and batch shapes as the
+    card's): the card's count must equal it."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import profiled_step
+    from sheeprl_tpu_torch.diagnostics.telemetry import count_flops
+
+    step, moments, batch, gen = profiled_step(["fabric.accelerator=cpu"], "cpu")
+    return count_flops(lambda: step(moments, batch, 0.02, gen))[1]
+
+
+def _optax_leaves(node, path="") -> dict:
+    """``{path: array}`` of an optax state as the port writes it
+    (``OptaxState``) or reads it back (``ForeignObject``, a tuple)."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.utils.checkpoint import OptaxState
+
+    if isinstance(node, OptaxState):
+        node = node.fields
+    if isinstance(node, dict):
+        return {p: v for k, sub in node.items() for p, v in _optax_leaves(sub, f"{path}/{k}").items()}
+    if isinstance(node, tuple):
+        return {p: v for i, sub in enumerate(node) for p, v in _optax_leaves(sub, f"{path}[{i}]").items()}
+    return {path: np.asarray(node)}
 
 
 def _leaves(tree, prefix=""):
@@ -990,20 +1273,74 @@ def main() -> int:
     print(f"[eval] eval checkpoint_path={chunked['checkpoint']}: Test/cumulative_reward {evaluated['test_reward']}, "
           f"{evaluated['ln_gru_launches']} ln_gru launches  [{card}]", flush=True)
 
+    drill = run_drill(build_dir)
+    print(
+        f"[drill] DreamerV3-S run diagnostics=full ({' '.join(CHUNKED_OPTIONS)}, sequences of 16): the poisoned "
+        f"batch at iteration {DRILL_NAN_ITER} under skip_update left all {drill['skip_update'][0]['tensors']} "
+        f"tensors (params of the four modules, Adam's step, exp_avg, exp_avg_sq, the Moments) bit-identical in "
+        f"{len(drill['skip_update'])} step(s); the preemption at iteration {DRILL_PREEMPT_ITER} wrote the verified "
+        f"emergency checkpoint {drill['emergency_checkpoint']} (blocking write_ms {drill['blocking_write_ms']}), "
+        f"journaled `preempted` and exited {drill['exit_code']} as expected; /metrics served "
+        f"{drill['metrics_lines']} sheeprl_* lines and /healthz ok during the run; trace.json loaded "
+        f"({drill['trace_events']} events)  [{card}]", flush=True)
+    print(
+        f"[drill] resume from the emergency checkpoint: started at iteration {drill['resume_start_iter']}, "
+        f"{drill['resume_gradient_steps']} gradient steps, {drill['resume_player_steps']} player steps, "
+        f"{drill['resume_test_steps']} test steps, {drill['ln_gru_launches']} ln_gru launches = predicted "
+        f"({drill['launches_per_gradient_step']} per gradient step)  [{card}]", flush=True)
+
     timers = run_timers()
     for name, t in timers.items():
-        widths = (16, 1024) if name == "fp32" else (64, 1024)
-        dtype_name = "float32" if name == "fp32" else "bfloat16"
-        steps = (64, 15) if name == "fp32" else (16, 15)
+        fp32 = name.startswith("fp32")
+        widths = (16, 1024) if fp32 else (64, 1024)
+        dtype_name = "float32" if fp32 else "bfloat16"
+        steps = (64, 15) if fp32 else (16, 15)
         fwd = steps[0] * s_cases[(widths[0], dtype_name)]["ms"] + steps[1] * s_cases[(widths[1], dtype_name)]["ms"]
-        if name != "fp32":
+        if not fp32:
             fwd += 2 * s_cases[(48, dtype_name)]["ms"]
+        extra = ""
+        if "flops_per_step" in t:
+            extra = (f"; {t['flops_per_step']:.6g} FLOPs a step counted, step MFU "
+                     f"{t['step_mfu'] if t['step_mfu'] is None else format(t['step_mfu'], '.6g')}")
         print(
             f"[timer] DreamerV3-S gradient step, {name}: median stream time {t['step_ms']:.3f} ms (CUDA events; "
             f"host-bound, so about its wall time), {t['steps_per_s']:.3f} steps/s over {TIMED_STEPS} steps; "
             f"device busy {t['busy_ms']:.3f} ms a step (torch.profiler), idle share {t['idle_share']:.4f}, "
             f"{t['launches']} kernel launches a step, ln_gru {t['ln_gru_launches']} launches {t['ln_gru_ms']:.4f} ms "
-            f"a step (the kernel cases predict a forward of {fwd:.4f} ms)  [{card}]", flush=True)
+            f"a step (the kernel cases predict a forward of {fwd:.4f} ms){extra}  [{card}]", flush=True)
+    for name in ("fp32", "bf16_chunked"):
+        on = [timers[f"{name}_diagnostics_{turn}"] for turn in (1, 2)]
+        off = [timers[f"{name}_off_{turn}"] for turn in (0, 3)]
+        print(f"[timer] {name}: diagnostics on vs off (turns off, on, on, off): "
+              f"{[t['launches'] for t in on]} vs {[t['launches'] for t in off]} launches a step, "
+              f"{[round(t['step_ms'], 3) for t in on]} vs {[round(t['step_ms'], 3) for t in off]} ms stream time, "
+              f"busy {[round(t['busy_ms'], 3) for t in on]} vs {[round(t['busy_ms'], 3) for t in off]} ms  [{card}]",
+              flush=True)
+
+    cpu_flops = count_cpu_flops()
+    card_flops = train["journal"]["flops_per_step"][0]
+    if card_flops != cpu_flops or timers["fp32_diagnostics_1"]["flops_per_step"] != cpu_flops:
+        raise AssertionError(f"FLOPs of the fp32 step: card {card_flops} (timer "
+                             f"{timers['fp32_diagnostics_1']['flops_per_step']}), CPU {cpu_flops}")
+    print(f"[flops] DreamerV3-S fp32 gradient step: {card_flops:.6g} FLOPs counted on the card (the run's "
+          f"telemetry_cost) = {cpu_flops:.6g} on the CPU at the same config; bf16 chunked step "
+          f"{chunked['journal']['flops_per_step'][0]:.6g}  [{card}]", flush=True)
+    for name, journal in (("fp32", train["journal"]), ("bf16-mixed chunked", chunked["journal"])):
+        print(f"[mfu] {name} run, journal: Telemetry/mfu by interval {journal['mfu']}, Telemetry/tflops_per_sec "
+              f"{journal['tflops_per_sec']} (intervals that trained; the last is the steady state); new input "
+              f"signatures of the step after the first (`recompile`): {journal['recompiles']}  [{card}]", flush=True)
+    syncs = train["journal"]
+    print(f"[syncs] fp32 run under diagnostics.transfers=log: {syncs['host_transfers']} synchronizing calls in "
+          f"{syncs['train_dispatches']} gradient steps; per step (call, count, sites) {syncs['syncs_per_step']}  "
+          f"[{card}]", flush=True)
+    print(f"[ckpt] ckpt_end write_ms: async (chunked run) {[e['write_ms'] for e in chunked['journal']['ckpt_end']]}, "
+          f"blocking (drill's emergency save) {drill['blocking_write_ms']}; fp32 run (async) "
+          f"{[e['write_ms'] for e in train['journal']['ckpt_end']]}; the loop's `checkpoint` span, its critical "
+          f"path: chunked {chunked['journal']['checkpoint_span_s']} s, drill {drill['checkpoint_span_s']} s, fp32 "
+          f"{train['journal']['checkpoint_span_s']} s  [{card}]", flush=True)
+    print(f"[launches] ln_gru launches: serve {slice_report['ln_gru_launches']}, train {train['ln_gru_launches']}, "
+          f"chunked {chunked['ln_gru_launches']}, resume {resumed['ln_gru_launches']}, eval "
+          f"{evaluated['ln_gru_launches']}, drill resume {drill['ln_gru_launches']}  [{card}]", flush=True)
 
     # the kernels line: the kernel at the shape the main paths gave it most
     # (the serving dispatch width or the dynamic scan's B=16), and every case
@@ -1013,7 +1350,7 @@ def main() -> int:
     main = s_cases.get((main_b, "float32")) or measure_ln_gru(main_b, *S_SHAPE, "float32")
     by_path = {"serve": slice_report["ln_gru_launches"], "train": train["ln_gru_launches"],
                "train_bf16_chunked": chunked["ln_gru_launches"], "resume": resumed["ln_gru_launches"],
-               "eval": evaluated["ln_gru_launches"]}
+               "eval": evaluated["ln_gru_launches"], "drill_resume": drill["ln_gru_launches"]}
     case_keys = ("B", "K", "H", "dtype", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms", "bound_ms", "bound_by")
     kernels = [{
         "name": "ln_gru",
@@ -1031,7 +1368,7 @@ def main() -> int:
         "library_ms": main["library_ms"],
         "shape": {"B": main["B"], "K": main["K"], "H": main["H"], "dtype": main["dtype"]},
         "cases": [{k: c[k] for k in case_keys} for c in cases],
-        "phase": "kernel+slice+train+chunked+resume+eval",
+        "phase": "kernel+slice+train+chunked+resume+eval+drill",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -5,8 +5,8 @@ import sys
 from sheeprl_tpu_torch.cli import evaluation, run, serve
 
 USAGE = (
-    "usage: python -m sheeprl_tpu_torch run exp=dreamer_v3 env=dummy diagnostics=off [dotted.key=value ...]\n"
-    "       python -m sheeprl_tpu_torch run exp=dreamer_v3 env=dummy diagnostics=off "
+    "usage: python -m sheeprl_tpu_torch run exp=dreamer_v3 env=dummy [dotted.key=value ...]\n"
+    "       python -m sheeprl_tpu_torch run exp=dreamer_v3 env=dummy "
     "checkpoint.resume_from=<run dir or checkpoint> [dotted.key=value ...]\n"
     "       python -m sheeprl_tpu_torch eval checkpoint_path=<run>/checkpoint/ckpt_<step>_<rank>.ckpt "
     "[dotted.key=value ...]\n"

@@ -12,6 +12,13 @@ to ``value_and_grad``; here each loss is differentiated with
 loss only reads have ``requires_grad`` off while it runs, so no gradient of
 one loss reaches another optimizer.  The metric vector stays on the device;
 the loop fetches the rows at log time.
+
+Under ``diagnostics`` (the default) the step also computes the train-health
+statistics (``diagnostics/health.py``) and stacks them onto the metric
+vector, and with ``sentinel.policy=skip_update`` discards a non-finite step
+on the device; the loop runs the facade's hooks (spans, telemetry, the
+sentinel and health digests at the fetch, preemption, checkpoint events),
+as the JAX package's loop does.
 """
 
 from __future__ import annotations
@@ -35,6 +42,8 @@ from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
     test,
     update_moments,
 )
+from sheeprl_tpu_torch.diagnostics.health import health_names, health_spec, health_stats
+from sheeprl_tpu_torch.diagnostics.sentinel import select_finite, sentinel_spec
 from sheeprl_tpu_torch.ops.distributions import Bernoulli, MSEDistribution, SymlogDistribution, TwoHotEncodingDistribution
 from sheeprl_tpu_torch.ops.numerics import compute_lambda_values
 from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
@@ -95,7 +104,15 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
     ``"imagination"`` the prior Gumbel noise ``[H, T*B, stoch, discrete]``;
     ``"actor"`` a list of ``H + 1`` per-head lists (Gumbel noise of each
     discrete head, or the standard-normal draw of the continuous head) for
-    the first action and each imagined step's."""
+    the first action and each imagined step's.
+
+    With ``diagnostics.health`` on, ``metrics`` carries the health stats
+    after the 11 losses and norms, in the order of ``train_step.health_names``
+    (the gradients before clipping, the update as the applied delta, the
+    parameters after it).  With ``diagnostics.sentinel.policy=skip_update``
+    a step whose losses or gradient norms are not all finite leaves every
+    parameter (the target critic's too), Adam state and the Moments as they
+    were, selected on the device (:func:`skip_update_guard`)."""
     world_model, actor, critic, target_critic = agent
     wm_cfg = cfg.algo.world_model
     stoch, discrete = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
@@ -114,6 +131,15 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
         "critic": float(cfg.algo.critic.clip_gradients),
     }
     params = {name: list(getattr(agent, name).parameters()) for name in TRAINED}
+    sentinel, health = sentinel_spec(cfg), health_spec(cfg)
+    health_out = health_names(TRAINED, health.per_module) if health.enabled else []
+    if health.enabled:
+        # the parameters before each update, for the applied delta
+        before = {name: [torch.empty_like(p) for p in params[name]] for name in TRAINED}
+        unit_dims = health_unit_dims(agent, params)
+    if sentinel.skip_update:
+        guarded, snapshot = skip_update_guard(agent, optimizers)
+    step_grads: Dict[str, List[torch.Tensor]] = {}
 
     def update(name: str, loss: torch.Tensor) -> torch.Tensor:
         """Gradient of ``loss`` over one module, clipped by global norm, one
@@ -123,6 +149,10 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
         norm = global_norm(grads)
         for p, g in zip(params[name], clip_by_global_norm(grads, clip[name])):
             p.grad = g
+        if health.enabled:
+            step_grads[name] = grads  # before clipping, as the JAX chain clips inside its update
+            with torch.no_grad():
+                torch._foreach_copy_(before[name], params[name])
         optimizers[name].step()
         optimizers[name].zero_grad(set_to_none=True)
         return norm
@@ -131,6 +161,12 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
                    generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
         noise = noise or {}
         T, B = batch["actions"].shape[:2]
+        if sentinel.skip_update:
+            # before the Polyak update, as in JAX: a skipped step reverts the
+            # target critic too
+            with torch.no_grad():
+                torch._foreach_copy_(snapshot, guarded)
+            prev_moments = moments_state
 
         # --- target critic Polyak update -----------------------------------
         with torch.no_grad():
@@ -238,9 +274,70 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
             rec_loss, observation_loss, reward_loss, state_loss, continue_loss, kl, policy_loss, value_loss,
             wm_norm, actor_norm, critic_norm,
         ]).float().detach()
+        if health.enabled:
+            # the stats ride the metric vector, so the log interval's one
+            # fetch carries them: no sync of their own
+            with torch.no_grad():
+                updates = {name: torch._foreach_sub(params[name], before[name]) for name in TRAINED}
+                stats = health_stats(step_grads, updates, params, unit_dims=unit_dims,
+                                     per_module=health.per_module, dead_eps=health.dead_eps)
+            metrics = torch.cat([metrics, torch.stack([stats[k] for k in health_out]).float()])
+        step_grads.clear()
+        if sentinel.skip_update:
+            # the step's losses and gradient norms stand for every update:
+            # a non-finite one discards them all, on the device
+            finite = torch.isfinite(metrics[:len(METRIC_ORDER)]).all()
+            select_finite(finite, guarded, snapshot)
+            moments_state = {k: torch.where(finite, v, prev_moments[k]) for k, v in moments_state.items()}
         return moments_state, metrics
 
+    train_step.health_names = health_out
+
     return train_step
+
+
+def health_unit_dims(agent: Agent, params: Dict[str, List[torch.Tensor]]) -> Dict[str, List[int]]:
+    """Each trained parameter's unit axis: the torch axis of its flax leaf's
+    last axis, by the weight converter's layout kinds (``health.unit_dim``),
+    so that ``dead_frac`` counts the units the JAX package counts."""
+    from sheeprl_tpu_torch.diagnostics.health import unit_dim
+    from sheeprl_tpu_torch.interop.flax_params import param_spec
+
+    kinds: Dict[int, str] = {}
+
+    def walk(spec: Dict[str, Any]) -> None:
+        for sub in spec.values():
+            if isinstance(sub, dict):
+                walk(sub)
+            else:
+                kinds[id(sub[0])] = sub[1]
+
+    walk(param_spec(*agent))
+    return {name: [unit_dim(kinds.get(id(p), "same"), p.dim()) for p in ps] for name, ps in params.items()}
+
+
+def skip_update_guard(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer]):
+    """What ``policy=skip_update`` reverts, and a buffer for each: the
+    parameters of all four modules and every Adam state tensor, ``step``
+    included.  Adam's state is created here (zeros, step 0, as its first
+    step would create it) so that a skipped first step has something to
+    revert to.  On the card Adam runs ``capturable``, which keeps ``step`` on
+    the device: the selection then never waits for the host."""
+    guarded = [p for module in agent for p in module.parameters()]
+    for opt in optimizers.values():
+        for group in opt.param_groups:
+            on_card = any(p.device.type == "cuda" for p in group["params"])
+            group["capturable"] = group["capturable"] or on_card
+            for p in group["params"]:
+                state = opt.state[p]
+                if not state:
+                    state["step"] = torch.zeros((), dtype=torch.float32)
+                    state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                    state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                if group["capturable"]:
+                    state["step"] = state["step"].to(p.device)
+                guarded += [state["step"], state["exp_avg"], state["exp_avg_sq"]]
+    return guarded, [torch.empty_like(t) for t in guarded]
 
 
 def stage_batch(sample: Dict[str, Any], cnn_keys: Sequence[str], device: torch.device) -> Dict[str, torch.Tensor]:
@@ -273,8 +370,6 @@ def _unported_options(cfg) -> List[str]:
     (its other distributions) refuse theirs where they are built, before the
     loop starts."""
     out = []
-    if (cfg.get("diagnostics") or {}).get("enabled", False):
-        out.append("diagnostics.enabled=True (journal, sentinel, tracing; pass diagnostics=off)")
     if (cfg.algo.get("offline") or {}).get("enabled", False):
         out.append("algo.offline.enabled=True (offline training)")
     if cfg.env.get("executor") not in (None, "", "auto", "sync") or not cfg.env.get("sync_env", True):
@@ -300,11 +395,12 @@ def main(runtime, cfg) -> Dict[str, Any]:
     from sheeprl_tpu_torch.config import instantiate
     from sheeprl_tpu_torch.data.factory import make_dreamer_replay_buffer
     from sheeprl_tpu_torch.data.slab import rssm_state_slab, step_slab
+    from sheeprl_tpu_torch.diagnostics.health import mean_stats
     from sheeprl_tpu_torch.envs import spaces
     from sheeprl_tpu_torch.envs.env import make_env_fns, vectorized_env
-    from sheeprl_tpu_torch.interop.flax_params import to_flax
+    from sheeprl_tpu_torch.interop.flax_params import optax_state, param_spec, to_flax
     from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
-    from sheeprl_tpu_torch.utils.utils import Ratio, save_configs
+    from sheeprl_tpu_torch.utils.utils import Ratio, get_diagnostics, save_configs
 
     unported = _unported_options(cfg)
     if unported:
@@ -321,6 +417,10 @@ def main(runtime, cfg) -> Dict[str, Any]:
     log_dir = get_log_dir(runtime, cfg.root_dir, cfg.run_name)
     save_configs(cfg, log_dir)
     logger.log_hyperparams(cfg.as_dict())
+    diag = get_diagnostics(runtime, cfg, log_dir)
+    if device.type == "cuda":
+        # nvcc at first use, as the run state `compiling`
+        diag.build_kernels(["ln_gru"])
     aggregator = instantiate(cfg.metric.aggregator)
     if cfg.metric.log_level == 0:
         aggregator.disabled = True
@@ -359,11 +459,16 @@ def main(runtime, cfg) -> Dict[str, Any]:
     optimizers = make_optimizers(cfg, agent)
     moments_state = init_moments_state(device) if state is None else load_learner_state(state, agent, optimizers,
                                                                                          device)
-    train_step = make_train_step(agent, optimizers, cfg, is_continuous)
+    train_step = diag.instrument("train_step", make_train_step(agent, optimizers, cfg, is_continuous), kind="train")
+    health_out = train_step.health_names
+    diag.register_footprint("params", list(agent))
+    diag.register_footprint("opt_state", list(optimizers.values()))
+    diag.register_footprint("moments", moments_state)
 
     buffer_size = cfg.buffer.size // num_envs if not cfg.dry_run else 2
     rb, use_device_buffer = make_dreamer_replay_buffer(cfg, num_envs, log_dir, buffer_size, device)
     rb.seed(cfg.seed)
+    diag.track_buffer("replay", rb)
     chunks = rssm_scan_spec(cfg)[0]
     if state is not None and cfg.buffer.checkpoint and state.get("rb") is not None:
         rb.load_state_dict(state["rb"])
@@ -413,45 +518,50 @@ def main(runtime, cfg) -> Dict[str, Any]:
     checkpoints: List[str] = []
     for iter_num in range(start_iter, total_iters + 1):
         policy_step_count += policy_steps_per_iter
+        diag.note_env_steps(num_envs)
 
         # ---- policy step + replay write ---------------------------------
-        if iter_num <= learning_starts and state is None:
-            real_actions = envs.sample_actions(action_rng)
-            if is_continuous:
-                actions = real_actions.astype(np.float32)
-            else:
-                actions = np.concatenate(
-                    [np.eye(d, dtype=np.float32)[real_actions.reshape(num_envs, -1)[:, i]]
-                     for i, d in enumerate(actions_dim)],
-                    axis=-1,
-                )
-            step_data["actions"] = actions.reshape(1, num_envs, -1)
-            if store_rssm_state:
-                step_data.update(rssm_state_slab(num_envs, zero_recurrent, zero_stochastic, valid=False))
-        else:
-            torch_obs = prepare_obs(obs, cnn_keys=cnn_keys, mlp_keys=mlp_keys, num_envs=num_envs, device=device)
-            actions_t = player.get_actions(torch_obs, generator)
-            player_steps += 1
-            if use_device_buffer:
-                # the actions and the player's state go into the ring on the
-                # device; the action values cross once, for the envs
-                step_data["actions"] = actions_t.reshape(1, num_envs, -1)
+        with diag.span("rollout"):
+            if iter_num <= learning_starts and state is None:
+                real_actions = envs.sample_actions(action_rng)
+                if is_continuous:
+                    actions = real_actions.astype(np.float32)
+                else:
+                    actions = np.concatenate(
+                        [np.eye(d, dtype=np.float32)[real_actions.reshape(num_envs, -1)[:, i]]
+                         for i, d in enumerate(actions_dim)],
+                        axis=-1,
+                    )
+                step_data["actions"] = actions.reshape(1, num_envs, -1)
                 if store_rssm_state:
-                    step_data.update(rssm_state_slab(num_envs, player.state["recurrent"],
-                                                     player.state["stochastic"], valid=True))
-                actions = actions_t.cpu().numpy()
-            elif store_rssm_state:
-                # the stored state rides the same copy as the action values
-                fetched = torch.cat([actions_t, player.state["recurrent"], player.state["stochastic"]], -1)
-                actions, recurrent, stochastic = np.split(
-                    fetched.cpu().numpy(), np.cumsum([actions_t.shape[-1], zero_recurrent.shape[-1]]), axis=-1)
-                step_data.update(rssm_state_slab(num_envs, recurrent, stochastic, valid=True))
-                step_data["actions"] = actions.reshape(1, num_envs, -1)
+                    step_data.update(rssm_state_slab(num_envs, zero_recurrent, zero_stochastic, valid=False))
             else:
-                actions = actions_t.cpu().numpy()  # the iteration's one fetch
-                step_data["actions"] = actions.reshape(1, num_envs, -1)
-            real_actions = real_actions_of(actions, actions_dim, is_continuous)
-        rb.add(step_data, validate_args=cfg.buffer.validate_args)
+                torch_obs = prepare_obs(obs, cnn_keys=cnn_keys, mlp_keys=mlp_keys, num_envs=num_envs,
+                                        device=device)
+                actions_t = player.get_actions(torch_obs, generator)
+                player_steps += 1
+                diag.note_fetch()  # the iteration's one blocking copy below
+                if use_device_buffer:
+                    # the actions and the player's state go into the ring on
+                    # the device; the action values cross once, for the envs
+                    step_data["actions"] = actions_t.reshape(1, num_envs, -1)
+                    if store_rssm_state:
+                        step_data.update(rssm_state_slab(num_envs, player.state["recurrent"],
+                                                         player.state["stochastic"], valid=True))
+                    actions = actions_t.cpu().numpy()
+                elif store_rssm_state:
+                    # the stored state rides the same copy as the action values
+                    fetched = torch.cat([actions_t, player.state["recurrent"], player.state["stochastic"]], -1)
+                    actions, recurrent, stochastic = np.split(
+                        fetched.cpu().numpy(), np.cumsum([actions_t.shape[-1], zero_recurrent.shape[-1]]),
+                        axis=-1)
+                    step_data.update(rssm_state_slab(num_envs, recurrent, stochastic, valid=True))
+                    step_data["actions"] = actions.reshape(1, num_envs, -1)
+                else:
+                    actions = actions_t.cpu().numpy()  # the iteration's one fetch
+                    step_data["actions"] = actions.reshape(1, num_envs, -1)
+                real_actions = real_actions_of(actions, actions_dim, is_continuous)
+            rb.add(step_data, validate_args=cfg.buffer.validate_args)
 
         # ---- the gradient steps the replay ratio owes -------------------
         if iter_num >= learning_starts:
@@ -459,23 +569,27 @@ def main(runtime, cfg) -> Dict[str, Any]:
             if cfg.dry_run:
                 n = 1
             if n > 0:
-                local_data = rb.sample(
-                    cfg.algo.per_rank_batch_size, sequence_length=cfg.algo.per_rank_sequence_length, n_samples=n
-                )
-                if not use_device_buffer:
-                    local_data = [{k: v[i] for k, v in local_data.items()} for i in range(n)]
-                for sample in local_data:
-                    batch = stage_batch(sample, cnn_keys, device)
-                    if target_freq and gradient_steps % target_freq == 0:
-                        tau = 1.0 if gradient_steps == 0 else float(cfg.algo.critic.get("tau", 1.0))
-                    else:
-                        tau = 0.0
-                    moments_state, metrics = train_step(moments_state, batch, tau, generator)
-                    pending.append(metrics)
-                    gradient_steps += 1
+                with diag.span("buffer-sample"):
+                    local_data = rb.sample(
+                        cfg.algo.per_rank_batch_size, sequence_length=cfg.algo.per_rank_sequence_length, n_samples=n
+                    )
+                    if not use_device_buffer:
+                        local_data = [{k: v[i] for k, v in local_data.items()} for i in range(n)]
+                with diag.span("train"):
+                    for sample in local_data:
+                        batch = diag.maybe_inject_nan(iter_num, stage_batch(sample, cnn_keys, device))
+                        if target_freq and gradient_steps % target_freq == 0:
+                            tau = 1.0 if gradient_steps == 0 else float(cfg.algo.critic.get("tau", 1.0))
+                        else:
+                            tau = 0.0
+                        moments_state, metrics = train_step(moments_state, batch, tau, generator)
+                        pending.append(metrics)
+                        gradient_steps += 1
 
-        # ---- env step results ----------------------------------------------
-        next_obs, rewards, terminated, truncated, infos = envs.step(real_actions.reshape(envs.batched_action_shape))
+        # ---- env step results (the synchronous vector env blocks here) ----
+        with diag.span("env_wait"):
+            next_obs, rewards, terminated, truncated, infos = envs.step(
+                real_actions.reshape(envs.batched_action_shape))
         dones = np.logical_or(terminated, truncated).astype(np.uint8)
         step_data["is_first"] = np.zeros_like(step_data["terminated"])
         for r, length in infos.get("episodes", ()):
@@ -525,6 +639,12 @@ def main(runtime, cfg) -> Dict[str, Any]:
                 rows = torch.stack(pending).cpu().numpy()
                 pending.clear()
                 metric_rows.extend(rows)
+                # the sentinel sees the raw rows before the aggregator drops
+                # non-finite values (skip_update already acted on the device)
+                diag.observe_rows(policy_step_count, METRIC_ORDER, rows[:, :len(METRIC_ORDER)])
+                if health_out:
+                    diag.on_health(policy_step_count, mean_stats(
+                        [dict(zip(health_out, row[len(METRIC_ORDER):])) for row in rows]))
                 for row in rows:
                     for name, value in zip(METRIC_ORDER, row):
                         aggregator.update(name, float(value))
@@ -536,15 +656,21 @@ def main(runtime, cfg) -> Dict[str, Any]:
             last_log = policy_step_count
 
         # ---- checkpoint --------------------------------------------------
+        # a pending preemption (a signal, or the drill) forces the branch:
+        # this save is the emergency snapshot
+        preempt_now = diag.preempt_due(iter_num)
         if (
             (cfg.checkpoint.every > 0 and policy_step_count - last_checkpoint >= cfg.checkpoint.every)
             or cfg.dry_run
+            or preempt_now
             or (iter_num == total_iters and cfg.checkpoint.save_last)
         ):
             last_checkpoint = policy_step_count
+            spec = param_spec(*agent)
             ckpt_state = {
                 **to_flax(*agent),
-                "opt_states": {name: opt.state_dict() for name, opt in optimizers.items()},
+                # optax's layout, so that the JAX package resumes it too
+                "opt_states": {name: optax_state(opt, spec[name]) for name, opt in optimizers.items()},
                 "moments": dict(moments_state),
                 "ratio": ratio.state_dict(),
                 "iter_num": iter_num,
@@ -553,9 +679,14 @@ def main(runtime, cfg) -> Dict[str, Any]:
                 "last_checkpoint": last_checkpoint,
             }
             ckpt_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step_count}_0.ckpt")
-            runtime.call("on_checkpoint_coupled", ckpt_path=ckpt_path, state=ckpt_state,
-                         replay_buffer=rb if cfg.buffer.checkpoint else None)
+            with diag.span("checkpoint"):
+                runtime.call("on_checkpoint_coupled", ckpt_path=ckpt_path, state=ckpt_state,
+                             replay_buffer=rb if cfg.buffer.checkpoint else None)
+            diag.on_checkpoint(policy_step_count, ckpt_path)
             checkpoints.append(ckpt_path)
+            if preempt_now:
+                envs.close()
+                diag.on_preempted(policy_step_count, iter_num, ckpt_path)
 
     envs.close()
     test_reward, test_steps = None, 0
@@ -563,6 +694,8 @@ def main(runtime, cfg) -> Dict[str, Any]:
         test_reward, test_steps = test(player, cfg, log_dir, generator, greedy=False)
         logger.log_metrics({"Test/cumulative_reward": test_reward}, policy_step_count)
     logger.finalize()
+    diag.close("completed")
+    rows = np.asarray(metric_rows, np.float32).reshape(-1, len(METRIC_ORDER) + len(health_out))
     return {
         "start_iter": start_iter,
         "policy_steps": policy_step_count,
@@ -571,7 +704,8 @@ def main(runtime, cfg) -> Dict[str, Any]:
         "gradient_steps": gradient_steps,
         "test_steps": test_steps,
         "test_reward": test_reward,
-        "metric_rows": np.asarray(metric_rows, np.float32).reshape(-1, len(METRIC_ORDER)),
+        "metric_rows": rows[:, :len(METRIC_ORDER)],
+        "health_rows": {name: rows[:, len(METRIC_ORDER) + i] for i, name in enumerate(health_out)},
         "checkpoints": checkpoints,
         "log_dir": log_dir,
     }

@@ -1,11 +1,14 @@
 """The time of a DreamerV3 gradient step on a CUDA card, and where its
 device time goes: the one place that times a gradient step.
 
-    python -m sheeprl_tpu_torch.algos.dreamer_v3.step_profile [--steps 5] [--trace PATH] [dotted.key=value ...]
+    python -m sheeprl_tpu_torch.algos.dreamer_v3.step_profile [--steps 5] [--trace PATH] [--diagnostics] \
+        [dotted.key=value ...]
 
 Builds DreamerV3-S (``exp=dreamer_v3 env=dummy``: batch 16 x 64, horizon
 15, fp32; the dotted overrides on top, e.g. ``fabric.precision=bf16-mixed
-algo.rssm_chunks=4 algo.rssm_chunk_burn_in=2``) from a seed on the card and
+algo.rssm_chunks=4 algo.rssm_chunk_burn_in=2``) from a seed on the card,
+with ``--diagnostics`` as the default diagnostics run it (health stats in
+the step, telemetry's instrumentation around it; :func:`profiled_step`), and
 calls :func:`time_gradient_steps` with
 the profiler on.  That warms up, then times ``--steps`` gradient steps
 between CUDA events on the stream (a step is host-bound, so its stream time
@@ -15,8 +18,8 @@ kernels' intervals), the top kernels and the share of the LayerNorm-GRU
 kernel.  The idle share is ``1 - busy / stream time`` of the untraced
 steps: tracing slows a step, so the traced steps' own times are not used.
 With ``--trace`` it also writes the Chrome trace.  No CPU fallback: without
-a CUDA device it raises.  ``chip_smoke.py`` times its gradient steps through
-the same function, without the profiler.
+a CUDA device it raises.  ``chip_smoke.py`` times its gradient steps, with
+diagnostics on and off, through the same functions.
 """
 
 from __future__ import annotations
@@ -129,36 +132,50 @@ def time_gradient_steps(step: Callable, moments: Any, batch: Dict[str, torch.Ten
             "launches": len(kernels) // steps, "kernels": dict(by_name)}
 
 
-def main(argv=None) -> None:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--steps", type=int, default=5)
-    parser.add_argument("--trace", default=None, help="write the Chrome trace here")
-    parser.add_argument("overrides", nargs="*", help="dotted config overrides")
-    args = parser.parse_args(argv)
-
+def profiled_step(overrides: Sequence[str], device: torch.device | str, diagnostics: bool = False):
+    """``(step, moments, batch, generator)``: a DreamerV3 gradient step at
+    the composed config (DreamerV3-S unless ``overrides`` say otherwise),
+    its Moments and a synthetic batch, from seed 5.  With ``diagnostics``
+    the step is built as ``run`` builds it under the default diagnostics:
+    the health stats on, wrapped by telemetry's instrumentation (signature
+    watch, FLOP count at its first call); without, as ``diagnostics=off``."""
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers, make_train_step
     from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments_state
     from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.diagnostics import build_diagnostics
     from sheeprl_tpu_torch.envs.env import make_env
     from sheeprl_tpu_torch.parallel.precision import resolve_precision
-    from sheeprl_tpu_torch.parallel.runtime import resolve_device
     from sheeprl_tpu_torch.serving.loader import _actions_dim
 
-    device = resolve_device("cuda")
-    cfg = compose(["exp=dreamer_v3", "env=dummy", "diagnostics=off", "run_name=step_profile", "seed=5",
-                   *args.overrides])
+    cfg = compose(["exp=dreamer_v3", "env=dummy", "run_name=step_profile", "seed=5",
+                   *([] if diagnostics else ["diagnostics=off"]), *overrides])
     env = make_env(cfg, cfg.seed, 0)()
     actions_dim, is_continuous, _ = _actions_dim(env.action_space)
     agent = build_agent(actions_dim, is_continuous, cfg, env.observation_space, None, device)
     for module in agent:  # bf16-true stores the weights in bf16, as the training loop does
         module.to(resolve_precision(cfg.fabric.precision)[0])
     env.close()
-    step = make_train_step(agent, make_optimizers(cfg, agent), cfg, is_continuous)
+    step = build_diagnostics(cfg).instrument("train_step", make_train_step(agent, make_optimizers(cfg, agent), cfg,
+                                                                           is_continuous))
     gen = torch.Generator(device=device).manual_seed(5)
-    batch = synthetic_batch(cfg, actions_dim, gen, device)
-    out = time_gradient_steps(step, init_moments_state(device), batch, gen, args.steps, warmup=3, profile=True,
-                              trace=args.trace)
+    return step, init_moments_state(device), synthetic_batch(cfg, actions_dim, gen, device), gen
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--steps", type=int, default=5)
+    parser.add_argument("--trace", default=None, help="write the Chrome trace here")
+    parser.add_argument("--diagnostics", action="store_true",
+                        help="the step as the default diagnostics run it (health stats, instrumented)")
+    parser.add_argument("overrides", nargs="*", help="dotted config overrides")
+    args = parser.parse_args(argv)
+
+    from sheeprl_tpu_torch.parallel.runtime import resolve_device
+
+    device = resolve_device("cuda")
+    step, moments, batch, gen = profiled_step(args.overrides, device, args.diagnostics)
+    out = time_gradient_steps(step, moments, batch, gen, args.steps, warmup=3, profile=True, trace=args.trace)
 
     # the card's name and power limit, beside every number printed
     name = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], check=True,

@@ -104,7 +104,27 @@ def run_algorithm(cfg: dotdict) -> Any:
         cfg.metric.aggregator.metrics = dotdict({k: v for k, v in metrics_cfg.items() if k in keys})
     entrypoint = getattr(importlib.import_module(entry["module"]), entry["entrypoint"])
     runtime = instantiate(cfg.fabric)
-    return runtime.launch(entrypoint, cfg)
+    # the run-health facade: attached here, opened by the loop once its log
+    # dir exists; closed here with the run's status whatever happens
+    from sheeprl_tpu_torch.diagnostics import SentinelHalt, build_diagnostics
+    from sheeprl_tpu_torch.resilience.preemption import PreemptedExit
+
+    diagnostics = runtime.diagnostics = build_diagnostics(cfg)
+    status = "completed"
+    try:
+        return runtime.launch(entrypoint, cfg)
+    except SentinelHalt:
+        status = "halted"
+        raise
+    except PreemptedExit:
+        # the loop journaled `preempted` and closed the facade already
+        status = "preempted"
+        raise
+    except BaseException:
+        status = "aborted"
+        raise
+    finally:
+        diagnostics.close(status)
 
 
 def resume_from_checkpoint(cfg: dotdict, overrides: Sequence[str] = ()) -> dotdict:
@@ -158,7 +178,7 @@ def resume_from_checkpoint(cfg: dotdict, overrides: Sequence[str] = ()) -> dotdi
 
 def run(args: Optional[Sequence[str]] = None) -> Any:
     """``python -m sheeprl_tpu_torch run exp=dreamer_v3 env=dummy
-    diagnostics=off [fabric.accelerator=cpu] ...``: compose the config from
+    [fabric.accelerator=cpu] ...``: compose the config from
     Hydra-style overrides and train, or with ``checkpoint.resume_from=<file
     or run dir>`` resume (:func:`resume_from_checkpoint`).  On the card
     unless ``fabric.accelerator=cpu``."""

@@ -105,6 +105,13 @@ class ReplayBuffer:
             self._full = True
         self._pos = (head + steps) % self._buffer_size
 
+    def footprint(self) -> Dict[str, int]:
+        """Storage bytes by residence: memmap-backed keys as ``disk_bytes``,
+        in-memory ones as ``host_bytes`` (the diagnostics' replay gauges)."""
+        host = sum(int(v.nbytes) for v in self._buf.values() if not isinstance(v, MemmapArray))
+        disk = sum(int(v.nbytes) for v in self._buf.values() if isinstance(v, MemmapArray))
+        return {"host_bytes": host, "disk_bytes": disk}
+
     def state_dict(self) -> Dict[str, Any]:
         return {"buffer": {k: np.asarray(v).copy() for k, v in self._buf.items()}, "pos": self._pos,
                 "full": self._full}
@@ -220,6 +227,13 @@ class EnvIndependentReplayBuffer:
             b.sample(batch_size=int(bs), n_samples=n_samples, **kwargs) for b, bs in zip(self._buf, bs_per_buf) if bs > 0
         ]
         return {k: np.concatenate([s[k] for s in per_buf], axis=self._concat_along_axis) for k in per_buf[0]}
+
+    def footprint(self) -> Dict[str, int]:
+        out = {"host_bytes": 0, "disk_bytes": 0}
+        for b in self._buf:
+            for kind, size in b.footprint().items():
+                out[kind] += size
+        return out
 
     def state_dict(self) -> Dict[str, Any]:
         return {"buffers": [b.state_dict() for b in self._buf]}

@@ -145,6 +145,10 @@ class DeviceSequentialReplayBuffer:
         return out
 
     # -- checkpointing ---------------------------------------------------------
+    def footprint(self) -> Dict[str, int]:
+        """Storage bytes on the card (the diagnostics' replay gauge)."""
+        return {"device_bytes": sum(v.numel() * v.element_size() for v in self._buf.values())}
+
     def state_dict(self) -> Dict[str, Any]:
         return {
             "buffer": {k: v.cpu().numpy().copy() for k, v in self._buf.items()},

@@ -1,0 +1,244 @@
+"""Rank-0 live metrics endpoint (counterpart of
+``sheeprl_tpu/diagnostics/metrics_server.py``): ``/metrics`` (Prometheus
+text), ``/healthz`` and, with the goodput profile pillar on, on-demand
+``/profile`` captures through ``torch.profiler``.
+
+A stdlib ``ThreadingHTTPServer`` on a daemon thread, serving the telemetry
+snapshot (``diagnostics=full``, or ``diagnostics.telemetry.http.enabled``);
+``port: 0`` binds an ephemeral port, which the facade journals as a
+``metrics_server`` event and prints.  Handlers only read a lock-protected
+snapshot; ``Diagnostics.close`` shuts the server down and joins its thread.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Callable, Dict, Mapping, Optional, Tuple
+
+from sheeprl_tpu_torch.diagnostics.schema import METRIC_PREFIX
+
+PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+
+def _escape_label(value: Any) -> str:
+    return str(value).replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _metric_name(key: str) -> str:
+    """``Telemetry/phase_pct/train`` -> ``phase_pct_train`` etc."""
+    name = key.split("/", 1)[1] if key.startswith("Telemetry/") else key
+    out = []
+    for ch in name:
+        out.append(ch if (ch.isalnum() or ch == "_") else "_")
+    name = "".join(out)
+    if name and name[0].isdigit():
+        name = "_" + name
+    return name
+
+
+def _format_le(le: Any) -> str:
+    if isinstance(le, str):
+        return le
+    return f"{float(le):g}"
+
+
+def latency_histogram_lines(hist: Mapping[str, Any], model: Optional[str] = None) -> list:
+    """Series lines (no ``# TYPE`` header — the caller owns the one-per-family
+    rule) for a per-phase latency histogram snapshot shaped like
+    ``PolicyService.snapshot()["latency_hist"]``:
+    ``{phase: {"buckets": [(le, cum_count), ...], "sum": ms, "count": n}}``.
+
+    Renders the standard Prometheus histogram triplet
+    ``sheeprl_serve_latency_ms_bucket{phase,le}`` / ``_sum`` / ``_count``,
+    with a ``model`` label prepended when serving multiple residents."""
+    lines = []
+    model_label = f'model="{_escape_label(model)}",' if model else ""
+    for phase in sorted(hist):
+        entry = hist[phase] or {}
+        phase_label = f'phase="{_escape_label(phase)}"'
+        for le, count in entry.get("buckets") or []:
+            lines.append(
+                f"sheeprl_serve_latency_ms_bucket"
+                f'{{{model_label}le="{_format_le(le)}",{phase_label}}} {float(count):g}'
+            )
+        lines.append(
+            f"sheeprl_serve_latency_ms_sum{{{model_label}{phase_label}}} "
+            f"{float(entry.get('sum') or 0.0):g}"
+        )
+        lines.append(
+            f"sheeprl_serve_latency_ms_count{{{model_label}{phase_label}}} "
+            f"{float(entry.get('count') or 0):g}"
+        )
+    return lines
+
+
+def render_prometheus(snapshot: Mapping[str, Any]) -> str:
+    """Prometheus text exposition (0.0.4) of a telemetry snapshot.
+
+    Gauges come from the latest closed accounting interval; ``*_total``
+    counters are cumulative over the run.  ``sheeprl_run_info`` carries the
+    run identity as labels (value is always 1), the standard info-metric
+    idiom.
+    """
+    lines = []
+
+    def emit(name: str, mtype: str, value: Any, help_text: str = "", labels: Optional[Dict] = None):
+        full = METRIC_PREFIX + name
+        if help_text:
+            lines.append(f"# HELP {full} {help_text}")
+        lines.append(f"# TYPE {full} {mtype}")
+        label_s = ""
+        if labels:
+            inner = ",".join(f'{k}="{_escape_label(v)}"' for k, v in sorted(labels.items()))
+            label_s = "{" + inner + "}"
+        try:
+            num = float(value)
+        except (TypeError, ValueError):
+            num = 0.0
+        lines.append(f"{full}{label_s} {num:g}")
+
+    info = snapshot.get("info") or {}
+    if info:
+        full = "sheeprl_run_info"
+        lines.append(f"# HELP {full} Run identity (labels carry the data; value is 1).")
+        lines.append(f"# TYPE {full} gauge")
+        inner = ",".join(f'{k}="{_escape_label(v)}"' for k, v in sorted(info.items()) if v is not None)
+        lines.append(f"{full}{{{inner}}} 1")
+
+    emit("up", "gauge", 1, "1 while the training process serves this endpoint.")
+    steps = snapshot.get("policy_steps")
+    if steps is not None:
+        emit("policy_steps_total", "counter", steps, "Policy steps taken (env frames / action_repeat).")
+
+    for key, value in sorted((snapshot.get("gauges") or {}).items()):
+        if value is None:
+            continue
+        emit(_metric_name(key), "gauge", value)
+
+    for key, value in sorted((snapshot.get("counters") or {}).items()):
+        emit(key, "counter", value)
+
+    phase_seconds = snapshot.get("phase_seconds_total") or {}
+    if phase_seconds:
+        # one TYPE line for the whole label family — a second TYPE line for
+        # the same metric name is a Prometheus parse error
+        lines.append("# TYPE sheeprl_phase_seconds_total counter")
+        for phase, secs in sorted(phase_seconds.items()):
+            try:
+                num = float(secs)
+            except (TypeError, ValueError):
+                num = 0.0
+            lines.append(f'sheeprl_phase_seconds_total{{phase="{_escape_label(phase)}"}} {num:g}')
+
+    lag = snapshot.get("journal_lag_seconds")
+    if lag is not None:
+        emit(
+            "journal_lag_seconds",
+            "gauge",
+            lag,
+            "Seconds since the last journal write (high = run stalled or not logging).",
+        )
+    return "\n".join(lines) + "\n"
+
+
+class MetricsServer:
+    """Background HTTP server bound to ``host:port`` (0 = ephemeral).
+
+    ``profile_fn`` (optional, from the goodput layer) serves on-demand
+    ``torch.profiler`` captures at ``GET /profile[?ms=N]`` — the handler thread
+    blocks for the capture window, never the training loop; the journal
+    records every capture as a ``profile_capture`` event.
+    """
+
+    def __init__(
+        self,
+        snapshot_fn: Callable[[], Dict[str, Any]],
+        host: str = "127.0.0.1",
+        port: int = 0,
+        profile_fn: Optional[Callable[[Optional[float]], Dict[str, Any]]] = None,
+    ):
+        self._snapshot_fn = snapshot_fn
+        self._profile_fn = profile_fn
+        self._host = host
+        self._port = int(port)
+        self._server: Optional[ThreadingHTTPServer] = None
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> Tuple[str, int]:
+        snapshot_fn = self._snapshot_fn
+        profile_fn = self._profile_fn
+
+        class Handler(BaseHTTPRequestHandler):
+            def log_message(self, fmt: str, *args: Any) -> None:  # silence stderr spam
+                pass
+
+            def do_GET(self) -> None:  # noqa: N802 - stdlib API
+                path, _, query = self.path.partition("?")
+                try:
+                    if path == "/metrics":
+                        body = render_prometheus(snapshot_fn()).encode()
+                        self.send_response(200)
+                        self.send_header("Content-Type", PROMETHEUS_CONTENT_TYPE)
+                    elif path == "/profile" and profile_fn is not None:
+                        from urllib.parse import parse_qs
+
+                        ms: Optional[float] = None
+                        for value in parse_qs(query).get("ms", []):
+                            try:
+                                ms = float(value)
+                            except ValueError:
+                                pass
+                        result = profile_fn(ms)
+                        body = json.dumps(result).encode()
+                        # busy = retryable contention, not a client error
+                        self.send_response(200 if result.get("status") != "failed" else 500)
+                        self.send_header("Content-Type", "application/json")
+                    elif path == "/healthz":
+                        snap = snapshot_fn()
+                        body = json.dumps(
+                            {
+                                "status": "ok",
+                                "t": round(time.time(), 3),
+                                "policy_steps": snap.get("policy_steps"),
+                                "journal_lag_seconds": snap.get("journal_lag_seconds"),
+                            }
+                        ).encode()
+                        self.send_response(200)
+                        self.send_header("Content-Type", "application/json")
+                    else:
+                        body = b"not found\n"
+                        self.send_response(404)
+                        self.send_header("Content-Type", "text/plain")
+                except Exception as err:  # pragma: no cover - snapshot races
+                    body = f"snapshot error: {err!r}\n".encode()
+                    self.send_response(500)
+                    self.send_header("Content-Type", "text/plain")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+        self._server = ThreadingHTTPServer((self._host, self._port), Handler)
+        self._server.daemon_threads = True
+        self._thread = threading.Thread(
+            target=self._server.serve_forever, name="sheeprl-metrics-server", daemon=True
+        )
+        self._thread.start()
+        return self.address
+
+    @property
+    def address(self) -> Tuple[str, int]:
+        assert self._server is not None, "MetricsServer not started"
+        host, port = self._server.server_address[:2]
+        return str(host), int(port)
+
+    def close(self) -> None:
+        if self._server is not None:
+            self._server.shutdown()
+            self._server.server_close()
+            self._server = None
+        if self._thread is not None:
+            self._thread.join(timeout=5)
+            self._thread = None

@@ -1,0 +1,214 @@
+"""The wire vocabulary of the diagnostics subsystem (counterpart of
+``sheeprl_tpu/diagnostics/schema.py``, a verbatim copy of its registries).
+
+Every journal event kind the port may write and every Prometheus name its
+``/metrics`` endpoint may expose is declared here, with the JAX package's
+descriptions: the port journals the same event kinds and gauge names, so the
+JAX package's readers and report tools read a port run unchanged.  Where a
+description names a JAX mechanism (``cost_analysis``, ``jax.profiler``,
+RESOURCE_EXHAUSTED), the port's counterpart is the one its module documents
+(``FlopCounterMode``, ``torch.profiler``, ``torch.cuda.OutOfMemoryError``).
+``tests/test_torch_diag_schema.py`` holds the registries equal to the JAX
+package's and every ``journal.write("<kind>")`` literal of the port to them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+#: Exported Prometheus names all start with this (the ``emit`` helper in
+#: :mod:`~sheeprl_tpu_torch.diagnostics.metrics_server` prefixes it).
+METRIC_PREFIX = "sheeprl_"
+
+#: Every journal event kind -> one-line description (the howto table's text).
+EVENT_KINDS: Dict[str, str] = {
+    "run_start": "config hash, algo/env/seed, run identity, sentinel policy",
+    "metrics": "every aggregated metric interval, keyed by the policy-step counter",
+    "checkpoint": "step + checkpoint path",
+    "divergence": "structured sentinel/detector findings",
+    "fault_injection": "a test-only fault fired (NaN poison, shape change, transfer/OOM drill)",
+    "recompile": "watchdog: a new dispatch signature, with the per-leaf shape/dtype diff",
+    "recompile_storm": "watchdog: recompile rate crossed the storm threshold",
+    "telemetry_cost": "compiled-step cost_analysis FLOPs for one instrumented signature",
+    "telemetry_fallback": "AOT compile/dispatch failed; the step reverted to native jit dispatch",
+    "metrics_server": "the /metrics endpoint address (or its bind failure)",
+    "compilation_cache": "JAX on-disk compilation cache enabled (directory recorded)",
+    "aot_cache_hit": "persistent AOT executable cache: a serialized executable was loaded instead of compiling (fn, entry path, FLOPs)",
+    "aot_cache_miss": "persistent AOT executable cache: no usable entry — reason absent/corrupt/fingerprint_mismatch/store_failed — so a fresh compile ran",
+    "telemetry_summary": "closing perf totals (recompiles, compile time, FLOPs, phase seconds)",
+    "memory_breakdown": "one-shot static footprint decomposition at first train dispatch",
+    "sharding_audit": "per-leaf bytes/sharding table of the first train dispatch",
+    "fsdp_shard_map": "FSDP partition-rule layout of the train state: axis size, min_shard_bytes, per-tree sharded/replicated leaf counts and global vs per-device bytes",
+    "donation_miss": "declared donations whose buffers were still alive after dispatch",
+    "host_transfer": "a transfer-guard trip (device<->host sync) with provenance",
+    "oom": "RESOURCE_EXHAUSTED forensics: full memory snapshot, fsync'd before re-raise",
+    "memory_summary": "closing memory totals (peaks, guard trips, donation misses)",
+    "state_change": "run-state machine transition (steady states at first entry only; stall transitions always)",
+    "stall": "watchdog: no progress for stall_threshold_s — all-thread stacks, last state, idle seconds (fsync'd)",
+    "stall_end": "the stalled run made progress again (seconds stalled, restored state)",
+    "profile_capture": "auto (on stall) or on-demand (/profile) jax.profiler capture: status ok/busy/failed + directory",
+    "anomaly": "learning-health detector fired after `confirm` consecutive breaches — kind, subject, offending window (fsync'd)",
+    "anomaly_end": "the anomalous learning-health condition cleared (kind, subject, step it started at)",
+    "serve_start": "the policy server came up: algo, served checkpoint/step, bind address, batch buckets, watched dir",
+    "ckpt_promote": "hot-reload promoted a new checkpoint (step, path, params version) — atomic swap, no recompile",
+    "ckpt_reject": "hot-reload refused a checkpoint: health-gate anomalies, shape mismatch, or missing journal",
+    "session_evict": "serving session layer: the LRU session lost its state-slab slot to a new session (session, slot, model, resident count vs capacity)",
+    "slo_breach": "serving SLO: the rolling burn rate stayed > 1.0 for `confirm` consecutive requests — model, burn, target_ms, objective, window (fsync'd)",
+    "slo_breach_end": "the serving SLO burn rate recovered to <= 1.0 (model, burn, seconds the breach lasted)",
+    "slow_request": "serving forensics: one request exceeded slo.slow_trace_ms — request id, model, full per-phase breakdown, batch width, queue depth at enqueue, session-eviction status (fsync'd)",
+    "request_log_rotate": "serving request log: one shard of /act traffic rotated to disk (model, stream, rows, bytes, shard path) — or dropped=true when the writer queue was full",
+    "ckpt_begin": "a checkpoint write started (path, step, blocking flag, seconds queued behind the async writer)",
+    "ckpt_end": "a checkpoint write finished: bytes, write ms, manifest verified — or status=failed with the error",
+    "ckpt_skipped": "resume selection rejected a checkpoint (corrupt / truncated / unreadable / incomplete_group) with the reason",
+    "params_reject": "decoupled promotion gate fenced a trainer update off the player: reason, step, staleness vs budget (escalate=true on the budget-exhausting rejection, fsync'd)",
+    "rollback": "quarantined train-step failure absorbed: trainer params+opt_state restored from the last-good snapshot — error, restored iteration, retries left (fsync'd)",
+    "dataset_export": "replay experience exported as dataset shards (rows/bytes/shards written, cumulative totals, dataset path)",
+    "dataset_open": "offline training opened a dataset: verified streams/segments/shards/rows/bytes and how many shards were skipped",
+    "dataset_shard_skipped": "dataset open rejected a torn/corrupt shard (no_manifest / size_mismatch / digest_mismatch) with the reason",
+    "preempted": "graceful preemption: emergency snapshot landed at a loop boundary; the process exits with code 75 (fsync'd)",
+    "restart": "supervisor respawned the run after a non-clean exit: attempt, rc, backoff, measured downtime, resume source",
+    "run_end": "completed / halted / aborted / preempted — absent after a kill",
+}
+
+#: Journal event kinds emitted by the memory monitor (handler routing in the
+#: facade and the ``tools/memory_report.py`` views key off this subset).
+MEMORY_EVENTS: Tuple[str, ...] = (
+    "memory_breakdown",
+    "sharding_audit",
+    "donation_miss",
+    "host_transfer",
+    "oom",
+)
+
+#: Every metric name the /metrics endpoint may export -> description.
+#: Names are the FULL exported spelling (``sheeprl_`` prefix included); the
+#: snapshot-dict keys that produce them are mapped through
+#: :func:`sheeprl_tpu_torch.diagnostics.metrics_server._metric_name`.
+METRICS: Dict[str, str] = {
+    # fixed series emitted by metrics_server.render_prometheus
+    "sheeprl_up": "1 while the training process serves the endpoint",
+    "sheeprl_run_info": "run identity as labels (value is always 1)",
+    "sheeprl_policy_steps_total": "policy steps taken (env frames / action_repeat)",
+    "sheeprl_phase_seconds_total": "cumulative wall-clock per host phase (label: phase)",
+    "sheeprl_journal_lag_seconds": "seconds since the last journal write",
+    # telemetry counters (Telemetry.snapshot()["counters"])
+    "sheeprl_recompiles_total": "watchdog: new dispatch signatures seen",
+    "sheeprl_recompile_storms_total": "watchdog: storm threshold crossings",
+    "sheeprl_backend_compiles_total": "jax.monitoring backend compile events",
+    "sheeprl_compile_seconds_total": "cumulative backend compile wall-clock",
+    "sheeprl_sentinel_events_total": "journaled divergence/sentinel findings",
+    "sheeprl_train_flops_total": "cumulative FLOPs dispatched through kind=train steps",
+    "sheeprl_env_steps_total": "cumulative environment steps taken by the player",
+    "sheeprl_dataset_rows_read_total": "offline mode: transitions streamed from the dataset loader",
+    # memory counters (MemoryMonitor.snapshot()["counters"])
+    "sheeprl_host_transfers_total": "transfer-guard trips journaled",
+    "sheeprl_donation_miss_leaves_total": "leaves that missed a declared donation",
+    "sheeprl_oom_events_total": "RESOURCE_EXHAUSTED events journaled",
+    # goodput counters (GoodputMonitor.snapshot()["counters"])
+    "sheeprl_stalls_total": "stall-watchdog firings (no progress for stall_threshold_s)",
+    "sheeprl_stalled_seconds_total": "cumulative seconds spent in the stalled state",
+    "sheeprl_profile_captures_total": "successful jax.profiler captures (auto on stall + /profile)",
+    # learning-health counters (HealthMonitor.snapshot()["counters"])
+    "sheeprl_health_anomalies_total": "anomaly events journaled by the learning-health detectors",
+    # resilience counters (ResilienceMonitor.snapshot()["counters"])
+    "sheeprl_ckpts_written_total": "checkpoints written (async or blocking) with a verified manifest sidecar",
+    "sheeprl_ckpt_failures_total": "checkpoint writes that failed (journaled as ckpt_end status=failed)",
+    "sheeprl_ckpt_write_seconds_total": "cumulative serialize+fsync wall-clock spent writing checkpoints",
+    "sheeprl_restarts_total": "kill/resume cycles the supervisor performed before this process (SHEEPRL_SUPERVISOR_RESTARTS)",
+    "sheeprl_params_rejected_total": "trainer updates the decoupled promotion gate fenced off the player (params_reject events)",
+    "sheeprl_rollbacks_total": "quarantined train-step failures absorbed by restoring the last-good snapshot (rollback events)",
+    # interval gauges (Telemetry/... keys, prefix-stripped and sanitized)
+    "sheeprl_mfu": "model FLOPs utilization vs the device-kind peak",
+    "sheeprl_tflops_per_sec": "achieved TFLOP/s over the last interval",
+    "sheeprl_sps": "policy steps per second over the last interval",
+    "sheeprl_env_steps_per_sec": "environment steps per second over the last interval",
+    "sheeprl_fetch_amortization": "env steps amortized by each blocking action fetch",
+    "sheeprl_dataset_read_sps": "offline mode: dataset transitions streamed per second over the last interval",
+    "sheeprl_dataset_epoch": "offline mode: the loader's pass counter over the dataset (deterministic per-epoch shuffle)",
+    "sheeprl_recompiles": "recompiles within the last interval",
+    "sheeprl_compile_count": "backend compiles within the last interval",
+    "sheeprl_compile_time_s": "backend compile seconds within the last interval",
+    "sheeprl_phase_pct_train": "interval wall-clock share: train dispatch+fetch",
+    "sheeprl_phase_pct_env": "interval wall-clock share: env stepping",
+    "sheeprl_phase_pct_fetch": "interval wall-clock share: metric/buffer fetch",
+    "sheeprl_phase_pct_other": "interval wall-clock share: other instrumented spans",
+    "sheeprl_phase_pct_idle": "interval wall-clock share: un-instrumented host time",
+    # resilience gauges (checkpoint freshness; run_monitor --url keys its
+    # !! NO-RECENT-CKPT banner off these)
+    "sheeprl_ckpt_last_step": "policy step of the newest verified checkpoint written by this run",
+    "sheeprl_ckpt_age_seconds": "seconds since the newest verified checkpoint landed on disk",
+    "sheeprl_ckpt_interval_seconds": "seconds between the last two checkpoint writes (the observed cadence)",
+    "sheeprl_param_staleness": "decoupled fencing: consecutive trainer updates the player has been held back from (0 = acting on fresh params)",
+    "sheeprl_param_staleness_budget": "decoupled fencing: the configured max_staleness budget the staleness gauge escalates against",
+    # goodput gauges (run lifecycle layer, prefix-stripped)
+    "sheeprl_run_state": "run-state machine index into goodput.STATES (5 = stalled)",
+    "sheeprl_goodput": "cumulative productive share since open: train-span seconds / wall seconds",
+    "sheeprl_time_to_first_step": "seconds from diagnostics open to the first completed train dispatch",
+    # learning-health gauges (Telemetry/health/*, prefix-stripped; the
+    # per-module detail keys stay journal/TB-only — /metrics exports exactly
+    # this scalar subset)
+    "sheeprl_health_grad_norm": "latest global gradient L2 norm from the in-graph health stats",
+    "sheeprl_health_update_norm": "latest global parameter-update L2 norm",
+    "sheeprl_health_param_norm": "latest global parameter L2 norm",
+    "sheeprl_health_update_ratio": "latest update-to-weight ratio (update_norm / param_norm)",
+    "sheeprl_health_dead_frac": "latest fraction of units whose gradients are ~zero",
+    "sheeprl_health_value_ev": "latest value-function explained variance (ppo/a2c)",
+    "sheeprl_health_anomalies": "learning-health anomalies currently active",
+    # memory gauges (Telemetry/hbm_* etc., prefix-stripped)
+    "sheeprl_fsdp_axis_size": "extent of the FSDP ('model') mesh axis this run shards params over (absent on pure-DP runs)",
+    "sheeprl_params_bytes_per_device": "param bytes one device holds under the FSDP partition rule (vs the replicated global size)",
+    "sheeprl_hbm_bytes_in_use": "per-device HBM bytes in use (max over devices)",
+    "sheeprl_hbm_peak_bytes": "per-device HBM peak bytes (max over devices)",
+    "sheeprl_hbm_largest_alloc_bytes": "largest single HBM allocation",
+    "sheeprl_host_rss_bytes": "host process resident set size",
+    "sheeprl_replay_host_bytes": "replay buffer bytes resident in host RAM",
+    "sheeprl_replay_disk_bytes": "replay buffer bytes memmapped on disk",
+    "sheeprl_replay_device_bytes": "replay buffer bytes resident in HBM",
+    "sheeprl_replay_dataset_disk": "bytes of exported dataset shards attributed to the tracked replay buffer",
+    # serving tier (sheeprl_tpu/serving/server.py snapshot; the serve
+    # /metrics endpoint reuses render_prometheus, so the same naming rules
+    # apply — tools/run_monitor.py --url keys its serving panel off these)
+    "sheeprl_serve_requests_total": "serving: /act requests accepted into the batcher",
+    "sheeprl_serve_dispatches_total": "serving: batched device dispatches (requests amortize into these)",
+    "sheeprl_serve_request_errors_total": "serving: requests failed (queue full, timeout, dispatch error)",
+    "sheeprl_serve_ckpt_promotions_total": "serving: checkpoints hot-promoted by the watcher",
+    "sheeprl_serve_ckpt_rejections_total": "serving: checkpoints refused (health gate / shape mismatch)",
+    "sheeprl_serve_batch_width_total": "serving: dispatches per padded bucket width (label: width)",
+    "sheeprl_serve_latency_p50_ms": "serving: median request latency (enqueue to response)",
+    "sheeprl_serve_latency_p99_ms": "serving: p99 request latency",
+    "sheeprl_serve_requests_per_sec": "serving: request throughput over the recent completion window",
+    "sheeprl_serve_queue_depth": "serving: requests waiting for a dispatch slot",
+    "sheeprl_serve_batch_width_mean": "serving: mean valid rows per dispatch (amortization factor)",
+    "sheeprl_serve_ckpt_step": "serving: policy step of the currently served checkpoint",
+    "sheeprl_serve_last_promote_rejected": "serving: 1 while the newest checkpoint candidate was rejected",
+    # stateful multi-model serving (session layer + model registry + request
+    # log; per-model series carry a {model="..."} label, the unlabeled sample
+    # is the cross-model aggregate)
+    "sheeprl_serve_shed_total": "serving: requests refused 503 at the door because the queue was full (load shedding; responses carry Retry-After)",
+    "sheeprl_serve_models": "serving: resident models on this server (the registry size)",
+    "sheeprl_serve_request_log_rows_total": "serving: /act rows appended to the offline request-log dataset",
+    "sheeprl_serve_request_log_shards_total": "serving: request-log shards rotated to disk (journaled request_log_rotate)",
+    "sheeprl_sessions_active": "serving sessions: client sessions currently resident in the state slab",
+    "sheeprl_sessions_capacity": "serving sessions: state-slab capacity (serving.sessions.capacity)",
+    "sheeprl_sessions_created_total": "serving sessions: sessions allocated a slab slot (first sight or post-eviction re-entry)",
+    "sheeprl_sessions_evictions_total": "serving sessions: LRU evictions journaled as session_evict",
+    "sheeprl_sessions_overflow_total": "serving sessions: new sessions that rode the scratch slot because every slot was pinned by their own batch",
+    # request-level tracing, latency breakdown + SLOs: per-phase
+    # histograms with fixed serving.slo.buckets_ms boundaries, burn-rate
+    # gauge, shed-wait accounting and slow-request forensics counters
+    "sheeprl_serve_latency_ms_bucket": "serving: per-phase request-latency histogram buckets (labels: phase, le, optional model; boundaries from serving.slo.buckets_ms)",
+    "sheeprl_serve_latency_ms_sum": "serving: cumulative milliseconds observed per phase (histogram _sum)",
+    "sheeprl_serve_latency_ms_count": "serving: observations per phase (histogram _count)",
+    "sheeprl_serve_queue_ms_p50": "serving: median queue-wait (enqueue to batch-formation start) over the rolling window",
+    "sheeprl_serve_queue_ms_p99": "serving: p99 queue-wait",
+    "sheeprl_serve_batch_form_ms_p50": "serving: median batch-formation wait (co-rider window) over the rolling window",
+    "sheeprl_serve_batch_form_ms_p99": "serving: p99 batch-formation wait",
+    "sheeprl_serve_dispatch_ms_p50": "serving: median AOT dispatch time (slab assembly + session checkout + device step)",
+    "sheeprl_serve_dispatch_ms_p99": "serving: p99 AOT dispatch time",
+    "sheeprl_serve_scatter_ms_p50": "serving: median result fan-out time (dispatch return to every waiter woken)",
+    "sheeprl_serve_scatter_ms_p99": "serving: p99 result fan-out time",
+    "sheeprl_serve_slo_burn": "serving: rolling SLO burn rate — bad_fraction / (1 - objective); > 1.0 spends error budget faster than the objective allows",
+    "sheeprl_serve_shed_wait_ms": "serving: mean milliseconds a shed request spent queued/contended before its 503 (overload analysis without survivorship bias)",
+    "sheeprl_serve_slow_requests_total": "serving: requests that exceeded slo.slow_trace_ms and journaled slow_request forensics",
+    "sheeprl_serve_slo_breaches_total": "serving: confirmed SLO breaches journaled as slo_breach",
+}

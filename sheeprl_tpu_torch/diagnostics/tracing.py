@@ -1,15 +1,260 @@
-"""Tracer interface the serving tier takes (counterpart of
-``sheeprl_tpu/diagnostics/tracing.py::NullTracer``).  The port has no span
-writer yet, so the batcher runs with the no-op tracer."""
+"""Step-phase tracing (counterpart of ``sheeprl_tpu/diagnostics/tracing.py``):
+Chrome-trace (Trace Event Format) span timers.
+
+The spans time the host-side phases of the training loop (rollout,
+buffer-sample, train, env_wait, checkpoint) and stream them as ``"X"``
+events, one JSON object per line inside an array; open the file in
+``chrome://tracing`` or https://ui.perfetto.dev.  Every event is flushed as
+written and the closing ``]`` lands in :meth:`PhaseTracer.close`; both
+viewers accept an unterminated array, so a killed run still leaves a
+loadable trace.  Each file opens with a ``clock_sync`` instant carrying the
+run id, rank, role and the Unix-epoch microsecond of its ``ts=0``, so the
+JAX package's ``tools/trace_report.py`` merges traces of several processes.
+``max_events`` rotates the file (``trace.json`` -> ``trace.json.1`` ...),
+each generation a complete array with its own preamble.  ``diagnostics=full``
+turns it on; the device side is ``torch.profiler``'s.
+"""
 
 from __future__ import annotations
 
+import json
+import os
+import threading
+import time
 from contextlib import contextmanager
-from typing import Any, Optional
+from typing import Any, Dict, Optional
+
+TRACE_NAME = "trace.json"
+# The serving tier writes its own file next to the serving journal so the
+# dispatcher/HTTP-handler spans never interleave with a co-located training
+# trace; tools/trace_report.py merges both onto one absolute timeline via
+# their clock_sync anchors (howto/serving.md "Tracing & SLOs").
+TRACE_SERVE_NAME = "trace_serve.json"
+
+# Span names the training loops and the serving tier emit (free-form names
+# are fine too; these are the vocabulary howto/diagnostics.md documents).
+# ``env_step_async`` times issuing the split-phase env dispatch and
+# ``env_wait`` the blocking collect — in Perfetto the gap between an
+# ``env_step_async`` span and its iteration's ``env_wait`` span is exactly
+# the env time hidden behind device dispatch, so the async env pipeline's
+# overlap (howto/async_envs.md) is directly visible.  The ``serve-*`` phases
+# tile one /act request: queue-wait → batch formation → (session checkout
+# inside) AOT dispatch → result scatter → response serialization, plus the
+# request-log writer thread's shard flush.  tools/lint TRC501 pins every
+# span-name literal in serving/ and the loops to this tuple.
+KNOWN_PHASES = (
+    "rollout",
+    "env_step_async",
+    "env_wait",
+    "buffer-sample",
+    "train",
+    "checkpoint",
+    "serve-queue",
+    "serve-batch-form",
+    "serve-session-checkout",
+    "serve-dispatch",
+    "serve-scatter",
+    "serve-serialize",
+    "serve-request-log",
+)
+
+
+class PhaseTracer:
+    """Streaming Trace-Event writer with a ``span`` context manager."""
+
+    def __init__(
+        self,
+        path: str,
+        pid: int = 0,
+        flush_every: int = 1,
+        max_events: Optional[int] = None,
+        rotate_keep: int = 2,
+        run_id: Optional[str] = None,
+        role: Optional[str] = None,
+    ):
+        self.path = str(path)
+        self._pid = int(pid)
+        self._flush_every = max(1, int(flush_every))
+        self._max_events = int(max_events) if max_events else None
+        self._rotate_keep = max(1, int(rotate_keep))
+        self.run_id = run_id
+        self.role = role or "main"
+        os.makedirs(os.path.dirname(os.path.abspath(self.path)), exist_ok=True)
+        self._count = 0
+        self._closed = False
+        self._lock = threading.Lock()
+        # perf_counter origin so ts deltas are monotonic within the run; the
+        # paired wall-clock reading anchors ts=0 on the Unix epoch for the
+        # cross-process merge (taken back-to-back: sub-ms anchor skew)
+        self._t0_ns = time.perf_counter_ns()
+        self._epoch_t0_us = time.time_ns() // 1000
+        self._fp = open(self.path, "w", encoding="utf-8")
+        self._fp.write("[\n")
+        self._first = True
+        self._write_preamble()
+
+    def _preamble_events(self):
+        return (
+            {
+                "name": "process_name",
+                "ph": "M",
+                "pid": self._pid,
+                "tid": 0,
+                "args": {"name": f"sheeprl_tpu_torch {self.role} rank{self._pid}"},
+            },
+            {
+                "name": "clock_sync",
+                "cat": "meta",
+                "ph": "i",
+                "s": "g",
+                "ts": self._now_us(),
+                "pid": self._pid,
+                "tid": 0,
+                "args": {
+                    "run_id": self.run_id,
+                    "rank": self._pid,
+                    "role": self.role,
+                    # Unix-epoch µs at this file's ts=0: merge key for
+                    # tools/trace_report.py (abs_us = epoch_t0_us + ts)
+                    "epoch_t0_us": self._epoch_t0_us,
+                },
+            },
+        )
+
+    def _write_preamble(self) -> None:
+        for event in self._preamble_events():
+            self._emit(event)
+
+    def _now_us(self) -> int:
+        return (time.perf_counter_ns() - self._t0_ns) // 1000
+
+    def _emit(self, event: Dict[str, Any]) -> None:
+        if self._closed:
+            return
+        with self._lock:
+            if self._closed:  # re-check: close() may have won the lock race
+                return
+            if not self._first:
+                self._fp.write(",\n")
+            self._first = False
+            self._fp.write(json.dumps(event, separators=(",", ":")))
+            self._count += 1
+            if self._count % self._flush_every == 0:
+                self._fp.flush()
+            if self._max_events is not None and self._count >= self._max_events:
+                self._rotate_locked()
+
+    def _rotate_locked(self) -> None:
+        """Close the current generation as a complete array and start a new
+        one (caller holds the lock).  ``ts`` keeps counting from the same
+        origin, so generations concatenate into one coherent timeline."""
+        try:
+            self._fp.write("\n]\n")
+            self._fp.flush()
+        finally:
+            self._fp.close()
+        for i in range(self._rotate_keep - 1, 0, -1):
+            older = f"{self.path}.{i}"
+            if os.path.exists(older):
+                os.replace(older, f"{self.path}.{i + 1}")
+        os.replace(self.path, f"{self.path}.1")
+        # drop any generation beyond the keep budget
+        overflow = f"{self.path}.{self._rotate_keep + 1}"
+        if os.path.exists(overflow):
+            os.remove(overflow)
+        self._fp = open(self.path, "w", encoding="utf-8")
+        self._fp.write("[\n")
+        self._first = True
+        self._count = 0
+        # new generation gets its own preamble (same run/clock identity) so
+        # it is independently loadable; written directly — the lock is held
+        self._write_preamble_direct()
+
+    def _write_preamble_direct(self) -> None:
+        """Write the metadata preamble straight to the (fresh) file while the
+        lock is already held."""
+        for event in self._preamble_events():
+            if not self._first:
+                self._fp.write(",\n")
+            self._first = False
+            self._fp.write(json.dumps(event, separators=(",", ":")))
+            self._count += 1
+        self._fp.flush()
+
+    @contextmanager
+    def span(self, name: str, **args: Any):
+        """Time a phase as a complete ("X") event."""
+        start = self._now_us()
+        try:
+            yield
+        finally:
+            self._emit(
+                {
+                    "name": str(name),
+                    "cat": "phase",
+                    "ph": "X",
+                    "ts": start,
+                    "dur": max(0, self._now_us() - start),
+                    "pid": self._pid,
+                    "tid": threading.get_ident() % (1 << 31),
+                    **({"args": args} if args else {}),
+                }
+            )
+
+    def now_us(self) -> int:
+        """Current trace-clock reading (µs since this tracer's ts=0).
+
+        Callers that can only attribute a phase after the fact (the batcher
+        learns a request's queue-wait when the dispatcher pops it) capture
+        timestamps with this and emit retroactively via :meth:`emit_complete`.
+        """
+        return self._now_us()
+
+    def emit_complete(self, name: str, ts_us: int, dur_us: int, **args: Any) -> None:
+        """Emit a complete ("X") event at explicit trace-clock coordinates."""
+        self._emit(
+            {
+                "name": str(name),
+                "cat": "phase",
+                "ph": "X",
+                "ts": int(ts_us),
+                "dur": max(0, int(dur_us)),
+                "pid": self._pid,
+                "tid": threading.get_ident() % (1 << 31),
+                **({"args": args} if args else {}),
+            }
+        )
+
+    def instant(self, name: str, **args: Any) -> None:
+        """Mark a point event (checkpoint written, divergence detected...)."""
+        self._emit(
+            {
+                "name": str(name),
+                "cat": "event",
+                "ph": "i",
+                "s": "g",  # global-scope instant: full-height line in the UI
+                "ts": self._now_us(),
+                "pid": self._pid,
+                "tid": threading.get_ident() % (1 << 31),
+                **({"args": args} if args else {}),
+            }
+        )
+
+    def close(self) -> None:
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            try:
+                self._fp.write("\n]\n")
+                self._fp.flush()
+            except ValueError:  # pragma: no cover - interpreter teardown
+                pass
+            self._fp.close()
 
 
 class NullTracer:
-    """No-op tracer."""
+    """No-op stand-in when tracing is disabled or on non-zero ranks."""
 
     path: Optional[str] = None
 

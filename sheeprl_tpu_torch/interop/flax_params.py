@@ -15,14 +15,13 @@ four trees; serving reads only what a policy acts with
 (:func:`from_flax_policy`), and the subtrees it does not act with
 (:data:`NOT_ACTED_WITH`) may be in the checkpoint or not.
 
-Optimizer state crosses one way, JAX to the port
-(:func:`optimizer_state_dict`): optax's ``chain(clip_by_global_norm,
-adam)`` state holds ``ScaleByAdamState(count, mu, nu)``, whose ``mu`` and
-``nu`` are trees laid out like the params; they become ``torch.optim.Adam``'s
-``exp_avg`` and ``exp_avg_sq`` by the same layout rules, and ``count`` its
-``step``.  The port writes its optimizer state as torch ``state_dict``s,
-which the JAX package cannot read.  bf16 weights are written as float32,
-which holds them exactly.
+Optimizer state crosses both ways in optax's layout: optax's
+``chain(clip_by_global_norm, adam)`` state holds ``ScaleByAdamState(count,
+mu, nu)``, whose ``mu`` and ``nu`` are trees laid out like the params; they
+become ``torch.optim.Adam``'s ``exp_avg`` and ``exp_avg_sq`` by the same
+layout rules, and ``count`` its ``step`` (:func:`optimizer_state_dict`), and
+back (:func:`optax_state`), so each package resumes the other's checkpoints.
+bf16 weights are written as float32, which holds them exactly.
 """
 
 from __future__ import annotations
@@ -262,6 +261,38 @@ def _adam_state(node: Any) -> Any:
             if found is not None:
                 return found
     return None
+
+
+def _map_spec(spec: Mapping[str, Any], fn) -> Dict[str, Any]:
+    return {key: _map_spec(sub, fn) if isinstance(sub, dict) else fn(*sub) for key, sub in spec.items()}
+
+
+def optax_state(optimizer: torch.optim.Optimizer, spec: Mapping[str, Any]) -> Any:
+    """``optimizer``'s Adam state as the tree the JAX package pickles for
+    optax's ``chain(clip_by_global_norm(c), adam(...))``:
+    ``(EmptyState(), (ScaleByAdamState(count, mu, nu), EmptyState()))``,
+    ``mu``/``nu`` in the flax layout of ``spec`` (the module's subtree of
+    :func:`param_spec`) and ``count`` Adam's ``step`` as int32.  A parameter
+    Adam has not stepped yet holds zeros, as optax's ``init`` does."""
+    from sheeprl_tpu_torch.utils.checkpoint import OptaxState
+
+    empty = OptaxState.make("optax._src.base", "EmptyState")
+    adam = OptaxState.make("optax._src.transform", "ScaleByAdamState")
+    steps = {float(s["step"]) for s in optimizer.state.values() if "step" in s}
+    if len(steps) > 1:
+        raise ValueError(f"Adam's parameters disagree on the step count: {sorted(steps)}")
+
+    def slot(name: str):
+        def leaf(tensor: torch.Tensor, kind: str) -> np.ndarray:
+            entry = optimizer.state.get(tensor)
+            value = entry[name] if entry else torch.zeros_like(tensor)
+            # a copy: on the CPU .numpy() shares the live state, which the
+            # next step updates in place
+            return np.array(_to_flax(value.detach().cpu().float().numpy(), kind), order="C", copy=True)
+        return leaf
+
+    count = np.asarray(int(steps.pop()) if steps else 0, np.int32)
+    return (empty(), (adam(count, _map_spec(spec, slot("exp_avg")), _map_spec(spec, slot("exp_avg_sq"))), empty()))
 
 
 def optimizer_state_dict(saved: Any, optimizer: torch.optim.Optimizer, spec: Mapping[str, Any]) -> Dict[str, Any]:

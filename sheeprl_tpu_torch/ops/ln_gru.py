@@ -42,6 +42,7 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the kernel's fixed shape (csrc/ln_gru.cu): 8 consumer warps and a
@@ -233,6 +234,28 @@ def _check(joint, w, b, g, beta, h) -> None:
             raise ValueError(f"{name} must be [{3 * hidden}], got {tuple(tensors[name].shape)}")
 
 
+@torch.library.custom_op("sheeprl_tpu_torch::ln_gru_forward", mutates_args=())
+def _ln_gru_forward(joint: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor], g: torch.Tensor,
+                    beta: torch.Tensor, h: torch.Tensor, eps: float) -> torch.Tensor:
+    """The cell's forward as one operator: the kernel on a CUDA tensor,
+    :func:`ln_gru_reference` on a CPU tensor.  Being one operator, it is one
+    entry for ``FlopCounterMode``, which counts it by
+    :func:`_ln_gru_flops` on both devices and never sees the plain version's
+    own products."""
+    if joint.device.type == "cpu":
+        return ln_gru_reference(joint, w, b, g, beta, h, eps)
+    from sheeprl_tpu_torch.ops import cuda_build
+
+    return _launch(cuda_build.load("ln_gru"), joint, w, b, g, beta, h, eps)
+
+
+@register_flop_formula(torch.ops.sheeprl_tpu_torch.ln_gru_forward)
+def _ln_gru_flops(joint_shape, w_shape, *args, **kwargs) -> int:
+    """The kernel's product, ``2·B·K·3H`` (``FlopCounterMode`` counts
+    products only, so the LayerNorm and the gates are not counted)."""
+    return 2 * joint_shape[0] * joint_shape[1] * w_shape[0]
+
+
 class _FusedLayerNormGRU(torch.autograd.Function):
     """The cell under autograd.  Forward: the kernel on a CUDA tensor,
     :func:`ln_gru_reference` on a CPU tensor.  Backward: recompute through
@@ -245,11 +268,7 @@ class _FusedLayerNormGRU(torch.autograd.Function):
     def forward(ctx, joint, w, b, g, beta, h, eps):
         ctx.eps = eps
         ctx.save_for_backward(joint, w, b, g, beta, h)
-        if joint.device.type == "cpu":
-            return ln_gru_reference(joint, w, b, g, beta, h, eps)
-        from sheeprl_tpu_torch.ops import cuda_build
-
-        return _launch(cuda_build.load("ln_gru"), joint, w, b, g, beta, h, eps)
+        return torch.ops.sheeprl_tpu_torch.ln_gru_forward(joint, w, b, g, beta, h, eps)
 
     @staticmethod
     def backward(ctx, grad_out):

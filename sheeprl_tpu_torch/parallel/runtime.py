@@ -2,7 +2,9 @@
 ``sheeprl_tpu/parallel/runtime.py``): the device, the precision policy
 (``param_dtype``, ``compute_dtype``; see ``parallel/precision.py``), the
 seeding, checkpoint save/load and the callback hooks.  ``world_size`` is 1;
-multi-device runs and FSDP are still to port (ROADMAP.md Queue 1)."""
+multi-device runs and FSDP are still to port (ROADMAP.md Queue 1).  Every
+save writes a manifest sidecar, through the diagnostics' resilience layer
+when it is open (``diagnostics``, attached by ``cli.run_algorithm``)."""
 
 from __future__ import annotations
 
@@ -61,6 +63,7 @@ class Runtime:
             )
         self.device = resolve_device(accelerator)
         self.callbacks = list(callbacks or [])
+        self.diagnostics = None
 
     world_size = 1
     global_rank = 0
@@ -84,9 +87,14 @@ class Runtime:
                 hook(runtime=self, **kwargs)
 
     def save(self, path: str, state: Dict[str, Any]) -> None:
-        from sheeprl_tpu_torch.utils.checkpoint import save_state
+        """Checkpoint write with its manifest: through the diagnostics'
+        resilience layer (async writer or blocking, journaled) when it is
+        open, else a blocking save that writes the manifest all the same."""
+        routed = self.diagnostics is not None and self.diagnostics.save_checkpoint(path, state)
+        if not routed:
+            from sheeprl_tpu_torch.resilience.manifest import save_verified_checkpoint
 
-        save_state(path, state)
+            save_verified_checkpoint(path, state)
 
     def load(self, path: str) -> Dict[str, Any]:
         from sheeprl_tpu_torch.utils.checkpoint import load_state

@@ -8,10 +8,22 @@ optax optimizer states, pickled as optax classes; the port reads those
 without importing optax: every class outside numpy and a few builtins loads
 as a :class:`ForeignObject` that keeps its constructor arguments.  That
 restriction also keeps an unpickled file from calling arbitrary code.
+
+The port writes each optimizer's state as the tree the JAX package pickles
+for optax's ``chain(clip_by_global_norm, adam)``, without optax: each optax
+state is an :class:`OptaxState`, pickled by reference to the optax class it
+stands for (``optax._src.transform.ScaleByAdamState`` ...) by a pickler that
+writes the reference without importing it (:class:`_Pickler`), so the JAX
+package resumes a port checkpoint, and the port reads it back through the
+same ``ForeignObject`` path as a JAX one.  ``save_state(..., digest=True)``
+hashes the pickle with sha256 as it streams out, for the manifest sidecar
+(``resilience/manifest.py``).
 """
 
 from __future__ import annotations
 
+import copyreg
+import hashlib
 import os
 import pickle
 import re
@@ -65,16 +77,84 @@ def npify(tree: Any) -> Any:
     return tree
 
 
-def save_state(path: str, state: Dict[str, Any]) -> None:
-    """Atomic tmp+rename checkpoint write, fsync'd before the rename."""
+class OptaxState:
+    """Stand-in for an optax state namedtuple (``module.name`` and its
+    field values), pickled as that class: ``make(module, name)`` gives the
+    stand-in class, whose instances pickle by reference to the optax class."""
+
+    pickle_as: Tuple[str, str] = ("", "")
+
+    def __init__(self, *fields: Any):
+        self.fields = tuple(fields)
+
+    def __reduce__(self):
+        return copyreg.__newobj__, (type(self), *self.fields)
+
+    def __repr__(self) -> str:
+        return f"{'.'.join(self.pickle_as)}{self.fields!r}"
+
+    @staticmethod
+    def make(module: str, name: str) -> type:
+        key = (module, name)
+        if key not in _OPTAX_CLASSES:
+            _OPTAX_CLASSES[key] = type(name, (OptaxState,), {"pickle_as": key})
+        return _OPTAX_CLASSES[key]
+
+
+_OPTAX_CLASSES: Dict[Tuple[str, str], type] = {}
+
+
+class _Pickler(pickle._Pickler):
+    """The pure-Python pickler, writing an :class:`OptaxState` class as a
+    global reference to the optax class it stands for.  The C pickler
+    imports every class it writes by reference to check it, and the port
+    has no optax."""
+
+    def save_global(self, obj: Any, name: Optional[str] = None) -> None:
+        ref = getattr(obj, "pickle_as", None) if isinstance(obj, type) and issubclass(obj, OptaxState) else None
+        if ref is None:
+            super().save_global(obj, name)
+            return
+        self.save(ref[0])
+        self.save(ref[1])
+        self.write(pickle.STACK_GLOBAL)
+        self.memoize(obj)
+
+
+class _HashingWriter:
+    """File-object shim that sha256-digests the bytes as the pickle streams
+    out, so the manifest never re-reads the checkpoint."""
+
+    def __init__(self, fp):
+        self._fp = fp
+        self.sha = hashlib.sha256()
+        self.nbytes = 0
+
+    def write(self, data) -> int:
+        # protocol 5 hands PickleBuffers to write(); a memoryview covers
+        # anything bytes-like
+        view = memoryview(data)
+        self.sha.update(view)
+        self.nbytes += view.nbytes
+        return self._fp.write(data)
+
+
+def save_state(path: str, state: Dict[str, Any], digest: bool = False) -> Optional[Dict[str, Any]]:
+    """Atomic tmp+rename checkpoint write, fsync'd before the rename.  With
+    ``digest`` returns ``{"sha256", "bytes"}`` of the file, computed while
+    streaming."""
     path = str(path)
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     tmp = path + ".tmp"
     with open(tmp, "wb") as fp:
-        pickle.dump(npify(state), fp, protocol=pickle.HIGHEST_PROTOCOL)
+        sink = _HashingWriter(fp) if digest else fp
+        _Pickler(sink, protocol=pickle.HIGHEST_PROTOCOL).dump(npify(state))
         fp.flush()
         os.fsync(fp.fileno())
     os.replace(tmp, path)
+    if digest:
+        return {"sha256": sink.sha.hexdigest(), "bytes": sink.nbytes}
+    return None
 
 
 def load_state(path: str) -> Dict[str, Any]:
@@ -86,6 +166,9 @@ def load_state(path: str) -> Dict[str, Any]:
 
 
 _STEP_RE = re.compile(r"ckpt_(\d+)_\d+\.ckpt$")
+#: ``*.ckpt.tmp`` leftovers older than this are reaped when ``keep_last``
+#: prunes (younger ones may be the async writer's)
+TMP_ORPHAN_AGE_S = 900.0
 
 #: checkpoints ``keep_last`` never deletes: the one the run resumed from
 #: (``cli.resume_from_checkpoint`` registers it), so that a crash before the
@@ -139,8 +222,14 @@ class CheckpointCallback:
             self._delete_old_checkpoints(Path(ckpt_path).parent)
 
     def _delete_old_checkpoints(self, ckpt_folder: Path) -> None:
+        from sheeprl_tpu_torch.resilience.manifest import MANIFEST_SUFFIX, reap_orphan_tmps
+
+        # interrupted writes' leftovers, old enough not to be the async
+        # writer's own
+        reap_orphan_tmps(str(ckpt_folder), max_age_s=TMP_ORPHAN_AGE_S)
         ckpts = [p for p in ckpt_folder.glob("ckpt_*.ckpt") if _STEP_RE.search(p.name)]
         ckpts.sort(key=lambda p: int(_STEP_RE.search(p.name).group(1)))
         for old in ckpts[: max(0, len(ckpts) - int(self.keep_last))]:
             if os.path.abspath(old) not in PROTECTED_CHECKPOINTS:
                 old.unlink()
+                Path(str(old) + MANIFEST_SUFFIX).unlink(missing_ok=True)

@@ -1,7 +1,9 @@
 """Run loggers and versioned log dirs (counterpart of
-``sheeprl_tpu/utils/logger.py``).  TensorBoard is the default backend;
-W&B and MLflow, and the diagnostics journal the JAX package mirrors every
-logged interval into, are still to port (ROADMAP.md Queue 1)."""
+``sheeprl_tpu/utils/logger.py``).  TensorBoard is the default backend; W&B
+and MLflow are still to port (ROADMAP.md Queue 1).  :class:`JournalingLogger`
+mirrors every logged interval, with the ``Telemetry/*`` gauges merged in,
+into the diagnostics journal; unlike the JAX package it does so with
+``metric.logger=null`` too, so a run without TensorBoard keeps its record."""
 
 from __future__ import annotations
 
@@ -70,11 +72,45 @@ def get_log_dir(runtime, root_dir: str, run_name: str) -> str:
     return log_dir
 
 
+class JournalingLogger(NoOpLogger):
+    """Proxy that merges the diagnostics' ``Telemetry/*`` gauges into every
+    ``log_metrics`` call, hands it to the backend, then journals it.  The
+    facade is looked up on the runtime at each call, since the logger
+    exists before the run dir (and so the journal) does."""
+
+    def __init__(self, inner: NoOpLogger, runtime):
+        self._inner = inner
+        self._runtime = runtime
+
+    @property
+    def log_dir(self):
+        return self._inner.log_dir
+
+    @property
+    def name(self):
+        return self._inner.name
+
+    def log_metrics(self, metrics: Dict[str, Any], step: Optional[int] = None) -> None:
+        diagnostics = getattr(self._runtime, "diagnostics", None)
+        if diagnostics is not None:
+            metrics = diagnostics.augment_metrics(step, metrics)
+        self._inner.log_metrics(metrics, step)
+        if diagnostics is not None:
+            diagnostics.log_metrics(step, metrics)
+
+    def log_hyperparams(self, params: Dict[str, Any]) -> None:
+        self._inner.log_hyperparams(params)
+
+    def finalize(self, status: str = "success") -> None:
+        self._inner.finalize(status)
+
+
 def get_logger(runtime, cfg) -> NoOpLogger:
-    """The configured logger, or a no-op one at ``metric.log_level=0`` or
-    with ``metric.logger=null``."""
+    """The configured logger behind the journaling proxy (a no-op backend
+    with ``metric.logger=null``), or a no-op one at ``metric.log_level=0``."""
     from sheeprl_tpu_torch.config import instantiate
 
-    if cfg.metric.get("log_level", 1) == 0 or cfg.metric.get("logger") is None:
+    if cfg.metric.get("log_level", 1) == 0:
         return NoOpLogger()
-    return instantiate(dict(cfg.metric.logger))
+    inner = NoOpLogger() if cfg.metric.get("logger") is None else instantiate(dict(cfg.metric.logger))
+    return JournalingLogger(inner, runtime)

@@ -31,7 +31,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_ORDER, make_optimizers, make_train_step
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer
 from sheeprl_tpu_torch.data.device_buffer import DeviceSequentialReplayBuffer
-from sheeprl_tpu_torch.interop.flax_params import to_flax
+from sheeprl_tpu_torch.interop.flax_params import optax_state, param_spec, to_flax
 from sheeprl_tpu_torch.resilience.manifest import (
     checkpoint_step,
     list_checkpoints,
@@ -40,7 +40,7 @@ from sheeprl_tpu_torch.resilience.manifest import (
     verify_checkpoint,
 )
 from sheeprl_tpu_torch.utils import checkpoint as ckpt_mod
-from sheeprl_tpu_torch.utils.checkpoint import CheckpointCallback, load_state, save_state
+from sheeprl_tpu_torch.utils.checkpoint import CheckpointCallback, OptaxState, load_state, save_state
 from sheeprl_tpu_torch.utils.utils import Ratio
 from test_torch_dv3_train import OBS_SPACE, RUN, _adam_moments, _batch, _jax_noise, _leaves, _record_margins, _Setup
 
@@ -129,8 +129,8 @@ def test_a_port_run_resumes_its_own_checkpoint_from_the_run_directory(tmp_path, 
 
     def spy_learner(state, agent, optimizers, device):
         moments = load_learner_state(state, agent, optimizers, device)
-        restored["adam"] = {n: {i: {k: v.clone() for k, v in s.items()} for i, s in o.state_dict()["state"].items()}
-                            for n, o in optimizers.items()}
+        spec = param_spec(*agent)
+        restored["adam"] = {n: optax_state(o, spec[n]) for n, o in optimizers.items()}
         restored["moments"] = {k: float(v) for k, v in moments.items()}
         return moments
 
@@ -156,10 +156,12 @@ def test_a_port_run_resumes_its_own_checkpoint_from_the_run_directory(tmp_path, 
     assert second["gradient_steps"] > 0 and np.isfinite(second["metric_rows"]).all()
     assert restored["ratio"] == saved["ratio"]
     assert restored["moments"] == {k: float(v) for k, v in saved["moments"].items()}
-    for name, entries in saved["opt_states"].items():
-        for i, entry in entries["state"].items():
-            for k, v in entry.items():
-                np.testing.assert_array_equal(restored["adam"][name][i][k].numpy(), np.asarray(v), err_msg=f"{name}{k}")
+    # the port writes optax's layout: count, mu and nu come back bit for bit
+    for name, entry in saved["opt_states"].items():
+        want, got = _optax_leaves(entry), _optax_leaves(restored["adam"][name])
+        assert list(got) == list(want) and len(want) > 3
+        for path, value in want.items():
+            np.testing.assert_array_equal(got[path], value, err_msg=f"{name}{path}")
     rb = restored["rb"]
     if device_ring:
         for k in ("pos", "filled"):
@@ -175,6 +177,18 @@ def test_a_port_run_resumes_its_own_checkpoint_from_the_run_directory(tmp_path, 
     final = load_state(second["checkpoints"][-1])
     assert any(not np.array_equal(a, b) for a, b in zip(_leaves(final["world_model"]).values(),
                                                         _leaves(saved["world_model"]).values()))
+
+
+def _optax_leaves(node, path=""):
+    """``{path: array}`` of an optax state as the port writes it
+    (``OptaxState``) or reads it back (``ForeignObject``)."""
+    if isinstance(node, OptaxState):
+        node = node.fields
+    if isinstance(node, dict):
+        return {p: v for k, sub in node.items() for p, v in _optax_leaves(sub, f"{path}/{k}").items()}
+    if isinstance(node, tuple):
+        return {p: v for i, sub in enumerate(node) for p, v in _optax_leaves(sub, f"{path}[{i}]").items()}
+    return {path: np.asarray(node)}
 
 
 def test_the_newest_verifiable_checkpoint_is_chosen_as_in_jax(tmp_path):

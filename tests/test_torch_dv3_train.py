@@ -618,8 +618,9 @@ def test_run_on_the_cpu_writes_a_checkpoint_the_jax_package_serves(tmp_path, mon
 
 def test_run_refuses_options_it_does_not_port(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="diagnostics"):
-        cli.run([o for o in RUN if o != "diagnostics=off"])
+    # diagnostics run (the default); the JAX compilation cache has no eager counterpart
+    with pytest.raises(NotImplementedError, match="diagnostics.compilation_cache_dir"):
+        cli.run(RUN + ["diagnostics.compilation_cache_dir=cache"])
     with pytest.raises(NotImplementedError, match="executor"):
         cli.run(RUN + ["env.sync_env=False"])
     with pytest.raises(NotImplementedError, match="offline"):
