@@ -36,7 +36,8 @@ Phases, in order; any failure raises and the script exits non-zero:
             recomputed through the plain path must agree;
 5. train  — ``run exp=dreamer_v3 env=dummy`` in-process at DreamerV3-S (batch
             16 x 64, horizon 15, fp32) under the default diagnostics with
-            ``diagnostics.transfers=log`` for at least 8 gradient steps: every
+            ``diagnostics.transfers=log``, through the async executor
+            (``env.sync_env=False``), for at least 8 gradient steps: every
             metric finite, the world model, actor and critic all changed, the
             kernel's launches equal to what the run's counters predict, the
             journal's FLOPs, MFU, health gauges and card memory, the
@@ -47,7 +48,8 @@ Phases, in order; any failure raises and the script exits non-zero:
             through the kernel);
 6. chunked — ``run`` at DreamerV3-S under ``fabric.precision=bf16-mixed
             algo.rssm_chunks=4 algo.rssm_chunk_burn_in=2 buffer.device=True
-            buffer.checkpoint=True`` and the default diagnostics for 16
+            buffer.checkpoint=True``, through ``env.executor=shared_memory``,
+            and the default diagnostics for 16
             gradient steps, an async checkpoint mid-run: launches = 33 a
             gradient step (16 chunked steps at 64 rows, 2 burn-in steps at 48,
             15 imagination steps at 1024) + player + test steps, every metric
@@ -64,14 +66,29 @@ Phases, in order; any failure raises and the script exits non-zero:
             checkpoint, journals ``preempted`` and exits 75 (held here as the
             expected end); ``/metrics`` and ``/healthz`` answer during the run;
             ``trace.json`` loads; a resume from the emergency checkpoint trains;
-10. timers — a gradient step's stream time, device-busy time, idle share
+10. ppo   — ``run exp=ppo_atari env=dummy`` at its widths (NatureCNN on
+            4x3x84x84, dense 512, 3 epochs of minibatches of 256), cut to 8
+            envs x 128 steps and two iterations, through
+            ``env.executor=shared_memory`` under the default diagnostics and
+            the default logger (TensorBoard, which must import): finite
+            losses and ``Time/sps_*``; a ``skip_update`` drill with every
+            episode truncated at 4 steps (a poisoned iteration leaves the
+            agent and Adam's state bit-identical; the truncations bootstrap);
+            then a resume from its first checkpoint, ``eval`` of its last,
+            ``serve`` of it to concurrent HTTP clients (requests/s, p50,
+            p99); the same two iterations through each of ``sync``,
+            ``async`` and ``shared_memory`` alike, the rollout's env steps/s
+            by executor read in the second; and one minibatch update's
+            stream time, device-busy time, launches, idle share and FLOPs
+            (diagnostics off and on).  PPO runs no hand-written kernel;
+11. timers — a gradient step's stream time, device-busy time, idle share
             and launches (``step_profile.time_gradient_steps``) for the fp32
             ``rssm_chunks=1`` step and the chunked bf16 one, each with the
             diagnostics off and on (health stats, instrumented: its FLOPs and
             MFU); the CPU's FLOP count of the fp32 step, equal to the card's;
             the journals' MFU, the syncs a step, ``ckpt_end``'s ``write_ms``
             (async and blocking) and every run's kernel launches;
-11. the ``kernels`` JSON line, then the result line.
+12. the ``kernels`` JSON line, then the result line.
 
 It needs no network, writes only under ``build/`` in the checkout, and stops
 every thread it starts.
@@ -121,7 +138,7 @@ GRAD_TOLERANCE = {"float32": 1e-5, "bfloat16": 1e-5}
 # It runs under the default diagnostics with the sync guard counting
 # (``diagnostics.transfers=log``), logging every iteration: the journal's
 # last interval is the steady state's MFU
-TRAIN_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "diagnostics.transfers=log", "metric.log_every=4",
+TRAIN_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.sync_env=False", "diagnostics.transfers=log", "metric.log_every=4",
                    "env.capture_video=False", "run_name=chip_smoke", "algo.learning_starts=256",
                    "algo.total_steps=268", "buffer.size=1024", "checkpoint.every=100000", "metric.logger=null",
                    "seed=5"]
@@ -147,7 +164,7 @@ TIMED_STEPS = 5
 # steps (4 before the checkpoint) and the resumed run about 4
 CHUNKED_STEP_OPTIONS = ["fabric.precision=bf16-mixed", "algo.rssm_chunks=4", "algo.rssm_chunk_burn_in=2"]
 CHUNKED_OPTIONS = CHUNKED_STEP_OPTIONS + ["buffer.device=True", "buffer.checkpoint=True"]
-CHUNKED_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.capture_video=False",
+CHUNKED_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.executor=shared_memory", "env.capture_video=False",
                      "run_name=chip_smoke_chunked", "algo.learning_starts=256", "algo.total_steps=876",
                      "algo.replay_ratio=0.026", "buffer.size=1024", "checkpoint.every=440",
                      "checkpoint.save_last=False", "metric.logger=null", "seed=5", *CHUNKED_OPTIONS]
@@ -184,6 +201,21 @@ SWEEP_CASES = [(200, 400, 5), (600, 400, 37), (1024, 640, 8), (2048, 768, 128), 
 COLD_BYTES = 100 * 2**20
 SESSIONS = 32
 REQUESTS_PER_SESSION = 10
+# the PPO phases: exp=ppo_atari's widths on the dummy env (the card has no
+# Atari): NatureCNN on rgb at 84x84 with 4 stacked frames (12 channels), a
+# 512-unit dense layer, 3 epochs of minibatches of 256, clipped value loss,
+# normalized advantages, annealed learning rate, max_grad_norm 0.5; cut only
+# in depth to 8 envs x 128 steps a rollout and two iterations, a checkpoint
+# and a log interval after each.  The discrete dummy's episodes end on their
+# own (terminated) at their 5th step.  The main run goes through the
+# shared-memory executor with the default logger (TensorBoard) and
+# diagnostics
+PPO_OVERRIDES = ["exp=ppo_atari", "env=dummy", "env.id=discrete_dummy", "env.num_envs=8", "algo.rollout_steps=128",
+                 "algo.per_rank_batch_size=256", "algo.total_steps=2048", "checkpoint.every=1024",
+                 "metric.log_every=1024", "run_name=chip_smoke_ppo", "seed=5"]
+PPO_EPISODE_STEPS = 5
+PPO_TIMED_UPDATES = 10
+PPO_SERVE_CLIENTS, PPO_SERVE_REQUESTS = 16, 16
 
 
 def _card_line() -> str:
@@ -501,6 +533,18 @@ def run_slice(build_dir: Path, device_name: str = "cuda") -> dict:
     }
 
 
+def _timer_metrics(logged: list, where: str) -> dict:
+    """The intervals' ``Time/sps_train`` and ``Time/sps_env_interaction``:
+    every interval that trained has both, finite and positive."""
+    import math
+
+    trained = [m for m in logged if "Time/sps_train" in m]
+    values = [m[k] for m in trained for k in ("Time/sps_train", "Time/sps_env_interaction")]
+    if not trained or not all(math.isfinite(v) and v > 0 for v in values):
+        raise AssertionError(f"{where}: the logged intervals lack finite Time/sps_* metrics: {logged}")
+    return {k: [m[k] for m in trained] for k in ("Time/sps_train", "Time/sps_env_interaction")}
+
+
 def _dv3_s_widths(cfg, precision: str = "32-true", sequence_length: int = 64) -> None:
     wm_cfg = cfg.algo.world_model
     widths = (wm_cfg.recurrent_model.recurrent_state_size, cfg.algo.dense_units, wm_cfg.representation_model.hidden_size,
@@ -677,6 +721,7 @@ def run_train(build_dir: Path, device_name: str = "cuda") -> dict:
     rows = out["metric_rows"]
     if out["gradient_steps"] < MIN_GRADIENT_STEPS or rows.shape != (out["gradient_steps"], len(METRIC_ORDER)):
         raise AssertionError(f"{out['gradient_steps']} gradient steps, metric rows {rows.shape}")
+    sps = _timer_metrics(out["logged"], "train")
     if not np.isfinite(rows).all():
         raise AssertionError(f"non-finite training metrics: {rows}")
     T, H = cfg.algo.per_rank_sequence_length, cfg.algo.horizon
@@ -757,6 +802,7 @@ def run_train(build_dir: Path, device_name: str = "cuda") -> dict:
         "step_param_outliers": outliers,
         "checkpoint": ckpt,
         "journal": journal,
+        "sps": sps,
     }
 
 
@@ -790,6 +836,7 @@ def run_chunked(build_dir: Path, device_name: str = "cuda") -> dict:
     launches = fused_layernorm_gru.launches  # the main path ends here
 
     rows = out["metric_rows"]
+    sps = _timer_metrics(out["logged"], "chunked")
     if out["gradient_steps"] != CHUNKED_GRADIENT_STEPS or not np.isfinite(rows).all():
         raise AssertionError(f"{out['gradient_steps']} gradient steps (expected {CHUNKED_GRADIENT_STEPS}), "
                              f"metrics {rows}")
@@ -842,6 +889,7 @@ def run_chunked(build_dir: Path, device_name: str = "cuda") -> dict:
         "run_dir": str(Path(ckpt).parent.parent),
         "overrides": overrides,
         "journal": journal,
+        "sps": sps,
     }
 
 
@@ -1100,6 +1148,248 @@ def run_eval(chunked: dict) -> dict:
     return {"test_reward": reward, "ln_gru_launches": launches}
 
 
+def _ppo_widths(cfg) -> None:
+    widths = (cfg.env.screen_size, cfg.env.frame_stack, cfg.algo.encoder.cnn_features_dim, cfg.algo.dense_units,
+              cfg.algo.mlp_layers, cfg.algo.update_epochs, cfg.algo.per_rank_batch_size, cfg.algo.clip_vloss,
+              cfg.algo.normalize_advantages, cfg.algo.anneal_lr, cfg.algo.max_grad_norm,
+              list(cfg.algo.cnn_keys.encoder), list(cfg.algo.mlp_keys.encoder), cfg.fabric.precision)
+    if widths != (84, 4, 512, 512, 1, 3, 256, True, True, True, 0.5, ["rgb"], [], "32-true"):
+        raise AssertionError(f"the PPO config is not exp=ppo_atari's widths: {widths}")
+
+
+def run_ppo(build_dir: Path, executor: str, compare: bool = False, tensorboard: bool = False,
+            device_name: str = "cuda") -> dict:
+    """``run exp=ppo_atari env=dummy`` on the card through one executor
+    (``PPO_OVERRIDES``), under the default diagnostics; with
+    ``tensorboard`` the default logger writes its event files, else
+    ``metric.logger=null``; with ``compare`` no checkpoint and no test
+    episode, so that each executor's runs differ in nothing else.  Every
+    iteration's losses and the timer's ``Time/sps_*`` must be finite, every
+    episode ``PPO_EPISODE_STEPS`` long."""
+    import math
+
+    import numpy as np
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.config import compose
+
+    root = (build_dir / (f"ppo_{executor}_compare" if compare else f"ppo_{executor}")).resolve()
+    overrides = PPO_OVERRIDES + [f"env.executor={executor}", f"root_dir={root}", f"fabric.accelerator={device_name}"]
+    if compare:
+        overrides += ["algo.run_test=False", "checkpoint.every=0"]
+    if tensorboard:
+        # the default logger; it fails loudly where the card cannot import it
+        import torch.utils.tensorboard  # noqa: F401
+
+        overrides += [f"metric.logger.root_dir={root / 'tensorboard'}"]
+    else:
+        overrides += ["metric.logger=null"]
+    cfg = compose(overrides)
+    _ppo_widths(cfg)
+    t0 = time.perf_counter()
+    out = cli.run(overrides)
+    wall_s = time.perf_counter() - t0
+    iterations = int(cfg.algo.total_steps) // int(cfg.env.num_envs * cfg.algo.rollout_steps)
+    rows = out["metric_rows"]
+    if out["iterations"] != iterations or rows.shape != (iterations, 4) or not np.isfinite(rows).all():
+        raise AssertionError(f"ppo {executor}: {out['iterations']} iterations, metric rows {rows}")
+    sps = _timer_metrics(out["logged"], f"ppo {executor}")
+    for m in out["logged"]:
+        losses = [m.get(k) for k in ("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss")]
+        if not all(v is not None and math.isfinite(v) for v in losses) or \
+                m.get("Game/ep_len_avg") != float(PPO_EPISODE_STEPS):
+            raise AssertionError(f"ppo {executor}: logged interval {m}")
+    report = {"iterations": out["iterations"], "policy_steps": out["policy_steps"], "sps": sps, "wall_s": wall_s,
+              "final_losses": dict(zip(("policy", "value", "entropy", "grad_norm"), rows[-1].tolist())),
+              "checkpoints": out["checkpoints"], "overrides": overrides, "test_reward": out["test_reward"],
+              "value_ev": out["health_rows"].get("value_ev", np.zeros(0)).tolist()}
+    if tensorboard:
+        events = sorted((root / "tensorboard").rglob("events.out.tfevents*"))
+        if not events or events[0].stat().st_size == 0:
+            raise AssertionError(f"ppo: the TensorBoard logger wrote no event file under {root / 'tensorboard'}")
+        report["tensorboard_events"] = str(events[0].relative_to(build_dir.resolve()))
+        journal = _journal_of(out["log_dir"])
+        _check_diagnostics_journal(journal, f"ppo {executor}")
+        report["journal"] = journal
+    return report
+
+
+def run_ppo_drill(build_dir: Path, device_name: str = "cuda") -> dict:
+    """PPO's sentinel drill on the card: ``skip_update`` (Adam
+    ``capturable``, its step and the annealed learning rate on the device)
+    with the second iteration's batch poisoned: every minibatch of it
+    counted non-finite and skipped, the agent and Adam's state ending
+    bit-identical to the first iteration's checkpoint.  Every episode is
+    truncated at its 4th step (``env.max_episode_steps=4``), before the
+    dummy ends it, so each rollout bootstraps truncations from
+    ``final_obs``."""
+    import numpy as np
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    overrides = PPO_OVERRIDES + ["env.executor=sync", f"root_dir={(build_dir / 'ppo_drill').resolve()}",
+                                 f"fabric.accelerator={device_name}", "metric.logger=null", "algo.run_test=False",
+                                 "diagnostics.sentinel.enabled=True", "diagnostics.sentinel.policy=skip_update",
+                                 "diagnostics.sentinel.inject_nan_iter=2", "env.max_episode_steps=4"]
+    out = cli.run(overrides)
+    if not out["logged"] or any(m.get("Game/ep_len_avg") != 4.0 for m in out["logged"]):
+        raise AssertionError(f"ppo drill: episodes not truncated at 4 steps: {out['logged']}")
+    updates = out["updates_per_iteration"]
+    first, last = (load_state(p) for p in out["checkpoints"])
+    # optax's (EmptyState, (ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count)))
+    trees = [(first["agent"], last["agent"])] + [(first["opt_state"][1][0][i], last["opt_state"][1][0][i])
+                                                 for i in (0, 1, 2)]
+    moved = [p for a, b in trees for (p, x), (_, y) in zip(_leaves_any(a), _leaves_any(b))
+             if not np.array_equal(x, y)]
+    if out["nonfinite_updates"].tolist() != [0.0, float(updates)] or moved:
+        raise AssertionError(f"ppo drill: non-finite updates {out['nonfinite_updates']} (expected [0, {updates}]), "
+                             f"changed by the skipped iteration: {moved[:5]}")
+    return {"skipped": updates, "tensors": sum(len(_leaves_any(a)) for a, _ in trees)}
+
+
+def _leaves_any(tree, prefix=""):
+    """``[(path, array)]`` of a dict or a scalar."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        return [leaf for k, v in tree.items() for leaf in _leaves_any(v, f"{prefix}/{k}")]
+    return [(prefix, np.asarray(tree))]
+
+
+def run_ppo_resume(ppo: dict) -> dict:
+    """``run checkpoint.resume_from=<the first iteration's checkpoint>``:
+    the counters and Adam's state restored, the second iteration trained."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    first = ppo["checkpoints"][0]
+    saved = load_state(first)
+    overrides = [o for o in ppo["overrides"] if not o.startswith("metric.logger")] + [
+        "metric.logger=null", f"checkpoint.resume_from={first}", "algo.run_test=False"]
+    restored = {}
+    adam_load = torch.optim.Adam.load_state_dict
+
+    def spy(self, state_dict):
+        restored["steps"] = sorted({float(v["step"]) for v in state_dict["state"].values()})
+        return adam_load(self, state_dict)
+
+    with mock.patch.object(torch.optim.Adam, "load_state_dict", spy):
+        out = cli.run(overrides)
+    count = int(np.asarray(saved["opt_state"][1][0][0]))
+    if (out["start_iter"] != saved["iter_num"] + 1 or out["iterations"] != 1 or restored.get("steps") != [count]
+            or count != out["updates_per_iteration"] or not np.isfinite(out["metric_rows"]).all()):
+        raise AssertionError(f"ppo resume from {first}: start_iter {out['start_iter']}, {out['iterations']} "
+                             f"iterations, Adam steps restored {restored.get('steps')} (saved count {count}), "
+                             f"metrics {out['metric_rows']}")
+    _timer_metrics(out["logged"], "ppo resume")
+    return {"resumed_from": first, "start_iter": out["start_iter"], "adam_count": count,
+            "final_losses": out["metric_rows"][-1].tolist()}
+
+
+def run_ppo_eval(ppo: dict) -> float:
+    import math
+
+    from sheeprl_tpu_torch import cli
+
+    reward = cli.evaluation([f"checkpoint_path={ppo['checkpoints'][-1]}", "metric.logger=null"])
+    if not math.isfinite(reward):
+        raise AssertionError(f"ppo eval: test reward {reward}")
+    return reward
+
+
+def run_ppo_serve(ppo: dict, device_name: str = "cuda") -> dict:
+    """``serve`` the PPO checkpoint over HTTP: concurrent clients, every
+    reply 200 with an action of the env's action space; one row's greedy
+    reply equal to the agent's greedy action computed directly."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.serving.server import ServeApp
+
+    cfg, ckpt_path, device = cli.serve_config(
+        [f"checkpoint_path={ppo['checkpoints'][-1]}", "serving.port=0", "serving.batch_buckets=[8,16,32,64]",
+         "serving.max_delay_ms=5.0", f"fabric.accelerator={device_name}"])
+    app = ServeApp(cfg, ckpt_path, device)
+    try:
+        host, port = app.start()
+        url = f"http://{host}:{port}"
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
+            health = json.loads(resp.read())
+        if health.get("algo") != "ppo" or health["models"]["default"]["stateful"] is not False:
+            raise AssertionError(f"ppo /healthz: {health}")
+        shape = app.handle.obs_spec["rgb"][0]
+        replies, latencies, lock = [], [], threading.Lock()
+        probe = np.random.default_rng(99).integers(0, 256, size=shape).astype(np.float32)
+
+        def client(i: int) -> None:
+            rng = np.random.default_rng(2000 + i)
+            payloads = [json.dumps({"obs": {"rgb": rng.integers(0, 256, size=shape).tolist()},
+                                    "greedy": (i + j) % 2 == 0}) for j in range(PPO_SERVE_REQUESTS)]
+            for body in payloads:
+                req = urllib.request.Request(url + "/act", data=body.encode(), headers={"Content-Type":
+                                                                                        "application/json"})
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    status, reply = resp.status, json.loads(resp.read())
+                with lock:
+                    latencies.append((time.perf_counter() - t0) * 1e3)
+                    replies.append((status, reply))
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(PPO_SERVE_CLIENTS)]
+        t_start = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        wall_s = time.perf_counter() - t_start
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a PPO serve client did not finish within 600 s")
+        bad = [r for r in replies if r[0] != 200]
+        actions = np.asarray([r[1]["action"] for r in replies], dtype=np.float64)
+        if bad or len(replies) != PPO_SERVE_CLIENTS * PPO_SERVE_REQUESTS or actions.shape[1:] != (1,) or \
+                not np.isin(actions, (0.0, 1.0)).all():
+            raise AssertionError(f"ppo serve: {len(bad)} bad replies of {len(replies)}, actions {actions[:4]}")
+        status, reply = _post(url, {"obs": {"rgb": probe.tolist()}, "greedy": True})
+        obs = {"rgb": torch.from_numpy(probe[None]).to(device)}
+        direct = app.handle.make_step(True)(app.handle.params, obs, None).cpu().numpy()[0]
+        if status != 200 or reply["action"] != direct.tolist():
+            raise AssertionError(f"ppo serve: greedy reply {status} {reply} != the agent's {direct}")
+        stats = app.service.batcher.stats()
+    finally:
+        app.close()
+    lat = sorted(latencies)
+    return {"requests": len(replies), "clients": PPO_SERVE_CLIENTS, "requests_per_s": len(replies) / wall_s,
+            "latency_p50_ms": lat[len(lat) // 2],
+            "latency_p99_ms": lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))],
+            "dispatches": stats["dispatches_total"], "width_hist": stats["width_hist"]}
+
+
+def run_ppo_timers(device_name: str = "cuda") -> dict:
+    """One PPO minibatch update at exp=ppo_atari's widths (batch 256): its
+    stream time, device-busy time, launches and idle share, with the
+    diagnostics off and on (the health stats), in turns off, on, on, off;
+    and its FLOPs."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import time_gradient_steps
+    from sheeprl_tpu_torch.algos.ppo.step_profile import profiled_update
+
+    out = {}
+    for turn, diagnostics in enumerate((False, True, True, False)):
+        step, batch, info = profiled_update([], device_name, diagnostics)
+        timing = time_gradient_steps(step, None, batch, None, PPO_TIMED_UPDATES, warmup=3, profile=True)
+        out[f"{'diagnostics' if diagnostics else 'off'}_{turn}"] = {
+            "step_ms": timing["step_ms"], "busy_ms": timing["busy_ms"], "idle_share": timing["idle_share"],
+            "launches": timing["launches"], "flops": info["flops"], "params": info["params"],
+            "top": sorted(((v[1] / PPO_TIMED_UPDATES / 1e3, k[:60]) for k, v in timing["kernels"].items()),
+                          reverse=True)[:3]}
+        del step, batch
+    return out
+
+
 def run_timers(device_name: str = "cuda") -> dict:
     """Phase 10: the one gradient-step timer, profiled, for the fp32
     ``rssm_chunks=1`` step and the chunked bf16 one, each built as
@@ -1237,7 +1527,9 @@ def main() -> int:
         f"policy steps; {train['ln_gru_launches']} ln_gru launches = predicted "
         f"({train['launches_per_gradient_step']} per gradient step); every metric finite, final "
         f"{json.dumps(train['final_metrics'])}; leaves changed {train['changed_leaves']}; checkpoint served greedy "
-        f"actions through serve's loader  [{card}]",
+        f"actions through serve's loader; through env.sync_env=False (the async executor): Time/sps_train "
+        f"{train['sps']['Time/sps_train']}, Time/sps_env_interaction {train['sps']['Time/sps_env_interaction']}  "
+        f"[{card}]",
         flush=True,
     )
     print(
@@ -1255,8 +1547,9 @@ def main() -> int:
         f"{chunked['player_steps']} player steps, {chunked['test_steps']} test-episode steps, "
         f"{chunked['policy_steps']} policy steps; {chunked['ln_gru_launches']} ln_gru launches = predicted "
         f"({chunked['launches_per_gradient_step']} per gradient step: 16 x 64 rows + 2 x 48 + 15 x 1024, bf16); "
-        f"every metric finite, final {json.dumps(chunked['final_metrics'])}; checkpoint {chunked['checkpoint']}  "
-        f"[{card}]", flush=True)
+        f"every metric finite, final {json.dumps(chunked['final_metrics'])}; checkpoint {chunked['checkpoint']}; "
+        f"through env.executor=shared_memory: Time/sps_train {chunked['sps']['Time/sps_train']}, "
+        f"Time/sps_env_interaction {chunked['sps']['Time/sps_env_interaction']}  [{card}]", flush=True)
     print(
         f"[chunked] bf16 kernel vs plain gradient step from one state, batch and noise: losses max relative error "
         f"{chunked['step_loss_rel_err']:.3g} (tol {BF16_LOSS_RTOL:g}), gradient norms {chunked['step_norm_rel_err']:.3g} "
@@ -1288,6 +1581,53 @@ def main() -> int:
         f"{drill['resume_gradient_steps']} gradient steps, {drill['resume_player_steps']} player steps, "
         f"{drill['resume_test_steps']} test steps, {drill['ln_gru_launches']} ln_gru launches = predicted "
         f"({drill['launches_per_gradient_step']} per gradient step)  [{card}]", flush=True)
+
+    ppo = run_ppo(build_dir, "shared_memory", tensorboard=True)
+    print(f"[ppo] run exp=ppo_atari env=dummy (NatureCNN on 4x3x84x84, dense 512, 3 epochs x 4 minibatches of 256, "
+          f"8 envs x 128 steps, 2 iterations) through env.executor=shared_memory under the default diagnostics and "
+          f"the default logger (TensorBoard events {ppo['tensorboard_events']}): final losses "
+          f"{json.dumps(ppo['final_losses'])}, value_ev {ppo['value_ev']}, Time/sps_env_interaction "
+          f"{ppo['sps']['Time/sps_env_interaction']}, Time/sps_train {ppo['sps']['Time/sps_train']}, test reward "
+          f"{ppo['test_reward']}, FLOPs counted {ppo['journal']['flops_per_step']}, MFU "
+          f"{ppo['journal']['mfu']}  [{card}]", flush=True)
+    ppo_drill = run_ppo_drill(build_dir)
+    print(f"[ppo] drill (sync executor, diagnostics.sentinel.policy=skip_update, Adam capturable on the card): the "
+          f"poisoned second iteration's {ppo_drill['skipped']} minibatch updates were all counted non-finite and "
+          f"skipped; the agent and Adam's count, mu and nu ({ppo_drill['tensors']} tensors) ended bit-identical to "
+          f"the first iteration's checkpoint  [{card}]", flush=True)
+    ppo_resumed = run_ppo_resume(ppo)
+    print(f"[ppo] resume from {ppo_resumed['resumed_from']}: started at iteration {ppo_resumed['start_iter']}, Adam "
+          f"restored at count {ppo_resumed['adam_count']}, trained on: losses {ppo_resumed['final_losses']}  "
+          f"[{card}]", flush=True)
+    ppo_reward = run_ppo_eval(ppo)
+    print(f"[ppo] eval checkpoint_path={ppo['checkpoints'][-1]}: Test/cumulative_reward {ppo_reward}  [{card}]",
+          flush=True)
+    ppo_serve = run_ppo_serve(ppo)
+    print(f"[ppo] serve: {ppo_serve['requests']} /act from {ppo_serve['clients']} concurrent clients (4x3x84x84 "
+          f"observations), all 200 with a valid action, the greedy probe equal to the agent's; "
+          f"{ppo_serve['dispatches']} dispatches, widths {ppo_serve['width_hist']}; "
+          f"{ppo_serve['requests_per_s']:.2f} requests/s, p50 {ppo_serve['latency_p50_ms']:.2f} ms, p99 "
+          f"{ppo_serve['latency_p99_ms']:.2f} ms  [{card}]", flush=True)
+    # the executors compared: the same two iterations each, no checkpoint,
+    # no test episode; the first interval holds the warm-up, so the second
+    # is the reading
+    ppo_rollout = {}
+    for executor in ("sync", "async", "shared_memory"):
+        run = run_ppo(build_dir, executor, compare=True)
+        ppo_rollout[executor] = run["sps"]["Time/sps_env_interaction"][-1]
+        print(f"[ppo] run through env.executor={executor} (two iterations, no checkpoint, no test): final losses "
+              f"{json.dumps(run['final_losses'])}, Time/sps_env_interaction by interval "
+              f"{run['sps']['Time/sps_env_interaction']}, Time/sps_train {run['sps']['Time/sps_train']}  [{card}]",
+              flush=True)
+    print(f"[ppo] rollout env steps/s (the second interval's Time/sps_env_interaction, 8 envs x 128 steps, episodes "
+          f"of {PPO_EPISODE_STEPS} steps, policy on the card) by executor: {json.dumps(ppo_rollout)}  [{card}]",
+          flush=True)
+    ppo_timers = run_ppo_timers()
+    for name, t in ppo_timers.items():
+        print(f"[ppo-timer] minibatch update (batch 256, {t['params']} params, {t['flops']:.6g} FLOPs counted), "
+              f"{name}: median stream time {t['step_ms']:.3f} ms (CUDA events) over {PPO_TIMED_UPDATES} updates; "
+              f"device busy {t['busy_ms']:.3f} ms (torch.profiler), {t['launches']} launches, idle share "
+              f"{t['idle_share']:.4f}; top kernels (ms, name) {t['top']}  [{card}]", flush=True)
 
     timers = run_timers()
     for name, t in timers.items():

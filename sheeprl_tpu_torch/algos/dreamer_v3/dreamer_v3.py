@@ -43,7 +43,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
     update_moments,
 )
 from sheeprl_tpu_torch.diagnostics.health import health_names, health_spec, health_stats
-from sheeprl_tpu_torch.diagnostics.sentinel import select_finite, sentinel_spec
+from sheeprl_tpu_torch.diagnostics.sentinel import select_finite, sentinel_spec, skip_update_guard
 from sheeprl_tpu_torch.ops.distributions import Bernoulli, MSEDistribution, SymlogDistribution, TwoHotEncodingDistribution
 from sheeprl_tpu_torch.ops.numerics import compute_lambda_values
 from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
@@ -138,7 +138,7 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
         before = {name: [torch.empty_like(p) for p in params[name]] for name in TRAINED}
         unit_dims = health_unit_dims(agent, params)
     if sentinel.skip_update:
-        guarded, snapshot = skip_update_guard(agent, optimizers)
+        guarded, snapshot = skip_update_guard(agent, optimizers.values())
     step_grads: Dict[str, List[torch.Tensor]] = {}
 
     def update(name: str, loss: torch.Tensor) -> torch.Tensor:
@@ -316,30 +316,6 @@ def health_unit_dims(agent: Agent, params: Dict[str, List[torch.Tensor]]) -> Dic
     return {name: [unit_dim(kinds.get(id(p), "same"), p.dim()) for p in ps] for name, ps in params.items()}
 
 
-def skip_update_guard(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer]):
-    """What ``policy=skip_update`` reverts, and a buffer for each: the
-    parameters of all four modules and every Adam state tensor, ``step``
-    included.  Adam's state is created here (zeros, step 0, as its first
-    step would create it) so that a skipped first step has something to
-    revert to.  On the card Adam runs ``capturable``, which keeps ``step`` on
-    the device: the selection then never waits for the host."""
-    guarded = [p for module in agent for p in module.parameters()]
-    for opt in optimizers.values():
-        for group in opt.param_groups:
-            on_card = any(p.device.type == "cuda" for p in group["params"])
-            group["capturable"] = group["capturable"] or on_card
-            for p in group["params"]:
-                state = opt.state[p]
-                if not state:
-                    state["step"] = torch.zeros((), dtype=torch.float32)
-                    state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-                    state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
-                if group["capturable"]:
-                    state["step"] = state["step"].to(p.device)
-                guarded += [state["step"], state["exp_avg"], state["exp_avg_sq"]]
-    return guarded, [torch.empty_like(t) for t in guarded]
-
-
 def stage_batch(sample: Dict[str, Any], cnn_keys: Sequence[str], device: torch.device) -> Dict[str, torch.Tensor]:
     """One gradient step's sample (host arrays, or the device ring's
     tensors) -> float32 device tensors, pixels (raw uint8) scaled to
@@ -372,8 +348,6 @@ def _unported_options(cfg) -> List[str]:
     out = []
     if (cfg.algo.get("offline") or {}).get("enabled", False):
         out.append("algo.offline.enabled=True (offline training)")
-    if cfg.env.get("executor") not in (None, "", "auto", "sync") or not cfg.env.get("sync_env", True):
-        out.append("env.executor/sync_env other than the synchronous vector env")
     if not cfg.model_manager.get("disabled", True):
         out.append("model_manager.disabled=False (model registry)")
     if cfg.metric.get("profiler", {}).get("enabled", False):
@@ -397,9 +371,11 @@ def main(runtime, cfg) -> Dict[str, Any]:
     from sheeprl_tpu_torch.data.slab import rssm_state_slab, step_slab
     from sheeprl_tpu_torch.diagnostics.health import mean_stats
     from sheeprl_tpu_torch.envs import spaces
-    from sheeprl_tpu_torch.envs.env import make_env_fns, vectorized_env
+    from sheeprl_tpu_torch.envs.env import make_env_fns, pipelined_vector_env
+    from sheeprl_tpu_torch.envs.player import ObsStager
     from sheeprl_tpu_torch.interop.flax_params import optax_state, param_spec, to_flax
     from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
+    from sheeprl_tpu_torch.utils.timer import timer
     from sheeprl_tpu_torch.utils.utils import Ratio, get_diagnostics, save_configs
 
     unported = _unported_options(cfg)
@@ -424,11 +400,13 @@ def main(runtime, cfg) -> Dict[str, Any]:
     aggregator = instantiate(cfg.metric.aggregator)
     if cfg.metric.log_level == 0:
         aggregator.disabled = True
+    timer.disabled = cfg.metric.log_level == 0 or bool(cfg.metric.get("disable_timer", False))
+    timer.reset()  # the registry is the class's: drop what an earlier run in this process left
 
     # reseeded from cfg.seed on resume too, as the JAX package does: a
     # resumed run's random stream is not the uninterrupted run's
     generator = runtime.seed_everything(cfg.seed)
-    envs = vectorized_env(make_env_fns(cfg, log_dir, "train"))
+    envs = pipelined_vector_env(cfg, make_env_fns(cfg, log_dir, "train"))
     action_space = envs.single_action_space
     observation_space = envs.single_observation_space
     is_continuous = isinstance(action_space, spaces.Box)
@@ -484,7 +462,7 @@ def main(runtime, cfg) -> Dict[str, Any]:
     policy_step_count = state["iter_num"] * num_envs if state else 0
     last_log = state["last_log"] if state else 0
     last_checkpoint = state["last_checkpoint"] if state else 0
-    gradient_steps = player_steps = 0
+    gradient_steps = player_steps = train_step_count = last_train = 0
     policy_steps_per_iter = num_envs
     total_iters = int(cfg.algo.total_steps // policy_steps_per_iter) if not cfg.dry_run else 1
     learning_starts = cfg.algo.learning_starts // policy_steps_per_iter if not cfg.dry_run else 0
@@ -512,16 +490,20 @@ def main(runtime, cfg) -> Dict[str, Any]:
     wm_cfg = cfg.algo.world_model
     zero_recurrent = np.zeros((num_envs, int(wm_cfg.recurrent_model.recurrent_state_size)), np.float32)
     zero_stochastic = np.zeros((num_envs, int(wm_cfg.stochastic_size * wm_cfg.discrete_size)), np.float32)
+    stager = ObsStager(device)
 
     pending: List[torch.Tensor] = []
     metric_rows: List[np.ndarray] = []
+    logged: List[Dict[str, float]] = []
     checkpoints: List[str] = []
     for iter_num in range(start_iter, total_iters + 1):
         policy_step_count += policy_steps_per_iter
         diag.note_env_steps(num_envs)
 
-        # ---- policy step + replay write ---------------------------------
-        with diag.span("rollout"):
+        # ---- policy step, env step started, replay write ----------------
+        # the envs step from here to step_wait, while this process writes the
+        # replay row and runs the gradient steps the replay ratio owes
+        with timer("Time/env_interaction_time"), diag.span("rollout"):
             if iter_num <= learning_starts and state is None:
                 real_actions = envs.sample_actions(action_rng)
                 if is_continuous:
@@ -536,8 +518,7 @@ def main(runtime, cfg) -> Dict[str, Any]:
                 if store_rssm_state:
                     step_data.update(rssm_state_slab(num_envs, zero_recurrent, zero_stochastic, valid=False))
             else:
-                torch_obs = prepare_obs(obs, cnn_keys=cnn_keys, mlp_keys=mlp_keys, num_envs=num_envs,
-                                        device=device)
+                torch_obs = prepare_obs(stager, obs, cnn_keys, mlp_keys, num_envs)
                 actions_t = player.get_actions(torch_obs, generator)
                 player_steps += 1
                 diag.note_fetch()  # the iteration's one blocking copy below
@@ -561,6 +542,8 @@ def main(runtime, cfg) -> Dict[str, Any]:
                     actions = actions_t.cpu().numpy()  # the iteration's one fetch
                     step_data["actions"] = actions.reshape(1, num_envs, -1)
                 real_actions = real_actions_of(actions, actions_dim, is_continuous)
+            with diag.span("env_step_async"):
+                envs.step_async(real_actions.reshape(envs.batched_action_shape))
             rb.add(step_data, validate_args=cfg.buffer.validate_args)
 
         # ---- the gradient steps the replay ratio owes -------------------
@@ -575,7 +558,10 @@ def main(runtime, cfg) -> Dict[str, Any]:
                     )
                     if not use_device_buffer:
                         local_data = [{k: v[i] for k, v in local_data.items()} for i in range(n)]
-                with diag.span("train"):
+                # on the card the timer records a CUDA event at each end of
+                # the block, so the train time holds the device work of these
+                # steps without waiting on it here (read at log time)
+                with timer("Time/train_time", device), diag.span("train"):
                     for sample in local_data:
                         batch = diag.maybe_inject_nan(iter_num, stage_batch(sample, cnn_keys, device))
                         if target_freq and gradient_steps % target_freq == 0:
@@ -585,21 +571,41 @@ def main(runtime, cfg) -> Dict[str, Any]:
                         moments_state, metrics = train_step(moments_state, batch, tau, generator)
                         pending.append(metrics)
                         gradient_steps += 1
+                    train_step_count += 1
 
-        # ---- env step results (the synchronous vector env blocks here) ----
-        with diag.span("env_wait"):
-            next_obs, rewards, terminated, truncated, infos = envs.step(
-                real_actions.reshape(envs.batched_action_shape))
+        # ---- the env step's results --------------------------------------
+        with timer("Time/env_interaction_time"), diag.span("env_wait"):
+            next_obs, rewards, terminated, truncated, infos = envs.step_wait()
         dones = np.logical_or(terminated, truncated).astype(np.uint8)
         step_data["is_first"] = np.zeros_like(step_data["terminated"])
-        for r, length in infos.get("episodes", ()):
-            aggregator.update("Rewards/rew_avg", float(r))
-            aggregator.update("Game/ep_len_avg", float(length))
+        if "restart_on_exception" in infos:
+            # a restarted env's last stored step becomes a truncation and its
+            # next one a first step (the restart landed after this
+            # iteration's gradient steps sampled, as in the JAX loop)
+            for i, restarted in enumerate(infos["restart_on_exception"]):
+                if restarted and not dones[i]:
+                    if use_device_buffer:
+                        rb.mark_last_truncated(i)
+                    else:
+                        sub = rb.buffer[i]
+                        last_idx = (sub._pos - 1) % sub.buffer_size
+                        sub.buffer["terminated"][last_idx] = 0
+                        sub.buffer["truncated"][last_idx] = 1
+                        sub.buffer["is_first"][last_idx] = 0
+                    step_data["is_first"][0, i] = 1
+        if "final_info" in infos and "episode" in infos["final_info"]:
+            ep = infos["final_info"]["episode"]
+            mask = ep.get("_r", infos["final_info"].get("_episode"))
+            if mask is not None and np.any(mask):
+                for r, length in zip(ep["r"][mask], ep["l"][mask]):
+                    aggregator.update("Rewards/rew_avg", float(r))
+                    aggregator.update("Game/ep_len_avg", float(length))
         real_next_obs = {k: np.asarray(next_obs[k]).copy() for k in obs_keys}
-        for idx, final_obs in enumerate(infos["final_obs"]):
-            if final_obs is not None:
-                for k in obs_keys:
-                    real_next_obs[k][idx] = np.asarray(final_obs[k])
+        if "final_obs" in infos:
+            for idx, final_obs in enumerate(infos["final_obs"]):
+                if final_obs is not None:
+                    for k in obs_keys:
+                        real_next_obs[k][idx] = np.asarray(final_obs[k])
         step_data.update(
             step_slab(
                 num_envs,
@@ -649,11 +655,20 @@ def main(runtime, cfg) -> Dict[str, Any]:
                     for name, value in zip(METRIC_ORDER, row):
                         aggregator.update(name, float(value))
             metrics_dict = aggregator.compute()
+            timers = timer.compute()
+            if timers.get("Time/train_time", 0) > 0:
+                metrics_dict["Time/sps_train"] = (train_step_count - last_train) / timers["Time/train_time"]
+            if timers.get("Time/env_interaction_time", 0) > 0:
+                metrics_dict["Time/sps_env_interaction"] = (
+                    (policy_step_count - last_log) * cfg.env.action_repeat) / timers["Time/env_interaction_time"]
             if policy_step_count > 0:
                 metrics_dict["Params/replay_ratio"] = gradient_steps / policy_step_count
             logger.log_metrics(metrics_dict, policy_step_count)
+            logged.append(dict(metrics_dict))
             aggregator.reset()
+            timer.reset()
             last_log = policy_step_count
+            last_train = train_step_count
 
         # ---- checkpoint --------------------------------------------------
         # a pending preemption (a signal, or the drill) forces the branch:
@@ -706,6 +721,7 @@ def main(runtime, cfg) -> Dict[str, Any]:
         "test_reward": test_reward,
         "metric_rows": rows[:, :len(METRIC_ORDER)],
         "health_rows": {name: rows[:, len(METRIC_ORDER) + i] for i, name in enumerate(health_out)},
+        "logged": logged,
         "checkpoints": checkpoints,
         "log_dir": log_dir,
     }

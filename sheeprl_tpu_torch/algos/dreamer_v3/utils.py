@@ -194,24 +194,15 @@ def update_moments(
     return new_low, invscale, {"low": new_low, "high": new_high}
 
 
-def prepare_obs(
-    obs: Dict[str, np.ndarray],
-    *,
-    cnn_keys: Sequence[str] = (),
-    mlp_keys: Sequence[str] = (),
-    num_envs: int = 1,
-    device: torch.device | str = "cpu",
-) -> Dict[str, torch.Tensor]:
-    """Host observations -> device tensors ``[num_envs, ...]``: pixels cross
-    as uint8 and are scaled to [-0.5, 0.5] on the device."""
-    out: Dict[str, torch.Tensor] = {}
-    for k in cnn_keys:
-        v = np.asarray(obs[k])
-        v = torch.from_numpy(np.ascontiguousarray(v.reshape(num_envs, -1, *v.shape[-2:]))).to(device)
-        out[k] = v.float() / 255.0 - 0.5
-    for k in mlp_keys:
-        out[k] = torch.from_numpy(np.asarray(obs[k], np.float32).reshape(num_envs, -1)).to(device)
-    return out
+def prepare_obs(stager, obs: Dict[str, np.ndarray], cnn_keys: Sequence[str], mlp_keys: Sequence[str],
+                num_envs: int = 1) -> Dict[str, torch.Tensor]:
+    """Host observations -> device tensors ``[num_envs, ...]`` in the one
+    copy of ``stager`` (``envs/player.py::ObsStager``): pixels cross as
+    uint8 and are scaled to [-0.5, 0.5] on the device."""
+    from sheeprl_tpu_torch.envs.player import host_obs_slab
+
+    staged = stager(host_obs_slab(obs, cnn_keys, mlp_keys, num_envs))
+    return {k: v.float() / 255.0 - 0.5 if k in cnn_keys else v for k, v in staged.items()}
 
 
 def real_actions_of(actions: np.ndarray, actions_dim: Sequence[int], is_continuous: bool) -> np.ndarray:
@@ -230,6 +221,7 @@ def test(player, cfg, log_dir: Optional[str], generator: torch.Generator, greedy
     """One test episode with a one-env player; returns the cumulative reward
     and the number of policy steps it took."""
     from sheeprl_tpu_torch.envs.env import make_env
+    from sheeprl_tpu_torch.envs.player import ObsStager
 
     env = make_env(cfg, cfg.seed, 0, log_dir, "test")()
     done = False
@@ -239,11 +231,10 @@ def test(player, cfg, log_dir: Optional[str], generator: torch.Generator, greedy
     player.num_envs = 1
     player.state = None
     player.init_states()
-    device = player.world_model.rssm.initial_recurrent_state.device
+    stager = ObsStager(player.world_model.rssm.initial_recurrent_state.device)
     try:
         while not done:
-            torch_obs = prepare_obs(obs, cnn_keys=cfg.algo.cnn_keys.encoder, mlp_keys=cfg.algo.mlp_keys.encoder,
-                                    device=device)
+            torch_obs = prepare_obs(stager, obs, cfg.algo.cnn_keys.encoder, cfg.algo.mlp_keys.encoder)
             actions = player.get_actions(torch_obs, generator, greedy=greedy).cpu().numpy()
             real_actions = real_actions_of(actions, player.actions_dim, player.actor.is_continuous)
             obs, reward, terminated, truncated, _ = env.step(real_actions.reshape(env.action_space.shape))

@@ -1,0 +1,429 @@
+"""PPO training (counterpart of ``sheeprl_tpu/algos/ppo/ppo.py``): the
+update phase and the loop of rollouts, GAE, logging and checkpoints.
+
+The update follows the JAX package's ``make_train_step``: for each of
+``algo.update_epochs`` epochs a permutation of the rollout's rows, cut into
+minibatches of ``algo.per_rank_batch_size``; per minibatch the clipped
+policy loss, the value loss (clipped with ``algo.clip_vloss``) and the
+entropy bonus, the gradient, clipping by global norm
+(``algo.max_grad_norm > 0``) and one Adam step, whose learning rate with
+``algo.anneal_lr`` is optax's ``linear_schedule`` at the update count
+before the step.  The metric vector ``[policy, value, entropy, grad norm]``
+is the mean over the minibatches, and a fifth entry counts the non-finite
+ones.  Under ``diagnostics`` (the default) the update also computes the
+train-health stats, the value function's explained variance over the
+rollout, and with ``sentinel.policy=skip_update`` discards a non-finite
+minibatch step on the device.  Everything stays on the device until the
+loop fetches it once per iteration.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Any, Dict, List, Sequence
+
+import numpy as np
+import torch
+
+from sheeprl_tpu_torch.algos.ppo.agent import PPOAgent, actions_dim_of, build_agent
+from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_loss
+from sheeprl_tpu_torch.algos.ppo.utils import env_actions_of, test
+from sheeprl_tpu_torch.diagnostics.health import health_names, health_spec, health_stats, unit_dim
+from sheeprl_tpu_torch.diagnostics.sentinel import finite_flag, select_finite, sentinel_spec, skip_update_guard
+from sheeprl_tpu_torch.utils.optim import clip_by_global_norm, global_norm
+from sheeprl_tpu_torch.utils.registry import register_algorithm
+
+METRIC_ORDER = ["Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss", "Grads/global_norm"]
+
+
+def linear_schedule(init_value: float, end_value: float, transition_steps: int):
+    """optax's ``linear_schedule``, in float32 as optax evaluates it."""
+    init, end, steps = np.float32(init_value), np.float32(end_value), int(transition_steps)
+
+    def schedule(count):
+        if isinstance(count, torch.Tensor):
+            frac = 1.0 - count.float().clamp(0, steps) / steps
+            return float(init - end) * frac + float(end)
+        frac = np.float32(1.0) - np.float32(min(max(int(count), 0), steps)) / np.float32(steps)
+        return float((init - end) * frac + end)
+
+    return schedule
+
+
+def _module_groups(agent: PPOAgent):
+    """The agent's parameters by the top-level module of the flax tree (the
+    health stats' modules), each with its unit axes."""
+    from sheeprl_tpu_torch.interop.flax_params import ppo_spec
+
+    groups: Dict[str, List[torch.Tensor]] = {}
+    dims: Dict[str, List[int]] = {}
+
+    def walk(name: str, node: Any) -> None:
+        if isinstance(node, dict):
+            for sub in node.values():
+                walk(name, sub)
+        else:
+            groups.setdefault(name, []).append(node[0])
+            dims.setdefault(name, []).append(unit_dim(node[1], node[0].dim()))
+
+    for name, node in ppo_spec(agent)["params"].items():
+        walk(name, node)
+    return groups, dims
+
+
+def make_train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, num_minibatches: int, batch_size: int,
+                    schedule=None):
+    """Build the update phase: ``update(data, perms, coefs) -> metrics``.
+
+    ``data`` holds ``obs`` (a dict), ``actions``, ``logprobs``, ``values``,
+    ``returns`` and ``advantages``, ``[N, ...]`` tensors on the device,
+    ``N = num_minibatches * batch_size``; ``perms`` the ``update_epochs``
+    permutations of ``range(N)`` (drawn by the loop, injected by tests);
+    ``coefs`` the ``(clip, entropy, value)`` coefficients.  The agent and
+    the optimizer update in place.  ``metrics`` is one float32 vector:
+    the four ``METRIC_ORDER`` means, the non-finite minibatch count, then
+    the health stats (``update.health_names``) averaged over the minibatches
+    and ``value_ev`` (the rollout's values against its returns)."""
+    sentinel, health = sentinel_spec(cfg), health_spec(cfg)
+    epochs = int(cfg.algo.update_epochs)
+    max_grad_norm = float(cfg.algo.max_grad_norm or 0.0)
+    reduction = cfg.algo.loss_reduction
+    params = [p for group in optimizer.param_groups for p in group["params"]]
+    if health.enabled:
+        groups, unit_dims = _module_groups(agent)
+        names = list(groups)
+        health_out = health_names(names, health.per_module) + ["value_ev"]
+        before = {n: [torch.empty_like(p) for p in groups[n]] for n in names}
+        index = {id(p): i for i, p in enumerate(params)}
+    else:
+        health_out = []
+    if sentinel.skip_update:
+        guarded, snapshot = skip_update_guard([agent], [optimizer])
+    group0, first = optimizer.param_groups[0], params[0]
+
+    def set_lr() -> None:
+        # optax evaluates the schedule at the count before the update: the
+        # first update runs at the initial rate.  Adam's step is that count;
+        # a capturable Adam keeps it on the device, and the rate follows it
+        # there (a skipped update does not advance it)
+        step = optimizer.state[first].get("step") if optimizer.state.get(first) else None
+        if step is not None and step.device.type != "cpu":
+            rate = schedule(step)
+            if isinstance(group0["lr"], torch.Tensor):
+                group0["lr"].copy_(rate)
+            else:
+                group0["lr"] = rate.clone()
+        else:
+            group0["lr"] = schedule(0 if step is None else int(step))
+
+    def loss_fn(mb: Dict[str, Any], clip_coef: float, ent_coef: float, vf_coef: float):
+        _, new_logprobs, entropy, new_values = agent(mb["obs"], actions=mb["actions"])
+        advantages = mb["advantages"]
+        if cfg.algo.normalize_advantages:
+            advantages = (advantages - advantages.mean()) / (advantages.std(unbiased=False) + 1e-8)
+        pg = policy_loss(new_logprobs, mb["logprobs"], advantages, clip_coef, reduction)
+        v = value_loss(new_values.float(), mb["values"], mb["returns"], clip_coef, cfg.algo.clip_vloss, reduction)
+        e = entropy_loss(entropy, reduction)
+        return pg + vf_coef * v + ent_coef * e, (pg, v, e)
+
+    def update(data: Dict[str, Any], perms: Sequence[torch.Tensor], coefs: Sequence[float]) -> torch.Tensor:
+        clip_coef, ent_coef, vf_coef = (float(c) for c in coefs)
+        rows, hrows = [], []
+        for epoch in range(epochs):
+            idxs = perms[epoch].to(first.device).reshape(num_minibatches, batch_size)
+            for mb_idx in idxs:
+                mb = {k: ({kk: vv[mb_idx] for kk, vv in v.items()} if isinstance(v, dict) else v[mb_idx])
+                      for k, v in data.items()}
+                if sentinel.skip_update:
+                    with torch.no_grad():
+                        torch._foreach_copy_(snapshot, guarded)
+                total, aux = loss_fn(mb, clip_coef, ent_coef, vf_coef)
+                grads = list(torch.autograd.grad(total, params))
+                gnorm = global_norm(grads)
+                clipped = clip_by_global_norm(grads, max_grad_norm) if max_grad_norm > 0 else grads
+                for p, g in zip(params, clipped):
+                    p.grad = g
+                if health.enabled:
+                    with torch.no_grad():
+                        for n in names:
+                            torch._foreach_copy_(before[n], groups[n])
+                if schedule is not None:
+                    set_lr()
+                optimizer.step()
+                optimizer.zero_grad(set_to_none=True)
+                finite = finite_flag(gnorm, *aux)
+                if health.enabled:
+                    with torch.no_grad():
+                        by_name = {n: [grads[index[id(p)]] for p in groups[n]] for n in names}
+                        updates = {n: torch._foreach_sub(groups[n], before[n]) for n in names}
+                        # the parameters before the update, as the JAX step's
+                        stats = health_stats(by_name, updates, before, unit_dims=unit_dims,
+                                             per_module=health.per_module, dead_eps=health.dead_eps)
+                    hrows.append(torch.stack([stats[k] for k in health_out[:-1]]).float())
+                if sentinel.skip_update:
+                    select_finite(finite, guarded, snapshot)
+                rows.append(torch.stack([*aux, gnorm, 1.0 - finite.float()]).float().detach())
+        flat = torch.stack(rows)
+        metrics = [flat[:, :4].mean(dim=0), flat[:, 4:].sum(dim=0)]
+        if health.enabled:
+            from sheeprl_tpu_torch.diagnostics.health import explained_variance
+
+            metrics += [torch.stack(hrows).mean(dim=0), explained_variance(data["values"], data["returns"])[None]]
+        return torch.cat(metrics)
+
+    update.health_names = health_out
+    return update
+
+
+def _unported_options(cfg) -> List[str]:
+    out = []
+    if (cfg.algo.get("offline") or {}).get("enabled", False):
+        out.append("algo.offline.enabled=True (offline training)")
+    if not cfg.model_manager.get("disabled", True):
+        out.append("model_manager.disabled=False (model registry)")
+    if cfg.metric.get("profiler", {}).get("enabled", False):
+        out.append("metric.profiler.enabled=True")
+    if str(cfg.fabric.get("precision", "32-true")).startswith("bf16"):
+        out.append(f"fabric.precision={cfg.fabric.precision} for PPO")
+    return out
+
+
+@register_algorithm()
+def main(runtime, cfg) -> Dict[str, Any]:
+    """The PPO loop: per iteration ``algo.rollout_steps`` steps of every env
+    (the envs step while the loop records the step), GAE over the rollout,
+    the update phase, logging and checkpoints; one greedy test episode at the
+    end with ``algo.run_test``.  ``checkpoint.resume_from`` (a file, resolved
+    by ``cli.run``) restores the agent, Adam's state (either package's) and
+    the counters.  Returns what the run did: its counters, the metric rows of
+    every iteration, the logged metrics, the checkpoints and the log dir."""
+    from sheeprl_tpu_torch.config import instantiate
+    from sheeprl_tpu_torch.data.buffers import ReplayBuffer
+    from sheeprl_tpu_torch.data.slab import step_slab
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.envs.env import make_env, make_env_fns, pipelined_vector_env
+    from sheeprl_tpu_torch.envs.player import ObsStager, fetch_values, host_obs_slab
+    from sheeprl_tpu_torch.interop.flax_params import optax_state, optimizer_state_dict, ppo_spec, ppo_to_flax
+    from sheeprl_tpu_torch.ops.numerics import gae
+    from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
+    from sheeprl_tpu_torch.utils.timer import timer
+    from sheeprl_tpu_torch.utils.utils import get_diagnostics, polynomial_decay, save_configs
+
+    unported = _unported_options(cfg)
+    if unported:
+        raise NotImplementedError(f"not ported yet (see ROADMAP.md Queue 1): {'; '.join(unported)}")
+    device = runtime.device
+    num_envs = int(cfg.env.num_envs)
+    rollout_steps = int(cfg.algo.rollout_steps)
+    batch_size = cfg.algo.per_rank_batch_size
+    total_local = rollout_steps * num_envs
+    if batch_size is None or batch_size <= 0:
+        raise ValueError(f"per_rank_batch_size must be a positive integer, got {batch_size}")
+    if total_local % batch_size != 0:
+        raise ValueError(f"The rollout ({total_local}) must be divisible by per_rank_batch_size ({batch_size})")
+    num_minibatches = total_local // batch_size
+
+    generator = runtime.seed_everything(cfg.seed)
+    logger = get_logger(runtime, cfg)
+    log_dir = get_log_dir(runtime, cfg.root_dir, cfg.run_name)
+    save_configs(cfg, log_dir)
+    logger.log_hyperparams(cfg.as_dict())
+    diag = get_diagnostics(runtime, cfg, log_dir)
+    aggregator = instantiate(cfg.metric.aggregator)
+    if cfg.metric.log_level == 0:
+        aggregator.disabled = True
+    timer.disabled = cfg.metric.log_level == 0 or bool(cfg.metric.get("disable_timer", False))
+    timer.reset()  # the registry is the class's: drop what an earlier run in this process left
+
+    envs = pipelined_vector_env(cfg, make_env_fns(cfg, log_dir, "train"))
+    observation_space, action_space = envs.single_observation_space, envs.single_action_space
+    if not isinstance(observation_space, spaces.Dict):
+        raise RuntimeError(f"Unexpected observation type, should be of type Dict, got: {observation_space}")
+    cnn_keys, mlp_keys = list(cfg.algo.cnn_keys.encoder), list(cfg.algo.mlp_keys.encoder)
+    obs_keys = cnn_keys + mlp_keys
+    actions_dim, is_continuous, is_multidiscrete = actions_dim_of(action_space)
+
+    resume_from = cfg.checkpoint.get("resume_from")
+    state = runtime.load(resume_from) if resume_from else None
+    agent = build_agent(actions_dim, is_continuous, cfg, observation_space, state["agent"] if state else None,
+                        device)
+    total_iters = int(cfg.algo.total_steps // total_local) if not cfg.dry_run else 1
+    optimizer = instantiate(cfg.algo.optimizer)(agent.parameters())
+    schedule = None
+    if cfg.algo.anneal_lr:
+        schedule = linear_schedule(optimizer.param_groups[0]["lr"], 0.0,
+                                   max(1, total_iters * int(cfg.algo.update_epochs) * num_minibatches))
+    clip = bool(cfg.algo.max_grad_norm and cfg.algo.max_grad_norm > 0)
+    spec = ppo_spec(agent)
+    if state and "opt_state" in state:
+        optimizer.load_state_dict(optimizer_state_dict(state["opt_state"], optimizer, spec))
+    train_step = diag.instrument("train_step", make_train_step(agent, optimizer, cfg, num_minibatches, batch_size,
+                                                               schedule), kind="train")
+    health_out = train_step.health_names
+    diag.register_footprint("params", [agent])
+    diag.register_footprint("opt_state", [optimizer])
+
+    rb = ReplayBuffer(cfg.buffer.size, num_envs, memmap=cfg.buffer.memmap,
+                      memmap_dir=os.path.join(log_dir, "memmap_buffer"))
+    diag.track_buffer("replay", rb)
+
+    start_iter = (state["iter_num"] if state else 0) + 1
+    policy_step_count = state["policy_step"] if state else 0
+    last_log = state["last_log"] if state else 0
+    last_checkpoint = state["last_checkpoint"] if state else 0
+    initial_ent, initial_clip = float(cfg.algo.ent_coef), float(cfg.algo.clip_coef)
+    ent_coef, clip_coef = initial_ent, initial_clip
+    stager = ObsStager(device)
+    gamma = float(cfg.algo.gamma)
+
+    def stage(host_obs: Dict[str, np.ndarray], n: int) -> Dict[str, torch.Tensor]:
+        return stager(host_obs_slab(host_obs, cnn_keys, mlp_keys, n))
+
+    obs = envs.reset(seed=cfg.seed)[0]
+    metric_rows: List[np.ndarray] = []
+    logged: List[Dict[str, float]] = []
+    checkpoints: List[str] = []
+    for iter_num in range(start_iter, total_iters + 1):
+        agent.eval()
+        with timer("Time/env_interaction_time"), diag.span("rollout"), torch.no_grad():
+            for _ in range(rollout_steps):
+                policy_step_count += num_envs
+                diag.note_env_steps(num_envs)
+                actions, logprobs, _, values = agent(stage(obs, num_envs), generator=generator)
+                diag.note_fetch()  # the step's one device-to-host copy
+                actions_np, logprobs_np, values_np = fetch_values(actions, logprobs, values)
+                # the envs step while this process records the step
+                with diag.span("env_step_async"):
+                    envs.step_async(env_actions_of(actions_np, is_continuous, is_multidiscrete, num_envs))
+                step_data = step_slab(num_envs, {**{k: obs[k] for k in obs_keys}, "actions": actions_np,
+                                                 "logprobs": logprobs_np, "values": values_np})
+                with diag.span("env_wait"):
+                    next_obs, rewards, terminated, truncated, info = envs.step_wait()
+                dones = np.logical_or(terminated, truncated).reshape(num_envs, 1).astype(np.float32)
+                rewards = np.asarray(rewards, dtype=np.float32).reshape(num_envs, 1)
+                if cfg.env.clip_rewards:
+                    rewards = np.tanh(rewards)
+                # a truncated episode bootstraps from its last observation
+                if "final_obs" in info and np.any(truncated):
+                    trunc_idx = np.nonzero(truncated)[0]
+                    stacked = {k: np.stack([np.asarray(info["final_obs"][i][k]) for i in trunc_idx]) for k in obs_keys}
+                    (vals,) = fetch_values(agent.get_values(stage(stacked, len(trunc_idx))))
+                    rewards[trunc_idx] += gamma * vals.reshape(-1, 1)
+                step_data.update(step_slab(num_envs, {"rewards": rewards, "dones": dones}))
+                rb.add(step_data, validate_args=cfg.buffer.validate_args)
+                if "final_info" in info and "episode" in info["final_info"]:
+                    ep = info["final_info"]["episode"]
+                    mask = ep.get("_r", info["final_info"].get("_episode"))
+                    if mask is not None and np.any(mask):
+                        for r, length in zip(ep["r"][mask], ep["l"][mask]):
+                            aggregator.update("Rewards/rew_avg", float(r))
+                            aggregator.update("Game/ep_len_avg", float(length))
+                obs = next_obs
+
+        # ---- GAE over the rollout, on the device --------------------------
+        with diag.span("buffer-sample"), torch.no_grad():
+            local = {k: torch.from_numpy(np.ascontiguousarray(rb.buffer[k][:rollout_steps])).to(device)
+                     for k in rb.buffer}
+            next_value = agent.get_values(stage(obs, num_envs))
+            returns, advantages = gae(local["rewards"], local["values"], local["dones"], next_value, gamma,
+                                      float(cfg.algo.gae_lambda))
+            data = {
+                "obs": {k: local[k].reshape(total_local, -1, *local[k].shape[-2:]) if k in cnn_keys
+                        else local[k].reshape(total_local, -1).float() for k in obs_keys},
+                "actions": local["actions"].reshape(total_local, -1),
+                "logprobs": local["logprobs"].reshape(total_local, -1),
+                "values": local["values"].reshape(total_local, -1),
+                "returns": returns.reshape(total_local, -1),
+                "advantages": advantages.reshape(total_local, -1),
+            }
+        data = diag.maybe_inject_nan(iter_num, data)
+
+        if cfg.algo.anneal_clip_coef:
+            clip_coef = polynomial_decay(iter_num, initial=initial_clip, final=0.0, max_decay_steps=total_iters,
+                                         power=1.0)
+        if cfg.algo.anneal_ent_coef:
+            ent_coef = polynomial_decay(iter_num, initial=initial_ent, final=0.0, max_decay_steps=total_iters,
+                                        power=1.0)
+
+        # ---- the update phase: its device work ends inside the timer ------
+        # (between two CUDA events on the card, read at log time)
+        agent.train()
+        with timer("Time/train_time", device), diag.span("train"):
+            perms = [torch.randperm(total_local, generator=generator, device=device)
+                     for _ in range(int(cfg.algo.update_epochs))]
+            metrics = train_step(data, perms, (clip_coef, ent_coef, float(cfg.algo.vf_coef)))
+            (row,) = fetch_values(metrics)  # the iteration's one fetch of the update's results
+        metric_rows.append(row)
+        losses = dict(zip(METRIC_ORDER, row[:4].tolist()))
+        if health_out:
+            diag.on_health(policy_step_count, dict(zip(health_out, row[5:].tolist())))
+        for name, value in losses.items():
+            aggregator.update(name, value)
+        diag.on_update(policy_step_count, losses, nonfinite=float(row[4]))
+
+        if policy_step_count - last_log >= cfg.metric.log_every or iter_num == total_iters or cfg.dry_run:
+            metrics_dict = aggregator.compute()
+            timers = timer.compute()
+            if timers.get("Time/env_interaction_time", 0) > 0:
+                metrics_dict["Time/sps_env_interaction"] = (
+                    (policy_step_count - last_log) / timers["Time/env_interaction_time"])
+            if timers.get("Time/train_time", 0) > 0:
+                metrics_dict["Time/sps_train"] = (
+                    (iter_num * int(cfg.algo.update_epochs) * num_minibatches) / timers["Time/train_time"])
+            logger.log_metrics(metrics_dict, policy_step_count)
+            logged.append(dict(metrics_dict))
+            aggregator.reset()
+            timer.reset()
+            last_log = policy_step_count
+
+        # a pending preemption (a signal, or the drill) forces the branch:
+        # this save is the emergency snapshot
+        preempt_now = diag.preempt_due(iter_num)
+        if (
+            (cfg.checkpoint.every > 0 and policy_step_count - last_checkpoint >= cfg.checkpoint.every)
+            or cfg.dry_run
+            or preempt_now
+            or (iter_num == total_iters and cfg.checkpoint.save_last)
+        ):
+            last_checkpoint = policy_step_count
+            ckpt_state = {
+                "agent": ppo_to_flax(agent),
+                # optax's layout, so that the JAX package resumes it too
+                "opt_state": optax_state(optimizer, spec, clip=clip, schedule=schedule is not None),
+                "iter_num": iter_num,
+                "policy_step": policy_step_count,
+                "last_log": last_log,
+                "last_checkpoint": last_checkpoint,
+                "batch_size": batch_size,
+            }
+            ckpt_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step_count}_0.ckpt")
+            with diag.span("checkpoint"):
+                runtime.call("on_checkpoint_coupled", ckpt_path=ckpt_path, state=ckpt_state, replay_buffer=None)
+            diag.on_checkpoint(policy_step_count, ckpt_path)
+            checkpoints.append(ckpt_path)
+            if preempt_now:
+                envs.close()
+                diag.on_preempted(policy_step_count, iter_num, ckpt_path)
+
+    envs.close()
+    test_reward = None
+    if cfg.algo.run_test:
+        agent.eval()
+        test_reward = test(agent, make_env(cfg, cfg.seed, 0, log_dir, "test")(), cfg, device, stager)
+        logger.log_metrics({"Test/cumulative_reward": test_reward}, policy_step_count)
+    logger.finalize()
+    diag.close("completed")
+    rows = np.asarray(metric_rows, np.float32).reshape(-1, 5 + len(health_out))
+    return {
+        "start_iter": start_iter,
+        "policy_steps": policy_step_count,
+        "iterations": len(metric_rows),
+        "updates_per_iteration": int(cfg.algo.update_epochs) * num_minibatches,
+        "test_reward": test_reward,
+        "metric_rows": rows[:, :4],
+        "nonfinite_updates": rows[:, 4],
+        "health_rows": {name: rows[:, 5 + i] for i, name in enumerate(health_out)},
+        "logged": logged,
+        "checkpoints": checkpoints,
+        "log_dir": log_dir,
+    }

@@ -1,6 +1,7 @@
 """Command-line entry points (counterpart of ``sheeprl_tpu/cli.py``):
 ``run`` trains or, with ``checkpoint.resume_from``, resumes; ``eval`` scores
-a checkpoint; ``serve`` serves one.  Model registration is still to port
+a checkpoint; ``serve`` serves one.  The port trains, evaluates and serves
+``dreamer_v3`` and ``ppo``; model registration is still to port
 (ROADMAP.md Queue 1)."""
 
 from __future__ import annotations
@@ -80,7 +81,7 @@ def check_configs(cfg: dotdict) -> None:
 
     if find_algorithm(cfg.algo.name) is None:
         raise NotImplementedError(
-            f"Algorithm {cfg.algo.name!r} is not ported yet (see ROADMAP.md Queue 1); the port trains: dreamer_v3"
+            f"Algorithm {cfg.algo.name!r} is not ported yet (see ROADMAP.md Queue 1); the port trains: dreamer_v3, ppo"
         )
     if cfg.metric.log_level not in (0, 1):
         raise ValueError(f"metric.log_level must be 0 or 1, got {cfg.metric.log_level}")
@@ -192,7 +193,7 @@ def run(args: Optional[Sequence[str]] = None) -> Any:
 
 def eval_algorithm(cfg: dotdict) -> Any:
     """Registry lookup -> runtime -> the checkpoint -> the algorithm's
-    evaluation; returns what it returns (DV3: the test reward)."""
+    evaluation; returns what it returns (the test reward)."""
     import importlib
 
     from sheeprl_tpu_torch.utils.registry import find_evaluation
@@ -200,7 +201,7 @@ def eval_algorithm(cfg: dotdict) -> Any:
     entry = find_evaluation(cfg.algo.name)
     if entry is None:
         raise NotImplementedError(f"Evaluation of {cfg.algo.name!r} is not ported yet (see ROADMAP.md Queue 1); "
-                                  "the port evaluates: dreamer_v3")
+                                  "the port evaluates: dreamer_v3, ppo")
     entrypoint = getattr(importlib.import_module(entry["module"]), entry["entrypoint"])
     runtime = instantiate(cfg.fabric)
     return runtime.launch(entrypoint, cfg, runtime.load(cfg.checkpoint_path))

@@ -111,6 +111,14 @@ class DeviceSequentialReplayBuffer:
         self._filled[envs] = np.minimum(self._filled[envs] + 1, self._buffer_size)
         self._added[envs] += 1
 
+    def mark_last_truncated(self, env_idx: int) -> None:
+        """Flag one env's newest stored step as truncated, not terminated and
+        not a first step (what a ``RestartOnException`` restart leaves)."""
+        last = int((self._pos[env_idx] - 1) % self._buffer_size)
+        for key, value in (("terminated", 0.0), ("truncated", 1.0), ("is_first", 0.0)):
+            if key in self._buf:
+                self._buf[key][last, env_idx] = value
+
     # -- read path -----------------------------------------------------------
     def _draw(self, n: int, seq_len: int):
         """``(starts, env_idx)``: ``n`` windows, in the JAX ring's order of

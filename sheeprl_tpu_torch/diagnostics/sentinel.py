@@ -18,7 +18,7 @@ gradient step and a host-side divergence detector.
 from __future__ import annotations
 
 from collections import deque
-from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence
+from typing import Any, Dict, Iterable, List, Mapping, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -85,6 +85,30 @@ def select_finite(finite: torch.Tensor, new: Sequence[torch.Tensor], old: Sequen
     branch are inert under ``where``."""
     for n, o in zip(new, old):
         n.copy_(torch.where(finite.to(n.device), n, o))
+
+
+def skip_update_guard(modules: Iterable[torch.nn.Module], optimizers: Iterable[torch.optim.Optimizer]):
+    """What ``policy=skip_update`` reverts, and a buffer for each: the
+    parameters of ``modules`` and every Adam state tensor, ``step``
+    included.  Adam's state is created here (zeros, step 0, as its first
+    step would create it) so that a skipped first step has something to
+    revert to.  On the card Adam runs ``capturable``, which keeps ``step`` on
+    the device: the selection then never waits for the host."""
+    guarded = [p for module in modules for p in module.parameters()]
+    for opt in optimizers:
+        for group in opt.param_groups:
+            on_card = any(p.device.type == "cuda" for p in group["params"])
+            group["capturable"] = group["capturable"] or on_card
+            for p in group["params"]:
+                state = opt.state[p]
+                if not state:
+                    state["step"] = torch.zeros((), dtype=torch.float32)
+                    state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                    state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                if group["capturable"]:
+                    state["step"] = state["step"].to(p.device)
+                guarded += [state["step"], state["exp_avg"], state["exp_avg_sq"]]
+    return guarded, [torch.empty_like(t) for t in guarded]
 
 
 def poison_tree(tree: Any) -> Any:

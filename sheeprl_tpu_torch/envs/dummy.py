@@ -28,6 +28,7 @@ class _DummyEnv:
                 "state": spaces.Box(-20, 20, shape=vector_shape, dtype=np.float32),
             }
         )
+        self.reward_range = (-np.inf, np.inf)
         self._current_step = 0
         self._n_steps = n_steps
 
@@ -47,6 +48,9 @@ class _DummyEnv:
     def reset(self, seed=None, options=None):
         self._current_step = 0
         return self.get_obs(), {}
+
+    def render(self):
+        return np.zeros((64, 64, 3), dtype=np.uint8)
 
     def close(self):
         pass

@@ -1,5 +1,6 @@
 """Weights across the two packages: the JAX package's flax param trees
-(numpy, as its checkpoints store them) to the port's DV3 modules and back.
+(numpy, as its checkpoints store them) to the port's DV3 and PPO modules
+and back.
 
 Rules: Dense ``kernel[in, out]`` <-> Linear ``weight[out, in]``; Conv
 ``kernel`` HWIO <-> ``weight`` OIHW; ConvTranspose ``kernel``
@@ -7,7 +8,10 @@ Rules: Dense ``kernel[in, out]`` <-> Linear ``weight[out, in]``; Conv
 flipped in both spatial axes (flax's ``lax.conv_transpose`` correlates with
 the kernel as stored, torch's transposed convolution is the gradient of a
 convolution and so applies it flipped); LayerNorm ``scale``/``bias`` <->
-``weight``/``bias``; ``rssm/initial_recurrent_state`` as is.  Both
+``weight``/``bias``; ``rssm/initial_recurrent_state`` as is.  The dense
+layer after a flattened conv map (NatureCNN's) also permutes its input rows:
+flax flattens the NHWC map in (H, W, C) order, torch the NCHW map in
+(C, H, W) order (kind ``dense_nhwc``, which carries ``(H, W, C)``).  Both
 directions walk one spec of the port's modules, laid out in the flax tree's
 own names, so they cannot disagree.  The walk is strict: a key missing on
 either side or a shape that differs raises.  Training reads and writes all
@@ -21,6 +25,8 @@ mu, nu)``, whose ``mu`` and ``nu`` are trees laid out like the params; they
 become ``torch.optim.Adam``'s ``exp_avg`` and ``exp_avg_sq`` by the same
 layout rules, and ``count`` its ``step`` (:func:`optimizer_state_dict`), and
 back (:func:`optax_state`), so each package resumes the other's checkpoints.
+PPO's chain has ``clip_by_global_norm`` only with ``algo.max_grad_norm > 0``
+and a ``ScaleByScheduleState(count)`` after Adam's with ``algo.anneal_lr``.
 bf16 weights are written as float32, which holds them exactly.
 """
 
@@ -46,7 +52,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     WorldModel,
     _StochHead,
 )
-from sheeprl_tpu_torch.models.blocks import LayerNormGRUCell
+from sheeprl_tpu_torch.models.blocks import MLP, LayerNormGRUCell
 
 
 def _linear(m: nn.Linear) -> Dict[str, Any]:
@@ -173,9 +179,56 @@ def param_spec(world_model: WorldModel, actor: Actor, critic: Critic, target_cri
     return spec
 
 
-def _to_torch(array: np.ndarray, kind: str) -> np.ndarray:
+def _mlp(m: MLP) -> Dict[str, Any]:
+    """The JAX ``MLP``: ``Dense_i`` / ``LayerNorm_i`` per hidden layer, then
+    the output layer as the next ``Dense``."""
+    spec: Dict[str, Any] = {}
+    for i, dense in enumerate(m.dense):
+        spec[f"Dense_{i}"] = _linear(dense)
+        if m.norms is not None:
+            spec[f"LayerNorm_{i}"] = _norm(m.norms[i])
+    if m.out is not None:
+        spec[f"Dense_{len(m.dense)}"] = _linear(m.out)
+    return spec
+
+
+def ppo_spec(agent) -> Dict[str, Any]:
+    """The PPO agent's parameters in the layout of the JAX ``PPOAgent``'s
+    flax tree (``{"params": {...}}``)."""
+    params: Dict[str, Any] = {}
+    if agent.cnn_encoder is not None:
+        cnn = agent.cnn_encoder
+        nature = {f"Conv_{i}": _conv(conv) for i, conv in enumerate(cnn.convs)}
+        nature["Dense_0"] = {"kernel": (cnn.dense.weight, "dense_nhwc", cnn.dense.flatten_hwc),
+                             "bias": (cnn.dense.bias, "same")}
+        params["_cnn_enc"] = {"NatureCNN_0": nature}
+    if agent.mlp_encoder is not None:
+        params["_mlp_enc"] = {"MLP_0": _mlp(agent.mlp_encoder)}
+    backbone = _mlp(agent.actor_backbone)
+    if backbone:
+        params["actor_backbone"] = backbone
+    for i, head in enumerate(agent.actor_heads):
+        params[f"actor_heads_{i}"] = _linear(head)
+    params["critic"] = _mlp(agent.critic)
+    return {"params": params}
+
+
+def ppo_from_flax(tree: Mapping[str, Any], agent) -> None:
+    """Copy a flax ``PPOAgent`` tree into the port's agent, strictly."""
+    _load(ppo_spec(agent), tree, "", {})
+
+
+def ppo_to_flax(agent) -> Dict[str, Any]:
+    """The port's PPO agent as the JAX package's flax tree (numpy)."""
+    return _dump(ppo_spec(agent))
+
+
+def _to_torch(array: np.ndarray, kind: str, hwc: Tuple[int, int, int] = ()) -> np.ndarray:
     if kind == "dense":
         return array.T
+    if kind == "dense_nhwc":
+        h, w, c = hwc
+        return array.reshape(h, w, c, -1).transpose(2, 0, 1, 3).reshape(c * h * w, -1).T
     if kind == "conv":
         return array.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     if kind == "conv_transpose":
@@ -183,9 +236,12 @@ def _to_torch(array: np.ndarray, kind: str) -> np.ndarray:
     return array
 
 
-def _to_flax(array: np.ndarray, kind: str) -> np.ndarray:
+def _to_flax(array: np.ndarray, kind: str, hwc: Tuple[int, int, int] = ()) -> np.ndarray:
     if kind == "dense":
         return array.T
+    if kind == "dense_nhwc":
+        h, w, c = hwc
+        return array.T.reshape(c, h, w, -1).transpose(1, 2, 0, 3).reshape(h * w * c, -1)
     if kind == "conv":
         return array.transpose(2, 3, 1, 0)  # OIHW -> HWIO
     if kind == "conv_transpose":
@@ -208,8 +264,8 @@ def _walk(spec: Mapping[str, Any], tree: Any, path: str,
         if isinstance(sub, dict):
             yield from _walk(sub, tree[key], where, unread)
             continue
-        tensor, kind = sub
-        value = _to_torch(np.asarray(tree[key]), kind)
+        tensor, kind, *meta = sub
+        value = _to_torch(np.asarray(tree[key]), kind, *meta)
         if tuple(value.shape) != tuple(tensor.shape):
             raise ValueError(f"flax param '{where}' maps to shape {tuple(value.shape)}, the port has {tuple(tensor.shape)}")
         yield tensor, np.ascontiguousarray(value)  # a copy: checkpoint arrays may be read-only
@@ -240,8 +296,8 @@ def _dump(spec: Mapping[str, Any]) -> Dict[str, Any]:
         if isinstance(sub, dict):
             out[key] = _dump(sub)
         else:
-            tensor, kind = sub
-            out[key] = np.ascontiguousarray(_to_flax(tensor.detach().cpu().float().numpy(), kind))
+            tensor, kind, *meta = sub
+            out[key] = np.ascontiguousarray(_to_flax(tensor.detach().cpu().float().numpy(), kind, *meta))
     return out
 
 
@@ -267,13 +323,18 @@ def _map_spec(spec: Mapping[str, Any], fn) -> Dict[str, Any]:
     return {key: _map_spec(sub, fn) if isinstance(sub, dict) else fn(*sub) for key, sub in spec.items()}
 
 
-def optax_state(optimizer: torch.optim.Optimizer, spec: Mapping[str, Any]) -> Any:
+def optax_state(optimizer: torch.optim.Optimizer, spec: Mapping[str, Any], clip: bool = True,
+                schedule: bool = False) -> Any:
     """``optimizer``'s Adam state as the tree the JAX package pickles for
     optax's ``chain(clip_by_global_norm(c), adam(...))``:
     ``(EmptyState(), (ScaleByAdamState(count, mu, nu), EmptyState()))``,
     ``mu``/``nu`` in the flax layout of ``spec`` (the module's subtree of
-    :func:`param_spec`) and ``count`` Adam's ``step`` as int32.  A parameter
-    Adam has not stepped yet holds zeros, as optax's ``init`` does."""
+    :func:`param_spec`, or :func:`ppo_spec`) and ``count`` Adam's ``step``
+    as int32.  Without ``clip`` the chain is ``chain(adam)``:
+    ``((ScaleByAdamState, EmptyState()),)``; with ``schedule`` (Adam's
+    learning rate a schedule) the ``EmptyState()`` after Adam's is a
+    ``ScaleByScheduleState(count)``.  A parameter Adam has not stepped yet
+    holds zeros, as optax's ``init`` does."""
     from sheeprl_tpu_torch.utils.checkpoint import OptaxState
 
     empty = OptaxState.make("optax._src.base", "EmptyState")
@@ -283,16 +344,18 @@ def optax_state(optimizer: torch.optim.Optimizer, spec: Mapping[str, Any]) -> An
         raise ValueError(f"Adam's parameters disagree on the step count: {sorted(steps)}")
 
     def slot(name: str):
-        def leaf(tensor: torch.Tensor, kind: str) -> np.ndarray:
+        def leaf(tensor: torch.Tensor, kind: str, *meta: Any) -> np.ndarray:
             entry = optimizer.state.get(tensor)
             value = entry[name] if entry else torch.zeros_like(tensor)
             # a copy: on the CPU .numpy() shares the live state, which the
             # next step updates in place
-            return np.array(_to_flax(value.detach().cpu().float().numpy(), kind), order="C", copy=True)
+            return np.array(_to_flax(value.detach().cpu().float().numpy(), kind, *meta), order="C", copy=True)
         return leaf
 
     count = np.asarray(int(steps.pop()) if steps else 0, np.int32)
-    return (empty(), (adam(count, _map_spec(spec, slot("exp_avg")), _map_spec(spec, slot("exp_avg_sq"))), empty()))
+    after = OptaxState.make("optax._src.transform", "ScaleByScheduleState")(count.copy()) if schedule else empty()
+    base = (adam(count, _map_spec(spec, slot("exp_avg")), _map_spec(spec, slot("exp_avg_sq"))), after)
+    return (empty(), base) if clip else (base,)
 
 
 def optimizer_state_dict(saved: Any, optimizer: torch.optim.Optimizer, spec: Mapping[str, Any]) -> Dict[str, Any]:

@@ -1,10 +1,11 @@
 """Reusable NN blocks (counterpart of ``sheeprl_tpu/models/blocks.py``): the
-activation table, the channel-last LayerNorm of the DV3 conv encoder and the
-LayerNorm-GRU cell of the RSSM."""
+activation table, the dense stack (``MLP``), the Nature DQN conv backbone,
+the channel-last LayerNorm of the DV3 conv encoder and the LayerNorm-GRU
+cell of the RSSM."""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -34,6 +35,56 @@ def get_activation(name: str | Callable | None) -> Callable:
     if key not in table:
         raise ValueError(f"Unknown activation '{name}'")
     return table[key]
+
+
+class MLP(nn.Module):
+    """Dense layers, each followed by an optional LayerNorm (eps 1e-3) and
+    the activation, then an optional output layer without either (the JAX
+    package's ``MLP``)."""
+
+    def __init__(self, input_dim: int, hidden_sizes: Sequence[int], output_dim: Optional[int] = None,
+                 activation: str | Callable = "tanh", layer_norm: bool = False, norm_eps: float = 1e-3):
+        super().__init__()
+        sizes = [int(input_dim)] + [int(h) for h in hidden_sizes]
+        self.dense = nn.ModuleList(nn.Linear(a, b) for a, b in zip(sizes[:-1], sizes[1:]))
+        self.norms = nn.ModuleList(nn.LayerNorm(b, eps=norm_eps) for b in sizes[1:]) if layer_norm else None
+        self.out = nn.Linear(sizes[-1], int(output_dim)) if output_dim is not None else None
+        self.act = get_activation(activation)
+        self.output_dim = int(output_dim) if output_dim is not None else sizes[-1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i, dense in enumerate(self.dense):
+            x = dense(x)
+            if self.norms is not None:
+                x = self.norms[i](x)
+            x = self.act(x)
+        return self.out(x) if self.out is not None else x
+
+
+class NatureCNN(nn.Module):
+    """The Nature DQN backbone: three VALID convolutions with ReLU, then a
+    dense layer with ReLU, on ``[N, C, H, W]``.  The JAX package flattens
+    the last feature map in (H, W, C) order, torch in (C, H, W): the dense
+    layer's ``flatten_hwc`` tells the weight converter how to permute its
+    input rows."""
+
+    LAYERS = ((32, 8, 4), (64, 4, 2), (64, 3, 1))
+
+    def __init__(self, in_channels: int, screen_hw: Tuple[int, int], features_dim: int = 512):
+        super().__init__()
+        convs, c, (h, w) = [], int(in_channels), (int(screen_hw[0]), int(screen_hw[1]))
+        for ch, k, s in self.LAYERS:
+            convs.append(nn.Conv2d(c, ch, k, stride=s))
+            c, h, w = ch, (h - k) // s + 1, (w - k) // s + 1
+        self.convs = nn.ModuleList(convs)
+        self.dense = nn.Linear(c * h * w, int(features_dim))
+        self.dense.flatten_hwc = (h, w, c)
+        self.features_dim = int(features_dim)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for conv in self.convs:
+            x = F.relu(conv(x))
+        return F.relu(self.dense(x.flatten(1)))
 
 
 class LayerNormChannelLast(nn.LayerNorm):

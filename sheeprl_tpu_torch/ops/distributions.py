@@ -1,16 +1,19 @@
-"""The distributions of the DreamerV3 losses (counterpart of
-``sheeprl_tpu/ops/distributions.py``): light classes over tensors.
-``log_prob``/``mean`` and the KL compute in fp32 at the loss boundary, as the
-JAX package's do, whatever dtype the network ran in."""
+"""The distributions of the DreamerV3 losses and the PPO actor
+(counterpart of ``sheeprl_tpu/ops/distributions.py``): light classes over
+tensors.  ``log_prob``/``mean``/``entropy`` and the KL compute in fp32 at the
+loss boundary, as the JAX package's do, whatever dtype the network ran in.
+Sampling takes pre-drawn noise (a standard-normal draw, or Gumbel noise for
+a categorical), so a test can feed the draws of the JAX package's keys."""
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 
-from sheeprl_tpu_torch.ops.numerics import symexp, symlog
+from sheeprl_tpu_torch.ops.numerics import safeatanh, safetanh, symexp, symlog
 
 
 def _sum_last_dims(x: torch.Tensor, dims: int) -> torch.Tensor:
@@ -30,6 +33,95 @@ def kl_categorical(p_logits: torch.Tensor, q_logits: torch.Tensor, event_dims: i
     q_logits = torch.log_softmax(_f32(q_logits), dim=-1)
     kl = (p_logits.exp() * (p_logits - q_logits)).sum(dim=-1)
     return _sum_last_dims(kl, event_dims)
+
+
+class Normal:
+    """Diagonal normal; ``log_prob``/``entropy`` sum the last
+    ``event_dims`` axes."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor, event_dims: int = 0):
+        self.loc = loc
+        self.scale = scale
+        self.event_dims = event_dims
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.loc
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return self.loc
+
+    def rsample(self, noise: torch.Tensor) -> torch.Tensor:
+        """``loc + scale * noise``, ``noise`` a standard-normal draw."""
+        return self.loc + self.scale * noise.to(self.loc.dtype)
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        loc, scale, value = _f32(self.loc), _f32(self.scale), _f32(value)
+        lp = -((value - loc) ** 2) / (2 * scale**2) - torch.log(scale) - 0.5 * math.log(2 * math.pi)
+        return _sum_last_dims(lp, self.event_dims)
+
+    def entropy(self) -> torch.Tensor:
+        ent = 0.5 + 0.5 * math.log(2 * math.pi) + torch.log(_f32(self.scale))
+        return _sum_last_dims(ent, self.event_dims)
+
+
+class TanhNormal:
+    """A normal squashed by tanh, with the numerically safe tanh/atanh
+    (``eps`` from the bounds) in the change of variables."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor, event_dims: int = 1, eps: float = 1e-6):
+        self.base = Normal(loc, scale, event_dims=0)
+        self.event_dims = event_dims
+        self.eps = eps
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return torch.tanh(self.base.loc)
+
+    mode = mean
+
+    def rsample(self, noise: torch.Tensor) -> torch.Tensor:
+        return safetanh(self.base.rsample(noise), self.eps)
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        value = _f32(value)
+        x = safeatanh(value, self.eps)
+        lp = self.base.log_prob(x) - torch.log1p(-(value**2) + self.eps)
+        return _sum_last_dims(lp, self.event_dims)
+
+
+class Categorical:
+    """Categorical over the last axis of ``logits`` (normalized in fp32)."""
+
+    def __init__(self, logits: torch.Tensor):
+        self.logits = torch.log_softmax(_f32(logits), dim=-1)
+
+    @property
+    def probs(self) -> torch.Tensor:
+        return torch.softmax(self.logits, dim=-1)
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return self.logits.argmax(dim=-1)
+
+    def sample(self, gumbel: torch.Tensor) -> torch.Tensor:
+        """The Gumbel-max draw: ``argmax(logits + gumbel)``, as
+        ``jax.random.categorical`` draws."""
+        return (self.logits + gumbel.to(self.logits.dtype)).argmax(dim=-1)
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        """The log-probability of each class index; NaN for an index out of
+        range (a poisoned batch's NaN actions), as ``take_along_axis`` fills
+        in JAX, where a gather would fault."""
+        n = self.logits.shape[-1]
+        idx = value.long()
+        inside = (idx >= 0) & (idx < n)
+        lp = self.logits.gather(-1, idx.clamp(0, n - 1)[..., None])[..., 0]
+        return torch.where(inside, lp, torch.full_like(lp, float("nan")))
+
+    def entropy(self) -> torch.Tensor:
+        return -(self.probs * self.logits).sum(dim=-1)
 
 
 class Bernoulli:

@@ -1,6 +1,7 @@
 """Numerics shared across algorithms (counterpart of
-``sheeprl_tpu/ops/numerics.py``): symlog/symexp, the two-hot code, the
-uniform mix and the TD(lambda) returns of DreamerV3."""
+``sheeprl_tpu/ops/numerics.py``): symlog/symexp, the safe tanh/atanh, the
+two-hot code, the uniform mix, the TD(lambda) returns of DreamerV3 and the
+generalized advantage estimate of PPO."""
 
 from __future__ import annotations
 
@@ -16,6 +17,16 @@ def symlog(x: torch.Tensor) -> torch.Tensor:
 
 def symexp(x: torch.Tensor) -> torch.Tensor:
     return torch.sign(x) * (torch.exp(torch.abs(x)) - 1)
+
+
+def safetanh(x: torch.Tensor, eps: float) -> torch.Tensor:
+    lim = 1.0 - eps
+    return torch.clamp(torch.tanh(x), -lim, lim)
+
+
+def safeatanh(y: torch.Tensor, eps: float) -> torch.Tensor:
+    lim = 1.0 - eps
+    return torch.atanh(torch.clamp(y, -lim, lim))
 
 
 def two_hot_encoder(x: torch.Tensor, support_range: int = 300, num_buckets: Optional[int] = None) -> torch.Tensor:
@@ -72,3 +83,31 @@ def compute_lambda_values(
         nxt = interm[t] + continues[t] * lmbda * nxt
         out.append(nxt)
     return torch.stack(out[::-1])
+
+
+def gae(
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    dones: torch.Tensor,
+    next_value: torch.Tensor,
+    gamma: float,
+    gae_lambda: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Generalized advantage estimation over the leading time axis
+    ``[T, ...]``; returns ``(returns, advantages)``.
+
+    As the JAX package's ``gae``: step ``t`` bootstraps from ``values[t+1]``
+    masked by ``1 - dones[t]``, and the last step from ``next_value`` masked
+    by ``1 - dones[-1]``; the same mask carries the running advantage back."""
+    not_dones = 1.0 - dones.to(values.dtype)
+    rewards = rewards.to(values.dtype)
+    next_values = torch.cat([values[1:], next_value[None]], dim=0)
+    next_nonterminal = torch.cat([not_dones[:-1], not_dones[-1:]], dim=0)
+    deltas = rewards + gamma * next_values * next_nonterminal - values
+    lastgaelam = torch.zeros_like(deltas[0])
+    advantages = []
+    for t in range(deltas.shape[0] - 1, -1, -1):
+        lastgaelam = deltas[t] + gamma * gae_lambda * next_nonterminal[t] * lastgaelam
+        advantages.append(lastgaelam)
+    advantages = torch.stack(advantages[::-1])
+    return advantages + values, advantages

@@ -7,8 +7,10 @@ group of rows is assembled into one padded batch, and the policy step.  The
 port serves ``dreamer_v3``, a stateful family: its handle exposes
 ``make_state_step(greedy)``, a ``(params, state, obs, is_first, generator,
 noise=None) -> (actions, new_state)`` step whose ``is_first`` reset is the
-same masked blend as ``PlayerDV3``.  The ``ppo``/``a2c``/``sac``/
-``ppo_recurrent`` adapters are listed in ROADMAP.md Queue 1 and raise here.
+same masked blend as ``PlayerDV3``; and ``ppo``, served statelessly: its
+handle exposes ``make_step(greedy)``, a ``(params, obs, generator,
+noise=None) -> actions`` step.  The ``a2c``/``sac``/``ppo_recurrent``
+adapters are listed in ROADMAP.md Queue 1 and raise here.
 """
 
 from __future__ import annotations
@@ -28,7 +30,7 @@ from sheeprl_tpu_torch.envs import spaces
 #: agent_state, device))
 SERVABLE_BUILDERS: Dict[str, Callable] = {}
 #: servable in the JAX package, not ported yet (ROADMAP.md Queue 1)
-NOT_PORTED = ("ppo", "a2c", "sac", "ppo_recurrent")
+NOT_PORTED = ("a2c", "sac", "ppo_recurrent")
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)_\d+\.ckpt$")
 
@@ -81,6 +83,7 @@ class PolicyHandle:
     stateful: bool = False
     state_spec: Dict[str, Tuple[Tuple[int, ...], str]] = field(default_factory=dict)
     make_state_step: Optional[Callable[[bool], Callable]] = None
+    make_step: Optional[Callable[[bool], Callable]] = None
 
     def zero_obs(self, width: int) -> Any:
         return self.assemble([], width)
@@ -200,6 +203,52 @@ def _dreamer_v3_handle(cfg, obs_space, action_space, agent_state, device) -> Pol
 
 
 SERVABLE_BUILDERS["dreamer_v3"] = _dreamer_v3_handle
+
+
+def _ppo_handle(cfg, obs_space, action_space, agent_state, device) -> PolicyHandle:
+    """ppo: the feed-forward agent served statelessly; one forward returns
+    ``(actions, log_prob, entropy, value)`` and serving keeps the actions
+    (the argmax of each head when greedy).  Rows carry the observation as
+    the env gives it (float32, pixels 0-255, a frame stack's frames
+    unfolded); the step folds the frames into the channels, as the
+    training player does."""
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+
+    actions_dim, is_continuous, _ = _actions_dim(action_space)
+    agent = build_agent(actions_dim, is_continuous, cfg, obs_space, agent_state, device).eval()
+    mlp_keys = list(cfg.algo.mlp_keys.encoder)
+    cnn_keys = list(cfg.algo.cnn_keys.encoder)
+    obs_spec: Dict[str, Tuple[Tuple[int, ...], str]] = {}
+    for k in cnn_keys:
+        obs_spec[k] = (tuple(obs_space[k].shape), "float32")
+    for k in mlp_keys:
+        obs_spec[k] = ((int(prod(obs_space[k].shape)),), "float32")
+
+    def make_step(greedy: bool) -> Callable:
+        @torch.no_grad()
+        def step(p, obs, generator, noise=None):
+            """``noise``: the standard-normal draw of a continuous head, or
+            a list of Gumbel noise per categorical head."""
+            prepared = {k: v.reshape(v.shape[0], -1, *v.shape[-2:]) if k in cnn_keys else v for k, v in obs.items()}
+            actions, _, _, _ = p(prepared, greedy=greedy, noise=noise, generator=generator)
+            return actions
+
+        return step
+
+    return PolicyHandle(
+        algo="ppo",
+        obs_spec=obs_spec,
+        action_shape=(sum(actions_dim),) if is_continuous else (len(actions_dim),),
+        params=agent,
+        assemble=_dict_assembler(obs_spec),
+        validate=_row_validator(obs_spec),
+        device=torch.device(device),
+        meta={"is_continuous": is_continuous, "actions_dim": list(actions_dim)},
+        make_step=make_step,
+    )
+
+
+SERVABLE_BUILDERS["ppo"] = _ppo_handle
 
 #: checkpoint keys that make up a Dreamer-family agent state
 DREAMER_STATE_KEYS = ("world_model", "actor", "critic", "target_critic")

@@ -3,9 +3,10 @@
 
 * :class:`PolicyService` — owns one model's modules, one eager step per
   ``(bucket, greedy)`` signature and the dispatch the batcher drives:
-  assemble the padded batch, move it to the device, gather the sessions'
-  state from the device slab, run the step, scatter the state back, slice
-  the valid rows.
+  assemble the padded batch, move it to the device, run the step, slice the
+  valid rows; for a stateful policy (DreamerV3) the step gathers the
+  sessions' state from the device slab and scatters it back, a stateless
+  one (PPO) refuses sessions.
 * :class:`ServeApp` — ``ThreadingHTTPServer`` serving ``POST /act`` and
   ``GET /healthz`` with the JAX server's wire format, so one client talks to
   either server.
@@ -16,9 +17,13 @@ re-seeds its generator to 0, the counterpart of the JAX server's
 sampled, from a fixed stream), not the same bits.  A stochastic dispatch
 draws from a second generator seeded from the clock once.
 
-Left for later (ROADMAP.md Queue 1, item 'Serving'): the checkpoint watcher
-and its health gate, the SLO monitor and phase histograms, ``/metrics``, the
-multi-model registry, the request log and CUDA-graph capture per bucket.
+Left for later (ROADMAP.md Queue 1, item 'Serving extras'): the checkpoint
+watcher and its health gate, the SLO monitor and phase histograms,
+``/metrics``, the multi-model registry, the request log, the phase trace and
+CUDA-graph capture per bucket.  :func:`refuse_unported` raises on a
+``serving.models`` or ``serving.request_log.enabled`` the port would ignore,
+and :func:`unported_defaults` names the JAX server's defaults that are off
+here, which ``ServeApp`` prints at start.
 """
 
 from __future__ import annotations
@@ -38,14 +43,36 @@ from sheeprl_tpu_torch.serving.loader import PolicyHandle, load_policy
 from sheeprl_tpu_torch.serving.sessions import SessionStore, make_slab_step
 
 
+def refuse_unported(serving_cfg: Mapping[str, Any]) -> None:
+    """Raise on a serving option the port reads and would not act on."""
+    if serving_cfg.get("models"):
+        raise NotImplementedError(f"serving.models={dict(serving_cfg['models'])!r}: the multi-model registry is not "
+                                  "ported yet (see ROADMAP.md Queue 1, item 'Serving extras')")
+    if (serving_cfg.get("request_log") or {}).get("enabled", False):
+        raise NotImplementedError("serving.request_log.enabled=True: the request log is not ported yet (see "
+                                  "ROADMAP.md Queue 1, item 'Serving extras')")
+
+
+def unported_defaults(serving_cfg: Mapping[str, Any]) -> List[str]:
+    """The options of ``serving_cfg`` that the JAX server would act on and
+    this one does not run (they are on by default there)."""
+    off = []
+    if (serving_cfg.get("reload") or {}).get("enabled", True):
+        off.append("serving.reload.enabled (checkpoint watcher and hot reload)")
+    if (serving_cfg.get("trace") or {}).get("enabled", True):
+        off.append("serving.trace.enabled (phase trace)")
+    if serving_cfg.get("slo") is not None:
+        off.append("serving.slo.* (SLO monitor and phase histograms)")
+    return off
+
+
 class PolicyService:
     """Batched inference over one policy.  Stateful handles get a
     :class:`SessionStore`: each step gathers the batch's session rows from
-    the device slab and scatters the new state back in place."""
+    the device slab and scatters the new state back in place; stateless
+    ones run the handle's ``make_step`` on the padded batch."""
 
     def __init__(self, handle: PolicyHandle, serving_cfg: Optional[Mapping[str, Any]] = None):
-        if not handle.stateful:
-            raise NotImplementedError("stateless policies are not ported yet: see ROADMAP.md Queue 1, item 'Serving'")
         cfg = dict(serving_cfg or {})
         self.handle = handle
         self.device = handle.device
@@ -58,7 +85,8 @@ class PolicyService:
             max_queue=int(cfg.get("max_queue", 4096)),
         )
         sessions_cfg = dict(cfg.get("sessions") or {})
-        self.sessions = SessionStore(handle.state_spec, int(sessions_cfg.get("capacity", 64)), device=self.device)
+        self.sessions = (SessionStore(handle.state_spec, int(sessions_cfg.get("capacity", 64)), device=self.device)
+                         if handle.stateful else None)
         self.ckpt_step = int(handle.ckpt_step)
         self.ckpt_path = str(handle.ckpt_path)
         self._steps: Dict[Tuple[int, bool], Callable] = {}
@@ -79,6 +107,10 @@ class PolicyService:
         for bucket in self.buckets:
             for greedy in (True, False):
                 obs = self._to_device(self.handle.zero_obs(bucket))
+                if self.sessions is None:
+                    self._step(bucket, greedy)(self.handle.params, obs, self._generator(greedy))
+                    self.warmup_steps += 1
+                    continue
                 idx = torch.full((bucket,), self.sessions.scratch, dtype=torch.int64, device=self.device)
                 is_first = torch.ones((bucket, 1), dtype=torch.float32, device=self.device)
                 self._step(bucket, greedy)(self.handle.params, self.sessions.slab, idx, obs, is_first,
@@ -93,7 +125,8 @@ class PolicyService:
     def _step(self, width: int, greedy: bool) -> Callable:
         key = (int(width), bool(greedy))
         if key not in self._steps:
-            self._steps[key] = make_slab_step(self.handle.make_state_step(bool(greedy)))
+            self._steps[key] = (self.handle.make_step(bool(greedy)) if self.sessions is None
+                                else make_slab_step(self.handle.make_state_step(bool(greedy))))
         return self._steps[key]
 
     def _generator(self, greedy: bool) -> torch.Generator:
@@ -105,10 +138,20 @@ class PolicyService:
         return {k: torch.from_numpy(v).to(self.device) for k, v in obs.items()}
 
     def _dispatch(self, rows: List[Dict[str, Any]], greedy: bool) -> Tuple[Any, Dict[str, Any]]:
+        width = pick_bucket(len(rows), self.buckets)
+        if self.sessions is not None:
+            return self._dispatch_stateful(rows, greedy, width)
+        obs = self._to_device(self.handle.assemble(rows, width))
+        self._dispatch_counter += 1
+        out = self._step(width, greedy)(self.handle.params, obs, self._generator(greedy)).cpu().numpy()
+        meta = {"ckpt_step": self.ckpt_step, "params_version": 0, "batch_width": width, "batch_rows": len(rows),
+                "dispatch_id": self._dispatch_counter}
+        return out[: len(rows)], meta
+
+    def _dispatch_stateful(self, rows: List[Dict[str, Any]], greedy: bool, width: int) -> Tuple[Any, Dict[str, Any]]:
         """One stateful dispatch: resolve each row's slab slot (LRU checkout),
         then gather/step/scatter.  Padding and sessionless rows ride the
         scratch slot with ``is_first`` forced to 1."""
-        width = pick_bucket(len(rows), self.buckets)
         obs = self._to_device(self.handle.assemble([r["obs"] for r in rows], width))
         self._dispatch_counter += 1
         idx, is_first, evicted = self.sessions.checkout(
@@ -145,6 +188,11 @@ class PolicyService:
     ) -> Dict[str, Any]:
         row = self.handle.validate(obs)
         use_greedy = self.default_greedy if greedy is None else bool(greedy)
+        if self.sessions is None:
+            if session is not None:
+                raise ServeError(400, f"algorithm {self.handle.algo!r} serves statelessly; 'session' is only valid "
+                                      "for recurrent/model-based policies")
+            return self.batcher.submit(row, use_greedy, timeout_s=timeout_s, request_id=request_id)
         sid = None if session is None else str(session)
         # a non-None group key keeps one session's rows out of the same
         # dispatch: its slab slot is gathered at most once per batch
@@ -168,6 +216,8 @@ class ServeApp:
         self.port = int(serving_cfg.get("port", 0))
         self.request_timeout_s = float(serving_cfg.get("request_timeout_s", 30.0))
         self._warmup = bool(serving_cfg.get("warmup", True))
+        refuse_unported(serving_cfg)
+        self.unported_defaults = unported_defaults(serving_cfg)
         self.handle = load_policy(cfg, str(ckpt_path), device)
         self.service = PolicyService(self.handle, serving_cfg)
         self._server: Optional[ThreadingHTTPServer] = None
@@ -232,19 +282,19 @@ class ServeApp:
                     self._reply(404, b'{"error": "not found"}')
                     return
                 stats = service.batcher.stats()
-                sessions = {
-                    "active": service.sessions.active,
-                    "capacity": service.sessions.capacity,
-                    "evictions_total": service.sessions.evictions_total,
-                }
                 model = {
                     "algo": service.handle.algo,
                     "ckpt_step": service.ckpt_step,
                     "ckpt_path": service.ckpt_path,
                     "requests_total": stats["requests_total"],
-                    "stateful": True,
-                    "sessions": sessions,
+                    "stateful": service.sessions is not None,
                 }
+                if service.sessions is not None:
+                    model["sessions"] = {
+                        "active": service.sessions.active,
+                        "capacity": service.sessions.capacity,
+                        "evictions_total": service.sessions.evictions_total,
+                    }
                 body = {
                     "status": "ok",
                     "algo": service.handle.algo,
@@ -284,6 +334,9 @@ def serve_checkpoint(cfg, ckpt_path: str, device: torch.device | str) -> None:
     """Blocking CLI loop: start the app, print the address, serve until
     interrupted."""
     app = ServeApp(cfg, ckpt_path, device)
+    if app.unported_defaults:
+        print("Off in this server (the JAX package's server runs them): " + "; ".join(app.unported_defaults),
+              flush=True)
     host, port = app.start()
     print(
         f"Serving {app.handle.algo} checkpoint (step {app.service.ckpt_step}) on {app.service.device} "

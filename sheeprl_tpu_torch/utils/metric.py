@@ -29,6 +29,22 @@ class MeanMetric:
         self._values = []
 
 
+class SumMetric:
+    """The sum of the values since the last reset (0 when none)."""
+
+    def __init__(self, **_: Any):
+        self._values: List[float] = []
+
+    def update(self, value: Any) -> None:
+        self._values.append(float(value))
+
+    def compute(self) -> float:
+        return float(np.sum(np.asarray(self._values, np.float64))) if self._values else 0.0
+
+    def reset(self) -> None:
+        self._values = []
+
+
 class LastValueMetric:
     def __init__(self, **_: Any):
         self._value: Optional[float] = None

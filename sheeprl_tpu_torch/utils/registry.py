@@ -12,8 +12,8 @@ from typing import Any, Callable, Dict, List, Optional
 algorithm_registry: Dict[str, List[Dict[str, Any]]] = {}
 evaluation_registry: Dict[str, List[Dict[str, Any]]] = {}
 #: the modules the port has; importing one registers it
-PORTED_ALGORITHM_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",)
-PORTED_EVALUATION_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.evaluate",)
+PORTED_ALGORITHM_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3", "sheeprl_tpu_torch.algos.ppo.ppo")
+PORTED_EVALUATION_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.evaluate", "sheeprl_tpu_torch.algos.ppo.evaluate")
 
 
 def _register(registry: Dict[str, List[Dict[str, Any]]], fn: Callable, name: str) -> Callable:

@@ -1,5 +1,6 @@
 """Host-side helpers (counterpart of ``sheeprl_tpu/utils/utils.py``): the
-config containers, the replay-ratio budgeter and the run-config archive."""
+config containers, the coefficient decay, the replay-ratio budgeter and the
+run-config archive."""
 
 from __future__ import annotations
 
@@ -44,6 +45,15 @@ def nest_dotted(flat: Mapping[str, Any]) -> Dict[str, Any]:
             node = node.setdefault(part, {})
         node[parts[-1]] = value
     return out
+
+
+def polynomial_decay(current_step: int, *, initial: float = 1.0, final: float = 0.0, max_decay_steps: int = 100,
+                     power: float = 1.0) -> float:
+    """A coefficient decayed polynomially from ``initial`` to ``final`` over
+    ``max_decay_steps`` steps (PPO's clip and entropy annealing)."""
+    if current_step > max_decay_steps or initial == final:
+        return final
+    return (initial - final) * ((1 - current_step / max_decay_steps) ** power) + final
 
 
 class Ratio:

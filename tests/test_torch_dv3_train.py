@@ -621,8 +621,9 @@ def test_run_refuses_options_it_does_not_port(tmp_path, monkeypatch):
     # diagnostics run (the default); the JAX compilation cache has no eager counterpart
     with pytest.raises(NotImplementedError, match="diagnostics.compilation_cache_dir"):
         cli.run(RUN + ["diagnostics.compilation_cache_dir=cache"])
-    with pytest.raises(NotImplementedError, match="executor"):
-        cli.run(RUN + ["env.sync_env=False"])
+    # the executors are ported; video capture is not
+    with pytest.raises(NotImplementedError, match="capture_video"):
+        cli.run(RUN + ["env.capture_video=True"])
     with pytest.raises(NotImplementedError, match="offline"):
         cli.run(RUN + ["algo.offline.enabled=True"])
     with pytest.raises(NotImplementedError, match="model_manager"):
@@ -637,4 +638,4 @@ def test_run_refuses_options_it_does_not_port(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         cli.run(RUN + ["fabric.precision=64-true"])
     with pytest.raises(NotImplementedError, match="not ported"):
-        cli.run(RUN + ["exp=ppo"])
+        cli.run(RUN + ["exp=a2c"])

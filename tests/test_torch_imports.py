@@ -83,3 +83,31 @@ def test_chip_smoke_alone_fails(tmp_path):
         [sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120
     )
     assert out.returncode != 0 and '"ok"' not in out.stdout
+
+
+_WORKER_IMPORTS = """
+import sys
+import sheeprl_tpu_torch.envs.executor, sheeprl_tpu_torch.envs.env, sheeprl_tpu_torch.envs.pipeline
+import sheeprl_tpu_torch.envs.wrappers, sheeprl_tpu_torch.envs.dummy
+print(sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "sheeprl_tpu", "gymnasium")))
+"""
+
+
+def test_env_worker_modules_import_neither_torch_nor_gymnasium():
+    """What a spawned env worker imports to unpickle its env thunks
+    (``envs/executor.py``, ``env.py``, ``wrappers.py``, ``dummy.py``) loads
+    no torch, so it cannot touch CUDA, and no gymnasium, which the card
+    lacks."""
+    out = subprocess.run(
+        [sys.executable, "-c", _WORKER_IMPORTS], cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_ppo_run_raises_where_no_cuda_device(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.run(["exp=ppo", "env=dummy"])
+    assert not (tmp_path / "logs").exists()

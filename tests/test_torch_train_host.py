@@ -125,14 +125,17 @@ def test_vector_env_autoresets_in_the_same_step_and_reports_episodes():
     ends = []
     for step in range(1, 12):
         obs, rewards, terminated, truncated, infos = envs.step(envs.sample_actions(np.random.default_rng(step)))
-        assert rewards.dtype == np.float32 and terminated.shape == truncated.shape == (3,)
+        # gymnasium's SyncVectorEnv layout, as the JAX package's: float64
+        # rewards, the ended episodes' statistics in final_info
+        assert rewards.dtype == np.float64 and terminated.shape == truncated.shape == (3,)
         if terminated.any():
             ends.append(step)
             # the dummy env's last observation rides in final_obs, the reset
             # one comes back
             assert all(f is not None for f in infos["final_obs"])
             assert infos["final_obs"][0]["state"][0] == 5.0 and obs["state"][0, 0] == 0.0
-            assert [length for _, length in infos["episodes"]] == [5, 5, 5]
+            episode = infos["final_info"]["episode"]
+            assert episode["l"][infos["final_info"]["_episode"]].tolist() == [5, 5, 5]
     envs.close()
     assert ends == [5, 10]  # the discrete dummy env ends every fifth step
 
@@ -156,7 +159,7 @@ def test_vector_env_steps_as_the_jax_packages_sync_vector_env():
         for g, w in zip(got[1:4], want[1:4]):
             np.testing.assert_array_equal(g, w)
         final = want[4].get("final_obs", [None, None])
-        for g, w in zip(got[4]["final_obs"], final):
+        for g, w in zip(got[4].get("final_obs", [None, None]), final):
             assert (g is None) == (w is None)
             if w is not None:
                 np.testing.assert_array_equal(g["state"], w["state"])
