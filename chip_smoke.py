@@ -15,7 +15,8 @@ Phases, in order; any failure raises and the script exits non-zero:
             card, fp32 and bf16, at the DreamerV3-S shape (K=1024, H=512;
             B = 1, 8, 37, 128 for serving, 16 and 1024 for the training
             path's dynamic and imagination scans) and the XL shape (K=5120,
-            H=4096; B = 8, 128), with device times of the kernel (warm L2,
+            H=4096; B = 8, 128 and DreamerV3-JEPA's 16, 1024) and XS (K=512,
+            H=256; B = 16, 1024), with device times of the kernel (warm L2,
             and cold: rotating over copies of the inputs that exceed the
             50 MB L2), the plain version, the projection alone as one
             torch.matmul (a partial yardstick the port never calls) and the
@@ -23,7 +24,8 @@ Phases, in order; any failure raises and the script exits non-zero:
             (ragged H of DV1/DV2, M and L, row chunks, a K that needs
             padding), checked but not timed; then a check that the
             ``autograd.Function`` on the card carries a graph and gives all
-            six inputs a gradient, at S B=16 and B=1024, fp32 and bf16 (in
+            six inputs a gradient, at S B=16 and B=1024, fp32 and bf16, and
+            XL B=16 and B=1024 in fp32 (in
             bf16 the gradients arrive in bf16, and in fp32 at fp32 masters
             through the cast); S B=64 and B=48 are the chunked scan's rows
             and its burn-in's at ``rssm_chunks=4``;
@@ -81,14 +83,29 @@ Phases, in order; any failure raises and the script exits non-zero:
             by executor read in the second; and one minibatch update's
             stream time, device-busy time, launches, idle share and FLOPs
             (diagnostics off and on).  PPO runs no hand-written kernel;
-11. timers — a gradient step's stream time, device-busy time, idle share
+11. jepa  — ``run exp=dreamer_v3_jepa env=dummy`` at its composed XL widths
+            (``JEPA_OVERRIDES``: recurrent 4096, dense 1024, CNN multiplier
+            96, 5 layers; batch 16 x 64, horizon 15, fp32, no decoder) under
+            the default diagnostics: every metric finite, ``Loss/jepa_loss``
+            included; the world model, actor, critic, projector and
+            predictor changed; the kernel's launches as the counters predict;
+            the checkpoint verified; a kernel-vs-plain gradient step from it,
+            whose targets moved by exactly the EMA; a resume from it that
+            trains on, ``eval``, and ``serve`` refusing it (as the JAX
+            package does); the XL step's stream and busy time, idle share,
+            launches, FLOPs and MFU;
+12. a2c   — ``run exp=a2c env=dummy`` (an MLP of 64 x 2 on ``state``,
+            RMSprop) for 10 iterations: finite losses and ``Time/sps_*``; a
+            resume from its mid-run checkpoint, ``eval``, ``serve`` to
+            concurrent HTTP clients.  A2C runs no hand-written kernel;
+13. timers — a gradient step's stream time, device-busy time, idle share
             and launches (``step_profile.time_gradient_steps``) for the fp32
             ``rssm_chunks=1`` step and the chunked bf16 one, each with the
             diagnostics off and on (health stats, instrumented: its FLOPs and
             MFU); the CPU's FLOP count of the fp32 step, equal to the card's;
             the journals' MFU, the syncs a step, ``ckpt_end``'s ``write_ms``
             (async and blocking) and every run's kernel launches;
-12. the ``kernels`` JSON line, then the result line.
+14. the ``kernels`` JSON line, then the result line.
 
 It needs no network, writes only under ``build/`` in the checkout, and stops
 every thread it starts.
@@ -121,11 +138,16 @@ PEAK_OPS_PER_S = {"float32": 67e12, "bfloat16": 989e12}
 TOLERANCE = {"float32": 1e-4, "bfloat16": 8e-3}
 S_SHAPE = (512, 512)  # (H, D): K = H + D = 1024
 XL_SHAPE = (4096, 1024)  # K = 5120
+XS_SHAPE = (256, 256)  # K = 512
 # S: serving widths, then the training path's (B = per_rank_batch_size 16 in
 # the dynamic scan, T*B = 1024 rows in imagination; 64 = K*B rows of the
-# chunked scan and 48 = (K-1)*B of its burn-in at rssm_chunks=4)
-KERNEL_CASES = [(S_SHAPE, b) for b in (1, 8, 37, 128, 16, 1024, 64, 48)] + [(XL_SHAPE, b) for b in (8, 128)]
-GRAD_CASES = [(b, d) for d in ("float32", "bfloat16") for b in (16, 1024)]
+# chunked scan and 48 = (K-1)*B of its burn-in at rssm_chunks=4).  XL and
+# XS: DreamerV3-JEPA's two presets (exp=dreamer_v3_jepa, _xs) at the same
+# two training widths; XL also at serving widths
+KERNEL_CASES = [(S_SHAPE, b) for b in (1, 8, 37, 128, 16, 1024, 64, 48)] + \
+    [(XL_SHAPE, b) for b in (8, 128, 16, 1024)] + [(XS_SHAPE, b) for b in (16, 1024)]
+GRAD_CASES = [(S_SHAPE, b, d) for d in ("float32", "bfloat16") for b in (16, 1024)] + \
+    [(XL_SHAPE, b, "float32") for b in (16, 1024)]
 # the graph check: the Function's backward is autograd through the plain
 # version on the saved inputs, so its gradients equal autograd through the
 # plain version by construction, up to the order of the card's reductions
@@ -216,6 +238,29 @@ PPO_OVERRIDES = ["exp=ppo_atari", "env=dummy", "env.id=discrete_dummy", "env.num
 PPO_EPISODE_STEPS = 5
 PPO_TIMED_UPDATES = 10
 PPO_SERVE_CLIENTS, PPO_SERVE_REQUESTS = 16, 16
+# the JEPA phase: exp=dreamer_v3_jepa at its composed XL widths (recurrent
+# 4096, dense 1024, CNN multiplier 96, 5 layers, projector and predictor of
+# 1024; batch 16 x 64, horizon 15, fp32, no decoder; 4 envs), under the
+# default diagnostics, cut in depth: the buffer must hold 64 rows of each
+# env before the first sample, so learning starts at policy step 256; the
+# run checkpoints (with the replay) at iterations 66 and 132 and ends at
+# 148, at a replay ratio that gives it a few gradient steps.  The run
+# resumed from the first checkpoint waits learning_starts again (as the JAX
+# package's does) and, its Ratio restored as saved, owes its first gradient
+# step some 14 iterations after that
+JEPA_OVERRIDES = ["exp=dreamer_v3_jepa", "env=dummy", "env.capture_video=False", "run_name=chip_smoke_jepa",
+                  "algo.learning_starts=256", "algo.total_steps=592", "algo.replay_ratio=0.022", "buffer.size=1024",
+                  "buffer.checkpoint=True", "checkpoint.every=264", "checkpoint.save_last=False",
+                  "metric.logger=null", "metric.log_every=16", "seed=5"]
+JEPA_MIN_GRADIENT_STEPS = 4
+JEPA_TIMED_STEPS = 3
+# the A2C phase: exp=a2c (an MLP of 64 x 2 on `state`, RMSprop, the whole
+# rollout in one step) on the dummy env, 4 envs x 5 steps, 10 iterations, a
+# checkpoint after the 5th and the 10th
+A2C_OVERRIDES = ["exp=a2c", "env=dummy", "env.id=discrete_dummy", "env.num_envs=4", "algo.total_steps=200",
+                 "checkpoint.every=100", "metric.log_every=100", "metric.logger=null", "run_name=chip_smoke_a2c",
+                 "seed=5"]
+A2C_SERVE_CLIENTS, A2C_SERVE_REQUESTS = 8, 8
 
 
 def _card_line() -> str:
@@ -664,31 +709,37 @@ def _train_noise(cfg, actions_dim, gen, device: str = "cuda"):
     return noise
 
 
-def _kernel_vs_plain_step(cfg, agent_state, spaces_, batch, noise, device: str = "cuda"):
+def _kernel_vs_plain_step(cfg, agent_state, spaces_, batch, noise, device: str = "cuda", keep=None):
     """One gradient step from one state, batch and noise, through the kernel
-    and through the plain path: ``[(metrics, {tree: Adam first moments},
-    params)]`` for each."""
+    and through the plain path, with the agent and step of ``cfg``'s
+    algorithm: ``[(metrics, {optimizer: Adam first moments}, params,
+    kept)]`` for each; ``kept`` is the agent and copies of the tensors
+    ``keep(agent)`` names, taken before the step (None without ``keep``)."""
+    import importlib
+
     import torch
 
-    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers, make_train_step
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers
     from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments_state
     from sheeprl_tpu_torch.models import blocks
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru, ln_gru_reference
 
+    family = importlib.import_module(f"sheeprl_tpu_torch.algos.{cfg.algo.name}.{cfg.algo.name}")
     actions_dim, is_continuous, obs_space = spaces_
     results = []
     for plain in (False, True):
-        agent = build_agent(actions_dim, is_continuous, cfg, obs_space, agent_state, device)
+        agent = family.build_agent(actions_dim, is_continuous, cfg, obs_space, agent_state, device)
         optimizers = make_optimizers(cfg, agent)
-        step = make_train_step(agent, optimizers, cfg, is_continuous)
+        step = family.make_train_step(agent, optimizers, cfg, is_continuous)
+        kept = None if keep is None else (agent, [t.detach().clone() for t in keep(agent)])
         with mock.patch.object(blocks, "fused_layernorm_gru", ln_gru_reference if plain else fused_layernorm_gru):
             _, metrics = step(init_moments_state(device), batch, 0.02, None, noise)
         torch.cuda.synchronize()
-        grads = {name: torch.cat([opt.state[p]["exp_avg"].reshape(-1) for p in getattr(agent, name).parameters()])
+        grads = {name: torch.cat([opt.state[p]["exp_avg"].reshape(-1) for p in agent.parameters_of(name)])
                  for name, opt in optimizers.items()}
-        params = torch.cat([p.detach().reshape(-1) for name in optimizers for p in getattr(agent, name).parameters()])
-        results.append((metrics.cpu().numpy(), grads, params))
+        params = torch.cat([p.detach().reshape(-1) for name in optimizers for p in agent.parameters_of(name)])
+        results.append((metrics.cpu().numpy(), grads, params, kept if not plain else None))
+        del step, optimizers
     return results
 
 
@@ -773,7 +824,7 @@ def run_train(build_dir: Path, device_name: str = "cuda") -> dict:
     # kernel and through the plain path
     batch = synthetic_batch(cfg, actions_dim, gen, device)
     noise = _train_noise(cfg, actions_dim, gen, device)
-    (m_kernel, g_kernel, p_kernel), (m_plain, g_plain, p_plain) = _kernel_vs_plain_step(
+    (m_kernel, g_kernel, p_kernel, _), (m_plain, g_plain, p_plain, _) = _kernel_vs_plain_step(
         cfg, agent_state_from_checkpoint(state), (actions_dim, is_continuous, obs_space), batch, noise, device)
     metric_err = float(np.max(np.abs(m_kernel - m_plain) / np.maximum(np.abs(m_plain), 1e-3)))
     grad_err = max(((g_kernel[k] - g_plain[k]).abs().max() / g_plain[k].abs().max()).item() for k in g_plain)
@@ -863,7 +914,7 @@ def run_chunked(build_dir: Path, device_name: str = "cuda") -> dict:
     gen = torch.Generator(device=device).manual_seed(11)
     batch = synthetic_batch(cfg, actions_dim, gen, device)
     noise = _train_noise(cfg, actions_dim, gen, device)
-    (m_kernel, g_kernel, _), (m_plain, g_plain, _) = _kernel_vs_plain_step(
+    (m_kernel, g_kernel, _, _), (m_plain, g_plain, _, _) = _kernel_vs_plain_step(
         cfg, agent_state_from_checkpoint(state), spaces_, batch, noise, device)
     rel = np.abs(m_kernel - m_plain) / np.maximum(np.abs(m_plain), 1e-3)
     loss_err, norm_err = float(rel[:8].max()), float(rel[8:].max())
@@ -1043,7 +1094,7 @@ def run_drill(build_dir: Path, device_name: str = "cuda") -> dict:
                            "changed": [k for k in before if not torch.equal(before[k], after[k])]})
             return moments, metrics
 
-        checked.health_names = step.health_names
+        checked.health_names, checked.metric_order = step.health_names, step.metric_order
         return checked
 
     scraped, stop = {}, threading.Event()
@@ -1390,6 +1441,332 @@ def run_ppo_timers(device_name: str = "cuda") -> dict:
     return out
 
 
+def _jepa_xl_widths(cfg) -> None:
+    wm_cfg = cfg.algo.world_model
+    widths = (wm_cfg.recurrent_model.recurrent_state_size, cfg.algo.dense_units, wm_cfg.encoder.cnn_channels_multiplier,
+              cfg.algo.mlp_layers, wm_cfg.representation_model.hidden_size, wm_cfg.stochastic_size,
+              wm_cfg.discrete_size, cfg.algo.jepa_proj_dim, cfg.algo.jepa_hidden, cfg.algo.per_rank_batch_size,
+              cfg.algo.per_rank_sequence_length, cfg.algo.horizon, cfg.fabric.precision, cfg.env.screen_size,
+              list(cfg.algo.cnn_keys.decoder) + list(cfg.algo.mlp_keys.decoder), cfg.env.num_envs)
+    if widths != (4096, 1024, 96, 5, 1024, 32, 32, 1024, 1024, 16, 64, 15, "32-true", 64, [], 4):
+        raise AssertionError(f"the JEPA config is not exp=dreamer_v3_jepa's XL widths at batch 16 x 64: {widths}")
+
+
+def _jepa_ema_pairs(agent):
+    """Each EMA target of the JEPA heads beside its online tensor."""
+    wm, heads = agent.world_model, agent.jepa
+    online = [p for m in (wm.cnn_encoder, wm.mlp_encoder, heads.projector) if m is not None for p in m.parameters()]
+    return list(heads.target_encoder.parameters()) + list(heads.target_projector.parameters()), online
+
+
+def run_jepa(build_dir: Path, device_name: str = "cuda") -> dict:
+    """DreamerV3-JEPA trains on the card through ``run`` at its composed XL
+    widths (``JEPA_OVERRIDES``): every metric finite, ``Loss/jepa_loss``
+    logged; the world model, actor, critic, projector and predictor all
+    changed; the kernel's launches as the run's counters predict; the
+    journal of the default diagnostics; both checkpoints verified by their
+    manifests; then one gradient step from the last through the kernel and
+    through the plain path, which must agree, the kernel path's
+    targets moved by exactly the EMA of the new online weights."""
+    device = device_name
+    import math
+
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import synthetic_batch
+    from sheeprl_tpu_torch.algos.dreamer_v3_jepa.agent import build_agent
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs.env import make_env
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
+    from sheeprl_tpu_torch.serving.loader import _actions_dim
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    overrides = JEPA_OVERRIDES + [f"root_dir={(build_dir / 'jepa').resolve()}", f"fabric.accelerator={device}"]
+    cfg = compose(overrides)
+    _jepa_xl_widths(cfg)
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    out = cli.run(overrides)
+    torch.cuda.synchronize()
+    launches = fused_layernorm_gru.launches  # the main path ends here
+
+    rows = out["metric_rows"]
+    sps = _timer_metrics(out["logged"], "jepa")
+    jepa_logged = [m["Loss/jepa_loss"] for m in out["logged"] if "Loss/jepa_loss" in m]
+    if (out["gradient_steps"] < JEPA_MIN_GRADIENT_STEPS or rows.shape[1] != 12 or not np.isfinite(rows).all()
+            or not jepa_logged or not all(math.isfinite(v) for v in jepa_logged)):
+        raise AssertionError(f"jepa: {out['gradient_steps']} gradient steps, metric rows {rows}, Loss/jepa_loss "
+                             f"logged {jepa_logged}")
+    predicted, per_step = _launches(cfg, out)
+    if launches != predicted:
+        raise AssertionError(f"jepa: ln_gru launched {launches} times; the run predicts {predicted} "
+                             f"({out['gradient_steps']} gradient steps x {per_step} + {out['player_steps']} player "
+                             f"steps + {out['test_steps']} test steps)")
+    journal = _journal_of(out["log_dir"])
+    _check_diagnostics_journal(journal, "jepa")
+    # the mid-run checkpoint, for the resume (a run resumed from it trains
+    # again), and the last, trained one
+    mid, ckpt = out["checkpoints"][0], out["checkpoints"][-1]
+    for path in (mid, ckpt):
+        if verify_checkpoint(path) != (True, "verified"):
+            raise AssertionError(f"jepa: checkpoint {path} does not verify by its manifest: {verify_checkpoint(path)}")
+    state = load_state(ckpt)
+    env = make_env(cfg, cfg.seed, 0)()
+    actions_dim, is_continuous, _ = _actions_dim(env.action_space)
+    spaces_ = (actions_dim, is_continuous, env.observation_space)
+    env.close()
+    initial = build_agent(actions_dim, is_continuous, cfg, spaces_[2], None, "cpu").trees()
+    changed = {}
+    for tree, sub in (("world_model", None), ("actor", None), ("critic", None), ("jepa", "projector"),
+                      ("jepa", "predictor")):
+        before = dict(_leaves(initial[tree] if sub is None else initial[tree][sub]))
+        after = dict(_leaves(state[tree] if sub is None else state[tree][sub]))
+        changed[sub or tree] = sum(not np.array_equal(before[p], after[p]) for p in before)
+        if changed[sub or tree] == 0:
+            raise AssertionError(f"jepa: training left every parameter of {sub or tree} unchanged")
+    del initial
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    batch = synthetic_batch(cfg, actions_dim, gen, device)
+    noise = _train_noise(cfg, actions_dim, gen, device)
+    (m_kernel, g_kernel, p_kernel, kept), (m_plain, g_plain, p_plain, _) = _kernel_vs_plain_step(
+        cfg, state, spaces_, batch, noise, device, keep=lambda agent: _jepa_ema_pairs(agent)[0])
+    metric_err = float(np.max(np.abs(m_kernel - m_plain) / np.maximum(np.abs(m_plain), 1e-3)))
+    grad_err = max(((g_kernel[k] - g_plain[k]).abs().max() / g_plain[k].abs().max()).item() for k in g_plain)
+    diff = (p_kernel - p_plain).abs()
+    param_err, outliers = diff.max().item(), (diff > STEP_PARAM_ATOL).float().mean().item()
+    if (not np.isfinite(m_kernel).all() or metric_err > STEP_METRIC_RTOL or grad_err > STEP_GRAD_RTOL
+            or outliers > STEP_PARAM_OUTLIERS):
+        raise AssertionError(
+            f"jepa kernel vs plain gradient step: metrics relative error {metric_err} (tol {STEP_METRIC_RTOL}), "
+            f"gradients relative error {grad_err} (tol {STEP_GRAD_RTOL}), share of params off by more than "
+            f"{STEP_PARAM_ATOL}: {outliers} (tol {STEP_PARAM_OUTLIERS}); kernel {m_kernel}, plain {m_plain}")
+    agent, targets_before = kept
+    ema = float(cfg.algo.jepa_ema)
+    targets, online = _jepa_ema_pairs(agent)
+    off = [i for i, (t, b, o) in enumerate(zip(targets, targets_before, online))
+           if not torch.equal(t.detach(), b * ema + o.detach() * (1.0 - ema))]
+    if off or len(targets) != len(online):
+        raise AssertionError(f"jepa: {len(off)} of {len(targets)} targets did not move by exactly the EMA")
+    del agent, kept
+    return {
+        "gradient_steps": out["gradient_steps"], "player_steps": out["player_steps"], "test_steps": out["test_steps"],
+        "policy_steps": out["policy_steps"], "ln_gru_launches": launches, "launches_per_gradient_step": per_step,
+        "changed_leaves": changed, "final_metrics": dict(zip(out["metric_order"], rows[-1].tolist())),
+        "jepa_loss_logged": jepa_logged, "step_metric_rel_err": metric_err, "step_grad_rel_err": grad_err,
+        "step_param_max_abs_err": param_err, "step_param_outliers": outliers, "ema_tensors": len(targets),
+        "checkpoint": ckpt, "mid_checkpoint": mid, "overrides": overrides, "journal": journal, "sps": sps,
+    }
+
+
+def run_jepa_resume(jepa: dict) -> dict:
+    """``run checkpoint.resume_from=<the JEPA run's mid-run checkpoint>``: the heads
+    and the world-model optimizer's state over them restored as saved, and
+    the run trains on."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.interop.flax_params import optax_state
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    saved = load_state(jepa["mid_checkpoint"])
+    restored = {}
+    load_learner_state = dv3.load_learner_state
+
+    def spy_learner(state, agent, optimizers, device):
+        moments = load_learner_state(state, agent, optimizers, device)
+        restored["jepa"] = {path: np.array(v) for path, v in _leaves(agent.trees()["jepa"])}  # copies
+        restored["adam"] = {n: _optax_leaves(optax_state(o, agent.optimizer_spec(n))) for n, o in optimizers.items()}
+        return moments
+
+    overrides = jepa["overrides"] + [f"checkpoint.resume_from={jepa['mid_checkpoint']}", "checkpoint.save_last=True"]
+    cfg = compose(overrides)
+    with mock.patch.object(dv3, "load_learner_state", spy_learner):
+        fused_layernorm_gru.launches = 0  # the main path starts here
+        out = cli.run(overrides)
+        torch.cuda.synchronize()
+        launches = fused_layernorm_gru.launches  # the main path ends here
+    problems = []
+    for path, value in _leaves(saved["jepa"]):
+        if not np.array_equal(restored["jepa"][path], value):
+            problems.append(f"jepa{path}")
+    for name, entry in saved["opt_states"].items():
+        for path, value in _optax_leaves(entry).items():
+            if not np.array_equal(restored["adam"][name].get(path), value):
+                problems.append(f"Adam {name} {path}")
+    predicted, _ = _launches(cfg, out)
+    if (out["start_iter"] != saved["iter_num"] + 1 or out["gradient_steps"] < 1 or launches != predicted
+            or not np.isfinite(out["metric_rows"]).all()):
+        problems.append(f"start_iter {out['start_iter']}, {out['gradient_steps']} gradient steps, {launches} "
+                        f"launches (predicted {predicted}), metrics {out['metric_rows']}")
+    if problems:
+        raise AssertionError(f"jepa resume from {jepa['mid_checkpoint']}: " + "; ".join(problems[:10]))
+    return {"start_iter": out["start_iter"], "gradient_steps": out["gradient_steps"],
+            "player_steps": out["player_steps"], "test_steps": out["test_steps"], "ln_gru_launches": launches,
+            "checkpoint": out["checkpoints"][-1]}
+
+
+def run_jepa_eval(jepa: dict, device_name: str = "cuda") -> dict:
+    """``eval`` of the JEPA checkpoint (its policy acts through the kernel),
+    then ``serve``, which refuses it as the JAX package's does (no
+    adapter for ``dreamer_v3_jepa``)."""
+    import math
+
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.serving.server import ServeApp
+
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    reward = cli.evaluation([f"checkpoint_path={jepa['checkpoint']}"])
+    torch.cuda.synchronize()
+    launches = fused_layernorm_gru.launches  # the main path ends here
+    if not math.isfinite(reward) or launches < 1:
+        raise AssertionError(f"jepa eval: test reward {reward}, {launches} ln_gru launches")
+    cfg, ckpt_path, device = cli.serve_config([f"checkpoint_path={jepa['checkpoint']}", "serving.port=0",
+                                               f"fabric.accelerator={device_name}"])
+    try:
+        app = ServeApp(cfg, ckpt_path, device)
+    except ValueError as err:
+        refusal = str(err)
+    else:
+        app.close()
+        raise AssertionError("serve accepted a dreamer_v3_jepa checkpoint; the JAX package has no adapter for it")
+    if "no servable adapter" not in refusal:
+        raise AssertionError(f"serve refused the JEPA checkpoint for another reason: {refusal}")
+    return {"test_reward": reward, "ln_gru_launches": launches, "serve_refusal": refusal}
+
+
+def run_jepa_timer(device_name: str = "cuda") -> dict:
+    """The XL gradient step as the default diagnostics build it (health
+    stats in the step, telemetry's instrumentation counting its FLOPs at
+    its first call): stream time, device-busy time, idle share, launches,
+    FLOPs and the step's MFU against the card's fp32 peak."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import profiled_step, time_gradient_steps
+    from sheeprl_tpu_torch.diagnostics.telemetry import resolve_peak_flops
+
+    torch.cuda.reset_peak_memory_stats()
+    step, moments, batch, gen = profiled_step(["exp=dreamer_v3_jepa"], device_name, True)
+    timing = time_gradient_steps(step, moments, batch, gen, JEPA_TIMED_STEPS, warmup=2, profile=True)
+    gru = [v for k, v in timing["kernels"].items() if "ln_gru" in k]
+    peak = resolve_peak_flops(torch.cuda.get_device_name(0), "32-true")
+    out = {"step_ms": timing["step_ms"], "stream_ms": timing["stream_ms"], "busy_ms": timing["busy_ms"],
+           "idle_share": timing["idle_share"], "launches": timing["launches"],
+           "ln_gru_launches": sum(v[0] for v in gru) // JEPA_TIMED_STEPS,
+           "ln_gru_ms": sum(v[1] for v in gru) / 1e3 / JEPA_TIMED_STEPS, "flops_per_step": step.flops_per_call,
+           "step_mfu": step.flops_per_call / (timing["step_ms"] / 1e3) / peak if peak else None,
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+           "top": sorted(((v[1] / JEPA_TIMED_STEPS / 1e3, k[:60]) for k, v in timing["kernels"].items()),
+                         reverse=True)[:5]}
+    del step, moments, batch
+    return out
+
+
+def run_a2c(build_dir: Path, device_name: str = "cuda") -> dict:
+    """``run exp=a2c env=dummy`` on the card (``A2C_OVERRIDES``): finite
+    losses and ``Time/sps_*``; a resume from its mid-run checkpoint, which
+    restores RMSprop's state and trains on; ``eval`` of its last
+    checkpoint; ``serve`` of it to concurrent HTTP clients."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.serving.server import ServeApp
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+    from sheeprl_tpu_torch.utils.optim import RMSprop
+
+    overrides = A2C_OVERRIDES + [f"root_dir={(build_dir / 'a2c').resolve()}", f"fabric.accelerator={device_name}"]
+    out = cli.run(overrides)
+    rows = out["metric_rows"]
+    if out["iterations"] != 10 or rows.shape != (10, 3) or not np.isfinite(rows).all() or len(out["checkpoints"]) != 2:
+        raise AssertionError(f"a2c: {out['iterations']} iterations, metric rows {rows}, checkpoints "
+                             f"{out['checkpoints']}")
+    sps = _timer_metrics(out["logged"], "a2c")
+    first = out["checkpoints"][0]
+    saved = load_state(first)
+    restored = {}
+    rms_load = RMSprop.load_state_dict
+
+    def spy(self, state_dict):
+        restored["nu"] = [v["nu"].clone() for v in state_dict["state"].values()]
+        return rms_load(self, state_dict)
+
+    with mock.patch.object(RMSprop, "load_state_dict", spy):
+        resumed = cli.run(overrides + [f"checkpoint.resume_from={first}", "algo.run_test=False"])
+    saved_nu = [np.asarray(v) for _, v in _leaves(saved["opt_state"][0][0][0])]
+    if (resumed["start_iter"] != saved["iter_num"] + 1 or resumed["iterations"] != 5
+            or not np.isfinite(resumed["metric_rows"]).all() or len(restored.get("nu", [])) != len(saved_nu)
+            or not np.allclose(sorted(float(np.abs(v).astype(np.float64).sum()) for v in saved_nu),
+                               sorted(float(v.abs().double().sum()) for v in restored["nu"]), rtol=1e-6, atol=0)):
+        raise AssertionError(f"a2c resume from {first}: start_iter {resumed['start_iter']}, {resumed['iterations']} "
+                             f"iterations, RMSprop nu restored {len(restored.get('nu', []))} of {len(saved_nu)}")
+    reward = cli.evaluation([f"checkpoint_path={out['checkpoints'][-1]}"])
+    if not math.isfinite(reward):
+        raise AssertionError(f"a2c eval: test reward {reward}")
+
+    cfg, ckpt_path, device = cli.serve_config(
+        [f"checkpoint_path={out['checkpoints'][-1]}", "serving.port=0", "serving.batch_buckets=[4,8]",
+         "serving.max_delay_ms=5.0", f"fabric.accelerator={device_name}"])
+    app = ServeApp(cfg, ckpt_path, device)
+    try:
+        host, port = app.start()
+        url = f"http://{host}:{port}"
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
+            health = json.loads(resp.read())
+        if health.get("algo") != "a2c" or health["models"]["default"]["stateful"] is not False:
+            raise AssertionError(f"a2c /healthz: {health}")
+        replies, latencies, lock = [], [], threading.Lock()
+
+        def client(i: int) -> None:
+            rng = np.random.default_rng(3000 + i)
+            for j in range(A2C_SERVE_REQUESTS):
+                t0 = time.perf_counter()
+                status, reply = _post(url, {"obs": {"state": rng.normal(size=10).tolist()}, "greedy": (i + j) % 2 == 0})
+                with lock:
+                    latencies.append((time.perf_counter() - t0) * 1e3)
+                    replies.append((status, reply))
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(A2C_SERVE_CLIENTS)]
+        t_start = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall_s = time.perf_counter() - t_start
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("an A2C serve client did not finish within 300 s")
+        actions = np.asarray([r[1].get("action") for r in replies if r[0] == 200], dtype=np.float64)
+        if len(actions) != A2C_SERVE_CLIENTS * A2C_SERVE_REQUESTS or actions.shape[1:] != (1,) or \
+                not np.isin(actions, (0.0, 1.0)).all():
+            raise AssertionError(f"a2c serve: {len(actions)} good replies of {len(replies)}, actions {actions[:4]}")
+        probe = np.random.default_rng(98).normal(size=10).astype(np.float32)
+        status, reply = _post(url, {"obs": {"state": probe.tolist()}, "greedy": True})
+        direct = app.handle.make_step(True)(app.handle.params, {"state": torch.from_numpy(probe[None]).to(device)},
+                                            None).cpu().numpy()[0]
+        if status != 200 or reply["action"] != direct.tolist():
+            raise AssertionError(f"a2c serve: greedy reply {status} {reply} != the agent's {direct}")
+    finally:
+        app.close()
+    lat = sorted(latencies)
+    return {"iterations": out["iterations"], "final_losses": dict(zip(("policy", "value", "grad_norm"),
+                                                                      rows[-1].tolist())),
+            "value_ev": out["health_rows"].get("value_ev", np.zeros(0)).tolist(), "sps": sps,
+            "resume_start_iter": resumed["start_iter"], "test_reward": reward, "requests": len(replies),
+            "requests_per_s": len(replies) / wall_s, "latency_p50_ms": lat[len(lat) // 2],
+            "latency_p99_ms": lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))]}
+
+
 def run_timers(device_name: str = "cuda") -> dict:
     """Phase 10: the one gradient-step timer, profiled, for the fp32
     ``rssm_chunks=1`` step and the chunked bf16 one, each built as
@@ -1501,9 +1878,10 @@ def main() -> int:
             row = measure_ln_gru(batch, hidden, in_dim, dtype_name, seed=1, timed=False)
             print(f"[kernel] ln_gru sweep B={batch:<4d} K={row['K']:<5d} H={hidden:<5d} {dtype_name:<8s} "
                   f"max_abs_err={row['max_abs_err']:.3g} (tol {row['tolerance']:g})", flush=True)
-    for batch, dtype_name in GRAD_CASES:
-        err = check_ln_gru_graph(batch, *S_SHAPE, dtype_name)
-        print(f"[kernel] ln_gru autograd graph B={batch:<4d} K=1024 H=512 {dtype_name}: the output carries a graph; "
+    for (hidden, in_dim), batch, dtype_name in GRAD_CASES:
+        err = check_ln_gru_graph(batch, hidden, in_dim, dtype_name)
+        print(f"[kernel] ln_gru autograd graph B={batch:<4d} K={hidden + in_dim} H={hidden} {dtype_name}: the output "
+              f"carries a graph; "
               f"joint, w, b, g, beta, h all get a finite {dtype_name} gradient, equal to autograd through the plain "
               f"version (the backward's own recompute) to {err:.3g} relative (tol {GRAD_TOLERANCE[dtype_name]:g}), "
               f"and their fp32 masters a finite fp32 gradient through the cast", flush=True)
@@ -1629,6 +2007,56 @@ def main() -> int:
               f"device busy {t['busy_ms']:.3f} ms (torch.profiler), {t['launches']} launches, idle share "
               f"{t['idle_share']:.4f}; top kernels (ms, name) {t['top']}  [{card}]", flush=True)
 
+    jepa = run_jepa(build_dir)
+    xl_cases = {(c["B"], c["dtype"]): c for c in cases if c["H"] == XL_SHAPE[0]}
+    print(
+        f"[jepa] DreamerV3-JEPA run exp=dreamer_v3_jepa at its XL widths (recurrent 4096, dense 1024, CNN "
+        f"multiplier 96, 5 layers, projector/predictor 1024; batch 16 x 64, horizon 15, fp32, no decoder): "
+        f"{jepa['gradient_steps']} gradient steps, {jepa['player_steps']} player steps, {jepa['test_steps']} "
+        f"test-episode steps, {jepa['policy_steps']} policy steps; {jepa['ln_gru_launches']} ln_gru launches = "
+        f"predicted ({jepa['launches_per_gradient_step']} per gradient step: 64 x 16 rows + 15 x 1024 at K=5120 "
+        f"H=4096); every metric finite, Loss/jepa_loss logged {jepa['jepa_loss_logged']}, final "
+        f"{json.dumps(jepa['final_metrics'])}; leaves changed {jepa['changed_leaves']}; checkpoint verified by its "
+        f"manifest; Time/sps_train {jepa['sps']['Time/sps_train']}, Time/sps_env_interaction "
+        f"{jepa['sps']['Time/sps_env_interaction']}; journal Telemetry/mfu {jepa['journal']['mfu']}, FLOPs counted "
+        f"{jepa['journal']['flops_per_step']}  [{card}]", flush=True)
+    print(
+        f"[jepa] kernel vs plain XL gradient step from the checkpoint's state, one batch and noise: metrics max "
+        f"relative error {jepa['step_metric_rel_err']:.3g} (tol {STEP_METRIC_RTOL:g}), gradients "
+        f"{jepa['step_grad_rel_err']:.3g} (tol {STEP_GRAD_RTOL:g}), params off by more than {STEP_PARAM_ATOL:g}: "
+        f"{jepa['step_param_outliers']:.3g} (tol {STEP_PARAM_OUTLIERS:g}), max_abs_err "
+        f"{jepa['step_param_max_abs_err']:.3g} (not held); all {jepa['ema_tensors']} target tensors moved by "
+        f"exactly the EMA of the new online weights  [{card}]", flush=True)
+    jepa_resumed = run_jepa_resume(jepa)
+    print(f"[jepa] resume from {jepa['mid_checkpoint']}: the jepa tree and the world-model optimizer's optax state "
+          f"over (world model, heads) restored as saved; started at iteration {jepa_resumed['start_iter']}, "
+          f"{jepa_resumed['gradient_steps']} gradient steps, {jepa_resumed['player_steps']} player steps, "
+          f"{jepa_resumed['test_steps']} test steps, {jepa_resumed['ln_gru_launches']} ln_gru launches = predicted  "
+          f"[{card}]", flush=True)
+    jepa_evaluated = run_jepa_eval(jepa)
+    print(f"[jepa] eval checkpoint_path={jepa['checkpoint']}: Test/cumulative_reward {jepa_evaluated['test_reward']}, "
+          f"{jepa_evaluated['ln_gru_launches']} ln_gru launches; serve refused it: "
+          f"{jepa_evaluated['serve_refusal'][:90]}  [{card}]", flush=True)
+    jepa_timer = run_jepa_timer()
+    fwd = 64 * xl_cases[(16, "float32")]["ms"] + 15 * xl_cases[(1024, "float32")]["ms"]
+    print(f"[jepa-timer] DreamerV3-JEPA XL gradient step (fp32, default diagnostics): median stream time "
+          f"{jepa_timer['step_ms']:.3f} ms (CUDA events; {[round(x, 3) for x in jepa_timer['stream_ms']]}), device "
+          f"busy {jepa_timer['busy_ms']:.3f} ms (torch.profiler), idle share {jepa_timer['idle_share']:.4f}, "
+          f"{jepa_timer['launches']} launches a step, ln_gru {jepa_timer['ln_gru_launches']} launches "
+          f"{jepa_timer['ln_gru_ms']:.4f} ms a step (the XL kernel cases predict a forward of {fwd:.4f} ms); "
+          f"{jepa_timer['flops_per_step']:.6g} FLOPs a step counted, step MFU {jepa_timer['step_mfu']}; peak memory "
+          f"{jepa_timer['max_memory_gb']:.2f} GiB; top kernels (ms, name) {jepa_timer['top']}  [{card}]", flush=True)
+
+    a2c = run_a2c(build_dir)
+    print(f"[a2c] run exp=a2c env=dummy (MLP 64 x 2 on state, RMSprop, 4 envs x 5 steps, 10 iterations): final "
+          f"losses {json.dumps(a2c['final_losses'])}, value_ev {a2c['value_ev'][-1]}, Time/sps_env_interaction "
+          f"{a2c['sps']['Time/sps_env_interaction']}, Time/sps_train {a2c['sps']['Time/sps_train']}; resumed from its "
+          f"mid-run checkpoint at iteration {a2c['resume_start_iter']} with RMSprop's state restored and trained on; "
+          f"eval Test/cumulative_reward {a2c['test_reward']}; serve: {a2c['requests']} /act from "
+          f"{A2C_SERVE_CLIENTS} concurrent clients, all 200, the greedy probe equal to the agent's, "
+          f"{a2c['requests_per_s']:.2f} requests/s, p50 {a2c['latency_p50_ms']:.2f} ms, p99 "
+          f"{a2c['latency_p99_ms']:.2f} ms. A2C runs no hand-written kernel  [{card}]", flush=True)
+
     timers = run_timers()
     for name, t in timers.items():
         fp32 = name.startswith("fp32")
@@ -1680,7 +2108,9 @@ def main() -> int:
           f"{train['journal']['checkpoint_span_s']} s  [{card}]", flush=True)
     print(f"[launches] ln_gru launches: serve {slice_report['ln_gru_launches']}, train {train['ln_gru_launches']}, "
           f"chunked {chunked['ln_gru_launches']}, resume {resumed['ln_gru_launches']}, eval "
-          f"{evaluated['ln_gru_launches']}, drill resume {drill['ln_gru_launches']}  [{card}]", flush=True)
+          f"{evaluated['ln_gru_launches']}, drill resume {drill['ln_gru_launches']}, jepa {jepa['ln_gru_launches']}, "
+          f"jepa resume {jepa_resumed['ln_gru_launches']}, jepa eval {jepa_evaluated['ln_gru_launches']}  [{card}]",
+          flush=True)
 
     # the kernels line: the kernel at the shape the main paths gave it most
     # (the serving dispatch width or the dynamic scan's B=16), and every case
@@ -1690,7 +2120,9 @@ def main() -> int:
     main = s_cases.get((main_b, "float32")) or measure_ln_gru(main_b, *S_SHAPE, "float32")
     by_path = {"serve": slice_report["ln_gru_launches"], "train": train["ln_gru_launches"],
                "train_bf16_chunked": chunked["ln_gru_launches"], "resume": resumed["ln_gru_launches"],
-               "eval": evaluated["ln_gru_launches"], "drill_resume": drill["ln_gru_launches"]}
+               "eval": evaluated["ln_gru_launches"], "drill_resume": drill["ln_gru_launches"],
+               "jepa": jepa["ln_gru_launches"], "jepa_resume": jepa_resumed["ln_gru_launches"],
+               "jepa_eval": jepa_evaluated["ln_gru_launches"]}
     case_keys = ("B", "K", "H", "dtype", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms", "bound_ms", "bound_by")
     kernels = [{
         "name": "ln_gru",
@@ -1708,7 +2140,7 @@ def main() -> int:
         "library_ms": main["library_ms"],
         "shape": {"B": main["B"], "K": main["K"], "H": main["H"], "dtype": main["dtype"]},
         "cases": [{k: c[k] for k in case_keys} for c in cases],
-        "phase": "kernel+slice+train+chunked+resume+eval+drill",
+        "phase": "kernel+slice+train+chunked+resume+eval+drill+jepa",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

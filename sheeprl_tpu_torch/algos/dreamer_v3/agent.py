@@ -534,12 +534,32 @@ def _uniform_fan_avg_(weight: torch.Tensor, fan_in: int, fan_out: int, generator
 
 class Agent(NamedTuple):
     """The four module trees of a DreamerV3 agent, as a checkpoint holds
-    them."""
+    them.  The training loop reaches what an optimizer trains and what a
+    checkpoint holds through the methods, which a family with more modules
+    (DreamerV3-JEPA) defines for its own."""
 
     world_model: WorldModel
     actor: Actor
     critic: Critic
     target_critic: Critic
+
+    def parameters_of(self, name: str) -> List[nn.Parameter]:
+        """What the optimizer ``name`` (world_model, actor or critic) trains."""
+        return list(getattr(self, name).parameters())
+
+    def optimizer_spec(self, name: str) -> Dict[str, Any]:
+        """:meth:`parameters_of` ``name`` in the layout of the flax tree its
+        optax state follows (``interop/flax_params.py``)."""
+        from sheeprl_tpu_torch.interop.flax_params import param_spec
+
+        return param_spec(*self)[name]
+
+    def trees(self) -> Dict[str, Any]:
+        """The weights as a checkpoint holds them: the JAX package's four
+        flax trees (numpy)."""
+        from sheeprl_tpu_torch.interop.flax_params import to_flax
+
+        return to_flax(*self)
 
 
 @torch.no_grad()

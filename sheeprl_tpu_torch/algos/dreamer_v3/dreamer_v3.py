@@ -6,7 +6,11 @@ A gradient step follows the JAX package's ``make_train_step`` in order: the
 Polyak update of the target critic; the world-model loss over the dynamic
 scan and its update; the actor loss over the imagination scan, against the
 world model as just updated, with the Moments update; the critic loss and
-update; the 11-entry metric vector.  JAX differentiates only the tree handed
+update; the 11-entry metric vector.  A family that adds a term to the
+world-model objective (DreamerV3-JEPA) reaches this step through its
+``term`` seam (:class:`WorldModelTerm`), and the loop through
+:func:`_dreamer_main`, as the JAX package runs its family through its
+``_dreamer_main``.  JAX differentiates only the tree handed
 to ``value_and_grad``; here each loss is differentiated with
 ``torch.autograd.grad`` over its own module's parameters, and the modules a
 loss only reads have ``requires_grad`` off while it runs, so no gradient of
@@ -25,7 +29,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Any, Dict, Iterator, List, Optional, Sequence
+from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Protocol, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -81,13 +85,38 @@ def frozen(*modules: nn.Module) -> Iterator[None]:
 
 
 def make_optimizers(cfg, agent: Agent) -> Dict[str, torch.optim.Optimizer]:
-    """One optimizer per trained module, from ``algo.<module>.optimizer``."""
+    """One optimizer per trained module, from ``algo.<module>.optimizer``,
+    over what ``agent.parameters_of`` the module."""
     from sheeprl_tpu_torch.config import instantiate
 
-    return {name: instantiate(cfg.algo[name].optimizer)(getattr(agent, name).parameters()) for name in TRAINED}
+    return {name: instantiate(cfg.algo[name].optimizer)(agent.parameters_of(name)) for name in TRAINED}
 
 
-def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, is_continuous: bool):
+class WorldModelTerm(Protocol):
+    """A term a family adds to the world-model objective, with what it needs
+    around the world-model update (DreamerV3-JEPA's auxiliary loss).
+
+    ``modules`` run in the loss's compute dtype beside the world model;
+    ``loss(batch_obs, generator, noise)`` (called inside the world-model
+    loss) returns the weighted term that loss adds and the entries
+    appended to the metric vector, named ``metric_names``;
+    ``health_groups`` names the parameters of the world-model optimizer
+    that the health stats count as modules of their own, in the stats'
+    module order after ``world_model``; ``after_update()`` runs right after
+    the world-model update."""
+
+    modules: Sequence[nn.Module]
+    metric_names: Sequence[str]
+    health_groups: Mapping[str, Sequence[torch.Tensor]]
+
+    def loss(self, batch_obs: Dict[str, torch.Tensor], generator: Optional[torch.Generator],
+             noise: Dict[str, Any]) -> Tuple[torch.Tensor, List[torch.Tensor]]: ...
+
+    def after_update(self) -> None: ...
+
+
+def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, is_continuous: bool,
+                    term: Optional[WorldModelTerm] = None):
     """Build one gradient step:
     ``train_step(moments_state, batch, tau, generator=None, noise=None) ->
     (moments_state, metrics)``.  The modules and optimizers update in place.
@@ -104,16 +133,21 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
     ``"imagination"`` the prior Gumbel noise ``[H, T*B, stoch, discrete]``;
     ``"actor"`` a list of ``H + 1`` per-head lists (Gumbel noise of each
     discrete head, or the standard-normal draw of the continuous head) for
-    the first action and each imagined step's.
+    the first action and each imagined step's; a ``term`` reads its own.
 
+    ``term`` adds its loss to the world-model loss (the first metric is
+    their sum, as in the JAX family's steps), its metric entries after the
+    11 (``train_step.metric_order`` names them all), and its modules to what
+    ``skip_update`` reverts when they are modules of ``agent``; the
+    world-model gradient norm of the metrics stays the world model's own.
     With ``diagnostics.health`` on, ``metrics`` carries the health stats
-    after the 11 losses and norms, in the order of ``train_step.health_names``
+    after the losses and norms, in the order of ``train_step.health_names``
     (the gradients before clipping, the update as the applied delta, the
     parameters after it).  With ``diagnostics.sentinel.policy=skip_update``
     a step whose losses or gradient norms are not all finite leaves every
     parameter (the target critic's too), Adam state and the Moments as they
     were, selected on the device (:func:`skip_update_guard`)."""
-    world_model, actor, critic, target_critic = agent
+    world_model, actor, critic, target_critic = agent.world_model, agent.actor, agent.critic, agent.target_critic
     wm_cfg = cfg.algo.world_model
     stoch, discrete = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
     recurrent_size = int(wm_cfg.recurrent_model.recurrent_state_size)
@@ -130,23 +164,40 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
         "actor": float(cfg.algo.actor.clip_gradients),
         "critic": float(cfg.algo.critic.clip_gradients),
     }
-    params = {name: list(getattr(agent, name).parameters()) for name in TRAINED}
+    params = {name: [p for group in optimizers[name].param_groups for p in group["params"]] for name in TRAINED}
+    metric_order = METRIC_ORDER + list(term.metric_names if term is not None else ())
+    term_modules = tuple(term.modules) if term is not None else ()
+    term_params = {id(p) for group in (term.health_groups.values() if term is not None else ()) for p in group}
     sentinel, health = sentinel_spec(cfg), health_spec(cfg)
-    health_out = health_names(TRAINED, health.per_module) if health.enabled else []
     if health.enabled:
+        # the stats' modules: the optimizers', the world model's split by
+        # the term's groups
+        groups = {"world_model": [p for p in params["world_model"] if id(p) not in term_params],
+                  **(dict(term.health_groups) if term is not None else {}),
+                  "actor": params["actor"], "critic": params["critic"]}
+        position = {id(p): (name, i) for name in TRAINED for i, p in enumerate(params[name])}
+        where = {g: [position[id(p)] for p in ps] for g, ps in groups.items()}
+        health_out = health_names(list(groups), health.per_module)
         # the parameters before each update, for the applied delta
         before = {name: [torch.empty_like(p) for p in params[name]] for name in TRAINED}
-        unit_dims = health_unit_dims(agent, params)
+        unit_dims = health_unit_dims(agent, groups)
+    else:
+        health_out = []
     if sentinel.skip_update:
         guarded, snapshot = skip_update_guard(agent, optimizers.values())
     step_grads: Dict[str, List[torch.Tensor]] = {}
 
     def update(name: str, loss: torch.Tensor) -> torch.Tensor:
-        """Gradient of ``loss`` over one module, clipped by global norm, one
-        optimizer step; returns the norm before clipping."""
+        """Gradient of ``loss`` over one optimizer's parameters, clipped by
+        their global norm, one optimizer step; returns the norm before
+        clipping (of the world model's own parameters for ``world_model``)."""
         grads = torch.autograd.grad(loss, params[name], allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params[name], grads)]
         norm = global_norm(grads)
+        if term_params and name == "world_model":
+            metric_norm = global_norm([g for p, g in zip(params[name], grads) if id(p) not in term_params])
+        else:
+            metric_norm = norm
         for p, g in zip(params[name], clip_by_global_norm(grads, clip[name])):
             p.grad = g
         if health.enabled:
@@ -155,7 +206,7 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
                 torch._foreach_copy_(before[name], params[name])
         optimizers[name].step()
         optimizers[name].zero_grad(set_to_none=True)
-        return norm
+        return metric_norm
 
     def train_step(moments_state: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], tau: float,
                    generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
@@ -203,11 +254,15 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
                 wm_cfg.kl_dynamic, wm_cfg.kl_representation, wm_cfg.kl_free_nats, wm_cfg.kl_regularizer,
                 pc, 1 - batch["terminated"], wm_cfg.continue_scale_factor,
             )
-            return losses, posteriors, recurrents
+            extra = term.loss(batch_obs, generator, noise) if term is not None else None
+            return losses, posteriors, recurrents, extra
 
-        losses, posteriors, recurrents = call_cast((world_model,), cdt, world_model_loss)
+        losses, posteriors, recurrents, extra = call_cast((world_model, *term_modules), cdt, world_model_loss)
         rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
-        wm_norm = update("world_model", rec_loss)
+        wm_loss = rec_loss if extra is None else rec_loss + extra[0]
+        wm_norm = update("world_model", wm_loss)
+        if term is not None:
+            term.after_update()
 
         # --- behaviour learning, against the world model as just updated --
         posteriors = posteriors.detach().reshape(T * B, stoch * discrete)
@@ -271,48 +326,53 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
         critic_norm = update("critic", value_loss)
 
         metrics = torch.stack([
-            rec_loss, observation_loss, reward_loss, state_loss, continue_loss, kl, policy_loss, value_loss,
-            wm_norm, actor_norm, critic_norm,
+            wm_loss, observation_loss, reward_loss, state_loss, continue_loss, kl, policy_loss, value_loss,
+            wm_norm, actor_norm, critic_norm, *(extra[1] if extra is not None else ()),
         ]).float().detach()
         if health.enabled:
             # the stats ride the metric vector, so the log interval's one
             # fetch carries them: no sync of their own
             with torch.no_grad():
-                updates = {name: torch._foreach_sub(params[name], before[name]) for name in TRAINED}
-                stats = health_stats(step_grads, updates, params, unit_dims=unit_dims,
+                deltas = {name: torch._foreach_sub(params[name], before[name]) for name in TRAINED}
+
+                def regroup(by_optimizer):
+                    return {g: [by_optimizer[n][i] for n, i in at] for g, at in where.items()}
+
+                stats = health_stats(regroup(step_grads), regroup(deltas), groups, unit_dims=unit_dims,
                                      per_module=health.per_module, dead_eps=health.dead_eps)
             metrics = torch.cat([metrics, torch.stack([stats[k] for k in health_out]).float()])
         step_grads.clear()
         if sentinel.skip_update:
             # the step's losses and gradient norms stand for every update:
             # a non-finite one discards them all, on the device
-            finite = torch.isfinite(metrics[:len(METRIC_ORDER)]).all()
+            finite = torch.isfinite(metrics[:len(metric_order)]).all()
             select_finite(finite, guarded, snapshot)
             moments_state = {k: torch.where(finite, v, prev_moments[k]) for k, v in moments_state.items()}
         return moments_state, metrics
 
     train_step.health_names = health_out
+    train_step.metric_order = metric_order
 
     return train_step
 
 
-def health_unit_dims(agent: Agent, params: Dict[str, List[torch.Tensor]]) -> Dict[str, List[int]]:
+def health_unit_dims(agent: Agent, params: Mapping[str, Sequence[torch.Tensor]]) -> Dict[str, List[int]]:
     """Each trained parameter's unit axis: the torch axis of its flax leaf's
     last axis, by the weight converter's layout kinds (``health.unit_dim``),
     so that ``dead_frac`` counts the units the JAX package counts."""
     from sheeprl_tpu_torch.diagnostics.health import unit_dim
-    from sheeprl_tpu_torch.interop.flax_params import param_spec
 
     kinds: Dict[int, str] = {}
 
-    def walk(spec: Dict[str, Any]) -> None:
-        for sub in spec.values():
-            if isinstance(sub, dict):
+    def walk(spec: Any) -> None:
+        for sub in (spec if isinstance(spec, list) else spec.values()):
+            if isinstance(sub, (dict, list)):
                 walk(sub)
             else:
                 kinds[id(sub[0])] = sub[1]
 
-    walk(param_spec(*agent))
+    for name in TRAINED:
+        walk(agent.optimizer_spec(name))
     return {name: [unit_dim(kinds.get(id(p), "same"), p.dim()) for p in ps] for name, ps in params.items()}
 
 
@@ -332,11 +392,10 @@ def load_learner_state(state: Dict[str, Any], agent: Agent, optimizers: Dict[str
                        device: torch.device | str) -> Dict[str, torch.Tensor]:
     """A checkpoint's optimizer states (the port's or the JAX package's
     optax states) into ``optimizers``; returns its Moments state."""
-    from sheeprl_tpu_torch.interop.flax_params import optimizer_state_dict, param_spec
+    from sheeprl_tpu_torch.interop.flax_params import optimizer_state_dict
 
-    spec = param_spec(*agent)
     for name, opt in optimizers.items():
-        opt.load_state_dict(optimizer_state_dict(state["opt_states"][name], opt, spec[name]))
+        opt.load_state_dict(optimizer_state_dict(state["opt_states"][name], opt, agent.optimizer_spec(name)))
     return {k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=device) for k, v in state["moments"].items()}
 
 
@@ -355,12 +414,32 @@ def _unported_options(cfg) -> List[str]:
     return out
 
 
+def build_dreamer_agent(actions_dim: Sequence[int], is_continuous: bool, cfg, obs_space,
+                        state: Optional[Mapping[str, Any]], device: torch.device | str) -> Agent:
+    """DreamerV3's agent for :func:`_dreamer_main`: from the four trees of a
+    checkpoint ``state``, or from the seed when there is none."""
+    trees = None if state is None else {k: state[k] for k in ("world_model", "actor", "critic", "target_critic")}
+    return build_agent(actions_dim, is_continuous, cfg, obs_space, trees, device)
+
+
 @register_algorithm()
 def main(runtime, cfg) -> Dict[str, Any]:
-    """The DreamerV3 loop: prefill with random actions, then per iteration a
-    policy step of every env, a replay write, the gradient steps the replay
-    ratio owes, logging and checkpoints; one test episode at the end when
-    ``algo.run_test``.  With ``checkpoint.resume_from`` (a file, resolved by
+    """The DreamerV3 loop (:func:`_dreamer_main` with DreamerV3's agent and
+    step)."""
+    return _dreamer_main(runtime, cfg, build_dreamer_agent, make_train_step)
+
+
+def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train_step_fn: Callable) -> Dict[str, Any]:
+    """The DreamerV3 family's loop (the JAX package's ``_dreamer_main``):
+    prefill with random actions, then per iteration a policy step of every
+    env, a replay write, the gradient steps the replay ratio owes, logging
+    and checkpoints; one test episode at the end when ``algo.run_test``.
+    ``build_agent_fn(actions_dim, is_continuous, cfg, obs_space, state,
+    device)`` builds the agent (from the checkpoint ``state`` when
+    resuming), whose methods say what each optimizer trains and what a
+    checkpoint holds (:class:`~sheeprl_tpu_torch.algos.dreamer_v3.agent.Agent`);
+    ``make_train_step_fn(agent, optimizers, cfg, is_continuous)`` builds the
+    gradient step.  With ``checkpoint.resume_from`` (a file, resolved by
     ``cli.run``) it restores the weights, optimizer states, Moments, replay
     ratio, counters and, with ``buffer.checkpoint``, the replay buffer, and
     waits ``algo.learning_starts`` more steps before training, as the JAX
@@ -373,7 +452,7 @@ def main(runtime, cfg) -> Dict[str, Any]:
     from sheeprl_tpu_torch.envs import spaces
     from sheeprl_tpu_torch.envs.env import make_env_fns, pipelined_vector_env
     from sheeprl_tpu_torch.envs.player import ObsStager
-    from sheeprl_tpu_torch.interop.flax_params import optax_state, param_spec, to_flax
+    from sheeprl_tpu_torch.interop.flax_params import optax_state
     from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
     from sheeprl_tpu_torch.utils.timer import timer
     from sheeprl_tpu_torch.utils.utils import Ratio, get_diagnostics, save_configs
@@ -427,8 +506,7 @@ def main(runtime, cfg) -> Dict[str, Any]:
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
     obs_keys = cnn_keys + mlp_keys
 
-    trees = None if state is None else {k: state[k] for k in ("world_model", "actor", "critic", "target_critic")}
-    agent = build_agent(actions_dim, is_continuous, cfg, observation_space, trees, device)
+    agent = build_agent_fn(actions_dim, is_continuous, cfg, observation_space, state, device)
     # bf16-true stores the weights themselves in bf16; *-mixed keeps fp32
     # masters and casts inside each loss
     for module in agent:
@@ -437,8 +515,9 @@ def main(runtime, cfg) -> Dict[str, Any]:
     optimizers = make_optimizers(cfg, agent)
     moments_state = init_moments_state(device) if state is None else load_learner_state(state, agent, optimizers,
                                                                                          device)
-    train_step = diag.instrument("train_step", make_train_step(agent, optimizers, cfg, is_continuous), kind="train")
-    health_out = train_step.health_names
+    train_step = diag.instrument("train_step", make_train_step_fn(agent, optimizers, cfg, is_continuous),
+                                 kind="train")
+    metric_order, health_out = train_step.metric_order, train_step.health_names
     diag.register_footprint("params", list(agent))
     diag.register_footprint("opt_state", list(optimizers.values()))
     diag.register_footprint("moments", moments_state)
@@ -647,12 +726,12 @@ def main(runtime, cfg) -> Dict[str, Any]:
                 metric_rows.extend(rows)
                 # the sentinel sees the raw rows before the aggregator drops
                 # non-finite values (skip_update already acted on the device)
-                diag.observe_rows(policy_step_count, METRIC_ORDER, rows[:, :len(METRIC_ORDER)])
+                diag.observe_rows(policy_step_count, metric_order, rows[:, :len(metric_order)])
                 if health_out:
                     diag.on_health(policy_step_count, mean_stats(
-                        [dict(zip(health_out, row[len(METRIC_ORDER):])) for row in rows]))
+                        [dict(zip(health_out, row[len(metric_order):])) for row in rows]))
                 for row in rows:
-                    for name, value in zip(METRIC_ORDER, row):
+                    for name, value in zip(metric_order, row):
                         aggregator.update(name, float(value))
             metrics_dict = aggregator.compute()
             timers = timer.compute()
@@ -681,11 +760,10 @@ def main(runtime, cfg) -> Dict[str, Any]:
             or (iter_num == total_iters and cfg.checkpoint.save_last)
         ):
             last_checkpoint = policy_step_count
-            spec = param_spec(*agent)
             ckpt_state = {
-                **to_flax(*agent),
+                **agent.trees(),
                 # optax's layout, so that the JAX package resumes it too
-                "opt_states": {name: optax_state(opt, spec[name]) for name, opt in optimizers.items()},
+                "opt_states": {name: optax_state(opt, agent.optimizer_spec(name)) for name, opt in optimizers.items()},
                 "moments": dict(moments_state),
                 "ratio": ratio.state_dict(),
                 "iter_num": iter_num,
@@ -710,7 +788,7 @@ def main(runtime, cfg) -> Dict[str, Any]:
         logger.log_metrics({"Test/cumulative_reward": test_reward}, policy_step_count)
     logger.finalize()
     diag.close("completed")
-    rows = np.asarray(metric_rows, np.float32).reshape(-1, len(METRIC_ORDER) + len(health_out))
+    rows = np.asarray(metric_rows, np.float32).reshape(-1, len(metric_order) + len(health_out))
     return {
         "start_iter": start_iter,
         "policy_steps": policy_step_count,
@@ -719,8 +797,9 @@ def main(runtime, cfg) -> Dict[str, Any]:
         "gradient_steps": gradient_steps,
         "test_steps": test_steps,
         "test_reward": test_reward,
-        "metric_rows": rows[:, :len(METRIC_ORDER)],
-        "health_rows": {name: rows[:, len(METRIC_ORDER) + i] for i, name in enumerate(health_out)},
+        "metric_order": metric_order,
+        "metric_rows": rows[:, :len(metric_order)],
+        "health_rows": {name: rows[:, len(metric_order) + i] for i, name in enumerate(health_out)},
         "logged": logged,
         "checkpoints": checkpoints,
         "log_dir": log_dir,

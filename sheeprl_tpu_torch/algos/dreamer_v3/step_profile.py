@@ -6,7 +6,8 @@ device time goes: the one place that times a gradient step.
 
 Builds DreamerV3-S (``exp=dreamer_v3 env=dummy``: batch 16 x 64, horizon
 15, fp32; the dotted overrides on top, e.g. ``fabric.precision=bf16-mixed
-algo.rssm_chunks=4 algo.rssm_chunk_burn_in=2``) from a seed on the card,
+algo.rssm_chunks=4 algo.rssm_chunk_burn_in=2``; ``exp=dreamer_v3_jepa``
+among them builds DreamerV3-JEPA, at its own XL widths) from a seed on the card,
 with ``--diagnostics`` as the default diagnostics run it (health stats in
 the step, telemetry's instrumentation around it; :func:`profiled_step`), and
 calls :func:`time_gradient_steps` with
@@ -133,14 +134,16 @@ def time_gradient_steps(step: Callable, moments: Any, batch: Dict[str, torch.Ten
 
 
 def profiled_step(overrides: Sequence[str], device: torch.device | str, diagnostics: bool = False):
-    """``(step, moments, batch, generator)``: a DreamerV3 gradient step at
-    the composed config (DreamerV3-S unless ``overrides`` say otherwise),
-    its Moments and a synthetic batch, from seed 5.  With ``diagnostics``
-    the step is built as ``run`` builds it under the default diagnostics:
-    the health stats on, wrapped by telemetry's instrumentation (signature
+    """``(step, moments, batch, generator)``: a gradient step of the
+    DreamerV3 family at the composed config (DreamerV3-S unless
+    ``overrides`` say otherwise; the algorithm's own agent and step), its
+    Moments and a synthetic batch, from seed 5.  With ``diagnostics`` the
+    step is built as ``run`` builds it under the default diagnostics: the
+    health stats on, wrapped by telemetry's instrumentation (signature
     watch, FLOP count at its first call); without, as ``diagnostics=off``."""
-    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers, make_train_step
+    import importlib
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers
     from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments_state
     from sheeprl_tpu_torch.config import compose
     from sheeprl_tpu_torch.diagnostics import build_diagnostics
@@ -152,12 +155,14 @@ def profiled_step(overrides: Sequence[str], device: torch.device | str, diagnost
                    *([] if diagnostics else ["diagnostics=off"]), *overrides])
     env = make_env(cfg, cfg.seed, 0)()
     actions_dim, is_continuous, _ = _actions_dim(env.action_space)
-    agent = build_agent(actions_dim, is_continuous, cfg, env.observation_space, None, device)
+    # the algorithm's training module: its agent builder and gradient step
+    family = importlib.import_module(f"sheeprl_tpu_torch.algos.{cfg.algo.name}.{cfg.algo.name}")
+    agent = family.build_agent(actions_dim, is_continuous, cfg, env.observation_space, None, device)
     for module in agent:  # bf16-true stores the weights in bf16, as the training loop does
         module.to(resolve_precision(cfg.fabric.precision)[0])
     env.close()
-    step = build_diagnostics(cfg).instrument("train_step", make_train_step(agent, make_optimizers(cfg, agent), cfg,
-                                                                           is_continuous))
+    step = build_diagnostics(cfg).instrument("train_step", family.make_train_step(agent, make_optimizers(cfg, agent),
+                                                                                  cfg, is_continuous))
     gen = torch.Generator(device=device).manual_seed(5)
     return step, init_moments_state(device), synthetic_batch(cfg, actions_dim, gen, device), gen
 
@@ -182,7 +187,7 @@ def main(argv=None) -> None:
                           capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     steps, by_name = args.steps, out["kernels"]
     total = sum(v[1] for v in by_name.values())
-    print(f"[profile] DreamerV3-S gradient step ({' '.join(args.overrides) or 'fp32'}): {out['step_ms']:.3f} ms median stream time (CUDA events), "
+    print(f"[profile] gradient step ({' '.join(args.overrides) or 'DreamerV3-S, fp32'}): {out['step_ms']:.3f} ms median stream time (CUDA events), "
           f"{out['steps_per_s']:.3f} steps/s over {steps} steps; device busy {out['busy_ms']:.3f} ms a step "
           f"(kernel time summed {total / 1e3 / steps:.3f} ms) in {out['launches']} launches, idle share "
           f"{out['idle_share']:.4f}  [{name}]")

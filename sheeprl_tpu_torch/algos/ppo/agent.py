@@ -15,27 +15,14 @@ Queue 3).
 
 from __future__ import annotations
 
-import math
 from math import prod
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
-from sheeprl_tpu_torch.models.blocks import MLP, NatureCNN
+from sheeprl_tpu_torch.models.blocks import MLP, NatureCNN, lecun_normal_
 from sheeprl_tpu_torch.ops.distributions import Categorical, Normal, TanhNormal
-
-
-def lecun_normal_(module: nn.Module) -> None:
-    """flax's default init on every dense and conv layer: a truncated
-    normal of variance ``1 / fan_in`` (``lecun_normal``), zero bias."""
-    for m in module.modules():
-        if isinstance(m, (nn.Linear, nn.Conv2d)):
-            fan_in = m.weight[0].numel()
-            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std)
-            if m.bias is not None:
-                nn.init.zeros_(m.bias)
 
 
 def gumbel_like(shape: Tuple[int, ...], generator: Optional[torch.Generator], device) -> torch.Tensor:

@@ -20,7 +20,7 @@ loop fetches it once per iteration.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -175,6 +175,81 @@ def make_train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, num_
     return update
 
 
+def rollout(agent: PPOAgent, envs, obs: Dict[str, np.ndarray], rb, stage, cfg, generator, aggregator, diag,
+            spaces_of: Tuple[bool, bool]) -> Dict[str, np.ndarray]:
+    """``algo.rollout_steps`` steps of every env into ``rb`` (the PPO and
+    A2C loops' rollout): per step one policy forward on the staged
+    observations, one fetch of its outputs, the envs stepping while the
+    step is recorded, a truncated episode's reward bootstrapped from the
+    value of its last observation, the episodes' statistics into
+    ``aggregator``.  ``spaces_of`` is ``(is_continuous, is_multidiscrete)``.
+    Returns the observations the rollout ends on."""
+    from sheeprl_tpu_torch.data.slab import step_slab
+    from sheeprl_tpu_torch.envs.player import fetch_values
+
+    num_envs, gamma = int(cfg.env.num_envs), float(cfg.algo.gamma)
+    obs_keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
+    for _ in range(int(cfg.algo.rollout_steps)):
+        diag.note_env_steps(num_envs)
+        actions, logprobs, _, values = agent(stage(obs, num_envs), generator=generator)
+        diag.note_fetch()  # the step's one device-to-host copy
+        actions_np, logprobs_np, values_np = fetch_values(actions, logprobs, values)
+        # the envs step while this process records the step
+        with diag.span("env_step_async"):
+            envs.step_async(env_actions_of(actions_np, *spaces_of, num_envs))
+        step_data = step_slab(num_envs, {**{k: obs[k] for k in obs_keys}, "actions": actions_np,
+                                         "logprobs": logprobs_np, "values": values_np})
+        with diag.span("env_wait"):
+            next_obs, rewards, terminated, truncated, info = envs.step_wait()
+        dones = np.logical_or(terminated, truncated).reshape(num_envs, 1).astype(np.float32)
+        rewards = np.asarray(rewards, dtype=np.float32).reshape(num_envs, 1)
+        if cfg.env.clip_rewards:
+            rewards = np.tanh(rewards)
+        # a truncated episode bootstraps from its last observation
+        if "final_obs" in info and np.any(truncated):
+            trunc_idx = np.nonzero(truncated)[0]
+            stacked = {k: np.stack([np.asarray(info["final_obs"][i][k]) for i in trunc_idx]) for k in obs_keys}
+            (vals,) = fetch_values(agent.get_values(stage(stacked, len(trunc_idx))))
+            rewards[trunc_idx] += gamma * vals.reshape(-1, 1)
+        step_data.update(step_slab(num_envs, {"rewards": rewards, "dones": dones}))
+        rb.add(step_data, validate_args=cfg.buffer.validate_args)
+        if "final_info" in info and "episode" in info["final_info"]:
+            ep = info["final_info"]["episode"]
+            mask = ep.get("_r", info["final_info"].get("_episode"))
+            if mask is not None and np.any(mask):
+                for r, length in zip(ep["r"][mask], ep["l"][mask]):
+                    aggregator.update("Rewards/rew_avg", float(r))
+                    aggregator.update("Game/ep_len_avg", float(length))
+        obs = next_obs
+    return obs
+
+
+@torch.no_grad()
+def rollout_data(agent: PPOAgent, rb, obs: Dict[str, np.ndarray], stage, cfg, device) -> Dict[str, Any]:
+    """The rollout in ``rb`` as the update's ``[N, ...]`` rows on the
+    device, with GAE's returns and advantages from the value of ``obs``,
+    the observations the rollout ended on."""
+    from sheeprl_tpu_torch.ops.numerics import gae
+
+    rollout_steps, num_envs = int(cfg.algo.rollout_steps), int(cfg.env.num_envs)
+    total = rollout_steps * num_envs
+    cnn_keys = list(cfg.algo.cnn_keys.encoder)
+    obs_keys = cnn_keys + list(cfg.algo.mlp_keys.encoder)
+    local = {k: torch.from_numpy(np.ascontiguousarray(rb.buffer[k][:rollout_steps])).to(device) for k in rb.buffer}
+    next_value = agent.get_values(stage(obs, num_envs))
+    returns, advantages = gae(local["rewards"], local["values"], local["dones"], next_value,
+                              float(cfg.algo.gamma), float(cfg.algo.gae_lambda))
+    return {
+        "obs": {k: local[k].reshape(total, -1, *local[k].shape[-2:]) if k in cnn_keys
+                else local[k].reshape(total, -1).float() for k in obs_keys},
+        "actions": local["actions"].reshape(total, -1),
+        "logprobs": local["logprobs"].reshape(total, -1),
+        "values": local["values"].reshape(total, -1),
+        "returns": returns.reshape(total, -1),
+        "advantages": advantages.reshape(total, -1),
+    }
+
+
 def _unported_options(cfg) -> List[str]:
     out = []
     if (cfg.algo.get("offline") or {}).get("enabled", False):
@@ -188,40 +263,91 @@ def _unported_options(cfg) -> List[str]:
     return out
 
 
+def _minibatches(cfg) -> int:
+    """The rollout's minibatches of ``algo.per_rank_batch_size`` rows."""
+    batch_size = cfg.algo.per_rank_batch_size
+    total_local = int(cfg.algo.rollout_steps) * int(cfg.env.num_envs)
+    if batch_size is None or batch_size <= 0:
+        raise ValueError(f"per_rank_batch_size must be a positive integer, got {batch_size}")
+    if total_local % batch_size != 0:
+        raise ValueError(f"The rollout ({total_local}) must be divisible by per_rank_batch_size ({batch_size})")
+    return total_local // batch_size
+
+
+def make_update(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, total_iters: int):
+    """PPO's update for :func:`_on_policy_main`: ``update(iter_num, data,
+    generator) -> metrics``, the update phase (:func:`make_train_step`) on
+    this iteration's annealed coefficients and permutations drawn from
+    ``generator``, with ``algo.anneal_lr`` optax's linear schedule over
+    every minibatch update of the run."""
+    from sheeprl_tpu_torch.utils.utils import polynomial_decay
+
+    batch_size, total_local = int(cfg.algo.per_rank_batch_size), int(cfg.algo.rollout_steps) * int(cfg.env.num_envs)
+    num_minibatches, epochs = _minibatches(cfg), int(cfg.algo.update_epochs)
+    schedule = None
+    if cfg.algo.anneal_lr:
+        schedule = linear_schedule(optimizer.param_groups[0]["lr"], 0.0, max(1, total_iters * epochs * num_minibatches))
+    train_step = make_train_step(agent, optimizer, cfg, num_minibatches, batch_size, schedule)
+    initial_ent, initial_clip = float(cfg.algo.ent_coef), float(cfg.algo.clip_coef)
+
+    def update(iter_num: int, data: Dict[str, Any], generator: torch.Generator) -> torch.Tensor:
+        clip_coef, ent_coef = initial_clip, initial_ent
+        if cfg.algo.anneal_clip_coef:
+            clip_coef = polynomial_decay(iter_num, initial=initial_clip, final=0.0, max_decay_steps=total_iters,
+                                         power=1.0)
+        if cfg.algo.anneal_ent_coef:
+            ent_coef = polynomial_decay(iter_num, initial=initial_ent, final=0.0, max_decay_steps=total_iters,
+                                        power=1.0)
+        perms = [torch.randperm(total_local, generator=generator, device=data["returns"].device)
+                 for _ in range(epochs)]
+        return train_step(data, perms, (clip_coef, ent_coef, float(cfg.algo.vf_coef)))
+
+    update.metric_order = METRIC_ORDER
+    update.health_names = train_step.health_names
+    update.updates_per_iteration = epochs * num_minibatches
+    update.schedule = schedule is not None
+    return update
+
+
 @register_algorithm()
 def main(runtime, cfg) -> Dict[str, Any]:
-    """The PPO loop: per iteration ``algo.rollout_steps`` steps of every env
-    (the envs step while the loop records the step), GAE over the rollout,
-    the update phase, logging and checkpoints; one greedy test episode at the
-    end with ``algo.run_test``.  ``checkpoint.resume_from`` (a file, resolved
-    by ``cli.run``) restores the agent, Adam's state (either package's) and
-    the counters.  Returns what the run did: its counters, the metric rows of
-    every iteration, the logged metrics, the checkpoints and the log dir."""
+    """The PPO loop (:func:`_on_policy_main` with PPO's agent and update)."""
+    _minibatches(cfg)  # a rollout PPO cannot cut raises before the run starts
+    return _on_policy_main(runtime, cfg, build_agent, make_update)
+
+
+def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn) -> Dict[str, Any]:
+    """The loop of the on-policy family (PPO, A2C): per iteration a rollout
+    of ``algo.rollout_steps`` steps of every env (:func:`rollout`), GAE over
+    it (:func:`rollout_data`), the update, logging and checkpoints; one
+    greedy test episode at the end with ``algo.run_test``.
+    ``build_agent_fn(actions_dim, is_continuous, cfg, obs_space,
+    agent_state, device)`` builds the agent; ``make_update_fn(agent,
+    optimizer, cfg, total_iters)`` the update ``update(iter_num, data,
+    generator) -> metrics`` (the ``update.metric_order`` means, the
+    non-finite update count, the ``update.health_names`` stats), whose
+    ``updates_per_iteration`` counts ``Time/sps_train`` and ``schedule``
+    says whether its optax state carries a schedule's count.
+    ``checkpoint.resume_from`` (a file, resolved by ``cli.run``) restores the
+    agent, the optimizer's state (either package's) and the counters.
+    Returns what the run did: its counters, the metric rows of every
+    iteration, the logged metrics, the checkpoints and the log dir."""
     from sheeprl_tpu_torch.config import instantiate
     from sheeprl_tpu_torch.data.buffers import ReplayBuffer
-    from sheeprl_tpu_torch.data.slab import step_slab
     from sheeprl_tpu_torch.envs import spaces
     from sheeprl_tpu_torch.envs.env import make_env, make_env_fns, pipelined_vector_env
     from sheeprl_tpu_torch.envs.player import ObsStager, fetch_values, host_obs_slab
     from sheeprl_tpu_torch.interop.flax_params import optax_state, optimizer_state_dict, ppo_spec, ppo_to_flax
-    from sheeprl_tpu_torch.ops.numerics import gae
     from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
     from sheeprl_tpu_torch.utils.timer import timer
-    from sheeprl_tpu_torch.utils.utils import get_diagnostics, polynomial_decay, save_configs
+    from sheeprl_tpu_torch.utils.utils import get_diagnostics, save_configs
 
     unported = _unported_options(cfg)
     if unported:
         raise NotImplementedError(f"not ported yet (see ROADMAP.md Queue 1): {'; '.join(unported)}")
     device = runtime.device
     num_envs = int(cfg.env.num_envs)
-    rollout_steps = int(cfg.algo.rollout_steps)
-    batch_size = cfg.algo.per_rank_batch_size
-    total_local = rollout_steps * num_envs
-    if batch_size is None or batch_size <= 0:
-        raise ValueError(f"per_rank_batch_size must be a positive integer, got {batch_size}")
-    if total_local % batch_size != 0:
-        raise ValueError(f"The rollout ({total_local}) must be divisible by per_rank_batch_size ({batch_size})")
-    num_minibatches = total_local // batch_size
+    total_local = int(cfg.algo.rollout_steps) * num_envs
 
     generator = runtime.seed_everything(cfg.seed)
     logger = get_logger(runtime, cfg)
@@ -240,26 +366,21 @@ def main(runtime, cfg) -> Dict[str, Any]:
     if not isinstance(observation_space, spaces.Dict):
         raise RuntimeError(f"Unexpected observation type, should be of type Dict, got: {observation_space}")
     cnn_keys, mlp_keys = list(cfg.algo.cnn_keys.encoder), list(cfg.algo.mlp_keys.encoder)
-    obs_keys = cnn_keys + mlp_keys
     actions_dim, is_continuous, is_multidiscrete = actions_dim_of(action_space)
 
     resume_from = cfg.checkpoint.get("resume_from")
     state = runtime.load(resume_from) if resume_from else None
-    agent = build_agent(actions_dim, is_continuous, cfg, observation_space, state["agent"] if state else None,
-                        device)
+    agent = build_agent_fn(actions_dim, is_continuous, cfg, observation_space, state["agent"] if state else None,
+                           device)
     total_iters = int(cfg.algo.total_steps // total_local) if not cfg.dry_run else 1
     optimizer = instantiate(cfg.algo.optimizer)(agent.parameters())
-    schedule = None
-    if cfg.algo.anneal_lr:
-        schedule = linear_schedule(optimizer.param_groups[0]["lr"], 0.0,
-                                   max(1, total_iters * int(cfg.algo.update_epochs) * num_minibatches))
     clip = bool(cfg.algo.max_grad_norm and cfg.algo.max_grad_norm > 0)
     spec = ppo_spec(agent)
     if state and "opt_state" in state:
         optimizer.load_state_dict(optimizer_state_dict(state["opt_state"], optimizer, spec))
-    train_step = diag.instrument("train_step", make_train_step(agent, optimizer, cfg, num_minibatches, batch_size,
-                                                               schedule), kind="train")
-    health_out = train_step.health_names
+    train_step = diag.instrument("train_step", make_update_fn(agent, optimizer, cfg, total_iters), kind="train")
+    metric_order, health_out = train_step.metric_order, train_step.health_names
+    n_losses = len(metric_order)
     diag.register_footprint("params", [agent])
     diag.register_footprint("opt_state", [optimizer])
 
@@ -271,10 +392,7 @@ def main(runtime, cfg) -> Dict[str, Any]:
     policy_step_count = state["policy_step"] if state else 0
     last_log = state["last_log"] if state else 0
     last_checkpoint = state["last_checkpoint"] if state else 0
-    initial_ent, initial_clip = float(cfg.algo.ent_coef), float(cfg.algo.clip_coef)
-    ent_coef, clip_coef = initial_ent, initial_clip
     stager = ObsStager(device)
-    gamma = float(cfg.algo.gamma)
 
     def stage(host_obs: Dict[str, np.ndarray], n: int) -> Dict[str, torch.Tensor]:
         return stager(host_obs_slab(host_obs, cnn_keys, mlp_keys, n))
@@ -286,80 +404,27 @@ def main(runtime, cfg) -> Dict[str, Any]:
     for iter_num in range(start_iter, total_iters + 1):
         agent.eval()
         with timer("Time/env_interaction_time"), diag.span("rollout"), torch.no_grad():
-            for _ in range(rollout_steps):
-                policy_step_count += num_envs
-                diag.note_env_steps(num_envs)
-                actions, logprobs, _, values = agent(stage(obs, num_envs), generator=generator)
-                diag.note_fetch()  # the step's one device-to-host copy
-                actions_np, logprobs_np, values_np = fetch_values(actions, logprobs, values)
-                # the envs step while this process records the step
-                with diag.span("env_step_async"):
-                    envs.step_async(env_actions_of(actions_np, is_continuous, is_multidiscrete, num_envs))
-                step_data = step_slab(num_envs, {**{k: obs[k] for k in obs_keys}, "actions": actions_np,
-                                                 "logprobs": logprobs_np, "values": values_np})
-                with diag.span("env_wait"):
-                    next_obs, rewards, terminated, truncated, info = envs.step_wait()
-                dones = np.logical_or(terminated, truncated).reshape(num_envs, 1).astype(np.float32)
-                rewards = np.asarray(rewards, dtype=np.float32).reshape(num_envs, 1)
-                if cfg.env.clip_rewards:
-                    rewards = np.tanh(rewards)
-                # a truncated episode bootstraps from its last observation
-                if "final_obs" in info and np.any(truncated):
-                    trunc_idx = np.nonzero(truncated)[0]
-                    stacked = {k: np.stack([np.asarray(info["final_obs"][i][k]) for i in trunc_idx]) for k in obs_keys}
-                    (vals,) = fetch_values(agent.get_values(stage(stacked, len(trunc_idx))))
-                    rewards[trunc_idx] += gamma * vals.reshape(-1, 1)
-                step_data.update(step_slab(num_envs, {"rewards": rewards, "dones": dones}))
-                rb.add(step_data, validate_args=cfg.buffer.validate_args)
-                if "final_info" in info and "episode" in info["final_info"]:
-                    ep = info["final_info"]["episode"]
-                    mask = ep.get("_r", info["final_info"].get("_episode"))
-                    if mask is not None and np.any(mask):
-                        for r, length in zip(ep["r"][mask], ep["l"][mask]):
-                            aggregator.update("Rewards/rew_avg", float(r))
-                            aggregator.update("Game/ep_len_avg", float(length))
-                obs = next_obs
+            obs = rollout(agent, envs, obs, rb, stage, cfg, generator, aggregator, diag,
+                          (is_continuous, is_multidiscrete))
+        policy_step_count += total_local
 
         # ---- GAE over the rollout, on the device --------------------------
-        with diag.span("buffer-sample"), torch.no_grad():
-            local = {k: torch.from_numpy(np.ascontiguousarray(rb.buffer[k][:rollout_steps])).to(device)
-                     for k in rb.buffer}
-            next_value = agent.get_values(stage(obs, num_envs))
-            returns, advantages = gae(local["rewards"], local["values"], local["dones"], next_value, gamma,
-                                      float(cfg.algo.gae_lambda))
-            data = {
-                "obs": {k: local[k].reshape(total_local, -1, *local[k].shape[-2:]) if k in cnn_keys
-                        else local[k].reshape(total_local, -1).float() for k in obs_keys},
-                "actions": local["actions"].reshape(total_local, -1),
-                "logprobs": local["logprobs"].reshape(total_local, -1),
-                "values": local["values"].reshape(total_local, -1),
-                "returns": returns.reshape(total_local, -1),
-                "advantages": advantages.reshape(total_local, -1),
-            }
-        data = diag.maybe_inject_nan(iter_num, data)
+        with diag.span("buffer-sample"):
+            data = diag.maybe_inject_nan(iter_num, rollout_data(agent, rb, obs, stage, cfg, device))
 
-        if cfg.algo.anneal_clip_coef:
-            clip_coef = polynomial_decay(iter_num, initial=initial_clip, final=0.0, max_decay_steps=total_iters,
-                                         power=1.0)
-        if cfg.algo.anneal_ent_coef:
-            ent_coef = polynomial_decay(iter_num, initial=initial_ent, final=0.0, max_decay_steps=total_iters,
-                                        power=1.0)
-
-        # ---- the update phase: its device work ends inside the timer ------
+        # ---- the update: its device work ends inside the timer ------------
         # (between two CUDA events on the card, read at log time)
         agent.train()
         with timer("Time/train_time", device), diag.span("train"):
-            perms = [torch.randperm(total_local, generator=generator, device=device)
-                     for _ in range(int(cfg.algo.update_epochs))]
-            metrics = train_step(data, perms, (clip_coef, ent_coef, float(cfg.algo.vf_coef)))
+            metrics = train_step(iter_num, data, generator)
             (row,) = fetch_values(metrics)  # the iteration's one fetch of the update's results
         metric_rows.append(row)
-        losses = dict(zip(METRIC_ORDER, row[:4].tolist()))
+        losses = dict(zip(metric_order, row[:n_losses].tolist()))
         if health_out:
-            diag.on_health(policy_step_count, dict(zip(health_out, row[5:].tolist())))
+            diag.on_health(policy_step_count, dict(zip(health_out, row[n_losses + 1:].tolist())))
         for name, value in losses.items():
             aggregator.update(name, value)
-        diag.on_update(policy_step_count, losses, nonfinite=float(row[4]))
+        diag.on_update(policy_step_count, losses, nonfinite=float(row[n_losses]))
 
         if policy_step_count - last_log >= cfg.metric.log_every or iter_num == total_iters or cfg.dry_run:
             metrics_dict = aggregator.compute()
@@ -369,7 +434,7 @@ def main(runtime, cfg) -> Dict[str, Any]:
                     (policy_step_count - last_log) / timers["Time/env_interaction_time"])
             if timers.get("Time/train_time", 0) > 0:
                 metrics_dict["Time/sps_train"] = (
-                    (iter_num * int(cfg.algo.update_epochs) * num_minibatches) / timers["Time/train_time"])
+                    (iter_num * train_step.updates_per_iteration) / timers["Time/train_time"])
             logger.log_metrics(metrics_dict, policy_step_count)
             logged.append(dict(metrics_dict))
             aggregator.reset()
@@ -389,12 +454,12 @@ def main(runtime, cfg) -> Dict[str, Any]:
             ckpt_state = {
                 "agent": ppo_to_flax(agent),
                 # optax's layout, so that the JAX package resumes it too
-                "opt_state": optax_state(optimizer, spec, clip=clip, schedule=schedule is not None),
+                "opt_state": optax_state(optimizer, spec, clip=clip, schedule=train_step.schedule),
                 "iter_num": iter_num,
                 "policy_step": policy_step_count,
                 "last_log": last_log,
                 "last_checkpoint": last_checkpoint,
-                "batch_size": batch_size,
+                "batch_size": cfg.algo.per_rank_batch_size,
             }
             ckpt_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step_count}_0.ckpt")
             with diag.span("checkpoint"):
@@ -413,16 +478,16 @@ def main(runtime, cfg) -> Dict[str, Any]:
         logger.log_metrics({"Test/cumulative_reward": test_reward}, policy_step_count)
     logger.finalize()
     diag.close("completed")
-    rows = np.asarray(metric_rows, np.float32).reshape(-1, 5 + len(health_out))
+    rows = np.asarray(metric_rows, np.float32).reshape(-1, n_losses + 1 + len(health_out))
     return {
         "start_iter": start_iter,
         "policy_steps": policy_step_count,
         "iterations": len(metric_rows),
-        "updates_per_iteration": int(cfg.algo.update_epochs) * num_minibatches,
+        "updates_per_iteration": train_step.updates_per_iteration,
         "test_reward": test_reward,
-        "metric_rows": rows[:, :4],
-        "nonfinite_updates": rows[:, 4],
-        "health_rows": {name: rows[:, 5 + i] for i, name in enumerate(health_out)},
+        "metric_rows": rows[:, :n_losses],
+        "nonfinite_updates": rows[:, n_losses],
+        "health_rows": {name: rows[:, n_losses + 1 + i] for i, name in enumerate(health_out)},
         "logged": logged,
         "checkpoints": checkpoints,
         "log_dir": log_dir,

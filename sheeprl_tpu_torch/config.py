@@ -335,13 +335,15 @@ def compose_group(group: str, option: str = "default") -> dotdict:
 #: ``_target_`` prefix of a config archived by the JAX package -> the port's
 #: (the port mirrors its module paths), and the optax factories it has
 _FOREIGN_PREFIX = ("sheeprl_tpu.", "sheeprl_tpu_torch.")
-_FOREIGN_TARGETS = {"optax.adam": "sheeprl_tpu_torch.utils.optim.adam"}
+_FOREIGN_TARGETS = {"optax.adam": "sheeprl_tpu_torch.utils.optim.adam",
+                    "optax.rmsprop": "sheeprl_tpu_torch.utils.optim.rmsprop"}
 
 
 def own_targets(node: Any) -> Any:
     """A copy of an archived run config with every ``_target_`` the JAX
-    package wrote (``sheeprl_tpu.…``, ``optax.adam``) naming the port's
-    counterpart, so that a JAX run resumes and evaluates here."""
+    package wrote (``sheeprl_tpu.…``, ``optax.adam``, ``optax.rmsprop``)
+    naming the port's counterpart, so that a JAX run resumes and evaluates
+    here."""
     if isinstance(node, Mapping):
         out = {k: own_targets(v) for k, v in node.items()}
         target = out.get("_target_")
@@ -358,10 +360,14 @@ def own_targets(node: Any) -> Any:
 def instantiate(node: Mapping[str, Any] | Any, **kwargs: Any) -> Any:
     """Recursive ``_target_`` instantiation (Hydra's
     ``hydra.utils.instantiate``, without ``_partial_``: no config of the
-    port uses it)."""
+    port uses it).  The port imports no optax: a target in ``optax``
+    raises, unless it is one the port has (:data:`_FOREIGN_TARGETS`)."""
     if not isinstance(node, Mapping) or "_target_" not in node:
         return node
-    module_name, _, attr = str(node["_target_"]).rpartition(".")
+    target = _FOREIGN_TARGETS.get(str(node["_target_"]), str(node["_target_"]))
+    if target.split(".", 1)[0] == "optax":
+        raise NotImplementedError(f"the optimizer {target} is not ported yet (see ROADMAP.md Queue 1)")
+    module_name, _, attr = target.rpartition(".")
     obj = getattr(importlib.import_module(module_name), attr)
 
     def _inst(v: Any) -> Any:

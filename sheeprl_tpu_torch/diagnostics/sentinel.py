@@ -89,13 +89,17 @@ def select_finite(finite: torch.Tensor, new: Sequence[torch.Tensor], old: Sequen
 
 def skip_update_guard(modules: Iterable[torch.nn.Module], optimizers: Iterable[torch.optim.Optimizer]):
     """What ``policy=skip_update`` reverts, and a buffer for each: the
-    parameters of ``modules`` and every Adam state tensor, ``step``
-    included.  Adam's state is created here (zeros, step 0, as its first
-    step would create it) so that a skipped first step has something to
-    revert to.  On the card Adam runs ``capturable``, which keeps ``step`` on
-    the device: the selection then never waits for the host."""
+    parameters of ``modules`` and every optimizer state tensor, Adam's
+    ``step`` included.  Adam's state is created here (zeros, step 0, as its
+    first step would create it) so that a skipped first step has something
+    to revert to; the port's ``RMSprop`` makes its state at construction.
+    On the card Adam runs ``capturable``, which keeps ``step`` on the
+    device: the selection then never waits for the host."""
     guarded = [p for module in modules for p in module.parameters()]
     for opt in optimizers:
+        if not isinstance(opt, torch.optim.Adam):
+            guarded += [t for group in opt.param_groups for p in group["params"] for t in opt.state[p].values()]
+            continue
         for group in opt.param_groups:
             on_card = any(p.device.type == "cuda" for p in group["params"])
             group["capturable"] = group["capturable"] or on_card

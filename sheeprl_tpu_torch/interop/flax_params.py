@@ -1,6 +1,6 @@
 """Weights across the two packages: the JAX package's flax param trees
-(numpy, as its checkpoints store them) to the port's DV3 and PPO modules
-and back.
+(numpy, as its checkpoints store them) to the port's DV3 (and its JEPA
+heads), PPO and A2C modules and back.
 
 Rules: Dense ``kernel[in, out]`` <-> Linear ``weight[out, in]``; Conv
 ``kernel`` HWIO <-> ``weight`` OIHW; ConvTranspose ``kernel``
@@ -27,7 +27,13 @@ layout rules, and ``count`` its ``step`` (:func:`optimizer_state_dict`), and
 back (:func:`optax_state`), so each package resumes the other's checkpoints.
 PPO's chain has ``clip_by_global_norm`` only with ``algo.max_grad_norm > 0``
 and a ``ScaleByScheduleState(count)`` after Adam's with ``algo.anneal_lr``.
-bf16 weights are written as float32, which holds them exactly.
+optax's ``rmsprop`` (A2C) holds ``(ScaleByRmsState(nu), EmptyState(),
+TraceState(trace))``, the last an ``EmptyState()`` without momentum; ``nu``
+and ``trace`` are the port's :class:`~sheeprl_tpu_torch.utils.optim.RMSprop`
+state of the same names.  An optimizer over several trees (DreamerV3-JEPA's
+world model and its heads) has a list as its spec, and optax a tuple of
+trees, in the same order.  bf16 weights are written as float32, which holds
+them exactly.
 """
 
 from __future__ import annotations
@@ -147,16 +153,23 @@ NOT_ACTED_WITH: Dict[str, Set[str]] = {
 }
 
 
+def _encoders(m: WorldModel | Any) -> Dict[str, Any]:
+    """The ``cnn_encoder`` / ``mlp_encoder`` subtrees of a world model (or
+    of DreamerV3-JEPA's copy of its encoders)."""
+    spec: Dict[str, Any] = {}
+    if m.cnn_encoder is not None:
+        spec["cnn_encoder"] = _cnn(m.cnn_encoder)
+    if m.mlp_encoder is not None:
+        mlp: MLPEncoderDV3 = m.mlp_encoder
+        spec["mlp_encoder"] = {"DenseStack_0": _stack(mlp.stack)}
+    return spec
+
+
 def policy_spec(world_model: WorldModel, actor: Actor) -> Dict[str, Any]:
     """What a policy acts with, in the layout of the flax trees: the world
     model's encoders and RSSM, and the actor.  Each leaf is ``(tensor,
     kind)``, the kind naming how the flax array maps onto it."""
-    wm: Dict[str, Any] = {"rssm": _rssm(world_model.rssm)}
-    if world_model.cnn_encoder is not None:
-        wm["cnn_encoder"] = _cnn(world_model.cnn_encoder)
-    if world_model.mlp_encoder is not None:
-        mlp: MLPEncoderDV3 = world_model.mlp_encoder
-        wm["mlp_encoder"] = {"DenseStack_0": _stack(mlp.stack)}
+    wm: Dict[str, Any] = {"rssm": _rssm(world_model.rssm), **_encoders(world_model)}
     act: Dict[str, Any] = {"model": _stack(actor.model)}
     for i, head in enumerate(actor.heads):
         act[f"heads_{i}"] = _linear(head)
@@ -177,6 +190,35 @@ def param_spec(world_model: WorldModel, actor: Actor, critic: Critic, target_cri
     spec["critic"] = {"params": _head(critic)}
     spec["target_critic"] = {"params": _head(target_critic)}
     return spec
+
+
+def jepa_spec(heads) -> Dict[str, Any]:
+    """DreamerV3-JEPA's heads in the layout of the JAX package's ``jepa``
+    tree: ``projector`` and ``target_projector`` (``Dense_0``,
+    ``LayerNorm_0``, ``Dense_1``), ``predictor`` (``Dense_0``, ``Dense_1``),
+    each under ``params``, and ``target_encoder`` as the world model's
+    encoder subtrees."""
+
+    def projector(m) -> Dict[str, Any]:
+        return {"params": {"Dense_0": _linear(m.dense_0), "LayerNorm_0": _norm(m.norm), "Dense_1": _linear(m.dense_1)}}
+
+    return {
+        "projector": projector(heads.projector),
+        "predictor": {"params": {"Dense_0": _linear(heads.predictor.dense_0),
+                                 "Dense_1": _linear(heads.predictor.dense_1)}},
+        "target_encoder": {"params": _encoders(heads.target_encoder)},
+        "target_projector": projector(heads.target_projector),
+    }
+
+
+def jepa_from_flax(tree: Mapping[str, Any], heads) -> None:
+    """Copy a checkpoint's ``jepa`` tree into the heads, strictly."""
+    _load(jepa_spec(heads), tree, "", {})
+
+
+def jepa_to_flax(heads) -> Dict[str, Any]:
+    """The heads as the JAX package's ``jepa`` tree (numpy)."""
+    return _dump(jepa_spec(heads))
 
 
 def _mlp(m: MLP) -> Dict[str, Any]:
@@ -249,10 +291,18 @@ def _to_flax(array: np.ndarray, kind: str, hwc: Tuple[int, int, int] = ()) -> np
     return array
 
 
-def _walk(spec: Mapping[str, Any], tree: Any, path: str,
+def _walk(spec: Mapping[str, Any] | list, tree: Any, path: str,
           unread: Mapping[str, Set[str]]) -> Iterator[Tuple[torch.Tensor, np.ndarray]]:
     """``(tensor, value)`` for every leaf of ``spec``, ``value`` the flax
-    array of ``tree`` at the same path in the port's layout; strict."""
+    array of ``tree`` at the same path in the port's layout; strict.  A list
+    in ``spec`` walks a tuple of trees."""
+    if isinstance(spec, list):
+        if not isinstance(tree, (tuple, list)) or len(tree) != len(spec):
+            raise TypeError(f"flax params at '{path or '/'}' must be a sequence of {len(spec)} trees, "
+                            f"got {tree!r:.100}")
+        for i, (sub, sub_tree) in enumerate(zip(spec, tree)):
+            yield from _walk(sub, sub_tree, f"{path}/{i}", unread)
+        return
     if not isinstance(tree, Mapping):
         raise TypeError(f"flax params at '{path or '/'}' must be a mapping, got {type(tree).__name__}")
     unknown = set(tree) - set(spec) - unread.get(path, set())
@@ -261,7 +311,7 @@ def _walk(spec: Mapping[str, Any], tree: Any, path: str,
         raise KeyError(f"flax params at '{path or '/'}': unknown keys {sorted(unknown)}, missing keys {sorted(missing)}")
     for key, sub in spec.items():
         where = f"{path}/{key}"
-        if isinstance(sub, dict):
+        if isinstance(sub, (dict, list)):
             yield from _walk(sub, tree[key], where, unread)
             continue
         tensor, kind, *meta = sub
@@ -291,14 +341,8 @@ def from_flax_policy(tree: Mapping[str, Any], world_model: WorldModel, actor: Ac
 
 
 def _dump(spec: Mapping[str, Any]) -> Dict[str, Any]:
-    out: Dict[str, Any] = {}
-    for key, sub in spec.items():
-        if isinstance(sub, dict):
-            out[key] = _dump(sub)
-        else:
-            tensor, kind, *meta = sub
-            out[key] = np.ascontiguousarray(_to_flax(tensor.detach().cpu().float().numpy(), kind, *meta))
-    return out
+    return _map_spec(spec, lambda tensor, kind, *meta: np.ascontiguousarray(
+        _to_flax(tensor.detach().cpu().float().numpy(), kind, *meta)))
 
 
 def to_flax(world_model: WorldModel, actor: Actor, critic: Critic, target_critic: Critic) -> Dict[str, Any]:
@@ -306,42 +350,44 @@ def to_flax(world_model: WorldModel, actor: Actor, critic: Critic, target_critic
     return _dump(param_spec(world_model, actor, critic, target_critic))
 
 
-def _adam_state(node: Any) -> Any:
-    """optax's ``ScaleByAdamState`` anywhere in a chain's nested state (the
-    port reads optax classes as ``ForeignObject`` tuples of their fields)."""
-    if getattr(node, "qualname", "").endswith("ScaleByAdamState"):
+def _optax_node(node: Any, name: str) -> Any:
+    """The optax state class ``name`` anywhere in a chain's nested state
+    (the port reads optax classes as ``ForeignObject`` tuples of their
+    fields, named as the class)."""
+    if type(node).__name__ == name:
         return node
     if isinstance(node, (tuple, list)):
         for sub in node:
-            found = _adam_state(sub)
+            found = _optax_node(sub, name)
             if found is not None:
                 return found
     return None
 
 
-def _map_spec(spec: Mapping[str, Any], fn) -> Dict[str, Any]:
-    return {key: _map_spec(sub, fn) if isinstance(sub, dict) else fn(*sub) for key, sub in spec.items()}
+def _map_spec(spec: Mapping[str, Any] | list, fn) -> Any:
+    if isinstance(spec, list):
+        return tuple(_map_spec(sub, fn) for sub in spec)
+    return {key: _map_spec(sub, fn) if isinstance(sub, (dict, list)) else fn(*sub) for key, sub in spec.items()}
 
 
-def optax_state(optimizer: torch.optim.Optimizer, spec: Mapping[str, Any], clip: bool = True,
+def optax_state(optimizer: torch.optim.Optimizer, spec: Mapping[str, Any] | list, clip: bool = True,
                 schedule: bool = False) -> Any:
-    """``optimizer``'s Adam state as the tree the JAX package pickles for
-    optax's ``chain(clip_by_global_norm(c), adam(...))``:
-    ``(EmptyState(), (ScaleByAdamState(count, mu, nu), EmptyState()))``,
-    ``mu``/``nu`` in the flax layout of ``spec`` (the module's subtree of
-    :func:`param_spec`, or :func:`ppo_spec`) and ``count`` Adam's ``step``
-    as int32.  Without ``clip`` the chain is ``chain(adam)``:
+    """``optimizer``'s state as the tree the JAX package pickles for optax's
+    ``chain(clip_by_global_norm(c), adam(...))``: ``(EmptyState(),
+    (ScaleByAdamState(count, mu, nu), EmptyState()))``, ``mu``/``nu`` in the
+    flax layout of ``spec`` (the module's subtree of :func:`param_spec`, or
+    :func:`ppo_spec`) and ``count`` Adam's ``step`` as int32; for the port's
+    ``RMSprop`` ``(ScaleByRmsState(nu), EmptyState(), TraceState(trace))``
+    in Adam's place (optax's ``rmsprop``, an ``EmptyState()`` for the trace
+    without momentum).  Without ``clip`` the chain is ``chain(adam)``:
     ``((ScaleByAdamState, EmptyState()),)``; with ``schedule`` (Adam's
     learning rate a schedule) the ``EmptyState()`` after Adam's is a
     ``ScaleByScheduleState(count)``.  A parameter Adam has not stepped yet
     holds zeros, as optax's ``init`` does."""
     from sheeprl_tpu_torch.utils.checkpoint import OptaxState
+    from sheeprl_tpu_torch.utils.optim import RMSprop
 
     empty = OptaxState.make("optax._src.base", "EmptyState")
-    adam = OptaxState.make("optax._src.transform", "ScaleByAdamState")
-    steps = {float(s["step"]) for s in optimizer.state.values() if "step" in s}
-    if len(steps) > 1:
-        raise ValueError(f"Adam's parameters disagree on the step count: {sorted(steps)}")
 
     def slot(name: str):
         def leaf(tensor: torch.Tensor, kind: str, *meta: Any) -> np.ndarray:
@@ -352,36 +398,63 @@ def optax_state(optimizer: torch.optim.Optimizer, spec: Mapping[str, Any], clip:
             return np.array(_to_flax(value.detach().cpu().float().numpy(), kind, *meta), order="C", copy=True)
         return leaf
 
+    if isinstance(optimizer, RMSprop):
+        rms = OptaxState.make("optax._src.transform", "ScaleByRmsState")
+        trace = OptaxState.make("optax.transforms._accumulation", "TraceState")
+        momentum = optimizer.param_groups[0]["momentum"]
+        base = (rms(_map_spec(spec, slot("nu"))), empty(),
+                empty() if momentum is None else trace(_map_spec(spec, slot("trace"))))
+        return (empty(), base) if clip else (base,)
+    adam = OptaxState.make("optax._src.transform", "ScaleByAdamState")
+    steps = {float(s["step"]) for s in optimizer.state.values() if "step" in s}
+    if len(steps) > 1:
+        raise ValueError(f"Adam's parameters disagree on the step count: {sorted(steps)}")
     count = np.asarray(int(steps.pop()) if steps else 0, np.int32)
     after = OptaxState.make("optax._src.transform", "ScaleByScheduleState")(count.copy()) if schedule else empty()
     base = (adam(count, _map_spec(spec, slot("exp_avg")), _map_spec(spec, slot("exp_avg_sq"))), after)
     return (empty(), base) if clip else (base,)
 
 
-def optimizer_state_dict(saved: Any, optimizer: torch.optim.Optimizer, spec: Mapping[str, Any]) -> Dict[str, Any]:
+def optimizer_state_dict(saved: Any, optimizer: torch.optim.Optimizer,
+                         spec: Mapping[str, Any] | list) -> Dict[str, Any]:
     """``optimizer``'s ``state_dict`` restored from a checkpoint's
     ``opt_states[name]``, for ``optimizer.load_state_dict``: the port's own
     (a torch ``state_dict`` stored as numpy) or the JAX package's optax
-    chain state, whose Adam moments map through ``spec``, the module's
-    subtree of :func:`param_spec`.  The hyperparameters stay those of
-    ``optimizer``, as a JAX resume rebuilds its optax chain from the
-    config."""
+    chain state, whose Adam moments (or RMSprop's ``nu`` and trace) map
+    through ``spec``, the module's subtree of :func:`param_spec`.  The
+    hyperparameters stay those of ``optimizer``, as a JAX resume rebuilds
+    its optax chain from the config."""
+    from sheeprl_tpu_torch.utils.optim import RMSprop
+
     groups = optimizer.state_dict()["param_groups"]
     if isinstance(saved, Mapping) and "state" in saved:
         state = {int(i): {k: torch.as_tensor(np.asarray(v)) for k, v in entry.items()}
                  for i, entry in saved["state"].items()}
         return {"state": state, "param_groups": groups}
-    adam = _adam_state(saved)
-    if adam is None:
-        raise ValueError(f"no torch state_dict and no optax ScaleByAdamState in the saved optimizer state: {saved!r:.200}")
-    count, mu, nu = adam[:3]
     params = [p for group in optimizer.param_groups for p in group["params"]]
     index = {id(p): i for i, p in enumerate(params)}
-    step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
-    state = {}
-    for (tensor, exp_avg), (_, exp_avg_sq) in zip(_walk(spec, mu, "", {}), _walk(spec, nu, "", {})):
-        state[index[id(tensor)]] = {"step": step.clone(), "exp_avg": torch.tensor(exp_avg),
-                                    "exp_avg_sq": torch.tensor(exp_avg_sq)}
+    state: Dict[int, Dict[str, torch.Tensor]] = {}
+    if isinstance(optimizer, RMSprop):
+        rms, trace = _optax_node(saved, "ScaleByRmsState"), _optax_node(saved, "TraceState")
+        momentum = optimizer.param_groups[0]["momentum"]
+        if rms is None or (trace is None) != (momentum is None):
+            raise ValueError(f"the saved optimizer state is not optax's rmsprop with momentum={momentum}: "
+                             f"{saved!r:.200}")
+        for tensor, nu in _walk(spec, rms[0], "", {}):
+            state[index[id(tensor)]] = {"nu": torch.tensor(nu)}
+        if trace is not None:
+            for tensor, value in _walk(spec, trace[0], "", {}):
+                state[index[id(tensor)]]["trace"] = torch.tensor(value)
+    else:
+        adam = _optax_node(saved, "ScaleByAdamState")
+        if adam is None:
+            raise ValueError(f"no torch state_dict and no optax ScaleByAdamState in the saved optimizer state: "
+                             f"{saved!r:.200}")
+        count, mu, nu = adam[:3]
+        step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+        for (tensor, exp_avg), (_, exp_avg_sq) in zip(_walk(spec, mu, "", {}), _walk(spec, nu, "", {})):
+            state[index[id(tensor)]] = {"step": step.clone(), "exp_avg": torch.tensor(exp_avg),
+                                        "exp_avg_sq": torch.tensor(exp_avg_sq)}
     if len(state) != len(index):
         raise KeyError(f"the optax state covers {len(state)} of the optimizer's {len(index)} parameters")
     return {"state": state, "param_groups": groups}

@@ -5,6 +5,7 @@ cell of the RSSM."""
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional, Sequence, Tuple
 
 import torch
@@ -12,6 +13,20 @@ import torch.nn.functional as F
 from torch import nn
 
 from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+
+
+@torch.no_grad()
+def lecun_normal_(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """flax's default init on every dense and conv layer of ``module``: a
+    truncated normal of variance ``1 / fan_in`` (``lecun_normal``), zero
+    bias; drawn from ``generator`` (the global generator without one)."""
+    for m in module.modules():
+        if isinstance(m, (nn.Linear, nn.Conv2d)):
+            fan_in = m.weight[0].numel()
+            std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, std=std, a=-2 * std, b=2 * std, generator=generator)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
 
 
 def get_activation(name: str | Callable | None) -> Callable:

@@ -7,10 +7,11 @@ group of rows is assembled into one padded batch, and the policy step.  The
 port serves ``dreamer_v3``, a stateful family: its handle exposes
 ``make_state_step(greedy)``, a ``(params, state, obs, is_first, generator,
 noise=None) -> (actions, new_state)`` step whose ``is_first`` reset is the
-same masked blend as ``PlayerDV3``; and ``ppo``, served statelessly: its
-handle exposes ``make_step(greedy)``, a ``(params, obs, generator,
-noise=None) -> actions`` step.  The ``a2c``/``sac``/``ppo_recurrent``
-adapters are listed in ROADMAP.md Queue 1 and raise here.
+same masked blend as ``PlayerDV3``; and ``ppo`` and ``a2c``, served
+statelessly: their handle exposes ``make_step(greedy)``, a ``(params, obs,
+generator, noise=None) -> actions`` step.  The ``sac``/``ppo_recurrent``
+adapters are listed in ROADMAP.md Queue 1 and raise here; as in the JAX
+package, ``dreamer_v3_jepa`` has no adapter.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from sheeprl_tpu_torch.envs import spaces
 #: agent_state, device))
 SERVABLE_BUILDERS: Dict[str, Callable] = {}
 #: servable in the JAX package, not ported yet (ROADMAP.md Queue 1)
-NOT_PORTED = ("a2c", "sac", "ppo_recurrent")
+NOT_PORTED = ("sac", "ppo_recurrent")
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)_\d+\.ckpt$")
 
@@ -206,16 +207,18 @@ SERVABLE_BUILDERS["dreamer_v3"] = _dreamer_v3_handle
 
 
 def _ppo_handle(cfg, obs_space, action_space, agent_state, device) -> PolicyHandle:
-    """ppo: the feed-forward agent served statelessly; one forward returns
+    """ppo / a2c: the feed-forward agent (the algorithm's own builder)
+    served statelessly; one forward returns
     ``(actions, log_prob, entropy, value)`` and serving keeps the actions
     (the argmax of each head when greedy).  Rows carry the observation as
     the env gives it (float32, pixels 0-255, a frame stack's frames
     unfolded); the step folds the frames into the channels, as the
     training player does."""
-    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    import importlib
 
+    agent_module = importlib.import_module(f"sheeprl_tpu_torch.algos.{cfg.algo.name}.agent")
     actions_dim, is_continuous, _ = _actions_dim(action_space)
-    agent = build_agent(actions_dim, is_continuous, cfg, obs_space, agent_state, device).eval()
+    agent = agent_module.build_agent(actions_dim, is_continuous, cfg, obs_space, agent_state, device).eval()
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     obs_spec: Dict[str, Tuple[Tuple[int, ...], str]] = {}
@@ -236,7 +239,7 @@ def _ppo_handle(cfg, obs_space, action_space, agent_state, device) -> PolicyHand
         return step
 
     return PolicyHandle(
-        algo="ppo",
+        algo=str(cfg.algo.name),
         obs_spec=obs_spec,
         action_shape=(sum(actions_dim),) if is_continuous else (len(actions_dim),),
         params=agent,
@@ -248,7 +251,7 @@ def _ppo_handle(cfg, obs_space, action_space, agent_state, device) -> PolicyHand
     )
 
 
-SERVABLE_BUILDERS["ppo"] = _ppo_handle
+SERVABLE_BUILDERS["ppo"] = SERVABLE_BUILDERS["a2c"] = _ppo_handle
 
 #: checkpoint keys that make up a Dreamer-family agent state
 DREAMER_STATE_KEYS = ("world_model", "actor", "critic", "target_critic")

@@ -111,3 +111,29 @@ def test_ppo_run_raises_where_no_cuda_device(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         cli.run(["exp=ppo", "env=dummy"])
     assert not (tmp_path / "logs").exists()
+
+
+@pytest.mark.parametrize("exp", ["dreamer_v3_jepa", "a2c"])
+def test_jepa_and_a2c_runs_raise_where_no_cuda_device(tmp_path, monkeypatch, exp):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.run([f"exp={exp}", "env=dummy", "diagnostics=off"])
+    assert not (tmp_path / "logs").exists()
+
+
+def test_the_walk_reaches_the_jepa_and_a2c_modules():
+    """Every module the import test loads includes this slice's."""
+    import importlib
+    import pkgutil
+
+    import sheeprl_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(sheeprl_tpu_torch.__path__, "sheeprl_tpu_torch.")}
+    new = {f"sheeprl_tpu_torch.algos.{algo}.{mod}" for algo, mods in
+           (("dreamer_v3_jepa", ("agent", "utils", "dreamer_v3_jepa", "evaluate")),
+            ("a2c", ("agent", "loss", "utils", "a2c", "evaluate"))) for mod in mods} | {"sheeprl_tpu_torch.models.jepa"}
+    assert new <= names
+    for name in sorted(new):
+        importlib.import_module(name)
+
