@@ -94,20 +94,39 @@ Phases, in order; any failure raises and the script exits non-zero:
             trains on, ``eval``, and ``serve`` refusing it (as the JAX
             package does); the XL step's stream and busy time, idle share,
             launches, FLOPs and MFU;
-12. a2c   — ``run exp=a2c env=dummy`` (an MLP of 64 x 2 on ``state``,
+12. p2e   — ``run exp=p2e_dv3_exploration env=dummy`` at its composed XL
+            widths (``P2E_OVERRIDES``: DreamerV3-XL with the ``[rgb]``
+            decoder, an ensemble of 8 MLPs of 1024 x 5, the intrinsic and
+            extrinsic exploration critics; batch 16 x 64, horizon 15, fp32)
+            under the default diagnostics: every metric finite, the
+            per-critic ones included; the world model, ensembles, both
+            actors, the task critic and each exploration critic changed; the
+            kernel's launches as the counters predict for two imaginations a
+            step (184); both checkpoints verified; a kernel-vs-plain XL
+            exploration step from the last; a resume from the first that
+            restores the seven trees, every optimizer's state and the Moments
+            tree and trains on; ``run exp=p2e_dv3_finetuning`` from the last
+            checkpoint and its replay (124 launches a step), the player on
+            the exploration actor until the first gradient step and on the
+            task actor after it, its checkpoint verified; ``eval`` of both
+            checkpoints, ``serve`` refusing both (as the JAX package does);
+            the XL exploration step's stream and busy time, idle share,
+            launches, FLOPs, MFU and peak memory;
+13. a2c   — ``run exp=a2c env=dummy`` (an MLP of 64 x 2 on ``state``,
             RMSprop) for 10 iterations: finite losses and ``Time/sps_*``; a
             resume from its mid-run checkpoint, ``eval``, ``serve`` to
             concurrent HTTP clients.  A2C runs no hand-written kernel;
-13. timers — a gradient step's stream time, device-busy time, idle share
+14. timers — a gradient step's stream time, device-busy time, idle share
             and launches (``step_profile.time_gradient_steps``) for the fp32
             ``rssm_chunks=1`` step and the chunked bf16 one, each with the
             diagnostics off and on (health stats, instrumented: its FLOPs and
             MFU); the CPU's FLOP count of the fp32 step, equal to the card's;
             the journals' MFU, the syncs a step, ``ckpt_end``'s ``write_ms``
             (async and blocking) and every run's kernel launches;
-14. the ``kernels`` JSON line, then the result line.
+15. the ``kernels`` JSON line, then the result line.
 
-It needs no network, writes only under ``build/`` in the checkout, and stops
+It needs no network, writes only under ``build/`` in the checkout (and
+removes the XL runs' checkpoints once their phases are done), and stops
 every thread it starts.
 """
 
@@ -115,6 +134,7 @@ from __future__ import annotations
 
 import json
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -254,6 +274,28 @@ JEPA_OVERRIDES = ["exp=dreamer_v3_jepa", "env=dummy", "env.capture_video=False",
                   "metric.logger=null", "metric.log_every=16", "seed=5"]
 JEPA_MIN_GRADIENT_STEPS = 4
 JEPA_TIMED_STEPS = 3
+# the P2E phase: exp=p2e_dv3_exploration at its composed XL widths
+# (DreamerV3-XL with the [rgb] decoder, an ensemble of 8 MLPs of 1024 x 5,
+# the intrinsic and extrinsic exploration critics; batch 16 x 64, horizon
+# 15, fp32, 4 envs) under the default diagnostics, cut in depth as JEPA's
+# run: learning from policy step 256, checkpoints (with the replay) at
+# iterations 66 and 132, a replay ratio that owes about 6 gradient steps by
+# iteration 148 and the run resumed from the first checkpoint one more.
+# Finetuning goes on from the last checkpoint and its replay: 4 iterations
+# of prefill, then the player acts with the exploration actor until the
+# first gradient step (iteration 7 at this replay ratio) and with the task
+# actor after it; about 5 gradient steps in 16 iterations
+P2E_OVERRIDES = ["exp=p2e_dv3_exploration", "env=dummy", "env.capture_video=False", "run_name=chip_smoke_p2e",
+                 "algo.learning_starts=256", "algo.total_steps=592", "algo.replay_ratio=0.02", "buffer.size=1024",
+                 "buffer.checkpoint=True", "checkpoint.every=264", "checkpoint.save_last=False", "metric.logger=null",
+                 "metric.log_every=16", "seed=5"]
+P2E_FINETUNE_OVERRIDES = ["exp=p2e_dv3_finetuning", "env=dummy", "env.capture_video=False",
+                          "run_name=chip_smoke_p2e_finetuning", "algo.learning_starts=16", "algo.total_steps=64",
+                          "algo.replay_ratio=0.1", "buffer.size=1024", "buffer.load_from_exploration=True",
+                          "buffer.checkpoint=False", "checkpoint.every=100000", "checkpoint.save_last=True",
+                          "metric.logger=null", "metric.log_every=16", "seed=5"]
+P2E_MIN_GRADIENT_STEPS = 4
+P2E_TIMED_STEPS = 3
 # the A2C phase: exp=a2c (an MLP of 64 x 2 on `state`, RMSprop, the whole
 # rollout in one step) on the dummy env, 4 envs x 5 steps, 10 iterations, a
 # checkpoint after the 5th and the 10th
@@ -611,12 +653,13 @@ def _launch_chunks(rows: int, hidden: int, joint_dim: int, itemsize: int = 4) ->
     return len(ln_gru._launch_plan(rows, joint_dim, hidden, itemsize, *limits).chunks)
 
 
-def _launches(cfg, out: dict) -> tuple:
+def _launches(cfg, out: dict, imaginations: int = 1) -> tuple:
     """``(predicted launches of a run, launches a gradient step)`` from the
     run's counters: a gradient step's chunked scan (``T/K`` steps at ``K*B``
-    rows), burn-in (``burn_in`` steps at ``(K-1)*B``) and imagination (``H``
-    steps at ``T*B``) in the compute dtype, and one fp32 call per player
-    step (at the envs' width) and test step (one row)."""
+    rows), burn-in (``burn_in`` steps at ``(K-1)*B``) and ``imaginations``
+    imaginations (``H`` steps at ``T*B`` each; P2E's exploration step runs
+    two) in the compute dtype, and one fp32 call per player step (at the
+    envs' width) and test step (one row)."""
     from sheeprl_tpu_torch.algos.dreamer_v3.utils import rssm_scan_spec
     from sheeprl_tpu_torch.parallel.precision import compute_dtype_of
 
@@ -627,7 +670,7 @@ def _launches(cfg, out: dict) -> tuple:
     item = 2 if "bfloat16" in str(compute_dtype_of(cfg)) else 4
     per_step = (T // chunks) * _launch_chunks(chunks * B, hidden, joint_dim, item) \
         + (burn_in * _launch_chunks((chunks - 1) * B, hidden, joint_dim, item) if chunks > 1 else 0) \
-        + H * _launch_chunks(T * B, hidden, joint_dim, item)
+        + imaginations * H * _launch_chunks(T * B, hidden, joint_dim, item)
     predicted = (out["gradient_steps"] * per_step + out["player_steps"] * _launch_chunks(out["player_width"], hidden,
                                                                                         joint_dim)
                  + out["test_steps"] * _launch_chunks(1, hidden, joint_dim))
@@ -669,14 +712,16 @@ def _journal_of(log_dir: str) -> dict:
     }
 
 
-def _check_diagnostics_journal(journal: dict, where: str) -> None:
-    """The default diagnostics' record: metrics with Telemetry/* and the
-    health gauges, the card's memory, the checkpoints, FLOPs and MFU."""
+def _check_diagnostics_journal(journal: dict, where: str, health: bool = True) -> None:
+    """The default diagnostics' record: metrics with Telemetry/* and (with
+    ``health``: P2E's step computes none, as the JAX package's) the health
+    gauges, the card's memory, the checkpoints, FLOPs and MFU."""
     need_kinds = {"run_start", "metrics", "ckpt_begin", "ckpt_end", "checkpoint", "telemetry_cost",
                   "memory_breakdown", "run_end"}
     need_gauges = {"Telemetry/mfu", "Telemetry/tflops_per_sec", "Telemetry/hbm_bytes_in_use",
-                   "Telemetry/health/grad_norm", "Telemetry/health/update_ratio", "Telemetry/health/dead_frac",
                    "Telemetry/goodput", "Telemetry/phase_pct/train"}
+    if health:
+        need_gauges |= {"Telemetry/health/grad_norm", "Telemetry/health/update_ratio", "Telemetry/health/dead_frac"}
     missing = (need_kinds - set(journal["kinds"])) | (need_gauges - set(journal["gauges"]))
     if missing or journal["status"] != "completed" or not journal["flops_per_step"] or not journal["mfu"]:
         raise AssertionError(f"{where}: the journal lacks {sorted(missing)}, status {journal['status']}, FLOPs "
@@ -720,11 +765,11 @@ def _kernel_vs_plain_step(cfg, agent_state, spaces_, batch, noise, device: str =
     import torch
 
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers
-    from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments_state
     from sheeprl_tpu_torch.models import blocks
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru, ln_gru_reference
+    from sheeprl_tpu_torch.utils.registry import find_algorithm
 
-    family = importlib.import_module(f"sheeprl_tpu_torch.algos.{cfg.algo.name}.{cfg.algo.name}")
+    family = importlib.import_module(find_algorithm(cfg.algo.name)["module"])
     actions_dim, is_continuous, obs_space = spaces_
     results = []
     for plain in (False, True):
@@ -733,7 +778,7 @@ def _kernel_vs_plain_step(cfg, agent_state, spaces_, batch, noise, device: str =
         step = family.make_train_step(agent, optimizers, cfg, is_continuous)
         kept = None if keep is None else (agent, [t.detach().clone() for t in keep(agent)])
         with mock.patch.object(blocks, "fused_layernorm_gru", ln_gru_reference if plain else fused_layernorm_gru):
-            _, metrics = step(init_moments_state(device), batch, 0.02, None, noise)
+            _, metrics = step(agent.initial_moments(device), batch, 0.02, None, noise)
         torch.cuda.synchronize()
         grads = {name: torch.cat([opt.state[p]["exp_avg"].reshape(-1) for p in agent.parameters_of(name)])
                  for name, opt in optimizers.items()}
@@ -1585,7 +1630,8 @@ def run_jepa_resume(jepa: dict) -> dict:
         restored["adam"] = {n: _optax_leaves(optax_state(o, agent.optimizer_spec(n))) for n, o in optimizers.items()}
         return moments
 
-    overrides = jepa["overrides"] + [f"checkpoint.resume_from={jepa['mid_checkpoint']}", "checkpoint.save_last=True"]
+    # no checkpoint at its end: nothing reads it, and an XL one takes seconds
+    overrides = jepa["overrides"] + [f"checkpoint.resume_from={jepa['mid_checkpoint']}"]
     cfg = compose(overrides)
     with mock.patch.object(dv3, "load_learner_state", spy_learner):
         fused_layernorm_gru.launches = 0  # the main path starts here
@@ -1608,8 +1654,7 @@ def run_jepa_resume(jepa: dict) -> dict:
     if problems:
         raise AssertionError(f"jepa resume from {jepa['mid_checkpoint']}: " + "; ".join(problems[:10]))
     return {"start_iter": out["start_iter"], "gradient_steps": out["gradient_steps"],
-            "player_steps": out["player_steps"], "test_steps": out["test_steps"], "ln_gru_launches": launches,
-            "checkpoint": out["checkpoints"][-1]}
+            "player_steps": out["player_steps"], "test_steps": out["test_steps"], "ln_gru_launches": launches}
 
 
 def run_jepa_eval(jepa: dict, device_name: str = "cuda") -> dict:
@@ -1667,6 +1712,310 @@ def run_jepa_timer(device_name: str = "cuda") -> dict:
            "max_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
            "top": sorted(((v[1] / JEPA_TIMED_STEPS / 1e3, k[:60]) for k, v in timing["kernels"].items()),
                          reverse=True)[:5]}
+    del step, moments, batch
+    return out
+
+
+def _p2e_xl_widths(cfg) -> None:
+    wm_cfg, ens = cfg.algo.world_model, cfg.algo.ensembles
+    widths = (wm_cfg.recurrent_model.recurrent_state_size, cfg.algo.dense_units, wm_cfg.encoder.cnn_channels_multiplier,
+              cfg.algo.mlp_layers, wm_cfg.representation_model.hidden_size, wm_cfg.stochastic_size,
+              wm_cfg.discrete_size, ens.n, ens.dense_units, ens.mlp_layers, cfg.algo.per_rank_batch_size,
+              cfg.algo.per_rank_sequence_length, cfg.algo.horizon, cfg.fabric.precision,
+              list(cfg.algo.cnn_keys.decoder) + list(cfg.algo.mlp_keys.decoder), cfg.env.screen_size,
+              cfg.env.num_envs, sorted(cfg.algo.critics_exploration))
+    if widths != (4096, 1024, 96, 5, 1024, 32, 32, 8, 1024, 5, 16, 64, 15, "32-true", ["rgb"], 64, 4,
+                  ["extrinsic", "intrinsic"]):
+        raise AssertionError(f"the P2E config is not exp=p2e_dv3_exploration's XL widths at batch 16 x 64: {widths}")
+
+
+def _p2e_noise(cfg, actions_dim, gen, device: str = "cuda") -> dict:
+    """Every draw of one P2E exploration step, pre-drawn on the card: the
+    world model's, and each imagination's (exploration, task)."""
+    explore, task = (_train_noise(cfg, actions_dim, gen, device) for _ in range(2))
+    return {"dynamic": explore["dynamic"],
+            **{name: {"imagination": n["imagination"], "actor": n["actor"]}
+               for name, n in (("exploration", explore), ("task", task))}}
+
+
+def _tree_leaves(tree, prefix=""):
+    """``{path: numpy}`` of a nested dict of arrays or tensors."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        return {p: v for k, sub in tree.items() for p, v in _tree_leaves(sub, f"{prefix}/{k}").items()}
+    return {prefix: np.asarray(tree.detach().cpu() if hasattr(tree, "detach") else tree)}
+
+
+def run_p2e(build_dir: Path, device_name: str = "cuda") -> dict:
+    """Plan2Explore-DV3 explores on the card through ``run`` at its
+    composed XL widths (``P2E_OVERRIDES``): every metric finite, the
+    per-critic ones included; the world model, the ensembles, both actors,
+    the task critic and each exploration critic changed; the kernel's
+    launches as the counters predict for two imaginations a step; the
+    journal of the default diagnostics (no health stats: the step has
+    none); both checkpoints verified; then one exploration step from the
+    last through the kernel and through the plain path, which must agree."""
+    device = device_name
+    import math
+
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import synthetic_batch
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs.env import make_env
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
+    from sheeprl_tpu_torch.serving.loader import _actions_dim
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    overrides = P2E_OVERRIDES + [f"root_dir={(build_dir / 'p2e').resolve()}", f"fabric.accelerator={device}"]
+    cfg = compose(overrides)
+    _p2e_xl_widths(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 2**30  # what earlier phases still hold
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    out = cli.run(overrides)
+    torch.cuda.synchronize()
+    launches = fused_layernorm_gru.launches  # the main path ends here
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30 - held_gb
+
+    rows, order = out["metric_rows"], out["metric_order"]
+    sps = _timer_metrics(out["logged"], "p2e")
+    per_critic = [k for k in order if k.endswith(("_intrinsic", "_extrinsic"))]
+    logged = {k: [m[k] for m in out["logged"] if k in m] for k in per_critic}
+    if (out["gradient_steps"] < P2E_MIN_GRADIENT_STEPS or rows.shape[1] != len(order) or len(order) != 22
+            or not np.isfinite(rows).all() or not all(v and all(math.isfinite(x) for x in v) for v in logged.values())
+            or [name for _, name in out["player_actors"]] != ["actor_exploration"]):
+        raise AssertionError(f"p2e: {out['gradient_steps']} gradient steps, metric rows {rows}, per-critic metrics "
+                             f"logged {logged}, player actors {out['player_actors']}")
+    predicted, per_step = _launches(cfg, out, imaginations=2)
+    if launches != predicted:
+        raise AssertionError(f"p2e: ln_gru launched {launches} times; the run predicts {predicted} "
+                             f"({out['gradient_steps']} gradient steps x {per_step} + {out['player_steps']} player "
+                             f"steps + {out['test_steps']} test steps)")
+    journal = _journal_of(out["log_dir"])
+    _check_diagnostics_journal(journal, "p2e", health=False)
+    mid, ckpt = out["checkpoints"][0], out["checkpoints"][-1]
+    for path in (mid, ckpt):
+        if verify_checkpoint(path) != (True, "verified"):
+            raise AssertionError(f"p2e: checkpoint {path} does not verify by its manifest: {verify_checkpoint(path)}")
+    state = load_state(ckpt)
+    env = make_env(cfg, cfg.seed, 0)()
+    actions_dim, is_continuous, _ = _actions_dim(env.action_space)
+    spaces_ = (actions_dim, is_continuous, env.observation_space)
+    env.close()
+    # the mid-run checkpoint holds the weights before the first gradient step
+    initial = load_state(mid)
+    if initial["opt_states"]["world_model"][1][0][0] != 0:
+        raise AssertionError(f"p2e: the checkpoint {mid} was taken after a gradient step")
+    changed = {}
+    for path in ("world_model", "ensembles", "actor_exploration", "actor_task", "critic_task",
+                 *(f"critics_exploration/{name}/module" for name in sorted(cfg.algo.critics_exploration))):
+        before, after = initial, state
+        for key in path.split("/"):
+            before, after = before[key], after[key]
+        before, after = dict(_leaves(before)), dict(_leaves(after))
+        changed[path] = sum(not np.array_equal(before[p], after[p]) for p in before)
+        if changed[path] == 0:
+            raise AssertionError(f"p2e: training left every parameter of {path} unchanged")
+    del initial
+
+    gen = torch.Generator(device=device).manual_seed(13)
+    batch = synthetic_batch(cfg, actions_dim, gen, device)
+    noise = _p2e_noise(cfg, actions_dim, gen, device)
+    (m_kernel, g_kernel, p_kernel, _), (m_plain, g_plain, p_plain, _) = _kernel_vs_plain_step(
+        cfg, state, spaces_, batch, noise, device)
+    del state
+    metric_err = float(np.max(np.abs(m_kernel - m_plain) / np.maximum(np.abs(m_plain), 1e-3)))
+    grad_err = max(((g_kernel[k] - g_plain[k]).abs().max() / g_plain[k].abs().max().clamp_min(1e-30)).item()
+                   for k in g_plain)
+    diff = (p_kernel - p_plain).abs()
+    param_err, outliers = diff.max().item(), (diff > STEP_PARAM_ATOL).float().mean().item()
+    if (not np.isfinite(m_kernel).all() or metric_err > STEP_METRIC_RTOL or grad_err > STEP_GRAD_RTOL
+            or outliers > STEP_PARAM_OUTLIERS):
+        raise AssertionError(
+            f"p2e kernel vs plain gradient step: metrics relative error {metric_err} (tol {STEP_METRIC_RTOL}), "
+            f"gradients relative error {grad_err} (tol {STEP_GRAD_RTOL}), share of params off by more than "
+            f"{STEP_PARAM_ATOL}: {outliers} (tol {STEP_PARAM_OUTLIERS}); kernel {m_kernel}, plain {m_plain}")
+    return {
+        "gradient_steps": out["gradient_steps"], "player_steps": out["player_steps"], "test_steps": out["test_steps"],
+        "policy_steps": out["policy_steps"], "ln_gru_launches": launches, "launches_per_gradient_step": per_step,
+        "changed_leaves": changed, "final_metrics": dict(zip(order, rows[-1].tolist())), "per_critic": logged,
+        "step_metric_rel_err": metric_err, "step_grad_rel_err": grad_err, "step_param_max_abs_err": param_err,
+        "step_param_outliers": outliers, "peak_memory_gb": peak_gb, "held_gb": held_gb, "checkpoint": ckpt,
+        "mid_checkpoint": mid,
+        "overrides": overrides, "journal": journal, "sps": sps,
+    }
+
+
+def run_p2e_resume(p2e: dict) -> dict:
+    """``run checkpoint.resume_from=<the P2E run's mid-run checkpoint>``: the
+    seven trees, all six kinds of optimizer state (one per exploration
+    critic) and the Moments tree restored as saved, and the run trains on."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.interop.flax_params import optax_state
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    saved = load_state(p2e["mid_checkpoint"])
+    restored = {}
+    load_learner_state = dv3.load_learner_state
+
+    def spy_learner(state, agent, optimizers, device):
+        moments = load_learner_state(state, agent, optimizers, device)
+        restored["trees"] = {p: np.array(v) for p, v in _tree_leaves(agent.trees()).items()}  # copies
+        restored["opt"] = _optax_leaves(dv3.nest({n: optax_state(o, agent.optimizer_spec(n))
+                                                  for n, o in optimizers.items()}))
+        restored["moments"] = _tree_leaves(moments)
+        restored["optimizers"] = sorted(optimizers)
+        return moments
+
+    overrides = p2e["overrides"] + [f"checkpoint.resume_from={p2e['mid_checkpoint']}"]
+    cfg = compose(overrides)
+    with mock.patch.object(dv3, "load_learner_state", spy_learner):
+        fused_layernorm_gru.launches = 0  # the main path starts here
+        out = cli.run(overrides)
+        torch.cuda.synchronize()
+        launches = fused_layernorm_gru.launches  # the main path ends here
+    problems = []
+    for path, value in _tree_leaves({k: saved[k] for k in ("world_model", "actor_task", "critic_task",
+                                                           "target_critic_task", "actor_exploration",
+                                                           "critics_exploration", "ensembles")}).items():
+        if not np.array_equal(restored["trees"].get(path), value):
+            problems.append(f"tree {path}")
+    want_opt = _optax_leaves(saved["opt_states"])
+    if sorted(want_opt) != sorted(restored["opt"]):
+        problems.append(f"optimizer state paths {sorted(want_opt)[:5]} vs {sorted(restored['opt'])[:5]}")
+    problems += [f"Adam {path}" for path, value in want_opt.items()
+                 if not np.array_equal(restored["opt"].get(path), value)]
+    problems += [f"moments {path}" for path, value in _tree_leaves(saved["moments"]).items()
+                 if not np.array_equal(restored["moments"].get(path), value)]
+    predicted, _ = _launches(cfg, out, imaginations=2)
+    if (out["start_iter"] != saved["iter_num"] + 1 or out["gradient_steps"] < 1 or launches != predicted
+            or not np.isfinite(out["metric_rows"]).all() or len(restored["optimizers"]) != 7):
+        problems.append(f"start_iter {out['start_iter']}, {out['gradient_steps']} gradient steps, {launches} "
+                        f"launches (predicted {predicted}), optimizers {restored['optimizers']}, metrics "
+                        f"{out['metric_rows']}")
+    if problems:
+        raise AssertionError(f"p2e resume from {p2e['mid_checkpoint']}: " + "; ".join(problems[:10]))
+    return {"start_iter": out["start_iter"], "gradient_steps": out["gradient_steps"],
+            "player_steps": out["player_steps"], "test_steps": out["test_steps"], "ln_gru_launches": launches,
+            "optimizers": restored["optimizers"], "moments": len(restored["moments"])}
+
+
+def run_p2e_finetune(build_dir: Path, p2e: dict, device_name: str = "cuda") -> dict:
+    """``run exp=p2e_dv3_finetuning checkpoint.exploration_ckpt_path=<the
+    exploration run's last> buffer.load_from_exploration=True``: DreamerV3's
+    step at the exploration's widths (one imagination a step), the player
+    on the exploration actor until the first gradient step and on the task
+    actor after it, every metric finite, the checkpoint verified."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    overrides = P2E_FINETUNE_OVERRIDES + [f"root_dir={(build_dir / 'p2e_finetuning').resolve()}",
+                                          f"fabric.accelerator={device_name}",
+                                          f"checkpoint.exploration_ckpt_path={p2e['checkpoint']}"]
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    out = cli.run(overrides)
+    torch.cuda.synchronize()
+    launches = fused_layernorm_gru.launches  # the main path ends here
+    cfg = compose(overrides)
+    from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_finetuning import apply_exploration_cfg, load_exploration_cfg
+
+    apply_exploration_cfg(cfg, load_exploration_cfg(cfg))
+    _p2e_xl_widths(cfg)
+    predicted, per_step = _launches(cfg, out)
+    ckpt = out["checkpoints"][-1]
+    switches = out["player_actors"]
+    first_train = out["first_train_iter"]
+    if (out["gradient_steps"] < 1 or not np.isfinite(out["metric_rows"]).all() or launches != predicted
+            or [name for _, name in switches] != ["actor_exploration", "actor"] or first_train is None
+            or not switches[0][0] <= first_train < switches[1][0] == first_train + 1
+            or verify_checkpoint(ckpt) != (True, "verified")
+            or not {"actor_exploration", "actor", "opt_states"} <= set(load_state(ckpt))):
+        raise AssertionError(f"p2e finetuning: {out['gradient_steps']} gradient steps, {launches} ln_gru launches "
+                             f"(predicted {predicted}), player actors {switches}, first gradient step at iteration "
+                             f"{first_train}, checkpoint {ckpt} {verify_checkpoint(ckpt)}")
+    return {"gradient_steps": out["gradient_steps"], "player_steps": out["player_steps"],
+            "test_steps": out["test_steps"], "ln_gru_launches": launches, "launches_per_gradient_step": per_step,
+            "player_actors": switches, "first_train_iter": first_train, "checkpoint": ckpt,
+            "final_metrics": dict(zip(out["metric_order"], out["metric_rows"][-1].tolist()))}
+
+
+def run_p2e_eval(checkpoints, device_name: str = "cuda") -> dict:
+    """``eval`` of each P2E checkpoint (the task actor acts through the
+    kernel), then ``serve``, which refuses each as the JAX package does (no
+    P2E adapter)."""
+    import math
+
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.serving.server import ServeApp
+
+    out = {"test_rewards": [], "ln_gru_launches": 0, "serve_refusals": []}
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    for ckpt in checkpoints:
+        out["test_rewards"].append(cli.evaluation([f"checkpoint_path={ckpt}"]))
+    torch.cuda.synchronize()
+    out["ln_gru_launches"] = fused_layernorm_gru.launches  # the main path ends here
+    if not all(math.isfinite(r) for r in out["test_rewards"]) or out["ln_gru_launches"] < len(checkpoints):
+        raise AssertionError(f"p2e eval: test rewards {out['test_rewards']}, {out['ln_gru_launches']} ln_gru launches")
+    for ckpt in checkpoints:
+        cfg, ckpt_path, device = cli.serve_config([f"checkpoint_path={ckpt}", "serving.port=0",
+                                                   f"fabric.accelerator={device_name}"])
+        try:
+            app = ServeApp(cfg, ckpt_path, device)
+        except ValueError as err:
+            refusal = str(err)
+        else:
+            app.close()
+            raise AssertionError(f"serve accepted the P2E checkpoint {ckpt}; the JAX package has no adapter for it")
+        if "no servable adapter" not in refusal:
+            raise AssertionError(f"serve refused the P2E checkpoint {ckpt} for another reason: {refusal}")
+        out["serve_refusals"].append(refusal)
+    return out
+
+
+def run_p2e_timer(device_name: str = "cuda") -> dict:
+    """The XL exploration step as the default diagnostics build it
+    (telemetry's instrumentation counting its FLOPs at its first call; the
+    step has no health stats): stream time, device-busy time, idle share,
+    launches, FLOPs, the step's MFU and the peak memory."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import profiled_step, time_gradient_steps
+    from sheeprl_tpu_torch.diagnostics.telemetry import resolve_peak_flops
+
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 2**30  # what earlier phases still hold
+    step, moments, batch, gen = profiled_step(["exp=p2e_dv3_exploration"], device_name, True)
+    timing = time_gradient_steps(step, moments, batch, gen, P2E_TIMED_STEPS, warmup=2, profile=True)
+    gru = [v for k, v in timing["kernels"].items() if "ln_gru" in k]
+    peak = resolve_peak_flops(torch.cuda.get_device_name(0), "32-true")
+    out = {"step_ms": timing["step_ms"], "stream_ms": timing["stream_ms"], "busy_ms": timing["busy_ms"],
+           "idle_share": timing["idle_share"], "launches": timing["launches"],
+           "ln_gru_launches": sum(v[0] for v in gru) // P2E_TIMED_STEPS,
+           "ln_gru_ms": sum(v[1] for v in gru) / 1e3 / P2E_TIMED_STEPS, "flops_per_step": step.flops_per_call,
+           "step_mfu": step.flops_per_call / (timing["step_ms"] / 1e3) / peak if peak else None,
+           "max_memory_gb": torch.cuda.max_memory_allocated() / 2**30 - held_gb, "held_gb": held_gb,
+           "top": sorted(((v[1] / P2E_TIMED_STEPS / 1e3, k[:60]) for k, v in timing["kernels"].items()),
+                         reverse=True)[:6]}
     del step, moments, batch
     return out
 
@@ -2047,6 +2396,63 @@ def main() -> int:
           f"{jepa_timer['flops_per_step']:.6g} FLOPs a step counted, step MFU {jepa_timer['step_mfu']}; peak memory "
           f"{jepa_timer['max_memory_gb']:.2f} GiB; top kernels (ms, name) {jepa_timer['top']}  [{card}]", flush=True)
 
+    # the JEPA run's XL checkpoints are done with; P2E's take their room
+    shutil.rmtree(build_dir / "jepa", ignore_errors=True)
+    p2e_t0 = time.monotonic()
+    p2e = run_p2e(build_dir)
+    print(
+        f"[p2e] Plan2Explore-DV3 run exp=p2e_dv3_exploration at its XL widths (recurrent 4096, dense 1024, CNN "
+        f"multiplier 96, 5 layers, [rgb] decoder, ensembles 8 x 1024 x 5, critics intrinsic 0.1 + extrinsic 1.0; "
+        f"batch 16 x 64, horizon 15, fp32): {p2e['gradient_steps']} gradient steps, {p2e['player_steps']} player "
+        f"steps (the exploration actor), {p2e['test_steps']} zero-shot test steps (the task actor), "
+        f"{p2e['policy_steps']} policy steps; {p2e['ln_gru_launches']} ln_gru launches = predicted "
+        f"({p2e['launches_per_gradient_step']} per gradient step: 64 x 16 rows + 2 imaginations x 15 x 1024 at "
+        f"K=5120 H=4096); every metric finite, the per-critic ones logged {json.dumps(p2e['per_critic'])}, final "
+        f"{json.dumps(p2e['final_metrics'])}; leaves changed {p2e['changed_leaves']}; both checkpoints verified by "
+        f"their manifests; Time/sps_train {p2e['sps']['Time/sps_train']}, Time/sps_env_interaction "
+        f"{p2e['sps']['Time/sps_env_interaction']}; journal Telemetry/mfu {p2e['journal']['mfu']}, FLOPs counted "
+        f"{p2e['journal']['flops_per_step']}; peak memory of the run {p2e['peak_memory_gb']:.2f} GiB over the "
+        f"{p2e['held_gb']:.2f} GiB earlier phases held  [{card}]",
+        flush=True)
+    print(
+        f"[p2e] kernel vs plain XL exploration step from the last checkpoint's state, one batch and noise: metrics "
+        f"max relative error {p2e['step_metric_rel_err']:.3g} (tol {STEP_METRIC_RTOL:g}), gradients "
+        f"{p2e['step_grad_rel_err']:.3g} (tol {STEP_GRAD_RTOL:g}), params off by more than {STEP_PARAM_ATOL:g}: "
+        f"{p2e['step_param_outliers']:.3g} (tol {STEP_PARAM_OUTLIERS:g}), max_abs_err "
+        f"{p2e['step_param_max_abs_err']:.3g} (not held)  [{card}]", flush=True)
+    p2e_resumed = run_p2e_resume(p2e)
+    print(f"[p2e] resume from {p2e['mid_checkpoint']}: the seven trees, the optimizers' optax states "
+          f"({', '.join(p2e_resumed['optimizers'])}) and the Moments tree ({p2e_resumed['moments']} tensors) "
+          f"restored as saved; started at iteration {p2e_resumed['start_iter']}, {p2e_resumed['gradient_steps']} "
+          f"gradient steps, {p2e_resumed['player_steps']} player steps, {p2e_resumed['test_steps']} test steps, "
+          f"{p2e_resumed['ln_gru_launches']} ln_gru launches = predicted  [{card}]", flush=True)
+    p2e_finetuned = run_p2e_finetune(build_dir, p2e)
+    print(f"[p2e] finetuning run exp=p2e_dv3_finetuning from {p2e['checkpoint']} with its replay "
+          f"(buffer.load_from_exploration=True): {p2e_finetuned['gradient_steps']} gradient steps, "
+          f"{p2e_finetuned['player_steps']} player steps, {p2e_finetuned['test_steps']} test steps; "
+          f"{p2e_finetuned['ln_gru_launches']} ln_gru launches = predicted "
+          f"({p2e_finetuned['launches_per_gradient_step']} per gradient step); the player acted with (iteration, "
+          f"actor) {p2e_finetuned['player_actors']}, the first gradient step at iteration "
+          f"{p2e_finetuned['first_train_iter']}; every metric finite, final "
+          f"{json.dumps(p2e_finetuned['final_metrics'])}; checkpoint verified  [{card}]", flush=True)
+    p2e_evaluated = run_p2e_eval([p2e["checkpoint"], p2e_finetuned["checkpoint"]])
+    print(f"[p2e] eval of the exploration and finetuning checkpoints (the task actor): Test/cumulative_reward "
+          f"{p2e_evaluated['test_rewards']}, {p2e_evaluated['ln_gru_launches']} ln_gru launches; serve refused both: "
+          f"{[r[:60] for r in p2e_evaluated['serve_refusals']]}  [{card}]", flush=True)
+    p2e_timer = run_p2e_timer()
+    fwd = 64 * xl_cases[(16, "float32")]["ms"] + 30 * xl_cases[(1024, "float32")]["ms"]
+    print(f"[p2e-timer] Plan2Explore-DV3 XL exploration step (fp32, default diagnostics): median stream time "
+          f"{p2e_timer['step_ms']:.3f} ms (CUDA events; {[round(x, 3) for x in p2e_timer['stream_ms']]}), device "
+          f"busy {p2e_timer['busy_ms']:.3f} ms (torch.profiler), idle share {p2e_timer['idle_share']:.4f}, "
+          f"{p2e_timer['launches']} launches a step, ln_gru {p2e_timer['ln_gru_launches']} launches "
+          f"{p2e_timer['ln_gru_ms']:.4f} ms a step (the XL kernel cases predict a forward of {fwd:.4f} ms); "
+          f"{p2e_timer['flops_per_step']:.6g} FLOPs a step counted, step MFU {p2e_timer['step_mfu']}; peak memory "
+          f"{p2e_timer['max_memory_gb']:.2f} GiB over the {p2e_timer['held_gb']:.2f} GiB earlier phases held; top "
+          f"kernels (ms, name) {p2e_timer['top']}; the P2E phases took {time.monotonic() - p2e_t0:.1f} s  [{card}]",
+          flush=True)
+    shutil.rmtree(build_dir / "p2e", ignore_errors=True)
+    shutil.rmtree(build_dir / "p2e_finetuning", ignore_errors=True)
+
     a2c = run_a2c(build_dir)
     print(f"[a2c] run exp=a2c env=dummy (MLP 64 x 2 on state, RMSprop, 4 envs x 5 steps, 10 iterations): final "
           f"losses {json.dumps(a2c['final_losses'])}, value_ev {a2c['value_ev'][-1]}, Time/sps_env_interaction "
@@ -2109,7 +2515,9 @@ def main() -> int:
     print(f"[launches] ln_gru launches: serve {slice_report['ln_gru_launches']}, train {train['ln_gru_launches']}, "
           f"chunked {chunked['ln_gru_launches']}, resume {resumed['ln_gru_launches']}, eval "
           f"{evaluated['ln_gru_launches']}, drill resume {drill['ln_gru_launches']}, jepa {jepa['ln_gru_launches']}, "
-          f"jepa resume {jepa_resumed['ln_gru_launches']}, jepa eval {jepa_evaluated['ln_gru_launches']}  [{card}]",
+          f"jepa resume {jepa_resumed['ln_gru_launches']}, jepa eval {jepa_evaluated['ln_gru_launches']}, p2e "
+          f"{p2e['ln_gru_launches']}, p2e resume {p2e_resumed['ln_gru_launches']}, p2e finetuning "
+          f"{p2e_finetuned['ln_gru_launches']}, p2e eval {p2e_evaluated['ln_gru_launches']}  [{card}]",
           flush=True)
 
     # the kernels line: the kernel at the shape the main paths gave it most
@@ -2122,7 +2530,9 @@ def main() -> int:
                "train_bf16_chunked": chunked["ln_gru_launches"], "resume": resumed["ln_gru_launches"],
                "eval": evaluated["ln_gru_launches"], "drill_resume": drill["ln_gru_launches"],
                "jepa": jepa["ln_gru_launches"], "jepa_resume": jepa_resumed["ln_gru_launches"],
-               "jepa_eval": jepa_evaluated["ln_gru_launches"]}
+               "jepa_eval": jepa_evaluated["ln_gru_launches"], "p2e": p2e["ln_gru_launches"],
+               "p2e_resume": p2e_resumed["ln_gru_launches"], "p2e_finetuning": p2e_finetuned["ln_gru_launches"],
+               "p2e_eval": p2e_evaluated["ln_gru_launches"]}
     case_keys = ("B", "K", "H", "dtype", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms", "bound_ms", "bound_by")
     kernels = [{
         "name": "ln_gru",
@@ -2140,7 +2550,7 @@ def main() -> int:
         "library_ms": main["library_ms"],
         "shape": {"B": main["B"], "K": main["K"], "H": main["H"], "dtype": main["dtype"]},
         "cases": [{k: c[k] for k in case_keys} for c in cases],
-        "phase": "kernel+slice+train+chunked+resume+eval+drill+jepa",
+        "phase": "kernel+slice+train+chunked+resume+eval+drill+jepa+p2e",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

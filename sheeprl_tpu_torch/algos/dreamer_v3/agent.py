@@ -4,9 +4,9 @@ Ported: the dense stack, the CNN and MLP encoders and decoders, the recurrent
 model, the RSSM (initial states, representation, transition, ``dynamic`` and
 ``imagination``), the reward and continue heads, the world model's methods,
 the actor's ``act`` and ``log_prob_entropy`` for discrete heads and the
-continuous ``scaled_normal`` head, the critic, ``build_agent`` and
-``PlayerDV3``.  ``MinedojoActor`` and the ``normal``/``tanh_normal``/
-``trunc_normal`` actor heads are still to port (ROADMAP.md, Queue 1).
+continuous ``scaled_normal``, ``normal``, ``tanh_normal`` and
+``trunc_normal`` heads, the critic, ``build_agent`` and ``PlayerDV3``.
+``MinedojoActor`` is still to port (ROADMAP.md, Queue 1).
 
 Layouts follow the JAX package at every public function: observations are
 CHW, stochastic states flat ``[..., stochastic * discrete]``.  The conv
@@ -21,7 +21,8 @@ the kernel; flax's ``"SAME"`` at kernel 4, stride 2 pads the dilated input by
 (2, 2), which is ``padding=1`` here.
 
 Sampling takes optional pre-drawn noise (``compute_stochastic_state``'s and
-the discrete heads' Gumbel noise, the continuous head's standard normal):
+the discrete heads' Gumbel noise, the continuous head's standard normal or,
+for ``trunc_normal``, uniform draw):
 ``jax.random.categorical(k, l)`` is ``argmax(l + gumbel(k, l.shape))``, so a
 test that feeds both packages the same draws compares them exactly.
 Without noise, draws come from the ``torch.Generator`` passed in.
@@ -39,10 +40,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from sheeprl_tpu_torch.models.blocks import LayerNormChannelLast, LayerNormGRUCell, get_activation
-from sheeprl_tpu_torch.ops.numerics import symlog
+from sheeprl_tpu_torch.ops.distributions import TruncatedNormal
+from sheeprl_tpu_torch.ops.numerics import safeatanh, symlog
 from sheeprl_tpu_torch.parallel.precision import call_cast
-
-_NOT_PORTED = "not ported yet: see ROADMAP.md Queue 1"
 
 
 def gumbel_like(x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -422,21 +422,23 @@ class WorldModel(nn.Module):
 
 class Actor(nn.Module):
     """DV3 actor: dense backbone + one head per discrete sub-action (unimix +
-    straight-through) or one (mean, std) head for the continuous
-    ``scaled_normal`` distribution."""
+    straight-through) or one (mean, std) head for a continuous distribution:
+    ``scaled_normal`` (DreamerV3's), ``normal``, ``tanh_normal`` (DreamerV1's)
+    or ``trunc_normal`` (DreamerV2's).  ``auto`` is ``discrete`` for discrete
+    actions and ``default_continuous_dist`` for continuous ones, which each
+    family sets for its own."""
 
     def __init__(self, latent_state_size: int, actions_dim: Sequence[int], is_continuous: bool,
                  distribution: str = "auto", init_std: float = 2.0, min_std: float = 0.1, max_std: float = 1.0,
                  dense_units: int = 1024, mlp_layers: int = 5, unimix: float = 0.01, action_clip: float = 1.0,
-                 eps: float = 1e-3, dense_act: str = "silu", layer_norm: bool = True):
+                 eps: float = 1e-3, dense_act: str = "silu", layer_norm: bool = True,
+                 default_continuous_dist: str = "scaled_normal"):
         super().__init__()
         dist = distribution.lower()
         if dist not in ("auto", "normal", "tanh_normal", "discrete", "scaled_normal", "trunc_normal"):
             raise ValueError(f"Invalid actor distribution: {dist}")
         if dist == "auto":
-            dist = "scaled_normal" if is_continuous else "discrete"
-        if dist not in ("discrete", "scaled_normal"):
-            raise NotImplementedError(f"actor distribution {dist!r} is {_NOT_PORTED}")
+            dist = default_continuous_dist if is_continuous else "discrete"
         self.dist = dist
         self.actions_dim = tuple(int(a) for a in actions_dim)
         self.is_continuous = is_continuous
@@ -456,18 +458,32 @@ class Actor(nn.Module):
         return [h(x) for h in self.heads]
 
     def _continuous_dist_params(self, pre: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``scaled_normal``: tanh mean, std squashed into [min_std, max_std]."""
+        """The mean and std of the continuous head's distribution."""
         mean, std = torch.chunk(pre, 2, dim=-1)
-        std = (self.max_std - self.min_std) * torch.sigmoid(std + self.init_std) + self.min_std
-        return torch.tanh(mean), std
+        if self.dist == "tanh_normal":
+            return 5 * torch.tanh(mean / 5), F.softplus(std + self.init_std) + self.min_std
+        if self.dist == "trunc_normal":
+            return torch.tanh(mean), 2 * torch.sigmoid((std + self.init_std) / 2) + self.min_std
+        if self.dist == "scaled_normal":
+            std = (self.max_std - self.min_std) * torch.sigmoid(std + self.init_std) + self.min_std
+            return torch.tanh(mean), std
+        return mean, std  # normal
 
     def log_prob_entropy(self, state: torch.Tensor, actions: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """Log-prob of the given (concatenated) actions and the policy
-        entropy, both ``[..., 1]``."""
+        entropy, both ``[..., 1]``.  A tanh-normal has no closed-form
+        entropy: it is the negated log-prob, as in the JAX package."""
         pre_dist = self(state)
         if self.is_continuous:
             mean, std = self._continuous_dist_params(pre_dist[0])
-            lp = -((actions - mean) ** 2) / (2 * std**2) - torch.log(std) - 0.5 * math.log(2 * math.pi)
+            if self.dist == "trunc_normal":
+                dist = TruncatedNormal(mean, std, -1.0, 1.0, event_dims=1)
+                return dist.log_prob(actions)[..., None], dist.entropy()[..., None]
+            x = safeatanh(actions, 1e-6) if self.dist == "tanh_normal" else actions
+            lp = -((x - mean) ** 2) / (2 * std**2) - torch.log(std) - 0.5 * math.log(2 * math.pi)
+            if self.dist == "tanh_normal":
+                log_prob = (lp - torch.log1p(-(actions**2) + 1e-6)).sum(dim=-1, keepdim=True)
+                return log_prob, -log_prob
             ent = 0.5 + 0.5 * math.log(2 * math.pi) + torch.log(std)
             return lp.sum(dim=-1, keepdim=True), ent.sum(dim=-1, keepdim=True)
         log_prob, entropy = 0.0, 0.0
@@ -489,18 +505,25 @@ class Actor(nn.Module):
     ) -> torch.Tensor:
         """Sample (or take the mode of) the actions, concatenated over heads.
         ``noise`` holds one tensor per head: Gumbel noise shaped like each
-        discrete head's logits, or the standard normal draw for the
-        continuous head."""
+        discrete head's logits, or for the continuous head a standard-normal
+        draw (a uniform draw in ``[1e-6, 1 - 1e-6]`` for ``trunc_normal``).
+        Greedy takes the mean (its tanh for ``tanh_normal``)."""
         pre_dist = self(state)
         if self.is_continuous:
             mean, std = self._continuous_dist_params(pre_dist[0])
             if greedy:
                 actions = mean
+            elif self.dist == "trunc_normal":
+                u = noise[0] if noise is not None else 1e-6 + (1 - 2e-6) * torch.rand(
+                    mean.shape, dtype=mean.dtype, device=mean.device, generator=generator)
+                actions = TruncatedNormal(mean, std, -1.0, 1.0).rsample(u)
             else:
                 eps = noise[0] if noise is not None else torch.randn(
                     mean.shape, dtype=mean.dtype, device=mean.device, generator=generator
                 )
                 actions = mean + std * eps.to(mean.dtype)
+            if self.dist == "tanh_normal":
+                actions = torch.tanh(actions)
             if self.action_clip > 0.0:
                 clip = torch.full_like(actions, self.action_clip)
                 actions = actions * (clip / torch.maximum(clip, torch.abs(actions))).detach()
@@ -532,16 +555,34 @@ def _uniform_fan_avg_(weight: torch.Tensor, fan_in: int, fan_out: int, generator
     nn.init.uniform_(weight, -limit, limit, generator=generator)
 
 
+#: the modules DreamerV3's optimizers train, in the order of its step
+TRAINED = ("world_model", "actor", "critic")
+
+
 class Agent(NamedTuple):
     """The four module trees of a DreamerV3 agent, as a checkpoint holds
-    them.  The training loop reaches what an optimizer trains and what a
-    checkpoint holds through the methods, which a family with more modules
-    (DreamerV3-JEPA) defines for its own."""
+    them.  The training loop reaches which optimizers the agent has, what
+    each trains and what a checkpoint holds through the methods, which a
+    family with more modules (DreamerV3-JEPA, Plan2Explore) defines for its
+    own."""
 
     world_model: WorldModel
     actor: Actor
     critic: Critic
     target_critic: Critic
+
+    def optimizer_configs(self, cfg) -> Dict[str, Any]:
+        """The optimizers the agent trains, by name in the order of the
+        step, each with its config section (its ``optimizer`` and
+        ``clip_gradients``)."""
+        return {name: cfg.algo[name] for name in TRAINED}
+
+    def initial_moments(self, device: torch.device | str = "cpu") -> Dict[str, Any]:
+        """The Moments state the step starts from (a family with more
+        critics keeps a tree of them)."""
+        from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments_state
+
+        return init_moments_state(device)
 
     def parameters_of(self, name: str) -> List[nn.Parameter]:
         """What the optimizer ``name`` (world_model, actor or critic) trains."""
@@ -563,22 +604,27 @@ class Agent(NamedTuple):
 
 
 @torch.no_grad()
-def init_weights(world_model: WorldModel, actor: Actor, critic: Optional[Critic], generator: torch.Generator) -> None:
+def init_weights(world_model: Optional[WorldModel], actor: Optional[Actor], critic: Optional[Critic],
+                 generator: torch.Generator) -> None:
     """Hafner initialization from a seeded generator: truncated-normal
     fan-avg for every dense and conv kernel; uniform fan-avg for the
     stochastic-state, actor, continue and decoder output heads; zero reward
-    and critic heads; zero biases, unit LayerNorm scales.  The critic comes
-    last in the draws, so leaving it out changes no other module's weights."""
-    uniform = [world_model.rssm.representation_model.head, world_model.rssm.transition_model.head,
-               world_model.continue_model.head, *actor.heads]
-    if world_model.cnn_decoder is not None:
-        uniform.append(world_model.cnn_decoder.out)
-    if world_model.mlp_decoder is not None:
-        uniform.extend(world_model.mlp_decoder.heads)
-    zero = {id(world_model.reward_model.head)} | ({id(critic.head)} if critic is not None else set())
+    and critic heads; zero biases, unit LayerNorm scales.  The modules draw
+    in the order world model, actor, critic; one left out (None) draws
+    nothing, so leaving out the critic changes no other module's weights."""
+    uniform = [*actor.heads] if actor is not None else []
+    zero = {id(critic.head)} if critic is not None else set()
+    if world_model is not None:
+        uniform += [world_model.rssm.representation_model.head, world_model.rssm.transition_model.head,
+                    world_model.continue_model.head]
+        if world_model.cnn_decoder is not None:
+            uniform.append(world_model.cnn_decoder.out)
+        if world_model.mlp_decoder is not None:
+            uniform.extend(world_model.mlp_decoder.heads)
+        zero.add(id(world_model.reward_model.head))
     uniform_ids = {id(m) for m in uniform}
-    critic_modules = list(critic.modules()) if critic is not None else []
-    for module in list(world_model.modules()) + list(actor.modules()) + critic_modules:
+    modules = [m for part in (world_model, actor, critic) if part is not None for m in part.modules()]
+    for module in modules:
         if isinstance(module, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             w = module.weight
             # fan-avg is symmetric in (in, out), so torch's two conv layouts
@@ -599,12 +645,10 @@ def init_weights(world_model: WorldModel, actor: Actor, critic: Optional[Critic]
 
 
 def _world_model_and_actor(actions_dim: Sequence[int], is_continuous: bool, cfg,
-                           obs_space) -> Tuple[WorldModel, Actor, int, float]:
-    """The configured world model and actor, uninitialized, on the CPU, with
-    the latent size and the LayerNorm epsilon the critic shares."""
+                           obs_space) -> Tuple[WorldModel, Actor]:
+    """The configured world model and actor, uninitialized, on the CPU."""
     wm_cfg = cfg.algo.world_model
-    actor_cfg = cfg.algo.actor
-    eps = float(cfg.algo.mlp_layer_norm.kw.get("eps", 1e-3)) if cfg.algo.get("mlp_layer_norm") else 1e-3
+    eps = _eps(cfg)
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
     cnn_decoder_keys = list(cfg.algo.cnn_keys.decoder)
@@ -614,7 +658,6 @@ def _world_model_and_actor(actions_dim: Sequence[int], is_continuous: bool, cfg,
     recurrent_state_size = wm_cfg.recurrent_model.recurrent_state_size
     stochastic_size = wm_cfg.stochastic_size
     discrete_size = wm_cfg.discrete_size
-    latent_state_size = stochastic_size * discrete_size + recurrent_state_size
     world_model = WorldModel(
         cnn_keys=cnn_keys,
         mlp_keys=mlp_keys,
@@ -647,8 +690,23 @@ def _world_model_and_actor(actions_dim: Sequence[int], is_continuous: bool, cfg,
         learnable_initial_recurrent_state=wm_cfg.learnable_initial_recurrent_state,
         decoupled_rssm=wm_cfg.decoupled_rssm,
     )
-    actor = Actor(
-        latent_state_size=latent_state_size,
+    return world_model, make_actor(actions_dim, is_continuous, cfg)
+
+
+def _eps(cfg) -> float:
+    return float(cfg.algo.mlp_layer_norm.kw.get("eps", 1e-3)) if cfg.algo.get("mlp_layer_norm") else 1e-3
+
+
+def _latent_state_size(cfg) -> int:
+    wm_cfg = cfg.algo.world_model
+    return wm_cfg.stochastic_size * wm_cfg.discrete_size + wm_cfg.recurrent_model.recurrent_state_size
+
+
+def make_actor(actions_dim: Sequence[int], is_continuous: bool, cfg) -> Actor:
+    """The configured actor, uninitialized, on the CPU."""
+    actor_cfg = cfg.algo.actor
+    return Actor(
+        latent_state_size=_latent_state_size(cfg),
         actions_dim=actions_dim,
         is_continuous=is_continuous,
         distribution=cfg.distribution.type,
@@ -659,9 +717,14 @@ def _world_model_and_actor(actions_dim: Sequence[int], is_continuous: bool, cfg,
         mlp_layers=actor_cfg.mlp_layers,
         unimix=cfg.algo.unimix,
         action_clip=actor_cfg.action_clip,
-        eps=eps,
+        eps=_eps(cfg),
     )
-    return world_model, actor, latent_state_size, eps
+
+
+def make_critic(cfg) -> Critic:
+    """The configured critic, uninitialized, on the CPU."""
+    critic_cfg = cfg.algo.critic
+    return Critic(_latent_state_size(cfg), critic_cfg.dense_units, critic_cfg.mlp_layers, critic_cfg.bins, _eps(cfg))
 
 
 def build_agent(
@@ -678,9 +741,8 @@ def build_agent(
     "target_critic": ...}`` in the JAX package's layout, all four trees),
     else from ``init_weights`` seeded with ``cfg.seed``, the target critic a
     copy of the critic.  The target critic never takes a gradient."""
-    world_model, actor, latent_state_size, eps = _world_model_and_actor(actions_dim, is_continuous, cfg, obs_space)
-    critic_cfg = cfg.algo.critic
-    critic = Critic(latent_state_size, critic_cfg.dense_units, critic_cfg.mlp_layers, critic_cfg.bins, eps)
+    world_model, actor = _world_model_and_actor(actions_dim, is_continuous, cfg, obs_space)
+    critic = make_critic(cfg)
     init_weights(world_model, actor, critic, torch.Generator().manual_seed(int(cfg.seed or 0)))
     target_critic = copy.deepcopy(critic)
     if agent_state is not None:
@@ -708,7 +770,7 @@ def build_policy_modules(
     JAX package's ``build_policy`` serves a checkpoint without the critics
     too).  Without ``agent_state`` the weights are ``build_agent``'s for the
     same seed."""
-    world_model, actor, *_ = _world_model_and_actor(actions_dim, is_continuous, cfg, obs_space)
+    world_model, actor = _world_model_and_actor(actions_dim, is_continuous, cfg, obs_space)
     init_weights(world_model, actor, None, torch.Generator().manual_seed(int(cfg.seed or 0)))
     if agent_state is not None:
         from sheeprl_tpu_torch.interop.flax_params import from_flax_policy

@@ -35,11 +35,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from sheeprl_tpu_torch.algos.dreamer_v3.agent import Agent, PlayerDV3, build_agent
+from sheeprl_tpu_torch.algos.dreamer_v3.agent import TRAINED, Agent, PlayerDV3, build_agent
 from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
     chunked_dynamic_scan,
-    init_moments_state,
     prepare_obs,
     real_actions_of,
     rssm_scan_spec,
@@ -67,7 +66,6 @@ METRIC_ORDER = [
     "Grads/actor",
     "Grads/critic",
 ]
-TRAINED = ("world_model", "actor", "critic")
 
 
 @contextlib.contextmanager
@@ -85,11 +83,40 @@ def frozen(*modules: nn.Module) -> Iterator[None]:
 
 
 def make_optimizers(cfg, agent: Agent) -> Dict[str, torch.optim.Optimizer]:
-    """One optimizer per trained module, from ``algo.<module>.optimizer``,
-    over what ``agent.parameters_of`` the module."""
+    """One optimizer per trained module, in the order and from the config
+    sections ``agent.optimizer_configs`` names (each section's
+    ``optimizer``), over what ``agent.parameters_of`` the module."""
     from sheeprl_tpu_torch.config import instantiate
 
-    return {name: instantiate(cfg.algo[name].optimizer)(agent.parameters_of(name)) for name in TRAINED}
+    return {name: instantiate(section.optimizer)(agent.parameters_of(name))
+            for name, section in agent.optimizer_configs(cfg).items()}
+
+
+def optimizer_params(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
+    return [p for group in optimizer.param_groups for p in group["params"]]
+
+
+def gradients(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """The gradient of ``loss`` over ``params``, zeros where it has none."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
+
+
+def apply_gradients(optimizer: torch.optim.Optimizer, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
+                    clip: float) -> None:
+    """One optimizer step on ``grads`` clipped by their global norm (optax's
+    ``chain(clip_by_global_norm(clip), ...)``)."""
+    for p, g in zip(params, clip_by_global_norm(grads, clip)):
+        p.grad = g
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=True)
+
+
+@torch.no_grad()
+def polyak(module: nn.Module, target: nn.Module, tau: float) -> None:
+    """``target <- tau * module + (1 - tau) * target``, tensor by tensor."""
+    for c, t in zip(module.parameters(), target.parameters()):
+        t.copy_(tau * c + (1 - tau) * t)
 
 
 class WorldModelTerm(Protocol):
@@ -115,6 +142,154 @@ class WorldModelTerm(Protocol):
     def after_update(self) -> None: ...
 
 
+def make_world_model_loss(world_model, cfg, term: Optional[WorldModelTerm] = None):
+    """DreamerV3's world-model loss, as the family's steps share it:
+    ``loss(batch, generator, noise) -> (losses, posteriors, recurrents,
+    extra)``; ``losses`` are the six of ``reconstruction_loss`` (the total
+    first), ``posteriors``/``recurrents`` the dynamic scan's ``[T, B, ...]``
+    states and ``extra`` what ``term.loss`` returns (None without a term).
+    The network inputs are cast to the compute dtype; the caller runs it
+    under ``call_cast`` of the modules.  ``noise["dynamic"]`` and
+    ``noise["burn_in"]`` are the scan's draws (see ``chunked_dynamic_scan``)."""
+    wm_cfg = cfg.algo.world_model
+    stoch, discrete = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
+    recurrent_size = int(wm_cfg.recurrent_model.recurrent_state_size)
+    cdt = compute_dtype_of(cfg)
+    chunks, burn_in = rssm_scan_spec(cfg)
+    obs_keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
+    cnn_dec_keys = list(cfg.algo.cnn_keys.decoder)
+    mlp_dec_keys = list(cfg.algo.mlp_keys.decoder)
+
+    def loss(batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator], noise: Dict[str, Any]):
+        T, B = batch["actions"].shape[:2]
+        target_obs = {k: batch[k] for k in set(cnn_dec_keys + mlp_dec_keys)}  # fp32 targets
+        batch_obs = {k: batch[k].to(cdt) for k in obs_keys}  # the network's input
+        # actions shift right by one: a_0 = 0
+        batch_actions = torch.cat([torch.zeros_like(batch["actions"][:1]), batch["actions"][:-1]], dim=0).to(cdt)
+        is_first = batch["is_first"].clone()
+        is_first[0] = 1.0
+        is_first = is_first.to(cdt)
+        embedded = world_model.encode(batch_obs)
+        recurrents, posteriors, post_logits, prior_logits = chunked_dynamic_scan(
+            world_model, batch_actions, embedded, is_first, stoch_flat=stoch * discrete,
+            recurrent_size=recurrent_size, chunks=chunks, burn_in=burn_in,
+            stored_recurrent=batch.get("rssm_recurrent"), stored_posterior=batch.get("rssm_posterior"),
+            stored_valid=batch.get("rssm_valid"), generator=generator, noise=noise.get("dynamic"),
+            burn_in_noise=noise.get("burn_in"),
+        )
+        latents = torch.cat([posteriors, recurrents], dim=-1)
+        recon = world_model.decode(latents)
+        po = {k: MSEDistribution(recon[k], dims=recon[k].dim() - 2) for k in cnn_dec_keys}
+        po.update({k: SymlogDistribution(recon[k], dims=recon[k].dim() - 2) for k in mlp_dec_keys})
+        pr = TwoHotEncodingDistribution(world_model.reward_logits(latents), dims=1)
+        pc = Bernoulli(world_model.continue_logits(latents), event_dims=1)
+        losses = reconstruction_loss(
+            po, target_obs, pr, batch["rewards"],
+            prior_logits.reshape(T, B, stoch, discrete), post_logits.reshape(T, B, stoch, discrete),
+            wm_cfg.kl_dynamic, wm_cfg.kl_representation, wm_cfg.kl_free_nats, wm_cfg.kl_regularizer,
+            pc, 1 - batch["terminated"], wm_cfg.continue_scale_factor,
+        )
+        extra = term.loss(batch_obs, generator, noise) if term is not None else None
+        return losses, posteriors, recurrents, extra
+
+    return loss
+
+
+class Behaviour:
+    """Behaviour learning in imagination, as the family's steps share it:
+    the rollout of an actor through the world model, the discounts, the
+    policy objective, DreamerV3's actor loss against one critic and its
+    Moments, and the two-hot critic loss against a target critic."""
+
+    def __init__(self, cfg, is_continuous: bool):
+        self.horizon = int(cfg.algo.horizon)
+        self.gamma, self.lmbda = float(cfg.algo.gamma), float(cfg.algo.lmbda)
+        self.moments_cfg = cfg.algo.actor.moments
+        self.ent_coef = cfg.algo.actor.ent_coef
+        self.is_continuous = is_continuous
+
+    def rollout(self, world_model, actor, posteriors: torch.Tensor, recurrents: torch.Tensor,
+                generator: Optional[torch.Generator], noise: Dict[str, Any]) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(trajectories, actions)``, each ``[H+1, TB, ...]``: the start
+        latents and ``H`` imagined steps, the actor acting on each (on the
+        latents detached).  ``noise["imagination"]`` is the prior Gumbel
+        noise ``[H, TB, stoch, discrete]``, ``noise["actor"]`` the ``H + 1``
+        per-head draws of the actor."""
+        img_noise = noise.get("imagination")
+        act_noise = noise.get("actor") or [None] * (self.horizon + 1)
+        latent0 = torch.cat([posteriors, recurrents], dim=-1)
+        actions = actor.act(latent0, generator, False, act_noise[0])
+        prior, recurrent = posteriors, recurrents
+        latents_h, actions_h = [latent0], [actions]
+        for h in range(self.horizon):
+            prior, recurrent = world_model.imagination(
+                prior, recurrent, actions, generator, None if img_noise is None else img_noise[h]
+            )
+            latent = torch.cat([prior, recurrent], dim=-1)
+            actions = actor.act(latent.detach(), generator, False, act_noise[h + 1])
+            latents_h.append(latent)
+            actions_h.append(actions)
+        return torch.stack(latents_h), torch.stack(actions_h)
+
+    def continues(self, world_model, trajectories: torch.Tensor,
+                  true_continue: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The continue head's mode along the trajectories (the first step's
+        the batch's own) and the discounts ``cumprod(continues * gamma) /
+        gamma``, which carry no gradient."""
+        continues = Bernoulli(world_model.continue_logits(trajectories), event_dims=1).mode
+        continues = torch.cat([true_continue[None], continues[1:]], dim=0)
+        return continues, (torch.cumprod(continues * self.gamma, dim=0) / self.gamma).detach()
+
+    def lambda_values(self, rewards: torch.Tensor, values: torch.Tensor, continues: torch.Tensor) -> torch.Tensor:
+        return compute_lambda_values(rewards[1:], values[1:], continues[1:] * self.gamma, lmbda=self.lmbda)
+
+    def advantage(self, moments_state: Dict[str, torch.Tensor], lambda_values: torch.Tensor,
+                  baseline: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The advantage of ``lambda_values`` over ``baseline``, both scaled
+        by the Moments as updated on ``lambda_values``; and those Moments."""
+        m = self.moments_cfg
+        offset, invscale, new_moments = update_moments(
+            moments_state, lambda_values, m.decay, m.max, m.percentile.low, m.percentile.high
+        )
+        return (lambda_values - offset) / invscale - (baseline - offset) / invscale, new_moments
+
+    def policy_loss(self, actor, trajectories: torch.Tensor, actions: torch.Tensor, advantage: torch.Tensor,
+                    discount: torch.Tensor) -> torch.Tensor:
+        """The objective is the advantage itself for continuous actions (its
+        gradient reaches the actor through the imagined trajectories), the
+        REINFORCE term otherwise; with the entropy bonus."""
+        log_probs, entropies = actor.log_prob_entropy(trajectories.detach(), actions.detach())
+        objective = advantage if self.is_continuous else log_probs[:-1] * advantage.detach()
+        entropy = self.ent_coef * entropies
+        return -torch.mean(discount[:-1] * (objective + entropy[:-1]))
+
+    def actor_loss(self, world_model, actor, critic, posteriors: torch.Tensor, recurrents: torch.Tensor,
+                   true_continue: torch.Tensor, moments_state: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator], noise: Dict[str, Any]):
+        """DreamerV3's actor loss: ``(policy_loss, trajectories, lambda
+        values, discount, moments)``, the trajectories and lambda values
+        detached."""
+        trajectories, actions = self.rollout(world_model, actor, posteriors, recurrents, generator, noise)
+        predicted_values = TwoHotEncodingDistribution(critic(trajectories), dims=1).mean
+        predicted_rewards = TwoHotEncodingDistribution(world_model.reward_logits(trajectories), dims=1).mean
+        continues, discount = self.continues(world_model, trajectories, true_continue)
+        lambda_values = self.lambda_values(predicted_rewards, predicted_values, continues)
+        advantage, new_moments = self.advantage(moments_state, lambda_values, predicted_values[:-1])
+        policy_loss = self.policy_loss(actor, trajectories, actions, advantage, discount)
+        return policy_loss, trajectories.detach(), lambda_values.detach(), discount, new_moments
+
+    @staticmethod
+    def critic_loss(critic, target_critic, trajectories: torch.Tensor, lambda_values: torch.Tensor,
+                    discount: torch.Tensor) -> torch.Tensor:
+        """The two-hot value loss towards the lambda values and the target
+        critic's values, weighted by the discounts."""
+        qv = TwoHotEncodingDistribution(critic(trajectories[:-1]), dims=1)
+        with torch.no_grad():
+            target_values = TwoHotEncodingDistribution(target_critic(trajectories[:-1]), dims=1).mean
+        value_loss = -qv.log_prob(lambda_values) - qv.log_prob(target_values)
+        return torch.mean(value_loss * discount[:-1, ..., 0])
+
+
 def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, is_continuous: bool,
                     term: Optional[WorldModelTerm] = None):
     """Build one gradient step:
@@ -132,8 +307,8 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
     ``"burn_in"`` that of its burn-in steps (see ``chunked_dynamic_scan``);
     ``"imagination"`` the prior Gumbel noise ``[H, T*B, stoch, discrete]``;
     ``"actor"`` a list of ``H + 1`` per-head lists (Gumbel noise of each
-    discrete head, or the standard-normal draw of the continuous head) for
-    the first action and each imagined step's; a ``term`` reads its own.
+    discrete head, or the draw of the continuous head) for the first action
+    and each imagined step's; a ``term`` reads its own.
 
     ``term`` adds its loss to the world-model loss (the first metric is
     their sum, as in the JAX family's steps), its metric entries after the
@@ -151,20 +326,11 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
     wm_cfg = cfg.algo.world_model
     stoch, discrete = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
     recurrent_size = int(wm_cfg.recurrent_model.recurrent_state_size)
-    horizon = int(cfg.algo.horizon)
     cdt = compute_dtype_of(cfg)
-    chunks, burn_in = rssm_scan_spec(cfg)
-    gamma, lmbda = float(cfg.algo.gamma), float(cfg.algo.lmbda)
-    obs_keys = list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
-    cnn_dec_keys = list(cfg.algo.cnn_keys.decoder)
-    mlp_dec_keys = list(cfg.algo.mlp_keys.decoder)
-    moments_cfg = cfg.algo.actor.moments
-    clip = {
-        "world_model": float(wm_cfg.clip_gradients),
-        "actor": float(cfg.algo.actor.clip_gradients),
-        "critic": float(cfg.algo.critic.clip_gradients),
-    }
-    params = {name: [p for group in optimizers[name].param_groups for p in group["params"]] for name in TRAINED}
+    clip = {name: float(section.clip_gradients) for name, section in agent.optimizer_configs(cfg).items()}
+    params = {name: optimizer_params(optimizers[name]) for name in TRAINED}
+    world_model_loss = make_world_model_loss(world_model, cfg, term)
+    behaviour = Behaviour(cfg, is_continuous)
     metric_order = METRIC_ORDER + list(term.metric_names if term is not None else ())
     term_modules = tuple(term.modules) if term is not None else ()
     term_params = {id(p) for group in (term.health_groups.values() if term is not None else ()) for p in group}
@@ -191,22 +357,16 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
         """Gradient of ``loss`` over one optimizer's parameters, clipped by
         their global norm, one optimizer step; returns the norm before
         clipping (of the world model's own parameters for ``world_model``)."""
-        grads = torch.autograd.grad(loss, params[name], allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(params[name], grads)]
+        grads = gradients(loss, params[name])
         norm = global_norm(grads)
         if term_params and name == "world_model":
-            metric_norm = global_norm([g for p, g in zip(params[name], grads) if id(p) not in term_params])
-        else:
-            metric_norm = norm
-        for p, g in zip(params[name], clip_by_global_norm(grads, clip[name])):
-            p.grad = g
+            norm = global_norm([g for p, g in zip(params[name], grads) if id(p) not in term_params])
         if health.enabled:
             step_grads[name] = grads  # before clipping, as the JAX chain clips inside its update
             with torch.no_grad():
                 torch._foreach_copy_(before[name], params[name])
-        optimizers[name].step()
-        optimizers[name].zero_grad(set_to_none=True)
-        return metric_norm
+        apply_gradients(optimizers[name], params[name], grads, clip[name])
+        return norm
 
     def train_step(moments_state: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], tau: float,
                    generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
@@ -219,45 +379,11 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
                 torch._foreach_copy_(snapshot, guarded)
             prev_moments = moments_state
 
-        # --- target critic Polyak update -----------------------------------
-        with torch.no_grad():
-            for c, t in zip(critic.parameters(), target_critic.parameters()):
-                t.copy_(tau * c + (1 - tau) * t)
+        polyak(critic, target_critic, tau)
 
         # --- dynamic learning ----------------------------------------------
-        target_obs = {k: batch[k] for k in set(cnn_dec_keys + mlp_dec_keys)}  # fp32 targets
-        batch_obs = {k: batch[k].to(cdt) for k in obs_keys}  # the network's input
-        # actions shift right by one: a_0 = 0
-        batch_actions = torch.cat([torch.zeros_like(batch["actions"][:1]), batch["actions"][:-1]], dim=0).to(cdt)
-        is_first = batch["is_first"].clone()
-        is_first[0] = 1.0
-        is_first = is_first.to(cdt)
-
-        def world_model_loss():
-            embedded = world_model.encode(batch_obs)
-            recurrents, posteriors, post_logits, prior_logits = chunked_dynamic_scan(
-                world_model, batch_actions, embedded, is_first, stoch_flat=stoch * discrete,
-                recurrent_size=recurrent_size, chunks=chunks, burn_in=burn_in,
-                stored_recurrent=batch.get("rssm_recurrent"), stored_posterior=batch.get("rssm_posterior"),
-                stored_valid=batch.get("rssm_valid"), generator=generator, noise=noise.get("dynamic"),
-                burn_in_noise=noise.get("burn_in"),
-            )
-            latents = torch.cat([posteriors, recurrents], dim=-1)
-            recon = world_model.decode(latents)
-            po = {k: MSEDistribution(recon[k], dims=recon[k].dim() - 2) for k in cnn_dec_keys}
-            po.update({k: SymlogDistribution(recon[k], dims=recon[k].dim() - 2) for k in mlp_dec_keys})
-            pr = TwoHotEncodingDistribution(world_model.reward_logits(latents), dims=1)
-            pc = Bernoulli(world_model.continue_logits(latents), event_dims=1)
-            losses = reconstruction_loss(
-                po, target_obs, pr, batch["rewards"],
-                prior_logits.reshape(T, B, stoch, discrete), post_logits.reshape(T, B, stoch, discrete),
-                wm_cfg.kl_dynamic, wm_cfg.kl_representation, wm_cfg.kl_free_nats, wm_cfg.kl_regularizer,
-                pc, 1 - batch["terminated"], wm_cfg.continue_scale_factor,
-            )
-            extra = term.loss(batch_obs, generator, noise) if term is not None else None
-            return losses, posteriors, recurrents, extra
-
-        losses, posteriors, recurrents, extra = call_cast((world_model, *term_modules), cdt, world_model_loss)
+        losses, posteriors, recurrents, extra = call_cast(
+            (world_model, *term_modules), cdt, lambda: world_model_loss(batch, generator, noise))
         rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
         wm_loss = rec_loss if extra is None else rec_loss + extra[0]
         wm_norm = update("world_model", wm_loss)
@@ -268,61 +394,16 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
         posteriors = posteriors.detach().reshape(T * B, stoch * discrete)
         recurrents = recurrents.detach().reshape(T * B, recurrent_size)
         true_continue = (1 - batch["terminated"]).reshape(T * B, 1)
-        img_noise = noise.get("imagination")
-        act_noise = noise.get("actor") or [None] * (horizon + 1)
-
-        def actor_loss():
-            latent0 = torch.cat([posteriors, recurrents], dim=-1)
-            actions = actor.act(latent0, generator, False, act_noise[0])
-            prior, recurrent = posteriors, recurrents
-            latents_h, actions_h = [latent0], [actions]
-            for h in range(horizon):
-                prior, recurrent = world_model.imagination(
-                    prior, recurrent, actions, generator, None if img_noise is None else img_noise[h]
-                )
-                latent = torch.cat([prior, recurrent], dim=-1)
-                actions = actor.act(latent.detach(), generator, False, act_noise[h + 1])
-                latents_h.append(latent)
-                actions_h.append(actions)
-            imagined_trajectories = torch.stack(latents_h)  # [H+1, TB, L]
-            imagined_actions = torch.stack(actions_h)
-            predicted_values = TwoHotEncodingDistribution(critic(imagined_trajectories), dims=1).mean
-            predicted_rewards = TwoHotEncodingDistribution(
-                world_model.reward_logits(imagined_trajectories), dims=1
-            ).mean
-            continues = Bernoulli(world_model.continue_logits(imagined_trajectories), event_dims=1).mode
-            continues = torch.cat([true_continue[None], continues[1:]], dim=0)
-            lambda_values = compute_lambda_values(
-                predicted_rewards[1:], predicted_values[1:], continues[1:] * gamma, lmbda=lmbda
-            )
-            discount = (torch.cumprod(continues * gamma, dim=0) / gamma).detach()
-            baseline = predicted_values[:-1]
-            offset, invscale, new_moments = update_moments(
-                moments_state, lambda_values, moments_cfg.decay, moments_cfg.max, moments_cfg.percentile.low,
-                moments_cfg.percentile.high,
-            )
-            advantage = (lambda_values - offset) / invscale - (baseline - offset) / invscale
-            log_probs, entropies = actor.log_prob_entropy(imagined_trajectories.detach(), imagined_actions.detach())
-            objective = advantage if is_continuous else log_probs[:-1] * advantage.detach()
-            entropy = cfg.algo.actor.ent_coef * entropies
-            policy_loss = -torch.mean(discount[:-1] * (objective + entropy[:-1]))
-            return policy_loss, imagined_trajectories.detach(), lambda_values.detach(), discount, new_moments
-
         with frozen(world_model, critic):
-            policy_loss, imagined_trajectories, lambda_values, discount, moments_state = call_cast(
-                (world_model, actor, critic), cdt, actor_loss
-            )
+            policy_loss, trajectories, lambda_values, discount, moments_state = call_cast(
+                (world_model, actor, critic), cdt, lambda: behaviour.actor_loss(
+                    world_model, actor, critic, posteriors, recurrents, true_continue, moments_state, generator,
+                    noise))
             actor_norm = update("actor", policy_loss)
 
         # --- critic learning -------------------------------------------------
-        def critic_loss():
-            qv = TwoHotEncodingDistribution(critic(imagined_trajectories[:-1]), dims=1)
-            with torch.no_grad():
-                target_values = TwoHotEncodingDistribution(target_critic(imagined_trajectories[:-1]), dims=1).mean
-            value_loss = -qv.log_prob(lambda_values) - qv.log_prob(target_values)
-            return torch.mean(value_loss * discount[:-1, ..., 0])
-
-        value_loss = call_cast((critic, target_critic), cdt, critic_loss)
+        value_loss = call_cast((critic, target_critic), cdt, lambda: behaviour.critic_loss(
+            critic, target_critic, trajectories, lambda_values, discount))
         critic_norm = update("critic", value_loss)
 
         metrics = torch.stack([
@@ -388,15 +469,46 @@ def stage_batch(sample: Dict[str, Any], cnn_keys: Sequence[str], device: torch.d
     return batch
 
 
+def nest(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """``{"a/b": x}`` -> ``{"a": {"b": x}}``: an optimizer named with a
+    slash (one of a group, as P2E's per-critic ones) sits in the
+    checkpoint's ``opt_states`` tree as the JAX package nests it."""
+    out: Dict[str, Any] = {}
+    for name, value in flat.items():
+        *path, last = name.split("/")
+        node = out
+        for key in path:
+            node = node.setdefault(key, {})
+        node[last] = value
+    return out
+
+
+def _at(tree: Mapping[str, Any], name: str) -> Any:
+    for key in name.split("/"):
+        tree = tree[key]
+    return tree
+
+
 def load_learner_state(state: Dict[str, Any], agent: Agent, optimizers: Dict[str, torch.optim.Optimizer],
-                       device: torch.device | str) -> Dict[str, torch.Tensor]:
+                       device: torch.device | str) -> Dict[str, Any]:
     """A checkpoint's optimizer states (the port's or the JAX package's
-    optax states) into ``optimizers``; returns its Moments state."""
+    optax states) into ``optimizers``; returns its Moments, laid out as
+    ``agent.initial_moments`` lays them out (DreamerV3's ``{low, high}``, or
+    a family's tree of them), strictly."""
     from sheeprl_tpu_torch.interop.flax_params import optimizer_state_dict
 
     for name, opt in optimizers.items():
-        opt.load_state_dict(optimizer_state_dict(state["opt_states"][name], opt, agent.optimizer_spec(name)))
-    return {k: torch.as_tensor(np.asarray(v), dtype=torch.float32, device=device) for k, v in state["moments"].items()}
+        opt.load_state_dict(optimizer_state_dict(_at(state["opt_states"], name), opt, agent.optimizer_spec(name)))
+
+    def restore(like: Any, saved: Any, path: str) -> Any:
+        if not isinstance(like, Mapping):
+            return torch.as_tensor(np.array(saved), dtype=torch.float32, device=device)
+        if not isinstance(saved, Mapping) or set(saved) != set(like):
+            raise KeyError(f"the checkpoint's moments{path} hold {sorted(saved) if isinstance(saved, Mapping) else saved}"
+                           f", the agent's {sorted(like)}")
+        return {k: restore(v, saved[k], f"{path}/{k}") for k, v in like.items()}
+
+    return restore(agent.initial_moments(device), state["moments"], "")
 
 
 def _unported_options(cfg) -> List[str]:
@@ -429,22 +541,36 @@ def main(runtime, cfg) -> Dict[str, Any]:
     return _dreamer_main(runtime, cfg, build_dreamer_agent, make_train_step)
 
 
-def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train_step_fn: Callable) -> Dict[str, Any]:
+def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train_step_fn: Callable, *,
+                  load_agent_state_fn: Optional[Callable[[Any, Any], Dict[str, Any]]] = None,
+                  player_actor_fn: Optional[Callable[[bool], str]] = None,
+                  final_test_fn: Optional[Callable[..., Tuple[float, int]]] = None) -> Dict[str, Any]:
     """The DreamerV3 family's loop (the JAX package's ``_dreamer_main``):
     prefill with random actions, then per iteration a policy step of every
     env, a replay write, the gradient steps the replay ratio owes, logging
     and checkpoints; one test episode at the end when ``algo.run_test``.
     ``build_agent_fn(actions_dim, is_continuous, cfg, obs_space, state,
-    device)`` builds the agent (from the checkpoint ``state`` when
-    resuming), whose methods say what each optimizer trains and what a
-    checkpoint holds (:class:`~sheeprl_tpu_torch.algos.dreamer_v3.agent.Agent`);
+    device)`` builds the agent (from the checkpoint ``state`` when there is
+    one), whose methods say which optimizers it has, what each trains and
+    what a checkpoint holds (:class:`~sheeprl_tpu_torch.algos.dreamer_v3.agent.Agent`);
     ``make_train_step_fn(agent, optimizers, cfg, is_continuous)`` builds the
     gradient step.  With ``checkpoint.resume_from`` (a file, resolved by
     ``cli.run``) it restores the weights, optimizer states, Moments, replay
     ratio, counters and, with ``buffer.checkpoint``, the replay buffer, and
     waits ``algo.learning_starts`` more steps before training, as the JAX
-    package does.  Returns what the run did: its counters, the metric rows
-    of every gradient step, the checkpoints written and the log dir."""
+    package does.
+
+    The hooks a family sets (the JAX loop's): ``load_agent_state_fn(runtime,
+    cfg)``, the state the agent, its optimizers and Moments start from when
+    the run does not resume (with ``buffer.load_from_exploration`` its
+    replay too); ``player_actor_fn(has_trained)``, the name of the agent's actor the
+    player acts with, given whether a gradient step has run (``"actor"``);
+    ``final_test_fn(player, agent, cfg, log_dir, generator)``, the test
+    episode at the end (the player's actor once trained, sampled).
+
+    Returns what the run did: its counters, the metric rows of every
+    gradient step, the actor the player switched to at each iteration it
+    changed, the checkpoints written and the log dir."""
     from sheeprl_tpu_torch.config import instantiate
     from sheeprl_tpu_torch.data.factory import make_dreamer_replay_buffer
     from sheeprl_tpu_torch.data.slab import rssm_state_slab, step_slab
@@ -464,6 +590,11 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     num_envs = int(cfg.env.num_envs)
     resume_from = cfg.checkpoint.get("resume_from")
     state = runtime.load(resume_from) if resume_from else None
+    agent_state = state
+    if agent_state is None and load_agent_state_fn is not None:
+        agent_state = load_agent_state_fn(runtime, cfg)
+    if player_actor_fn is None:
+        player_actor_fn = lambda has_trained: "actor"  # noqa: E731
     cfg.env.frame_stack = -1
     if 2 ** int(np.log2(cfg.env.screen_size)) != cfg.env.screen_size:
         raise ValueError(f"The screen size must be a power of 2, got: {cfg.env.screen_size}")
@@ -506,15 +637,16 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
     obs_keys = cnn_keys + mlp_keys
 
-    agent = build_agent_fn(actions_dim, is_continuous, cfg, observation_space, state, device)
+    agent = build_agent_fn(actions_dim, is_continuous, cfg, observation_space, agent_state, device)
     # bf16-true stores the weights themselves in bf16; *-mixed keeps fp32
     # masters and casts inside each loss
     for module in agent:
         module.to(runtime.param_dtype)
-    player = PlayerDV3(agent.world_model, agent.actor, actions_dim, num_envs)
+    has_trained = state is not None
+    player = PlayerDV3(agent.world_model, getattr(agent, player_actor_fn(has_trained)), actions_dim, num_envs)
     optimizers = make_optimizers(cfg, agent)
-    moments_state = init_moments_state(device) if state is None else load_learner_state(state, agent, optimizers,
-                                                                                         device)
+    moments_state = agent.initial_moments(device) if agent_state is None else load_learner_state(
+        agent_state, agent, optimizers, device)
     train_step = diag.instrument("train_step", make_train_step_fn(agent, optimizers, cfg, is_continuous),
                                  kind="train")
     metric_order, health_out = train_step.metric_order, train_step.health_names
@@ -527,8 +659,12 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     rb.seed(cfg.seed)
     diag.track_buffer("replay", rb)
     chunks = rssm_scan_spec(cfg)[0]
-    if state is not None and cfg.buffer.checkpoint and state.get("rb") is not None:
-        rb.load_state_dict(state["rb"])
+    # a finetuning run may go on from the exploration run's replay
+    from_exploration = bool(cfg.buffer.get("load_from_exploration"))
+    buffer_state = state if state is not None else (agent_state if from_exploration else None)
+    if (buffer_state is not None and (cfg.buffer.checkpoint or from_exploration)
+            and buffer_state.get("rb") is not None):
+        rb.load_state_dict(buffer_state["rb"])
         loaded = rb.buffer[0].buffer if isinstance(rb.buffer, tuple) else rb.buffer
         if chunks > 1 and loaded and "rssm_recurrent" not in loaded:
             raise ValueError(
@@ -573,6 +709,8 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
 
     pending: List[torch.Tensor] = []
     metric_rows: List[np.ndarray] = []
+    player_actors: List[Tuple[int, str]] = []
+    first_train_iter = None
     logged: List[Dict[str, float]] = []
     checkpoints: List[str] = []
     for iter_num in range(start_iter, total_iters + 1):
@@ -597,6 +735,10 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
                 if store_rssm_state:
                     step_data.update(rssm_state_slab(num_envs, zero_recurrent, zero_stochastic, valid=False))
             else:
+                acting = player_actor_fn(has_trained)
+                if not player_actors or player_actors[-1][1] != acting:
+                    player.actor = getattr(agent, acting)
+                    player_actors.append((iter_num, acting))
                 torch_obs = prepare_obs(stager, obs, cnn_keys, mlp_keys, num_envs)
                 actions_t = player.get_actions(torch_obs, generator)
                 player_steps += 1
@@ -631,6 +773,9 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
             if cfg.dry_run:
                 n = 1
             if n > 0:
+                has_trained = True
+                if first_train_iter is None:
+                    first_train_iter = iter_num
                 with diag.span("buffer-sample"):
                     local_data = rb.sample(
                         cfg.algo.per_rank_batch_size, sequence_length=cfg.algo.per_rank_sequence_length, n_samples=n
@@ -763,8 +908,9 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
             ckpt_state = {
                 **agent.trees(),
                 # optax's layout, so that the JAX package resumes it too
-                "opt_states": {name: optax_state(opt, agent.optimizer_spec(name)) for name, opt in optimizers.items()},
-                "moments": dict(moments_state),
+                "opt_states": nest({name: optax_state(opt, agent.optimizer_spec(name))
+                                    for name, opt in optimizers.items()}),
+                "moments": moments_state,
                 "ratio": ratio.state_dict(),
                 "iter_num": iter_num,
                 "batch_size": cfg.algo.per_rank_batch_size,
@@ -784,7 +930,11 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     envs.close()
     test_reward, test_steps = None, 0
     if cfg.algo.run_test:
-        test_reward, test_steps = test(player, cfg, log_dir, generator, greedy=False)
+        if final_test_fn is None:
+            player.actor = getattr(agent, player_actor_fn(True))
+            test_reward, test_steps = test(player, cfg, log_dir, generator, greedy=False)
+        else:
+            test_reward, test_steps = final_test_fn(player, agent, cfg, log_dir, generator)
         logger.log_metrics({"Test/cumulative_reward": test_reward}, policy_step_count)
     logger.finalize()
     diag.close("completed")
@@ -797,6 +947,8 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
         "gradient_steps": gradient_steps,
         "test_steps": test_steps,
         "test_reward": test_reward,
+        "player_actors": player_actors,
+        "first_train_iter": first_train_iter,
         "metric_order": metric_order,
         "metric_rows": rows[:, :len(metric_order)],
         "health_rows": {name: rows[:, len(metric_order) + i] for i, name in enumerate(health_out)},

@@ -7,11 +7,12 @@ device time goes: the one place that times a gradient step.
 Builds DreamerV3-S (``exp=dreamer_v3 env=dummy``: batch 16 x 64, horizon
 15, fp32; the dotted overrides on top, e.g. ``fabric.precision=bf16-mixed
 algo.rssm_chunks=4 algo.rssm_chunk_burn_in=2``; ``exp=dreamer_v3_jepa``
-among them builds DreamerV3-JEPA, at its own XL widths) from a seed on the card,
-with ``--diagnostics`` as the default diagnostics run it (health stats in
-the step, telemetry's instrumentation around it; :func:`profiled_step`), and
-calls :func:`time_gradient_steps` with
-the profiler on.  That warms up, then times ``--steps`` gradient steps
+among them builds DreamerV3-JEPA and ``exp=p2e_dv3_exploration``
+Plan2Explore-DV3's exploration step, each at its own XL widths) from a seed
+on the card, with ``--diagnostics`` as the default diagnostics run it
+(health stats in the step, telemetry's instrumentation around it;
+:func:`profiled_step`), and calls :func:`time_gradient_steps` with the
+profiler on.  That warms up, then times ``--steps`` gradient steps
 between CUDA events on the stream (a step is host-bound, so its stream time
 is about its wall time), then traces as many more with ``torch.profiler``
 (CUDA activities through CUPTI) for the device-busy time (the union of the
@@ -144,19 +145,19 @@ def profiled_step(overrides: Sequence[str], device: torch.device | str, diagnost
     import importlib
 
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers
-    from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments_state
     from sheeprl_tpu_torch.config import compose
     from sheeprl_tpu_torch.diagnostics import build_diagnostics
     from sheeprl_tpu_torch.envs.env import make_env
     from sheeprl_tpu_torch.parallel.precision import resolve_precision
     from sheeprl_tpu_torch.serving.loader import _actions_dim
+    from sheeprl_tpu_torch.utils.registry import find_algorithm
 
     cfg = compose(["exp=dreamer_v3", "env=dummy", "run_name=step_profile", "seed=5",
                    *([] if diagnostics else ["diagnostics=off"]), *overrides])
     env = make_env(cfg, cfg.seed, 0)()
     actions_dim, is_continuous, _ = _actions_dim(env.action_space)
     # the algorithm's training module: its agent builder and gradient step
-    family = importlib.import_module(f"sheeprl_tpu_torch.algos.{cfg.algo.name}.{cfg.algo.name}")
+    family = importlib.import_module(find_algorithm(cfg.algo.name)["module"])
     agent = family.build_agent(actions_dim, is_continuous, cfg, env.observation_space, None, device)
     for module in agent:  # bf16-true stores the weights in bf16, as the training loop does
         module.to(resolve_precision(cfg.fabric.precision)[0])
@@ -164,7 +165,7 @@ def profiled_step(overrides: Sequence[str], device: torch.device | str, diagnost
     step = build_diagnostics(cfg).instrument("train_step", family.make_train_step(agent, make_optimizers(cfg, agent),
                                                                                   cfg, is_continuous))
     gen = torch.Generator(device=device).manual_seed(5)
-    return step, init_moments_state(device), synthetic_batch(cfg, actions_dim, gen, device), gen
+    return step, agent.initial_moments(device), synthetic_batch(cfg, actions_dim, gen, device), gen
 
 
 def main(argv=None) -> None:

@@ -217,13 +217,15 @@ def real_actions_of(actions: np.ndarray, actions_dim: Sequence[int], is_continuo
     return np.stack(idxs, axis=-1)
 
 
-def test(player, cfg, log_dir: Optional[str], generator: torch.Generator, greedy: bool = True) -> Tuple[float, int]:
+def test(player, cfg, log_dir: Optional[str], generator: torch.Generator, greedy: bool = True,
+         test_name: str = "") -> Tuple[float, int]:
     """One test episode with a one-env player; returns the cumulative reward
-    and the number of policy steps it took."""
+    and the number of policy steps it took.  ``test_name`` suffixes the
+    env's ``test`` prefix (P2E's ``zero-shot``), as in the JAX package."""
     from sheeprl_tpu_torch.envs.env import make_env
     from sheeprl_tpu_torch.envs.player import ObsStager
 
-    env = make_env(cfg, cfg.seed, 0, log_dir, "test")()
+    env = make_env(cfg, cfg.seed, 0, log_dir, "test" + (f"_{test_name}" if test_name else ""))()
     done = False
     cumulative_rew, steps = 0.0, 0
     obs = env.reset(seed=cfg.seed)[0]

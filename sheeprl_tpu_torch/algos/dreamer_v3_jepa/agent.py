@@ -19,7 +19,7 @@ from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence
 import torch
 from torch import nn
 
-from sheeprl_tpu_torch.algos.dreamer_v3.agent import Actor, Critic, WorldModel, build_agent as build_dv3_agent
+from sheeprl_tpu_torch.algos.dreamer_v3.agent import Actor, Agent, Critic, WorldModel, build_agent as build_dv3_agent
 from sheeprl_tpu_torch.models.blocks import lecun_normal_
 from sheeprl_tpu_torch.models.jepa import JEPAPredictor, JEPAProjector
 
@@ -58,6 +58,9 @@ class JEPAAgent(NamedTuple):
     critic: Critic
     target_critic: Critic
     jepa: JEPAHeads
+
+    optimizer_configs = Agent.optimizer_configs
+    initial_moments = Agent.initial_moments
 
     def parameters_of(self, name: str) -> List[nn.Parameter]:
         """What the optimizer ``name`` trains: the world-model optimizer the

@@ -1,6 +1,7 @@
 """Weights across the two packages: the JAX package's flax param trees
 (numpy, as its checkpoints store them) to the port's DV3 (and its JEPA
-heads), PPO and A2C modules and back.
+heads, and Plan2Explore's exploration actor, critics and stacked
+ensemble), PPO and A2C modules and back.
 
 Rules: Dense ``kernel[in, out]`` <-> Linear ``weight[out, in]``; Conv
 ``kernel`` HWIO <-> ``weight`` OIHW; ConvTranspose ``kernel``
@@ -32,8 +33,9 @@ TraceState(trace))``, the last an ``EmptyState()`` without momentum; ``nu``
 and ``trace`` are the port's :class:`~sheeprl_tpu_torch.utils.optim.RMSprop`
 state of the same names.  An optimizer over several trees (DreamerV3-JEPA's
 world model and its heads) has a list as its spec, and optax a tuple of
-trees, in the same order.  bf16 weights are written as float32, which holds
-them exactly.
+trees, in the same order.  Plan2Explore's per-critic optimizers nest under
+``opt_states["critics_exploration"][name]``, as the JAX package's do.  bf16
+weights are written as float32, which holds them exactly.
 """
 
 from __future__ import annotations
@@ -170,10 +172,15 @@ def policy_spec(world_model: WorldModel, actor: Actor) -> Dict[str, Any]:
     model's encoders and RSSM, and the actor.  Each leaf is ``(tensor,
     kind)``, the kind naming how the flax array maps onto it."""
     wm: Dict[str, Any] = {"rssm": _rssm(world_model.rssm), **_encoders(world_model)}
+    return {"world_model": {"params": wm}, "actor": actor_spec(actor)}
+
+
+def actor_spec(actor: Actor) -> Dict[str, Any]:
+    """An actor's flax tree: ``{"params": {"model": ..., "heads_<i>": ...}}``."""
     act: Dict[str, Any] = {"model": _stack(actor.model)}
     for i, head in enumerate(actor.heads):
         act[f"heads_{i}"] = _linear(head)
-    return {"world_model": {"params": wm}, "actor": {"params": act}}
+    return {"params": act}
 
 
 def param_spec(world_model: WorldModel, actor: Actor, critic: Critic, target_critic: Critic) -> Dict[str, Any]:
@@ -219,6 +226,51 @@ def jepa_from_flax(tree: Mapping[str, Any], heads) -> None:
 def jepa_to_flax(heads) -> Dict[str, Any]:
     """The heads as the JAX package's ``jepa`` tree (numpy)."""
     return _dump(jepa_spec(heads))
+
+
+def critic_spec(critic: Critic) -> Dict[str, Any]:
+    """A critic's flax tree: ``{"params": {"DenseStack_0", "Dense_0"}}``."""
+    return {"params": _head(critic)}
+
+
+def ensemble_spec(ensemble) -> Dict[str, Any]:
+    """Plan2Explore's ensemble, the flax tree of N members stacked on a
+    leading axis (``jax.vmap`` of one member's init): ``DenseStack_0`` of
+    ``Dense_<i>`` kernels ``[N, in, out]`` and ``LayerNorm_<i>`` ``[N,
+    units]``, then the head ``Dense_0`` ``[N, units, out]`` with its bias;
+    the port keeps them in that layout."""
+    stack: Dict[str, Any] = {}
+    for i, kernel in enumerate(ensemble.kernels):
+        stack[f"Dense_{i}"] = {"kernel": (kernel, "same")}
+        stack[f"LayerNorm_{i}"] = {"scale": (ensemble.scales[i], "same"), "bias": (ensemble.biases[i], "same")}
+    return {"params": {"DenseStack_0": stack,
+                       "Dense_0": {"kernel": (ensemble.out_kernel, "same"), "bias": (ensemble.out_bias, "same")}}}
+
+
+def p2e_spec(agent) -> Dict[str, Any]:
+    """Plan2Explore-DV3's seven trees in the JAX package's layout:
+    DreamerV3's four as ``world_model``, ``actor_task``, ``critic_task``,
+    ``target_critic_task``; ``actor_exploration``; ``critics_exploration``
+    (``{name: {module, target_module}}``); ``ensembles``."""
+    dv3 = param_spec(agent.world_model, agent.actor_task, agent.critic_task, agent.target_critic_task)
+    return {
+        "world_model": dv3["world_model"], "actor_task": dv3["actor"], "critic_task": dv3["critic"],
+        "target_critic_task": dv3["target_critic"], "actor_exploration": actor_spec(agent.actor_exploration),
+        "critics_exploration": {name: {"module": critic_spec(c.module), "target_module": critic_spec(c.target_module)}
+                                for name, c in agent.critics_exploration.items()},
+        "ensembles": ensemble_spec(agent.ensembles),
+    }
+
+
+def load_trees(spec: Mapping[str, Any], tree: Mapping[str, Any]) -> None:
+    """Copy the trees of ``spec`` (its top-level keys, each a tree) out of a
+    checkpoint's ``tree``, strictly; its other keys are not read."""
+    _load(spec, {k: tree[k] for k in spec if k in tree}, "", {})
+
+
+def dump_trees(spec: Mapping[str, Any]) -> Dict[str, Any]:
+    """The trees of ``spec`` in the JAX package's layout (numpy)."""
+    return _dump(spec)
 
 
 def _mlp(m: MLP) -> Dict[str, Any]:

@@ -1,9 +1,10 @@
-"""The distributions of the DreamerV3 losses and the PPO actor
-(counterpart of ``sheeprl_tpu/ops/distributions.py``): light classes over
-tensors.  ``log_prob``/``mean``/``entropy`` and the KL compute in fp32 at the
-loss boundary, as the JAX package's do, whatever dtype the network ran in.
-Sampling takes pre-drawn noise (a standard-normal draw, or Gumbel noise for
-a categorical), so a test can feed the draws of the JAX package's keys."""
+"""The distributions of the DreamerV3 losses and actor heads and of the PPO
+actor (counterpart of ``sheeprl_tpu/ops/distributions.py``): light classes
+over tensors.  ``log_prob``/``mean``/``entropy`` and the KL compute in fp32
+at the loss boundary, as the JAX package's do, whatever dtype the network
+ran in.  Sampling takes pre-drawn noise (a standard-normal draw, a uniform
+one for the truncated normal, or Gumbel noise for a categorical), so a test
+can feed the draws of the JAX package's keys."""
 
 from __future__ import annotations
 
@@ -89,6 +90,60 @@ class TanhNormal:
         x = safeatanh(value, self.eps)
         lp = self.base.log_prob(x) - torch.log1p(-(value**2) + self.eps)
         return _sum_last_dims(lp, self.event_dims)
+
+
+def _phi(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp(-0.5 * x**2) / math.sqrt(2 * math.pi)
+
+
+class TruncatedNormal:
+    """A normal truncated to ``[a, b]``, sampled by inverting its CDF, so
+    that gradients reach ``loc`` and ``scale`` (DreamerV2's continuous
+    actor).  ``log_prob`` and ``entropy`` sum the last ``event_dims`` axes."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor, a: float = -1.0, b: float = 1.0, event_dims: int = 1):
+        self.loc = loc
+        self.scale = scale
+        self.a = a
+        self.b = b
+        self.event_dims = event_dims
+        self._alpha = (a - loc) / scale
+        self._beta = (b - loc) / scale
+
+    @staticmethod
+    def _big_phi(x: torch.Tensor) -> torch.Tensor:
+        return 0.5 * (1 + torch.special.erf(x / math.sqrt(2)))
+
+    @property
+    def _Z(self) -> torch.Tensor:
+        return torch.clamp(self._big_phi(self._beta) - self._big_phi(self._alpha), min=1e-8)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.loc + self.scale * (_phi(self._alpha) - _phi(self._beta)) / self._Z
+
+    @property
+    def mode(self) -> torch.Tensor:
+        return torch.clamp(self.loc, self.a, self.b)
+
+    def rsample(self, uniform: torch.Tensor) -> torch.Tensor:
+        """The draw at ``uniform``, a uniform draw in ``[1e-6, 1 - 1e-6]``,
+        clamped into the open support."""
+        u = self._big_phi(self._alpha) + uniform.to(self.loc.dtype) * self._Z
+        out = self.loc + self.scale * math.sqrt(2) * torch.special.erfinv(2 * u - 1)
+        return torch.clamp(out, self.a + 1e-6, self.b - 1e-6)
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        loc, scale, value = _f32(self.loc), _f32(self.scale), _f32(value)
+        z = (value - loc) / scale
+        lp = -0.5 * z**2 - 0.5 * math.log(2 * math.pi) - torch.log(scale) - torch.log(_f32(self._Z))
+        return _sum_last_dims(lp, self.event_dims)
+
+    def entropy(self) -> torch.Tensor:
+        Z = self._Z
+        term = (self._alpha * _phi(self._alpha) - self._beta * _phi(self._beta)) / (2 * Z)
+        ent = 0.5 * math.log(2 * math.pi * math.e) + torch.log(self.scale * Z) + term
+        return _sum_last_dims(ent, self.event_dims)
 
 
 class Categorical:

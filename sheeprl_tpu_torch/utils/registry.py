@@ -14,9 +14,12 @@ evaluation_registry: Dict[str, List[Dict[str, Any]]] = {}
 #: the modules the port has; importing one registers it
 PORTED_ALGORITHM_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
                             "sheeprl_tpu_torch.algos.dreamer_v3_jepa.dreamer_v3_jepa",
+                            "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration",
+                            "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_finetuning",
                             "sheeprl_tpu_torch.algos.ppo.ppo", "sheeprl_tpu_torch.algos.a2c.a2c")
 PORTED_EVALUATION_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
                              "sheeprl_tpu_torch.algos.dreamer_v3_jepa.evaluate",
+                             "sheeprl_tpu_torch.algos.p2e_dv3.evaluate",
                              "sheeprl_tpu_torch.algos.ppo.evaluate", "sheeprl_tpu_torch.algos.a2c.evaluate")
 
 

@@ -137,3 +137,27 @@ def test_the_walk_reaches_the_jepa_and_a2c_modules():
     for name in sorted(new):
         importlib.import_module(name)
 
+
+
+@pytest.mark.parametrize("exp", ["p2e_dv3_exploration", "p2e_dv3_finetuning"])
+def test_p2e_runs_raise_where_no_cuda_device(tmp_path, monkeypatch, exp):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.run([f"exp={exp}", "env=dummy", "diagnostics=off", "checkpoint.exploration_ckpt_path=x"])
+    assert not (tmp_path / "logs").exists()
+
+
+def test_the_walk_reaches_the_p2e_modules():
+    """Every module the import test loads includes the P2E slice's."""
+    import importlib
+    import pkgutil
+
+    import sheeprl_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(sheeprl_tpu_torch.__path__, "sheeprl_tpu_torch.")}
+    new = {f"sheeprl_tpu_torch.algos.p2e_dv3.{mod}" for mod in
+           ("agent", "utils", "p2e_dv3_exploration", "p2e_dv3_finetuning", "evaluate")}
+    assert new <= names
+    for name in sorted(new):
+        importlib.import_module(name)
