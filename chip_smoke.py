@@ -116,14 +116,32 @@ Phases, in order; any failure raises and the script exits non-zero:
             RMSprop) for 10 iterations: finite losses and ``Time/sps_*``; a
             resume from its mid-run checkpoint, ``eval``, ``serve`` to
             concurrent HTTP clients.  A2C runs no hand-written kernel;
-14. timers — a gradient step's stream time, device-busy time, idle share
+14. sac   — with the continuous dummy env's actions bounded to ``[-1, 1]``
+            in this process (``bounded_dummy_actions``; the runs use
+            ``env.executor=sync``): ``run exp=sac env=dummy`` at its widths
+            (``SAC_OVERRIDES``: hidden 256, 2 critics, batch 256), finite
+            metrics and verified checkpoints, a resume from the mid-run one,
+            ``eval``, ``serve`` to concurrent HTTP clients (finite greedy
+            actions, the actor's own); ``exp=droq`` (``DROQ_OVERRIDES``, 20
+            gradient steps a policy step) and ``exp=sac_ae``
+            (``SAC_AE_OVERRIDES``: 64x64 ``rgb`` with a 3-frame stack and
+            ``state``, actor and critics 1,024 wide, batch 128) trained,
+            resumed, evaluated, and refused by ``serve``; one SAC and one
+            SAC-AE train call on the card against the CPU from the same
+            state, batch and noise; the SAC (health stats off and on), DroQ
+            and SAC-AE gradient steps' stream and busy time, idle share,
+            launches, FLOPs and MFU (``algos/sac/step_profile.py``); PPO at
+            ``exp=ppo_atari``'s widths and A2C under
+            ``fabric.precision=bf16-mixed``.  None of them runs a hand-written
+            kernel: each path's ln_gru launches are counted, 0;
+15. timers — a gradient step's stream time, device-busy time, idle share
             and launches (``step_profile.time_gradient_steps``) for the fp32
             ``rssm_chunks=1`` step and the chunked bf16 one, each with the
             diagnostics off and on (health stats, instrumented: its FLOPs and
             MFU); the CPU's FLOP count of the fp32 step, equal to the card's;
             the journals' MFU, the syncs a step, ``ckpt_end``'s ``write_ms``
             (async and blocking) and every run's kernel launches;
-15. the ``kernels`` JSON line, then the result line.
+16. the ``kernels`` JSON line, then the result line.
 
 It needs no network, writes only under ``build/`` in the checkout (and
 removes the XL runs' checkpoints once their phases are done), and stops
@@ -303,6 +321,37 @@ A2C_OVERRIDES = ["exp=a2c", "env=dummy", "env.id=discrete_dummy", "env.num_envs=
                  "checkpoint.every=100", "metric.log_every=100", "metric.logger=null", "run_name=chip_smoke_a2c",
                  "seed=5"]
 A2C_SERVE_CLIENTS, A2C_SERVE_REQUESTS = 8, 8
+# the SAC family's phases, on the continuous dummy env with its actions
+# bounded to [-1, 1] (bounded_dummy_actions) through env.executor=sync, each
+# preset at its own widths, cut in depth, with its replay checkpointed:
+# SAC (hidden 256, 2 critics, batch 256, replay ratio 1) on 4 envs, learning
+# from policy step 256, 1,024 steps (about 770 gradient steps); DroQ
+# (dropout 0.01, replay ratio 20) on 2 envs, 160 steps (about 1,900
+# gradient steps); SAC-AE (64x64 rgb with a 3-frame stack plus state,
+# features 64, actor and critics 1,024, batch 128) on 2 envs, 192 steps
+# (about 130 gradient steps); a checkpoint at half way and at the end
+SAC_OVERRIDES = ["exp=sac", "env=dummy", "env.id=continuous_dummy", "env.executor=sync", "env.capture_video=False",
+                 "env.num_envs=4", "algo.learning_starts=256", "algo.total_steps=1024", "buffer.size=1024",
+                 "checkpoint.every=512", "metric.logger=null", "metric.log_every=256", "run_name=chip_smoke_sac",
+                 "seed=5"]
+DROQ_OVERRIDES = ["exp=droq", "env=dummy", "env.id=continuous_dummy", "env.executor=sync", "env.capture_video=False",
+                  "env.num_envs=2", "algo.learning_starts=64", "algo.total_steps=160", "buffer.size=256",
+                  "buffer.checkpoint=True", "checkpoint.every=80", "algo.mlp_keys.encoder=[state]",
+                  "metric.logger=null", "metric.log_every=80", "run_name=chip_smoke_droq", "seed=5"]
+SAC_AE_OVERRIDES = ["exp=sac_ae", "env=dummy", "env.id=continuous_dummy", "env.executor=sync",
+                    "env.capture_video=False", "env.num_envs=2", "env.frame_stack=3", "algo.cnn_keys.encoder=[rgb]",
+                    "algo.mlp_keys.encoder=[state]", "algo.learning_starts=64", "algo.total_steps=192",
+                    "buffer.size=256", "buffer.checkpoint=True", "checkpoint.every=96", "metric.logger=null",
+                    "metric.log_every=96", "run_name=chip_smoke_sac_ae", "seed=5"]
+SAC_SERVE_CLIENTS, SAC_SERVE_REQUESTS = 8, 8
+SAC_TIMED_STEPS = 10
+# card vs CPU, two gradient steps from a trained checkpoint in fp32 (TF32
+# off): SAC to 1e-4 relative; SAC-AE's four convolutions hold some 10^7
+# ReLU units at batch 128, and a unit at its kink is on in one library and
+# off in the other, so its metrics to 1e-3 and its weights to one Adam step
+# (lr 1e-3)
+CARD_CPU_METRIC_RTOL = {"sac": 1e-4, "sac_ae": 1e-3}
+CARD_CPU_PARAM_ATOL = {"sac": 1e-4, "sac_ae": 1e-3}
 
 
 def _card_line() -> str:
@@ -2116,6 +2165,317 @@ def run_a2c(build_dir: Path, device_name: str = "cuda") -> dict:
             "latency_p99_ms": lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))]}
 
 
+# ---------------------------------------------------------------------------
+# the SAC family (SAC, DroQ, SAC-AE), and PPO and A2C in bf16
+# ---------------------------------------------------------------------------
+
+
+class bounded_dummy_actions:
+    """The continuous dummy env's action space bounded to ``Box(-1, 1)`` in
+    this process for the ``with`` block.  Its ``Box(-inf, inf)`` makes the
+    SAC-family actors' rescale ``(high - low) / 2`` infinite and every
+    action and loss NaN, in the JAX package too (ROADMAP.md Queue 3); the
+    runs inside use ``env.executor=sync``, since a spawned env worker would
+    not see the patch."""
+
+    def __enter__(self):
+        import numpy as np
+
+        from sheeprl_tpu_torch.envs import dummy, spaces
+
+        self._orig = orig = dummy.ContinuousDummyEnv.__init__
+
+        def bounded(env, *args, **kwargs):
+            orig(env, *args, **kwargs)
+            env.action_space = spaces.Box(-1.0, 1.0, env.action_space.shape, np.float32)
+
+        dummy.ContinuousDummyEnv.__init__ = bounded
+        return self
+
+    def __exit__(self, *exc):
+        from sheeprl_tpu_torch.envs import dummy
+
+        dummy.ContinuousDummyEnv.__init__ = self._orig
+        return False
+
+
+def _off_policy_run(overrides, where: str, resume: bool = True) -> dict:
+    """``run`` of an off-policy preset, its mid-run resume and ``eval`` of
+    its last checkpoint, each path with the LayerNorm-GRU kernel's launch
+    counter set to 0 before it and read after; every metric finite and the
+    checkpoints verified."""
+    import math
+
+    import numpy as np
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
+
+    launches = {}
+    t0 = time.monotonic()
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    out = cli.run(overrides)
+    launches[where] = fused_layernorm_gru.launches  # the main path ends here
+    rows = out["metric_rows"]
+    if out["gradient_steps"] <= 0 or not np.isfinite(rows).all() or len(out["checkpoints"]) != 2 or \
+            any(verify_checkpoint(c) != (True, "verified") for c in out["checkpoints"]):
+        raise AssertionError(f"{where}: {out['gradient_steps']} gradient steps, metric rows finite "
+                             f"{np.isfinite(rows).all()}, checkpoints {out['checkpoints']}")
+    result = {"run": out, "gradient_steps": out["gradient_steps"], "iterations": out["iterations"],
+              "final": rows[-1].tolist(), "seconds": time.monotonic() - t0}
+    if resume:
+        fused_layernorm_gru.launches = 0
+        resumed = cli.run(overrides + [f"checkpoint.resume_from={out['checkpoints'][0]}", "algo.run_test=False"])
+        launches[f"{where}_resume"] = fused_layernorm_gru.launches
+        if resumed["start_iter"] <= 1 or resumed["gradient_steps"] <= 0 or not np.isfinite(resumed["metric_rows"]).all():
+            raise AssertionError(f"{where} resume: start_iter {resumed['start_iter']}, "
+                                 f"{resumed['gradient_steps']} gradient steps")
+        result.update(resume_start_iter=resumed["start_iter"], resume_gradient_steps=resumed["gradient_steps"])
+    fused_layernorm_gru.launches = 0
+    reward = cli.evaluation([f"checkpoint_path={out['checkpoints'][-1]}"])
+    launches[f"{where}_eval"] = fused_layernorm_gru.launches
+    if not math.isfinite(reward):
+        raise AssertionError(f"{where} eval: test reward {reward}")
+    result.update(test_reward=reward, launches=launches)
+    return result
+
+
+def run_sac(build_dir: Path, device_name: str = "cuda") -> dict:
+    """``run exp=sac env=dummy`` on the card at its own widths
+    (``SAC_OVERRIDES``): finite metrics, verified checkpoints, a resume from
+    the mid-run one, ``eval``, and ``serve`` to concurrent HTTP clients,
+    whose greedy replies are finite, in the action space and equal to the
+    actor's own."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.serving.server import ServeApp
+
+    overrides = SAC_OVERRIDES + [f"root_dir={(build_dir / 'sac').resolve()}", f"fabric.accelerator={device_name}"]
+    out = _off_policy_run(overrides, "sac")
+    ckpt = out["run"]["checkpoints"][-1]
+    cfg, ckpt_path, device = cli.serve_config([f"checkpoint_path={ckpt}", "serving.port=0",
+                                               "serving.batch_buckets=[4,8]", "serving.max_delay_ms=5.0",
+                                               f"fabric.accelerator={device_name}"])
+    fused_layernorm_gru.launches = 0
+    app = ServeApp(cfg, ckpt_path, device)
+    try:
+        host, port = app.start()
+        url = f"http://{host}:{port}"
+        replies, lock = [], threading.Lock()
+
+        def client(i: int) -> None:
+            rng = np.random.default_rng(4000 + i)
+            for j in range(SAC_SERVE_REQUESTS):
+                status, reply = _post(url, {"obs": {"state": rng.normal(size=10).tolist()}, "greedy": (i + j) % 2 == 0})
+                with lock:
+                    replies.append((status, reply))
+
+        threads = [threading.Thread(target=client, args=(i,)) for i in range(SAC_SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError("a SAC serve client did not finish within 300 s")
+        actions = np.asarray([r[1].get("action") for r in replies if r[0] == 200], dtype=np.float64)
+        if len(actions) != SAC_SERVE_CLIENTS * SAC_SERVE_REQUESTS or actions.shape[1:] != (2,) or \
+                not np.isfinite(actions).all() or np.abs(actions).max() > 1.0:
+            raise AssertionError(f"sac serve: {len(actions)} good replies of {len(replies)}, actions {actions[:4]}")
+        probe = np.random.default_rng(99).normal(size=10).astype(np.float32)
+        status, reply = _post(url, {"obs": {"state": probe.tolist()}, "greedy": True})
+        direct = app.handle.make_step(True)(app.handle.params, {"state": torch.from_numpy(probe[None]).to(device)},
+                                            None).cpu().numpy()[0]
+        if status != 200 or not np.allclose(reply["action"], direct, rtol=0, atol=1e-6):
+            raise AssertionError(f"sac serve: greedy reply {status} {reply} != the actor's {direct}")
+    finally:
+        app.close()
+    out["launches"]["sac_serve"] = fused_layernorm_gru.launches
+    out.update(requests=len(replies), greedy_probe=reply["action"])
+    return out
+
+
+def run_droq(build_dir: Path, device_name: str = "cuda") -> dict:
+    """``run exp=droq env=dummy`` on the card at its own widths
+    (``DROQ_OVERRIDES``: 20 gradient steps a policy step), its resume and
+    ``eval``; ``serve`` refuses its checkpoint, as the JAX package has no
+    DroQ adapter."""
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.serving.server import ServeApp
+
+    overrides = DROQ_OVERRIDES + [f"root_dir={(build_dir / 'droq').resolve()}", f"fabric.accelerator={device_name}"]
+    out = _off_policy_run(overrides, "droq")
+    cfg, path, device = cli.serve_config([f"checkpoint_path={out['run']['checkpoints'][-1]}",
+                                          f"fabric.accelerator={device_name}"])
+    try:
+        ServeApp(cfg, path, device).close()
+    except ValueError as err:
+        out["serve_refusal"] = str(err)
+    else:
+        raise AssertionError("serve accepted a DroQ checkpoint")
+    return out
+
+
+def run_sac_ae(build_dir: Path, device_name: str = "cuda") -> dict:
+    """``run exp=sac_ae env=dummy`` on the card at its own widths
+    (``SAC_AE_OVERRIDES``: 64x64 ``rgb`` with a 3-frame stack plus
+    ``state``, features 64, 32-channel convolutions, actor and critics
+    1,024 wide, batch 128), its resume (the cumulative counter restored)
+    and ``eval``; ``serve`` refuses its checkpoint."""
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.serving.server import ServeApp
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    overrides = SAC_AE_OVERRIDES + [f"root_dir={(build_dir / 'sac_ae').resolve()}",
+                                    f"fabric.accelerator={device_name}"]
+    out = _off_policy_run(overrides, "sac_ae")
+    run = out["run"]
+    if run["metric_rows"].shape[1] != 4 or not (run["metric_rows"][:, 3] > 0).all():
+        raise AssertionError(f"sac_ae: reconstruction losses {run['metric_rows'][:, 3]}")
+    saved = load_state(run["checkpoints"][0])
+    out["counter_at_checkpoint"] = int(saved["cumulative_counter"])
+    cfg, path, device = cli.serve_config([f"checkpoint_path={run['checkpoints'][-1]}",
+                                          f"fabric.accelerator={device_name}"])
+    try:
+        ServeApp(cfg, path, device).close()
+    except ValueError as err:
+        out["serve_refusal"] = str(err)
+    else:
+        raise AssertionError("serve accepted a SAC-AE checkpoint")
+    return out
+
+
+def _card_vs_cpu(family_cls, cfg, obs_space, action_space, state, data, noise_fn, counter=None,
+                 devices=("cuda", "cpu")) -> dict:
+    """One train call of the family's update from ``state`` (a checkpoint's
+    agent and optimizer states) on the card and on the CPU with the same
+    batch and noise: ``{metric_rel_err, param_max_abs_err, on_card}``."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.interop.flax_params import dump_trees
+
+    out = []
+    for device in devices:
+        family = family_cls(cfg, obs_space, action_space, state, device).make_update()
+        batch = {k: v.to(device) for k, v in data.items()}
+        noise = noise_fn(device)
+        if counter is None:
+            metrics = family.update(batch, noise)
+        else:
+            metrics, _ = family.update(batch, noise, counter)
+        tensors = list(family.agent.parameters()) + [t for o in family.optimizers.values()
+                                                     for s in o.state.values() for t in s.values()]
+        out.append((metrics.cpu().numpy(), dump_trees(family.spec()),
+                    all(t.device.type == device for t in tensors if t.dim() > 0)))
+    (m_card, t_card, on_card), (m_cpu, t_cpu, _) = out
+    card_leaves, cpu_leaves = dict(_leaves(t_card)), dict(_leaves(t_cpu))
+    n = len(family.metric_order)
+    rel = float(np.max(np.abs(m_card[:n] - m_cpu[:n]) / np.maximum(np.abs(m_cpu[:n]), 1e-6)))
+    err = max(float(np.abs(card_leaves[k] - cpu_leaves[k]).max()) for k in cpu_leaves)
+    return {"metric_rel_err": rel, "param_max_abs_err": err, "on_card": on_card}
+
+
+def run_sac_card_vs_cpu(sac: dict, sac_ae: dict, devices=("cuda", "cpu")) -> dict:
+    """One SAC and one SAC-AE train call of two gradient steps on the card
+    against the port's CPU step, from the runs' mid-run checkpoints (their
+    trees and optimizer states), one sampled batch and the same noise, fp32
+    with TF32 off: every tensor of the step on the card, the metrics within
+    ``CARD_CPU_METRIC_RTOL``, the parameters within ``CARD_CPU_PARAM_ATOL``."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.sac.sac import SACFamily
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import SACAEFamily
+    from sheeprl_tpu_torch.algos.sac.step_profile import _spaces
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    out = {}
+    gen = torch.Generator().manual_seed(11)
+    for name, run, family_cls in (("sac", sac, SACFamily), ("sac_ae", sac_ae, SACAEFamily)):
+        ckpt = run["run"]["checkpoints"][0]
+        state = load_state(ckpt)
+        cfg = run["run"]["family"].cfg
+        obs_space, action_space = _spaces(cfg)
+        n = int(cfg.algo.per_rank_batch_size)
+        if name == "sac":
+            data = {"observations": torch.randn(2, n, 10, generator=gen), "next_observations": torch.randn(2, n, 10, generator=gen),
+                    "actions": torch.rand(2, n, 2, generator=gen) * 2 - 1, "rewards": torch.randn(2, n, 1, generator=gen),
+                    "terminated": (torch.rand(2, n, 1, generator=gen) < 0.05).float()}
+            eps = torch.randn(2, n, 2, generator=gen)
+            row = _card_vs_cpu(family_cls, cfg, obs_space, action_space, state, data, lambda d: eps.to(d),
+                               devices=devices)
+        else:
+            data = {"actions": torch.rand(2, n, 2, generator=gen) * 2 - 1, "rewards": torch.randn(2, n, 1, generator=gen),
+                    "terminated": (torch.rand(2, n, 1, generator=gen) < 0.05).float()}
+            for prefix in ("", "next_"):
+                data[f"{prefix}rgb"] = torch.randint(0, 256, (2, n, 9, 64, 64), generator=gen).float()
+                data[f"{prefix}state"] = torch.randn(2, n, 10, generator=gen)
+            noise = {"eps_next": torch.randn(2, n, 2, generator=gen), "eps_actor": torch.randn(2, n, 2, generator=gen),
+                     "pixels": {"rgb": torch.rand(2, n, 9, 64, 64, generator=gen)}}
+            row = _card_vs_cpu(family_cls, cfg, obs_space, action_space, state, data,
+                               lambda d: {"eps_next": noise["eps_next"].to(d), "eps_actor": noise["eps_actor"].to(d),
+                                          "pixels": {"rgb": noise["pixels"]["rgb"].to(d)}}, counter=0,
+                               devices=devices)
+        if not row["on_card"] or row["metric_rel_err"] > CARD_CPU_METRIC_RTOL[name] or \
+                row["param_max_abs_err"] > CARD_CPU_PARAM_ATOL[name]:
+            raise AssertionError(f"{name} card vs CPU: {row} (tol {CARD_CPU_METRIC_RTOL[name]}, "
+                                 f"{CARD_CPU_PARAM_ATOL[name]})")
+        out[name] = row
+    return out
+
+
+def run_sac_profiles() -> dict:
+    """The SAC (diagnostics off and on), DroQ and SAC-AE gradient steps
+    through ``algos/sac/step_profile.py``: stream and busy time, idle share,
+    launches, FLOPs and step MFU at each preset's widths."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import time_gradient_steps
+    from sheeprl_tpu_torch.algos.sac.step_profile import profiled_update
+    from sheeprl_tpu_torch.diagnostics.telemetry import resolve_peak_flops
+
+    out = {}
+    for name, exp, diagnostics in (("sac", "sac", False), ("sac_diagnostics", "sac", True), ("droq", "droq", False),
+                                   ("sac_ae", "sac_ae", False)):
+        step, batch, info = profiled_update([f"exp={exp}"], "cuda", diagnostics)
+        timing = time_gradient_steps(step, None, batch, None, SAC_TIMED_STEPS, warmup=3, profile=True)
+        peak = resolve_peak_flops(torch.cuda.get_device_name(0), info["precision"])
+        top = sorted(timing["kernels"].items(), key=lambda kv: -kv[1][1])[:3]
+        out[name] = {"step_ms": timing["step_ms"], "busy_ms": timing["busy_ms"], "idle_share": timing["idle_share"],
+                     "launches": timing["launches"], "flops": info["flops"], "batch": info["batch_size"],
+                     "params": info["params"],
+                     "step_mfu": info["flops"] / (timing["step_ms"] / 1e3) / peak if peak else None,
+                     "top": [(round(us / 1e3 / SAC_TIMED_STEPS, 4), k[:60]) for k, (_, us) in top]}
+        del step, batch
+    return out
+
+
+def run_bf16_on_policy(build_dir: Path, device_name: str = "cuda") -> dict:
+    """PPO at ``exp=ppo_atari``'s widths (one iteration of 8 envs x 128
+    steps) and A2C, each under ``fabric.precision=bf16-mixed``: finite
+    losses, the fp32 masters."""
+    import numpy as np
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+
+    out = {}
+    for name, overrides in (("ppo_bf16", PPO_OVERRIDES + ["algo.total_steps=1024", "checkpoint.every=1024",
+                                                          "metric.logger=null", "run_name=chip_smoke_ppo_bf16"]),
+                            ("a2c_bf16", A2C_OVERRIDES + ["run_name=chip_smoke_a2c_bf16"])):
+        fused_layernorm_gru.launches = 0  # the main path starts here
+        run = cli.run(overrides + ["fabric.precision=bf16-mixed", "algo.run_test=False",
+                                   f"root_dir={(build_dir / name).resolve()}", f"fabric.accelerator={device_name}"])
+        launches = fused_layernorm_gru.launches  # the main path ends here
+        if not run["iterations"] or not np.isfinite(run["metric_rows"]).all():
+            raise AssertionError(f"{name}: metric rows {run['metric_rows']}")
+        out[name] = {"iterations": run["iterations"], "final": run["metric_rows"][-1].tolist(), "launches": launches}
+        shutil.rmtree(build_dir / name, ignore_errors=True)
+    return out
+
+
 def run_timers(device_name: str = "cuda") -> dict:
     """Phase 10: the one gradient-step timer, profiled, for the fp32
     ``rssm_chunks=1`` step and the chunked bf16 one, each built as
@@ -2463,6 +2823,51 @@ def main() -> int:
           f"{a2c['requests_per_s']:.2f} requests/s, p50 {a2c['latency_p50_ms']:.2f} ms, p99 "
           f"{a2c['latency_p99_ms']:.2f} ms. A2C runs no hand-written kernel  [{card}]", flush=True)
 
+    sac_t0 = time.monotonic()
+    with bounded_dummy_actions():
+        sac = run_sac(build_dir)
+        print(f"[sac] run exp=sac env=dummy (actions bounded to [-1, 1]; hidden 256, 2 critics, batch 256, replay "
+              f"ratio 1, 4 envs, {sac['iterations']} iterations): {sac['gradient_steps']} gradient steps in "
+              f"{sac['seconds']:.1f} s, final [qf, actor, alpha, grad norm] {sac['final']}; resumed from its mid-run "
+              f"checkpoint at iteration {sac['resume_start_iter']} ({sac['resume_gradient_steps']} gradient steps); "
+              f"eval Test/cumulative_reward {sac['test_reward']}; serve: {sac['requests']} /act from "
+              f"{SAC_SERVE_CLIENTS} clients, all 200, finite and in [-1, 1], the greedy probe "
+              f"{sac['greedy_probe']} equal to the actor's; ln_gru launches {sac['launches']}  [{card}]", flush=True)
+        droq = run_droq(build_dir)
+        print(f"[droq] run exp=droq env=dummy (hidden 256, dropout 0.01, replay ratio 20, 2 envs, "
+              f"{droq['iterations']} iterations): {droq['gradient_steps']} gradient steps in {droq['seconds']:.1f} s, "
+              f"final [qf, actor, alpha] {droq['final']}; resumed at iteration {droq['resume_start_iter']} "
+              f"({droq['resume_gradient_steps']} gradient steps); eval {droq['test_reward']}; serve refused: "
+              f"{droq['serve_refusal'][:70]}; ln_gru launches {droq['launches']}  [{card}]", flush=True)
+        sac_ae = run_sac_ae(build_dir)
+        print(f"[sac_ae] run exp=sac_ae env=dummy (64x64 rgb, 3-frame stack + state, features 64, hidden 1024, batch "
+              f"128, 2 envs, {sac_ae['iterations']} iterations): {sac_ae['gradient_steps']} gradient steps in "
+              f"{sac_ae['seconds']:.1f} s, final [qf, actor, alpha, reconstruction] {sac_ae['final']}; resumed at "
+              f"iteration {sac_ae['resume_start_iter']} with the counter at {sac_ae['counter_at_checkpoint']} "
+              f"({sac_ae['resume_gradient_steps']} gradient steps); eval {sac_ae['test_reward']}; serve refused: "
+              f"{sac_ae['serve_refusal'][:70]}; ln_gru launches {sac_ae['launches']}  [{card}]", flush=True)
+    versus = run_sac_card_vs_cpu(sac, sac_ae)
+    for name, row in versus.items():
+        print(f"[card-vs-cpu] {name}: two gradient steps from the mid-run checkpoint on the card and on the CPU, one "
+              f"batch and noise, fp32 (TF32 off): every parameter and optimizer state on the card; metrics max "
+              f"relative error {row['metric_rel_err']:.3g} (tol {CARD_CPU_METRIC_RTOL[name]:g}), parameters max_abs_err "
+              f"{row['param_max_abs_err']:.3g} (tol {CARD_CPU_PARAM_ATOL[name]:g})  [{card}]", flush=True)
+    for path in ("sac", "droq", "sac_ae"):
+        shutil.rmtree(build_dir / path, ignore_errors=True)
+    profiles = run_sac_profiles()
+    for name, t in profiles.items():
+        print(f"[sac-profile] {name} gradient step (batch {t['batch']}, {t['params']} params, {t['flops']:.6g} FLOPs): "
+              f"median stream time {t['step_ms']:.3f} ms, device busy {t['busy_ms']:.3f} ms, idle share "
+              f"{t['idle_share']:.4f}, {t['launches']} launches, step MFU {t['step_mfu']}; top kernels (ms, name) "
+              f"{t['top']}  [{card}]", flush=True)
+    print(f"[sac-profile] DroQ's 20 gradient steps a policy step: {20 * profiles['droq']['step_ms']:.3f} ms of stream "
+          f"time and {20 * profiles['droq']['launches']} launches a policy step  [{card}]", flush=True)
+    bf16 = run_bf16_on_policy(build_dir)
+    print(f"[bf16] fabric.precision=bf16-mixed: PPO at exp=ppo_atari widths {bf16['ppo_bf16']['iterations']} "
+          f"iteration(s), final [policy, value, entropy, grad norm] {bf16['ppo_bf16']['final']}; A2C "
+          f"{bf16['a2c_bf16']['iterations']} iterations, final [policy, value, grad norm] {bf16['a2c_bf16']['final']}; "
+          f"the SAC-family and bf16 phases took {time.monotonic() - sac_t0:.1f} s  [{card}]", flush=True)
+
     timers = run_timers()
     for name, t in timers.items():
         fp32 = name.startswith("fp32")
@@ -2532,7 +2937,8 @@ def main() -> int:
                "jepa": jepa["ln_gru_launches"], "jepa_resume": jepa_resumed["ln_gru_launches"],
                "jepa_eval": jepa_evaluated["ln_gru_launches"], "p2e": p2e["ln_gru_launches"],
                "p2e_resume": p2e_resumed["ln_gru_launches"], "p2e_finetuning": p2e_finetuned["ln_gru_launches"],
-               "p2e_eval": p2e_evaluated["ln_gru_launches"]}
+               "p2e_eval": p2e_evaluated["ln_gru_launches"], **sac["launches"], **droq["launches"],
+               **sac_ae["launches"], **{k: v["launches"] for k, v in bf16.items()}}
     case_keys = ("B", "K", "H", "dtype", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms", "bound_ms", "bound_by")
     kernels = [{
         "name": "ln_gru",
@@ -2550,7 +2956,7 @@ def main() -> int:
         "library_ms": main["library_ms"],
         "shape": {"B": main["B"], "K": main["K"], "H": main["H"], "dtype": main["dtype"]},
         "cases": [{k: c[k] for k in case_keys} for c in cases],
-        "phase": "kernel+slice+train+chunked+resume+eval+drill+jepa+p2e",
+        "phase": "kernel+slice+train+chunked+resume+eval+drill+jepa+p2e+sac+droq+sac_ae+bf16",
     }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

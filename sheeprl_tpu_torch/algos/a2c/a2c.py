@@ -1,8 +1,9 @@
 """A2C training (counterpart of ``sheeprl_tpu/algos/a2c/a2c.py``): one
 gradient step over the whole rollout per iteration.
 
-The reference accumulates the minibatches' gradients into one optimizer
-step; with ``sum``/``mean`` reductions that is the whole batch's gradient,
+The loss runs on the agent's parameters and the observations cast to the
+compute dtype of ``fabric.precision``, as the JAX loss casts them.  The
+reference accumulates the minibatches' gradients into one optimizer step; with ``sum``/``mean`` reductions that is the whole batch's gradient,
 so the JAX package, and the port, take it in one step.  The loss is
 ``policy_loss + vf_coef * value_loss`` with ``algo.loss_reduction``; the
 gradient is clipped by its global norm when ``algo.max_grad_norm > 0`` and
@@ -26,6 +27,7 @@ from sheeprl_tpu_torch.algos.a2c.loss import policy_loss, value_loss
 from sheeprl_tpu_torch.algos.ppo.ppo import _module_groups, _on_policy_main
 from sheeprl_tpu_torch.diagnostics.health import explained_variance, health_names, health_spec, health_stats
 from sheeprl_tpu_torch.diagnostics.sentinel import finite_flag, select_finite, sentinel_spec, skip_update_guard
+from sheeprl_tpu_torch.parallel.precision import call_cast, cast_floating, compute_dtype_of
 from sheeprl_tpu_torch.utils.optim import clip_by_global_norm, global_norm
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
@@ -44,6 +46,7 @@ def make_train_step(agent: A2CAgent, optimizer: torch.optim.Optimizer, cfg):
     delta, the parameters before it; ``value_ev`` of the rollout's values,
     ``returns - advantages``, against its returns)."""
     sentinel, health = sentinel_spec(cfg), health_spec(cfg)
+    cdt = compute_dtype_of(cfg)
     max_grad_norm = float(cfg.algo.max_grad_norm or 0.0)
     reduction, vf_coef = str(cfg.algo.loss_reduction), float(cfg.algo.vf_coef)
     params = [p for group in optimizer.param_groups for p in group["params"]]
@@ -62,7 +65,8 @@ def make_train_step(agent: A2CAgent, optimizer: torch.optim.Optimizer, cfg):
         if sentinel.skip_update:
             with torch.no_grad():
                 torch._foreach_copy_(snapshot, guarded)
-        _, logprobs, _, values = agent(data["obs"], actions=data["actions"])
+        _, logprobs, _, values = call_cast(
+            (agent,), cdt, lambda: agent(cast_floating(data["obs"], cdt), actions=data["actions"]))
         advantages = data["advantages"]
         if cfg.algo.get("normalize_advantages", False):
             advantages = (advantages - advantages.mean()) / (advantages.std(unbiased=False) + 1e-8)

@@ -10,7 +10,8 @@ the log-std).  Sampling takes pre-drawn noise (a standard-normal draw of the
 continuous head, Gumbel noise of each categorical head), or draws it from a
 ``torch.Generator``.  The log-prob and entropy are ``[N, 1]`` in every
 family; the JAX agent returns ``[N]`` for the continuous ones (ROADMAP.md,
-Queue 3).
+Queue 3).  Each part computes in the promotion of its input's and its
+weights' dtypes, as the flax modules do under the precision policy.
 """
 
 from __future__ import annotations
@@ -23,6 +24,20 @@ from torch import nn
 
 from sheeprl_tpu_torch.models.blocks import MLP, NatureCNN, lecun_normal_
 from sheeprl_tpu_torch.ops.distributions import Categorical, Normal, TanhNormal
+
+
+def promoted_call(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``module(x)`` in the promotion of ``x``'s and the module's parameter
+    dtype, as a flax module with ``dtype=None`` computes: bf16 weights fed
+    fp32 pixels (or the fp32 rollout's observations under ``bf16-true``)
+    run in fp32 on the weights' bf16 values."""
+    from sheeprl_tpu_torch.parallel.precision import call_cast
+
+    param_dtype = next(module.parameters()).dtype
+    dt = torch.promote_types(x.dtype, param_dtype)
+    if dt == param_dtype:
+        return module(x.to(dt))
+    return call_cast((module,), dt, lambda: module(x.to(dt)))
 
 
 def gumbel_like(shape: Tuple[int, ...], generator: Optional[torch.Generator], device) -> torch.Tensor:
@@ -79,14 +94,17 @@ class PPOAgent(nn.Module):
         feats = []
         if self.cnn_encoder is not None:
             x = torch.cat([obs[k] for k in self.cnn_keys], dim=-3)
-            feats.append(self.cnn_encoder(x.float() / 255.0))
+            feats.append(promoted_call(self.cnn_encoder, x.float() / 255.0))
         if self.mlp_keys:
             x = torch.cat([obs[k] for k in self.mlp_keys], dim=-1)
-            feats.append(self.mlp_encoder(x) if self.mlp_encoder is not None else x)
-        return torch.cat(feats, dim=-1) if len(feats) > 1 else feats[0]
+            feats.append(promoted_call(self.mlp_encoder, x) if self.mlp_encoder is not None else x)
+        if len(feats) == 1:
+            return feats[0]
+        dt = torch.promote_types(feats[0].dtype, feats[1].dtype)
+        return torch.cat([f.to(dt) for f in feats], dim=-1)
 
     def get_values(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
-        return self.critic(self.features(obs))
+        return promoted_call(self.critic, self.features(obs))
 
     def forward(self, obs: Dict[str, torch.Tensor], actions: Optional[torch.Tensor] = None, greedy: bool = False,
                 noise: Optional[Any] = None, generator: Optional[torch.Generator] = None):
@@ -95,9 +113,9 @@ class PPOAgent(nn.Module):
         a standard-normal ``[N, A]`` for a continuous head, a list of Gumbel
         ``[N, d_i]`` per categorical head) or the mode with ``greedy``."""
         feat = self.features(obs)
-        value = self.critic(feat)
-        pre = self.actor_backbone(feat)
-        outs = [head(pre) for head in self.actor_heads]
+        value = promoted_call(self.critic, feat)
+        pre = promoted_call(self.actor_backbone, feat) if len(self.actor_backbone.dense) else feat
+        outs = [promoted_call(head, pre) for head in self.actor_heads]
         if self.is_continuous:
             mean, log_std = outs[0].chunk(2, dim=-1)
             std = log_std.exp()

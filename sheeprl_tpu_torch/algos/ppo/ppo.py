@@ -5,7 +5,9 @@ The update follows the JAX package's ``make_train_step``: for each of
 ``algo.update_epochs`` epochs a permutation of the rollout's rows, cut into
 minibatches of ``algo.per_rank_batch_size``; per minibatch the clipped
 policy loss, the value loss (clipped with ``algo.clip_vloss``) and the
-entropy bonus, the gradient, clipping by global norm
+entropy bonus (the agent's parameters and the observations cast to the
+compute dtype of ``fabric.precision``, as the JAX loss casts them), the
+gradient, clipping by global norm
 (``algo.max_grad_norm > 0``) and one Adam step, whose learning rate with
 ``algo.anneal_lr`` is optax's ``linear_schedule`` at the update count
 before the step.  The metric vector ``[policy, value, entropy, grad norm]``
@@ -30,6 +32,7 @@ from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_lo
 from sheeprl_tpu_torch.algos.ppo.utils import env_actions_of, test
 from sheeprl_tpu_torch.diagnostics.health import health_names, health_spec, health_stats, unit_dim
 from sheeprl_tpu_torch.diagnostics.sentinel import finite_flag, select_finite, sentinel_spec, skip_update_guard
+from sheeprl_tpu_torch.parallel.precision import call_cast, cast_floating, compute_dtype_of
 from sheeprl_tpu_torch.utils.optim import clip_by_global_norm, global_norm
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
@@ -85,6 +88,7 @@ def make_train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, num_
     the health stats (``update.health_names``) averaged over the minibatches
     and ``value_ev`` (the rollout's values against its returns)."""
     sentinel, health = sentinel_spec(cfg), health_spec(cfg)
+    cdt = compute_dtype_of(cfg)
     epochs = int(cfg.algo.update_epochs)
     max_grad_norm = float(cfg.algo.max_grad_norm or 0.0)
     reduction = cfg.algo.loss_reduction
@@ -117,7 +121,10 @@ def make_train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, num_
             group0["lr"] = schedule(0 if step is None else int(step))
 
     def loss_fn(mb: Dict[str, Any], clip_coef: float, ent_coef: float, vf_coef: float):
-        _, new_logprobs, entropy, new_values = agent(mb["obs"], actions=mb["actions"])
+        # the parameters and observations in the compute dtype, as the JAX
+        # loss casts them; the loss math in fp32
+        _, new_logprobs, entropy, new_values = call_cast(
+            (agent,), cdt, lambda: agent(cast_floating(mb["obs"], cdt), actions=mb["actions"]))
         advantages = mb["advantages"]
         if cfg.algo.normalize_advantages:
             advantages = (advantages - advantages.mean()) / (advantages.std(unbiased=False) + 1e-8)
@@ -258,8 +265,6 @@ def _unported_options(cfg) -> List[str]:
         out.append("model_manager.disabled=False (model registry)")
     if cfg.metric.get("profiler", {}).get("enabled", False):
         out.append("metric.profiler.enabled=True")
-    if str(cfg.fabric.get("precision", "32-true")).startswith("bf16"):
-        out.append(f"fabric.precision={cfg.fabric.precision} for PPO")
     return out
 
 
@@ -372,6 +377,8 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn) -> Dict[str, A
     state = runtime.load(resume_from) if resume_from else None
     agent = build_agent_fn(actions_dim, is_continuous, cfg, observation_space, state["agent"] if state else None,
                            device)
+    # bf16-true: the weights themselves in bf16; *-mixed keeps fp32 masters
+    agent.to(runtime.param_dtype)
     total_iters = int(cfg.algo.total_steps // total_local) if not cfg.dry_run else 1
     optimizer = instantiate(cfg.algo.optimizer)(agent.parameters())
     clip = bool(cfg.algo.max_grad_norm and cfg.algo.max_grad_norm > 0)

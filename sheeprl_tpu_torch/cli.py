@@ -2,9 +2,10 @@
 ``run`` trains or, with ``checkpoint.resume_from``, resumes; ``eval`` scores
 a checkpoint; ``serve`` serves one.  The port trains and evaluates
 ``dreamer_v3``, ``dreamer_v3_jepa``, ``p2e_dv3_exploration``,
-``p2e_dv3_finetuning``, ``ppo`` and ``a2c`` and serves all but
-``dreamer_v3_jepa`` and the P2E pair (as the JAX package does); model
-registration is still to port (ROADMAP.md Queue 1)."""
+``p2e_dv3_finetuning``, ``ppo``, ``a2c``, ``sac``, ``droq`` and
+``sac_ae`` and serves all but ``dreamer_v3_jepa``, the P2E pair, ``droq``
+and ``sac_ae`` (as the JAX package does); model registration is still to
+port (ROADMAP.md Queue 1)."""
 
 from __future__ import annotations
 
@@ -84,7 +85,7 @@ def check_configs(cfg: dotdict) -> None:
     if find_algorithm(cfg.algo.name) is None:
         raise NotImplementedError(
             f"Algorithm {cfg.algo.name!r} is not ported yet (see ROADMAP.md Queue 1); the port trains: dreamer_v3, "
-            "dreamer_v3_jepa, p2e_dv3_exploration, p2e_dv3_finetuning, ppo, a2c"
+            "dreamer_v3_jepa, p2e_dv3_exploration, p2e_dv3_finetuning, ppo, a2c, sac, droq, sac_ae"
         )
     if cfg.metric.log_level not in (0, 1):
         raise ValueError(f"metric.log_level must be 0 or 1, got {cfg.metric.log_level}")
@@ -205,7 +206,7 @@ def eval_algorithm(cfg: dotdict) -> Any:
     if entry is None:
         raise NotImplementedError(f"Evaluation of {cfg.algo.name!r} is not ported yet (see ROADMAP.md Queue 1); "
                                   "the port evaluates: dreamer_v3, dreamer_v3_jepa, p2e_dv3_exploration, "
-                                  "p2e_dv3_finetuning, ppo, a2c")
+                                  "p2e_dv3_finetuning, ppo, a2c, sac, droq, sac_ae")
     entrypoint = getattr(importlib.import_module(entry["module"]), entry["entrypoint"])
     runtime = instantiate(cfg.fabric)
     return runtime.launch(entrypoint, cfg, runtime.load(cfg.checkpoint_path))

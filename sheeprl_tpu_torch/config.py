@@ -336,12 +336,13 @@ def compose_group(group: str, option: str = "default") -> dotdict:
 #: (the port mirrors its module paths), and the optax factories it has
 _FOREIGN_PREFIX = ("sheeprl_tpu.", "sheeprl_tpu_torch.")
 _FOREIGN_TARGETS = {"optax.adam": "sheeprl_tpu_torch.utils.optim.adam",
+                    "optax.adamw": "sheeprl_tpu_torch.utils.optim.adamw",
                     "optax.rmsprop": "sheeprl_tpu_torch.utils.optim.rmsprop"}
 
 
 def own_targets(node: Any) -> Any:
     """A copy of an archived run config with every ``_target_`` the JAX
-    package wrote (``sheeprl_tpu.…``, ``optax.adam``, ``optax.rmsprop``)
+    package wrote (``sheeprl_tpu.…``, ``optax.adam``, ``optax.adamw``, ``optax.rmsprop``)
     naming the port's counterpart, so that a JAX run resumes and evaluates
     here."""
     if isinstance(node, Mapping):

@@ -34,18 +34,20 @@ def _validate_add_data(data: Dict[str, np.ndarray]) -> None:
 
 
 class ReplayBuffer:
-    """Circular buffer over dict-of-ndarray storage."""
+    """Circular buffer over dict-of-ndarray storage; :meth:`sample` draws
+    uniformly, with the ``next_<key>`` of each of ``obs_keys`` on request."""
 
     batch_axis: int = 1
 
     def __init__(self, buffer_size: int, n_envs: int = 1, memmap: bool = False,
-                 memmap_dir: str | os.PathLike | None = None):
+                 memmap_dir: str | os.PathLike | None = None, obs_keys: Sequence[str] = ("observations",)):
         if buffer_size <= 0:
             raise ValueError(f"The buffer size must be greater than zero, got: {buffer_size}")
         if n_envs <= 0:
             raise ValueError(f"The number of environments must be greater than zero, got: {n_envs}")
         self._buffer_size = buffer_size
         self._n_envs = n_envs
+        self._obs_keys = tuple(obs_keys)
         self._memmap = memmap
         self._memmap_dir = memmap_dir
         if self._memmap:
@@ -69,6 +71,10 @@ class ReplayBuffer:
     @property
     def empty(self) -> bool:
         return len(self._buf) == 0
+
+    @property
+    def full(self) -> bool:
+        return self._full
 
     def seed(self, seed: Optional[int]) -> None:
         self._rng = np.random.default_rng(seed)
@@ -104,6 +110,42 @@ class ReplayBuffer:
         if head + steps >= self._buffer_size:
             self._full = True
         self._pos = (head + steps) % self._buffer_size
+
+    def sample(self, batch_size: int, sample_next_obs: bool = False, clone: bool = False,
+               n_samples: int = 1) -> Dict[str, np.ndarray]:
+        """``[n_samples, batch_size, ...]`` rows drawn uniformly: the rows
+        first, then the envs, from the buffer's generator.  With
+        ``sample_next_obs`` each of ``obs_keys`` also comes as
+        ``next_<key>``, the row after; the newest row has no successor, so
+        a full buffer draws a row's age in ``[1, size)``, a part-full one a
+        row below ``pos - 1``.  The rows are copies (``np.take``), so
+        ``clone`` changes nothing; it is the JAX signature's."""
+        if batch_size <= 0 or n_samples <= 0:
+            raise ValueError(f"'batch_size' ({batch_size}) and 'n_samples' ({n_samples}) must be both greater than 0")
+        if not self._full and self._pos == 0:
+            raise ValueError("No sample has been added to the buffer. Call 'add' first")
+        draw = batch_size * n_samples
+        if self._full:
+            if sample_next_obs:
+                ages = self._rng.integers(1, self._buffer_size, size=(draw,), dtype=np.intp)
+                batch_idxes = (self._pos - 1 - ages) % self._buffer_size
+            else:
+                batch_idxes = self._rng.integers(0, self._buffer_size, size=(draw,), dtype=np.intp)
+        else:
+            stored = self._pos - 1 if sample_next_obs else self._pos
+            if stored == 0:
+                raise RuntimeError("Cannot sample next observations with a single stored step; add at least two steps")
+            batch_idxes = self._rng.integers(0, stored, size=(draw,), dtype=np.intp)
+        env_idxes = self._rng.integers(0, self._n_envs, size=(draw,), dtype=np.intp)
+        flat_idxes = batch_idxes * self._n_envs + env_idxes
+        flat_next = ((batch_idxes + 1) % self._buffer_size) * self._n_envs + env_idxes
+        samples: Dict[str, np.ndarray] = {}
+        for k, v in self._buf.items():
+            flat_v = np.reshape(np.asarray(v), (-1, *v.shape[2:]))
+            samples[k] = np.take(flat_v, flat_idxes, axis=0)
+            if sample_next_obs and k in self._obs_keys:
+                samples[f"next_{k}"] = np.take(flat_v, flat_next, axis=0)
+        return {k: v.reshape(n_samples, batch_size, *v.shape[1:]) for k, v in samples.items()}
 
     def footprint(self) -> Dict[str, int]:
         """Storage bytes by residence: memmap-backed keys as ``disk_bytes``,

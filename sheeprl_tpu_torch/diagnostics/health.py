@@ -56,7 +56,7 @@ def health_spec(cfg: Mapping[str, Any]) -> HealthSpec:
 
 #: the weight converter's layout kind -> the torch axis of a flax leaf's
 #: last axis (``same``: the layouts agree, so the last axis)
-_UNIT_DIM = {"dense": 0, "dense_nhwc": 0, "conv": 0, "conv_transpose": 1}
+_UNIT_DIM = {"dense": 0, "dense_nhwc": 0, "dense_to_hwc": 0, "conv": 0, "conv_transpose": 1}
 
 
 def unit_dim(kind: str, ndim: int) -> int:

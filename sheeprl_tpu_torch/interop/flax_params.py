@@ -1,7 +1,7 @@
 """Weights across the two packages: the JAX package's flax param trees
 (numpy, as its checkpoints store them) to the port's DV3 (and its JEPA
 heads, and Plan2Explore's exploration actor, critics and stacked
-ensemble), PPO and A2C modules and back.
+ensemble), PPO and A2C, SAC, DroQ and SAC-AE modules and back.
 
 Rules: Dense ``kernel[in, out]`` <-> Linear ``weight[out, in]``; Conv
 ``kernel`` HWIO <-> ``weight`` OIHW; ConvTranspose ``kernel``
@@ -12,7 +12,10 @@ convolution and so applies it flipped); LayerNorm ``scale``/``bias`` <->
 ``weight``/``bias``; ``rssm/initial_recurrent_state`` as is.  The dense
 layer after a flattened conv map (NatureCNN's) also permutes its input rows:
 flax flattens the NHWC map in (H, W, C) order, torch the NCHW map in
-(C, H, W) order (kind ``dense_nhwc``, which carries ``(H, W, C)``).  Both
+(C, H, W) order (kind ``dense_nhwc``, which carries ``(H, W, C)``); a
+dense layer whose output flax reshapes to an NHWC map (SAC-AE's decoder)
+permutes its output rows and bias the same way (``dense_to_hwc``,
+``bias_hwc``).  Stacked ensembles (flax's ``nn.vmap``) keep their layout.  Both
 directions walk one spec of the port's modules, laid out in the flax tree's
 own names, so they cannot disagree.  The walk is strict: a key missing on
 either side or a shape that differs raises.  Training reads and writes all
@@ -33,7 +36,8 @@ TraceState(trace))``, the last an ``EmptyState()`` without momentum; ``nu``
 and ``trace`` are the port's :class:`~sheeprl_tpu_torch.utils.optim.RMSprop`
 state of the same names.  An optimizer over several trees (DreamerV3-JEPA's
 world model and its heads) has a list as its spec, and optax a tuple of
-trees, in the same order.  Plan2Explore's per-critic optimizers nest under
+trees, in the same order (SAC-AE's critic optimizer over ``(encoder,
+critic)``), and a bare array (SAC's ``log_alpha``) a leaf.  Plan2Explore's per-critic optimizers nest under
 ``opt_states["critics_exploration"][name]``, as the JAX package's do.  bf16
 weights are written as float32, which holds them exactly.
 """
@@ -317,12 +321,93 @@ def ppo_to_flax(agent) -> Dict[str, Any]:
     return _dump(ppo_spec(agent))
 
 
+def sac_actor_spec(actor) -> Dict[str, Any]:
+    """A SAC (or SAC-AE) actor's flax tree: the ``MLP_0`` stack, then the
+    mean (``Dense_0``) and log-std (``Dense_1``) heads."""
+    return {"params": {"MLP_0": {f"Dense_{i}": _linear(d) for i, d in enumerate(actor.dense)},
+                       "Dense_0": _linear(actor.fc_mean), "Dense_1": _linear(actor.fc_logstd)}}
+
+
+def stacked_critic_spec(critic) -> Dict[str, Any]:
+    """A critic ensemble as flax's ``nn.vmap`` stores it, kernels ``[N, in,
+    out]`` and biases ``[N, out]`` in the port's layout too: SAC's and
+    SAC-AE's ``Vmap_QNetwork_0/MLP_0/Dense_<i>``, DroQ's
+    ``Vmap_DroQQNetwork_0/{Dense_<i>, LayerNorm_<i>}``."""
+    layers: Dict[str, Any] = {f"Dense_{i}": {"kernel": (k, "same"), "bias": (b, "same")}
+                              for i, (k, b) in enumerate(zip(critic.kernels, critic.biases))}
+    if not hasattr(critic, "norm_scales"):
+        return {"params": {"Vmap_QNetwork_0": {"MLP_0": layers}}}
+    for i, (scale, bias) in enumerate(zip(critic.norm_scales, critic.norm_biases)):
+        layers[f"LayerNorm_{i}"] = {"scale": (scale, "same"), "bias": (bias, "same")}
+    return {"params": {"Vmap_DroQQNetwork_0": layers}}
+
+
+def sac_spec(agent) -> Dict[str, Any]:
+    """SAC's and DroQ's four trees in the JAX package's layout: ``actor``,
+    ``critic``, ``target_critic`` and the bare ``log_alpha`` array."""
+    return {"actor": sac_actor_spec(agent.actor), "critic": stacked_critic_spec(agent.critic),
+            "target_critic": stacked_critic_spec(agent.target_critic), "log_alpha": (agent.log_alpha, "same")}
+
+
+def sac_ae_encoder_spec(encoder) -> Dict[str, Any]:
+    """SAC-AE's encoder: the four ``Conv_<i>``, the pixel branch's dense
+    layer (over the map flattened in (H, W, C) order) and LayerNorm, then
+    the vector branch's ``MLP_0``, dense layer and LayerNorm, numbered on
+    from the pixel branch's."""
+    spec: Dict[str, Any] = {}
+    n = 0
+    if encoder.convs is not None:
+        spec.update({f"Conv_{i}": _conv(c) for i, c in enumerate(encoder.convs)})
+        spec["Dense_0"] = {"kernel": (encoder.cnn_fc.weight, "dense_nhwc", encoder.cnn_fc.flatten_hwc),
+                           "bias": (encoder.cnn_fc.bias, "same")}
+        spec["LayerNorm_0"] = _norm(encoder.cnn_norm)
+        n = 1
+    if encoder.mlp is not None:
+        spec["MLP_0"] = _mlp(encoder.mlp)
+        spec[f"Dense_{n}"] = _linear(encoder.mlp_fc)
+        spec[f"LayerNorm_{n}"] = _norm(encoder.mlp_norm)
+    return {"params": spec}
+
+
+def sac_ae_decoder_spec(decoder) -> Dict[str, Any]:
+    """SAC-AE's decoder: the dense layer to the (H, W, C) map, the four
+    ``ConvTranspose_<i>``, then the vector branch's ``MLP_0`` and its output
+    ``Dense``."""
+    spec: Dict[str, Any] = {}
+    n = 0
+    if decoder.deconvs is not None:
+        hwc = decoder.fc.map_hwc
+        spec["Dense_0"] = {"kernel": (decoder.fc.weight, "dense_to_hwc", hwc), "bias": (decoder.fc.bias, "bias_hwc", hwc)}
+        spec.update({f"ConvTranspose_{i}": _conv_transpose(c) for i, c in enumerate(decoder.deconvs)})
+        n = 1
+    if decoder.mlp is not None:
+        spec["MLP_0"] = _mlp(decoder.mlp)
+        spec[f"Dense_{n}"] = _linear(decoder.mlp_out)
+    return {"params": spec}
+
+
+def sac_ae_spec(agent) -> Dict[str, Any]:
+    """SAC-AE's seven trees in the JAX package's layout: ``encoder``,
+    ``decoder``, ``actor``, ``critic``, ``target_encoder``,
+    ``target_critic`` and ``log_alpha``."""
+    return {"encoder": sac_ae_encoder_spec(agent.encoder), "decoder": sac_ae_decoder_spec(agent.decoder),
+            "actor": sac_actor_spec(agent.actor), "critic": stacked_critic_spec(agent.critic),
+            "target_encoder": sac_ae_encoder_spec(agent.target_encoder),
+            "target_critic": stacked_critic_spec(agent.target_critic), "log_alpha": (agent.log_alpha, "same")}
+
+
 def _to_torch(array: np.ndarray, kind: str, hwc: Tuple[int, int, int] = ()) -> np.ndarray:
     if kind == "dense":
         return array.T
     if kind == "dense_nhwc":
         h, w, c = hwc
         return array.reshape(h, w, c, -1).transpose(2, 0, 1, 3).reshape(c * h * w, -1).T
+    if kind == "dense_to_hwc":
+        h, w, c = hwc
+        return array.reshape(-1, h, w, c).transpose(0, 3, 1, 2).reshape(-1, c * h * w).T
+    if kind == "bias_hwc":
+        h, w, c = hwc
+        return array.reshape(h, w, c).transpose(2, 0, 1).reshape(-1)
     if kind == "conv":
         return array.transpose(3, 2, 0, 1)  # HWIO -> OIHW
     if kind == "conv_transpose":
@@ -336,6 +421,12 @@ def _to_flax(array: np.ndarray, kind: str, hwc: Tuple[int, int, int] = ()) -> np
     if kind == "dense_nhwc":
         h, w, c = hwc
         return array.T.reshape(c, h, w, -1).transpose(1, 2, 0, 3).reshape(h * w * c, -1)
+    if kind == "dense_to_hwc":
+        h, w, c = hwc
+        return array.T.reshape(-1, c, h, w).transpose(0, 2, 3, 1).reshape(-1, h * w * c)
+    if kind == "bias_hwc":
+        h, w, c = hwc
+        return array.reshape(c, h, w).transpose(1, 2, 0).reshape(-1)
     if kind == "conv":
         return array.transpose(2, 3, 1, 0)  # OIHW -> HWIO
     if kind == "conv_transpose":
@@ -347,7 +438,16 @@ def _walk(spec: Mapping[str, Any] | list, tree: Any, path: str,
           unread: Mapping[str, Set[str]]) -> Iterator[Tuple[torch.Tensor, np.ndarray]]:
     """``(tensor, value)`` for every leaf of ``spec``, ``value`` the flax
     array of ``tree`` at the same path in the port's layout; strict.  A list
-    in ``spec`` walks a tuple of trees."""
+    in ``spec`` walks a tuple of trees, a leaf (a bare array such as SAC's
+    ``log_alpha``) one array."""
+    if isinstance(spec, tuple):
+        tensor, kind, *meta = spec
+        value = _to_torch(np.asarray(tree), kind, *meta)
+        if tuple(value.shape) != tuple(tensor.shape):
+            raise ValueError(f"flax param '{path or '/'}' maps to shape {tuple(value.shape)}, the port has "
+                             f"{tuple(tensor.shape)}")
+        yield tensor, np.ascontiguousarray(value)  # a copy: checkpoint arrays may be read-only
+        return
     if isinstance(spec, list):
         if not isinstance(tree, (tuple, list)) or len(tree) != len(spec):
             raise TypeError(f"flax params at '{path or '/'}' must be a sequence of {len(spec)} trees, "
@@ -363,14 +463,7 @@ def _walk(spec: Mapping[str, Any] | list, tree: Any, path: str,
         raise KeyError(f"flax params at '{path or '/'}': unknown keys {sorted(unknown)}, missing keys {sorted(missing)}")
     for key, sub in spec.items():
         where = f"{path}/{key}"
-        if isinstance(sub, (dict, list)):
-            yield from _walk(sub, tree[key], where, unread)
-            continue
-        tensor, kind, *meta = sub
-        value = _to_torch(np.asarray(tree[key]), kind, *meta)
-        if tuple(value.shape) != tuple(tensor.shape):
-            raise ValueError(f"flax param '{where}' maps to shape {tuple(value.shape)}, the port has {tuple(tensor.shape)}")
-        yield tensor, np.ascontiguousarray(value)  # a copy: checkpoint arrays may be read-only
+        yield from _walk(sub, tree[key], where, unread)
 
 
 @torch.no_grad()
@@ -416,10 +509,12 @@ def _optax_node(node: Any, name: str) -> Any:
     return None
 
 
-def _map_spec(spec: Mapping[str, Any] | list, fn) -> Any:
+def _map_spec(spec: Mapping[str, Any] | list | tuple, fn) -> Any:
+    if isinstance(spec, tuple):
+        return fn(*spec)
     if isinstance(spec, list):
         return tuple(_map_spec(sub, fn) for sub in spec)
-    return {key: _map_spec(sub, fn) if isinstance(sub, (dict, list)) else fn(*sub) for key, sub in spec.items()}
+    return {key: _map_spec(sub, fn) for key, sub in spec.items()}
 
 
 def optax_state(optimizer: torch.optim.Optimizer, spec: Mapping[str, Any] | list, clip: bool = True,
@@ -434,8 +529,10 @@ def optax_state(optimizer: torch.optim.Optimizer, spec: Mapping[str, Any] | list
     without momentum).  Without ``clip`` the chain is ``chain(adam)``:
     ``((ScaleByAdamState, EmptyState()),)``; with ``schedule`` (Adam's
     learning rate a schedule) the ``EmptyState()`` after Adam's is a
-    ``ScaleByScheduleState(count)``.  A parameter Adam has not stepped yet
-    holds zeros, as optax's ``init`` does."""
+    ``ScaleByScheduleState(count)``; ``torch.optim.AdamW`` (optax's
+    ``adamw``) has ``add_decayed_weights``' ``EmptyState()`` between the
+    two.  A parameter Adam has not stepped yet holds zeros, as optax's
+    ``init`` does."""
     from sheeprl_tpu_torch.utils.checkpoint import OptaxState
     from sheeprl_tpu_torch.utils.optim import RMSprop
 
@@ -463,7 +560,9 @@ def optax_state(optimizer: torch.optim.Optimizer, spec: Mapping[str, Any] | list
         raise ValueError(f"Adam's parameters disagree on the step count: {sorted(steps)}")
     count = np.asarray(int(steps.pop()) if steps else 0, np.int32)
     after = OptaxState.make("optax._src.transform", "ScaleByScheduleState")(count.copy()) if schedule else empty()
-    base = (adam(count, _map_spec(spec, slot("exp_avg")), _map_spec(spec, slot("exp_avg_sq"))), after)
+    # optax's adamw chains add_decayed_weights between the two
+    decay = (empty(),) if isinstance(optimizer, torch.optim.AdamW) else ()
+    base = (adam(count, _map_spec(spec, slot("exp_avg")), _map_spec(spec, slot("exp_avg_sq"))), *decay, after)
     return (empty(), base) if clip else (base,)
 
 

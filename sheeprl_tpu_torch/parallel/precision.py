@@ -69,15 +69,18 @@ class _Holder(nn.Module):
         return fn()
 
 
-def call_cast(modules: Iterable[nn.Module], dtype: torch.dtype, fn: Callable[[], Any]) -> Any:
+def call_cast(modules: Iterable[nn.Module], dtype: torch.dtype, fn: Callable[[], Any],
+              buffers: bool = True) -> Any:
     """``fn()`` with every floating parameter and buffer of ``modules``
     replaced, for the call, by its cast to ``dtype`` (``cast_floating`` of
     the parameter tree, as each JAX loss applies it).  The cast is part of
     the autograd graph, so a gradient taken of ``fn``'s result over the
     modules' own parameters arrives at them in their dtype.  Where every
-    tensor already has ``dtype``, ``fn`` runs as it is."""
+    tensor already has ``dtype``, ``fn`` runs as it is.  Without
+    ``buffers`` the buffers keep their dtype (a JAX module's constants
+    that are not in its param tree)."""
     holder = _Holder(modules)
-    tensors = {**dict(holder.named_parameters()), **dict(holder.named_buffers())}
+    tensors = {**dict(holder.named_parameters()), **(dict(holder.named_buffers()) if buffers else {})}
     if all(t.dtype == dtype for t in tensors.values() if t.is_floating_point()):
         return fn()
     return torch.func.functional_call(holder, cast_floating(tensors, dtype), (fn,))

@@ -8,10 +8,11 @@ port serves ``dreamer_v3``, a stateful family: its handle exposes
 ``make_state_step(greedy)``, a ``(params, state, obs, is_first, generator,
 noise=None) -> (actions, new_state)`` step whose ``is_first`` reset is the
 same masked blend as ``PlayerDV3``; and ``ppo`` and ``a2c``, served
-statelessly: their handle exposes ``make_step(greedy)``, a ``(params, obs,
-generator, noise=None) -> actions`` step.  The ``sac``/``ppo_recurrent``
-adapters are listed in ROADMAP.md Queue 1 and raise here; as in the JAX
-package, ``dreamer_v3_jepa`` has no adapter.
+statelessly, and ``sac``: their handle exposes ``make_step(greedy)``, a
+``(params, obs, generator, noise=None) -> actions`` step.  The
+``ppo_recurrent`` adapter is listed in ROADMAP.md Queue 1 and raises here;
+as in the JAX package, ``dreamer_v3_jepa``, the P2E pair, ``droq`` and
+``sac_ae`` have no adapter.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from sheeprl_tpu_torch.envs import spaces
 #: agent_state, device))
 SERVABLE_BUILDERS: Dict[str, Callable] = {}
 #: servable in the JAX package, not ported yet (ROADMAP.md Queue 1)
-NOT_PORTED = ("sac", "ppo_recurrent")
+NOT_PORTED = ("ppo_recurrent",)
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)_\d+\.ckpt$")
 
@@ -252,6 +253,49 @@ def _ppo_handle(cfg, obs_space, action_space, agent_state, device) -> PolicyHand
 
 
 SERVABLE_BUILDERS["ppo"] = SERVABLE_BUILDERS["a2c"] = _ppo_handle
+
+
+def _sac_handle(cfg, obs_space, action_space, agent_state, device) -> PolicyHandle:
+    """sac: the tanh-Gaussian actor served statelessly.  Greedy is the
+    squashed mean, stochastic ``sample_and_log_prob`` on a standard-normal
+    draw; the request rows' vector keys concatenate into the flat
+    observation the actor reads (``algos/sac/utils.py::prepare_obs``)."""
+    from sheeprl_tpu_torch.algos.sac.agent import build_agent
+
+    agent, _ = build_agent(cfg, obs_space, action_space, agent_state, device)
+    actor = agent.actor.eval()
+    mlp_keys = list(cfg.algo.mlp_keys.encoder)
+    obs_spec = {k: ((int(prod(obs_space[k].shape)),), "float32") for k in mlp_keys}
+    act_dim = int(prod(action_space.shape))
+
+    def make_step(greedy: bool) -> Callable:
+        @torch.no_grad()
+        def step(p, obs, generator, noise=None):
+            """``noise``: the ``[B, A]`` standard-normal draw of a
+            stochastic step (drawn from ``generator`` when None)."""
+            flat = torch.cat([obs[k] for k in mlp_keys], dim=-1)
+            if greedy:
+                return p.greedy_action(flat)
+            if noise is None:
+                noise = torch.randn((flat.shape[0], act_dim), generator=generator, device=flat.device)
+            return p.sample_and_log_prob(flat, noise)[0]
+
+        return step
+
+    return PolicyHandle(
+        algo="sac",
+        obs_spec=obs_spec,
+        action_shape=tuple(int(d) for d in action_space.shape),
+        params=actor,
+        assemble=_dict_assembler(obs_spec),
+        validate=_row_validator(obs_spec),
+        device=torch.device(device),
+        meta={"is_continuous": True},
+        make_step=make_step,
+    )
+
+
+SERVABLE_BUILDERS["sac"] = _sac_handle
 
 #: checkpoint keys that make up a Dreamer-family agent state
 DREAMER_STATE_KEYS = ("world_model", "actor", "critic", "target_critic")

@@ -195,6 +195,7 @@ class CheckpointCallback:
         self.keep_last = keep_last
 
     def on_checkpoint_coupled(self, runtime, ckpt_path: str, state: Dict[str, Any], replay_buffer: Any = None) -> None:
+        from sheeprl_tpu_torch.data.buffers import ReplayBuffer
         from sheeprl_tpu_torch.data.device_buffer import DeviceSequentialReplayBuffer
 
         saved = []
@@ -207,7 +208,10 @@ class CheckpointCallback:
                         truncated[(rb_state["pos"][e] - 1) % replay_buffer.buffer_size, e] = 1
             state = {**state, "rb": rb_state}
         elif replay_buffer is not None:
-            for b in replay_buffer.buffer:
+            # the last row written is marked truncated in the snapshot, then
+            # restored: a resumed run does not continue that episode
+            subs = [replay_buffer] if isinstance(replay_buffer, ReplayBuffer) else replay_buffer.buffer
+            for b in subs:
                 if "truncated" in b.buffer:
                     last = (b._pos - 1) % b.buffer_size
                     saved.append((b, last, b.buffer["truncated"][last].copy()))

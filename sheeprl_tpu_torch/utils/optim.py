@@ -4,7 +4,9 @@ JAX package instantiates).
 ``configs/optim/adam.yaml`` targets :func:`adam` with optax's keys
 (``learning_rate``, ``b1``, ``b2``, ``eps``), so a JAX run's archived config
 still reads.  Both put ``eps`` outside the square root (optax
-``eps_root = 0``), so ``torch.optim.Adam`` is the same update.
+``eps_root = 0``), so ``torch.optim.Adam`` is the same update.  ``configs/optim/adamw.yaml``
+targets :func:`adamw`, optax's ``adamw`` as ``torch.optim.AdamW``: both
+take ``p - lr * wd * p - lr * adam(p)`` from the old ``p``.
 ``configs/optim/rmsprop.yaml`` targets :func:`rmsprop`, optax's update
 written out (:class:`RMSprop`): optax puts ``eps`` inside the square root
 and follows the scaled update with a momentum trace, where
@@ -17,7 +19,7 @@ always rescales.
 from __future__ import annotations
 
 import functools
-from typing import Callable, Iterable, List, Optional, Sequence
+from typing import Any, Callable, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -29,6 +31,22 @@ def adam(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 
         raise NotImplementedError("adam with eps_root != 0 has no torch.optim.Adam counterpart")
     return functools.partial(torch.optim.Adam, lr=float(learning_rate), betas=(float(b1), float(b2)),
                              eps=float(eps))
+
+
+def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8, eps_root: float = 0.0,
+          mu_dtype: Optional[str] = None, weight_decay: float = 1e-4, mask: Any = None,
+          nesterov: bool = False) -> Callable[[Iterable[torch.nn.Parameter]], torch.optim.AdamW]:
+    """A factory of ``torch.optim.AdamW`` over the parameters it is given,
+    with optax's keys and defaults (``weight_decay`` 1e-4).  The variants
+    optax selects with ``mask``, ``nesterov``, ``mu_dtype`` or ``eps_root``
+    are not ported."""
+    other = {"mask": (mask, None), "nesterov": (nesterov, False), "mu_dtype": (mu_dtype, None),
+             "eps_root": (eps_root, 0.0)}
+    unported = [f"{k}={v}" for k, (v, default) in other.items() if v != default]
+    if unported:
+        raise NotImplementedError(f"adamw with {', '.join(unported)} is not ported yet (see ROADMAP.md Queue 1)")
+    return functools.partial(torch.optim.AdamW, lr=float(learning_rate), betas=(float(b1), float(b2)),
+                             eps=float(eps), weight_decay=float(weight_decay))
 
 
 class RMSprop(torch.optim.Optimizer):

@@ -161,3 +161,43 @@ def test_the_walk_reaches_the_p2e_modules():
     assert new <= names
     for name in sorted(new):
         importlib.import_module(name)
+
+
+@pytest.mark.parametrize("exp", ["sac", "droq", "sac_ae"])
+def test_sac_family_runs_raise_where_no_cuda_device(tmp_path, monkeypatch, exp):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.run([f"exp={exp}", "env=dummy", "env.id=continuous_dummy", "diagnostics=off"])
+    assert not (tmp_path / "logs").exists()
+
+
+def test_the_walk_reaches_the_sac_family_modules():
+    """Every module the import test loads includes the SAC family's."""
+    import importlib
+    import pkgutil
+
+    import sheeprl_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(sheeprl_tpu_torch.__path__, "sheeprl_tpu_torch.")}
+    new = {f"sheeprl_tpu_torch.algos.{algo}.{mod}" for algo, mods in
+           (("sac", ("agent", "loss", "utils", "sac", "evaluate", "step_profile")),
+            ("droq", ("agent", "utils", "droq", "evaluate")),
+            ("sac_ae", ("agent", "utils", "sac_ae", "evaluate"))) for mod in mods}
+    assert new <= names
+    for name in sorted(new):
+        importlib.import_module(name)
+
+
+@pytest.mark.parametrize("algo", ["droq", "sac_ae"])
+def test_serve_refuses_droq_and_sac_ae(algo):
+    """The JAX package serves neither; the port's ``serve`` refuses their
+    checkpoints before it builds anything."""
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.serving.loader import build_policy
+
+    cfg = compose([f"exp={algo}", "env=dummy", "env.id=continuous_dummy"])
+    obs = spaces.Dict({"state": spaces.Box(-1, 1, (3,))})
+    with pytest.raises(ValueError, match=f"'{algo}' has no servable adapter"):
+        build_policy(cfg, obs, spaces.Box(-1, 1, (2,)), None, "cpu")

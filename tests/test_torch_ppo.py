@@ -382,9 +382,60 @@ def test_run_trains_on_a_gymnasium_env(tmp_path):
     assert any("Rewards/rew_avg" in m for m in out["logged"]) and out["test_reward"] >= 1.0
 
 
-def test_run_refuses_bf16_precision(tmp_path):
-    with pytest.raises(NotImplementedError, match="bf16-mixed for PPO"):
-        cli.run(RUN + ["fabric.precision=bf16-mixed", f"root_dir={tmp_path}"])
+# bf16: the losses within a few bf16 steps of the JAX step's (each layer
+# rounds its output to 8 significant bits, in orders the two compilers
+# choose); the parameters within 4 bf16 steps of each tree's scale
+BF16_LOSS_ATOL, BF16_PARAM_STEPS = 2**-6, 4
+
+
+@pytest.mark.parametrize("precision", ["bf16-mixed", "bf16-true"])
+def test_update_matches_the_jax_train_step_in_bf16(precision):
+    """One update phase (2 epochs x 2 minibatches) under ``precision`` from
+    converted params: the agent and the observations cast to bf16 in the
+    loss as the JAX loss casts them, the pixel branch in fp32 on the bf16
+    weights as flax promotes a uint8 frame scaled to fp32 (and under
+    ``bf16-true`` the weights and Adam's state stored in bf16)."""
+    s = _Setup("discrete", [f"fabric.precision={precision}"])
+    true = precision == "bf16-true"
+    dtype = jnp.bfloat16 if true else jnp.float32
+    params = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dtype), s.params)
+    opt = _jax_optimizer(s.jax_cfg, 10)
+    opt_state = opt.init(params)
+    jax_step = jax_make_train_step(s.jax_agent, opt, s.jax_cfg, _Mesh(), 2, 4)
+    agent, optimizer, step = _port_update(s, jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), params),
+                                          None, 10, 2)
+    agent.to(torch.bfloat16 if true else torch.float32)
+    data = _data(8, s, 40)
+    key = jax.random.PRNGKey(41)
+    coefs = (0.2, 0.01, 0.5)
+    out = jax_step(params, opt_state, jax.tree_util.tree_map(jnp.asarray, data), key,
+                   tuple(jnp.float32(c) for c in coefs))
+    perms = [torch.from_numpy(np.array(jax.random.permutation(k, 8))) for k in jax.random.split(key, 2)]
+    torch_data = {k: ({kk: torch.from_numpy(vv) for kk, vv in v.items()} if isinstance(v, dict)
+                      else torch.from_numpy(v)) for k, v in data.items()}
+    metrics = step(torch_data, perms, coefs).numpy()
+    want = np.asarray(out[2])
+    assert np.isfinite(metrics).all() and metrics[4] == want[4] == 0
+    np.testing.assert_allclose(metrics[:3], want[:3], rtol=0, atol=BF16_LOSS_ATOL * max(1.0, np.abs(want[:3]).max()))
+    assert all(p.dtype == (torch.bfloat16 if true else torch.float32) for p in agent.parameters())
+    got = _leaves(ppo_to_flax(agent))
+    for path, value in _leaves(jax.tree_util.tree_map(lambda a: np.asarray(a, np.float32), out[0])).items():
+        scale = max(float(np.abs(value).max()), 1e-3)
+        np.testing.assert_allclose(got[path], value, rtol=0, atol=BF16_PARAM_STEPS * 2**-8 * scale, err_msg=path)
+
+
+@pytest.mark.parametrize("precision", ["bf16-mixed", "bf16-true"])
+def test_run_trains_in_bf16(tmp_path, precision):
+    """``run`` under ``precision`` (on ``state``: the pixel branch's bf16 is
+    held by the update test above): finite losses, checkpoints in fp32 (the
+    JAX package's layout), the test episode played."""
+    out = cli.run(RUN + [f"fabric.precision={precision}", f"root_dir={tmp_path}", "algo.cnn_keys.encoder=[]"])
+    assert out["iterations"] == 2 and np.isfinite(out["metric_rows"]).all()
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    leaves = _leaves(load_state(out["checkpoints"][-1])["agent"])
+    assert all(v.dtype == np.float32 for v in leaves.values())
+    assert out["test_reward"] is not None
 
 
 def test_serve_answers_a_port_checkpoint_over_http_and_refuses_what_it_does_not_run(port_run):
