@@ -177,13 +177,15 @@ TOLERANCE = {"float32": 1e-4, "bfloat16": 8e-3}
 S_SHAPE = (512, 512)  # (H, D): K = H + D = 1024
 XL_SHAPE = (4096, 1024)  # K = 5120
 XS_SHAPE = (256, 256)  # K = 512
+DV2_SHAPE = (600, 400)  # exp=dreamer_v2: recurrent 600, dense 400; K = 1000
 # S: serving widths, then the training path's (B = per_rank_batch_size 16 in
 # the dynamic scan, T*B = 1024 rows in imagination; 64 = K*B rows of the
 # chunked scan and 48 = (K-1)*B of its burn-in at rssm_chunks=4).  XL and
 # XS: DreamerV3-JEPA's two presets (exp=dreamer_v3_jepa, _xs) at the same
 # two training widths; XL also at serving widths
 KERNEL_CASES = [(S_SHAPE, b) for b in (1, 8, 37, 128, 16, 1024, 64, 48)] + \
-    [(XL_SHAPE, b) for b in (8, 128, 16, 1024)] + [(XS_SHAPE, b) for b in (16, 1024)]
+    [(XL_SHAPE, b) for b in (8, 128, 16, 1024)] + [(XS_SHAPE, b) for b in (16, 1024)] + \
+    [(DV2_SHAPE, b) for b in (16, 800)]
 GRAD_CASES = [(S_SHAPE, b, d) for d in ("float32", "bfloat16") for b in (16, 1024)] + \
     [(XL_SHAPE, b, "float32") for b in (16, 1024)]
 # the graph check: the Function's backward is autograd through the plain
@@ -215,7 +217,7 @@ STEP_METRIC_RTOL = 1e-3
 STEP_GRAD_RTOL = 1e-3
 STEP_PARAM_ATOL = 2e-5
 STEP_PARAM_OUTLIERS = 1e-4
-TIMED_STEPS = 5
+TIMED_STEPS = 3
 # the chunked phase: the options the DV3 presets train with, at DreamerV3-S.
 # A resumed run waits learning_starts (64 iterations of 4 envs) before it
 # trains again, as the JAX package's does, and cannot change total_steps; so
@@ -345,6 +347,51 @@ SAC_AE_OVERRIDES = ["exp=sac_ae", "env=dummy", "env.id=continuous_dummy", "env.e
                     "metric.log_every=96", "run_name=chip_smoke_sac_ae", "seed=5"]
 SAC_SERVE_CLIENTS, SAC_SERVE_REQUESTS = 8, 8
 SAC_TIMED_STEPS = 10
+# the DreamerV2 phases: exp=dreamer_v2's widths (64x64 rgb, CNN multiplier
+# 48, dense 400 x 4 layers, recurrent 600, stochastic 32 x 32, hidden 600;
+# batch 16 x 50, horizon 15, fp32) on the dummy env, 4 envs, cut in depth
+# as JEPA's run: learning from policy step 256, checkpoints (with the
+# replay) at iterations 66 and 132, the run to 148; at replay ratio 0.05
+# about 16 gradient steps, and the run resumed from the first checkpoint
+# trains again from iteration 131.  The episode-buffer run samples whole
+# episodes of the multi-discrete dummy (128 steps, longer than the
+# sequences of 50): it learns once every env has closed one (iteration
+# 136).  The bf16-mixed run learns from iteration 64 of 76
+DV2_OVERRIDES = ["exp=dreamer_v2", "env=dummy", "env.capture_video=False", "run_name=chip_smoke_dv2",
+                 "algo.learning_starts=256", "algo.total_steps=592", "algo.replay_ratio=0.05", "buffer.size=1024",
+                 "buffer.checkpoint=True", "checkpoint.every=264", "checkpoint.save_last=False", "metric.logger=null",
+                 "metric.log_every=16", "seed=5"]
+DV2_EPISODE_OVERRIDES = ["exp=dreamer_v2", "env=dummy", "env.id=multidiscrete_dummy", "env.capture_video=False",
+                         "run_name=chip_smoke_dv2_episode", "buffer.type=episode", "buffer.prioritize_ends=True",
+                         "algo.learning_starts=540", "algo.total_steps=600", "algo.replay_ratio=0.1",
+                         "buffer.size=4096", "checkpoint.every=100000", "checkpoint.save_last=True",
+                         "metric.logger=null", "metric.log_every=64", "algo.run_test=False", "seed=5"]
+DV2_BF16_OVERRIDES = ["exp=dreamer_v2", "env=dummy", "env.capture_video=False", "run_name=chip_smoke_dv2_bf16",
+                      "fabric.precision=bf16-mixed", "algo.learning_starts=256", "algo.total_steps=304",
+                      "algo.replay_ratio=0.1", "buffer.size=1024", "checkpoint.every=100000",
+                      "checkpoint.save_last=False", "metric.logger=null", "metric.log_every=16", "algo.run_test=False",
+                      "seed=5"]
+DV2_MIN_GRADIENT_STEPS = 4
+# the DreamerV1 phase: exp=dreamer_v1's widths (64x64 rgb, CNN multiplier
+# 32, dense 400, recurrent 200, stochastic 30, hidden 200; batch 50 x 50,
+# horizon 15, fp32), cut in depth as DreamerV2's run
+DV1_OVERRIDES = ["exp=dreamer_v1", "env=dummy", "env.capture_video=False", "run_name=chip_smoke_dv1",
+                 "algo.learning_starts=256", "algo.total_steps=592", "algo.replay_ratio=0.03", "buffer.size=1024",
+                 "buffer.checkpoint=True", "checkpoint.every=264", "checkpoint.save_last=False", "metric.logger=null",
+                 "metric.log_every=16", "seed=5"]
+DV1_MIN_GRADIENT_STEPS = 4
+DREAMER_TIMED_STEPS = 3
+# the recurrent PPO phase: exp=ppo_recurrent's widths (16 envs x 512 rollout
+# steps, sequences of 16 in 8 minibatches, 8 epochs, LSTM 64, encoder 64,
+# adamw with clip 0.5) on the dummy env's `state` (CartPole needs
+# gymnasium), two iterations, a checkpoint after each; the discrete dummy's
+# episodes end at their 5th step, so every sequence holds resets
+PPO_REC_OVERRIDES = ["exp=ppo_recurrent", "env=dummy", "env.id=discrete_dummy", "env.capture_video=False",
+                     "algo.cnn_keys.encoder=[]", "algo.mlp_keys.encoder=[state]", "algo.total_steps=16384",
+                     "checkpoint.every=8192", "metric.log_every=8192", "metric.logger=null",
+                     "run_name=chip_smoke_ppo_recurrent", "seed=5"]
+PPO_REC_SESSIONS, PPO_REC_ROUNDS = 2, 6
+PPO_REC_TIMED_UPDATES = 5
 # card vs CPU, two gradient steps from a trained checkpoint in fp32 (TF32
 # off): SAC to 1e-4 relative; SAC-AE's four convolutions hold some 10^7
 # ReLU units at batch 128, and a unit at its kink is on in one library and
@@ -1680,7 +1727,7 @@ def run_jepa_resume(jepa: dict) -> dict:
         return moments
 
     # no checkpoint at its end: nothing reads it, and an XL one takes seconds
-    overrides = jepa["overrides"] + [f"checkpoint.resume_from={jepa['mid_checkpoint']}"]
+    overrides = jepa["overrides"] + [f"checkpoint.resume_from={jepa['mid_checkpoint']}", "checkpoint.every=100000"]
     cfg = compose(overrides)
     with mock.patch.object(dv3, "load_learner_state", spy_learner):
         fused_layernorm_gru.launches = 0  # the main path starts here
@@ -1927,7 +1974,8 @@ def run_p2e_resume(p2e: dict) -> dict:
         restored["optimizers"] = sorted(optimizers)
         return moments
 
-    overrides = p2e["overrides"] + [f"checkpoint.resume_from={p2e['mid_checkpoint']}"]
+    # no checkpoint at its end: nothing reads it, and an XL one takes seconds
+    overrides = p2e["overrides"] + [f"checkpoint.resume_from={p2e['mid_checkpoint']}", "checkpoint.every=100000"]
     cfg = compose(overrides)
     with mock.patch.object(dv3, "load_learner_state", spy_learner):
         fused_layernorm_gru.launches = 0  # the main path starts here
@@ -2510,6 +2558,475 @@ def run_timers(device_name: str = "cuda") -> dict:
     return out
 
 
+def _dv2_widths(cfg, precision: str = "32-true") -> None:
+    wm_cfg = cfg.algo.world_model
+    widths = (wm_cfg.recurrent_model.recurrent_state_size, cfg.algo.dense_units, cfg.algo.mlp_layers,
+              wm_cfg.encoder.cnn_channels_multiplier, wm_cfg.stochastic_size, wm_cfg.discrete_size,
+              wm_cfg.representation_model.hidden_size, wm_cfg.transition_model.hidden_size,
+              wm_cfg.recurrent_model.layer_norm, cfg.algo.per_rank_batch_size, cfg.algo.per_rank_sequence_length,
+              cfg.algo.horizon, cfg.fabric.precision, cfg.env.screen_size, list(cfg.algo.cnn_keys.encoder))
+    if widths != (600, 400, 4, 48, 32, 32, 600, 600, True, 16, 50, 15, precision, 64, ["rgb"]):
+        raise AssertionError(f"the DreamerV2 config is not exp=dreamer_v2's widths ({precision}): {widths}")
+
+
+def _dv1_widths(cfg) -> None:
+    wm_cfg = cfg.algo.world_model
+    widths = (wm_cfg.recurrent_model.recurrent_state_size, cfg.algo.dense_units, wm_cfg.encoder.cnn_channels_multiplier,
+              wm_cfg.stochastic_size, wm_cfg.representation_model.hidden_size, cfg.algo.per_rank_batch_size,
+              cfg.algo.per_rank_sequence_length, cfg.algo.horizon, cfg.fabric.precision, cfg.env.screen_size)
+    if widths != (200, 400, 32, 30, 200, 50, 50, 15, "32-true", 64):
+        raise AssertionError(f"the DreamerV1 config is not exp=dreamer_v1's widths: {widths}")
+
+
+def _dreamer_run(overrides, where: str, min_steps: int, device: str) -> tuple:
+    """One ``run`` of the Dreamer family on the card, its kernel launches
+    counted from just before to just after: every metric finite, the
+    launches as the run's counters predict."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+
+    cfg = compose(overrides)
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    out = cli.run(overrides)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    launches = fused_layernorm_gru.launches  # the main path ends here
+    rows = out["metric_rows"]
+    if out["gradient_steps"] < min_steps or rows.shape[1] != 11 or not np.isfinite(rows).all():
+        raise AssertionError(f"{where}: {out['gradient_steps']} gradient steps, metric rows {rows}")
+    return cfg, out, launches
+
+
+def _dv1_noise(cfg, actions_dim, gen, device: str = "cuda"):
+    """Every draw of one DreamerV1 gradient step, pre-drawn on the card: the
+    Gaussian latents' standard normals, the discrete heads' Gumbel noise."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import gumbel_like
+
+    T, B, H, S = (cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, cfg.algo.horizon,
+                  cfg.algo.world_model.stochastic_size)
+
+    def normal(*shape):
+        return torch.randn(shape, device=device, generator=gen)
+
+    return {"dynamic": (normal(T, B, S), normal(T, B, S)), "imagination": normal(H, T * B, S),
+            "actor": [[gumbel_like(torch.empty(T * B, d, device=device), gen) for d in actions_dim]
+                      for _ in range(H)]}
+
+
+def run_dv2(build_dir: Path, device_name: str = "cuda") -> dict:
+    """DreamerV2 trains on the card through ``run`` at ``exp=dreamer_v2``'s
+    widths (``DV2_OVERRIDES``) under the default diagnostics: every metric
+    finite, the world model, actor and critic changed, the kernel's
+    launches as the run's counters predict (50 calls of 16 rows and 15 of
+    800 a gradient step), both checkpoints verified; then one gradient step
+    from the last through the kernel and through the plain path, which must
+    agree; then a run through the episode buffer and one in bf16-mixed."""
+    device = device_name
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import synthetic_batch
+    from sheeprl_tpu_torch.envs.env import make_env
+    from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
+    from sheeprl_tpu_torch.serving.loader import _actions_dim, agent_state_from_checkpoint
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    overrides = DV2_OVERRIDES + [f"root_dir={(build_dir / 'dv2').resolve()}", f"fabric.accelerator={device}"]
+    cfg, out, launches = _dreamer_run(overrides, "dv2", DV2_MIN_GRADIENT_STEPS, device)
+    _dv2_widths(cfg)
+    predicted, per_step = _launches(cfg, out)
+    if launches != predicted:
+        raise AssertionError(f"dv2: ln_gru launched {launches} times; the run predicts {predicted} "
+                             f"({out['gradient_steps']} gradient steps x {per_step} + {out['player_steps']} player "
+                             f"steps + {out['test_steps']} test steps)")
+    sps = _timer_metrics(out["logged"], "dv2")
+    journal = _journal_of(out["log_dir"])
+    _check_diagnostics_journal(journal, "dv2", health=False)
+    mid, ckpt = out["checkpoints"][0], out["checkpoints"][-1]
+    for path in (mid, ckpt):
+        if verify_checkpoint(path) != (True, "verified"):
+            raise AssertionError(f"dv2: checkpoint {path} does not verify by its manifest: {verify_checkpoint(path)}")
+    state = load_state(ckpt)
+    env = make_env(cfg, cfg.seed, 0)()
+    actions_dim, is_continuous, _ = _actions_dim(env.action_space)
+    spaces_ = (actions_dim, is_continuous, env.observation_space)
+    env.close()
+    initial = build_agent(actions_dim, is_continuous, cfg, spaces_[2], None, "cpu").trees()
+    changed = {}
+    for tree in ("world_model", "actor", "critic"):
+        before, after = dict(_leaves(initial[tree])), dict(_leaves(state[tree]))
+        changed[tree] = sum(not np.array_equal(before[p], after[p]) for p in before)
+        if changed[tree] == 0:
+            raise AssertionError(f"dv2: training left every parameter of {tree} unchanged")
+
+    gen = torch.Generator(device=device).manual_seed(17)
+    batch = synthetic_batch(cfg, actions_dim, gen, device)
+    noise = _train_noise(cfg, actions_dim, gen, device)
+    (m_kernel, g_kernel, p_kernel, _), (m_plain, g_plain, p_plain, _) = _kernel_vs_plain_step(
+        cfg, agent_state_from_checkpoint(state), spaces_, batch, noise, device)
+    metric_err = float(np.max(np.abs(m_kernel - m_plain) / np.maximum(np.abs(m_plain), 1e-3)))
+    grad_err = max(((g_kernel[k] - g_plain[k]).abs().max() / g_plain[k].abs().max()).item() for k in g_plain)
+    diff = (p_kernel - p_plain).abs()
+    param_err, outliers = diff.max().item(), (diff > STEP_PARAM_ATOL).float().mean().item()
+    if (not np.isfinite(m_kernel).all() or metric_err > STEP_METRIC_RTOL or grad_err > STEP_GRAD_RTOL
+            or outliers > STEP_PARAM_OUTLIERS):
+        raise AssertionError(
+            f"dv2 kernel vs plain gradient step: metrics relative error {metric_err} (tol {STEP_METRIC_RTOL}), "
+            f"gradients relative error {grad_err} (tol {STEP_GRAD_RTOL}), share of params off by more than "
+            f"{STEP_PARAM_ATOL}: {outliers} (tol {STEP_PARAM_OUTLIERS}); kernel {m_kernel}, plain {m_plain}")
+
+    runs = {}
+    for name, extra in (("episode", DV2_EPISODE_OVERRIDES), ("bf16", DV2_BF16_OVERRIDES)):
+        run_overrides = extra + [f"root_dir={(build_dir / f'dv2_{name}').resolve()}", f"fabric.accelerator={device}"]
+        run_cfg, run, run_launches = _dreamer_run(run_overrides, f"dv2 {name}", 1, device)
+        if name == "bf16":
+            _dv2_widths(run_cfg, "bf16-mixed")
+        run_predicted, run_per_step = _launches(run_cfg, run)
+        if run_launches != run_predicted:
+            raise AssertionError(f"dv2 {name}: ln_gru launched {run_launches} times, predicted {run_predicted}")
+        runs[name] = {"gradient_steps": run["gradient_steps"], "player_steps": run["player_steps"],
+                      "ln_gru_launches": run_launches, "launches_per_gradient_step": run_per_step,
+                      "final_metrics": run["metric_rows"][-1].tolist()}
+        shutil.rmtree(build_dir / f"dv2_{name}", ignore_errors=True)
+    return {
+        "gradient_steps": out["gradient_steps"], "player_steps": out["player_steps"], "test_steps": out["test_steps"],
+        "policy_steps": out["policy_steps"], "ln_gru_launches": launches, "launches_per_gradient_step": per_step,
+        "changed_leaves": changed, "final_metrics": dict(zip(out["metric_order"], out["metric_rows"][-1].tolist())),
+        "step_metric_rel_err": metric_err, "step_grad_rel_err": grad_err, "step_param_max_abs_err": param_err,
+        "step_param_outliers": outliers, "checkpoint": ckpt, "mid_checkpoint": mid, "overrides": overrides,
+        "journal": journal, "sps": sps, "runs": runs,
+    }
+
+
+def run_dreamer_resume(run: dict, where: str, device_name: str = "cuda", kernel: bool = True) -> dict:
+    """``run checkpoint.resume_from=<the run's mid-run checkpoint>``: the
+    trees and optimizer states restored as saved, and the run trains on,
+    the kernel's launches as predicted (none without ``kernel``: DreamerV1's
+    plain GRU)."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.interop.flax_params import optax_state
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    saved = load_state(run["mid_checkpoint"])
+    restored = {}
+    load_learner_state = dv3.load_learner_state
+
+    def spy_learner(state, agent, optimizers, device):
+        moments = load_learner_state(state, agent, optimizers, device)
+        restored["trees"] = {k: {p: np.array(v) for p, v in _leaves(t)} for k, t in agent.trees().items()}
+        restored["adam"] = {n: _optax_leaves(optax_state(o, agent.optimizer_spec(n))) for n, o in optimizers.items()}
+        return moments
+
+    overrides = run["overrides"] + [f"checkpoint.resume_from={run['mid_checkpoint']}", "checkpoint.every=100000"]
+    cfg = compose(overrides)
+    with mock.patch.object(dv3, "load_learner_state", spy_learner):
+        fused_layernorm_gru.launches = 0  # the main path starts here
+        out = cli.run(overrides)
+        if device_name != "cpu":
+            torch.cuda.synchronize()
+        launches = fused_layernorm_gru.launches  # the main path ends here
+    problems = [f"{tree}{p}" for tree, leaves in restored["trees"].items() for p, v in leaves.items()
+                if not np.array_equal(v, dict(_leaves(saved[tree]))[p])]
+    for name, entry in saved["opt_states"].items():
+        for path, value in _optax_leaves(entry).items():
+            if not np.array_equal(restored["adam"][name].get(path), value):
+                problems.append(f"Adam {name} {path}")
+    predicted = _launches(cfg, out)[0] if kernel else 0
+    if (out["start_iter"] != saved["iter_num"] + 1 or out["gradient_steps"] < 1 or launches != predicted
+            or not np.isfinite(out["metric_rows"]).all()):
+        problems.append(f"start_iter {out['start_iter']}, {out['gradient_steps']} gradient steps, {launches} "
+                        f"launches (predicted {predicted}), metrics {out['metric_rows']}")
+    if problems:
+        raise AssertionError(f"{where} resume from {run['mid_checkpoint']}: " + "; ".join(problems[:10]))
+    return {"start_iter": out["start_iter"], "gradient_steps": out["gradient_steps"],
+            "player_steps": out["player_steps"], "test_steps": out["test_steps"], "ln_gru_launches": launches,
+            "gradient_steps_saved": saved.get("gradient_steps")}
+
+
+def run_dreamer_eval(run: dict, where: str, device_name: str = "cuda") -> dict:
+    """``eval`` of the run's last checkpoint, then ``serve``, which refuses
+    it as the JAX package does (no adapter for DreamerV1 or V2)."""
+    import math
+
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.serving.server import ServeApp
+
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    reward = cli.evaluation([f"checkpoint_path={run['checkpoint']}", f"fabric.accelerator={device_name}"])
+    if device_name != "cpu":
+        torch.cuda.synchronize()
+    launches = fused_layernorm_gru.launches  # the main path ends here
+    if not math.isfinite(reward):
+        raise AssertionError(f"{where} eval: test reward {reward}")
+    cfg, ckpt_path, device = cli.serve_config([f"checkpoint_path={run['checkpoint']}", "serving.port=0",
+                                               f"fabric.accelerator={device_name}"])
+    try:
+        app = ServeApp(cfg, ckpt_path, device)
+    except ValueError as err:
+        refusal = str(err)
+    else:
+        app.close()
+        raise AssertionError(f"serve accepted a {where} checkpoint; the JAX package has no adapter for it")
+    if "no servable adapter" not in refusal:
+        raise AssertionError(f"serve refused the {where} checkpoint for another reason: {refusal}")
+    return {"test_reward": reward, "ln_gru_launches": launches, "serve_refusal": refusal}
+
+
+def run_dv1(build_dir: Path, device_name: str = "cuda") -> dict:
+    """DreamerV1 trains on the card through ``run`` at ``exp=dreamer_v1``'s
+    widths (``DV1_OVERRIDES``): every metric finite, the three trees
+    changed, no kernel launch (its GRU has no LayerNorm), both checkpoints
+    verified."""
+    device = device_name
+    import numpy as np
+
+    from sheeprl_tpu_torch.algos.dreamer_v1.agent import build_agent
+    from sheeprl_tpu_torch.envs.env import make_env
+    from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
+    from sheeprl_tpu_torch.serving.loader import _actions_dim
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    overrides = DV1_OVERRIDES + [f"root_dir={(build_dir / 'dv1').resolve()}", f"fabric.accelerator={device}"]
+    cfg, out, launches = _dreamer_run(overrides, "dv1", DV1_MIN_GRADIENT_STEPS, device)
+    _dv1_widths(cfg)
+    if launches != 0:
+        raise AssertionError(f"dv1: ln_gru launched {launches} times; DreamerV1's GRU has no LayerNorm")
+    sps = _timer_metrics(out["logged"], "dv1")
+    journal = _journal_of(out["log_dir"])
+    _check_diagnostics_journal(journal, "dv1", health=False)
+    mid, ckpt = out["checkpoints"][0], out["checkpoints"][-1]
+    for path in (mid, ckpt):
+        if verify_checkpoint(path) != (True, "verified"):
+            raise AssertionError(f"dv1: checkpoint {path} does not verify by its manifest: {verify_checkpoint(path)}")
+    state = load_state(ckpt)
+    env = make_env(cfg, cfg.seed, 0)()
+    actions_dim, is_continuous, _ = _actions_dim(env.action_space)
+    obs_space = env.observation_space
+    env.close()
+    initial = build_agent(actions_dim, is_continuous, cfg, obs_space, None, "cpu").trees()
+    changed = {}
+    for tree in ("world_model", "actor", "critic"):
+        before, after = dict(_leaves(initial[tree])), dict(_leaves(state[tree]))
+        changed[tree] = sum(not np.array_equal(before[p], after[p]) for p in before)
+        if changed[tree] == 0:
+            raise AssertionError(f"dv1: training left every parameter of {tree} unchanged")
+    return {
+        "gradient_steps": out["gradient_steps"], "player_steps": out["player_steps"], "test_steps": out["test_steps"],
+        "policy_steps": out["policy_steps"], "ln_gru_launches": launches, "changed_leaves": changed,
+        "final_metrics": dict(zip(out["metric_order"], out["metric_rows"][-1].tolist())), "checkpoint": ckpt,
+        "mid_checkpoint": mid, "overrides": overrides, "journal": journal, "sps": sps,
+    }
+
+
+def run_dreamer_timers(device_name: str = "cuda") -> dict:
+    """The DreamerV2 gradient step in fp32 and in bf16-mixed and the
+    DreamerV1 step, each built as the default diagnostics run it (their JAX
+    steps compute no health stats; telemetry counts the FLOPs at the first
+    call): stream time, device-busy time, idle share, launches, the
+    kernel's share, FLOPs and the step's MFU against the card's peak for
+    its precision."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import profiled_step, time_gradient_steps
+    from sheeprl_tpu_torch.diagnostics.telemetry import resolve_peak_flops
+
+    out = {}
+    for name, overrides in (("dv2_fp32", ["exp=dreamer_v2"]),
+                            ("dv2_bf16", ["exp=dreamer_v2", "fabric.precision=bf16-mixed"]),
+                            ("dv1_fp32", ["exp=dreamer_v1"])):
+        torch.cuda.reset_peak_memory_stats()
+        step, moments, batch, gen = profiled_step(overrides, device_name, True)
+        timing = time_gradient_steps(step, moments, batch, gen, DREAMER_TIMED_STEPS, warmup=2, profile=True)
+        gru = [v for k, v in timing["kernels"].items() if "ln_gru" in k]
+        peak = resolve_peak_flops(torch.cuda.get_device_name(0), "bf16-mixed" if "bf16" in name else "32-true")
+        out[name] = {"step_ms": timing["step_ms"], "stream_ms": timing["stream_ms"], "busy_ms": timing["busy_ms"],
+                     "idle_share": timing["idle_share"], "launches": timing["launches"],
+                     "ln_gru_launches": sum(v[0] for v in gru) // DREAMER_TIMED_STEPS,
+                     "ln_gru_ms": sum(v[1] for v in gru) / 1e3 / DREAMER_TIMED_STEPS,
+                     "flops_per_step": step.flops_per_call,
+                     "step_mfu": step.flops_per_call / (timing["step_ms"] / 1e3) / peak if peak else None,
+                     "max_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+                     "top": sorted(((v[1] / DREAMER_TIMED_STEPS / 1e3, k[:60]) for k, v in timing["kernels"].items()),
+                                   reverse=True)[:4]}
+        del step, moments, batch
+    return out
+
+
+def _ppo_rec_widths(cfg) -> None:
+    algo = cfg.algo
+    widths = (cfg.env.num_envs, algo.rollout_steps, algo.per_rank_sequence_length, algo.per_rank_num_batches,
+              algo.update_epochs, algo.rnn.lstm.hidden_size, algo.encoder.dense_units, algo.max_grad_norm,
+              str(algo.optimizer["_target_"]), cfg.fabric.precision)
+    if widths != (16, 512, 16, 8, 8, 64, 64, 0.5, "optax.adamw", "32-true"):
+        raise AssertionError(f"the recurrent PPO config is not exp=ppo_recurrent's widths: {widths}")
+
+
+def run_ppo_recurrent(build_dir: Path, device_name: str = "cuda") -> dict:
+    """Recurrent PPO on the card through ``run`` at ``exp=ppo_recurrent``'s
+    widths (``PPO_REC_OVERRIDES``): finite losses and ``Time/sps_*``, no
+    kernel launch; a resume from its first checkpoint with adamw's state
+    restored; ``eval``; ``serve`` over HTTP for two sessions with a reset
+    each, every greedy action equal to the player's from the same state;
+    a ``bf16-mixed`` iteration."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.ppo_recurrent.agent import prev_actions_of
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.parallel.precision import call_cast
+    from sheeprl_tpu_torch.serving.server import ServeApp
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    overrides = PPO_REC_OVERRIDES + [f"root_dir={(build_dir / 'ppo_rec').resolve()}", f"fabric.accelerator={device_name}"]
+    cfg = compose(overrides)
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    out = cli.run(overrides)
+    launches = fused_layernorm_gru.launches  # the main path ends here
+    _ppo_rec_widths(cfg)
+    rows = out["metric_rows"]
+    if out["iterations"] != 2 or rows.shape != (2, 3) or not np.isfinite(rows).all() or len(out["checkpoints"]) != 2 \
+            or launches != 0:
+        raise AssertionError(f"ppo_recurrent: {out['iterations']} iterations, metric rows {rows}, checkpoints "
+                             f"{out['checkpoints']}, {launches} ln_gru launches")
+    sps = _timer_metrics(out["logged"], "ppo_recurrent")
+    first = out["checkpoints"][0]
+    saved = load_state(first)
+    resumed = cli.run(overrides + [f"checkpoint.resume_from={first}", "algo.run_test=False",
+                                   "root_dir=" + str((build_dir / "ppo_rec_resumed").resolve())])
+    if resumed["start_iter"] != saved["iter_num"] + 1 or resumed["iterations"] != 1 or \
+            not np.isfinite(resumed["metric_rows"]).all():
+        raise AssertionError(f"ppo_recurrent resume from {first}: start_iter {resumed['start_iter']}, "
+                             f"{resumed['iterations']} iterations")
+    reward = cli.evaluation([f"checkpoint_path={out['checkpoints'][-1]}", f"fabric.accelerator={device_name}"])
+    if not math.isfinite(reward):
+        raise AssertionError(f"ppo_recurrent eval: test reward {reward}")
+
+    serve_cfg, ckpt_path, device = cli.serve_config(
+        [f"checkpoint_path={out['checkpoints'][-1]}", "serving.port=0", "serving.batch_buckets=[2,4]",
+         "serving.max_delay_ms=2.0", f"fabric.accelerator={device_name}"])
+    app = ServeApp(serve_cfg, ckpt_path, device)
+    mismatches, replies = [], 0
+    try:
+        host, port = app.start()
+        url = f"http://{host}:{port}"
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
+            health = json.loads(resp.read())
+        if health.get("algo") != "ppo_recurrent" or health["models"]["default"]["stateful"] is not True:
+            raise AssertionError(f"ppo_recurrent /healthz: {health}")
+        agent, hidden = app.handle.params, int(serve_cfg.algo.rnn.lstm.hidden_size)
+        carry = {s: None for s in range(PPO_REC_SESSIONS)}
+        rng = np.random.default_rng(41)
+        for rnd in range(PPO_REC_ROUNDS):
+            for s in range(PPO_REC_SESSIONS):  # the sessions interleave
+                reset = rnd == 0 or rnd == 3 + s  # a new episode in each session mid-way
+                obs = rng.normal(size=10).astype(np.float32)
+                status, reply = _post(url, {"obs": {"state": obs.tolist()}, "greedy": True, "session": f"s{s}",
+                                            "reset": reset})
+                if status != 200:
+                    raise AssertionError(f"ppo_recurrent serve: {status} {reply}")
+                replies += 1
+                if reset or carry[s] is None:
+                    carry[s] = (torch.zeros(1, hidden, device=device), torch.zeros(1, hidden, device=device),
+                                torch.zeros(1, sum(app.handle.meta["actions_dim"]), device=device))
+                hx, cx, prev = carry[s]
+                with torch.no_grad():
+                    acts, _, _, _, (hx, cx) = call_cast((agent,), torch.float32, lambda: agent(
+                        {"state": torch.from_numpy(obs).to(device)[None, None]}, prev[None], hx, cx, greedy=True))
+                carry[s] = (hx, cx, prev_actions_of(acts[0], app.handle.meta["actions_dim"], False))
+                if reply["action"] != acts[0, 0].cpu().tolist():
+                    mismatches.append((rnd, s, reply["action"], acts[0, 0].cpu().tolist()))
+        stats = app.service.batcher.stats()
+    finally:
+        app.close()
+    if mismatches:
+        raise AssertionError(f"ppo_recurrent serve: served actions differ from the player's: {mismatches}")
+
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    one_rollout = int(cfg.env.num_envs) * int(cfg.algo.rollout_steps)
+    mixed = cli.run(overrides + ["fabric.precision=bf16-mixed", f"algo.total_steps={one_rollout}", "algo.run_test=False",
+                                 "root_dir=" + str((build_dir / "ppo_rec_bf16").resolve())])
+    mixed_launches = fused_layernorm_gru.launches  # the main path ends here
+    if mixed["iterations"] != 1 or not np.isfinite(mixed["metric_rows"]).all():
+        raise AssertionError(f"ppo_recurrent bf16-mixed: metric rows {mixed['metric_rows']}")
+    for path in ("ppo_rec_resumed", "ppo_rec_bf16"):
+        shutil.rmtree(build_dir / path, ignore_errors=True)
+    return {"iterations": out["iterations"], "final_losses": rows[-1].tolist(), "sps": sps,
+            "test_reward": out["test_reward"], "resume_start_iter": resumed["start_iter"], "eval_reward": reward,
+            "served": replies, "dispatches": stats["dispatches_total"], "ln_gru_launches": launches,
+            "bf16_final": mixed["metric_rows"][-1].tolist(), "bf16_launches": mixed_launches,
+            "checkpoints": out["checkpoints"]}
+
+
+def run_ppo_recurrent_timer(device_name: str = "cuda") -> dict:
+    """One recurrent PPO minibatch update at ``exp=ppo_recurrent``'s widths
+    (64 sequences of 16 steps, the LSTM of 64 run step by step): stream
+    time, device-busy time, launches, idle share and FLOPs."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import time_gradient_steps
+    from sheeprl_tpu_torch.algos.ppo_recurrent.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent import make_train_step, sequence_layout
+    from sheeprl_tpu_torch.config import compose, instantiate
+    from sheeprl_tpu_torch.diagnostics.telemetry import count_flops
+    from sheeprl_tpu_torch.envs.env import make_env
+    from sheeprl_tpu_torch.serving.loader import _actions_dim
+
+    cfg = compose(PPO_REC_OVERRIDES + [f"fabric.accelerator={device_name}"])
+    _, seq_batch, _ = sequence_layout(cfg)
+    cfg.algo.update_epochs = 1  # one minibatch update a call
+    env = make_env(cfg, cfg.seed, 0)()
+    actions_dim, is_continuous, _ = _actions_dim(env.action_space)
+    agent = build_agent(actions_dim, is_continuous, cfg, env.observation_space, None, device_name)
+    env.close()
+    update = make_train_step(agent, instantiate(cfg.algo.optimizer)(agent.parameters()), cfg, 1, seq_batch)
+    L, gen = int(cfg.algo.per_rank_sequence_length), torch.Generator(device=device_name).manual_seed(5)
+    hidden = int(cfg.algo.rnn.lstm.hidden_size)
+
+    def randn(*shape):
+        return torch.randn(shape, device=device_name, generator=gen)
+
+    data = {"obs": {"state": randn(L, seq_batch, 10)},
+            "prev_actions": torch.nn.functional.one_hot(torch.randint(0, 2, (L, seq_batch), device=device_name,
+                                                                      generator=gen), 2).float(),
+            "actions": torch.randint(0, 2, (L, seq_batch, 1), device=device_name, generator=gen).float(),
+            "logprobs": randn(L, seq_batch, 1) - 0.7, "values": randn(L, seq_batch, 1),
+            "returns": randn(L, seq_batch, 1), "advantages": randn(L, seq_batch, 1),
+            "resets": (torch.rand((L, seq_batch, 1), device=device_name, generator=gen) < 0.2).float(),
+            "hx0": randn(seq_batch, hidden), "cx0": randn(seq_batch, hidden)}
+    perms = [torch.arange(seq_batch, device=device_name)]
+
+    def step(moments, batch, tau, generator):
+        return moments, update(batch, perms, (0.2, 0.001, 0.2))
+
+    flops = count_flops(lambda: step(None, data, 0.0, None))[1]
+    timing = time_gradient_steps(step, None, data, None, PPO_REC_TIMED_UPDATES, warmup=3, profile=True)
+    return {"step_ms": timing["step_ms"], "busy_ms": timing["busy_ms"], "idle_share": timing["idle_share"],
+            "launches": timing["launches"], "flops": flops, "seq_batch": seq_batch,
+            "params": sum(p.numel() for p in agent.parameters()),
+            "top": sorted(((v[1] / PPO_REC_TIMED_UPDATES / 1e3, k[:60]) for k, v in timing["kernels"].items()),
+                          reverse=True)[:3]}
+
+
 def count_cpu_flops() -> float:
     """The FLOPs ``FlopCounterMode`` counts for one fp32 DreamerV3-S
     gradient step on the CPU (the same config and batch shapes as the
@@ -2560,6 +3077,12 @@ def main() -> int:
     print(f"[card] {kind}; nvidia-smi name,power.limit:", flush=True)
     print(card, flush=True)
 
+    # the wall time of each group of phases, printed before the kernels line
+    stamps = [("start", time.monotonic())]
+
+    def mark(done: str) -> None:
+        stamps.append((done, time.monotonic()))
+
     t0 = time.monotonic()
     report = cuda_build.build()
     print(f"[build] {len(report)} kernel(s) in {time.monotonic() - t0:.1f} s", flush=True)
@@ -2568,6 +3091,7 @@ def main() -> int:
         for line in _ptxas_summary(str(rep["ptxas"])):
             print(f"[build] {name} ptxas {line}", flush=True)
 
+    mark("build")
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in true fp32
     torch.backends.cudnn.allow_tf32 = False
     cases = []
@@ -2595,6 +3119,7 @@ def main() -> int:
               f"version (the backward's own recompute) to {err:.3g} relative (tol {GRAD_TOLERANCE[dtype_name]:g}), "
               f"and their fp32 masters a finite fp32 gradient through the cast", flush=True)
 
+    mark('kernel cases')
     slice_report = run_slice(build_dir)
     print(
         f"[slice] DreamerV3-S serve: {slice_report['requests']} /act from {slice_report['sessions']} sessions, "
@@ -2606,6 +3131,7 @@ def main() -> int:
         flush=True,
     )
 
+    mark('serve')
     train = run_train(build_dir)
     s_cases = {(c["B"], c["dtype"]): c for c in cases if c["H"] == 512}
     print(
@@ -2628,6 +3154,7 @@ def main() -> int:
         flush=True,
     )
 
+    mark('train')
     chunked = run_chunked(build_dir)
     print(
         f"[chunked] DreamerV3-S run ({' '.join(CHUNKED_OPTIONS)}): {chunked['gradient_steps']} gradient steps, "
@@ -2653,6 +3180,7 @@ def main() -> int:
     print(f"[eval] eval checkpoint_path={chunked['checkpoint']}: Test/cumulative_reward {evaluated['test_reward']}, "
           f"{evaluated['ln_gru_launches']} ln_gru launches  [{card}]", flush=True)
 
+    mark('chunked, resume, eval')
     drill = run_drill(build_dir)
     print(
         f"[drill] DreamerV3-S run diagnostics=full ({' '.join(CHUNKED_OPTIONS)}, sequences of 16): the poisoned "
@@ -2669,6 +3197,7 @@ def main() -> int:
         f"{drill['resume_test_steps']} test steps, {drill['ln_gru_launches']} ln_gru launches = predicted "
         f"({drill['launches_per_gradient_step']} per gradient step)  [{card}]", flush=True)
 
+    mark('drill')
     ppo = run_ppo(build_dir, "shared_memory", tensorboard=True)
     print(f"[ppo] run exp=ppo_atari env=dummy (NatureCNN on 4x3x84x84, dense 512, 3 epochs x 4 minibatches of 256, "
           f"8 envs x 128 steps, 2 iterations) through env.executor=shared_memory under the default diagnostics and "
@@ -2698,6 +3227,7 @@ def main() -> int:
     # the executors compared: the same two iterations each, no checkpoint,
     # no test episode; the first interval holds the warm-up, so the second
     # is the reading
+    mark('ppo, drill, resume, eval, serve')
     ppo_rollout = {}
     for executor in ("sync", "async", "shared_memory"):
         run = run_ppo(build_dir, executor, compare=True)
@@ -2709,6 +3239,7 @@ def main() -> int:
     print(f"[ppo] rollout env steps/s (the second interval's Time/sps_env_interaction, 8 envs x 128 steps, episodes "
           f"of {PPO_EPISODE_STEPS} steps, policy on the card) by executor: {json.dumps(ppo_rollout)}  [{card}]",
           flush=True)
+    mark('ppo executors')
     ppo_timers = run_ppo_timers()
     for name, t in ppo_timers.items():
         print(f"[ppo-timer] minibatch update (batch 256, {t['params']} params, {t['flops']:.6g} FLOPs counted), "
@@ -2716,6 +3247,7 @@ def main() -> int:
               f"device busy {t['busy_ms']:.3f} ms (torch.profiler), {t['launches']} launches, idle share "
               f"{t['idle_share']:.4f}; top kernels (ms, name) {t['top']}  [{card}]", flush=True)
 
+    mark('ppo timers')
     jepa = run_jepa(build_dir)
     xl_cases = {(c["B"], c["dtype"]): c for c in cases if c["H"] == XL_SHAPE[0]}
     print(
@@ -2758,6 +3290,7 @@ def main() -> int:
 
     # the JEPA run's XL checkpoints are done with; P2E's take their room
     shutil.rmtree(build_dir / "jepa", ignore_errors=True)
+    mark('jepa')
     p2e_t0 = time.monotonic()
     p2e = run_p2e(build_dir)
     print(
@@ -2813,6 +3346,7 @@ def main() -> int:
     shutil.rmtree(build_dir / "p2e", ignore_errors=True)
     shutil.rmtree(build_dir / "p2e_finetuning", ignore_errors=True)
 
+    mark('p2e')
     a2c = run_a2c(build_dir)
     print(f"[a2c] run exp=a2c env=dummy (MLP 64 x 2 on state, RMSprop, 4 envs x 5 steps, 10 iterations): final "
           f"losses {json.dumps(a2c['final_losses'])}, value_ev {a2c['value_ev'][-1]}, Time/sps_env_interaction "
@@ -2823,6 +3357,7 @@ def main() -> int:
           f"{a2c['requests_per_s']:.2f} requests/s, p50 {a2c['latency_p50_ms']:.2f} ms, p99 "
           f"{a2c['latency_p99_ms']:.2f} ms. A2C runs no hand-written kernel  [{card}]", flush=True)
 
+    mark('a2c')
     sac_t0 = time.monotonic()
     with bounded_dummy_actions():
         sac = run_sac(build_dir)
@@ -2868,6 +3403,86 @@ def main() -> int:
           f"{bf16['a2c_bf16']['iterations']} iterations, final [policy, value, grad norm] {bf16['a2c_bf16']['final']}; "
           f"the SAC-family and bf16 phases took {time.monotonic() - sac_t0:.1f} s  [{card}]", flush=True)
 
+    mark('sac family, bf16')
+    dv_t0 = time.monotonic()
+    dv2 = run_dv2(build_dir)
+    dv2_cases = {(c["B"], c["dtype"]): c for c in cases if c["H"] == DV2_SHAPE[0]}
+    print(
+        f"[dv2] DreamerV2 run exp=dreamer_v2 at its widths (64x64 rgb, CNN multiplier 48, dense 400 x 4, recurrent "
+        f"600, stochastic 32 x 32, hidden 600; batch 16 x 50, horizon 15, fp32) under the default diagnostics: "
+        f"{dv2['gradient_steps']} gradient steps, {dv2['player_steps']} player steps, {dv2['test_steps']} "
+        f"test-episode steps, {dv2['policy_steps']} policy steps; {dv2['ln_gru_launches']} ln_gru launches = "
+        f"predicted ({dv2['launches_per_gradient_step']} per gradient step: 50 x 16 rows + 15 x 800 at K=1000 "
+        f"H=600); every metric finite, final {json.dumps(dv2['final_metrics'])}; leaves changed "
+        f"{dv2['changed_leaves']}; both checkpoints verified; Time/sps_train {dv2['sps']['Time/sps_train']}, "
+        f"Time/sps_env_interaction {dv2['sps']['Time/sps_env_interaction']}; journal Telemetry/mfu "
+        f"{dv2['journal']['mfu']}, FLOPs counted {dv2['journal']['flops_per_step']}  [{card}]", flush=True)
+    print(
+        f"[dv2] kernel vs plain gradient step from the last checkpoint's state, one batch and noise: metrics max "
+        f"relative error {dv2['step_metric_rel_err']:.3g} (tol {STEP_METRIC_RTOL:g}), gradients "
+        f"{dv2['step_grad_rel_err']:.3g} (tol {STEP_GRAD_RTOL:g}), params off by more than {STEP_PARAM_ATOL:g}: "
+        f"{dv2['step_param_outliers']:.3g} (tol {STEP_PARAM_OUTLIERS:g}), max_abs_err "
+        f"{dv2['step_param_max_abs_err']:.3g} (not held)  [{card}]", flush=True)
+    for name, r in dv2["runs"].items():
+        print(f"[dv2] {name} run ({'buffer.type=episode, prioritize_ends, the multi-discrete dummy' if name == 'episode' else 'fabric.precision=bf16-mixed'}): "
+              f"{r['gradient_steps']} gradient steps, {r['player_steps']} player steps, {r['ln_gru_launches']} ln_gru "
+              f"launches = predicted ({r['launches_per_gradient_step']} per gradient step); final metrics "
+              f"{[round(x, 4) for x in r['final_metrics']]}  [{card}]", flush=True)
+    dv2_resumed = run_dreamer_resume(dv2, "dv2")
+    print(f"[dv2] resume from {dv2['mid_checkpoint']}: the four trees and three adamw states restored as saved, the "
+          f"gradient-step counter at {dv2_resumed['gradient_steps_saved']}; started at iteration "
+          f"{dv2_resumed['start_iter']}, {dv2_resumed['gradient_steps']} gradient steps, "
+          f"{dv2_resumed['ln_gru_launches']} ln_gru launches = predicted  [{card}]", flush=True)
+    dv2_evaluated = run_dreamer_eval(dv2, "dreamer_v2")
+    print(f"[dv2] eval checkpoint_path={dv2['checkpoint']}: Test/cumulative_reward {dv2_evaluated['test_reward']}, "
+          f"{dv2_evaluated['ln_gru_launches']} ln_gru launches; serve refused it: "
+          f"{dv2_evaluated['serve_refusal'][:70]}  [{card}]", flush=True)
+    shutil.rmtree(build_dir / "dv2", ignore_errors=True)
+    dv1 = run_dv1(build_dir)
+    print(f"[dv1] DreamerV1 run exp=dreamer_v1 at its widths (64x64 rgb, CNN multiplier 32, dense 400, recurrent 200, "
+          f"stochastic 30, hidden 200; batch 50 x 50, horizon 15, fp32): {dv1['gradient_steps']} gradient steps, "
+          f"{dv1['player_steps']} player steps, {dv1['test_steps']} test steps; {dv1['ln_gru_launches']} ln_gru "
+          f"launches (its GRU has no LayerNorm); every metric finite, final {json.dumps(dv1['final_metrics'])}; "
+          f"leaves changed {dv1['changed_leaves']}; Time/sps_train {dv1['sps']['Time/sps_train']}  [{card}]",
+          flush=True)
+    dv1_resumed = run_dreamer_resume(dv1, "dv1", kernel=False)
+    dv1_evaluated = run_dreamer_eval(dv1, "dreamer_v1")
+    print(f"[dv1] resumed at iteration {dv1_resumed['start_iter']} with the trees and adam states as saved: "
+          f"{dv1_resumed['gradient_steps']} gradient steps, {dv1_resumed['ln_gru_launches']} ln_gru launches; eval "
+          f"Test/cumulative_reward {dv1_evaluated['test_reward']}; serve refused it  [{card}]", flush=True)
+    shutil.rmtree(build_dir / "dv1", ignore_errors=True)
+    ppo_rec = run_ppo_recurrent(build_dir)
+    print(f"[ppo_recurrent] run exp=ppo_recurrent env=dummy (state; 16 envs x 512 steps, sequences of 16, 8 "
+          f"minibatches, 8 epochs, LSTM 64): final losses {ppo_rec['final_losses']}, Time/sps_env_interaction "
+          f"{ppo_rec['sps']['Time/sps_env_interaction']}, Time/sps_train {ppo_rec['sps']['Time/sps_train']}, test "
+          f"reward {ppo_rec['test_reward']}; resumed at iteration {ppo_rec['resume_start_iter']}; eval "
+          f"{ppo_rec['eval_reward']}; serve: {ppo_rec['served']} /act over HTTP from {PPO_REC_SESSIONS} interleaved "
+          f"sessions with a reset each, every greedy action equal to the player's from the same state, "
+          f"{ppo_rec['dispatches']} dispatches; bf16-mixed iteration final {ppo_rec['bf16_final']}; ln_gru launches "
+          f"{ppo_rec['ln_gru_launches']}  [{card}]", flush=True)
+    shutil.rmtree(build_dir / "ppo_rec", ignore_errors=True)
+    dreamer_timers = run_dreamer_timers()
+    for name, t in dreamer_timers.items():
+        widths = (16, 800) if name.startswith("dv2") else None
+        fwd = ""
+        if widths:
+            dtype_name = "bfloat16" if "bf16" in name else "float32"
+            ms = 50 * dv2_cases[(16, dtype_name)]["ms"] + 15 * dv2_cases[(800, dtype_name)]["ms"]
+            fwd = f" (the DreamerV2 kernel cases predict a forward of {ms:.4f} ms)"
+        print(f"[dreamer-timer] {name} gradient step (default diagnostics): median stream time {t['step_ms']:.3f} ms "
+              f"(CUDA events; {[round(x, 3) for x in t['stream_ms']]}), device busy {t['busy_ms']:.3f} ms, idle share "
+              f"{t['idle_share']:.4f}, {t['launches']} launches a step, ln_gru {t['ln_gru_launches']} launches "
+              f"{t['ln_gru_ms']:.4f} ms a step{fwd}; {t['flops_per_step']:.6g} FLOPs a step counted, step MFU "
+              f"{t['step_mfu']}; peak memory {t['max_memory_gb']:.2f} GiB; top kernels (ms, name) {t['top']}  "
+              f"[{card}]", flush=True)
+    rec_timer = run_ppo_recurrent_timer()
+    print(f"[ppo_recurrent-timer] minibatch update ({rec_timer['seq_batch']} sequences of 16, {rec_timer['params']} "
+          f"params, {rec_timer['flops']:.6g} FLOPs counted): median stream time {rec_timer['step_ms']:.3f} ms, device "
+          f"busy {rec_timer['busy_ms']:.3f} ms, {rec_timer['launches']} launches, idle share "
+          f"{rec_timer['idle_share']:.4f}; top kernels {rec_timer['top']}; the DreamerV1/V2 and recurrent PPO "
+          f"phases took {time.monotonic() - dv_t0:.1f} s  [{card}]", flush=True)
+
+    mark('dv2, dv1, ppo_recurrent')
     timers = run_timers()
     for name, t in timers.items():
         fp32 = name.startswith("fp32")
@@ -2896,6 +3511,7 @@ def main() -> int:
               f"busy {[round(t['busy_ms'], 3) for t in on]} vs {[round(t['busy_ms'], 3) for t in off]} ms  [{card}]",
               flush=True)
 
+    mark('dv3 timers')
     cpu_flops = count_cpu_flops()
     card_flops = train["journal"]["flops_per_step"][0]
     if card_flops != cpu_flops or timers["fp32_diagnostics_1"]["flops_per_step"] != cpu_flops:
@@ -2922,9 +3538,15 @@ def main() -> int:
           f"{evaluated['ln_gru_launches']}, drill resume {drill['ln_gru_launches']}, jepa {jepa['ln_gru_launches']}, "
           f"jepa resume {jepa_resumed['ln_gru_launches']}, jepa eval {jepa_evaluated['ln_gru_launches']}, p2e "
           f"{p2e['ln_gru_launches']}, p2e resume {p2e_resumed['ln_gru_launches']}, p2e finetuning "
-          f"{p2e_finetuned['ln_gru_launches']}, p2e eval {p2e_evaluated['ln_gru_launches']}  [{card}]",
+          f"{p2e_finetuned['ln_gru_launches']}, p2e eval {p2e_evaluated['ln_gru_launches']}, dv2 "
+          f"{dv2['ln_gru_launches']}, dv2 episode {dv2['runs']['episode']['ln_gru_launches']}, dv2 bf16 "
+          f"{dv2['runs']['bf16']['ln_gru_launches']}, dv2 resume {dv2_resumed['ln_gru_launches']}, dv2 eval "
+          f"{dv2_evaluated['ln_gru_launches']}, dv1 {dv1['ln_gru_launches']}, dv1 resume "
+          f"{dv1_resumed['ln_gru_launches']}, dv1 eval {dv1_evaluated['ln_gru_launches']}, ppo_recurrent "
+          f"{ppo_rec['ln_gru_launches']}  [{card}]",
           flush=True)
 
+    mark('flops')
     # the kernels line: the kernel at the shape the main paths gave it most
     # (the serving dispatch width or the dynamic scan's B=16), and every case
     # it was held at
@@ -2938,7 +3560,12 @@ def main() -> int:
                "jepa_eval": jepa_evaluated["ln_gru_launches"], "p2e": p2e["ln_gru_launches"],
                "p2e_resume": p2e_resumed["ln_gru_launches"], "p2e_finetuning": p2e_finetuned["ln_gru_launches"],
                "p2e_eval": p2e_evaluated["ln_gru_launches"], **sac["launches"], **droq["launches"],
-               **sac_ae["launches"], **{k: v["launches"] for k, v in bf16.items()}}
+               **sac_ae["launches"], **{k: v["launches"] for k, v in bf16.items()},
+               "dv2": dv2["ln_gru_launches"], "dv2_episode": dv2["runs"]["episode"]["ln_gru_launches"],
+               "dv2_bf16": dv2["runs"]["bf16"]["ln_gru_launches"], "dv2_resume": dv2_resumed["ln_gru_launches"],
+               "dv2_eval": dv2_evaluated["ln_gru_launches"], "dv1": dv1["ln_gru_launches"],
+               "dv1_resume": dv1_resumed["ln_gru_launches"], "dv1_eval": dv1_evaluated["ln_gru_launches"],
+               "ppo_recurrent": ppo_rec["ln_gru_launches"], "ppo_recurrent_bf16": ppo_rec["bf16_launches"]}
     case_keys = ("B", "K", "H", "dtype", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms", "bound_ms", "bound_by")
     kernels = [{
         "name": "ln_gru",
@@ -2956,8 +3583,12 @@ def main() -> int:
         "library_ms": main["library_ms"],
         "shape": {"B": main["B"], "K": main["K"], "H": main["H"], "dtype": main["dtype"]},
         "cases": [{k: c[k] for k in case_keys} for c in cases],
-        "phase": "kernel+slice+train+chunked+resume+eval+drill+jepa+p2e+sac+droq+sac_ae+bf16",
+        "phase": "kernel+slice+train+chunked+resume+eval+drill+jepa+p2e+sac+droq+sac_ae+bf16+dv2+dv1+ppo_recurrent",
     }]
+    mark("kernels line")
+    print(f"[timing] wall seconds by group of phases: "
+          f"{json.dumps({name: round(t - prev, 1) for (_, prev), (name, t) in zip(stamps, stamps[1:])})}; total "
+          f"{stamps[-1][1] - stamps[0][1]:.1f} s  [{card}]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
           flush=True)

@@ -332,9 +332,12 @@ class WorldModel(nn.Module):
                  continue_dense_units: int = 512, continue_mlp_layers: int = 2, unimix: float = 0.01,
                  eps: float = 1e-3, learnable_initial_recurrent_state: bool = True, decoupled_rssm: bool = False,
                  dense_act: str = "silu", cnn_act: str = "silu", layer_norm: bool = True,
-                 gru_layer_norm: bool = True, symlog_inputs: bool = True):
+                 gru_layer_norm: bool = True, symlog_inputs: bool = True, hafner_heads: bool = True):
         super().__init__()
         self.decoupled_rssm = decoupled_rssm
+        # DreamerV3's uniform stochastic and continue heads and zero reward
+        # head (``init_weights``); off, they take the dense default (DV1, DV2)
+        self.hafner_heads = hafner_heads
         latent_size = stochastic_size * discrete_size + recurrent_state_size
         self.cnn_decoder_keys = tuple(cnn_decoder_keys)
         self.cnn_decoder_channels = tuple(int(c) for c in cnn_decoder_channels)
@@ -605,23 +608,27 @@ class Agent(NamedTuple):
 
 @torch.no_grad()
 def init_weights(world_model: Optional[WorldModel], actor: Optional[Actor], critic: Optional[Critic],
-                 generator: torch.Generator) -> None:
+                 generator: torch.Generator, hafner_heads: bool = True) -> None:
     """Hafner initialization from a seeded generator: truncated-normal
-    fan-avg for every dense and conv kernel; uniform fan-avg for the
-    stochastic-state, actor, continue and decoder output heads; zero reward
-    and critic heads; zero biases, unit LayerNorm scales.  The modules draw
-    in the order world model, actor, critic; one left out (None) draws
-    nothing, so leaving out the critic changes no other module's weights."""
+    fan-avg for every dense and conv kernel; uniform fan-avg for the actor
+    and decoder output heads and, with ``hafner_heads`` (DreamerV3's), the
+    stochastic-state and continue heads; with it too, zero reward and critic
+    heads; zero biases, unit LayerNorm scales.  Without ``hafner_heads``
+    (DreamerV1's and V2's) those heads are truncated-normal like the rest.
+    The modules draw in the order world model, actor, critic; one left out
+    (None) draws nothing, so leaving out the critic changes no other
+    module's weights."""
     uniform = [*actor.heads] if actor is not None else []
-    zero = {id(critic.head)} if critic is not None else set()
+    zero = {id(critic.head)} if critic is not None and hafner_heads else set()
     if world_model is not None:
-        uniform += [world_model.rssm.representation_model.head, world_model.rssm.transition_model.head,
-                    world_model.continue_model.head]
+        if hafner_heads:
+            uniform += [world_model.rssm.representation_model.head, world_model.rssm.transition_model.head,
+                        world_model.continue_model.head]
+            zero.add(id(world_model.reward_model.head))
         if world_model.cnn_decoder is not None:
             uniform.append(world_model.cnn_decoder.out)
         if world_model.mlp_decoder is not None:
             uniform.extend(world_model.mlp_decoder.heads)
-        zero.add(id(world_model.reward_model.head))
     uniform_ids = {id(m) for m in uniform}
     modules = [m for part in (world_model, actor, critic) if part is not None for m in part.modules()]
     for module in modules:

@@ -47,6 +47,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
 )
 from sheeprl_tpu_torch.diagnostics.health import health_names, health_spec, health_stats
 from sheeprl_tpu_torch.diagnostics.sentinel import select_finite, sentinel_spec, skip_update_guard
+from sheeprl_tpu_torch.models.blocks import LayerNormGRUCell
 from sheeprl_tpu_torch.ops.distributions import Bernoulli, MSEDistribution, SymlogDistribution, TwoHotEncodingDistribution
 from sheeprl_tpu_torch.ops.numerics import compute_lambda_values
 from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
@@ -110,6 +111,24 @@ def apply_gradients(optimizer: torch.optim.Optimizer, params: Sequence[torch.Ten
         p.grad = g
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
+
+
+def make_update(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg) -> Callable:
+    """``update(name, loss) -> norm``: the gradient of ``loss`` over the
+    optimizer ``name``'s parameters, clipped by their global norm as its
+    config section says, one step; the norm before clipping.  The plain
+    update of the family's steps that keep no health stats (DreamerV1,
+    DreamerV2)."""
+    clip = {name: float(section.clip_gradients) for name, section in agent.optimizer_configs(cfg).items()}
+    params = {name: optimizer_params(opt) for name, opt in optimizers.items()}
+
+    def update(name: str, loss: torch.Tensor) -> torch.Tensor:
+        grads = gradients(loss, params[name])
+        norm = global_norm(grads)
+        apply_gradients(optimizers[name], params[name], grads, clip[name])
+        return norm
+
+    return update
 
 
 @torch.no_grad()
@@ -499,6 +518,8 @@ def load_learner_state(state: Dict[str, Any], agent: Agent, optimizers: Dict[str
 
     for name, opt in optimizers.items():
         opt.load_state_dict(optimizer_state_dict(_at(state["opt_states"], name), opt, agent.optimizer_spec(name)))
+    if not agent.initial_moments(device):
+        return {}  # a family that keeps no Moments (DreamerV1, DreamerV2)
 
     def restore(like: Any, saved: Any, path: str) -> Any:
         if not isinstance(like, Mapping):
@@ -544,7 +565,10 @@ def main(runtime, cfg) -> Dict[str, Any]:
 def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train_step_fn: Callable, *,
                   load_agent_state_fn: Optional[Callable[[Any, Any], Dict[str, Any]]] = None,
                   player_actor_fn: Optional[Callable[[bool], str]] = None,
-                  final_test_fn: Optional[Callable[..., Tuple[float, int]]] = None) -> Dict[str, Any]:
+                  final_test_fn: Optional[Callable[..., Tuple[float, int]]] = None,
+                  unported_fn: Callable[[Any], List[str]] = None,
+                  buffer_types: Sequence[str] = ("sequential",),
+                  keep_gradient_steps: bool = False) -> Dict[str, Any]:
     """The DreamerV3 family's loop (the JAX package's ``_dreamer_main``):
     prefill with random actions, then per iteration a policy step of every
     env, a replay write, the gradient steps the replay ratio owes, logging
@@ -566,7 +590,13 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     replay too); ``player_actor_fn(has_trained)``, the name of the agent's actor the
     player acts with, given whether a gradient step has run (``"actor"``);
     ``final_test_fn(player, agent, cfg, log_dir, generator)``, the test
-    episode at the end (the player's actor once trained, sampled).
+    episode at the end (the player's actor once trained, sampled);
+    ``unported_fn(cfg)``, the options the family refuses (DreamerV3's
+    ``_unported_options``); ``buffer_types``, the ``buffer.type`` values the
+    family reads (DreamerV3 samples sequentially and reads none; DreamerV2
+    also has the ``episode`` buffer); ``keep_gradient_steps``, whether the
+    checkpoint carries the gradient-step counter that times the target
+    critic's update (DreamerV2's), which a resume then goes on from.
 
     Returns what the run did: its counters, the metric rows of every
     gradient step, the actor the player switched to at each iteration it
@@ -583,9 +613,12 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     from sheeprl_tpu_torch.utils.timer import timer
     from sheeprl_tpu_torch.utils.utils import Ratio, get_diagnostics, save_configs
 
-    unported = _unported_options(cfg)
+    unported = (unported_fn or _unported_options)(cfg)
     if unported:
         raise NotImplementedError(f"not ported yet (see ROADMAP.md Queue 1): {'; '.join(unported)}")
+    buffer_type = str(cfg.buffer.get("type") or "sequential").lower() if len(buffer_types) > 1 else buffer_types[0]
+    if buffer_type not in buffer_types:
+        raise ValueError(f"Unrecognized buffer type: must be one of {list(buffer_types)}, got: {buffer_type}")
     device = runtime.device
     num_envs = int(cfg.env.num_envs)
     resume_from = cfg.checkpoint.get("resume_from")
@@ -604,9 +637,6 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     save_configs(cfg, log_dir)
     logger.log_hyperparams(cfg.as_dict())
     diag = get_diagnostics(runtime, cfg, log_dir)
-    if device.type == "cuda":
-        # nvcc at first use, as the run state `compiling`
-        diag.build_kernels(["ln_gru"])
     aggregator = instantiate(cfg.metric.aggregator)
     if cfg.metric.log_level == 0:
         aggregator.disabled = True
@@ -638,6 +668,10 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     obs_keys = cnn_keys + mlp_keys
 
     agent = build_agent_fn(actions_dim, is_continuous, cfg, observation_space, agent_state, device)
+    if device.type == "cuda" and any(isinstance(m, LayerNormGRUCell) and m.norm is not None
+                                     for m in agent.world_model.modules()):
+        # nvcc at first use, as the run state `compiling`
+        diag.build_kernels(["ln_gru"])
     # bf16-true stores the weights themselves in bf16; *-mixed keeps fp32
     # masters and casts inside each loss
     for module in agent:
@@ -655,7 +689,9 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     diag.register_footprint("moments", moments_state)
 
     buffer_size = cfg.buffer.size // num_envs if not cfg.dry_run else 2
-    rb, use_device_buffer = make_dreamer_replay_buffer(cfg, num_envs, log_dir, buffer_size, device)
+    rb, use_device_buffer = make_dreamer_replay_buffer(
+        cfg, num_envs, log_dir, buffer_size, device, buffer_type,
+        minimum_episode_length=1 if cfg.dry_run else int(cfg.algo.per_rank_sequence_length), obs_keys=obs_keys)
     rb.seed(cfg.seed)
     diag.track_buffer("replay", rb)
     chunks = rssm_scan_spec(cfg)[0]
@@ -666,7 +702,7 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
             and buffer_state.get("rb") is not None):
         rb.load_state_dict(buffer_state["rb"])
         loaded = rb.buffer[0].buffer if isinstance(rb.buffer, tuple) else rb.buffer
-        if chunks > 1 and loaded and "rssm_recurrent" not in loaded:
+        if chunks > 1 and isinstance(loaded, dict) and loaded and "rssm_recurrent" not in loaded:
             raise ValueError(
                 "algo.rssm_chunks > 1 needs replay rows carrying the player's RSSM state (rssm_recurrent/"
                 "rssm_posterior/rssm_valid), but the restored buffer was collected without them: resume with "
@@ -678,6 +714,8 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     last_log = state["last_log"] if state else 0
     last_checkpoint = state["last_checkpoint"] if state else 0
     gradient_steps = player_steps = train_step_count = last_train = 0
+    # the steps of the runs this one resumes, counted for the target update
+    steps_before = int(state.get("gradient_steps", 0)) if keep_gradient_steps and state is not None else 0
     policy_steps_per_iter = num_envs
     total_iters = int(cfg.algo.total_steps // policy_steps_per_iter) if not cfg.dry_run else 1
     learning_starts = cfg.algo.learning_starts // policy_steps_per_iter if not cfg.dry_run else 0
@@ -704,7 +742,8 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     store_rssm_state = chunks > 1
     wm_cfg = cfg.algo.world_model
     zero_recurrent = np.zeros((num_envs, int(wm_cfg.recurrent_model.recurrent_state_size)), np.float32)
-    zero_stochastic = np.zeros((num_envs, int(wm_cfg.stochastic_size * wm_cfg.discrete_size)), np.float32)
+    zero_stochastic = np.zeros((num_envs, int(wm_cfg.stochastic_size) * int(wm_cfg.get("discrete_size") or 1)),
+                               np.float32)
     stager = ObsStager(device)
 
     pending: List[torch.Tensor] = []
@@ -777,9 +816,9 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
                 if first_train_iter is None:
                     first_train_iter = iter_num
                 with diag.span("buffer-sample"):
-                    local_data = rb.sample(
-                        cfg.algo.per_rank_batch_size, sequence_length=cfg.algo.per_rank_sequence_length, n_samples=n
-                    )
+                    # the episode buffer's dry run samples single steps, as the JAX loop's
+                    seq_len = 1 if cfg.dry_run and buffer_type == "episode" else cfg.algo.per_rank_sequence_length
+                    local_data = rb.sample(cfg.algo.per_rank_batch_size, sequence_length=seq_len, n_samples=n)
                     if not use_device_buffer:
                         local_data = [{k: v[i] for k, v in local_data.items()} for i in range(n)]
                 # on the card the timer records a CUDA event at each end of
@@ -788,8 +827,9 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
                 with timer("Time/train_time", device), diag.span("train"):
                     for sample in local_data:
                         batch = diag.maybe_inject_nan(iter_num, stage_batch(sample, cnn_keys, device))
-                        if target_freq and gradient_steps % target_freq == 0:
-                            tau = 1.0 if gradient_steps == 0 else float(cfg.algo.critic.get("tau", 1.0))
+                        counted = steps_before + gradient_steps
+                        if target_freq and counted % target_freq == 0:
+                            tau = 1.0 if counted == 0 else float(cfg.algo.critic.get("tau", 1.0))
                         else:
                             tau = 0.0
                         moments_state, metrics = train_step(moments_state, batch, tau, generator)
@@ -808,7 +848,7 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
             # iteration's gradient steps sampled, as in the JAX loop)
             for i, restarted in enumerate(infos["restart_on_exception"]):
                 if restarted and not dones[i]:
-                    if use_device_buffer:
+                    if use_device_buffer or buffer_type == "episode":
                         rb.mark_last_truncated(i)
                     else:
                         sub = rb.buffer[i]
@@ -910,7 +950,8 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
                 # optax's layout, so that the JAX package resumes it too
                 "opt_states": nest({name: optax_state(opt, agent.optimizer_spec(name))
                                     for name, opt in optimizers.items()}),
-                "moments": moments_state,
+                **({"moments": moments_state} if moments_state else {}),
+                **({"gradient_steps": steps_before + gradient_steps} if keep_gradient_steps else {}),
                 "ratio": ratio.state_dict(),
                 "iter_num": iter_num,
                 "batch_size": cfg.algo.per_rank_batch_size,

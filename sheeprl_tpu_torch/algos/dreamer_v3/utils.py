@@ -233,7 +233,7 @@ def test(player, cfg, log_dir: Optional[str], generator: torch.Generator, greedy
     player.num_envs = 1
     player.state = None
     player.init_states()
-    stager = ObsStager(player.world_model.rssm.initial_recurrent_state.device)
+    stager = ObsStager(next(player.world_model.parameters()).device)
     try:
         while not done:
             torch_obs = prepare_obs(stager, obs, cfg.algo.cnn_keys.encoder, cfg.algo.mlp_keys.encoder)

@@ -22,7 +22,7 @@ loop fetches it once per iteration.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -314,6 +314,40 @@ def make_update(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, total_it
     return update
 
 
+class OnPolicyFamily:
+    """The parts of :func:`_on_policy_main` that differ between the
+    on-policy families: PPO's (and A2C's) here; recurrent PPO overrides them
+    (``algos/ppo_recurrent/ppo_recurrent.py``)."""
+
+    def unported(self, cfg) -> List[str]:
+        return _unported_options(cfg)
+
+    def buffer_size(self, cfg) -> int:
+        return int(cfg.buffer.size)
+
+    def checkpoint_batch_size(self, cfg) -> int:
+        return cfg.algo.per_rank_batch_size
+
+    def spec(self, agent) -> Dict[str, Any]:
+        from sheeprl_tpu_torch.interop.flax_params import ppo_spec
+
+        return ppo_spec(agent)
+
+    def to_flax(self, agent) -> Dict[str, Any]:
+        from sheeprl_tpu_torch.interop.flax_params import ppo_to_flax
+
+        return ppo_to_flax(agent)
+
+    def rollout(self, agent, envs, obs, rb, stage, cfg, generator, aggregator, diag, spaces_of):
+        return rollout(agent, envs, obs, rb, stage, cfg, generator, aggregator, diag, spaces_of)
+
+    def rollout_data(self, agent, rb, obs, stage, cfg, device) -> Dict[str, Any]:
+        return rollout_data(agent, rb, obs, stage, cfg, device)
+
+    def test(self, agent, env, cfg, device, stager) -> float:
+        return test(agent, env, cfg, device, stager)
+
+
 @register_algorithm()
 def main(runtime, cfg) -> Dict[str, Any]:
     """The PPO loop (:func:`_on_policy_main` with PPO's agent and update)."""
@@ -321,7 +355,8 @@ def main(runtime, cfg) -> Dict[str, Any]:
     return _on_policy_main(runtime, cfg, build_agent, make_update)
 
 
-def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn) -> Dict[str, Any]:
+def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn,
+                    family: Optional[OnPolicyFamily] = None) -> Dict[str, Any]:
     """The loop of the on-policy family (PPO, A2C): per iteration a rollout
     of ``algo.rollout_steps`` steps of every env (:func:`rollout`), GAE over
     it (:func:`rollout_data`), the update, logging and checkpoints; one
@@ -332,7 +367,9 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn) -> Dict[str, A
     generator) -> metrics`` (the ``update.metric_order`` means, the
     non-finite update count, the ``update.health_names`` stats), whose
     ``updates_per_iteration`` counts ``Time/sps_train`` and ``schedule``
-    says whether its optax state carries a schedule's count.
+    says whether its optax state carries a schedule's count.  ``family``
+    (PPO's by default) gives the options refused, the buffer's size, the
+    agent's flax tree, the rollout, the update's data and the test episode.
     ``checkpoint.resume_from`` (a file, resolved by ``cli.run``) restores the
     agent, the optimizer's state (either package's) and the counters.
     Returns what the run did: its counters, the metric rows of every
@@ -342,12 +379,13 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn) -> Dict[str, A
     from sheeprl_tpu_torch.envs import spaces
     from sheeprl_tpu_torch.envs.env import make_env, make_env_fns, pipelined_vector_env
     from sheeprl_tpu_torch.envs.player import ObsStager, fetch_values, host_obs_slab
-    from sheeprl_tpu_torch.interop.flax_params import optax_state, optimizer_state_dict, ppo_spec, ppo_to_flax
+    from sheeprl_tpu_torch.interop.flax_params import optax_state, optimizer_state_dict
     from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
     from sheeprl_tpu_torch.utils.timer import timer
     from sheeprl_tpu_torch.utils.utils import get_diagnostics, save_configs
 
-    unported = _unported_options(cfg)
+    family = family or OnPolicyFamily()
+    unported = family.unported(cfg)
     if unported:
         raise NotImplementedError(f"not ported yet (see ROADMAP.md Queue 1): {'; '.join(unported)}")
     device = runtime.device
@@ -382,7 +420,7 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn) -> Dict[str, A
     total_iters = int(cfg.algo.total_steps // total_local) if not cfg.dry_run else 1
     optimizer = instantiate(cfg.algo.optimizer)(agent.parameters())
     clip = bool(cfg.algo.max_grad_norm and cfg.algo.max_grad_norm > 0)
-    spec = ppo_spec(agent)
+    spec = family.spec(agent)
     if state and "opt_state" in state:
         optimizer.load_state_dict(optimizer_state_dict(state["opt_state"], optimizer, spec))
     train_step = diag.instrument("train_step", make_update_fn(agent, optimizer, cfg, total_iters), kind="train")
@@ -391,7 +429,7 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn) -> Dict[str, A
     diag.register_footprint("params", [agent])
     diag.register_footprint("opt_state", [optimizer])
 
-    rb = ReplayBuffer(cfg.buffer.size, num_envs, memmap=cfg.buffer.memmap,
+    rb = ReplayBuffer(family.buffer_size(cfg), num_envs, memmap=cfg.buffer.memmap,
                       memmap_dir=os.path.join(log_dir, "memmap_buffer"))
     diag.track_buffer("replay", rb)
 
@@ -411,13 +449,13 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn) -> Dict[str, A
     for iter_num in range(start_iter, total_iters + 1):
         agent.eval()
         with timer("Time/env_interaction_time"), diag.span("rollout"), torch.no_grad():
-            obs = rollout(agent, envs, obs, rb, stage, cfg, generator, aggregator, diag,
-                          (is_continuous, is_multidiscrete))
+            obs = family.rollout(agent, envs, obs, rb, stage, cfg, generator, aggregator, diag,
+                                 (is_continuous, is_multidiscrete))
         policy_step_count += total_local
 
         # ---- GAE over the rollout, on the device --------------------------
         with diag.span("buffer-sample"):
-            data = diag.maybe_inject_nan(iter_num, rollout_data(agent, rb, obs, stage, cfg, device))
+            data = diag.maybe_inject_nan(iter_num, family.rollout_data(agent, rb, obs, stage, cfg, device))
 
         # ---- the update: its device work ends inside the timer ------------
         # (between two CUDA events on the card, read at log time)
@@ -459,14 +497,14 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn) -> Dict[str, A
         ):
             last_checkpoint = policy_step_count
             ckpt_state = {
-                "agent": ppo_to_flax(agent),
+                "agent": family.to_flax(agent),
                 # optax's layout, so that the JAX package resumes it too
                 "opt_state": optax_state(optimizer, spec, clip=clip, schedule=train_step.schedule),
                 "iter_num": iter_num,
                 "policy_step": policy_step_count,
                 "last_log": last_log,
                 "last_checkpoint": last_checkpoint,
-                "batch_size": cfg.algo.per_rank_batch_size,
+                "batch_size": family.checkpoint_batch_size(cfg),
             }
             ckpt_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step_count}_0.ckpt")
             with diag.span("checkpoint"):
@@ -481,7 +519,7 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn) -> Dict[str, A
     test_reward = None
     if cfg.algo.run_test:
         agent.eval()
-        test_reward = test(agent, make_env(cfg, cfg.seed, 0, log_dir, "test")(), cfg, device, stager)
+        test_reward = family.test(agent, make_env(cfg, cfg.seed, 0, log_dir, "test")(), cfg, device, stager)
         logger.log_metrics({"Test/cumulative_reward": test_reward}, policy_step_count)
     logger.finalize()
     diag.close("completed")

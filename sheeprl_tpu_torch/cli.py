@@ -85,7 +85,8 @@ def check_configs(cfg: dotdict) -> None:
     if find_algorithm(cfg.algo.name) is None:
         raise NotImplementedError(
             f"Algorithm {cfg.algo.name!r} is not ported yet (see ROADMAP.md Queue 1); the port trains: dreamer_v3, "
-            "dreamer_v3_jepa, p2e_dv3_exploration, p2e_dv3_finetuning, ppo, a2c, sac, droq, sac_ae"
+            "dreamer_v3_jepa, p2e_dv3_exploration, p2e_dv3_finetuning, ppo, a2c, sac, droq, sac_ae, dreamer_v2, "
+            "dreamer_v1, ppo_recurrent"
         )
     if cfg.metric.log_level not in (0, 1):
         raise ValueError(f"metric.log_level must be 0 or 1, got {cfg.metric.log_level}")
@@ -206,7 +207,8 @@ def eval_algorithm(cfg: dotdict) -> Any:
     if entry is None:
         raise NotImplementedError(f"Evaluation of {cfg.algo.name!r} is not ported yet (see ROADMAP.md Queue 1); "
                                   "the port evaluates: dreamer_v3, dreamer_v3_jepa, p2e_dv3_exploration, "
-                                  "p2e_dv3_finetuning, ppo, a2c, sac, droq, sac_ae")
+                                  "p2e_dv3_finetuning, ppo, a2c, sac, droq, sac_ae, dreamer_v2, dreamer_v1, "
+                                  "ppo_recurrent")
     entrypoint = getattr(importlib.import_module(entry["module"]), entry["entrypoint"])
     runtime = instantiate(cfg.fabric)
     return runtime.launch(entrypoint, cfg, runtime.load(cfg.checkpoint_path))

@@ -3,21 +3,23 @@
 
 The same ``[time, n_envs, ...]`` layout and the same sampling, draw for draw
 from a seeded ``numpy`` generator, as the JAX package's ``ReplayBuffer``,
-``SequentialReplayBuffer`` and ``EnvIndependentReplayBuffer``.  Only the
-sampled minibatch crosses to the device, staged by the training loop.  The
-device-resident ring (``buffer.device=True``) is ``data/device_buffer.py``;
-the episode buffer is not ported yet (ROADMAP.md Queue 1).
+``SequentialReplayBuffer``, ``EnvIndependentReplayBuffer`` and
+``EpisodeBuffer``.  Only the sampled minibatch crosses to the device, staged
+by the training loop.  The device-resident ring (``buffer.device=True``) is
+``data/device_buffer.py``.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
+import uuid
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Type
 
 import numpy as np
 
-from sheeprl_tpu_torch.data.memmap import MemmapArray
+from sheeprl_tpu_torch.data.memmap import _ALLOWED_MODES, MemmapArray
 
 
 def _validate_add_data(data: Dict[str, np.ndarray]) -> None:
@@ -296,4 +298,214 @@ class EnvIndependentReplayBuffer:
             raise ValueError(f"the saved buffer has {len(state['buffers'])} envs, this one {self._n_envs}")
         for b, s in zip(self._buf, state["buffers"]):
             b.load_state_dict(s)
+        return self
+
+
+class EpisodeBuffer:
+    """Whole episodes: each env's steps gather in an open episode until one
+    ends (``terminated`` or ``truncated``), which is then stored; storing
+    past ``buffer_size`` steps evicts the oldest episodes.  :meth:`sample`
+    draws episodes, then each sequence's start inside its episode, from the
+    buffer's generator, as the JAX package's ``EpisodeBuffer`` does; with
+    ``prioritize_ends`` a start past the last full window clamps to it, so
+    the episodes' ends come up more often."""
+
+    batch_axis: int = 2
+
+    def __init__(self, buffer_size: int, minimum_episode_length: int, n_envs: int = 1,
+                 obs_keys: Sequence[str] = ("observations",), prioritize_ends: bool = False, memmap: bool = False,
+                 memmap_dir: str | os.PathLike | None = None, memmap_mode: str = "r+"):
+        if buffer_size <= 0:
+            raise ValueError(f"The buffer size must be greater than zero, got: {buffer_size}")
+        if minimum_episode_length <= 0:
+            raise ValueError(f"The sequence length must be greater than zero, got: {minimum_episode_length}")
+        if buffer_size < minimum_episode_length:
+            raise ValueError(f"The sequence length must be lower than the buffer size, got: bs = {buffer_size} "
+                             f"and sl = {minimum_episode_length}")
+        self._buffer_size = buffer_size
+        self._minimum_episode_length = minimum_episode_length
+        self._n_envs = n_envs
+        self._obs_keys = tuple(obs_keys)
+        self.prioritize_ends = prioritize_ends
+        self._open_episodes: List[List[Dict[str, np.ndarray]]] = [[] for _ in range(n_envs)]
+        self._cum_lengths: List[int] = []
+        self._buf: List[Dict[str, np.ndarray | MemmapArray]] = []
+        # a monotone id per stored episode (parallel to _buf), as the JAX
+        # buffer keeps them
+        self._episode_ids: List[int] = []
+        self._episodes_saved = 0
+        self._memmap = memmap
+        self._memmap_dir = memmap_dir
+        self._memmap_mode = memmap_mode
+        self._rng: np.random.Generator = np.random.default_rng()
+        if self._memmap:
+            if memmap_mode not in _ALLOWED_MODES:
+                raise ValueError(f"Accepted values for memmap_mode are {_ALLOWED_MODES}")
+            if memmap_dir is None:
+                raise ValueError("memmap=True requires a 'memmap_dir'")
+            self._memmap_dir = Path(memmap_dir)
+            self._memmap_dir.mkdir(parents=True, exist_ok=True)
+
+    @property
+    def buffer(self) -> Sequence[Dict[str, np.ndarray | MemmapArray]]:
+        return self._buf
+
+    @property
+    def buffer_size(self) -> int:
+        return self._buffer_size
+
+    @property
+    def full(self) -> bool:
+        return self._cum_lengths[-1] + self._minimum_episode_length > self._buffer_size if self._buf else False
+
+    def __len__(self) -> int:
+        return self._cum_lengths[-1] if self._buf else 0
+
+    def seed(self, seed: Optional[int]) -> None:
+        self._rng = np.random.default_rng(seed)
+
+    def add(self, data: Dict[str, np.ndarray], env_idxes: Optional[Sequence[int]] = None,
+            validate_args: bool = False) -> None:
+        """Column ``i`` of the ``[T, n, ...]`` ``data`` extends the open
+        episode of env ``env_idxes[i]`` (all envs by default); every episode
+        that ends in it is stored."""
+        if validate_args:
+            _validate_add_data(data)
+            if "terminated" not in data and "truncated" not in data:
+                raise RuntimeError(
+                    f"The episode must contain the `terminated` and the `truncated` keys, got: {data.keys()}")
+            if env_idxes is not None and (np.array(env_idxes) >= self._n_envs).any():
+                raise ValueError(f"Env indices must be in [0, {self._n_envs}), given {env_idxes}")
+        if env_idxes is None:
+            env_idxes = range(self._n_envs)
+        for i, env in enumerate(env_idxes):
+            env_data = {k: v[:, i] for k, v in data.items()}
+            ends = np.logical_or(env_data["terminated"], env_data["truncated"]).reshape(len(env_data["terminated"]), -1)
+            ends = ends.any(axis=-1).nonzero()[0].tolist()
+            start = 0
+            for stop in ends:
+                self._open_episodes[env].append({k: np.array(v[start : stop + 1]) for k, v in env_data.items()})
+                self._save_episode(self._open_episodes[env])
+                self._open_episodes[env] = []
+                start = stop + 1
+            if start < len(env_data["terminated"]):
+                self._open_episodes[env].append({k: np.array(v[start:]) for k, v in env_data.items()})
+
+    def mark_last_truncated(self, env: int) -> None:
+        """End env ``env``'s open episode at its last stored step, as a
+        truncation (an env restarted under it); stored if long enough."""
+        chunks = self._open_episodes[env]
+        if not chunks:
+            return
+        last = chunks[-1]
+        last["terminated"][-1] = 0
+        last["truncated"][-1] = 1
+        if "is_first" in last:
+            last["is_first"][-1] = 0
+        if sum(len(c["terminated"]) for c in chunks) >= self._minimum_episode_length:
+            self._save_episode(chunks)
+        self._open_episodes[env] = []
+
+    def _save_episode(self, chunks: Sequence[Dict[str, np.ndarray]]) -> None:
+        episode = {k: np.concatenate([c[k] for c in chunks], axis=0) for k in chunks[0]}
+        ends = np.logical_or(episode["terminated"], episode["truncated"])
+        ep_len = ends.shape[0]
+        if len(ends.nonzero()[0]) != 1 or not ends[-1]:
+            raise RuntimeError("The episode must contain exactly one done at its end")
+        if ep_len < self._minimum_episode_length:
+            raise RuntimeError(f"Episode too short (at least {self._minimum_episode_length} steps), got: {ep_len}")
+        if ep_len > self._buffer_size:
+            raise RuntimeError(f"Episode too long (at most {self._buffer_size} steps), got: {ep_len}")
+        if self.full or len(self) + ep_len > self._buffer_size:
+            # evict the oldest episodes, the fewest that make room
+            cum_lengths = np.array(self._cum_lengths)
+            last = int(((len(self) - cum_lengths + ep_len) <= self._buffer_size).argmax())
+            for evicted in self._buf[: last + 1]:
+                if self._memmap:
+                    shutil.rmtree(os.path.dirname(next(iter(evicted.values())).filename), ignore_errors=True)
+            self._buf = self._buf[last + 1 :]
+            self._episode_ids = self._episode_ids[last + 1 :]
+            self._cum_lengths = (cum_lengths[last + 1 :] - cum_lengths[last]).tolist()
+        self._cum_lengths.append(len(self) + ep_len)
+        self._buf.append(self._stored(episode))
+        self._episode_ids.append(self._episodes_saved)
+        self._episodes_saved += 1
+
+    def _stored(self, episode: Dict[str, np.ndarray]) -> Dict[str, np.ndarray | MemmapArray]:
+        if not self._memmap:
+            return {k: np.array(v) for k, v in episode.items()}
+        episode_dir = Path(self._memmap_dir) / f"episode_{uuid.uuid4()}"
+        episode_dir.mkdir(parents=True, exist_ok=True)
+        return {k: MemmapArray.from_array(v, filename=episode_dir / f"{k}.memmap", mode=self._memmap_mode)
+                for k, v in episode.items()}
+
+    def sample(self, batch_size: int, sample_next_obs: bool = False, n_samples: int = 1, clone: bool = False,
+               sequence_length: int = 1) -> Dict[str, np.ndarray]:
+        """``[n_samples, sequence_length, batch_size, ...]``: the episodes
+        (of at least ``sequence_length`` steps, more with
+        ``sample_next_obs``) drawn uniformly, then one start per sequence
+        inside its episode; ``clone`` is the JAX signature's (the rows are
+        copies)."""
+        if batch_size <= 0:
+            raise ValueError(f"Batch size must be greater than 0, got: {batch_size}")
+        if n_samples <= 0:
+            raise ValueError(f"The number of samples must be greater than 0, got: {n_samples}")
+        ep_lengths = np.array(self._cum_lengths) - np.array([0] + self._cum_lengths[:-1])
+        valid_mask = ep_lengths > sequence_length if sample_next_obs else ep_lengths >= sequence_length
+        valid = [ep for ep, ok in zip(self._buf, valid_mask) if ok]
+        if not valid:
+            raise RuntimeError(
+                f"No valid episodes in the buffer: add at least one episode of length >= {sequence_length}")
+        chunk = np.arange(sequence_length, dtype=np.intp).reshape(1, -1)
+        per_episode = np.bincount(self._rng.integers(0, len(valid), (batch_size * n_samples,)), minlength=len(valid))
+        keys = list(valid[0])
+        gathered: Dict[str, List[np.ndarray]] = {k: [] for k in keys}
+        if sample_next_obs:
+            gathered.update({f"next_{k}": [] for k in self._obs_keys})
+        for ep, n in zip(valid, per_episode):
+            if n == 0:
+                continue
+            ep_len = len(ep["terminated"]) - int(sample_next_obs)
+            upper = ep_len - sequence_length + 1 + (sequence_length if self.prioritize_ends else 0)
+            starts = np.minimum(self._rng.integers(0, upper, size=(n,)).reshape(-1, 1), ep_len - sequence_length)
+            indices = starts.astype(np.intp) + chunk
+            for k in keys:
+                arr = np.asarray(ep[k])
+                gathered[k].append(np.take(arr, indices.ravel(), axis=0).reshape(n, sequence_length, *arr.shape[1:]))
+                if sample_next_obs and k in self._obs_keys:
+                    gathered[f"next_{k}"].append(arr[indices + 1])
+        return {k: np.moveaxis(np.concatenate(v, axis=0).reshape(n_samples, batch_size, sequence_length,
+                                                                 *v[0].shape[2:]), 2, 1)
+                for k, v in gathered.items() if v}
+
+    def footprint(self) -> Dict[str, int]:
+        """Stored episodes by residence, and the open episodes' chunks
+        (host memory)."""
+        host = disk = 0
+        for ep in self._buf:
+            for v in ep.values():
+                if isinstance(v, MemmapArray):
+                    disk += v.nbytes
+                else:
+                    host += int(np.asarray(v).nbytes)
+        host += sum(int(np.asarray(v).nbytes) for chunks in self._open_episodes for c in chunks for v in c.values())
+        return {"host_bytes": host, "disk_bytes": disk}
+
+    def state_dict(self) -> Dict[str, Any]:
+        return {
+            "buffer": [{k: np.asarray(v).copy() for k, v in ep.items()} for ep in self._buf],
+            "cum_lengths": list(self._cum_lengths),
+            "open_episodes": self._open_episodes,
+            "episode_ids": list(self._episode_ids),
+            "episodes_saved": self._episodes_saved,
+        }
+
+    def load_state_dict(self, state: Dict[str, Any]) -> "EpisodeBuffer":
+        episodes = state["buffer"]
+        self._cum_lengths = list(state["cum_lengths"])
+        self._episode_ids = list(state.get("episode_ids", range(len(episodes))))
+        self._episodes_saved = int(state.get("episodes_saved", len(episodes)))
+        self._buf = [self._stored(ep) for ep in episodes]
+        self._open_episodes = [[{k: np.array(v) for k, v in c.items()} for c in chunks]
+                               for chunks in state.get("open_episodes", [[] for _ in range(self._n_envs)])]
         return self

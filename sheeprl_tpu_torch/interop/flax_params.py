@@ -1,7 +1,8 @@
 """Weights across the two packages: the JAX package's flax param trees
 (numpy, as its checkpoints store them) to the port's DV3 (and its JEPA
 heads, and Plan2Explore's exploration actor, critics and stacked
-ensemble), PPO and A2C, SAC, DroQ and SAC-AE modules and back.
+ensemble; DreamerV2's and DreamerV1's), PPO and A2C, recurrent PPO, SAC,
+DroQ and SAC-AE modules and back.
 
 Rules: Dense ``kernel[in, out]`` <-> Linear ``weight[out, in]``; Conv
 ``kernel`` HWIO <-> ``weight`` OIHW; ConvTranspose ``kernel``
@@ -44,7 +45,7 @@ weights are written as float32, which holds them exactly.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Set, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Set, Tuple
 
 import numpy as np
 import torch
@@ -187,9 +188,13 @@ def actor_spec(actor: Actor) -> Dict[str, Any]:
     return {"params": act}
 
 
-def param_spec(world_model: WorldModel, actor: Actor, critic: Critic, target_critic: Critic) -> Dict[str, Any]:
-    """The port's parameters, all four trees, in the layout of the flax
-    trees (see :func:`policy_spec`)."""
+def param_spec(world_model: WorldModel, actor: Actor, critic: Critic,
+               target_critic: Optional[Critic] = None) -> Dict[str, Any]:
+    """The port's parameters, all four trees (three for DreamerV1, which
+    has no target critic), in the layout of the flax trees (see
+    :func:`policy_spec`).  DreamerV1's Gaussian RSSM has DreamerV3's
+    layout: the plain GRU's biased ``Dense_0`` without ``LayerNorm_0``, the
+    heads emitting ``(mean, raw std)``; DreamerV2's GRU Dense has no bias."""
     spec = policy_spec(world_model, actor)
     wm = spec["world_model"]["params"]
     wm["reward_model"] = _head(world_model.reward_model)
@@ -199,7 +204,8 @@ def param_spec(world_model: WorldModel, actor: Actor, critic: Critic, target_cri
     if world_model.mlp_decoder is not None:
         wm["mlp_decoder"] = _mlp_decoder(world_model.mlp_decoder)
     spec["critic"] = {"params": _head(critic)}
-    spec["target_critic"] = {"params": _head(target_critic)}
+    if target_critic is not None:
+        spec["target_critic"] = {"params": _head(target_critic)}
     return spec
 
 
@@ -319,6 +325,45 @@ def ppo_from_flax(tree: Mapping[str, Any], agent) -> None:
 def ppo_to_flax(agent) -> Dict[str, Any]:
     """The port's PPO agent as the JAX package's flax tree (numpy)."""
     return _dump(ppo_spec(agent))
+
+
+def ppo_recurrent_spec(agent) -> Dict[str, Any]:
+    """The recurrent PPO agent's parameters in the layout of the JAX
+    ``RecurrentPPOAgent``'s flax tree: PPO's encoders, ``_pre_mlp`` and
+    ``_post_mlp`` when applied, the LSTM as ``_cell/OptimizedLSTMCell_0``
+    (the input kernels ``ii/if/ig/io`` without a bias, the hidden kernels
+    ``hi/hf/hg/ho`` with one), the actor's backbone and heads, the critic."""
+    params: Dict[str, Any] = {}
+    if agent.cnn_encoder is not None:
+        cnn = agent.cnn_encoder
+        nature = {f"Conv_{i}": _conv(conv) for i, conv in enumerate(cnn.convs)}
+        nature["Dense_0"] = {"kernel": (cnn.dense.weight, "dense_nhwc", cnn.dense.flatten_hwc),
+                             "bias": (cnn.dense.bias, "same")}
+        params["_cnn_enc"] = {"NatureCNN_0": nature}
+    if agent.mlp_encoder is not None:
+        params["_mlp_enc"] = {"MLP_0": _mlp(agent.mlp_encoder)}
+    if agent.pre_mlp is not None:
+        params["_pre_mlp"] = _mlp(agent.pre_mlp)
+    params["_cell"] = {"OptimizedLSTMCell_0": {k: _linear(m) for k, m in agent.lstm.gates.items()}}
+    if agent.post_mlp is not None:
+        params["_post_mlp"] = _mlp(agent.post_mlp)
+    backbone = _mlp(agent.actor_backbone)
+    if backbone:
+        params["actor_backbone"] = backbone
+    for i, head in enumerate(agent.actor_heads):
+        params[f"actor_heads_{i}"] = _linear(head)
+    params["critic"] = _mlp(agent.critic)
+    return {"params": params}
+
+
+def ppo_recurrent_from_flax(tree: Mapping[str, Any], agent) -> None:
+    """Copy a flax ``RecurrentPPOAgent`` tree into the port's agent, strictly."""
+    _load(ppo_recurrent_spec(agent), tree, "", {})
+
+
+def ppo_recurrent_to_flax(agent) -> Dict[str, Any]:
+    """The port's recurrent PPO agent as the JAX package's flax tree (numpy)."""
+    return _dump(ppo_recurrent_spec(agent))
 
 
 def sac_actor_spec(actor) -> Dict[str, Any]:
@@ -473,7 +518,7 @@ def _load(spec: Mapping[str, Any], tree: Any, path: str, unread: Mapping[str, Se
 
 
 def from_flax(tree: Mapping[str, Any], world_model: WorldModel, actor: Actor, critic: Critic,
-              target_critic: Critic) -> None:
+              target_critic: Optional[Critic] = None) -> None:
     """Copy ``{"world_model": {"params": ...}, "actor": ..., "critic": ...,
     "target_critic": ...}`` into the port's modules, strictly."""
     _load(param_spec(world_model, actor, critic, target_critic), tree, "", {})
@@ -485,12 +530,19 @@ def from_flax_policy(tree: Mapping[str, Any], world_model: WorldModel, actor: Ac
     _load(policy_spec(world_model, actor), tree, "", NOT_ACTED_WITH)
 
 
+def _leaf_to_flax(tensor: torch.Tensor, kind: str, *meta: Any) -> np.ndarray:
+    value = _to_flax(tensor.detach().cpu().float().numpy(), kind, *meta)
+    # on the CPU .numpy() shares the live weights, which the next step
+    # updates in place: a checkpoint written later must hold these values
+    return np.array(value, order="C", copy=True) if tensor.device.type == "cpu" else np.ascontiguousarray(value)
+
+
 def _dump(spec: Mapping[str, Any]) -> Dict[str, Any]:
-    return _map_spec(spec, lambda tensor, kind, *meta: np.ascontiguousarray(
-        _to_flax(tensor.detach().cpu().float().numpy(), kind, *meta)))
+    return _map_spec(spec, _leaf_to_flax)
 
 
-def to_flax(world_model: WorldModel, actor: Actor, critic: Critic, target_critic: Critic) -> Dict[str, Any]:
+def to_flax(world_model: WorldModel, actor: Actor, critic: Critic,
+            target_critic: Optional[Critic] = None) -> Dict[str, Any]:
     """The port's weights as the JAX package's four param trees (numpy)."""
     return _dump(param_spec(world_model, actor, critic, target_critic))
 

@@ -9,10 +9,10 @@ port serves ``dreamer_v3``, a stateful family: its handle exposes
 noise=None) -> (actions, new_state)`` step whose ``is_first`` reset is the
 same masked blend as ``PlayerDV3``; and ``ppo`` and ``a2c``, served
 statelessly, and ``sac``: their handle exposes ``make_step(greedy)``, a
-``(params, obs, generator, noise=None) -> actions`` step.  The
-``ppo_recurrent`` adapter is listed in ROADMAP.md Queue 1 and raises here;
-as in the JAX package, ``dreamer_v3_jepa``, the P2E pair, ``droq`` and
-``sac_ae`` have no adapter.
+``(params, obs, generator, noise=None) -> actions`` step; and
+``ppo_recurrent``, stateful again, its per-session state the LSTM's.  As in
+the JAX package, ``dreamer_v3_jepa``, the P2E pair, ``droq``, ``sac_ae``,
+``dreamer_v1`` and ``dreamer_v2`` have no adapter.
 """
 
 from __future__ import annotations
@@ -31,8 +31,6 @@ from sheeprl_tpu_torch.envs import spaces
 #: algo name -> handle builder (signature: (cfg, obs_space, action_space,
 #: agent_state, device))
 SERVABLE_BUILDERS: Dict[str, Callable] = {}
-#: servable in the JAX package, not ported yet (ROADMAP.md Queue 1)
-NOT_PORTED = ("ppo_recurrent",)
 
 _CKPT_RE = re.compile(r"ckpt_(\d+)_\d+\.ckpt$")
 
@@ -297,6 +295,68 @@ def _sac_handle(cfg, obs_space, action_space, agent_state, device) -> PolicyHand
 
 SERVABLE_BUILDERS["sac"] = _sac_handle
 
+
+def _ppo_recurrent_handle(cfg, obs_space, action_space, agent_state, device) -> PolicyHandle:
+    """ppo_recurrent: the LSTM agent served statefully.  Per-session state
+    is ``{hx, cx, prev_actions}``; the step masks all three by ``1 -
+    is_first`` before the forward, as the training rollout resets them on
+    done, advances one sequence step and rebuilds ``prev_actions`` (one-hot
+    per categorical head, the raw actions when continuous) for the next
+    request.  Rows carry the observation as the env gives it (float32,
+    pixels 0-255)."""
+    from sheeprl_tpu_torch.algos.ppo_recurrent.agent import build_agent, prev_actions_of
+    from sheeprl_tpu_torch.parallel.precision import call_cast
+
+    actions_dim, is_continuous, _ = _actions_dim(action_space)
+    agent = build_agent(actions_dim, is_continuous, cfg, obs_space, agent_state, device).eval()
+    mlp_keys = list(cfg.algo.mlp_keys.encoder)
+    cnn_keys = list(cfg.algo.cnn_keys.encoder)
+    obs_spec: Dict[str, Tuple[Tuple[int, ...], str]] = {}
+    for k in cnn_keys:
+        obs_spec[k] = (tuple(obs_space[k].shape), "float32")
+    for k in mlp_keys:
+        obs_spec[k] = ((int(prod(obs_space[k].shape)),), "float32")
+    hidden = int(cfg.algo.rnn.lstm.hidden_size)
+    state_spec = {
+        "hx": ((hidden,), "float32"),
+        "cx": ((hidden,), "float32"),
+        "prev_actions": ((int(sum(actions_dim)),), "float32"),
+    }
+
+    def make_state_step(greedy: bool) -> Callable:
+        @torch.no_grad()
+        def step(p, state, obs, is_first, generator, noise=None):
+            """``noise``: the standard-normal ``[1, B, A]`` draw of a
+            continuous head, or a list of Gumbel ``[1, B, d_i]`` per
+            categorical head."""
+            keep = 1.0 - is_first  # [B, 1]: a fresh episode zeroes the carry
+            seq_obs = {k: v.reshape(v.shape[0], -1, *v.shape[-2:])[None] if k in cnn_keys else v[None]
+                       for k, v in obs.items()}
+            actions, _, _, _, (hx, cx) = call_cast((p,), torch.float32, lambda: p(
+                seq_obs, (state["prev_actions"] * keep)[None], state["hx"] * keep, state["cx"] * keep,
+                greedy=greedy, noise=noise, generator=generator))
+            row = actions[0]
+            return row, {"hx": hx, "cx": cx, "prev_actions": prev_actions_of(row, actions_dim, is_continuous)}
+
+        return step
+
+    return PolicyHandle(
+        algo="ppo_recurrent",
+        obs_spec=obs_spec,
+        action_shape=(sum(actions_dim),) if is_continuous else (len(actions_dim),),
+        params=agent,
+        assemble=_dict_assembler(obs_spec),
+        validate=_row_validator(obs_spec),
+        device=torch.device(device),
+        meta={"is_continuous": is_continuous, "actions_dim": list(actions_dim)},
+        stateful=True,
+        state_spec=state_spec,
+        make_state_step=make_state_step,
+    )
+
+
+SERVABLE_BUILDERS["ppo_recurrent"] = _ppo_recurrent_handle
+
 #: checkpoint keys that make up a Dreamer-family agent state
 DREAMER_STATE_KEYS = ("world_model", "actor", "critic", "target_critic")
 
@@ -322,10 +382,6 @@ def build_policy(
     algo = str(cfg.algo.name)
     builder = SERVABLE_BUILDERS.get(algo)
     if builder is None:
-        if algo in NOT_PORTED:
-            raise NotImplementedError(
-                f"serving {algo!r} is not ported yet: see ROADMAP.md Queue 1, item 'Serving'"
-            )
         raise ValueError(f"Algorithm {algo!r} has no servable adapter; registered builders: {sorted(SERVABLE_BUILDERS)}")
     return builder(cfg, obs_space, action_space, agent_state, device)
 

@@ -195,7 +195,7 @@ class CheckpointCallback:
         self.keep_last = keep_last
 
     def on_checkpoint_coupled(self, runtime, ckpt_path: str, state: Dict[str, Any], replay_buffer: Any = None) -> None:
-        from sheeprl_tpu_torch.data.buffers import ReplayBuffer
+        from sheeprl_tpu_torch.data.buffers import EpisodeBuffer, ReplayBuffer
         from sheeprl_tpu_torch.data.device_buffer import DeviceSequentialReplayBuffer
 
         saved = []
@@ -207,6 +207,9 @@ class CheckpointCallback:
                     if rb_state["filled"][e] > 0:
                         truncated[(rb_state["pos"][e] - 1) % replay_buffer.buffer_size, e] = 1
             state = {**state, "rb": rb_state}
+        elif isinstance(replay_buffer, EpisodeBuffer):
+            # stored whole; the open episodes go as they are, as in JAX
+            state = {**state, "rb": replay_buffer.state_dict()}
         elif replay_buffer is not None:
             # the last row written is marked truncated in the snapshot, then
             # restored: a resumed run does not continue that episode

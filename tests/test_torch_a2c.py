@@ -42,6 +42,7 @@ from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.interop.flax_params import _walk, optax_state, optimizer_state_dict, ppo_spec, ppo_to_flax
 from sheeprl_tpu_torch.utils.checkpoint import load_state
 from sheeprl_tpu_torch.utils.optim import RMSprop, rmsprop
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 TINY = ["exp=a2c", "env=dummy", "env.capture_video=False", "algo.dense_units=8", "algo.mlp_layers=2",
         "algo.encoder.mlp_features_dim=6", "algo.mlp_keys.encoder=[state]", "algo.cnn_keys.encoder=[]",

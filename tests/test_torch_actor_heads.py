@@ -27,6 +27,7 @@ from sheeprl_tpu_torch.config import compose
 from sheeprl_tpu_torch.interop.flax_params import _load, actor_spec
 from sheeprl_tpu_torch.ops.distributions import TruncatedNormal
 from test_torch_dv3_train import OBS_SPACE, TINY
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 LATENT, ACTIONS, ROWS = 12, 3, 64
 HEADS = ("normal", "tanh_normal", "trunc_normal", "scaled_normal")

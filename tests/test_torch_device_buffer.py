@@ -19,6 +19,7 @@ from sheeprl_tpu_torch.data.device_buffer import DeviceSequentialReplayBuffer
 from sheeprl_tpu_torch.data.factory import make_dreamer_replay_buffer
 from sheeprl_tpu_torch.utils.checkpoint import CheckpointCallback, load_state
 from sheeprl_tpu_torch.utils.utils import dotdict
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 SIZE, ENVS = 7, 3
 

@@ -30,6 +30,7 @@ from sheeprl_tpu_torch.interop.flax_params import to_flax
 from sheeprl_tpu_torch.resilience.manifest import read_manifest, verify_checkpoint
 from sheeprl_tpu_torch.utils.checkpoint import load_state
 from test_torch_dv3_train import OBS_SPACE, RUN, _adam_moments, _batch, _jax_noise, _leaves, _record_margins, _Setup
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 # the run of the `disc` setup's config (multi-discrete actions), training
 # from iteration 4 and checkpointing at its end

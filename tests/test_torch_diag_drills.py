@@ -34,6 +34,7 @@ from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
 from sheeprl_tpu_torch.resilience.preemption import PREEMPTED_EXIT_CODE, PreemptedExit
 from sheeprl_tpu_torch.utils.checkpoint import OptaxState, load_state
 from test_torch_dv3_train import RUN, _batch, _Setup
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 ROOT = Path(__file__).resolve().parents[1]
 ON = [o for o in RUN if o != "diagnostics=off"]

@@ -19,6 +19,7 @@ from sheeprl_tpu_torch.config import compose
 from sheeprl_tpu_torch.diagnostics.health import explained_variance, health_names, health_stats, mean_stats
 from sheeprl_tpu_torch.interop.flax_params import _to_flax, param_spec
 from test_torch_dv3_train import OBS_SPACE, TINY
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 
 @pytest.fixture(scope="module")

@@ -32,6 +32,7 @@ from sheeprl_tpu_torch.diagnostics.telemetry import Telemetry, count_flops, reso
 from sheeprl_tpu_torch.models import blocks
 from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru, ln_gru_reference
 from test_torch_dv3_train import OBS_SPACE, REC, TINY, B, T, _batch, _Setup
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 PORT = Path(__file__).resolve().parents[1] / "sheeprl_tpu_torch"
 EMITTERS = {"_journal", "_journal_event", "_journal_synced"}

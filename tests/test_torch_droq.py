@@ -32,6 +32,7 @@ from sheeprl_tpu_torch.interop.flax_params import dump_trees, optax_state, optim
 from sheeprl_tpu_torch.utils.checkpoint import load_state
 from test_torch_sac import (ACT_SPACE, GYM_ACT, GYM_OBS, OBS_SPACE, batch, check_moments, jit_build, leaves,
                             perturb, torch_tree)
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 TINY = ["exp=droq", "env=dummy", "env.id=continuous_dummy", "env.capture_video=False", "algo.hidden_size=8",
         "algo.critic.dropout=0.25", "algo.per_rank_batch_size=4", "algo.mlp_keys.encoder=[state]", "seed=3"]

@@ -24,6 +24,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.utils import RSSM_STATE_KEYS, _scan, chu
 from sheeprl_tpu_torch.data.slab import rssm_state_slab
 from sheeprl_tpu_torch.utils.utils import dotdict
 from test_torch_dv3_train import ATOL, DISCRETE, REC, STOCH, _record_margins, _Setup, _t
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 T, B = 8, 2
 Z = STOCH * DISCRETE

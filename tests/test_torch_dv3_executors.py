@@ -15,6 +15,7 @@ from sheeprl_tpu_torch import cli
 from sheeprl_tpu_torch.utils.metric import SumMetric
 from sheeprl_tpu_torch.utils.timer import timer
 from test_torch_dv3_train import RUN
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 
 @pytest.fixture(scope="module")

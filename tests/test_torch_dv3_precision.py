@@ -42,6 +42,7 @@ from sheeprl_tpu_torch.parallel.precision import (
 from sheeprl_tpu_torch.parallel.runtime import Runtime
 from sheeprl_tpu_torch.utils.utils import dotdict
 from test_torch_dv3_train import DISCRETE, STOCH, H, B, T, _adam_moments, _batch, _leaves, _Setup, _t
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 BF16_STEP = 2.0**-8
 

@@ -43,6 +43,7 @@ from sheeprl_tpu_torch.utils import checkpoint as ckpt_mod
 from sheeprl_tpu_torch.utils.checkpoint import CheckpointCallback, OptaxState, load_state, save_state
 from sheeprl_tpu_torch.utils.utils import Ratio
 from test_torch_dv3_train import OBS_SPACE, RUN, _adam_moments, _batch, _jax_noise, _leaves, _record_margins, _Setup
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 # the resume run: 20 iterations of 2 envs, learning from iteration 4 at half
 # a gradient step a policy step, one checkpoint at policy step 24 (iteration

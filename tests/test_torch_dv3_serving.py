@@ -55,6 +55,7 @@ from sheeprl_tpu_torch.serving.loader import (
 from sheeprl_tpu_torch.serving.server import PolicyService, ServeApp
 from sheeprl_tpu_torch.serving.sessions import SessionStore, make_slab_step
 from sheeprl_tpu_torch.utils.checkpoint import ForeignObject, load_state
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 TINY = [
     "exp=dreamer_v3",

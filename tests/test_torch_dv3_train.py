@@ -50,6 +50,7 @@ from sheeprl_tpu_torch.ops import numerics as tn
 from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru, ln_gru_reference
 from sheeprl_tpu_torch.serving.loader import load_policy
 from sheeprl_tpu_torch.utils.checkpoint import load_state
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 GOLDEN = Path(__file__).parent / "golden" / "dv3_goldens.npz"
 T, B, H = 4, 2, 3  # sequence length, batch, imagination horizon
@@ -638,4 +639,4 @@ def test_run_refuses_options_it_does_not_port(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         cli.run(RUN + ["fabric.precision=64-true"])
     with pytest.raises(NotImplementedError, match="not ported"):
-        cli.run(RUN + ["exp=ppo_recurrent"])
+        cli.run(RUN + ["exp=p2e_dv2_exploration"])

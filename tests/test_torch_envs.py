@@ -20,6 +20,7 @@ from sheeprl_tpu_torch.envs.env import EnvThunk, make_env, make_env_fns, pipelin
 from sheeprl_tpu_torch.envs.executor import SharedMemoryVectorEnv, auto_envs_per_worker
 from sheeprl_tpu_torch.envs.wrappers import FrameStack, RestartOnException
 from sheeprl_tpu_torch.utils.utils import dotdict
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 
 def _env_cfg(executor=None, wrapper_id="discrete_dummy", cnn=("rgb",), mlp=("state",), seed=7, num_envs=2,

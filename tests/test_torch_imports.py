@@ -201,3 +201,43 @@ def test_serve_refuses_droq_and_sac_ae(algo):
     obs = spaces.Dict({"state": spaces.Box(-1, 1, (3,))})
     with pytest.raises(ValueError, match=f"'{algo}' has no servable adapter"):
         build_policy(cfg, obs, spaces.Box(-1, 1, (2,)), None, "cpu")
+
+
+@pytest.mark.parametrize("exp", ["dreamer_v2", "dreamer_v1", "ppo_recurrent"])
+def test_dreamer_v1_v2_and_ppo_recurrent_runs_raise_where_no_cuda_device(tmp_path, monkeypatch, exp):
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr("torch.cuda.is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.run([f"exp={exp}", "env=dummy", "diagnostics=off", "algo.mlp_keys.encoder=[state]"])
+    assert not (tmp_path / "logs").exists()
+
+
+def test_the_walk_reaches_the_dreamer_v1_v2_and_ppo_recurrent_modules():
+    """Every module the import test loads includes this slice's."""
+    import importlib
+    import pkgutil
+
+    import sheeprl_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(sheeprl_tpu_torch.__path__, "sheeprl_tpu_torch.")}
+    new = {f"sheeprl_tpu_torch.algos.{algo}.{mod}" for algo, mods in
+           (("dreamer_v2", ("agent", "loss", "utils", "dreamer_v2", "evaluate")),
+            ("dreamer_v1", ("agent", "loss", "utils", "dreamer_v1", "evaluate")),
+            ("ppo_recurrent", ("agent", "utils", "ppo_recurrent", "evaluate"))) for mod in mods}
+    assert new <= names
+    for name in sorted(new):
+        importlib.import_module(name)
+
+
+@pytest.mark.parametrize("algo", ["dreamer_v1", "dreamer_v2"])
+def test_serve_refuses_dreamer_v1_and_v2(algo):
+    """The JAX package serves neither; the port's ``serve`` refuses their
+    checkpoints before it builds anything."""
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.serving.loader import build_policy
+
+    cfg = compose([f"exp={algo}", "env=dummy"])
+    obs = spaces.Dict({"rgb": spaces.Box(0, 255, (3, 64, 64), "uint8")})
+    with pytest.raises(ValueError, match=f"'{algo}' has no servable adapter"):
+        build_policy(cfg, obs, spaces.Discrete(2), None, "cpu")

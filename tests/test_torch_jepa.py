@@ -53,6 +53,7 @@ from test_torch_dv3_train import (
     _record_margins,
     _t,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 TINY = ["exp=dreamer_v3_jepa"] + DV3_TINY[1:] + ["algo.cnn_keys.decoder=[]", "algo.mlp_keys.decoder=[]",
                                                   "algo.jepa_proj_dim=8", "algo.jepa_hidden=8",
@@ -434,7 +435,7 @@ def test_checkpoints_cross_between_the_two_packages_loops(jepa, tmp_path, monkey
     def steps(root):
         return sorted(int(p.name.split("_")[1]) for p in (tmp_path / "logs").rglob("*.ckpt") if root in str(p))
 
-    jax_run(RUN + ["root_dir=jax_jepa"])
+    jax_run(RUN + ["root_dir=jax_jepa", "algo.run_test=False"])  # its test episode is not read
     jax_ckpt = next(p for p in (tmp_path / "logs").rglob("ckpt_8_0.ckpt") if "jax_jepa" in str(p))
     assert steps("jax_jepa") == [8, 16, 24, 32] and "jepa" in load_state(str(jax_ckpt))
     jax_steps = []

@@ -29,6 +29,7 @@ from sheeprl_tpu_torch.ops.ln_gru import (
     fused_layernorm_gru,
     ln_gru_reference,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 GOLDEN = Path(__file__).parent / "golden" / "dv3_goldens.npz"
 # fp32 on both sides; the projections sum K <= 224 products in different

@@ -60,6 +60,7 @@ from test_torch_dv3_train import (
     _record_margins,
     _t,
 )
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 TINY = ["exp=p2e_dv3_exploration"] + DV3_TINY[1:] + [
     "algo.mlp_layers=1", "algo.ensembles.n=3", "algo.ensembles.dense_units=8", "algo.ensembles.mlp_layers=1",
@@ -390,7 +391,7 @@ def test_checkpoints_cross_between_the_two_packages_loops(setups, tmp_path, monk
 
     monkeypatch.chdir(tmp_path)
     setup = _setup(setups, "discrete")
-    jax_run(RUN + ["root_dir=jax_p2e"])
+    jax_run(RUN + ["root_dir=jax_p2e", "algo.run_test=False"])  # its test episode is not read
     jax_ckpt = next(p for p in (tmp_path / "logs").rglob("ckpt_24_0.ckpt") if "jax_p2e" in str(p))
     jax_state = jax_load_state(str(jax_ckpt))
     assert {*TREES, "opt_states", "moments", "rb"} <= set(jax_state)

@@ -35,6 +35,7 @@ from sheeprl_tpu_torch.config import compose
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.interop.flax_params import optax_state, ppo_spec, ppo_to_flax
 from sheeprl_tpu_torch.ops.numerics import gae
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 SCREEN = 36
 TINY = ["exp=ppo", "env=dummy", "env.capture_video=False", f"env.screen_size={SCREEN}", "algo.dense_units=8",
@@ -327,7 +328,7 @@ def test_a_jax_checkpoint_resumes_in_the_port(tmp_path, monkeypatch):
     from sheeprl_tpu.cli import run as jax_run
 
     monkeypatch.chdir(tmp_path)
-    jax_run(RUN + ["root_dir=jax_ppo"])
+    jax_run(RUN + ["root_dir=jax_ppo", "algo.run_test=False"])  # its eager test episode is not read
     ckpts = sorted(tmp_path.rglob("*.ckpt"), key=lambda p: int(p.name.split("_")[1]))
     assert [int(p.name.split("_")[1]) for p in ckpts] == [8, 16]
     _one_update_each(_restored_steps(str(ckpts[0])))

@@ -39,6 +39,7 @@ from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.interop.flax_params import dump_trees, optax_state, optimizer_state_dict, sac_spec
 from sheeprl_tpu_torch.utils.checkpoint import load_state
 from sheeprl_tpu_torch.utils.optim import adamw
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 TINY = ["exp=sac", "env=dummy", "env.id=continuous_dummy", "env.capture_video=False", "algo.hidden_size=8",
         "algo.per_rank_batch_size=4", "algo.mlp_keys.encoder=[state]", "diagnostics.health.per_module=True",

@@ -43,6 +43,7 @@ from sheeprl_tpu_torch.interop.flax_params import dump_trees, sac_ae_spec
 from sheeprl_tpu_torch.utils.checkpoint import load_state
 from test_torch_droq import bounded  # noqa: F401 (a fixture)
 from test_torch_sac import GYM_ACT, ACT_SPACE, check_moments, jit_build, leaves, perturb, torch_tree
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 TINY = ["exp=sac_ae", "env=dummy", "env.id=continuous_dummy", "env.capture_video=False", "env.frame_stack=1",
         "env.screen_size=64", "algo.hidden_size=16", "algo.dense_units=8", "algo.encoder.features_dim=8",

@@ -25,6 +25,7 @@ from sheeprl_tpu_torch.parallel.runtime import Runtime
 from sheeprl_tpu_torch.utils.checkpoint import CheckpointCallback, load_state
 from sheeprl_tpu_torch.utils.optim import adam, clip_by_global_norm, global_norm
 from sheeprl_tpu_torch.utils.utils import Ratio
+from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 
 def _rows(steps: int, n_envs: int, seed: int):
