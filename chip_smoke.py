@@ -15,8 +15,10 @@ Phases, in order; any failure raises and the script exits non-zero:
             card, fp32 and bf16, at the DreamerV3-S shape (K=1024, H=512;
             B = 1, 8, 37, 128 for serving, 16 and 1024 for the training
             path's dynamic and imagination scans) and the XL shape (K=5120,
-            H=4096; B = 8, 128 and DreamerV3-JEPA's 16, 1024) and XS (K=512,
-            H=256; B = 16, 1024), with device times of the kernel (warm L2,
+            H=4096; B = 8, 128 and DreamerV3-JEPA's 16, 1024), XS (K=512,
+            H=256; B = 16, 1024), DreamerV2's (K=1000, H=600; B = 16, 800)
+            and Plan2Explore-DV2's (K=800, H=400; B = 16, 800), with device
+            times of the kernel (warm L2,
             and cold: rotating over copies of the inputs that exceed the
             50 MB L2), the plain version, the projection alone as one
             torch.matmul (a partial yardstick the port never calls) and the
@@ -134,14 +136,35 @@ Phases, in order; any failure raises and the script exits non-zero:
             ``exp=ppo_atari``'s widths and A2C under
             ``fabric.precision=bf16-mixed``.  None of them runs a hand-written
             kernel: each path's ln_gru launches are counted, 0;
-15. timers — a gradient step's stream time, device-busy time, idle share
+15. dv2   — ``run exp=dreamer_v2`` and ``exp=dreamer_v1`` at their widths
+            (``DV2_OVERRIDES``, ``DV1_OVERRIDES``), each training after the
+            env step's rows reached the replay, as the JAX loops do; DreamerV2
+            through the kernel (65 launches a gradient step; the episode
+            buffer; ``bf16-mixed``; a kernel-vs-plain step), resumed (the
+            target counter restarting at 0), evaluated and refused by
+            ``serve``; DreamerV1 with 0 launches; PPO-recurrent at its widths,
+            served over HTTP sessions; their steps' and update's timers;
+16. p2e-dv — ``run exp=p2e_dv2_exploration`` at its widths
+            (``P2E_DREAMER_OVERRIDES``: 64x64 ``rgb``, CNN multiplier 48,
+            dense and recurrent 400, an ensemble of 10 x 400 x 4; batch 16 x
+            50, horizon 15, fp32) through the kernel in the dynamic scan and
+            both imaginations (80 launches a step: 50 at 16 rows, 2 x 15 at
+            800), every metric finite and the intrinsic reward positive, both
+            checkpoints verified, a kernel-vs-plain exploration step from the
+            last; a resume from the first; ``run exp=p2e_dv2_finetuning`` from
+            the last and its replay (65 launches a step, the player switching
+            actors at the first gradient step); ``eval`` of both, ``serve``
+            refusing both; the same for ``exp=p2e_dv1_exploration`` (batch 50
+            x 50, its plain GRU: 0 launches); both exploration steps' stream
+            and busy time, idle share, launches, FLOPs and MFU;
+17. timers — a gradient step's stream time, device-busy time, idle share
             and launches (``step_profile.time_gradient_steps``) for the fp32
             ``rssm_chunks=1`` step and the chunked bf16 one, each with the
-            diagnostics off and on (health stats, instrumented: its FLOPs and
-            MFU); the CPU's FLOP count of the fp32 step, equal to the card's;
-            the journals' MFU, the syncs a step, ``ckpt_end``'s ``write_ms``
-            (async and blocking) and every run's kernel launches;
-16. the ``kernels`` JSON line, then the result line.
+            diagnostics off and then on (health stats, instrumented: its
+            FLOPs and MFU); the CPU's FLOP count of the fp32 step, equal to
+            the card's; the journals' MFU, the syncs a step, ``ckpt_end``'s
+            ``write_ms`` (async and blocking) and every run's kernel launches;
+18. the ``kernels`` JSON line, then the result line.
 
 It needs no network, writes only under ``build/`` in the checkout (and
 removes the XL runs' checkpoints once their phases are done), and stops
@@ -178,6 +201,7 @@ S_SHAPE = (512, 512)  # (H, D): K = H + D = 1024
 XL_SHAPE = (4096, 1024)  # K = 5120
 XS_SHAPE = (256, 256)  # K = 512
 DV2_SHAPE = (600, 400)  # exp=dreamer_v2: recurrent 600, dense 400; K = 1000
+P2E_DV2_SHAPE = (400, 400)  # exp=p2e_dv2_exploration: recurrent 400, dense 400; K = 800
 # S: serving widths, then the training path's (B = per_rank_batch_size 16 in
 # the dynamic scan, T*B = 1024 rows in imagination; 64 = K*B rows of the
 # chunked scan and 48 = (K-1)*B of its burn-in at rssm_chunks=4).  XL and
@@ -185,7 +209,7 @@ DV2_SHAPE = (600, 400)  # exp=dreamer_v2: recurrent 600, dense 400; K = 1000
 # two training widths; XL also at serving widths
 KERNEL_CASES = [(S_SHAPE, b) for b in (1, 8, 37, 128, 16, 1024, 64, 48)] + \
     [(XL_SHAPE, b) for b in (8, 128, 16, 1024)] + [(XS_SHAPE, b) for b in (16, 1024)] + \
-    [(DV2_SHAPE, b) for b in (16, 800)]
+    [(DV2_SHAPE, b) for b in (16, 800)] + [(P2E_DV2_SHAPE, b) for b in (16, 800)]
 GRAD_CASES = [(S_SHAPE, b, d) for d in ("float32", "bfloat16") for b in (16, 1024)] + \
     [(XL_SHAPE, b, "float32") for b in (16, 1024)]
 # the graph check: the Function's backward is autograd through the plain
@@ -381,6 +405,39 @@ DV1_OVERRIDES = ["exp=dreamer_v1", "env=dummy", "env.capture_video=False", "run_
                  "metric.log_every=16", "seed=5"]
 DV1_MIN_GRADIENT_STEPS = 4
 DREAMER_TIMED_STEPS = 3
+# the Plan2Explore-DV2 and DV1 phases: exp=p2e_dv2_exploration's widths
+# (64x64 rgb, CNN multiplier 48, dense 400 x 4, recurrent 400, stochastic
+# 32 x 32, hidden 400, an ensemble of 10 x 400 x 4; batch 16 x 50, horizon
+# 15, fp32) and exp=p2e_dv1_exploration's (CNN multiplier 32, dense 400 x
+# 4, recurrent 400, stochastic 60, hidden 400, the ensemble 10 x 400 x 4
+# onto the embedding; batch 50 x 50, horizon 15, fp32) on the dummy env, 4
+# envs, cut in depth as DreamerV2's run: learning from policy step 256,
+# checkpoints (with the replay) at iterations 66 (before the first gradient
+# step) and 132, the run to 148; at replay ratio 0.02 about 6 gradient
+# steps, and the run resumed from the first checkpoint one more.
+# Finetuning goes on from the last checkpoint and its replay: 4 iterations
+# of prefill, the exploration actor until the first gradient step and the
+# task actor after it; about 5 gradient steps in 16 iterations
+P2E_DREAMER_OVERRIDES = {
+    version: [f"exp=p2e_dv{version}_exploration", "env=dummy", "env.capture_video=False",
+              f"run_name=chip_smoke_p2e_dv{version}", "algo.learning_starts=256", "algo.total_steps=592",
+              "algo.replay_ratio=0.02", "buffer.size=1024", "buffer.checkpoint=True", "checkpoint.every=264",
+              "checkpoint.save_last=False", "metric.logger=null", "metric.log_every=16", "seed=5"]
+    for version in (2, 1)}
+P2E_DREAMER_FINETUNE_OVERRIDES = {
+    version: [f"exp=p2e_dv{version}_finetuning", "env=dummy", "env.capture_video=False",
+              f"run_name=chip_smoke_p2e_dv{version}_finetuning", "algo.learning_starts=16", "algo.total_steps=64",
+              "algo.replay_ratio=0.1", "buffer.size=1024", "buffer.load_from_exploration=True",
+              "buffer.checkpoint=False", "checkpoint.every=100000", "checkpoint.save_last=True",
+              "metric.logger=null", "metric.log_every=16", "seed=5"]
+    for version in (2, 1)}
+P2E_DREAMER_MIN_GRADIENT_STEPS = 4
+# kernel launches a gradient step, (exploration, finetuning): P2E-DV2's 50
+# dynamic steps at 16 rows and 15 imagined steps at 800 in each of two
+# imaginations (one in the finetuning's DreamerV2 step), one launch a call;
+# P2E-DV1's plain GRU none
+P2E_DREAMER_LAUNCHES = {2: (80, 65), 1: (0, 0)}
+P2E_DREAMER_TIMED_STEPS = 3
 # the recurrent PPO phase: exp=ppo_recurrent's widths (16 envs x 512 rollout
 # steps, sequences of 16 in 8 minibatches, 8 epochs, LSTM 64, encoder 64,
 # adamw with clip 0.5) on the dummy env's `state` (CartPole needs
@@ -2008,12 +2065,15 @@ def run_p2e_resume(p2e: dict) -> dict:
             "optimizers": restored["optimizers"], "moments": len(restored["moments"])}
 
 
-def run_p2e_finetune(build_dir: Path, p2e: dict, device_name: str = "cuda") -> dict:
+def run_p2e_finetune(build_dir: Path, p2e: dict, device_name: str = "cuda", overrides=None, widths=None,
+                     kernel: bool = True, where: str = "p2e_finetuning") -> dict:
     """``run exp=p2e_dv3_finetuning checkpoint.exploration_ckpt_path=<the
     exploration run's last> buffer.load_from_exploration=True``: DreamerV3's
     step at the exploration's widths (one imagination a step), the player
     on the exploration actor until the first gradient step and on the task
-    actor after it, every metric finite, the checkpoint verified."""
+    actor after it, every metric finite, the checkpoint verified.  With
+    ``overrides`` and ``widths`` another family's finetuning (P2E-DV2's,
+    P2E-DV1's: no kernel launch without ``kernel``), under ``where``."""
     import numpy as np
     import torch
 
@@ -2023,9 +2083,9 @@ def run_p2e_finetune(build_dir: Path, p2e: dict, device_name: str = "cuda") -> d
     from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
     from sheeprl_tpu_torch.utils.checkpoint import load_state
 
-    overrides = P2E_FINETUNE_OVERRIDES + [f"root_dir={(build_dir / 'p2e_finetuning').resolve()}",
-                                          f"fabric.accelerator={device_name}",
-                                          f"checkpoint.exploration_ckpt_path={p2e['checkpoint']}"]
+    overrides = (overrides or P2E_FINETUNE_OVERRIDES) + [f"root_dir={(build_dir / where).resolve()}",
+                                                         f"fabric.accelerator={device_name}",
+                                                         f"checkpoint.exploration_ckpt_path={p2e['checkpoint']}"]
     fused_layernorm_gru.launches = 0  # the main path starts here
     out = cli.run(overrides)
     torch.cuda.synchronize()
@@ -2034,8 +2094,8 @@ def run_p2e_finetune(build_dir: Path, p2e: dict, device_name: str = "cuda") -> d
     from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_finetuning import apply_exploration_cfg, load_exploration_cfg
 
     apply_exploration_cfg(cfg, load_exploration_cfg(cfg))
-    _p2e_xl_widths(cfg)
-    predicted, per_step = _launches(cfg, out)
+    (widths or _p2e_xl_widths)(cfg)
+    predicted, per_step = _launches(cfg, out) if kernel else (0, 0)
     ckpt = out["checkpoints"][-1]
     switches = out["player_actors"]
     first_train = out["first_train_iter"]
@@ -2044,7 +2104,7 @@ def run_p2e_finetune(build_dir: Path, p2e: dict, device_name: str = "cuda") -> d
             or not switches[0][0] <= first_train < switches[1][0] == first_train + 1
             or verify_checkpoint(ckpt) != (True, "verified")
             or not {"actor_exploration", "actor", "opt_states"} <= set(load_state(ckpt))):
-        raise AssertionError(f"p2e finetuning: {out['gradient_steps']} gradient steps, {launches} ln_gru launches "
+        raise AssertionError(f"{where}: {out['gradient_steps']} gradient steps, {launches} ln_gru launches "
                              f"(predicted {predicted}), player actors {switches}, first gradient step at iteration "
                              f"{first_train}, checkpoint {ckpt} {verify_checkpoint(ckpt)}")
     return {"gradient_steps": out["gradient_steps"], "player_steps": out["player_steps"],
@@ -2053,10 +2113,11 @@ def run_p2e_finetune(build_dir: Path, p2e: dict, device_name: str = "cuda") -> d
             "final_metrics": dict(zip(out["metric_order"], out["metric_rows"][-1].tolist()))}
 
 
-def run_p2e_eval(checkpoints, device_name: str = "cuda") -> dict:
+def run_p2e_eval(checkpoints, device_name: str = "cuda", kernel: bool = True) -> dict:
     """``eval`` of each P2E checkpoint (the task actor acts through the
-    kernel), then ``serve``, which refuses each as the JAX package does (no
-    P2E adapter)."""
+    kernel; without ``kernel``, P2E-DV1's plain GRU, it launches none), then
+    ``serve``, which refuses each as the JAX package does (no P2E
+    adapter)."""
     import math
 
     import torch
@@ -2071,7 +2132,8 @@ def run_p2e_eval(checkpoints, device_name: str = "cuda") -> dict:
         out["test_rewards"].append(cli.evaluation([f"checkpoint_path={ckpt}"]))
     torch.cuda.synchronize()
     out["ln_gru_launches"] = fused_layernorm_gru.launches  # the main path ends here
-    if not all(math.isfinite(r) for r in out["test_rewards"]) or out["ln_gru_launches"] < len(checkpoints):
+    launched = out["ln_gru_launches"] >= len(checkpoints) if kernel else out["ln_gru_launches"] == 0
+    if not all(math.isfinite(r) for r in out["test_rewards"]) or not launched:
         raise AssertionError(f"p2e eval: test rewards {out['test_rewards']}, {out['ln_gru_launches']} ln_gru launches")
     for ckpt in checkpoints:
         cfg, ckpt_path, device = cli.serve_config([f"checkpoint_path={ckpt}", "serving.port=0",
@@ -2539,11 +2601,11 @@ def run_timers(device_name: str = "cuda") -> dict:
 
     out = {}
     for name, extra in (("fp32", []), ("bf16_chunked", CHUNKED_STEP_OPTIONS)):
-        # in turns, off, on, on, off: the step is host-bound and its time
-        # moves with the host
-        for turn, diagnostics in enumerate((False, True, True, False)):
+        # off, then on: the step is host-bound and its time moves with the
+        # host, so the two are compared within this call only
+        for turn, diagnostics in enumerate((False, True)):
             step, moments, batch, gen = profiled_step(extra, device_name, diagnostics)
-            timing = time_gradient_steps(step, moments, batch, gen, TIMED_STEPS, warmup=3, profile=True)
+            timing = time_gradient_steps(step, moments, batch, gen, TIMED_STEPS, warmup=2, profile=True)
             gru = [v for k, v in timing["kernels"].items() if "ln_gru" in k]
             row = {"step_ms": timing["step_ms"], "steps_per_s": timing["steps_per_s"], "busy_ms": timing["busy_ms"],
                    "idle_share": timing["idle_share"], "launches": timing["launches"],
@@ -2705,11 +2767,12 @@ def run_dv2(build_dir: Path, device_name: str = "cuda") -> dict:
     }
 
 
-def run_dreamer_resume(run: dict, where: str, device_name: str = "cuda", kernel: bool = True) -> dict:
+def run_dreamer_resume(run: dict, where: str, device_name: str = "cuda", kernel: bool = True,
+                       imaginations: int = 1) -> dict:
     """``run checkpoint.resume_from=<the run's mid-run checkpoint>``: the
     trees and optimizer states restored as saved, and the run trains on,
-    the kernel's launches as predicted (none without ``kernel``: DreamerV1's
-    plain GRU)."""
+    the kernel's launches as predicted for ``imaginations`` imaginations a
+    gradient step (none without ``kernel``: DreamerV1's plain GRU)."""
     import numpy as np
     import torch
 
@@ -2744,7 +2807,7 @@ def run_dreamer_resume(run: dict, where: str, device_name: str = "cuda", kernel:
         for path, value in _optax_leaves(entry).items():
             if not np.array_equal(restored["adam"][name].get(path), value):
                 problems.append(f"Adam {name} {path}")
-    predicted = _launches(cfg, out)[0] if kernel else 0
+    predicted = _launches(cfg, out, imaginations)[0] if kernel else 0
     if (out["start_iter"] != saved["iter_num"] + 1 or out["gradient_steps"] < 1 or launches != predicted
             or not np.isfinite(out["metric_rows"]).all()):
         problems.append(f"start_iter {out['start_iter']}, {out['gradient_steps']} gradient steps, {launches} "
@@ -2753,7 +2816,7 @@ def run_dreamer_resume(run: dict, where: str, device_name: str = "cuda", kernel:
         raise AssertionError(f"{where} resume from {run['mid_checkpoint']}: " + "; ".join(problems[:10]))
     return {"start_iter": out["start_iter"], "gradient_steps": out["gradient_steps"],
             "player_steps": out["player_steps"], "test_steps": out["test_steps"], "ln_gru_launches": launches,
-            "gradient_steps_saved": saved.get("gradient_steps")}
+            "optimizers": sorted(saved["opt_states"])}
 
 
 def run_dreamer_eval(run: dict, where: str, device_name: str = "cuda") -> dict:
@@ -2864,6 +2927,160 @@ def run_dreamer_timers(device_name: str = "cuda") -> dict:
                      "max_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
                      "top": sorted(((v[1] / DREAMER_TIMED_STEPS / 1e3, k[:60]) for k, v in timing["kernels"].items()),
                                    reverse=True)[:4]}
+        del step, moments, batch
+    return out
+
+
+def _p2e_dreamer_widths(version: int):
+    """The width check of ``exp=p2e_dv<version>_exploration`` (and of its
+    finetuning, which takes the exploration's widths)."""
+
+    def check(cfg) -> None:
+        wm_cfg, ens = cfg.algo.world_model, cfg.algo.ensembles
+        widths = (wm_cfg.recurrent_model.recurrent_state_size, wm_cfg.recurrent_model.dense_units, cfg.algo.dense_units,
+                  cfg.algo.mlp_layers, wm_cfg.encoder.cnn_channels_multiplier, wm_cfg.stochastic_size,
+                  wm_cfg.get("discrete_size"), wm_cfg.representation_model.hidden_size,
+                  wm_cfg.transition_model.hidden_size, cfg.algo.per_rank_batch_size,
+                  cfg.algo.per_rank_sequence_length, cfg.algo.horizon, cfg.fabric.precision, cfg.env.screen_size,
+                  list(cfg.algo.cnn_keys.encoder), cfg.env.num_envs)
+        want = {2: (400, 400, 400, 4, 48, 32, 32, 400, 400, 16, 50, 15, "32-true", 64, ["rgb"], 4),
+                1: (400, 400, 400, 4, 32, 60, None, 400, 400, 50, 50, 15, "32-true", 64, ["rgb"], 4)}[version]
+        if widths != want or (cfg.algo.name.endswith("exploration") and (ens.n, ens.dense_units, ens.mlp_layers) != (
+                10, 400, 4)):
+            raise AssertionError(f"the P2E-DV{version} config is not exp=p2e_dv{version}_exploration's widths: "
+                                 f"{widths}, ensembles {ens.n} x {ens.dense_units} x {ens.mlp_layers}")
+
+    return check
+
+
+def run_p2e_dreamer(build_dir: Path, version: int, device_name: str = "cuda") -> dict:
+    """Plan2Explore on DreamerV2 (``version=2``) or V1 explores on the card
+    through ``run`` at its preset's widths (``P2E_DREAMER_OVERRIDES``):
+    every one of the 20 metrics finite, the intrinsic reward positive; the
+    world model, the ensembles, both actors and both critics changed; the
+    kernel's launches as the counters predict for two imaginations a step
+    (P2E-DV2: 50 calls of 16 rows and 2 x 15 of 800; P2E-DV1's plain GRU
+    none); the journal of the default diagnostics (no health stats: the
+    JAX step has none); both checkpoints verified; then, for P2E-DV2, one
+    exploration step from the last through the kernel and through the plain
+    path, which must agree."""
+    device = device_name
+    import math
+
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import synthetic_batch
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs.env import make_env
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
+    from sheeprl_tpu_torch.serving.loader import _actions_dim
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    where = f"p2e_dv{version}"
+    overrides = P2E_DREAMER_OVERRIDES[version] + [f"root_dir={(build_dir / where).resolve()}",
+                                                  f"fabric.accelerator={device}"]
+    cfg = compose(overrides)
+    _p2e_dreamer_widths(version)(cfg)
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    out = cli.run(overrides)
+    torch.cuda.synchronize()
+    launches = fused_layernorm_gru.launches  # the main path ends here
+
+    rows, order = out["metric_rows"], out["metric_order"]
+    sps = _timer_metrics(out["logged"], where)
+    intrinsic = rows[:, order.index("Rewards/intrinsic")]
+    if (out["gradient_steps"] < P2E_DREAMER_MIN_GRADIENT_STEPS or rows.shape[1] != len(order) or len(order) != 20
+            or not np.isfinite(rows).all() or not (intrinsic > 0).all()
+            or [name for _, name in out["player_actors"]] != ["actor_exploration"]):
+        raise AssertionError(f"{where}: {out['gradient_steps']} gradient steps, metric rows {rows}, player actors "
+                             f"{out['player_actors']}")
+    predicted, per_step = _launches(cfg, out, imaginations=2) if version == 2 else (0, 0)
+    if launches != predicted or per_step != P2E_DREAMER_LAUNCHES[version][0]:
+        raise AssertionError(f"{where}: ln_gru launched {launches} times; the run predicts {predicted} "
+                             f"({out['gradient_steps']} gradient steps x {per_step} + {out['player_steps']} player "
+                             f"steps + {out['test_steps']} test steps)")
+    journal = _journal_of(out["log_dir"])
+    _check_diagnostics_journal(journal, where, health=False)
+    mid, ckpt = out["checkpoints"][0], out["checkpoints"][-1]
+    for path in (mid, ckpt):
+        if verify_checkpoint(path) != (True, "verified"):
+            raise AssertionError(f"{where}: checkpoint {path} does not verify by its manifest: "
+                                 f"{verify_checkpoint(path)}")
+    state, initial = load_state(ckpt), load_state(mid)
+    # the mid-run checkpoint holds the weights before the first gradient step
+    if initial["opt_states"]["world_model"][1][0][0] != 0:
+        raise AssertionError(f"{where}: the checkpoint {mid} was taken after a gradient step")
+    changed = {}
+    for tree in ("world_model", "ensembles", "actor_exploration", "critic_exploration", "actor_task", "critic_task"):
+        before, after = dict(_leaves(initial[tree])), dict(_leaves(state[tree]))
+        changed[tree] = sum(not np.array_equal(before[p], after[p]) for p in before)
+        if changed[tree] == 0:
+            raise AssertionError(f"{where}: training left every parameter of {tree} unchanged")
+    del initial
+    report = {
+        "gradient_steps": out["gradient_steps"], "player_steps": out["player_steps"], "test_steps": out["test_steps"],
+        "policy_steps": out["policy_steps"], "ln_gru_launches": launches, "launches_per_gradient_step": per_step,
+        "changed_leaves": changed, "final_metrics": dict(zip(order, rows[-1].tolist())), "checkpoint": ckpt,
+        "mid_checkpoint": mid, "overrides": overrides, "journal": journal, "sps": sps,
+        "intrinsic": [float(x) for x in intrinsic],
+    }
+    if version == 2:
+        env = make_env(cfg, cfg.seed, 0)()
+        actions_dim, is_continuous, _ = _actions_dim(env.action_space)
+        spaces_ = (actions_dim, is_continuous, env.observation_space)
+        env.close()
+        gen = torch.Generator(device=device).manual_seed(13)
+        batch = synthetic_batch(cfg, actions_dim, gen, device)
+        noise = _p2e_noise(cfg, actions_dim, gen, device)
+        (m_kernel, g_kernel, p_kernel, _), (m_plain, g_plain, p_plain, _) = _kernel_vs_plain_step(
+            cfg, state, spaces_, batch, noise, device)
+        metric_err = float(np.max(np.abs(m_kernel - m_plain) / np.maximum(np.abs(m_plain), 1e-3)))
+        grad_err = max(((g_kernel[k] - g_plain[k]).abs().max() / g_plain[k].abs().max().clamp_min(1e-30)).item()
+                       for k in g_plain)
+        diff = (p_kernel - p_plain).abs()
+        param_err, outliers = diff.max().item(), (diff > STEP_PARAM_ATOL).float().mean().item()
+        if (not np.isfinite(m_kernel).all() or metric_err > STEP_METRIC_RTOL or grad_err > STEP_GRAD_RTOL
+                or outliers > STEP_PARAM_OUTLIERS or not math.isfinite(param_err)):
+            raise AssertionError(
+                f"{where} kernel vs plain exploration step: metrics relative error {metric_err} (tol "
+                f"{STEP_METRIC_RTOL}), gradients relative error {grad_err} (tol {STEP_GRAD_RTOL}), share of params "
+                f"off by more than {STEP_PARAM_ATOL}: {outliers} (tol {STEP_PARAM_OUTLIERS}); kernel {m_kernel}, "
+                f"plain {m_plain}")
+        report.update(step_metric_rel_err=metric_err, step_grad_rel_err=grad_err, step_param_max_abs_err=param_err,
+                      step_param_outliers=outliers)
+    return report
+
+
+def run_p2e_dreamer_timers(device_name: str = "cuda") -> dict:
+    """The P2E-DV2 and P2E-DV1 exploration steps as the default diagnostics
+    build them (telemetry's instrumentation counting the FLOPs at the first
+    call; the JAX steps have no health stats): stream time, device-busy
+    time, idle share, launches, the kernel's launches and time, FLOPs, the
+    step's MFU and the peak memory."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import profiled_step, time_gradient_steps
+    from sheeprl_tpu_torch.diagnostics.telemetry import resolve_peak_flops
+
+    out = {}
+    peak = resolve_peak_flops(torch.cuda.get_device_name(0), "32-true")
+    for version in (2, 1):
+        torch.cuda.reset_peak_memory_stats()
+        step, moments, batch, gen = profiled_step([f"exp=p2e_dv{version}_exploration"], device_name, True)
+        timing = time_gradient_steps(step, moments, batch, gen, P2E_DREAMER_TIMED_STEPS, warmup=2, profile=True)
+        gru = [v for k, v in timing["kernels"].items() if "ln_gru" in k]
+        out[f"p2e_dv{version}"] = {
+            "step_ms": timing["step_ms"], "stream_ms": timing["stream_ms"], "busy_ms": timing["busy_ms"],
+            "idle_share": timing["idle_share"], "launches": timing["launches"],
+            "ln_gru_launches": sum(v[0] for v in gru) // P2E_DREAMER_TIMED_STEPS,
+            "ln_gru_ms": sum(v[1] for v in gru) / 1e3 / P2E_DREAMER_TIMED_STEPS, "flops_per_step": step.flops_per_call,
+            "step_mfu": step.flops_per_call / (timing["step_ms"] / 1e3) / peak if peak else None,
+            "max_memory_gb": torch.cuda.max_memory_allocated() / 2**30,
+            "top": sorted(((v[1] / P2E_DREAMER_TIMED_STEPS / 1e3, k[:60]) for k, v in timing["kernels"].items()),
+                          reverse=True)[:4]}
         del step, moments, batch
     return out
 
@@ -3430,7 +3647,7 @@ def main() -> int:
               f"{[round(x, 4) for x in r['final_metrics']]}  [{card}]", flush=True)
     dv2_resumed = run_dreamer_resume(dv2, "dv2")
     print(f"[dv2] resume from {dv2['mid_checkpoint']}: the four trees and three adamw states restored as saved, the "
-          f"gradient-step counter at {dv2_resumed['gradient_steps_saved']}; started at iteration "
+          f"target counter restarted at 0 (the JAX loop's); started at iteration "
           f"{dv2_resumed['start_iter']}, {dv2_resumed['gradient_steps']} gradient steps, "
           f"{dv2_resumed['ln_gru_launches']} ln_gru launches = predicted  [{card}]", flush=True)
     dv2_evaluated = run_dreamer_eval(dv2, "dreamer_v2")
@@ -3483,6 +3700,69 @@ def main() -> int:
           f"phases took {time.monotonic() - dv_t0:.1f} s  [{card}]", flush=True)
 
     mark('dv2, dv1, ppo_recurrent')
+    p2e_dv_t0 = time.monotonic()
+    p2e_dv = {}
+    p2e_cases = {(c["B"], c["dtype"]): c for c in cases if c["H"] == P2E_DV2_SHAPE[0]}
+    for version in (2, 1):
+        where, kernel = f"p2e_dv{version}", version == 2
+        run = run_p2e_dreamer(build_dir, version)
+        widths = ("64x64 rgb, CNN multiplier 48, dense 400 x 4, recurrent 400, stochastic 32 x 32, hidden 400, "
+                  "ensembles 10 x 400 x 4; batch 16 x 50" if kernel else
+                  "64x64 rgb, CNN multiplier 32, dense 400 x 4, recurrent 400, stochastic 60, hidden 400, ensembles "
+                  "10 x 400 x 4 onto the embedding; batch 50 x 50")
+        kernel_text = (f"{run['ln_gru_launches']} ln_gru launches = predicted ({run['launches_per_gradient_step']} "
+                       f"per gradient step: 50 x 16 rows + 2 imaginations x 15 x 800 at K=800 H=400)" if kernel else
+                       f"{run['ln_gru_launches']} ln_gru launches (its GRU has no LayerNorm)")
+        print(f"[{where}] Plan2Explore-DV{version} run exp={where}_exploration at its widths ({widths}, horizon 15, "
+              f"fp32) under the default diagnostics: {run['gradient_steps']} gradient steps, {run['player_steps']} "
+              f"player steps (the exploration actor), {run['test_steps']} zero-shot test steps (the task actor), "
+              f"{run['policy_steps']} policy steps; {kernel_text}; every metric finite, Rewards/intrinsic by step "
+              f"{run['intrinsic']}, final {json.dumps(run['final_metrics'])}; leaves changed "
+              f"{run['changed_leaves']}; both checkpoints verified; Time/sps_train {run['sps']['Time/sps_train']}, "
+              f"Time/sps_env_interaction {run['sps']['Time/sps_env_interaction']}; journal Telemetry/mfu "
+              f"{run['journal']['mfu']}, FLOPs counted {run['journal']['flops_per_step']}  [{card}]", flush=True)
+        if kernel:
+            print(f"[{where}] kernel vs plain exploration step from the last checkpoint's state, one batch and noise: "
+                  f"metrics max relative error {run['step_metric_rel_err']:.3g} (tol {STEP_METRIC_RTOL:g}), gradients "
+                  f"{run['step_grad_rel_err']:.3g} (tol {STEP_GRAD_RTOL:g}), params off by more than "
+                  f"{STEP_PARAM_ATOL:g}: {run['step_param_outliers']:.3g} (tol {STEP_PARAM_OUTLIERS:g}), max_abs_err "
+                  f"{run['step_param_max_abs_err']:.3g} (not held)  [{card}]", flush=True)
+        resumed_run = run_dreamer_resume(run, where, kernel=kernel, imaginations=2)
+        finetuned = run_p2e_finetune(build_dir, run, overrides=P2E_DREAMER_FINETUNE_OVERRIDES[version],
+                                     widths=_p2e_dreamer_widths(version), kernel=kernel, where=f"{where}_finetuning")
+        if finetuned["launches_per_gradient_step"] != P2E_DREAMER_LAUNCHES[version][1]:
+            raise AssertionError(f"{where} finetuning: {finetuned['launches_per_gradient_step']} ln_gru launches a "
+                                 f"gradient step, not {P2E_DREAMER_LAUNCHES[version][1]}")
+        evaluated_runs = run_p2e_eval([run["checkpoint"], finetuned["checkpoint"]], kernel=kernel)
+        print(f"[{where}] resume from {run['mid_checkpoint']}: the trees and optimizer states "
+              f"({', '.join(resumed_run['optimizers'])}) restored as saved; started at iteration "
+              f"{resumed_run['start_iter']}, {resumed_run['gradient_steps']} gradient steps, "
+              f"{resumed_run['ln_gru_launches']} ln_gru launches = predicted; finetuning run exp={where}_finetuning "
+              f"from {run['checkpoint']} with its replay: {finetuned['gradient_steps']} gradient steps, "
+              f"{finetuned['player_steps']} player steps, {finetuned['ln_gru_launches']} ln_gru launches = predicted "
+              f"({finetuned['launches_per_gradient_step']} per gradient step), the player acted with (iteration, "
+              f"actor) {finetuned['player_actors']}, the first gradient step at iteration "
+              f"{finetuned['first_train_iter']}, final {json.dumps(finetuned['final_metrics'])}; eval of both "
+              f"checkpoints Test/cumulative_reward {evaluated_runs['test_rewards']}, "
+              f"{evaluated_runs['ln_gru_launches']} ln_gru launches; serve refused both  [{card}]", flush=True)
+        p2e_dv[version] = {"run": run, "resume": resumed_run, "finetune": finetuned, "eval": evaluated_runs}
+        shutil.rmtree(build_dir / where, ignore_errors=True)
+        shutil.rmtree(build_dir / f"{where}_finetuning", ignore_errors=True)
+    p2e_dv_timers = run_p2e_dreamer_timers()
+    for name, t in p2e_dv_timers.items():
+        fwd = ""
+        if name == "p2e_dv2":
+            ms = 50 * p2e_cases[(16, "float32")]["ms"] + 30 * p2e_cases[(800, "float32")]["ms"]
+            fwd = f" (the P2E-DV2 kernel cases predict a forward of {ms:.4f} ms)"
+        print(f"[{name}-timer] Plan2Explore-DV{name[-1]} exploration step (fp32, default diagnostics): median stream "
+              f"time {t['step_ms']:.3f} ms (CUDA events; {[round(x, 3) for x in t['stream_ms']]}), device busy "
+              f"{t['busy_ms']:.3f} ms (torch.profiler), idle share {t['idle_share']:.4f}, {t['launches']} launches a "
+              f"step, ln_gru {t['ln_gru_launches']} launches {t['ln_gru_ms']:.4f} ms a step{fwd}; "
+              f"{t['flops_per_step']:.6g} FLOPs a step counted, step MFU {t['step_mfu']}; peak memory "
+              f"{t['max_memory_gb']:.2f} GiB; top kernels (ms, name) {t['top']}  [{card}]", flush=True)
+    print(f"[p2e-dv] the P2E-DV2 and P2E-DV1 phases took {time.monotonic() - p2e_dv_t0:.1f} s  [{card}]", flush=True)
+
+    mark('p2e dv2, dv1')
     timers = run_timers()
     for name, t in timers.items():
         fp32 = name.startswith("fp32")
@@ -3503,9 +3783,9 @@ def main() -> int:
             f"{t['launches']} kernel launches a step, ln_gru {t['ln_gru_launches']} launches {t['ln_gru_ms']:.4f} ms "
             f"a step (the kernel cases predict a forward of {fwd:.4f} ms){extra}  [{card}]", flush=True)
     for name in ("fp32", "bf16_chunked"):
-        on = [timers[f"{name}_diagnostics_{turn}"] for turn in (1, 2)]
-        off = [timers[f"{name}_off_{turn}"] for turn in (0, 3)]
-        print(f"[timer] {name}: diagnostics on vs off (turns off, on, on, off): "
+        on = [timers[f"{name}_diagnostics_{turn}"] for turn in (1,)]
+        off = [timers[f"{name}_off_{turn}"] for turn in (0,)]
+        print(f"[timer] {name}: diagnostics on vs off (turns off, on): "
               f"{[t['launches'] for t in on]} vs {[t['launches'] for t in off]} launches a step, "
               f"{[round(t['step_ms'], 3) for t in on]} vs {[round(t['step_ms'], 3) for t in off]} ms stream time, "
               f"busy {[round(t['busy_ms'], 3) for t in on]} vs {[round(t['busy_ms'], 3) for t in off]} ms  [{card}]",
@@ -3543,7 +3823,10 @@ def main() -> int:
           f"{dv2['runs']['bf16']['ln_gru_launches']}, dv2 resume {dv2_resumed['ln_gru_launches']}, dv2 eval "
           f"{dv2_evaluated['ln_gru_launches']}, dv1 {dv1['ln_gru_launches']}, dv1 resume "
           f"{dv1_resumed['ln_gru_launches']}, dv1 eval {dv1_evaluated['ln_gru_launches']}, ppo_recurrent "
-          f"{ppo_rec['ln_gru_launches']}  [{card}]",
+          f"{ppo_rec['ln_gru_launches']}, " + ", ".join(
+              f"p2e_dv{v} {r['run']['ln_gru_launches']}, p2e_dv{v} resume {r['resume']['ln_gru_launches']}, p2e_dv{v} "
+              f"finetuning {r['finetune']['ln_gru_launches']}, p2e_dv{v} eval {r['eval']['ln_gru_launches']}"
+              for v, r in p2e_dv.items()) + f"  [{card}]",
           flush=True)
 
     mark('flops')
@@ -3565,7 +3848,10 @@ def main() -> int:
                "dv2_bf16": dv2["runs"]["bf16"]["ln_gru_launches"], "dv2_resume": dv2_resumed["ln_gru_launches"],
                "dv2_eval": dv2_evaluated["ln_gru_launches"], "dv1": dv1["ln_gru_launches"],
                "dv1_resume": dv1_resumed["ln_gru_launches"], "dv1_eval": dv1_evaluated["ln_gru_launches"],
-               "ppo_recurrent": ppo_rec["ln_gru_launches"], "ppo_recurrent_bf16": ppo_rec["bf16_launches"]}
+               "ppo_recurrent": ppo_rec["ln_gru_launches"], "ppo_recurrent_bf16": ppo_rec["bf16_launches"],
+               **{f"p2e_dv{v}{suffix}": r[part]["ln_gru_launches"] for v, r in p2e_dv.items()
+                  for suffix, part in (("", "run"), ("_resume", "resume"), ("_finetuning", "finetune"),
+                                       ("_eval", "eval"))}}
     case_keys = ("B", "K", "H", "dtype", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms", "bound_ms", "bound_by")
     kernels = [{
         "name": "ln_gru",
@@ -3583,7 +3869,8 @@ def main() -> int:
         "library_ms": main["library_ms"],
         "shape": {"B": main["B"], "K": main["K"], "H": main["H"], "dtype": main["dtype"]},
         "cases": [{k: c[k] for k in case_keys} for c in cases],
-        "phase": "kernel+slice+train+chunked+resume+eval+drill+jepa+p2e+sac+droq+sac_ae+bf16+dv2+dv1+ppo_recurrent",
+        "phase": "kernel+slice+train+chunked+resume+eval+drill+jepa+p2e+sac+droq+sac_ae+bf16+dv2+dv1+ppo_recurrent"
+                 "+p2e_dv2+p2e_dv1",
     }]
     mark("kernels line")
     print(f"[timing] wall seconds by group of phases: "

@@ -139,6 +139,27 @@ class DV1Agent(NamedTuple):
         return to_flax(*self)
 
 
+def _latent_size(cfg) -> int:
+    wm_cfg = cfg.algo.world_model
+    return int(wm_cfg.stochastic_size) + int(wm_cfg.recurrent_model.recurrent_state_size)
+
+
+def make_actor(actions_dim: Sequence[int], is_continuous: bool, cfg) -> Actor:
+    """DreamerV1's actor, uninitialized, on the CPU (the task's, and
+    Plan2Explore-DV1's exploration actor)."""
+    actor_cfg = cfg.algo.actor
+    return Actor(_latent_size(cfg), actions_dim, is_continuous, distribution=cfg.distribution.type,
+                 init_std=actor_cfg.init_std, min_std=actor_cfg.min_std, dense_units=actor_cfg.dense_units,
+                 mlp_layers=actor_cfg.mlp_layers, unimix=0.0, action_clip=1.0, dense_act="elu", layer_norm=False,
+                 default_continuous_dist="tanh_normal")
+
+
+def make_critic(cfg) -> Critic:
+    """DreamerV1's one-bin critic, uninitialized, on the CPU."""
+    return Critic(_latent_size(cfg), cfg.algo.critic.dense_units, cfg.algo.critic.mlp_layers, 1, act="elu",
+                  layer_norm=False)
+
+
 def build_agent(actions_dim: Sequence[int], is_continuous: bool, cfg, obs_space,
                 agent_state: Optional[Mapping[str, Any]] = None, device: torch.device | str = "cpu") -> DV1Agent:
     """The world model, actor and critic on ``device``, from ``agent_state``
@@ -146,7 +167,6 @@ def build_agent(actions_dim: Sequence[int], is_continuous: bool, cfg, obs_space,
     wm_cfg = cfg.algo.world_model
     cnn_keys, mlp_keys = list(cfg.algo.cnn_keys.encoder), list(cfg.algo.mlp_keys.encoder)
     cnn_decoder_keys, mlp_decoder_keys = list(cfg.algo.cnn_keys.decoder), list(cfg.algo.mlp_keys.decoder)
-    latent_size = int(wm_cfg.stochastic_size) + int(wm_cfg.recurrent_model.recurrent_state_size)
     world_model = WorldModelDV1(
         min_std=float(wm_cfg.min_std),
         cnn_keys=cnn_keys,
@@ -183,13 +203,7 @@ def build_agent(actions_dim: Sequence[int], is_continuous: bool, cfg, obs_space,
         symlog_inputs=False,
         hafner_heads=False,
     )
-    actor_cfg = cfg.algo.actor
-    actor = Actor(latent_size, actions_dim, is_continuous, distribution=cfg.distribution.type,
-                  init_std=actor_cfg.init_std, min_std=actor_cfg.min_std, dense_units=actor_cfg.dense_units,
-                  mlp_layers=actor_cfg.mlp_layers, unimix=0.0, action_clip=1.0, dense_act="elu", layer_norm=False,
-                  default_continuous_dist="tanh_normal")
-    critic = Critic(latent_size, cfg.algo.critic.dense_units, cfg.algo.critic.mlp_layers, 1, act="elu",
-                    layer_norm=False)
+    actor, critic = make_actor(actions_dim, is_continuous, cfg), make_critic(cfg)
     init_weights(world_model, actor, critic, torch.Generator().manual_seed(int(cfg.seed or 0)), hafner_heads=False)
     if agent_state is not None:
         from sheeprl_tpu_torch.interop.flax_params import from_flax

@@ -31,17 +31,37 @@ class DV2Agent(Agent):
         return {}
 
 
+def _latent_size(cfg) -> int:
+    wm_cfg = cfg.algo.world_model
+    return int(wm_cfg.stochastic_size) * int(wm_cfg.discrete_size) + int(wm_cfg.recurrent_model.recurrent_state_size)
+
+
+def make_actor(actions_dim: Sequence[int], is_continuous: bool, cfg) -> Actor:
+    """DreamerV2's actor, uninitialized, on the CPU (the task's, and
+    Plan2Explore-DV2's exploration actor)."""
+    actor_cfg = cfg.algo.actor
+    return Actor(_latent_size(cfg), actions_dim, is_continuous, distribution=cfg.distribution.type,
+                 init_std=actor_cfg.init_std, min_std=actor_cfg.min_std, dense_units=actor_cfg.dense_units,
+                 mlp_layers=actor_cfg.mlp_layers, unimix=0.0, action_clip=1.0, eps=EPS, dense_act="elu",
+                 layer_norm=bool(cfg.algo.layer_norm), default_continuous_dist="trunc_normal")
+
+
+def make_critic(cfg) -> Critic:
+    """DreamerV2's one-bin critic, uninitialized, on the CPU."""
+    critic_cfg = cfg.algo.critic
+    return Critic(_latent_size(cfg), critic_cfg.dense_units, critic_cfg.mlp_layers, 1, EPS, "elu",
+                  bool(cfg.algo.layer_norm))
+
+
 def build_agent(actions_dim: Sequence[int], is_continuous: bool, cfg, obs_space,
                 agent_state: Optional[Mapping[str, Any]] = None, device: torch.device | str = "cpu") -> DV2Agent:
     """The world model, actor, critic and target critic on ``device``, from
     ``agent_state`` (a checkpoint's four flax trees, either package's) or
     from the seed, the target critic a copy of the critic."""
-    wm_cfg, actor_cfg, critic_cfg = cfg.algo.world_model, cfg.algo.actor, cfg.algo.critic
+    wm_cfg = cfg.algo.world_model
     cnn_keys, mlp_keys = list(cfg.algo.cnn_keys.encoder), list(cfg.algo.mlp_keys.encoder)
     cnn_decoder_keys, mlp_decoder_keys = list(cfg.algo.cnn_keys.decoder), list(cfg.algo.mlp_keys.decoder)
     layer_norm = bool(cfg.algo.layer_norm)
-    latent_size = (int(wm_cfg.stochastic_size) * int(wm_cfg.discrete_size)
-                   + int(wm_cfg.recurrent_model.recurrent_state_size))
     world_model = WorldModel(
         cnn_keys=cnn_keys,
         mlp_keys=mlp_keys,
@@ -80,11 +100,7 @@ def build_agent(actions_dim: Sequence[int], is_continuous: bool, cfg, obs_space,
         symlog_inputs=False,
         hafner_heads=False,
     )
-    actor = Actor(latent_size, actions_dim, is_continuous, distribution=cfg.distribution.type,
-                  init_std=actor_cfg.init_std, min_std=actor_cfg.min_std, dense_units=actor_cfg.dense_units,
-                  mlp_layers=actor_cfg.mlp_layers, unimix=0.0, action_clip=1.0, eps=EPS, dense_act="elu",
-                  layer_norm=layer_norm, default_continuous_dist="trunc_normal")
-    critic = Critic(latent_size, critic_cfg.dense_units, critic_cfg.mlp_layers, 1, EPS, "elu", layer_norm)
+    actor, critic = make_actor(actions_dim, is_continuous, cfg), make_critic(cfg)
     init_weights(world_model, actor, critic, torch.Generator().manual_seed(int(cfg.seed or 0)), hafner_heads=False)
     target_critic = copy.deepcopy(critic)
     if agent_state is not None:

@@ -1,7 +1,7 @@
 """DreamerV2 training (counterpart of
 ``sheeprl_tpu/algos/dreamer_v2/dreamer_v2.py``): the gradient step, and
 DreamerV3's loop (:func:`~sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3._dreamer_main`)
-with the episode buffer and the gradient-step counter kept across a resume.
+with the episode buffer, training in the JAX DreamerV2 loop's order.
 
 A gradient step follows the JAX package's ``make_train_step`` in order: the
 target critic's hard update (``tau`` is 1 every
@@ -41,28 +41,23 @@ from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
 
-def make_train_step(agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, is_continuous: bool):
-    """Build one gradient step: ``train_step(moments_state, batch, tau,
-    generator=None, noise=None) -> (moments_state, metrics)``, the Moments
-    passed through (DreamerV2 keeps none).  ``batch`` leaves are ``[T, B,
-    ...]`` float tensors on the device, pixels in [-0.5, 0.5].  ``noise``
-    holds pre-drawn draws, each taken from ``generator`` when absent:
-    ``"dynamic"`` the ``(prior, posterior)`` Gumbel noise ``[T, B, stoch,
-    discrete]``; ``"imagination"`` the imagined priors' ``[H, T*B, stoch,
-    discrete]``; ``"actor"`` the ``H`` per-head draws of the actions taken
-    before each imagined step."""
-    world_model, actor, critic, target_critic = agent
+def make_world_model_loss(world_model, cfg):
+    """DreamerV2's world-model loss: ``loss(batch, generator, noise) ->
+    (losses, posteriors, recurrents)``; ``losses`` are the six of
+    ``reconstruction_loss`` (the total first), ``posteriors``/``recurrents``
+    the dynamic scan's ``[T, B, ...]`` states.  The network inputs are cast
+    to the compute dtype; the caller runs it under ``call_cast`` of the
+    world model.  ``noise["dynamic"]`` is the scan's ``(prior, posterior)``
+    Gumbel noise ``[T, B, stoch, discrete]``."""
     wm_cfg = cfg.algo.world_model
     stoch, discrete = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
     recurrent_size = int(wm_cfg.recurrent_model.recurrent_state_size)
-    horizon, gamma, lmbda = int(cfg.algo.horizon), float(cfg.algo.gamma), float(cfg.algo.lmbda)
-    objective_mix, ent_coef = float(cfg.algo.actor.objective_mix), float(cfg.algo.actor.ent_coef)
+    gamma = float(cfg.algo.gamma)
     use_continues = bool(wm_cfg.use_continues)
     dec_keys = list(dict.fromkeys(list(cfg.algo.cnn_keys.decoder) + list(cfg.algo.mlp_keys.decoder)))
     cdt = compute_dtype_of(cfg)
-    update = make_update(agent, optimizers, cfg)
 
-    def world_model_loss(batch, generator, noise):
+    def loss(batch, generator, noise):
         T, B = batch["actions"].shape[:2]
         target_obs = {k: batch[k] for k in dec_keys}  # fp32 targets
         embedded = world_model.encode({k: v.to(cdt) for k, v in target_obs.items()})
@@ -97,36 +92,97 @@ def make_train_step(agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, is
         )
         return losses, posteriors, recurrents
 
-    def actor_loss(posteriors, recurrents, true_continue, generator, noise):
+    return loss
+
+
+class Imagination:
+    """DreamerV2's behaviour learning in imagination, as its step and
+    Plan2Explore-DV2's share it: the rollout, the continues, the
+    bootstrapped lambda returns and the discounts, and the value loss."""
+
+    def __init__(self, cfg):
+        self.horizon, self.gamma, self.lmbda = int(cfg.algo.horizon), float(cfg.algo.gamma), float(cfg.algo.lmbda)
+        self.use_continues = bool(cfg.algo.world_model.use_continues)
+
+    def rollout(self, world_model, actor, posteriors, recurrents, generator, noise):
+        """``(trajectories, actions)``, each ``[H+1, TB, ...]``: the start
+        latents and ``H`` imagined steps, each action chosen from the latent
+        before the step it leads to (on the latent detached), and a zero
+        action to the first.  ``noise["imagination"]`` is the priors'
+        Gumbel noise ``[H, TB, stoch, discrete]``, ``noise["actor"]`` the
+        ``H`` per-head draws of the actions."""
         img_noise = noise.get("imagination")
-        act_noise = noise.get("actor") or [None] * horizon
+        act_noise = noise.get("actor") or [None] * self.horizon
         latent0 = torch.cat([posteriors, recurrents], dim=-1)
         prior, recurrent, latent = posteriors, recurrents, latent0
         latents, actions = [latent0], []
-        for h in range(horizon):
+        for h in range(self.horizon):
             action = actor.act(latent.detach(), generator, False, act_noise[h])
             prior, recurrent = world_model.imagination(prior, recurrent, action, generator,
                                                        None if img_noise is None else img_noise[h])
             latent = torch.cat([prior, recurrent], dim=-1)
             latents.append(latent)
             actions.append(action)
-        trajectories = torch.stack(latents)  # [H+1, TB, L]
-        # the action that led to each state; none to the first
-        imagined_actions = torch.stack([torch.zeros_like(actions[0])] + actions)
-        target_values = target_critic(trajectories).float()
-        rewards = world_model.reward_logits(trajectories).float()
-        if use_continues:
+        return torch.stack(latents), torch.stack([torch.zeros_like(actions[0])] + actions)
+
+    def returns(self, world_model, trajectories, rewards, target_values, true_continue):
+        """``(lambda_values, discount)`` along the trajectories: the
+        continue head's probabilities (the first step's the batch's own) or
+        ``gamma`` without it, the returns bootstrapped on the last target
+        value, and the discounts' cumulative product, which carries no
+        gradient."""
+        if self.use_continues:
             continues = torch.sigmoid(world_model.continue_logits(trajectories)).float()
             continues = torch.cat([true_continue[None], continues[1:]], dim=0)
         else:
-            continues = torch.ones_like(rewards.detach()) * gamma
+            continues = torch.ones_like(rewards.detach()) * self.gamma
         lambda_values = compute_lambda_values(rewards[:-1], target_values[:-1], continues[:-1],
-                                              bootstrap=target_values[-1:], horizon=horizon, lmbda=lmbda)
+                                              bootstrap=target_values[-1:], horizon=self.horizon, lmbda=self.lmbda)
         discount = torch.cumprod(torch.cat([torch.ones_like(continues[:1]), continues[:-1]], dim=0), dim=0).detach()
-        log_probs, entropies = actor.log_prob_entropy(trajectories[:-2].detach(), imagined_actions[1:-1].detach())
+        return lambda_values, discount
+
+    @staticmethod
+    def policy_loss(objective, entropies, discount, ent_coef: float) -> torch.Tensor:
+        return -torch.mean(discount[:-2] * (objective + ent_coef * entropies))
+
+    @staticmethod
+    def value_loss(critic, trajectories, lambda_values, discount) -> torch.Tensor:
+        """The ``Normal(., 1)`` loss of ``critic`` towards the lambda values
+        under the discounts."""
+        values = critic(trajectories[:-1])
+        return -torch.mean(discount[:-1, ..., 0] * normal_log_prob(values, lambda_values, 1))
+
+
+def make_train_step(agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, is_continuous: bool):
+    """Build one gradient step: ``train_step(moments_state, batch, tau,
+    generator=None, noise=None) -> (moments_state, metrics)``, the Moments
+    passed through (DreamerV2 keeps none).  ``batch`` leaves are ``[T, B,
+    ...]`` float tensors on the device, pixels in [-0.5, 0.5].  ``noise``
+    holds pre-drawn draws, each taken from ``generator`` when absent:
+    ``"dynamic"`` the ``(prior, posterior)`` Gumbel noise ``[T, B, stoch,
+    discrete]``; ``"imagination"`` the imagined priors' ``[H, T*B, stoch,
+    discrete]``; ``"actor"`` the ``H`` per-head draws of the actions taken
+    before each imagined step."""
+    world_model, actor, critic, target_critic = agent.world_model, agent.actor, agent.critic, agent.target_critic
+    wm_cfg = cfg.algo.world_model
+    stoch, discrete = int(wm_cfg.stochastic_size), int(wm_cfg.discrete_size)
+    recurrent_size = int(wm_cfg.recurrent_model.recurrent_state_size)
+    gamma = float(cfg.algo.gamma)
+    objective_mix, ent_coef = float(cfg.algo.actor.objective_mix), float(cfg.algo.actor.ent_coef)
+    cdt = compute_dtype_of(cfg)
+    update = make_update(agent, optimizers, cfg)
+    world_model_loss = make_world_model_loss(world_model, cfg)
+    imagination = Imagination(cfg)
+
+    def actor_loss(posteriors, recurrents, true_continue, generator, noise):
+        trajectories, actions = imagination.rollout(world_model, actor, posteriors, recurrents, generator, noise)
+        target_values = target_critic(trajectories).float()
+        rewards = world_model.reward_logits(trajectories).float()
+        lambda_values, discount = imagination.returns(world_model, trajectories, rewards, target_values, true_continue)
+        log_probs, entropies = actor.log_prob_entropy(trajectories[:-2].detach(), actions[1:-1].detach())
         advantage = (lambda_values[1:] - target_values[:-2]).detach()
         objective = objective_mix * (log_probs * advantage) + (1 - objective_mix) * lambda_values[1:]
-        policy_loss = -torch.mean(discount[:-2] * (objective + ent_coef * entropies))
+        policy_loss = imagination.policy_loss(objective, entropies, discount, ent_coef)
         return policy_loss, trajectories.detach(), lambda_values.detach(), discount
 
     def train_step(moments_state: Dict[str, Any], batch: Dict[str, torch.Tensor], tau: float,
@@ -149,11 +205,8 @@ def make_train_step(agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, is
                 lambda: actor_loss(posteriors, recurrents, true_continue, generator, noise))
             actor_norm = update("actor", policy_loss)
 
-        def critic_loss():
-            values = critic(trajectories[:-1])
-            return -torch.mean(discount[:-1, ..., 0] * normal_log_prob(values, lambda_values, 1))
-
-        value_loss = call_cast((critic,), cdt, critic_loss)
+        value_loss = call_cast((critic,), cdt,
+                               lambda: imagination.value_loss(critic, trajectories, lambda_values, discount))
         critic_norm = update("critic", value_loss)
         metrics = torch.stack([rec_loss, observation_loss, reward_loss, state_loss, continue_loss, kl, policy_loss,
                                value_loss, wm_norm, actor_norm, critic_norm]).float().detach()
@@ -181,8 +234,11 @@ def build_dreamer_v2_agent(actions_dim, is_continuous, cfg, obs_space, state, de
 @register_algorithm()
 def main(runtime, cfg) -> Dict[str, Any]:
     """The DreamerV2 loop: DreamerV3's, with ``buffer.type`` (``sequential``
-    or ``episode``) and the gradient-step counter of the hard target update
-    in the checkpoint."""
+    or ``episode``), the gradient steps taken after the env step's rows
+    reached the replay, as the JAX loop takes them.  The counter of the hard
+    target update starts at 0 in every run, as the JAX loop's does, so a
+    resumed run copies the target at its first gradient step; the
+    ``gradient_steps`` an older port checkpoint holds is not read."""
     return _dreamer_main(runtime, cfg, build_dreamer_v2_agent, make_train_step,
                          unported_fn=lambda c: unported_options(c, "dreamer_v2"), buffer_types=("sequential", "episode"),
-                         keep_gradient_steps=True)
+                         train_after_env_step=True)

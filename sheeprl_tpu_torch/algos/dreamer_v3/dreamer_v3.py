@@ -568,7 +568,7 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
                   final_test_fn: Optional[Callable[..., Tuple[float, int]]] = None,
                   unported_fn: Callable[[Any], List[str]] = None,
                   buffer_types: Sequence[str] = ("sequential",),
-                  keep_gradient_steps: bool = False) -> Dict[str, Any]:
+                  train_after_env_step: bool = False) -> Dict[str, Any]:
     """The DreamerV3 family's loop (the JAX package's ``_dreamer_main``):
     prefill with random actions, then per iteration a policy step of every
     env, a replay write, the gradient steps the replay ratio owes, logging
@@ -594,9 +594,12 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     ``unported_fn(cfg)``, the options the family refuses (DreamerV3's
     ``_unported_options``); ``buffer_types``, the ``buffer.type`` values the
     family reads (DreamerV3 samples sequentially and reads none; DreamerV2
-    also has the ``episode`` buffer); ``keep_gradient_steps``, whether the
-    checkpoint carries the gradient-step counter that times the target
-    critic's update (DreamerV2's), which a resume then goes on from.
+    also has the ``episode`` buffer); ``train_after_env_step``, whether the
+    iteration's gradient steps run after the env step's results, its reset
+    rows and the player's re-initialisation (the JAX DreamerV1 and V2 loops'
+    order) rather than while the envs step (DreamerV3's).  The counter that
+    times the target critic's update starts at 0 in every run, resumed or
+    not, as in every JAX loop of the family.
 
     Returns what the run did: its counters, the metric rows of every
     gradient step, the actor the player switched to at each iteration it
@@ -714,8 +717,6 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     last_log = state["last_log"] if state else 0
     last_checkpoint = state["last_checkpoint"] if state else 0
     gradient_steps = player_steps = train_step_count = last_train = 0
-    # the steps of the runs this one resumes, counted for the target update
-    steps_before = int(state.get("gradient_steps", 0)) if keep_gradient_steps and state is not None else 0
     policy_steps_per_iter = num_envs
     total_iters = int(cfg.algo.total_steps // policy_steps_per_iter) if not cfg.dry_run else 1
     learning_starts = cfg.algo.learning_starts // policy_steps_per_iter if not cfg.dry_run else 0
@@ -752,13 +753,48 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     first_train_iter = None
     logged: List[Dict[str, float]] = []
     checkpoints: List[str] = []
+
+    def train_owed(iter_num: int) -> None:
+        """The gradient steps the replay ratio owes at ``iter_num``."""
+        nonlocal has_trained, first_train_iter, moments_state, gradient_steps, train_step_count
+        if iter_num < learning_starts:
+            return
+        n = ratio(policy_step_count - prefill_steps * policy_steps_per_iter)
+        if cfg.dry_run:
+            n = 1
+        if n <= 0:
+            return
+        has_trained = True
+        if first_train_iter is None:
+            first_train_iter = iter_num
+        with diag.span("buffer-sample"):
+            # the episode buffer's dry run samples single steps, as the JAX loop's
+            seq_len = 1 if cfg.dry_run and buffer_type == "episode" else cfg.algo.per_rank_sequence_length
+            local_data = rb.sample(cfg.algo.per_rank_batch_size, sequence_length=seq_len, n_samples=n)
+            if not use_device_buffer:
+                local_data = [{k: v[i] for k, v in local_data.items()} for i in range(n)]
+        # on the card the timer records a CUDA event at each end of the
+        # block, so the train time holds the device work of these steps
+        # without waiting on it here (read at log time)
+        with timer("Time/train_time", device), diag.span("train"):
+            for sample in local_data:
+                batch = diag.maybe_inject_nan(iter_num, stage_batch(sample, cnn_keys, device))
+                if target_freq and gradient_steps % target_freq == 0:
+                    tau = 1.0 if gradient_steps == 0 else float(cfg.algo.critic.get("tau", 1.0))
+                else:
+                    tau = 0.0
+                moments_state, metrics = train_step(moments_state, batch, tau, generator)
+                pending.append(metrics)
+                gradient_steps += 1
+            train_step_count += 1
+
     for iter_num in range(start_iter, total_iters + 1):
         policy_step_count += policy_steps_per_iter
         diag.note_env_steps(num_envs)
 
         # ---- policy step, env step started, replay write ----------------
         # the envs step from here to step_wait, while this process writes the
-        # replay row and runs the gradient steps the replay ratio owes
+        # replay row and (DreamerV3's order) runs the gradient steps owed
         with timer("Time/env_interaction_time"), diag.span("rollout"):
             if iter_num <= learning_starts and state is None:
                 real_actions = envs.sample_actions(action_rng)
@@ -806,36 +842,9 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
                 envs.step_async(real_actions.reshape(envs.batched_action_shape))
             rb.add(step_data, validate_args=cfg.buffer.validate_args)
 
-        # ---- the gradient steps the replay ratio owes -------------------
-        if iter_num >= learning_starts:
-            n = ratio(policy_step_count - prefill_steps * policy_steps_per_iter)
-            if cfg.dry_run:
-                n = 1
-            if n > 0:
-                has_trained = True
-                if first_train_iter is None:
-                    first_train_iter = iter_num
-                with diag.span("buffer-sample"):
-                    # the episode buffer's dry run samples single steps, as the JAX loop's
-                    seq_len = 1 if cfg.dry_run and buffer_type == "episode" else cfg.algo.per_rank_sequence_length
-                    local_data = rb.sample(cfg.algo.per_rank_batch_size, sequence_length=seq_len, n_samples=n)
-                    if not use_device_buffer:
-                        local_data = [{k: v[i] for k, v in local_data.items()} for i in range(n)]
-                # on the card the timer records a CUDA event at each end of
-                # the block, so the train time holds the device work of these
-                # steps without waiting on it here (read at log time)
-                with timer("Time/train_time", device), diag.span("train"):
-                    for sample in local_data:
-                        batch = diag.maybe_inject_nan(iter_num, stage_batch(sample, cnn_keys, device))
-                        counted = steps_before + gradient_steps
-                        if target_freq and counted % target_freq == 0:
-                            tau = 1.0 if counted == 0 else float(cfg.algo.critic.get("tau", 1.0))
-                        else:
-                            tau = 0.0
-                        moments_state, metrics = train_step(moments_state, batch, tau, generator)
-                        pending.append(metrics)
-                        gradient_steps += 1
-                    train_step_count += 1
+        # ---- the gradient steps the replay ratio owes, while the envs step
+        if not train_after_env_step:
+            train_owed(iter_num)
 
         # ---- the env step's results --------------------------------------
         with timer("Time/env_interaction_time"), diag.span("env_wait"):
@@ -844,8 +853,7 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
         step_data["is_first"] = np.zeros_like(step_data["terminated"])
         if "restart_on_exception" in infos:
             # a restarted env's last stored step becomes a truncation and its
-            # next one a first step (the restart landed after this
-            # iteration's gradient steps sampled, as in the JAX loop)
+            # next one a first step
             for i, restarted in enumerate(infos["restart_on_exception"]):
                 if restarted and not dones[i]:
                     if use_device_buffer or buffer_type == "episode":
@@ -903,6 +911,10 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
             reset_mask[dones_idxes] = 1.0
             player.init_states(torch.from_numpy(reset_mask).to(device))
 
+        # ---- or after the env step's rows reached the replay -------------
+        if train_after_env_step:
+            train_owed(iter_num)
+
         # ---- log: the metric rows cross to the host here, in one copy ----
         if policy_step_count - last_log >= cfg.metric.log_every or iter_num == total_iters or cfg.dry_run:
             if pending:
@@ -951,7 +963,6 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
                 "opt_states": nest({name: optax_state(opt, agent.optimizer_spec(name))
                                     for name, opt in optimizers.items()}),
                 **({"moments": moments_state} if moments_state else {}),
-                **({"gradient_steps": steps_before + gradient_steps} if keep_gradient_steps else {}),
                 "ratio": ratio.state_dict(),
                 "iter_num": iter_num,
                 "batch_size": cfg.algo.per_rank_batch_size,

@@ -8,7 +8,10 @@ Builds DreamerV3-S (``exp=dreamer_v3 env=dummy``: batch 16 x 64, horizon
 15, fp32; the dotted overrides on top, e.g. ``fabric.precision=bf16-mixed
 algo.rssm_chunks=4 algo.rssm_chunk_burn_in=2``; ``exp=dreamer_v3_jepa``
 among them builds DreamerV3-JEPA and ``exp=p2e_dv3_exploration``
-Plan2Explore-DV3's exploration step, each at its own XL widths) from a seed
+Plan2Explore-DV3's exploration step, each at its own XL widths;
+``exp=dreamer_v2``, ``exp=dreamer_v1``, ``exp=p2e_dv2_exploration`` and
+``exp=p2e_dv1_exploration`` those families' steps at their presets' widths)
+from a seed
 on the card, with ``--diagnostics`` as the default diagnostics run it
 (health stats in the step, telemetry's instrumentation around it;
 :func:`profiled_step`), and calls :func:`time_gradient_steps` with the

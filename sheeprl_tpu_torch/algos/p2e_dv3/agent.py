@@ -33,24 +33,31 @@ from sheeprl_tpu_torch.models.blocks import get_activation
 
 
 class Ensemble(nn.Module):
-    """N MLPs ``(latent, action) -> next stochastic state``, each a
-    ``[Dense(no bias) -> LayerNorm -> silu] x layers`` stack and a dense
-    head, as the JAX ``Ensemble`` (which, like upstream sheeprl, reads
-    neither ``ensembles.dense_act`` nor ``ensembles.layer_norm``).  Returns
-    ``[N, ..., output_dim]``."""
+    """N MLPs ``(latent, action) -> next stochastic state`` (or, for
+    Plan2Explore-DV1, next embedding), each ``[Dense -> LayerNorm? -> act] x
+    layers`` and a dense head, as the JAX ``Ensemble``: with ``layer_norm``
+    each hidden Dense has no bias (P2E-DV3's ``Dense(no bias) -> LayerNorm
+    -> silu``), without one it has its bias back (P2E-DV2's, and P2E-DV1's
+    with ``act="elu"``).  ``act`` defaults to silu whatever
+    ``ensembles.dense_act`` says, as the JAX families that do not pass it
+    (P2E-DV3, P2E-DV2) leave it.  Returns ``[N, ..., output_dim]``."""
 
     def __init__(self, n: int, in_features: int, output_dim: int, dense_units: int, mlp_layers: int,
-                 eps: float = 1e-3):
+                 eps: float = 1e-3, act: str = "silu", layer_norm: bool = True):
         super().__init__()
-        self.n, self.units, self.eps = n, dense_units, eps
+        self.n, self.units, self.eps, self.layer_norm = n, dense_units, eps, layer_norm
         sizes = [in_features] + [dense_units] * mlp_layers
         self.kernels = nn.ParameterList(nn.Parameter(torch.empty(n, sizes[i], sizes[i + 1]))
                                         for i in range(mlp_layers))
-        self.scales = nn.ParameterList(nn.Parameter(torch.ones(n, dense_units)) for _ in range(mlp_layers))
-        self.biases = nn.ParameterList(nn.Parameter(torch.zeros(n, dense_units)) for _ in range(mlp_layers))
+        norms = mlp_layers if layer_norm else 0
+        self.scales = nn.ParameterList(nn.Parameter(torch.ones(n, dense_units)) for _ in range(norms))
+        self.biases = nn.ParameterList(nn.Parameter(torch.zeros(n, dense_units)) for _ in range(norms))
+        # the hidden Dense layers' biases, without the LayerNorm
+        self.dense_biases = nn.ParameterList(nn.Parameter(torch.zeros(n, dense_units))
+                                             for _ in range(mlp_layers - norms))
         self.out_kernel = nn.Parameter(torch.empty(n, sizes[-1], output_dim))
         self.out_bias = nn.Parameter(torch.zeros(n, output_dim))
-        self.act = get_activation("silu")
+        self.act = get_activation(act)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-1]
@@ -63,7 +70,10 @@ class Ensemble(nn.Module):
                 h = h.transpose(0, 1)
             else:
                 h = torch.bmm(h, kernel)
-            h = F.layer_norm(h, (self.units,), eps=self.eps) * self.scales[i][:, None] + self.biases[i][:, None]
+            if self.layer_norm:
+                h = F.layer_norm(h, (self.units,), eps=self.eps) * self.scales[i][:, None] + self.biases[i][:, None]
+            else:
+                h = h + self.dense_biases[i][:, None]
             h = self.act(h)
         if not len(self.kernels):
             h = h.expand(self.n, *h.shape)
@@ -81,7 +91,7 @@ class Ensemble(nn.Module):
             self.out_kernel.zero_()
         for p in list(self.scales):
             p.fill_(1.0)
-        for p in list(self.biases) + [self.out_bias]:
+        for p in list(self.biases) + list(self.dense_biases) + [self.out_bias]:
             p.zero_()
 
 

@@ -67,17 +67,44 @@ def finetuning_state(state: Mapping[str, Any]) -> Dict[str, Any]:
     """A checkpoint as the finetuning loop reads it: a finetuning
     checkpoint as it is; an exploration checkpoint's task trees, their
     optimizer states and the task's Moments under DreamerV3's names, with
-    ``actor_exploration`` and the replay."""
+    ``actor_exploration`` and the replay.  The Plan2Explore families on
+    DreamerV2 and V1 share it: their exploration checkpoints hold no
+    Moments, and DreamerV1's no target critic."""
     if "actor" in state:
         return dict(state)
     opt_states = state["opt_states"]
-    return {
+    out = {
         "world_model": state["world_model"], "actor": state["actor_task"], "critic": state["critic_task"],
-        "target_critic": state["target_critic_task"], "actor_exploration": state["actor_exploration"],
+        "actor_exploration": state["actor_exploration"],
         "opt_states": {"world_model": opt_states["world_model"], "actor": opt_states["actor_task"],
                        "critic": opt_states["critic_task"]},
-        "moments": state["moments"]["task"], "rb": state.get("rb"),
+        "rb": state.get("rb"),
     }
+    if "target_critic_task" in state:
+        out["target_critic"] = state["target_critic_task"]
+    if "task" in (state.get("moments") or {}):
+        out["moments"] = state["moments"]["task"]
+    return out
+
+
+def _task_modules(agent) -> List[nn.Module]:
+    return [getattr(agent, k) for k in agent._fields if k != "actor_exploration"]
+
+
+def finetuning_optimizer_spec(agent, name: str) -> Any:
+    """A finetuning agent's (the task's trees and ``actor_exploration``)
+    optimizer spec: the task's, as the Dreamer family's agent lays it out."""
+    from sheeprl_tpu_torch.interop.flax_params import param_spec
+
+    return param_spec(*_task_modules(agent))[name]
+
+
+def finetuning_trees(agent) -> Dict[str, Any]:
+    """The task's trees and ``actor_exploration``, as the JAX finetuning
+    loops checkpoint them (DreamerV3's, V2's or V1's)."""
+    from sheeprl_tpu_torch.interop.flax_params import actor_spec, dump_trees, param_spec
+
+    return dump_trees({**param_spec(*_task_modules(agent)), "actor_exploration": actor_spec(agent.actor_exploration)})
 
 
 class FinetuningAgent(NamedTuple):
@@ -93,14 +120,8 @@ class FinetuningAgent(NamedTuple):
     optimizer_configs = Agent.optimizer_configs
     initial_moments = Agent.initial_moments
     parameters_of = Agent.parameters_of
-
-    def optimizer_spec(self, name: str) -> Any:
-        return Agent(*self[:4]).optimizer_spec(name)
-
-    def trees(self) -> Dict[str, Any]:
-        from sheeprl_tpu_torch.interop.flax_params import actor_spec, dump_trees
-
-        return {**Agent(*self[:4]).trees(), **dump_trees({"actor_exploration": actor_spec(self.actor_exploration)})}
+    optimizer_spec = finetuning_optimizer_spec
+    trees = finetuning_trees
 
 
 def build_agent(actions_dim: Sequence[int], is_continuous: bool, cfg, obs_space,

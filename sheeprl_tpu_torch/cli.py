@@ -2,10 +2,11 @@
 ``run`` trains or, with ``checkpoint.resume_from``, resumes; ``eval`` scores
 a checkpoint; ``serve`` serves one.  The port trains and evaluates
 ``dreamer_v3``, ``dreamer_v3_jepa``, ``p2e_dv3_exploration``,
-``p2e_dv3_finetuning``, ``ppo``, ``a2c``, ``sac``, ``droq`` and
-``sac_ae`` and serves all but ``dreamer_v3_jepa``, the P2E pair, ``droq``
-and ``sac_ae`` (as the JAX package does); model registration is still to
-port (ROADMAP.md Queue 1)."""
+``p2e_dv3_finetuning``, ``ppo``, ``a2c``, ``sac``, ``droq``, ``sac_ae``,
+``dreamer_v2``, ``dreamer_v1``, ``ppo_recurrent`` and the exploration and
+finetuning of ``p2e_dv2`` and ``p2e_dv1``, and serves ``dreamer_v3``,
+``ppo``, ``a2c``, ``sac`` and ``ppo_recurrent`` (as the JAX package
+does); model registration is still to port (ROADMAP.md Queue 1)."""
 
 from __future__ import annotations
 
@@ -86,7 +87,8 @@ def check_configs(cfg: dotdict) -> None:
         raise NotImplementedError(
             f"Algorithm {cfg.algo.name!r} is not ported yet (see ROADMAP.md Queue 1); the port trains: dreamer_v3, "
             "dreamer_v3_jepa, p2e_dv3_exploration, p2e_dv3_finetuning, ppo, a2c, sac, droq, sac_ae, dreamer_v2, "
-            "dreamer_v1, ppo_recurrent"
+            "dreamer_v1, ppo_recurrent, p2e_dv2_exploration, p2e_dv2_finetuning, p2e_dv1_exploration, "
+            "p2e_dv1_finetuning"
         )
     if cfg.metric.log_level not in (0, 1):
         raise ValueError(f"metric.log_level must be 0 or 1, got {cfg.metric.log_level}")
@@ -208,7 +210,8 @@ def eval_algorithm(cfg: dotdict) -> Any:
         raise NotImplementedError(f"Evaluation of {cfg.algo.name!r} is not ported yet (see ROADMAP.md Queue 1); "
                                   "the port evaluates: dreamer_v3, dreamer_v3_jepa, p2e_dv3_exploration, "
                                   "p2e_dv3_finetuning, ppo, a2c, sac, droq, sac_ae, dreamer_v2, dreamer_v1, "
-                                  "ppo_recurrent")
+                                  "ppo_recurrent, p2e_dv2_exploration, p2e_dv2_finetuning, p2e_dv1_exploration, "
+                                  "p2e_dv1_finetuning")
     entrypoint = getattr(importlib.import_module(entry["module"]), entry["entrypoint"])
     runtime = instantiate(cfg.fabric)
     return runtime.launch(entrypoint, cfg, runtime.load(cfg.checkpoint_path))

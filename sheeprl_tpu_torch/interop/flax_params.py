@@ -1,8 +1,8 @@
 """Weights across the two packages: the JAX package's flax param trees
 (numpy, as its checkpoints store them) to the port's DV3 (and its JEPA
-heads, and Plan2Explore's exploration actor, critics and stacked
-ensemble; DreamerV2's and DreamerV1's), PPO and A2C, recurrent PPO, SAC,
-DroQ and SAC-AE modules and back.
+heads, and Plan2Explore's exploration actors, critics and stacked
+ensembles on DreamerV3, V2 and V1; DreamerV2's and DreamerV1's), PPO and
+A2C, recurrent PPO, SAC, DroQ and SAC-AE modules and back.
 
 Rules: Dense ``kernel[in, out]`` <-> Linear ``weight[out, in]``; Conv
 ``kernel`` HWIO <-> ``weight`` OIHW; ConvTranspose ``kernel``
@@ -38,8 +38,9 @@ and ``trace`` are the port's :class:`~sheeprl_tpu_torch.utils.optim.RMSprop`
 state of the same names.  An optimizer over several trees (DreamerV3-JEPA's
 world model and its heads) has a list as its spec, and optax a tuple of
 trees, in the same order (SAC-AE's critic optimizer over ``(encoder,
-critic)``), and a bare array (SAC's ``log_alpha``) a leaf.  Plan2Explore's per-critic optimizers nest under
-``opt_states["critics_exploration"][name]``, as the JAX package's do.  bf16
+critic)``), and a bare array (SAC's ``log_alpha``) a leaf.  Plan2Explore-DV3's
+per-critic optimizers nest under ``opt_states["critics_exploration"][name]``,
+as the JAX package's do; P2E-DV2's and P2E-DV1's six sit flat.  bf16
 weights are written as float32, which holds them exactly.
 """
 
@@ -247,12 +248,16 @@ def ensemble_spec(ensemble) -> Dict[str, Any]:
     """Plan2Explore's ensemble, the flax tree of N members stacked on a
     leading axis (``jax.vmap`` of one member's init): ``DenseStack_0`` of
     ``Dense_<i>`` kernels ``[N, in, out]`` and ``LayerNorm_<i>`` ``[N,
-    units]``, then the head ``Dense_0`` ``[N, units, out]`` with its bias;
-    the port keeps them in that layout."""
+    units]`` (without the LayerNorm each ``Dense_<i>`` has its bias ``[N,
+    units]`` instead), then the head ``Dense_0`` ``[N, units, out]`` with its
+    bias; the port keeps them in that layout."""
     stack: Dict[str, Any] = {}
     for i, kernel in enumerate(ensemble.kernels):
-        stack[f"Dense_{i}"] = {"kernel": (kernel, "same")}
-        stack[f"LayerNorm_{i}"] = {"scale": (ensemble.scales[i], "same"), "bias": (ensemble.biases[i], "same")}
+        if ensemble.layer_norm:
+            stack[f"Dense_{i}"] = {"kernel": (kernel, "same")}
+            stack[f"LayerNorm_{i}"] = {"scale": (ensemble.scales[i], "same"), "bias": (ensemble.biases[i], "same")}
+        else:
+            stack[f"Dense_{i}"] = {"kernel": (kernel, "same"), "bias": (ensemble.dense_biases[i], "same")}
     return {"params": {"DenseStack_0": stack,
                        "Dense_0": {"kernel": (ensemble.out_kernel, "same"), "bias": (ensemble.out_bias, "same")}}}
 
@@ -270,6 +275,26 @@ def p2e_spec(agent) -> Dict[str, Any]:
                                 for name, c in agent.critics_exploration.items()},
         "ensembles": ensemble_spec(agent.ensembles),
     }
+
+
+def p2e_dreamer_spec(agent) -> Dict[str, Any]:
+    """Plan2Explore-DV2's eight trees (or P2E-DV1's six) in the JAX
+    package's layout: DreamerV2's (DreamerV1's) four (three) as
+    ``world_model``, ``actor_task``, ``critic_task`` and
+    ``target_critic_task`` (none for DV1); ``actor_exploration``; one
+    ``critic_exploration`` with ``target_critic_exploration`` (none for
+    DV1), each a critic's flax tree as DreamerV2's critic is, not P2E-DV3's
+    ``{name: {module, target_module}}``; ``ensembles``."""
+    dv = param_spec(agent.world_model, agent.actor_task, agent.critic_task, getattr(agent, "target_critic_task", None))
+    spec = {"world_model": dv["world_model"], "actor_task": dv["actor"], "critic_task": dv["critic"]}
+    if "target_critic" in dv:
+        spec["target_critic_task"] = dv["target_critic"]
+    spec["actor_exploration"] = actor_spec(agent.actor_exploration)
+    spec["critic_exploration"] = critic_spec(agent.critic_exploration)
+    if hasattr(agent, "target_critic_exploration"):
+        spec["target_critic_exploration"] = critic_spec(agent.target_critic_exploration)
+    spec["ensembles"] = ensemble_spec(agent.ensembles)
+    return spec
 
 
 def load_trees(spec: Mapping[str, Any], tree: Mapping[str, Any]) -> None:

@@ -20,7 +20,11 @@ PORTED_ALGORITHM_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
                             "sheeprl_tpu_torch.algos.sac.sac", "sheeprl_tpu_torch.algos.droq.droq",
                             "sheeprl_tpu_torch.algos.sac_ae.sac_ae", "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2",
                             "sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1",
-                            "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent")
+                            "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
+                            "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_exploration",
+                            "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_finetuning",
+                            "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_exploration",
+                            "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_finetuning")
 PORTED_EVALUATION_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
                              "sheeprl_tpu_torch.algos.dreamer_v3_jepa.evaluate",
                              "sheeprl_tpu_torch.algos.p2e_dv3.evaluate",
@@ -28,7 +32,8 @@ PORTED_EVALUATION_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
                              "sheeprl_tpu_torch.algos.sac.evaluate", "sheeprl_tpu_torch.algos.droq.evaluate",
                              "sheeprl_tpu_torch.algos.sac_ae.evaluate", "sheeprl_tpu_torch.algos.dreamer_v2.evaluate",
                              "sheeprl_tpu_torch.algos.dreamer_v1.evaluate",
-                             "sheeprl_tpu_torch.algos.ppo_recurrent.evaluate")
+                             "sheeprl_tpu_torch.algos.ppo_recurrent.evaluate",
+                             "sheeprl_tpu_torch.algos.p2e_dv2.evaluate", "sheeprl_tpu_torch.algos.p2e_dv1.evaluate")
 
 
 def _register(registry: Dict[str, List[Dict[str, Any]]], fn: Callable, name: str) -> Callable:

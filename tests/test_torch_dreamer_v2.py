@@ -368,7 +368,7 @@ def test_checkpoints_cross_between_the_two_packages_loops(setups, tmp_path, monk
     port_ckpt = out["checkpoints"][-1]
     assert jax_verify_checkpoint(port_ckpt) == (True, "verified")
     state = load_state(port_ckpt)
-    assert state["gradient_steps"] == out["gradient_steps"]  # the JAX checkpoint carries no counter: from 0
+    assert "gradient_steps" not in state  # no counter, as the JAX checkpoint: every run restarts it
     one_step_each(state, jax_load_state(port_ckpt))
 
 
@@ -387,15 +387,35 @@ def test_run_trains_resumes_evaluates_and_serve_refuses_it(buffer_type, tmp_path
     assert np.isfinite(out["metric_rows"]).all() and out["health_rows"] == {}
     ckpt = out["checkpoints"][0]
     state = load_state(ckpt)
-    assert {*TREES, "opt_states", "rb", "gradient_steps"} <= set(state) and "moments" not in state
+    assert {*TREES, "opt_states", "rb"} <= set(state) and not {"moments", "gradient_steps"} & set(state)
     if buffer_type == "episode":
         assert {"cum_lengths", "open_episodes"} <= set(state["rb"])
-    # the target critic is the critic as of the last hard update (every 2 steps)
+    # the counter of the hard target update restarts at 0 in the resumed
+    # run, as the JAX loop's does: its first gradient step copies the critic
+    # into the target.  A checkpoint an older port wrote holds the counter
+    # (7 here, which would put the first copy at the run's second step): it
+    # resumes, and the key is not read
+    from sheeprl_tpu_torch.algos.dreamer_v2 import dreamer_v2
+    from sheeprl_tpu_torch.parallel.runtime import Runtime
+
+    taus, make_step, load = [], dreamer_v2.make_train_step, Runtime.load
+
+    def recording(*args):
+        step = make_step(*args)
+
+        def recorded(moments, batch, tau, *rest):
+            taus.append(tau)
+            return step(moments, batch, tau, *rest)
+
+        recorded.metric_order, recorded.health_names = step.metric_order, step.health_names
+        return recorded
+
+    monkeypatch.setattr(dreamer_v2, "make_train_step", recording)
+    monkeypatch.setattr(Runtime, "load", lambda self, path: {**load(self, path), "gradient_steps": 7})
     resumed = cli.run(run + [f"checkpoint.resume_from={ckpt}", "root_dir=resumed"])
     assert resumed["start_iter"] == state["iter_num"] + 1 and resumed["gradient_steps"] > 0
-    # the counter of the hard target update goes on from the checkpoint's
-    counted = load_state(resumed["checkpoints"][-1])["gradient_steps"]
-    assert state["gradient_steps"] < counted <= state["gradient_steps"] + resumed["gradient_steps"]
+    assert taus[0] == 1.0 and taus[1:] == [float(i % 2 == 0) for i in range(1, len(taus))]
+    assert "gradient_steps" not in load_state(resumed["checkpoints"][-1])
     reward = cli.evaluation([f"checkpoint_path={ckpt}", "fabric.accelerator=cpu", "env.capture_video=False"])
     assert np.isfinite(reward)
     with pytest.raises(ValueError, match="no servable adapter"):

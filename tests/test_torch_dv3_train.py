@@ -639,4 +639,4 @@ def test_run_refuses_options_it_does_not_port(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
         cli.run(RUN + ["fabric.precision=64-true"])
     with pytest.raises(NotImplementedError, match="not ported"):
-        cli.run(RUN + ["exp=p2e_dv2_exploration"])
+        cli.run(RUN + ["exp=ppo_decoupled"])
