@@ -63,6 +63,19 @@ Phases, in order; any failure raises and the script exits non-zero:
             counters, Ratio, Moments, Adam state (optax's layout) and the
             device ring restored as saved, and the run trains on;
 8. eval   — ``eval checkpoint_path=<that checkpoint>``: the test reward;
+8b. offline — the fp32 run of phase 5 exported its replay
+            (``buffer.export=True``): the dataset verifies and equals the
+            checkpoint's replay bit for bit, and ``python -m sheeprl_tpu_torch
+            export <run dir>`` writes the same rows; ``run
+            algo.offline.enabled=true`` at DreamerV3-S (batch 16 x 64,
+            horizon 15, fp32) trains on it with no env, 8 gradient steps at
+            79 kernel launches each (the counter read around the run), its
+            checkpoints verified and marked offline; a resume from the first
+            continues the offline counters; one offline step through the
+            kernel and through the plain path from one state and the
+            loader's first batch agree; the chunked ``bf16-mixed`` step (33
+            launches a step) trains on phase 6's export from the device
+            ring, which carries the ``rssm_*`` keys;
 9. drill  — ``run`` under ``diagnostics=full`` with the presets' options at
             DreamerV3-S widths, sequences of 16: a poisoned batch under
             ``skip_update`` leaves params, Adam state, target critic and
@@ -134,8 +147,11 @@ Phases, in order; any failure raises and the script exits non-zero:
             and SAC-AE gradient steps' stream and busy time, idle share,
             launches, FLOPs and MFU (``algos/sac/step_profile.py``); PPO at
             ``exp=ppo_atari``'s widths and A2C under
-            ``fabric.precision=bf16-mixed``.  None of them runs a hand-written
-            kernel: each path's ln_gru launches are counted, 0;
+            ``fabric.precision=bf16-mixed``; SAC and DroQ offline with the
+            conservative Q penalty (``cql_alpha=1``) on their runs' exports,
+            two offline steps of each on the card against the CPU.  None of
+            them runs a hand-written kernel: each path's ln_gru launches are
+            counted, 0;
 15. dv2   — ``run exp=dreamer_v2`` and ``exp=dreamer_v1`` at their widths
             (``DV2_OVERRIDES``, ``DV1_OVERRIDES``), each training after the
             env step's rows reached the replay, as the JAX loops do; DreamerV2
@@ -161,7 +177,8 @@ Phases, in order; any failure raises and the script exits non-zero:
             and launches (``step_profile.time_gradient_steps``) for the fp32
             ``rssm_chunks=1`` step and the chunked bf16 one, each with the
             diagnostics off and then on (health stats, instrumented: its
-            FLOPs and MFU); the CPU's FLOP count of the fp32 step, equal to
+            FLOPs and MFU; the fp32 one on the offline loader's first batch,
+            the offline loop's step); the CPU's FLOP count of the fp32 step, equal to
             the card's; the journals' MFU, the syncs a step, ``ckpt_end``'s
             ``write_ms`` (async and blocking) and every run's kernel launches;
 18. the ``kernels`` JSON line, then the result line.
@@ -227,7 +244,7 @@ GRAD_TOLERANCE = {"float32": 1e-5, "bfloat16": 1e-5}
 TRAIN_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.sync_env=False", "diagnostics.transfers=log", "metric.log_every=4",
                    "env.capture_video=False", "run_name=chip_smoke", "algo.learning_starts=256",
                    "algo.total_steps=268", "buffer.size=1024", "checkpoint.every=100000", "metric.logger=null",
-                   "seed=5"]
+                   "buffer.checkpoint=True", "buffer.export=True", "seed=5"]
 MIN_GRADIENT_STEPS = 8
 # kernel vs plain gradient step from one state: the recurrent state agrees to
 # ~1e-6 per step, so the losses and the gradients (read from Adam's first
@@ -253,7 +270,8 @@ CHUNKED_OPTIONS = CHUNKED_STEP_OPTIONS + ["buffer.device=True", "buffer.checkpoi
 CHUNKED_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.executor=shared_memory", "env.capture_video=False",
                      "run_name=chip_smoke_chunked", "algo.learning_starts=256", "algo.total_steps=876",
                      "algo.replay_ratio=0.026", "buffer.size=1024", "checkpoint.every=440",
-                     "checkpoint.save_last=False", "metric.logger=null", "seed=5", *CHUNKED_OPTIONS]
+                     "checkpoint.save_last=False", "metric.logger=null", "buffer.export=True", "seed=5",
+                     *CHUNKED_OPTIONS]
 CHUNKED_GRADIENT_STEPS = 16
 # the drills, under diagnostics=full with the presets' options at DreamerV3-S
 # widths and a cut depth (sequences of 16, learning from policy step 64, one
@@ -352,17 +370,21 @@ A2C_SERVE_CLIENTS, A2C_SERVE_REQUESTS = 8, 8
 # preset at its own widths, cut in depth, with its replay checkpointed:
 # SAC (hidden 256, 2 critics, batch 256, replay ratio 1) on 4 envs, learning
 # from policy step 256, 1,024 steps (about 770 gradient steps); DroQ
-# (dropout 0.01, replay ratio 20) on 2 envs, 160 steps (about 1,900
-# gradient steps); SAC-AE (64x64 rgb with a 3-frame stack plus state,
-# features 64, actor and critics 1,024, batch 128) on 2 envs, 192 steps
-# (about 130 gradient steps); a checkpoint at half way and at the end
+# (dropout 0.01, replay ratio 20) on 2 envs, 256 steps (about 3,900
+# gradient steps; 256 rows, a batch for its offline run), a checkpoint at
+# step 160 (its resume waits learning_starts again, to iteration 113, then
+# trains 16 iterations) and at the end; SAC-AE (64x64 rgb with a 3-frame stack plus
+# state, features 64, actor and critics 1,024, batch 128) on 2 envs, 192
+# steps (about 130 gradient steps); SAC and SAC-AE checkpoint at half way
+# and at the end.  SAC and DroQ export their replay (buffer.export)
 SAC_OVERRIDES = ["exp=sac", "env=dummy", "env.id=continuous_dummy", "env.executor=sync", "env.capture_video=False",
                  "env.num_envs=4", "algo.learning_starts=256", "algo.total_steps=1024", "buffer.size=1024",
-                 "checkpoint.every=512", "metric.logger=null", "metric.log_every=256", "run_name=chip_smoke_sac",
-                 "seed=5"]
+                 "buffer.checkpoint=True", "buffer.export=True", "checkpoint.every=512", "metric.logger=null",
+                 "metric.log_every=256", "run_name=chip_smoke_sac", "seed=5"]
 DROQ_OVERRIDES = ["exp=droq", "env=dummy", "env.id=continuous_dummy", "env.executor=sync", "env.capture_video=False",
-                  "env.num_envs=2", "algo.learning_starts=64", "algo.total_steps=160", "buffer.size=256",
-                  "buffer.checkpoint=True", "checkpoint.every=80", "algo.mlp_keys.encoder=[state]",
+                  "env.num_envs=2", "algo.learning_starts=64", "algo.total_steps=256", "buffer.size=256",
+                  "buffer.checkpoint=True", "buffer.export=True", "checkpoint.every=160",
+                  "algo.mlp_keys.encoder=[state]",
                   "metric.logger=null", "metric.log_every=80", "run_name=chip_smoke_droq", "seed=5"]
 SAC_AE_OVERRIDES = ["exp=sac_ae", "env=dummy", "env.id=continuous_dummy", "env.executor=sync",
                     "env.capture_video=False", "env.num_envs=2", "env.frame_stack=3", "algo.cnn_keys.encoder=[rgb]",
@@ -454,8 +476,35 @@ PPO_REC_TIMED_UPDATES = 5
 # ReLU units at batch 128, and a unit at its kink is on in one library and
 # off in the other, so its metrics to 1e-3 and its weights to one Adam step
 # (lr 1e-3)
-CARD_CPU_METRIC_RTOL = {"sac": 1e-4, "sac_ae": 1e-3}
-CARD_CPU_PARAM_ATOL = {"sac": 1e-4, "sac_ae": 1e-3}
+CARD_CPU_METRIC_RTOL = {"sac": 1e-4, "sac_ae": 1e-3, "sac_offline": 1e-4, "droq_offline": 1e-4}
+CARD_CPU_PARAM_ATOL = {"sac": 1e-4, "sac_ae": 1e-3, "sac_offline": 1e-4, "droq_offline": 1e-4}
+# the offline phases: DreamerV3-S (exp=dreamer_v3's widths: batch 16 x 64,
+# horizon 15, fp32) trains with no env on the fp32 training run's live
+# export, 2 iterations of 4 gradient steps with a checkpoint after each (79
+# kernel launches a step: 64 dynamic steps at 16 rows, 15 imagined at 1,024),
+# then resumes from the first and continues the offline counters (4 more
+# steps).  The dummy env's Discrete(2) actions are stored one-hot; the run
+# declares them, so its agent is the online run's.  The chunked bf16 step
+# trains 4 steps on the device ring's export (its rssm_* keys); SAC and DroQ
+# at their widths (hidden 256, batch 256) with the conservative penalty on
+# their phases' exports, 4 and 2 gradient steps
+OFFLINE_DV3_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.capture_video=False", "algo.offline.enabled=true",
+                         "algo.offline.actions_dim=[2]", "algo.offline.is_continuous=False", "algo.total_steps=8",
+                         "algo.offline.grad_steps_per_iter=4", "checkpoint.every=4", "metric.logger=null",
+                         "metric.log_every=4", "run_name=chip_smoke_offline", "seed=5"]
+OFFLINE_CHUNKED_OVERRIDES = [*OFFLINE_DV3_OVERRIDES, *CHUNKED_STEP_OPTIONS, "algo.total_steps=4",
+                             "algo.offline.grad_steps_per_iter=2", "run_name=chip_smoke_offline_chunked"]
+OFFLINE_DV3_STEPS, OFFLINE_CHUNKED_STEPS = 8, 4
+OFFLINE_SAC_OPTIONS = ["env=dummy", "env.id=continuous_dummy", "env.capture_video=False", "algo.offline.enabled=true",
+                       "algo.offline.cql_alpha=1.0", "algo.offline.action_low=-1", "algo.offline.action_high=1",
+                       "algo.total_steps=4", "checkpoint.every=2", "metric.logger=null", "metric.log_every=2",
+                       "seed=5"]
+# gradient steps an iteration: SAC's 2 x 256 rows of the 1,024 its run
+# stored; DroQ's run stored 256, one batch of each of its two streams
+OFFLINE_SAC_GRAD_STEPS = {"sac": 2, "droq": 1}
+# phase 17 times the fp32 step under the default diagnostics on the offline
+# loader's first batch: the offline loop's step
+OFFLINE_TIMER_NOTE = " (the offline step, on the offline loader's first batch)"
 
 
 def _card_line() -> str:
@@ -2462,7 +2511,8 @@ def _card_vs_cpu(family_cls, cfg, obs_space, action_space, state, data, noise_fn
                  devices=("cuda", "cpu")) -> dict:
     """One train call of the family's update from ``state`` (a checkpoint's
     agent and optimizer states) on the card and on the CPU with the same
-    batch and noise: ``{metric_rel_err, param_max_abs_err, on_card}``."""
+    batch and noise (``noise_fn(device)``: the update's arguments after the
+    batch, one or a tuple): ``{metric_rel_err, param_max_abs_err, on_card}``."""
     import numpy as np
 
     from sheeprl_tpu_torch.interop.flax_params import dump_trees
@@ -2471,11 +2521,13 @@ def _card_vs_cpu(family_cls, cfg, obs_space, action_space, state, data, noise_fn
     for device in devices:
         family = family_cls(cfg, obs_space, action_space, state, device).make_update()
         batch = {k: v.to(device) for k, v in data.items()}
-        noise = noise_fn(device)
+        # the update's arguments after the batch: the noise, or a tuple of them
+        args = noise_fn(device)
+        args = args if isinstance(args, tuple) else (args,)
         if counter is None:
-            metrics = family.update(batch, noise)
+            metrics = family.update(batch, *args)
         else:
-            metrics, _ = family.update(batch, noise, counter)
+            metrics, _ = family.update(batch, *args, counter)
         tensors = list(family.agent.parameters()) + [t for o in family.optimizers.values()
                                                      for s in o.state.values() for t in s.values()]
         out.append((metrics.cpu().numpy(), dump_trees(family.spec()),
@@ -2536,10 +2588,294 @@ def run_sac_card_vs_cpu(sac: dict, sac_ae: dict, devices=("cuda", "cpu")) -> dic
     return out
 
 
+def _nested_to(tree, device):
+    """Every tensor of a dict/list tree moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _nested_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_nested_to(v, device) for v in tree]
+    return tree.to(device)
+
+
+def _dataset_rows(root: str) -> dict:
+    """``{stream: {key: [T, ...]}}``: every verified stream of a dataset,
+    whole; raises on a skipped shard or a stream with a hole."""
+    from sheeprl_tpu_torch.data.datasets import OfflineDataset
+
+    dataset = OfflineDataset(root)
+    if dataset.skipped or len(dataset.segments) != len(dataset.streams):
+        raise AssertionError(f"dataset {root}: skipped {dataset.skipped}, {len(dataset.segments)} segments for "
+                             f"{len(dataset.streams)} streams")
+    return {seg.stream: dataset.gather_window(seg.stream, seg.start, seg.rows) for seg in dataset.segments}
+
+
+def _same_rows(live: dict, other: dict, where: str) -> int:
+    """The live export against rows of the same replay as a checkpoint saved
+    them: bit-identical, stream by stream, key by key, but for the
+    ``truncated`` flag the save sets on each env's newest row (a resumed run
+    does not go on with that episode), which must be the only difference;
+    returns the rows compared."""
+    import numpy as np
+
+    if sorted(live) != sorted(other):
+        raise AssertionError(f"{where}: streams {sorted(live)} against {sorted(other)}")
+    rows = 0
+    for stream, arrays in live.items():
+        theirs = other[stream]
+        if sorted(arrays) != sorted(theirs):
+            raise AssertionError(f"{where}: stream {stream} keys {sorted(arrays)} against {sorted(theirs)}")
+        for key, value in arrays.items():
+            want = theirs[key]
+            if key == "truncated":
+                if want[-1].max() != 1:
+                    raise AssertionError(f"{where}: stream {stream}'s newest row is not marked truncated")
+                value, want = value[:-1], want[:-1]
+            if value.dtype != want.dtype or value.shape != want.shape or not np.array_equal(value, want):
+                raise AssertionError(f"{where}: stream {stream} key {key}: {value.dtype}{value.shape} against "
+                                     f"{want.dtype}{want.shape}, equal {np.array_equal(value, want)}")
+        rows += len(next(iter(arrays.values())))
+    return rows
+
+
+def _checkpoint_rows(ckpt: str) -> dict:
+    """``{env: {key: [T, ...]}}`` of a checkpoint's replay, in logical order
+    (``offline/export.py``'s own reading of a saved buffer)."""
+    from sheeprl_tpu_torch.offline.export import _rb_state_chunks
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    return {stream: arrays for stream, _, arrays in _rb_state_chunks(load_state(ckpt)["rb"])}
+
+
+def _offline_dv3_batch(dataset_dir: str, cfg, device: str):
+    """The offline loop's first batch of ``dataset_dir`` at ``cfg``'s shapes,
+    staged on the card, and the dataset's observation space."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import stage_batch
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import rssm_scan_spec
+    from sheeprl_tpu_torch.data.datasets import OfflineDataset
+    from sheeprl_tpu_torch.envs import spaces
+
+    dataset = OfflineDataset(dataset_dir)
+    cnn_keys, obs_keys = list(cfg.algo.cnn_keys.encoder), list(cfg.algo.cnn_keys.encoder) + list(cfg.algo.mlp_keys.encoder)
+    keys = obs_keys + ["actions", "rewards", "terminated", "is_first"]
+    if rssm_scan_spec(cfg)[0] > 1:
+        keys += ["rssm_recurrent", "rssm_posterior", "rssm_valid"]
+    host = next(dataset.batches(cfg.algo.per_rank_batch_size, seed=int(cfg.seed), mode="sequence",
+                                sequence_length=cfg.algo.per_rank_sequence_length, keys=keys))
+    obs_space = spaces.Dict({k: spaces.Box(0, 255, dataset.key_specs[k][0], "uint8") if k in cnn_keys
+                             else spaces.Box(-np.inf, np.inf, dataset.key_specs[k][0], "float32") for k in obs_keys})
+    return stage_batch(host, cnn_keys, device), obs_space
+
+
+def _offline_run(overrides, where: str, steps: int) -> tuple:
+    """An offline ``run``, its kernel launches counted from 0 around it:
+    ``(out, launches)``; every metric finite, ``steps`` gradient steps, its
+    checkpoints verified and marked offline, its journal with the dataset's
+    open and gauges and no env."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    out = cli.run(overrides)
+    torch.cuda.synchronize()
+    launches = fused_layernorm_gru.launches  # the main path ends here
+    journal = _journal_of(out["log_dir"])
+    gauges = set(journal["gauges"])
+    states = [load_state(c) for c in out["checkpoints"]]
+    if out["gradient_steps"] != steps or not np.isfinite(out["metric_rows"]).all() or not out["checkpoints"] \
+            or any(verify_checkpoint(c) != (True, "verified") for c in out["checkpoints"]) \
+            or not all(s.get("offline") is True for s in states):
+        raise AssertionError(f"{where}: {out['gradient_steps']} gradient steps (expected {steps}), metrics "
+                             f"{out['metric_rows']}, checkpoints {out['checkpoints']}")
+    if journal["status"] != "completed" or "dataset_open" not in journal["kinds"] or \
+            "Telemetry/dataset_read_sps" not in gauges or "Telemetry/env_steps_per_sec" in gauges:
+        raise AssertionError(f"{where}: journal status {journal['status']}, kinds {journal['kinds']}, gauges "
+                             f"{sorted(gauges)}")
+    return out, launches, journal
+
+
+def run_offline_dreamer(build_dir: Path, train: dict, chunked: dict, device_name: str = "cuda") -> dict:
+    """The offline DreamerV3 phases: the fp32 run's live export against its
+    checkpoint's replay and against ``python -m sheeprl_tpu_torch export``
+    of the run; offline DreamerV3-S through the kernel on it (79 launches a
+    step), a resume that continues the offline counters, one offline step
+    through the kernel and through the plain path from one state and
+    dataset batch (returned as ``batch``: phase 17 times the fp32 step on
+    it); the chunked bf16 step on the device ring's export."""
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.data.datasets import OfflineDataset
+    from sheeprl_tpu_torch.serving.loader import agent_state_from_checkpoint
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    device = device_name
+    run_dir = Path(train["checkpoint"]).parent.parent
+    live = str(run_dir / "dataset")
+    live_rows = _dataset_rows(live)
+    rows_vs_ckpt = _same_rows(live_rows, _checkpoint_rows(train["checkpoint"]), "fp32 live export vs checkpoint")
+    converted = build_dir / "offline_export"
+    shutil.rmtree(converted, ignore_errors=True)
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "sheeprl_tpu_torch", "export", str(run_dir), "--out", str(converted)],
+                          cwd=str(ROOT), capture_output=True, text=True, timeout=300)
+    export_s = time.monotonic() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"export of {run_dir} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    rows_vs_cli = _same_rows(live_rows, _dataset_rows(str(converted)), "fp32 live export vs the export command")
+
+    overrides = OFFLINE_DV3_OVERRIDES + [f"algo.offline.dataset_dir={live}", f"fabric.accelerator={device}",
+                                         f"root_dir={(build_dir / 'offline').resolve()}"]
+    cfg = compose(overrides)
+    _dv3_s_widths(cfg)
+    out, launches, journal = _offline_run(overrides, "offline dv3", OFFLINE_DV3_STEPS)
+    _check_diagnostics_journal(journal, "offline dv3")
+    no_player = {"gradient_steps": out["gradient_steps"], "player_steps": 0, "player_width": 1, "test_steps": 0}
+    predicted, per_step = _launches(cfg, no_player)
+    if per_step != 64 + 15 or launches != predicted:
+        raise AssertionError(f"offline dv3: {launches} ln_gru launches, predicted {predicted} ({per_step} a step)")
+    if len(out["checkpoints"]) != 2:
+        raise AssertionError(f"offline dv3: checkpoints {out['checkpoints']}")
+    resumed, resume_launches, _ = _offline_run(
+        overrides + [f"checkpoint.resume_from={out['checkpoints'][0]}", "run_name=chip_smoke_offline_resume"],
+        "offline dv3 resume", OFFLINE_DV3_STEPS // 2)
+    first = load_state(out["checkpoints"][0])
+    if resumed["start_iter"] != first["iter_num"] + 1 or resumed["policy_steps"] != OFFLINE_DV3_STEPS or \
+            resume_launches != per_step * resumed["gradient_steps"]:
+        raise AssertionError(f"offline dv3 resume: start_iter {resumed['start_iter']}, policy steps "
+                             f"{resumed['policy_steps']}, {resume_launches} launches")
+    phases = next((e for e in journal["events"] if e["event"] == "telemetry_summary"), {}).get("phase_seconds", {})
+    sample_s, train_s = phases.get("buffer-sample", 0.0), phases.get("train", 0.0)
+    sps_train = [m["Time/sps_train"] for m in out["logged"] if "Time/sps_train" in m]
+
+    # one offline gradient step from the last checkpoint's state and the
+    # loader's first batch, through the kernel and through the plain path
+    gen = torch.Generator(device=device).manual_seed(13)
+    batch, obs_space = _offline_dv3_batch(live, cfg, device)
+    noise = _train_noise(cfg, (2,), gen, device)
+    (m_kernel, g_kernel, p_kernel, _), (m_plain, g_plain, p_plain, _) = _kernel_vs_plain_step(
+        cfg, agent_state_from_checkpoint(load_state(out["checkpoints"][-1])), ((2,), False, obs_space), batch, noise,
+        device)
+    # the step's losses and gradient norms (METRIC_ORDER); the health stats
+    # after them are not held: a dead-unit fraction moves by whole units
+    # where a unit's activation sits at its threshold
+    n = len(out["metric_order"])
+    metric_err = float(np.max(np.abs(m_kernel[:n] - m_plain[:n]) / np.maximum(np.abs(m_plain[:n]), 1e-3)))
+    health_err = float(np.max(np.abs(m_kernel[n:] - m_plain[n:]), initial=0.0))
+    grad_err = max(((g_kernel[k] - g_plain[k]).abs().max() / g_plain[k].abs().max()).item() for k in g_plain)
+    diff = (p_kernel - p_plain).abs()
+    outliers = (diff > STEP_PARAM_ATOL).float().mean().item()
+    if (not np.isfinite(m_kernel).all() or metric_err > STEP_METRIC_RTOL or grad_err > STEP_GRAD_RTOL
+            or outliers > STEP_PARAM_OUTLIERS):
+        raise AssertionError(f"offline kernel vs plain step: metrics {metric_err}, gradients {grad_err}, param "
+                             f"outliers {outliers}; kernel {m_kernel}, plain {m_plain}")
+
+    # the chunked bf16 step on the device ring's export
+    ring = str(Path(chunked["run_dir"]) / "dataset")
+    ring_keys = OfflineDataset(ring).keys
+    if not {"rssm_recurrent", "rssm_posterior", "rssm_valid"} <= set(ring_keys):
+        raise AssertionError(f"the device ring's export lacks the stored states: {sorted(ring_keys)}")
+    c_overrides = OFFLINE_CHUNKED_OVERRIDES + [f"algo.offline.dataset_dir={ring}", f"fabric.accelerator={device}",
+                                               f"root_dir={(build_dir / 'offline').resolve()}"]
+    c_cfg = compose(c_overrides)
+    _dv3_s_widths(c_cfg, "bf16-mixed")
+    c_out, c_launches, _ = _offline_run(c_overrides, "offline chunked", OFFLINE_CHUNKED_STEPS)
+    c_predicted, c_per_step = _launches(c_cfg, {**no_player, "gradient_steps": c_out["gradient_steps"]})
+    if c_per_step != 64 // 4 + 2 + 15 or c_launches != c_predicted:
+        raise AssertionError(f"offline chunked: {c_launches} launches, predicted {c_predicted} ({c_per_step} a step)")
+    return {
+        "live_streams": len(live_rows), "rows_vs_checkpoint": rows_vs_ckpt, "rows_vs_export_command": rows_vs_cli,
+        "export_command_s": export_s, "gradient_steps": out["gradient_steps"], "ln_gru_launches": launches,
+        "launches_per_gradient_step": per_step, "checkpoints": out["checkpoints"],
+        "final_metrics": dict(zip(out["metric_order"], out["metric_rows"][-1].tolist())),
+        "resume_start_iter": resumed["start_iter"], "resume_gradient_steps": resumed["gradient_steps"],
+        "resume_launches": resume_launches, "sps_train": sps_train,
+        "buffer_sample_share": sample_s / (sample_s + train_s) if sample_s + train_s else None,
+        "buffer_sample_s": sample_s, "train_s": train_s, "flops_per_step": journal["flops_per_step"],
+        "step_metric_rel_err": metric_err, "step_health_abs_err": health_err, "step_grad_rel_err": grad_err,
+        "step_param_outliers": outliers,
+        "step_param_max_abs_err": diff.max().item(), "batch": batch, "ring_keys": sorted(ring_keys),
+        "chunked_gradient_steps": c_out["gradient_steps"], "chunked_launches": c_launches,
+        "chunked_launches_per_gradient_step": c_per_step,
+        "chunked_final_metrics": dict(zip(c_out["metric_order"], c_out["metric_rows"][-1].tolist())),
+        "chunked_sps_train": [m["Time/sps_train"] for m in c_out["logged"] if "Time/sps_train" in m],
+    }
+
+
+def run_offline_sac(build_dir: Path, sac: dict, droq: dict, device_name: str = "cuda", cpu: str = "cpu") -> dict:
+    """``exp=sac`` and ``exp=droq`` offline with the conservative penalty
+    (``cql_alpha=1``, actions in ±1) on their phases' live exports, at their
+    widths; then two offline gradient steps of each from its first offline
+    checkpoint on the card against the same two on the CPU (``cpu``), one
+    dataset batch and the same draws."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.droq.droq import DroQFamily, draw_noise
+    from sheeprl_tpu_torch.algos.sac.sac import SACFamily, draw_cql_noise
+    from sheeprl_tpu_torch.data.datasets import OfflineDataset
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    out = {}
+    for name, phase, family_cls in (("sac", sac, SACFamily), ("droq", droq, DroQFamily)):
+        dataset_dir = str(Path(phase["run"]["log_dir"]) / "dataset")
+        grad = OFFLINE_SAC_GRAD_STEPS[name]
+        overrides = [f"exp={name}", *OFFLINE_SAC_OPTIONS, f"algo.offline.dataset_dir={dataset_dir}",
+                     f"algo.offline.grad_steps_per_iter={grad}", f"run_name=chip_smoke_{name}_offline",
+                     f"root_dir={(build_dir / 'offline').resolve()}", f"fabric.accelerator={device_name}"]
+        t0 = time.monotonic()
+        run, launches, journal = _offline_run(overrides, f"offline {name}", 4)
+        seconds = time.monotonic() - t0
+        family = run["family"]
+        cfg, n, act = family.cfg, int(family.cfg.algo.per_rank_batch_size), family.act_dim
+        dataset = OfflineDataset(dataset_dir)
+        obs_dim = int(np.prod(dataset.key_specs["observations"][0]))
+        obs_space = spaces.Dict({"state": spaces.Box(-np.inf, np.inf, (obs_dim,), np.float32)})
+        action_space = spaces.Box(-1.0, 1.0, (act,), np.float32)
+        feed = dataset.batches(n, seed=17, mode="flat",
+                               keys=["observations", "next_observations", "actions", "rewards", "terminated"])
+        draws = [next(feed) for _ in range(2)]
+        data = {k: torch.from_numpy(np.stack([d[k] for d in draws]).astype(np.float32)) for k in draws[0]}
+        gen = torch.Generator().manual_seed(19)
+        if name == "sac":
+            eps = torch.randn(2, n, act, generator=gen)
+            cql = draw_cql_noise(family.agent.actor, 2, family.cql_samples, n, gen, cpu)
+            noise_fn = lambda d: (eps.to(d), _nested_to(cql, d))  # noqa: E731
+        else:
+            actor_obs = torch.from_numpy(np.stack([next(feed)["observations"] for _ in range(2)]).astype(np.float32))
+            noise = draw_noise(family.agent, 2, n, act, gen, cpu, family.cql_samples)
+            noise_fn = lambda d: ({"observations": actor_obs.to(d)}, _nested_to(noise, d))  # noqa: E731
+        row = _card_vs_cpu(family_cls, cfg, obs_space, action_space, load_state(run["checkpoints"][0]), data,
+                           noise_fn, devices=(device_name, cpu))
+        key = f"{name}_offline"
+        if not row["on_card"] or row["metric_rel_err"] > CARD_CPU_METRIC_RTOL[key] or \
+                row["param_max_abs_err"] > CARD_CPU_PARAM_ATOL[key]:
+            raise AssertionError(f"{key} card vs CPU: {row} (tol {CARD_CPU_METRIC_RTOL[key]}, "
+                                 f"{CARD_CPU_PARAM_ATOL[key]})")
+        out[name] = {"gradient_steps": run["gradient_steps"], "final": run["metric_rows"][-1].tolist(),
+                     "launches": launches, "seconds": seconds, "dataset": run["dataset"],
+                     "cql_samples": family.cql_samples, "card_vs_cpu": row, "grad_steps_per_call": grad,
+                     "flops_per_call": journal["flops_per_step"],
+                     "sps_train": [m["Time/sps_train"] for m in run["logged"] if "Time/sps_train" in m]}
+    return out
+
+
 def run_sac_profiles() -> dict:
     """The SAC (diagnostics off and on), DroQ and SAC-AE gradient steps
-    through ``algos/sac/step_profile.py``: stream and busy time, idle share,
-    launches, FLOPs and step MFU at each preset's widths."""
+    through ``algos/sac/step_profile.py``, and SAC's and DroQ's with the
+    conservative Q penalty (``cql_alpha=1``, the offline runs' step): stream
+    and busy time, idle share, launches, FLOPs and step MFU at each preset's
+    widths."""
     import torch
 
     from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import time_gradient_steps
@@ -2547,9 +2883,11 @@ def run_sac_profiles() -> dict:
     from sheeprl_tpu_torch.diagnostics.telemetry import resolve_peak_flops
 
     out = {}
-    for name, exp, diagnostics in (("sac", "sac", False), ("sac_diagnostics", "sac", True), ("droq", "droq", False),
-                                   ("sac_ae", "sac_ae", False)):
-        step, batch, info = profiled_update([f"exp={exp}"], "cuda", diagnostics)
+    cql = ["algo.offline.cql_alpha=1.0"]
+    for name, exp, diagnostics, extra in (("sac", "sac", False, []), ("sac_diagnostics", "sac", True, []),
+                                          ("droq", "droq", False, []), ("sac_ae", "sac_ae", False, []),
+                                          ("sac_cql", "sac", True, cql), ("droq_cql", "droq", False, cql)):
+        step, batch, info = profiled_update([f"exp={exp}", *extra], "cuda", diagnostics)
         timing = time_gradient_steps(step, None, batch, None, SAC_TIMED_STEPS, warmup=3, profile=True)
         peak = resolve_peak_flops(torch.cuda.get_device_name(0), info["precision"])
         top = sorted(timing["kernels"].items(), key=lambda kv: -kv[1][1])[:3]
@@ -2586,14 +2924,16 @@ def run_bf16_on_policy(build_dir: Path, device_name: str = "cuda") -> dict:
     return out
 
 
-def run_timers(device_name: str = "cuda") -> dict:
+def run_timers(device_name: str = "cuda", offline_batch=None) -> dict:
     """Phase 10: the one gradient-step timer, profiled, for the fp32
     ``rssm_chunks=1`` step and the chunked bf16 one, each built as
     ``diagnostics=off`` runs it and as the default diagnostics run it (the
     health stats in the step, telemetry's instrumentation around it, which
     counts the step's FLOPs at its first call); launches here do not count.
     The step's MFU is its counted FLOPs over its stream time, against the
-    card's peak for its precision."""
+    card's peak for its precision.  With ``offline_batch`` (the offline
+    loader's first batch, staged) the fp32 step under the default
+    diagnostics runs on it: the offline loop's step, at the same shapes."""
     import torch
 
     from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import profiled_step, time_gradient_steps
@@ -2605,6 +2945,8 @@ def run_timers(device_name: str = "cuda") -> dict:
         # host, so the two are compared within this call only
         for turn, diagnostics in enumerate((False, True)):
             step, moments, batch, gen = profiled_step(extra, device_name, diagnostics)
+            if diagnostics and not extra and offline_batch is not None:
+                batch = offline_batch
             timing = time_gradient_steps(step, moments, batch, gen, TIMED_STEPS, warmup=2, profile=True)
             gru = [v for k, v in timing["kernels"].items() if "ln_gru" in k]
             row = {"step_ms": timing["step_ms"], "steps_per_s": timing["steps_per_s"], "busy_ms": timing["busy_ms"],
@@ -3398,6 +3740,36 @@ def main() -> int:
           f"{evaluated['ln_gru_launches']} ln_gru launches  [{card}]", flush=True)
 
     mark('chunked, resume, eval')
+    offline = run_offline_dreamer(build_dir, train, chunked)
+    print(f"[export] buffer.export=True: the fp32 run's live export ({offline['live_streams']} streams, "
+          f"{offline['rows_vs_checkpoint']} rows) verifies and equals its checkpoint's replay bit for bit (the save's "
+          f"truncation mark on each env's newest row aside); `python -m sheeprl_tpu_torch export <run dir>` "
+          f"({offline['export_command_s']:.1f} s) wrote the same {offline['rows_vs_export_command']} rows; the "
+          f"chunked run's device-ring export carries {offline['ring_keys']}  [{card}]", flush=True)
+    print(f"[offline] DreamerV3-S run algo.offline.enabled=true (batch 16 x 64, horizon 15, fp32) on the fp32 run's "
+          f"export: {offline['gradient_steps']} gradient steps, {offline['ln_gru_launches']} ln_gru launches = "
+          f"predicted ({offline['launches_per_gradient_step']} per gradient step: 64 x 16 rows + 15 x 1024); every "
+          f"metric finite, final {json.dumps(offline['final_metrics'])}; checkpoints {offline['checkpoints']} "
+          f"verified, offline; Time/sps_train {offline['sps_train']}; buffer-sample span "
+          f"{offline['buffer_sample_s']:.3f} s against train {offline['train_s']:.3f} s (share "
+          f"{offline['buffer_sample_share']:.4f}); FLOPs counted {offline['flops_per_step']}; resumed from the first "
+          f"checkpoint at iteration {offline['resume_start_iter']}, {offline['resume_gradient_steps']} gradient steps, "
+          f"{offline['resume_launches']} ln_gru launches  [{card}]", flush=True)
+    print(f"[offline] kernel vs plain offline gradient step from the last checkpoint and the loader's first batch: "
+          f"losses and gradient norms max relative error {offline['step_metric_rel_err']:.3g} (tol "
+          f"{STEP_METRIC_RTOL:g}; the health stats max_abs_err {offline['step_health_abs_err']:.3g}, not held), gradients "
+          f"{offline['step_grad_rel_err']:.3g} (tol {STEP_GRAD_RTOL:g}), params off by more than {STEP_PARAM_ATOL:g}: "
+          f"{offline['step_param_outliers']:.3g} (tol {STEP_PARAM_OUTLIERS:g}), max_abs_err "
+          f"{offline['step_param_max_abs_err']:.3g} (not held)  [{card}]", flush=True)
+    print(f"[offline] chunked bf16-mixed rssm_chunks=4 burn-in 2 on the ring's export: "
+          f"{offline['chunked_gradient_steps']} gradient steps, {offline['chunked_launches']} ln_gru launches = "
+          f"predicted ({offline['chunked_launches_per_gradient_step']} per gradient step); every metric finite, final "
+          f"{json.dumps(offline['chunked_final_metrics'])}; Time/sps_train {offline['chunked_sps_train']}  [{card}]",
+          flush=True)
+    shutil.rmtree(build_dir / "offline", ignore_errors=True)
+    shutil.rmtree(build_dir / "offline_export", ignore_errors=True)
+
+    mark('offline dv3')
     drill = run_drill(build_dir)
     print(
         f"[drill] DreamerV3-S run diagnostics=full ({' '.join(CHUNKED_OPTIONS)}, sequences of 16): the poisoned "
@@ -3604,7 +3976,18 @@ def main() -> int:
               f"batch and noise, fp32 (TF32 off): every parameter and optimizer state on the card; metrics max "
               f"relative error {row['metric_rel_err']:.3g} (tol {CARD_CPU_METRIC_RTOL[name]:g}), parameters max_abs_err "
               f"{row['param_max_abs_err']:.3g} (tol {CARD_CPU_PARAM_ATOL[name]:g})  [{card}]", flush=True)
-    for path in ("sac", "droq", "sac_ae"):
+    offline_sac = run_offline_sac(build_dir, sac, droq)
+    for name, row in offline_sac.items():
+        print(f"[offline-{name}] run exp={name} algo.offline.enabled=true algo.offline.cql_alpha=1.0 (actions in "
+              f"[-1, 1], {row['cql_samples']} uniform + {row['cql_samples']} policy proposals) on its phase's export "
+              f"({row['dataset']['rows']} rows in {row['dataset']['shards']} shards): {row['gradient_steps']} gradient "
+              f"steps in {row['seconds']:.1f} s, final {row['final']}, Time/sps_train {row['sps_train']}, FLOPs counted "
+              f"{row['flops_per_call']} a call of {row['grad_steps_per_call']} steps, ln_gru "
+              f"launches {row['launches']}; two offline CQL steps on the card against the CPU: metrics max relative "
+              f"error {row['card_vs_cpu']['metric_rel_err']:.3g} (tol {CARD_CPU_METRIC_RTOL[name + '_offline']:g}), "
+              f"parameters max_abs_err {row['card_vs_cpu']['param_max_abs_err']:.3g} (tol "
+              f"{CARD_CPU_PARAM_ATOL[name + '_offline']:g})  [{card}]", flush=True)
+    for path in ("sac", "droq", "sac_ae", "offline"):
         shutil.rmtree(build_dir / path, ignore_errors=True)
     profiles = run_sac_profiles()
     for name, t in profiles.items():
@@ -3763,7 +4146,7 @@ def main() -> int:
     print(f"[p2e-dv] the P2E-DV2 and P2E-DV1 phases took {time.monotonic() - p2e_dv_t0:.1f} s  [{card}]", flush=True)
 
     mark('p2e dv2, dv1')
-    timers = run_timers()
+    timers = run_timers(offline_batch=offline.pop("batch"))
     for name, t in timers.items():
         fp32 = name.startswith("fp32")
         widths = (16, 1024) if fp32 else (64, 1024)
@@ -3777,7 +4160,9 @@ def main() -> int:
             extra = (f"; {t['flops_per_step']:.6g} FLOPs a step counted, step MFU "
                      f"{t['step_mfu'] if t['step_mfu'] is None else format(t['step_mfu'], '.6g')}")
         print(
-            f"[timer] DreamerV3-S gradient step, {name}: median stream time {t['step_ms']:.3f} ms (CUDA events; "
+            f"[timer] DreamerV3-S gradient step, {name}"
+            f"{OFFLINE_TIMER_NOTE if name == 'fp32_diagnostics_1' else ''}: "
+            f"median stream time {t['step_ms']:.3f} ms (CUDA events; "
             f"host-bound, so about its wall time), {t['steps_per_s']:.3f} steps/s over {TIMED_STEPS} steps; "
             f"device busy {t['busy_ms']:.3f} ms a step (torch.profiler), idle share {t['idle_share']:.4f}, "
             f"{t['launches']} kernel launches a step, ln_gru {t['ln_gru_launches']} launches {t['ln_gru_ms']:.4f} ms "
@@ -3849,6 +4234,9 @@ def main() -> int:
                "dv2_eval": dv2_evaluated["ln_gru_launches"], "dv1": dv1["ln_gru_launches"],
                "dv1_resume": dv1_resumed["ln_gru_launches"], "dv1_eval": dv1_evaluated["ln_gru_launches"],
                "ppo_recurrent": ppo_rec["ln_gru_launches"], "ppo_recurrent_bf16": ppo_rec["bf16_launches"],
+               "offline": offline["ln_gru_launches"], "offline_resume": offline["resume_launches"],
+               "offline_chunked": offline["chunked_launches"],
+               **{f"{name}_offline": row["launches"] for name, row in offline_sac.items()},
                **{f"p2e_dv{v}{suffix}": r[part]["ln_gru_launches"] for v, r in p2e_dv.items()
                   for suffix, part in (("", "run"), ("_resume", "resume"), ("_finetuning", "finetune"),
                                        ("_eval", "eval"))}}
@@ -3869,8 +4257,8 @@ def main() -> int:
         "library_ms": main["library_ms"],
         "shape": {"B": main["B"], "K": main["K"], "H": main["H"], "dtype": main["dtype"]},
         "cases": [{k: c[k] for k in case_keys} for c in cases],
-        "phase": "kernel+slice+train+chunked+resume+eval+drill+jepa+p2e+sac+droq+sac_ae+bf16+dv2+dv1+ppo_recurrent"
-                 "+p2e_dv2+p2e_dv1",
+        "phase": "kernel+slice+train+chunked+resume+eval+offline+drill+jepa+p2e+sac+droq+sac_ae+offline_sac"
+                 "+offline_droq+bf16+dv2+dv1+ppo_recurrent+p2e_dv2+p2e_dv1",
     }]
     mark("kernels line")
     print(f"[timing] wall seconds by group of phases: "

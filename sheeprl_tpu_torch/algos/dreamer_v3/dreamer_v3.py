@@ -533,18 +533,28 @@ def load_learner_state(state: Dict[str, Any], agent: Agent, optimizers: Dict[str
 
 
 def _unported_options(cfg) -> List[str]:
-    """The options this slice reads and does not run (ROADMAP.md Queue 1);
-    the runtime (devices), the checkpoint callback (export) and the actor
-    (its other distributions) refuse theirs where they are built, before the
-    loop starts."""
+    """The options this loop reads and does not run (ROADMAP.md Queue 1);
+    the runtime (devices) and the actor (its other distributions) refuse
+    theirs where they are built, before the loop starts.  An offline run
+    never reaches the loop: ``cli.run_algorithm`` routes it to
+    ``offline/train.py``, and ``envs/env.py`` builds no env for it."""
     out = []
-    if (cfg.algo.get("offline") or {}).get("enabled", False):
-        out.append("algo.offline.enabled=True (offline training)")
     if not cfg.model_manager.get("disabled", True):
         out.append("model_manager.disabled=False (model registry)")
     if cfg.metric.get("profiler", {}).get("enabled", False):
         out.append("metric.profiler.enabled=True")
     return out
+
+
+def target_tau(cfg, gradient_steps: int) -> float:
+    """The target critic's Polyak coefficient before gradient step
+    ``gradient_steps`` (counted from 0 in every run): 1 at the first, the
+    configured ``tau`` every ``per_rank_target_network_update_freq`` steps,
+    else 0."""
+    target_freq = cfg.algo.critic.get("per_rank_target_network_update_freq", 0)
+    if target_freq and gradient_steps % target_freq == 0:
+        return 1.0 if gradient_steps == 0 else float(cfg.algo.critic.get("tau", 1.0))
+    return 0.0
 
 
 def build_dreamer_agent(actions_dim: Sequence[int], is_continuous: bool, cfg, obs_space,
@@ -727,7 +737,6 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     ratio = Ratio(cfg.algo.replay_ratio, pretrain_steps=cfg.algo.per_rank_pretrain_steps)
     if state is not None and "ratio" in state:
         ratio.load_state_dict(state["ratio"])
-    target_freq = cfg.algo.critic.get("per_rank_target_network_update_freq", 0)
     action_rng = np.random.default_rng(cfg.seed)
 
     obs = envs.reset(seed=cfg.seed)[0]
@@ -779,11 +788,7 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
         with timer("Time/train_time", device), diag.span("train"):
             for sample in local_data:
                 batch = diag.maybe_inject_nan(iter_num, stage_batch(sample, cnn_keys, device))
-                if target_freq and gradient_steps % target_freq == 0:
-                    tau = 1.0 if gradient_steps == 0 else float(cfg.algo.critic.get("tau", 1.0))
-                else:
-                    tau = 0.0
-                moments_state, metrics = train_step(moments_state, batch, tau, generator)
+                moments_state, metrics = train_step(moments_state, batch, target_tau(cfg, gradient_steps), generator)
                 pending.append(metrics)
                 gradient_steps += 1
             train_step_count += 1

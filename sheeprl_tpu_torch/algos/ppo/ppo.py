@@ -22,7 +22,7 @@ loop fetches it once per iteration.
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +51,29 @@ def linear_schedule(init_value: float, end_value: float, transition_steps: int):
         return float((init - end) * frac + end)
 
     return schedule
+
+
+def lr_setter(optimizer: torch.optim.Optimizer, schedule) -> Callable[[], None]:
+    """``set_lr()``: the optimizer's rate at ``schedule`` of its update
+    count, called before each step.  optax evaluates the schedule at the
+    count before the update: the first update runs at the initial rate.
+    Adam's step is that count; a capturable Adam keeps it on the device,
+    and the rate follows it there (a skipped update does not advance it)."""
+    group0 = optimizer.param_groups[0]
+    first = group0["params"][0]
+
+    def set_lr() -> None:
+        step = optimizer.state[first].get("step") if optimizer.state.get(first) else None
+        if step is not None and step.device.type != "cpu":
+            rate = schedule(step)
+            if isinstance(group0["lr"], torch.Tensor):
+                group0["lr"].copy_(rate)
+            else:
+                group0["lr"] = rate.clone()
+        else:
+            group0["lr"] = schedule(0 if step is None else int(step))
+
+    return set_lr
 
 
 def _module_groups(agent: PPOAgent):
@@ -103,22 +126,8 @@ def make_train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, num_
         health_out = []
     if sentinel.skip_update:
         guarded, snapshot = skip_update_guard([agent], [optimizer])
-    group0, first = optimizer.param_groups[0], params[0]
-
-    def set_lr() -> None:
-        # optax evaluates the schedule at the count before the update: the
-        # first update runs at the initial rate.  Adam's step is that count;
-        # a capturable Adam keeps it on the device, and the rate follows it
-        # there (a skipped update does not advance it)
-        step = optimizer.state[first].get("step") if optimizer.state.get(first) else None
-        if step is not None and step.device.type != "cpu":
-            rate = schedule(step)
-            if isinstance(group0["lr"], torch.Tensor):
-                group0["lr"].copy_(rate)
-            else:
-                group0["lr"] = rate.clone()
-        else:
-            group0["lr"] = schedule(0 if step is None else int(step))
+    first = params[0]
+    set_lr = lr_setter(optimizer, schedule)
 
     def loss_fn(mb: Dict[str, Any], clip_coef: float, ent_coef: float, vf_coef: float):
         # the parameters and observations in the compute dtype, as the JAX
@@ -259,8 +268,6 @@ def rollout_data(agent: PPOAgent, rb, obs: Dict[str, np.ndarray], stage, cfg, de
 
 def _unported_options(cfg) -> List[str]:
     out = []
-    if (cfg.algo.get("offline") or {}).get("enabled", False):
-        out.append("algo.offline.enabled=True (offline training)")
     if not cfg.model_manager.get("disabled", True):
         out.append("model_manager.disabled=False (model registry)")
     if cfg.metric.get("profiler", {}).get("enabled", False):

@@ -17,7 +17,9 @@ clipped policy loss, the value loss (clipped with ``algo.clip_vloss``) and
 the entropy bonus, with the resets masked inside the sequence forward (the
 agent and the observations cast to the compute dtype of
 ``fabric.precision``), the gradient clipped by ``algo.max_grad_norm`` and
-one ``adamw`` step.  The metric vector is the three losses' means over the
+one ``adamw`` step; with ``algo.anneal_lr`` its rate is optax's
+``linear_schedule`` to 0 over every minibatch update of the run, as PPO's
+(``algos/ppo/ppo.py::lr_setter``).  The metric vector is the three losses' means over the
 minibatches and the non-finite minibatch count.  The JAX step computes no
 health stats and applies no ``skip_update`` selection, so neither does this
 one, and ``run`` refuses ``diagnostics.sentinel.policy=skip_update``.
@@ -31,7 +33,7 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_loss
-from sheeprl_tpu_torch.algos.ppo.ppo import OnPolicyFamily, _on_policy_main
+from sheeprl_tpu_torch.algos.ppo.ppo import OnPolicyFamily, _on_policy_main, linear_schedule, lr_setter
 from sheeprl_tpu_torch.algos.ppo_recurrent.agent import RecurrentPPOAgent, build_agent, prev_actions_of
 from sheeprl_tpu_torch.algos.ppo_recurrent.utils import test
 from sheeprl_tpu_torch.diagnostics.sentinel import finite_flag, sentinel_spec
@@ -65,7 +67,7 @@ def to_sequences(x: torch.Tensor, seq_len: int) -> torch.Tensor:
 
 
 def make_train_step(agent: RecurrentPPOAgent, optimizer: torch.optim.Optimizer, cfg, num_minibatches: int,
-                    seq_batch: int):
+                    seq_batch: int, schedule=None):
     """Build the update: ``update(data, perms, coefs) -> metrics``.
 
     ``data`` holds ``obs`` (a dict), ``prev_actions``, ``actions``,
@@ -73,11 +75,13 @@ def make_train_step(agent: RecurrentPPOAgent, optimizer: torch.optim.Optimizer, 
     ``[L, S, ...]`` tensors and ``hx0``/``cx0`` ``[S, H]``; ``perms`` the
     ``update_epochs`` permutations of ``range(num_minibatches *
     seq_batch)``; ``coefs`` ``(clip, entropy, value)``.  The agent and the
-    optimizer update in place."""
+    optimizer update in place; ``schedule`` (optax's linear schedule, or
+    None) sets the rate before each step."""
     cdt = compute_dtype_of(cfg)
     epochs = int(cfg.algo.update_epochs)
     max_grad_norm = float(cfg.algo.max_grad_norm or 0.0)
     params = [p for group in optimizer.param_groups for p in group["params"]]
+    set_lr = lr_setter(optimizer, schedule) if schedule is not None else None
 
     def loss_fn(mb: Dict[str, Any], clip_coef: float, ent_coef: float, vf_coef: float):
         _, new_logprobs, entropy, new_values, _ = call_cast((agent,), cdt, lambda: agent(
@@ -102,6 +106,8 @@ def make_train_step(agent: RecurrentPPOAgent, optimizer: torch.optim.Optimizer, 
                 grads = list(torch.autograd.grad(total, params))
                 for p, g in zip(params, clip_by_global_norm(grads, max_grad_norm) if max_grad_norm > 0 else grads):
                     p.grad = g
+                if set_lr is not None:
+                    set_lr()
                 optimizer.step()
                 optimizer.zero_grad(set_to_none=True)
                 rows.append(torch.stack([*aux, 1.0 - finite_flag(*aux).float()]).float().detach())
@@ -115,12 +121,17 @@ def make_train_step(agent: RecurrentPPOAgent, optimizer: torch.optim.Optimizer, 
 def make_update(agent: RecurrentPPOAgent, optimizer: torch.optim.Optimizer, cfg, total_iters: int):
     """The update for PPO's loop: ``update(iter_num, data, generator) ->
     metrics`` on this iteration's annealed clip and entropy coefficients
-    and permutations drawn from ``generator``."""
+    and permutations drawn from ``generator``, with ``algo.anneal_lr``
+    optax's linear schedule over every minibatch update of the run (the
+    JAX loop's ``transition_steps``)."""
     from sheeprl_tpu_torch.utils.utils import polynomial_decay
 
     _, seq_batch, num_minibatches = sequence_layout(cfg)
     epochs = int(cfg.algo.update_epochs)
-    train_step = make_train_step(agent, optimizer, cfg, num_minibatches, seq_batch)
+    schedule = None
+    if cfg.algo.anneal_lr:
+        schedule = linear_schedule(optimizer.param_groups[0]["lr"], 0.0, max(1, total_iters * epochs * num_minibatches))
+    train_step = make_train_step(agent, optimizer, cfg, num_minibatches, seq_batch, schedule)
     initial_ent, initial_clip = float(cfg.algo.ent_coef), float(cfg.algo.clip_coef)
 
     def update(iter_num: int, data: Dict[str, Any], generator: torch.Generator) -> torch.Tensor:
@@ -138,7 +149,7 @@ def make_update(agent: RecurrentPPOAgent, optimizer: torch.optim.Optimizer, cfg,
     update.metric_order = METRIC_ORDER
     update.health_names = []
     update.updates_per_iteration = epochs * num_minibatches
-    update.schedule = False
+    update.schedule = schedule is not None
     return update
 
 
@@ -154,8 +165,6 @@ class RecurrentFamily(OnPolicyFamily):
         if sentinel_spec(cfg).skip_update:
             out.append("diagnostics.sentinel.policy=skip_update for ppo_recurrent (its JAX step applies no "
                        "selection)")
-        if cfg.algo.anneal_lr:
-            out.append("algo.anneal_lr=True for ppo_recurrent (the learning-rate schedule of its adamw)")
         return out
 
     def buffer_size(self, cfg) -> int:

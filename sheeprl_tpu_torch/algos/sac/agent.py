@@ -52,8 +52,11 @@ class SACActor(nn.Module):
         self.fc_mean = nn.Linear(hidden_size, action_dim)
         self.fc_logstd = nn.Linear(hidden_size, action_dim)
         self.log_std_min = float(log_std_min)
-        low = torch.tensor(np.asarray(action_low, np.float32).reshape(-1))
-        high = torch.tensor(np.asarray(action_high, np.float32).reshape(-1))
+        # the bounds themselves, as the JAX module's ``action_low/high``
+        # attributes (the conservative Q penalty draws its proposals in them)
+        self.action_low = np.array(action_low, np.float32).reshape(-1)
+        self.action_high = np.array(action_high, np.float32).reshape(-1)
+        low, high = torch.tensor(self.action_low), torch.tensor(self.action_high)
         self.register_buffer("action_scale", (high - low) / 2.0)
         self.register_buffer("action_bias", (high + low) / 2.0)
 

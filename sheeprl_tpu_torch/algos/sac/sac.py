@@ -7,9 +7,11 @@ and the actor's action there), the Polyak average of the target critic
 (``algo.tau``), the actor update on the just-updated critic, then the
 entropy coefficient on the actor's log-probs, held constant.  The next
 action and the actor's action share one standard-normal draw, as the JAX
-step's one key does.  The metric vector ``[qf, actor, alpha, grad norm]``
-is the mean over the call's gradient steps and a fifth entry counts the
-non-finite ones.  Under ``diagnostics`` (the default) each step also
+step's one key does.  With ``algo.offline.cql_alpha > 0`` the critic loss
+adds the conservative Q penalty (``loss.py::conservative_q_penalty``) over
+pre-drawn proposals; at 0 the step draws and launches nothing more.  The
+metric vector ``[qf, actor, alpha, grad norm]`` is the mean over the call's
+gradient steps and a fifth entry counts the non-finite ones.  Under ``diagnostics`` (the default) each step also
 computes the train-health stats over the ``actor``/``critic``/``alpha``
 trio, whose global gradient norm is the metric's, and with
 ``sentinel.policy=skip_update`` a non-finite step has its parameters and
@@ -20,13 +22,13 @@ Python loop with no host sync; the loop fetches their metrics once.
 from __future__ import annotations
 
 import os
-from typing import Any, Callable, Dict, List, Mapping, Sequence, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from sheeprl_tpu_torch.algos.sac.agent import SACAgent, build_agent
-from sheeprl_tpu_torch.algos.sac.loss import critic_loss, entropy_loss, policy_loss
+from sheeprl_tpu_torch.algos.sac.loss import conservative_q_penalty, critic_loss, entropy_loss, policy_loss
 from sheeprl_tpu_torch.algos.sac.utils import prepare_obs, test
 from sheeprl_tpu_torch.diagnostics.health import health_names, health_spec, health_stats, unit_dim
 from sheeprl_tpu_torch.diagnostics.sentinel import finite_flag, select_finite, sentinel_spec, skip_update_guard
@@ -70,13 +72,42 @@ def spec_tensors(spec: Mapping[str, Any]) -> List[torch.Tensor]:
     return [t for t, _ in spec_leaves(spec)]
 
 
+def cql_spec(cfg, actor) -> Tuple[float, int]:
+    """``(cql_alpha, cql_samples)`` of ``algo.offline``; an armed penalty
+    needs finite action bounds for its uniform proposals (the JAX step's
+    check, at build time)."""
+    offline = cfg.algo.get("offline") or {}
+    alpha = float(offline.get("cql_alpha", 0.0) or 0.0)
+    samples = int(offline.get("cql_samples", 4) or 4)
+    if alpha > 0 and not (np.isfinite(actor.action_low).all() and np.isfinite(actor.action_high).all()):
+        raise ValueError(
+            "algo.offline.cql_alpha > 0 needs finite action bounds for its uniform "
+            "action proposals (set algo.offline.action_low/high)"
+        )
+    return alpha, samples
+
+
+def draw_cql_noise(actor, gradient_steps: int, samples: int, batch_size: int, generator: torch.Generator,
+                   device) -> Dict[str, torch.Tensor]:
+    """The conservative penalty's draws for ``gradient_steps`` steps:
+    ``uniform`` actions in the actor's bounds and the policy proposals'
+    standard normals ``eps``, each ``[G, n, B, A]``."""
+    low = torch.as_tensor(actor.action_low, device=device)
+    high = torch.as_tensor(actor.action_high, device=device)
+    shape = (gradient_steps, samples, batch_size, low.shape[0])
+    uniform = low + (high - low) * torch.rand(shape, generator=generator, device=device)
+    return {"uniform": uniform, "eps": torch.randn(shape, generator=generator, device=device)}
+
+
 def make_train_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer], cfg,
-                    target_entropy: float) -> Callable[[Dict[str, torch.Tensor], torch.Tensor], torch.Tensor]:
-    """Build the gradient steps: ``update(data, eps) -> metrics``.
+                    target_entropy: float) -> Callable[..., torch.Tensor]:
+    """Build the gradient steps: ``update(data, eps, cql=None) -> metrics``.
 
     ``data`` holds ``observations``, ``next_observations``, ``actions``,
     ``rewards`` and ``terminated``, ``[G, B, ...]`` tensors on the device;
-    ``eps`` the ``[G, B, A]`` standard-normal draws, one a gradient step.
+    ``eps`` the ``[G, B, A]`` standard-normal draws, one a gradient step;
+    ``cql`` (:func:`draw_cql_noise`) the conservative penalty's draws, read
+    only when ``update.cql_samples`` is nonzero (``cql_alpha > 0``).
     The agent and the optimizers (``actor``, ``critic``, ``alpha``) update
     in place.  ``metrics`` is one float32 vector: the four
     ``METRIC_ORDER`` means, the non-finite step count, then the health
@@ -87,6 +118,7 @@ def make_train_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer
     cdt = compute_dtype_of(cfg)
     gamma, tau = float(cfg.algo.gamma), float(cfg.algo.tau)
     actor, critic, target = agent.actor, agent.critic, agent.target_critic
+    cql_alpha, cql_samples = cql_spec(cfg, actor)
     spec = sac_spec(agent)
     groups = {"actor": spec_tensors(spec["actor"]), "critic": spec_tensors(spec["critic"]),
               "alpha": [agent.log_alpha]}
@@ -102,7 +134,7 @@ def make_train_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer
     if sentinel.skip_update:
         guarded, snapshot = skip_update_guard([agent], optimizers.values())
 
-    def one_step(batch: Dict[str, torch.Tensor], eps: torch.Tensor):
+    def one_step(batch: Dict[str, torch.Tensor], eps: torch.Tensor, cql: Optional[Dict[str, torch.Tensor]]):
         if sentinel.skip_update:
             with torch.no_grad():
                 torch._foreach_copy_(snapshot, guarded)
@@ -121,6 +153,12 @@ def make_train_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer
                 next_q.min(dim=-1, keepdim=True).values - alpha * next_logprobs.float())
         qf_values = call_cast((critic,), cdt, lambda: critic(obs_c, batch["actions"].to(cdt))).float()
         qf_l = critic_loss(qf_values, next_qf_value)
+        if cql_alpha > 0:
+            qf_l = qf_l + cql_alpha * conservative_q_penalty(
+                obs_c, qf_values,
+                lambda o, e: call_cast((actor,), cdt, lambda: actor.sample_and_log_prob(o, e), buffers=False),
+                lambda o, a: call_cast((critic,), cdt, lambda: critic(o, a)),
+                cql["uniform"], cql["eps"])
         qf_grads = torch.autograd.grad(qf_l, groups["critic"])
         apply_gradients(optimizers["critic"], groups["critic"], qf_grads)
         polyak_(target_params, groups["critic"], tau)
@@ -153,10 +191,12 @@ def make_train_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer
         row = torch.stack([qf_l.float(), actor_l.float(), alpha_l.float(), gnorm, 1.0 - finite.float()]).detach()
         return row, hrow
 
-    def update(data: Dict[str, torch.Tensor], eps: torch.Tensor) -> torch.Tensor:
+    def update(data: Dict[str, torch.Tensor], eps: torch.Tensor,
+               cql: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         rows, hrows = [], []
         for g in range(eps.shape[0]):
-            row, hrow = one_step({k: v[g] for k, v in data.items()}, eps[g])
+            row, hrow = one_step({k: v[g] for k, v in data.items()}, eps[g],
+                                 {k: v[g] for k, v in cql.items()} if cql_alpha > 0 else None)
             rows.append(row)
             if hrow is not None:
                 hrows.append(hrow)
@@ -167,19 +207,17 @@ def make_train_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer
         return torch.cat(metrics)
 
     update.health_names = health_out
+    update.cql_samples = cql_samples if cql_alpha > 0 else 0
     return update
 
 
 def unported_options(cfg, name: str, skip_update: bool = True) -> List[str]:
     """The options an off-policy loop reads and does not act on; with
     ``skip_update=False`` also ``diagnostics.sentinel.policy=skip_update``
-    (the JAX DroQ and SAC-AE steps apply no selection)."""
+    (the JAX DroQ and SAC-AE steps apply no selection).  An offline run
+    never reaches the loop (``cli.run_algorithm`` routes it to
+    ``offline/train.py``)."""
     out = []
-    offline = cfg.algo.get("offline") or {}
-    if offline.get("enabled", False):
-        out.append("algo.offline.enabled=True (offline training)")
-    if float(offline.get("cql_alpha", 0.0) or 0.0) > 0:
-        out.append(f"algo.offline.cql_alpha={offline.get('cql_alpha')} (the conservative Q penalty)")
     if not cfg.model_manager.get("disabled", True):
         out.append("model_manager.disabled=False (model registry)")
     if cfg.metric.get("profiler", {}).get("enabled", False):
@@ -261,7 +299,16 @@ class SACFamily:
     def make_update(self):
         self.update = make_train_step(self.agent, self.optimizers, self.cfg, self.target_entropy)
         self.health_names = self.update.health_names
+        self.cql_samples = self.update.cql_samples
         return self
+
+    def cql_noise(self, gradient_steps: int, batch_size: int, generator: torch.Generator):
+        """The conservative penalty's draws, after the step's own; None when
+        it is off."""
+        if not self.cql_samples:
+            return None
+        return draw_cql_noise(self.agent.actor, gradient_steps, self.cql_samples, batch_size, generator,
+                              self.device)
 
     @torch.no_grad()
     def act(self, obs: Dict[str, np.ndarray], num_envs: int, generator: torch.Generator) -> torch.Tensor:
@@ -284,7 +331,7 @@ class SACFamily:
                             ("observations", "next_observations", "actions", "rewards", "terminated")})
         data = inject(data)
         eps = torch.randn((gradient_steps, batch_size, self.act_dim), generator=generator, device=self.device)
-        return self.update(data, eps)
+        return self.update(data, eps, self.cql_noise(gradient_steps, batch_size, generator))
 
     def trees(self) -> Dict[str, Any]:
         from sheeprl_tpu_torch.interop.flax_params import dump_trees

@@ -11,9 +11,10 @@ widths from a seed on the card, as the loop's family builds them (hidden
 times single gradient steps on a synthetic batch with their noise drawn on
 the card: SAC's critic, target, actor and alpha updates (with
 ``--diagnostics`` the health stats too, as the default diagnostics run it),
-DroQ's the same on two batches with dropout masks, SAC-AE's five updates
-behind their gates, the counter running on (an average over the gates'
-phases).  The timing and profiling are DreamerV3's
+DroQ's the same on two batches with dropout masks (SAC's and DroQ's with
+the conservative Q penalty under ``algo.offline.cql_alpha > 0``, its
+proposals drawn on the card), SAC-AE's five updates behind their gates,
+the counter running on (an average over the gates' phases).  The timing and profiling are DreamerV3's
 (``algos/dreamer_v3/step_profile.py::time_gradient_steps``); the FLOPs of a
 step are counted with ``FlopCounterMode`` (SAC-AE's averaged over one step
 of each gate phase).  No CPU fallback.  ``chip_smoke.py`` calls
@@ -89,11 +90,13 @@ def profiled_update(overrides: Sequence[str], device: torch.device | str,
 
     def one(counter=None):
         if exp == "sac":
-            return family.update(batch, torch.randn(1, n, ACT_DIM, generator=gen, device=device))
+            return family.update(batch, torch.randn(1, n, ACT_DIM, generator=gen, device=device),
+                                 family.cql_noise(1, n, gen))
         if exp == "droq":
             from sheeprl_tpu_torch.algos.droq.droq import draw_noise
 
-            return family.update(batch, actor_obs, draw_noise(family.agent, 1, n, ACT_DIM, gen, device))
+            return family.update(batch, actor_obs, draw_noise(family.agent, 1, n, ACT_DIM, gen, device,
+                                                              family.cql_samples))
         noise = {"eps_next": torch.randn(1, n, ACT_DIM, generator=gen, device=device),
                  "eps_actor": torch.randn(1, n, ACT_DIM, generator=gen, device=device),
                  "pixels": {"rgb": torch.rand(batch["rgb"].shape, generator=gen, device=device)}}

@@ -4,15 +4,19 @@ a checkpoint; ``serve`` serves one.  The port trains and evaluates
 ``dreamer_v3``, ``dreamer_v3_jepa``, ``p2e_dv3_exploration``,
 ``p2e_dv3_finetuning``, ``ppo``, ``a2c``, ``sac``, ``droq``, ``sac_ae``,
 ``dreamer_v2``, ``dreamer_v1``, ``ppo_recurrent`` and the exploration and
-finetuning of ``p2e_dv2`` and ``p2e_dv1``, and serves ``dreamer_v3``,
-``ppo``, ``a2c``, ``sac`` and ``ppo_recurrent`` (as the JAX package
-does); model registration is still to port (ROADMAP.md Queue 1)."""
+finetuning of ``p2e_dv2`` and ``p2e_dv1``, trains ``sac``, ``droq`` and
+``dreamer_v3`` offline (``algo.offline.enabled=true``, on a dataset
+``buffer.export`` or ``python -m sheeprl_tpu_torch export`` wrote), and
+serves ``dreamer_v3``, ``ppo``, ``a2c``, ``sac`` and ``ppo_recurrent`` (as
+the JAX package does); model registration is still to port (ROADMAP.md
+Queue 1)."""
 
 from __future__ import annotations
 
 import os
 import pathlib
 import sys
+import warnings
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -92,14 +96,60 @@ def check_configs(cfg: dotdict) -> None:
         )
     if cfg.metric.log_level not in (0, 1):
         raise ValueError(f"metric.log_level must be 0 or 1, got {cfg.metric.log_level}")
+    _check_offline(cfg)
     learning_starts = cfg.algo.get("learning_starts")
     if learning_starts is not None and learning_starts < 0:
         raise ValueError("The `algo.learning_starts` parameter must be greater or equal to zero")
 
 
+def _check_offline(cfg: dotdict) -> None:
+    """The JAX ``check_configs``' offline gates, with its errors: the mode
+    swaps the whole entry point, so a bad knob fails before the log dir
+    exists.  ``cql_alpha`` set while the mode is off warns: the penalty is a
+    train-step knob, and applies to the online critic update too."""
+    from sheeprl_tpu_torch.offline.train import OFFLINE_ALGOS
+
+    offline_cfg = cfg.algo.get("offline") or {}
+    algo_name = cfg.algo.name
+    if offline_cfg.get("enabled"):
+        if algo_name not in OFFLINE_ALGOS:
+            raise ValueError(
+                f"algo.offline.enabled=true supports {list(OFFLINE_ALGOS)}, got algo.name={algo_name!r}"
+            )
+        if not offline_cfg.get("dataset_dir"):
+            raise ValueError(
+                "algo.offline.enabled=true requires algo.offline.dataset_dir "
+                "(an exported dataset: buffer.export=True or `python -m sheeprl_tpu_torch export <run dir>`)"
+            )
+        if float(offline_cfg.get("cql_alpha", 0.0) or 0.0) < 0:
+            raise ValueError(f"algo.offline.cql_alpha must be >= 0, got {offline_cfg.get('cql_alpha')!r}")
+        cql_samples = offline_cfg.get("cql_samples")
+        if cql_samples is not None and int(cql_samples) < 1:
+            raise ValueError(f"algo.offline.cql_samples must be >= 1, got {cql_samples!r}")
+        grad_steps = offline_cfg.get("grad_steps_per_iter")
+        if grad_steps is not None and int(grad_steps) < 1:
+            raise ValueError(f"algo.offline.grad_steps_per_iter must be >= 1, got {grad_steps!r}")
+        if int(offline_cfg.get("prefetch", 2) or 0) < 0:
+            raise ValueError(
+                f"algo.offline.prefetch must be >= 0 (0 disables the prefetch thread), "
+                f"got {offline_cfg.get('prefetch')!r}"
+            )
+        seq = offline_cfg.get("sequence_length")
+        if seq is not None and int(seq) < 1:
+            raise ValueError(f"algo.offline.sequence_length must be >= 1 or null, got {seq!r}")
+    elif float(offline_cfg.get("cql_alpha", 0.0) or 0.0) != 0.0:
+        warnings.warn(
+            "algo.offline.cql_alpha is set but algo.offline.enabled=false: the conservative "
+            "penalty WILL apply to the online run's critic update too (it is a train-step "
+            "knob); set it to 0 unless that is intended",
+            UserWarning,
+        )
+
+
 def run_algorithm(cfg: dotdict) -> Any:
-    """Registry lookup -> runtime -> the algorithm's entry point; returns
-    what the entry point returns."""
+    """Registry lookup -> runtime -> the algorithm's entry point, or with
+    ``algo.offline.enabled`` the env-free offline loop
+    (``offline/train.py::offline_main``); returns what it returns."""
     import importlib
 
     from sheeprl_tpu_torch.utils.registry import find_algorithm
@@ -110,7 +160,12 @@ def run_algorithm(cfg: dotdict) -> Any:
     metrics_cfg = cfg.metric.aggregator.get("metrics", {})
     if keys is not None and isinstance(metrics_cfg, dict):
         cfg.metric.aggregator.metrics = dotdict({k: v for k, v in metrics_cfg.items() if k in keys})
-    entrypoint = getattr(importlib.import_module(entry["module"]), entry["entrypoint"])
+    if (cfg.algo.get("offline") or {}).get("enabled"):
+        from sheeprl_tpu_torch.offline.train import offline_main
+
+        entrypoint = offline_main
+    else:
+        entrypoint = getattr(importlib.import_module(entry["module"]), entry["entrypoint"])
     runtime = instantiate(cfg.fabric)
     # the run-health facade: attached here, opened by the loop once its log
     # dir exists; closed here with the run's status whatever happens

@@ -35,6 +35,14 @@ def _validate_add_data(data: Dict[str, np.ndarray]) -> None:
         raise RuntimeError(f"Every array in 'data' must agree in the first 2 dims, got {shapes}")
 
 
+def _with_dataset_disk(out: Dict[str, int], buffer: Any) -> Dict[str, int]:
+    """``out`` with the buffer's exported dataset bytes as ``dataset_disk``
+    (``offline/export.py::note_dataset_bytes``), when it has any."""
+    if buffer.dataset_disk_bytes:
+        out["dataset_disk"] = int(buffer.dataset_disk_bytes)
+    return out
+
+
 class ReplayBuffer:
     """Circular buffer over dict-of-ndarray storage; :meth:`sample` draws
     uniformly, with the ``next_<key>`` of each of ``obs_keys`` on request."""
@@ -60,6 +68,11 @@ class ReplayBuffer:
         self._buf: Dict[str, np.ndarray | MemmapArray] = {}
         self._pos = 0
         self._full = False
+        # steps ever added: the logical stream clock the incremental dataset
+        # export (offline/export.py) keeps its cursors against
+        self._added = 0
+        # bytes of exported dataset shards attributed to this buffer
+        self.dataset_disk_bytes = 0
         self._rng: np.random.Generator = np.random.default_rng()
 
     @property
@@ -78,8 +91,24 @@ class ReplayBuffer:
     def full(self) -> bool:
         return self._full
 
+    @property
+    def n_envs(self) -> int:
+        return self._n_envs
+
+    @property
+    def added_steps(self) -> int:
+        """Steps ever added (monotone; once full, ``added_steps -
+        buffer_size`` is the oldest logical step still in the ring)."""
+        return self._added
+
     def seed(self, seed: Optional[int]) -> None:
         self._rng = np.random.default_rng(seed)
+
+    def flush(self) -> None:
+        """Memmap-backed storage to disk, before an export reads it."""
+        for v in self._buf.values():
+            if isinstance(v, MemmapArray):
+                v.flush()
 
     def _allocate(self, key: str, per_step_shape: tuple, dtype: Any) -> None:
         full_shape = (self._buffer_size, self._n_envs, *per_step_shape)
@@ -112,6 +141,7 @@ class ReplayBuffer:
         if head + steps >= self._buffer_size:
             self._full = True
         self._pos = (head + steps) % self._buffer_size
+        self._added += steps
 
     def sample(self, batch_size: int, sample_next_obs: bool = False, clone: bool = False,
                n_samples: int = 1) -> Dict[str, np.ndarray]:
@@ -151,14 +181,15 @@ class ReplayBuffer:
 
     def footprint(self) -> Dict[str, int]:
         """Storage bytes by residence: memmap-backed keys as ``disk_bytes``,
-        in-memory ones as ``host_bytes`` (the diagnostics' replay gauges)."""
+        in-memory ones as ``host_bytes`` (the diagnostics' replay gauges);
+        exported dataset shards as ``dataset_disk``."""
         host = sum(int(v.nbytes) for v in self._buf.values() if not isinstance(v, MemmapArray))
         disk = sum(int(v.nbytes) for v in self._buf.values() if isinstance(v, MemmapArray))
-        return {"host_bytes": host, "disk_bytes": disk}
+        return _with_dataset_disk({"host_bytes": host, "disk_bytes": disk}, self)
 
     def state_dict(self) -> Dict[str, Any]:
         return {"buffer": {k: np.asarray(v).copy() for k, v in self._buf.items()}, "pos": self._pos,
-                "full": self._full}
+                "full": self._full, "added": self._added}
 
     def load_state_dict(self, state: Dict[str, Any]) -> "ReplayBuffer":
         for k, v in state["buffer"].items():
@@ -168,6 +199,8 @@ class ReplayBuffer:
                 self._buf[k] = np.array(v)  # a copy: checkpoint arrays may be read-only
         self._pos = int(state["pos"])
         self._full = bool(state["full"])
+        # a checkpoint without the counter: the stored span is the best bound
+        self._added = int(state.get("added", self._buffer_size if self._full else self._pos))
         return self
 
 
@@ -233,6 +266,7 @@ class EnvIndependentReplayBuffer:
         self._n_envs = n_envs
         self._rng: np.random.Generator = np.random.default_rng()
         self._concat_along_axis = buffer_cls.batch_axis
+        self.dataset_disk_bytes = 0
 
     @property
     def buffer(self) -> Sequence[ReplayBuffer]:
@@ -242,10 +276,18 @@ class EnvIndependentReplayBuffer:
     def buffer_size(self) -> int:
         return self._buffer_size
 
+    @property
+    def n_envs(self) -> int:
+        return self._n_envs
+
     def seed(self, seed: Optional[int]) -> None:
         self._rng = np.random.default_rng(seed)
         for i, b in enumerate(self._buf):
             b.seed(None if seed is None else seed + i)
+
+    def flush(self) -> None:
+        for b in self._buf:
+            b.flush()
 
     def add(self, data: Dict[str, np.ndarray], indices: Optional[Sequence[int]] = None,
             validate_args: bool = False) -> None:
@@ -276,7 +318,9 @@ class EnvIndependentReplayBuffer:
         out = {"host_bytes": 0, "disk_bytes": 0}
         for b in self._buf:
             for kind, size in b.footprint().items():
-                out[kind] += size
+                out[kind] = out.get(kind, 0) + size
+        if self.dataset_disk_bytes:
+            out["dataset_disk"] = out.get("dataset_disk", 0) + int(self.dataset_disk_bytes)
         return out
 
     def state_dict(self) -> Dict[str, Any]:
@@ -334,6 +378,7 @@ class EpisodeBuffer:
         # buffer keeps them
         self._episode_ids: List[int] = []
         self._episodes_saved = 0
+        self.dataset_disk_bytes = 0
         self._memmap = memmap
         self._memmap_dir = memmap_dir
         self._memmap_mode = memmap_mode
@@ -358,11 +403,22 @@ class EpisodeBuffer:
     def full(self) -> bool:
         return self._cum_lengths[-1] + self._minimum_episode_length > self._buffer_size if self._buf else False
 
+    @property
+    def episode_ids(self) -> Sequence[int]:
+        """A monotone id per stored episode (parallel to :attr:`buffer`)."""
+        return tuple(self._episode_ids)
+
     def __len__(self) -> int:
         return self._cum_lengths[-1] if self._buf else 0
 
     def seed(self, seed: Optional[int]) -> None:
         self._rng = np.random.default_rng(seed)
+
+    def flush(self) -> None:
+        for episode in self._buf:
+            for v in episode.values():
+                if isinstance(v, MemmapArray):
+                    v.flush()
 
     def add(self, data: Dict[str, np.ndarray], env_idxes: Optional[Sequence[int]] = None,
             validate_args: bool = False) -> None:
@@ -489,7 +545,7 @@ class EpisodeBuffer:
                 else:
                     host += int(np.asarray(v).nbytes)
         host += sum(int(np.asarray(v).nbytes) for chunks in self._open_episodes for c in chunks for v in c.values())
-        return {"host_bytes": host, "disk_bytes": disk}
+        return _with_dataset_disk({"host_bytes": host, "disk_bytes": disk}, self)
 
     def state_dict(self) -> Dict[str, Any]:
         return {

@@ -56,6 +56,7 @@ class DeviceSequentialReplayBuffer:
         self._pos = np.zeros(self._n_envs, dtype=np.int64)
         self._filled = np.zeros(self._n_envs, dtype=np.int64)  # rows written, capped at the size
         self._added = np.zeros(self._n_envs, dtype=np.int64)  # rows ever written
+        self.dataset_disk_bytes = 0
         self._rng = np.random.default_rng()
 
     @property
@@ -73,6 +74,13 @@ class DeviceSequentialReplayBuffer:
     @property
     def empty(self) -> bool:
         return not self._buf
+
+    @property
+    def added_steps(self) -> np.ndarray:
+        """Per-env rows ever written (monotone; the dataset export's
+        cursor: envs advance independently, bookkeeping rows go only to the
+        envs that finished an episode)."""
+        return self._added.copy()
 
     def seed(self, seed: Optional[int]) -> None:
         self._rng = np.random.default_rng(seed)
@@ -154,8 +162,12 @@ class DeviceSequentialReplayBuffer:
 
     # -- checkpointing ---------------------------------------------------------
     def footprint(self) -> Dict[str, int]:
-        """Storage bytes on the card (the diagnostics' replay gauge)."""
-        return {"device_bytes": sum(v.numel() * v.element_size() for v in self._buf.values())}
+        """Storage bytes on the card (the diagnostics' replay gauge), and
+        exported dataset shards as ``dataset_disk``."""
+        out = {"device_bytes": sum(v.numel() * v.element_size() for v in self._buf.values())}
+        if self.dataset_disk_bytes:
+            out["dataset_disk"] = int(self.dataset_disk_bytes)
+        return out
 
     def state_dict(self) -> Dict[str, Any]:
         return {

@@ -355,6 +355,18 @@ class Diagnostics:
         if self.telemetry is not None:
             self.telemetry.note_fetch(n)
 
+    def note_dataset_read(self, n: int) -> None:
+        """Count ``n`` transitions streamed from the offline dataset loader
+        toward ``Telemetry/dataset_read_sps``."""
+        if self.telemetry is not None:
+            self.telemetry.note_dataset_rows(n)
+
+    def note_dataset_epoch(self, epoch: float) -> None:
+        """The offline loader's pass over its dataset
+        (``Telemetry/dataset_epoch``)."""
+        if self.telemetry is not None:
+            self.telemetry.note_dataset_epoch(epoch)
+
     def augment_metrics(self, step: Optional[int], metrics: Mapping[str, Any]) -> Mapping[str, Any]:
         """Merge the interval's ``Telemetry/*`` gauges into an aggregated
         metrics dict (the logger proxy calls this before the backend logs)."""

@@ -295,6 +295,10 @@ class Telemetry:
         self._env_steps_interval = 0
         self._env_steps_total = 0
         self._rollout_calls_interval = 0
+        # the offline loop's dataset feed: rows streamed and the loader's pass
+        self._dataset_rows_interval = 0
+        self._dataset_rows_total = 0
+        self._dataset_epoch: Optional[float] = None
         # watchdog
         self._recompiles_total = 0
         self._recompile_times: deque = deque()
@@ -375,6 +379,19 @@ class Telemetry:
         with self._lock:
             self._env_steps_interval += int(n)
             self._env_steps_total += int(n)
+
+    def note_dataset_rows(self, n: int) -> None:
+        """Count ``n`` transitions streamed from an offline dataset loader:
+        ``Telemetry/dataset_read_sps``."""
+        with self._lock:
+            self._dataset_rows_interval += int(n)
+            self._dataset_rows_total += int(n)
+
+    def note_dataset_epoch(self, epoch: float) -> None:
+        """The offline loader's current pass over its dataset: the
+        ``Telemetry/dataset_epoch`` gauge."""
+        with self._lock:
+            self._dataset_epoch = float(epoch)
 
     def note_fetch(self, n: int = 1) -> None:
         """Count a blocking obs->action fetch (the DreamerV3 player's)."""
@@ -489,6 +506,8 @@ class Telemetry:
                         out[TELEMETRY_PREFIX + "fetch_amortization"] = (
                             self._env_steps_interval / self._rollout_calls_interval
                         )
+                if self._dataset_rows_interval > 0:
+                    out[TELEMETRY_PREFIX + "dataset_read_sps"] = self._dataset_rows_interval / dt
                 if self._phase_interval:
                     buckets: Dict[str, float] = {}
                     for name, secs in self._phase_interval.items():
@@ -498,6 +517,8 @@ class Telemetry:
                     buckets["idle"] = max(0.0, dt - accounted)
                     for bucket, secs in sorted(buckets.items()):
                         out[TELEMETRY_PREFIX + f"phase_pct/{bucket}"] = 100.0 * secs / dt
+            if self._dataset_epoch is not None:
+                out[TELEMETRY_PREFIX + "dataset_epoch"] = self._dataset_epoch
             out[TELEMETRY_PREFIX + "recompiles"] = float(self._recompiles_total)
             out[TELEMETRY_PREFIX + "compile_count"] = float(self._backend_compiles)
             out[TELEMETRY_PREFIX + "compile_time_s"] = round(self._backend_compile_s, 3)
@@ -506,6 +527,7 @@ class Telemetry:
             self._train_flops_interval = 0.0
             self._env_steps_interval = 0
             self._rollout_calls_interval = 0
+            self._dataset_rows_interval = 0
             self._tick_t = now
             if step is not None:
                 self._tick_step = float(step)
@@ -526,6 +548,7 @@ class Telemetry:
                     "sentinel_events_total": self._sentinel_events,
                     "train_flops_total": self._train_flops_total,
                     "env_steps_total": self._env_steps_total,
+                    "dataset_rows_read_total": self._dataset_rows_total,
                 },
                 "policy_steps": self._tick_step,
                 "phase_seconds_total": dict(self._phase_total),

@@ -14,7 +14,9 @@ snapshot is finished on the calling thread, as full host copies, before
 checkpoint that its manifest then calls verified.
 
 At most ``max_pending`` snapshots wait; a loop that checkpoints faster than
-the disk blocks in ``submit``.  A failed write journals ``ckpt_end`` with
+the disk blocks in ``submit``.  The same thread and queue take other work
+through ``submit_task``: the dataset export (``buffer.export``) serializes
+its shards there, after the checkpoint it follows.  A failed write journals ``ckpt_end`` with
 ``status="failed"`` and warns; it never raises into the loop (the next
 periodic checkpoint is the retry).
 """
@@ -28,6 +30,9 @@ from collections import deque
 from typing import Any, Callable, Dict, Mapping, Optional
 
 import numpy as np
+
+#: the queue entry's tag for a :meth:`AsyncCheckpointWriter.submit_task` callable
+_TASK = object()
 
 
 def host_snapshot(tree: Any) -> Any:
@@ -104,6 +109,23 @@ class AsyncCheckpointWriter:
             self._cond.notify_all()
         return self._clock() - t0
 
+    def submit_task(self, fn: Callable[[], None]) -> None:
+        """Enqueue ``fn`` on the writer thread, in the checkpoints' FIFO and
+        under their backpressure, drained by ``drain``/``close``.  ``fn`` owns
+        what it reads (the dataset export copies its rows before it
+        submits).  A failing task warns and is dropped; it never raises into
+        the loop."""
+        with self._cond:
+            if self._closed:
+                raise RuntimeError("AsyncCheckpointWriter is closed")
+            while len(self._queue) >= self.max_pending and not self._closed:
+                self._cond.wait(timeout=1.0)
+            self._queue.append((_TASK, fn, None, time.time()))
+            if self._thread is None:
+                self._thread = threading.Thread(target=self._worker, name="sheeprl-ckpt-writer", daemon=True)
+                self._thread.start()
+            self._cond.notify_all()
+
     # -- consumer side (the writer thread) -----------------------------------
     def _worker(self) -> None:
         while True:
@@ -116,7 +138,13 @@ class AsyncCheckpointWriter:
                 self._writing = True
                 self._cond.notify_all()
             try:
-                self._write_one(path, snapshot, step, enqueued_t)
+                if path is _TASK:
+                    try:
+                        snapshot()  # the submitted callable
+                    except Exception as err:
+                        warnings.warn(f"async writer task failed: {err!r} (the run continues)", RuntimeWarning)
+                else:
+                    self._write_one(path, snapshot, step, enqueued_t)
             finally:
                 with self._cond:
                     self._writing = False

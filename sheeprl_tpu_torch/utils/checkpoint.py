@@ -187,12 +187,14 @@ class CheckpointCallback:
     bootstrap across the checkpoint: the host buffer is marked and unmarked
     around the save, the device ring's host snapshot is marked (the ring on
     the card stays as it is).  ``keep_last`` keeps that many newest
-    checkpoints of the directory, and never the protected ones."""
+    checkpoints of the directory, and never the protected ones.  With
+    ``export`` (``buffer.export``) each save with a replay buffer is
+    followed by the incremental export of its rows into ``<run dir>/dataset``
+    (``offline/export.py::checkpoint_export``): the live rows, unmarked."""
 
     def __init__(self, keep_last: Optional[int] = None, export: bool = False):
-        if export:
-            raise NotImplementedError("buffer.export=True (dataset export) is not ported yet: see ROADMAP.md Queue 1")
         self.keep_last = keep_last
+        self.export = bool(export)
 
     def on_checkpoint_coupled(self, runtime, ckpt_path: str, state: Dict[str, Any], replay_buffer: Any = None) -> None:
         from sheeprl_tpu_torch.data.buffers import EpisodeBuffer, ReplayBuffer
@@ -225,6 +227,10 @@ class CheckpointCallback:
         finally:
             for b, last, value in saved:
                 b.buffer["truncated"][last] = value
+        if self.export and replay_buffer is not None:
+            from sheeprl_tpu_torch.offline.export import checkpoint_export
+
+            checkpoint_export(self, runtime, ckpt_path, replay_buffer)
         if self.keep_last:
             self._delete_old_checkpoints(Path(ckpt_path).parent)
 

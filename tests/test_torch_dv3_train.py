@@ -625,7 +625,8 @@ def test_run_refuses_options_it_does_not_port(tmp_path, monkeypatch):
     # the executors are ported; video capture is not
     with pytest.raises(NotImplementedError, match="capture_video"):
         cli.run(RUN + ["env.capture_video=True"])
-    with pytest.raises(NotImplementedError, match="offline"):
+    # offline training is ported: routed to the offline loop, which needs a dataset
+    with pytest.raises(ValueError, match="requires algo.offline.dataset_dir"):
         cli.run(RUN + ["algo.offline.enabled=True"])
     with pytest.raises(NotImplementedError, match="model_manager"):
         cli.run(RUN + ["model_manager.disabled=False"])

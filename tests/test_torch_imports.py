@@ -241,3 +241,26 @@ def test_serve_refuses_dreamer_v1_and_v2(algo):
     obs = spaces.Dict({"rgb": spaces.Box(0, 255, (3, 64, 64), "uint8")})
     with pytest.raises(ValueError, match=f"'{algo}' has no servable adapter"):
         build_policy(cfg, obs, spaces.Discrete(2), None, "cpu")
+
+
+_IMPORT_OFFLINE = """
+import sys
+from sheeprl_tpu_torch.data import datasets
+from sheeprl_tpu_torch.offline import export, train
+from sheeprl_tpu_torch import cli
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "sheeprl_tpu"))
+print(train.OFFLINE_ALGOS, leaked)
+"""
+
+
+def test_the_offline_modules_import_no_jax():
+    """The dataset layer, the export and the offline loop stand alone (the
+    walk above imports them too), and the usage names the export command."""
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_OFFLINE], cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "('sac', 'droq', 'dreamer_v3') []", out.stdout
+    usage = subprocess.run([sys.executable, "-m", "sheeprl_tpu_torch"], cwd=ROOT, env=_env(), capture_output=True,
+                           text=True, timeout=120)
+    assert usage.returncode != 0 and "sheeprl_tpu_torch export <run dir>" in usage.stderr

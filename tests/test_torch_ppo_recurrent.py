@@ -219,6 +219,67 @@ def test_one_update_with_injected_permutations_matches_make_train_step(family, s
             np.testing.assert_allclose(g[path], w[path], atol=1e-4 * scale, rtol=1e-3, err_msg=path)
 
 
+def test_anneal_lr_follows_optaxs_linear_schedule_over_the_updates(setups):
+    """``algo.anneal_lr``: each minibatch update runs at optax's
+    ``linear_schedule(lr, 0, total_iters * epochs * minibatches)`` of the
+    updates before it, as the JAX loop's ``adamw`` evaluates it; and the
+    optimizer's optax state carries the schedule's count."""
+    from sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent import make_update
+
+    setup = _setup(setups, "continuous")
+    cfg = compose(TINY + FAMILIES["continuous"][2] + ["algo.anneal_lr=True", "env.num_envs=1",
+                                                       f"algo.rollout_steps={L * S}"])
+    agent = setup.agent()
+    torch_opt = instantiate(cfg.algo.optimizer)(agent.parameters())
+    total_iters = 3
+    update = make_update(agent, torch_opt, cfg, total_iters)
+    assert update.schedule and update.updates_per_iteration == 4
+    rates = []
+    step = torch_opt.step
+    torch_opt.step = lambda: (rates.append(torch_opt.param_groups[0]["lr"]), step())[1]
+    gen = torch.Generator().manual_seed(0)
+    for iteration in range(1, 3):
+        update(iteration, _port_data(_update_data(setup, 40 + iteration)), gen)
+    lr = float(setup.jax_cfg.algo.optimizer.learning_rate)
+    want = optax.linear_schedule(lr, 0.0, total_iters * 4)
+    np.testing.assert_allclose(rates, [float(want(i)) for i in range(8)], rtol=1e-6, atol=0)
+    assert rates[0] == pytest.approx(lr) and rates[-1] < rates[0]
+    state = optax_state(torch_opt, ppo_recurrent_spec(agent), schedule=True)
+    assert type(state[1][-1]).__name__ == "ScaleByScheduleState" and int(state[1][-1].fields[0]) == 8
+
+
+def test_two_annealed_updates_match_the_jax_step(setups):
+    """Two updates of two epochs of two minibatches with the learning rate
+    annealed over 8 updates (to 0 at the last): the JAX chain of
+    ``clip_by_global_norm`` and ``adamw(linear_schedule)`` and the port's."""
+    from sheeprl_tpu_torch.algos.ppo.ppo import linear_schedule
+
+    setup = _setup(setups, "discrete")
+    lr = float(setup.jax_cfg.algo.optimizer.learning_rate)
+    optimizer = optax.chain(optax.clip_by_global_norm(setup.jax_cfg.algo.max_grad_norm),
+                            jax_instantiate(setup.jax_cfg.algo.optimizer,
+                                            learning_rate=optax.linear_schedule(lr, 0.0, 8)))
+    mesh = jax.sharding.Mesh(np.array(jax.devices()[:1]), ("data",))
+    jax_step = jax_make_train_step(setup.jax_agent, optimizer, setup.jax_cfg, mesh, 2, S // 2)
+    params = jax.tree_util.tree_map(jnp.asarray, setup.params)
+    opt_state = optimizer.init(params)
+    agent = setup.agent()
+    torch_opt = instantiate(setup.cfg.algo.optimizer)(agent.parameters())
+    update = make_train_step(agent, torch_opt, setup.cfg, 2, S // 2, linear_schedule(lr, 0.0, 8))
+    coefs = (0.2, 0.01, 0.5)
+    for call in range(2):
+        data, key = _update_data(setup, 60 + call), jax.random.PRNGKey(70 + call)
+        params, opt_state, losses = jax_step(params, opt_state, _jax_data(data), key,
+                                             tuple(jnp.float32(c) for c in coefs))
+        metrics = update(_port_data(data), _perms(key, 2, S), coefs)
+        np.testing.assert_allclose(metrics[:3].numpy(), np.asarray(losses), atol=1e-5, rtol=1e-4)
+    want, got = _leaves(params), _leaves(ppo_recurrent_spec_dump(agent))
+    for path, value in want.items():
+        np.testing.assert_allclose(got[path], value, atol=2e-6, rtol=1e-5, err_msg=path)
+    assert int(opt_state[1][-1].count) == 8 == int(optax_state(torch_opt, ppo_recurrent_spec(agent),
+                                                               schedule=True)[1][-1].fields[0])
+
+
 def ppo_recurrent_spec_dump(agent):
     from sheeprl_tpu_torch.interop.flax_params import ppo_recurrent_to_flax
 
@@ -406,5 +467,8 @@ def test_run_trains_resumes_evaluates_serves_and_refuses_what_it_does_not_port(t
         service.close()
     with pytest.raises(NotImplementedError, match="skip_update"):
         cli.run(RUN + ["diagnostics.sentinel.enabled=True", "diagnostics.sentinel.policy=skip_update"])
-    with pytest.raises(NotImplementedError, match="anneal_lr"):
-        cli.run(RUN + ["algo.anneal_lr=True"])
+    # algo.anneal_lr is ported: the run trains and checkpoints the schedule's count
+    annealed = cli.run(RUN + ["algo.anneal_lr=True", "root_dir=annealed", "algo.total_steps=16"])
+    assert np.isfinite(annealed["metric_rows"]).all()
+    saved = load_state(annealed["checkpoints"][-1])["opt_state"]
+    assert type(saved[1][-1]).__name__ == "ScaleByScheduleState"

@@ -586,5 +586,17 @@ def test_serve_answers_a_port_checkpoint_over_http_as_the_jax_handle(port_run):
                                     "model_manager.disabled=False", "metric.profiler.enabled=True",
                                     "fabric.devices=2"])
 def test_run_refuses_what_it_does_not_port(tmp_path, option):
+    if option == "algo.offline.cql_alpha=1.0":
+        # ported: online, the penalty applies to the critic update too, as
+        # in the JAX package, whose check_configs warns of it
+        with pytest.warns(UserWarning, match="cql_alpha is set but algo.offline.enabled=false"):
+            out = cli.run(RUN + [option, f"root_dir={tmp_path}"])
+        assert out["family"].cql_samples == 4 and np.isfinite(out["metric_rows"]).all()
+        return
+    if option == "algo.offline.enabled=True":
+        # ported: routed to the offline loop, which needs a dataset (the JAX gate)
+        with pytest.raises(ValueError, match="requires algo.offline.dataset_dir"):
+            cli.run(RUN + [option, f"root_dir={tmp_path}"])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
         cli.run(RUN + [option, f"root_dir={tmp_path}"])

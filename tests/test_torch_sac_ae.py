@@ -383,6 +383,11 @@ def test_a_jax_checkpoint_resumes_and_evaluates_in_the_port(setup, tmp_path, mon
                                     "model_manager.disabled=False"])
 def test_run_refuses_what_it_does_not_port(tmp_path, option):
     extra = ["diagnostics.sentinel.enabled=True"] if "sentinel" in option else []
+    if option == "algo.offline.enabled=True":
+        # the offline mode drives sac, droq and dreamer_v3 only: the JAX gate
+        with pytest.raises(ValueError, match=r"supports \['sac', 'droq', 'dreamer_v3'\], got algo.name='sac_ae'"):
+            cli.run(RUN + extra + [option, f"root_dir={tmp_path}"])
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.run(RUN + extra + [option, f"root_dir={tmp_path}"])
 
