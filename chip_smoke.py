@@ -38,6 +38,23 @@ Phases, in order; any failure raises and the script exits non-zero:
             200 with a valid one-hot action, the kernel's launch count must
             equal the number of policy steps the server ran, and one batch
             recomputed through the plain path must agree;
+4b. serve-ops — phase 4's run served as ``default`` next to a copy of it as
+            ``canary`` (each its own run directory, journal and watch
+            directory) with reload (poll 0.2 s), the trace, the SLO with the
+            slow-request drill and the request log on: concurrent HTTP
+            sessions to both models, every reply 200 with its
+            ``X-Request-Id``; new weights (another seed) promoted in
+            ``default`` (``ckpt_promote``, ``/healthz``), its greedy reply and
+            session state equal to the plain path on the new weights and
+            ``canary``'s to the plain path on the old ones; a checkpoint held
+            back by an open ``anomaly`` (``ckpt_reject``) and promoted after
+            ``anomaly_end``; one at recurrent size 256 rejected for good while
+            serving goes on; the kernel's launches equal to both models'
+            policy steps (warm-up and the two recomputations included); the
+            ``slow_request`` with its phases; ``/metrics``' per-model latency
+            histograms; ``trace_serve.json`` with a span for each phase; each
+            model's request log verified, one row a reply; the p50 and p99 of
+            each phase per model and of the dispatch time per dispatch;
 5. train  — ``run exp=dreamer_v3 env=dummy`` in-process at DreamerV3-S (batch
             16 x 64, horizon 15, fp32) under the default diagnostics with
             ``diagnostics.transfers=log``, through the async executor
@@ -190,7 +207,9 @@ every thread it starts.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import os
 import re
 import shutil
 import statistics
@@ -305,6 +324,16 @@ SWEEP_CASES = [(200, 400, 5), (600, 400, 37), (1024, 640, 8), (2048, 768, 128), 
 COLD_BYTES = 100 * 2**20
 SESSIONS = 32
 REQUESTS_PER_SESSION = 10
+# phase 4b: sessions per model and requests per session in each of its two
+# rounds of traffic; the slow-request drill's dispatch and threshold; the
+# request log's rows per shard
+SERVE_OPS_SESSIONS = 8
+SERVE_OPS_REQUESTS = 10
+SERVE_OPS_INJECT_ITER = 3
+SERVE_OPS_SLOW_MS = 200.0
+SERVE_OPS_ROTATE_ROWS = 64
+# what builds the new weights phase 4b promotes (phase 4's composition)
+SERVE_OPS_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.capture_video=False", "run_name=chip_smoke"]
 # the PPO phases: exp=ppo_atari's widths on the dummy env (the card has no
 # Atari): NatureCNN on rgb at 84x84 with 4 stacked frames (12 channels), a
 # 512-unit dense layer, 3 epochs of minibatches of 256, clipped value loss,
@@ -698,7 +727,6 @@ def run_slice(build_dir: Path, device_name: str = "cuda") -> dict:
     from sheeprl_tpu_torch.models import blocks
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru, ln_gru_reference
     from sheeprl_tpu_torch.serving.loader import _actions_dim
-    from sheeprl_tpu_torch.serving.server import ServeApp
     from sheeprl_tpu_torch.utils.checkpoint import save_state
 
     cfg = compose(["exp=dreamer_v3", "env=dummy", "env.capture_video=False", "run_name=chip_smoke", "seed=5"])
@@ -727,7 +755,7 @@ def run_slice(build_dir: Path, device_name: str = "cuda") -> dict:
     if device.type != device_name:
         raise AssertionError(f"serve selected {device}, expected {device_name}")
     fused_layernorm_gru.launches = 0  # the main path starts here
-    app = ServeApp(cfg, ckpt_path, device)
+    app = _serve_app(cfg, ckpt_path, device)
     try:
         host, port = app.start()
         url = f"http://{host}:{port}"
@@ -819,6 +847,309 @@ def run_slice(build_dir: Path, device_name: str = "cuda") -> dict:
         "latency_p50_ms": lat[len(lat) // 2],
         "latency_p99_ms": lat[min(len(lat) - 1, int(round(0.99 * (len(lat) - 1))))],
         "plain_recompute_recurrent_max_abs_err": rec_err,
+    }
+
+
+@contextlib.contextmanager
+def _serve_logs():
+    """``serve`` writes its journal, trace and request logs under
+    ``logs/serve/`` of the working directory: build it here, under
+    ``build/``."""
+    root = ROOT / "build" / "chip_smoke" / "serve"
+    root.mkdir(parents=True, exist_ok=True)
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
+
+
+def _serve_app(cfg, ckpt_path: str, device):
+    from sheeprl_tpu_torch.serving.server import ServeApp
+
+    ckpt_path = os.path.abspath(ckpt_path)
+    with _serve_logs():
+        return ServeApp(cfg, ckpt_path, device)
+
+
+def _percentiles(values) -> tuple:
+    ordered = sorted(values)
+    if not ordered:
+        return (float("nan"), float("nan"))
+    return ordered[len(ordered) // 2], ordered[min(len(ordered) - 1, int(round(0.99 * (len(ordered) - 1))))]
+
+
+def _wait_until(predicate, what: str, timeout_s: float = 120.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while not predicate():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"serve-ops: timed out after {timeout_s:g} s waiting for {what}")
+        time.sleep(0.05)
+
+
+def _append_journal(version_dir: Path, events) -> None:
+    with open(version_dir / "journal.jsonl", "a", encoding="utf-8") as fp:
+        for event in events:
+            fp.write(json.dumps({"t": time.time(), **event}) + "\n")
+
+
+def run_serve_ops(build_dir: Path, device_name: str = "cuda") -> dict:
+    """Phase 4b: the serving tier's operations on the card.  Phase 4's
+    DreamerV3-S run served as ``default`` next to a copy of it as ``canary``
+    (each its own run directory, journal and watch directory) with reload
+    (poll 0.2 s), the trace, the SLO with the slow-request drill and the
+    request log on: concurrent HTTP sessions to both; a promotion of new
+    weights in ``default`` (its greedy reply and session state equal to a
+    plain-path recomputation from the new weights, ``canary`` on the old
+    ones); the health gate rejecting a checkpoint while its training journal
+    has an open anomaly and promoting it after ``anomaly_end``; a permanent
+    rejection of another recurrent size; the kernel's launches equal to both
+    models' policy steps; the slow request journaled with its phases;
+    ``/metrics`` and ``trace_serve.json``; each model's request log verified;
+    the p50 and p99 of each phase per model and of the dispatch time per
+    dispatch."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.data.datasets import OfflineDataset, read_dataset_meta
+    from sheeprl_tpu_torch.diagnostics.journal import read_journal
+    from sheeprl_tpu_torch.envs.env import make_env
+    from sheeprl_tpu_torch.interop.flax_params import to_flax
+    from sheeprl_tpu_torch.models import blocks
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru, ln_gru_reference
+    from sheeprl_tpu_torch.serving.loader import _actions_dim, agent_state_from_checkpoint
+    from sheeprl_tpu_torch.utils.checkpoint import load_state, save_state
+
+    root = build_dir / "serve_ops"
+    shutil.rmtree(root, ignore_errors=True)
+    runs = {}
+    for model in ("default", "canary"):
+        runs[model] = root / model / "version_0"
+        shutil.copytree(build_dir / "run", runs[model])
+        _append_journal(runs[model], [{"event": "metrics", "step": 0, "metrics": {}}])
+    ckpts = {m: runs[m] / "checkpoint" / "ckpt_0_0.ckpt" for m in runs}
+    run_cfg = compose(SERVE_OPS_OVERRIDES + ["seed=5"])
+    env = make_env(run_cfg, run_cfg.seed, 0)()
+    obs_space, action_space = env.observation_space, env.action_space
+    env.close()
+    actions_dim, is_continuous, _ = _actions_dim(action_space)
+
+    def weights(seed: int, *extra: str) -> dict:
+        cfg = compose(SERVE_OPS_OVERRIDES + [f"seed={seed}", *extra])
+        return to_flax(*build_agent(actions_dim, is_continuous, cfg, obs_space, None, device_name))
+
+    newer, wider = weights(6), weights(7, "algo.world_model.recurrent_model.recurrent_state_size=256")
+
+    cfg, ckpt_path, device = cli.serve_config([
+        f"checkpoint_path={ckpts['default']}", "serving.port=0", "serving.max_delay_ms=5.0",
+        "serving.sessions.capacity=64", "serving.reload.poll_s=0.2", "serving.trace.enabled=True",
+        "serving.slo.target_ms=250.0", f"serving.slo.slow_trace_ms={SERVE_OPS_SLOW_MS}",
+        f"diagnostics.serving.inject_slow_iter={SERVE_OPS_INJECT_ITER}", "serving.request_log.enabled=True",
+        f"serving.request_log.rotate_rows={SERVE_OPS_ROTATE_ROWS}", f"serving.models={{canary: {ckpts['canary']}}}",
+        f"fabric.accelerator={device_name}", "run_name=serve_ops",
+    ])
+    _dv3_s_widths(cfg)  # phase 4's archived config
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    app = _serve_app(cfg, ckpt_path, device)
+    replies, lock, recomputed = [], threading.Lock(), 0
+    try:
+        host, port = app.start()
+        url = f"http://{host}:{port}"
+        services = {m: app.registry.get(m).service for m in ("default", "canary")}
+        shape = app.handle.obs_spec["rgb"][0]
+
+        def post(model: str, payload: dict, rid=None):
+            req = urllib.request.Request(url + "/act", data=json.dumps({**payload, "model": model}).encode(),
+                                         headers={"Content-Type": "application/json",
+                                                  **({"X-Request-Id": rid} if rid else {})})
+            try:
+                with urllib.request.urlopen(req, timeout=60) as resp:
+                    return resp.status, json.loads(resp.read()), resp.headers.get("X-Request-Id")
+            except urllib.error.HTTPError as err:
+                return err.code, json.loads(err.read() or b"{}"), err.headers.get("X-Request-Id")
+
+        def traffic(tag: str) -> None:
+            def client(model: str, i: int) -> None:
+                rng = np.random.default_rng(["ab".index(tag), list(services).index(model), i])
+                for j in range(SERVE_OPS_REQUESTS):
+                    rgb = rng.integers(0, 256, size=shape, dtype=np.uint8)
+                    rid = f"{tag}-{model}-{i}-{j}" if j % 2 == 0 else None
+                    status, body, echoed = post(model, {"obs": {"rgb": rgb.tolist()}, "session": f"{tag}{model}{i}",
+                                                        "greedy": (i + j) % 3 != 0}, rid)
+                    with lock:
+                        replies.append((model, status, body, rid, echoed))
+
+            threads = [threading.Thread(target=client, args=(m, i)) for m in services
+                       for i in range(SERVE_OPS_SESSIONS)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            if any(t.is_alive() for t in threads):
+                raise AssertionError("serve-ops: a client thread did not finish within 300 s")
+
+        def probe(model: str, seed: int, ckpt: Path) -> dict:
+            """One greedy request alone in its dispatch (a new session: 1 row
+            + 7 padding rows), held against the plain path on weights loaded
+            from ``ckpt``, and its session state against the kernel path."""
+            nonlocal recomputed
+            service, handle = services[model], app.registry.get(model).handle
+            rgb = np.random.default_rng(seed).integers(0, 256, size=shape, dtype=np.uint8)
+            sid = f"probe-{model}-{seed}"
+            status, body, _ = post(model, {"obs": {"rgb": rgb.tolist()}, "session": sid, "greedy": True})
+            if status != 200 or body["batch_rows"] != 1:
+                raise AssertionError(f"serve-ops probe {model}: {status} {body}")
+            served = {k: v[service.sessions._lru[sid]].clone() for k, v in service.sessions.slab.items()}
+            width = body["batch_width"]
+            fresh = handle.load_params(agent_state_from_checkpoint(load_state(str(ckpt))))
+            obs = {"rgb": torch.zeros((width, *shape), dtype=torch.uint8, device=device)}
+            obs["rgb"][0] = torch.from_numpy(rgb).to(device)
+            state = {k: torch.zeros((width, *v.shape[1:]), dtype=v.dtype, device=device)
+                     for k, v in service.sessions.slab.items()}
+            is_first = torch.ones((width, 1), device=device)
+            step = handle.make_state_step(True)
+            outs = {}
+            for path in ("kernel", "plain"):
+                patch = (mock.patch.object(blocks, "fused_layernorm_gru", ln_gru_reference) if path == "plain"
+                         else contextlib.nullcontext())
+                with patch:
+                    outs[path] = step(fresh, state, obs, is_first, torch.Generator(device=device).manual_seed(0))
+            recomputed += 1  # the kernel path's one launch
+            action = np.asarray(body["action"])
+            if not np.array_equal(action.round(), outs["plain"][0][0].cpu().numpy().round()):
+                raise AssertionError(f"serve-ops probe {model}: reply {action} != plain path {outs['plain'][0][0]}")
+            err = max((served[k] - outs["plain"][1][k][0]).abs().max().item() for k in ("recurrent",))
+            kerr = (outs["kernel"][1]["recurrent"] - outs["plain"][1]["recurrent"]).abs().max().item()
+            if err > TOLERANCE["float32"] or kerr > TOLERANCE["float32"]:
+                raise AssertionError(f"serve-ops probe {model}: session state vs plain {err}, kernel vs plain {kerr}")
+            return {"body": body, "recurrent": served["recurrent"], "err": err, "kernel_err": kerr}
+
+        traffic("a")
+        # promotion: new weights from another seed into default's watch dir
+        t0 = time.monotonic()
+        save_state(str(runs["default"] / "checkpoint" / "ckpt_100_0.ckpt"), newer)
+        _wait_until(lambda: services["default"].ckpt_step == 100, "the promotion of ckpt_100")
+        promote_s = time.monotonic() - t0
+        with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
+            health = json.loads(resp.read())
+        if health["models"]["default"]["ckpt_step"] != 100 or health["models"]["canary"]["ckpt_step"] != 0:
+            raise AssertionError(f"serve-ops /healthz after the promotion: {health}")
+        new_probe = probe("default", 11, runs["default"] / "checkpoint" / "ckpt_100_0.ckpt")
+        old_probe = probe("canary", 11, ckpts["canary"])
+        if (new_probe["body"]["params_version"], old_probe["body"]["params_version"]) != (1, 0):
+            raise AssertionError(f"serve-ops: params versions {new_probe['body']} {old_probe['body']}")
+        moved = (new_probe["recurrent"] - old_probe["recurrent"]).abs().max().item()
+        if moved < 1e-3:
+            raise AssertionError(f"serve-ops: default and canary served the same state after the promotion ({moved})")
+        # the health gate: an open anomaly holds the checkpoint back, anomaly_end lets it through
+        anomaly = {"kind": "entropy_collapse", "subject": "Loss/entropy_loss", "step": 150}
+        _append_journal(runs["default"], [{"event": "anomaly", **anomaly}])
+        save_state(str(runs["default"] / "checkpoint" / "ckpt_200_0.ckpt"), newer)
+        _wait_until(lambda: services["default"].rejections_total == 1, "the health-gate rejection of ckpt_200")
+        time.sleep(1.0)  # five polls: still held back, journaled once
+        if services["default"].ckpt_step != 100 or services["default"].rejections_total != 1:
+            raise AssertionError("serve-ops: ckpt_200 went through an open anomaly")
+        _append_journal(runs["default"], [{"event": "anomaly_end", "kind": anomaly["kind"],
+                                           "subject": anomaly["subject"]}])
+        _wait_until(lambda: services["default"].ckpt_step == 200, "the promotion of ckpt_200 after anomaly_end")
+        # another recurrent size: rejected for good, serving goes on
+        save_state(str(runs["default"] / "checkpoint" / "ckpt_300_0.ckpt"), wider)
+        _wait_until(lambda: services["default"].rejections_total == 2, "the shape rejection of ckpt_300")
+        time.sleep(1.0)
+        if services["default"].ckpt_step != 200 or services["default"].rejections_total != 2:
+            raise AssertionError("serve-ops: ckpt_300 was retried or installed")
+        traffic("b")
+        with urllib.request.urlopen(url + "/metrics", timeout=30) as resp:
+            metrics = resp.read().decode()
+        launches = fused_layernorm_gru.launches  # the main path ends here
+        stats = {m: s.batcher.stats() for m, s in services.items()}
+        steps = sum(stats[m]["dispatches_total"] + s.warmup_steps for m, s in services.items()) + recomputed
+        if launches != steps or launches == 0:
+            raise AssertionError(f"serve-ops: ln_gru launched {launches} times for {steps} policy steps "
+                                 f"({ {m: (stats[m]['dispatches_total'], s.warmup_steps) for m, s in services.items()} }"
+                                 f" + {recomputed} recomputations)")
+        phases = {m: s.phase_stats.percentiles() for m, s in services.items()}
+        warmup = {m: s.warmup_steps for m, s in services.items()}
+    finally:
+        app.close()
+
+    bad = [(m, s, b) for m, s, b, _, _ in replies if s != 200]
+    if bad or len(replies) != 2 * 2 * SERVE_OPS_SESSIONS * SERVE_OPS_REQUESTS:
+        raise AssertionError(f"serve-ops: {len(bad)} of {len(replies)} replies were not 200; first {bad[:1]}")
+    for model, _, body, rid, echoed in replies:
+        if not echoed or echoed != body["request_id"] or (rid is not None and echoed != rid):
+            raise AssertionError(f"serve-ops: X-Request-Id {rid!r} came back as {echoed!r} / {body['request_id']!r}")
+        a = np.asarray(body["action"], dtype=np.float64)
+        if a.shape != (int(sum(actions_dim)),) or not np.all(np.isfinite(a)) or round(float(a.sum())) != 1:
+            raise AssertionError(f"serve-ops: bad action {body['action']}")
+    for model in ("default", "canary"):
+        if f'sheeprl_serve_latency_ms_bucket{{model="{model}",' not in metrics:
+            raise AssertionError(f"serve-ops: /metrics has no latency histogram for {model}")
+
+    events = read_journal(str(Path(app.log_dir) / "journal.jsonl"))
+    decisions = [(e["event"], e.get("model"), e.get("step")) for e in events
+                 if e["event"] in ("ckpt_promote", "ckpt_reject")]
+    if decisions != [("ckpt_promote", "default", 100), ("ckpt_reject", "default", 200),
+                     ("ckpt_promote", "default", 200), ("ckpt_reject", "default", 300)]:
+        raise AssertionError(f"serve-ops: promotions and rejections {decisions}")
+    rejects = [e for e in events if e["event"] == "ckpt_reject"]
+    if rejects[0]["anomalies"][0]["kind"] != "entropy_collapse" or "shape" not in rejects[1]["reason"]:
+        raise AssertionError(f"serve-ops: rejections {rejects}")
+    slow = [e for e in events if e["event"] == "slow_request" and e["model"] == "default"
+            and e["dispatch_id"] == SERVE_OPS_INJECT_ITER]
+    faults = [e for e in events if e["event"] == "fault_injection"]
+    if len(faults) != 1 or not slow or set(slow[0]["phases"]) != {"queue_ms", "batch_form_ms", "dispatch_ms",
+                                                                  "scatter_ms"}:
+        raise AssertionError(f"serve-ops: the slow-request drill journaled {faults} and {slow}")
+    if slow[0]["phases"]["dispatch_ms"] < SERVE_OPS_SLOW_MS:
+        raise AssertionError(f"serve-ops: the injected dispatch took {slow[0]['phases']['dispatch_ms']} ms")
+    if events[0]["event"] != "serve_start" or events[-1]["event"] != "run_end" or events[-1]["status"] != "completed":
+        raise AssertionError(f"serve-ops: journal from {events[0]['event']} to {events[-1]}")
+
+    with open(Path(app.log_dir) / "trace_serve.json") as fp:
+        trace = json.load(fp)
+    spans = {}
+    for e in trace:
+        if e.get("ph") == "X":
+            spans.setdefault(e["name"], []).append(e["dur"] / 1000.0)
+    missing = {"serve-queue", "serve-batch-form", "serve-dispatch", "serve-scatter", "serve-serialize",
+               "serve-session-checkout", "serve-request-log"} - set(spans)
+    if missing:
+        raise AssertionError(f"serve-ops: trace_serve.json has no {sorted(missing)} span")
+
+    answered = {m: sum(1 for mm, s, *_ in replies if mm == m and s == 200) + 1 for m in ("default", "canary")}
+    logged = {}
+    for model, rows in answered.items():
+        dataset_dir = Path(app.log_dir) / "requests" / model
+        ds = OfflineDataset(str(dataset_dir))
+        meta = (read_dataset_meta(str(dataset_dir)) or {}).get("meta") or {}
+        if ds.skipped or ds.total_rows != rows or meta.get("algo") != "dreamer_v3":
+            raise AssertionError(f"serve-ops: {model}'s request log holds {ds.total_rows} rows of {rows} "
+                                 f"({len(ds.skipped)} shards skipped, algo {meta.get('algo')})")
+        logged[model] = {"rows": ds.total_rows, "shards": ds.n_shards}
+
+    dispatch = [d for d in spans["serve-dispatch"] if d < SERVE_OPS_SLOW_MS]  # the injected sleep left out
+    return {
+        "requests": len(replies) + 2,
+        "launches": launches,
+        "warmup_steps": warmup,
+        "dispatches": {m: stats[m]["dispatches_total"] for m in stats},
+        "width_hist": {m: stats[m]["width_hist"] for m in stats},
+        "phases": phases,
+        "dispatch_ms_per_dispatch": _percentiles(dispatch),
+        "dispatches_traced": len(spans["serve-dispatch"]),
+        "promote_s": promote_s,
+        "probe_err": {"default": new_probe["err"], "canary": old_probe["err"]},
+        "probe_kernel_err": max(new_probe["kernel_err"], old_probe["kernel_err"]),
+        "moved": moved,
+        "slow_request_ms": slow[0]["total_ms"],
+        "slo_events": [e["event"] for e in events if e["event"].startswith("slo_")],
+        "logged": logged,
+        "log_dir": app.log_dir,
     }
 
 
@@ -1607,12 +1938,11 @@ def run_ppo_serve(ppo: dict, device_name: str = "cuda") -> dict:
     import torch
 
     from sheeprl_tpu_torch import cli
-    from sheeprl_tpu_torch.serving.server import ServeApp
 
     cfg, ckpt_path, device = cli.serve_config(
         [f"checkpoint_path={ppo['checkpoints'][-1]}", "serving.port=0", "serving.batch_buckets=[8,16,32,64]",
          "serving.max_delay_ms=5.0", f"fabric.accelerator={device_name}"])
-    app = ServeApp(cfg, ckpt_path, device)
+    app = _serve_app(cfg, ckpt_path, device)
     try:
         host, port = app.start()
         url = f"http://{host}:{port}"
@@ -1869,7 +2199,6 @@ def run_jepa_eval(jepa: dict, device_name: str = "cuda") -> dict:
 
     from sheeprl_tpu_torch import cli
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
-    from sheeprl_tpu_torch.serving.server import ServeApp
 
     fused_layernorm_gru.launches = 0  # the main path starts here
     reward = cli.evaluation([f"checkpoint_path={jepa['checkpoint']}"])
@@ -1880,7 +2209,7 @@ def run_jepa_eval(jepa: dict, device_name: str = "cuda") -> dict:
     cfg, ckpt_path, device = cli.serve_config([f"checkpoint_path={jepa['checkpoint']}", "serving.port=0",
                                                f"fabric.accelerator={device_name}"])
     try:
-        app = ServeApp(cfg, ckpt_path, device)
+        app = _serve_app(cfg, ckpt_path, device)
     except ValueError as err:
         refusal = str(err)
     else:
@@ -2173,7 +2502,6 @@ def run_p2e_eval(checkpoints, device_name: str = "cuda", kernel: bool = True) ->
 
     from sheeprl_tpu_torch import cli
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
-    from sheeprl_tpu_torch.serving.server import ServeApp
 
     out = {"test_rewards": [], "ln_gru_launches": 0, "serve_refusals": []}
     fused_layernorm_gru.launches = 0  # the main path starts here
@@ -2188,7 +2516,7 @@ def run_p2e_eval(checkpoints, device_name: str = "cuda", kernel: bool = True) ->
         cfg, ckpt_path, device = cli.serve_config([f"checkpoint_path={ckpt}", "serving.port=0",
                                                    f"fabric.accelerator={device_name}"])
         try:
-            app = ServeApp(cfg, ckpt_path, device)
+            app = _serve_app(cfg, ckpt_path, device)
         except ValueError as err:
             refusal = str(err)
         else:
@@ -2239,7 +2567,6 @@ def run_a2c(build_dir: Path, device_name: str = "cuda") -> dict:
     import torch
 
     from sheeprl_tpu_torch import cli
-    from sheeprl_tpu_torch.serving.server import ServeApp
     from sheeprl_tpu_torch.utils.checkpoint import load_state
     from sheeprl_tpu_torch.utils.optim import RMSprop
 
@@ -2275,7 +2602,7 @@ def run_a2c(build_dir: Path, device_name: str = "cuda") -> dict:
     cfg, ckpt_path, device = cli.serve_config(
         [f"checkpoint_path={out['checkpoints'][-1]}", "serving.port=0", "serving.batch_buckets=[4,8]",
          "serving.max_delay_ms=5.0", f"fabric.accelerator={device_name}"])
-    app = ServeApp(cfg, ckpt_path, device)
+    app = _serve_app(cfg, ckpt_path, device)
     try:
         host, port = app.start()
         url = f"http://{host}:{port}"
@@ -2411,7 +2738,6 @@ def run_sac(build_dir: Path, device_name: str = "cuda") -> dict:
 
     from sheeprl_tpu_torch import cli
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
-    from sheeprl_tpu_torch.serving.server import ServeApp
 
     overrides = SAC_OVERRIDES + [f"root_dir={(build_dir / 'sac').resolve()}", f"fabric.accelerator={device_name}"]
     out = _off_policy_run(overrides, "sac")
@@ -2420,7 +2746,7 @@ def run_sac(build_dir: Path, device_name: str = "cuda") -> dict:
                                                "serving.batch_buckets=[4,8]", "serving.max_delay_ms=5.0",
                                                f"fabric.accelerator={device_name}"])
     fused_layernorm_gru.launches = 0
-    app = ServeApp(cfg, ckpt_path, device)
+    app = _serve_app(cfg, ckpt_path, device)
     try:
         host, port = app.start()
         url = f"http://{host}:{port}"
@@ -2463,14 +2789,13 @@ def run_droq(build_dir: Path, device_name: str = "cuda") -> dict:
     ``eval``; ``serve`` refuses its checkpoint, as the JAX package has no
     DroQ adapter."""
     from sheeprl_tpu_torch import cli
-    from sheeprl_tpu_torch.serving.server import ServeApp
 
     overrides = DROQ_OVERRIDES + [f"root_dir={(build_dir / 'droq').resolve()}", f"fabric.accelerator={device_name}"]
     out = _off_policy_run(overrides, "droq")
     cfg, path, device = cli.serve_config([f"checkpoint_path={out['run']['checkpoints'][-1]}",
                                           f"fabric.accelerator={device_name}"])
     try:
-        ServeApp(cfg, path, device).close()
+        _serve_app(cfg, path, device).close()
     except ValueError as err:
         out["serve_refusal"] = str(err)
     else:
@@ -2485,7 +2810,6 @@ def run_sac_ae(build_dir: Path, device_name: str = "cuda") -> dict:
     1,024 wide, batch 128), its resume (the cumulative counter restored)
     and ``eval``; ``serve`` refuses its checkpoint."""
     from sheeprl_tpu_torch import cli
-    from sheeprl_tpu_torch.serving.server import ServeApp
     from sheeprl_tpu_torch.utils.checkpoint import load_state
 
     overrides = SAC_AE_OVERRIDES + [f"root_dir={(build_dir / 'sac_ae').resolve()}",
@@ -2499,7 +2823,7 @@ def run_sac_ae(build_dir: Path, device_name: str = "cuda") -> dict:
     cfg, path, device = cli.serve_config([f"checkpoint_path={run['checkpoints'][-1]}",
                                           f"fabric.accelerator={device_name}"])
     try:
-        ServeApp(cfg, path, device).close()
+        _serve_app(cfg, path, device).close()
     except ValueError as err:
         out["serve_refusal"] = str(err)
     else:
@@ -3170,7 +3494,6 @@ def run_dreamer_eval(run: dict, where: str, device_name: str = "cuda") -> dict:
 
     from sheeprl_tpu_torch import cli
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
-    from sheeprl_tpu_torch.serving.server import ServeApp
 
     fused_layernorm_gru.launches = 0  # the main path starts here
     reward = cli.evaluation([f"checkpoint_path={run['checkpoint']}", f"fabric.accelerator={device_name}"])
@@ -3182,7 +3505,7 @@ def run_dreamer_eval(run: dict, where: str, device_name: str = "cuda") -> dict:
     cfg, ckpt_path, device = cli.serve_config([f"checkpoint_path={run['checkpoint']}", "serving.port=0",
                                                f"fabric.accelerator={device_name}"])
     try:
-        app = ServeApp(cfg, ckpt_path, device)
+        app = _serve_app(cfg, ckpt_path, device)
     except ValueError as err:
         refusal = str(err)
     else:
@@ -3453,7 +3776,6 @@ def run_ppo_recurrent(build_dir: Path, device_name: str = "cuda") -> dict:
     from sheeprl_tpu_torch.config import compose
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
     from sheeprl_tpu_torch.parallel.precision import call_cast
-    from sheeprl_tpu_torch.serving.server import ServeApp
     from sheeprl_tpu_torch.utils.checkpoint import load_state
 
     overrides = PPO_REC_OVERRIDES + [f"root_dir={(build_dir / 'ppo_rec').resolve()}", f"fabric.accelerator={device_name}"]
@@ -3483,7 +3805,7 @@ def run_ppo_recurrent(build_dir: Path, device_name: str = "cuda") -> dict:
     serve_cfg, ckpt_path, device = cli.serve_config(
         [f"checkpoint_path={out['checkpoints'][-1]}", "serving.port=0", "serving.batch_buckets=[2,4]",
          "serving.max_delay_ms=2.0", f"fabric.accelerator={device_name}"])
-    app = ServeApp(serve_cfg, ckpt_path, device)
+    app = _serve_app(serve_cfg, ckpt_path, device)
     mismatches, replies = [], 0
     try:
         host, port = app.start()
@@ -3691,6 +4013,27 @@ def main() -> int:
     )
 
     mark('serve')
+    ops = run_serve_ops(build_dir)
+    print(
+        f"[serve-ops] DreamerV3-S as default + canary, reload/trace/SLO/request log on: {ops['requests']} /act, all "
+        f"200 with their X-Request-Id; ckpt_100 promoted in {ops['promote_s']:.2f} s (default's greedy reply and "
+        f"session state equal to the plain path on the new weights, max_abs_err {ops['probe_err']['default']:.3g}; "
+        f"canary on the old, {ops['probe_err']['canary']:.3g}; the two states {ops['moved']:.3g} apart); ckpt_200 "
+        f"held by an open anomaly, promoted after anomaly_end; ckpt_300 (recurrent 256) rejected for good; "
+        f"{ops['dispatches']} dispatches + {ops['warmup_steps']} warm-up steps + 2 recomputations = "
+        f"{ops['launches']} ln_gru launches; slow request {ops['slow_request_ms']:.1f} ms journaled with its phases, "
+        f"SLO events {ops['slo_events']}; request logs {ops['logged']}; widths {ops['width_hist']}  [{card}]",
+        flush=True,
+    )
+    for model, phases in ops["phases"].items():
+        print(f"[serve-ops] {model} per-request phase p50/p99 ms: " + ", ".join(
+            f"{phase} {phases[phase][0]:.3f}/{phases[phase][1]:.3f}" for phase in
+            ("queue", "batch_form", "dispatch", "scatter", "total") if phase in phases) + f"  [{card}]", flush=True)
+    print(f"[serve-ops] dispatch time per dispatch (trace_serve.json, {ops['dispatches_traced']} dispatches, the "
+          f"injected one left out): p50 {ops['dispatch_ms_per_dispatch'][0]:.3f} ms, p99 "
+          f"{ops['dispatch_ms_per_dispatch'][1]:.3f} ms  [{card}]", flush=True)
+
+    mark('serve-ops')
     train = run_train(build_dir)
     s_cases = {(c["B"], c["dtype"]): c for c in cases if c["H"] == 512}
     print(
@@ -4198,7 +4541,7 @@ def main() -> int:
           f"{[e['write_ms'] for e in train['journal']['ckpt_end']]}; the loop's `checkpoint` span, its critical "
           f"path: chunked {chunked['journal']['checkpoint_span_s']} s, drill {drill['checkpoint_span_s']} s, fp32 "
           f"{train['journal']['checkpoint_span_s']} s  [{card}]", flush=True)
-    print(f"[launches] ln_gru launches: serve {slice_report['ln_gru_launches']}, train {train['ln_gru_launches']}, "
+    print(f"[launches] ln_gru launches: serve {slice_report['ln_gru_launches']}, serve-ops {ops['launches']}, train {train['ln_gru_launches']}, "
           f"chunked {chunked['ln_gru_launches']}, resume {resumed['ln_gru_launches']}, eval "
           f"{evaluated['ln_gru_launches']}, drill resume {drill['ln_gru_launches']}, jepa {jepa['ln_gru_launches']}, "
           f"jepa resume {jepa_resumed['ln_gru_launches']}, jepa eval {jepa_evaluated['ln_gru_launches']}, p2e "
@@ -4221,7 +4564,8 @@ def main() -> int:
     main_b = 16 if train["gradient_steps"] * 64 >= max(slice_report["width_hist"].values()) \
         else slice_report["main_width"]
     main = s_cases.get((main_b, "float32")) or measure_ln_gru(main_b, *S_SHAPE, "float32")
-    by_path = {"serve": slice_report["ln_gru_launches"], "train": train["ln_gru_launches"],
+    by_path = {"serve": slice_report["ln_gru_launches"], "serve-ops": ops["launches"],
+               "train": train["ln_gru_launches"],
                "train_bf16_chunked": chunked["ln_gru_launches"], "resume": resumed["ln_gru_launches"],
                "eval": evaluated["ln_gru_launches"], "drill_resume": drill["ln_gru_launches"],
                "jepa": jepa["ln_gru_launches"], "jepa_resume": jepa_resumed["ln_gru_launches"],
@@ -4257,7 +4601,7 @@ def main() -> int:
         "library_ms": main["library_ms"],
         "shape": {"B": main["B"], "K": main["K"], "H": main["H"], "dtype": main["dtype"]},
         "cases": [{k: c[k] for k in case_keys} for c in cases],
-        "phase": "kernel+slice+train+chunked+resume+eval+offline+drill+jepa+p2e+sac+droq+sac_ae+offline_sac"
+        "phase": "kernel+slice+serve-ops+train+chunked+resume+eval+offline+drill+jepa+p2e+sac+droq+sac_ae+offline_sac"
                  "+offline_droq+bf16+dv2+dv1+ppo_recurrent+p2e_dv2+p2e_dv1",
     }]
     mark("kernels line")

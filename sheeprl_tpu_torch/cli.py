@@ -8,8 +8,9 @@ finetuning of ``p2e_dv2`` and ``p2e_dv1``, trains ``sac``, ``droq`` and
 ``dreamer_v3`` offline (``algo.offline.enabled=true``, on a dataset
 ``buffer.export`` or ``python -m sheeprl_tpu_torch export`` wrote), and
 serves ``dreamer_v3``, ``ppo``, ``a2c``, ``sac`` and ``ppo_recurrent`` (as
-the JAX package does); model registration is still to port (ROADMAP.md
-Queue 1)."""
+the JAX package does) with its operations: hot reload, more models, the
+request log, SLOs, ``/metrics`` and the trace.  Registering models with
+MLflow (``model_manager``) is still to port (ROADMAP.md Queue 1)."""
 
 from __future__ import annotations
 
@@ -74,8 +75,10 @@ def serve_config(args: Optional[Sequence[str]] = None) -> Tuple[dotdict, str, to
 def serve(args: Optional[Sequence[str]] = None) -> None:
     """``python -m sheeprl_tpu_torch serve checkpoint_path=...``: load a
     checkpoint (the JAX package's or the port's) with its archived run
-    config and serve it over HTTP.  Other overrides are dotted keys on top
-    of the archived config (``serving.port=8080``, ``fabric.accelerator=cpu``)."""
+    config and serve it over HTTP, promoting newer checkpoints of its
+    directory as they appear.  Other overrides are dotted keys on top of the
+    archived config (``serving.port=8080``, ``fabric.accelerator=cpu``,
+    ``serving.models={canary: ...}``)."""
     from sheeprl_tpu_torch.serving.server import serve_checkpoint
 
     serve_checkpoint(*serve_config(args))

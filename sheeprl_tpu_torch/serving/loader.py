@@ -3,9 +3,10 @@ tier (counterpart of ``sheeprl_tpu/serving/loader.py``).
 
 A :class:`PolicyHandle` is everything the server needs to turn a checkpoint
 into a servable policy: how a request's observation row is validated, how a
-group of rows is assembled into one padded batch, and the policy step.  The
-port serves ``dreamer_v3``, a stateful family: its handle exposes
-``make_state_step(greedy)``, a ``(params, state, obs, is_first, generator,
+group of rows is assembled into one padded batch, the policy step, and how a
+*new* checkpoint's agent state becomes a new set of modules for a hot swap
+(``load_params``).  The port serves ``dreamer_v3``, a stateful family: its
+handle exposes ``make_state_step(greedy)``, a ``(params, state, obs, is_first, generator,
 noise=None) -> (actions, new_state)`` step whose ``is_first`` reset is the
 same masked blend as ``PlayerDV3``; and ``ppo`` and ``a2c``, served
 statelessly, and ``sac``: their handle exposes ``make_step(greedy)``, a
@@ -13,6 +14,13 @@ statelessly, and ``sac``: their handle exposes ``make_step(greedy)``, a
 ``ppo_recurrent``, stateful again, its per-session state the LSTM's.  As in
 the JAX package, ``dreamer_v3_jepa``, the P2E pair, ``droq``, ``sac_ae``,
 ``dreamer_v1`` and ``dreamer_v2`` have no adapter.
+
+The health gate (:func:`checkpoint_health`) reads the training run's journal
+next to a candidate checkpoint (the ``version_N`` dir it lives under) and
+refuses promotion while a learning-health ``anomaly`` has no matching
+``anomaly_end`` (:func:`~sheeprl_tpu_torch.diagnostics.health.active_anomalies`).
+Standalone checkpoints without a journal are governed by
+``serving.reload.allow_unjournaled``.
 """
 
 from __future__ import annotations
@@ -63,6 +71,84 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     return os.path.join(str(ckpt_dir), max(names, key=sort_key))
 
 
+def journal_for_checkpoint(ckpt_path: str) -> Optional[str]:
+    """The training run's journal that governs this checkpoint: checkpoints
+    land in ``<version_N>/checkpoint/``, the journal in ``<version_N>/``."""
+    version_dir = os.path.dirname(os.path.dirname(os.path.abspath(str(ckpt_path))))
+    path = os.path.join(version_dir, "journal.jsonl")
+    return path if os.path.isfile(path) else None
+
+
+def checkpoint_health(
+    ckpt_path: str,
+    health_gate: bool = True,
+    allow_unjournaled: bool = True,
+) -> Tuple[bool, str, List[Dict[str, Any]]]:
+    """Is this checkpoint promotable?  ``(ok, reason, open_anomalies)``: the
+    training run's journal next to the checkpoint must hold no ``anomaly``
+    without its ``anomaly_end``."""
+    if not health_gate:
+        return True, "health gate disabled", []
+    journal_path = journal_for_checkpoint(ckpt_path)
+    if journal_path is None:
+        if allow_unjournaled:
+            return True, "no training journal (allow_unjournaled)", []
+        return False, "no training journal next to the checkpoint", []
+    from sheeprl_tpu_torch.diagnostics.health import active_anomalies
+    from sheeprl_tpu_torch.diagnostics.journal import read_journal
+
+    open_anomalies = active_anomalies(read_journal(journal_path))
+    if open_anomalies:
+        kinds = sorted({f"{e.get('kind')}:{e.get('subject')}" for e in open_anomalies})
+        return False, f"open learning-health anomalies: {', '.join(kinds)}", open_anomalies
+    return True, "journal clean", []
+
+
+def leaf_dtype_mismatch(tree: Any, path: str = "") -> Optional[str]:
+    """The first floating leaf of a checkpoint's agent state that is not
+    float32, as ``"<path> dtype <dtype> -> float32"``, else None.  The
+    converter would cast such a leaf silently; a served policy's weights are
+    float32, so a bf16-stored or wider tree is refused instead."""
+    if isinstance(tree, Mapping):
+        for key in sorted(tree, key=str):
+            found = leaf_dtype_mismatch(tree[key], f"{path}/{key}")
+            if found:
+                return found
+        return None
+    if isinstance(tree, (list, tuple)):
+        for i, sub in enumerate(tree):
+            found = leaf_dtype_mismatch(sub, f"{path}/{i}")
+            if found:
+                return found
+        return None
+    dtype = getattr(tree, "dtype", None)
+    if dtype is not None and not isinstance(dtype, torch.dtype):
+        dtype = np.dtype(dtype)
+        if (dtype.kind == "f" or "bfloat16" in dtype.name) and dtype != np.float32:
+            return f"{path or '/'} dtype {dtype.name} -> float32"
+    return None
+
+
+def _params_loader(build: Callable[[Mapping[str, Any]], Any], device) -> Callable[[Mapping[str, Any]], Any]:
+    """``load_params``: a checkpoint's agent state -> NEW modules on the
+    handle's device, built through the converter (strict: a missing key or
+    another shape raises), the live modules untouched.  On the card it waits
+    for the copies, so the first dispatch on the new modules never reads a
+    weight still in flight."""
+    device = torch.device(device)
+
+    def load_params(agent_state: Mapping[str, Any]) -> Any:
+        mismatch = leaf_dtype_mismatch(agent_state)
+        if mismatch:
+            raise ValueError(mismatch)
+        params = build(agent_state)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        return params
+
+    return load_params
+
+
 @dataclass
 class PolicyHandle:
     """One servable policy: the algorithm-specific closures the service
@@ -84,6 +170,8 @@ class PolicyHandle:
     state_spec: Dict[str, Tuple[Tuple[int, ...], str]] = field(default_factory=dict)
     make_state_step: Optional[Callable[[bool], Callable]] = None
     make_step: Optional[Callable[[bool], Callable]] = None
+    load_params: Optional[Callable[[Mapping[str, Any]], Any]] = None
+    log_row: Optional[Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]]] = None
 
     def zero_obs(self, width: int) -> Any:
         return self.assemble([], width)
@@ -144,8 +232,11 @@ def _dreamer_v3_handle(cfg, obs_space, action_space, agent_state, device) -> Pol
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_policy_modules
 
     actions_dim, is_continuous, _ = _actions_dim(action_space)
-    world_model, actor = build_policy_modules(actions_dim, is_continuous, cfg, obs_space, agent_state, device)
-    world_model, actor = world_model.eval(), actor.eval()
+    def load_modules(state) -> Dict[str, torch.nn.Module]:
+        world_model, actor = build_policy_modules(actions_dim, is_continuous, cfg, obs_space, state, device)
+        return {"world_model": world_model.eval(), "actor": actor.eval()}
+
+    params = load_modules(agent_state)
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     obs_spec: Dict[str, Tuple[Tuple[int, ...], str]] = {}
@@ -191,7 +282,7 @@ def _dreamer_v3_handle(cfg, obs_space, action_space, agent_state, device) -> Pol
         algo="dreamer_v3",
         obs_spec=obs_spec,
         action_shape=(act_sum,),
-        params={"world_model": world_model, "actor": actor},
+        params=params,
         assemble=_dict_assembler(obs_spec),
         validate=_row_validator(obs_spec),
         device=torch.device(device),
@@ -199,6 +290,7 @@ def _dreamer_v3_handle(cfg, obs_space, action_space, agent_state, device) -> Pol
         stateful=True,
         state_spec=state_spec,
         make_state_step=make_state_step,
+        load_params=_params_loader(load_modules, device),
     )
 
 
@@ -217,7 +309,11 @@ def _ppo_handle(cfg, obs_space, action_space, agent_state, device) -> PolicyHand
 
     agent_module = importlib.import_module(f"sheeprl_tpu_torch.algos.{cfg.algo.name}.agent")
     actions_dim, is_continuous, _ = _actions_dim(action_space)
-    agent = agent_module.build_agent(actions_dim, is_continuous, cfg, obs_space, agent_state, device).eval()
+
+    def load_agent(state) -> torch.nn.Module:
+        return agent_module.build_agent(actions_dim, is_continuous, cfg, obs_space, state, device).eval()
+
+    agent = load_agent(agent_state)
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     obs_spec: Dict[str, Tuple[Tuple[int, ...], str]] = {}
@@ -247,6 +343,7 @@ def _ppo_handle(cfg, obs_space, action_space, agent_state, device) -> PolicyHand
         device=torch.device(device),
         meta={"is_continuous": is_continuous, "actions_dim": list(actions_dim)},
         make_step=make_step,
+        load_params=_params_loader(load_agent, device),
     )
 
 
@@ -260,8 +357,10 @@ def _sac_handle(cfg, obs_space, action_space, agent_state, device) -> PolicyHand
     observation the actor reads (``algos/sac/utils.py::prepare_obs``)."""
     from sheeprl_tpu_torch.algos.sac.agent import build_agent
 
-    agent, _ = build_agent(cfg, obs_space, action_space, agent_state, device)
-    actor = agent.actor.eval()
+    def load_actor(state) -> torch.nn.Module:
+        return build_agent(cfg, obs_space, action_space, state, device)[0].actor.eval()
+
+    actor = load_actor(agent_state)
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
     obs_spec = {k: ((int(prod(obs_space[k].shape)),), "float32") for k in mlp_keys}
     act_dim = int(prod(action_space.shape))
@@ -280,6 +379,11 @@ def _sac_handle(cfg, obs_space, action_space, agent_state, device) -> PolicyHand
 
         return step
 
+    def log_row(row: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        # the flat concat the actor read: the 'observations' key offline
+        # sac/droq training reads
+        return {"observations": np.concatenate([row[k] for k in mlp_keys], axis=-1)}
+
     return PolicyHandle(
         algo="sac",
         obs_spec=obs_spec,
@@ -290,6 +394,8 @@ def _sac_handle(cfg, obs_space, action_space, agent_state, device) -> PolicyHand
         device=torch.device(device),
         meta={"is_continuous": True},
         make_step=make_step,
+        load_params=_params_loader(load_actor, device),
+        log_row=log_row,
     )
 
 
@@ -308,7 +414,11 @@ def _ppo_recurrent_handle(cfg, obs_space, action_space, agent_state, device) -> 
     from sheeprl_tpu_torch.parallel.precision import call_cast
 
     actions_dim, is_continuous, _ = _actions_dim(action_space)
-    agent = build_agent(actions_dim, is_continuous, cfg, obs_space, agent_state, device).eval()
+
+    def load_agent(state) -> torch.nn.Module:
+        return build_agent(actions_dim, is_continuous, cfg, obs_space, state, device).eval()
+
+    agent = load_agent(agent_state)
     mlp_keys = list(cfg.algo.mlp_keys.encoder)
     cnn_keys = list(cfg.algo.cnn_keys.encoder)
     obs_spec: Dict[str, Tuple[Tuple[int, ...], str]] = {}
@@ -352,6 +462,7 @@ def _ppo_recurrent_handle(cfg, obs_space, action_space, agent_state, device) -> 
         stateful=True,
         state_spec=state_spec,
         make_state_step=make_state_step,
+        load_params=_params_loader(load_agent, device),
     )
 
 

@@ -10,9 +10,9 @@ policies (counterpart of ``sheeprl_tpu/serving/sessions.py``).
   influence an action;
 * a host-side **LRU table** mapping client session ids to slots.  A new
   session takes the lowest free slot; when the slab is full the
-  least-recently used session NOT in the current batch is evicted.  An
-  evicted session that comes back is a new session: fresh slot,
-  ``is_first = 1``.
+  least-recently used session NOT in the current batch is evicted, with a
+  journaled ``session_evict``.  An evicted session that comes back is a new
+  session: fresh slot, ``is_first = 1``.
 
 The dispatcher thread is the only writer of the slab; ``checkout`` runs under
 the table lock.
@@ -58,12 +58,18 @@ class SessionStore:
         state_spec: Dict[str, Tuple[Tuple[int, ...], str]],
         capacity: int,
         device: torch.device | str = "cpu",
+        journal: Any = None,
+        model: Optional[str] = None,
+        tracer: Any = None,
     ):
         if capacity <= 0:
             raise ValueError(f"sessions.capacity must be > 0, got {capacity}")
         self.capacity = int(capacity)
         self.scratch = self.capacity  # slot index of the scratch row
         self.state_spec = dict(state_spec)
+        self._journal = journal
+        self._tracer = tracer
+        self.model = model
         rows = self.capacity + 1
         self.slab: Dict[str, torch.Tensor] = {
             k: torch.zeros((rows,) + tuple(shape), dtype=getattr(torch, dtype), device=device)
@@ -86,6 +92,17 @@ class SessionStore:
         float32, evicted records)``.  Padding rows map to scratch with
         ``is_first = 1``; so do sessionless rows and — when every slot is
         pinned by this very batch — overflow sessions."""
+        if self._tracer is not None:
+            with self._tracer.span("serve-session-checkout", rows=len(session_ids)):
+                return self._checkout(session_ids, resets, width)
+        return self._checkout(session_ids, resets, width)
+
+    def _checkout(
+        self,
+        session_ids: Sequence[Optional[str]],
+        resets: Sequence[bool],
+        width: int,
+    ) -> Tuple[np.ndarray, np.ndarray, List[Dict[str, Any]]]:
         idx = np.full((int(width),), self.scratch, dtype=np.int64)
         is_first = np.ones((int(width), 1), dtype=np.float32)
         evicted: List[Dict[str, Any]] = []
@@ -105,6 +122,9 @@ class SessionStore:
                     self._lru.move_to_end(sid)
                     is_first[i, 0] = 1.0 if reset else 0.0
                 idx[i] = slot
+        if self._journal is not None:
+            for record in evicted:
+                self._journal.write("session_evict", **record)
         return idx, is_first, evicted
 
     def _allocate(self, sid: str, busy: set, evicted: List[Dict[str, Any]]) -> Optional[int]:
@@ -119,7 +139,8 @@ class SessionStore:
             slot = self._lru.pop(victim)
             self.evictions_total += 1
             evicted.append(
-                {"session": victim, "slot": int(slot), "resident": len(self._lru), "capacity": self.capacity}
+                {"session": victim, "slot": int(slot), "model": self.model, "resident": len(self._lru),
+                 "capacity": self.capacity}
             )
         self._lru[sid] = slot
         self.created_total += 1

@@ -694,8 +694,10 @@ def test_http_act_and_healthz_with_sessions_padding_and_eviction(tiny, tmp_path)
             health = json.loads(resp.read())
         assert health["status"] == "ok" and health["algo"] == "dreamer_v3" and health["ckpt_step"] == 8
         assert health["models"]["default"]["sessions"] == {"active": 2, "capacity": 2, "evictions_total": 2}
-        with pytest.raises(urllib.error.HTTPError):
-            urllib.request.urlopen(url + "/metrics", timeout=10)
+        with urllib.request.urlopen(url + "/metrics", timeout=10) as resp:
+            metrics = resp.read().decode()
+        assert 'sheeprl_serve_requests_total{model="default"} 6' in metrics
+        assert 'sheeprl_sessions_evictions_total{model="default"} 2' in metrics
     finally:
         app.close()
 

@@ -441,21 +441,20 @@ def test_run_trains_in_bf16(tmp_path, precision):
 
 def test_serve_answers_a_port_checkpoint_over_http_and_refuses_what_it_does_not_run(port_run):
     import json
+    import os
     import threading
     import urllib.error
     import urllib.request
 
+    from sheeprl_tpu_torch.data.datasets import OfflineDataset
     from sheeprl_tpu_torch.serving.server import ServeApp
 
     ckpt = port_run["checkpoints"][-1]
-    for option in ("serving.models={b: x.ckpt}", "serving.request_log.enabled=True"):
-        cfg, path, device = cli.serve_config([f"checkpoint_path={ckpt}", "fabric.accelerator=cpu", option])
-        with pytest.raises(NotImplementedError, match=option.split("=")[0]):
-            ServeApp(cfg, path, device)
     cfg, path, device = cli.serve_config([f"checkpoint_path={ckpt}", "fabric.accelerator=cpu",
-                                          "serving.batch_buckets=[4]"])
+                                          "serving.batch_buckets=[4]", f"serving.models={{b: {ckpt}}}",
+                                          "serving.request_log.enabled=True"])
     app = ServeApp(cfg, path, device)
-    assert any("reload" in o for o in app.unported_defaults)
+    assert app.registry.names() == ["b", "default"] and app.request_log is not None
     host, port = app.start()
     url = f"http://{host}:{port}"
     rng = np.random.default_rng(0)
@@ -487,11 +486,18 @@ def test_serve_answers_a_port_checkpoint_over_http_and_refuses_what_it_does_not_
         status, body = post({"obs": {"rgb": np.zeros((3, SCREEN, SCREEN)).tolist(), "state": [0.0] * 10},
                              "session": "s"})
         assert status == 400 and "statelessly" in body["error"]
+        obs = {"rgb": np.zeros((3, SCREEN, SCREEN)).tolist(), "state": [0.0] * 10}
+        status, via_b = post({"obs": obs, "model": "b"})
+        assert status == 200 and via_b["action"] == post({"obs": obs})[1]["action"]
         with urllib.request.urlopen(url + "/healthz", timeout=30) as resp:
             health = json.loads(resp.read())
         assert health["algo"] == "ppo" and health["models"]["default"]["stateful"] is False
+        assert set(health["models"]) == {"b", "default"}
     finally:
         app.close()
+    for model, rows in (("default", 7), ("b", 1)):
+        logged = OfflineDataset(os.path.join(app.log_dir, "requests", model))
+        assert logged.total_rows == rows and logged.meta["meta"]["algo"] == "ppo"
 
 
 def test_drills_skip_a_poisoned_update_and_preempt_with_a_verified_checkpoint(tmp_path):
