@@ -198,7 +198,21 @@ Phases, in order; any failure raises and the script exits non-zero:
             the offline loop's step); the CPU's FLOP count of the fp32 step, equal to
             the card's; the journals' MFU, the syncs a step, ``ckpt_end``'s
             ``write_ms`` (async and blocking) and every run's kernel launches;
-18. the ``kernels`` JSON line, then the result line.
+18. records — ``run`` at DreamerV3-S (fp32, 2 iterations of gradient steps)
+            with ``metric.profiler.enabled=True`` and
+            ``model_manager.disabled=False``: without mlflow the registry warns
+            and is disabled, as the JAX ``check_configs`` does, and the run
+            trains; its Chrome trace parses and holds as many
+            ``ln_gru_kernel`` events as the launch counter counts; each
+            gradient step's stream time, the profiler's overhead beside phase
+            17's; the six report tools (``python -m
+            sheeprl_tpu_torch.tools.*_report``, no JAX, ``sheeprl_tpu`` or
+            torch loaded) on phase 5's run, phase 9's ``trace.json``, phase
+            4b's ``trace_serve.json`` and journal and phase 8b's export; the
+            search (``tools/search.py``'s ``main``) over JEPA-XS, 2 random
+            trials under ASHA through the kernel, both ``COMPLETE``;
+            ``registration`` raising ``ModuleNotFoundError`` without mlflow;
+19. the ``kernels`` JSON line, then the result line.
 
 It needs no network, writes only under ``build/`` in the checkout (and
 removes the XL runs' checkpoints once their phases are done), and stops
@@ -534,6 +548,37 @@ OFFLINE_SAC_GRAD_STEPS = {"sac": 2, "droq": 1}
 # phase 17 times the fp32 step under the default diagnostics on the offline
 # loader's first batch: the offline loop's step
 OFFLINE_TIMER_NOTE = " (the offline step, on the offline loader's first batch)"
+
+# phase 18 (records): a profiled DreamerV3-S run with the model registry
+# asked for (learning from policy step 256 of 4 envs: 2 iterations of 4
+# gradient steps), the report tools on the earlier phases' runs, a 2-trial
+# search over JEPA-XS through the kernel (each trial 65 iterations, the last
+# 2 training), and ``registration`` refusing without mlflow.  A whole-run
+# trace holds every op of the run (431 MiB for 12 DV3-S gradient steps), so
+# the run is kept this short
+RECORDS_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.capture_video=False", "run_name=chip_smoke_records",
+                     "model_manager=dreamer_v3",
+                     "algo.learning_starts=256", "algo.total_steps=260", "buffer.size=1024",
+                     "checkpoint.every=100000", "checkpoint.save_last=False", "metric.logger=null", "seed=5",
+                     "metric.profiler.enabled=True", "model_manager.disabled=False"]
+RECORDS_REPORTS = ("journal", "health", "goodput", "memory", "trace", "dataset")
+RECORDS_SEARCH = ["--exp=dreamer_v3_jepa_xs", "--env=dummy", "--n-trials=2", "--sampler=random", "--scheduler=asha",
+                  "--rungs=1", "--fidelity-frac=1.0", "--full-steps=260", "--override=algo.learning_starts=256",
+                  "--override=buffer.size=1024", "--override=metric.logger=null", "--override=env.capture_video=False"]
+# a report tool's subprocess: the tool run as ``python -m``, then the modules
+# it left loaded that a reader must not need
+_REPORT_RUNNER = """
+import runpy, sys
+module = sys.argv.pop(1)
+code = 0
+try:
+    runpy.run_module(module, run_name="__main__", alter_sys=True)
+except SystemExit as exit_:
+    code = exit_.code or 0
+leaked = sorted({m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "flax", "sheeprl_tpu", "torch"})
+print("[leaked] " + " ".join(leaked), file=sys.stderr)
+sys.exit(code)
+"""
 
 
 def _card_line() -> str:
@@ -1435,6 +1480,201 @@ def run_train(build_dir: Path, device_name: str = "cuda") -> dict:
     }
 
 
+def _report(tool: str, *args: str) -> str:
+    """``python -m sheeprl_tpu_torch.tools.<tool> args`` in a subprocess:
+    its stdout; it must exit 0 and leave no JAX, ``sheeprl_tpu`` or torch
+    module loaded."""
+    proc = subprocess.run([sys.executable, "-c", _REPORT_RUNNER, f"sheeprl_tpu_torch.tools.{tool}", *args],
+                          cwd=str(ROOT), capture_output=True, text=True, timeout=300)
+    leaked = [line for line in proc.stderr.splitlines() if line.startswith("[leaked]")]
+    if proc.returncode != 0 or leaked != ["[leaked] "]:
+        raise AssertionError(f"{tool} {' '.join(args)} exited {proc.returncode}, loaded {leaked}: "
+                             f"{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def run_records(build_dir: Path, train: dict, drill: dict, ops: dict, offline_export: Path, timers: dict,
+                device_name: str = "cuda") -> dict:
+    """Phase 18: a run's records and registries.  (a) ``run`` at
+    DreamerV3-S with ``metric.profiler.enabled=True`` and
+    ``model_manager.disabled=False``: without mlflow the run warns and
+    disables the registry as the JAX ``check_configs`` does, and trains; its
+    Chrome trace parses and holds exactly as many LayerNorm-GRU kernel events
+    as the launch counter counted; each gradient step's stream time between
+    CUDA events (the profiler's overhead beside phase 17's unprofiled step).
+    (b) the six report tools, each ``python -m sheeprl_tpu_torch.tools.*``
+    with no JAX, ``sheeprl_tpu`` or torch loaded, on phase 5's run dir (the
+    journal, health, goodput and memory reports), phase 9's ``trace.json``
+    and phase 4b's ``trace_serve.json`` (trace), phase 8b's export
+    (dataset) and phase 4b's serving journal (journal): the journal report's
+    last step is the run's last logged step and its CSV one row a
+    ``metrics`` event.  (c) ``python -m sheeprl_tpu_torch.tools.search`` (as
+    its ``main``, in this process, so that the launch counter is read
+    around each trial) over JEPA-XS, 2 random trials under ASHA: both
+    ``COMPLETE`` with finite returns, no ``error.txt``, the kernel launched
+    in each trial as its counters predict, the study's four files written.
+    (d) ``registration`` of phase 5's last checkpoint raises
+    ``ModuleNotFoundError`` without mlflow."""
+    import csv
+    import math
+    import warnings
+
+    import torch
+    import yaml
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3 as dv3
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.diagnostics.journal import read_journal
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.tools import search
+
+    root = (build_dir / "records").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    trace_dir = root / "profiler_trace"
+    out: dict = {}
+
+    # (a) the profiled run
+    t0 = time.monotonic()
+    overrides = RECORDS_OVERRIDES + [f"root_dir={root / 'train'}", f"metric.profiler.trace_dir={trace_dir}",
+                                     f"fabric.accelerator={device_name}"]
+    cfg = compose(overrides)
+    _dv3_s_widths(cfg)
+    stream_ms = []
+    make_train_step = dv3.make_train_step
+
+    def timed_make_train_step(*args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+
+        def timed(*a, **k):
+            if device_name == "cpu":
+                return step(*a, **k)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            result = step(*a, **k)
+            end.record()
+            torch.cuda.synchronize()
+            stream_ms.append(start.elapsed_time(end))
+            return result
+
+        timed.__dict__.update(step.__dict__)
+        return timed
+
+    with warnings.catch_warnings(record=True) as caught, mock.patch.object(dv3, "make_train_step",
+                                                                           timed_make_train_step):
+        warnings.simplefilter("always")
+        fused_layernorm_gru.launches = 0  # the main path starts here
+        run = cli.run(overrides)
+        if device_name != "cpu":
+            torch.cuda.synchronize()
+        launches = fused_layernorm_gru.launches  # the main path ends here
+    gate = [str(w.message) for w in caught if issubclass(w.category, UserWarning)
+            and "MLFlow is not installed; setting model_manager.disabled=True" in str(w.message)]
+    archived = yaml.safe_load((Path(run["log_dir"]) / "config.yaml").read_text())
+    if len(gate) != 1 or archived["model_manager"]["disabled"] is not True:
+        raise AssertionError(f"records: the model-manager gate warned {gate}, archived model_manager "
+                             f"{archived['model_manager']}")
+    predicted, per_step = _launches(cfg, run)
+    if run["gradient_steps"] < 4 or launches != predicted or not all(map(math.isfinite, run["metric_rows"].ravel())):
+        raise AssertionError(f"records: {run['gradient_steps']} gradient steps, {launches} ln_gru launches "
+                             f"(predicted {predicted})")
+    (trace_path,) = sorted(trace_dir.glob("*.pt.trace.json"))
+    t_parse = time.monotonic()
+    with open(trace_path) as fp:
+        events = json.load(fp)["traceEvents"]
+    parse_s = time.monotonic() - t_parse
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    traced = sum(1 for e in kernels if "ln_gru_kernel" in e.get("name", ""))
+    if device_name != "cpu" and traced != launches:
+        raise AssertionError(f"records: the trace holds {traced} ln_gru_kernel events, the counter {launches}")
+    out.update(profiled={
+        "gradient_steps": run["gradient_steps"], "player_steps": run["player_steps"],
+        "test_steps": run["test_steps"], "ln_gru_launches": launches, "predicted": predicted,
+        "launches_per_gradient_step": per_step, "trace_kernel_events": len(kernels), "trace_ln_gru_events": traced,
+        "trace_events": len(events), "trace_mb": trace_path.stat().st_size / 2**20, "trace_parse_s": parse_s,
+        "step_ms": statistics.median(stream_ms) if stream_ms else None, "stream_ms": stream_ms,
+        "unprofiled_step_ms": {k: timers[k]["step_ms"] for k in ("fp32_off_0", "fp32_diagnostics_1") if k in timers},
+        "seconds": time.monotonic() - t0,
+    })
+    del events, kernels
+
+    # (b) the reports, on the earlier phases' runs
+    t0 = time.monotonic()
+    run_dir = Path(train["checkpoint"]).parent.parent
+    summary = json.loads(_report("journal_report", str(run_dir), "--json"))
+    history = root / "journal.csv"
+    _report("journal_report", str(run_dir), "--csv", str(history))
+    journal = read_journal(str(run_dir / "journal.jsonl"))
+    metrics_events = [e for e in journal if e.get("event") == "metrics"]
+    with open(history, newline="") as fp:
+        csv_rows = list(csv.DictReader(fp))
+    if summary.get("last_step") != train["policy_steps"] or len(csv_rows) != len(metrics_events):
+        raise AssertionError(f"journal_report: last step {summary.get('last_step')} for a run that logged last at "
+                             f"{train['policy_steps']}; {len(csv_rows)} CSV rows for {len(metrics_events)} metrics "
+                             f"events")
+    reports = {
+        "journal": _report("journal_report", str(run_dir)),
+        "health": _report("health_report", str(run_dir)),
+        "goodput": _report("goodput_report", str(run_dir)),
+        "memory": _report("memory_report", str(run_dir)),
+        "trace": _report("trace_report", str(Path(drill["run_dir"]) / "trace.json")),
+        "trace_serve": _report("trace_report", str(Path(ops["log_dir"]) / "trace_serve.json")),
+        "dataset": _report("dataset_report", str(offline_export)),
+        "serve_journal": _report("journal_report", str(ops["log_dir"])),
+    }
+    empty = [name for name, text in reports.items() if not text.strip()]
+    if empty:
+        raise AssertionError(f"records: empty reports {empty}")
+    out.update(reports={k: len(v.splitlines()) for k, v in reports.items()}, journal_last_step=summary["last_step"],
+               csv_rows=len(csv_rows), reports_s=time.monotonic() - t0)
+
+    # (c) the search: trials in this process, through the kernel
+    t0 = time.monotonic()
+    trials = []
+    run_fn = cli.run
+
+    def counted_run(args):
+        trial_cfg = compose(list(args))
+        fused_layernorm_gru.launches = 0  # a trial's main path starts here
+        result = run_fn(args)
+        if device_name != "cpu":
+            torch.cuda.synchronize()
+        trial_launches = fused_layernorm_gru.launches  # and ends here
+        trials.append({"launches": trial_launches, "predicted": _launches(trial_cfg, result)[0],
+                       "gradient_steps": result["gradient_steps"], "test_reward": result["test_reward"],
+                       "widths": (trial_cfg.algo.world_model.recurrent_model.recurrent_state_size,
+                                  trial_cfg.algo.per_rank_batch_size,
+                                  trial_cfg.algo.per_rank_batch_size * trial_cfg.algo.per_rank_sequence_length)})
+        return result
+
+    study = root / "search"
+    with mock.patch.object(cli, "run", counted_run):
+        search.main(RECORDS_SEARCH + [f"--output-dir={study}", f"--override=fabric.accelerator={device_name}"])
+    with open(study / "results.csv", newline="") as fp:
+        results = list(csv.DictReader(fp))
+    errors = sorted(str(p) for p in study.rglob("error.txt"))
+    missing = [f for f in ("results.csv", "topk.json", "best_config.yaml", "SUMMARY.md") if not (study / f).exists()]
+    if (len(results) != 2 or any(r["state"] != "COMPLETE" or not math.isfinite(float(r["eval_return"]))
+                                 for r in results) or errors or missing or len(trials) != 2
+            or any(t["launches"] == 0 or t["launches"] != t["predicted"] or t["gradient_steps"] == 0
+                   for t in trials)):
+        raise AssertionError(f"records: search results {results}, errors {errors}, missing {missing}, trials "
+                             f"{trials}")
+    out.update(search={"trials": trials, "results": [{k: r[k] for k in ("trial_id", "state", "eval_return")}
+                                                     for r in results]}, search_s=time.monotonic() - t0)
+
+    # (d) registration refuses without mlflow
+    proc = subprocess.run([sys.executable, "-m", "sheeprl_tpu_torch", "registration",
+                           f"checkpoint_path={train['checkpoint']}"], cwd=str(ROOT), capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode == 0 or "ModuleNotFoundError: mlflow is not installed" not in proc.stderr:
+        raise AssertionError(f"registration exited {proc.returncode}: {proc.stderr[-2000:]}")
+    out["registration"] = proc.stderr.strip().splitlines()[-1]
+    shutil.rmtree(root / "train", ignore_errors=True)
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    return out
+
+
 def _moment_rel(kernel: dict, plain: dict) -> dict:
     return {k: ((kernel[k] - plain[k]).norm() / plain[k].norm().clamp_min(1e-30)).item() for k in plain}
 
@@ -1756,6 +1996,7 @@ def run_drill(build_dir: Path, device_name: str = "cuda") -> dict:
         "ln_gru_launches": launches,
         "launches_per_gradient_step": per_step,
         "resume_mfu": resumed_journal["mfu"],
+        "run_dir": str(run_dir),
     }
 
 
@@ -4110,7 +4351,6 @@ def main() -> int:
           f"{json.dumps(offline['chunked_final_metrics'])}; Time/sps_train {offline['chunked_sps_train']}  [{card}]",
           flush=True)
     shutil.rmtree(build_dir / "offline", ignore_errors=True)
-    shutil.rmtree(build_dir / "offline_export", ignore_errors=True)
 
     mark('offline dv3')
     drill = run_drill(build_dir)
@@ -4558,6 +4798,32 @@ def main() -> int:
           flush=True)
 
     mark('flops')
+    records = run_records(build_dir, train, drill, ops, build_dir / "offline_export", timers)
+    shutil.rmtree(build_dir / "offline_export", ignore_errors=True)
+    prof = records["profiled"]
+    print(f"[records] DreamerV3-S run metric.profiler.enabled=True model_manager.disabled=False (batch 16 x 64, "
+          f"horizon 15, fp32): without mlflow the registry warned and was disabled, as the JAX check_configs does; "
+          f"{prof['gradient_steps']} gradient steps, {prof['player_steps']} player steps, {prof['test_steps']} test "
+          f"steps, {prof['ln_gru_launches']} ln_gru launches = predicted ({prof['launches_per_gradient_step']} per "
+          f"gradient step) = {prof['trace_ln_gru_events']} ln_gru_kernel events in its Chrome trace "
+          f"({prof['trace_events']} events, {prof['trace_kernel_events']} kernels, {prof['trace_mb']:.1f} MiB, parsed "
+          f"in {prof['trace_parse_s']:.1f} s); the run took {prof['seconds']:.1f} s  [{card}]", flush=True)
+    print(f"[records] profiler overhead: gradient step's median stream time {prof['step_ms']:.3f} ms profiled (CUDA "
+          f"events around each of its {len(prof['stream_ms'])} steps, synchronized) against phase 17's unprofiled "
+          f"{json.dumps({k: round(v, 3) for k, v in prof['unprofiled_step_ms'].items()})} ms; every step "
+          f"{[round(v, 3) for v in prof['stream_ms']]}  [{card}]", flush=True)
+    print(f"[records] python -m sheeprl_tpu_torch.tools.*_report, each with no jax, sheeprl_tpu or torch loaded: "
+          f"lines {json.dumps(records['reports'])}; journal_report's last step {records['journal_last_step']} = the "
+          f"run's, its CSV {records['csv_rows']} rows = its metrics events; {records['reports_s']:.1f} s  [{card}]",
+          flush=True)
+    print(f"[records] python -m sheeprl_tpu_torch.tools.search {' '.join(RECORDS_SEARCH)}: "
+          f"{json.dumps(records['search']['results'])}, no error.txt; ln_gru launches by trial "
+          f"{[t['launches'] for t in records['search']['trials']]} = predicted, gradient steps "
+          f"{[t['gradient_steps'] for t in records['search']['trials']]}, widths (H, B, T*B) "
+          f"{records['search']['trials'][0]['widths']}; {records['search_s']:.1f} s  [{card}]", flush=True)
+    print(f"[records] registration without mlflow refused: {records['registration']}  [{card}]", flush=True)
+
+    mark('records')
     # the kernels line: the kernel at the shape the main paths gave it most
     # (the serving dispatch width or the dynamic scan's B=16), and every case
     # it was held at
@@ -4583,7 +4849,9 @@ def main() -> int:
                **{f"{name}_offline": row["launches"] for name, row in offline_sac.items()},
                **{f"p2e_dv{v}{suffix}": r[part]["ln_gru_launches"] for v, r in p2e_dv.items()
                   for suffix, part in (("", "run"), ("_resume", "resume"), ("_finetuning", "finetune"),
-                                       ("_eval", "eval"))}}
+                                       ("_eval", "eval"))},
+               "records": records["profiled"]["ln_gru_launches"],
+               **{f"records_search_{i}": t["launches"] for i, t in enumerate(records["search"]["trials"])}}
     case_keys = ("B", "K", "H", "dtype", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms", "bound_ms", "bound_by")
     kernels = [{
         "name": "ln_gru",
@@ -4602,7 +4870,7 @@ def main() -> int:
         "shape": {"B": main["B"], "K": main["K"], "H": main["H"], "dtype": main["dtype"]},
         "cases": [{k: c[k] for k in case_keys} for c in cases],
         "phase": "kernel+slice+serve-ops+train+chunked+resume+eval+offline+drill+jepa+p2e+sac+droq+sac_ae+offline_sac"
-                 "+offline_droq+bf16+dv2+dv1+ppo_recurrent+p2e_dv2+p2e_dv1",
+                 "+offline_droq+bf16+dv2+dv1+ppo_recurrent+p2e_dv2+p2e_dv1+records",
     }]
     mark("kernels line")
     print(f"[timing] wall seconds by group of phases: "

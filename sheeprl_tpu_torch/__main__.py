@@ -1,5 +1,5 @@
 """``python -m sheeprl_tpu_torch run exp=... | eval checkpoint_path=... | serve checkpoint_path=... |
-export <run dir>``."""
+registration checkpoint_path=... | export <run dir>``."""
 
 import sys
 
@@ -13,6 +13,8 @@ USAGE = (
     "[dotted.key=value ...]\n"
     "       python -m sheeprl_tpu_torch serve checkpoint_path=<run>/checkpoint/ckpt_<step>_<rank>.ckpt "
     "[dotted.key=value ...]\n"
+    "       python -m sheeprl_tpu_torch registration checkpoint_path=<run>/checkpoint/ckpt_<step>_<rank>.ckpt "
+    "[dotted.key=value ...]\n"
     "       python -m sheeprl_tpu_torch export <run dir> [--out <dataset dir>] [--shard-rows N]"
 )
 
@@ -23,9 +25,9 @@ if __name__ == "__main__":
         from sheeprl_tpu_torch.offline.export import main as export_main
 
         sys.exit(export_main(sys.argv[2:]))
-    from sheeprl_tpu_torch.cli import evaluation, run, serve
+    from sheeprl_tpu_torch.cli import evaluation, registration, run, serve
 
-    commands = {"run": run, "eval": evaluation, "serve": serve}
+    commands = {"run": run, "eval": evaluation, "serve": serve, "registration": registration}
     if len(sys.argv) < 2 or sys.argv[1] not in commands:
         sys.exit(USAGE)
     result = commands[sys.argv[1]](sys.argv[2:])

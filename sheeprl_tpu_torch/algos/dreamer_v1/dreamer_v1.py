@@ -195,4 +195,5 @@ def main(runtime, cfg) -> Dict[str, Any]:
     gradient steps taken after the env step's rows reached the replay, as
     the JAX loop takes them."""
     return _dreamer_main(runtime, cfg, build_dreamer_v1_agent, make_train_step,
-                         unported_fn=lambda c: unported_options(c, "dreamer_v1"), train_after_env_step=True)
+                         unported_fn=lambda c: unported_options(c, "dreamer_v1"), train_after_env_step=True,
+                         register_models=False)

@@ -218,9 +218,10 @@ def make_train_step(agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, is
 
 
 def unported_options(cfg, name: str) -> List[str]:
-    """What the DreamerV1/V2 loops refuse: ``skip_update``, which their JAX
-    steps do not apply.  The JAX loops read no ``offline``,
-    ``model_manager`` or ``profiler``, so neither do these."""
+    """What the DreamerV1/V2 loops (and Plan2Explore's on them) refuse:
+    ``skip_update``, which their JAX steps do not apply.  The JAX DreamerV1
+    and V2 loops read ``model_manager`` and register nothing, and so do
+    these (``_dreamer_main``'s ``register_models``)."""
     if sentinel_spec(cfg).skip_update:
         return [f"diagnostics.sentinel.policy=skip_update for {name} (its JAX step applies no selection)"]
     return []
@@ -241,4 +242,4 @@ def main(runtime, cfg) -> Dict[str, Any]:
     ``gradient_steps`` an older port checkpoint holds is not read."""
     return _dreamer_main(runtime, cfg, build_dreamer_v2_agent, make_train_step,
                          unported_fn=lambda c: unported_options(c, "dreamer_v2"), buffer_types=("sequential", "episode"),
-                         train_after_env_step=True)
+                         train_after_env_step=True, register_models=False)

@@ -532,20 +532,6 @@ def load_learner_state(state: Dict[str, Any], agent: Agent, optimizers: Dict[str
     return restore(agent.initial_moments(device), state["moments"], "")
 
 
-def _unported_options(cfg) -> List[str]:
-    """The options this loop reads and does not run (ROADMAP.md Queue 1);
-    the runtime (devices) and the actor (its other distributions) refuse
-    theirs where they are built, before the loop starts.  An offline run
-    never reaches the loop: ``cli.run_algorithm`` routes it to
-    ``offline/train.py``, and ``envs/env.py`` builds no env for it."""
-    out = []
-    if not cfg.model_manager.get("disabled", True):
-        out.append("model_manager.disabled=False (model registry)")
-    if cfg.metric.get("profiler", {}).get("enabled", False):
-        out.append("metric.profiler.enabled=True")
-    return out
-
-
 def target_tau(cfg, gradient_steps: int) -> float:
     """The target critic's Polyak coefficient before gradient step
     ``gradient_steps`` (counted from 0 in every run): 1 at the first, the
@@ -576,9 +562,9 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
                   load_agent_state_fn: Optional[Callable[[Any, Any], Dict[str, Any]]] = None,
                   player_actor_fn: Optional[Callable[[bool], str]] = None,
                   final_test_fn: Optional[Callable[..., Tuple[float, int]]] = None,
-                  unported_fn: Callable[[Any], List[str]] = None,
+                  unported_fn: Optional[Callable[[Any], List[str]]] = None,
                   buffer_types: Sequence[str] = ("sequential",),
-                  train_after_env_step: bool = False) -> Dict[str, Any]:
+                  train_after_env_step: bool = False, register_models: bool = True) -> Dict[str, Any]:
     """The DreamerV3 family's loop (the JAX package's ``_dreamer_main``):
     prefill with random actions, then per iteration a policy step of every
     env, a replay write, the gradient steps the replay ratio owes, logging
@@ -601,13 +587,17 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     player acts with, given whether a gradient step has run (``"actor"``);
     ``final_test_fn(player, agent, cfg, log_dir, generator)``, the test
     episode at the end (the player's actor once trained, sampled);
-    ``unported_fn(cfg)``, the options the family refuses (DreamerV3's
-    ``_unported_options``); ``buffer_types``, the ``buffer.type`` values the
+    ``unported_fn(cfg)``, the options the family refuses (DreamerV3 refuses
+    none here: the runtime and the actor refuse theirs where they are
+    built); ``buffer_types``, the ``buffer.type`` values the
     family reads (DreamerV3 samples sequentially and reads none; DreamerV2
     also has the ``episode`` buffer); ``train_after_env_step``, whether the
     iteration's gradient steps run after the env step's results, its reset
     rows and the player's re-initialisation (the JAX DreamerV1 and V2 loops'
-    order) rather than while the envs step (DreamerV3's).  The counter that
+    order) rather than while the envs step (DreamerV3's);
+    ``register_models``, whether a run with ``model_manager.disabled=False``
+    registers the agent's trees with MLflow at its end (the JAX DreamerV1
+    and V2 loops do not).  The counter that
     times the target critic's update starts at 0 in every run, resumed or
     not, as in every JAX loop of the family.
 
@@ -626,7 +616,7 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     from sheeprl_tpu_torch.utils.timer import timer
     from sheeprl_tpu_torch.utils.utils import Ratio, get_diagnostics, save_configs
 
-    unported = (unported_fn or _unported_options)(cfg)
+    unported = unported_fn(cfg) if unported_fn is not None else []
     if unported:
         raise NotImplementedError(f"not ported yet (see ROADMAP.md Queue 1): {'; '.join(unported)}")
     buffer_type = str(cfg.buffer.get("type") or "sequential").lower() if len(buffer_types) > 1 else buffer_types[0]
@@ -993,6 +983,10 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
         else:
             test_reward, test_steps = final_test_fn(player, agent, cfg, log_dir, generator)
         logger.log_metrics({"Test/cumulative_reward": test_reward}, policy_step_count)
+    if register_models and not cfg.model_manager.get("disabled", True):
+        from sheeprl_tpu_torch.utils.mlflow import log_models
+
+        log_models(cfg, agent.trees(), log_dir)
     logger.finalize()
     diag.close("completed")
     rows = np.asarray(metric_rows, np.float32).reshape(-1, len(metric_order) + len(health_out))

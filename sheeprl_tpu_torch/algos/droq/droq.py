@@ -137,6 +137,7 @@ class DroQFamily(SACFamily):
     metric_order = METRIC_ORDER
     pipelined = False
     skip_update = False
+    registers_models = False
 
     def build(self, cfg, obs_space, action_space, state, device):
         return build_agent(cfg, obs_space, action_space, state["agent"] if state else None, device)

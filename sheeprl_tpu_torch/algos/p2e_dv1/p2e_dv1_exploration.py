@@ -28,13 +28,13 @@ from typing import Any, Dict, Optional
 import torch
 
 from sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1 import Imagination, make_world_model_loss
+from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import unported_options
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _dreamer_main, frozen, make_update
 from sheeprl_tpu_torch.algos.p2e_dv1.agent import P2EDV1Agent, build_agent  # noqa: F401  (the family's builder)
 from sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_exploration import (
     METRIC_ORDER,
     ensemble_loss,
     intrinsic_reward,
-    p2e_unported_options,
 )
 from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import _zero_shot_test
 from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
@@ -139,4 +139,4 @@ def main(runtime, cfg) -> Dict[str, Any]:
     cfg.algo.player.actor_type = "exploration"
     return _dreamer_main(runtime, cfg, build_agent, make_train_step,
                          player_actor_fn=lambda has_trained: "actor_exploration", final_test_fn=_zero_shot_test,
-                         unported_fn=lambda c: p2e_unported_options(c, "p2e_dv1_exploration"))
+                         unported_fn=lambda c: unported_options(c, "p2e_dv1_exploration"))

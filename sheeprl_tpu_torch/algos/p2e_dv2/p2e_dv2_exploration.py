@@ -29,19 +29,13 @@ stats and applies no ``skip_update`` selection, as the JAX step does not:
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, Optional
 
 import torch
 
 from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import Imagination, make_world_model_loss, unported_options
 from sheeprl_tpu_torch.algos.dreamer_v2.loss import normal_log_prob
-from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import (
-    _dreamer_main,
-    _unported_options,
-    frozen,
-    make_update,
-    polyak,
-)
+from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _dreamer_main, frozen, make_update, polyak
 from sheeprl_tpu_torch.algos.p2e_dv2.agent import P2EDV2Agent, build_agent  # noqa: F401  (the family's builder)
 from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import _zero_shot_test
 from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
@@ -196,13 +190,6 @@ def make_train_step(agent: P2EDV2Agent, optimizers: Dict[str, torch.optim.Optimi
     return train_step
 
 
-def p2e_unported_options(cfg, name: str) -> List[str]:
-    """What the Plan2Explore-DV1/V2 loops refuse: DreamerV3's loop's
-    options (offline, the model registry, the profiler) and
-    ``skip_update``, which their JAX steps do not apply."""
-    return _unported_options(cfg) + unported_options(cfg, name)
-
-
 @register_algorithm()
 def main(runtime, cfg) -> Dict[str, Any]:
     """The exploration loop: DreamerV3's (``_dreamer_main``) with the
@@ -212,4 +199,4 @@ def main(runtime, cfg) -> Dict[str, Any]:
     cfg.algo.player.actor_type = "exploration"
     return _dreamer_main(runtime, cfg, build_agent, make_train_step,
                          player_actor_fn=lambda has_trained: "actor_exploration", final_test_fn=_zero_shot_test,
-                         unported_fn=lambda c: p2e_unported_options(c, "p2e_dv2_exploration"))
+                         unported_fn=lambda c: unported_options(c, "p2e_dv2_exploration"))

@@ -22,10 +22,9 @@ from typing import Any, Dict, Mapping, NamedTuple, Optional, Sequence
 import torch
 
 from sheeprl_tpu_torch.algos.dreamer_v2.agent import DV2Agent, build_agent as build_dv2_agent, make_actor
-from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import make_train_step
+from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import make_train_step, unported_options
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import Actor, Agent, Critic, WorldModel, init_weights
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _dreamer_main
-from sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_exploration import p2e_unported_options
 from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_finetuning import (
     apply_exploration_cfg,
     finetuning_optimizer_spec,
@@ -84,5 +83,5 @@ def main(runtime, cfg) -> Dict[str, Any]:
         runtime, cfg, build_agent, make_train_step,
         load_agent_state_fn=lambda runtime, cfg: finetuning_state(runtime.load(cfg.checkpoint.exploration_ckpt_path)),
         player_actor_fn=player_actor(cfg),
-        unported_fn=lambda c: p2e_unported_options(c, "p2e_dv2_finetuning"),
+        unported_fn=lambda c: unported_options(c, "p2e_dv2_finetuning"),
     )

@@ -266,15 +266,6 @@ def rollout_data(agent: PPOAgent, rb, obs: Dict[str, np.ndarray], stage, cfg, de
     }
 
 
-def _unported_options(cfg) -> List[str]:
-    out = []
-    if not cfg.model_manager.get("disabled", True):
-        out.append("model_manager.disabled=False (model registry)")
-    if cfg.metric.get("profiler", {}).get("enabled", False):
-        out.append("metric.profiler.enabled=True")
-    return out
-
-
 def _minibatches(cfg) -> int:
     """The rollout's minibatches of ``algo.per_rank_batch_size`` rows."""
     batch_size = cfg.algo.per_rank_batch_size
@@ -326,8 +317,12 @@ class OnPolicyFamily:
     on-policy families: PPO's (and A2C's) here; recurrent PPO overrides them
     (``algos/ppo_recurrent/ppo_recurrent.py``)."""
 
+    #: whether a run with ``model_manager.disabled=False`` registers the
+    #: agent with MLflow at its end, as the JAX PPO and A2C loops do
+    registers_models = True
+
     def unported(self, cfg) -> List[str]:
-        return _unported_options(cfg)
+        return []
 
     def buffer_size(self, cfg) -> int:
         return int(cfg.buffer.size)
@@ -528,6 +523,10 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn,
         agent.eval()
         test_reward = family.test(agent, make_env(cfg, cfg.seed, 0, log_dir, "test")(), cfg, device, stager)
         logger.log_metrics({"Test/cumulative_reward": test_reward}, policy_step_count)
+    if family.registers_models and not cfg.model_manager.get("disabled", True):
+        from sheeprl_tpu_torch.utils.mlflow import log_models
+
+        log_models(cfg, {"agent": family.to_flax(agent)}, log_dir)
     logger.finalize()
     diag.close("completed")
     rows = np.asarray(metric_rows, np.float32).reshape(-1, n_losses + 1 + len(health_out))

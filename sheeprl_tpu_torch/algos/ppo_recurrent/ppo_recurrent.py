@@ -157,6 +157,8 @@ class RecurrentFamily(OnPolicyFamily):
     """Recurrent PPO's parts of PPO's loop: the rollout carrying the LSTM
     state across iterations, the sequence data, the flax tree, the test."""
 
+    registers_models = False  # the JAX loop registers nothing
+
     def __init__(self):
         self.carry = None  # (hx, cx, prev_actions) on the device, prev_dones on the host
 

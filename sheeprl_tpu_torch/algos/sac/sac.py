@@ -212,16 +212,12 @@ def make_train_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer
 
 
 def unported_options(cfg, name: str, skip_update: bool = True) -> List[str]:
-    """The options an off-policy loop reads and does not act on; with
-    ``skip_update=False`` also ``diagnostics.sentinel.policy=skip_update``
-    (the JAX DroQ and SAC-AE steps apply no selection).  An offline run
-    never reaches the loop (``cli.run_algorithm`` routes it to
+    """The options an off-policy loop reads and does not act on: with
+    ``skip_update=False``, ``diagnostics.sentinel.policy=skip_update`` (the
+    JAX DroQ and SAC-AE steps apply no selection).  An offline run never
+    reaches the loop (``cli.run_algorithm`` routes it to
     ``offline/train.py``)."""
     out = []
-    if not cfg.model_manager.get("disabled", True):
-        out.append("model_manager.disabled=False (model registry)")
-    if cfg.metric.get("profiler", {}).get("enabled", False):
-        out.append("metric.profiler.enabled=True")
     if not skip_update and sentinel_spec(cfg).skip_update:
         out.append(f"diagnostics.sentinel.policy=skip_update for {name} (its JAX step applies no selection)")
     return out
@@ -238,6 +234,10 @@ class SACFamily:
     metric_order = METRIC_ORDER
     pipelined = True
     skip_update = True
+    #: whether a run with ``model_manager.disabled=False`` registers the
+    #: agent with MLflow at its end (the JAX SAC loop does; DroQ's and
+    #: SAC-AE's do not)
+    registers_models = True
 
     def __init__(self, cfg, obs_space, action_space, state, device):
         from sheeprl_tpu_torch.interop.flax_params import optimizer_state_dict
@@ -556,6 +556,10 @@ def off_policy_main(runtime, cfg, family_cls) -> Dict[str, Any]:
     if cfg.algo.run_test:
         test_reward = family.test(make_env(cfg, cfg.seed, 0, log_dir, "test")(), cfg)
         logger.log_metrics({"Test/cumulative_reward": test_reward}, policy_step_count)
+    if family.registers_models and not cfg.model_manager.get("disabled", True):
+        from sheeprl_tpu_torch.utils.mlflow import log_models
+
+        log_models(cfg, {"agent": family.trees()}, log_dir)
     logger.finalize()
     diag.close("completed")
     width = n_losses + 1 + len(health_out)

@@ -154,6 +154,7 @@ class SACAEFamily(SACFamily):
     metric_order = METRIC_ORDER
     pipelined = False
     skip_update = False
+    registers_models = False
 
     def __init__(self, cfg, obs_space, action_space, state, device):
         super().__init__(cfg, obs_space, action_space, state, device)

@@ -9,14 +9,19 @@ finetuning of ``p2e_dv2`` and ``p2e_dv1``, trains ``sac``, ``droq`` and
 ``buffer.export`` or ``python -m sheeprl_tpu_torch export`` wrote), and
 serves ``dreamer_v3``, ``ppo``, ``a2c``, ``sac`` and ``ppo_recurrent`` (as
 the JAX package does) with its operations: hot reload, more models, the
-request log, SLOs, ``/metrics`` and the trace.  Registering models with
-MLflow (``model_manager``) is still to port (ROADMAP.md Queue 1)."""
+request log, SLOs, ``/metrics`` and the trace.  ``registration``
+publishes a checkpoint's models to the MLflow registry; a run with
+``model_manager.disabled=False`` registers its models at its end where the
+JAX loop does, and ``metric.profiler.enabled=True`` traces the whole run
+with ``torch.profiler``."""
 
 from __future__ import annotations
 
+import contextlib
 import os
 import pathlib
 import sys
+import time
 import warnings
 from typing import Any, Dict, Optional, Sequence, Tuple
 
@@ -84,6 +89,13 @@ def serve(args: Optional[Sequence[str]] = None) -> None:
     serve_checkpoint(*serve_config(args))
 
 
+#: ``matmul_precision`` -> ``torch.set_float32_matmul_precision``'s value
+#: (None: torch's own, full fp32): the JAX names for fp32, TF32 and bf16
+#: products
+MATMUL_PRECISION = {"default": None, "highest": "highest", "float32": "highest", "high": "high",
+                    "tensorfloat32": "high", "bfloat16": "medium"}
+
+
 def check_configs(cfg: dotdict) -> None:
     """The checks of the JAX package's ``check_configs`` that a ported
     algorithm needs; options the port does not run raise where the
@@ -97,12 +109,29 @@ def check_configs(cfg: dotdict) -> None:
             "dreamer_v1, ppo_recurrent, p2e_dv2_exploration, p2e_dv2_finetuning, p2e_dv1_exploration, "
             "p2e_dv1_finetuning"
         )
+    if cfg.get("matmul_precision", "default") not in MATMUL_PRECISION:
+        raise ValueError(
+            f"Invalid 'matmul_precision' value {cfg.get('matmul_precision')!r}; "
+            "must be one of: default, high, highest, tensorfloat32, bfloat16, float32"
+        )
     if cfg.metric.log_level not in (0, 1):
         raise ValueError(f"metric.log_level must be 0 or 1, got {cfg.metric.log_level}")
     _check_offline(cfg)
     learning_starts = cfg.algo.get("learning_starts")
     if learning_starts is not None and learning_starts < 0:
         raise ValueError("The `algo.learning_starts` parameter must be greater or equal to zero")
+    if cfg.env.get("action_repeat", 1) < 1:
+        warnings.warn(
+            f"env.action_repeat={cfg.env.action_repeat} is below the minimum of 1; clamping to 1",
+            UserWarning,
+        )
+        cfg.env.action_repeat = 1
+    if not cfg.model_manager.get("disabled", True):
+        from sheeprl_tpu_torch.utils.imports import _IS_MLFLOW_AVAILABLE
+
+        if not _IS_MLFLOW_AVAILABLE:
+            warnings.warn("MLFlow is not installed; setting model_manager.disabled=True", UserWarning)
+            cfg.model_manager.disabled = True
 
 
 def _check_offline(cfg: dotdict) -> None:
@@ -163,6 +192,10 @@ def run_algorithm(cfg: dotdict) -> Any:
     metrics_cfg = cfg.metric.aggregator.get("metrics", {})
     if keys is not None and isinstance(metrics_cfg, dict):
         cfg.metric.aggregator.metrics = dotdict({k: v for k, v in metrics_cfg.items() if k in keys})
+    models = getattr(algo_utils, "MODELS_TO_REGISTER", None)
+    mm = cfg.model_manager.get("models", {})
+    if models is not None and isinstance(mm, dict):
+        cfg.model_manager.models = dotdict({k: v for k, v in mm.items() if k in models})
     if (cfg.algo.get("offline") or {}).get("enabled"):
         from sheeprl_tpu_torch.offline.train import offline_main
 
@@ -178,6 +211,11 @@ def run_algorithm(cfg: dotdict) -> Any:
     diagnostics = runtime.diagnostics = build_diagnostics(cfg)
     status = "completed"
     try:
+        profiler_cfg = cfg.metric.get("profiler") or {}
+        if profiler_cfg.get("enabled", False):
+            trace_dir = profiler_cfg.get("trace_dir") or os.path.join("logs", "profiler_trace")
+            with whole_run_profile(str(trace_dir), runtime.device):
+                return runtime.launch(entrypoint, cfg)
         return runtime.launch(entrypoint, cfg)
     except SentinelHalt:
         status = "halted"
@@ -191,6 +229,31 @@ def run_algorithm(cfg: dotdict) -> Any:
         raise
     finally:
         diagnostics.close(status)
+
+
+@contextlib.contextmanager
+def whole_run_profile(trace_dir: str, device: torch.device):
+    """``metric.profiler.enabled=True``: one ``torch.profiler`` trace of the
+    host and (on the card) the device around the whole run, written as a
+    Chrome trace ``<trace_dir>/<time>_<pid>.pt.trace.json`` when the run
+    ends, however it ends.  It holds every event of the run in memory until
+    then, so it grows with the run.  The goodput watchdog's own captures
+    report ``busy`` meanwhile (``diagnostics/goodput.py::PROFILER_LOCK``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sheeprl_tpu_torch.diagnostics.goodput import PROFILER_LOCK
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    os.makedirs(trace_dir, exist_ok=True)
+    path = os.path.join(trace_dir, f"{time.strftime('%Y%m%d_%H%M%S')}_{os.getpid()}.pt.trace.json")
+    with PROFILER_LOCK:
+        prof = profile(activities=activities)
+        prof.start()
+        try:
+            yield path
+        finally:
+            prof.stop()
+            prof.export_chrome_trace(path)
 
 
 def resume_from_checkpoint(cfg: dotdict, overrides: Sequence[str] = ()) -> dotdict:
@@ -250,9 +313,18 @@ def run(args: Optional[Sequence[str]] = None) -> Any:
     unless ``fabric.accelerator=cpu``."""
     overrides = list(args if args is not None else sys.argv[1:])
     cfg = compose(overrides)
+    n_threads = cfg.get("num_threads")
+    if n_threads and int(n_threads) > 0:
+        # the host's thread budget: BLAS pools already running in this
+        # process keep theirs; the env workers it spawns read these
+        for var in ("OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS"):
+            os.environ.setdefault(var, str(int(n_threads)))
     if cfg.checkpoint.get("resume_from"):
         cfg = resume_from_checkpoint(cfg, overrides)
     check_configs(cfg)
+    precision = MATMUL_PRECISION[cfg.get("matmul_precision", "default")]
+    if precision is not None:
+        torch.set_float32_matmul_precision(precision)
     return run_algorithm(cfg)
 
 
@@ -311,3 +383,22 @@ def evaluation(args: Optional[Sequence[str]] = None) -> Any:
     })
     cfg.env.num_envs = 1
     return eval_algorithm(cfg)
+
+
+def registration(args: Optional[Sequence[str]] = None) -> None:
+    """``python -m sheeprl_tpu_torch registration checkpoint_path=...
+    [dotted.key=value ...]``: publish the models of a checkpoint (either
+    package's) that its archived ``model_manager.models`` names to the
+    MLflow registry.  Raises ``ModuleNotFoundError`` without mlflow, as the
+    JAX entry point does."""
+    flat = _dotted_overrides(list(args if args is not None else sys.argv[1:]))
+    ckpt = flat.pop("checkpoint_path", None)
+    if ckpt is None:
+        raise ValueError("You must specify the checkpoint path: checkpoint_path=...")
+    ckpt_path = pathlib.Path(ckpt)
+    cfg = _archived_config(ckpt_path)
+    deep_merge(cfg, dotdict(nest_dotted(flat)))
+    cfg.checkpoint_path = str(ckpt_path)
+    from sheeprl_tpu_torch.utils.mlflow import register_model_from_checkpoint
+
+    register_model_from_checkpoint(cfg)

@@ -316,6 +316,12 @@ def compose(overrides: Sequence[str] = ()) -> dotdict:
     # Dotted CLI overrides win over everything.
     for key, value in dotted.items():
         _set_dotted(cfg, key, value)
+    # `metric.logger=<option>` names an option of the logger group (the one
+    # metric's defaults list takes as `/logger@logger`): compose it there
+    # (the JAX package keeps the bare name, which its get_logger cannot build)
+    logger = (cfg.get("metric") or {}).get("logger")
+    if isinstance(logger, str) and (CONFIG_DIR / "logger" / f"{logger}.yaml").is_file():
+        cfg["metric"]["logger"] = _compose_group_file("logger", logger)
 
     cfg = resolve_interpolations(cfg)
     missing = _missing_keys(cfg)

@@ -35,6 +35,11 @@ from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple
 
 #: The run-state vocabulary, in gauge order: ``Telemetry/run_state`` exports
 #: the index into this tuple (5 = stalled), so dashboards can alert on it.
+#: held by whoever runs the process's torch profiler: a capture here, or
+#: ``metric.profiler``'s whole-run trace (``cli.run_algorithm``), during
+#: which every capture reports ``busy``
+PROFILER_LOCK = threading.Lock()
+
 STATES: Tuple[str, ...] = (
     "starting",
     "compiling",
@@ -119,7 +124,6 @@ class GoodputMonitor:
 
         self._clock = clock
         self._lock = threading.Lock()
-        self._profile_lock = threading.Lock()
         self._journal_fn: Optional[Callable[..., None]] = None
         self._sync_fn: Optional[Callable[[], None]] = None
         self._telemetry = None
@@ -428,7 +432,7 @@ class GoodputMonitor:
             return {"status": "disabled"}
         duration_ms = float(ms) if ms is not None else self.profile_max_ms
         duration_ms = min(max(10.0, duration_ms), self.profile_max_ms)
-        if not self._profile_lock.acquire(blocking=False):
+        if not PROFILER_LOCK.acquire(blocking=False):
             result: Dict[str, Any] = {"status": "busy"}
             self._journal("profile_capture", **result)
             return result
@@ -442,8 +446,8 @@ class GoodputMonitor:
                 if torch.cuda.is_available():
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
                 prof = torch.profiler.profile(activities=activities)
-                # a profiler already running (metric.profiler's whole-run
-                # trace) makes start raise: never fatal, and nothing to stop
+                # a profiler started elsewhere makes start raise: never
+                # fatal, and nothing to stop
                 prof.start()
             except Exception as err:
                 result = {"status": "failed", "error": repr(err)[:200]}
@@ -463,7 +467,7 @@ class GoodputMonitor:
                         pass
                     result = {"status": "failed", "error": repr(err)[:200]}
         finally:
-            self._profile_lock.release()
+            PROFILER_LOCK.release()
         self._journal("profile_capture", **result)
         return result
 

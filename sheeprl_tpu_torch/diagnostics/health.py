@@ -549,20 +549,3 @@ class HealthMonitor:
                 "health_anomalies": self._anomalies_total,
                 "health_anomalies_open": len(self._active),
             }
-
-
-def active_anomalies(events: List[Dict[str, Any]]) -> List[Dict[str, Any]]:
-    """Anomaly events without a matching ``anomaly_end`` (keyed kind+subject),
-    in firing order: what the serving tier's health gate reads from a
-    training run's journal before it promotes that run's checkpoint."""
-    open_by_key: Dict[Tuple[str, str], Dict[str, Any]] = {}
-    for event in events:
-        kind = event.get("event")
-        if kind not in ("anomaly", "anomaly_end"):
-            continue
-        key = (str(event.get("kind")), str(event.get("subject")))
-        if kind == "anomaly":
-            open_by_key[key] = event
-        else:
-            open_by_key.pop(key, None)
-    return sorted(open_by_key.values(), key=lambda e: e.get("t") or 0.0)

@@ -52,15 +52,6 @@ def offline_main(runtime, cfg) -> Dict[str, Any]:
 # shared scaffold
 
 
-def _unported(cfg) -> List[str]:
-    out = []
-    if not cfg.model_manager.get("disabled", True):
-        out.append("model_manager.disabled=False (model registry)")
-    if cfg.metric.get("profiler", {}).get("enabled", False):
-        out.append("metric.profiler.enabled=True")
-    return out
-
-
 def _open_run(runtime, cfg):
     """Logger, log dir, diagnostics and the verified dataset: the env-free
     replacement of every online loop's env and player preamble."""
@@ -70,9 +61,7 @@ def _open_run(runtime, cfg):
     from sheeprl_tpu_torch.utils.timer import timer
     from sheeprl_tpu_torch.utils.utils import get_diagnostics, save_configs
 
-    unported = _unported(cfg)
-    if unported:
-        raise NotImplementedError(f"not ported yet (see ROADMAP.md Queue 1): {'; '.join(unported)}")
+    # model_manager is read and registers nothing, as in the JAX offline loop
     offline = cfg.algo.get("offline") or {}
     logger = get_logger(runtime, cfg)
     log_dir = get_log_dir(runtime, cfg.root_dir, cfg.run_name)

@@ -18,7 +18,7 @@ the JAX package, ``dreamer_v3_jepa``, the P2E pair, ``droq``, ``sac_ae``,
 The health gate (:func:`checkpoint_health`) reads the training run's journal
 next to a candidate checkpoint (the ``version_N`` dir it lives under) and
 refuses promotion while a learning-health ``anomaly`` has no matching
-``anomaly_end`` (:func:`~sheeprl_tpu_torch.diagnostics.health.active_anomalies`).
+``anomaly_end`` (:func:`~sheeprl_tpu_torch.diagnostics.report.active_anomalies`).
 Standalone checkpoints without a journal are governed by
 ``serving.reload.allow_unjournaled``.
 """
@@ -94,7 +94,7 @@ def checkpoint_health(
         if allow_unjournaled:
             return True, "no training journal (allow_unjournaled)", []
         return False, "no training journal next to the checkpoint", []
-    from sheeprl_tpu_torch.diagnostics.health import active_anomalies
+    from sheeprl_tpu_torch.diagnostics.report import active_anomalies
     from sheeprl_tpu_torch.diagnostics.journal import read_journal
 
     open_anomalies = active_anomalies(read_journal(journal_path))

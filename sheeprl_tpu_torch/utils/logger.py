@@ -1,6 +1,8 @@
 """Run loggers and versioned log dirs (counterpart of
 ``sheeprl_tpu/utils/logger.py``).  TensorBoard is the default backend; W&B
-and MLflow are still to port (ROADMAP.md Queue 1).  :class:`JournalingLogger`
+(``metric.logger=wandb``) and MLflow (``metric.logger=mlflow``) are
+optional, each gated on its package being installed, and make the JAX
+package's calls on it in the same order.  :class:`JournalingLogger`
 mirrors every logged interval, with the ``Telemetry/*`` gauges merged in,
 into the diagnostics journal; unlike the JAX package it does so with
 ``metric.logger=null`` too, so a run without TensorBoard keeps its record."""
@@ -10,7 +12,7 @@ from __future__ import annotations
 import os
 from typing import Any, Dict, Optional
 
-_NOT_PORTED = "is not ported yet: see ROADMAP.md Queue 1; use the tensorboard logger or metric.logger=null"
+from sheeprl_tpu_torch.utils.imports import _IS_MLFLOW_AVAILABLE, _IS_WANDB_AVAILABLE
 
 
 class NoOpLogger:
@@ -52,13 +54,67 @@ class TensorBoardLogger(NoOpLogger):
 
 
 class WandbLogger(NoOpLogger):
-    def __init__(self, **_: Any):
-        raise NotImplementedError(f"the W&B logger {_NOT_PORTED}")
+    name = "wandb"
+
+    def __init__(self, project: str = "sheeprl_tpu", save_dir: str = ".", **kwargs: Any):
+        if not _IS_WANDB_AVAILABLE:
+            raise ModuleNotFoundError("wandb is not installed; use the tensorboard logger")
+        import wandb
+
+        self._run = wandb.init(project=project, dir=save_dir, **kwargs)
+        self.log_dir = save_dir
+
+    def log_metrics(self, metrics: Dict[str, Any], step: Optional[int] = None) -> None:
+        self._run.log(metrics, step=step)
+
+    def log_hyperparams(self, params: Dict[str, Any]) -> None:
+        self._run.config.update(_plain(params), allow_val_change=True)
+
+    def finalize(self, status: str = "success") -> None:
+        self._run.finish()
 
 
 class MLFlowLogger(NoOpLogger):
-    def __init__(self, **_: Any):
-        raise NotImplementedError(f"the MLflow logger {_NOT_PORTED}")
+    name = "mlflow"
+
+    def __init__(self, experiment_name: str = "sheeprl_tpu", tracking_uri: Optional[str] = None, **kwargs: Any):
+        if not _IS_MLFLOW_AVAILABLE:
+            raise ModuleNotFoundError("mlflow is not installed; use the tensorboard logger")
+        import mlflow
+
+        mlflow.set_tracking_uri(tracking_uri or os.environ.get("MLFLOW_TRACKING_URI"))
+        mlflow.set_experiment(experiment_name)
+        self._run = mlflow.start_run(**kwargs)
+
+    def log_metrics(self, metrics: Dict[str, Any], step: Optional[int] = None) -> None:
+        import mlflow
+
+        mlflow.log_metrics({k: float(v) for k, v in metrics.items()}, step=step)
+
+    def log_hyperparams(self, params: Dict[str, Any]) -> None:
+        """The config as MLflow params: nested keys joined by dots."""
+        import mlflow
+
+        flat: Dict[str, Any] = {}
+
+        def walk(node: Dict[str, Any], prefix: str = "") -> None:
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    walk(v, f"{prefix}{k}.")
+                else:
+                    flat[f"{prefix}{k}"] = v
+
+        walk(_plain(params))
+        mlflow.log_params(flat)
+
+    def finalize(self, status: str = "success") -> None:
+        import mlflow
+
+        mlflow.end_run()
+
+
+def _plain(params: Any) -> Any:
+    return params.as_dict() if hasattr(params, "as_dict") else params
 
 
 def get_log_dir(runtime, root_dir: str, run_name: str) -> str:

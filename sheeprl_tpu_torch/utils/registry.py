@@ -8,7 +8,8 @@ from __future__ import annotations
 import importlib
 from typing import Any, Callable, Dict, List, Optional
 
-#: module path -> [{name, entrypoint}]
+#: module path -> [{name, entrypoint, decoupled}]; the port has no decoupled
+#: (player/trainer) loop yet, so every entry says False
 algorithm_registry: Dict[str, List[Dict[str, Any]]] = {}
 evaluation_registry: Dict[str, List[Dict[str, Any]]] = {}
 #: the modules the port has; importing one registers it
@@ -37,7 +38,7 @@ PORTED_EVALUATION_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
 
 
 def _register(registry: Dict[str, List[Dict[str, Any]]], fn: Callable, name: str) -> Callable:
-    entry = {"name": name, "entrypoint": fn.__name__}
+    entry = {"name": name, "entrypoint": fn.__name__, "decoupled": False}
     registered = registry.setdefault(fn.__module__, [])
     if entry not in registered:
         registered.append(entry)
@@ -73,10 +74,10 @@ def _find(registry: Dict[str, List[Dict[str, Any]]], modules, name: str) -> Opti
 
 
 def find_algorithm(name: str) -> Optional[Dict[str, Any]]:
-    """``{module, name, entrypoint}`` of a ported algorithm, or None."""
+    """``{module, name, entrypoint, decoupled}`` of a ported algorithm, or None."""
     return _find(algorithm_registry, PORTED_ALGORITHM_MODULES, name)
 
 
 def find_evaluation(name: str) -> Optional[Dict[str, Any]]:
-    """``{module, name, entrypoint}`` of a ported evaluation, or None."""
+    """``{module, name, entrypoint, decoupled}`` of a ported evaluation, or None."""
     return _find(evaluation_registry, PORTED_EVALUATION_MODULES, name)

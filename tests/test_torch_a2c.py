@@ -343,8 +343,10 @@ def test_run_trains_logs_evaluates_and_refuses_what_it_does_not_port(port_run, t
         assert logged["Time/sps_env_interaction"] > 0 and logged["Time/sps_train"] > 0
         assert np.isfinite([logged[k] for k in ("Loss/policy_loss", "Loss/value_loss", "Grads/global_norm")]).all()
     assert np.isfinite(cli.evaluation([f"checkpoint_path={port_run['checkpoints'][-1]}", "fabric.accelerator=cpu"]))
-    with pytest.raises(NotImplementedError, match="metric.profiler.enabled"):
-        cli.run(RUN + ["metric.profiler.enabled=True", f"root_dir={tmp_path}"])
+    # ported: the whole run traced by torch.profiler (cli.run_algorithm)
+    cli.run(RUN + ["metric.profiler.enabled=True", f"metric.profiler.trace_dir={tmp_path / 'trace'}",
+                   f"root_dir={tmp_path}"])
+    assert len(list((tmp_path / "trace").glob("*.pt.trace.json"))) == 1
     with pytest.raises(ValueError, match="vector observations"):
         cli.run(RUN + ["algo.cnn_keys.encoder=[rgb]", f"root_dir={tmp_path}"])
 

@@ -312,5 +312,12 @@ def test_run_refuses_what_it_does_not_port(tmp_path, option):
         with pytest.raises(ValueError, match="needs finite action bounds"):
             cli.run(RUN + extra + [option, f"root_dir={tmp_path}"])
         return
+    if option == "metric.profiler.enabled=True":
+        # ported: cli.run_algorithm traces the whole run (tests/test_torch_records.py);
+        # the loop refuses only skip_update
+        from sheeprl_tpu_torch.algos.sac.sac import unported_options
+
+        assert unported_options(compose(RUN + [option]), "DroQ", skip_update=False) == []
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.run(RUN + extra + [option, f"root_dir={tmp_path}"])

@@ -628,10 +628,12 @@ def test_run_refuses_options_it_does_not_port(tmp_path, monkeypatch):
     # offline training is ported: routed to the offline loop, which needs a dataset
     with pytest.raises(ValueError, match="requires algo.offline.dataset_dir"):
         cli.run(RUN + ["algo.offline.enabled=True"])
-    with pytest.raises(NotImplementedError, match="model_manager"):
-        cli.run(RUN + ["model_manager.disabled=False"])
-    with pytest.raises(NotImplementedError, match="profiler"):
-        cli.run(RUN + ["metric.profiler.enabled=True"])
+    # ported: without mlflow check_configs warns and disables the registry, as
+    # the JAX one does; the profiler traces the run (tests/test_torch_records.py)
+    cfg = compose(RUN + ["model_manager.disabled=False", "metric.profiler.enabled=True"])
+    with pytest.warns(UserWarning, match="MLFlow is not installed; setting model_manager.disabled=True"):
+        cli.check_configs(cfg)
+    assert cfg.model_manager.disabled is True
     # DDP/FSDP, and with them the device ring over more than one device
     with pytest.raises(NotImplementedError, match="multi-device"):
         cli.run(RUN + ["fabric.devices=2", "buffer.device=True"])

@@ -264,3 +264,31 @@ def test_the_offline_modules_import_no_jax():
     usage = subprocess.run([sys.executable, "-m", "sheeprl_tpu_torch"], cwd=ROOT, env=_env(), capture_output=True,
                            text=True, timeout=120)
     assert usage.returncode != 0 and "sheeprl_tpu_torch export <run dir>" in usage.stderr
+
+
+_RECORDS_MODULES = {f"sheeprl_tpu_torch.tools.{tool}_report": True
+                    for tool in ("journal", "health", "goodput", "memory", "trace", "dataset")}
+_RECORDS_MODULES.update({"sheeprl_tpu_torch.diagnostics.report": True, "sheeprl_tpu_torch.tools.search": False,
+                         "sheeprl_tpu_torch.tools.recover_rewards": False,
+                         "sheeprl_tpu_torch.tools.analyze_rewards": False,
+                         "sheeprl_tpu_torch.available_agents": False, "sheeprl_tpu_torch.utils.mlflow": False,
+                         "sheeprl_tpu_torch.utils.imports": False, "sheeprl_tpu_torch.utils.logger": False})
+
+_IMPORT_ONE = """
+import importlib, sys
+importlib.import_module(sys.argv[1])
+print(sorted({m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "flax", "optax", "sheeprl_tpu", "torch"}))
+"""
+
+
+@pytest.mark.parametrize("module", sorted(_RECORDS_MODULES))
+def test_the_records_modules_import_no_jax_and_the_readers_no_torch(module):
+    """The run's readers (``diagnostics/report.py`` and the six report
+    tools) load neither JAX, nor the JAX package, nor torch: a run is read
+    where there is no CUDA or flax.  The registry, loggers, search and
+    reward tools load no JAX."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=ROOT, env=_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = eval(out.stdout.strip())
+    assert loaded == ([] if _RECORDS_MODULES[module] else [m for m in loaded if m == "torch"]), (module, loaded)

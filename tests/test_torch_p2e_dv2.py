@@ -415,8 +415,11 @@ def test_runs_switch_actors_evaluate_and_refuse_what_they_do_not_port(tmp_path, 
     for overrides in (RUN, _finetune_overrides(ckpt)):
         with pytest.raises(NotImplementedError, match="skip_update"):
             cli.run(overrides + ["diagnostics.sentinel.enabled=True", "diagnostics.sentinel.policy=skip_update"])
-        with pytest.raises(NotImplementedError, match="model registry"):
-            cli.run(overrides + ["model_manager.disabled=False"])
+        # the registry is ported: without mlflow check_configs warns and disables it
+        cfg = compose(overrides + ["model_manager.disabled=False"])
+        with pytest.warns(UserWarning, match="MLFlow is not installed; setting model_manager.disabled=True"):
+            cli.check_configs(cfg)
+        assert cfg.model_manager.disabled is True
 
 
 @pytest.mark.parametrize("exp", ["p2e_dv2_exploration", "p2e_dv2_finetuning", "p2e_dv1_exploration",

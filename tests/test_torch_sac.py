@@ -598,5 +598,18 @@ def test_run_refuses_what_it_does_not_port(tmp_path, option):
         with pytest.raises(ValueError, match="requires algo.offline.dataset_dir"):
             cli.run(RUN + [option, f"root_dir={tmp_path}"])
         return
+    if option in ("model_manager.disabled=False", "metric.profiler.enabled=True"):
+        # ported: without mlflow check_configs warns and disables the registry,
+        # as the JAX one does, and cli.run_algorithm traces the whole run
+        # (tests/test_torch_records.py); the loop refuses neither
+        from sheeprl_tpu_torch.algos.sac.sac import SACFamily, unported_options
+
+        cfg = compose(RUN + [option])
+        if option.startswith("model_manager"):
+            with pytest.warns(UserWarning, match="MLFlow is not installed; setting model_manager.disabled=True"):
+                cli.check_configs(cfg)
+            assert cfg.model_manager.disabled is True and SACFamily.registers_models
+        assert unported_options(cfg, "SAC") == []
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
         cli.run(RUN + [option, f"root_dir={tmp_path}"])

@@ -388,6 +388,14 @@ def test_run_refuses_what_it_does_not_port(tmp_path, option):
         with pytest.raises(ValueError, match=r"supports \['sac', 'droq', 'dreamer_v3'\], got algo.name='sac_ae'"):
             cli.run(RUN + extra + [option, f"root_dir={tmp_path}"])
         return
+    if option == "model_manager.disabled=False":
+        # ported: the JAX SAC-AE loop reads it and registers nothing, and so
+        # does the port's; the loop refuses only skip_update
+        from sheeprl_tpu_torch.algos.sac.sac import unported_options
+
+        assert unported_options(compose(RUN + [option]), "SAC-AE", skip_update=False) == []
+        assert not SACAEFamily.registers_models
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli.run(RUN + extra + [option, f"root_dir={tmp_path}"])
 

@@ -50,7 +50,7 @@ from sheeprl_tpu_torch import cli
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
 from sheeprl_tpu_torch.config import compose
 from sheeprl_tpu_torch.data.datasets import OfflineDataset
-from sheeprl_tpu_torch.diagnostics.health import active_anomalies
+from sheeprl_tpu_torch.diagnostics.report import active_anomalies
 from sheeprl_tpu_torch.interop.flax_params import to_flax
 from sheeprl_tpu_torch.serving import registry, server
 from sheeprl_tpu_torch.serving.loader import PolicyHandle, _params_loader, checkpoint_health, leaf_dtype_mismatch
