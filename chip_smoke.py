@@ -154,8 +154,8 @@ Phases, in order; any failure raises and the script exits non-zero:
             (``SAC_OVERRIDES``: hidden 256, 2 critics, batch 256), finite
             metrics and verified checkpoints, a resume from the mid-run one,
             ``eval``, ``serve`` to concurrent HTTP clients (finite greedy
-            actions, the actor's own); ``exp=droq`` (``DROQ_OVERRIDES``, 20
-            gradient steps a policy step) and ``exp=sac_ae``
+            actions, the actor's own); ``exp=droq`` (``DROQ_OVERRIDES``, 5
+            gradient steps a policy step, the preset's 20 cut) and ``exp=sac_ae``
             (``SAC_AE_OVERRIDES``: 64x64 ``rgb`` with a 3-frame stack and
             ``state``, actor and critics 1,024 wide, batch 128) trained,
             resumed, evaluated, and refused by ``serve``; one SAC and one
@@ -193,11 +193,21 @@ Phases, in order; any failure raises and the script exits non-zero:
 17. timers — a gradient step's stream time, device-busy time, idle share
             and launches (``step_profile.time_gradient_steps``) for the fp32
             ``rssm_chunks=1`` step and the chunked bf16 one, each with the
-            diagnostics off and then on (health stats, instrumented: its
-            FLOPs and MFU; the fp32 one on the offline loader's first batch,
-            the offline loop's step); the CPU's FLOP count of the fp32 step, equal to
-            the card's; the journals' MFU, the syncs a step, ``ckpt_end``'s
-            ``write_ms`` (async and blocking) and every run's kernel launches;
+            default diagnostics (health stats, instrumented: its FLOPs and
+            MFU; the fp32 one on the offline loader's first batch, the
+            offline loop's step); the CPU's FLOP count of the fp32 step, equal to
+            the card's; the journals' MFU, the syncs a step and ``ckpt_end``'s
+            ``write_ms`` (async and blocking);
+17b. minedojo — ``run exp=dreamer_v3`` at DreamerV3-S with
+            ``algo.actor.cls=...MinedojoActor`` on the MineDojo-shaped env
+            (``MinedojoShapedEnv``, built in this process: MultiDiscrete
+            ``[19, craft, item]`` actions and the ``mask_*`` observations),
+            79 launches a gradient step plus the player and test steps, every
+            action the player took allowed by its step's masks, a
+            kernel-vs-plain train step; then each optimizer written out from
+            optax, one update on the card against the CPU; each phase under a
+            deadline (``SLICE_DEADLINES_S``, 45 s together) that fails it by
+            name;
 18. records — ``run`` at DreamerV3-S (fp32, 2 iterations of gradient steps)
             with ``metric.profiler.enabled=True`` and
             ``model_manager.disabled=False``: without mlflow the registry warns
@@ -212,7 +222,13 @@ Phases, in order; any failure raises and the script exits non-zero:
             search (``tools/search.py``'s ``main``) over JEPA-XS, 2 random
             trials under ASHA through the kernel, both ``COMPLETE``;
             ``registration`` raising ``ModuleNotFoundError`` without mlflow;
-19. the ``kernels`` JSON line, then the result line.
+19. every path's kernel launches (``[launches]``, from the kernels line's
+            ``launches_by_path``), the ``kernels`` JSON line, then the result
+            line.
+
+Each phase prints its wall time as it ends (``[phase-time]``), each group of
+phases its own and the running total (``[timing]``), and all the groups'
+again before the kernels line.
 
 It needs no network, writes only under ``build/`` in the checkout (and
 removes the XL runs' checkpoints once their phases are done), and stops
@@ -291,7 +307,7 @@ STEP_METRIC_RTOL = 1e-3
 STEP_GRAD_RTOL = 1e-3
 STEP_PARAM_ATOL = 2e-5
 STEP_PARAM_OUTLIERS = 1e-4
-TIMED_STEPS = 3
+TIMED_STEPS = 2
 # the chunked phase: the options the DV3 presets train with, at DreamerV3-S.
 # A resumed run waits learning_starts (64 iterations of 4 envs) before it
 # trains again, as the JAX package's does, and cannot change total_steps; so
@@ -361,7 +377,7 @@ PPO_OVERRIDES = ["exp=ppo_atari", "env=dummy", "env.id=discrete_dummy", "env.num
                  "algo.per_rank_batch_size=256", "algo.total_steps=2048", "checkpoint.every=1024",
                  "metric.log_every=1024", "run_name=chip_smoke_ppo", "seed=5"]
 PPO_EPISODE_STEPS = 5
-PPO_TIMED_UPDATES = 10
+PPO_TIMED_UPDATES = 5
 PPO_SERVE_CLIENTS, PPO_SERVE_REQUESTS = 16, 16
 # the JEPA phase: exp=dreamer_v3_jepa at its composed XL widths (recurrent
 # 4096, dense 1024, CNN multiplier 96, 5 layers, projector and predictor of
@@ -378,7 +394,7 @@ JEPA_OVERRIDES = ["exp=dreamer_v3_jepa", "env=dummy", "env.capture_video=False",
                   "buffer.checkpoint=True", "checkpoint.every=264", "checkpoint.save_last=False",
                   "metric.logger=null", "metric.log_every=16", "seed=5"]
 JEPA_MIN_GRADIENT_STEPS = 4
-JEPA_TIMED_STEPS = 3
+JEPA_TIMED_STEPS = 2
 # the P2E phase: exp=p2e_dv3_exploration at its composed XL widths
 # (DreamerV3-XL with the [rgb] decoder, an ensemble of 8 MLPs of 1024 x 5,
 # the intrinsic and extrinsic exploration critics; batch 16 x 64, horizon
@@ -400,7 +416,7 @@ P2E_FINETUNE_OVERRIDES = ["exp=p2e_dv3_finetuning", "env=dummy", "env.capture_vi
                           "buffer.checkpoint=False", "checkpoint.every=100000", "checkpoint.save_last=True",
                           "metric.logger=null", "metric.log_every=16", "seed=5"]
 P2E_MIN_GRADIENT_STEPS = 4
-P2E_TIMED_STEPS = 3
+P2E_TIMED_STEPS = 2
 # the A2C phase: exp=a2c (an MLP of 64 x 2 on `state`, RMSprop, the whole
 # rollout in one step) on the dummy env, 4 envs x 5 steps, 10 iterations, a
 # checkpoint after the 5th and the 10th
@@ -413,7 +429,8 @@ A2C_SERVE_CLIENTS, A2C_SERVE_REQUESTS = 8, 8
 # preset at its own widths, cut in depth, with its replay checkpointed:
 # SAC (hidden 256, 2 critics, batch 256, replay ratio 1) on 4 envs, learning
 # from policy step 256, 1,024 steps (about 770 gradient steps); DroQ
-# (dropout 0.01, replay ratio 20) on 2 envs, 256 steps (about 3,900
+# (dropout 0.01; the preset's replay ratio 20 cut to 5, its loop of
+# gradient steps a policy step as long as the ratio) on 2 envs, 256 steps (about 970
 # gradient steps; 256 rows, a batch for its offline run), a checkpoint at
 # step 160 (its resume waits learning_starts again, to iteration 113, then
 # trains 16 iterations) and at the end; SAC-AE (64x64 rgb with a 3-frame stack plus
@@ -425,7 +442,8 @@ SAC_OVERRIDES = ["exp=sac", "env=dummy", "env.id=continuous_dummy", "env.executo
                  "buffer.checkpoint=True", "buffer.export=True", "checkpoint.every=512", "metric.logger=null",
                  "metric.log_every=256", "run_name=chip_smoke_sac", "seed=5"]
 DROQ_OVERRIDES = ["exp=droq", "env=dummy", "env.id=continuous_dummy", "env.executor=sync", "env.capture_video=False",
-                  "env.num_envs=2", "algo.learning_starts=64", "algo.total_steps=256", "buffer.size=256",
+                  "env.num_envs=2", "algo.learning_starts=64", "algo.total_steps=256", "algo.replay_ratio=5",
+                  "buffer.size=256",
                   "buffer.checkpoint=True", "buffer.export=True", "checkpoint.every=160",
                   "algo.mlp_keys.encoder=[state]",
                   "metric.logger=null", "metric.log_every=80", "run_name=chip_smoke_droq", "seed=5"]
@@ -435,7 +453,35 @@ SAC_AE_OVERRIDES = ["exp=sac_ae", "env=dummy", "env.id=continuous_dummy", "env.e
                     "buffer.size=256", "buffer.checkpoint=True", "checkpoint.every=96", "metric.logger=null",
                     "metric.log_every=96", "run_name=chip_smoke_sac_ae", "seed=5"]
 SAC_SERVE_CLIENTS, SAC_SERVE_REQUESTS = 8, 8
-SAC_TIMED_STEPS = 10
+SAC_TIMED_STEPS = 5
+# this slice's group: DreamerV3-S with MinedojoActor on the MineDojo-shaped
+# env (minedojo_shaped_env, env.executor=sync) at batch 16 x 64, horizon 15,
+# fp32; 2 envs, learning starts at iteration 64 (64 rows of each), replay
+# ratio 1/8: 8 gradient steps by iteration 72; and the optimizers written
+# out from optax, one update each on the card against the CPU.
+MINEDOJO_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.id=minedojo_dummy", "env.executor=sync", "env.num_envs=2",
+                      "env.capture_video=False", "run_name=chip_smoke_minedojo",
+                      "algo.actor.cls=sheeprl_tpu_torch.algos.dreamer_v3.agent.MinedojoActor",
+                      "algo.cnn_keys.encoder=[rgb]", "algo.cnn_keys.decoder=[rgb]",
+                      "algo.mlp_keys.encoder=[state,mask_action_type,mask_craft_smelt,mask_equip_place,mask_destroy]",
+                      "algo.mlp_keys.decoder=[state]", "algo.learning_starts=128", "algo.total_steps=144",
+                      "algo.replay_ratio=0.5", "buffer.size=256", "checkpoint.every=100000", "metric.logger=null",
+                      "metric.log_every=16", "seed=5"]
+OPTIMIZER_VARIANTS = {
+    "sgd_nesterov": ("sgd", {"momentum": 0.9, "nesterov": True}),
+    "rmsprop_centered_nesterov": ("rmsprop", {"centered": True, "momentum": 0.9, "nesterov": True,
+                                              "eps_in_sqrt": False}),
+    "rmsprop_bias_correction": ("rmsprop", {"bias_correction": True, "eps_in_sqrt": False}),
+    "adam_eps_root": ("adam", {"eps_root": 1e-8}),
+    "adamw_mask_mu_dtype_nesterov": ("adamw", {"mask": [True, False], "mu_dtype": "bfloat16", "nesterov": True,
+                                               "weight_decay": 0.1}),
+}
+OPTIMIZER_CARD_CPU_RTOL = 1e-5
+# kernel launches a gradient step: 64 dynamic steps at 16 rows and 15
+# imagined at 1,024, one launch a call
+MINEDOJO_LAUNCHES_PER_STEP = 79
+# each phase of the group and its deadline, 45 s together
+SLICE_DEADLINES_S = {"minedojo": 38.0, "optimizers": 7.0}
 # the DreamerV2 phases: exp=dreamer_v2's widths (64x64 rgb, CNN multiplier
 # 48, dense 400 x 4 layers, recurrent 600, stochastic 32 x 32, hidden 600;
 # batch 16 x 50, horizon 15, fp32) on the dummy env, 4 envs, cut in depth
@@ -469,7 +515,7 @@ DV1_OVERRIDES = ["exp=dreamer_v1", "env=dummy", "env.capture_video=False", "run_
                  "buffer.checkpoint=True", "checkpoint.every=264", "checkpoint.save_last=False", "metric.logger=null",
                  "metric.log_every=16", "seed=5"]
 DV1_MIN_GRADIENT_STEPS = 4
-DREAMER_TIMED_STEPS = 3
+DREAMER_TIMED_STEPS = 2
 # the Plan2Explore-DV2 and DV1 phases: exp=p2e_dv2_exploration's widths
 # (64x64 rgb, CNN multiplier 48, dense 400 x 4, recurrent 400, stochastic
 # 32 x 32, hidden 400, an ensemble of 10 x 400 x 4; batch 16 x 50, horizon
@@ -502,7 +548,7 @@ P2E_DREAMER_MIN_GRADIENT_STEPS = 4
 # imaginations (one in the finetuning's DreamerV2 step), one launch a call;
 # P2E-DV1's plain GRU none
 P2E_DREAMER_LAUNCHES = {2: (80, 65), 1: (0, 0)}
-P2E_DREAMER_TIMED_STEPS = 3
+P2E_DREAMER_TIMED_STEPS = 2
 # the recurrent PPO phase: exp=ppo_recurrent's widths (16 envs x 512 rollout
 # steps, sequences of 16 in 8 minibatches, 8 epochs, LSTM 64, encoder 64,
 # adamw with clip 0.5) on the dummy env's `state` (CartPole needs
@@ -513,7 +559,7 @@ PPO_REC_OVERRIDES = ["exp=ppo_recurrent", "env=dummy", "env.id=discrete_dummy", 
                      "checkpoint.every=8192", "metric.log_every=8192", "metric.logger=null",
                      "run_name=chip_smoke_ppo_recurrent", "seed=5"]
 PPO_REC_SESSIONS, PPO_REC_ROUNDS = 2, 6
-PPO_REC_TIMED_UPDATES = 5
+PPO_REC_TIMED_UPDATES = 3
 # card vs CPU, two gradient steps from a trained checkpoint in fp32 (TF32
 # off): SAC to 1e-4 relative; SAC-AE's four convolutions hold some 10^7
 # ReLU units at batch 128, and a unit at its kink is on in one library and
@@ -1309,7 +1355,8 @@ def _check_diagnostics_journal(journal: dict, where: str, health: bool = True) -
 
 
 def _train_noise(cfg, actions_dim, gen, device: str = "cuda"):
-    """Every draw of one gradient step, pre-drawn on the card."""
+    """Every draw of one gradient step, pre-drawn on the card (Gumbel noise
+    from ``gen``)."""
     import torch
 
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import gumbel_like
@@ -1332,12 +1379,105 @@ def _train_noise(cfg, actions_dim, gen, device: str = "cuda"):
     return noise
 
 
-def _kernel_vs_plain_step(cfg, agent_state, spaces_, batch, noise, device: str = "cuda", keep=None):
+class held_samples:
+    """The plain path of a kernel-vs-plain step held to the kernel path's
+    samples.  Inside the ``with`` block the DreamerV3 samplers
+    (``compute_stochastic_state``, ``Actor.act``: every Dreamer family's
+    and their P2E and JEPA variants') record each call's sampled classes
+    while the kernel runs (``blocks.fused_layernorm_gru`` is the kernel's
+    wrapper) and, on the plain path, count the rows whose class differs
+    from the kernel path's call of the same index (``split`` of
+    ``samples``).  With ``force`` each split one-hot becomes the kernel
+    path's (``+ one_hot(kernel) - one_hot(plain)``: the straight-through
+    gradient is the plain path's own).  A Gumbel draw at a near tie of two
+    classes splits when the paths' logits differ by their rounding (on the
+    card 6 of 1.7e7 draws in 30 fp32 DV3-S steps, each at a margin of at most
+    4.8e-07; unheld, the split row's trajectory diverges and the step's
+    metrics moved by up to 3.8e-03, ``chip_gumbel_split.py``, PERF.md §6).
+    In ``bf16-mixed`` the paths' logits differ by bf16 rounding and splits
+    are many (845 of 579,584 draws in the chunked DV3-S step, at margins up
+    to 0.047).  ``margin`` is the largest ``top1 - top2`` of ``logits +
+    noise`` among the split state samples."""
+
+    def __init__(self, force: bool = True):
+        self.force = force
+        self.kernel: list = []
+        self.calls = 0
+        self.samples = 0
+        self.split = {"state": 0, "action": 0}
+        self.split_calls: list = []
+        self.margin = 0.0
+
+    def tap(self, site: str, out, idx, depth: int, scores=None):
+        import torch
+        import torch.nn.functional as F
+
+        from sheeprl_tpu_torch.models import blocks
+        from sheeprl_tpu_torch.ops.ln_gru import ln_gru_reference
+
+        if blocks.fused_layernorm_gru is not ln_gru_reference:
+            self.kernel.append(idx)
+            return out
+        want = self.kernel[self.calls]
+        self.calls += 1
+        differ = want != idx
+        self.samples += differ.numel()
+        n = int(differ.sum())
+        if not n:
+            return out
+        self.split[site] += n
+        self.split_calls.append(self.calls - 1)
+        if scores is not None:
+            top2 = torch.topk(scores[differ], 2, dim=-1).values
+            self.margin = max(self.margin, float((top2[:, 0] - top2[:, 1]).max()))
+        if self.force:
+            out = out + (F.one_hot(want, depth).to(out.dtype) - F.one_hot(idx, depth).to(out.dtype)).reshape(out.shape)
+        return out
+
+    def __enter__(self):
+        import torch
+
+        from sheeprl_tpu_torch.algos.dreamer_v3 import agent as agent_mod
+
+        css, act, tap = agent_mod.compute_stochastic_state, agent_mod.Actor.act, self.tap
+
+        def compute_stochastic_state(logits, discrete, generator=None, sample=True, noise=None):
+            out = css(logits, discrete, generator, sample, noise)
+            if not sample:
+                return out
+            rows = out.detach().reshape(tuple(out.shape[:-1]) + (-1, discrete))
+            scores = None if noise is None else (logits.detach().reshape(rows.shape)
+                                                 + noise.reshape(rows.shape).to(logits.dtype))
+            return tap("state", out, rows.argmax(-1), discrete, scores)
+
+        def actor_act(actor, state, generator=None, greedy=False, noise=None, mask=None):
+            out = act(actor, state, generator, greedy, noise, mask)
+            if greedy or actor.is_continuous:
+                return out
+            heads = torch.split(out, list(actor.actions_dim), dim=-1)
+            return torch.cat([tap("action", h, h.detach().argmax(-1), h.shape[-1]) for h in heads], dim=-1)
+
+        self._patches = [mock.patch.object(agent_mod, "compute_stochastic_state", compute_stochastic_state),
+                         mock.patch.object(agent_mod.Actor, "act", actor_act)]
+        for patch in self._patches:
+            patch.start()
+        return self
+
+    def __exit__(self, *exc):
+        for patch in self._patches:
+            patch.stop()
+        return False
+
+
+def _kernel_vs_plain_step(cfg, agent_state, spaces_, batch, noise, device: str = "cuda", keep=None, held=None):
     """One gradient step from one state, batch and noise, through the kernel
     and through the plain path, with the agent and step of ``cfg``'s
     algorithm: ``[(metrics, {optimizer: Adam first moments}, params,
     kept)]`` for each; ``kept`` is the agent and copies of the tensors
-    ``keep(agent)`` names, taken before the step (None without ``keep``)."""
+    ``keep(agent)`` names, taken before the step (None without ``keep``).
+    The plain path is held to the kernel path's samples (``held``, a
+    :class:`held_samples`, by default a new one), and the samples it split
+    are printed."""
     import importlib
 
     import torch
@@ -1349,13 +1489,14 @@ def _kernel_vs_plain_step(cfg, agent_state, spaces_, batch, noise, device: str =
 
     family = importlib.import_module(find_algorithm(cfg.algo.name)["module"])
     actions_dim, is_continuous, obs_space = spaces_
+    held = held_samples() if held is None else held
     results = []
     for plain in (False, True):
         agent = family.build_agent(actions_dim, is_continuous, cfg, obs_space, agent_state, device)
         optimizers = make_optimizers(cfg, agent)
         step = family.make_train_step(agent, optimizers, cfg, is_continuous)
         kept = None if keep is None else (agent, [t.detach().clone() for t in keep(agent)])
-        with mock.patch.object(blocks, "fused_layernorm_gru", ln_gru_reference if plain else fused_layernorm_gru):
+        with held, mock.patch.object(blocks, "fused_layernorm_gru", ln_gru_reference if plain else fused_layernorm_gru):
             _, metrics = step(agent.initial_moments(device), batch, 0.02, None, noise)
         torch.cuda.synchronize()
         grads = {name: torch.cat([opt.state[p]["exp_avg"].reshape(-1) for p in agent.parameters_of(name)])
@@ -1363,6 +1504,9 @@ def _kernel_vs_plain_step(cfg, agent_state, spaces_, batch, noise, device: str =
         params = torch.cat([p.detach().reshape(-1) for name in optimizers for p in agent.parameters_of(name)])
         results.append((metrics.cpu().numpy(), grads, params, kept if not plain else None))
         del step, optimizers
+    print(f"[samples] {cfg.algo.name} kernel vs plain step: the plain path split {held.split} of {held.samples} "
+          f"sampled one-hots from the kernel path's (largest margin {held.margin:.3g})"
+          f"{', held to them' if held.force else ''}", flush=True)
     return results
 
 
@@ -2926,6 +3070,262 @@ class bounded_dummy_actions:
         return False
 
 
+# ---------------------------------------------------------------------------
+# MineDojo's actor, and the optimizers written out from optax
+# ---------------------------------------------------------------------------
+
+
+class MinedojoShapedEnv:
+    """A MineDojo-shaped env on the port's spaces, built in this process:
+    ``MultiDiscrete([19, CRAFT, ITEMS])`` actions (the 19 action types, a
+    craft argument, an item argument, at MineDojo's vocabularies:
+    ``CRAFT`` is ``len(minedojo.sim.ALL_CRAFT_SMELT_ITEMS)``, the craft
+    argument of MineDojo's own action space, ``ITEMS`` ``len(ALL_ITEMS)``;
+    MineDojo is not installed, so both are written here), the dummy env's
+    ``rgb`` and ``state``
+    and the four ``mask_*`` observations of ``envs/minedojo.py``, drawn anew
+    each step from a seeded generator with at least one category allowed in
+    each, and the craft, equip/place and destroy types allowed often enough
+    that the argument heads' masks are exercised.  Episodes are 64 steps."""
+
+    CRAFT, ITEMS, STEPS = 244, 634, 64
+
+    def __init__(self, seed: int = 0):
+        import numpy as np
+
+        from sheeprl_tpu_torch.envs import spaces
+
+        self._np = np
+        self._rng = np.random.default_rng(seed)
+        self.action_space = spaces.MultiDiscrete([19, self.CRAFT, self.ITEMS])
+        self.observation_space = spaces.Dict({
+            "rgb": spaces.Box(0, 255, (3, 64, 64), np.uint8),
+            "state": spaces.Box(-20, 20, (10,), np.float32),
+            "mask_action_type": spaces.Box(0, 1, (19,), bool),
+            "mask_craft_smelt": spaces.Box(0, 1, (self.CRAFT,), bool),
+            "mask_equip_place": spaces.Box(0, 1, (self.ITEMS,), bool),
+            "mask_destroy": spaces.Box(0, 1, (self.ITEMS,), bool),
+        })
+        self.reward_range = (-np.inf, np.inf)
+        self._t = 0
+
+    def _mask(self, n: int, p: float):
+        mask = self._rng.random(n) < p
+        mask[self._rng.integers(0, n)] = True
+        return mask
+
+    def _obs(self):
+        np = self._np
+        types = self._mask(19, 0.5)
+        types[15:19] |= self._rng.random(4) < 0.5
+        return {"rgb": np.full((3, 64, 64), self._t % 256, np.uint8),
+                "state": np.full((10,), self._t % 20, np.float32), "mask_action_type": types,
+                "mask_craft_smelt": self._mask(self.CRAFT, 0.3), "mask_equip_place": self._mask(self.ITEMS, 0.3),
+                "mask_destroy": self._mask(self.ITEMS, 0.3)}
+
+    def reset(self, seed=None, options=None):
+        if seed is not None:
+            self._rng = self._np.random.default_rng(seed)
+        self._t = 0
+        return self._obs(), {}
+
+    def step(self, action):
+        self._t += 1
+        return self._obs(), float(self._t % 3 == 0), self._t >= self.STEPS, False, {}
+
+    def render(self):
+        return self._np.zeros((64, 64, 3), self._np.uint8)
+
+    def close(self):
+        pass
+
+
+def masks_allow(mask: dict, actions, craft: int) -> "list":
+    """Per row of ``actions`` (the player's one-hot ``[19, craft, items]``
+    blocks), whether ``mask`` (its ``mask_*`` observations) allows it:
+    MinedojoActor's hierarchy, with ``envs/minedojo.py``'s action types
+    (15 craft, 16 equip, 17 place, 18 destroy)."""
+    import torch
+
+    kind = actions[:, :19].argmax(-1)
+    arg1 = actions[:, 19:19 + craft].argmax(-1)
+    arg2 = actions[:, 19 + craft:].argmax(-1)
+    rows = torch.arange(actions.shape[0], device=actions.device)
+
+    def allowed(key, idx):
+        return mask[key][rows, idx].bool()
+
+    ok = allowed("mask_action_type", kind)
+    ok &= (kind != 15) | allowed("mask_craft_smelt", arg1)
+    ok &= ((kind != 16) & (kind != 17)) | allowed("mask_equip_place", arg2)
+    ok &= (kind != 18) | allowed("mask_destroy", arg2)
+    return ok.tolist()
+
+
+class minedojo_shaped_env:
+    """``env=dummy env.id=minedojo_dummy`` builds :class:`MinedojoShapedEnv`
+    in this process for the ``with`` block (the runs use
+    ``env.executor=sync``: a spawned env worker would not see the patch),
+    and every ``PlayerDV3.get_actions`` call that gets masks is recorded:
+    ``checked`` holds whether each action it returned is allowed."""
+
+    def __enter__(self):
+        from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerDV3
+        from sheeprl_tpu_torch.envs import env as env_mod
+
+        self.checked: list = []
+        self._orig_env, self._orig_get = env_mod.get_dummy_env, PlayerDV3.get_actions
+        orig_env, orig_get, checked = self._orig_env, self._orig_get, self.checked
+
+        def get_dummy_env(id: str, sleep_ms: float = 0.0):
+            return MinedojoShapedEnv() if id == "minedojo_dummy" else orig_env(id, sleep_ms)
+
+        def get_actions(player, obs, generator=None, greedy=False, noise=None, mask=None):
+            actions = orig_get(player, obs, generator, greedy, noise, mask)
+            if mask is not None:
+                checked.extend(masks_allow(mask, actions, MinedojoShapedEnv.CRAFT))
+            return actions
+
+        env_mod.get_dummy_env, PlayerDV3.get_actions = get_dummy_env, get_actions
+        return self
+
+    def __exit__(self, *exc):
+        from sheeprl_tpu_torch.algos.dreamer_v3.agent import PlayerDV3
+        from sheeprl_tpu_torch.envs import env as env_mod
+
+        env_mod.get_dummy_env, PlayerDV3.get_actions = self._orig_env, self._orig_get
+        return False
+
+
+@contextlib.contextmanager
+def deadline(seconds: float, phase: str):
+    """The ``with`` block gets ``seconds``: past them the script prints that
+    ``phase`` hung and exits 1 at once, instead of running into the call's
+    time limit (its earlier phases' workers are stopped by then)."""
+    def expire():
+        print(f"chip_smoke: phase {phase} did not finish within its {seconds:.0f} s deadline", file=sys.stderr,
+              flush=True)
+        os._exit(1)
+
+    timer = threading.Timer(seconds, expire)
+    timer.daemon = True
+    timer.start()
+    try:
+        yield
+    finally:
+        timer.cancel()
+
+
+def run_minedojo(build_dir: Path, device_name: str = "cuda") -> dict:
+    """DreamerV3-S with ``algo.actor.cls=...MinedojoActor`` on the
+    MineDojo-shaped env (``minedojo_shaped_env``): ``run`` takes a few
+    gradient steps through the kernel; its launches are 79 a gradient step
+    plus one a player step plus the test steps; every action the player
+    took is allowed by its step's masks; then one train step through the
+    kernel and through the plain path from one state, batch and noise,
+    within the ``STEP_*`` tolerances."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import MinedojoActor, make_actor
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import synthetic_batch
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs.env import make_env
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.serving.loader import _actions_dim, agent_state_from_checkpoint
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    overrides = MINEDOJO_OVERRIDES + [f"root_dir={(build_dir / 'minedojo').resolve()}",
+                                      f"fabric.accelerator={device_name}"]
+    cfg = compose(overrides)
+    _dv3_s_widths(cfg)
+    with minedojo_shaped_env() as recorder:
+        env = make_env(cfg, cfg.seed, 0)()
+        obs_space, action_space = env.observation_space, env.action_space
+        env.close()
+        actions_dim, is_continuous, _ = _actions_dim(action_space)
+        if not isinstance(make_actor(actions_dim, is_continuous, cfg), MinedojoActor):
+            raise AssertionError("algo.actor.cls did not build a MinedojoActor")
+        fused_layernorm_gru.launches = 0  # the main path starts here
+        out = cli.run(overrides)
+        torch.cuda.synchronize()
+        launches = fused_layernorm_gru.launches  # the main path ends here
+    rows = out["metric_rows"]
+    if out["gradient_steps"] < 1 or not np.isfinite(rows).all():
+        raise AssertionError(f"minedojo: {out['gradient_steps']} gradient steps, metrics {rows}")
+    predicted, per_step = _launches(cfg, out)
+    if launches != predicted or per_step != MINEDOJO_LAUNCHES_PER_STEP:
+        raise AssertionError(f"minedojo: ln_gru launched {launches} times, the run predicts {predicted} "
+                             f"({per_step} a gradient step, {out['player_steps']} player steps, "
+                             f"{out['test_steps']} test steps)")
+    checked = recorder.checked
+    if len(checked) != out["player_steps"] * cfg.env.num_envs + out["test_steps"] or not all(checked):
+        raise AssertionError(f"minedojo: {checked.count(False)} of {len(checked)} masked actions disallowed "
+                             f"({out['player_steps']} player steps x {cfg.env.num_envs} envs, "
+                             f"{out['test_steps']} test steps)")
+
+    gen = torch.Generator(device=device_name).manual_seed(13)
+    batch = synthetic_batch(cfg, actions_dim, gen, device_name)
+    T, B = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size
+    for key in cfg.algo.mlp_keys.encoder:
+        shape = obs_space[key].shape
+        batch[key] = (torch.rand((T, B, *shape), device=device_name, generator=gen) < 0.5).float() \
+            if key.startswith("mask") else torch.randn((T, B, *shape), device=device_name, generator=gen)
+    noise = _train_noise(cfg, actions_dim, gen, device_name)
+    state = load_state(out["checkpoints"][-1])
+    (m_kernel, g_kernel, p_kernel, _), (m_plain, g_plain, p_plain, _) = _kernel_vs_plain_step(
+        cfg, agent_state_from_checkpoint(state), (actions_dim, is_continuous, obs_space), batch, noise, device_name)
+    metric_err = float(np.max(np.abs(m_kernel - m_plain) / np.maximum(np.abs(m_plain), 1e-3)))
+    grad_err = max(((g_kernel[k] - g_plain[k]).abs().max() / g_plain[k].abs().max()).item() for k in g_plain)
+    outliers = ((p_kernel - p_plain).abs() > STEP_PARAM_ATOL).float().mean().item()
+    if (not np.isfinite(m_kernel).all() or metric_err > STEP_METRIC_RTOL or grad_err > STEP_GRAD_RTOL
+            or outliers > STEP_PARAM_OUTLIERS):
+        raise AssertionError(f"minedojo kernel vs plain step: metrics {metric_err}, gradients {grad_err}, "
+                             f"param outliers {outliers}")
+    return {"gradient_steps": out["gradient_steps"], "player_steps": out["player_steps"],
+            "test_steps": out["test_steps"], "ln_gru_launches": launches, "launches_per_gradient_step": per_step,
+            "masked_actions_checked": len(checked), "step_metric_rel_err": metric_err,
+            "step_grad_rel_err": grad_err, "step_param_outliers": outliers}
+
+
+def run_optimizers_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
+    """Each optimizer variant written out from optax
+    (``OPTIMIZER_VARIANTS``): one update of a small parameter tree (a
+    weight and a bias) from the same values and gradients on the card and
+    on the CPU, the parameters and every state tensor within
+    ``OPTIMIZER_CARD_CPU_RTOL``."""
+    import torch
+
+    from sheeprl_tpu_torch.utils import optim
+
+    card, cpu = devices
+    gen = torch.Generator().manual_seed(17)
+    values = [torch.randn(64, 32, generator=gen), torch.randn(32, generator=gen)]
+    grads = [torch.randn(64, 32, generator=gen), torch.randn(32, generator=gen)]
+    errs = {}
+    for name, (factory, kwargs) in OPTIMIZER_VARIANTS.items():
+        results = []
+        for device in (card, cpu):
+            params = [torch.nn.Parameter(v.to(device)) for v in values]
+            opt = getattr(optim, factory)(0.01, **kwargs)(params)
+            for p, g in zip(params, grads):
+                p.grad = g.to(device)
+            opt.step()
+            if any(p.device.type != torch.device(device).type for p in params):
+                raise AssertionError(f"{name}: the update on {device} left it")
+            results.append([p.detach().cpu() for p in params]
+                           + [t.detach().cpu().float() for p in params for t in opt.state[p].values()])
+        err = max(((a - b).abs() / b.abs().clamp_min(1e-6)).max().item() for a, b in zip(*results))
+        finite = all(bool(torch.isfinite(t).all()) for t in results[0] + results[1])
+        if not finite or not err <= OPTIMIZER_CARD_CPU_RTOL or type(opt).__name__ not in ("SGD", "RMSprop",
+                                                                                         "OptaxAdam"):
+            raise AssertionError(f"optimizer {name} ({type(opt).__name__}): card vs CPU relative error {err} "
+                                 f"(tol {OPTIMIZER_CARD_CPU_RTOL})")
+        errs[name] = err
+    return errs
+
+
 def _off_policy_run(overrides, where: str, resume: bool = True) -> dict:
     """``run`` of an off-policy preset, its mid-run resume and ``eval`` of
     its last checkpoint, each path with the LayerNorm-GRU kernel's launch
@@ -3491,8 +3891,8 @@ def run_bf16_on_policy(build_dir: Path, device_name: str = "cuda") -> dict:
 
 def run_timers(device_name: str = "cuda", offline_batch=None) -> dict:
     """Phase 10: the one gradient-step timer, profiled, for the fp32
-    ``rssm_chunks=1`` step and the chunked bf16 one, each built as
-    ``diagnostics=off`` runs it and as the default diagnostics run it (the
+    ``rssm_chunks=1`` step and the chunked bf16 one, each built as the
+    default diagnostics run it (the
     health stats in the step, telemetry's instrumentation around it, which
     counts the step's FLOPs at its first call); launches here do not count.
     The step's MFU is its counted FLOPs over its stream time, against the
@@ -3506,9 +3906,9 @@ def run_timers(device_name: str = "cuda", offline_batch=None) -> dict:
 
     out = {}
     for name, extra in (("fp32", []), ("bf16_chunked", CHUNKED_STEP_OPTIONS)):
-        # off, then on: the step is host-bound and its time moves with the
-        # host, so the two are compared within this call only
-        for turn, diagnostics in enumerate((False, True)):
+        # each step as the default diagnostics run it (the turns with them
+        # off, and the comparison of the two, were cut to fit the call)
+        for turn, diagnostics in ((1, True),):
             step, moments, batch, gen = profiled_step(extra, device_name, diagnostics)
             if diagnostics and not extra and offline_batch is not None:
                 batch = offline_batch
@@ -3568,24 +3968,6 @@ def _dreamer_run(overrides, where: str, min_steps: int, device: str) -> tuple:
     if out["gradient_steps"] < min_steps or rows.shape[1] != 11 or not np.isfinite(rows).all():
         raise AssertionError(f"{where}: {out['gradient_steps']} gradient steps, metric rows {rows}")
     return cfg, out, launches
-
-
-def _dv1_noise(cfg, actions_dim, gen, device: str = "cuda"):
-    """Every draw of one DreamerV1 gradient step, pre-drawn on the card: the
-    Gaussian latents' standard normals, the discrete heads' Gumbel noise."""
-    import torch
-
-    from sheeprl_tpu_torch.algos.dreamer_v3.agent import gumbel_like
-
-    T, B, H, S = (cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, cfg.algo.horizon,
-                  cfg.algo.world_model.stochastic_size)
-
-    def normal(*shape):
-        return torch.randn(shape, device=device, generator=gen)
-
-    return {"dynamic": (normal(T, B, S), normal(T, B, S)), "imagination": normal(H, T * B, S),
-            "actor": [[gumbel_like(torch.empty(T * B, d, device=device), gen) for d in actions_dim]
-                      for _ in range(H)]}
 
 
 def run_dv2(build_dir: Path, device_name: str = "cuda") -> dict:
@@ -4184,6 +4566,26 @@ def _leaves(tree, prefix=""):
             yield f"{prefix}/{k}", v
 
 
+def _time_phases() -> None:
+    """Every ``run_*`` phase of this module prints its own wall time as it
+    ends (``[phase-time]``), whether it passed or raised."""
+    import functools
+
+    def timed(name, fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            t0 = time.monotonic()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                print(f"[phase-time] {name}: {time.monotonic() - t0:.1f} s", flush=True)
+        return wrapper
+
+    for name, fn in list(globals().items()):
+        if name.startswith("run_") and callable(fn) and not hasattr(fn, "__wrapped__"):
+            globals()[name] = timed(name, fn)
+
+
 def main() -> int:
     import torch
 
@@ -4199,11 +4601,17 @@ def main() -> int:
     print(f"[card] {kind}; nvidia-smi name,power.limit:", flush=True)
     print(card, flush=True)
 
-    # the wall time of each group of phases, printed before the kernels line
+    # the wall time of each group of phases, printed as the group ends (a
+    # call cut short still shows where its time went) and again, all of
+    # them, before the kernels line; each phase's own time as it ends
     stamps = [("start", time.monotonic())]
 
     def mark(done: str) -> None:
         stamps.append((done, time.monotonic()))
+        print(f"[timing] {done}: {stamps[-1][1] - stamps[-2][1]:.1f} s; total {stamps[-1][1] - stamps[0][1]:.1f} s",
+              flush=True)
+
+    _time_phases()
 
     t0 = time.monotonic()
     report = cuda_build.build()
@@ -4541,7 +4949,8 @@ def main() -> int:
               f"{SAC_SERVE_CLIENTS} clients, all 200, finite and in [-1, 1], the greedy probe "
               f"{sac['greedy_probe']} equal to the actor's; ln_gru launches {sac['launches']}  [{card}]", flush=True)
         droq = run_droq(build_dir)
-        print(f"[droq] run exp=droq env=dummy (hidden 256, dropout 0.01, replay ratio 20, 2 envs, "
+        print(f"[droq] run exp=droq env=dummy (hidden 256, dropout 0.01, replay ratio 5 (the preset's 20, cut), "
+              f"2 envs, "
               f"{droq['iterations']} iterations): {droq['gradient_steps']} gradient steps in {droq['seconds']:.1f} s, "
               f"final [qf, actor, alpha] {droq['final']}; resumed at iteration {droq['resume_start_iter']} "
               f"({droq['resume_gradient_steps']} gradient steps); eval {droq['test_reward']}; serve refused: "
@@ -4750,14 +5159,6 @@ def main() -> int:
             f"device busy {t['busy_ms']:.3f} ms a step (torch.profiler), idle share {t['idle_share']:.4f}, "
             f"{t['launches']} kernel launches a step, ln_gru {t['ln_gru_launches']} launches {t['ln_gru_ms']:.4f} ms "
             f"a step (the kernel cases predict a forward of {fwd:.4f} ms){extra}  [{card}]", flush=True)
-    for name in ("fp32", "bf16_chunked"):
-        on = [timers[f"{name}_diagnostics_{turn}"] for turn in (1,)]
-        off = [timers[f"{name}_off_{turn}"] for turn in (0,)]
-        print(f"[timer] {name}: diagnostics on vs off (turns off, on): "
-              f"{[t['launches'] for t in on]} vs {[t['launches'] for t in off]} launches a step, "
-              f"{[round(t['step_ms'], 3) for t in on]} vs {[round(t['step_ms'], 3) for t in off]} ms stream time, "
-              f"busy {[round(t['busy_ms'], 3) for t in on]} vs {[round(t['busy_ms'], 3) for t in off]} ms  [{card}]",
-              flush=True)
 
     mark('dv3 timers')
     cpu_flops = count_cpu_flops()
@@ -4781,23 +5182,29 @@ def main() -> int:
           f"{[e['write_ms'] for e in train['journal']['ckpt_end']]}; the loop's `checkpoint` span, its critical "
           f"path: chunked {chunked['journal']['checkpoint_span_s']} s, drill {drill['checkpoint_span_s']} s, fp32 "
           f"{train['journal']['checkpoint_span_s']} s  [{card}]", flush=True)
-    print(f"[launches] ln_gru launches: serve {slice_report['ln_gru_launches']}, serve-ops {ops['launches']}, train {train['ln_gru_launches']}, "
-          f"chunked {chunked['ln_gru_launches']}, resume {resumed['ln_gru_launches']}, eval "
-          f"{evaluated['ln_gru_launches']}, drill resume {drill['ln_gru_launches']}, jepa {jepa['ln_gru_launches']}, "
-          f"jepa resume {jepa_resumed['ln_gru_launches']}, jepa eval {jepa_evaluated['ln_gru_launches']}, p2e "
-          f"{p2e['ln_gru_launches']}, p2e resume {p2e_resumed['ln_gru_launches']}, p2e finetuning "
-          f"{p2e_finetuned['ln_gru_launches']}, p2e eval {p2e_evaluated['ln_gru_launches']}, dv2 "
-          f"{dv2['ln_gru_launches']}, dv2 episode {dv2['runs']['episode']['ln_gru_launches']}, dv2 bf16 "
-          f"{dv2['runs']['bf16']['ln_gru_launches']}, dv2 resume {dv2_resumed['ln_gru_launches']}, dv2 eval "
-          f"{dv2_evaluated['ln_gru_launches']}, dv1 {dv1['ln_gru_launches']}, dv1 resume "
-          f"{dv1_resumed['ln_gru_launches']}, dv1 eval {dv1_evaluated['ln_gru_launches']}, ppo_recurrent "
-          f"{ppo_rec['ln_gru_launches']}, " + ", ".join(
-              f"p2e_dv{v} {r['run']['ln_gru_launches']}, p2e_dv{v} resume {r['resume']['ln_gru_launches']}, p2e_dv{v} "
-              f"finetuning {r['finetune']['ln_gru_launches']}, p2e_dv{v} eval {r['eval']['ln_gru_launches']}"
-              for v, r in p2e_dv.items()) + f"  [{card}]",
-          flush=True)
-
     mark('flops')
+    with deadline(SLICE_DEADLINES_S["minedojo"], "minedojo"):
+        minedojo = run_minedojo(build_dir)
+    print(f"[minedojo] DreamerV3-S run algo.actor.cls=...MinedojoActor on the MineDojo-shaped env (MultiDiscrete "
+          f"[19, {MinedojoShapedEnv.CRAFT}, {MinedojoShapedEnv.ITEMS}], the four mask_* observations; batch 16 x 64, "
+          f"horizon 15, fp32): {minedojo['gradient_steps']} gradient steps, {minedojo['player_steps']} player steps, "
+          f"{minedojo['test_steps']} test steps; {minedojo['ln_gru_launches']} ln_gru launches = predicted "
+          f"({minedojo['launches_per_gradient_step']} per gradient step + one a player step + the test steps); "
+          f"every one of the {minedojo['masked_actions_checked']} actions the player took allowed by its step's "
+          f"masks; kernel vs plain train step from its checkpoint: metrics max relative error "
+          f"{minedojo['step_metric_rel_err']:.3g} (tol {STEP_METRIC_RTOL:g}), gradients "
+          f"{minedojo['step_grad_rel_err']:.3g} (tol {STEP_GRAD_RTOL:g}), params off by more than "
+          f"{STEP_PARAM_ATOL:g}: {minedojo['step_param_outliers']:.3g} (tol {STEP_PARAM_OUTLIERS:g})  [{card}]",
+          flush=True)
+    shutil.rmtree(build_dir / "minedojo", ignore_errors=True)
+    with deadline(SLICE_DEADLINES_S["optimizers"], "optimizers"):
+        optimizer_errs = run_optimizers_card_vs_cpu()
+    print(f"[optim] one update of a 64 x 32 weight and a bias on the card against the CPU, fp32, each optimizer "
+          f"written out from optax: parameters and state max relative error "
+          f"{json.dumps({k: float(f'{v:.3g}') for k, v in optimizer_errs.items()})} (tol "
+          f"{OPTIMIZER_CARD_CPU_RTOL:g})  [{card}]", flush=True)
+
+    mark('minedojo, optimizers')
     records = run_records(build_dir, train, drill, ops, build_dir / "offline_export", timers)
     shutil.rmtree(build_dir / "offline_export", ignore_errors=True)
     prof = records["profiled"]
@@ -4851,7 +5258,10 @@ def main() -> int:
                   for suffix, part in (("", "run"), ("_resume", "resume"), ("_finetuning", "finetune"),
                                        ("_eval", "eval"))},
                "records": records["profiled"]["ln_gru_launches"],
-               **{f"records_search_{i}": t["launches"] for i, t in enumerate(records["search"]["trials"])}}
+               **{f"records_search_{i}": t["launches"] for i, t in enumerate(records["search"]["trials"])},
+               "minedojo": minedojo["ln_gru_launches"]}
+    print(f"[launches] ln_gru launches by path: {', '.join(f'{k} {v}' for k, v in by_path.items())}; "
+          f"{sum(by_path.values())} in all  [{card}]", flush=True)
     case_keys = ("B", "K", "H", "dtype", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms", "bound_ms", "bound_by")
     kernels = [{
         "name": "ln_gru",
@@ -4870,7 +5280,7 @@ def main() -> int:
         "shape": {"B": main["B"], "K": main["K"], "H": main["H"], "dtype": main["dtype"]},
         "cases": [{k: c[k] for k in case_keys} for c in cases],
         "phase": "kernel+slice+serve-ops+train+chunked+resume+eval+offline+drill+jepa+p2e+sac+droq+sac_ae+offline_sac"
-                 "+offline_droq+bf16+dv2+dv1+ppo_recurrent+p2e_dv2+p2e_dv1+records",
+                 "+offline_droq+bf16+dv2+dv1+ppo_recurrent+p2e_dv2+p2e_dv1+minedojo+records",
     }]
     mark("kernels line")
     print(f"[timing] wall seconds by group of phases: "

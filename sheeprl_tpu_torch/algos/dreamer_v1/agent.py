@@ -30,6 +30,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     WorldModel,
     _StochHead,
     init_weights,
+    resolve_actor_cls,
 )
 
 PlayerDV1 = PlayerDV3
@@ -148,7 +149,7 @@ def make_actor(actions_dim: Sequence[int], is_continuous: bool, cfg) -> Actor:
     """DreamerV1's actor, uninitialized, on the CPU (the task's, and
     Plan2Explore-DV1's exploration actor)."""
     actor_cfg = cfg.algo.actor
-    return Actor(_latent_size(cfg), actions_dim, is_continuous, distribution=cfg.distribution.type,
+    return resolve_actor_cls(actor_cfg)(_latent_size(cfg), actions_dim, is_continuous, distribution=cfg.distribution.type,
                  init_std=actor_cfg.init_std, min_std=actor_cfg.min_std, dense_units=actor_cfg.dense_units,
                  mlp_layers=actor_cfg.mlp_layers, unimix=0.0, action_clip=1.0, dense_act="elu", layer_norm=False,
                  default_continuous_dist="tanh_normal")

@@ -17,7 +17,8 @@ from typing import Any, Dict, Mapping, Optional, Sequence
 
 import torch
 
-from sheeprl_tpu_torch.algos.dreamer_v3.agent import Actor, Agent, Critic, PlayerDV3, WorldModel, init_weights
+from sheeprl_tpu_torch.algos.dreamer_v3.agent import (Actor, Agent, Critic, PlayerDV3, WorldModel, init_weights,
+                                                    resolve_actor_cls)
 
 PlayerDV2 = PlayerDV3
 
@@ -40,7 +41,7 @@ def make_actor(actions_dim: Sequence[int], is_continuous: bool, cfg) -> Actor:
     """DreamerV2's actor, uninitialized, on the CPU (the task's, and
     Plan2Explore-DV2's exploration actor)."""
     actor_cfg = cfg.algo.actor
-    return Actor(_latent_size(cfg), actions_dim, is_continuous, distribution=cfg.distribution.type,
+    return resolve_actor_cls(actor_cfg)(_latent_size(cfg), actions_dim, is_continuous, distribution=cfg.distribution.type,
                  init_std=actor_cfg.init_std, min_std=actor_cfg.min_std, dense_units=actor_cfg.dense_units,
                  mlp_layers=actor_cfg.mlp_layers, unimix=0.0, action_clip=1.0, eps=EPS, dense_act="elu",
                  layer_norm=bool(cfg.algo.layer_norm), default_continuous_dist="trunc_normal")

@@ -31,6 +31,7 @@ Without noise, draws come from the ``torch.Generator`` passed in.
 from __future__ import annotations
 
 import copy
+import importlib
 import math
 from math import prod
 from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple
@@ -49,7 +50,7 @@ def gumbel_like(x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.
     """Standard Gumbel noise shaped like ``x``, from ``generator``."""
     u = torch.rand(x.shape, dtype=x.dtype, device=x.device, generator=generator)
     tiny = torch.finfo(x.dtype).tiny
-    return -torch.log(-torch.log(u.clamp_min(tiny)).clamp_min(tiny))
+    return -torch.log((-torch.log(u.clamp_min(tiny))).clamp_min(tiny))
 
 
 class DenseStack(nn.Module):
@@ -505,12 +506,15 @@ class Actor(nn.Module):
         generator: Optional[torch.Generator] = None,
         greedy: bool = False,
         noise: Optional[Sequence[torch.Tensor]] = None,
+        mask: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> torch.Tensor:
         """Sample (or take the mode of) the actions, concatenated over heads.
         ``noise`` holds one tensor per head: Gumbel noise shaped like each
         discrete head's logits, or for the continuous head a standard-normal
         draw (a uniform draw in ``[1e-6, 1 - 1e-6]`` for ``trunc_normal``).
-        Greedy takes the mean (its tanh for ``tanh_normal``)."""
+        Greedy takes the mean (its tanh for ``tanh_normal``).  ``mask`` (the
+        ``mask_*`` observations, or None) is ignored here;
+        :class:`MinedojoActor` masks its heads with it."""
         pre_dist = self(state)
         if self.is_continuous:
             mean, std = self._continuous_dist_params(pre_dist[0])
@@ -532,8 +536,10 @@ class Actor(nn.Module):
                 actions = actions * (clip / torch.maximum(clip, torch.abs(actions))).detach()
             return actions
         outs = []
+        functional_action = None
         for i, logits in enumerate(pre_dist):
             logits = _unimix(logits, logits.shape[-1], self.unimix)
+            logits = self._masked_logits_for_head(i, logits, functional_action, mask)
             if greedy:
                 one_hot = F.one_hot(torch.argmax(logits, dim=-1), logits.shape[-1]).to(logits.dtype)
             else:
@@ -543,7 +549,78 @@ class Actor(nn.Module):
                 probs = torch.softmax(logits, dim=-1)
                 one_hot = hard + probs - probs.detach()
             outs.append(one_hot)
+            if functional_action is None:
+                functional_action = torch.argmax(one_hot, dim=-1)
         return torch.cat(outs, dim=-1)
+
+    def _masked_logits_for_head(self, i: int, logits: torch.Tensor, functional_action: Optional[torch.Tensor],
+                                mask: Optional[Mapping[str, torch.Tensor]]) -> torch.Tensor:
+        """The logits of head ``i`` after the unimix transform, as sampled
+        (the base actor's: unchanged)."""
+        return logits
+
+
+class MinedojoActor(Actor):
+    """The actor for MineDojo's MultiDiscrete ``[action type (19), craft
+    argument, equip/place/destroy argument]`` actions, masked hierarchically
+    by the env's per-step ``mask_*`` observations when ``act`` gets them:
+    head 0 by ``mask_action_type``; head 1 by ``mask_craft_smelt`` where the
+    action type taken is craft (15); head 2 by ``mask_equip_place`` where it
+    is equip or place (16, 17) and by ``mask_destroy`` where it is destroy
+    (18).  A masked category's logit is ``-inf`` after the unimix transform,
+    so the others renormalize through the softmax.  The selections are
+    tensor ``where``s on the action taken, not loops over the batch.  The
+    log-probs and entropies of training are the base actor's."""
+
+    CRAFT_ACTION = 15
+    EQUIP_ACTION = 16
+    PLACE_ACTION = 17
+    DESTROY_ACTION = 18
+
+    def __init__(self, *args: Any, **kwargs: Any):
+        super().__init__(*args, **kwargs)
+        if self.is_continuous:
+            raise ValueError("MinedojoActor only supports discrete (MultiDiscrete) action spaces")
+
+    def _masked_logits_for_head(self, i: int, logits: torch.Tensor, functional_action: Optional[torch.Tensor],
+                                mask: Optional[Mapping[str, torch.Tensor]]) -> torch.Tensor:
+        if mask is None or i > 2:
+            return logits
+
+        def allowed_by(key: str) -> torch.Tensor:
+            return mask[key].to(torch.bool).expand_as(logits)
+
+        if i == 0:
+            allowed = allowed_by("mask_action_type")
+        elif i == 1:
+            craft = (functional_action == self.CRAFT_ACTION)[..., None]
+            allowed = torch.where(craft, allowed_by("mask_craft_smelt"), True)
+        else:
+            equip_place = ((functional_action == self.EQUIP_ACTION)
+                           | (functional_action == self.PLACE_ACTION))[..., None]
+            destroy = (functional_action == self.DESTROY_ACTION)[..., None]
+            allowed = torch.where(equip_place, allowed_by("mask_equip_place"),
+                                  torch.where(destroy, allowed_by("mask_destroy"), True))
+        return logits.masked_fill(~allowed, float("-inf"))
+
+
+def resolve_actor_cls(actor_cfg) -> type:
+    """The actor class ``algo.actor.cls`` names (:class:`Actor` when it is
+    unset), for the DreamerV1/V2/V3 actors and so for Plan2Explore's and
+    JEPA's; a name in the JAX package (an archived run's config) names the
+    port's counterpart.  A name that is not an :class:`Actor` subclass
+    raises."""
+    name = actor_cfg.get("cls")
+    if not name:
+        return Actor
+    name = str(name)
+    if name.startswith("sheeprl_tpu."):
+        name = "sheeprl_tpu_torch." + name[len("sheeprl_tpu."):]
+    module_name, _, attr = name.rpartition(".")
+    actor_cls = getattr(importlib.import_module(module_name), attr)
+    if not (isinstance(actor_cls, type) and issubclass(actor_cls, Actor)):
+        raise ValueError(f"algo.actor.cls must name an Actor subclass, got {actor_cfg.get('cls')!r}")
+    return actor_cls
 
 
 def _trunc_normal_fan_avg_(weight: torch.Tensor, fan_in: int, fan_out: int, generator: torch.Generator) -> None:
@@ -712,7 +789,7 @@ def _latent_state_size(cfg) -> int:
 def make_actor(actions_dim: Sequence[int], is_continuous: bool, cfg) -> Actor:
     """The configured actor, uninitialized, on the CPU."""
     actor_cfg = cfg.algo.actor
-    return Actor(
+    return resolve_actor_cls(actor_cfg)(
         latent_state_size=_latent_state_size(cfg),
         actions_dim=actions_dim,
         is_continuous=is_continuous,
@@ -826,18 +903,22 @@ class PlayerDV3:
         generator: Optional[torch.Generator] = None,
         greedy: bool = False,
         noise: Optional[Dict[str, Any]] = None,
+        mask: Optional[Mapping[str, torch.Tensor]] = None,
     ) -> torch.Tensor:
         """One policy step.  ``noise`` may hold ``"representation"`` (Gumbel
-        ``[B, stoch, discrete]``) and ``"actor"`` (one tensor per head)."""
-        return self._fp32(lambda: self._step(obs, generator, greedy, noise or {}))
+        ``[B, stoch, discrete]``) and ``"actor"`` (one tensor per head);
+        ``mask`` (the ``mask_*`` observations, or None) goes to the actor
+        (:class:`MinedojoActor` masks its heads with it)."""
+        return self._fp32(lambda: self._step(obs, generator, greedy, noise or {}, mask))
 
-    def _step(self, obs, generator, greedy, noise) -> torch.Tensor:
+    def _step(self, obs, generator, greedy, noise, mask=None) -> torch.Tensor:
         wm = self.world_model
         embedded = wm.encode(obs)
         recurrent = wm.recurrent_step(self.state["stochastic"], self.state["actions"], self.state["recurrent"])
         _, stochastic = wm.representation(
             None if wm.decoupled_rssm else recurrent, embedded, generator, noise.get("representation")
         )
-        actions = self.actor.act(torch.cat([stochastic, recurrent], dim=-1), generator, greedy, noise.get("actor"))
+        actions = self.actor.act(torch.cat([stochastic, recurrent], dim=-1), generator, greedy, noise.get("actor"),
+                                 mask)
         self.state = {"recurrent": recurrent, "stochastic": stochastic, "actions": actions}
         return actions

@@ -810,7 +810,9 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
                     player.actor = getattr(agent, acting)
                     player_actors.append((iter_num, acting))
                 torch_obs = prepare_obs(stager, obs, cnn_keys, mlp_keys, num_envs)
-                actions_t = player.get_actions(torch_obs, generator)
+                # the mask_* observations feed MinedojoActor's masking
+                mask = {k: v for k, v in torch_obs.items() if k.startswith("mask")} or None
+                actions_t = player.get_actions(torch_obs, generator, mask=mask)
                 player_steps += 1
                 diag.note_fetch()  # the iteration's one blocking copy below
                 if use_device_buffer:

@@ -237,7 +237,8 @@ def test(player, cfg, log_dir: Optional[str], generator: torch.Generator, greedy
     try:
         while not done:
             torch_obs = prepare_obs(stager, obs, cfg.algo.cnn_keys.encoder, cfg.algo.mlp_keys.encoder)
-            actions = player.get_actions(torch_obs, generator, greedy=greedy).cpu().numpy()
+            mask = {k: v for k, v in torch_obs.items() if k.startswith("mask")} or None
+            actions = player.get_actions(torch_obs, generator, greedy=greedy, mask=mask).cpu().numpy()
             real_actions = real_actions_of(actions, player.actions_dim, player.actor.is_continuous)
             obs, reward, terminated, truncated, _ = env.step(real_actions.reshape(env.action_space.shape))
             done = bool(terminated or truncated or cfg.dry_run)

@@ -354,11 +354,11 @@ class OnPolicyFamily:
 def main(runtime, cfg) -> Dict[str, Any]:
     """The PPO loop (:func:`_on_policy_main` with PPO's agent and update)."""
     _minibatches(cfg)  # a rollout PPO cannot cut raises before the run starts
-    return _on_policy_main(runtime, cfg, build_agent, make_update)
+    return _on_policy_main(runtime, cfg, build_agent, make_update, shape_drill=True)
 
 
 def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn,
-                    family: Optional[OnPolicyFamily] = None) -> Dict[str, Any]:
+                    family: Optional[OnPolicyFamily] = None, shape_drill: bool = False) -> Dict[str, Any]:
     """The loop of the on-policy family (PPO, A2C): per iteration a rollout
     of ``algo.rollout_steps`` steps of every env (:func:`rollout`), GAE over
     it (:func:`rollout_data`), the update, logging and checkpoints; one
@@ -372,6 +372,8 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn,
     says whether its optax state carries a schedule's count.  ``family``
     (PPO's by default) gives the options refused, the buffer's size, the
     agent's flax tree, the rollout, the update's data and the test episode.
+    ``shape_drill`` runs the recompile watchdog's drill on the update's data
+    (PPO's loop only, as in the JAX package).
     ``checkpoint.resume_from`` (a file, resolved by ``cli.run``) restores the
     agent, the optimizer's state (either package's) and the counters.
     Returns what the run did: its counters, the metric rows of every
@@ -458,6 +460,10 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn,
         # ---- GAE over the rollout, on the device --------------------------
         with diag.span("buffer-sample"):
             data = diag.maybe_inject_nan(iter_num, family.rollout_data(agent, rb, obs, stage, cfg, device))
+            if shape_drill:
+                # pads rows the minibatch indexing never reads: the math is
+                # unchanged, the step's signature is new
+                data = diag.maybe_inject_shape_change(iter_num, data, pad=runtime.world_size)
 
         # ---- the update: its device work ends inside the timer ------------
         # (between two CUDA events on the card, read at log time)

@@ -13,6 +13,12 @@ The subset of Hydra semantics the config tree uses:
 - ``${a.b}`` absolute interpolation and the ``${now:%fmt}`` resolver;
 - ``???`` mandatory-value markers (validated eagerly after composition).
 
+Extra config directories (``extra_dirs``, and the ``:``-separated
+``SHEEPRL_TPU_SEARCH_PATH``) are searched before the built-in tree, so a
+user's own files add groups and options or shadow shipped ones; a
+``_target_`` in such a file goes through :func:`own_targets`, as an archived
+config's does.
+
 :func:`instantiate` builds a ``_target_``; the targets in ``configs/`` that
 name modules not ported yet are listed in ROADMAP.md.
 """
@@ -62,16 +68,27 @@ class ConfigError(RuntimeError):
     pass
 
 
-def _find_config_file(group: str, option: str) -> Path:
+def _search_dirs(extra_dirs: Optional[Sequence[str]] = None) -> List[Path]:
+    """``extra_dirs``, then ``SHEEPRL_TPU_SEARCH_PATH``'s directories, then
+    the built-in tree (a path that is not a directory is skipped)."""
+    env_paths = os.environ.get("SHEEPRL_TPU_SEARCH_PATH", "")
+    dirs = [Path(p) for p in [*(extra_dirs or []), *(d for d in env_paths.split(":") if d)]]
+    return [d for d in dirs if d.is_dir()] + [CONFIG_DIR]
+
+
+def _find_config_file(group: str, option: str, dirs: Sequence[Path]) -> Path:
     option = option[:-5] if option.endswith(".yaml") else option
-    candidate = CONFIG_DIR / group / f"{option}.yaml"
-    if not candidate.is_file():
-        raise ConfigError(f"Config '{group}/{option}.yaml' not found in {CONFIG_DIR}")
-    return candidate
+    for d in dirs:
+        candidate = d / group / f"{option}.yaml"
+        if candidate.is_file():
+            return candidate
+    raise ConfigError(f"Config '{group}/{option}.yaml' not found in {[str(d) for d in dirs]}")
 
 
 def _load_yaml(path: Path) -> Tuple[Dict[str, Any], bool]:
-    """Load a YAML file. Returns (content, is_global_package)."""
+    """Load a YAML file. Returns (content, is_global_package); the
+    ``_target_``s of a file outside the built-in tree name the port's
+    modules (:func:`own_targets`)."""
     text = path.read_text()
     is_global = False
     for line in text.splitlines():
@@ -84,6 +101,8 @@ def _load_yaml(path: Path) -> Tuple[Dict[str, Any], bool]:
     data = yaml_load(text) or {}
     if not isinstance(data, dict):
         raise ConfigError(f"Top-level YAML in {path} must be a mapping")
+    if CONFIG_DIR.resolve() not in path.resolve().parents:
+        data = own_targets(data)
     return data, is_global
 
 
@@ -97,9 +116,9 @@ def deep_merge(base: Dict[str, Any], overlay: Mapping[str, Any]) -> Dict[str, An
     return base
 
 
-def _compose_group_file(group: str, option: str) -> Dict[str, Any]:
+def _compose_group_file(group: str, option: str, dirs: Sequence[Path]) -> Dict[str, Any]:
     """Load a group option, recursively resolving its own defaults list."""
-    path = _find_config_file(group, option)
+    path = _find_config_file(group, option, dirs)
     data, _ = _load_yaml(path)
     defaults = data.pop("defaults", None)
     if defaults is None:
@@ -111,7 +130,7 @@ def _compose_group_file(group: str, option: str) -> Dict[str, Any]:
             deep_merge(result, data)
             self_merged = True
         elif isinstance(entry, str):
-            deep_merge(result, _compose_group_file(group, entry))
+            deep_merge(result, _compose_group_file(group, entry, dirs))
         elif isinstance(entry, dict):
             for key, value in entry.items():
                 key = str(key)
@@ -122,7 +141,7 @@ def _compose_group_file(group: str, option: str) -> Dict[str, Any]:
                 if "@" in key:
                     src, pkg = key.split("@", 1)
                 src = src.lstrip("/")
-                sub = _compose_group_file(src, str(value))
+                sub = _compose_group_file(src, str(value), dirs)
                 if pkg is None or pkg in ("_here_", "_global_"):
                     deep_merge(result, sub)
                 else:
@@ -137,7 +156,7 @@ def _compose_group_file(group: str, option: str) -> Dict[str, Any]:
     return result
 
 
-def _parse_overrides(overrides: Sequence[str]) -> Tuple[Dict[str, str], Dict[str, Any]]:
+def _parse_overrides(overrides: Sequence[str], dirs: Sequence[Path]) -> Tuple[Dict[str, str], Dict[str, Any]]:
     """Split CLI overrides into group selections and dotted value overrides."""
     group_sel: Dict[str, str] = {}
     dotted: Dict[str, Any] = {}
@@ -147,7 +166,7 @@ def _parse_overrides(overrides: Sequence[str]) -> Tuple[Dict[str, str], Dict[str
         key, _, value = ov.partition("=")
         key = key.lstrip("+~")
         parsed = yaml_load(value) if value != "" else None
-        if "." not in key and (CONFIG_DIR / key).is_dir():
+        if "." not in key and any((d / key).is_dir() for d in dirs):
             group_sel[key] = str(value)
         else:
             dotted[key] = parsed
@@ -232,12 +251,17 @@ def _missing_keys(cfg: Mapping[str, Any], prefix: str = "") -> List[str]:
     return missing
 
 
-def compose(overrides: Sequence[str] = ()) -> dotdict:
-    """Compose the full config tree the way ``@hydra.main`` does."""
-    root_data, _ = _load_yaml(CONFIG_DIR / "config.yaml")
+def compose(overrides: Sequence[str] = (), extra_dirs: Optional[Sequence[str]] = None,
+            check_missing: bool = True) -> dotdict:
+    """Compose the full config tree the way ``@hydra.main`` does, from the
+    root ``config.yaml`` found first in the search path
+    (:func:`_search_dirs`); ``check_missing`` raises on a ``???`` left."""
+    dirs = _search_dirs(extra_dirs)
+    root_path = next(d / "config.yaml" for d in dirs if (d / "config.yaml").is_file())
+    root_data, _ = _load_yaml(root_path)
     root_defaults = root_data.pop("defaults", [])
 
-    group_sel, dotted = _parse_overrides(overrides)
+    group_sel, dotted = _parse_overrides(overrides, dirs)
 
     # Pass 1: figure out which option each group uses.
     selections: Dict[str, str] = {}
@@ -267,7 +291,7 @@ def compose(overrides: Sequence[str] = ()) -> dotdict:
     exp_entries: List[Tuple[str, Dict[str, Any]]] = []
 
     def _collect_exp(option: str) -> None:
-        path = _find_config_file("exp", option)
+        path = _find_config_file("exp", option, dirs)
         data, _ = _load_yaml(path)
         for d_entry in data.get("defaults", []):
             if isinstance(d_entry, str):
@@ -287,7 +311,7 @@ def compose(overrides: Sequence[str] = ()) -> dotdict:
         opt = selections.get(g, "???")
         if opt == "???":
             continue
-        _, is_global = _load_yaml(_find_config_file(g, opt))
+        _, is_global = _load_yaml(_find_config_file(g, opt, dirs))
         if is_global and g == "exp":
             _collect_exp(opt)
 
@@ -305,7 +329,7 @@ def compose(overrides: Sequence[str] = ()) -> dotdict:
         opt = selections.get(g)
         if opt is None or opt == "???" or g == "exp":
             continue  # exp merges last, at the global package
-        deep_merge(cfg.setdefault(g, {}), _compose_group_file(g, opt))
+        deep_merge(cfg.setdefault(g, {}), _compose_group_file(g, opt, dirs))
     if not self_first:
         deep_merge(cfg, root_data)
 
@@ -320,21 +344,23 @@ def compose(overrides: Sequence[str] = ()) -> dotdict:
     # metric's defaults list takes as `/logger@logger`): compose it there
     # (the JAX package keeps the bare name, which its get_logger cannot build)
     logger = (cfg.get("metric") or {}).get("logger")
-    if isinstance(logger, str) and (CONFIG_DIR / "logger" / f"{logger}.yaml").is_file():
-        cfg["metric"]["logger"] = _compose_group_file("logger", logger)
+    if isinstance(logger, str) and any((d / "logger" / f"{logger}.yaml").is_file() for d in dirs):
+        cfg["metric"]["logger"] = _compose_group_file("logger", logger, dirs)
 
     cfg = resolve_interpolations(cfg)
-    missing = _missing_keys(cfg)
-    if missing:
-        raise ConfigError(f"Mandatory config values left unset (???): {missing}")
+    if check_missing:
+        missing = _missing_keys(cfg)
+        if missing:
+            raise ConfigError(f"Mandatory config values left unset (???): {missing}")
     return dotdict(cfg)
 
 
-def compose_group(group: str, option: str = "default") -> dotdict:
+def compose_group(group: str, option: str = "default", extra_dirs: Optional[Sequence[str]] = None) -> dotdict:
     """Compose ONE group option outside a full run config (its own defaults
-    list resolved, interpolations against itself).  The serve CLI uses this to
-    backfill the ``serving`` block of an archived run config."""
-    sub = _compose_group_file(group, option)
+    list resolved, interpolations against itself; the search path as
+    :func:`compose`'s).  The serve CLI uses this to backfill the ``serving``
+    block of an archived run config."""
+    sub = _compose_group_file(group, option, _search_dirs(extra_dirs))
     return dotdict(resolve_interpolations(sub))
 
 
@@ -343,12 +369,14 @@ def compose_group(group: str, option: str = "default") -> dotdict:
 _FOREIGN_PREFIX = ("sheeprl_tpu.", "sheeprl_tpu_torch.")
 _FOREIGN_TARGETS = {"optax.adam": "sheeprl_tpu_torch.utils.optim.adam",
                     "optax.adamw": "sheeprl_tpu_torch.utils.optim.adamw",
-                    "optax.rmsprop": "sheeprl_tpu_torch.utils.optim.rmsprop"}
+                    "optax.rmsprop": "sheeprl_tpu_torch.utils.optim.rmsprop",
+                    "optax.sgd": "sheeprl_tpu_torch.utils.optim.sgd"}
 
 
 def own_targets(node: Any) -> Any:
     """A copy of an archived run config with every ``_target_`` the JAX
-    package wrote (``sheeprl_tpu.…``, ``optax.adam``, ``optax.adamw``, ``optax.rmsprop``)
+    package wrote (``sheeprl_tpu.…``, ``optax.adam``, ``optax.adamw``, ``optax.rmsprop``,
+    ``optax.sgd``)
     naming the port's counterpart, so that a JAX run resumes and evaluates
     here."""
     if isinstance(node, Mapping):

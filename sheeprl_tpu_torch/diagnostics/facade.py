@@ -15,7 +15,8 @@ from sheeprl_tpu_torch.diagnostics.goodput import GoodputMonitor
 from sheeprl_tpu_torch.diagnostics.health import HealthMonitor
 from sheeprl_tpu_torch.diagnostics.journal import JOURNAL_NAME, RunJournal
 from sheeprl_tpu_torch.diagnostics.memory import MemoryMonitor
-from sheeprl_tpu_torch.diagnostics.sentinel import DivergenceDetector, SentinelHalt, SentinelSpec, poison_tree, sentinel_spec
+from sheeprl_tpu_torch.diagnostics.sentinel import (DivergenceDetector, SentinelHalt, SentinelSpec, pad_tree, poison_tree,
+                                                    sentinel_spec)
 from sheeprl_tpu_torch.diagnostics.telemetry import Telemetry
 from sheeprl_tpu_torch.diagnostics.tracing import TRACE_NAME, NullTracer, PhaseTracer
 
@@ -491,6 +492,23 @@ class Diagnostics:
         if self.journal is not None:
             self.journal.write("fault_injection", iter_num=int(iter_num))
         return poison_tree(tree)
+
+    def maybe_inject_shape_change(self, iter_num: int, tree, pad: int = 1):
+        """Pad the leading axis of every tensor of ``tree`` by repeating its
+        last row ``pad`` times at
+        ``diagnostics.telemetry.watchdog.inject_shape_change_iter`` (the
+        recompile watchdog's drill).  Only the PPO loop calls it: its
+        minibatch indexing reads exactly ``num_minibatches * batch_size``
+        rows, so the padding is never sampled while the step's dispatch
+        signature changes and the watchdog journals a ``recompile``."""
+        telemetry = self.telemetry
+        if telemetry is None or telemetry.inject_shape_change_iter is None:
+            return tree
+        if int(iter_num) != telemetry.inject_shape_change_iter:
+            return tree
+        if self.journal is not None:
+            self.journal.write("fault_injection", iter_num=int(iter_num), kind="shape_change", pad=int(pad))
+        return pad_tree(tree, int(pad))
 
 
 def build_diagnostics(cfg: Optional[Mapping[str, Any]]) -> Diagnostics:

@@ -128,6 +128,19 @@ def poison_tree(tree: Any) -> Any:
     return tree
 
 
+def pad_tree(tree: Any, pad: int) -> Any:
+    """A copy of ``tree`` with the leading axis of every tensor of one or
+    more dims grown by ``pad`` repeats of its last row (the shape-change
+    drill); scalars and other leaves pass through."""
+    if isinstance(tree, Mapping):
+        return type(tree)((k, pad_tree(v, pad)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(pad_tree(v, pad) for v in tree)
+    if isinstance(tree, torch.Tensor) and tree.dim() > 0:
+        return torch.cat([tree, tree[-1:].expand(pad, *tree.shape[1:])], dim=0)
+    return tree
+
+
 # --------------------------------------------------------------------------
 # Host-side rolling divergence detector
 # --------------------------------------------------------------------------

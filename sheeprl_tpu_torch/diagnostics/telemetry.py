@@ -263,6 +263,8 @@ class Telemetry:
         # clamped: threshold 0 would turn every new signature into a storm
         self.storm_threshold = max(1, int(wd_cfg.get("storm_threshold", 5)))
         self.storm_window_s = float(wd_cfg.get("storm_window_s", 60.0))
+        inject = wd_cfg.get("inject_shape_change_iter")
+        self.inject_shape_change_iter = None if inject is None else int(inject)
         mfu_cfg = tele_cfg.get("mfu") or {}
         self.mfu_enabled = bool(mfu_cfg.get("enabled", True))
         self.cost_analysis_enabled = self.mfu_enabled and bool(mfu_cfg.get("cost_analysis", True))

@@ -2,13 +2,17 @@
 ``make_env`` and ``make_env_fns``, the dict-observation normalization and
 the pixel pipeline, the executor choice and the synchronous vector env.
 
-Two env targets are ported: the dummy envs (``env=dummy``) and
-``gymnasium.make`` (``env=gym``), which imports gymnasium inside the thunk:
-the port's modules never need it, and a machine without it fails only when
-such an env is built.  A gymnasium env is adapted to the port's spaces
-(``envs/spaces.py``) as it is built.  The other backends (Atari, DMC,
-Crafter, MineRL, MineDojo, DIAMBRA, Super Mario Bros) and video capture
-raise ``NotImplementedError`` (ROADMAP.md Queue 1).
+The env targets: the dummy envs (``env=dummy``); ``gymnasium.make``
+(``env=gym``) and the Atari preprocessing over it (``env=atari``), which
+import gymnasium inside the thunk, so that the port's modules never need it
+and a machine without it fails only when such an env is built (a gymnasium
+env is adapted to the port's spaces, ``envs/spaces.py``, as it is built);
+and the backends' adapters (``envs/dmc.py``, ``crafter.py``,
+``diambra.py``, ``minedojo.py``, ``minerl.py``, ``super_mario_bros.py``),
+which raise ``ModuleNotFoundError`` where their simulator is missing, as
+the JAX package's do.  ``env.capture_video`` wraps the first env of a run
+in :class:`~sheeprl_tpu_torch.envs.wrappers.RecordVideo`, and warns and
+goes on without video where the recorder cannot be built.
 
 A thunk is an :class:`EnvThunk`, a module-level callable holding the
 config, seed, rank and index, so that it crosses to the spawned env
@@ -18,6 +22,8 @@ workers by the standard pickle.
 from __future__ import annotations
 
 import functools
+import importlib
+import os
 import warnings
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Any, Callable, Dict, List, Optional, Sequence
@@ -30,8 +36,10 @@ from sheeprl_tpu_torch.envs.wrappers import (
     ActionRepeat,
     ActionsAsObservationWrapper,
     FrameStack,
+    GrayscaleRenderWrapper,
     MaskVelocityWrapper,
     RecordEpisodeStatistics,
+    RecordVideo,
     RestartOnException,
     RewardAsObservationWrapper,
     TimeLimit,
@@ -68,6 +76,8 @@ class _GymnasiumEnv:
         self.observation_space = _port_space(env.observation_space)
         self.action_space = _port_space(env.action_space)
         self.reward_range = getattr(env, "reward_range", None)
+        self.render_mode = getattr(env, "render_mode", None)
+        self.metadata = getattr(env, "metadata", {})
 
     @property
     def unwrapped(self):
@@ -214,15 +224,36 @@ def _wrapper_target(wrapper_cfg: Dict[str, Any]) -> str:
     return target
 
 
-def _instantiate_env(wrapper_cfg: Dict[str, Any]):
+#: the backends' adapters, by ``env.wrapper._target_`` without its package
+BACKENDS = ("envs.dmc.DMCWrapper", "envs.crafter.CrafterWrapper", "envs.diambra.DiambraWrapper",
+            "envs.minedojo.MineDojoWrapper", "envs.minerl.MineRLWrapper",
+            "envs.super_mario_bros.SuperMarioBrosWrapper")
+
+
+def _instantiate_env(wrapper_cfg: Dict[str, Any], seed: Optional[int] = None, rank: int = 0):
+    """The env ``env.wrapper`` names; a backend's ``seed`` and ``rank``
+    keys, where its config has them, take the env's seed and rank, as the
+    JAX package's ``make_env`` passes them."""
     target = _wrapper_target(wrapper_cfg)
+    kwargs = {k: v for k, v in wrapper_cfg.items() if k != "_target_"}
     if target == "envs.env.get_dummy_env":
         return get_dummy_env(wrapper_cfg["id"], sleep_ms=float(wrapper_cfg.get("sleep_ms") or 0.0))
     if target == "gymnasium.make":
         import gymnasium
 
-        kwargs = {k: v for k, v in wrapper_cfg.items() if k != "_target_"}
         return _GymnasiumEnv(gymnasium.make(**kwargs))
+    if target == "gymnasium.wrappers.AtariPreprocessing":
+        import gymnasium
+
+        inner = {k: v for k, v in kwargs.pop("env").items() if k != "_target_"}
+        return _GymnasiumEnv(gymnasium.wrappers.AtariPreprocessing(gymnasium.make(**inner), **kwargs))
+    if target in BACKENDS:
+        if "seed" in kwargs:
+            kwargs["seed"] = seed
+        if "rank" in kwargs:
+            kwargs["rank"] = rank
+        module, _, name = target.rpartition(".")
+        return getattr(importlib.import_module(f"sheeprl_tpu_torch.{module}"), name)(**kwargs)
     raise NotImplementedError(f"env backend {wrapper_cfg.get('_target_')!r} is {_NOT_PORTED}")
 
 
@@ -241,7 +272,7 @@ class EnvThunk:
 
     def __call__(self):
         cfg = self.cfg
-        env = _instantiate_env(dict(cfg.env.wrapper))
+        env = _instantiate_env(dict(cfg.env.wrapper), self.seed, self.rank + self.vector_env_idx)
         if cfg.env.action_repeat > 1:
             env = ActionRepeat(env, cfg.env.action_repeat)
         if cfg.env.get("mask_velocities", False):
@@ -307,7 +338,15 @@ class EnvThunk:
         env.observation_space.seed(self.seed)
         if cfg.env.get("max_episode_steps") and cfg.env.max_episode_steps > 0:
             env = TimeLimit(env, cfg.env.max_episode_steps)
-        return RecordEpisodeStatistics(env)
+        env = RecordEpisodeStatistics(env)
+        if cfg.env.capture_video and self.rank == 0 and self.vector_env_idx == 0 and self.run_name is not None:
+            if cfg.env.grayscale:
+                env = GrayscaleRenderWrapper(env)
+            try:
+                env = RecordVideo(env, os.path.join(self.run_name, self.prefix + "_videos" if self.prefix else "videos"))
+            except Exception as err:  # moviepy may be missing, or the env renders no image
+                warnings.warn(f"Video capture disabled: {err}")
+        return env
 
 
 def make_env(
@@ -318,11 +357,9 @@ def make_env(
     prefix: str = "",
     vector_env_idx: int = 0,
 ) -> EnvThunk:
-    """The thunk of one wrapped env.  A run's envs (``run_name`` given) with
-    ``env.capture_video`` raise: video capture is not ported."""
-    if cfg.env.get("capture_video", False) and run_name is not None:
-        raise NotImplementedError(f"env.capture_video=True (video capture) is {_NOT_PORTED}; "
-                                  "pass env.capture_video=False")
+    """The thunk of one wrapped env; with ``env.capture_video`` a run's first
+    env (``run_name`` given, rank 0, index 0) records its videos under
+    ``<run_name>/<prefix>_videos``."""
     return EnvThunk(cfg, seed, rank, run_name, prefix, vector_env_idx)
 
 

@@ -2,13 +2,14 @@
 port's own spaces (``envs/spaces.py``) so that no env needs gymnasium: the
 base wrapper, ``ActionRepeat``, the frame-stack ring with dilation, actions
 and reward as observations, velocity masking, ``RestartOnException``, and
-the two wrappers of gymnasium the JAX package applies to every env, the
-episode ``TimeLimit`` and ``RecordEpisodeStatistics``, with gymnasium's
-semantics."""
+the wrappers of gymnasium the JAX package applies, the episode
+``TimeLimit``, ``RecordEpisodeStatistics`` and ``RecordVideo`` (with
+``GrayscaleRenderWrapper``), with gymnasium's semantics."""
 
 from __future__ import annotations
 
 import copy
+import os
 import time
 import warnings
 from collections import deque
@@ -31,6 +32,14 @@ class Wrapper:
     @property
     def unwrapped(self):
         return getattr(self.env, "unwrapped", self.env)
+
+    @property
+    def render_mode(self):
+        return getattr(self.env, "render_mode", None)
+
+    @property
+    def metadata(self):
+        return getattr(self.env, "metadata", {})
 
     def step(self, action):
         return self.env.step(action)
@@ -403,3 +412,91 @@ class ActionsAsObservationWrapper(Wrapper):
             self._actions.append(self.noop)
         obs["action_stack"] = self._get_actions_stack()
         return obs, info
+
+
+class GrayscaleRenderWrapper(Wrapper):
+    """Renders grayscale frames as 3-channel so video encoders accept them."""
+
+    def render(self):
+        frame = self.env.render()
+        if isinstance(frame, np.ndarray):
+            if frame.ndim == 2:
+                frame = frame[..., np.newaxis]
+            if frame.ndim == 3 and frame.shape[-1] == 1:
+                frame = frame.repeat(3, axis=-1)
+        return frame
+
+
+def capped_cubic_video_schedule(episode_id: int) -> bool:
+    """gymnasium's default trigger: episodes 0, 1, 8, 27, ... below 1000,
+    then every thousandth."""
+    if episode_id < 1000:
+        return int(round(episode_id ** (1.0 / 3))) ** 3 == episode_id
+    return episode_id % 1000 == 0
+
+
+class RecordVideo(Wrapper):
+    """gymnasium's ``RecordVideo`` over the port's envs: the episodes that
+    ``episode_trigger`` (by default :func:`capped_cubic_video_schedule`)
+    picks are rendered frame by frame and written with moviepy to
+    ``<video_folder>/<name_prefix>-episode-<id>.mp4`` at the next reset (or
+    at ``close``).  As
+    gymnasium's, it refuses an env that renders no image and needs moviepy
+    when it is built."""
+
+    def __init__(self, env, video_folder: str, episode_trigger: Optional[Callable[[int], bool]] = None,
+                 name_prefix: str = "rl-video", fps: Optional[int] = None):
+        super().__init__(env)
+        if self.render_mode in (None, "human", "ansi"):
+            raise ValueError(
+                f"Render mode is {self.render_mode}, which is incompatible with RecordVideo.",
+                "Initialize your environment with a render_mode that returns an image, such as rgb_array.",
+            )
+        self.episode_trigger = episode_trigger or capped_cubic_video_schedule
+        self.video_folder = os.path.abspath(video_folder)
+        os.makedirs(self.video_folder, exist_ok=True)
+        self.fps = fps if fps is not None else self.metadata.get("render_fps", 30)
+        self.name_prefix = name_prefix
+        self.episode_id = -1
+        self.frames: List[Any] = []
+        self.video_name: Optional[str] = None
+        try:
+            import moviepy  # noqa: F401
+        except ImportError as err:
+            raise ImportError('moviepy is not installed, run `pip install "gymnasium[other]"`') from err
+
+    def _capture(self) -> None:
+        frame = self.env.render()
+        if isinstance(frame, list):
+            frame = frame[-1]
+        if isinstance(frame, np.ndarray):
+            self.frames.append(frame)
+
+    def reset(self, seed=None, options=None):
+        obs, info = self.env.reset(seed=seed, options=options)
+        self.episode_id += 1
+        if self.video_name is not None:
+            self._write()
+        if self.episode_trigger(self.episode_id):
+            self.video_name = f"{self.name_prefix}-episode-{self.episode_id}"
+            self._capture()
+        return obs, info
+
+    def step(self, action):
+        obs, reward, terminated, truncated, info = self.env.step(action)
+        if self.video_name is not None:
+            self._capture()
+        return obs, reward, terminated, truncated, info
+
+    def _write(self) -> None:
+        from moviepy.video.io.ImageSequenceClip import ImageSequenceClip
+
+        if self.frames:
+            path = os.path.join(self.video_folder, f"{self.video_name}.mp4")
+            ImageSequenceClip(self.frames, fps=self.fps).write_videofile(path, logger=None)
+        self.frames, self.video_name = [], None
+
+    def close(self):
+        if self.video_name is not None:
+            self._write()
+        super().close()

@@ -35,7 +35,8 @@ and a ``ScaleByScheduleState(count)`` after Adam's with ``algo.anneal_lr``.
 optax's ``rmsprop`` (A2C) holds ``(ScaleByRmsState(nu), EmptyState(),
 TraceState(trace))``, the last an ``EmptyState()`` without momentum; ``nu``
 and ``trace`` are the port's :class:`~sheeprl_tpu_torch.utils.optim.RMSprop`
-state of the same names.  An optimizer over several trees (DreamerV3-JEPA's
+state of the same names (:func:`optax_state` lists its other variants,
+``sgd``'s and ``adamw``'s).  An optimizer over several trees (DreamerV3-JEPA's
 world model and its heads) has a list as its spec, and optax a tuple of
 trees, in the same order (SAC-AE's critic optimizer over ``(encoder,
 critic)``), and a bare array (SAC's ``log_alpha``) a leaf.  Plan2Explore-DV3's
@@ -597,23 +598,34 @@ def _map_spec(spec: Mapping[str, Any] | list | tuple, fn) -> Any:
 def optax_state(optimizer: torch.optim.Optimizer, spec: Mapping[str, Any] | list, clip: bool = True,
                 schedule: bool = False) -> Any:
     """``optimizer``'s state as the tree the JAX package pickles for optax's
-    ``chain(clip_by_global_norm(c), adam(...))``: ``(EmptyState(),
-    (ScaleByAdamState(count, mu, nu), EmptyState()))``, ``mu``/``nu`` in the
-    flax layout of ``spec`` (the module's subtree of :func:`param_spec`, or
-    :func:`ppo_spec`) and ``count`` Adam's ``step`` as int32; for the port's
-    ``RMSprop`` ``(ScaleByRmsState(nu), EmptyState(), TraceState(trace))``
-    in Adam's place (optax's ``rmsprop``, an ``EmptyState()`` for the trace
-    without momentum).  Without ``clip`` the chain is ``chain(adam)``:
-    ``((ScaleByAdamState, EmptyState()),)``; with ``schedule`` (Adam's
-    learning rate a schedule) the ``EmptyState()`` after Adam's is a
-    ``ScaleByScheduleState(count)``; ``torch.optim.AdamW`` (optax's
-    ``adamw``) has ``add_decayed_weights``' ``EmptyState()`` between the
-    two.  A parameter Adam has not stepped yet holds zeros, as optax's
-    ``init`` does."""
+    ``chain(clip_by_global_norm(c), <optimizer>)``: ``(EmptyState(),
+    <the optimizer's chain>)``, or ``(<the optimizer's chain>,)`` without
+    ``clip``.  Its moments are laid out as ``spec`` (the module's subtree
+    of :func:`param_spec`, or :func:`ppo_spec`), its count is the step as
+    int32, and the rate's state is ``EmptyState()``, or
+    ``ScaleByScheduleState(count)`` with ``schedule`` (the rate a
+    schedule).  The optimizers' chains:
+
+    - Adam (``torch.optim.Adam``, or :class:`OptaxAdam` without a decay):
+      ``(ScaleByAdamState(count, mu, nu), <rate>)``;
+    - AdamW (``torch.optim.AdamW``, or :class:`OptaxAdam` with one):
+      ``add_decayed_weights``' ``EmptyState()`` between the two, a
+      ``MaskedState(EmptyState())`` with a ``mask``;
+    - :class:`RMSprop`: ``(<rms>, <rate>, TraceState(trace))``, an
+      ``EmptyState()`` for the trace without momentum; ``<rms>`` is
+      ``ScaleByRmsState(nu)``, ``ScaleByRStdDevState(mu, nu)`` when
+      ``centered``, each ``...WithCountState(count, ...)`` with
+      ``bias_correction``;
+    - :class:`SGD`: ``(TraceState(trace), <rate>)``, an ``EmptyState()``
+      for the trace without momentum.
+
+    A parameter Adam has not stepped yet holds zeros, as optax's ``init``
+    does."""
     from sheeprl_tpu_torch.utils.checkpoint import OptaxState
-    from sheeprl_tpu_torch.utils.optim import RMSprop
+    from sheeprl_tpu_torch.utils.optim import SGD, OptaxAdam, RMSprop
 
     empty = OptaxState.make("optax._src.base", "EmptyState")
+    trace_state = OptaxState.make("optax.transforms._accumulation", "TraceState")
 
     def slot(name: str):
         def leaf(tensor: torch.Tensor, kind: str, *meta: Any) -> np.ndarray:
@@ -624,23 +636,44 @@ def optax_state(optimizer: torch.optim.Optimizer, spec: Mapping[str, Any] | list
             return np.array(_to_flax(value.detach().cpu().float().numpy(), kind, *meta), order="C", copy=True)
         return leaf
 
-    if isinstance(optimizer, RMSprop):
-        rms = OptaxState.make("optax._src.transform", "ScaleByRmsState")
-        trace = OptaxState.make("optax.transforms._accumulation", "TraceState")
-        momentum = optimizer.param_groups[0]["momentum"]
-        base = (rms(_map_spec(spec, slot("nu"))), empty(),
-                empty() if momentum is None else trace(_map_spec(spec, slot("trace"))))
-        return (empty(), base) if clip else (base,)
-    adam = OptaxState.make("optax._src.transform", "ScaleByAdamState")
     steps = {float(s["step"]) for s in optimizer.state.values() if "step" in s}
     if len(steps) > 1:
-        raise ValueError(f"Adam's parameters disagree on the step count: {sorted(steps)}")
+        raise ValueError(f"the optimizer's parameters disagree on the step count: {sorted(steps)}")
     count = np.asarray(int(steps.pop()) if steps else 0, np.int32)
-    after = OptaxState.make("optax._src.transform", "ScaleByScheduleState")(count.copy()) if schedule else empty()
-    # optax's adamw chains add_decayed_weights between the two
-    decay = (empty(),) if isinstance(optimizer, torch.optim.AdamW) else ()
-    base = (adam(count, _map_spec(spec, slot("exp_avg")), _map_spec(spec, slot("exp_avg_sq"))), *decay, after)
+    rate = OptaxState.make("optax._src.transform", "ScaleByScheduleState")(count.copy()) if schedule else empty()
+    group = optimizer.param_groups[0]
+    if isinstance(optimizer, RMSprop):
+        fields = (_map_spec(spec, slot("mu")),) if group["centered"] else ()
+        fields += (_map_spec(spec, slot("nu")),)
+        name = "ScaleByRStdDev" if group["centered"] else "ScaleByRms"
+        if group["bias_correction"]:
+            name, fields = name + "WithCountState", (count.copy(), *fields)
+        else:
+            name += "State"
+        trace = empty() if group["momentum"] is None else trace_state(_map_spec(spec, slot("trace")))
+        base = (OptaxState.make("optax._src.transform", name)(*fields), rate, trace)
+    elif isinstance(optimizer, SGD):
+        trace = empty() if group["momentum"] is None else trace_state(_map_spec(spec, slot("trace")))
+        base = (trace, rate)
+    else:
+        adam = OptaxState.make("optax._src.transform", "ScaleByAdamState")
+        # optax's adamw chains add_decayed_weights between the two
+        decay: tuple = ()
+        if isinstance(optimizer, torch.optim.AdamW):
+            decay = (empty(),)
+        elif isinstance(optimizer, OptaxAdam) and group["weight_decay"] is not None:
+            decay = (empty() if optimizer.mask is None
+                     else OptaxState.make("optax.transforms._masking", "MaskedState")(empty()),)
+        base = (adam(count, _map_spec(spec, slot("exp_avg")), _map_spec(spec, slot("exp_avg_sq"))), *decay, rate)
     return (empty(), base) if clip else (base,)
+
+
+def _state_tensor(value: Any) -> torch.Tensor:
+    """A saved state leaf as a tensor; optax's bfloat16 moments (an
+    ``mu_dtype``) as float32, which holds them exactly (the optimizer takes
+    them to its own dtype)."""
+    value = np.asarray(value)
+    return torch.tensor(value.astype(np.float32) if value.dtype.name == "bfloat16" else value)
 
 
 def optimizer_state_dict(saved: Any, optimizer: torch.optim.Optimizer,
@@ -648,11 +681,13 @@ def optimizer_state_dict(saved: Any, optimizer: torch.optim.Optimizer,
     """``optimizer``'s ``state_dict`` restored from a checkpoint's
     ``opt_states[name]``, for ``optimizer.load_state_dict``: the port's own
     (a torch ``state_dict`` stored as numpy) or the JAX package's optax
-    chain state, whose Adam moments (or RMSprop's ``nu`` and trace) map
-    through ``spec``, the module's subtree of :func:`param_spec`.  The
-    hyperparameters stay those of ``optimizer``, as a JAX resume rebuilds
-    its optax chain from the config."""
-    from sheeprl_tpu_torch.utils.optim import RMSprop
+    chain state (the layouts of :func:`optax_state`), whose moments map
+    through ``spec``, the module's subtree of :func:`param_spec`.  The step
+    is the chain's count: Adam's, the RMS state's with ``bias_correction``,
+    else, for SGD, a schedule's or 0.  The hyperparameters stay those of
+    ``optimizer``, as a JAX resume rebuilds its optax chain from the
+    config."""
+    from sheeprl_tpu_torch.utils.optim import SGD, RMSprop
 
     groups = optimizer.state_dict()["param_groups"]
     if isinstance(saved, Mapping) and "state" in saved:
@@ -662,17 +697,40 @@ def optimizer_state_dict(saved: Any, optimizer: torch.optim.Optimizer,
     params = [p for group in optimizer.param_groups for p in group["params"]]
     index = {id(p): i for i, p in enumerate(params)}
     state: Dict[int, Dict[str, torch.Tensor]] = {}
-    if isinstance(optimizer, RMSprop):
-        rms, trace = _optax_node(saved, "ScaleByRmsState"), _optax_node(saved, "TraceState")
-        momentum = optimizer.param_groups[0]["momentum"]
-        if rms is None or (trace is None) != (momentum is None):
-            raise ValueError(f"the saved optimizer state is not optax's rmsprop with momentum={momentum}: "
-                             f"{saved!r:.200}")
-        for tensor, nu in _walk(spec, rms[0], "", {}):
-            state[index[id(tensor)]] = {"nu": torch.tensor(nu)}
+
+    def put(tree: Any, name: str) -> None:
+        for tensor, value in _walk(spec, tree, "", {}):
+            state.setdefault(index[id(tensor)], {})[name] = _state_tensor(value)
+
+    def mismatch(what: str) -> ValueError:
+        return ValueError(f"the saved optimizer state is not optax's {what}: {saved!r:.200}")
+
+    group = optimizer.param_groups[0]
+    schedule = _optax_node(saved, "ScaleByScheduleState")
+    count = schedule[0] if schedule is not None else 0
+    if isinstance(optimizer, (RMSprop, SGD)):
+        trace = _optax_node(saved, "TraceState")
+        if (trace is None) != (group["momentum"] is None):
+            raise mismatch(f"{type(optimizer).__name__} with momentum={group['momentum']}")
+        if isinstance(optimizer, RMSprop):
+            name = ("ScaleByRStdDev" if group["centered"] else "ScaleByRms") + (
+                "WithCountState" if group["bias_correction"] else "State")
+            rms = _optax_node(saved, name)
+            if rms is None:
+                raise mismatch(f"rmsprop with centered={group['centered']}, "
+                               f"bias_correction={group['bias_correction']}")
+            fields = list(rms)
+            if group["bias_correction"]:
+                count = fields.pop(0)
+            if group["centered"]:
+                put(fields.pop(0), "mu")
+            put(fields[0], "nu")
         if trace is not None:
-            for tensor, value in _walk(spec, trace[0], "", {}):
-                state[index[id(tensor)]]["trace"] = torch.tensor(value)
+            put(trace[0], "trace")
+        if isinstance(optimizer, SGD) or group["bias_correction"]:
+            step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
+            for i in range(len(params)):
+                state.setdefault(i, {})["step"] = step.clone()
     else:
         adam = _optax_node(saved, "ScaleByAdamState")
         if adam is None:
@@ -681,8 +739,8 @@ def optimizer_state_dict(saved: Any, optimizer: torch.optim.Optimizer,
         count, mu, nu = adam[:3]
         step = torch.tensor(float(np.asarray(count)), dtype=torch.float32)
         for (tensor, exp_avg), (_, exp_avg_sq) in zip(_walk(spec, mu, "", {}), _walk(spec, nu, "", {})):
-            state[index[id(tensor)]] = {"step": step.clone(), "exp_avg": torch.tensor(exp_avg),
-                                        "exp_avg_sq": torch.tensor(exp_avg_sq)}
+            state[index[id(tensor)]] = {"step": step.clone(), "exp_avg": _state_tensor(exp_avg),
+                                        "exp_avg_sq": _state_tensor(exp_avg_sq)}
     if len(state) != len(index):
         raise KeyError(f"the optax state covers {len(state)} of the optimizer's {len(index)} parameters")
     return {"state": state, "param_groups": groups}

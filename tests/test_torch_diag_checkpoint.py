@@ -18,8 +18,10 @@ import optax
 import pytest
 import torch
 
+from sheeprl_tpu.algos.dreamer_v3 import dreamer_v3 as jax_dv3
 from sheeprl_tpu.algos.dreamer_v3.dreamer_v3 import make_train_step as jax_make_train_step
 from sheeprl_tpu.config import instantiate as jax_instantiate
+from sheeprl_tpu.ops import distributions as jax_distributions
 from sheeprl_tpu.resilience.manifest import verify_checkpoint as jax_verify_checkpoint
 from sheeprl_tpu.utils.checkpoint import load_state as jax_load_state
 from sheeprl_tpu_torch import cli
@@ -132,6 +134,29 @@ def test_jax_resumes_a_port_checkpoint_and_its_next_step_matches_the_ports(disc,
 
     batch = {k: v.astype(np.float32) for k, v in _batch(disc, 17).items()}
     key = jax.random.PRNGKey(33)
+    # the JAX step once more in float64, the reference for the Adam moments
+    # below: the actor's gradient is small (first moments ~3e-5 once the run
+    # samples its actions) and the jitted float32 step's own rounding there
+    # exceeds their tolerance.  Same keys, so same draws: each categorical is
+    # drawn on float32 logits, as in the float32 step
+    categorical = jax.random.categorical
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+        mp.setattr(jax_distributions, "_f32", lambda x: x)
+        mp.setattr(jax_dv3, "compute_dtype_of", lambda cfg: jnp.float64)
+        mp.setattr(jax.random, "categorical",
+                   lambda k, logits, **kw: categorical(k, logits.astype(jnp.float32), **kw))
+        step64 = jax_make_train_step(disc.wm_def, disc.actor_def, disc.critic_def, opts, jax_cfg, disc.actions_dim,
+                                     False)
+        def f64(tree):
+            return jax.tree_util.tree_map(
+                lambda v: jnp.asarray(v, jnp.float64 if np.issubdtype(np.asarray(v).dtype, np.floating) else None),
+                tree)
+
+        params64 = {k: f64(state[k]) for k in params}
+        opt_states64 = {k: f64(state["opt_states"][k]) for k in TRAINED}
+        exact = jax.tree_util.tree_map(np.asarray, step64(
+            params64, opt_states64, f64(state["moments"]), {k: jnp.asarray(v, jnp.float64) for k, v in batch.items()},
+            key, jnp.float64(0.02))[1])
     params, opt_states, moments, jax_metrics, jax_health = jax_step(
         params, opt_states, moments, {k: jnp.asarray(v) for k, v in batch.items()}, key, jnp.float32(0.02))
     moments_state, metrics = step(moments_state, {k: torch.from_numpy(v) for k, v in batch.items()}, 0.02, None,
@@ -154,7 +179,7 @@ def test_jax_resumes_a_port_checkpoint_and_its_next_step_matches_the_ports(disc,
         np.testing.assert_allclose(got[p], value, atol=2e-6, rtol=1e-5, err_msg=p)
     moments_got = _adam_moments(agent, optimizers)
     for name in TRAINED:
-        adam_state = opt_states[name][1][0]
+        adam_state = exact[name][1][0]
         for slot, tree in (("exp_avg", adam_state.mu), ("exp_avg_sq", adam_state.nu)):
             w, g = _leaves(tree), _leaves(moments_got[name][slot])
             scale = max(float(np.abs(v).max()) for v in w.values())

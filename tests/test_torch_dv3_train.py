@@ -622,9 +622,12 @@ def test_run_refuses_options_it_does_not_port(tmp_path, monkeypatch):
     # diagnostics run (the default); the JAX compilation cache has no eager counterpart
     with pytest.raises(NotImplementedError, match="diagnostics.compilation_cache_dir"):
         cli.run(RUN + ["diagnostics.compilation_cache_dir=cache"])
-    # the executors are ported; video capture is not
-    with pytest.raises(NotImplementedError, match="capture_video"):
-        cli.run(RUN + ["env.capture_video=True"])
+    # the executors and video capture are ported: the dummy env renders no
+    # image, so its run goes on without video and warns, as the JAX one does
+    from sheeprl_tpu_torch.envs.env import make_env_fns
+
+    with pytest.warns(UserWarning, match="Video capture disabled"):
+        make_env_fns(compose(RUN + ["env.capture_video=True"]), str(tmp_path))[0]().close()
     # offline training is ported: routed to the offline loop, which needs a dataset
     with pytest.raises(ValueError, match="requires algo.offline.dataset_dir"):
         cli.run(RUN + ["algo.offline.enabled=True"])

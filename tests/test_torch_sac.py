@@ -224,9 +224,12 @@ def test_adamw_matches_optax_over_several_steps_with_its_state_both_ways(setup):
 
 
 def test_adamw_refuses_the_variants_it_does_not_port():
-    for bad in (dict(mask=lambda p: p), dict(nesterov=True), dict(eps_root=1e-8), dict(mu_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-            adamw(1e-3, **bad)
+    # every variant is ported now: optax's update written out (OptaxAdam;
+    # tests/test_torch_optim.py holds each to optax)
+    for variant in (dict(mask=lambda p: [True] * len(p)), dict(nesterov=True), dict(eps_root=1e-8),
+                    dict(mu_dtype="bfloat16")):
+        opt = adamw(1e-3, **variant)([torch.nn.Parameter(torch.zeros(2))])
+        assert type(opt).__name__ == "OptaxAdam" and opt.param_groups[0]["weight_decay"] == 1e-4
     opt = instantiate({"_target_": "optax.adamw", "learning_rate": 1e-3})([torch.nn.Parameter(torch.zeros(2))])
     assert isinstance(opt, torch.optim.AdamW) and opt.defaults["weight_decay"] == 1e-4  # optax's default
 
