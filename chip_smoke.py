@@ -31,6 +31,24 @@ Phases, in order; any failure raises and the script exits non-zero:
             bf16 the gradients arrive in bf16, and in fp32 at fp32 masters
             through the cast); S B=64 and B=48 are the chunked scan's rows
             and its burn-in's at ``rssm_chunks=4``;
+3b. resilience — DreamerV3-S (fp32, batch 16 x 64, horizon 15) as
+            ``python -m sheeprl_tpu_torch run`` children of the port's
+            ``supervise_command`` (``RESILIENCE_OVERRIDES``): the first runs
+            the chaos schedule ``slow_write`` then ``preempt`` and must pass
+            the drill's checks (``chaos.judge_drill``: exit 75, the two
+            chains, status ``preempted``, a final checkpoint that verifies)
+            with a ``ckpt_end`` queued at least ``slow_write_s``; the
+            supervisor respawns it without backoff and the second resumes
+            from that emergency checkpoint and completes; each child's
+            LayerNorm-GRU launches equal what its gradient steps and player
+            calls predict (``_CHILD_RUNNER`` counts them); ``goodput_report``
+            reads the ``restart`` row, ``run_monitor`` the finished run and
+            ``health_diff`` two of its journals (in band against itself, out
+            of band at zero tolerance); under deadlines
+            (``RESILIENCE_DEADLINES_S``, 45 s together); the children run in
+            interpreters started with the smoke, which made their imports
+            (and warmed the bytecode cache the smoke's subprocesses share)
+            while the kernels built;
 4. slice  — compose ``exp=dreamer_v3 env=dummy``, build DreamerV3-S on the card
             from a seed, write a run directory in the JAX package's checkpoint
             format, start the port's ``serve`` entry point and send /act
@@ -237,6 +255,8 @@ every thread it starts.
 
 from __future__ import annotations
 
+import atexit
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -482,6 +502,46 @@ OPTIMIZER_CARD_CPU_RTOL = 1e-5
 MINEDOJO_LAUNCHES_PER_STEP = 79
 # each phase of the group and its deadline, 45 s together
 SLICE_DEADLINES_S = {"minedojo": 38.0, "optimizers": 7.0}
+# the resilience group: DreamerV3-S fp32 at its widths (batch 16 x 64,
+# horizon 15) on the dummy env, 4 envs, learning from policy step 256
+# (iteration 64), one gradient step an iteration, no test episode and no
+# FLOP count (telemetry's cost analysis off: each child would run it once),
+# run by the smoke's supervisor as `python -m sheeprl_tpu_torch run`
+# children.  The first runs the chaos schedule: slow_write at iteration 64,
+# paid by that iteration's checkpoint (checkpoint.every=256) in the writer
+# thread, and preempt at 65 (the emergency checkpoint, exit 75).  The
+# supervisor respawns it at once; the second child resumes from that
+# checkpoint (iteration 66), checkpoints at 129, waits learning_starts
+# again (to iteration 130) and trains to iteration 132.  Then run_monitor
+# reads the run and health_diff two of its journals.  A child's process
+# costs about 13 s before its first env step on the card (imports, CUDA,
+# the first iteration's set-up; its interpreter makes the imports, about
+# 7 s of them, before the group), so the steps are few
+RESILIENCE_SLOW_WRITE_ITER, RESILIENCE_PREEMPT_ITER, RESILIENCE_SLOW_WRITE_S = 64, 65, 0.5
+RESILIENCE_SCHEDULE = [{"iter": RESILIENCE_SLOW_WRITE_ITER, "fault": "slow_write"},
+                       {"iter": RESILIENCE_PREEMPT_ITER, "fault": "preempt"}]
+RESILIENCE_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.capture_video=False", "run_name=chip_smoke_chaos",
+                        "algo.learning_starts=256", "algo.total_steps=528", "algo.replay_ratio=0.25",
+                        "buffer.size=1024", "checkpoint.every=256", "checkpoint.save_last=False",
+                        "metric.logger=null", "metric.log_every=16", "algo.run_test=False", "seed=5",
+                        "diagnostics.telemetry.mfu.cost_analysis=False",
+                        f"diagnostics.resilience.chaos.slow_write_s={RESILIENCE_SLOW_WRITE_S}"]
+# this slice's phases and their deadlines, 45 s together
+RESILIENCE_DEADLINES_S = {"resilience_children": 43.5, "resilience_reports": 1.5}
+# what a resilience child imports (the registry imports every algorithm;
+# torch.optim's first parameter group imports torch._dynamo), imported by
+# its interpreter before its run (and so compiled into the bytecode cache
+# at the start)
+WARM_IMPORTS = (
+    "import cv2, torch._dynamo, torch.optim, torch.profiler, sheeprl_tpu_torch.cli, "
+    "sheeprl_tpu_torch.diagnostics.facade, sheeprl_tpu_torch.resilience.monitor, sheeprl_tpu_torch.resilience.manifest, "
+    "sheeprl_tpu_torch.envs.dummy, sheeprl_tpu_torch.envs.env, sheeprl_tpu_torch.envs.player, "
+    "sheeprl_tpu_torch.data.factory, sheeprl_tpu_torch.data.slab, sheeprl_tpu_torch.interop.flax_params, "
+    "sheeprl_tpu_torch.offline.train, sheeprl_tpu_torch.utils.logger, sheeprl_tpu_torch.utils.checkpoint, "
+    "sheeprl_tpu_torch.utils.metric, sheeprl_tpu_torch.utils.timer\n"
+    "from sheeprl_tpu_torch.utils.registry import find_algorithm\n"
+    "find_algorithm('dreamer_v3')"
+)
 # the DreamerV2 phases: exp=dreamer_v2's widths (64x64 rgb, CNN multiplier
 # 48, dense 400 x 4 layers, recurrent 600, stochastic 32 x 32, hidden 600;
 # batch 16 x 50, horizon 15, fp32) on the dummy env, 4 envs, cut in depth
@@ -624,6 +684,100 @@ except SystemExit as exit_:
 leaked = sorted({m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "flax", "sheeprl_tpu", "torch"})
 print("[leaked] " + " ".join(leaked), file=sys.stderr)
 sys.exit(code)
+"""
+
+
+# a resilience child's interpreter, started with the smoke (it also warms
+# the bytecode cache): it binds the abstract socket named by its first
+# argument, imports what a child imports (WARM_IMPORTS), creates the file
+# its second argument names, then takes one request from
+# _CHILD_HANDOFF, its argv, environment and directory, and runs
+# ``python -m sheeprl_tpu_torch`` with them, its output to
+# ``<record>.log``, the DreamerV3 loop's gradient steps and player calls
+# counted; when the run ends (an exception or SystemExit included, a
+# SIGKILL not) it writes them, the exit code, its seconds, its imports'
+# seconds and the LayerNorm-GRU kernel's launch counter to the JSON
+# record, answers the exit code and exits with it
+_CHILD_RUNNER = """
+import json, os, socket, sys, time
+t0 = time.monotonic()
+server = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+server.bind("\\0" + sys.argv[1])
+server.listen(1)
+""" + WARM_IMPORTS + """
+import runpy, traceback
+from sheeprl_tpu_torch.algos.dreamer_v3 import agent, dreamer_v3
+from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+imports_s = round(time.monotonic() - t0, 1)
+open(sys.argv[2], "w").close()  # ready
+conn, _ = server.accept()
+request = b""
+while chunk := conn.recv(1 << 16):
+    request += chunk
+request = json.loads(request)
+t0, started = time.monotonic(), time.time()
+os.environ.clear()
+os.environ.update(request["env"])
+os.chdir(request["cwd"])
+sys.argv = ["-c", *request["argv"]]
+out_path = request["record"]
+log = os.open(out_path + ".log", os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+os.dup2(log, 1)
+os.dup2(log, 2)
+record = {"gradient_steps": 0, "player_calls": {}, "exit_code": 0, "started": started, "imports_s": imports_s}
+make_train_step, get_actions = dreamer_v3.make_train_step, agent.PlayerDV3.get_actions
+
+def counted_make(*args, **kwargs):
+    step = make_train_step(*args, **kwargs)
+
+    def counted(*a, **k):
+        record["gradient_steps"] += 1
+        return step(*a, **k)
+
+    counted.health_names, counted.metric_order = step.health_names, step.metric_order
+    return counted
+
+def counted_actions(self, *args, **kwargs):
+    width = str(self.num_envs)
+    record["player_calls"][width] = record["player_calls"].get(width, 0) + 1
+    return get_actions(self, *args, **kwargs)
+
+dreamer_v3.make_train_step, agent.PlayerDV3.get_actions = counted_make, counted_actions
+try:
+    runpy.run_module("sheeprl_tpu_torch", run_name="__main__", alter_sys=True)
+except SystemExit as exit_:
+    record["exit_code"] = 0 if exit_.code is None else exit_.code if isinstance(exit_.code, int) else 1
+except BaseException:
+    traceback.print_exc()
+    record["exit_code"] = 1
+record["launches"] = fused_layernorm_gru.launches
+record["seconds"] = round(time.monotonic() - t0, 1)
+with open(out_path, "w") as fp:
+    json.dump(record, fp)
+sys.stdout.flush()
+sys.stderr.flush()
+conn.sendall(str(record["exit_code"]).encode())
+conn.close()
+# the run closed its journal, checkpoints and envs: the interpreter's
+# teardown (about 2 s on the card) is skipped
+os._exit(record["exit_code"])
+"""
+# the process the smoke's supervisor starts for a resilience child: it
+# hands its argv (after the runner's name and the record's path), its
+# environment (the supervisor's, with the restart count) and its directory
+# to a waiting _CHILD_RUNNER and exits with the code the run exits with,
+# or 1 if the runner died without answering
+_CHILD_HANDOFF = """
+import json, os, socket, sys
+client = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+client.connect("\\0" + sys.argv[1])
+client.sendall(json.dumps({"record": sys.argv[2], "argv": sys.argv[3:], "env": dict(os.environ),
+                           "cwd": os.getcwd()}).encode())
+client.shutdown(socket.SHUT_WR)
+reply = b""
+while chunk := client.recv(64):
+    reply += chunk
+sys.exit(int(reply) if reply else 1)
 """
 
 
@@ -1624,14 +1778,14 @@ def run_train(build_dir: Path, device_name: str = "cuda") -> dict:
     }
 
 
-def _report(tool: str, *args: str) -> str:
+def _report(tool: str, *args: str, expect: int = 0) -> str:
     """``python -m sheeprl_tpu_torch.tools.<tool> args`` in a subprocess:
-    its stdout; it must exit 0 and leave no JAX, ``sheeprl_tpu`` or torch
-    module loaded."""
+    its stdout; it must exit ``expect`` and leave no JAX, ``sheeprl_tpu`` or
+    torch module loaded."""
     proc = subprocess.run([sys.executable, "-c", _REPORT_RUNNER, f"sheeprl_tpu_torch.tools.{tool}", *args],
                           cwd=str(ROOT), capture_output=True, text=True, timeout=300)
     leaked = [line for line in proc.stderr.splitlines() if line.startswith("[leaked]")]
-    if proc.returncode != 0 or leaked != ["[leaked] "]:
+    if proc.returncode != expect or leaked != ["[leaked] "]:
         raise AssertionError(f"{tool} {' '.join(args)} exited {proc.returncode}, loaded {leaked}: "
                              f"{proc.stderr[-2000:]}")
     return proc.stdout
@@ -3197,14 +3351,33 @@ class minedojo_shaped_env:
         return False
 
 
+def _kill_children() -> None:
+    """SIGKILL this process's child processes (a phase's CLI children left
+    running when its deadline ends the script), found by their parent pid."""
+    import signal
+
+    me = os.getpid()
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+            if int(fields[1]) == me:
+                os.kill(int(stat.parent.name), signal.SIGKILL)
+        except (OSError, IndexError, ValueError):
+            continue
+
+
 @contextlib.contextmanager
-def deadline(seconds: float, phase: str):
+def deadline(seconds: float, phase: str, context=None):
     """The ``with`` block gets ``seconds``: past them the script prints that
-    ``phase`` hung and exits 1 at once, instead of running into the call's
-    time limit (its earlier phases' workers are stopped by then)."""
+    ``phase`` hung (and what ``context()`` says of it) and exits 1 at once,
+    instead of running into the call's time limit (its earlier phases'
+    workers are stopped by then)."""
     def expire():
         print(f"chip_smoke: phase {phase} did not finish within its {seconds:.0f} s deadline", file=sys.stderr,
               flush=True)
+        if context is not None:
+            print(context(), file=sys.stderr, flush=True)
+        _kill_children()
         os._exit(1)
 
     timer = threading.Timer(seconds, expire)
@@ -3324,6 +3497,169 @@ def run_optimizers_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
                                  f"(tol {OPTIMIZER_CARD_CPU_RTOL})")
         errs[name] = err
     return errs
+
+
+def _child_launches(cfg, record: dict) -> int:
+    """The LayerNorm-GRU launches a resilience child's counts predict: 79 a
+    fp32 gradient step at DreamerV3-S, one call a player step at the
+    envs' width."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.utils import rssm_scan_spec
+
+    if rssm_scan_spec(cfg)[0] != 1:
+        raise AssertionError("the resilience children run the fp32 scan of rssm_chunks=1")
+    hidden = cfg.algo.world_model.recurrent_model.recurrent_state_size
+    joint_dim = hidden + cfg.algo.world_model.recurrent_model.dense_units
+    _, per_step = _launches(cfg, {"gradient_steps": 0, "player_steps": 0, "player_width": 1, "test_steps": 0})
+    return record["gradient_steps"] * per_step + sum(
+        calls * _launch_chunks(int(width), hidden, joint_dim) for width, calls in record["player_calls"].items())
+
+
+def start_child_runners(build_dir: Path, count: int = 2) -> list:
+    """The resilience children's interpreters (``_CHILD_RUNNER``), started
+    now so that their imports (and the bytecode cache the smoke's other
+    Python processes read) are made while the kernels build: for each, the
+    name it listens on, its process and the file it creates once ready.
+    Each is killed at the smoke's exit if it is still waiting."""
+    from sheeprl_tpu_torch.resilience.supervisor import child_env
+
+    runners = []
+    for i in range(count):
+        name, ready = f"sheeprl-chip-smoke-{os.getpid()}-{i}", build_dir / f"child_runner_{i}.ready"
+        ready.unlink(missing_ok=True)
+        proc = subprocess.Popen([sys.executable, "-c", _CHILD_RUNNER, name, str(ready)], cwd=str(ROOT),
+                                env=child_env(), stdout=subprocess.DEVNULL)
+        atexit.register(proc.kill)  # a no-op once it has exited
+        runners.append((name, proc, ready))
+    return runners
+
+
+def _wait_ready(runners: list, timeout_s: float = 300.0) -> None:
+    t0 = time.monotonic()
+    while not all(ready.exists() for _, _, ready in runners):
+        dead = [proc.returncode for _, proc, _ in runners if proc.poll() is not None]
+        if dead or time.monotonic() - t0 > timeout_s:
+            raise AssertionError(f"the resilience children's interpreters: exit codes {dead}, "
+                                 f"{time.monotonic() - t0:.0f} s without their imports")
+        time.sleep(0.05)
+
+
+def run_resilience(build_dir: Path, runners: list, device_name: str = "cuda") -> dict:
+    """This slice's group: the chaos schedule, the supervisor and the run
+    readers on DreamerV3-S children (``RESILIENCE_OVERRIDES``).  The
+    smoke's ``supervise_command`` starts ``_CHILD_HANDOFF`` children, each
+    of which hands its run to one of ``runners`` (``start_child_runners``:
+    interpreters that made a child's imports before the group); the
+    first runs the schedule and must exit 75 with the drill's chains
+    (``chaos.judge_drill``: ``fault_injection -> ckpt_end -> run_end`` and
+    ``fault_injection -> preempted -> run_end``, status ``preempted``, a
+    final checkpoint that verifies) and a ``ckpt_end`` queued at least
+    ``slow_write_s``; the second, respawned without backoff, resumes from
+    the newest verified checkpoint and completes.  Each child's kernel
+    launches equal what its gradient steps and player calls predict.  The
+    supervisor's ``restart`` row is read by ``goodput_report``;
+    ``run_monitor`` reads the finished run and ``health_diff`` compares its
+    journals (in band against itself, out of band against the other child
+    at zero tolerance)."""
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.diagnostics.journal import read_journal
+    from sheeprl_tpu_torch.resilience.chaos import judge_drill
+    from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
+    from sheeprl_tpu_torch.resilience.preemption import PREEMPTED_EXIT_CODE
+    from sheeprl_tpu_torch.resilience.supervisor import SUPERVISOR_JOURNAL, supervise_command
+
+    root = (build_dir / "resilience").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    schedule = "[" + ",".join(f"{{iter: {e['iter']}, fault: {e['fault']}}}" for e in RESILIENCE_SCHEDULE) + "]"
+    overrides = RESILIENCE_OVERRIDES + [f"root_dir={root}", f"fabric.accelerator={device_name}",
+                                        f"diagnostics.resilience.chaos.schedule={schedule}"]
+    cfg = compose(overrides)
+    _dv3_s_widths(cfg)
+    run_dir = root / cfg.run_name
+    records = []
+
+    def argv_builder(resume):
+        records.append(root / f"child_{len(records)}.json")
+        return [sys.executable, "-c", _CHILD_HANDOFF, runners[len(records) - 1][0], str(records[-1]), "run", *overrides,
+                *([f"checkpoint.resume_from={resume}"] if resume is not None else [])]
+
+    def tails() -> str:
+        return "\n".join(f"--- {path.name}: {path.read_text() if path.exists() else 'running'}; its log:\n"
+                         + Path(f"{path}.log").read_text()[-3000:] for path in records if Path(f"{path}.log").exists())
+
+    _wait_ready(runners)
+    t0 = time.monotonic()
+    with deadline(RESILIENCE_DEADLINES_S["resilience_children"], "resilience_children", tails):
+        rc = supervise_command(argv_builder, str(run_dir), max_restarts=1, backoff_base_s=5.0)
+    children_s = time.monotonic() - t0
+    children = [json.loads(path.read_text()) for path in records]
+    if rc != 0 or [c["exit_code"] for c in children] != [PREEMPTED_EXIT_CODE, 0]:
+        raise AssertionError(f"supervised chaos run: supervisor exit {rc}, children "
+                             f"{[c['exit_code'] for c in children]} (want [75, 0])\n{tails()}")
+    for i, child in enumerate(children):
+        predicted = _child_launches(cfg, child)
+        if child["launches"] != predicted or child["gradient_steps"] < 1:
+            raise AssertionError(f"resilience child {i}: {child['launches']} ln_gru launches, its "
+                                 f"{child['gradient_steps']} gradient steps and player calls {child['player_calls']} "
+                                 f"predict {predicted}")
+    first, second = sorted(run_dir.glob("version_*"), key=lambda p: int(p.name.split("_")[1]))
+    verdict = judge_drill(RESILIENCE_SCHEDULE, children[0]["exit_code"], str(first), cfg.run_name)
+    if not verdict["ok"] or children[0]["exit_code"] != PREEMPTED_EXIT_CODE:
+        raise AssertionError(f"chaos drill verdict: {json.dumps(verdict)[:2000]}")
+    events = read_journal(str(first / "journal.jsonl"))
+    injected = [(e["iter_num"], e["kind"]) for e in events if e["event"] == "fault_injection"]
+    slow = [e for e in events if e["event"] == "ckpt_end" and (e.get("queued_s") or 0) >= RESILIENCE_SLOW_WRITE_S]
+    preempted = [e for e in events if e["event"] == "preempted"]
+    if (injected != [(RESILIENCE_SLOW_WRITE_ITER, "slow_write"), (RESILIENCE_PREEMPT_ITER, "preempt")] or not slow
+            or len(preempted) != 1 or preempted[0]["reason"] != "chaos"):
+        raise AssertionError(f"chaos run: injections {injected}, ckpt_end queued >= {RESILIENCE_SLOW_WRITE_S} s: "
+                             f"{slow}, preempted {preempted}")
+    # where each child's seconds went: its run_start, first env step and
+    # run_end, from the process's start
+    timeline = []
+    for child, version in zip(children, (first, second)):
+        child_events = read_journal(str(version / "journal.jsonl"))
+        first_step = next(e["t"] for e in child_events if e["event"] == "state_change" and e.get("state") == "env_wait")
+        timeline.append([round(t - child["started"], 1) for t in (child_events[0]["t"], first_step,
+                                                                   child_events[-1]["t"])])
+    restarts = read_journal(str(run_dir / SUPERVISOR_JOURNAL))
+    emergency = preempted[0]["path"]
+    if (len(restarts) != 1 or restarts[0]["event"] != "restart" or not restarts[0]["preempted"]
+            or restarts[0]["backoff_s"] != 0.0 or restarts[0]["resume_from"] != emergency):
+        raise AssertionError(f"supervisor.jsonl: {restarts} (the emergency checkpoint {emergency})")
+    resumed = read_journal(str(second / "journal.jsonl"))
+    steps = [e["step"] for e in resumed if e["event"] == "metrics"]
+    ckpts = [e for e in resumed if e["event"] == "ckpt_end" and e.get("status") == "ok"]
+    if (resumed[-1].get("status") != "completed" or not steps or min(steps) <= RESILIENCE_PREEMPT_ITER * cfg.env.num_envs
+            or not ckpts or verify_checkpoint(ckpts[-1]["path"]) != (True, "verified")):
+        raise AssertionError(f"resumed child: run_end {resumed[-1]}, metric steps {steps[:3]}, checkpoints "
+                             f"{[c['path'] for c in ckpts]}")
+
+    # the four readers at once, each its own process
+    t1 = time.monotonic()
+    with deadline(RESILIENCE_DEADLINES_S["resilience_reports"], "resilience_reports"), \
+            concurrent.futures.ThreadPoolExecutor(4) as pool:
+        futures = [pool.submit(_report, "goodput_report", str(run_dir), "--json"),
+                   pool.submit(_report, "run_monitor", str(second)),
+                   pool.submit(_report, "health_diff", str(first), str(first)),
+                   pool.submit(_report, "health_diff", str(first), str(second), "--rel-tol", "0", "--abs-tol", "0",
+                               "--json", expect=1)]
+        goodput, monitor, in_band, out_of_band = (future.result() for future in futures)
+    reports_s = time.monotonic() - t1
+    goodput, out_of_band = json.loads(goodput), json.loads(out_of_band)
+    supervisor = goodput[str(run_dir)]["supervisor"]
+    if supervisor["restarts"] != 1 or supervisor["preempted_restarts"] != 1:
+        raise AssertionError(f"goodput_report's restart accounting: {supervisor}")
+    if "completed" not in monitor or "RESULT: ok" not in in_band or not out_of_band["regressions"]:
+        raise AssertionError(f"run_monitor:\n{monitor}\nhealth_diff in band:\n{in_band}\nout of band: "
+                             f"{out_of_band.get('regressions')}")
+    return {"children": children, "children_s": children_s, "reports_s": reports_s,
+            "launches": [c["launches"] for c in children],
+            "predicted": [_child_launches(cfg, c) for c in children],
+            "slow_ckpt_end": {k: slow[0].get(k) for k in ("queued_s", "write_ms", "step")},
+            "restart": {k: restarts[0].get(k) for k in ("attempt", "rc", "preempted", "backoff_s", "down_s")},
+            "supervisor": supervisor, "resumed_from": emergency, "first_resumed_step": min(steps),
+            "checks": sorted(verdict["checks"]), "monitor_lines": len(monitor.splitlines()),
+            "regressions": len(out_of_band["regressions"]), "timeline": timeline}
 
 
 def _off_policy_run(overrides, where: str, resume: bool = True) -> dict:
@@ -4596,6 +4932,15 @@ def main() -> int:
 
     build_dir = ROOT / "build" / "chip_smoke"
     build_dir.mkdir(parents=True, exist_ok=True)
+    # the card machine's interpreter writes no bytecode
+    # (PYTHONDONTWRITEBYTECODE) and keeps none beside its packages, so each
+    # Python process the smoke starts compiled what it imported anew: a CLI
+    # child's imports took 21.7 s there, 10.5 s from a cache.  They share
+    # one cache under build/, warmed here by the resilience children's
+    # interpreters, which start now
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = str(build_dir / "pycache")
+    runners = start_child_runners(build_dir)
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[card] {kind}; nvidia-smi name,power.limit:", flush=True)
@@ -4650,6 +4995,28 @@ def main() -> int:
               f"and their fp32 masters a finite fp32 gradient through the cast", flush=True)
 
     mark('kernel cases')
+    # this slice's group runs here, once its children's interpreters made
+    # their imports (during the build and the kernel cases)
+    resilience = run_resilience(build_dir, runners)
+    shutil.rmtree(build_dir / "resilience", ignore_errors=True)
+    print(f"[resilience] supervised DreamerV3-S children (batch 16 x 64, horizon 15, fp32), chaos schedule "
+          f"{json.dumps(RESILIENCE_SCHEDULE)}, slow_write_s {RESILIENCE_SLOW_WRITE_S}: child exits "
+          f"{[c['exit_code'] for c in resilience['children']]}; gradient steps "
+          f"{[c['gradient_steps'] for c in resilience['children']]}, player calls "
+          f"{[c['player_calls'] for c in resilience['children']]}, ln_gru launches {resilience['launches']} = "
+          f"predicted {resilience['predicted']}; drill checks {resilience['checks']} held; the slow ckpt_end "
+          f"{json.dumps(resilience['slow_ckpt_end'])}; restart row {json.dumps(resilience['restart'])} resumed from "
+          f"{resilience['resumed_from']} (first logged step {resilience['first_resumed_step']}), completed; "
+          f"goodput_report: {json.dumps(resilience['supervisor'])}; run_monitor {resilience['monitor_lines']} lines; "
+          f"health_diff in band against itself, {resilience['regressions']} regressions at zero tolerance against "
+          f"the other child; children {resilience['children_s']:.1f} s (each {[c['seconds'] for c in resilience['children']]}"
+          f" s from its request to its exit; run_start, first env step, run_end at {resilience['timeline']} s from "
+          f"then; each interpreter's imports, made before the group: "
+          f"{[c['imports_s'] for c in resilience['children']]} s), reports "
+          f"{resilience['reports_s']:.1f} s  "
+          f"[{card}]", flush=True)
+
+    mark('resilience')
     slice_report = run_slice(build_dir)
     print(
         f"[slice] DreamerV3-S serve: {slice_report['requests']} /act from {slice_report['sessions']} sessions, "
@@ -5259,7 +5626,8 @@ def main() -> int:
                                        ("_eval", "eval"))},
                "records": records["profiled"]["ln_gru_launches"],
                **{f"records_search_{i}": t["launches"] for i, t in enumerate(records["search"]["trials"])},
-               "minedojo": minedojo["ln_gru_launches"]}
+               "minedojo": minedojo["ln_gru_launches"],
+               **{f"resilience_child_{i}": n for i, n in enumerate(resilience["launches"])}}
     print(f"[launches] ln_gru launches by path: {', '.join(f'{k} {v}' for k, v in by_path.items())}; "
           f"{sum(by_path.values())} in all  [{card}]", flush=True)
     case_keys = ("B", "K", "H", "dtype", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms", "bound_ms", "bound_by")
@@ -5280,7 +5648,8 @@ def main() -> int:
         "shape": {"B": main["B"], "K": main["K"], "H": main["H"], "dtype": main["dtype"]},
         "cases": [{k: c[k] for k in case_keys} for c in cases],
         "phase": "kernel+slice+serve-ops+train+chunked+resume+eval+offline+drill+jepa+p2e+sac+droq+sac_ae+offline_sac"
-                 "+offline_droq+bf16+dv2+dv1+ppo_recurrent+p2e_dv2+p2e_dv1+minedojo+records",
+                 "+offline_droq+bf16+dv2+dv1+ppo_recurrent+p2e_dv2+p2e_dv1+minedojo+records"
+                 "+resilience",
     }]
     mark("kernels line")
     print(f"[timing] wall seconds by group of phases: "

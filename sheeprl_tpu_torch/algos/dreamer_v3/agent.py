@@ -30,6 +30,7 @@ Without noise, draws come from the ``torch.Generator`` passed in.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import importlib
 import math
@@ -39,6 +40,7 @@ from typing import Any, Dict, List, Mapping, NamedTuple, Optional, Sequence, Tup
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.overrides import TorchFunctionMode
 
 from sheeprl_tpu_torch.models.blocks import LayerNormChannelLast, LayerNormGRUCell, get_activation
 from sheeprl_tpu_torch.ops.distributions import TruncatedNormal
@@ -683,9 +685,43 @@ class Agent(NamedTuple):
         return to_flax(*self)
 
 
+class _SkipDefaultInit(TorchFunctionMode):
+    """Skips ``nn.init.kaiming_uniform_`` and ``nn.init.uniform_``, the
+    default initialisation of ``nn.Linear``, ``nn.Conv2d`` and
+    ``nn.ConvTranspose2d``, and keeps every tensor it left as constructed."""
+
+    def __init__(self):
+        super().__init__()
+        self.skipped: List[torch.Tensor] = []
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        if func in (nn.init.kaiming_uniform_, nn.init.uniform_):
+            tensor = args[0] if args else kwargs["tensor"]
+            self.skipped.append(tensor)
+            return tensor
+        return func(*args, **kwargs)
+
+
+@contextlib.contextmanager
+def skip_default_init():
+    """Construct modules that :func:`init_weights` then initializes, without
+    torch's default initialisation of their dense and conv layers (at XL
+    widths it cost as much as Hafner's).  Yields the list of tensors left
+    as constructed, for ``init_weights(..., constructed=...)`` to check
+    that it writes every one in full.  The default initialisation drew
+    from torch's global generator, which no other draw of the DreamerV3
+    family reads: the weights are bit for bit those of a default-initialised
+    construction."""
+    mode = _SkipDefaultInit()
+    with mode:
+        yield mode.skipped
+
+
 @torch.no_grad()
 def init_weights(world_model: Optional[WorldModel], actor: Optional[Actor], critic: Optional[Critic],
-                 generator: torch.Generator, hafner_heads: bool = True) -> None:
+                 generator: torch.Generator, hafner_heads: bool = True,
+                 constructed: Optional[Sequence[torch.Tensor]] = None) -> None:
     """Hafner initialization from a seeded generator: truncated-normal
     fan-avg for every dense and conv kernel; uniform fan-avg for the actor
     and decoder output heads and, with ``hafner_heads`` (DreamerV3's), the
@@ -708,6 +744,12 @@ def init_weights(world_model: Optional[WorldModel], actor: Optional[Actor], crit
             uniform.extend(world_model.mlp_decoder.heads)
     uniform_ids = {id(m) for m in uniform}
     modules = [m for part in (world_model, actor, critic) if part is not None for m in part.modules()]
+    if constructed is not None:
+        written = {id(t) for m in modules if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d))
+                   for t in (m.weight, m.bias) if t is not None}
+        unwritten = [tuple(t.shape) for t in constructed if id(t) not in written]
+        if unwritten:
+            raise RuntimeError(f"skip_default_init left tensors that init_weights does not write: {unwritten}")
     for module in modules:
         if isinstance(module, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
             w = module.weight
@@ -825,9 +867,11 @@ def build_agent(
     "target_critic": ...}`` in the JAX package's layout, all four trees),
     else from ``init_weights`` seeded with ``cfg.seed``, the target critic a
     copy of the critic.  The target critic never takes a gradient."""
-    world_model, actor = _world_model_and_actor(actions_dim, is_continuous, cfg, obs_space)
-    critic = make_critic(cfg)
-    init_weights(world_model, actor, critic, torch.Generator().manual_seed(int(cfg.seed or 0)))
+    with skip_default_init() as constructed:
+        world_model, actor = _world_model_and_actor(actions_dim, is_continuous, cfg, obs_space)
+        critic = make_critic(cfg)
+    init_weights(world_model, actor, critic, torch.Generator().manual_seed(int(cfg.seed or 0)),
+                 constructed=constructed)
     target_critic = copy.deepcopy(critic)
     if agent_state is not None:
         from sheeprl_tpu_torch.interop.flax_params import from_flax
@@ -854,8 +898,10 @@ def build_policy_modules(
     JAX package's ``build_policy`` serves a checkpoint without the critics
     too).  Without ``agent_state`` the weights are ``build_agent``'s for the
     same seed."""
-    world_model, actor = _world_model_and_actor(actions_dim, is_continuous, cfg, obs_space)
-    init_weights(world_model, actor, None, torch.Generator().manual_seed(int(cfg.seed or 0)))
+    with skip_default_init() as constructed:
+        world_model, actor = _world_model_and_actor(actions_dim, is_continuous, cfg, obs_space)
+    init_weights(world_model, actor, None, torch.Generator().manual_seed(int(cfg.seed or 0)),
+                 constructed=constructed)
     if agent_state is not None:
         from sheeprl_tpu_torch.interop.flax_params import from_flax_policy
 

@@ -34,7 +34,7 @@ import collections
 import statistics
 import subprocess
 import time
-from typing import Any, Callable, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -82,6 +82,28 @@ def _union_us(intervals) -> float:
     return total
 
 
+def device_kernels(prof) -> List[Tuple[str, float, float]]:
+    """``(name, start_us, end_us)``, from the trace's start, of each kernel
+    and copy a finished ``torch.profiler.profile`` traced on the card, not
+    the annotation ranges (``record_function``, ``Optimizer.step``) that
+    the trace mirrors on the device.  Read from the profiler's raw records
+    with the filter its event tree applies (``prof.events()``, which took
+    seconds a call to build over every host and device event of a few
+    traced steps)."""
+    from torch.autograd import DeviceType
+
+    results = prof.profiler.kineto_results
+    start_ns = results.trace_start_ns()  # integer ns from here: as floats they would lose the microseconds
+    kernels = []
+    for e in results.events():
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation() or e.is_hidden_event():
+            continue
+        name = e.name()
+        if not name.startswith("gradient_step_") and "#" not in name:
+            kernels.append((name, (e.start_ns() - start_ns) / 1e3, (e.end_ns() - start_ns) / 1e3))
+    return kernels
+
+
 def time_gradient_steps(step: Callable, moments: Any, batch: Dict[str, torch.Tensor], generator: torch.Generator,
                         steps: int, warmup: int = 2, profile: bool = False,
                         trace: Optional[str] = None) -> Dict[str, Any]:
@@ -110,7 +132,6 @@ def time_gradient_steps(step: Callable, moments: Any, batch: Dict[str, torch.Ten
     if not profile:
         return result
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, record_function
     from torch.profiler import profile as torch_profile
 
@@ -119,22 +140,44 @@ def time_gradient_steps(step: Callable, moments: Any, batch: Dict[str, torch.Ten
             with record_function(f"gradient_step_{i}"):
                 moments, _ = step(moments, batch, 0.02, generator)
                 torch.cuda.synchronize()
-    # device activity: the kernels and copies, not the annotation ranges
-    # (record_function, Optimizer.step) that the trace mirrors on the device
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-               and not getattr(e, "is_user_annotation", False) and not e.name.startswith("gradient_step_")
-               and "#" not in e.name]
+    kernels = device_kernels(prof)
     if not kernels:
         raise RuntimeError("torch.profiler recorded no device activity on this machine")
     by_name = collections.defaultdict(lambda: [0, 0.0])
-    for e in kernels:
-        by_name[e.name][0] += 1
-        by_name[e.name][1] += e.time_range.elapsed_us()
-    busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in kernels]) / 1e3 / steps
+    for name, start_us, end_us in kernels:
+        by_name[name][0] += 1
+        by_name[name][1] += end_us - start_us
+    busy_ms = _union_us([(start_us, end_us) for _, start_us, end_us in kernels]) / 1e3 / steps
     if trace:
         prof.export_chrome_trace(trace)
     return {**result, "busy_ms": busy_ms, "idle_share": 1.0 - busy_ms / result["step_ms"],
             "launches": len(kernels) // steps, "kernels": dict(by_name)}
+
+
+def check_kernel_filter(step: Callable, moments: Any, batch: Dict[str, torch.Tensor],
+                        generator: torch.Generator) -> Dict[str, Any]:
+    """One more profiled step: the device events :func:`device_kernels`
+    reads from the profiler's raw records are the ones its event tree
+    (``prof.events()``) gives under the same filter: the same names as
+    often and the same device-busy time.  Raises if they differ."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, record_function
+    from torch.profiler import profile as torch_profile
+
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("gradient_step_0"):
+            step(moments, batch, 0.02, generator)
+            torch.cuda.synchronize()
+    raw = device_kernels(prof)
+    tree = [e for e in prof.events() if e.device_type == DeviceType.CUDA and not e.is_user_annotation
+            and not e.name.startswith("gradient_step_") and "#" not in e.name]
+    raw_busy = _union_us([(a, b) for _, a, b in raw]) / 1e3
+    tree_busy = _union_us([(e.time_range.start, e.time_range.end) for e in tree]) / 1e3
+    names, tree_names = collections.Counter(name for name, _, _ in raw), collections.Counter(e.name for e in tree)
+    if names != tree_names or abs(raw_busy - tree_busy) > 1e-6 * tree_busy:
+        raise AssertionError(f"raw records: {len(raw)} device events, busy {raw_busy} ms; event tree: {len(tree)}, "
+                             f"busy {tree_busy} ms; apart: {(names - tree_names) + (tree_names - names)}")
+    return {"events": len(raw), "names": len(names), "busy_ms": raw_busy}
 
 
 def profiled_step(overrides: Sequence[str], device: torch.device | str, diagnostics: bool = False):
@@ -177,6 +220,9 @@ def main(argv=None) -> None:
     parser.add_argument("--trace", default=None, help="write the Chrome trace here")
     parser.add_argument("--diagnostics", action="store_true",
                         help="the step as the default diagnostics run it (health stats, instrumented)")
+    parser.add_argument("--check-filter", action="store_true",
+                        help="profile one more step and hold its device events read from the profiler's raw "
+                             "records against its event tree's")
     parser.add_argument("overrides", nargs="*", help="dotted config overrides")
     args = parser.parse_args(argv)
 
@@ -202,6 +248,11 @@ def main(argv=None) -> None:
     for kname, (calls, us) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]:
         print(f"[profile] {100 * us / total:6.2f} %  {us / 1e3 / steps:8.3f} ms/step  {calls // steps:6d} "
               f"calls/step  {kname[:110]}")
+    if args.check_filter:
+        check = check_kernel_filter(step, moments, batch, gen)
+        print(f"[profile] kernel filter: one more step's {check['events']} device events ({check['names']} names, "
+              f"busy {check['busy_ms']:.3f} ms) from the raw records are the event tree's: the same names as often, "
+              f"the same busy time  [{name}]")
 
 
 if __name__ == "__main__":

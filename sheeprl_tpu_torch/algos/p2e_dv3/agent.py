@@ -28,6 +28,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     init_weights,
     make_actor,
     make_critic,
+    skip_default_init,
 )
 from sheeprl_tpu_torch.models.blocks import get_activation
 
@@ -183,12 +184,14 @@ def build_agent(actions_dim: Sequence[int], is_continuous: bool, cfg, obs_space,
     here, so parity with the JAX package goes through converted weights."""
     dv3 = build_dv3_agent(actions_dim, is_continuous, cfg, obs_space, None, "cpu")
     generator = torch.Generator().manual_seed(int(cfg.seed or 0) + 17)
-    actor_exploration = make_actor(actions_dim, is_continuous, cfg)
-    init_weights(None, actor_exploration, None, generator)
+    with skip_default_init() as constructed:
+        actor_exploration = make_actor(actions_dim, is_continuous, cfg)
+    init_weights(None, actor_exploration, None, generator, constructed=constructed)
     critics = nn.ModuleDict()
     for name, _, _ in exploration_critics_spec(cfg):
-        critic = make_critic(cfg)
-        init_weights(None, None, critic, generator)
+        with skip_default_init() as constructed:
+            critic = make_critic(cfg)
+        init_weights(None, None, critic, generator, constructed=constructed)
         critics[name] = ExplorationCritic(critic)
     wm_cfg, ens_cfg = cfg.algo.world_model, cfg.algo.ensembles
     stoch_flat = wm_cfg.stochastic_size * wm_cfg.discrete_size

@@ -29,6 +29,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     build_agent as build_dv3_agent,
     init_weights,
     make_actor,
+    skip_default_init,
 )
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _dreamer_main, make_train_step
 from sheeprl_tpu_torch.utils.registry import register_algorithm
@@ -130,8 +131,10 @@ def build_agent(actions_dim: Sequence[int], is_continuous: bool, cfg, obs_space,
     (:func:`finetuning_state`'s layout) or from the seed."""
     dv3 = build_dv3_agent(actions_dim, is_continuous, cfg, obs_space,
                           None if state is None else {k: state[k] for k in DV3_TREES}, "cpu")
-    actor_exploration = make_actor(actions_dim, is_continuous, cfg)
-    init_weights(None, actor_exploration, None, torch.Generator().manual_seed(int(cfg.seed or 0) + 17))
+    with skip_default_init() as constructed:
+        actor_exploration = make_actor(actions_dim, is_continuous, cfg)
+    init_weights(None, actor_exploration, None, torch.Generator().manual_seed(int(cfg.seed or 0) + 17),
+                 constructed=constructed)
     if state is not None:
         from sheeprl_tpu_torch.interop.flax_params import actor_spec, load_trees
 

@@ -117,6 +117,7 @@ def check_configs(cfg: dotdict) -> None:
     if cfg.metric.log_level not in (0, 1):
         raise ValueError(f"metric.log_level must be 0 or 1, got {cfg.metric.log_level}")
     _check_offline(cfg)
+    _check_resilience(cfg)
     learning_starts = cfg.algo.get("learning_starts")
     if learning_starts is not None and learning_starts < 0:
         raise ValueError("The `algo.learning_starts` parameter must be greater or equal to zero")
@@ -132,6 +133,17 @@ def check_configs(cfg: dotdict) -> None:
         if not _IS_MLFLOW_AVAILABLE:
             warnings.warn("MLFlow is not installed; setting model_manager.disabled=True", UserWarning)
             cfg.model_manager.disabled = True
+
+
+def _check_resilience(cfg: dotdict) -> None:
+    """The JAX ``check_configs``' isolation and chaos checks, so a bad
+    budget or schedule fails before the log dir exists: the monitors'
+    constructors validate their knobs and open nothing."""
+    from sheeprl_tpu_torch.resilience.chaos import ChaosMonitor
+    from sheeprl_tpu_torch.resilience.isolation import IsolationMonitor
+
+    IsolationMonitor(cfg)
+    ChaosMonitor(cfg)
 
 
 def _check_offline(cfg: dotdict) -> None:

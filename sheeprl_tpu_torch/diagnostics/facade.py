@@ -157,7 +157,7 @@ class Diagnostics:
                 device=str(device) if device is not None else None,
             )
         if self.resilience is not None:
-            self.resilience.open(self._journal_event)
+            self.resilience.open(self._journal_event, self._journal_sync)
         if self.memory is not None:
             self.memory.open(self._journal_event, self._journal_sync, device=device)
         if self.health is not None:
@@ -357,6 +357,8 @@ class Diagnostics:
             extra.update(self.goodput.interval_metrics())
         if self.health is not None:
             extra.update(self.health.interval_metrics())
+        if self.resilience is not None:
+            extra.update(self.resilience.interval_metrics())
         if not extra:
             return metrics
         merged = dict(metrics)
@@ -409,10 +411,84 @@ class Diagnostics:
         self.resilience.save(path, state)
         return True
 
+    # -- fault isolation hooks (the decoupled loops' fence and rollback) -----
+    def _isolation(self):
+        res = self.resilience
+        return res.isolation if res is not None and res.isolation is not None and res._opened else None
+
+    def gate_promotion(self, iter_num: int, step: Optional[int], stats: Optional[Mapping[str, Any]] = None,
+                       nonfinite: float = 0.0) -> bool:
+        """The promotion gate of the trainer->player hand-off: True hands the
+        new parameters to the player.  Judges what the loop already fetched
+        (the non-finite count, the health norms) and any open learning-health
+        anomaly; a rejection journals ``params_reject``.  True whenever
+        isolation is off."""
+        iso = self._isolation()
+        if iso is None:
+            return True
+        anomalies = self.health.open_anomaly_kinds() if self.health is not None and self.health._opened else ()
+        return iso.judge(iter_num, step, stats or {}, float(nonfinite), anomalies)
+
+    def refresh_last_good(self, iter_num: int, params: Any, opt_state: Any) -> None:
+        """Refresh the last-good host copy after a healthy promotion."""
+        iso = self._isolation()
+        if iso is not None:
+            iso.refresh(iter_num, params, opt_state)
+
+    def quarantine(self, err: BaseException, iter_num: int, step: Optional[int]) -> Optional[Dict[str, Any]]:
+        """Absorb one quarantined train-step failure: journal ``rollback`` and
+        return the last-good ``{params, opt_state, iter_num}`` to restore, or
+        None (no snapshot, isolation off, budget spent): the caller
+        re-raises."""
+        iso = self._isolation()
+        return None if iso is None else iso.rollback(err, iter_num, step)
+
+    def last_good_state(self) -> Optional[Dict[str, Any]]:
+        """The last-good host copy, or None: the fence halt's checkpoint
+        saves this, not the live trainer state the fence escalated about."""
+        iso = self._isolation()
+        return None if iso is None else iso.last_good
+
+    def fence_halt_due(self) -> bool:
+        """True once the staleness budget is exhausted: the loop forces its
+        checkpoint branch, then calls :meth:`on_fence_halt`."""
+        iso = self._isolation()
+        return iso is not None and iso.halt_due
+
+    def on_fence_halt(self, step: Optional[int], iter_num: int, ckpt_path: str) -> None:
+        """Finish a staleness escalation: journal the finding (fsync'd),
+        close the run as ``halted`` and raise
+        :class:`~sheeprl_tpu_torch.resilience.isolation.IsolationHalt`."""
+        from sheeprl_tpu_torch.resilience.isolation import IsolationHalt
+
+        iso = self.resilience.isolation
+        self._journal_divergence({"kind": "param_staleness_exhausted", "step": step, "iter_num": int(iter_num),
+                                  "staleness": iso.staleness, "budget": iso.max_staleness, "path": str(ckpt_path)})
+        self._journal_sync()
+        self.close("halted")
+        raise IsolationHalt(
+            f"player param staleness exhausted its budget ({iso.staleness} > {iso.max_staleness} consecutive "
+            f"rejected promotions) at iteration {iter_num}; emergency checkpoint {ckpt_path} "
+            "(diagnostics.resilience.isolation.max_staleness)"
+        )
+
+    def maybe_chaos_trainer_fault(self, iter_num: int) -> None:
+        """Raise the scheduled :class:`ChaosTrainerError` at the train
+        dispatch boundary (chaos fault ``trainer_exception``)."""
+        res = self.resilience
+        if res is None or res.chaos is None or not res._opened:
+            return
+        if res.chaos.take(iter_num, "trainer_exception"):
+            from sheeprl_tpu_torch.resilience.chaos import ChaosTrainerError
+
+            raise ChaosTrainerError(f"chaos: injected trainer exception at iteration {iter_num}")
+
     def preempt_due(self, iter_num: int) -> bool:
-        """True once a preemption (SIGTERM/SIGINT, or
-        ``diagnostics.resilience.inject_preempt_iter``) is pending: the loop
-        forces its checkpoint branch and calls :meth:`on_preempted`."""
+        """True once a preemption (SIGTERM/SIGINT,
+        ``diagnostics.resilience.inject_preempt_iter`` or a chaos ``preempt``)
+        is pending: the loop forces its checkpoint branch and calls
+        :meth:`on_preempted`.  It also arms a chaos ``slow_write`` due at
+        ``iter_num`` for the next save."""
         return self.resilience is not None and self.resilience.preempt_due(iter_num)
 
     def on_preempted(self, step: Optional[int], iter_num: int, ckpt_path: str) -> None:
@@ -456,7 +532,11 @@ class Diagnostics:
         self._journal_divergence({"kind": "nonfinite_update", "step": step, "nonfinite_steps": nonfinite,
                                   "policy": self.sentinel.policy, **dict(stats)})
         if self.sentinel.policy == "halt":
-            self.close("halted")
+            # a decoupled loop with isolation armed rolls back from this
+            # halt: closing here would end the journal of a run that goes on
+            iso = self.resilience.isolation if self.resilience is not None else None
+            if iso is None or not iso.can_absorb():
+                self.close("halted")
             raise SentinelHalt(
                 f"non-finite training update at step {step} (nonfinite optimizer steps this interval: "
                 f"{nonfinite:g}); diagnostics.sentinel.policy=halt"
@@ -485,13 +565,18 @@ class Diagnostics:
     # -- fault injection ---------------------------------------------------
     def maybe_inject_nan(self, iter_num: int, tree):
         """Poison a train batch at ``diagnostics.sentinel.inject_nan_iter``
-        (the sentinel drill)."""
+        (the sentinel drill) or at a chaos schedule's ``nan_grads`` entry."""
+        poison = False
+        res = self.resilience
+        if res is not None and res.chaos is not None and res._opened:
+            # take() journals its own fault_injection (kind=nan_grads)
+            poison = res.chaos.take(iter_num, "nan_grads")
         inject = self.sentinel.inject_nan_iter
-        if inject is None or int(iter_num) != inject:
-            return tree
-        if self.journal is not None:
-            self.journal.write("fault_injection", iter_num=int(iter_num))
-        return poison_tree(tree)
+        if inject is not None and int(iter_num) == inject:
+            if self.journal is not None:
+                self.journal.write("fault_injection", iter_num=int(iter_num))
+            poison = True
+        return poison_tree(tree) if poison else tree
 
     def maybe_inject_shape_change(self, iter_num: int, tree, pad: int = 1):
         """Pad the leading axis of every tensor of ``tree`` by repeating its

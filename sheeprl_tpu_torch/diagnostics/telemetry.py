@@ -14,7 +14,9 @@ the input-signature watchdog and MFU/goodput accounting.
 * **MFU**: at the first dispatch of each new signature the step runs once
   under ``torch.utils.flop_counter.FlopCounterMode`` (that real step, not an
   extra one: an extra step would move the weights and the random stream),
-  and its FLOPs are journaled as ``telemetry_cost``.  ``FlopCounterMode``
+  and its FLOPs are journaled as ``telemetry_cost``; a later run in the
+  same process with the same widths (:func:`step_cost_key`) and signature
+  journals the count kept from the first, with ``count_s`` 0.  ``FlopCounterMode``
   counts matrix products and convolutions (forward and backward) only,
   where XLA's ``cost_analysis`` counts every operation; the LayerNorm-GRU
   kernel, a ``ctypes`` launch it cannot see, counts through the FLOP formula
@@ -161,6 +163,30 @@ def count_flops(call: Callable[[], Any]) -> Tuple[Any, float]:
     return out, float(counter.get_total_flops())
 
 
+#: the FLOPs of each step this process counted, by :func:`step_cost_key`
+#: and dispatch signature: a run of the same widths (its resume, its eval,
+#: the step timers) reuses the count instead of running ``FlopCounterMode``
+#: again
+_FLOPS_COUNTED: Dict[Tuple[Any, ...], float] = {}
+_FLOPS_LOCK = threading.Lock()
+#: the ``algo`` keys that set how long a run trains, never what one step
+#: computes
+_RUN_LENGTH_KEYS = ("total_steps", "learning_starts", "replay_ratio", "run_test", "per_rank_pretrain_steps")
+
+
+def step_cost_key(cfg: Mapping[str, Any]) -> str:
+    """What decides the FLOPs of a run's step besides its dispatch signature:
+    the ``algo`` section but for its run-length keys, the action
+    distribution, the env, ``fabric.precision`` and the health stats."""
+    import json
+
+    cfg = cfg or {}
+    algo = {k: v for k, v in (cfg.get("algo") or {}).items() if k not in _RUN_LENGTH_KEYS}
+    return json.dumps([algo, cfg.get("distribution"), (cfg.get("env") or {}).get("id"),
+                       (cfg.get("fabric") or {}).get("precision"),
+                       (cfg.get("diagnostics") or {}).get("health")], sort_keys=True, default=str)
+
+
 # ---------------------------------------------------------------------------
 # instrumented dispatch
 
@@ -208,9 +234,17 @@ class _Instrumented:
             self._seen.add(sig)
         self._signature = sig
         if new_sig and self._count:
-            t0 = time.perf_counter()
-            out, flops = count_flops(lambda: self._invoke(args, kwargs))
-            count_s = time.perf_counter() - t0
+            memo_key = (self.name, tele.cost_key, sig)
+            with _FLOPS_LOCK:
+                flops = _FLOPS_COUNTED.get(memo_key)
+            if flops is None:
+                t0 = time.perf_counter()
+                out, flops = count_flops(lambda: self._invoke(args, kwargs))
+                count_s = time.perf_counter() - t0
+                with _FLOPS_LOCK:
+                    _FLOPS_COUNTED[memo_key] = flops
+            else:
+                out, count_s = self._invoke(args, kwargs), 0.0
             if flops:
                 self._flops_by_sig[sig] = flops
                 tele._journal(
@@ -274,6 +308,7 @@ class Telemetry:
         self.http_host = str(http_cfg.get("host", "127.0.0.1"))
         self.http_port = int(http_cfg.get("port", 0))
         self._precision = str((cfg.get("fabric") or {}).get("precision", "32-true")) if cfg else "32-true"
+        self.cost_key = step_cost_key(cfg)
         self._clock = clock
         # the facade attaches the MemoryMonitor (sync guard, OOM forensics)
         # and the rank-0 GoodputMonitor (run-state machine, stall watchdog)

@@ -467,42 +467,66 @@ def sac_ae_spec(agent) -> Dict[str, Any]:
             "target_critic": stacked_critic_spec(agent.target_critic), "log_alpha": (agent.log_alpha, "same")}
 
 
-def _to_torch(array: np.ndarray, kind: str, hwc: Tuple[int, int, int] = ()) -> np.ndarray:
+def _to_torch(array: torch.Tensor, kind: str, hwc: Tuple[int, int, int] = ()) -> torch.Tensor:
+    """A flax leaf, as a tensor, as a view in the port's layout."""
     if kind == "dense":
         return array.T
     if kind == "dense_nhwc":
         h, w, c = hwc
-        return array.reshape(h, w, c, -1).transpose(2, 0, 1, 3).reshape(c * h * w, -1).T
+        return array.reshape(h, w, c, -1).permute(2, 0, 1, 3).reshape(c * h * w, -1).T
     if kind == "dense_to_hwc":
         h, w, c = hwc
-        return array.reshape(-1, h, w, c).transpose(0, 3, 1, 2).reshape(-1, c * h * w).T
+        return array.reshape(-1, h, w, c).permute(0, 3, 1, 2).reshape(-1, c * h * w).T
     if kind == "bias_hwc":
         h, w, c = hwc
-        return array.reshape(h, w, c).transpose(2, 0, 1).reshape(-1)
+        return array.reshape(h, w, c).permute(2, 0, 1).reshape(-1)
     if kind == "conv":
-        return array.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+        return array.permute(3, 2, 0, 1)  # HWIO -> OIHW
     if kind == "conv_transpose":
-        return array.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]  # [kh, kw, in, out] -> [in, out, kh, kw], flipped
+        return array.permute(2, 3, 0, 1).flip((2, 3))  # [kh, kw, in, out] -> [in, out, kh, kw], flipped
     return array
 
 
-def _to_flax(array: np.ndarray, kind: str, hwc: Tuple[int, int, int] = ()) -> np.ndarray:
+def _to_flax(array: torch.Tensor, kind: str, hwc: Tuple[int, int, int] = ()) -> torch.Tensor:
+    """A port tensor as a view in the flax layout."""
     if kind == "dense":
         return array.T
     if kind == "dense_nhwc":
         h, w, c = hwc
-        return array.T.reshape(c, h, w, -1).transpose(1, 2, 0, 3).reshape(h * w * c, -1)
+        return array.T.reshape(c, h, w, -1).permute(1, 2, 0, 3).reshape(h * w * c, -1)
     if kind == "dense_to_hwc":
         h, w, c = hwc
-        return array.T.reshape(-1, c, h, w).transpose(0, 2, 3, 1).reshape(-1, h * w * c)
+        return array.T.reshape(-1, c, h, w).permute(0, 2, 3, 1).reshape(-1, h * w * c)
     if kind == "bias_hwc":
         h, w, c = hwc
-        return array.reshape(c, h, w).transpose(1, 2, 0).reshape(-1)
+        return array.reshape(c, h, w).permute(1, 2, 0).reshape(-1)
     if kind == "conv":
-        return array.transpose(2, 3, 1, 0)  # OIHW -> HWIO
+        return array.permute(2, 3, 1, 0)  # OIHW -> HWIO
     if kind == "conv_transpose":
-        return array[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+        return array.flip((2, 3)).permute(2, 3, 0, 1)
     return array
+
+
+def _flax_array(tensor: torch.Tensor, kind: str, *meta: Any) -> np.ndarray:
+    """A port tensor as a flax leaf: a C-ordered float32 numpy array of its
+    own.  The layout is changed where the tensor lives (on the card, or by
+    torch's threaded copy on the CPU), then copied to the host once; a copy
+    even on the CPU, where the live weights and optimizer state change in
+    place at the next step."""
+    value = _to_flax(tensor.detach().float(), kind, *meta).clone(memory_format=torch.contiguous_format)
+    return value.cpu().numpy()
+
+
+def _from_flax_array(tree: Any, kind: str, *meta: Any) -> np.ndarray:
+    """A checkpoint's flax leaf in the port's layout: a C-ordered numpy array
+    of its own, made by torch's threaded copy (optax's bfloat16 moments as
+    float32, which holds them exactly)."""
+    array = np.asarray(tree)
+    if array.dtype.name == "bfloat16":
+        array = array.astype(np.float32)
+    if not array.flags.writeable:
+        array = array.copy()
+    return _to_torch(torch.from_numpy(array), kind, *meta).clone(memory_format=torch.contiguous_format).numpy()
 
 
 def _walk(spec: Mapping[str, Any] | list, tree: Any, path: str,
@@ -513,11 +537,11 @@ def _walk(spec: Mapping[str, Any] | list, tree: Any, path: str,
     ``log_alpha``) one array."""
     if isinstance(spec, tuple):
         tensor, kind, *meta = spec
-        value = _to_torch(np.asarray(tree), kind, *meta)
+        value = _from_flax_array(tree, kind, *meta)
         if tuple(value.shape) != tuple(tensor.shape):
             raise ValueError(f"flax param '{path or '/'}' maps to shape {tuple(value.shape)}, the port has "
                              f"{tuple(tensor.shape)}")
-        yield tensor, np.ascontiguousarray(value)  # a copy: checkpoint arrays may be read-only
+        yield tensor, value
         return
     if isinstance(spec, list):
         if not isinstance(tree, (tuple, list)) or len(tree) != len(spec):
@@ -540,7 +564,7 @@ def _walk(spec: Mapping[str, Any] | list, tree: Any, path: str,
 @torch.no_grad()
 def _load(spec: Mapping[str, Any], tree: Any, path: str, unread: Mapping[str, Set[str]]) -> None:
     for tensor, value in _walk(spec, tree, path, unread):
-        tensor.copy_(torch.tensor(value))
+        tensor.copy_(torch.from_numpy(value))
 
 
 def from_flax(tree: Mapping[str, Any], world_model: WorldModel, actor: Actor, critic: Critic,
@@ -556,15 +580,8 @@ def from_flax_policy(tree: Mapping[str, Any], world_model: WorldModel, actor: Ac
     _load(policy_spec(world_model, actor), tree, "", NOT_ACTED_WITH)
 
 
-def _leaf_to_flax(tensor: torch.Tensor, kind: str, *meta: Any) -> np.ndarray:
-    value = _to_flax(tensor.detach().cpu().float().numpy(), kind, *meta)
-    # on the CPU .numpy() shares the live weights, which the next step
-    # updates in place: a checkpoint written later must hold these values
-    return np.array(value, order="C", copy=True) if tensor.device.type == "cpu" else np.ascontiguousarray(value)
-
-
 def _dump(spec: Mapping[str, Any]) -> Dict[str, Any]:
-    return _map_spec(spec, _leaf_to_flax)
+    return _map_spec(spec, _flax_array)
 
 
 def to_flax(world_model: WorldModel, actor: Actor, critic: Critic,
@@ -630,10 +647,7 @@ def optax_state(optimizer: torch.optim.Optimizer, spec: Mapping[str, Any] | list
     def slot(name: str):
         def leaf(tensor: torch.Tensor, kind: str, *meta: Any) -> np.ndarray:
             entry = optimizer.state.get(tensor)
-            value = entry[name] if entry else torch.zeros_like(tensor)
-            # a copy: on the CPU .numpy() shares the live state, which the
-            # next step updates in place
-            return np.array(_to_flax(value.detach().cpu().float().numpy(), kind, *meta), order="C", copy=True)
+            return _flax_array(entry[name] if entry else torch.zeros_like(tensor), kind, *meta)
         return leaf
 
     steps = {float(s["step"]) for s in optimizer.state.values() if "step" in s}
@@ -668,12 +682,11 @@ def optax_state(optimizer: torch.optim.Optimizer, spec: Mapping[str, Any] | list
     return (empty(), base) if clip else (base,)
 
 
-def _state_tensor(value: Any) -> torch.Tensor:
-    """A saved state leaf as a tensor; optax's bfloat16 moments (an
-    ``mu_dtype``) as float32, which holds them exactly (the optimizer takes
-    them to its own dtype)."""
-    value = np.asarray(value)
-    return torch.tensor(value.astype(np.float32) if value.dtype.name == "bfloat16" else value)
+def _state_tensor(value: np.ndarray) -> torch.Tensor:
+    """A saved state leaf from :func:`_walk` (an array of its own; optax's
+    bfloat16 moments, an ``mu_dtype``, come as float32, which holds them
+    exactly: the optimizer takes them to its own dtype) as a tensor."""
+    return torch.from_numpy(value)
 
 
 def optimizer_state_dict(saved: Any, optimizer: torch.optim.Optimizer,

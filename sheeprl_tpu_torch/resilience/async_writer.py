@@ -91,10 +91,13 @@ class AsyncCheckpointWriter:
         self.last_interval_s: Optional[float] = None
 
     # -- producer side (the training loop) ----------------------------------
-    def submit(self, path: str, state: Mapping[str, Any], step: Optional[int] = None) -> float:
+    def submit(self, path: str, state: Mapping[str, Any], step: Optional[int] = None,
+               delay_s: Optional[float] = None) -> float:
         """Snapshot ``state`` to host and enqueue its write; returns the
         seconds the caller paid.  Blocks only while ``max_pending``
-        snapshots already wait."""
+        snapshots already wait.  ``delay_s`` is the chaos ``slow_write``:
+        the writer thread sleeps it before the write, off the critical
+        path."""
         t0 = self._clock()
         snapshot = host_snapshot(state)
         with self._cond:
@@ -102,7 +105,7 @@ class AsyncCheckpointWriter:
                 raise RuntimeError("AsyncCheckpointWriter is closed")
             while len(self._queue) >= self.max_pending and not self._closed:
                 self._cond.wait(timeout=1.0)
-            self._queue.append((str(path), snapshot, step, time.time()))
+            self._queue.append((str(path), snapshot, step, time.time(), delay_s))
             if self._thread is None:
                 self._thread = threading.Thread(target=self._worker, name="sheeprl-ckpt-writer", daemon=True)
                 self._thread.start()
@@ -120,7 +123,7 @@ class AsyncCheckpointWriter:
                 raise RuntimeError("AsyncCheckpointWriter is closed")
             while len(self._queue) >= self.max_pending and not self._closed:
                 self._cond.wait(timeout=1.0)
-            self._queue.append((_TASK, fn, None, time.time()))
+            self._queue.append((_TASK, fn, None, time.time(), None))
             if self._thread is None:
                 self._thread = threading.Thread(target=self._worker, name="sheeprl-ckpt-writer", daemon=True)
                 self._thread.start()
@@ -134,7 +137,7 @@ class AsyncCheckpointWriter:
                     self._cond.wait(timeout=1.0)
                 if not self._queue:
                     return  # closed and drained
-                path, snapshot, step, enqueued_t = self._queue.popleft()
+                path, snapshot, step, enqueued_t, delay_s = self._queue.popleft()
                 self._writing = True
                 self._cond.notify_all()
             try:
@@ -144,14 +147,18 @@ class AsyncCheckpointWriter:
                     except Exception as err:
                         warnings.warn(f"async writer task failed: {err!r} (the run continues)", RuntimeWarning)
                 else:
-                    self._write_one(path, snapshot, step, enqueued_t)
+                    self._write_one(path, snapshot, step, enqueued_t, delay_s)
             finally:
                 with self._cond:
                     self._writing = False
                     self._cond.notify_all()
 
-    def _write_one(self, path: str, snapshot: Any, step: Optional[int], enqueued_t: float) -> None:
+    def _write_one(self, path: str, snapshot: Any, step: Optional[int], enqueued_t: float,
+                   delay_s: Optional[float] = None) -> None:
         from sheeprl_tpu_torch.resilience.manifest import checkpoint_step, save_verified_checkpoint
+
+        if delay_s:
+            time.sleep(delay_s)  # chaos slow_write: the cost lands in queued_s and the cadence gauges
 
         step = step if step is not None else checkpoint_step(path, snapshot)
         queued_s = round(max(0.0, time.time() - enqueued_t), 3)

@@ -19,6 +19,7 @@ import hashlib
 import json
 import os
 import re
+import threading
 import time
 from pathlib import Path
 from typing import Any, Dict, List, Mapping, Optional, Tuple
@@ -47,12 +48,34 @@ def checkpoint_step(ckpt_path: str, state: Optional[Mapping[str, Any]] = None) -
     return None
 
 
+#: the sha256 of each file this process hashed, keyed by the file's path,
+#: device, inode, size and change times: a checkpoint verified again (a
+#: resume, an eval, the supervisor's poll) is read once a process
+_DIGESTS: Dict[Tuple[Any, ...], str] = {}
+_DIGESTS_LOCK = threading.Lock()
+#: a digest is kept only for a file whose last change was this long before
+#: hashing began: a rewrite within the clock's granularity of the change
+#: the key records would leave the key as it was
+_SETTLED_NS = 2_000_000_000
+
+
 def _file_digest(path: str, chunk_bytes: int = 1 << 20) -> str:
+    st = os.stat(path)
+    key = (os.path.realpath(path), st.st_dev, st.st_ino, st.st_size, st.st_mtime_ns, st.st_ctime_ns)
+    with _DIGESTS_LOCK:
+        known = _DIGESTS.get(key)
+    if known is not None:
+        return known
+    started_ns = time.time_ns()
     digest = hashlib.sha256()
     with open(path, "rb") as fp:
         for block in iter(lambda: fp.read(chunk_bytes), b""):
             digest.update(block)
-    return digest.hexdigest()
+    hexdigest = digest.hexdigest()
+    if started_ns - max(st.st_mtime_ns, st.st_ctime_ns) > _SETTLED_NS:
+        with _DIGESTS_LOCK:
+            _DIGESTS[key] = hexdigest
+    return hexdigest
 
 
 def tree_spec(state: Mapping[str, Any]) -> Dict[str, List[Any]]:

@@ -12,11 +12,11 @@ bookkeeping behind the ``sheeprl_ckpt_*`` gauges and counters of
 * ``preempt.enabled``: install the SIGTERM/SIGINT graceful-preemption guard;
 * ``inject_preempt_iter``: behave as if a preemption signal arrived at the
   Nth loop iteration (the emergency snapshot -> ``preempted`` -> exit 75
-  drill).
-
-The JAX package's fault isolation (decoupled loops only) and scripted
-chaos schedules are not ported (ROADMAP Queue 1); a non-null
-``resilience.chaos.schedule`` raises.
+  drill);
+* ``isolation.*``: the last-good parameter fence and the quarantine with
+  rollback of the decoupled topology (``resilience/isolation.py``); the
+  coupled loops carry only its counters and summary;
+* ``chaos.*``: scripted fault schedules (``resilience/chaos.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ import time
 from typing import Any, Callable, Dict, Mapping, Optional
 
 from sheeprl_tpu_torch.resilience.async_writer import AsyncCheckpointWriter
+from sheeprl_tpu_torch.resilience.chaos import ChaosMonitor
+from sheeprl_tpu_torch.resilience.isolation import IsolationMonitor
 from sheeprl_tpu_torch.resilience.preemption import PreemptionGuard
 
 #: set by a supervisor on every child it (re)spawns; exported as the
@@ -41,12 +43,6 @@ class ResilienceMonitor:
         diag_cfg = cfg.get("diagnostics") or {}
         res_cfg = diag_cfg.get("resilience") or {}
         self.enabled = bool(res_cfg.get("enabled", True))
-        if self.enabled and (res_cfg.get("chaos") or {}).get("schedule") is not None:
-            raise NotImplementedError(
-                "diagnostics.resilience.chaos.schedule (scripted chaos drills) is not ported yet: see ROADMAP.md "
-                "Queue 1; the single-fault drills (sentinel.inject_nan_iter, resilience.inject_preempt_iter, "
-                "memory.inject_*_iter, goodput.watchdog.inject_stall_iter) are"
-            )
         self.async_checkpoint = bool(res_cfg.get("async_checkpoint", True))
         raw_pending = res_cfg.get("max_pending_snapshots")
         max_pending = 2 if raw_pending is None else int(raw_pending)
@@ -57,9 +53,19 @@ class ResilienceMonitor:
         self.preempt_signals = bool(preempt_cfg.get("enabled", True))
         inject = res_cfg.get("inject_preempt_iter")
         self.inject_preempt_iter = None if inject is None else int(inject)
+        # the isolation and chaos monitors: None when off, so each consumer
+        # is an attribute check
+        isolation = IsolationMonitor(cfg)
+        self.isolation: Optional[IsolationMonitor] = isolation if isolation.enabled else None
+        chaos = ChaosMonitor(cfg)
+        self.chaos: Optional[ChaosMonitor] = chaos if chaos.enabled else None
+        self._chaos_preempt = False
+        self._slow_write_pending: Optional[float] = None
+        self._chaos_slow_write_s = chaos.slow_write_s
 
         self._clock = clock
         self._journal_fn: Optional[Callable[..., None]] = None
+        self._sync_fn: Optional[Callable[[], None]] = None
         self._writer: Optional[AsyncCheckpointWriter] = None
         self._writer_final_stats: Optional[Dict[str, Any]] = None
         self._guard: Optional[PreemptionGuard] = None
@@ -77,15 +83,21 @@ class ResilienceMonitor:
         self._last_path: Optional[str] = None
 
     # -- lifecycle -----------------------------------------------------------
-    def open(self, journal_fn: Optional[Callable[..., None]] = None) -> None:
+    def open(self, journal_fn: Optional[Callable[..., None]] = None,
+             sync_fn: Optional[Callable[[], None]] = None) -> None:
         if self._opened:
             return
         self._journal_fn = journal_fn
+        self._sync_fn = sync_fn
         self._opened = True
         try:
             self._restarts_total = int(os.environ.get(RESTARTS_ENV_VAR, "0") or 0)
         except ValueError:
             self._restarts_total = 0
+        if self.isolation is not None:
+            self.isolation.open(self._journal, self._sync)
+        if self.chaos is not None:
+            self.chaos.open(self._journal)
         if self.async_checkpoint:
             self._writer = AsyncCheckpointWriter(journal_fn=self._journal, max_pending=self.max_pending)
         if self.preempt_signals:
@@ -110,14 +122,23 @@ class ResilienceMonitor:
         if self._journal_fn is not None:
             self._journal_fn(event, **fields)
 
+    def _sync(self) -> None:
+        if self._sync_fn is not None:
+            self._sync_fn()
+
     # -- checkpoint routing (Runtime.save) -----------------------------------
     def save(self, path: str, state: Mapping[str, Any]) -> None:
         from sheeprl_tpu_torch.resilience.manifest import checkpoint_step, save_verified_checkpoint
 
         step = checkpoint_step(path, state)
+        delay_s, self._slow_write_pending = self._slow_write_pending, None
         if self._writer is not None:
-            self._writer.submit(path, state, step=step)
+            self._writer.submit(path, state, step=step, delay_s=delay_s)
             return
+        if delay_s:
+            # chaos slow_write on a blocking save: the sleep is on the
+            # critical path, the cost async_checkpoint takes off it
+            time.sleep(delay_s)
         self._journal("ckpt_begin", path=str(path), step=step, blocking=True, queued_s=0.0)
         try:
             result = save_verified_checkpoint(path, state, step=step)
@@ -144,13 +165,22 @@ class ResilienceMonitor:
 
     # -- preemption ----------------------------------------------------------
     def preempt_due(self, iter_num: int) -> bool:
-        """True once a preemption (a signal, or the injected drill) is
-        pending: the loop then forces its checkpoint branch and calls
-        ``Diagnostics.on_preempted``."""
+        """True once a preemption (a signal, the injected drill or a chaos
+        ``preempt``) is pending: the loop then forces its checkpoint branch
+        and calls ``Diagnostics.on_preempted``.  Also the chaos schedule's
+        tick, as every loop calls it before its checkpoint branch: a
+        ``slow_write`` due here is paid by the next save."""
         if not self._opened:
             return False
+        if self.chaos is not None and self.chaos.take(iter_num, "slow_write"):
+            self._slow_write_pending = self._chaos_slow_write_s
         if self._guard is not None and self._guard.requested:
             self._preempt_reason = f"signal:{self._guard.signal_name}"
+            return True
+        if self.chaos is not None and self.chaos.take(iter_num, "preempt"):
+            self._chaos_preempt = True
+            self._preempt_reason = "chaos"
+        if self._chaos_preempt:
             return True
         if self.inject_preempt_iter is not None and int(iter_num) == self.inject_preempt_iter:
             if not self._inject_fired:
@@ -187,6 +217,13 @@ class ResilienceMonitor:
             "interval_s": self._last_interval_s,
         }
 
+    def interval_metrics(self) -> Dict[str, float]:
+        """The interval's resilience gauges: the fence's staleness, once
+        the promotion gate has run."""
+        if self.isolation is None:
+            return {}
+        return self.isolation.interval_metrics()
+
     def snapshot(self) -> Dict[str, Any]:
         state = self._ckpt_state()
         gauges: Dict[str, float] = {}
@@ -202,14 +239,20 @@ class ResilienceMonitor:
             "ckpt_write_seconds_total": state["write_seconds"],
             "restarts_total": self._restarts_total,
         }
+        if self.isolation is not None:
+            gauges.update(self.isolation.gauges())
+            counters.update(self.isolation.counters())
         return {"gauges": gauges, "counters": counters, "info": {"last_ckpt_path": state["last_path"]}}
 
     def summary(self) -> Dict[str, Any]:
         """Closing totals merged into the ``telemetry_summary`` event."""
         state = self._ckpt_state()
-        return {
+        out = {
             "ckpts_written": state["written"],
             "ckpt_failures": state["failed"],
             "ckpt_write_seconds": state["write_seconds"],
             "restarts": self._restarts_total,
         }
+        if self.isolation is not None:
+            out.update(self.isolation.summary())
+        return out

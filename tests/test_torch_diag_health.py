@@ -36,7 +36,7 @@ def _flax(spec, values):
             out[key] = _flax(sub, values)
         else:
             tensor, kind = sub
-            out[key] = np.ascontiguousarray(_to_flax(values[id(tensor)].numpy(), kind))
+            out[key] = np.ascontiguousarray(_to_flax(values[id(tensor)], kind).numpy())
     return out
 
 

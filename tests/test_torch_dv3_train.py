@@ -493,7 +493,7 @@ def _adam_moments(agent, optimizers) -> dict:
             if isinstance(node, dict):
                 return {k: walk(v, slot) for k, v in node.items()}
             tensor, kind = node
-            return _to_flax(state[tensor][slot].numpy(), kind)
+            return _to_flax(state[tensor][slot], kind).numpy()
 
         out[name] = {slot: walk(spec[name], slot) for slot in ("exp_avg", "exp_avg_sq")}
     return out

@@ -304,3 +304,74 @@ def test_the_records_modules_import_no_jax_and_the_readers_no_torch(module):
     assert out.returncode == 0, out.stderr
     loaded = eval(out.stdout.strip())
     assert loaded == ([] if _RECORDS_MODULES[module] else [m for m in loaded if m == "torch"]), (module, loaded)
+
+
+_RESILIENCE_MODULES = {"sheeprl_tpu_torch.tools.run_monitor": True, "sheeprl_tpu_torch.tools.health_diff": True,
+                       "sheeprl_tpu_torch.resilience.manifest": True,
+                       "sheeprl_tpu_torch.resilience.isolation": False, "sheeprl_tpu_torch.resilience.chaos": False,
+                       "sheeprl_tpu_torch.resilience.supervisor": False, "sheeprl_tpu_torch.resilience": False,
+                       "sheeprl_tpu_torch.tools.chaos_drill": False, "sheeprl_tpu_torch.tools.supervise": False}
+
+
+@pytest.mark.parametrize("module", sorted(_RESILIENCE_MODULES))
+def test_the_resilience_modules_import_no_jax_and_the_readers_no_torch(module):
+    """Isolation, chaos, the supervisor and their launchers load neither JAX
+    nor the JAX package; ``run_monitor``, ``health_diff`` and the manifest
+    (and the lazy ``resilience`` package itself) load no torch either."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ONE, module], cwd=ROOT, env=_env(), capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = eval(out.stdout.strip())
+    if module == "sheeprl_tpu_torch.resilience":
+        assert loaded == [], loaded
+    else:
+        assert loaded == ([] if _RESILIENCE_MODULES[module] else [m for m in loaded if m == "torch"]), (module, loaded)
+
+
+def test_the_walk_reaches_the_resilience_modules():
+    import pkgutil
+
+    import sheeprl_tpu_torch
+
+    names = {m.name for m in pkgutil.walk_packages(sheeprl_tpu_torch.__path__, "sheeprl_tpu_torch.")}
+    assert set(_RESILIENCE_MODULES) - {"sheeprl_tpu_torch.resilience"} <= names
+
+
+_CHILD_ENV = """
+import json, os, sys
+print(json.dumps(sorted(k for k in os.environ if k.startswith(("JAX_", "XLA_", "TPU_", "LIBTPU")))))
+print(sorted({m.split(".")[0] for m in sys.modules} & {"jax", "jaxlib", "flax", "sheeprl_tpu"}))
+"""
+
+
+def test_the_supervisor_and_drill_children_get_no_jax_environment(tmp_path, monkeypatch):
+    """A child of ``supervise_command`` (and of the drill, which takes the
+    same environment) inherits none of the JAX package's platform or
+    compiler settings, imports the checkout's port from any directory and
+    is told the restarts so far."""
+    from sheeprl_tpu_torch.resilience.monitor import RESTARTS_ENV_VAR
+    from sheeprl_tpu_torch.resilience.supervisor import child_env, supervise_command
+
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    monkeypatch.setenv("XLA_FLAGS", "--xla_force_host_platform_device_count=8")
+    monkeypatch.setenv("ALLOW_MULTIPLE_LIBTPU_LOAD", "1")
+    monkeypatch.delenv("PYTHONPATH", raising=False)
+    env = child_env()
+    assert "JAX_PLATFORMS" not in env and "XLA_FLAGS" not in env and RESTARTS_ENV_VAR not in env
+    assert env["PYTHONPATH"].split(os.pathsep)[0] == str(ROOT)
+    assert child_env(2)[RESTARTS_ENV_VAR] == "2"
+    out = tmp_path / "child.txt"
+    rc = supervise_command(lambda resume: [sys.executable, "-c", _CHILD_ENV + f"open({str(out)!r}, 'w').write('ok')"],
+                           str(tmp_path / "run"), max_restarts=0)
+    assert rc == 0 and out.read_text() == "ok"
+    probe = subprocess.run([sys.executable, "-c", _CHILD_ENV], cwd=tmp_path, env=child_env(), capture_output=True,
+                           text=True, timeout=60)
+    assert probe.stdout.splitlines() == ["[]", "[]"], probe.stdout
+
+
+def test_the_drill_child_runs_the_port(tmp_path):
+    from sheeprl_tpu_torch.resilience.chaos import drill_argv
+
+    argv = drill_argv([{"iter": 2, "fault": "preempt"}], ["exp=ppo"])
+    assert argv[1:4] == ["-m", "sheeprl_tpu_torch", "run"] and "run_name=chaos_drill" in argv
+    assert "diagnostics.resilience.chaos.schedule=[{iter: 2, fault: preempt}]" in argv
