@@ -1691,8 +1691,10 @@ def run_train(build_dir: Path, device_name: str = "cuda") -> dict:
     launches = fused_layernorm_gru.launches  # the main path ends here
 
     rows = out["metric_rows"]
-    if out["gradient_steps"] < MIN_GRADIENT_STEPS or rows.shape != (out["gradient_steps"], len(METRIC_ORDER)):
-        raise AssertionError(f"{out['gradient_steps']} gradient steps, metric rows {rows.shape}")
+    # one metric row a training iteration, as the JAX loop drains them
+    if out["gradient_steps"] < MIN_GRADIENT_STEPS or rows.shape != (out["train_iterations"], len(METRIC_ORDER)):
+        raise AssertionError(f"{out['gradient_steps']} gradient steps in {out['train_iterations']} training "
+                             f"iterations, metric rows {rows.shape}")
     sps = _timer_metrics(out["logged"], "train")
     if not np.isfinite(rows).all():
         raise AssertionError(f"non-finite training metrics: {rows}")
@@ -1761,6 +1763,8 @@ def run_train(build_dir: Path, device_name: str = "cuda") -> dict:
         )
     return {
         "gradient_steps": out["gradient_steps"],
+        "train_iterations": out["train_iterations"],
+        "metric_rows": len(rows),
         "player_steps": out["player_steps"],
         "test_steps": out["test_steps"],
         "policy_steps": out["policy_steps"],
@@ -3533,6 +3537,61 @@ def start_child_runners(build_dir: Path, count: int = 2) -> list:
     return runners
 
 
+# the lint phase: the port's lint as the card machine's Python runs it, in a
+# process of its own started beside the kernel build; it reports its own
+# seconds and whether it loaded torch or jax (it is static: it must not)
+LINT_DEADLINE_S = 20.0
+_LINT_RUNNER = """
+import json, sys, time
+t0 = time.monotonic()
+from sheeprl_tpu_torch.tools import sheeprl_lint
+code = sheeprl_lint.main(["--format", "json", "--out", sys.argv[1]])
+record = {"exit_code": code, "seconds": round(time.monotonic() - t0, 3),
+          "imported": sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "jaxlib"))}
+with open(sys.argv[2], "w") as fp:
+    json.dump(record, fp)
+"""
+
+
+def start_lint(build_dir: Path) -> dict:
+    """Start ``python -m sheeprl_tpu_torch.tools.sheeprl_lint``'s work in a
+    child interpreter now; :func:`run_lint` reads it later."""
+    paths = {k: build_dir / f"lint_{k}" for k in ("report.json", "record.json", "log.txt")}
+    for path in paths.values():
+        path.unlink(missing_ok=True)
+    with open(paths["log.txt"], "w") as log:
+        proc = subprocess.Popen([sys.executable, "-c", _LINT_RUNNER, str(paths["report.json"]),
+                                 str(paths["record.json"])], cwd=str(ROOT), stdout=log, stderr=subprocess.STDOUT)
+    atexit.register(proc.kill)  # a no-op once it has exited
+    return {"proc": proc, "started": time.monotonic(), **paths}
+
+
+def run_lint(lint: dict) -> dict:
+    """The lint phase: the port's lint over the checkout, under its baseline,
+    within ``LINT_DEADLINE_S`` of its start, without torch or jax."""
+    proc = lint["proc"]
+    try:
+        proc.wait(timeout=max(0.0, LINT_DEADLINE_S - (time.monotonic() - lint["started"])))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise AssertionError(f"lint: no result within {LINT_DEADLINE_S:g} s of its start") from None
+    log = lint["log.txt"].read_text()[-2000:]
+    if proc.returncode != 0 or not lint["record.json"].is_file():
+        raise AssertionError(f"lint: exit code {proc.returncode} (findings outside the baseline?): {log}")
+    record = json.loads(lint["record.json"].read_text())
+    report = json.loads(lint["report.json"].read_text())
+    if record["seconds"] > LINT_DEADLINE_S:
+        raise AssertionError(f"lint: {record['seconds']} s, over its {LINT_DEADLINE_S:g} s deadline")
+    if record["imported"]:
+        raise AssertionError(f"lint: the lint process imported {record['imported']}")
+    if report["findings"] or report["stale_baseline_entries"] or set(report["families"]) != {
+            "INS", "JIT", "CFG", "JRN", "ASY", "TRC", "LCK"}:
+        raise AssertionError(f"lint: {report['findings']}, stale {report['stale_baseline_entries']}, "
+                             f"families {report['families']}")
+    return {"seconds": record["seconds"], "suppressed": report["suppressed"], "families": report["families"],
+            "elapsed_in_lint": report["elapsed_seconds"]}
+
+
 def _wait_ready(runners: list, timeout_s: float = 300.0) -> None:
     t0 = time.monotonic()
     while not all(ready.exists() for _, _, ready in runners):
@@ -4941,6 +5000,7 @@ def main() -> int:
     os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     os.environ["PYTHONPYCACHEPREFIX"] = str(build_dir / "pycache")
     runners = start_child_runners(build_dir)
+    lint = start_lint(build_dir)
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[card] {kind}; nvidia-smi name,power.limit:", flush=True)
@@ -4967,6 +5027,13 @@ def main() -> int:
             print(f"[build] {name} ptxas {line}", flush=True)
 
     mark("build")
+    linted = run_lint(lint)
+    print(f"[lint] python -m sheeprl_tpu_torch.tools.sheeprl_lint over the checkout: no finding outside its "
+          f"baseline ({linted['suppressed']} baselined, none stale), families {', '.join(linted['families'])}; "
+          f"the lint process loaded neither torch nor jax", flush=True)
+    print(f"[lint] seconds: {linted['seconds']:.2f} (its passes {linted['elapsed_in_lint']:.2f}; deadline "
+          f"{LINT_DEADLINE_S:g} s, started beside the kernel build)  [{card}]", flush=True)
+    mark("lint")
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version in true fp32
     torch.backends.cudnn.allow_tf32 = False
     cases = []
@@ -5053,7 +5120,8 @@ def main() -> int:
     train = run_train(build_dir)
     s_cases = {(c["B"], c["dtype"]): c for c in cases if c["H"] == 512}
     print(
-        f"[train] DreamerV3-S run (batch 16 x 64, horizon 15, fp32): {train['gradient_steps']} gradient steps, "
+        f"[train] DreamerV3-S run (batch 16 x 64, horizon 15, fp32): {train['gradient_steps']} gradient steps in "
+        f"{train['train_iterations']} training iterations, {train['metric_rows']} metric rows (one an iteration), "
         f"{train['player_steps']} player steps, {train['test_steps']} test-episode steps, {train['policy_steps']} "
         f"policy steps; {train['ln_gru_launches']} ln_gru launches = predicted "
         f"({train['launches_per_gradient_step']} per gradient step); every metric finite, final "
@@ -5647,7 +5715,7 @@ def main() -> int:
         "library_ms": main["library_ms"],
         "shape": {"B": main["B"], "K": main["K"], "H": main["H"], "dtype": main["dtype"]},
         "cases": [{k: c[k] for k in case_keys} for c in cases],
-        "phase": "kernel+slice+serve-ops+train+chunked+resume+eval+offline+drill+jepa+p2e+sac+droq+sac_ae+offline_sac"
+        "phase": "kernel+lint+slice+serve-ops+train+chunked+resume+eval+offline+drill+jepa+p2e+sac+droq+sac_ae+offline_sac"
                  "+offline_droq+bf16+dv2+dv1+ppo_recurrent+p2e_dv2+p2e_dv1+minedojo+records"
                  "+resilience",
     }]

@@ -779,9 +779,12 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
             for sample in local_data:
                 batch = diag.maybe_inject_nan(iter_num, stage_batch(sample, cnn_keys, device))
                 moments_state, metrics = train_step(moments_state, batch, target_tau(cfg, gradient_steps), generator)
-                pending.append(metrics)
                 gradient_steps += 1
             train_step_count += 1
+        # one metric row an iteration, its last gradient step's, as the JAX
+        # loops drain theirs: the logged means and the sentinel's
+        # nonfinite_steps count training iterations, not gradient steps
+        pending.append(metrics)
 
     for iter_num in range(start_iter, total_iters + 1):
         policy_step_count += policy_steps_per_iter
@@ -998,6 +1001,7 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
         "player_steps": player_steps,
         "player_width": num_envs,
         "gradient_steps": gradient_steps,
+        "train_iterations": train_step_count,
         "test_steps": test_steps,
         "test_reward": test_reward,
         "player_actors": player_actors,

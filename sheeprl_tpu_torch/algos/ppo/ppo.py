@@ -199,7 +199,9 @@ def rollout(agent: PPOAgent, envs, obs: Dict[str, np.ndarray], rb, stage, cfg, g
     step is recorded, a truncated episode's reward bootstrapped from the
     value of its last observation, the episodes' statistics into
     ``aggregator``.  ``spaces_of`` is ``(is_continuous, is_multidiscrete)``.
-    Returns the observations the rollout ends on."""
+    ``agent`` may be the loop's ``kind="rollout"`` instrument of the agent,
+    which counts each policy forward's fetch (its other methods reach the
+    agent itself).  Returns the observations the rollout ends on."""
     from sheeprl_tpu_torch.data.slab import step_slab
     from sheeprl_tpu_torch.envs.player import fetch_values
 
@@ -208,8 +210,7 @@ def rollout(agent: PPOAgent, envs, obs: Dict[str, np.ndarray], rb, stage, cfg, g
     for _ in range(int(cfg.algo.rollout_steps)):
         diag.note_env_steps(num_envs)
         actions, logprobs, _, values = agent(stage(obs, num_envs), generator=generator)
-        diag.note_fetch()  # the step's one device-to-host copy
-        actions_np, logprobs_np, values_np = fetch_values(actions, logprobs, values)
+        actions_np, logprobs_np, values_np = fetch_values(actions, logprobs, values)  # the step's one fetch
         # the envs step while this process records the step
         with diag.span("env_step_async"):
             envs.step_async(env_actions_of(actions_np, *spaces_of, num_envs))
@@ -320,6 +321,10 @@ class OnPolicyFamily:
     #: whether a run with ``model_manager.disabled=False`` registers the
     #: agent with MLflow at its end, as the JAX PPO and A2C loops do
     registers_models = True
+    #: whether the loop observes the rollout's policy forward as a
+    #: ``kind="rollout"`` step, as the JAX PPO and A2C loops do
+    #: (``sheeprl_tpu/algos/ppo/ppo.py:307``)
+    instruments_rollout = True
 
     def unported(self, cfg) -> List[str]:
         return []
@@ -430,6 +435,7 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn,
     train_step = diag.instrument("train_step", make_update_fn(agent, optimizer, cfg, total_iters), kind="train")
     metric_order, health_out = train_step.metric_order, train_step.health_names
     n_losses = len(metric_order)
+    policy = diag.instrument("policy_step", agent, kind="rollout") if family.instruments_rollout else agent
     diag.register_footprint("params", [agent])
     diag.register_footprint("opt_state", [optimizer])
 
@@ -453,7 +459,7 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn,
     for iter_num in range(start_iter, total_iters + 1):
         agent.eval()
         with timer("Time/env_interaction_time"), diag.span("rollout"), torch.no_grad():
-            obs = family.rollout(agent, envs, obs, rb, stage, cfg, generator, aggregator, diag,
+            obs = family.rollout(policy, envs, obs, rb, stage, cfg, generator, aggregator, diag,
                                  (is_continuous, is_multidiscrete))
         policy_step_count += total_local
 

@@ -158,6 +158,8 @@ class RecurrentFamily(OnPolicyFamily):
     state across iterations, the sequence data, the flax tree, the test."""
 
     registers_models = False  # the JAX loop registers nothing
+    # the JAX loop instruments its update only (sheeprl_tpu/algos/ppo_recurrent/ppo_recurrent.py:207-210)
+    instruments_rollout = False
 
     def __init__(self):
         self.carry = None  # (hx, cx, prev_actions) on the device, prev_dones on the host

@@ -89,6 +89,9 @@ def serve(args: Optional[Sequence[str]] = None) -> None:
     serve_checkpoint(*serve_config(args))
 
 
+#: ``fabric.strategy`` values the JAX package knows; another one warns (one
+#: device runs any of them the same)
+KNOWN_STRATEGIES = ("auto", "dp", "ddp", "single")
 #: ``matmul_precision`` -> ``torch.set_float32_matmul_precision``'s value
 #: (None: torch's own, full fp32): the JAX names for fp32, TF32 and bf16
 #: products
@@ -114,10 +117,18 @@ def check_configs(cfg: dotdict) -> None:
             f"Invalid 'matmul_precision' value {cfg.get('matmul_precision')!r}; "
             "must be one of: default, high, highest, tensorfloat32, bfloat16, float32"
         )
+    strategy = str(cfg.fabric.get("strategy", "auto")).lower()
+    if strategy not in KNOWN_STRATEGIES:
+        warnings.warn(
+            f"Unknown fabric.strategy {strategy!r}; the runtime treats it as 'auto' (known: {KNOWN_STRATEGIES})",
+            UserWarning,
+        )
     if cfg.metric.log_level not in (0, 1):
         raise ValueError(f"metric.log_level must be 0 or 1, got {cfg.metric.log_level}")
     _check_offline(cfg)
+    _check_diagnostics(cfg)
     _check_resilience(cfg)
+    _check_rssm_chunks(cfg)
     learning_starts = cfg.algo.get("learning_starts")
     if learning_starts is not None and learning_starts < 0:
         raise ValueError("The `algo.learning_starts` parameter must be greater or equal to zero")
@@ -133,6 +144,96 @@ def check_configs(cfg: dotdict) -> None:
         if not _IS_MLFLOW_AVAILABLE:
             warnings.warn("MLFlow is not installed; setting model_manager.disabled=True", UserWarning)
             cfg.model_manager.disabled = True
+
+
+def _check_diagnostics(cfg: dotdict) -> None:
+    """The JAX ``check_configs``' telemetry, watchdog, goodput, snapshot
+    and learning-health checks, with its errors: a bad knob fails before
+    the log dir exists, not hours into a run."""
+    diag_cfg = cfg.get("diagnostics") or {}
+    telemetry_cfg = diag_cfg.get("telemetry") or {}
+    port = (telemetry_cfg.get("http") or {}).get("port", 0) or 0
+    if not isinstance(port, int) or port < 0 or port > 65535:
+        raise ValueError(
+            f"diagnostics.telemetry.http.port must be an integer in [0, 65535] (0 = ephemeral), got {port!r}"
+        )
+    storm_threshold = (telemetry_cfg.get("watchdog") or {}).get("storm_threshold")
+    if storm_threshold is not None and int(storm_threshold) < 1:
+        raise ValueError(f"diagnostics.telemetry.watchdog.storm_threshold must be >= 1, got {storm_threshold!r}")
+    goodput_cfg = diag_cfg.get("goodput") or {}
+    goodput_wd_cfg = goodput_cfg.get("watchdog") or {}
+    for knob in ("heartbeat_s", "stall_threshold_s"):
+        value = goodput_wd_cfg.get(knob)
+        if value is not None and float(value) <= 0:
+            raise ValueError(
+                f"diagnostics.goodput.watchdog.{knob} must be > 0 or null (null disables the watchdog), got {value!r}"
+            )
+    if goodput_cfg.get("enabled", True) and (goodput_cfg.get("profile") or {}).get("enabled", False):
+        max_ms = goodput_cfg.profile.get("max_ms")
+        if max_ms is not None and float(max_ms) < 10:
+            raise ValueError(
+                f"diagnostics.goodput.profile.max_ms must be >= 10 (the capture floor), got {max_ms!r}; "
+                "set diagnostics.goodput.profile.enabled=False instead"
+            )
+    res_cfg = diag_cfg.get("resilience") or {}
+    max_pending = res_cfg.get("max_pending_snapshots")
+    if max_pending is not None and int(max_pending) < 1:
+        raise ValueError(f"diagnostics.resilience.max_pending_snapshots must be >= 1, got {max_pending!r}")
+    inject_preempt = res_cfg.get("inject_preempt_iter")
+    if inject_preempt is not None and int(inject_preempt) < 1:
+        raise ValueError(
+            f"diagnostics.resilience.inject_preempt_iter must be >= 1 (1 = first iteration) or null, "
+            f"got {inject_preempt!r}"
+        )
+    health_cfg = diag_cfg.get("health") or {}
+    confirm = health_cfg.get("confirm")
+    if confirm is not None and int(confirm) < 1:
+        raise ValueError(f"diagnostics.health.confirm must be >= 1, got {confirm!r}")
+    detectors = health_cfg.get("detectors") or {}
+    low, high = detectors.get("update_ratio_low"), detectors.get("update_ratio_high")
+    if low is not None and high is not None and float(low) >= float(high):
+        raise ValueError(
+            f"diagnostics.health.detectors.update_ratio_low must be < update_ratio_high, got {low!r} >= {high!r}"
+        )
+    plateau_window = detectors.get("plateau_window")
+    if plateau_window is not None and int(plateau_window) < 2:
+        raise ValueError(f"diagnostics.health.detectors.plateau_window must be >= 2, got {plateau_window!r}")
+    if health_cfg.get("inject_entropy_collapse_iter") is not None and detectors.get("entropy_floor") is None:
+        raise ValueError(
+            "diagnostics.health.inject_entropy_collapse_iter requires diagnostics.health.detectors.entropy_floor "
+            "— a drill against a disarmed detector could never fire"
+        )
+    fsdp = cfg.fabric.get("fsdp", 1)
+    if fsdp is not None and int(fsdp) < 1:
+        raise ValueError(f"distribution.fsdp_axis_size must be >= 1, got {int(fsdp)}")
+    min_shard = cfg.fabric.get("fsdp_min_shard_bytes")
+    if min_shard is not None and int(min_shard) < 0:
+        raise ValueError(f"distribution.fsdp_min_shard_bytes must be >= 0, got {min_shard!r}")
+
+
+def _check_rssm_chunks(cfg: dotdict) -> None:
+    """The JAX ``check_configs``' chunked RSSM scan checks (the DreamerV3
+    family's ``algo.rssm_chunks``), at compose time, not at the first step."""
+    rssm_chunks = cfg.algo.get("rssm_chunks")
+    if rssm_chunks is None:
+        return
+    rssm_chunks = int(rssm_chunks)
+    if rssm_chunks < 1:
+        raise ValueError(f"algo.rssm_chunks must be >= 1, got {rssm_chunks}")
+    burn_in = int(cfg.algo.get("rssm_chunk_burn_in", 0) or 0)
+    if burn_in < 0:
+        raise ValueError(f"algo.rssm_chunk_burn_in must be >= 0, got {burn_in}")
+    seq_len = cfg.algo.get("per_rank_sequence_length")
+    if rssm_chunks > 1 and isinstance(seq_len, int):
+        if seq_len % rssm_chunks != 0:
+            raise ValueError(
+                f"algo.rssm_chunks ({rssm_chunks}) must divide algo.per_rank_sequence_length ({seq_len})"
+            )
+        if burn_in >= seq_len // rssm_chunks:
+            raise ValueError(
+                f"algo.rssm_chunk_burn_in ({burn_in}) must be < the chunk length "
+                f"({seq_len // rssm_chunks} = per_rank_sequence_length / rssm_chunks)"
+            )
 
 
 def _check_resilience(cfg: dotdict) -> None:
@@ -384,6 +485,14 @@ def evaluation(args: Optional[Sequence[str]] = None) -> Any:
                 logger_cfg[key] = os.path.join("logs", "runs", str(cfg.root_dir))
         if "name" in logger_cfg:
             logger_cfg.name = cfg.run_name
+        # wandb's and mlflow's archived configs carry no `name`: their
+        # backends take the run name as their own keyword, as the JAX eval
+        # passes it
+        target = str(logger_cfg.get("_target_", ""))
+        if target.endswith("WandbLogger"):
+            logger_cfg.name = cfg.run_name
+        elif target.endswith("MLFlowLogger"):
+            logger_cfg.run_name = cfg.run_name
     cfg.checkpoint_path = str(ckpt_path)
     cfg.fabric = dotdict({
         "_target_": "sheeprl_tpu_torch.parallel.runtime.Runtime",

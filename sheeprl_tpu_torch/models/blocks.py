@@ -119,8 +119,9 @@ class LayerNormGRUCell(nn.Module):
     the hand-written kernel on a CUDA tensor and carries gradients to every
     input, the initial state's broadcast included.  The JAX package chose between
     its Pallas kernel and XLA's own fusion with ``algo.rssm_pallas`` /
-    ``recurrent_model.fused_kernel``; the port has no second fused path, so it
-    reads neither flag (ROADMAP.md, Queue 2).
+    ``recurrent_model.fused_kernel``, and how far XLA unrolls the RSSM scan
+    with ``algo.scan_unroll``; the port has no second fused path and no scan
+    lowering to unroll, so it reads none of the three (ROADMAP.md, Queue 2).
     """
 
     def __init__(

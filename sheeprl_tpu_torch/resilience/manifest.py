@@ -29,6 +29,20 @@ MANIFEST_FORMAT = 1
 
 _STEP_RE = re.compile(r"ckpt_(\d+)")
 
+#: Journal events queued before the run journal exists (resume selection runs
+#: at config-compose time); ``ResilienceMonitor.open`` drains them.
+_PENDING_JOURNAL: List[Tuple[str, Dict[str, Any]]] = []
+
+
+def queue_journal_event(kind: str, **fields: Any) -> None:
+    _PENDING_JOURNAL.append((kind, dict(fields)))
+
+
+def drain_journal_events() -> List[Tuple[str, Dict[str, Any]]]:
+    out = list(_PENDING_JOURNAL)
+    _PENDING_JOURNAL.clear()
+    return out
+
 
 def manifest_path(ckpt_path: str) -> str:
     return str(ckpt_path) + MANIFEST_SUFFIX
@@ -269,10 +283,16 @@ def newest_verified_checkpoint(root: str, deep: bool = True) -> Tuple[Optional[s
 def resolve_resume_from(spec: str) -> str:
     """``checkpoint.resume_from`` -> a checkpoint file that verifies.  A
     directory (run, ``version_N`` or checkpoint directory) selects the
-    newest one that verifies; a file must verify itself."""
+    newest one that verifies, queueing a ``ckpt_skipped`` journal event per
+    rejected sibling; a file must verify itself."""
     path = Path(str(spec))
+    # discard events queued by an earlier resolution this process never
+    # journaled (a diagnostics-off run): they describe another resume
+    _PENDING_JOURNAL.clear()
     if path.is_dir():
         best, skipped = newest_verified_checkpoint(str(path), deep=True)
+        for skip in skipped:
+            queue_journal_event("ckpt_skipped", **skip)
         if best is None:
             raise FileNotFoundError(
                 f"No verifiable checkpoint under '{spec}' ({len(skipped)} candidate(s) rejected: "

@@ -94,6 +94,12 @@ class ResilienceMonitor:
             self._restarts_total = int(os.environ.get(RESTARTS_ENV_VAR, "0") or 0)
         except ValueError:
             self._restarts_total = 0
+        # resume selection ran before the journal existed: land its skip
+        # records now, so a resume past a corrupt checkpoint is observable
+        from sheeprl_tpu_torch.resilience.manifest import drain_journal_events
+
+        for kind, fields in drain_journal_events():
+            self._journal(kind, **fields)
         if self.isolation is not None:
             self.isolation.open(self._journal, self._sync)
         if self.chaos is not None:

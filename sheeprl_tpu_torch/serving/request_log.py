@@ -94,8 +94,7 @@ class RequestLog:
         off).  ``is_first`` is ``[rows, 1]`` from the session layer; a
         stateless dispatch logs ones (each request its own one-step
         episode)."""
-        if self._error is not None:
-            raise RuntimeError(f"request log {self.root!r}: a shard write failed") from self._error
+        self._raise_failed_write()
         actions = np.asarray(actions)
         blocks: List[Dict[str, np.ndarray]] = []
         for i, row in enumerate(obs_rows):
@@ -141,8 +140,16 @@ class RequestLog:
                 else:
                     self._write_shard(rows)
             except BaseException as err:  # noqa: BLE001 - kept and raised on the dispatcher's next append
-                self._error = err
+                with self._lock:
+                    self._error = err
                 return
+
+    def _raise_failed_write(self) -> None:
+        """Raise the writer thread's failure, if a shard write failed."""
+        with self._lock:
+            error = self._error
+        if error is not None:
+            raise RuntimeError(f"request log {self.root!r}: a shard write failed") from error
 
     def _write_shard(self, rows: List[Dict[str, np.ndarray]]) -> None:
         arrays = {k: np.stack([r[k] for r in rows], axis=0) for k in rows[0]}
@@ -183,8 +190,7 @@ class RequestLog:
                 except queue.Full:
                     continue
             self._thread.join()
-        if self._error is not None:
-            raise RuntimeError(f"request log {self.root!r}: a shard write failed") from self._error
+        self._raise_failed_write()
 
     def stats(self) -> Dict[str, Any]:
         with self._lock:

@@ -312,6 +312,9 @@ class PolicyService:
         self._params_version = 0
         self.ckpt_step = int(handle.ckpt_step)
         self.ckpt_path = str(handle.ckpt_path)
+        # the batcher thread builds a width's step at its first dispatch,
+        # warmup() on the caller's thread: one builder at a time
+        self._steps_lock = threading.Lock()
         self._steps: Dict[Tuple[int, bool], Callable] = {}
         self._greedy_gen = torch.Generator(device=self.device)
         self._sample_gen = torch.Generator(device=self.device)
@@ -365,10 +368,11 @@ class PolicyService:
     # -- the step ----------------------------------------------------------
     def _step(self, width: int, greedy: bool) -> Callable:
         key = (int(width), bool(greedy))
-        if key not in self._steps:
-            self._steps[key] = (self.handle.make_step(bool(greedy)) if self.sessions is None
-                                else make_slab_step(self.handle.make_state_step(bool(greedy))))
-        return self._steps[key]
+        with self._steps_lock:
+            if key not in self._steps:
+                self._steps[key] = (self.handle.make_step(bool(greedy)) if self.sessions is None
+                                    else make_slab_step(self.handle.make_state_step(bool(greedy))))
+            return self._steps[key]
 
     def _generator(self, greedy: bool) -> torch.Generator:
         if greedy:

@@ -7,6 +7,7 @@ torch; the hyperparameter search (``search``), whose trials run in process
 through ``sheeprl_tpu_torch.cli.run``; the reward-log recovery and its
 statistics (``recover_rewards``, ``analyze_rewards``); the live dashboard
 and the cross-run diff (``run_monitor``, ``health_diff``), which import no
-torch either; and the chaos drill and the auto-restart supervisor
+torch either; the chaos drill and the auto-restart supervisor
 (``chaos_drill``, ``supervise``), whose children run ``python -m
-sheeprl_tpu_torch run``."""
+sheeprl_tpu_torch run``; and the lint (``sheeprl_lint``, its passes in
+``lint/``), static over the port's sources: no torch, no jax, no device."""

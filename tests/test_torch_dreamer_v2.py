@@ -383,7 +383,7 @@ def test_run_trains_resumes_evaluates_and_serve_refuses_it(buffer_type, tmp_path
                  "algo.learning_starts=12", "algo.total_steps=28"]
     out = cli.run(run)
     assert out["gradient_steps"] > 0 and out["test_steps"] > 0
-    assert out["metric_rows"].shape == (out["gradient_steps"], len(METRIC_ORDER))
+    assert out["metric_rows"].shape == (out["train_iterations"], len(METRIC_ORDER))  # one row an iteration
     assert np.isfinite(out["metric_rows"]).all() and out["health_rows"] == {}
     ckpt = out["checkpoints"][0]
     state = load_state(ckpt)

@@ -584,7 +584,7 @@ def test_run_on_the_cpu_writes_a_checkpoint_the_jax_package_serves(tmp_path, mon
     monkeypatch.chdir(tmp_path)
     out = cli.run(RUN)
     assert out["gradient_steps"] > 0 and out["player_steps"] > 0
-    assert out["metric_rows"].shape == (out["gradient_steps"], len(METRIC_ORDER))
+    assert out["metric_rows"].shape == (out["train_iterations"], len(METRIC_ORDER))  # one row an iteration
     assert np.isfinite(out["metric_rows"]).all()
     ckpt = out["checkpoints"][-1]
     state = load_state(ckpt)

@@ -375,3 +375,24 @@ def test_the_drill_child_runs_the_port(tmp_path):
     argv = drill_argv([{"iter": 2, "fault": "preempt"}], ["exp=ppo"])
     assert argv[1:4] == ["-m", "sheeprl_tpu_torch", "run"] and "run_name=chaos_drill" in argv
     assert "diagnostics.resilience.chaos.schedule=[{iter: 2, fault: preempt}]" in argv
+
+
+_LINT_IMPORTS = """
+import sys
+from sheeprl_tpu_torch.tools import sheeprl_lint
+from sheeprl_tpu_torch.tools.lint import get_passes
+get_passes()
+code = sheeprl_lint.main(["--rules", "TRC"])
+print(code, sorted(m for m in sys.modules if m.split(".")[0] in ("torch", "jax", "jaxlib", "sheeprl_tpu", "lint")))
+"""
+
+
+def test_the_lint_imports_no_torch_no_jax_and_nothing_of_the_repos_lint():
+    """The port's lint (every pass loaded, one run over the tree) is static:
+    no torch, no jax, nothing of ``sheeprl_tpu`` and not the repo's own
+    ``tools/lint`` package (imported as top-level ``lint``)."""
+    out = subprocess.run(
+        [sys.executable, "-c", _LINT_IMPORTS], cwd=ROOT, env=_env(), capture_output=True, text=True, timeout=120
+    )
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "0 []", out.stdout

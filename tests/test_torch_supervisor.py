@@ -172,12 +172,11 @@ def test_a_supervised_killed_ppo_run_resumes_and_completes(tmp_path):
 
 def test_a_dreamer_v3_chaos_run_journals_as_the_jax_loop_does(tmp_path, monkeypatch):
     """``nan_grads`` at iteration 6 under ``sentinel.policy=warn`` and
-    ``preempt`` at 10, a tiny DreamerV3 run in each package, one gradient
-    step an iteration (the JAX loop drains one metric row an iteration, the
-    port one a gradient step: ROADMAP Queue 3): the same
-    ``fault_injection`` lines, the same ``nonfinite_update`` divergence
-    steps and counts, ``preempted`` at 10, exit 75 and an emergency
-    checkpoint that verifies."""
+    ``preempt`` at 10, a tiny DreamerV3 run in each package, at one and at
+    two gradient steps an iteration (both loops drain one metric row an
+    iteration): the same ``fault_injection`` lines, the same
+    ``nonfinite_update`` divergence steps and counts, ``preempted`` at 10,
+    exit 75 and an emergency checkpoint that verifies."""
     from sheeprl_tpu.cli import run as jax_run
     from sheeprl_tpu.diagnostics.journal import read_journal
     from sheeprl_tpu.resilience.manifest import verify_checkpoint as jax_verify
@@ -186,28 +185,29 @@ def test_a_dreamer_v3_chaos_run_journals_as_the_jax_loop_does(tmp_path, monkeypa
     from test_torch_dv3_train import RUN
 
     schedule = "[{iter: 6, fault: nan_grads}, {iter: 10, fault: preempt}]"
-    overrides = [o for o in RUN if o not in ("diagnostics=off",) and not o.startswith("algo.total_steps")] + [
-        "algo.total_steps=32", "algo.replay_ratio=0.5", "algo.run_test=False", "diagnostics.sentinel.enabled=True",
-        "diagnostics.sentinel.policy=warn",
-        f"diagnostics.resilience.chaos.schedule={schedule}", "metric.log_every=2"]
     monkeypatch.chdir(tmp_path)
-    codes = {}
-    for name, run in (("port", cli.run), ("jax", jax_run)):
-        with pytest.raises(SystemExit) as exit_, pytest.warns(RuntimeWarning, match="non-finite training update"):
-            run(overrides + [f"root_dir={name}"])
-        codes[name] = exit_.value.code
-    assert codes == {"port": PREEMPTED_EXIT_CODE, "jax": PREEMPTED_EXIT_CODE}
+    for replay_ratio in ("0.5", "1.0"):  # 2 envs: one, then two gradient steps an iteration
+        overrides = [o for o in RUN if o not in ("diagnostics=off",) and not o.startswith("algo.total_steps")] + [
+            "algo.total_steps=32", f"algo.replay_ratio={replay_ratio}", "algo.run_test=False",
+            "diagnostics.sentinel.enabled=True", "diagnostics.sentinel.policy=warn",
+            f"diagnostics.resilience.chaos.schedule={schedule}", "metric.log_every=2"]
+        codes = {}
+        for name, run in (("port", cli.run), ("jax", jax_run)):
+            with pytest.raises(SystemExit) as exit_, pytest.warns(RuntimeWarning, match="non-finite training update"):
+                run(overrides + [f"root_dir={name}_{replay_ratio}"])
+            codes[name] = exit_.value.code
+        assert codes == {"port": PREEMPTED_EXIT_CODE, "jax": PREEMPTED_EXIT_CODE}
 
-    records = {}
-    for name, verify in (("port", verify_checkpoint), ("jax", jax_verify)):
-        events = read_journal(str(next(Path(tmp_path).glob(f"logs/runs/{name}/**/journal.jsonl"))))
-        (preempted,) = [e for e in events if e["event"] == "preempted"]
-        assert verify(preempted["path"]) == (True, "verified") and events[-1]["status"] == "preempted"
-        records[name] = {
-            "faults": [(e["iter_num"], e["kind"], e["source"]) for e in events if e["event"] == "fault_injection"],
-            "divergence": [(e["step"], e["nonfinite_steps"], e["policy"]) for e in events
-                           if e["event"] == "divergence" and e["kind"] == "nonfinite_update"],
-            "preempted": (preempted["iter_num"], preempted["reason"], preempted["snapshot_durable"])}
-    assert records["port"] == records["jax"]
-    assert records["port"]["faults"] == [(6, "nan_grads", "chaos"), (10, "preempt", "chaos")]
-    assert records["port"]["divergence"] and records["port"]["preempted"] == (10, "chaos", True)
+        records = {}
+        for name, verify in (("port", verify_checkpoint), ("jax", jax_verify)):
+            events = read_journal(str(next(Path(tmp_path).glob(f"logs/runs/{name}_{replay_ratio}/**/journal.jsonl"))))
+            (preempted,) = [e for e in events if e["event"] == "preempted"]
+            assert verify(preempted["path"]) == (True, "verified") and events[-1]["status"] == "preempted"
+            records[name] = {
+                "faults": [(e["iter_num"], e["kind"], e["source"]) for e in events if e["event"] == "fault_injection"],
+                "divergence": [(e["step"], e["nonfinite_steps"], e["policy"]) for e in events
+                               if e["event"] == "divergence" and e["kind"] == "nonfinite_update"],
+                "preempted": (preempted["iter_num"], preempted["reason"], preempted["snapshot_durable"])}
+        assert records["port"] == records["jax"], replay_ratio
+        assert records["port"]["faults"] == [(6, "nan_grads", "chaos"), (10, "preempt", "chaos")]
+        assert records["port"]["divergence"] and records["port"]["preempted"] == (10, "chaos", True)
