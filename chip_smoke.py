@@ -49,6 +49,21 @@ Phases, in order; any failure raises and the script exits non-zero:
             interpreters started with the smoke, which made their imports
             (and warmed the bytecode cache the smoke's subprocesses share)
             while the kernels built;
+3d. parallel — coupled data parallelism over two shards of the one card,
+            each with its own replica (``parallel/dp.py``), under deadlines
+            (``PARALLEL_DEADLINES_S``, 45 s in all): ``python -m
+            sheeprl_tpu_torch run exp=dreamer_v3 fabric.devices=2`` at
+            DreamerV3-S in a child whose interpreter made its imports with
+            the others (``PARALLEL_DV3_OVERRIDES``; its LayerNorm-GRU
+            launches 2 x 79 a gradient step plus the player's, its
+            ``sharding_audit`` over the two shards) while this process runs
+            one DreamerV3-S fp32 gradient step over two shards of 8
+            sequences against one device's on the same 16 sequences and
+            noise (metrics and Moments within ``PARALLEL_STEP_RTOL``, the
+            replicas bitwise equal), PPO and SAC at ``fabric.devices=2``
+            through ``run``, each resumed at ``fabric.devices=1`` from its
+            two-shard checkpoint, and the two-shard PPO update on the card
+            against the CPU;
 4. slice  — compose ``exp=dreamer_v3 env=dummy``, build DreamerV3-S on the card
             from a seed, write a run directory in the JAX package's checkpoint
             format, start the port's ``serve`` entry point and send /act
@@ -290,10 +305,12 @@ DV2_SHAPE = (600, 400)  # exp=dreamer_v2: recurrent 600, dense 400; K = 1000
 P2E_DV2_SHAPE = (400, 400)  # exp=p2e_dv2_exploration: recurrent 400, dense 400; K = 800
 # S: serving widths, then the training path's (B = per_rank_batch_size 16 in
 # the dynamic scan, T*B = 1024 rows in imagination; 64 = K*B rows of the
-# chunked scan and 48 = (K-1)*B of its burn-in at rssm_chunks=4).  XL and
+# chunked scan and 48 = (K-1)*B of its burn-in at rssm_chunks=4; 4 = the
+# player's rows at env.num_envs=4; 8 and 512 = a shard's scan and
+# imagination in the parallel group's two-shard step at 8 sequences).  XL and
 # XS: DreamerV3-JEPA's two presets (exp=dreamer_v3_jepa, _xs) at the same
 # two training widths; XL also at serving widths
-KERNEL_CASES = [(S_SHAPE, b) for b in (1, 8, 37, 128, 16, 1024, 64, 48)] + \
+KERNEL_CASES = [(S_SHAPE, b) for b in (1, 8, 37, 128, 16, 1024, 64, 48, 4, 512)] + \
     [(XL_SHAPE, b) for b in (8, 128, 16, 1024)] + [(XS_SHAPE, b) for b in (16, 1024)] + \
     [(DV2_SHAPE, b) for b in (16, 800)] + [(P2E_DV2_SHAPE, b) for b in (16, 800)]
 GRAD_CASES = [(S_SHAPE, b, d) for d in ("float32", "bfloat16") for b in (16, 1024)] + \
@@ -528,6 +545,55 @@ RESILIENCE_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.capture_video=False"
                         f"diagnostics.resilience.chaos.slow_write_s={RESILIENCE_SLOW_WRITE_S}"]
 # this slice's phases and their deadlines, 45 s together
 RESILIENCE_DEADLINES_S = {"resilience_children": 43.5, "resilience_reports": 1.5}
+# the parallel group (coupled data parallelism, fabric.devices=2: two shards
+# on the one card, each with its own replica).  (1) DreamerV3-S (batch 16 x
+# 64 a shard, horizon 15, fp32) as `python -m sheeprl_tpu_torch run
+# fabric.devices=2` in a child whose interpreter made its imports before the
+# group: 4 envs, learning from policy step 256 (64 rows of each env), one
+# gradient step an iteration to iteration 68, no checkpoint, no test; each
+# gradient step runs the dynamic scan and the imagination once a shard (2 x
+# 79 launches) while the smoke runs (2) and (3).  (2) one DreamerV3-S fp32
+# gradient step at per_rank_batch_size=8 over two shards against one
+# device's step on the same 16-row global batch and noise (noise that
+# decides every categorical draw: the two paths' logits differ by rounding,
+# and a near tie would otherwise split a sample).  (3) PPO (an MLP on the
+# dummy env's state, 4 envs x 32 steps, batch 32 a shard) and SAC (its
+# preset's widths, 4 envs, learning from step 32) at fabric.devices=2 through
+# `run`, each resumed at fabric.devices=1 from its two-shard mid-run
+# checkpoint; and one two-shard PPO update from that checkpoint on the card
+# against the same two-shard update on the CPU
+PARALLEL_DV3_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.capture_video=False", "run_name=chip_smoke_parallel",
+                          "fabric.devices=2", "env.num_envs=4", "algo.learning_starts=256", "algo.total_steps=272",
+                          "algo.replay_ratio=0.25", "buffer.size=1024", "checkpoint.every=100000",
+                          "checkpoint.save_last=False", "metric.logger=null", "metric.log_every=16",
+                          "algo.run_test=False", "seed=5", "diagnostics.telemetry.mfu.cost_analysis=False"]
+PARALLEL_PPO_OVERRIDES = ["exp=ppo", "env=dummy", "env.id=discrete_dummy", "env.capture_video=False",
+                          "env.executor=sync", "fabric.devices=2", "env.num_envs=4", "algo.rollout_steps=32",
+                          "algo.per_rank_batch_size=32", "algo.total_steps=256", "algo.mlp_keys.encoder=[state]",
+                          "algo.cnn_keys.encoder=[]", "checkpoint.every=128", "metric.logger=null",
+                          "metric.log_every=128", "algo.run_test=False", "run_name=chip_smoke_parallel_ppo", "seed=5"]
+PARALLEL_SAC_OVERRIDES = ["exp=sac", "env=dummy", "env.id=continuous_dummy", "env.executor=sync",
+                          "env.capture_video=False", "fabric.devices=2", "env.num_envs=4", "algo.learning_starts=32",
+                          "algo.total_steps=128", "buffer.size=256", "buffer.checkpoint=True", "checkpoint.every=64",
+                          "metric.logger=null", "metric.log_every=64", "algo.run_test=False",
+                          "run_name=chip_smoke_parallel_sac", "seed=5"]
+PARALLEL_STEP_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.capture_video=False", "seed=5", "diagnostics=off"]
+PARALLEL_SHARDS = 2
+# the two-shard DreamerV3-S step against one device's on the same global
+# batch, its 11 metrics and the Moments' low/high: the same function with
+# its fp32 sums in another order (each loss the mean of two half-batch means
+# against one mean over the whole batch; each gradient, and so each norm,
+# the mean of two half-batch gradients).  A sum of n fp32 terms reordered
+# moves by about sqrt(n) * 2^-24 of its magnitude: ~1e-6 over the 1024 rows
+# and 15 x 1024 imagined states; the card read 9.73e-07 and 1.2e-06 on
+# NVIDIA H100 80GB HBM3 at 700 W.  1e-4 is ~100x that: a shard's block run
+# with another block's noise, a missing or doubled shard, or a reduction
+# over the wrong set moves a metric by far more
+PARALLEL_STEP_RTOL = 1e-4
+PARALLEL_CARD_CPU_RTOL, PARALLEL_CARD_CPU_ATOL = 1e-4, 1e-4
+# the group's deadlines, 45 s in all: the group, and within it the
+# in-process phases (the child runs beside them)
+PARALLEL_DEADLINES_S = {"parallel": 45.0, "parallel_step": 15.0, "parallel_ppo_sac": 25.0}
 # what a resilience child imports (the registry imports every algorithm;
 # torch.optim's first parameter group imports torch._dynamo), imported by
 # its interpreter before its run (and so compiled into the bytecode cache
@@ -708,6 +774,7 @@ server.listen(1)
 import runpy, traceback
 from sheeprl_tpu_torch.algos.dreamer_v3 import agent, dreamer_v3
 from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+from sheeprl_tpu_torch.parallel.dp import run_one
 imports_s = round(time.monotonic() - t0, 1)
 open(sys.argv[2], "w").close()  # ready
 conn, _ = server.accept()
@@ -724,17 +791,26 @@ out_path = request["record"]
 log = os.open(out_path + ".log", os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
 os.dup2(log, 1)
 os.dup2(log, 2)
-record = {"gradient_steps": 0, "player_calls": {}, "exit_code": 0, "started": started, "imports_s": imports_s}
+record = {"gradient_steps": 0, "player_calls": {}, "exit_code": 0, "started": started, "imports_s": imports_s,
+          "shards": 0}
 make_train_step, get_actions = dreamer_v3.make_train_step, agent.PlayerDV3.get_actions
 
 def counted_make(*args, **kwargs):
+    # one step a shard (the loop builds one a replica): shard 0's counts
+    # the gradient steps, each shard's body runs once a gradient step
     step = make_train_step(*args, **kwargs)
+    first = record["shards"] == 0
+    record["shards"] += 1
+
+    def body(*a, **k):
+        if first:
+            record["gradient_steps"] += 1
+        return (yield from step.body(*a, **k))
 
     def counted(*a, **k):
-        record["gradient_steps"] += 1
-        return step(*a, **k)
+        return run_one(body(*a, **k))
 
-    counted.health_names, counted.metric_order = step.health_names, step.metric_order
+    counted.body, counted.health_names, counted.metric_order = body, step.health_names, step.metric_order
     return counted
 
 def counted_actions(self, *args, **kwargs):
@@ -1829,6 +1905,7 @@ def run_records(build_dir: Path, train: dict, drill: dict, ops: dict, offline_ex
     from sheeprl_tpu_torch.config import compose
     from sheeprl_tpu_torch.diagnostics.journal import read_journal
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.parallel.dp import run_one
     from sheeprl_tpu_torch.tools import search
 
     root = (build_dir / "records").resolve()
@@ -1848,18 +1925,22 @@ def run_records(build_dir: Path, train: dict, drill: dict, ops: dict, offline_ex
     def timed_make_train_step(*args, **kwargs):
         step = make_train_step(*args, **kwargs)
 
-        def timed(*a, **k):
+        def body(*a, **k):
             if device_name == "cpu":
-                return step(*a, **k)
+                return (yield from step.body(*a, **k))
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
-            result = step(*a, **k)
+            result = yield from step.body(*a, **k)  # one shard: no collective waits
             end.record()
             torch.cuda.synchronize()
             stream_ms.append(start.elapsed_time(end))
             return result
 
+        def timed(*a, **k):
+            return run_one(body(*a, **k))
+
         timed.__dict__.update(step.__dict__)
+        timed.body = body
         return timed
 
     with warnings.catch_warnings(record=True) as caught, mock.patch.object(dv3, "make_train_step",
@@ -2183,6 +2264,7 @@ def run_drill(build_dir: Path, device_name: str = "cuda") -> dict:
     from sheeprl_tpu_torch.diagnostics import Diagnostics
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
     from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
+    from sheeprl_tpu_torch.parallel.dp import run_one
     from sheeprl_tpu_torch.resilience.preemption import PREEMPTED_EXIT_CODE, PreemptedExit
 
     port = _free_port()
@@ -2202,19 +2284,22 @@ def run_drill(build_dir: Path, device_name: str = "cuda") -> dict:
     def spy_make(agent, optimizers, cfg_, is_continuous):
         step = make_train_step(agent, optimizers, cfg_, is_continuous)
 
-        def checked(moments, batch, tau, generator=None, noise=None):
+        def body(moments, batch, tau, generator=None, noise=None):
             if not poisoned:
-                return step(moments, batch, tau, generator, noise)
+                return (yield from step.body(moments, batch, tau, generator, noise))
             iter_num = poisoned.pop()
             before = _state_of(agent, optimizers, moments)
-            moments, metrics = step(moments, batch, tau, generator, noise)
+            moments, metrics = yield from step.body(moments, batch, tau, generator, noise)
             after = _state_of(agent, optimizers, moments)
             drills.append({"iter": iter_num, "tensors": len(before),
                            "finite_metrics": bool(torch.isfinite(metrics[:len(dv3.METRIC_ORDER)]).any()),
                            "changed": [k for k in before if not torch.equal(before[k], after[k])]})
             return moments, metrics
 
-        checked.health_names, checked.metric_order = step.health_names, step.metric_order
+        def checked(*a, **k):
+            return run_one(body(*a, **k))
+
+        checked.body, checked.health_names, checked.metric_order = body, step.health_names, step.metric_order
         return checked
 
     scraped, stop = {}, threading.Event()
@@ -3721,6 +3806,283 @@ def run_resilience(build_dir: Path, runners: list, device_name: str = "cuda") ->
             "regressions": len(out_of_band["regressions"]), "timeline": timeline}
 
 
+def _parallel_noise(noise: dict, T: int, B: int, shards: int) -> list:
+    """One gradient step's draws for ``B`` rows (``_train_noise``), cut into
+    each shard's: block d of the batch axis of the dynamic scan's ``[T, B,
+    ...]`` and of the imagination's and the actor's ``T * B`` rows (laid
+    out ``t * B + b``)."""
+    b = B // shards
+
+    def rows_of(x, axis: int, d: int):
+        """Shard d's ``T * b`` rows of ``x``'s ``T * B`` rows at ``axis``."""
+        y = x.reshape(*x.shape[:axis], T, B, *x.shape[axis + 1:]).narrow(axis + 1, d * b, b)
+        return y.reshape(*x.shape[:axis], T * b, *x.shape[axis + 1:]).contiguous()
+
+    return [{"dynamic": tuple(n[:, d * b:(d + 1) * b].contiguous() for n in noise["dynamic"]),
+             "imagination": rows_of(noise["imagination"], 1, d),
+             "actor": [[rows_of(h, 0, d) for h in heads] for heads in noise["actor"]]} for d in range(shards)]
+
+
+def _decisive(noise: dict, gen) -> dict:
+    """``noise`` with every Gumbel draw replaced by noise that decides the
+    draw whatever the logits (0 at a class drawn from ``gen``, -1e4
+    elsewhere: ``chip_gumbel_split.py``'s ``decisive_like``)."""
+    import torch
+
+    def decisive(x):
+        idx = torch.randint(0, x.shape[-1], tuple(x.shape[:-1]) + (1,), device=x.device, generator=gen)
+        return torch.full(tuple(x.shape), -1e4, device=x.device).scatter_(-1, idx, 0.0)
+
+    return {"dynamic": tuple(decisive(n) for n in noise["dynamic"]), "imagination": decisive(noise["imagination"]),
+            "actor": [[decisive(h) for h in heads] for heads in noise["actor"]]}
+
+
+def run_parallel_step(device_name: str = "cuda") -> dict:
+    """(2) One DreamerV3-S fp32 gradient step over two shards at
+    per_rank_batch_size=8 (each with its replica, ``parallel/dp.py``) against
+    one device's step on the same 16-row global batch and the same noise,
+    from the same weights: the 11 metrics and the Moments' ``low``/``high``
+    within ``PARALLEL_STEP_RTOL``, the shards' metrics and replicas bitwise
+    equal, each shard's dynamic scan and imagination through the kernel
+    (launches counted from 0 around the three steps)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_ORDER, make_optimizers, make_train_step
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import synthetic_batch
+    from sheeprl_tpu_torch.algos.ppo.agent import actions_dim_of
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.envs.env import make_env
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.parallel.dp import replicas_equal, run_shards, split
+    from sheeprl_tpu_torch.parallel.mesh import replicate
+
+    device = torch.device(device_name)
+    cfg = compose(PARALLEL_STEP_OVERRIDES + [f"fabric.accelerator={device_name}"])
+    _dv3_s_widths(cfg)
+    env = make_env(cfg, cfg.seed, 0)()
+    obs_space, (actions_dim, is_continuous, _) = env.observation_space, actions_dim_of(env.action_space)
+    env.close()
+    T, B, H = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size, cfg.algo.horizon
+    gen = torch.Generator(device=device).manual_seed(13)
+    batch = synthetic_batch(cfg, actions_dim, gen, device)
+    noise = _decisive(_train_noise(cfg, actions_dim, gen, device_name), gen)
+    agent = build_agent(actions_dim, is_continuous, cfg, obs_space, None, device)
+    shards = replicate(copy.deepcopy(agent), [device] * PARALLEL_SHARDS)
+    optimizers = [make_optimizers(cfg, a) for a in (agent, *shards)]
+    steps = [make_train_step(a, o, cfg, is_continuous) for a, o in zip((agent, *shards), optimizers)]
+    t0 = time.monotonic()
+    fused_layernorm_gru.launches = 0  # the comparison's launches start here
+    one_moments, one_metrics = steps[0](agent.initial_moments(device), batch, 0.02, None, noise)
+    outs = run_shards([step.body(agent.initial_moments(device), block, 0.02, None, n) for step, block, n in
+                       zip(steps[1:], split(batch, PARALLEL_SHARDS, 1), _parallel_noise(noise, T, B, PARALLEL_SHARDS))])
+    torch.cuda.synchronize()
+    launches = fused_layernorm_gru.launches  # and end here
+    seconds = time.monotonic() - t0
+    (moments, metrics), (_, other) = outs
+    n = len(METRIC_ORDER)
+    want, got = one_metrics[:n].cpu().numpy(), metrics[:n].cpu().numpy()
+    rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-3)))
+    moments_rel = max(abs(float(moments[k]) - float(one_moments[k])) / max(abs(float(one_moments[k])), 1e-3)
+                      for k in ("low", "high"))
+    equal = replicas_equal([[*a, *o.values()] for a, o in zip(shards, optimizers[1:])])
+    hidden = cfg.algo.world_model.recurrent_model.recurrent_state_size
+    joint = hidden + cfg.algo.world_model.recurrent_model.dense_units
+    per_shard = T * _launch_chunks(B // PARALLEL_SHARDS, hidden, joint) + H * _launch_chunks(
+        T * B // PARALLEL_SHARDS, hidden, joint)
+    predicted = T * _launch_chunks(B, hidden, joint) + H * _launch_chunks(T * B, hidden, joint) + \
+        PARALLEL_SHARDS * per_shard
+    if (not np.isfinite(got).all() or rel > PARALLEL_STEP_RTOL or moments_rel > PARALLEL_STEP_RTOL or not equal
+            or not torch.equal(metrics, other) or launches != predicted):
+        raise AssertionError(f"two-shard DreamerV3-S step against one device: metrics relative error {rel} "
+                             f"(tol {PARALLEL_STEP_RTOL}), Moments {moments_rel}, replicas equal {equal}, shards' "
+                             f"metrics equal {torch.equal(metrics, other)}, launches {launches} (predicted "
+                             f"{predicted})\n{dict(zip(METRIC_ORDER, want.tolist()))}\n"
+                             f"{dict(zip(METRIC_ORDER, got.tolist()))}")
+    return {"metric_rel_err": rel, "moments_rel_err": moments_rel, "launches": launches, "predicted": predicted,
+            "per_shard": per_shard, "seconds": seconds, "batch": B, "shard_batch": B // PARALLEL_SHARDS,
+            "moments": {k: float(v) for k, v in moments.items()}}
+
+
+def _ppo_two_shards_card_vs_cpu(ckpt: str, overrides, devices) -> dict:
+    """(3) One two-shard PPO update (two replicas, ``run_shards``) from a
+    checkpoint on ``devices[0]`` and on ``devices[1]``, with the same rows,
+    permutations and coefficients: the metrics' largest relative error and
+    the parameters' largest absolute error, and whether each side's replicas
+    ended bitwise equal."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.ppo.agent import actions_dim_of, build_agent
+    from sheeprl_tpu_torch.algos.ppo.ppo import _minibatches, linear_schedule, make_train_step
+    from sheeprl_tpu_torch.config import compose, instantiate
+    from sheeprl_tpu_torch.envs.env import make_env
+    from sheeprl_tpu_torch.interop.flax_params import optimizer_state_dict, ppo_spec, ppo_to_flax
+    from sheeprl_tpu_torch.parallel.dp import replicas_equal, run_shards, stage
+    from sheeprl_tpu_torch.parallel.mesh import replicate
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    cfg = compose(overrides)
+    state = load_state(ckpt)
+    env = make_env(cfg, cfg.seed, 0)()
+    obs_space, (actions_dim, is_continuous, _) = env.observation_space, actions_dim_of(env.action_space)
+    env.close()
+    batch_size, epochs = int(cfg.algo.per_rank_batch_size), int(cfg.algo.update_epochs)
+    num_minibatches = _minibatches(cfg, PARALLEL_SHARDS)
+    total = int(cfg.algo.rollout_steps) * int(cfg.env.num_envs)
+    gen = torch.Generator().manual_seed(17)
+    data = {"obs": {k: torch.randn(total, *obs_space[k].shape, generator=gen) for k in cfg.algo.mlp_keys.encoder},
+            "actions": torch.randint(0, actions_dim[0], (total, 1), generator=gen).float(),
+            **{k: torch.randn(total, 1, generator=gen) for k in ("logprobs", "values", "returns", "advantages")}}
+    data["logprobs"] -= 1.0
+    perms = [[torch.randperm(num_minibatches * batch_size, generator=gen) for _ in range(epochs)]
+             for _ in range(PARALLEL_SHARDS)]
+    coefs = (float(cfg.algo.clip_coef), float(cfg.algo.ent_coef), float(cfg.algo.vf_coef))
+    schedule = None
+    if cfg.algo.anneal_lr:
+        schedule = linear_schedule(float(cfg.algo.optimizer.learning_rate), 0.0,
+                                   max(1, int(cfg.algo.total_steps) // total * epochs * num_minibatches))
+    results = []
+    for device_name in devices:
+        device = torch.device(device_name)
+        shard_devices = [device] * PARALLEL_SHARDS
+        replicas = replicate(build_agent(actions_dim, is_continuous, cfg, obs_space, state["agent"], device),
+                             shard_devices)
+        optimizers = []
+        for replica in replicas:
+            optimizer = instantiate(cfg.algo.optimizer)(replica.parameters())
+            optimizer.load_state_dict(optimizer_state_dict(state["opt_state"], optimizer, ppo_spec(replica)))
+            optimizers.append(optimizer)
+        steps = [make_train_step(r, o, cfg, num_minibatches, batch_size, schedule)
+                 for r, o in zip(replicas, optimizers)]
+        metrics = run_shards([s.body(block, [p.to(device) for p in perms[d]], coefs) for d, (s, block) in
+                              enumerate(zip(steps, stage(data, shard_devices, batch_axis=0)))])[0]
+        on_device = all(t.device.type == device.type for r in replicas for t in r.parameters())
+        results.append((metrics.cpu().numpy(), dict(_leaves(ppo_to_flax(replicas[0]))),
+                        replicas_equal([[r, o] for r, o in zip(replicas, optimizers)]) and on_device))
+    (m_card, p_card, ok_card), (m_cpu, p_cpu, ok_cpu) = results
+    n = 4  # the losses and the gradient norm
+    rel = float(np.max(np.abs(m_card[:n] - m_cpu[:n]) / np.maximum(np.abs(m_cpu[:n]), 1e-6)))
+    err = max(float(np.abs(np.asarray(p_card[k]) - np.asarray(p_cpu[k])).max()) for k in p_cpu)
+    return {"metric_rel_err": rel, "param_max_abs_err": err, "replicas_equal": ok_card and ok_cpu,
+            "updates": epochs * num_minibatches}
+
+
+def run_parallel_ppo_sac(root: Path, device_name: str = "cuda") -> dict:
+    """(3) PPO and SAC at ``fabric.devices=2`` through ``run``: finite
+    metrics, the replicas bitwise equal at the end, verified checkpoints;
+    each resumed at ``fabric.devices=1`` from its two-shard mid-run
+    checkpoint; and the two-shard PPO update from that checkpoint on the
+    card against the CPU.  Neither runs a hand-written kernel (0 launches,
+    counted from 0 around each run)."""
+    import numpy as np
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    out = {"launches": {}}
+    for name, base in (("ppo", PARALLEL_PPO_OVERRIDES), ("sac", PARALLEL_SAC_OVERRIDES)):
+        overrides = base + [f"root_dir={root / name}", f"fabric.accelerator={device_name}"]
+        t0 = time.monotonic()
+        fused_layernorm_gru.launches = 0  # the main path starts here
+        run = cli.run(overrides)
+        out["launches"][f"parallel_{name}"] = fused_layernorm_gru.launches  # the main path ends here
+        ckpts = run["checkpoints"]
+        if (run["shards"] != PARALLEL_SHARDS or not run["replicas_equal"] or len(ckpts) != 2
+                or not np.isfinite(run["metric_rows"]).all() or len(run["metric_rows"]) == 0
+                or any(verify_checkpoint(c) != (True, "verified") for c in ckpts)):
+            raise AssertionError(f"parallel {name}: {run['shards']} shards, replicas equal {run['replicas_equal']}, "
+                                 f"checkpoints {ckpts}, metric rows {run['metric_rows']}")
+        saved = load_state(ckpts[0])
+        one = [o for o in overrides if not o.startswith("fabric.devices=")] + [
+            "fabric.devices=1", f"root_dir={root / (name + '_resumed')}", f"checkpoint.resume_from={ckpts[0]}"]
+        fused_layernorm_gru.launches = 0
+        resumed = cli.run(one)
+        out["launches"][f"parallel_{name}_resume"] = fused_layernorm_gru.launches
+        if (resumed["shards"] != 1 or resumed["start_iter"] != saved["iter_num"] + 1 or len(resumed["metric_rows"]) == 0
+                or not np.isfinite(resumed["metric_rows"]).all()):
+            raise AssertionError(f"parallel {name} resumed at one shard from {ckpts[0]}: start_iter "
+                                 f"{resumed['start_iter']} (saved iteration {saved['iter_num']}), shards "
+                                 f"{resumed['shards']}, metric rows {resumed['metric_rows']}")
+        out[name] = {"iterations": run["iterations"], "rows": len(run["metric_rows"]),
+                     "final": run["metric_rows"][-1].tolist(), "checkpoint_batch_size": saved["batch_size"],
+                     "resume_start_iter": resumed["start_iter"], "resume_rows": len(resumed["metric_rows"]),
+                     "seconds": time.monotonic() - t0,
+                     **({"gradient_steps": run["gradient_steps"]} if "gradient_steps" in run else {})}
+        if name == "ppo":
+            out["ppo_card_vs_cpu"] = _ppo_two_shards_card_vs_cpu(ckpts[0], overrides, (device_name, "cpu"))
+            row = out["ppo_card_vs_cpu"]
+            if (not row["replicas_equal"] or row["metric_rel_err"] > PARALLEL_CARD_CPU_RTOL
+                    or row["param_max_abs_err"] > PARALLEL_CARD_CPU_ATOL):
+                raise AssertionError(f"two-shard PPO update, card against CPU: {row} (tol {PARALLEL_CARD_CPU_RTOL}, "
+                                     f"{PARALLEL_CARD_CPU_ATOL})")
+    return out
+
+
+def run_parallel(build_dir: Path, runner, device_name: str = "cuda") -> dict:
+    """This slice's group, 45 s in all (``PARALLEL_DEADLINES_S``): (1)
+    ``python -m sheeprl_tpu_torch run exp=dreamer_v3 fabric.devices=2`` at
+    DreamerV3-S in a child handed to ``runner`` (an interpreter of
+    ``start_child_runners`` that made its imports before the group), its
+    LayerNorm-GRU launches (counted from 0 in the child) equal to 2 x 79 a
+    gradient step plus the player's, its journal's ``sharding_audit`` over
+    the two shards; while it runs, (2) ``run_parallel_step`` and (3)
+    ``run_parallel_ppo_sac`` in this process."""
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.diagnostics.journal import read_journal
+    from sheeprl_tpu_torch.resilience.supervisor import child_env
+
+    root = (build_dir / "parallel").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    overrides = PARALLEL_DV3_OVERRIDES + [f"root_dir={root / 'dv3'}", f"fabric.accelerator={device_name}"]
+    cfg = compose(overrides)
+    _dv3_s_widths(cfg)
+    record = root / "dv3_child.json"
+
+    def tail() -> str:
+        log = Path(f"{record}.log")
+        return log.read_text()[-3000:] if log.exists() else "no child log"
+
+    _wait_ready([runner])
+    t0 = time.monotonic()
+    with deadline(PARALLEL_DEADLINES_S["parallel"], "parallel", tail):
+        proc = subprocess.Popen([sys.executable, "-c", _CHILD_HANDOFF, runner[0], str(record), "run", *overrides],
+                                cwd=str(ROOT), env=child_env())
+        atexit.register(proc.kill)  # a no-op once it has exited
+        with deadline(PARALLEL_DEADLINES_S["parallel_step"], "parallel_step"):
+            step = run_parallel_step(device_name)
+        with deadline(PARALLEL_DEADLINES_S["parallel_ppo_sac"], "parallel_ppo_sac"), bounded_dummy_actions():
+            on_ppo_sac = run_parallel_ppo_sac(root, device_name)
+        in_process_s = time.monotonic() - t0
+        rc = proc.wait()
+    seconds = time.monotonic() - t0
+    child = json.loads(record.read_text()) if record.is_file() else {"exit_code": rc}
+    if rc != 0 or child.get("exit_code") != 0:
+        raise AssertionError(f"parallel DreamerV3-S child: exit {rc} / {child.get('exit_code')}\n{tail()}")
+    predicted = _child_launches(cfg, {**child, "gradient_steps": child["gradient_steps"] * PARALLEL_SHARDS})
+    (journal_path,) = (root / "dv3").rglob("journal.jsonl")
+    events = read_journal(str(journal_path))
+    audits = [e for e in events if e["event"] == "sharding_audit"]
+    rows = [e for e in events if e["event"] == "metrics"]
+    if (child["shards"] != PARALLEL_SHARDS or child["gradient_steps"] < 1 or child["launches"] != predicted
+            or len(audits) != 1 or audits[0]["n_shards"] != PARALLEL_SHARDS or events[-1].get("status") != "completed"):
+        raise AssertionError(f"parallel DreamerV3-S child: {child['shards']} shards, {child['gradient_steps']} gradient "
+                             f"steps, {child['launches']} ln_gru launches (predicted {predicted}), sharding audits "
+                             f"{[(a['n_shards'], a['n_leaves']) for a in audits]}, run_end {events[-1]}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {"child": child, "predicted": predicted, "per_gradient_step": PARALLEL_SHARDS * MINEDOJO_LAUNCHES_PER_STEP,
+            "audit": {k: audits[0][k] for k in ("n_shards", "n_leaves", "total_bytes", "total_bytes_per_device",
+                                                "flagged_replicated")},
+            "metrics_events": len(rows), "step": step, **on_ppo_sac, "seconds": seconds,
+            "in_process_s": in_process_s}
+
+
 def _off_policy_run(overrides, where: str, resume: bool = True) -> dict:
     """``run`` of an off-policy preset, its mid-run resume and ``eval`` of
     its last checkpoint, each path with the LayerNorm-GRU kernel's launch
@@ -4999,7 +5361,8 @@ def main() -> int:
     # interpreters, which start now
     os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     os.environ["PYTHONPYCACHEPREFIX"] = str(build_dir / "pycache")
-    runners = start_child_runners(build_dir)
+    # two for the resilience group's children, one for the parallel group's
+    runners = start_child_runners(build_dir, count=3)
     lint = start_lint(build_dir)
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
@@ -5064,7 +5427,7 @@ def main() -> int:
     mark('kernel cases')
     # this slice's group runs here, once its children's interpreters made
     # their imports (during the build and the kernel cases)
-    resilience = run_resilience(build_dir, runners)
+    resilience = run_resilience(build_dir, runners[:2])
     shutil.rmtree(build_dir / "resilience", ignore_errors=True)
     print(f"[resilience] supervised DreamerV3-S children (batch 16 x 64, horizon 15, fp32), chaos schedule "
           f"{json.dumps(RESILIENCE_SCHEDULE)}, slow_write_s {RESILIENCE_SLOW_WRITE_S}: child exits "
@@ -5084,6 +5447,38 @@ def main() -> int:
           f"[{card}]", flush=True)
 
     mark('resilience')
+    parallel = run_parallel(build_dir, runners[2])
+    child, pstep = parallel["child"], parallel["step"]
+    print(f"[parallel] python -m sheeprl_tpu_torch run exp=dreamer_v3 fabric.devices=2 (DreamerV3-S, batch 16 x 64 "
+          f"a shard, horizon 15, fp32, both shards on the one card, each with its replica): {child['shards']} shard "
+          f"steps built, {child['gradient_steps']} gradient steps, player calls {child['player_calls']}, ln_gru "
+          f"launches {child['launches']} = predicted {parallel['predicted']} ({parallel['per_gradient_step']} a "
+          f"gradient step: the dynamic scan and the imagination once a shard); sharding_audit "
+          f"{json.dumps(parallel['audit'])}; the child {child['seconds']} s (imports made before the group, "
+          f"{child['imports_s']} s)  [{card}]", flush=True)
+    print(f"[parallel] one DreamerV3-S fp32 gradient step over 2 shards of {pstep['shard_batch']} sequences against "
+          f"one device's on the same {pstep['batch']}-sequence batch and noise (noise deciding every draw): metrics max "
+          f"relative error {pstep['metric_rel_err']:.3g}, Moments low/high {pstep['moments_rel_err']:.3g} (tol "
+          f"{PARALLEL_STEP_RTOL:g}: fp32 sums in another order); the shards' metrics and replicas bitwise equal; "
+          f"ln_gru launches {pstep['launches']} = predicted {pstep['predicted']} (79 + 2 x {pstep['per_shard']}); "
+          f"{pstep['seconds']:.2f} s  [{card}]", flush=True)
+    for name in ("ppo", "sac"):
+        row = parallel[name]
+        print(f"[parallel] run exp={name} fabric.devices=2 ({' '.join(o for o in (PARALLEL_PPO_OVERRIDES if name == 'ppo' else PARALLEL_SAC_OVERRIDES) if o.startswith(('env.num_envs', 'algo.')))}): "
+              f"{row['iterations']} iterations, {row['rows']} metric rows, final {row['final']}, replicas bitwise "
+              f"equal, checkpoint batch_size {row['checkpoint_batch_size']} (the global batch); resumed at "
+              f"fabric.devices=1 from the two-shard mid-run checkpoint at iteration {row['resume_start_iter']}, "
+              f"{row['resume_rows']} metric rows; {row['seconds']:.1f} s  [{card}]", flush=True)
+    versus = parallel["ppo_card_vs_cpu"]
+    print(f"[parallel] two-shard PPO update ({versus['updates']} minibatch updates a shard) from the mid-run "
+          f"checkpoint on the card against the same two-shard update on the CPU: metrics max relative error "
+          f"{versus['metric_rel_err']:.3g} (tol {PARALLEL_CARD_CPU_RTOL:g}), parameters max_abs_err "
+          f"{versus['param_max_abs_err']:.3g} (tol {PARALLEL_CARD_CPU_ATOL:g}), each side's replicas bitwise equal  "
+          f"[{card}]", flush=True)
+    print(f"[parallel] group {parallel['seconds']:.1f} s of its {PARALLEL_DEADLINES_S['parallel']:g} s (in this "
+          f"process {parallel['in_process_s']:.1f} s beside the child)  [{card}]", flush=True)
+
+    mark('parallel')
     slice_report = run_slice(build_dir)
     print(
         f"[slice] DreamerV3-S serve: {slice_report['requests']} /act from {slice_report['sessions']} sessions, "
@@ -5695,7 +6090,9 @@ def main() -> int:
                "records": records["profiled"]["ln_gru_launches"],
                **{f"records_search_{i}": t["launches"] for i, t in enumerate(records["search"]["trials"])},
                "minedojo": minedojo["ln_gru_launches"],
-               **{f"resilience_child_{i}": n for i, n in enumerate(resilience["launches"])}}
+               **{f"resilience_child_{i}": n for i, n in enumerate(resilience["launches"])},
+               "parallel_dv3": parallel["child"]["launches"], "parallel_step": parallel["step"]["launches"],
+               **parallel["launches"]}
     print(f"[launches] ln_gru launches by path: {', '.join(f'{k} {v}' for k, v in by_path.items())}; "
           f"{sum(by_path.values())} in all  [{card}]", flush=True)
     case_keys = ("B", "K", "H", "dtype", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms", "bound_ms", "bound_by")
@@ -5717,7 +6114,7 @@ def main() -> int:
         "cases": [{k: c[k] for k in case_keys} for c in cases],
         "phase": "kernel+lint+slice+serve-ops+train+chunked+resume+eval+offline+drill+jepa+p2e+sac+droq+sac_ae+offline_sac"
                  "+offline_droq+bf16+dv2+dv1+ppo_recurrent+p2e_dv2+p2e_dv1+minedojo+records"
-                 "+resilience",
+                 "+resilience+parallel",
     }]
     mark("kernels line")
     print(f"[timing] wall seconds by group of phases: "

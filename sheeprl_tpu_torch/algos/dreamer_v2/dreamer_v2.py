@@ -33,6 +33,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import (
     _dreamer_main,
     frozen,
     make_update,
+    one_shard_only,
     polyak,
 )
 from sheeprl_tpu_torch.diagnostics.sentinel import sentinel_spec
@@ -219,12 +220,14 @@ def make_train_step(agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, is
 
 def unported_options(cfg, name: str) -> List[str]:
     """What the DreamerV1/V2 loops (and Plan2Explore's on them) refuse:
-    ``skip_update``, which their JAX steps do not apply.  The JAX DreamerV1
-    and V2 loops read ``model_manager`` and register nothing, and so do
-    these (``_dreamer_main``'s ``register_models``)."""
+    ``skip_update``, which their JAX steps do not apply, and more than one
+    shard (:func:`one_shard_only`).  The JAX DreamerV1 and V2 loops read
+    ``model_manager`` and register nothing, and so do these
+    (``_dreamer_main``'s ``register_models``)."""
+    refused = one_shard_only(cfg)
     if sentinel_spec(cfg).skip_update:
-        return [f"diagnostics.sentinel.policy=skip_update for {name} (its JAX step applies no selection)"]
-    return []
+        refused.append(f"diagnostics.sentinel.policy=skip_update for {name} (its JAX step applies no selection)")
+    return refused
 
 
 def build_dreamer_v2_agent(actions_dim, is_continuous, cfg, obs_space, state, device):

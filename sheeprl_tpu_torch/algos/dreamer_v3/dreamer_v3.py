@@ -34,6 +34,7 @@ from typing import Any, Callable, Dict, Iterator, List, Mapping, Optional, Proto
 import numpy as np
 import torch
 from torch import nn
+from torch.utils._pytree import tree_map
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import TRAINED, Agent, PlayerDV3, build_agent
 from sheeprl_tpu_torch.algos.dreamer_v3.loss import reconstruction_loss
@@ -50,7 +51,11 @@ from sheeprl_tpu_torch.diagnostics.sentinel import select_finite, sentinel_spec,
 from sheeprl_tpu_torch.models.blocks import LayerNormGRUCell
 from sheeprl_tpu_torch.ops.distributions import Bernoulli, MSEDistribution, SymlogDistribution, TwoHotEncodingDistribution
 from sheeprl_tpu_torch.ops.numerics import compute_lambda_values
+from sheeprl_tpu_torch.parallel.dp import (all_gather_cat, body_of, local_sample_size, pmean_tree, replicas_equal,
+                                            run_one, run_shards, shard_generators, train_batches)
+from sheeprl_tpu_torch.parallel.mesh import replicate
 from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
+from sheeprl_tpu_torch.parallel.runtime import shard_count
 from sheeprl_tpu_torch.utils.optim import clip_by_global_norm, global_norm
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
@@ -263,12 +268,16 @@ class Behaviour:
         return compute_lambda_values(rewards[1:], values[1:], continues[1:] * self.gamma, lmbda=self.lmbda)
 
     def advantage(self, moments_state: Dict[str, torch.Tensor], lambda_values: torch.Tensor,
-                  baseline: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                  baseline: torch.Tensor, gathered: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The advantage of ``lambda_values`` over ``baseline``, both scaled
-        by the Moments as updated on ``lambda_values``; and those Moments."""
+        by the Moments as updated on ``gathered`` (every shard's lambda
+        values; ``lambda_values`` themselves by default); and those
+        Moments."""
         m = self.moments_cfg
         offset, invscale, new_moments = update_moments(
-            moments_state, lambda_values, m.decay, m.max, m.percentile.low, m.percentile.high
+            moments_state, lambda_values if gathered is None else gathered, m.decay, m.max, m.percentile.low,
+            m.percentile.high
         )
         return (lambda_values - offset) / invscale - (baseline - offset) / invscale, new_moments
 
@@ -282,17 +291,25 @@ class Behaviour:
         entropy = self.ent_coef * entropies
         return -torch.mean(discount[:-1] * (objective + entropy[:-1]))
 
-    def actor_loss(self, world_model, actor, critic, posteriors: torch.Tensor, recurrents: torch.Tensor,
-                   true_continue: torch.Tensor, moments_state: Dict[str, torch.Tensor],
-                   generator: Optional[torch.Generator], noise: Dict[str, Any]):
-        """DreamerV3's actor loss: ``(policy_loss, trajectories, lambda
-        values, discount, moments)``, the trajectories and lambda values
-        detached."""
+    def imagine(self, world_model, actor, critic, posteriors: torch.Tensor, recurrents: torch.Tensor,
+                true_continue: torch.Tensor, generator: Optional[torch.Generator], noise: Dict[str, Any]):
+        """The actor loss's imagination: ``(trajectories, actions, predicted
+        values, lambda values, discount)``."""
         trajectories, actions = self.rollout(world_model, actor, posteriors, recurrents, generator, noise)
         predicted_values = TwoHotEncodingDistribution(critic(trajectories), dims=1).mean
         predicted_rewards = TwoHotEncodingDistribution(world_model.reward_logits(trajectories), dims=1).mean
         continues, discount = self.continues(world_model, trajectories, true_continue)
         lambda_values = self.lambda_values(predicted_rewards, predicted_values, continues)
+        return trajectories, actions, predicted_values, lambda_values, discount
+
+    def actor_loss(self, world_model, actor, critic, posteriors: torch.Tensor, recurrents: torch.Tensor,
+                   true_continue: torch.Tensor, moments_state: Dict[str, torch.Tensor],
+                   generator: Optional[torch.Generator], noise: Dict[str, Any]):
+        """DreamerV3's actor loss on one device: ``(policy_loss,
+        trajectories, lambda values, discount, moments)``, the trajectories
+        and lambda values detached."""
+        trajectories, actions, predicted_values, lambda_values, discount = self.imagine(
+            world_model, actor, critic, posteriors, recurrents, true_continue, generator, noise)
         advantage, new_moments = self.advantage(moments_state, lambda_values, predicted_values[:-1])
         policy_loss = self.policy_loss(actor, trajectories, actions, advantage, discount)
         return policy_loss, trajectories.detach(), lambda_values.detach(), discount, new_moments
@@ -372,11 +389,14 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
         guarded, snapshot = skip_update_guard(agent, optimizers.values())
     step_grads: Dict[str, List[torch.Tensor]] = {}
 
-    def update(name: str, loss: torch.Tensor) -> torch.Tensor:
-        """Gradient of ``loss`` over one optimizer's parameters, clipped by
-        their global norm, one optimizer step; returns the norm before
-        clipping (of the world model's own parameters for ``world_model``)."""
-        grads = gradients(loss, params[name])
+    def update(name: str, loss: torch.Tensor):
+        """Gradient of ``loss`` over one optimizer's parameters, its mean
+        over the shards (``pmean``, before the clip, as the JAX chain clips
+        inside its update), clipped by their global norm, one optimizer
+        step; returns the norm of the mean before clipping (of the world
+        model's own parameters for ``world_model``).  A generator: ``norm =
+        yield from update(name, loss)``."""
+        grads = yield from pmean_tree(gradients(loss, params[name]))
         norm = global_norm(grads)
         if term_params and name == "world_model":
             norm = global_norm([g for p, g in zip(params[name], grads) if id(p) not in term_params])
@@ -387,8 +407,11 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
         apply_gradients(optimizers[name], params[name], grads, clip[name])
         return norm
 
-    def train_step(moments_state: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], tau: float,
-                   generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
+    def body(moments_state: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], tau: float,
+             generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
+        """The step for one shard's block of the batch (a generator whose
+        collectives :func:`~sheeprl_tpu_torch.parallel.dp.run_shards`
+        answers)."""
         noise = noise or {}
         T, B = batch["actions"].shape[:2]
         if sentinel.skip_update:
@@ -405,7 +428,7 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
             (world_model, *term_modules), cdt, lambda: world_model_loss(batch, generator, noise))
         rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
         wm_loss = rec_loss if extra is None else rec_loss + extra[0]
-        wm_norm = update("world_model", wm_loss)
+        wm_norm = yield from update("world_model", wm_loss)
         if term is not None:
             term.after_update()
 
@@ -414,21 +437,27 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
         recurrents = recurrents.detach().reshape(T * B, recurrent_size)
         true_continue = (1 - batch["terminated"]).reshape(T * B, 1)
         with frozen(world_model, critic):
-            policy_loss, trajectories, lambda_values, discount, moments_state = call_cast(
-                (world_model, actor, critic), cdt, lambda: behaviour.actor_loss(
-                    world_model, actor, critic, posteriors, recurrents, true_continue, moments_state, generator,
-                    noise))
-            actor_norm = update("actor", policy_loss)
+            trajectories, actions, values, lambda_values, discount = call_cast(
+                (world_model, actor, critic), cdt, lambda: behaviour.imagine(
+                    world_model, actor, critic, posteriors, recurrents, true_continue, generator, noise))
+            # the Moments' quantiles over every shard's lambda values
+            gathered = yield from all_gather_cat(lambda_values.detach().float())
+            advantage, moments_state = behaviour.advantage(moments_state, lambda_values, values[:-1], gathered)
+            policy_loss = call_cast((actor,), cdt, lambda: behaviour.policy_loss(
+                actor, trajectories, actions, advantage, discount))
+            actor_norm = yield from update("actor", policy_loss)
+        trajectories, lambda_values = trajectories.detach(), lambda_values.detach()
 
         # --- critic learning -------------------------------------------------
         value_loss = call_cast((critic, target_critic), cdt, lambda: behaviour.critic_loss(
             critic, target_critic, trajectories, lambda_values, discount))
-        critic_norm = update("critic", value_loss)
+        critic_norm = yield from update("critic", value_loss)
 
-        metrics = torch.stack([
+        losses = yield from pmean_tree(torch.stack([
             wm_loss, observation_loss, reward_loss, state_loss, continue_loss, kl, policy_loss, value_loss,
-            wm_norm, actor_norm, critic_norm, *(extra[1] if extra is not None else ()),
-        ]).float().detach()
+            *(extra[1] if extra is not None else ()),
+        ]).float().detach())
+        metrics = torch.cat([losses[:8], torch.stack([wm_norm, actor_norm, critic_norm]).float(), losses[8:]])
         if health.enabled:
             # the stats ride the metric vector, so the log interval's one
             # fetch carries them: no sync of their own
@@ -450,6 +479,12 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
             moments_state = {k: torch.where(finite, v, prev_moments[k]) for k, v in moments_state.items()}
         return moments_state, metrics
 
+    def train_step(moments_state: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], tau: float,
+                   generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
+        """One shard: the whole batch on this agent's device."""
+        return run_one(body(moments_state, batch, tau, generator, noise))
+
+    train_step.body = body
     train_step.health_names = health_out
     train_step.metric_order = metric_order
 
@@ -558,6 +593,17 @@ def main(runtime, cfg) -> Dict[str, Any]:
     return _dreamer_main(runtime, cfg, build_dreamer_agent, make_train_step)
 
 
+def one_shard_only(cfg) -> List[str]:
+    """The refusal of a family whose step does not run over shards yet, for
+    its ``unported_fn``: ``fabric.devices > 1``, naming the Parallel item of
+    ROADMAP.md."""
+    world = shard_count(cfg.fabric.devices, cfg.fabric.accelerator)
+    if world > 1:
+        return [f"fabric.devices={world} for {cfg.algo.name} (multi-device training of this family waits for the "
+                "next Parallel slice)"]
+    return []
+
+
 def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train_step_fn: Callable, *,
                   load_agent_state_fn: Optional[Callable[[Any, Any], Dict[str, Any]]] = None,
                   player_actor_fn: Optional[Callable[[bool], str]] = None,
@@ -589,7 +635,8 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     episode at the end (the player's actor once trained, sampled);
     ``unported_fn(cfg)``, the options the family refuses (DreamerV3 refuses
     none here: the runtime and the actor refuse theirs where they are
-    built); ``buffer_types``, the ``buffer.type`` values the
+    built; a family whose step does not run over shards lists
+    :func:`one_shard_only`'s refusal); ``buffer_types``, the ``buffer.type`` values the
     family reads (DreamerV3 samples sequentially and reads none; DreamerV2
     also has the ``episode`` buffer); ``train_after_env_step``, whether the
     iteration's gradient steps run after the env step's results, its reset
@@ -597,7 +644,12 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     order) rather than while the envs step (DreamerV3's);
     ``register_models``, whether a run with ``model_manager.disabled=False``
     registers the agent's trees with MLflow at its end (the JAX DreamerV1
-    and V2 loops do not).  The counter that
+    and V2 loops do not).  Over N shards the loop keeps
+    one replica of the agent and its optimizers per shard, draws the global
+    batch of ``per_rank_batch_size * N`` sequences, hands shard d its block
+    d of the batch axis and its own random stream, and runs the shards'
+    steps in lockstep (``parallel/dp.py``); the player acts with shard 0's
+    replica and the checkpoint holds shard 0's state.  The counter that
     times the target critic's update starts at 0 in every run, resumed or
     not, as in every JAX loop of the family.
 
@@ -617,6 +669,10 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     from sheeprl_tpu_torch.utils.utils import Ratio, get_diagnostics, save_configs
 
     unported = unported_fn(cfg) if unported_fn is not None else []
+    world = runtime.world_size
+    if world > 1 and cfg.buffer.get("device"):
+        unported.append(f"buffer.device=True with fabric.devices={world} (the env-sharded multi-device replay ring "
+                        "waits for the next Parallel slice)")
     if unported:
         raise NotImplementedError(f"not ported yet (see ROADMAP.md Queue 1): {'; '.join(unported)}")
     buffer_type = str(cfg.buffer.get("type") or "sequential").lower() if len(buffer_types) > 1 else buffer_types[0]
@@ -681,15 +737,39 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
         module.to(runtime.param_dtype)
     has_trained = state is not None
     player = PlayerDV3(agent.world_model, getattr(agent, player_actor_fn(has_trained)), actions_dim, num_envs)
-    optimizers = make_optimizers(cfg, agent)
-    moments_state = agent.initial_moments(device) if agent_state is None else load_learner_state(
-        agent_state, agent, optimizers, device)
-    train_step = diag.instrument("train_step", make_train_step_fn(agent, optimizers, cfg, is_continuous),
-                                 kind="train")
+    # one replica of the agent and its optimizers per shard; shard 0's is
+    # the player's and the checkpoint's
+    devices = runtime.devices
+    replicas = replicate(agent, devices)
+    optimizer_sets = [make_optimizers(cfg, replica) for replica in replicas]
+    optimizers = optimizer_sets[0]
+    moments_state = agent.initial_moments(device)
+    if agent_state is not None:
+        for replica, opts, d in zip(replicas, optimizer_sets, devices):
+            loaded = load_learner_state(agent_state, replica, opts, d)
+            moments_state = loaded if replica is agent else moments_state
+    steps = [make_train_step_fn(replica, opts, cfg, is_continuous) for replica, opts in zip(replicas, optimizer_sets)]
+    generators = shard_generators(generator, cfg.seed, devices)
+
+    def dp_train_step(moments_state: Dict[str, Any], batches: List[Dict[str, torch.Tensor]], tau: float):
+        """One gradient step over the shards: shard d's step on ``batches[d]``
+        with its replica, its random stream and the Moments (replicated:
+        every shard updates them on the gathered lambda values); shard 0's
+        Moments and metrics (the metrics are reduced over the shards)."""
+        return run_shards([
+            body_of(step)(tree_map(lambda t, d=d: t.to(d), moments_state), batch, tau, g)
+            for step, batch, g, d in zip(steps, batches, generators, devices)
+        ])[0]
+
+    dp_train_step.metric_order, dp_train_step.health_names = steps[0].metric_order, steps[0].health_names
+    train_step = diag.instrument("train_step", dp_train_step, kind="train")
     metric_order, health_out = train_step.metric_order, train_step.health_names
-    diag.register_footprint("params", list(agent))
-    diag.register_footprint("opt_state", list(optimizers.values()))
+    diag.register_footprint("params", [m for replica in replicas for m in replica])
+    diag.register_footprint("opt_state", [o for opts in optimizer_sets for o in opts.values()])
     diag.register_footprint("moments", moments_state)
+    diag.register_shards(devices, {"params": [dict(zip(replica._fields, replica)) if hasattr(replica, "_fields")
+                                              else list(replica) for replica in replicas],
+                                   "opt_state": optimizer_sets, "moments": [moments_state] * world})
 
     buffer_size = cfg.buffer.size // num_envs if not cfg.dry_run else 2
     rb, use_device_buffer = make_dreamer_replay_buffer(
@@ -769,16 +849,18 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
         with diag.span("buffer-sample"):
             # the episode buffer's dry run samples single steps, as the JAX loop's
             seq_len = 1 if cfg.dry_run and buffer_type == "episode" else cfg.algo.per_rank_sequence_length
-            local_data = rb.sample(cfg.algo.per_rank_batch_size, sequence_length=seq_len, n_samples=n)
+            local_data = rb.sample(local_sample_size(cfg.algo.per_rank_batch_size * world),
+                                   sequence_length=seq_len, n_samples=n)
             if not use_device_buffer:
                 local_data = [{k: v[i] for k, v in local_data.items()} for i in range(n)]
         # on the card the timer records a CUDA event at each end of the
         # block, so the train time holds the device work of these steps
         # without waiting on it here (read at log time)
         with timer("Time/train_time", device), diag.span("train"):
-            for sample in local_data:
-                batch = diag.maybe_inject_nan(iter_num, stage_batch(sample, cnn_keys, device))
-                moments_state, metrics = train_step(moments_state, batch, target_tau(cfg, gradient_steps), generator)
+            # each step's sequences cut into the shards' blocks (batch axis 1)
+            for batches in train_batches(local_data, devices, lambda block, d: stage_batch(block, cnn_keys, d)):
+                batches = diag.maybe_inject_nan(iter_num, batches)
+                moments_state, metrics = train_step(moments_state, batches, target_tau(cfg, gradient_steps))
                 gradient_steps += 1
             train_step_count += 1
         # one metric row an iteration, its last gradient step's, as the JAX
@@ -965,7 +1047,7 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
                 **({"moments": moments_state} if moments_state else {}),
                 "ratio": ratio.state_dict(),
                 "iter_num": iter_num,
-                "batch_size": cfg.algo.per_rank_batch_size,
+                "batch_size": cfg.algo.per_rank_batch_size * world,
                 "last_log": last_log,
                 "last_checkpoint": last_checkpoint,
             }
@@ -1002,6 +1084,10 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
         "player_width": num_envs,
         "gradient_steps": gradient_steps,
         "train_iterations": train_step_count,
+        "shards": world,
+        # every replica holds shard 0's bytes (parameters, optimizer state)
+        "replicas_equal": world == 1 or replicas_equal([[*replica, *opts.values()] for replica, opts
+                                                         in zip(replicas, optimizer_sets)]),
         "test_steps": test_steps,
         "test_reward": test_reward,
         "player_actors": player_actors,

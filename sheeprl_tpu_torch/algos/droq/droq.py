@@ -32,7 +32,7 @@ from sheeprl_tpu_torch.algos.droq.agent import build_agent
 from sheeprl_tpu_torch.algos.sac.loss import conservative_q_penalty, entropy_loss, policy_loss
 from sheeprl_tpu_torch.algos.sac.sac import (SACFamily, apply_gradients, cql_spec, draw_cql_noise, off_policy_main,
                                              polyak_, spec_tensors)
-from sheeprl_tpu_torch.diagnostics.sentinel import finite_flag
+from sheeprl_tpu_torch.parallel.dp import local_sample_size, pmean_tree, run_one, run_shards, stage
 from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
@@ -60,7 +60,9 @@ def make_train_step(agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, ta
     actor_params, critic_params = spec_tensors(spec["actor"]), spec_tensors(spec["critic"])
     target_params = spec_tensors(spec["target_critic"])
 
-    def one_step(batch, actor_obs, eps_next, masks, eps_actor, masks_actor, cql) -> torch.Tensor:
+    def one_step(batch, actor_obs, eps_next, masks, eps_actor, masks_actor, cql):
+        """One gradient step on one shard's blocks (a generator: the
+        gradients are reduced over the shards, as the JAX step pmeans them)."""
         obs_c, next_obs_c = batch["observations"].to(cdt), batch["next_observations"].to(cdt)
         actor_obs_c = actor_obs.to(cdt)
         with torch.no_grad():
@@ -77,31 +79,43 @@ def make_train_step(agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, ta
                 lambda o, e: call_cast((actor,), cdt, lambda: actor.sample_and_log_prob(o, e), buffers=False),
                 lambda o, a: call_cast((critic,), cdt, lambda: critic(o, a)),
                 cql[0], cql[1])
-        apply_gradients(optimizers["critic"], critic_params, torch.autograd.grad(qf_l, critic_params))
+        grads = yield from pmean_tree(torch.autograd.grad(qf_l, critic_params))
+        apply_gradients(optimizers["critic"], critic_params, grads)
         polyak_(target_params, critic_params, tau)
 
         actions, logprobs = call_cast((actor,), cdt, lambda: actor.sample_and_log_prob(actor_obs_c, eps_actor),
                                       buffers=False)
         q = call_cast((critic,), cdt, lambda: critic(actor_obs_c, actions, masks_actor)).float()
         actor_l = policy_loss(agent.log_alpha.detach().exp(), logprobs.float(), q.mean(dim=-1, keepdim=True))
-        apply_gradients(optimizers["actor"], actor_params, torch.autograd.grad(actor_l, actor_params))
+        grads = yield from pmean_tree(torch.autograd.grad(actor_l, actor_params))
+        apply_gradients(optimizers["actor"], actor_params, grads)
 
         alpha_l = entropy_loss(agent.log_alpha, logprobs, target_entropy)
-        apply_gradients(optimizers["alpha"], [agent.log_alpha], torch.autograd.grad(alpha_l, [agent.log_alpha]))
-        finite = finite_flag(qf_l, actor_l, alpha_l)
-        return torch.stack([qf_l.float(), actor_l.float(), alpha_l.float(), 1.0 - finite.float()]).detach()
+        grads = yield from pmean_tree(torch.autograd.grad(alpha_l, [agent.log_alpha]))
+        apply_gradients(optimizers["alpha"], [agent.log_alpha], grads)
+        return torch.stack([qf_l.float(), actor_l.float(), alpha_l.float()]).detach()
+
+    def body(data: Dict[str, torch.Tensor], actor_data: Dict[str, torch.Tensor], noise: Dict[str, Any]):
+        """The gradient steps on one shard's blocks (a generator whose
+        collectives :func:`~sheeprl_tpu_torch.parallel.dp.run_shards`
+        answers); the steps' losses are reduced over the shards, so every
+        shard counts the same non-finite steps."""
+        rows = []
+        for g in range(noise["eps_next"].shape[0]):
+            rows.append((yield from one_step(
+                {k: v[g] for k, v in data.items()}, actor_data["observations"][g], noise["eps_next"][g],
+                [m[g] for m in noise["masks_critic"]], noise["eps_actor"][g], [m[g] for m in noise["masks_actor"]],
+                (noise["cql_uniform"][g], noise["cql_eps"][g]) if cql_alpha > 0 else None)))
+        flat = yield from pmean_tree(torch.stack(rows))
+        nonfinite = (~torch.isfinite(flat).all(dim=1)).float().sum()
+        return torch.cat([flat.mean(dim=0), nonfinite[None]])
 
     def update(data: Dict[str, torch.Tensor], actor_data: Dict[str, torch.Tensor],
                noise: Dict[str, Any]) -> torch.Tensor:
-        rows = []
-        for g in range(noise["eps_next"].shape[0]):
-            rows.append(one_step({k: v[g] for k, v in data.items()}, actor_data["observations"][g],
-                                 noise["eps_next"][g], [m[g] for m in noise["masks_critic"]], noise["eps_actor"][g],
-                                 [m[g] for m in noise["masks_actor"]],
-                                 (noise["cql_uniform"][g], noise["cql_eps"][g]) if cql_alpha > 0 else None))
-        flat = torch.stack(rows)
-        return torch.cat([flat[:, :3].mean(dim=0), flat[:, 3:].sum(dim=0)])
+        """One shard: the whole batches on this agent's device."""
+        return run_one(body(data, actor_data, noise))
 
+    update.body = body
     update.health_names = []
     update.cql_samples = cql_samples if cql_alpha > 0 else 0
     return update
@@ -149,19 +163,34 @@ class DroQFamily(SACFamily):
         self.update = make_train_step(self.agent, self.optimizers, self.cfg, self.target_entropy)
         self.health_names = []
         self.cql_samples = self.update.cql_samples
+        self.step = self.dp_step
         return self
 
+    def dp_step(self, data: Dict[str, torch.Tensor], generator: torch.Generator) -> torch.Tensor:
+        """The gradient steps over the shards: shard d's on its blocks d of
+        both batches with draws from its own random stream (shard 0's is
+        ``generator``), as the JAX step folds its key per device."""
+        gradient_steps, rows = data["actions"].shape[:2]
+        rows //= len(self.shards)
+        generators = [generator, *(self.generators or [])[1:]]
+        bodies = []
+        for shard, block, g in zip(self.shards, stage(data, [s.device for s in self.shards], batch_axis=1),
+                                   generators):
+            actor_data = {"observations": block.pop("actor_observations")}
+            noise = draw_noise(shard.agent, gradient_steps, rows, self.act_dim, g, shard.device, self.cql_samples)
+            bodies.append(shard.update.body(block, actor_data, noise))
+        return run_shards(bodies)[0]
+
     def train(self, rb, batch_size: int, gradient_steps: int, generator: torch.Generator, inject) -> torch.Tensor:
-        sample = rb.sample(batch_size=batch_size, n_samples=gradient_steps)
-        actor_sample = rb.sample(batch_size=batch_size, n_samples=gradient_steps)
+        """``gradient_steps`` steps on two batches of ``batch_size`` rows a
+        shard, each drawn at once for every shard."""
+        rows = local_sample_size(batch_size * len(self.shards))
+        sample = rb.sample(batch_size=rows, n_samples=gradient_steps)
+        actor_sample = rb.sample(batch_size=rows, n_samples=gradient_steps)
         data = self.stager({**{k: np.asarray(sample[k], np.float32) for k in
                                ("observations", "next_observations", "actions", "rewards", "terminated")},
                             "actor_observations": np.asarray(actor_sample["observations"], np.float32)})
-        data = inject(data)
-        actor_data = {"observations": data.pop("actor_observations")}
-        noise = draw_noise(self.agent, gradient_steps, batch_size, self.act_dim, generator, self.device,
-                           self.cql_samples)
-        return self.update(data, actor_data, noise)
+        return self.step(inject(data), generator)
 
 
 @register_algorithm()

@@ -35,6 +35,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import (
     frozen,
     gradients,
     make_world_model_loss,
+    one_shard_only,
     optimizer_params,
     polyak,
 )
@@ -228,4 +229,5 @@ def main(runtime, cfg) -> Dict[str, Any]:
     cfg.algo.player.actor_type = "exploration"
     expand_exploration_metric_keys(cfg, [name for name, _, _ in exploration_critics_spec(cfg)])
     return _dreamer_main(runtime, cfg, build_agent, make_train_step,
-                         player_actor_fn=lambda has_trained: "actor_exploration", final_test_fn=_zero_shot_test)
+                         player_actor_fn=lambda has_trained: "actor_exploration", final_test_fn=_zero_shot_test,
+                         unported_fn=one_shard_only)

@@ -32,6 +32,8 @@ from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_lo
 from sheeprl_tpu_torch.algos.ppo.utils import env_actions_of, test
 from sheeprl_tpu_torch.diagnostics.health import health_names, health_spec, health_stats, unit_dim
 from sheeprl_tpu_torch.diagnostics.sentinel import finite_flag, select_finite, sentinel_spec, skip_update_guard
+from sheeprl_tpu_torch.parallel.dp import pmean_tree, replicas_equal, run_one, run_shards, shard_generators, stage
+from sheeprl_tpu_torch.parallel.mesh import replicate
 from sheeprl_tpu_torch.parallel.precision import call_cast, cast_floating, compute_dtype_of
 from sheeprl_tpu_torch.utils.optim import clip_by_global_norm, global_norm
 from sheeprl_tpu_torch.utils.registry import register_algorithm
@@ -136,13 +138,19 @@ def make_train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, num_
             (agent,), cdt, lambda: agent(cast_floating(mb["obs"], cdt), actions=mb["actions"]))
         advantages = mb["advantages"]
         if cfg.algo.normalize_advantages:
-            advantages = (advantages - advantages.mean()) / (advantages.std(unbiased=False) + 1e-8)
+            # the shards' means of their minibatch's mean and std, as the JAX
+            # loss pmeans them (not the std of the global minibatch)
+            mu, std = yield from pmean_tree((advantages.mean(), advantages.std(unbiased=False)))
+            advantages = (advantages - mu) / (std + 1e-8)
         pg = policy_loss(new_logprobs, mb["logprobs"], advantages, clip_coef, reduction)
         v = value_loss(new_values.float(), mb["values"], mb["returns"], clip_coef, cfg.algo.clip_vloss, reduction)
         e = entropy_loss(entropy, reduction)
         return pg + vf_coef * v + ent_coef * e, (pg, v, e)
 
-    def update(data: Dict[str, Any], perms: Sequence[torch.Tensor], coefs: Sequence[float]) -> torch.Tensor:
+    def body(data: Dict[str, Any], perms: Sequence[torch.Tensor], coefs: Sequence[float]):
+        """The update on one shard's rows (a generator whose collectives
+        :func:`~sheeprl_tpu_torch.parallel.dp.run_shards` answers): each
+        minibatch's gradients and losses are reduced over the shards."""
         clip_coef, ent_coef, vf_coef = (float(c) for c in coefs)
         rows, hrows = [], []
         for epoch in range(epochs):
@@ -153,8 +161,9 @@ def make_train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, num_
                 if sentinel.skip_update:
                     with torch.no_grad():
                         torch._foreach_copy_(snapshot, guarded)
-                total, aux = loss_fn(mb, clip_coef, ent_coef, vf_coef)
+                total, aux = yield from loss_fn(mb, clip_coef, ent_coef, vf_coef)
                 grads = list(torch.autograd.grad(total, params))
+                grads, aux = yield from pmean_tree((grads, aux))
                 gnorm = global_norm(grads)
                 clipped = clip_by_global_norm(grads, max_grad_norm) if max_grad_norm > 0 else grads
                 for p, g in zip(params, clipped):
@@ -184,9 +193,15 @@ def make_train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, num_
         if health.enabled:
             from sheeprl_tpu_torch.diagnostics.health import explained_variance
 
-            metrics += [torch.stack(hrows).mean(dim=0), explained_variance(data["values"], data["returns"])[None]]
+            ev = yield from pmean_tree(explained_variance(data["values"], data["returns"]))
+            metrics += [torch.stack(hrows).mean(dim=0), ev[None]]
         return torch.cat(metrics)
 
+    def update(data: Dict[str, Any], perms: Sequence[torch.Tensor], coefs: Sequence[float]) -> torch.Tensor:
+        """One shard: the whole rollout on this agent's device."""
+        return run_one(body(data, perms, coefs))
+
+    update.body = body
     update.health_names = health_out
     return update
 
@@ -267,34 +282,43 @@ def rollout_data(agent: PPOAgent, rb, obs: Dict[str, np.ndarray], stage, cfg, de
     }
 
 
-def _minibatches(cfg) -> int:
-    """The rollout's minibatches of ``algo.per_rank_batch_size`` rows."""
+def _minibatches(cfg, world_size: int = 1) -> int:
+    """The minibatches of ``algo.per_rank_batch_size`` rows of each shard's
+    ``1 / world_size`` of the rollout (the JAX loop's sizes and refusals)."""
     batch_size = cfg.algo.per_rank_batch_size
     total_local = int(cfg.algo.rollout_steps) * int(cfg.env.num_envs)
+    if total_local % world_size != 0:
+        raise ValueError(
+            f"rollout_steps*num_envs ({total_local}) must be divisible by the number of devices ({world_size})")
+    n_per_device = total_local // world_size
     if batch_size is None or batch_size <= 0:
         raise ValueError(f"per_rank_batch_size must be a positive integer, got {batch_size}")
-    if total_local % batch_size != 0:
-        raise ValueError(f"The rollout ({total_local}) must be divisible by per_rank_batch_size ({batch_size})")
-    return total_local // batch_size
+    if n_per_device % batch_size != 0:
+        raise ValueError(
+            f"Per-device rollout ({n_per_device}) must be divisible by per_rank_batch_size ({batch_size})")
+    return n_per_device // batch_size
 
 
-def make_update(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, total_iters: int):
+def make_update(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, total_iters: int, world_size: int = 1):
     """PPO's update for :func:`_on_policy_main`: ``update(iter_num, data,
     generator) -> metrics``, the update phase (:func:`make_train_step`) on
     this iteration's annealed coefficients and permutations drawn from
     ``generator``, with ``algo.anneal_lr`` optax's linear schedule over
-    every minibatch update of the run."""
+    every minibatch update of the run.  ``data`` is one shard's
+    ``1 / world_size`` of the rollout; ``update.body`` is the same update
+    as a generator for :func:`~sheeprl_tpu_torch.parallel.dp.run_shards`."""
     from sheeprl_tpu_torch.utils.utils import polynomial_decay
 
-    batch_size, total_local = int(cfg.algo.per_rank_batch_size), int(cfg.algo.rollout_steps) * int(cfg.env.num_envs)
-    num_minibatches, epochs = _minibatches(cfg), int(cfg.algo.update_epochs)
+    batch_size = int(cfg.algo.per_rank_batch_size)
+    num_minibatches, epochs = _minibatches(cfg, world_size), int(cfg.algo.update_epochs)
+    n_local = num_minibatches * batch_size
     schedule = None
     if cfg.algo.anneal_lr:
         schedule = linear_schedule(optimizer.param_groups[0]["lr"], 0.0, max(1, total_iters * epochs * num_minibatches))
     train_step = make_train_step(agent, optimizer, cfg, num_minibatches, batch_size, schedule)
     initial_ent, initial_clip = float(cfg.algo.ent_coef), float(cfg.algo.clip_coef)
 
-    def update(iter_num: int, data: Dict[str, Any], generator: torch.Generator) -> torch.Tensor:
+    def body(iter_num: int, data: Dict[str, Any], generator: torch.Generator):
         clip_coef, ent_coef = initial_clip, initial_ent
         if cfg.algo.anneal_clip_coef:
             clip_coef = polynomial_decay(iter_num, initial=initial_clip, final=0.0, max_decay_steps=total_iters,
@@ -302,10 +326,14 @@ def make_update(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, total_it
         if cfg.algo.anneal_ent_coef:
             ent_coef = polynomial_decay(iter_num, initial=initial_ent, final=0.0, max_decay_steps=total_iters,
                                         power=1.0)
-        perms = [torch.randperm(total_local, generator=generator, device=data["returns"].device)
+        perms = [torch.randperm(n_local, generator=generator, device=data["returns"].device)
                  for _ in range(epochs)]
-        return train_step(data, perms, (clip_coef, ent_coef, float(cfg.algo.vf_coef)))
+        return (yield from train_step.body(data, perms, (clip_coef, ent_coef, float(cfg.algo.vf_coef))))
 
+    def update(iter_num: int, data: Dict[str, Any], generator: torch.Generator) -> torch.Tensor:
+        return run_one(body(iter_num, data, generator))
+
+    update.body = body
     update.metric_order = METRIC_ORDER
     update.health_names = train_step.health_names
     update.updates_per_iteration = epochs * num_minibatches
@@ -332,8 +360,11 @@ class OnPolicyFamily:
     def buffer_size(self, cfg) -> int:
         return int(cfg.buffer.size)
 
-    def checkpoint_batch_size(self, cfg) -> int:
-        return cfg.algo.per_rank_batch_size
+    def checkpoint_batch_size(self, cfg, world_size: int = 1) -> int:
+        """The checkpoint's ``batch_size``: every shard's minibatch rows
+        together, as the JAX loop writes it."""
+        rows = self.shard_layout(cfg, world_size)
+        return rows if rows is None else rows * world_size
 
     def spec(self, agent) -> Dict[str, Any]:
         from sheeprl_tpu_torch.interop.flax_params import ppo_spec
@@ -351,6 +382,17 @@ class OnPolicyFamily:
     def rollout_data(self, agent, rb, obs, stage, cfg, device) -> Dict[str, Any]:
         return rollout_data(agent, rb, obs, stage, cfg, device)
 
+    def shard(self, data: Dict[str, Any], devices: Sequence[torch.device]) -> List[Dict[str, Any]]:
+        """The update's data as the shards' blocks of rows, block d on
+        ``devices[d]`` (the JAX loop shards the rows' axis)."""
+        return stage(data, devices, batch_axis=0)
+
+    def shard_layout(self, cfg, world_size: int) -> int:
+        """Raises where the rollout cannot be cut over ``world_size``
+        shards; returns the rows each shard's minibatch holds."""
+        _minibatches(cfg, world_size)
+        return int(cfg.algo.per_rank_batch_size)
+
     def test(self, agent, env, cfg, device, stager) -> float:
         return test(agent, env, cfg, device, stager)
 
@@ -358,7 +400,6 @@ class OnPolicyFamily:
 @register_algorithm()
 def main(runtime, cfg) -> Dict[str, Any]:
     """The PPO loop (:func:`_on_policy_main` with PPO's agent and update)."""
-    _minibatches(cfg)  # a rollout PPO cannot cut raises before the run starts
     return _on_policy_main(runtime, cfg, build_agent, make_update, shape_drill=True)
 
 
@@ -381,6 +422,12 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn,
     (PPO's loop only, as in the JAX package).
     ``checkpoint.resume_from`` (a file, resolved by ``cli.run``) restores the
     agent, the optimizer's state (either package's) and the counters.
+    Over ``fabric.devices = N`` shards the loop keeps one replica of the
+    agent and its optimizer per shard (``make_update_fn(..., world_size=N)``
+    builds each one's update), hands shard d its block d of the rollout's
+    rows (``family.shard``) and its own random stream, and runs the shards'
+    updates in lockstep (``parallel/dp.py``); the rollout acts with shard
+    0's replica, and the checkpoint holds its state.
     Returns what the run did: its counters, the metric rows of every
     iteration, the logged metrics, the checkpoints and the log dir."""
     from sheeprl_tpu_torch.config import instantiate
@@ -397,9 +444,10 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn,
     unported = family.unported(cfg)
     if unported:
         raise NotImplementedError(f"not ported yet (see ROADMAP.md Queue 1): {'; '.join(unported)}")
-    device = runtime.device
+    device, devices, world = runtime.device, runtime.devices, runtime.world_size
     num_envs = int(cfg.env.num_envs)
     total_local = int(cfg.algo.rollout_steps) * num_envs
+    family.shard_layout(cfg, world)
 
     generator = runtime.seed_everything(cfg.seed)
     logger = get_logger(runtime, cfg)
@@ -427,17 +475,37 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn,
     # bf16-true: the weights themselves in bf16; *-mixed keeps fp32 masters
     agent.to(runtime.param_dtype)
     total_iters = int(cfg.algo.total_steps // total_local) if not cfg.dry_run else 1
-    optimizer = instantiate(cfg.algo.optimizer)(agent.parameters())
     clip = bool(cfg.algo.max_grad_norm and cfg.algo.max_grad_norm > 0)
     spec = family.spec(agent)
+    # one replica of the agent and its optimizer per shard; shard 0's acts
+    # and is checkpointed
+    replicas = replicate(agent, devices)
+    optimizers = [instantiate(cfg.algo.optimizer)(replica.parameters()) for replica in replicas]
     if state and "opt_state" in state:
-        optimizer.load_state_dict(optimizer_state_dict(state["opt_state"], optimizer, spec))
-    train_step = diag.instrument("train_step", make_update_fn(agent, optimizer, cfg, total_iters), kind="train")
+        for replica, opt in zip(replicas, optimizers):
+            opt.load_state_dict(optimizer_state_dict(state["opt_state"], opt, family.spec(replica)))
+    optimizer = optimizers[0]
+    updates = [make_update_fn(replica, opt, cfg, total_iters, world_size=world)
+               for replica, opt in zip(replicas, optimizers)]
+    generators = shard_generators(generator, cfg.seed, devices)
+
+    def dp_update(iter_num: int, data: Dict[str, Any], generator: torch.Generator) -> torch.Tensor:
+        """The update over the shards, each on its block of ``data`` with its
+        replica and random stream (shard 0's is ``generator``); shard 0's
+        metrics, which are reduced over the shards."""
+        blocks = family.shard(data, devices)
+        return run_shards([u.body(iter_num, block, g) for u, block, g in
+                           zip(updates, blocks, [generator, *generators[1:]])])[0]
+
+    for attr in ("metric_order", "health_names", "updates_per_iteration", "schedule"):
+        setattr(dp_update, attr, getattr(updates[0], attr))
+    train_step = diag.instrument("train_step", dp_update, kind="train")
     metric_order, health_out = train_step.metric_order, train_step.health_names
     n_losses = len(metric_order)
     policy = diag.instrument("policy_step", agent, kind="rollout") if family.instruments_rollout else agent
-    diag.register_footprint("params", [agent])
-    diag.register_footprint("opt_state", [optimizer])
+    diag.register_footprint("params", replicas)
+    diag.register_footprint("opt_state", optimizers)
+    diag.register_shards(devices, {"params": replicas, "opt_state": optimizers})
 
     rb = ReplayBuffer(family.buffer_size(cfg), num_envs, memmap=cfg.buffer.memmap,
                       memmap_dir=os.path.join(log_dir, "memmap_buffer"))
@@ -518,7 +586,7 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn,
                 "policy_step": policy_step_count,
                 "last_log": last_log,
                 "last_checkpoint": last_checkpoint,
-                "batch_size": family.checkpoint_batch_size(cfg),
+                "batch_size": family.checkpoint_batch_size(cfg, world),
             }
             ckpt_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step_count}_0.ckpt")
             with diag.span("checkpoint"):
@@ -546,6 +614,9 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn,
         "start_iter": start_iter,
         "policy_steps": policy_step_count,
         "iterations": len(metric_rows),
+        "shards": world,
+        # every replica holds shard 0's bytes (parameters, optimizer state)
+        "replicas_equal": world == 1 or replicas_equal([[r, o] for r, o in zip(replicas, optimizers)]),
         "updates_per_iteration": train_step.updates_per_iteration,
         "test_reward": test_reward,
         "metric_rows": rows[:, :n_losses],

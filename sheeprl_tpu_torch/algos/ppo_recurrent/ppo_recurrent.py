@@ -37,6 +37,7 @@ from sheeprl_tpu_torch.algos.ppo.ppo import OnPolicyFamily, _on_policy_main, lin
 from sheeprl_tpu_torch.algos.ppo_recurrent.agent import RecurrentPPOAgent, build_agent, prev_actions_of
 from sheeprl_tpu_torch.algos.ppo_recurrent.utils import test
 from sheeprl_tpu_torch.diagnostics.sentinel import finite_flag, sentinel_spec
+from sheeprl_tpu_torch.parallel.dp import pmean_tree, run_one, stage
 from sheeprl_tpu_torch.parallel.precision import call_cast, cast_floating, compute_dtype_of
 from sheeprl_tpu_torch.utils.optim import clip_by_global_norm
 from sheeprl_tpu_torch.utils.registry import register_algorithm
@@ -44,17 +45,23 @@ from sheeprl_tpu_torch.utils.registry import register_algorithm
 METRIC_ORDER = ["Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss"]
 
 
-def sequence_layout(cfg) -> tuple:
+def sequence_layout(cfg, world_size: int = 1) -> tuple:
     """``(num_sequences, seq_batch, num_minibatches)`` of a rollout, as the
-    JAX loop cuts it; raises where it cannot."""
+    JAX loop cuts it over ``world_size`` shards (each shard's minibatches of
+    ``seq_batch`` of its ``num_sequences / world_size`` sequences); raises
+    where it cannot."""
     rollout_steps, seq_len = int(cfg.algo.rollout_steps), cfg.algo.per_rank_sequence_length
     if not seq_len or seq_len <= 0:
         raise ValueError(f"per_rank_sequence_length must be positive, got {seq_len}")
     if rollout_steps % seq_len != 0:
         raise ValueError(f"rollout_steps ({rollout_steps}) must be a multiple of per_rank_sequence_length ({seq_len})")
     num_sequences = (rollout_steps // seq_len) * int(cfg.env.num_envs)
-    seq_batch = max(1, num_sequences // max(1, int(cfg.algo.get("per_rank_num_batches", 4))))
-    return num_sequences, seq_batch, num_sequences // seq_batch
+    if num_sequences % world_size != 0:
+        raise ValueError(
+            f"Number of sequences ({num_sequences}) must be divisible by the number of devices ({world_size})")
+    seq_per_device = num_sequences // world_size
+    seq_batch = max(1, seq_per_device // max(1, int(cfg.algo.get("per_rank_num_batches", 4))))
+    return num_sequences, seq_batch, seq_per_device // seq_batch
 
 
 def to_sequences(x: torch.Tensor, seq_len: int) -> torch.Tensor:
@@ -89,21 +96,25 @@ def make_train_step(agent: RecurrentPPOAgent, optimizer: torch.optim.Optimizer, 
             resets=mb["resets"], actions=mb["actions"]))
         advantages = mb["advantages"]
         if cfg.algo.normalize_advantages:
-            advantages = (advantages - advantages.mean()) / (advantages.std(unbiased=False) + 1e-8)
+            mu, std = yield from pmean_tree((advantages.mean(), advantages.std(unbiased=False)))
+            advantages = (advantages - mu) / (std + 1e-8)
         pg = policy_loss(new_logprobs, mb["logprobs"], advantages, clip_coef, "mean")
         v = value_loss(new_values.float(), mb["values"], mb["returns"], clip_coef, cfg.algo.clip_vloss, "mean")
         e = entropy_loss(entropy, cfg.algo.loss_reduction)
         return pg + vf_coef * v + ent_coef * e, (pg, v, e)
 
-    def update(data: Dict[str, Any], perms: Sequence[torch.Tensor], coefs: Sequence[float]) -> torch.Tensor:
+    def body(data: Dict[str, Any], perms: Sequence[torch.Tensor], coefs: Sequence[float]):
+        """The update on one shard's sequences (a generator whose collectives
+        :func:`~sheeprl_tpu_torch.parallel.dp.run_shards` answers)."""
         clip_coef, ent_coef, vf_coef = (float(c) for c in coefs)
         rows = []
         for epoch in range(epochs):
             for idx in perms[epoch].to(params[0].device).reshape(num_minibatches, seq_batch):
                 mb = {k: ({kk: vv[:, idx] for kk, vv in v.items()} if isinstance(v, dict)
                           else v[idx] if k in ("hx0", "cx0") else v[:, idx]) for k, v in data.items()}
-                total, aux = loss_fn(mb, clip_coef, ent_coef, vf_coef)
+                total, aux = yield from loss_fn(mb, clip_coef, ent_coef, vf_coef)
                 grads = list(torch.autograd.grad(total, params))
+                grads, aux = yield from pmean_tree((grads, aux))
                 for p, g in zip(params, clip_by_global_norm(grads, max_grad_norm) if max_grad_norm > 0 else grads):
                     p.grad = g
                 if set_lr is not None:
@@ -114,19 +125,27 @@ def make_train_step(agent: RecurrentPPOAgent, optimizer: torch.optim.Optimizer, 
         flat = torch.stack(rows)
         return torch.cat([flat[:, :3].mean(dim=0), flat[:, 3:].sum(dim=0)])
 
+    def update(data: Dict[str, Any], perms: Sequence[torch.Tensor], coefs: Sequence[float]) -> torch.Tensor:
+        """One shard: every sequence on this agent's device."""
+        return run_one(body(data, perms, coefs))
+
+    update.body = body
     update.health_names = []
     return update
 
 
-def make_update(agent: RecurrentPPOAgent, optimizer: torch.optim.Optimizer, cfg, total_iters: int):
+def make_update(agent: RecurrentPPOAgent, optimizer: torch.optim.Optimizer, cfg, total_iters: int,
+                world_size: int = 1):
     """The update for PPO's loop: ``update(iter_num, data, generator) ->
     metrics`` on this iteration's annealed clip and entropy coefficients
     and permutations drawn from ``generator``, with ``algo.anneal_lr``
     optax's linear schedule over every minibatch update of the run (the
-    JAX loop's ``transition_steps``)."""
+    JAX loop's ``transition_steps``).  ``data`` holds one shard's ``1 /
+    world_size`` of the sequences; ``update.body`` is the same update as a
+    generator for :func:`~sheeprl_tpu_torch.parallel.dp.run_shards`."""
     from sheeprl_tpu_torch.utils.utils import polynomial_decay
 
-    _, seq_batch, num_minibatches = sequence_layout(cfg)
+    _, seq_batch, num_minibatches = sequence_layout(cfg, world_size)
     epochs = int(cfg.algo.update_epochs)
     schedule = None
     if cfg.algo.anneal_lr:
@@ -134,7 +153,7 @@ def make_update(agent: RecurrentPPOAgent, optimizer: torch.optim.Optimizer, cfg,
     train_step = make_train_step(agent, optimizer, cfg, num_minibatches, seq_batch, schedule)
     initial_ent, initial_clip = float(cfg.algo.ent_coef), float(cfg.algo.clip_coef)
 
-    def update(iter_num: int, data: Dict[str, Any], generator: torch.Generator) -> torch.Tensor:
+    def body(iter_num: int, data: Dict[str, Any], generator: torch.Generator):
         clip_coef, ent_coef = initial_clip, initial_ent
         if cfg.algo.anneal_clip_coef:
             clip_coef = polynomial_decay(iter_num, initial=initial_clip, final=0.0, max_decay_steps=total_iters,
@@ -144,8 +163,12 @@ def make_update(agent: RecurrentPPOAgent, optimizer: torch.optim.Optimizer, cfg,
                                         power=1.0)
         perms = [torch.randperm(num_minibatches * seq_batch, generator=generator, device=data["returns"].device)
                  for _ in range(epochs)]
-        return train_step(data, perms, (clip_coef, ent_coef, float(cfg.algo.vf_coef)))
+        return (yield from train_step.body(data, perms, (clip_coef, ent_coef, float(cfg.algo.vf_coef))))
 
+    def update(iter_num: int, data: Dict[str, Any], generator: torch.Generator) -> torch.Tensor:
+        return run_one(body(iter_num, data, generator))
+
+    update.body = body
     update.metric_order = METRIC_ORDER
     update.health_names = []
     update.updates_per_iteration = epochs * num_minibatches
@@ -174,8 +197,17 @@ class RecurrentFamily(OnPolicyFamily):
     def buffer_size(self, cfg) -> int:
         return int(cfg.algo.rollout_steps)
 
-    def checkpoint_batch_size(self, cfg) -> int:
-        return sequence_layout(cfg)[1]
+    def shard_layout(self, cfg, world_size: int) -> int:
+        """The sequences of each shard's minibatch (raises where the rollout
+        cannot be cut over ``world_size`` shards)."""
+        return sequence_layout(cfg, world_size)[1]
+
+    def shard(self, data: Dict[str, Any], devices) -> List[Dict[str, Any]]:
+        """The shards' blocks of sequences: axis 1 of the ``[L, S, ...]``
+        leaves, axis 0 of the initial states ``hx0``/``cx0`` ``[S, H]``."""
+        states = {k: data[k] for k in ("hx0", "cx0")}
+        seqs = {k: v for k, v in data.items() if k not in states}
+        return [{**a, **b} for a, b in zip(stage(seqs, devices, batch_axis=1), stage(states, devices, batch_axis=0))]
 
     def spec(self, agent) -> Dict[str, Any]:
         from sheeprl_tpu_torch.interop.flax_params import ppo_recurrent_spec
@@ -270,5 +302,4 @@ class RecurrentFamily(OnPolicyFamily):
 def main(runtime, cfg) -> Dict[str, Any]:
     """The recurrent PPO loop: PPO's (``_on_policy_main``) with the
     recurrent family's agent, update, rollout and data."""
-    sequence_layout(cfg)  # a rollout the loop cannot cut raises before the run starts
     return _on_policy_main(runtime, cfg, build_agent, make_update, RecurrentFamily())

@@ -21,6 +21,7 @@ Python loop with no host sync; the loop fetches their metrics once.
 
 from __future__ import annotations
 
+import copy
 import os
 from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
@@ -32,6 +33,8 @@ from sheeprl_tpu_torch.algos.sac.loss import conservative_q_penalty, critic_loss
 from sheeprl_tpu_torch.algos.sac.utils import prepare_obs, test
 from sheeprl_tpu_torch.diagnostics.health import health_names, health_spec, health_stats, unit_dim
 from sheeprl_tpu_torch.diagnostics.sentinel import finite_flag, select_finite, sentinel_spec, skip_update_guard
+from sheeprl_tpu_torch.parallel.dp import (local_sample_size, pmean_tree, replicas_equal, run_one, run_shards,
+                                            shard_generators, stage)
 from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
 from sheeprl_tpu_torch.utils.optim import global_norm
 from sheeprl_tpu_torch.utils.registry import register_algorithm
@@ -135,6 +138,8 @@ def make_train_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer
         guarded, snapshot = skip_update_guard([agent], optimizers.values())
 
     def one_step(batch: Dict[str, torch.Tensor], eps: torch.Tensor, cql: Optional[Dict[str, torch.Tensor]]):
+        """One gradient step on one shard's block (a generator: each loss and
+        gradient is reduced over the shards, as the JAX step pmeans them)."""
         if sentinel.skip_update:
             with torch.no_grad():
                 torch._foreach_copy_(snapshot, guarded)
@@ -159,18 +164,18 @@ def make_train_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer
                 lambda o, e: call_cast((actor,), cdt, lambda: actor.sample_and_log_prob(o, e), buffers=False),
                 lambda o, a: call_cast((critic,), cdt, lambda: critic(o, a)),
                 cql["uniform"], cql["eps"])
-        qf_grads = torch.autograd.grad(qf_l, groups["critic"])
+        qf_grads, qf_l = yield from pmean_tree((torch.autograd.grad(qf_l, groups["critic"]), qf_l))
         apply_gradients(optimizers["critic"], groups["critic"], qf_grads)
         polyak_(target_params, groups["critic"], tau)
 
         actions, logprobs = call_cast((actor,), cdt, lambda: actor.sample_and_log_prob(obs_c, eps), buffers=False)
         q = call_cast((critic,), cdt, lambda: critic(obs_c, actions)).float()
         actor_l = policy_loss(agent.log_alpha.detach().exp(), logprobs.float(), q.min(dim=-1, keepdim=True).values)
-        actor_grads = torch.autograd.grad(actor_l, groups["actor"])
+        actor_grads, actor_l = yield from pmean_tree((torch.autograd.grad(actor_l, groups["actor"]), actor_l))
         apply_gradients(optimizers["actor"], groups["actor"], actor_grads)
 
         alpha_l = entropy_loss(agent.log_alpha, logprobs, target_entropy)
-        alpha_grads = torch.autograd.grad(alpha_l, groups["alpha"])
+        alpha_grads, alpha_l = yield from pmean_tree((torch.autograd.grad(alpha_l, groups["alpha"]), alpha_l))
         apply_gradients(optimizers["alpha"], groups["alpha"], alpha_grads)
 
         grads = {"actor": actor_grads, "critic": qf_grads, "alpha": alpha_grads}
@@ -191,12 +196,14 @@ def make_train_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer
         row = torch.stack([qf_l.float(), actor_l.float(), alpha_l.float(), gnorm, 1.0 - finite.float()]).detach()
         return row, hrow
 
-    def update(data: Dict[str, torch.Tensor], eps: torch.Tensor,
-               cql: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+    def body(data: Dict[str, torch.Tensor], eps: torch.Tensor, cql: Optional[Dict[str, torch.Tensor]] = None):
+        """The gradient steps on one shard's block of ``data`` (a generator
+        whose collectives :func:`~sheeprl_tpu_torch.parallel.dp.run_shards`
+        answers)."""
         rows, hrows = [], []
         for g in range(eps.shape[0]):
-            row, hrow = one_step({k: v[g] for k, v in data.items()}, eps[g],
-                                 {k: v[g] for k, v in cql.items()} if cql_alpha > 0 else None)
+            row, hrow = yield from one_step({k: v[g] for k, v in data.items()}, eps[g],
+                                            {k: v[g] for k, v in cql.items()} if cql_alpha > 0 else None)
             rows.append(row)
             if hrow is not None:
                 hrows.append(hrow)
@@ -206,6 +213,12 @@ def make_train_step(agent: SACAgent, optimizers: Dict[str, torch.optim.Optimizer
             metrics.append(torch.stack(hrows).mean(dim=0))
         return torch.cat(metrics)
 
+    def update(data: Dict[str, torch.Tensor], eps: torch.Tensor,
+               cql: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """One shard: the whole batch on this agent's device."""
+        return run_one(body(data, eps, cql))
+
+    update.body = body
     update.health_names = health_out
     update.cql_samples = cql_samples if cql_alpha > 0 else 0
     return update
@@ -254,6 +267,10 @@ class SACFamily:
                                                                self.opt_specs()[name]))
         self.act_dim = int(np.prod(action_space.shape))
         self.stager = None
+        # the data axis: one family per shard, each with its replica (this
+        # one is shard 0's), and the shards' random streams
+        self.shards: List["SACFamily"] = [self]
+        self.generators: Optional[List[torch.Generator]] = None
 
     def build(self, cfg, obs_space, action_space, state, device):
         if cfg.algo.cnn_keys.encoder:
@@ -300,7 +317,43 @@ class SACFamily:
         self.update = make_train_step(self.agent, self.optimizers, self.cfg, self.target_entropy)
         self.health_names = self.update.health_names
         self.cql_samples = self.update.cql_samples
+        self.step = self.dp_step
         return self
+
+    def replica(self, device) -> "SACFamily":
+        """This family's agent and optimizers (their state) copied to
+        ``device``, with its own update: another shard's."""
+        from sheeprl_tpu_torch.parallel.mesh import replicate
+
+        other = copy.copy(self)
+        other.device = device
+        other.agent = replicate(self.agent, [self.device, device])[1]
+        other.optimizers = other.make_optimizers()
+        for name, optimizer in other.optimizers.items():
+            optimizer.load_state_dict(copy.deepcopy(self.optimizers[name].state_dict()))
+        other.shards = [other]
+        return other.make_update()
+
+    def shard_over(self, devices: Sequence[torch.device], generator: torch.Generator, seed: int) -> "SACFamily":
+        """One replica per shard of ``devices`` (this family is shard 0's)
+        and the shards' random streams (:func:`~sheeprl_tpu_torch.parallel.dp.shard_generators`)."""
+        self.shards = [self] + [self.replica(d) for d in devices[1:]]
+        self.generators = shard_generators(generator, seed, devices)
+        return self
+
+    def dp_step(self, data: Dict[str, torch.Tensor], generator: torch.Generator) -> torch.Tensor:
+        """The gradient steps over the shards: shard d's on its block d of
+        the batch axis (``[G, B, ...]``), with the same standard normals on
+        every shard, as the JAX step's one unfolded key gives them; shard
+        0's metrics (reduced over the shards)."""
+        gradient_steps, rows = data["actions"].shape[:2]
+        rows //= len(self.shards)
+        eps = torch.randn((gradient_steps, rows, self.act_dim), generator=generator, device=self.device)
+        cql = self.cql_noise(gradient_steps, rows, generator)
+        blocks = stage(data, [s.device for s in self.shards], batch_axis=1)
+        return run_shards([s.update.body(block, eps.to(s.device), None if cql is None else
+                                         {k: v.to(s.device) for k, v in cql.items()})
+                           for s, block in zip(self.shards, blocks)])[0]
 
     def cql_noise(self, gradient_steps: int, batch_size: int, generator: torch.Generator):
         """The conservative penalty's draws, after the step's own; None when
@@ -326,12 +379,13 @@ class SACFamily:
         return out
 
     def train(self, rb, batch_size: int, gradient_steps: int, generator: torch.Generator, inject) -> torch.Tensor:
-        sample = rb.sample(batch_size=batch_size, n_samples=gradient_steps, sample_next_obs=self.sample_next_obs())
+        """``gradient_steps`` steps on ``batch_size`` rows a shard: the
+        global batch is drawn at once and cut over the shards."""
+        sample = rb.sample(batch_size=local_sample_size(batch_size * len(self.shards)), n_samples=gradient_steps,
+                           sample_next_obs=self.sample_next_obs())
         data = self.stager({k: np.asarray(sample[k], np.float32) for k in
                             ("observations", "next_observations", "actions", "rewards", "terminated")})
-        data = inject(data)
-        eps = torch.randn((gradient_steps, batch_size, self.act_dim), generator=generator, device=self.device)
-        return self.update(data, eps, self.cql_noise(gradient_steps, batch_size, generator))
+        return self.step(inject(data), generator)
 
     def trees(self) -> Dict[str, Any]:
         from sheeprl_tpu_torch.interop.flax_params import dump_trees
@@ -407,12 +461,16 @@ def off_policy_main(runtime, cfg, family_cls) -> Dict[str, Any]:
     state = runtime.load(resume_from) if resume_from else None
     family = family_cls(cfg, observation_space, action_space, state, device).make_update()
     family.stager = ObsStager(device)
-    family.update = diag.instrument("train_step", family.update, kind="train")
+    family.shard_over(runtime.devices, generator, cfg.seed)
+    family.step = diag.instrument("train_step", family.step, kind="train")
     family.act = diag.instrument("policy_step", family.act, kind="rollout")
     metric_order, health_out = family.metric_order, family.health_names
     n_losses = len(metric_order)
-    diag.register_footprint("params", family.modules())
-    diag.register_footprint("opt_state", list(family.optimizers.values()))
+    world = len(family.shards)
+    diag.register_footprint("params", [m for shard in family.shards for m in shard.modules()])
+    diag.register_footprint("opt_state", [o for shard in family.shards for o in shard.optimizers.values()])
+    diag.register_shards(runtime.devices, {"params": [shard.modules() for shard in family.shards],
+                                           "opt_state": [shard.optimizers for shard in family.shards]})
 
     rb = ReplayBuffer(cfg.buffer.size, num_envs, memmap=cfg.buffer.memmap,
                       memmap_dir=os.path.join(log_dir, "memmap_buffer"), obs_keys=family.obs_keys())
@@ -539,7 +597,7 @@ def off_policy_main(runtime, cfg, family_cls) -> Dict[str, Any]:
                 "policy_step": policy_step_count,
                 "last_log": last_log,
                 "last_checkpoint": last_checkpoint,
-                "batch_size": batch_size,
+                "batch_size": batch_size * world,
             }
             ckpt_path = os.path.join(log_dir, "checkpoint", f"ckpt_{policy_step_count}_0.ckpt")
             with diag.span("checkpoint"):
@@ -569,6 +627,10 @@ def off_policy_main(runtime, cfg, family_cls) -> Dict[str, Any]:
         "policy_steps": policy_step_count,
         "iterations": iterations,
         "gradient_steps": gradient_steps_done,
+        "shards": world,
+        # every replica holds shard 0's bytes (parameters, optimizer state)
+        "replicas_equal": world == 1 or replicas_equal([[*shard.modules(), shard.optimizers]
+                                                        for shard in family.shards]),
         "test_reward": test_reward,
         "metric_rows": rows[:, :n_losses],
         "nonfinite_updates": rows[:, n_losses],

@@ -35,7 +35,7 @@ from sheeprl_tpu_torch.algos.sac.loss import critic_loss, entropy_loss, policy_l
 from sheeprl_tpu_torch.algos.sac.sac import SACFamily, spec_tensors, apply_gradients, off_policy_main, polyak_
 from sheeprl_tpu_torch.algos.sac_ae.agent import SACAEAgent, build_agent
 from sheeprl_tpu_torch.algos.sac_ae.utils import prepare_obs, preprocess_obs, test
-from sheeprl_tpu_torch.diagnostics.sentinel import finite_flag
+from sheeprl_tpu_torch.parallel.dp import local_sample_size, pmean_tree, run_one, run_shards, stage
 from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
@@ -76,7 +76,9 @@ def make_train_step(agent: SACAEAgent, optimizers: Dict[str, torch.optim.Optimiz
         out.update({k: batch[prefix + k].to(cdt) for k in mlp_keys})
         return out
 
-    def one_step(batch, eps_next, eps_actor, pixel_noise, counter: int) -> torch.Tensor:
+    def one_step(batch, eps_next, eps_actor, pixel_noise, counter: int):
+        """One gradient step on one shard's block (a generator: the gradients
+        are reduced over the shards, as the JAX step pmeans them)."""
         nonlocal zero
         obs, next_obs = inputs(batch, ""), inputs(batch, "next_")
         with torch.no_grad():
@@ -90,7 +92,8 @@ def make_train_step(agent: SACAEAgent, optimizers: Dict[str, torch.optim.Optimiz
                               lambda: critic(encoder(obs), batch["actions"].to(cdt))).float()
         qf_l = critic_loss(qf_values, next_qf_value)
         pair = params["encoder"] + params["critic"]
-        apply_gradients(optimizers["critic"], pair, torch.autograd.grad(qf_l, pair))
+        grads = yield from pmean_tree(torch.autograd.grad(qf_l, pair))
+        apply_gradients(optimizers["critic"], pair, grads)
 
         if counter % target_freq == 0:
             polyak_(params["target_critic"], params["critic"], tau)
@@ -106,9 +109,11 @@ def make_train_step(agent: SACAEAgent, optimizers: Dict[str, torch.optim.Optimiz
                                           buffers=False)
             q = call_cast((critic,), cdt, lambda: critic(features, actions)).float()
             actor_l = policy_loss(agent.log_alpha.detach().exp(), logprobs.float(), q.min(dim=-1, keepdim=True).values)
-            apply_gradients(optimizers["actor"], params["actor"], torch.autograd.grad(actor_l, params["actor"]))
+            grads = yield from pmean_tree(torch.autograd.grad(actor_l, params["actor"]))
+            apply_gradients(optimizers["actor"], params["actor"], grads)
             alpha_l = entropy_loss(agent.log_alpha, logprobs, target_entropy)
-            apply_gradients(optimizers["alpha"], [agent.log_alpha], torch.autograd.grad(alpha_l, [agent.log_alpha]))
+            grads = yield from pmean_tree(torch.autograd.grad(alpha_l, [agent.log_alpha]))
+            apply_gradients(optimizers["alpha"], [agent.log_alpha], grads)
 
         if counter % decoder_freq == 0:
             def reconstruction() -> torch.Tensor:
@@ -124,21 +129,31 @@ def make_train_step(agent: SACAEAgent, optimizers: Dict[str, torch.optim.Optimiz
 
             rec_l = call_cast((encoder, decoder), cdt, reconstruction)
             enc_dec = params["encoder"] + params["decoder"]
-            grads = torch.autograd.grad(rec_l, enc_dec)
+            grads = yield from pmean_tree(torch.autograd.grad(rec_l, enc_dec))
             apply_gradients(optimizers["encoder"], params["encoder"], grads[:n_enc])
             apply_gradients(optimizers["decoder"], params["decoder"], grads[n_enc:])
-        finite = finite_flag(qf_l, actor_l, alpha_l, rec_l)
-        return torch.stack([qf_l.float(), actor_l.float(), alpha_l.float(), rec_l.float(), 1.0 - finite.float()])
+        return torch.stack([qf_l.float(), actor_l.float(), alpha_l.float(), rec_l.float()])
 
-    def update(data: Dict[str, torch.Tensor], noise: Dict[str, Any], counter: int):
+    def body(data: Dict[str, torch.Tensor], noise: Dict[str, Any], counter: int):
+        """The gradient steps on one shard's block (a generator whose
+        collectives :func:`~sheeprl_tpu_torch.parallel.dp.run_shards`
+        answers); the steps' losses are reduced over the shards, so every
+        shard counts the same non-finite steps."""
         rows: List[torch.Tensor] = []
         for g in range(noise["eps_next"].shape[0]):
-            rows.append(one_step({k: v[g] for k, v in data.items()}, noise["eps_next"][g], noise["eps_actor"][g],
-                                 {k: v[g] for k, v in noise["pixels"].items()}, counter).detach())
+            row = yield from one_step({k: v[g] for k, v in data.items()}, noise["eps_next"][g], noise["eps_actor"][g],
+                                      {k: v[g] for k, v in noise["pixels"].items()}, counter)
+            rows.append(row.detach())
             counter += 1
-        flat = torch.stack(rows)
-        return torch.cat([flat[:, :4].mean(dim=0), flat[:, 4:].sum(dim=0)]), counter
+        flat = yield from pmean_tree(torch.stack(rows))
+        nonfinite = (~torch.isfinite(flat).all(dim=1)).float().sum()
+        return torch.cat([flat.mean(dim=0), nonfinite[None]]), counter
 
+    def update(data: Dict[str, torch.Tensor], noise: Dict[str, Any], counter: int):
+        """One shard: the whole batch on this agent's device."""
+        return run_one(body(data, noise, counter))
+
+    update.body = body
     update.health_names = []
     return update
 
@@ -194,7 +209,28 @@ class SACAEFamily(SACFamily):
     def make_update(self):
         self.update = make_train_step(self.agent, self.optimizers, self.cfg, self.target_entropy)
         self.health_names = []
+        self.step = self.dp_step
         return self
+
+    def dp_step(self, data: Dict[str, torch.Tensor], generator: torch.Generator) -> torch.Tensor:
+        """The gradient steps over the shards: shard d's on its block d of
+        the batch with draws from its own random stream (shard 0's is
+        ``generator``), as the JAX step folds its key per device; the
+        cumulative counter advances once for all of them."""
+        gradient_steps, rows = data["actions"].shape[:2]
+        rows //= len(self.shards)
+        shape = (gradient_steps, rows, self.act_dim)
+        generators = [generator, *(self.generators or [])[1:]]
+        bodies = []
+        for shard, block, g in zip(self.shards, stage(data, [s.device for s in self.shards], batch_axis=1),
+                                   generators):
+            noise = {"eps_next": torch.randn(shape, generator=g, device=shard.device),
+                     "eps_actor": torch.randn(shape, generator=g, device=shard.device),
+                     "pixels": {k: torch.rand(block[k].shape, generator=g, device=shard.device)
+                                for k in self.cfg.algo.cnn_keys.decoder}}
+            bodies.append(shard.update.body(block, noise, self.counter))
+        metrics, self.counter = run_shards(bodies)[0]
+        return metrics
 
     @torch.no_grad()
     def act(self, obs: Dict[str, np.ndarray], num_envs: int, generator: torch.Generator) -> torch.Tensor:
@@ -206,7 +242,10 @@ class SACAEFamily(SACFamily):
         return {k: np.asarray(obs[k]) for k in self.env_keys}
 
     def train(self, rb, batch_size: int, gradient_steps: int, generator: torch.Generator, inject) -> torch.Tensor:
-        sample = rb.sample(batch_size=batch_size, n_samples=gradient_steps, sample_next_obs=True)
+        """``gradient_steps`` steps on ``batch_size`` rows a shard, the
+        global batch drawn at once."""
+        sample = rb.sample(batch_size=local_sample_size(batch_size * len(self.shards)), n_samples=gradient_steps,
+                           sample_next_obs=True)
         slab = {}
         for k, v in sample.items():
             if (k[len("next_"):] if k.startswith("next_") else k) in self.cnn_keys:
@@ -215,14 +254,7 @@ class SACAEFamily(SACFamily):
             elif k != "truncated":
                 slab[k] = np.asarray(v, np.float32)
         staged = self.stager(slab)
-        data = inject({k: v.float() for k, v in staged.items()})
-        shape = (gradient_steps, batch_size, self.act_dim)
-        noise = {"eps_next": torch.randn(shape, generator=generator, device=self.device),
-                 "eps_actor": torch.randn(shape, generator=generator, device=self.device),
-                 "pixels": {k: torch.rand(data[k].shape, generator=generator, device=self.device)
-                            for k in self.cfg.algo.cnn_keys.decoder}}
-        metrics, self.counter = self.update(data, noise, self.counter)
-        return metrics
+        return self.step(inject({k: v.float() for k, v in staged.items()}), generator)
 
     def extra_state(self) -> Dict[str, Any]:
         return {"cumulative_counter": self.counter}

@@ -105,6 +105,11 @@ def check_configs(cfg: dotdict) -> None:
     algorithm reads them."""
     from sheeprl_tpu_torch.utils.registry import find_algorithm
 
+    if cfg.algo.name in ("ppo_decoupled", "sac_decoupled"):
+        raise NotImplementedError(
+            f"exp={cfg.algo.name}: the decoupled player/trainer is not ported yet (see ROADMAP.md Queue 1, the "
+            "Parallel slice of the decoupled player/trainer)"
+        )
     if find_algorithm(cfg.algo.name) is None:
         raise NotImplementedError(
             f"Algorithm {cfg.algo.name!r} is not ported yet (see ROADMAP.md Queue 1); the port trains: dreamer_v3, "

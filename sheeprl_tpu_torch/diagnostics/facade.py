@@ -377,6 +377,12 @@ class Diagnostics:
         if self.memory is not None:
             self.memory.register_footprint(name, tree_or_bytes)
 
+    def register_shards(self, devices, replicated) -> None:
+        """The data axis's devices and each replicated tree per shard, for
+        the memory monitor's ``sharding_audit``."""
+        if self.memory is not None:
+            self.memory.register_shards(devices, replicated)
+
     def track_buffer(self, name: str, buffer: Any) -> None:
         if self.memory is not None:
             self.memory.track_buffer(name, buffer)

@@ -24,9 +24,15 @@
   journaled as ``oom`` with a memory snapshot, fsync'd, then re-raised;
   ``diagnostics.memory.inject_oom_iter`` raises one to drill it.
 
-The JAX package's donation and sharding audits need more than one device
-(DDP/FSDP, ROADMAP Queue 1 item 9): ``memory_breakdown`` and
-``memory_summary`` say they did not run.
+* **Sharding audit**: at the first train dispatch a ``sharding_audit``
+  event tables, largest per-shard cost first, every leaf of the replicated
+  trees the loop registers (``register_shards``: each shard's replica of the
+  parameters, optimizer state, Moments) with its bytes and placement, and
+  the dispatch's batch blocks with their devices; replicated leaves of at
+  least ``diagnostics.memory.replicated_warn_bytes`` are flagged when the
+  data axis has more than one shard.  The summary carries its digest.  The
+  JAX package's donation audit has no eager counterpart (no buffer is
+  donated): ``memory_breakdown`` and ``memory_summary`` say it did not run.
 """
 
 from __future__ import annotations
@@ -43,8 +49,11 @@ from sheeprl_tpu_torch.diagnostics.schema import MEMORY_EVENTS  # noqa: F401  (t
 
 _TRANSFER_MODES = ("off", "log", "disallow")
 _SYNC_MODES = {"log": "warn", "disallow": "error"}
-#: what the breakdown and summary say of the JAX package's audits
-AUDITS_NOT_RUN = "not run: one device (the donation and sharding audits wait for DDP/FSDP, ROADMAP Queue 1 item 9)"
+#: what the breakdown and summary say of the audits that did not run
+DONATION_NOT_RUN = "not run: eager PyTorch donates no buffers"
+SHARDING_NOT_RUN = "not run: the loop registered no shards (its family runs on one device)"
+#: the JAX package's default for diagnostics.memory.replicated_warn_bytes
+DEFAULT_REPLICATED_WARN_BYTES = 16 * 1024 * 1024
 _SYNC_TEXT = "called a synchronizing CUDA operation"
 
 
@@ -93,6 +102,72 @@ def tree_bytes(tree: Any) -> int:
     """Total bytes of every tensor or array in a tree; a module counts its
     parameters and buffers, an optimizer its state, other leaves 0."""
     return sum(_leaf_nbytes(leaf) for leaf in _leaves(tree))
+
+
+def _named_leaves(obj: Any, prefix: str) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(path, tensor)`` of every tensor of a module (parameters and
+    buffers), optimizer (state), tensor, or dict / list / tuple of them."""
+    if isinstance(obj, torch.nn.Module):
+        for name, t in list(obj.named_parameters()) + list(obj.named_buffers()):
+            yield f"{prefix}/{name}", t
+    elif isinstance(obj, torch.optim.Optimizer):
+        for g, group in enumerate(obj.param_groups):
+            for i, p in enumerate(group["params"]):
+                for key, t in sorted(obj.state.get(p, {}).items()):
+                    if isinstance(t, torch.Tensor):
+                        yield f"{prefix}/group{g}/{i}/{key}", t
+    elif isinstance(obj, torch.Tensor):
+        yield prefix, obj
+    elif isinstance(obj, Mapping):
+        for k, v in obj.items():
+            yield from _named_leaves(v, f"{prefix}/{k}")
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            yield from _named_leaves(v, f"{prefix}/{i}")
+
+
+def sharding_table(devices: List[Any], replicated: Mapping[str, List[Any]], batch: Any, top_n: int = 20,
+                   replicated_warn_bytes: Optional[int] = None) -> Dict[str, Any]:
+    """Per-leaf bytes and placement (the ``sharding_audit`` payload, the JAX
+    ``sharding_table``'s keys): each leaf of shard 0's replica of every
+    ``replicated`` tree, held once per shard (``n_devices`` shards, its full
+    size on each), and each tensor of the dispatch's ``batch`` (a shard's
+    block, on its device).  Largest per-shard cost first, cut to ``top_n``
+    rows; ``flagged_replicated`` names, over every leaf, the replicated ones
+    of at least ``replicated_warn_bytes`` when there is more than one
+    shard."""
+    n = len(devices)
+    where = ", ".join(str(d) for d in devices)
+    rows: List[Dict[str, Any]] = []
+    for name, per_shard in replicated.items():
+        for path, t in _named_leaves(per_shard[0], name):
+            nbytes = t.numel() * t.element_size()
+            if nbytes:
+                rows.append({"path": path, "shape": list(t.shape), "dtype": str(t.dtype).replace("torch.", ""),
+                             "bytes": nbytes * n, "sharding": f"replicated over the {n} shards: {where}"[:120],
+                             "n_devices": n, "replicated": n > 1, "bytes_per_device": nbytes})
+    for path, t in _named_leaves(batch, "batch"):
+        nbytes = t.numel() * t.element_size()
+        if nbytes and t.dim() > 0:
+            rows.append({"path": path, "shape": list(t.shape), "dtype": str(t.dtype).replace("torch.", ""),
+                         "bytes": nbytes, "sharding": f"a shard's block on {t.device}", "n_devices": 1,
+                         "replicated": False, "bytes_per_device": nbytes})
+    rows.sort(key=lambda r: r["bytes_per_device"], reverse=True)
+    out: Dict[str, Any] = {
+        "n_shards": n,
+        "devices": [str(d) for d in devices],
+        "n_leaves": len(rows),
+        "total_bytes": sum(r["bytes"] for r in rows),
+        "total_bytes_per_device": sum(r["bytes_per_device"] for r in rows),
+        "rows": rows[: max(1, int(top_n))],
+    }
+    if replicated_warn_bytes is not None:
+        out["flagged_replicated"] = [r["path"] for r in rows if r["replicated"] and r["bytes_per_device"]
+                                     >= replicated_warn_bytes]
+        if out["flagged_replicated"]:
+            out["hint"] = ("large replicated leaves over a multi-shard data axis: FSDP (fabric.fsdp > 1), which "
+                           "would shard them, is not ported yet (ROADMAP.md Queue 1, Parallel: FSDP)")
+    return out
 
 
 def device_memory_stats(device: Any = None) -> List[Dict[str, Any]]:
@@ -190,6 +265,7 @@ class MemoryMonitor:
         self.transfer_mode = normalize_transfer_mode(diag_cfg.get("transfers"))
         self.hbm_enabled = bool(mem_cfg.get("hbm", True))
         self.audit_top_n = int(mem_cfg.get("audit_top_n", 20))
+        self.replicated_warn_bytes = int(mem_cfg.get("replicated_warn_bytes", DEFAULT_REPLICATED_WARN_BYTES))
         inject_transfer = mem_cfg.get("inject_transfer_iter")
         self._inject_transfer_iter = None if inject_transfer is None else int(inject_transfer)
         inject_oom = mem_cfg.get("inject_oom_iter")
@@ -203,6 +279,8 @@ class MemoryMonitor:
         self._buffers: Dict[str, Any] = {}
         self._train_calls = 0
         self._breakdown_emitted = False
+        self._shards: Optional[Tuple[List[Any], Dict[str, List[Any]]]] = None
+        self._sharding: Any = SHARDING_NOT_RUN
         self._hbm_source: Optional[str] = None
         self._latest: Dict[str, float] = {}
         self._last_syncs: Optional[int] = None
@@ -238,6 +316,27 @@ class MemoryMonitor:
             return
         with self._lock:
             self._footprints[str(name)] = tree_or_bytes
+
+    def register_shards(self, devices: List[Any], replicated: Mapping[str, List[Any]]) -> None:
+        """The data axis's devices and, by name, each replicated tree as a
+        list of the shards' replicas, for the ``sharding_audit`` of the
+        first train dispatch."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._shards = (list(devices), dict(replicated))
+
+    def _sharding_audit(self, inst: Any, args: Tuple[Any, ...]) -> None:
+        with self._lock:
+            shards = self._shards
+        if shards is None:
+            return
+        table = sharding_table(shards[0], shards[1], list(args), top_n=self.audit_top_n,
+                               replicated_warn_bytes=self.replicated_warn_bytes)
+        with self._lock:
+            self._sharding = {k: table[k] for k in ("n_shards", "n_leaves", "total_bytes",
+                                                     "total_bytes_per_device", "flagged_replicated")}
+        self._journal("sharding_audit", fn=getattr(inst, "name", "?"), **table)
 
     def _component_bytes(self) -> Dict[str, int]:
         with self._lock:
@@ -280,6 +379,7 @@ class MemoryMonitor:
             self._note_syncs(inst, call_idx, syncs)
         if is_train and not self._breakdown_emitted:
             self._breakdown_emitted = True
+            self._sharding_audit(inst, args)
             self._journal("memory_breakdown", fn=getattr(inst, "name", "?"), **self.breakdown())
         return out
 
@@ -352,8 +452,10 @@ class MemoryMonitor:
         for name, buf in buffers.items():
             for kind, size in buffer_footprint(buf).items():
                 components[f"{name}_{kind}"] = size
-        out: Dict[str, Any] = {"components": components, "sharding_audit": AUDITS_NOT_RUN,
-                               "donation_audit": AUDITS_NOT_RUN}
+        with self._lock:
+            sharding = self._sharding
+        out: Dict[str, Any] = {"components": components, "sharding_audit": sharding,
+                               "donation_audit": DONATION_NOT_RUN}
         stats = device_memory_stats(self._device)
         if stats:
             out["device_memory"] = stats
@@ -410,6 +512,7 @@ class MemoryMonitor:
         components = self._component_bytes()
         with self._lock:
             train_calls = self._train_calls
+            sharding = self._sharding
         return {
             "host_transfers": snap["counters"]["host_transfers_total"],
             "train_dispatches": train_calls,
@@ -418,6 +521,6 @@ class MemoryMonitor:
             "hbm_source": self._hbm_source,
             "transfer_guard": self.transfer_mode,
             "components": components,
-            "sharding_audit": AUDITS_NOT_RUN,
-            "donation_audit": AUDITS_NOT_RUN,
+            "sharding_audit": sharding,
+            "donation_audit": DONATION_NOT_RUN,
         }

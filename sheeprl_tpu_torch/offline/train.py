@@ -41,6 +41,10 @@ def offline_main(runtime, cfg) -> Dict[str, Any]:
     """The entry point ``cli.run_algorithm`` launches when
     ``algo.offline.enabled``; returns what the run did."""
     name = cfg.algo.name
+    if runtime.world_size > 1:
+        raise NotImplementedError(
+            f"fabric.devices={runtime.world_size} with algo.offline.enabled=true: multi-device offline training "
+            "is not ported yet (see ROADMAP.md Queue 1, the next Parallel slice)")
     if name in ("sac", "droq"):
         return _offline_flat(runtime, cfg)
     if name == "dreamer_v3":

@@ -1,19 +1,31 @@
-"""The one-device ``Runtime`` (counterpart of
-``sheeprl_tpu/parallel/runtime.py``): the device, the precision policy
-(``param_dtype``, ``compute_dtype``; see ``parallel/precision.py``), the
-seeding, checkpoint save/load and the callback hooks.  ``world_size`` is 1;
-multi-device runs and FSDP are still to port (ROADMAP.md Queue 1).  Every
-save writes a manifest sidecar, through the diagnostics' resilience layer
-when it is open (``diagnostics``, attached by ``cli.run_algorithm``)."""
+"""The ``Runtime`` (counterpart of ``sheeprl_tpu/parallel/runtime.py``):
+the data axis of ``fabric.devices`` shards (``parallel/mesh.py``), the
+precision policy (``param_dtype``, ``compute_dtype``; see
+``parallel/precision.py``), the seeding, checkpoint save/load and the
+callback hooks.
+
+One process drives every shard, as the JAX package's single controller
+does: ``devices`` lists each shard's device in shard order, ``device`` is
+shard 0's (the player's), ``world_size`` is the shard count, the process
+is rank 0, and ``all_gather`` / ``broadcast`` / ``barrier`` are the
+identities of one process.  ``save`` writes the state it is given (the
+loops pass shard 0's replica) as one file with its manifest; ``load``
+returns one tree, which the loops replicate, so a checkpoint crosses
+between shard counts.  Every save writes a manifest sidecar, through the
+diagnostics' resilience layer when it is open (``diagnostics``, attached
+by ``cli.run_algorithm``).  FSDP (``fabric.fsdp > 1``) and more than one
+node are refused, each naming its ROADMAP item."""
 
 from __future__ import annotations
 
 import random
+import warnings
 from typing import Any, Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
 
+from sheeprl_tpu_torch.parallel.mesh import placement, shared_devices
 from sheeprl_tpu_torch.parallel.precision import resolve_precision
 
 _NOT_PORTED = "is not ported yet: see ROADMAP.md Queue 1"
@@ -37,6 +49,17 @@ def resolve_device(accelerator: Any) -> torch.device:
     return torch.device("cuda")
 
 
+def shard_count(devices: Any, accelerator: Any) -> int:
+    """``fabric.devices`` as a shard count: ``auto`` / ``-1`` mean every
+    device the accelerator has (one on the CPU)."""
+    if str(devices) in ("auto", "-1"):
+        return 1 if str(accelerator) == "cpu" else max(1, torch.cuda.device_count())
+    n = int(devices)
+    if n < 1:
+        raise ValueError(f"fabric.devices must be a positive count, 'auto' or -1, got {devices!r}")
+    return n
+
+
 class Runtime:
     """Built from ``cfg.fabric`` by ``instantiate``."""
 
@@ -52,22 +75,53 @@ class Runtime:
         fsdp_min_shard_bytes: Optional[int] = None,
     ):
         del strategy, fsdp_min_shard_bytes
-        if str(devices) != "1" or int(num_nodes) != 1 or int(fsdp or 1) != 1:
+        if int(fsdp or 1) != 1:
             raise NotImplementedError(
-                f"fabric.devices={devices}, num_nodes={num_nodes}, fsdp={fsdp}: multi-device training {_NOT_PORTED}"
+                f"fabric.fsdp={fsdp}: FSDP (multi-device sharding of the parameters and optimizer state) "
+                f"{_NOT_PORTED}, Parallel: FSDP"
+            )
+        if int(num_nodes) != 1:
+            raise NotImplementedError(
+                f"fabric.num_nodes={num_nodes}: multi-device training over more than one node {_NOT_PORTED}, "
+                "Parallel: multi-host"
             )
         self.param_dtype, self.compute_dtype = resolve_precision(precision)
         if self.compute_dtype == torch.float64:
             raise NotImplementedError(
                 f"fabric.precision={precision!r}: the LayerNorm-GRU kernel takes float32 or bfloat16"
             )
-        self.device = resolve_device(accelerator)
+        self.devices = placement(shard_count(devices, accelerator), accelerator)
+        self.device = self.devices[0]
         self.callbacks = list(callbacks or [])
         self.diagnostics = None
+        if self.world_size > 1:
+            print(f"[data axis] {self.world_size} shards: "
+                  + ", ".join(f"shard {i} -> {d}" for i, d in enumerate(self.devices)), flush=True)
+            shared = shared_devices(self.devices)
+            if shared:
+                warnings.warn(
+                    f"fabric.devices={self.world_size}: {', '.join(shared)} holds more than one shard; its shards "
+                    "run in turn, each with its own replica (the JAX runtime refuses more shards than devices)",
+                    UserWarning,
+                )
 
-    world_size = 1
     global_rank = 0
     is_global_zero = True
+
+    @property
+    def world_size(self) -> int:
+        return len(self.devices)
+
+    def all_gather(self, tree: Any) -> Any:
+        """The identity: one process holds every shard's values."""
+        return tree
+
+    def broadcast(self, obj: Any, src: int = 0) -> Any:
+        """The identity: one process."""
+        return obj
+
+    def barrier(self) -> None:
+        """Nothing to wait for: one process."""
 
     def seed_everything(self, seed: int) -> torch.Generator:
         """Seed Python, numpy and torch; returns the run's generator on the

@@ -230,7 +230,8 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         parser.error("empty chaos schedule")
     if not overrides:
         parser.error("no workload: the default drill is a decoupled PPO run on two devices (exp=ppo_decoupled "
-                     "fabric.devices=2), which the port cannot run until ROADMAP's Parallel item; pass the run's "
+                     "fabric.devices=2), which the port cannot run until ROADMAP's Parallel slice of the decoupled "
+                     "player/trainer; pass the run's "
                      "overrides after --, e.g. -- exp=dreamer_v3 env=dummy ...")
 
     verdict = run_drill(schedule, overrides, timeout_s=args.timeout)

@@ -757,43 +757,41 @@ def test_every_baseline_entry_has_a_one_line_why():
 #: port access of: (port file:line, a text of that line) where the port
 #: reads it through an alias the harvest cannot follow, or refuses it
 PORT_READERS = {
-    "algo.actor.clip_gradients": ("algos/dreamer_v3/dreamer_v3.py:349", "section.clip_gradients"),
-    "algo.critic.clip_gradients": ("algos/dreamer_v3/dreamer_v3.py:349", "section.clip_gradients"),
-    "algo.world_model.clip_gradients": ("algos/dreamer_v3/dreamer_v3.py:349", "section.clip_gradients"),
+    "algo.actor.clip_gradients": ("algos/dreamer_v3/dreamer_v3.py:366", "section.clip_gradients"),
+    "algo.critic.clip_gradients": ("algos/dreamer_v3/dreamer_v3.py:366", "section.clip_gradients"),
+    "algo.world_model.clip_gradients": ("algos/dreamer_v3/dreamer_v3.py:366", "section.clip_gradients"),
     "algo.ensembles.clip_gradients": ("algos/p2e_dv3/p2e_dv3_exploration.py:99", "section.clip_gradients"),
-    "algo.world_model.optimizer": ("algos/dreamer_v3/dreamer_v3.py:92", "instantiate(section.optimizer)"),
-    "algo.ensembles.optimizer": ("algos/dreamer_v3/dreamer_v3.py:92", "instantiate(section.optimizer)"),
-    "algo.actor.moments.decay": ("algos/dreamer_v3/dreamer_v3.py:271", "m.decay"),
-    "algo.actor.moments.max": ("algos/dreamer_v3/dreamer_v3.py:271", "m.max"),
-    "algo.actor.moments.percentile": ("algos/dreamer_v3/dreamer_v3.py:271", "m.percentile"),
-    "algo.actor.moments.percentile.low": ("algos/dreamer_v3/dreamer_v3.py:271", "m.percentile.low"),
-    "algo.actor.moments.percentile.high": ("algos/dreamer_v3/dreamer_v3.py:271", "m.percentile.high"),
+    "algo.world_model.optimizer": ("algos/dreamer_v3/dreamer_v3.py:97", "instantiate(section.optimizer)"),
+    "algo.ensembles.optimizer": ("algos/dreamer_v3/dreamer_v3.py:97", "instantiate(section.optimizer)"),
+    "algo.actor.moments.decay": ("algos/dreamer_v3/dreamer_v3.py:279", "m.decay"),
+    "algo.actor.moments.max": ("algos/dreamer_v3/dreamer_v3.py:279", "m.max"),
+    "algo.actor.moments.percentile": ("algos/dreamer_v3/dreamer_v3.py:279", "m.percentile"),
+    "algo.actor.moments.percentile.low": ("algos/dreamer_v3/dreamer_v3.py:279", "m.percentile.low"),
+    "algo.actor.moments.percentile.high": ("algos/dreamer_v3/dreamer_v3.py:279", "m.percentile.high"),
     "algo.encoder.cnn_channels_multiplier": ("algos/sac_ae/agent.py:188", "enc_cfg.cnn_channels_multiplier"),
     "algo.encoder.dense_units": ("algos/sac_ae/agent.py:188", "enc_cfg.dense_units"),
     "algo.encoder.mlp_layers": ("algos/sac_ae/agent.py:188", "enc_cfg.mlp_layers"),
     "algo.encoder.features_dim": ("algos/sac_ae/agent.py:187", "enc_cfg.features_dim"),
-    "algo.encoder.optimizer": ("algos/sac_ae/sac_ae.py:175", "algo.encoder.optimizer"),
+    "algo.encoder.optimizer": ("algos/sac_ae/sac_ae.py:190", "algo.encoder.optimizer"),
     "algo.decoder.cnn_channels_multiplier": ("algos/sac_ae/agent.py:194", "dec_cfg.cnn_channels_multiplier"),
     "algo.decoder.dense_units": ("algos/sac_ae/agent.py:194", "dec_cfg.dense_units"),
     "algo.decoder.mlp_layers": ("algos/sac_ae/agent.py:194", "dec_cfg.mlp_layers"),
-    "algo.decoder.optimizer": ("algos/sac_ae/sac_ae.py:176", "algo.decoder.optimizer"),
+    "algo.decoder.optimizer": ("algos/sac_ae/sac_ae.py:191", "algo.decoder.optimizer"),
     "algo.ensembles.n": ("algos/p2e_dv1/agent.py:68", "ens_cfg.n"),
     "algo.ensembles.dense_units": ("algos/p2e_dv1/agent.py:69", "ens_cfg.dense_units"),
     "algo.ensembles.mlp_layers": ("algos/p2e_dv1/agent.py:69", "ens_cfg.mlp_layers"),
     # instantiate(cfg.algo.optimizer) maps learning_rate to torch's lr
-    "algo.optimizer.learning_rate": ("algos/ppo/ppo.py:293", 'optimizer.param_groups[0]["lr"]'),
+    "algo.optimizer.learning_rate": ("algos/ppo/ppo.py:317", 'optimizer.param_groups[0]["lr"]'),
     # read and ignored: XLA lowering choices eager PyTorch has not got
     "algo.rssm_pallas": ("models/blocks.py:121", "algo.rssm_pallas"),
     "algo.world_model.recurrent_model.fused_kernel": ("models/blocks.py:122", "recurrent_model.fused_kernel"),
     "algo.scan_unroll": ("models/blocks.py:123", "algo.scan_unroll"),
     # the harvest reads a list's and a string's methods as keys
     "batch_buckets.append": ("serving/server.py:270", 'cfg.get("batch_buckets")'),
-    "buffer.type.lower": ("algos/dreamer_v3/dreamer_v3.py:622", 'cfg.buffer.get("type")'),
+    "buffer.type.lower": ("algos/dreamer_v3/dreamer_v3.py:678", 'cfg.buffer.get("type")'),
     "diagnostics.resilience.isolation.max_staleness": ("resilience/isolation.py:83", '"max_staleness"'),
     "diagnostics.resilience.isolation.retry_budget": ("resilience/isolation.py:84", '"retry_budget"'),
     "diagnostics.resilience.isolation.refresh_every": ("resilience/isolation.py:86", '"refresh_every"'),
-    # refused until Parallel (more than one device)
-    "fabric.devices": ("parallel/runtime.py:55", 'str(devices) != "1"'),
     "metric.logger.root_dir": ("cli.py:483", '("root_dir", "save_dir")'),
     "metric.logger.save_dir": ("cli.py:483", '("root_dir", "save_dir")'),
 }

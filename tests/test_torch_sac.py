@@ -614,5 +614,8 @@ def test_run_refuses_what_it_does_not_port(tmp_path, option):
             assert cfg.model_manager.disabled is True and SACFamily.registers_models
         assert unported_options(cfg, "SAC") == []
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP|not ported"):
-        cli.run(RUN + [option, f"root_dir={tmp_path}"])
+    # ported: two shards of the data axis (tests/test_torch_parallel_loops.py
+    # holds them to the JAX loop at two devices)
+    out = cli.run(RUN + [option, f"root_dir={tmp_path}"])
+    assert out["shards"] == 2 and out["replicas_equal"] and out["gradient_steps"] > 0
+    assert np.isfinite(out["metric_rows"]).all()

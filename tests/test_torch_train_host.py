@@ -205,5 +205,8 @@ def test_runtime_seeds_a_generator_and_refuses_what_it_does_not_port():
     assert torch.equal(a, b) and runtime.world_size == 1 and runtime.is_global_zero
     with pytest.raises(NotImplementedError):
         Runtime(accelerator="cpu", precision="64-true")
+    # the data axis is ported (tests/test_torch_parallel.py); FSDP is not
+    with pytest.warns(UserWarning, match="more than one shard"):
+        assert Runtime(accelerator="cpu", devices=2).world_size == 2
     with pytest.raises(NotImplementedError):
-        Runtime(accelerator="cpu", devices=2)
+        Runtime(accelerator="cpu", devices=2, fsdp=2)
