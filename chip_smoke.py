@@ -16,8 +16,9 @@ Phases, in order; any failure raises and the script exits non-zero:
             B = 1, 8, 37, 128 for serving, 16 and 1024 for the training
             path's dynamic and imagination scans) and the XL shape (K=5120,
             H=4096; B = 8, 128 and DreamerV3-JEPA's 16, 1024), XS (K=512,
-            H=256; B = 16, 1024), DreamerV2's (K=1000, H=600; B = 16, 800)
-            and Plan2Explore-DV2's (K=800, H=400; B = 16, 800), with device
+            H=256; B = 16, 1024), DreamerV2's (K=1000, H=600; B = 16, 800,
+            and a shard's 8, 400 of two) and Plan2Explore-DV2's (K=800,
+            H=400; B = 16, 800, 8, 400), with device
             times of the kernel (warm L2,
             and cold: rotating over copies of the inputs that exceed the
             50 MB L2), the plain version, the projection alone as one
@@ -64,6 +65,22 @@ Phases, in order; any failure raises and the script exits non-zero:
             through ``run``, each resumed at ``fabric.devices=1`` from its
             two-shard checkpoint, and the two-shard PPO update on the card
             against the CPU;
+3e. parallel_families — the rest of the coupled data axis, under
+            deadlines (``PARALLEL_FAMILIES_DEADLINES_S``, 45 s in all):
+            ``python -m sheeprl_tpu_torch run exp=p2e_dv2_exploration
+            fabric.devices=2`` at its preset's widths in a child whose
+            interpreter made its imports with the others
+            (``PARALLEL_P2E_DV2_OVERRIDES``; its LayerNorm-GRU launches 2 x
+            80 a gradient step plus the player's, its ``sharding_audit``
+            over the two shards) while this process runs one DreamerV2 fp32
+            gradient step over two shards of 8 sequences against one
+            device's on the same 16 (metrics within ``PARALLEL_STEP_RTOL``,
+            the replicas bitwise equal, 65 + 2 x 65 launches), offline
+            DreamerV3-S and offline SAC over two shards through ``run`` on
+            datasets written here (2 x 79 launches a DreamerV3-S gradient
+            step), the two-shard offline SAC call on the card against the
+            CPU, and the env-sharded replay ring on the card against the
+            CPU;
 4. slice  — compose ``exp=dreamer_v3 env=dummy``, build DreamerV3-S on the card
             from a seed, write a run directory in the JAX package's checkpoint
             format, start the port's ``serve`` entry point and send /act
@@ -309,10 +326,12 @@ P2E_DV2_SHAPE = (400, 400)  # exp=p2e_dv2_exploration: recurrent 400, dense 400;
 # player's rows at env.num_envs=4; 8 and 512 = a shard's scan and
 # imagination in the parallel group's two-shard step at 8 sequences).  XL and
 # XS: DreamerV3-JEPA's two presets (exp=dreamer_v3_jepa, _xs) at the same
-# two training widths; XL also at serving widths
+# two training widths; XL also at serving widths.  DreamerV2 and P2E-DV2 at
+# one device's 16 and 16 x 50 = 800 rows, and at a shard's of two at 16
+# sequences: 8 in its scan, 8 x 50 = 400 in its imagination
 KERNEL_CASES = [(S_SHAPE, b) for b in (1, 8, 37, 128, 16, 1024, 64, 48, 4, 512)] + \
     [(XL_SHAPE, b) for b in (8, 128, 16, 1024)] + [(XS_SHAPE, b) for b in (16, 1024)] + \
-    [(DV2_SHAPE, b) for b in (16, 800)] + [(P2E_DV2_SHAPE, b) for b in (16, 800)]
+    [(DV2_SHAPE, b) for b in (16, 800, 8, 400)] + [(P2E_DV2_SHAPE, b) for b in (16, 800, 8, 400)]
 GRAD_CASES = [(S_SHAPE, b, d) for d in ("float32", "bfloat16") for b in (16, 1024)] + \
     [(XL_SHAPE, b, "float32") for b in (16, 1024)]
 # the graph check: the Function's backward is autograd through the plain
@@ -721,6 +740,46 @@ OFFLINE_SAC_GRAD_STEPS = {"sac": 2, "droq": 1}
 # loader's first batch: the offline loop's step
 OFFLINE_TIMER_NOTE = " (the offline step, on the offline loader's first batch)"
 
+# the parallel_families group (45 s), the rest of the coupled data axis: (1)
+# Plan2Explore-DV2 exploration at its preset's widths (recurrent 400, dense
+# 400, K=800, an ensemble of 10 x 400 x 4, batch 16 x 50 a shard, horizon 15,
+# fp32) as `python -m sheeprl_tpu_torch run fabric.devices=2` in a child
+# whose interpreter made its imports before the group, its depth cut as the
+# parallel group's DreamerV3-S child's (4 envs, learning from policy step
+# 256, one gradient step an iteration to iteration 68): each gradient step
+# runs the dynamic scan and both imaginations once a shard (2 x 80
+# launches).  While it runs, in this process: (2) one DreamerV2 fp32
+# gradient step at exp=dreamer_v2's widths over two shards of 8 sequences
+# against one device's on the same 16 x 50 batch and noise (65 launches and
+# 2 x 65); (3) offline DreamerV3-S over two shards through `run` on a
+# dataset written here (two gradient steps, 2 x 79 launches each); (4)
+# offline SAC with the conservative penalty over two shards through `run`
+# at its preset's widths, then a two-shard SAC train call from its
+# checkpoint on the card against the CPU; (5) the env-sharded replay ring
+# over two shards on the card, sampling bitwise what it samples on the CPU
+# from the same seed
+PARALLEL_P2E_DV2_OVERRIDES = ["exp=p2e_dv2_exploration", "env=dummy", "env.capture_video=False",
+                              "run_name=chip_smoke_parallel_p2e_dv2", "fabric.devices=2", "env.num_envs=4",
+                              "algo.learning_starts=256", "algo.total_steps=272", "algo.replay_ratio=0.25",
+                              "buffer.size=1024", "checkpoint.every=100000", "checkpoint.save_last=False",
+                              "metric.logger=null", "metric.log_every=16", "algo.run_test=False", "seed=5",
+                              "diagnostics.telemetry.mfu.cost_analysis=False"]
+PARALLEL_DV2_STEP_OVERRIDES = ["exp=dreamer_v2", "env=dummy", "env.capture_video=False", "seed=5", "diagnostics=off"]
+PARALLEL_OFFLINE_DV3_OVERRIDES = [*OFFLINE_DV3_OVERRIDES, "fabric.devices=2", "algo.total_steps=2",
+                                  "algo.offline.grad_steps_per_iter=2", "checkpoint.every=2",
+                                  "run_name=chip_smoke_parallel_offline_dv3"]
+PARALLEL_OFFLINE_SAC_OVERRIDES = ["exp=sac", *OFFLINE_SAC_OPTIONS, "fabric.devices=2",
+                                  "algo.offline.grad_steps_per_iter=2", "run_name=chip_smoke_parallel_offline_sac"]
+# the datasets written here: DreamerV3-S's, 4 streams of 96 steps of the
+# dummy env's record (64x64 rgb, one-hot actions of 2, episodes of 32);
+# SAC's, 2 streams of 1,024 transitions of a 10-dim state and 2-dim actions
+PARALLEL_OFFLINE_STREAMS, PARALLEL_OFFLINE_ROWS = 4, 96
+PARALLEL_SAC_STREAMS, PARALLEL_SAC_ROWS = 2, 1024
+# the ring: 4 envs of DreamerV3-S's record, 96 steps each, 2 draws of 16
+# windows of 64
+PARALLEL_RING_ENVS, PARALLEL_RING_STEPS = 4, 96
+PARALLEL_FAMILIES_DEADLINES_S = {"parallel_families": 45.0, "parallel_dv2_step": 12.0, "parallel_offline": 25.0}
+
 # phase 18 (records): a profiled DreamerV3-S run with the model registry
 # asked for (learning from policy step 256 of 4 envs: 2 iterations of 4
 # gradient steps), the report tools on the earlier phases' runs, a 2-trial
@@ -759,8 +818,8 @@ sys.exit(code)
 # its second argument names, then takes one request from
 # _CHILD_HANDOFF, its argv, environment and directory, and runs
 # ``python -m sheeprl_tpu_torch`` with them, its output to
-# ``<record>.log``, the DreamerV3 loop's gradient steps and player calls
-# counted; when the run ends (an exception or SystemExit included, a
+# ``<record>.log``, the DreamerV3 loop's gradient steps (DreamerV3's step or
+# P2E-DV2's exploration step) and player calls counted; when the run ends (an exception or SystemExit included, a
 # SIGKILL not) it writes them, the exit code, its seconds, its imports'
 # seconds and the LayerNorm-GRU kernel's launch counter to the JSON
 # record, answers the exit code and exits with it
@@ -773,6 +832,7 @@ server.listen(1)
 """ + WARM_IMPORTS + """
 import runpy, traceback
 from sheeprl_tpu_torch.algos.dreamer_v3 import agent, dreamer_v3
+from sheeprl_tpu_torch.algos.p2e_dv2 import p2e_dv2_exploration
 from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
 from sheeprl_tpu_torch.parallel.dp import run_one
 imports_s = round(time.monotonic() - t0, 1)
@@ -793,32 +853,37 @@ os.dup2(log, 1)
 os.dup2(log, 2)
 record = {"gradient_steps": 0, "player_calls": {}, "exit_code": 0, "started": started, "imports_s": imports_s,
           "shards": 0}
-make_train_step, get_actions = dreamer_v3.make_train_step, agent.PlayerDV3.get_actions
+get_actions = agent.PlayerDV3.get_actions
 
-def counted_make(*args, **kwargs):
-    # one step a shard (the loop builds one a replica): shard 0's counts
-    # the gradient steps, each shard's body runs once a gradient step
-    step = make_train_step(*args, **kwargs)
-    first = record["shards"] == 0
-    record["shards"] += 1
+def counting(make_train_step):
+    def counted_make(*args, **kwargs):
+        # one step a shard (the loop builds one a replica): shard 0's counts
+        # the gradient steps, each shard's body runs once a gradient step
+        step = make_train_step(*args, **kwargs)
+        first = record["shards"] == 0
+        record["shards"] += 1
 
-    def body(*a, **k):
-        if first:
-            record["gradient_steps"] += 1
-        return (yield from step.body(*a, **k))
+        def body(*a, **k):
+            if first:
+                record["gradient_steps"] += 1
+            return (yield from step.body(*a, **k))
 
-    def counted(*a, **k):
-        return run_one(body(*a, **k))
+        def counted(*a, **k):
+            return run_one(body(*a, **k))
 
-    counted.body, counted.health_names, counted.metric_order = body, step.health_names, step.metric_order
-    return counted
+        counted.body, counted.health_names, counted.metric_order = body, step.health_names, step.metric_order
+        return counted
+
+    return counted_make
 
 def counted_actions(self, *args, **kwargs):
     width = str(self.num_envs)
     record["player_calls"][width] = record["player_calls"].get(width, 0) + 1
     return get_actions(self, *args, **kwargs)
 
-dreamer_v3.make_train_step, agent.PlayerDV3.get_actions = counted_make, counted_actions
+dreamer_v3.make_train_step = counting(dreamer_v3.make_train_step)
+p2e_dv2_exploration.make_train_step = counting(p2e_dv2_exploration.make_train_step)
+agent.PlayerDV3.get_actions = counted_actions
 try:
     runpy.run_module("sheeprl_tpu_torch", run_name="__main__", alter_sys=True)
 except SystemExit as exit_:
@@ -3588,17 +3653,18 @@ def run_optimizers_card_vs_cpu(devices=("cuda", "cpu")) -> dict:
     return errs
 
 
-def _child_launches(cfg, record: dict) -> int:
-    """The LayerNorm-GRU launches a resilience child's counts predict: 79 a
-    fp32 gradient step at DreamerV3-S, one call a player step at the
-    envs' width."""
+def _child_launches(cfg, record: dict, imaginations: int = 1) -> int:
+    """The LayerNorm-GRU launches a child's counts predict: a fp32 gradient
+    step's (79 at DreamerV3-S; 80 at P2E-DV2, whose step imagines twice),
+    one call a player step at the envs' width."""
     from sheeprl_tpu_torch.algos.dreamer_v3.utils import rssm_scan_spec
 
     if rssm_scan_spec(cfg)[0] != 1:
-        raise AssertionError("the resilience children run the fp32 scan of rssm_chunks=1")
+        raise AssertionError("the children run the fp32 scan of rssm_chunks=1")
     hidden = cfg.algo.world_model.recurrent_model.recurrent_state_size
     joint_dim = hidden + cfg.algo.world_model.recurrent_model.dense_units
-    _, per_step = _launches(cfg, {"gradient_steps": 0, "player_steps": 0, "player_width": 1, "test_steps": 0})
+    _, per_step = _launches(cfg, {"gradient_steps": 0, "player_steps": 0, "player_width": 1, "test_steps": 0},
+                            imaginations)
     return record["gradient_steps"] * per_step + sum(
         calls * _launch_chunks(int(width), hidden, joint_dim) for width, calls in record["player_calls"].items())
 
@@ -3837,32 +3903,31 @@ def _decisive(noise: dict, gen) -> dict:
             "actor": [[decisive(h) for h in heads] for heads in noise["actor"]]}
 
 
-def run_parallel_step(device_name: str = "cuda") -> dict:
-    """(2) One DreamerV3-S fp32 gradient step over two shards at
-    per_rank_batch_size=8 (each with its replica, ``parallel/dp.py``) against
-    one device's step on the same 16-row global batch and the same noise,
-    from the same weights: the 11 metrics and the Moments' ``low``/``high``
-    within ``PARALLEL_STEP_RTOL``, the shards' metrics and replicas bitwise
-    equal, each shard's dynamic scan and imagination through the kernel
-    (launches counted from 0 around the three steps)."""
+def _two_shards_against_one(cfg, build_agent, make_train_step, metric_order, tau: float, where: str,
+                            device_name: str = "cuda") -> dict:
+    """One fp32 gradient step of a Dreamer-family step over two shards
+    (each with its replica, ``parallel/dp.py``) against one device's step on
+    the same global batch and the same noise (noise that decides every
+    categorical draw: the two paths' logits differ by rounding, and a near
+    tie would otherwise split a sample), from the same weights: the metrics
+    (and the Moments' ``low``/``high`` where the family keeps them) within
+    ``PARALLEL_STEP_RTOL``, the shards' metrics and replicas bitwise equal,
+    the kernel's launches counted from 0 around the three steps as each
+    shard's dynamic scan and imagination predict."""
     import copy
 
     import numpy as np
     import torch
 
-    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_ORDER, make_optimizers, make_train_step
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers
     from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import synthetic_batch
     from sheeprl_tpu_torch.algos.ppo.agent import actions_dim_of
-    from sheeprl_tpu_torch.config import compose
     from sheeprl_tpu_torch.envs.env import make_env
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
     from sheeprl_tpu_torch.parallel.dp import replicas_equal, run_shards, split
     from sheeprl_tpu_torch.parallel.mesh import replicate
 
     device = torch.device(device_name)
-    cfg = compose(PARALLEL_STEP_OVERRIDES + [f"fabric.accelerator={device_name}"])
-    _dv3_s_widths(cfg)
     env = make_env(cfg, cfg.seed, 0)()
     obs_space, (actions_dim, is_continuous, _) = env.observation_space, actions_dim_of(env.action_space)
     env.close()
@@ -3876,35 +3941,49 @@ def run_parallel_step(device_name: str = "cuda") -> dict:
     steps = [make_train_step(a, o, cfg, is_continuous) for a, o in zip((agent, *shards), optimizers)]
     t0 = time.monotonic()
     fused_layernorm_gru.launches = 0  # the comparison's launches start here
-    one_moments, one_metrics = steps[0](agent.initial_moments(device), batch, 0.02, None, noise)
-    outs = run_shards([step.body(agent.initial_moments(device), block, 0.02, None, n) for step, block, n in
+    one_moments, one_metrics = steps[0](agent.initial_moments(device), batch, tau, None, noise)
+    outs = run_shards([step.body(agent.initial_moments(device), block, tau, None, n) for step, block, n in
                        zip(steps[1:], split(batch, PARALLEL_SHARDS, 1), _parallel_noise(noise, T, B, PARALLEL_SHARDS))])
     torch.cuda.synchronize()
     launches = fused_layernorm_gru.launches  # and end here
     seconds = time.monotonic() - t0
     (moments, metrics), (_, other) = outs
-    n = len(METRIC_ORDER)
+    n = len(metric_order)
     want, got = one_metrics[:n].cpu().numpy(), metrics[:n].cpu().numpy()
     rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-3)))
-    moments_rel = max(abs(float(moments[k]) - float(one_moments[k])) / max(abs(float(one_moments[k])), 1e-3)
-                      for k in ("low", "high"))
+    moments_rel = max((abs(float(moments[k]) - float(one_moments[k])) / max(abs(float(one_moments[k])), 1e-3)
+                       for k in one_moments), default=0.0)
     equal = replicas_equal([[*a, *o.values()] for a, o in zip(shards, optimizers[1:])])
     hidden = cfg.algo.world_model.recurrent_model.recurrent_state_size
     joint = hidden + cfg.algo.world_model.recurrent_model.dense_units
     per_shard = T * _launch_chunks(B // PARALLEL_SHARDS, hidden, joint) + H * _launch_chunks(
         T * B // PARALLEL_SHARDS, hidden, joint)
-    predicted = T * _launch_chunks(B, hidden, joint) + H * _launch_chunks(T * B, hidden, joint) + \
-        PARALLEL_SHARDS * per_shard
+    one = T * _launch_chunks(B, hidden, joint) + H * _launch_chunks(T * B, hidden, joint)
+    predicted = one + PARALLEL_SHARDS * per_shard
     if (not np.isfinite(got).all() or rel > PARALLEL_STEP_RTOL or moments_rel > PARALLEL_STEP_RTOL or not equal
             or not torch.equal(metrics, other) or launches != predicted):
-        raise AssertionError(f"two-shard DreamerV3-S step against one device: metrics relative error {rel} "
+        raise AssertionError(f"two-shard {where} step against one device: metrics relative error {rel} "
                              f"(tol {PARALLEL_STEP_RTOL}), Moments {moments_rel}, replicas equal {equal}, shards' "
                              f"metrics equal {torch.equal(metrics, other)}, launches {launches} (predicted "
-                             f"{predicted})\n{dict(zip(METRIC_ORDER, want.tolist()))}\n"
-                             f"{dict(zip(METRIC_ORDER, got.tolist()))}")
+                             f"{predicted})\n{dict(zip(metric_order, want.tolist()))}\n"
+                             f"{dict(zip(metric_order, got.tolist()))}")
     return {"metric_rel_err": rel, "moments_rel_err": moments_rel, "launches": launches, "predicted": predicted,
-            "per_shard": per_shard, "seconds": seconds, "batch": B, "shard_batch": B // PARALLEL_SHARDS,
-            "moments": {k: float(v) for k, v in moments.items()}}
+            "one_device": one, "per_shard": per_shard, "seconds": seconds, "batch": B,
+            "shard_batch": B // PARALLEL_SHARDS, "moments": {k: float(v) for k, v in moments.items()}}
+
+
+def run_parallel_step(device_name: str = "cuda") -> dict:
+    """(2) One DreamerV3-S fp32 gradient step over two shards at
+    per_rank_batch_size=8 against one device's step on the same 16-row
+    global batch (``_two_shards_against_one``): the 11 metrics and the
+    Moments, each shard's dynamic scan and imagination through the kernel."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_ORDER, make_train_step
+    from sheeprl_tpu_torch.config import compose
+
+    cfg = compose(PARALLEL_STEP_OVERRIDES + [f"fabric.accelerator={device_name}"])
+    _dv3_s_widths(cfg)
+    return _two_shards_against_one(cfg, build_agent, make_train_step, METRIC_ORDER, 0.02, "DreamerV3-S", device_name)
 
 
 def _ppo_two_shards_card_vs_cpu(ckpt: str, overrides, devices) -> dict:
@@ -4081,6 +4160,261 @@ def run_parallel(build_dir: Path, runner, device_name: str = "cuda") -> dict:
                                                 "flagged_replicated")},
             "metrics_events": len(rows), "step": step, **on_ppo_sac, "seconds": seconds,
             "in_process_s": in_process_s}
+
+
+def run_parallel_dv2_step(device_name: str = "cuda") -> dict:
+    """(2) One DreamerV2 fp32 gradient step at ``exp=dreamer_v2``'s widths
+    over two shards of 8 sequences against one device's on the same 16 x 50
+    global batch (``_two_shards_against_one``; tau 1, the hard target
+    copy): the 11 metrics, each shard's dynamic scan (8 rows) and
+    imagination (400 rows) through the kernel."""
+    from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import METRIC_ORDER, make_train_step
+    from sheeprl_tpu_torch.config import compose
+
+    cfg = compose(PARALLEL_DV2_STEP_OVERRIDES + [f"fabric.accelerator={device_name}"])
+    _dv2_widths(cfg)
+    return _two_shards_against_one(cfg, build_agent, make_train_step, METRIC_ORDER, 1.0, "DreamerV2", device_name)
+
+
+def _write_datasets(root: Path) -> dict:
+    """The group's two offline datasets (``PARALLEL_OFFLINE_*``,
+    ``PARALLEL_SAC_*``), written with the port's dataset writer from a
+    seeded generator: ``{"dv3": dir, "sac": dir}``."""
+    import numpy as np
+
+    from sheeprl_tpu_torch.data.datasets import write_dataset_meta, write_shard
+
+    rng = np.random.default_rng(23)
+    dv3, sac = root / "dataset_dv3", root / "dataset_sac"
+    rows = PARALLEL_OFFLINE_ROWS
+    for stream in range(PARALLEL_OFFLINE_STREAMS):
+        first = np.zeros((rows, 1), np.float32)
+        first[::32] = 1
+        terminated = np.roll(first, -1, axis=0)
+        terminated[-1] = 0
+        write_shard(str(dv3), stream, 0, {
+            "rgb": rng.integers(0, 256, (rows, 3, 64, 64), dtype=np.uint8),
+            "actions": np.eye(2, dtype=np.float32)[rng.integers(0, 2, rows)],
+            "rewards": rng.normal(size=(rows, 1)).astype(np.float32), "terminated": terminated,
+            "truncated": np.zeros((rows, 1), np.float32), "is_first": first})
+    write_dataset_meta(str(dv3), {"kind": "dv3"})
+    rows = PARALLEL_SAC_ROWS
+    for stream in range(PARALLEL_SAC_STREAMS):
+        obs = rng.normal(size=(rows + 1, 10)).astype(np.float32)
+        write_shard(str(sac), stream, 0, {
+            "observations": obs[:-1], "next_observations": obs[1:],
+            "actions": rng.uniform(-1, 1, (rows, 2)).astype(np.float32),
+            "rewards": rng.normal(size=(rows, 1)).astype(np.float32),
+            "terminated": (rng.random((rows, 1)) < 0.05).astype(np.float32),
+            "truncated": np.zeros((rows, 1), np.float32)})
+    write_dataset_meta(str(sac), {"kind": "sac"})
+    return {"dv3": str(dv3), "sac": str(sac)}
+
+
+def _offline_sac_two_shards_card_vs_cpu(ckpt: str, cfg, devices) -> dict:
+    """(4) One two-shard offline SAC train call (two gradient steps, the
+    conservative penalty) from a checkpoint on ``devices[0]`` and on
+    ``devices[1]``, with the same rows and draws (the JAX SAC step folds no
+    key: every shard takes the same draws): the metrics' largest relative
+    error, the parameters' largest absolute error, and whether each side's
+    replicas ended bitwise equal."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.algos.sac.sac import SACFamily, draw_cql_noise
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.interop.flax_params import dump_trees
+    from sheeprl_tpu_torch.parallel.dp import replicas_equal, run_shards, stage
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    state = load_state(ckpt)
+    obs_space = spaces.Dict({"state": spaces.Box(-np.inf, np.inf, (10,), np.float32)})
+    action_space = spaces.Box(-1.0, 1.0, (2,), np.float32)
+    rows, grad = int(cfg.algo.per_rank_batch_size), 2
+    gen = torch.Generator().manual_seed(29)
+    data = {k: torch.randn(grad, PARALLEL_SHARDS * rows, dim, generator=gen)
+            for k, dim in (("observations", 10), ("next_observations", 10), ("rewards", 1))}
+    data["actions"] = torch.rand(grad, PARALLEL_SHARDS * rows, 2, generator=gen) * 2 - 1
+    data["terminated"] = (torch.rand(grad, PARALLEL_SHARDS * rows, 1, generator=gen) < 0.05).float()
+    results, draws = [], []
+    for device_name in devices:
+        device = torch.device(device_name)
+        family = SACFamily(cfg, obs_space, action_space, state, device).make_update()
+        family.shard_over([device] * PARALLEL_SHARDS, torch.Generator(device=device).manual_seed(0), cfg.seed)
+        if not draws:  # on the CPU, once: the same draws on both sides
+            draws = [torch.randn(grad, rows, 2, generator=gen),
+                     draw_cql_noise(family.agent.actor, grad, family.cql_samples, rows, gen, "cpu")]
+        eps, cql = draws
+        metrics = run_shards([s.update.body(block, eps.to(device), _nested_to(cql, device)) for s, block in
+                              zip(family.shards, stage(data, [device] * PARALLEL_SHARDS, batch_axis=1))])[0]
+        on_device = all(t.device.type == device.type for s in family.shards for t in s.agent.parameters())
+        results.append((metrics.cpu().numpy(), dict(_leaves(dump_trees(family.spec()))),
+                        replicas_equal([[*s.modules(), *s.optimizers.values()] for s in family.shards]) and on_device))
+    (m_card, p_card, ok_card), (m_cpu, p_cpu, ok_cpu) = results
+    n = len(family.metric_order)
+    rel = float(np.max(np.abs(m_card[:n] - m_cpu[:n]) / np.maximum(np.abs(m_cpu[:n]), 1e-6)))
+    err = max(float(np.abs(np.asarray(p_card[k]) - np.asarray(p_cpu[k])).max()) for k in p_cpu)
+    return {"metric_rel_err": rel, "param_max_abs_err": err, "replicas_equal": ok_card and ok_cpu,
+            "gradient_steps": grad, "shard_rows": rows, "cql_samples": family.cql_samples}
+
+
+def run_parallel_offline(root: Path, device_name: str = "cuda") -> dict:
+    """(3) Offline DreamerV3-S and (4) offline SAC over two shards through
+    ``run`` on the datasets written here, each with the kernel's launch
+    counter set to 0 before it and read after: every metric finite, the
+    replicas bitwise equal, verified checkpoints with the global batch
+    size; DreamerV3-S's launches 2 x 79 a gradient step; then the two-shard
+    SAC call from its checkpoint on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    data = _write_datasets(root)
+    out = {"launches": {}}
+    for name, base, dataset in (("dv3", PARALLEL_OFFLINE_DV3_OVERRIDES, data["dv3"]),
+                                ("sac", PARALLEL_OFFLINE_SAC_OVERRIDES, data["sac"])):
+        overrides = base + [f"algo.offline.dataset_dir={dataset}", f"root_dir={root / ('offline_' + name)}",
+                            f"fabric.accelerator={device_name}"]
+        cfg = compose(overrides)
+        if name == "dv3":
+            _dv3_s_widths(cfg)
+        t0 = time.monotonic()
+        fused_layernorm_gru.launches = 0  # the main path starts here
+        run = cli.run(overrides)
+        if device_name != "cpu":
+            torch.cuda.synchronize()
+        launches = out["launches"][f"parallel_offline_{name}"] = fused_layernorm_gru.launches  # and ends here
+        seconds = time.monotonic() - t0
+        per_step = _launches(cfg, {"gradient_steps": 0, "player_steps": 0, "player_width": 1, "test_steps": 0})[1] \
+            if name == "dv3" else 0
+        predicted = run["gradient_steps"] * PARALLEL_SHARDS * per_step
+        ckpts = run["checkpoints"]
+        global_batch = PARALLEL_SHARDS * int(cfg.algo.per_rank_batch_size)
+        if (run["shards"] != PARALLEL_SHARDS or not run["replicas_equal"] or run["gradient_steps"] < 2
+                or not np.isfinite(run["metric_rows"]).all() or launches != predicted or not ckpts
+                or any(verify_checkpoint(c) != (True, "verified") for c in ckpts)
+                or any(load_state(c)["batch_size"] != global_batch for c in ckpts)):
+            raise AssertionError(f"parallel offline {name}: {run['shards']} shards, replicas equal "
+                                 f"{run['replicas_equal']}, {run['gradient_steps']} gradient steps, launches {launches} "
+                                 f"(predicted {predicted}), checkpoints {ckpts}, metric rows {run['metric_rows']}")
+        out[name] = {"gradient_steps": run["gradient_steps"], "launches": launches, "predicted": predicted,
+                     "per_gradient_step": PARALLEL_SHARDS * per_step, "final": run["metric_rows"][-1].tolist(),
+                     "global_batch": global_batch, "seconds": seconds, "dataset": run["dataset"]}
+        if name == "sac":
+            row = out["sac_card_vs_cpu"] = _offline_sac_two_shards_card_vs_cpu(ckpts[-1], cfg, (device_name, "cpu"))
+            if (not row["replicas_equal"] or row["metric_rel_err"] > PARALLEL_CARD_CPU_RTOL
+                    or row["param_max_abs_err"] > PARALLEL_CARD_CPU_ATOL):
+                raise AssertionError(f"two-shard offline SAC call, card against CPU: {row} (tol "
+                                     f"{PARALLEL_CARD_CPU_RTOL}, {PARALLEL_CARD_CPU_ATOL})")
+    return out
+
+
+def run_parallel_ring(device_name: str = "cuda") -> dict:
+    """(5) The env-sharded replay ring over two shards on ``device_name``
+    and on the CPU, fed the same DreamerV3-S records of 4 envs (episode-end
+    rows to some envs, so the write heads part) and seeded alike: each
+    sampled batch's shard blocks bitwise equal across the two, each block
+    on its shard's device, its windows from its own envs."""
+    import numpy as np
+    import torch
+
+    from sheeprl_tpu_torch.data.device_buffer import DeviceSequentialReplayBuffer
+
+    rings = {d: DeviceSequentialReplayBuffer(256, PARALLEL_RING_ENVS, devices=[d] * PARALLEL_SHARDS)
+             for d in (device_name, "cpu")}
+    rng = np.random.default_rng(31)
+    for ring in rings.values():
+        ring.seed(7)
+    for i in range(PARALLEL_RING_STEPS):
+        n = PARALLEL_RING_ENVS if i % 5 else 1
+        step = {"rgb": rng.integers(0, 256, (1, n, 3, 64, 64), dtype=np.uint8),
+                "actions": rng.normal(size=(1, n, 2)).astype(np.float32),
+                **{k: (rng.random((1, n, 1)) < 0.1).astype(np.float32) for k in ("rewards", "terminated",
+                                                                                  "truncated", "is_first")}}
+        for ring in rings.values():
+            ring.add(step, None if n == PARALLEL_RING_ENVS else [i % PARALLEL_RING_ENVS])
+    t0 = time.monotonic()
+    draws = {d: ring.sample(16, sequence_length=64, n_samples=2) for d, ring in rings.items()}
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    equal = all(torch.equal(a[k].cpu(), b[k]) for xs, ys in zip(draws[device_name], draws["cpu"])
+                for a, b in zip(xs, ys) for k in b)
+    on_device = all(t.device.type == torch.device(device_name).type for xs in draws[device_name] for block in xs
+                    for t in block.values())
+    shapes = {k: tuple(v.shape) for k, v in draws[device_name][0][0].items()}
+    if not equal or not on_device or shapes["rgb"] != (64, 16 // PARALLEL_SHARDS, 3, 64, 64):
+        raise AssertionError(f"env-sharded ring on {device_name} against the CPU: equal {equal}, blocks on the card "
+                             f"{on_device}, block shapes {shapes}")
+    return {"equal": equal, "block_shapes": shapes, "seconds": seconds, "envs": PARALLEL_RING_ENVS}
+
+
+def run_parallel_families(build_dir: Path, runner, device_name: str = "cuda") -> dict:
+    """This slice's group, 45 s in all (``PARALLEL_FAMILIES_DEADLINES_S``):
+    (1) ``python -m sheeprl_tpu_torch run exp=p2e_dv2_exploration
+    fabric.devices=2`` at its preset's widths in a child handed to
+    ``runner`` (an interpreter of ``start_child_runners`` that made its
+    imports before the group), its LayerNorm-GRU launches (counted from 0 in
+    the child) equal to 2 x 80 a gradient step plus the player's, its
+    journal's ``sharding_audit`` over the two shards; while it runs, in this
+    process, (2) ``run_parallel_dv2_step``, (3, 4) ``run_parallel_offline``
+    and (5) ``run_parallel_ring``."""
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.diagnostics.journal import read_journal
+    from sheeprl_tpu_torch.resilience.supervisor import child_env
+
+    root = (build_dir / "parallel_families").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    overrides = PARALLEL_P2E_DV2_OVERRIDES + [f"root_dir={root / 'p2e_dv2'}", f"fabric.accelerator={device_name}"]
+    cfg = compose(overrides)
+    _p2e_dreamer_widths(2)(cfg)
+    record = root / "p2e_dv2_child.json"
+
+    def tail() -> str:
+        log = Path(f"{record}.log")
+        return log.read_text()[-3000:] if log.exists() else "no child log"
+
+    _wait_ready([runner])
+    t0 = time.monotonic()
+    with deadline(PARALLEL_FAMILIES_DEADLINES_S["parallel_families"], "parallel_families", tail):
+        proc = subprocess.Popen([sys.executable, "-c", _CHILD_HANDOFF, runner[0], str(record), "run", *overrides],
+                                cwd=str(ROOT), env=child_env())
+        atexit.register(proc.kill)  # a no-op once it has exited
+        with deadline(PARALLEL_FAMILIES_DEADLINES_S["parallel_dv2_step"], "parallel_dv2_step"):
+            step = run_parallel_dv2_step(device_name)
+        with deadline(PARALLEL_FAMILIES_DEADLINES_S["parallel_offline"], "parallel_offline"):
+            offline = run_parallel_offline(root, device_name)
+            ring = run_parallel_ring(device_name)
+        in_process_s = time.monotonic() - t0
+        rc = proc.wait()
+    seconds = time.monotonic() - t0
+    child = json.loads(record.read_text()) if record.is_file() else {"exit_code": rc}
+    if rc != 0 or child.get("exit_code") != 0:
+        raise AssertionError(f"parallel P2E-DV2 child: exit {rc} / {child.get('exit_code')}\n{tail()}")
+    predicted = _child_launches(cfg, {**child, "gradient_steps": child["gradient_steps"] * PARALLEL_SHARDS},
+                                imaginations=2)
+    (journal_path,) = (root / "p2e_dv2").rglob("journal.jsonl")
+    events = read_journal(str(journal_path))
+    audits = [e for e in events if e["event"] == "sharding_audit"]
+    if (child["shards"] != PARALLEL_SHARDS or child["gradient_steps"] < 1 or child["launches"] != predicted
+            or len(audits) != 1 or audits[0]["n_shards"] != PARALLEL_SHARDS or events[-1].get("status") != "completed"):
+        raise AssertionError(f"parallel P2E-DV2 child: {child['shards']} shards, {child['gradient_steps']} gradient "
+                             f"steps, {child['launches']} ln_gru launches (predicted {predicted}), sharding audits "
+                             f"{[(a['n_shards'], a['n_leaves']) for a in audits]}, run_end {events[-1]}")
+    shutil.rmtree(root, ignore_errors=True)
+    per_step = _launches(cfg, {"gradient_steps": 0, "player_steps": 0, "player_width": 1, "test_steps": 0}, 2)[1]
+    return {"child": child, "predicted": predicted, "per_gradient_step": PARALLEL_SHARDS * per_step,
+            "audit": {k: audits[0][k] for k in ("n_shards", "n_leaves", "total_bytes", "total_bytes_per_device",
+                                                "flagged_replicated")},
+            "step": step, "offline": offline, "ring": ring, "seconds": seconds, "in_process_s": in_process_s,
+            "launches": {"parallel_p2e_dv2": child["launches"], "parallel_dv2_step": step["launches"],
+                         **offline["launches"]}}
 
 
 def _off_policy_run(overrides, where: str, resume: bool = True) -> dict:
@@ -5361,8 +5695,9 @@ def main() -> int:
     # interpreters, which start now
     os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     os.environ["PYTHONPYCACHEPREFIX"] = str(build_dir / "pycache")
-    # two for the resilience group's children, one for the parallel group's
-    runners = start_child_runners(build_dir, count=3)
+    # two for the resilience group's children, one each for the parallel
+    # and parallel_families groups
+    runners = start_child_runners(build_dir, count=4)
     lint = start_lint(build_dir)
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
@@ -5479,6 +5814,43 @@ def main() -> int:
           f"process {parallel['in_process_s']:.1f} s beside the child)  [{card}]", flush=True)
 
     mark('parallel')
+    families = run_parallel_families(build_dir, runners[3])
+    child, fstep, offline_dp, ring = families["child"], families["step"], families["offline"], families["ring"]
+    print(f"[parallel_families] python -m sheeprl_tpu_torch run exp=p2e_dv2_exploration fabric.devices=2 (recurrent "
+          f"400, dense 400, K=800, ensembles 10 x 400 x 4, batch 16 x 50 a shard, horizon 15, fp32, both shards on "
+          f"the one card): {child['shards']} shard steps built, {child['gradient_steps']} gradient steps, player "
+          f"calls {child['player_calls']}, ln_gru launches {child['launches']} = predicted {families['predicted']} "
+          f"({families['per_gradient_step']} a gradient step: the dynamic scan and both imaginations once a "
+          f"shard); sharding_audit {json.dumps(families['audit'])}; the child {child['seconds']} s (imports made "
+          f"before the group, {child['imports_s']} s)  [{card}]", flush=True)
+    print(f"[parallel_families] one DreamerV2 fp32 gradient step (exp=dreamer_v2's widths) over 2 shards of "
+          f"{fstep['shard_batch']} sequences against one device's on the same {fstep['batch']} x 50 batch and noise "
+          f"(noise deciding every draw): metrics max relative error {fstep['metric_rel_err']:.3g} (tol "
+          f"{PARALLEL_STEP_RTOL:g}); the shards' metrics and replicas bitwise equal; ln_gru launches "
+          f"{fstep['launches']} = predicted {fstep['predicted']} ({fstep['one_device']} + 2 x {fstep['per_shard']}); "
+          f"{fstep['seconds']:.2f} s  [{card}]", flush=True)
+    for name in ("dv3", "sac"):
+        row = offline_dp[name]
+        print(f"[parallel_families] offline {'DreamerV3-S' if name == 'dv3' else 'SAC (cql_alpha=1)'} over 2 "
+              f"shards through run on a dataset written here ({row['dataset']['rows']} rows): "
+              f"{row['gradient_steps']} gradient steps of a {row['global_batch']}-wide global batch, replicas bitwise "
+              f"equal, checkpoints verified with the global batch_size; ln_gru launches {row['launches']} = "
+              f"predicted {row['predicted']} ({row['per_gradient_step']} a gradient step); final {row['final']}; "
+              f"{row['seconds']:.1f} s  [{card}]", flush=True)
+    versus = offline_dp["sac_card_vs_cpu"]
+    print(f"[parallel_families] two-shard offline SAC call ({versus['gradient_steps']} gradient steps of "
+          f"{versus['shard_rows']} rows a shard, {versus['cql_samples']} penalty proposals) from its checkpoint on "
+          f"the card against the CPU: metrics max relative error {versus['metric_rel_err']:.3g} (tol "
+          f"{PARALLEL_CARD_CPU_RTOL:g}), parameters max_abs_err {versus['param_max_abs_err']:.3g} (tol "
+          f"{PARALLEL_CARD_CPU_ATOL:g}), each side's replicas bitwise equal  [{card}]", flush=True)
+    print(f"[parallel_families] env-sharded ring over 2 shards ({ring['envs']} envs of DreamerV3-S's record): two "
+          f"draws of 16 windows of 64 on the card bitwise the CPU ring's from the same seed, each shard's block on "
+          f"its device {json.dumps(ring['block_shapes'])}; {ring['seconds']:.3f} s  [{card}]", flush=True)
+    print(f"[parallel_families] group {families['seconds']:.1f} s of its "
+          f"{PARALLEL_FAMILIES_DEADLINES_S['parallel_families']:g} s (in this process {families['in_process_s']:.1f} s "
+          f"beside the child)  [{card}]", flush=True)
+
+    mark('parallel_families')
     slice_report = run_slice(build_dir)
     print(
         f"[slice] DreamerV3-S serve: {slice_report['requests']} /act from {slice_report['sessions']} sessions, "
@@ -6092,7 +6464,7 @@ def main() -> int:
                "minedojo": minedojo["ln_gru_launches"],
                **{f"resilience_child_{i}": n for i, n in enumerate(resilience["launches"])},
                "parallel_dv3": parallel["child"]["launches"], "parallel_step": parallel["step"]["launches"],
-               **parallel["launches"]}
+               **parallel["launches"], **families["launches"]}
     print(f"[launches] ln_gru launches by path: {', '.join(f'{k} {v}' for k, v in by_path.items())}; "
           f"{sum(by_path.values())} in all  [{card}]", flush=True)
     case_keys = ("B", "K", "H", "dtype", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms", "bound_ms", "bound_by")
@@ -6114,7 +6486,7 @@ def main() -> int:
         "cases": [{k: c[k] for k in case_keys} for c in cases],
         "phase": "kernel+lint+slice+serve-ops+train+chunked+resume+eval+offline+drill+jepa+p2e+sac+droq+sac_ae+offline_sac"
                  "+offline_droq+bf16+dv2+dv1+ppo_recurrent+p2e_dv2+p2e_dv1+minedojo+records"
-                 "+resilience+parallel",
+                 "+resilience+parallel+parallel_families",
     }]
     mark("kernels line")
     print(f"[timing] wall seconds by group of phases: "

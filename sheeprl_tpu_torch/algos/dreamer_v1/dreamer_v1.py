@@ -25,8 +25,9 @@ from sheeprl_tpu_torch.algos.dreamer_v1.loss import reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v1.utils import compute_lambda_values
 from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import unported_options
 from sheeprl_tpu_torch.algos.dreamer_v2.loss import normal_log_prob
-from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_ORDER, _dreamer_main, frozen, make_update
+from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_ORDER, _dreamer_main, frozen, make_update, step_of
 from sheeprl_tpu_torch.ops.distributions import Bernoulli
+from sheeprl_tpu_torch.parallel.dp import pmean_tree
 from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
@@ -139,7 +140,9 @@ def make_train_step(agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, is
     from ``generator`` when absent: ``"dynamic"`` the ``(prior,
     posterior)`` draws ``[T, B, stochastic]``; ``"imagination"`` the
     imagined priors' ``[H, T*B, stochastic]``; ``"actor"`` the ``H``
-    per-head draws of the actions taken before each imagined step."""
+    per-head draws of the actions taken before each imagined step.
+    ``train_step.body`` is the step of one shard's block, its gradients and
+    metrics averaged over the shards, as the JAX step ``pmean``s them."""
     world_model, actor, critic = agent.world_model, agent.actor, agent.critic
     wm_cfg = cfg.algo.world_model
     stoch = int(wm_cfg.stochastic_size)
@@ -156,32 +159,31 @@ def make_train_step(agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, is
         lambda_values, discount = imagination.returns(world_model, trajectories, rewards, values)
         return -torch.mean(discount * lambda_values), trajectories.detach(), lambda_values.detach(), discount
 
-    def train_step(moments_state: Dict[str, Any], batch: Dict[str, torch.Tensor], tau: float,
-                   generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
+    def body(moments_state: Dict[str, Any], batch: Dict[str, torch.Tensor], tau: float,
+             generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
         noise = noise or {}
         T, B = batch["actions"].shape[:2]
         losses, posteriors, recurrents, _ = call_cast((world_model,), cdt,
                                                       lambda: world_model_loss(batch, generator, noise))
         rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
-        wm_norm = update("world_model", rec_loss)
+        wm_norm = yield from update("world_model", rec_loss)
 
         posteriors = posteriors.detach().reshape(T * B, stoch)
         recurrents = recurrents.detach().reshape(T * B, recurrent_size)
         with frozen(world_model, critic):
             policy_loss, trajectories, lambda_values, discount = call_cast(
                 (world_model, actor, critic), cdt, lambda: actor_loss(posteriors, recurrents, generator, noise))
-            actor_norm = update("actor", policy_loss)
+            actor_norm = yield from update("actor", policy_loss)
 
         value_loss = call_cast((critic,), cdt,
                                lambda: imagination.value_loss(critic, trajectories, lambda_values, discount))
-        critic_norm = update("critic", value_loss)
-        metrics = torch.stack([rec_loss, observation_loss, reward_loss, state_loss, continue_loss, kl, policy_loss,
-                               value_loss, wm_norm, actor_norm, critic_norm]).float().detach()
+        critic_norm = yield from update("critic", value_loss)
+        metrics = yield from pmean_tree(torch.stack([
+            rec_loss, observation_loss, reward_loss, state_loss, continue_loss, kl, policy_loss, value_loss,
+            wm_norm, actor_norm, critic_norm]).float().detach())
         return moments_state, metrics
 
-    train_step.metric_order = METRIC_ORDER
-    train_step.health_names = []
-    return train_step
+    return step_of(body, METRIC_ORDER)
 
 
 def build_dreamer_v1_agent(actions_dim, is_continuous, cfg, obs_space, state, device):
@@ -196,4 +198,4 @@ def main(runtime, cfg) -> Dict[str, Any]:
     the JAX loop takes them."""
     return _dreamer_main(runtime, cfg, build_dreamer_v1_agent, make_train_step,
                          unported_fn=lambda c: unported_options(c, "dreamer_v1"), train_after_env_step=True,
-                         register_models=False)
+                         register_models=False, dry_run_buffer_size=4)

@@ -28,16 +28,11 @@ import torch
 from sheeprl_tpu_torch.algos.dreamer_v2.agent import build_agent
 from sheeprl_tpu_torch.algos.dreamer_v2.loss import normal_log_prob, reconstruction_loss
 from sheeprl_tpu_torch.algos.dreamer_v2.utils import compute_lambda_values
-from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import (
-    METRIC_ORDER,
-    _dreamer_main,
-    frozen,
-    make_update,
-    one_shard_only,
-    polyak,
-)
+from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import (METRIC_ORDER, _dreamer_main, frozen, make_update, polyak,
+                                                           step_of)
 from sheeprl_tpu_torch.diagnostics.sentinel import sentinel_spec
 from sheeprl_tpu_torch.ops.distributions import Bernoulli
+from sheeprl_tpu_torch.parallel.dp import pmean_tree
 from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
@@ -157,7 +152,9 @@ class Imagination:
 def make_train_step(agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, is_continuous: bool):
     """Build one gradient step: ``train_step(moments_state, batch, tau,
     generator=None, noise=None) -> (moments_state, metrics)``, the Moments
-    passed through (DreamerV2 keeps none).  ``batch`` leaves are ``[T, B,
+    passed through (DreamerV2 keeps none); ``train_step.body`` is the step
+    of one shard's block, its gradients and metrics averaged over the
+    shards, as the JAX step ``pmean``s them.  ``batch`` leaves are ``[T, B,
     ...]`` float tensors on the device, pixels in [-0.5, 0.5].  ``noise``
     holds pre-drawn draws, each taken from ``generator`` when absent:
     ``"dynamic"`` the ``(prior, posterior)`` Gumbel noise ``[T, B, stoch,
@@ -186,8 +183,8 @@ def make_train_step(agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, is
         policy_loss = imagination.policy_loss(objective, entropies, discount, ent_coef)
         return policy_loss, trajectories.detach(), lambda_values.detach(), discount
 
-    def train_step(moments_state: Dict[str, Any], batch: Dict[str, torch.Tensor], tau: float,
-                   generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
+    def body(moments_state: Dict[str, Any], batch: Dict[str, torch.Tensor], tau: float,
+             generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
         noise = noise or {}
         T, B = batch["actions"].shape[:2]
         polyak(critic, target_critic, tau)
@@ -195,7 +192,7 @@ def make_train_step(agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, is
         losses, posteriors, recurrents = call_cast((world_model,), cdt,
                                                    lambda: world_model_loss(batch, generator, noise))
         rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
-        wm_norm = update("world_model", rec_loss)
+        wm_norm = yield from update("world_model", rec_loss)
 
         posteriors = posteriors.detach().reshape(T * B, stoch * discrete)
         recurrents = recurrents.detach().reshape(T * B, recurrent_size)
@@ -204,30 +201,27 @@ def make_train_step(agent, optimizers: Dict[str, torch.optim.Optimizer], cfg, is
             policy_loss, trajectories, lambda_values, discount = call_cast(
                 (world_model, actor, target_critic), cdt,
                 lambda: actor_loss(posteriors, recurrents, true_continue, generator, noise))
-            actor_norm = update("actor", policy_loss)
+            actor_norm = yield from update("actor", policy_loss)
 
         value_loss = call_cast((critic,), cdt,
                                lambda: imagination.value_loss(critic, trajectories, lambda_values, discount))
-        critic_norm = update("critic", value_loss)
-        metrics = torch.stack([rec_loss, observation_loss, reward_loss, state_loss, continue_loss, kl, policy_loss,
-                               value_loss, wm_norm, actor_norm, critic_norm]).float().detach()
+        critic_norm = yield from update("critic", value_loss)
+        metrics = yield from pmean_tree(torch.stack([
+            rec_loss, observation_loss, reward_loss, state_loss, continue_loss, kl, policy_loss, value_loss,
+            wm_norm, actor_norm, critic_norm]).float().detach())
         return moments_state, metrics
 
-    train_step.metric_order = METRIC_ORDER
-    train_step.health_names = []
-    return train_step
+    return step_of(body, METRIC_ORDER)
 
 
 def unported_options(cfg, name: str) -> List[str]:
     """What the DreamerV1/V2 loops (and Plan2Explore's on them) refuse:
-    ``skip_update``, which their JAX steps do not apply, and more than one
-    shard (:func:`one_shard_only`).  The JAX DreamerV1 and V2 loops read
-    ``model_manager`` and register nothing, and so do these
-    (``_dreamer_main``'s ``register_models``)."""
-    refused = one_shard_only(cfg)
+    ``skip_update``, which their JAX steps do not apply.  The JAX DreamerV1
+    and V2 loops read ``model_manager`` and register nothing, and so do
+    these (``_dreamer_main``'s ``register_models``)."""
     if sentinel_spec(cfg).skip_update:
-        refused.append(f"diagnostics.sentinel.policy=skip_update for {name} (its JAX step applies no selection)")
-    return refused
+        return [f"diagnostics.sentinel.policy=skip_update for {name} (its JAX step applies no selection)"]
+    return []
 
 
 def build_dreamer_v2_agent(actions_dim, is_continuous, cfg, obs_space, state, device):
@@ -244,5 +238,6 @@ def main(runtime, cfg) -> Dict[str, Any]:
     resumed run copies the target at its first gradient step; the
     ``gradient_steps`` an older port checkpoint holds is not read."""
     return _dreamer_main(runtime, cfg, build_dreamer_v2_agent, make_train_step,
-                         unported_fn=lambda c: unported_options(c, "dreamer_v2"), buffer_types=("sequential", "episode"),
-                         train_after_env_step=True, register_models=False)
+                         unported_fn=lambda c: unported_options(c, "dreamer_v2"),
+                         buffer_types=("sequential", "episode"), train_after_env_step=True, register_models=False,
+                         dry_run_buffer_size=4)

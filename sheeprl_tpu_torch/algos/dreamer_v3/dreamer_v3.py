@@ -55,7 +55,6 @@ from sheeprl_tpu_torch.parallel.dp import (all_gather_cat, body_of, local_sample
                                             run_one, run_shards, shard_generators, train_batches)
 from sheeprl_tpu_torch.parallel.mesh import replicate
 from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
-from sheeprl_tpu_torch.parallel.runtime import shard_count
 from sheeprl_tpu_torch.utils.optim import clip_by_global_norm, global_norm
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
@@ -119,21 +118,40 @@ def apply_gradients(optimizer: torch.optim.Optimizer, params: Sequence[torch.Ten
 
 
 def make_update(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg) -> Callable:
-    """``update(name, loss) -> norm``: the gradient of ``loss`` over the
-    optimizer ``name``'s parameters, clipped by their global norm as its
-    config section says, one step; the norm before clipping.  The plain
-    update of the family's steps that keep no health stats (DreamerV1,
-    DreamerV2)."""
+    """``norm = yield from update(name, loss)`` inside a step body: the
+    gradient of ``loss`` over the optimizer ``name``'s parameters, its mean
+    over the shards (``pmean``, before the clip, as the JAX chain clips
+    inside its update), clipped by its global norm as the config section
+    says, one step; the norm of the mean before clipping.  The plain update
+    of the family's steps that keep no health stats (DreamerV1, DreamerV2,
+    the Plan2Explore families)."""
     clip = {name: float(section.clip_gradients) for name, section in agent.optimizer_configs(cfg).items()}
     params = {name: optimizer_params(opt) for name, opt in optimizers.items()}
 
-    def update(name: str, loss: torch.Tensor) -> torch.Tensor:
-        grads = gradients(loss, params[name])
+    def update(name: str, loss: torch.Tensor):
+        grads = yield from pmean_tree(gradients(loss, params[name]))
         norm = global_norm(grads)
         apply_gradients(optimizers[name], params[name], grads, clip[name])
         return norm
 
     return update
+
+
+def step_of(body: Callable, metric_order: Sequence[str], health_names: Sequence[str] = ()) -> Callable:
+    """A family's gradient step from its ``body`` (a generator over one
+    shard's block of the batch, whose collectives
+    :func:`~sheeprl_tpu_torch.parallel.dp.run_shards` answers):
+    ``train_step(...)`` runs it as the one shard, ``train_step.body`` is
+    the body itself, ``metric_order`` and ``health_names`` name the metric
+    vector."""
+
+    def train_step(*args: Any, **kwargs: Any):
+        return run_one(body(*args, **kwargs))
+
+    train_step.body = body
+    train_step.metric_order = list(metric_order)
+    train_step.health_names = list(health_names)
+    return train_step
 
 
 @torch.no_grad()
@@ -302,16 +320,22 @@ class Behaviour:
         lambda_values = self.lambda_values(predicted_rewards, predicted_values, continues)
         return trajectories, actions, predicted_values, lambda_values, discount
 
-    def actor_loss(self, world_model, actor, critic, posteriors: torch.Tensor, recurrents: torch.Tensor,
-                   true_continue: torch.Tensor, moments_state: Dict[str, torch.Tensor],
+    def actor_loss(self, world_model, actor, critic, cdt: torch.dtype, posteriors: torch.Tensor,
+                   recurrents: torch.Tensor, true_continue: torch.Tensor, moments_state: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator], noise: Dict[str, Any]):
-        """DreamerV3's actor loss on one device: ``(policy_loss,
-        trajectories, lambda values, discount, moments)``, the trajectories
-        and lambda values detached."""
-        trajectories, actions, predicted_values, lambda_values, discount = self.imagine(
-            world_model, actor, critic, posteriors, recurrents, true_continue, generator, noise)
-        advantage, new_moments = self.advantage(moments_state, lambda_values, predicted_values[:-1])
-        policy_loss = self.policy_loss(actor, trajectories, actions, advantage, discount)
+        """DreamerV3's actor loss on one shard's block, the modules run in
+        ``cdt``: ``(policy_loss, trajectories, lambda values, discount,
+        moments)``, the trajectories and lambda values detached, the Moments
+        updated on every shard's lambda values (``all_gather``, as the JAX
+        ``update_moments`` gathers over the data axis).  A generator:
+        ``out = yield from behaviour.actor_loss(...)``."""
+        trajectories, actions, values, lambda_values, discount = call_cast(
+            (world_model, actor, critic), cdt, lambda: self.imagine(
+                world_model, actor, critic, posteriors, recurrents, true_continue, generator, noise))
+        gathered = yield from all_gather_cat(lambda_values.detach().float())
+        advantage, new_moments = self.advantage(moments_state, lambda_values, values[:-1], gathered)
+        policy_loss = call_cast((actor,), cdt, lambda: self.policy_loss(actor, trajectories, actions, advantage,
+                                                                       discount))
         return policy_loss, trajectories.detach(), lambda_values.detach(), discount, new_moments
 
     @staticmethod
@@ -437,16 +461,10 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
         recurrents = recurrents.detach().reshape(T * B, recurrent_size)
         true_continue = (1 - batch["terminated"]).reshape(T * B, 1)
         with frozen(world_model, critic):
-            trajectories, actions, values, lambda_values, discount = call_cast(
-                (world_model, actor, critic), cdt, lambda: behaviour.imagine(
-                    world_model, actor, critic, posteriors, recurrents, true_continue, generator, noise))
-            # the Moments' quantiles over every shard's lambda values
-            gathered = yield from all_gather_cat(lambda_values.detach().float())
-            advantage, moments_state = behaviour.advantage(moments_state, lambda_values, values[:-1], gathered)
-            policy_loss = call_cast((actor,), cdt, lambda: behaviour.policy_loss(
-                actor, trajectories, actions, advantage, discount))
+            policy_loss, trajectories, lambda_values, discount, moments_state = yield from behaviour.actor_loss(
+                world_model, actor, critic, cdt, posteriors, recurrents, true_continue, moments_state, generator,
+                noise)
             actor_norm = yield from update("actor", policy_loss)
-        trajectories, lambda_values = trajectories.detach(), lambda_values.detach()
 
         # --- critic learning -------------------------------------------------
         value_loss = call_cast((critic, target_critic), cdt, lambda: behaviour.critic_loss(
@@ -479,16 +497,7 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
             moments_state = {k: torch.where(finite, v, prev_moments[k]) for k, v in moments_state.items()}
         return moments_state, metrics
 
-    def train_step(moments_state: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], tau: float,
-                   generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
-        """One shard: the whole batch on this agent's device."""
-        return run_one(body(moments_state, batch, tau, generator, noise))
-
-    train_step.body = body
-    train_step.health_names = health_out
-    train_step.metric_order = metric_order
-
-    return train_step
+    return step_of(body, metric_order, health_out)
 
 
 def health_unit_dims(agent: Agent, params: Mapping[str, Sequence[torch.Tensor]]) -> Dict[str, List[int]]:
@@ -593,15 +602,52 @@ def main(runtime, cfg) -> Dict[str, Any]:
     return _dreamer_main(runtime, cfg, build_dreamer_agent, make_train_step)
 
 
-def one_shard_only(cfg) -> List[str]:
-    """The refusal of a family whose step does not run over shards yet, for
-    its ``unported_fn``: ``fabric.devices > 1``, naming the Parallel item of
-    ROADMAP.md."""
-    world = shard_count(cfg.fabric.devices, cfg.fabric.accelerator)
-    if world > 1:
-        return [f"fabric.devices={world} for {cfg.algo.name} (multi-device training of this family waits for the "
-                "next Parallel slice)"]
-    return []
+def shard_learner(runtime, cfg, diag, agent: Agent, agent_state: Optional[Mapping[str, Any]],
+                  make_train_step_fn: Callable, is_continuous: bool, generator: torch.Generator):
+    """The agent over the data axis, as the family's loops (online and
+    offline) train it: one replica of the agent and its optimizers per
+    shard (shard 0's replica is ``agent``), each loaded from
+    ``agent_state``'s optimizer states and Moments when there is one, each
+    shard's step and random stream (``parallel/dp.py``); the footprints and
+    the shards registered with the diagnostics.  Returns ``(replicas,
+    optimizer_sets, moments_state, train_step)``: ``train_step(moments_state,
+    batches, tau)`` is one gradient step over the shards, shard d's on
+    ``batches[d]`` with the Moments replicated (every shard updates them on
+    the gathered lambda values), and returns shard 0's Moments and metrics
+    (reduced over the shards); the caller instruments it."""
+    devices = runtime.devices
+    replicas = replicate(agent, devices)
+    optimizer_sets = [make_optimizers(cfg, replica) for replica in replicas]
+    moments_state = agent.initial_moments(runtime.device)
+    if agent_state is not None:
+        for replica, opts, d in zip(replicas, optimizer_sets, devices):
+            loaded = load_learner_state(agent_state, replica, opts, d)
+            moments_state = loaded if replica is agent else moments_state
+    steps = [make_train_step_fn(replica, opts, cfg, is_continuous) for replica, opts in zip(replicas, optimizer_sets)]
+    generators = shard_generators(generator, cfg.seed, devices)
+
+    def dp_train_step(moments_state: Dict[str, Any], batches: List[Dict[str, torch.Tensor]], tau: float):
+        return run_shards([
+            body_of(step)(tree_map(lambda t, d=d: t.to(d), moments_state), batch, tau, g)
+            for step, batch, g, d in zip(steps, batches, generators, devices)
+        ])[0]
+
+    dp_train_step.metric_order, dp_train_step.health_names = steps[0].metric_order, steps[0].health_names
+    diag.register_footprint("params", [m for replica in replicas for m in replica])
+    diag.register_footprint("opt_state", [o for opts in optimizer_sets for o in opts.values()])
+    diag.register_footprint("moments", moments_state)
+    diag.register_shards(devices, {"params": [dict(zip(replica._fields, replica)) if hasattr(replica, "_fields")
+                                              else list(replica) for replica in replicas],
+                                   "opt_state": optimizer_sets, "moments": [moments_state] * len(devices)})
+    return replicas, optimizer_sets, moments_state, dp_train_step
+
+
+def learner_replicas_equal(replicas: Sequence[Agent], optimizer_sets: Sequence[Dict[str, torch.optim.Optimizer]]
+                           ) -> bool:
+    """Whether every replica holds shard 0's bytes (parameters, optimizer
+    state)."""
+    return len(replicas) == 1 or replicas_equal([[*replica, *opts.values()]
+                                                 for replica, opts in zip(replicas, optimizer_sets)])
 
 
 def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train_step_fn: Callable, *,
@@ -610,7 +656,8 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
                   final_test_fn: Optional[Callable[..., Tuple[float, int]]] = None,
                   unported_fn: Optional[Callable[[Any], List[str]]] = None,
                   buffer_types: Sequence[str] = ("sequential",),
-                  train_after_env_step: bool = False, register_models: bool = True) -> Dict[str, Any]:
+                  train_after_env_step: bool = False, register_models: bool = True,
+                  dry_run_buffer_size: int = 2) -> Dict[str, Any]:
     """The DreamerV3 family's loop (the JAX package's ``_dreamer_main``):
     prefill with random actions, then per iteration a policy step of every
     env, a replay write, the gradient steps the replay ratio owes, logging
@@ -635,8 +682,7 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     episode at the end (the player's actor once trained, sampled);
     ``unported_fn(cfg)``, the options the family refuses (DreamerV3 refuses
     none here: the runtime and the actor refuse theirs where they are
-    built; a family whose step does not run over shards lists
-    :func:`one_shard_only`'s refusal); ``buffer_types``, the ``buffer.type`` values the
+    built); ``buffer_types``, the ``buffer.type`` values the
     family reads (DreamerV3 samples sequentially and reads none; DreamerV2
     also has the ``episode`` buffer); ``train_after_env_step``, whether the
     iteration's gradient steps run after the env step's results, its reset
@@ -644,11 +690,15 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     order) rather than while the envs step (DreamerV3's);
     ``register_models``, whether a run with ``model_manager.disabled=False``
     registers the agent's trees with MLflow at its end (the JAX DreamerV1
-    and V2 loops do not).  Over N shards the loop keeps
+    and V2 loops do not); ``dry_run_buffer_size``, the rows an env keeps
+    under ``dry_run`` (the JAX DreamerV3 loop's 2, its DreamerV1 and V2
+    loops' 4).  Over N shards the loop keeps
     one replica of the agent and its optimizers per shard, draws the global
     batch of ``per_rank_batch_size * N`` sequences, hands shard d its block
     d of the batch axis and its own random stream, and runs the shards'
-    steps in lockstep (``parallel/dp.py``); the player acts with shard 0's
+    steps in lockstep (``parallel/dp.py``, :func:`shard_learner`); with
+    ``buffer.device=True`` the replay ring is sharded by env, and shard d's
+    block is drawn from its own envs on its own device; the player acts with shard 0's
     replica and the checkpoint holds shard 0's state.  The counter that
     times the target critic's update starts at 0 in every run, resumed or
     not, as in every JAX loop of the family.
@@ -670,9 +720,6 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
 
     unported = unported_fn(cfg) if unported_fn is not None else []
     world = runtime.world_size
-    if world > 1 and cfg.buffer.get("device"):
-        unported.append(f"buffer.device=True with fabric.devices={world} (the env-sharded multi-device replay ring "
-                        "waits for the next Parallel slice)")
     if unported:
         raise NotImplementedError(f"not ported yet (see ROADMAP.md Queue 1): {'; '.join(unported)}")
     buffer_type = str(cfg.buffer.get("type") or "sequential").lower() if len(buffer_types) > 1 else buffer_types[0]
@@ -740,40 +787,15 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     # one replica of the agent and its optimizers per shard; shard 0's is
     # the player's and the checkpoint's
     devices = runtime.devices
-    replicas = replicate(agent, devices)
-    optimizer_sets = [make_optimizers(cfg, replica) for replica in replicas]
-    optimizers = optimizer_sets[0]
-    moments_state = agent.initial_moments(device)
-    if agent_state is not None:
-        for replica, opts, d in zip(replicas, optimizer_sets, devices):
-            loaded = load_learner_state(agent_state, replica, opts, d)
-            moments_state = loaded if replica is agent else moments_state
-    steps = [make_train_step_fn(replica, opts, cfg, is_continuous) for replica, opts in zip(replicas, optimizer_sets)]
-    generators = shard_generators(generator, cfg.seed, devices)
-
-    def dp_train_step(moments_state: Dict[str, Any], batches: List[Dict[str, torch.Tensor]], tau: float):
-        """One gradient step over the shards: shard d's step on ``batches[d]``
-        with its replica, its random stream and the Moments (replicated:
-        every shard updates them on the gathered lambda values); shard 0's
-        Moments and metrics (the metrics are reduced over the shards)."""
-        return run_shards([
-            body_of(step)(tree_map(lambda t, d=d: t.to(d), moments_state), batch, tau, g)
-            for step, batch, g, d in zip(steps, batches, generators, devices)
-        ])[0]
-
-    dp_train_step.metric_order, dp_train_step.health_names = steps[0].metric_order, steps[0].health_names
+    replicas, optimizer_sets, moments_state, dp_train_step = shard_learner(
+        runtime, cfg, diag, agent, agent_state, make_train_step_fn, is_continuous, generator)
     train_step = diag.instrument("train_step", dp_train_step, kind="train")
+    optimizers = optimizer_sets[0]
     metric_order, health_out = train_step.metric_order, train_step.health_names
-    diag.register_footprint("params", [m for replica in replicas for m in replica])
-    diag.register_footprint("opt_state", [o for opts in optimizer_sets for o in opts.values()])
-    diag.register_footprint("moments", moments_state)
-    diag.register_shards(devices, {"params": [dict(zip(replica._fields, replica)) if hasattr(replica, "_fields")
-                                              else list(replica) for replica in replicas],
-                                   "opt_state": optimizer_sets, "moments": [moments_state] * world})
 
-    buffer_size = cfg.buffer.size // num_envs if not cfg.dry_run else 2
+    buffer_size = cfg.buffer.size // num_envs if not cfg.dry_run else dry_run_buffer_size
     rb, use_device_buffer = make_dreamer_replay_buffer(
-        cfg, num_envs, log_dir, buffer_size, device, buffer_type,
+        cfg, num_envs, log_dir, buffer_size, devices, buffer_type,
         minimum_episode_length=1 if cfg.dry_run else int(cfg.algo.per_rank_sequence_length), obs_keys=obs_keys)
     rb.seed(cfg.seed)
     diag.track_buffer("replay", rb)
@@ -1086,8 +1108,7 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
         "train_iterations": train_step_count,
         "shards": world,
         # every replica holds shard 0's bytes (parameters, optimizer state)
-        "replicas_equal": world == 1 or replicas_equal([[*replica, *opts.values()] for replica, opts
-                                                         in zip(replicas, optimizer_sets)]),
+        "replicas_equal": learner_replicas_equal(replicas, optimizer_sets),
         "test_steps": test_steps,
         "test_reward": test_reward,
         "player_actors": player_actors,

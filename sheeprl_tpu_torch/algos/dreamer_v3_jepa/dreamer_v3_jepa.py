@@ -23,7 +23,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _dreamer_main, one_shard_only
+from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _dreamer_main
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_train_step as make_dreamer_train_step
 from sheeprl_tpu_torch.algos.dreamer_v3_jepa.agent import JEPAAgent, build_agent
 from sheeprl_tpu_torch.models.jepa import jepa_loss, make_two_views
@@ -79,4 +79,4 @@ def main(runtime, cfg) -> Dict[str, Any]:
     JEPA agent and step; its checkpoints hold the ``jepa`` tree and the
     world-model optimizer's state over the world model and the heads, as
     the JAX package's do."""
-    return _dreamer_main(runtime, cfg, build_agent, make_train_step, unported_fn=one_shard_only)
+    return _dreamer_main(runtime, cfg, build_agent, make_train_step)

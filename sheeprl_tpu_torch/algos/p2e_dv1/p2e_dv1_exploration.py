@@ -29,7 +29,7 @@ import torch
 
 from sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1 import Imagination, make_world_model_loss
 from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import unported_options
-from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _dreamer_main, frozen, make_update
+from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _dreamer_main, frozen, make_update, step_of
 from sheeprl_tpu_torch.algos.p2e_dv1.agent import P2EDV1Agent, build_agent  # noqa: F401  (the family's builder)
 from sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_exploration import (
     METRIC_ORDER,
@@ -37,6 +37,7 @@ from sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_exploration import (
     intrinsic_reward,
 )
 from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import _zero_shot_test
+from sheeprl_tpu_torch.parallel.dp import pmean_tree
 from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
@@ -48,7 +49,9 @@ def make_train_step(agent: P2EDV1Agent, optimizers: Dict[str, torch.optim.Optimi
     ``noise`` may hold the world model's ``"dynamic"`` draws and, under
     ``"exploration"`` and ``"task"``, each imagination's ``"imagination"``
     and ``"actor"`` draws (DreamerV1's layout); what is absent is drawn from
-    ``generator``.  The metric vector is P2E-DV2's."""
+    ``generator``.  The metric vector is P2E-DV2's.  ``train_step.body`` is
+    the step of one shard's block, each of its six gradients and its
+    metrics averaged over the shards, as the JAX step ``pmean``s them."""
     world_model, ensembles = agent.world_model, agent.ensembles
     actor_exploration, critic_exploration = agent.actor_exploration, agent.critic_exploration
     actor_task, critic_task = agent.actor_task, agent.critic_task
@@ -77,8 +80,8 @@ def make_train_step(agent: P2EDV1Agent, optimizers: Dict[str, torch.optim.Optimi
         lambda_values, discount = imagination.returns(world_model, trajectories, rewards, values)
         return -torch.mean(discount * lambda_values), trajectories.detach(), lambda_values.detach(), discount
 
-    def train_step(moments_state: Dict[str, Any], batch: Dict[str, torch.Tensor], tau: float,
-                   generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
+    def body(moments_state: Dict[str, Any], batch: Dict[str, torch.Tensor], tau: float,
+             generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
         noise = noise or {}
         T, B = batch["actions"].shape[:2]
 
@@ -86,13 +89,13 @@ def make_train_step(agent: P2EDV1Agent, optimizers: Dict[str, torch.optim.Optimi
         losses, posteriors, recurrents, embedded = call_cast((world_model,), cdt,
                                                              lambda: world_model_loss(batch, generator, noise))
         rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
-        wm_norm = update("world_model", rec_loss)
+        wm_norm = yield from update("world_model", rec_loss)
         posteriors, recurrents, embedded = posteriors.detach(), recurrents.detach(), embedded.detach()
 
         # --- 2) ensemble learning: the next embedding -------------------------
         ens_loss = call_cast((ensembles,), cdt, lambda: ensemble_loss(
             ensembles, torch.cat([posteriors, recurrents, batch["actions"].to(cdt)], dim=-1), embedded))
-        ens_norm = update("ensembles", ens_loss)
+        ens_norm = yield from update("ensembles", ens_loss)
 
         flat_post = posteriors.reshape(T * B, stoch)
         flat_rec = recurrents.reshape(T * B, recurrent_size)
@@ -102,10 +105,10 @@ def make_train_step(agent: P2EDV1Agent, optimizers: Dict[str, torch.optim.Optimi
             policy_loss_expl, trajectories, lambda_values, discount, reward, predicted = call_cast(
                 (world_model, actor_exploration, critic_exploration, ensembles), cdt,
                 lambda: exploration_loss(flat_post, flat_rec, generator, noise.get("exploration", {})))
-            actor_expl_norm = update("actor_exploration", policy_loss_expl)
+            actor_expl_norm = yield from update("actor_exploration", policy_loss_expl)
         value_loss_expl = call_cast((critic_exploration,), cdt, lambda: imagination.value_loss(
             critic_exploration, trajectories, lambda_values, discount))
-        critic_expl_norm = update("critic_exploration", value_loss_expl)
+        critic_expl_norm = yield from update("critic_exploration", value_loss_expl)
         lambda_mean = lambda_values.mean()
 
         # --- 5, 6) task behaviour, zero-shot ------------------------------------
@@ -113,21 +116,19 @@ def make_train_step(agent: P2EDV1Agent, optimizers: Dict[str, torch.optim.Optimi
             policy_loss_task, trajectories, lambda_values, discount = call_cast(
                 (world_model, actor_task, critic_task), cdt,
                 lambda: task_loss(flat_post, flat_rec, generator, noise.get("task", {})))
-            actor_task_norm = update("actor_task", policy_loss_task)
+            actor_task_norm = yield from update("actor_task", policy_loss_task)
         value_loss_task = call_cast((critic_task,), cdt, lambda: imagination.value_loss(
             critic_task, trajectories, lambda_values, discount))
-        critic_task_norm = update("critic_task", value_loss_task)
+        critic_task_norm = yield from update("critic_task", value_loss_task)
 
-        metrics = torch.stack([
+        metrics = yield from pmean_tree(torch.stack([
             rec_loss, observation_loss, reward_loss, state_loss, continue_loss, kl, ens_loss, policy_loss_expl,
             value_loss_expl, policy_loss_task, value_loss_task, reward, predicted, lambda_mean, wm_norm, ens_norm,
             actor_expl_norm, critic_expl_norm, actor_task_norm, critic_task_norm,
-        ]).float().detach()
+        ]).float().detach())
         return moments_state, metrics
 
-    train_step.metric_order = METRIC_ORDER
-    train_step.health_names = []
-    return train_step
+    return step_of(body, METRIC_ORDER)
 
 
 @register_algorithm()

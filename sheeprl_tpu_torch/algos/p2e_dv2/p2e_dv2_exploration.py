@@ -35,9 +35,10 @@ import torch
 
 from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import Imagination, make_world_model_loss, unported_options
 from sheeprl_tpu_torch.algos.dreamer_v2.loss import normal_log_prob
-from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _dreamer_main, frozen, make_update, polyak
+from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _dreamer_main, frozen, make_update, polyak, step_of
 from sheeprl_tpu_torch.algos.p2e_dv2.agent import P2EDV2Agent, build_agent  # noqa: F401  (the family's builder)
 from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import _zero_shot_test
+from sheeprl_tpu_torch.parallel.dp import pmean_tree
 from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
@@ -89,7 +90,9 @@ def make_train_step(agent: P2EDV2Agent, optimizers: Dict[str, torch.optim.Optimi
     policy are DreamerV2's; ``noise`` may hold the world model's
     ``"dynamic"`` draws and, under ``"exploration"`` and ``"task"``, each
     imagination's ``"imagination"`` and ``"actor"`` draws (DreamerV2's
-    layout); what is absent is drawn from ``generator``."""
+    layout); what is absent is drawn from ``generator``.  ``train_step.body``
+    is the step of one shard's block, each of its six gradients and its
+    metrics averaged over the shards, as the JAX step ``pmean``s them."""
     world_model, ensembles = agent.world_model, agent.ensembles
     actor_exploration, critic_exploration = agent.actor_exploration, agent.critic_exploration
     target_critic_exploration = agent.target_critic_exploration
@@ -132,8 +135,8 @@ def make_train_step(agent: P2EDV2Agent, optimizers: Dict[str, torch.optim.Optimi
         policy_loss = imagination.policy_loss(objective, entropies, discount, ent_coef)
         return policy_loss, trajectories.detach(), lambda_values.detach(), discount
 
-    def train_step(moments_state: Dict[str, Any], batch: Dict[str, torch.Tensor], tau: float,
-                   generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
+    def body(moments_state: Dict[str, Any], batch: Dict[str, torch.Tensor], tau: float,
+             generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
         noise = noise or {}
         T, B = batch["actions"].shape[:2]
         polyak(critic_task, target_critic_task, tau)
@@ -143,13 +146,13 @@ def make_train_step(agent: P2EDV2Agent, optimizers: Dict[str, torch.optim.Optimi
         losses, posteriors, recurrents = call_cast((world_model,), cdt,
                                                    lambda: world_model_loss(batch, generator, noise))
         rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
-        wm_norm = update("world_model", rec_loss)
+        wm_norm = yield from update("world_model", rec_loss)
         posteriors, recurrents = posteriors.detach(), recurrents.detach()
 
         # --- 2) ensemble learning --------------------------------------------
         ens_loss = call_cast((ensembles,), cdt, lambda: ensemble_loss(
             ensembles, torch.cat([posteriors, recurrents, batch["actions"].to(cdt)], dim=-1), posteriors))
-        ens_norm = update("ensembles", ens_loss)
+        ens_norm = yield from update("ensembles", ens_loss)
 
         flat_post = posteriors.reshape(T * B, stoch_flat)
         flat_rec = recurrents.reshape(T * B, recurrent_size)
@@ -160,12 +163,12 @@ def make_train_step(agent: P2EDV2Agent, optimizers: Dict[str, torch.optim.Optimi
             policy_loss_expl, trajectories, lambda_values, discount, reward, predicted = call_cast(
                 (world_model, actor_exploration, target_critic_exploration, ensembles), cdt,
                 lambda: exploration_loss(flat_post, flat_rec, true_continue, generator, noise.get("exploration", {})))
-            actor_expl_norm = update("actor_exploration", policy_loss_expl)
+            actor_expl_norm = yield from update("actor_exploration", policy_loss_expl)
 
         # --- 4) the exploration critic ----------------------------------------
         value_loss_expl = call_cast((critic_exploration,), cdt, lambda: imagination.value_loss(
             critic_exploration, trajectories, lambda_values, discount))
-        critic_expl_norm = update("critic_exploration", value_loss_expl)
+        critic_expl_norm = yield from update("critic_exploration", value_loss_expl)
         lambda_mean = lambda_values.mean()
 
         # --- 5, 6) task behaviour, zero-shot ------------------------------------
@@ -173,21 +176,19 @@ def make_train_step(agent: P2EDV2Agent, optimizers: Dict[str, torch.optim.Optimi
             policy_loss_task, trajectories, lambda_values, discount = call_cast(
                 (world_model, actor_task, target_critic_task), cdt,
                 lambda: task_loss(flat_post, flat_rec, true_continue, generator, noise.get("task", {})))
-            actor_task_norm = update("actor_task", policy_loss_task)
+            actor_task_norm = yield from update("actor_task", policy_loss_task)
         value_loss_task = call_cast((critic_task,), cdt, lambda: imagination.value_loss(
             critic_task, trajectories, lambda_values, discount))
-        critic_task_norm = update("critic_task", value_loss_task)
+        critic_task_norm = yield from update("critic_task", value_loss_task)
 
-        metrics = torch.stack([
+        metrics = yield from pmean_tree(torch.stack([
             rec_loss, observation_loss, reward_loss, state_loss, continue_loss, kl, ens_loss, policy_loss_expl,
             value_loss_expl, policy_loss_task, value_loss_task, reward, predicted, lambda_mean, wm_norm, ens_norm,
             actor_expl_norm, critic_expl_norm, actor_task_norm, critic_task_norm,
-        ]).float().detach()
+        ]).float().detach())
         return moments_state, metrics
 
-    train_step.metric_order = METRIC_ORDER
-    train_step.health_names = []
-    return train_step
+    return step_of(body, METRIC_ORDER)
 
 
 @register_algorithm()

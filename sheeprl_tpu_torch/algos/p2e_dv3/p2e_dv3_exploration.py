@@ -31,21 +31,19 @@ import torch
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import (
     Behaviour,
     _dreamer_main,
-    apply_gradients,
     frozen,
-    gradients,
+    make_update,
     make_world_model_loss,
-    one_shard_only,
-    optimizer_params,
     polyak,
+    step_of,
 )
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import test
 from sheeprl_tpu_torch.algos.p2e_dv3.agent import P2EAgent, build_agent, exploration_critics_spec
 from sheeprl_tpu_torch.algos.p2e_dv3.utils import expand_exploration_metric_keys
 from sheeprl_tpu_torch.diagnostics.sentinel import sentinel_spec
 from sheeprl_tpu_torch.ops.distributions import MSEDistribution, TwoHotEncodingDistribution
+from sheeprl_tpu_torch.parallel.dp import all_gather_cat, pmean_tree
 from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
-from sheeprl_tpu_torch.utils.optim import global_norm
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
 
@@ -88,7 +86,10 @@ def make_train_step(agent: P2EAgent, optimizers: Dict[str, torch.optim.Optimizer
     ``noise`` may hold the world model's ``"dynamic"`` / ``"burn_in"``
     draws and, under ``"exploration"`` and ``"task"``, each imagination's
     ``"imagination"`` and ``"actor"`` draws (DreamerV3's layout); what is
-    absent is drawn from ``generator``."""
+    absent is drawn from ``generator``.  ``train_step.body`` is the step of
+    one shard's block: each gradient and the metrics averaged over the
+    shards, each Moments' quantiles taken over every shard's lambda values,
+    as the JAX step ``pmean``s and gathers them."""
     critics_spec = exploration_critics_spec(cfg)
     world_model, ensembles = agent.world_model, agent.ensembles
     actor_exploration, critics = agent.actor_exploration, agent.critics_exploration
@@ -97,23 +98,32 @@ def make_train_step(agent: P2EAgent, optimizers: Dict[str, torch.optim.Optimizer
     stoch_flat = int(wm_cfg.stochastic_size * wm_cfg.discrete_size)
     recurrent_size = int(wm_cfg.recurrent_model.recurrent_state_size)
     cdt = compute_dtype_of(cfg)
-    clip = {name: float(section.clip_gradients) for name, section in agent.optimizer_configs(cfg).items()}
-    params = {name: optimizer_params(opt) for name, opt in optimizers.items()}
     weights_sum = sum(weight for _, weight, _ in critics_spec)
     intrinsic_multiplier = float(cfg.algo.intrinsic_reward_multiplier)
     world_model_loss = make_world_model_loss(world_model, cfg)
     behaviour = Behaviour(cfg, is_continuous)
+    update = make_update(agent, optimizers, cfg)
 
-    def update(name: str, loss: torch.Tensor) -> torch.Tensor:
-        """One optimizer's step on the gradient of ``loss``; returns the
-        gradient's norm before clipping."""
-        grads = gradients(loss, params[name])
-        norm = global_norm(grads)
-        apply_gradients(optimizers[name], params[name], grads, clip[name])
-        return norm
+    def exploration_imagination(flat_post, flat_rec, true_continue, generator, noise):
+        """The exploration actor's rollout and, per exploration critic, its
+        predicted values, reward and lambda values."""
+        trajectories, actions = behaviour.rollout(world_model, actor_exploration, flat_post, flat_rec, generator,
+                                                  noise)
+        continues, discount = behaviour.continues(world_model, trajectories, true_continue)
+        with torch.no_grad():
+            # the members' disagreement: their unbiased variance, in fp32
+            preds = ensembles(torch.cat([trajectories, actions], dim=-1)).float()
+            intrinsic_reward = preds.var(dim=0, unbiased=True).mean(-1, keepdim=True) * intrinsic_multiplier
+        task_reward = TwoHotEncodingDistribution(world_model.reward_logits(trajectories), dims=1).mean
+        per_critic = {}
+        for name, _, reward_type in critics_spec:
+            values = TwoHotEncodingDistribution(critics[name].module(trajectories), dims=1).mean
+            reward = intrinsic_reward if reward_type == "intrinsic" else task_reward
+            per_critic[name] = (values, reward, behaviour.lambda_values(reward, values, continues))
+        return trajectories, actions, discount, per_critic
 
-    def train_step(moments_state: Dict[str, Any], batch: Dict[str, torch.Tensor], tau: float,
-                   generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
+    def body(moments_state: Dict[str, Any], batch: Dict[str, torch.Tensor], tau: float,
+             generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
         noise = noise or {}
         T, B = batch["actions"].shape[:2]
         polyak(critic_task, target_critic_task, tau)
@@ -124,7 +134,7 @@ def make_train_step(agent: P2EAgent, optimizers: Dict[str, torch.optim.Optimizer
         losses, posteriors, recurrents, _ = call_cast(
             (world_model,), cdt, lambda: world_model_loss(batch, generator, noise))
         rec_loss, kl, state_loss, reward_loss, observation_loss, continue_loss = losses
-        wm_norm = update("world_model", rec_loss)
+        wm_norm = yield from update("world_model", rec_loss)
         posteriors, recurrents = posteriors.detach(), recurrents.detach()
 
         # --- 2) ensemble learning ---------------------------------------------
@@ -135,72 +145,59 @@ def make_train_step(agent: P2EAgent, optimizers: Dict[str, torch.optim.Optimizer
             return -log_prob.mean(dim=(1, 2)).sum()
 
         ens_loss = call_cast((ensembles,), cdt, ensemble_loss)
-        ens_norm = update("ensembles", ens_loss)
+        ens_norm = yield from update("ensembles", ens_loss)
 
         # --- 3) exploration behaviour, against the updated models ----------
         flat_post = posteriors.reshape(T * B, stoch_flat)
         flat_rec = recurrents.reshape(T * B, recurrent_size)
         true_continue = (1 - batch["terminated"]).reshape(T * B, 1)
-
-        def exploration_loss():
-            trajectories, actions = behaviour.rollout(world_model, actor_exploration, flat_post, flat_rec, generator,
-                                                      noise.get("exploration", {}))
-            continues, discount = behaviour.continues(world_model, trajectories, true_continue)
-            with torch.no_grad():
-                # the members' disagreement: their unbiased variance, in fp32
-                preds = ensembles(torch.cat([trajectories, actions], dim=-1)).float()
-                intrinsic_reward = preds.var(dim=0, unbiased=True).mean(-1, keepdim=True) * intrinsic_multiplier
-            task_reward = TwoHotEncodingDistribution(world_model.reward_logits(trajectories), dims=1).mean
-            advantage, moments, per_critic = 0.0, {}, {}
-            for name, weight, reward_type in critics_spec:
-                values = TwoHotEncodingDistribution(critics[name].module(trajectories), dims=1).mean
-                reward = intrinsic_reward if reward_type == "intrinsic" else task_reward
-                lambda_values = behaviour.lambda_values(reward, values, continues)
-                critic_advantage, moments[name] = behaviour.advantage(
-                    moments_state["exploration"][name], lambda_values, values[:-1])
-                advantage = advantage + critic_advantage * (weight / weights_sum)
-                per_critic[name] = (lambda_values.detach(), values.detach().mean(), reward.detach().mean())
-            policy_loss = behaviour.policy_loss(actor_exploration, trajectories, actions, advantage, discount)
-            return policy_loss, trajectories.detach(), discount, moments, per_critic
-
         with frozen(world_model, critics, ensembles):
-            policy_loss_exploration, trajectories, discount, moments_exploration, per_critic = call_cast(
-                (world_model, actor_exploration, critics, ensembles), cdt, exploration_loss)
-            actor_exploration_norm = update("actor_exploration", policy_loss_exploration)
+            trajectories, actions, discount, per_critic = call_cast(
+                (world_model, actor_exploration, critics, ensembles), cdt, lambda: exploration_imagination(
+                    flat_post, flat_rec, true_continue, generator, noise.get("exploration", {})))
+            advantage, moments_exploration = 0.0, {}
+            for name, weight, _ in critics_spec:
+                values, _, lambda_values = per_critic[name]
+                # the critic's Moments' quantiles over every shard's lambda values
+                gathered = yield from all_gather_cat(lambda_values.detach().float())
+                critic_advantage, moments_exploration[name] = behaviour.advantage(
+                    moments_state["exploration"][name], lambda_values, values[:-1], gathered)
+                advantage = advantage + critic_advantage * (weight / weights_sum)
+            policy_loss_exploration = call_cast((actor_exploration,), cdt, lambda: behaviour.policy_loss(
+                actor_exploration, trajectories, actions, advantage, discount))
+            actor_exploration_norm = yield from update("actor_exploration", policy_loss_exploration)
+        trajectories = trajectories.detach()
 
         # --- 4) each exploration critic, with its own optimizer ----------------
         critic_metrics = []
         for name, _, reward_type in critics_spec:
-            lambda_values, predicted, reward = per_critic[name]
+            values, reward, lambda_values = (t.detach() for t in per_critic[name])
             critic = critics[name]
             value_loss = call_cast((critic,), cdt, lambda: behaviour.critic_loss(
                 critic.module, critic.target_module, trajectories, lambda_values, discount))
-            update(f"critics_exploration/{name}", value_loss)
-            critic_metrics += [value_loss, predicted, lambda_values.mean()]
+            yield from update(f"critics_exploration/{name}", value_loss)
+            critic_metrics += [value_loss, values.mean(), lambda_values.mean()]
             if reward_type == "intrinsic":
-                critic_metrics.append(reward)
+                critic_metrics.append(reward.mean())
 
         # --- 5) task behaviour, zero-shot ----------------------------------------
         with frozen(world_model, critic_task):
-            policy_loss_task, trajectories, lambda_values, discount, moments_task = call_cast(
-                (world_model, actor_task, critic_task), cdt, lambda: behaviour.actor_loss(
-                    world_model, actor_task, critic_task, flat_post, flat_rec, true_continue, moments_state["task"],
-                    generator, noise.get("task", {})))
-            actor_task_norm = update("actor_task", policy_loss_task)
+            policy_loss_task, trajectories, lambda_values, discount, moments_task = yield from behaviour.actor_loss(
+                world_model, actor_task, critic_task, cdt, flat_post, flat_rec, true_continue, moments_state["task"],
+                generator, noise.get("task", {}))
+            actor_task_norm = yield from update("actor_task", policy_loss_task)
         value_loss_task = call_cast((critic_task, target_critic_task), cdt, lambda: behaviour.critic_loss(
             critic_task, target_critic_task, trajectories, lambda_values, discount))
-        critic_task_norm = update("critic_task", value_loss_task)
+        critic_task_norm = yield from update("critic_task", value_loss_task)
 
-        metrics = torch.stack([
+        metrics = yield from pmean_tree(torch.stack([
             rec_loss, observation_loss, reward_loss, state_loss, continue_loss, kl, ens_loss,
             policy_loss_exploration, policy_loss_task, value_loss_task, wm_norm, ens_norm, actor_exploration_norm,
             actor_task_norm, critic_task_norm, *critic_metrics,
-        ]).float().detach()
+        ]).float().detach())
         return {"task": moments_task, "exploration": moments_exploration}, metrics
 
-    train_step.health_names = []
-    train_step.metric_order = metric_order(critics_spec)
-    return train_step
+    return step_of(body, metric_order(critics_spec))
 
 
 def refuse_skip_update(cfg) -> None:
@@ -229,5 +226,4 @@ def main(runtime, cfg) -> Dict[str, Any]:
     cfg.algo.player.actor_type = "exploration"
     expand_exploration_metric_keys(cfg, [name for name, _, _ in exploration_critics_spec(cfg)])
     return _dreamer_main(runtime, cfg, build_agent, make_train_step,
-                         player_actor_fn=lambda has_trained: "actor_exploration", final_test_fn=_zero_shot_test,
-                         unported_fn=one_shard_only)
+                         player_actor_fn=lambda has_trained: "actor_exploration", final_test_fn=_zero_shot_test)

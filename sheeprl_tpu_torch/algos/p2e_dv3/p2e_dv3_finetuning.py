@@ -31,7 +31,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     make_actor,
     skip_default_init,
 )
-from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _dreamer_main, make_train_step, one_shard_only
+from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import _dreamer_main, make_train_step
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
 DV3_TREES = ("world_model", "actor", "critic", "target_critic")
@@ -158,5 +158,5 @@ def main(runtime, cfg) -> Dict[str, Any]:
     return _dreamer_main(
         runtime, cfg, build_agent, make_train_step,
         load_agent_state_fn=lambda runtime, cfg: finetuning_state(runtime.load(cfg.checkpoint.exploration_ckpt_path)),
-        player_actor_fn=player_actor(cfg), unported_fn=one_shard_only,
+        player_actor_fn=player_actor(cfg),
     )

@@ -280,9 +280,9 @@ class SACFamily:
         return build_agent(cfg, obs_space, action_space, state["agent"] if state else None, device)
 
     def cast_params(self) -> None:
-        from sheeprl_tpu_torch.parallel.precision import resolve_precision
+        from sheeprl_tpu_torch.parallel.precision import training_dtypes
 
-        param_dtype = resolve_precision(self.cfg.fabric.get("precision", "32-true"))[0]
+        param_dtype = training_dtypes(self.cfg.fabric.get("precision", "32-true"))[0]
         if param_dtype != torch.float32:
             # bf16-true: the weights themselves in bf16 (the action-space
             # rescale stays fp32, a constant of the JAX module)

@@ -32,6 +32,18 @@ def config_hash(cfg: Mapping[str, Any]) -> str:
     return hashlib.sha256(yaml.safe_dump(plain, sort_keys=True).encode()).hexdigest()[:16]
 
 
+def run_dtypes(cfg: Mapping[str, Any]) -> Dict[str, str]:
+    """``run_start``'s ``precision``, ``param_dtype`` and ``compute_dtype``:
+    the dtypes a run of ``fabric.precision`` trains in
+    (``parallel/precision.py::training_dtypes``)."""
+    from sheeprl_tpu_torch.parallel.precision import training_dtypes
+
+    precision = str((cfg.get("fabric") or {}).get("precision", "32-true"))
+    param, compute = training_dtypes(precision)
+    return {"precision": precision, "param_dtype": str(param).split(".")[-1],
+            "compute_dtype": str(compute).split(".")[-1]}
+
+
 def run_id_of(log_dir: str) -> str:
     """The run's correlation id: the tail ``<root_dir>/<run_name>/version_N``
     of its log dir."""
@@ -155,6 +167,8 @@ class Diagnostics:
                 sentinel_policy=self.sentinel.policy if self.sentinel.enabled else None,
                 package="sheeprl_tpu_torch",
                 device=str(device) if device is not None else None,
+                # the dtypes the run trains in (64-true: float32, as in JAX)
+                **run_dtypes(cfg),
             )
         if self.resilience is not None:
             self.resilience.open(self._journal_event, self._journal_sync)

@@ -21,6 +21,14 @@ sentinel and health hooks see every update.  The step counter of an offline
 run counts *gradient steps*: ``algo.total_steps`` is the optimizer-step
 budget.  The random streams are the port's (every draw from the run's
 generator); the batches are the JAX loader's, draw for draw.
+
+Over ``fabric.devices=N`` shards the loops train as the JAX offline loops
+do over their mesh: one replica of the parameters and optimizer state a
+shard (the online families' own data axis, ``parallel/dp.py``), a global
+batch of ``per_rank_batch_size * N`` rows or sequences a gradient step cut
+into the shards' blocks, the gradients, metrics and DreamerV3's Moments
+reduced over the shards; the checkpoint holds shard 0's state with the
+global ``batch_size``.
 """
 
 from __future__ import annotations
@@ -33,6 +41,8 @@ from typing import Any, Dict, List, Tuple
 import numpy as np
 import torch
 
+from sheeprl_tpu_torch.parallel.dp import local_sample_size, replicas_equal, split
+
 #: Algorithms the offline mode drives (validated in ``cli.check_configs``).
 OFFLINE_ALGOS: Tuple[str, ...] = ("sac", "droq", "dreamer_v3")
 
@@ -41,10 +51,6 @@ def offline_main(runtime, cfg) -> Dict[str, Any]:
     """The entry point ``cli.run_algorithm`` launches when
     ``algo.offline.enabled``; returns what the run did."""
     name = cfg.algo.name
-    if runtime.world_size > 1:
-        raise NotImplementedError(
-            f"fabric.devices={runtime.world_size} with algo.offline.enabled=true: multi-device offline training "
-            "is not ported yet (see ROADMAP.md Queue 1, the next Parallel slice)")
     if name in ("sac", "droq"):
         return _offline_flat(runtime, cfg)
     if name == "dreamer_v3":
@@ -210,18 +216,19 @@ def _offline_flat(runtime, cfg) -> Dict[str, Any]:
     state = runtime.load(resume_from) if resume_from else None
     if name == "droq":
         from sheeprl_tpu_torch.algos.droq.droq import DroQFamily as family_cls
-        from sheeprl_tpu_torch.algos.droq.droq import draw_noise
     else:
         from sheeprl_tpu_torch.algos.sac.sac import SACFamily as family_cls
     family = family_cls(cfg, obs_space, action_space, state, device).make_update()
-    update = diag.instrument("train_step", family.update, kind="train")
+    # one replica a shard, each with its random stream (shard 0's is the run's)
+    family.shard_over(runtime.devices, generator, cfg.seed)
+    update = diag.instrument("train_step", family.step, kind="train")
     metric_order, health_out = family.metric_order, family.health_names
     n_losses = len(metric_order)
-    diag.register_footprint("params", family.modules())
-    diag.register_footprint("opt_state", list(family.optimizers.values()))
+    diag.register_footprint("params", [m for shard in family.shards for m in shard.modules()])
+    diag.register_footprint("opt_state", [o for shard in family.shards for o in shard.optimizers.values()])
 
     total_iters, grad_per_iter = _grad_plan(cfg, offline)
-    batch_rows = int(cfg.algo.per_rank_batch_size)
+    batch_rows = local_sample_size(int(cfg.algo.per_rank_batch_size) * runtime.world_size)
     train_keys = [k for k in ("observations", "next_observations", "actions", "rewards", "terminated")
                   if k in dataset.key_specs]
     derive_next = "next_observations" not in dataset.key_specs
@@ -266,13 +273,10 @@ def _offline_flat(runtime, cfg) -> Dict[str, Any]:
                     rows += batch_rows * grad_per_iter  # the second stream counts too
             data = diag.maybe_inject_nan(iter_num, data)
             with diag.span("train"):
+                # each shard on its block of every gradient step's rows
                 if name == "droq":
-                    noise = draw_noise(family.agent, grad_per_iter, batch_rows, family.act_dim, generator, device,
-                                       family.cql_samples)
-                    metrics = update(data, actor_data, noise)
-                else:
-                    eps = torch.randn((grad_per_iter, batch_rows, family.act_dim), generator=generator, device=device)
-                    metrics = update(data, eps, family.cql_noise(grad_per_iter, batch_rows, generator))
+                    data["actor_observations"] = actor_data["observations"]
+                metrics = update(data, generator)
                 (row,) = fetch_values(metrics)
         policy_step_count += grad_per_iter
         metric_rows.append(row)
@@ -299,7 +303,7 @@ def _offline_flat(runtime, cfg) -> Dict[str, Any]:
                 "policy_step": policy_step_count,
                 "last_log": last_log,
                 "last_checkpoint": last_checkpoint,
-                "batch_size": batch_rows,
+                "batch_size": batch_rows,  # the global batch
             }
             checkpoints.append(_save_offline_checkpoint(runtime, diag, log_dir, ckpt_state, policy_step_count,
                                                         iter_num, preempt_now))
@@ -319,6 +323,9 @@ def _offline_flat(runtime, cfg) -> Dict[str, Any]:
         "checkpoints": checkpoints,
         "log_dir": log_dir,
         "family": family,
+        "shards": runtime.world_size,
+        "replicas_equal": replicas_equal([[*shard.modules(), *shard.optimizers.values()]
+                                          for shard in family.shards]),
         "dataset": dataset.summary(),
     }
 
@@ -330,10 +337,10 @@ def _offline_flat(runtime, cfg) -> Dict[str, Any]:
 def _offline_dreamer(runtime, cfg) -> Dict[str, Any]:
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import (
         build_dreamer_agent,
-        load_learner_state,
-        make_optimizers,
+        learner_replicas_equal,
         make_train_step,
         nest,
+        shard_learner,
         stage_batch,
         target_tau,
     )
@@ -394,18 +401,17 @@ def _offline_dreamer(runtime, cfg) -> Dict[str, Any]:
         diag.build_kernels(["ln_gru"])  # nvcc at first use, as the run state `compiling`
     for module in agent:
         module.to(runtime.param_dtype)
-    optimizers = make_optimizers(cfg, agent)
-    moments_state = (agent.initial_moments(device) if state is None
-                     else load_learner_state(state, agent, optimizers, device))
-    train_step = diag.instrument("train_step", make_train_step(agent, optimizers, cfg, is_continuous), kind="train")
+    # one replica a shard, as the online loop's (shard 0's is the checkpoint's)
+    devices = runtime.devices
+    replicas, optimizer_sets, moments_state, dp_train_step = shard_learner(
+        runtime, cfg, diag, agent, state, make_train_step, is_continuous, generator)
+    train_step = diag.instrument("train_step", dp_train_step, kind="train")
+    optimizers = optimizer_sets[0]
     metric_order, health_out = train_step.metric_order, train_step.health_names
-    diag.register_footprint("params", list(agent))
-    diag.register_footprint("opt_state", list(optimizers.values()))
-    diag.register_footprint("moments", moments_state)
 
     total_iters, grad_per_iter = _grad_plan(cfg, offline)
     seq_len = int(offline.get("sequence_length") or cfg.algo.per_rank_sequence_length)
-    batch_cols = int(cfg.algo.per_rank_batch_size)
+    batch_cols = local_sample_size(int(cfg.algo.per_rank_batch_size) * runtime.world_size)
     epoch_box = {"epoch": 0}
     batches = dataset.batches(
         batch_cols,
@@ -431,11 +437,12 @@ def _offline_dreamer(runtime, cfg) -> Dict[str, Any]:
         with timer("Time/train_time", device):
             for _ in range(grad_per_iter):
                 with diag.span("buffer-sample"):
-                    batch = stage_batch(next(batches), cnn_keys, device)
-                batch = diag.maybe_inject_nan(iter_num, batch)
+                    # the sequences cut into the shards' blocks (batch axis 1)
+                    blocks = [stage_batch(block, cnn_keys, d)
+                              for block, d in zip(split(next(batches), len(devices), 1), devices)]
+                blocks = diag.maybe_inject_nan(iter_num, blocks)
                 with diag.span("train"):
-                    moments_state, metrics = train_step(moments_state, batch, target_tau(cfg, gradient_steps),
-                                                        generator)
+                    moments_state, metrics = train_step(moments_state, blocks, target_tau(cfg, gradient_steps))
                 gradient_steps += 1
                 pending.append(metrics)
         # the iteration's metric rows cross to the host in one copy
@@ -467,7 +474,7 @@ def _offline_dreamer(runtime, cfg) -> Dict[str, Any]:
                 "offline": True,  # the counters below count gradient steps
                 "iter_num": iter_num,
                 "policy_step": policy_step_count,
-                "batch_size": batch_cols,
+                "batch_size": batch_cols,  # the global batch
                 "last_log": last_log,
                 "last_checkpoint": last_checkpoint,
             }
@@ -485,6 +492,8 @@ def _offline_dreamer(runtime, cfg) -> Dict[str, Any]:
         "metric_order": metric_order,
         "metric_rows": rows[:, :len(metric_order)],
         "health_rows": {name: rows[:, len(metric_order) + i] for i, name in enumerate(health_out)},
+        "shards": runtime.world_size,
+        "replicas_equal": learner_replicas_equal(replicas, optimizer_sets),
         "logged": logged,
         "checkpoints": checkpoints,
         "log_dir": log_dir,

@@ -129,8 +129,8 @@ def run_one(body: Generator[Collective, Any, Any]) -> Any:
 
 def body_of(step: Callable) -> Callable[..., Generator[Collective, Any, Any]]:
     """A step's body for :func:`run_shards`: its ``body`` where it has one,
-    else the step itself as a body with no collective (a family whose loop
-    refuses more than one shard)."""
+    else the step itself as a body with no collective (a step wrapped as a
+    plain callable, which runs one shard only)."""
     body = getattr(step, "body", None)
     if body is not None:
         return body
@@ -223,10 +223,13 @@ def train_batches(samples: Iterable[Any], devices: Sequence[torch.device],
     gradient step's host arrays, or the device ring's tensors) cut into the
     shards' blocks along ``batch_axis`` and staged by ``stage_one(block,
     device)`` (float conversion, pixel scaling), the next step's while the
-    current one runs (:func:`prefetch_staged`)."""
+    current one runs (:func:`prefetch_staged`).  A sample that is a list
+    is already the shards' blocks (the env-sharded ring's, each on its
+    shard's device)."""
     n = len(devices)
-    return prefetch_staged(samples, lambda sample: [stage_one(block, d) for block, d in
-                                                    zip(split(sample, n, batch_axis), devices)])
+    return prefetch_staged(samples, lambda sample: [
+        stage_one(block, d) for block, d in zip(sample if isinstance(sample, list) else split(sample, n, batch_axis),
+                                                devices)])
 
 
 def _state_tensors(obj: Any) -> List[torch.Tensor]:

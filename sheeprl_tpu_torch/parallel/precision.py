@@ -16,6 +16,12 @@ The JAX package's policy, not ``torch.autocast``'s:
 ``torch.autocast`` casts only the ops on its lists and keeps LayerNorm and
 softmax in fp32, which would drift from the JAX numbers and hand the GRU
 kernel inputs of mixed dtypes.
+
+``64-true`` names float64 in the table, as the JAX package's does, but the
+JAX package never enables ``jax_enable_x64``, so its float64 casts truncate
+to float32 (with JAX's warning) and its runs train in float32.  The port
+trains what the JAX package trains: :func:`training_dtypes` resolves
+``64-true`` to float32, and the ``Runtime`` warns.
 """
 
 from __future__ import annotations
@@ -42,10 +48,18 @@ def resolve_precision(precision: str) -> Tuple[torch.dtype, torch.dtype]:
     return PRECISION_DTYPES[precision]
 
 
+def training_dtypes(precision: str) -> Tuple[torch.dtype, torch.dtype]:
+    """``(param_dtype, compute_dtype)`` a run of ``precision`` trains in: the
+    table's, float64 truncated to float32 as the JAX package's casts
+    truncate it without ``jax_enable_x64``."""
+    return tuple(torch.float32 if d == torch.float64 else d for d in resolve_precision(precision))
+
+
 def compute_dtype_of(cfg) -> torch.dtype:
-    """The compute dtype implied by ``cfg.fabric.precision`` (fp32 default)."""
+    """The compute dtype a run of ``cfg.fabric.precision`` trains in (fp32
+    default)."""
     fabric = cfg.get("fabric") or {}
-    return resolve_precision(fabric.get("precision", "32-true"))[1]
+    return training_dtypes(fabric.get("precision", "32-true"))[1]
 
 
 def cast_floating(tree: Any, dtype: torch.dtype) -> Any:

@@ -1,6 +1,7 @@
 """The ``Runtime`` (counterpart of ``sheeprl_tpu/parallel/runtime.py``):
 the data axis of ``fabric.devices`` shards (``parallel/mesh.py``), the
-precision policy (``param_dtype``, ``compute_dtype``; see
+precision policy (``param_dtype``, ``compute_dtype``, the dtypes the run
+trains in: ``64-true`` trains in float32, as the JAX package does; see
 ``parallel/precision.py``), the seeding, checkpoint save/load and the
 callback hooks.
 
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.parallel.mesh import placement, shared_devices
-from sheeprl_tpu_torch.parallel.precision import resolve_precision
+from sheeprl_tpu_torch.parallel.precision import resolve_precision, training_dtypes
 
 _NOT_PORTED = "is not ported yet: see ROADMAP.md Queue 1"
 
@@ -85,10 +86,12 @@ class Runtime:
                 f"fabric.num_nodes={num_nodes}: multi-device training over more than one node {_NOT_PORTED}, "
                 "Parallel: multi-host"
             )
-        self.param_dtype, self.compute_dtype = resolve_precision(precision)
-        if self.compute_dtype == torch.float64:
-            raise NotImplementedError(
-                f"fabric.precision={precision!r}: the LayerNorm-GRU kernel takes float32 or bfloat16"
+        self.param_dtype, self.compute_dtype = training_dtypes(precision)
+        if resolve_precision(precision)[1] == torch.float64:
+            warnings.warn(
+                f"fabric.precision={precision!r} requests float64; the run trains in float32, as the JAX package "
+                "does without jax_enable_x64 (its float64 casts truncate to float32)",
+                UserWarning,
             )
         self.devices = placement(shard_count(devices, accelerator), accelerator)
         self.device = self.devices[0]

@@ -428,8 +428,6 @@ def test_run_refuses_skip_update_and_unknown_buffer_types(tmp_path, monkeypatch)
         cli.run(RUN + ["diagnostics.sentinel.enabled=True", "diagnostics.sentinel.policy=skip_update"])
     with pytest.raises(ValueError, match="buffer type"):
         cli.run(RUN + ["buffer.type=uniform"])
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        cli.run(RUN + ["fabric.devices=2"])
     # the JAX loop reads none of these, so the port runs with them set
     out = cli.run(RUN + ["model_manager.disabled=False"])
     assert out["gradient_steps"] > 0

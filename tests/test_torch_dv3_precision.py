@@ -38,6 +38,7 @@ from sheeprl_tpu_torch.parallel.precision import (
     cast_floating,
     compute_dtype_of,
     resolve_precision,
+    training_dtypes,
 )
 from sheeprl_tpu_torch.parallel.runtime import Runtime
 from sheeprl_tpu_torch.utils.utils import dotdict
@@ -60,9 +61,14 @@ def test_precision_table_matches_jax_and_the_runtime_takes_it():
     assert compute_dtype_of(dotdict({})) == torch.float32
     for name in ("32-true", "16-mixed", "bf16-mixed", "bf16-true"):
         rt = Runtime(accelerator="cpu", precision=name)
-        assert (rt.param_dtype, rt.compute_dtype) == PRECISION_DTYPES[name]
-    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
-        Runtime(accelerator="cpu", precision="64-true")
+        assert (rt.param_dtype, rt.compute_dtype) == PRECISION_DTYPES[name] == training_dtypes(name)
+    # 64-true: the table's float64, trained in float32 as the JAX package's
+    # casts truncate it (jax_enable_x64 is off), with a warning
+    assert jnp.zeros(2).astype(jnp.float64).dtype == jnp.float32
+    with pytest.warns(UserWarning, match="requests float64; the run trains in float32"):
+        rt = Runtime(accelerator="cpu", precision="64-true")
+    assert (rt.param_dtype, rt.compute_dtype) == training_dtypes("64-true") == (torch.float32, torch.float32)
+    assert compute_dtype_of(dotdict({"fabric": {"precision": "64-true"}})) == torch.float32
 
 
 def test_the_cast_brings_fp32_gradients_to_fp32_masters_as_jax_does():

@@ -637,12 +637,13 @@ def test_run_refuses_options_it_does_not_port(tmp_path, monkeypatch):
     with pytest.warns(UserWarning, match="MLFlow is not installed; setting model_manager.disabled=True"):
         cli.check_configs(cfg)
     assert cfg.model_manager.disabled is True
-    # DDP/FSDP, and with them the device ring over more than one device
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        cli.run(RUN + ["fabric.devices=2", "buffer.device=True"])
+    # FSDP (the data axis and the device ring over it are ported:
+    # tests/test_torch_parallel_offline.py)
     with pytest.raises(NotImplementedError, match="multi-device"):
         cli.run(RUN + ["fabric.fsdp=2"])
-    with pytest.raises(NotImplementedError, match="float32 or bfloat16"):
-        cli.run(RUN + ["fabric.precision=64-true"])
+    # 64-true trains in float32, as the JAX package does without x64
+    with pytest.warns(UserWarning, match="requests float64; the run trains in float32"):
+        out = cli.run(RUN + ["fabric.precision=64-true", "root_dir=x64"])
+    assert out["gradient_steps"] > 0 and np.isfinite(out["metric_rows"]).all()
     with pytest.raises(NotImplementedError, match="not ported"):
         cli.run(RUN + ["exp=ppo_decoupled"])

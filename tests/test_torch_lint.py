@@ -757,17 +757,17 @@ def test_every_baseline_entry_has_a_one_line_why():
 #: port access of: (port file:line, a text of that line) where the port
 #: reads it through an alias the harvest cannot follow, or refuses it
 PORT_READERS = {
-    "algo.actor.clip_gradients": ("algos/dreamer_v3/dreamer_v3.py:366", "section.clip_gradients"),
-    "algo.critic.clip_gradients": ("algos/dreamer_v3/dreamer_v3.py:366", "section.clip_gradients"),
-    "algo.world_model.clip_gradients": ("algos/dreamer_v3/dreamer_v3.py:366", "section.clip_gradients"),
-    "algo.ensembles.clip_gradients": ("algos/p2e_dv3/p2e_dv3_exploration.py:99", "section.clip_gradients"),
+    "algo.actor.clip_gradients": ("algos/dreamer_v3/dreamer_v3.py:390", "section.clip_gradients"),
+    "algo.critic.clip_gradients": ("algos/dreamer_v3/dreamer_v3.py:390", "section.clip_gradients"),
+    "algo.world_model.clip_gradients": ("algos/dreamer_v3/dreamer_v3.py:390", "section.clip_gradients"),
+    "algo.ensembles.clip_gradients": ("algos/dreamer_v3/dreamer_v3.py:128", "section.clip_gradients"),
     "algo.world_model.optimizer": ("algos/dreamer_v3/dreamer_v3.py:97", "instantiate(section.optimizer)"),
     "algo.ensembles.optimizer": ("algos/dreamer_v3/dreamer_v3.py:97", "instantiate(section.optimizer)"),
-    "algo.actor.moments.decay": ("algos/dreamer_v3/dreamer_v3.py:279", "m.decay"),
-    "algo.actor.moments.max": ("algos/dreamer_v3/dreamer_v3.py:279", "m.max"),
-    "algo.actor.moments.percentile": ("algos/dreamer_v3/dreamer_v3.py:279", "m.percentile"),
-    "algo.actor.moments.percentile.low": ("algos/dreamer_v3/dreamer_v3.py:279", "m.percentile.low"),
-    "algo.actor.moments.percentile.high": ("algos/dreamer_v3/dreamer_v3.py:279", "m.percentile.high"),
+    "algo.actor.moments.decay": ("algos/dreamer_v3/dreamer_v3.py:297", "m.decay"),
+    "algo.actor.moments.max": ("algos/dreamer_v3/dreamer_v3.py:297", "m.max"),
+    "algo.actor.moments.percentile": ("algos/dreamer_v3/dreamer_v3.py:297", "m.percentile"),
+    "algo.actor.moments.percentile.low": ("algos/dreamer_v3/dreamer_v3.py:297", "m.percentile.low"),
+    "algo.actor.moments.percentile.high": ("algos/dreamer_v3/dreamer_v3.py:298", "m.percentile.high"),
     "algo.encoder.cnn_channels_multiplier": ("algos/sac_ae/agent.py:188", "enc_cfg.cnn_channels_multiplier"),
     "algo.encoder.dense_units": ("algos/sac_ae/agent.py:188", "enc_cfg.dense_units"),
     "algo.encoder.mlp_layers": ("algos/sac_ae/agent.py:188", "enc_cfg.mlp_layers"),
@@ -788,10 +788,12 @@ PORT_READERS = {
     "algo.scan_unroll": ("models/blocks.py:123", "algo.scan_unroll"),
     # the harvest reads a list's and a string's methods as keys
     "batch_buckets.append": ("serving/server.py:270", 'cfg.get("batch_buckets")'),
-    "buffer.type.lower": ("algos/dreamer_v3/dreamer_v3.py:678", 'cfg.buffer.get("type")'),
+    "buffer.type.lower": ("algos/dreamer_v3/dreamer_v3.py:722", 'cfg.buffer.get("type")'),
     "diagnostics.resilience.isolation.max_staleness": ("resilience/isolation.py:83", '"max_staleness"'),
     "diagnostics.resilience.isolation.retry_budget": ("resilience/isolation.py:84", '"retry_budget"'),
     "diagnostics.resilience.isolation.refresh_every": ("resilience/isolation.py:86", '"refresh_every"'),
+    # instantiate(cfg.fabric) hands it to the Runtime, which places the shards
+    "fabric.devices": ("parallel/runtime.py:96", "shard_count(devices, accelerator)"),
     "metric.logger.root_dir": ("cli.py:483", '("root_dir", "save_dir")'),
     "metric.logger.save_dir": ("cli.py:483", '("root_dir", "save_dir")'),
 }

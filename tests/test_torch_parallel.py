@@ -9,9 +9,9 @@ shards; ``pmean_tree`` and ``all_gather_cat`` under ``run_shards`` against
 quantile over the gathered lambda values (``tests/test_parallel/
 test_dp_sharding.py::test_dv3_moments_quantile_is_global``, ported); the
 local sample sizes; the sharding audit; and each refusal: FSDP, more than
-one node, the decoupled loops, the device ring over shards, and every
-family this slice does not take (DreamerV3-JEPA, P2E-DV3/DV2/DV1,
-DreamerV2, DreamerV1, the offline loop).
+one node, the decoupled loops, the device ring over an env count the shards
+do not divide.  Every coupled family trains over shards
+(tests/test_torch_parallel_{steps,loops,offline,dv3_family,dv2_family}.py).
 """
 
 from __future__ import annotations
@@ -324,9 +324,22 @@ def test_the_decoupled_loops_are_refused_by_name(exp, tmp_path, monkeypatch):
 
 
 def test_the_device_ring_over_shards_is_refused_and_fabric_strategy_checked_as_jax_does(tmp_path, monkeypatch):
+    """The env-sharded ring over an env count the shards do not divide:
+    the factory falls back to the host buffer with the JAX factory's
+    warning (the ring itself refuses it with the JAX ring's message,
+    tests/test_torch_parallel_offline.py)."""
+    from sheeprl_tpu.data.factory import make_dreamer_replay_buffer as jax_make_dreamer_replay_buffer
+    from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer
+    from sheeprl_tpu_torch.data.factory import make_dreamer_replay_buffer
+
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match="buffer.device=True with fabric.devices=2.*multi-device"):
-        cli.run(["exp=dreamer_v3", *TINY_CPU, "fabric.devices=2", "buffer.device=True"])
+    cfg = compose(["exp=dreamer_v3", *TINY_CPU, "fabric.devices=2", "buffer.device=True"])
+    match = "needs the mesh and env.num_envs \\(3\\) divisible by the device count; falling back"
+    with pytest.warns(UserWarning, match=match):
+        rb, on_device = make_dreamer_replay_buffer(cfg, 3, str(tmp_path), 8, [CPU, CPU])
+    assert not on_device and isinstance(rb, EnvIndependentReplayBuffer)
+    with pytest.warns(UserWarning, match=match):
+        assert not jax_make_dreamer_replay_buffer(cfg, 2, 3, ("state",), str(tmp_path), 8, mesh=make_mesh(n_devices=2))[1]
     cfg = compose(["exp=ppo", *TINY_CPU, "fabric.strategy=fsdp_native"])
     with pytest.warns(UserWarning, match="Unknown fabric.strategy 'fsdp_native'"):
         cli.check_configs(cfg)
@@ -334,37 +347,6 @@ def test_the_device_ring_over_shards_is_refused_and_fabric_strategy_checked_as_j
         with warnings.catch_warnings():
             warnings.simplefilter("error")
             cli.check_configs(compose(["exp=ppo", *TINY_CPU, f"fabric.strategy={strategy}"]))
-
-
-@pytest.mark.parametrize("exp", ["dreamer_v3_jepa", "p2e_dv3_exploration", "p2e_dv3_finetuning", "dreamer_v2",
-                                 "dreamer_v1", "p2e_dv2_exploration", "p2e_dv2_finetuning", "p2e_dv1_exploration",
-                                 "p2e_dv1_finetuning"])
-def test_the_families_this_slice_does_not_take_refuse_two_shards_by_name(exp, monkeypatch):
-    import importlib
-
-    from sheeprl_tpu_torch.utils.registry import find_algorithm
-
-    finetuning = ["checkpoint.exploration_ckpt_path=x"] if exp.endswith("finetuning") else []
-    cfg = compose([f"exp={exp}", *TINY_CPU, "fabric.devices=2", *finetuning])
-    entry = find_algorithm(cfg.algo.name)
-    module = importlib.import_module(entry["module"])
-    for name in ("load_exploration_cfg", "apply_exploration_cfg"):
-        if hasattr(module, name):  # the finetuning loops read the exploration run's config first
-            monkeypatch.setattr(module, name, lambda *a, **k: None)
-    with pytest.warns(UserWarning, match="holds more than one shard"):
-        runtime = Runtime(devices=2, accelerator="cpu")
-    with pytest.raises(NotImplementedError, match=f"fabric.devices=2 for {cfg.algo.name} \\(multi-device"):
-        getattr(module, entry["entrypoint"])(runtime, cfg)
-
-
-def test_the_offline_loop_refuses_two_shards():
-    from sheeprl_tpu_torch.offline.train import offline_main
-
-    cfg = compose(["exp=sac", *TINY_CPU, "algo.offline.enabled=true", "algo.offline.dataset_dir=x"])
-    with pytest.warns(UserWarning):
-        runtime = Runtime(devices=2, accelerator="cpu")
-    with pytest.raises(NotImplementedError, match="fabric.devices=2 with algo.offline.enabled=true: multi-device"):
-        offline_main(runtime, cfg)
 
 
 @pytest.mark.parametrize("exp,overrides,match", [

@@ -203,8 +203,8 @@ def test_runtime_seeds_a_generator_and_refuses_what_it_does_not_port():
     a = torch.rand(3, generator=runtime.seed_everything(4))
     b = torch.rand(3, generator=runtime.seed_everything(4))
     assert torch.equal(a, b) and runtime.world_size == 1 and runtime.is_global_zero
-    with pytest.raises(NotImplementedError):
-        Runtime(accelerator="cpu", precision="64-true")
+    with pytest.warns(UserWarning, match="trains in float32"):  # 64-true: as the JAX package trains it
+        assert Runtime(accelerator="cpu", precision="64-true").compute_dtype == torch.float32
     # the data axis is ported (tests/test_torch_parallel.py); FSDP is not
     with pytest.warns(UserWarning, match="more than one shard"):
         assert Runtime(accelerator="cpu", devices=2).world_size == 2
