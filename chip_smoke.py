@@ -81,6 +81,26 @@ Phases, in order; any failure raises and the script exits non-zero:
             step), the two-shard offline SAC call on the card against the
             CPU, and the env-sharded replay ring on the card against the
             CPU;
+3f. decoupled — the decoupled player/trainer under deadlines
+            (``DECOUPLED_DEADLINES_S``, 45 s in all): ``python -m
+            sheeprl_tpu_torch.tools.chaos_drill --drill trainer_exception``
+            with no overrides (its default workload, decoupled PPO at
+            ``fabric.devices=2``: one player and one trainer, both on the
+            one card), its CLI child handed to an interpreter that made its
+            imports with the others, judged by the drill (exit 0,
+            ``fault_injection -> rollback -> run_end``, a final checkpoint
+            that verifies); while it runs, in this process: ``run
+            exp=ppo_decoupled fabric.devices=2`` at the ``ppo`` preset's
+            widths with ``nan_grads`` at iteration 2 under the halting
+            sentinel (``params_reject`` at staleness 1, ``rollback`` to
+            iteration 1, the player at iteration 2 bitwise iteration 1's
+            promotion, the final staleness 0), the hand-off's ms a
+            promotion; ``run exp=sac_decoupled fabric.devices=2`` at the
+            ``sac`` preset's widths, resumed from its checkpoint; one
+            decoupled PPO update at ``fabric.devices=3`` (two trainer
+            shards on the one card, bitwise equal after it); no path
+            launches the LayerNorm-GRU kernel (the JAX loops reach no Pallas
+            call);
 4. slice  — compose ``exp=dreamer_v3 env=dummy``, build DreamerV3-S on the card
             from a seed, write a run directory in the JAX package's checkpoint
             format, start the port's ``serve`` entry point and send /act
@@ -348,7 +368,7 @@ GRAD_TOLERANCE = {"float32": 1e-5, "bfloat16": 1e-5}
 # last interval is the steady state's MFU
 TRAIN_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.sync_env=False", "diagnostics.transfers=log", "metric.log_every=4",
                    "env.capture_video=False", "run_name=chip_smoke", "algo.learning_starts=256",
-                   "algo.total_steps=268", "buffer.size=1024", "checkpoint.every=100000", "metric.logger=null",
+                   "algo.total_steps=260", "buffer.size=1024", "checkpoint.every=100000", "metric.logger=null",
                    "buffer.checkpoint=True", "buffer.export=True", "seed=5"]
 MIN_GRADIENT_STEPS = 8
 # kernel vs plain gradient step from one state: the recurrent state agrees to
@@ -363,21 +383,21 @@ STEP_METRIC_RTOL = 1e-3
 STEP_GRAD_RTOL = 1e-3
 STEP_PARAM_ATOL = 2e-5
 STEP_PARAM_OUTLIERS = 1e-4
-TIMED_STEPS = 2
+TIMED_STEPS = 1
 # the chunked phase: the options the DV3 presets train with, at DreamerV3-S.
 # A resumed run waits learning_starts (64 iterations of 4 envs) before it
 # trains again, as the JAX package's does, and cannot change total_steps; so
 # the run checkpoints at iteration 110 (policy step 440, the next would be
-# 880 > 876) and runs to 219, at a replay ratio that gives it 16 gradient
-# steps (4 before the checkpoint) and the resumed run about 4
+# 880 > 876) and runs to 219, at a replay ratio that gives it 8 gradient
+# steps (2 before the checkpoint) and the resumed run 1
 CHUNKED_STEP_OPTIONS = ["fabric.precision=bf16-mixed", "algo.rssm_chunks=4", "algo.rssm_chunk_burn_in=2"]
 CHUNKED_OPTIONS = CHUNKED_STEP_OPTIONS + ["buffer.device=True", "buffer.checkpoint=True"]
 CHUNKED_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.executor=shared_memory", "env.capture_video=False",
                      "run_name=chip_smoke_chunked", "algo.learning_starts=256", "algo.total_steps=876",
-                     "algo.replay_ratio=0.026", "buffer.size=1024", "checkpoint.every=440",
+                     "algo.replay_ratio=0.013", "buffer.size=1024", "checkpoint.every=440",
                      "checkpoint.save_last=False", "metric.logger=null", "buffer.export=True", "seed=5",
                      *CHUNKED_OPTIONS]
-CHUNKED_GRADIENT_STEPS = 16
+CHUNKED_GRADIENT_STEPS = 8
 # the drills, under diagnostics=full with the presets' options at DreamerV3-S
 # widths and a cut depth (sequences of 16, learning from policy step 64, one
 # gradient step an iteration): a poisoned batch at iteration 20 under
@@ -433,8 +453,11 @@ PPO_OVERRIDES = ["exp=ppo_atari", "env=dummy", "env.id=discrete_dummy", "env.num
                  "algo.per_rank_batch_size=256", "algo.total_steps=2048", "checkpoint.every=1024",
                  "metric.log_every=1024", "run_name=chip_smoke_ppo", "seed=5"]
 PPO_EPISODE_STEPS = 5
-PPO_TIMED_UPDATES = 5
-PPO_SERVE_CLIENTS, PPO_SERVE_REQUESTS = 16, 16
+# the executors' comparison runs: two iterations of 8 envs x 64 steps (two
+# minibatches of 256 an epoch)
+PPO_COMPARE_DEPTH = ["algo.rollout_steps=64", "algo.total_steps=1024"]
+PPO_TIMED_UPDATES = 3
+PPO_SERVE_CLIENTS, PPO_SERVE_REQUESTS = 16, 6
 # the JEPA phase: exp=dreamer_v3_jepa at its composed XL widths (recurrent
 # 4096, dense 1024, CNN multiplier 96, 5 layers, projector and predictor of
 # 1024; batch 16 x 64, horizon 15, fp32, no decoder; 4 envs), under the
@@ -446,33 +469,33 @@ PPO_SERVE_CLIENTS, PPO_SERVE_REQUESTS = 16, 16
 # package's does) and, its Ratio restored as saved, owes its first gradient
 # step some 14 iterations after that
 JEPA_OVERRIDES = ["exp=dreamer_v3_jepa", "env=dummy", "env.capture_video=False", "run_name=chip_smoke_jepa",
-                  "algo.learning_starts=256", "algo.total_steps=592", "algo.replay_ratio=0.022", "buffer.size=1024",
+                  "algo.learning_starts=256", "algo.total_steps=592", "algo.replay_ratio=0.016", "buffer.size=1024",
                   "buffer.checkpoint=True", "checkpoint.every=264", "checkpoint.save_last=False",
                   "metric.logger=null", "metric.log_every=16", "seed=5"]
 JEPA_MIN_GRADIENT_STEPS = 4
-JEPA_TIMED_STEPS = 2
+JEPA_TIMED_STEPS = 1
 # the P2E phase: exp=p2e_dv3_exploration at its composed XL widths
 # (DreamerV3-XL with the [rgb] decoder, an ensemble of 8 MLPs of 1024 x 5,
 # the intrinsic and extrinsic exploration critics; batch 16 x 64, horizon
 # 15, fp32, 4 envs) under the default diagnostics, cut in depth as JEPA's
 # run: learning from policy step 256, checkpoints (with the replay) at
-# iterations 66 and 132, a replay ratio that owes about 6 gradient steps by
+# iterations 66 and 132, a replay ratio that owes 5 gradient steps by
 # iteration 148 and the run resumed from the first checkpoint one more.
 # Finetuning goes on from the last checkpoint and its replay: 4 iterations
 # of prefill, then the player acts with the exploration actor until the
 # first gradient step (iteration 7 at this replay ratio) and with the task
-# actor after it; about 5 gradient steps in 16 iterations
+# actor after it; 2 gradient steps in 16 iterations
 P2E_OVERRIDES = ["exp=p2e_dv3_exploration", "env=dummy", "env.capture_video=False", "run_name=chip_smoke_p2e",
-                 "algo.learning_starts=256", "algo.total_steps=592", "algo.replay_ratio=0.02", "buffer.size=1024",
+                 "algo.learning_starts=256", "algo.total_steps=592", "algo.replay_ratio=0.016", "buffer.size=1024",
                  "buffer.checkpoint=True", "checkpoint.every=264", "checkpoint.save_last=False", "metric.logger=null",
                  "metric.log_every=16", "seed=5"]
 P2E_FINETUNE_OVERRIDES = ["exp=p2e_dv3_finetuning", "env=dummy", "env.capture_video=False",
                           "run_name=chip_smoke_p2e_finetuning", "algo.learning_starts=16", "algo.total_steps=64",
-                          "algo.replay_ratio=0.1", "buffer.size=1024", "buffer.load_from_exploration=True",
+                          "algo.replay_ratio=0.05", "buffer.size=1024", "buffer.load_from_exploration=True",
                           "buffer.checkpoint=False", "checkpoint.every=100000", "checkpoint.save_last=True",
                           "metric.logger=null", "metric.log_every=16", "seed=5"]
 P2E_MIN_GRADIENT_STEPS = 4
-P2E_TIMED_STEPS = 2
+P2E_TIMED_STEPS = 1
 # the A2C phase: exp=a2c (an MLP of 64 x 2 on `state`, RMSprop, the whole
 # rollout in one step) on the dummy env, 4 envs x 5 steps, 10 iterations, a
 # checkpoint after the 5th and the 10th
@@ -484,21 +507,22 @@ A2C_SERVE_CLIENTS, A2C_SERVE_REQUESTS = 8, 8
 # bounded to [-1, 1] (bounded_dummy_actions) through env.executor=sync, each
 # preset at its own widths, cut in depth, with its replay checkpointed:
 # SAC (hidden 256, 2 critics, batch 256, replay ratio 1) on 4 envs, learning
-# from policy step 256, 1,024 steps (about 770 gradient steps); DroQ
-# (dropout 0.01; the preset's replay ratio 20 cut to 5, its loop of
-# gradient steps a policy step as long as the ratio) on 2 envs, 256 steps (about 970
-# gradient steps; 256 rows, a batch for its offline run), a checkpoint at
+# from policy step 128, 512 steps (about 380 gradient steps; 512 rows, two
+# batches for its offline run); DroQ (dropout 0.01; the preset's replay
+# ratio 20 cut to 2, its loop of gradient steps a policy step as long as
+# the ratio) on 2 envs, 256 steps (about 390 gradient steps; 256 rows, a
+# batch for its offline run), a checkpoint at
 # step 160 (its resume waits learning_starts again, to iteration 113, then
 # trains 16 iterations) and at the end; SAC-AE (64x64 rgb with a 3-frame stack plus
 # state, features 64, actor and critics 1,024, batch 128) on 2 envs, 192
 # steps (about 130 gradient steps); SAC and SAC-AE checkpoint at half way
 # and at the end.  SAC and DroQ export their replay (buffer.export)
 SAC_OVERRIDES = ["exp=sac", "env=dummy", "env.id=continuous_dummy", "env.executor=sync", "env.capture_video=False",
-                 "env.num_envs=4", "algo.learning_starts=256", "algo.total_steps=1024", "buffer.size=1024",
-                 "buffer.checkpoint=True", "buffer.export=True", "checkpoint.every=512", "metric.logger=null",
-                 "metric.log_every=256", "run_name=chip_smoke_sac", "seed=5"]
+                 "env.num_envs=4", "algo.learning_starts=128", "algo.total_steps=512", "buffer.size=1024",
+                 "buffer.checkpoint=True", "buffer.export=True", "checkpoint.every=256", "metric.logger=null",
+                 "metric.log_every=128", "run_name=chip_smoke_sac", "seed=5"]
 DROQ_OVERRIDES = ["exp=droq", "env=dummy", "env.id=continuous_dummy", "env.executor=sync", "env.capture_video=False",
-                  "env.num_envs=2", "algo.learning_starts=64", "algo.total_steps=256", "algo.replay_ratio=5",
+                  "env.num_envs=2", "algo.learning_starts=64", "algo.total_steps=256", "algo.replay_ratio=2",
                   "buffer.size=256",
                   "buffer.checkpoint=True", "buffer.export=True", "checkpoint.every=160",
                   "algo.mlp_keys.encoder=[state]",
@@ -509,11 +533,11 @@ SAC_AE_OVERRIDES = ["exp=sac_ae", "env=dummy", "env.id=continuous_dummy", "env.e
                     "buffer.size=256", "buffer.checkpoint=True", "checkpoint.every=96", "metric.logger=null",
                     "metric.log_every=96", "run_name=chip_smoke_sac_ae", "seed=5"]
 SAC_SERVE_CLIENTS, SAC_SERVE_REQUESTS = 8, 8
-SAC_TIMED_STEPS = 5
+SAC_TIMED_STEPS = 3
 # this slice's group: DreamerV3-S with MinedojoActor on the MineDojo-shaped
 # env (minedojo_shaped_env, env.executor=sync) at batch 16 x 64, horizon 15,
 # fp32; 2 envs, learning starts at iteration 64 (64 rows of each), replay
-# ratio 1/8: 8 gradient steps by iteration 72; and the optimizers written
+# ratio 1/4: 4 gradient steps by iteration 72; and the optimizers written
 # out from optax, one update each on the card against the CPU.
 MINEDOJO_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.id=minedojo_dummy", "env.executor=sync", "env.num_envs=2",
                       "env.capture_video=False", "run_name=chip_smoke_minedojo",
@@ -521,7 +545,7 @@ MINEDOJO_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.id=minedojo_dummy", "e
                       "algo.cnn_keys.encoder=[rgb]", "algo.cnn_keys.decoder=[rgb]",
                       "algo.mlp_keys.encoder=[state,mask_action_type,mask_craft_smelt,mask_equip_place,mask_destroy]",
                       "algo.mlp_keys.decoder=[state]", "algo.learning_starts=128", "algo.total_steps=144",
-                      "algo.replay_ratio=0.5", "buffer.size=256", "checkpoint.every=100000", "metric.logger=null",
+                      "algo.replay_ratio=0.25", "buffer.size=256", "checkpoint.every=100000", "metric.logger=null",
                       "metric.log_every=16", "seed=5"]
 OPTIMIZER_VARIANTS = {
     "sgd_nesterov": ("sgd", {"momentum": 0.9, "nesterov": True}),
@@ -632,13 +656,13 @@ WARM_IMPORTS = (
 # batch 16 x 50, horizon 15, fp32) on the dummy env, 4 envs, cut in depth
 # as JEPA's run: learning from policy step 256, checkpoints (with the
 # replay) at iterations 66 and 132, the run to 148; at replay ratio 0.05
-# about 16 gradient steps, and the run resumed from the first checkpoint
+# 8 gradient steps, and the run resumed from the first checkpoint
 # trains again from iteration 131.  The episode-buffer run samples whole
 # episodes of the multi-discrete dummy (128 steps, longer than the
 # sequences of 50): it learns once every env has closed one (iteration
 # 136).  The bf16-mixed run learns from iteration 64 of 76
 DV2_OVERRIDES = ["exp=dreamer_v2", "env=dummy", "env.capture_video=False", "run_name=chip_smoke_dv2",
-                 "algo.learning_starts=256", "algo.total_steps=592", "algo.replay_ratio=0.05", "buffer.size=1024",
+                 "algo.learning_starts=256", "algo.total_steps=592", "algo.replay_ratio=0.025", "buffer.size=1024",
                  "buffer.checkpoint=True", "checkpoint.every=264", "checkpoint.save_last=False", "metric.logger=null",
                  "metric.log_every=16", "seed=5"]
 DV2_EPISODE_OVERRIDES = ["exp=dreamer_v2", "env=dummy", "env.id=multidiscrete_dummy", "env.capture_video=False",
@@ -656,11 +680,11 @@ DV2_MIN_GRADIENT_STEPS = 4
 # 32, dense 400, recurrent 200, stochastic 30, hidden 200; batch 50 x 50,
 # horizon 15, fp32), cut in depth as DreamerV2's run
 DV1_OVERRIDES = ["exp=dreamer_v1", "env=dummy", "env.capture_video=False", "run_name=chip_smoke_dv1",
-                 "algo.learning_starts=256", "algo.total_steps=592", "algo.replay_ratio=0.03", "buffer.size=1024",
+                 "algo.learning_starts=256", "algo.total_steps=592", "algo.replay_ratio=0.02", "buffer.size=1024",
                  "buffer.checkpoint=True", "checkpoint.every=264", "checkpoint.save_last=False", "metric.logger=null",
                  "metric.log_every=16", "seed=5"]
 DV1_MIN_GRADIENT_STEPS = 4
-DREAMER_TIMED_STEPS = 2
+DREAMER_TIMED_STEPS = 1
 # the Plan2Explore-DV2 and DV1 phases: exp=p2e_dv2_exploration's widths
 # (64x64 rgb, CNN multiplier 48, dense 400 x 4, recurrent 400, stochastic
 # 32 x 32, hidden 400, an ensemble of 10 x 400 x 4; batch 16 x 50, horizon
@@ -673,7 +697,7 @@ DREAMER_TIMED_STEPS = 2
 # steps, and the run resumed from the first checkpoint one more.
 # Finetuning goes on from the last checkpoint and its replay: 4 iterations
 # of prefill, the exploration actor until the first gradient step and the
-# task actor after it; about 5 gradient steps in 16 iterations
+# task actor after it; 2 gradient steps in 16 iterations
 P2E_DREAMER_OVERRIDES = {
     version: [f"exp=p2e_dv{version}_exploration", "env=dummy", "env.capture_video=False",
               f"run_name=chip_smoke_p2e_dv{version}", "algo.learning_starts=256", "algo.total_steps=592",
@@ -683,7 +707,7 @@ P2E_DREAMER_OVERRIDES = {
 P2E_DREAMER_FINETUNE_OVERRIDES = {
     version: [f"exp=p2e_dv{version}_finetuning", "env=dummy", "env.capture_video=False",
               f"run_name=chip_smoke_p2e_dv{version}_finetuning", "algo.learning_starts=16", "algo.total_steps=64",
-              "algo.replay_ratio=0.1", "buffer.size=1024", "buffer.load_from_exploration=True",
+              "algo.replay_ratio=0.05", "buffer.size=1024", "buffer.load_from_exploration=True",
               "buffer.checkpoint=False", "checkpoint.every=100000", "checkpoint.save_last=True",
               "metric.logger=null", "metric.log_every=16", "seed=5"]
     for version in (2, 1)}
@@ -693,18 +717,20 @@ P2E_DREAMER_MIN_GRADIENT_STEPS = 4
 # imaginations (one in the finetuning's DreamerV2 step), one launch a call;
 # P2E-DV1's plain GRU none
 P2E_DREAMER_LAUNCHES = {2: (80, 65), 1: (0, 0)}
-P2E_DREAMER_TIMED_STEPS = 2
+P2E_DREAMER_TIMED_STEPS = 1
 # the recurrent PPO phase: exp=ppo_recurrent's widths (16 envs x 512 rollout
-# steps, sequences of 16 in 8 minibatches, 8 epochs, LSTM 64, encoder 64,
+# steps, sequences of 16 in 8 minibatches, LSTM 64, encoder 64,
 # adamw with clip 0.5) on the dummy env's `state` (CartPole needs
-# gymnasium), two iterations, a checkpoint after each; the discrete dummy's
+# gymnasium), cut in depth to 2 epochs (the preset's 8) and two iterations,
+# a checkpoint after each; the discrete dummy's
 # episodes end at their 5th step, so every sequence holds resets
 PPO_REC_OVERRIDES = ["exp=ppo_recurrent", "env=dummy", "env.id=discrete_dummy", "env.capture_video=False",
                      "algo.cnn_keys.encoder=[]", "algo.mlp_keys.encoder=[state]", "algo.total_steps=16384",
+                     "algo.update_epochs=2",
                      "checkpoint.every=8192", "metric.log_every=8192", "metric.logger=null",
                      "run_name=chip_smoke_ppo_recurrent", "seed=5"]
 PPO_REC_SESSIONS, PPO_REC_ROUNDS = 2, 6
-PPO_REC_TIMED_UPDATES = 3
+PPO_REC_TIMED_UPDATES = 2
 # card vs CPU, two gradient steps from a trained checkpoint in fp32 (TF32
 # off): SAC to 1e-4 relative; SAC-AE's four convolutions hold some 10^7
 # ReLU units at batch 128, and a unit at its kink is on in one library and
@@ -714,26 +740,27 @@ CARD_CPU_METRIC_RTOL = {"sac": 1e-4, "sac_ae": 1e-3, "sac_offline": 1e-4, "droq_
 CARD_CPU_PARAM_ATOL = {"sac": 1e-4, "sac_ae": 1e-3, "sac_offline": 1e-4, "droq_offline": 1e-4}
 # the offline phases: DreamerV3-S (exp=dreamer_v3's widths: batch 16 x 64,
 # horizon 15, fp32) trains with no env on the fp32 training run's live
-# export, 2 iterations of 4 gradient steps with a checkpoint after each (79
+# export, 2 iterations of 2 gradient steps with a checkpoint after each (79
 # kernel launches a step: 64 dynamic steps at 16 rows, 15 imagined at 1,024),
-# then resumes from the first and continues the offline counters (4 more
+# then resumes from the first and continues the offline counters (2 more
 # steps).  The dummy env's Discrete(2) actions are stored one-hot; the run
 # declares them, so its agent is the online run's.  The chunked bf16 step
 # trains 4 steps on the device ring's export (its rssm_* keys); SAC and DroQ
 # at their widths (hidden 256, batch 256) with the conservative penalty on
 # their phases' exports, 4 and 2 gradient steps
 OFFLINE_DV3_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.capture_video=False", "algo.offline.enabled=true",
-                         "algo.offline.actions_dim=[2]", "algo.offline.is_continuous=False", "algo.total_steps=8",
-                         "algo.offline.grad_steps_per_iter=4", "checkpoint.every=4", "metric.logger=null",
-                         "metric.log_every=4", "run_name=chip_smoke_offline", "seed=5"]
+                         "algo.offline.actions_dim=[2]", "algo.offline.is_continuous=False", "algo.total_steps=4",
+                         "algo.offline.grad_steps_per_iter=2", "checkpoint.every=2", "metric.logger=null",
+                         "metric.log_every=2", "run_name=chip_smoke_offline", "seed=5"]
 OFFLINE_CHUNKED_OVERRIDES = [*OFFLINE_DV3_OVERRIDES, *CHUNKED_STEP_OPTIONS, "algo.total_steps=4",
-                             "algo.offline.grad_steps_per_iter=2", "run_name=chip_smoke_offline_chunked"]
-OFFLINE_DV3_STEPS, OFFLINE_CHUNKED_STEPS = 8, 4
+                             "algo.offline.grad_steps_per_iter=2", "checkpoint.every=4", "metric.log_every=4",
+                             "run_name=chip_smoke_offline_chunked"]
+OFFLINE_DV3_STEPS, OFFLINE_CHUNKED_STEPS = 4, 4
 OFFLINE_SAC_OPTIONS = ["env=dummy", "env.id=continuous_dummy", "env.capture_video=False", "algo.offline.enabled=true",
                        "algo.offline.cql_alpha=1.0", "algo.offline.action_low=-1", "algo.offline.action_high=1",
                        "algo.total_steps=4", "checkpoint.every=2", "metric.logger=null", "metric.log_every=2",
                        "seed=5"]
-# gradient steps an iteration: SAC's 2 x 256 rows of the 1,024 its run
+# gradient steps an iteration: SAC's 2 x 256 rows of the 512 its run
 # stored; DroQ's run stored 256, one batch of each of its two streams
 OFFLINE_SAC_GRAD_STEPS = {"sac": 2, "droq": 1}
 # phase 17 times the fp32 step under the default diagnostics on the offline
@@ -780,21 +807,49 @@ PARALLEL_SAC_STREAMS, PARALLEL_SAC_ROWS = 2, 1024
 PARALLEL_RING_ENVS, PARALLEL_RING_STEPS = 4, 96
 PARALLEL_FAMILIES_DEADLINES_S = {"parallel_families": 45.0, "parallel_dv2_step": 12.0, "parallel_offline": 25.0}
 
+# the decoupled group (45 s), the player/trainer split (device 0 the player,
+# devices 1..N-1 the trainer's shards; on the one card all cuda:0): (1) the
+# chaos drill of a trainer_exception on its default workload (decoupled PPO,
+# one player and one trainer), its CLI child in an interpreter of
+# start_child_runners.  While it runs, in this process: (2) decoupled PPO at
+# the ppo preset's widths (dense 64 x 2 on the dummy env's state, batch 64)
+# cut in depth (4 envs x 64 steps, 2 epochs, 5 iterations), nan_grads at
+# iteration 2 under the halting sentinel: the gate rejects, the trainer rolls
+# back to iteration 1, the player keeps iteration 1's parameters; (3)
+# decoupled SAC at the sac preset's widths (hidden 256, batch 256), 4 envs,
+# learning from step 32, resumed from its mid-run checkpoint; (4) one
+# decoupled PPO update at fabric.devices=3 (two trainer shards)
+DECOUPLED_PPO_OVERRIDES = ["exp=ppo_decoupled", "env=dummy", "env.id=discrete_dummy", "env.capture_video=False",
+                           "env.executor=sync", "fabric.devices=2", "env.num_envs=4", "algo.rollout_steps=64",
+                           "algo.update_epochs=2", "algo.total_steps=1280", "algo.cnn_keys.encoder=[]",
+                           "algo.mlp_keys.encoder=[state]", "checkpoint.every=512", "metric.logger=null",
+                           "metric.log_every=256", "algo.run_test=False", "run_name=chip_smoke_decoupled_ppo",
+                           "seed=5", "diagnostics.telemetry.mfu.cost_analysis=False"]
+DECOUPLED_FAULT = ["diagnostics.resilience.chaos.schedule=[{iter: 2, fault: nan_grads}]",
+                   "diagnostics.sentinel.enabled=True", "diagnostics.sentinel.policy=halt"]
+DECOUPLED_SAC_OVERRIDES = ["exp=sac_decoupled", "env=dummy", "env.id=continuous_dummy", "env.executor=sync",
+                           "env.capture_video=False", "fabric.devices=2", "env.num_envs=4", "algo.learning_starts=32",
+                           "algo.total_steps=128", "buffer.size=256", "buffer.checkpoint=True", "checkpoint.every=64",
+                           "metric.logger=null", "metric.log_every=64", "algo.run_test=False",
+                           "run_name=chip_smoke_decoupled_sac", "seed=5",
+                           "diagnostics.telemetry.mfu.cost_analysis=False"]
+DECOUPLED_DEADLINES_S = {"decoupled": 45.0, "decoupled_ppo": 15.0, "decoupled_sac": 20.0}
+
 # phase 18 (records): a profiled DreamerV3-S run with the model registry
-# asked for (learning from policy step 256 of 4 envs: 2 iterations of 4
+# asked for (learning from policy step 256 of 4 envs: 1 iteration of 4
 # gradient steps), the report tools on the earlier phases' runs, a 2-trial
-# search over JEPA-XS through the kernel (each trial 65 iterations, the last
-# 2 training), and ``registration`` refusing without mlflow.  A whole-run
+# search over JEPA-XS through the kernel (each trial 64 iterations, the last
+# one training), and ``registration`` refusing without mlflow.  A whole-run
 # trace holds every op of the run (431 MiB for 12 DV3-S gradient steps), so
 # the run is kept this short
 RECORDS_OVERRIDES = ["exp=dreamer_v3", "env=dummy", "env.capture_video=False", "run_name=chip_smoke_records",
                      "model_manager=dreamer_v3",
-                     "algo.learning_starts=256", "algo.total_steps=260", "buffer.size=1024",
+                     "algo.learning_starts=256", "algo.total_steps=256", "buffer.size=1024",
                      "checkpoint.every=100000", "checkpoint.save_last=False", "metric.logger=null", "seed=5",
                      "metric.profiler.enabled=True", "model_manager.disabled=False"]
 RECORDS_REPORTS = ("journal", "health", "goodput", "memory", "trace", "dataset")
 RECORDS_SEARCH = ["--exp=dreamer_v3_jepa_xs", "--env=dummy", "--n-trials=2", "--sampler=random", "--scheduler=asha",
-                  "--rungs=1", "--fidelity-frac=1.0", "--full-steps=260", "--override=algo.learning_starts=256",
+                  "--rungs=1", "--fidelity-frac=1.0", "--full-steps=256", "--override=algo.learning_starts=256",
                   "--override=buffer.size=1024", "--override=metric.logger=null", "--override=env.capture_video=False"]
 # a report tool's subprocess: the tool run as ``python -m``, then the modules
 # it left loaded that a reader must not need
@@ -2247,7 +2302,8 @@ def run_resume(chunked: dict) -> dict:
         restored["ratio"] = self.state_dict()
         return out
 
-    overrides = chunked["overrides"] + [f"checkpoint.resume_from={chunked['run_dir']}", "checkpoint.save_last=True"]
+    overrides = chunked["overrides"] + [f"checkpoint.resume_from={chunked['run_dir']}", "checkpoint.save_last=True",
+                                        "diagnostics.telemetry.mfu.cost_analysis=False"]
     cfg = compose(overrides)
     with mock.patch.object(dv3, "load_learner_state", spy_learner), \
             mock.patch.object(DeviceSequentialReplayBuffer, "load_state_dict", spy_ring), \
@@ -2498,7 +2554,7 @@ def run_ppo(build_dir: Path, executor: str, compare: bool = False, tensorboard: 
     root = (build_dir / (f"ppo_{executor}_compare" if compare else f"ppo_{executor}")).resolve()
     overrides = PPO_OVERRIDES + [f"env.executor={executor}", f"root_dir={root}", f"fabric.accelerator={device_name}"]
     if compare:
-        overrides += ["algo.run_test=False", "checkpoint.every=0"]
+        overrides += ["algo.run_test=False", "checkpoint.every=0", *PPO_COMPARE_DEPTH]
     if tensorboard:
         # the default logger; it fails loudly where the card cannot import it
         import torch.utils.tensorboard  # noqa: F401
@@ -2591,7 +2647,7 @@ def run_ppo_resume(ppo: dict) -> dict:
     first = ppo["checkpoints"][0]
     saved = load_state(first)
     overrides = [o for o in ppo["overrides"] if not o.startswith("metric.logger")] + [
-        "metric.logger=null", f"checkpoint.resume_from={first}", "algo.run_test=False"]
+        "metric.logger=null", f"checkpoint.resume_from={first}", "algo.run_test=False", "diagnostics.telemetry.mfu.cost_analysis=False"]
     restored = {}
     adam_load = torch.optim.Adam.load_state_dict
 
@@ -2856,7 +2912,8 @@ def run_jepa_resume(jepa: dict) -> dict:
         return moments
 
     # no checkpoint at its end: nothing reads it, and an XL one takes seconds
-    overrides = jepa["overrides"] + [f"checkpoint.resume_from={jepa['mid_checkpoint']}", "checkpoint.every=100000"]
+    overrides = jepa["overrides"] + [f"checkpoint.resume_from={jepa['mid_checkpoint']}", "checkpoint.every=100000",
+                                     "diagnostics.telemetry.mfu.cost_analysis=False"]
     cfg = compose(overrides)
     with mock.patch.object(dv3, "load_learner_state", spy_learner):
         fused_layernorm_gru.launches = 0  # the main path starts here
@@ -3103,7 +3160,8 @@ def run_p2e_resume(p2e: dict) -> dict:
         return moments
 
     # no checkpoint at its end: nothing reads it, and an XL one takes seconds
-    overrides = p2e["overrides"] + [f"checkpoint.resume_from={p2e['mid_checkpoint']}", "checkpoint.every=100000"]
+    overrides = p2e["overrides"] + [f"checkpoint.resume_from={p2e['mid_checkpoint']}", "checkpoint.every=100000",
+                                    "diagnostics.telemetry.mfu.cost_analysis=False"]
     cfg = compose(overrides)
     with mock.patch.object(dv3, "load_learner_state", spy_learner):
         fused_layernorm_gru.launches = 0  # the main path starts here
@@ -3156,7 +3214,8 @@ def run_p2e_finetune(build_dir: Path, p2e: dict, device_name: str = "cuda", over
 
     overrides = (overrides or P2E_FINETUNE_OVERRIDES) + [f"root_dir={(build_dir / where).resolve()}",
                                                          f"fabric.accelerator={device_name}",
-                                                         f"checkpoint.exploration_ckpt_path={p2e['checkpoint']}"]
+                                                         f"checkpoint.exploration_ckpt_path={p2e['checkpoint']}",
+                                                         "diagnostics.telemetry.mfu.cost_analysis=False"]
     fused_layernorm_gru.launches = 0  # the main path starts here
     out = cli.run(overrides)
     torch.cuda.synchronize()
@@ -3280,7 +3339,7 @@ def run_a2c(build_dir: Path, device_name: str = "cuda") -> dict:
         return rms_load(self, state_dict)
 
     with mock.patch.object(RMSprop, "load_state_dict", spy):
-        resumed = cli.run(overrides + [f"checkpoint.resume_from={first}", "algo.run_test=False"])
+        resumed = cli.run(overrides + [f"checkpoint.resume_from={first}", "algo.run_test=False", "diagnostics.telemetry.mfu.cost_analysis=False"])
     saved_nu = [np.asarray(v) for _, v in _leaves(saved["opt_state"][0][0][0])]
     if (resumed["start_iter"] != saved["iter_num"] + 1 or resumed["iterations"] != 5
             or not np.isfinite(resumed["metric_rows"]).all() or len(restored.get("nu", [])) != len(saved_nu)
@@ -4417,6 +4476,232 @@ def run_parallel_families(build_dir: Path, runner, device_name: str = "cuda") ->
                          **offline["launches"]}}
 
 
+def _host_state(module) -> list:
+    """Host copies of a module's parameters and buffers, in
+    ``parallel/dp.py::state_tensors``' order."""
+    from sheeprl_tpu_torch.parallel.dp import state_tensors
+
+    return [t.detach().to("cpu", copy=True) for t in state_tensors(module)]
+
+
+def _same_bytes(a: list, b: list) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(x.dtype == y.dtype and torch.equal(x.reshape(-1).view(torch.uint8),
+                                                                       y.reshape(-1).view(torch.uint8))
+                                    for x, y in zip(a, b))
+
+
+def run_decoupled_ppo(root: Path, device_name: str = "cuda") -> dict:
+    """(2) ``run exp=ppo_decoupled fabric.devices=2`` with ``nan_grads`` at
+    iteration 2 under the halting sentinel: the journal's ``params_reject``
+    (``nonfinite_update``, staleness 1, no escalation) then ``rollback`` to
+    iteration 1, the final interval's ``Telemetry/param_staleness`` back to
+    0 and ``run_end`` completed; the player's parameters at iteration 2's
+    rejected gate bitwise the ones promoted at iteration 1 (read through
+    the loop's hand-off, ``ppo_decoupled.promote``, and the facade's gate);
+    the hand-off's ms a promotion.  (4) one decoupled PPO update at
+    ``fabric.devices=3``: two trainer shards, bitwise equal after it."""
+    import numpy as np
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.algos.ppo import ppo_decoupled
+    from sheeprl_tpu_torch.diagnostics import Diagnostics
+    from sheeprl_tpu_torch.diagnostics.journal import read_journal
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+
+    seen = {"player": None, "iter": None, "promoted": {}, "rejected": {}}
+    promote, gate = ppo_decoupled.promote, Diagnostics.gate_promotion
+
+    def promote_spy(player, trainer):
+        ms = promote(player, trainer)
+        seen["player"] = player
+        seen["promoted"][seen["iter"]] = _host_state(player)
+        return ms
+
+    def gate_spy(diag, iter_num, *args, **kwargs):
+        seen["iter"] = iter_num
+        verdict = gate(diag, iter_num, *args, **kwargs)
+        if not verdict:
+            seen["rejected"][iter_num] = _host_state(seen["player"])
+        return verdict
+
+    overrides = DECOUPLED_PPO_OVERRIDES + DECOUPLED_FAULT + [f"root_dir={root / 'ppo'}",
+                                                             f"fabric.accelerator={device_name}"]
+    out = {"launches": {}}
+    t0 = time.monotonic()
+    with mock.patch.object(ppo_decoupled, "promote", promote_spy), \
+            mock.patch.object(Diagnostics, "gate_promotion", gate_spy):
+        fused_layernorm_gru.launches = 0  # the main path starts here
+        run = cli.run(overrides)
+        out["launches"]["decoupled_ppo"] = fused_layernorm_gru.launches  # the main path ends here
+    events = read_journal(str(Path(run["log_dir"]) / "journal.jsonl"))
+    rejects = [e for e in events if e["event"] == "params_reject"]
+    rollbacks = [e for e in events if e["event"] == "rollback"]
+    last = next((e["metrics"] for e in reversed(events) if e["event"] == "metrics"), {})
+    if ([(e["iter_num"], e["reason"], e["staleness"], e["escalate"]) for e in rejects]
+            != [(2, "nonfinite_update", 1, False)]
+            or [(e["iter_num"], e["restored_iter"]) for e in rollbacks] != [(2, 1)]
+            or last.get("Telemetry/param_staleness") != 0 or events[-1].get("status") != "completed"
+            or run["gate"] != [(1, True), (2, False), (3, True), (4, True), (5, True)] or run["rollbacks"] != [2]
+            or not run["replicas_equal"] or out["launches"]["decoupled_ppo"] != 0):
+        raise AssertionError(f"decoupled ppo: params_reject {rejects}, rollback {rollbacks}, final staleness "
+                             f"{last.get('Telemetry/param_staleness')}, run_end {events[-1]}, gate {run['gate']}, "
+                             f"rollbacks {run['rollbacks']}, {out['launches']['decoupled_ppo']} ln_gru launches")
+    if sorted(seen["rejected"]) != [2] or not _same_bytes(seen["rejected"][2], seen["promoted"][1]) \
+            or _same_bytes(seen["promoted"][3], seen["promoted"][1]) or run["player"] is not seen["player"]:
+        raise AssertionError(f"decoupled ppo: the player at iteration 2's rejected gate is not bitwise iteration "
+                             f"1's promotion (rejected at {sorted(seen['rejected'])}, promoted at "
+                             f"{sorted(seen['promoted'])})")
+    out["ppo"] = {"reject": {k: rejects[0][k] for k in ("iter_num", "reason", "staleness", "escalate")},
+                  "rollback": {k: rollbacks[0][k] for k in ("iter_num", "restored_iter", "retries_left")},
+                  "gate": run["gate"], "final_staleness": last.get("Telemetry/param_staleness"),
+                  "handoff_ms": run["handoff_ms"], "rows": len(run["metric_rows"]),
+                  "final": run["metric_rows"][-1].tolist(), "seconds": time.monotonic() - t0,
+                  "player_tensors": len(seen["promoted"][1]),
+                  "player_bytes": sum(t.numel() * t.element_size() for t in seen["promoted"][1])}
+
+    # one decoupled update over two trainer shards of the one card
+    t0 = time.monotonic()
+    three = [o for o in DECOUPLED_PPO_OVERRIDES if not o.startswith(("fabric.devices=", "algo.total_steps="))] + [
+        "fabric.devices=3", "algo.total_steps=256", "checkpoint.save_last=False", f"root_dir={root / 'ppo_3'}",
+        f"fabric.accelerator={device_name}", "run_name=chip_smoke_decoupled_ppo_3"]
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    run = cli.run(three)
+    out["launches"]["decoupled_ppo_3"] = fused_layernorm_gru.launches  # the main path ends here
+    if (run["trainer_shards"] != 2 or not run["replicas_equal"] or run["gate"] != [(1, True)]
+            or run["metric_rows"].shape[0] != 1 or not np.isfinite(run["metric_rows"]).all()
+            or out["launches"]["decoupled_ppo_3"] != 0):
+        raise AssertionError(f"decoupled ppo at fabric.devices=3: {run['trainer_shards']} trainer shards, replicas "
+                             f"equal {run['replicas_equal']}, gate {run['gate']}, metric rows {run['metric_rows']}")
+    out["ppo_3"] = {"trainer_shards": run["trainer_shards"], "updates": run["updates_per_iteration"],
+                    "final": run["metric_rows"][-1].tolist(), "handoff_ms": run["handoff_ms"],
+                    "seconds": time.monotonic() - t0}
+    return out
+
+
+def run_decoupled_sac(root: Path, device_name: str = "cuda") -> dict:
+    """(3) ``run exp=sac_decoupled fabric.devices=2`` at the ``sac``
+    preset's widths: finite metrics, every promotion handed to the player's
+    actor, the trainer replicas bitwise equal, verified checkpoints with the
+    Ratio, the replay and the global ``batch_size``; resumed from the
+    mid-run one, which restores them and trains on."""
+    import numpy as np
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    overrides = DECOUPLED_SAC_OVERRIDES + [f"root_dir={root / 'sac'}", f"fabric.accelerator={device_name}"]
+    out = {"launches": {}}
+    t0 = time.monotonic()
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    run = cli.run(overrides)
+    out["launches"]["decoupled_sac"] = fused_layernorm_gru.launches  # the main path ends here
+    ckpts = run["checkpoints"]
+    saved = load_state(ckpts[0]) if ckpts else {}
+    if (run["gradient_steps"] < 1 or not run["replicas_equal"] or not np.isfinite(run["metric_rows"]).all()
+            or not all(promoted for _, promoted in run["gate"]) or len(run["handoff_ms"]) != len(run["gate"])
+            or len(ckpts) != 2 or any(verify_checkpoint(c) != (True, "verified") for c in ckpts)
+            or saved.get("batch_size") != int(run["family"].cfg.algo.per_rank_batch_size)
+            or "ratio" not in saved or saved.get("rb") is None or out["launches"]["decoupled_sac"] != 0):
+        raise AssertionError(f"decoupled sac: {run['gradient_steps']} gradient steps, replicas equal "
+                             f"{run['replicas_equal']}, gate {run['gate']}, checkpoints {ckpts}, batch_size "
+                             f"{saved.get('batch_size')}, {out['launches']['decoupled_sac']} ln_gru launches")
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    resumed = cli.run(overrides + [f"checkpoint.resume_from={ckpts[0]}", f"root_dir={root / 'sac_resumed'}"])
+    out["launches"]["decoupled_sac_resume"] = fused_layernorm_gru.launches  # the main path ends here
+    if (resumed["start_iter"] != saved["iter_num"] + 1 or resumed["gradient_steps"] < 1 or not resumed["replicas_equal"]
+            or not np.isfinite(resumed["metric_rows"]).all() or out["launches"]["decoupled_sac_resume"] != 0):
+        raise AssertionError(f"decoupled sac resumed from {ckpts[0]}: start_iter {resumed['start_iter']} (saved "
+                             f"iteration {saved['iter_num']}), {resumed['gradient_steps']} gradient steps")
+    out["sac"] = {"iterations": run["iterations"], "gradient_steps": run["gradient_steps"],
+                  "promotions": len(run["handoff_ms"]), "handoff_ms": run["handoff_ms"],
+                  "final": run["metric_rows"][-1].tolist(), "checkpoint_batch_size": saved["batch_size"],
+                  "resume_start_iter": resumed["start_iter"], "resume_gradient_steps": resumed["gradient_steps"],
+                  "seconds": time.monotonic() - t0}
+    return out
+
+
+def run_decoupled(build_dir: Path, runner, device_name: str = "cuda") -> dict:
+    """This slice's group, 45 s in all (``DECOUPLED_DEADLINES_S``): (1)
+    ``python -m sheeprl_tpu_torch.tools.chaos_drill --drill
+    trainer_exception`` as its ``main`` with no overrides (on the CPU the
+    default list with ``fabric.accelerator=cpu``), in a thread, its CLI
+    child (``chaos.drill_argv``'s) handed to ``runner`` (an interpreter of
+    ``start_child_runners`` that made its imports before the group) and
+    judged by ``chaos.judge_drill``; its LayerNorm-GRU launches counted
+    from 0 in the child; while it runs, ``run_decoupled_ppo`` and
+    ``run_decoupled_sac`` in this process."""
+    from sheeprl_tpu_torch.resilience import chaos
+    from sheeprl_tpu_torch.resilience.chaos import main as drill_cli  # the chaos_drill command's main
+    from sheeprl_tpu_torch.resilience.supervisor import child_env
+
+    root = (build_dir / "decoupled").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    (root / "drill").mkdir(parents=True)
+    record = root / "drill_child.json"
+    drill = {"printed": []}
+
+    def tail() -> str:
+        log = Path(f"{record}.log")
+        return log.read_text()[-3000:] if log.exists() else "no child log"
+
+    def drill_through_runner(schedule, overrides, run_dir_root="logs/runs", timeout_s=600.0):
+        """``chaos.run_drill`` with its CLI child handed to the warm
+        interpreter: the same argv after ``python -m sheeprl_tpu_torch``,
+        run from the drill's directory, judged as the drill judges it."""
+        argv = chaos.drill_argv(schedule, overrides)
+        if argv[1:3] != ["-m", "sheeprl_tpu_torch"]:
+            raise AssertionError(f"the drill's child: {argv[:3]}")
+        proc = subprocess.run([sys.executable, "-c", _CHILD_HANDOFF, runner[0], str(record), *argv[3:]],
+                              cwd=str(root / "drill"), env=child_env(), timeout=timeout_s,
+                              stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+        drill["verdict"] = chaos.judge_drill(schedule, proc.returncode, str(root / "drill" / run_dir_root))
+        return drill["verdict"]
+
+    def drill_main() -> None:
+        argv = ["--drill", "trainer_exception"]
+        if device_name != "cuda":
+            argv += ["--", *chaos.DEFAULT_OVERRIDES, f"fabric.accelerator={device_name}"]
+        drill["code"] = drill_cli(argv)
+
+    _wait_ready([runner])
+    t0 = time.monotonic()
+    patches = [mock.patch.object(chaos, "run_drill", drill_through_runner),
+               mock.patch.object(chaos, "print", lambda *a, **k: drill["printed"].append(" ".join(map(str, a))),
+                                 create=True)]
+    with deadline(DECOUPLED_DEADLINES_S["decoupled"], "decoupled", tail):
+        for patch in patches:
+            patch.start()
+        try:
+            thread = threading.Thread(target=drill_main, name="chaos_drill", daemon=True)
+            thread.start()
+            with deadline(DECOUPLED_DEADLINES_S["decoupled_ppo"], "decoupled_ppo"):
+                out = run_decoupled_ppo(root, device_name)
+            with deadline(DECOUPLED_DEADLINES_S["decoupled_sac"], "decoupled_sac"), bounded_dummy_actions():
+                sac = run_decoupled_sac(root, device_name)
+            in_process_s = time.monotonic() - t0
+            thread.join()
+        finally:
+            for patch in patches:
+                patch.stop()
+    seconds = time.monotonic() - t0
+    verdict = drill.get("verdict", {})
+    child = json.loads(record.read_text()) if record.is_file() else {}
+    if drill.get("code") != 0 or not verdict.get("ok") or child.get("exit_code") != 0 or child.get("launches") != 0:
+        raise AssertionError(f"decoupled drill: main returned {drill.get('code')}, verdict {verdict}, child "
+                             f"{child}\n" + "\n".join(drill["printed"]) + f"\n{tail()}")
+    shutil.rmtree(root, ignore_errors=True)
+    return {**out, "sac": sac["sac"], "launches": {**out["launches"], **sac["launches"],
+                                                   "decoupled_drill": child["launches"]},
+            "drill": {"checks": sorted(verdict["checks"]), "exit_code": verdict["exit_code"],
+                      "checkpoint": Path(verdict["checks"]["final_checkpoint_verifies"]["detail"]["checkpoint"]).name,
+                      "child_s": child["seconds"], "imports_s": child["imports_s"], "passed": drill["printed"][-1]},
+            "seconds": seconds, "in_process_s": in_process_s}
+
+
 def _off_policy_run(overrides, where: str, resume: bool = True) -> dict:
     """``run`` of an off-policy preset, its mid-run resume and ``eval`` of
     its last checkpoint, each path with the LayerNorm-GRU kernel's launch
@@ -4444,7 +4729,8 @@ def _off_policy_run(overrides, where: str, resume: bool = True) -> dict:
               "final": rows[-1].tolist(), "seconds": time.monotonic() - t0}
     if resume:
         fused_layernorm_gru.launches = 0
-        resumed = cli.run(overrides + [f"checkpoint.resume_from={out['checkpoints'][0]}", "algo.run_test=False"])
+        resumed = cli.run(overrides + [f"checkpoint.resume_from={out['checkpoints'][0]}", "algo.run_test=False",
+                                       "diagnostics.telemetry.mfu.cost_analysis=False"])
         launches[f"{where}_resume"] = fused_layernorm_gru.launches
         if resumed["start_iter"] <= 1 or resumed["gradient_steps"] <= 0 or not np.isfinite(resumed["metric_rows"]).all():
             raise AssertionError(f"{where} resume: start_iter {resumed['start_iter']}, "
@@ -4802,7 +5088,8 @@ def run_offline_dreamer(build_dir: Path, train: dict, chunked: dict, device_name
     if len(out["checkpoints"]) != 2:
         raise AssertionError(f"offline dv3: checkpoints {out['checkpoints']}")
     resumed, resume_launches, _ = _offline_run(
-        overrides + [f"checkpoint.resume_from={out['checkpoints'][0]}", "run_name=chip_smoke_offline_resume"],
+        overrides + [f"checkpoint.resume_from={out['checkpoints'][0]}", "run_name=chip_smoke_offline_resume",
+                     "diagnostics.telemetry.mfu.cost_analysis=False"],
         "offline dv3 resume", OFFLINE_DV3_STEPS // 2)
     first = load_state(out["checkpoints"][0])
     if resumed["start_iter"] != first["iter_num"] + 1 or resumed["policy_steps"] != OFFLINE_DV3_STEPS or \
@@ -5173,7 +5460,8 @@ def run_dreamer_resume(run: dict, where: str, device_name: str = "cuda", kernel:
         restored["adam"] = {n: _optax_leaves(optax_state(o, agent.optimizer_spec(n))) for n, o in optimizers.items()}
         return moments
 
-    overrides = run["overrides"] + [f"checkpoint.resume_from={run['mid_checkpoint']}", "checkpoint.every=100000"]
+    overrides = run["overrides"] + [f"checkpoint.resume_from={run['mid_checkpoint']}", "checkpoint.every=100000",
+                                    "diagnostics.telemetry.mfu.cost_analysis=False"]
     cfg = compose(overrides)
     with mock.patch.object(dv3, "load_learner_state", spy_learner):
         fused_layernorm_gru.launches = 0  # the main path starts here
@@ -5465,11 +5753,13 @@ def run_p2e_dreamer_timers(device_name: str = "cuda") -> dict:
 
 
 def _ppo_rec_widths(cfg) -> None:
+    """``exp=ppo_recurrent``'s widths (its 8 epochs are depth: the smoke
+    cuts them to 2)."""
     algo = cfg.algo
     widths = (cfg.env.num_envs, algo.rollout_steps, algo.per_rank_sequence_length, algo.per_rank_num_batches,
-              algo.update_epochs, algo.rnn.lstm.hidden_size, algo.encoder.dense_units, algo.max_grad_norm,
+              algo.rnn.lstm.hidden_size, algo.encoder.dense_units, algo.max_grad_norm,
               str(algo.optimizer["_target_"]), cfg.fabric.precision)
-    if widths != (16, 512, 16, 8, 8, 64, 64, 0.5, "optax.adamw", "32-true"):
+    if widths != (16, 512, 16, 8, 64, 64, 0.5, "optax.adamw", "32-true"):
         raise AssertionError(f"the recurrent PPO config is not exp=ppo_recurrent's widths: {widths}")
 
 
@@ -5506,7 +5796,7 @@ def run_ppo_recurrent(build_dir: Path, device_name: str = "cuda") -> dict:
     sps = _timer_metrics(out["logged"], "ppo_recurrent")
     first = out["checkpoints"][0]
     saved = load_state(first)
-    resumed = cli.run(overrides + [f"checkpoint.resume_from={first}", "algo.run_test=False",
+    resumed = cli.run(overrides + [f"checkpoint.resume_from={first}", "algo.run_test=False", "diagnostics.telemetry.mfu.cost_analysis=False",
                                    "root_dir=" + str((build_dir / "ppo_rec_resumed").resolve())])
     if resumed["start_iter"] != saved["iter_num"] + 1 or resumed["iterations"] != 1 or \
             not np.isfinite(resumed["metric_rows"]).all():
@@ -5695,9 +5985,9 @@ def main() -> int:
     # interpreters, which start now
     os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     os.environ["PYTHONPYCACHEPREFIX"] = str(build_dir / "pycache")
-    # two for the resilience group's children, one each for the parallel
-    # and parallel_families groups
-    runners = start_child_runners(build_dir, count=4)
+    # two for the resilience group's children, one each for the parallel,
+    # parallel_families and decoupled groups
+    runners = start_child_runners(build_dir, count=5)
     lint = start_lint(build_dir)
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
@@ -5851,6 +6141,41 @@ def main() -> int:
           f"beside the child)  [{card}]", flush=True)
 
     mark('parallel_families')
+    decoupled = run_decoupled(build_dir, runners[4])
+    drill_row, ppo_d, sac_d, ppo_3 = decoupled["drill"], decoupled["ppo"], decoupled["sac"], decoupled["ppo_3"]
+    print(f"[decoupled] python -m sheeprl_tpu_torch.tools.chaos_drill --drill trainer_exception with no overrides (the "
+          f"default workload: exp=ppo_decoupled fabric.devices=2, the player and the trainer both on the one card): "
+          f"{drill_row['passed']}, exit {drill_row['exit_code']}, checks {drill_row['checks']} held (fault_injection "
+          f"-> rollback -> run_end), final checkpoint {drill_row['checkpoint']} verified; ln_gru launches "
+          f"{decoupled['launches']['decoupled_drill']} = predicted 0; the child {drill_row['child_s']} s (imports made "
+          f"before the group, {drill_row['imports_s']} s)  [{card}]", flush=True)
+    print(f"[decoupled] run exp=ppo_decoupled fabric.devices=2 (dense 64 x 2 on state, batch 64, 4 envs x 64 steps, 2 "
+          f"epochs; nan_grads at iteration 2, sentinel halt): params_reject {json.dumps(ppo_d['reject'])}, rollback "
+          f"{json.dumps(ppo_d['rollback'])}; gate {ppo_d['gate']}; the player's {ppo_d['player_tensors']} tensors at "
+          f"iteration 2 bitwise iteration 1's promotion; final Telemetry/param_staleness {ppo_d['final_staleness']}; "
+          f"run_end completed, {ppo_d['rows']} metric rows, final {ppo_d['final']}; ln_gru launches "
+          f"{decoupled['launches']['decoupled_ppo']} = predicted 0; {ppo_d['seconds']:.1f} s  [{card}]", flush=True)
+    handoffs = ppo_d["handoff_ms"] + ppo_3["handoff_ms"]
+    print(f"[decoupled] player/trainer hand-off a promotion (the trainer's shard-0 replica copied into the player's "
+          f"own agent, {ppo_d['player_bytes']} bytes, a copy within cuda:0 on the one card): "
+          f"{[round(x, 4) for x in handoffs]} ms, median {statistics.median(handoffs):.4f} ms (host clock around the "
+          f"copy and a synchronize); SAC's actor hand-offs {[round(x, 4) for x in sac_d['handoff_ms'][:8]]} ms, median "
+          f"{statistics.median(sac_d['handoff_ms']):.4f} ms over {sac_d['promotions']}  [{card}]", flush=True)
+    print(f"[decoupled] run exp=sac_decoupled fabric.devices=2 (hidden 256, batch 256, 4 envs, actions bounded to "
+          f"[-1, 1]): {sac_d['iterations']} iterations, {sac_d['gradient_steps']} gradient steps, {sac_d['promotions']} "
+          f"promotions of the actor, final {sac_d['final']}, trainer replicas bitwise equal, checkpoint batch_size "
+          f"{sac_d['checkpoint_batch_size']}; resumed at iteration {sac_d['resume_start_iter']}, "
+          f"{sac_d['resume_gradient_steps']} gradient steps; ln_gru launches {decoupled['launches']['decoupled_sac']} "
+          f"and {decoupled['launches']['decoupled_sac_resume']} = predicted 0; {sac_d['seconds']:.1f} s  [{card}]",
+          flush=True)
+    print(f"[decoupled] one decoupled PPO update at fabric.devices=3 (the player and {ppo_3['trainer_shards']} "
+          f"trainer shards on the one card, {ppo_3['updates']} minibatch updates a shard): the trainer replicas "
+          f"bitwise equal after it, promoted; final {ppo_3['final']}; ln_gru launches "
+          f"{decoupled['launches']['decoupled_ppo_3']} = predicted 0  [{card}]", flush=True)
+    print(f"[decoupled] group {decoupled['seconds']:.1f} s of its {DECOUPLED_DEADLINES_S['decoupled']:g} s (in this "
+          f"process {decoupled['in_process_s']:.1f} s beside the drill's child)  [{card}]", flush=True)
+
+    mark('decoupled')
     slice_report = run_slice(build_dir)
     print(
         f"[slice] DreamerV3-S serve: {slice_report['requests']} /act from {slice_report['sessions']} sessions, "
@@ -6014,11 +6339,12 @@ def main() -> int:
     for executor in ("sync", "async", "shared_memory"):
         run = run_ppo(build_dir, executor, compare=True)
         ppo_rollout[executor] = run["sps"]["Time/sps_env_interaction"][-1]
-        print(f"[ppo] run through env.executor={executor} (two iterations, no checkpoint, no test): final losses "
+        print(f"[ppo] run through env.executor={executor} (two iterations of 8 envs x 64 steps, no checkpoint, no test): "
+              f"final losses "
               f"{json.dumps(run['final_losses'])}, Time/sps_env_interaction by interval "
               f"{run['sps']['Time/sps_env_interaction']}, Time/sps_train {run['sps']['Time/sps_train']}  [{card}]",
               flush=True)
-    print(f"[ppo] rollout env steps/s (the second interval's Time/sps_env_interaction, 8 envs x 128 steps, episodes "
+    print(f"[ppo] rollout env steps/s (the second interval's Time/sps_env_interaction, 8 envs x 64 steps, episodes "
           f"of {PPO_EPISODE_STEPS} steps, policy on the card) by executor: {json.dumps(ppo_rollout)}  [{card}]",
           flush=True)
     mark('ppo executors')
@@ -6151,7 +6477,7 @@ def main() -> int:
               f"{SAC_SERVE_CLIENTS} clients, all 200, finite and in [-1, 1], the greedy probe "
               f"{sac['greedy_probe']} equal to the actor's; ln_gru launches {sac['launches']}  [{card}]", flush=True)
         droq = run_droq(build_dir)
-        print(f"[droq] run exp=droq env=dummy (hidden 256, dropout 0.01, replay ratio 5 (the preset's 20, cut), "
+        print(f"[droq] run exp=droq env=dummy (hidden 256, dropout 0.01, replay ratio 2 (the preset's 20, cut), "
               f"2 envs, "
               f"{droq['iterations']} iterations): {droq['gradient_steps']} gradient steps in {droq['seconds']:.1f} s, "
               f"final [qf, actor, alpha] {droq['final']}; resumed at iteration {droq['resume_start_iter']} "
@@ -6247,7 +6573,7 @@ def main() -> int:
     shutil.rmtree(build_dir / "dv1", ignore_errors=True)
     ppo_rec = run_ppo_recurrent(build_dir)
     print(f"[ppo_recurrent] run exp=ppo_recurrent env=dummy (state; 16 envs x 512 steps, sequences of 16, 8 "
-          f"minibatches, 8 epochs, LSTM 64): final losses {ppo_rec['final_losses']}, Time/sps_env_interaction "
+          f"minibatches, 2 epochs (the preset's 8, cut), LSTM 64): final losses {ppo_rec['final_losses']}, Time/sps_env_interaction "
           f"{ppo_rec['sps']['Time/sps_env_interaction']}, Time/sps_train {ppo_rec['sps']['Time/sps_train']}, test "
           f"reward {ppo_rec['test_reward']}; resumed at iteration {ppo_rec['resume_start_iter']}; eval "
           f"{ppo_rec['eval_reward']}; serve: {ppo_rec['served']} /act over HTTP from {PPO_REC_SESSIONS} interleaved "
@@ -6464,7 +6790,7 @@ def main() -> int:
                "minedojo": minedojo["ln_gru_launches"],
                **{f"resilience_child_{i}": n for i, n in enumerate(resilience["launches"])},
                "parallel_dv3": parallel["child"]["launches"], "parallel_step": parallel["step"]["launches"],
-               **parallel["launches"], **families["launches"]}
+               **parallel["launches"], **families["launches"], **decoupled["launches"]}
     print(f"[launches] ln_gru launches by path: {', '.join(f'{k} {v}' for k, v in by_path.items())}; "
           f"{sum(by_path.values())} in all  [{card}]", flush=True)
     case_keys = ("B", "K", "H", "dtype", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms", "bound_ms", "bound_by")
@@ -6486,7 +6812,7 @@ def main() -> int:
         "cases": [{k: c[k] for k in case_keys} for c in cases],
         "phase": "kernel+lint+slice+serve-ops+train+chunked+resume+eval+offline+drill+jepa+p2e+sac+droq+sac_ae+offline_sac"
                  "+offline_droq+bf16+dv2+dv1+ppo_recurrent+p2e_dv2+p2e_dv1+minedojo+records"
-                 "+resilience+parallel+parallel_families",
+                 "+resilience+parallel+parallel_families+decoupled",
     }]
     mark("kernels line")
     print(f"[timing] wall seconds by group of phases: "

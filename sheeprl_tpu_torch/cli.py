@@ -4,7 +4,9 @@ a checkpoint; ``serve`` serves one.  The port trains and evaluates
 ``dreamer_v3``, ``dreamer_v3_jepa``, ``p2e_dv3_exploration``,
 ``p2e_dv3_finetuning``, ``ppo``, ``a2c``, ``sac``, ``droq``, ``sac_ae``,
 ``dreamer_v2``, ``dreamer_v1``, ``ppo_recurrent`` and the exploration and
-finetuning of ``p2e_dv2`` and ``p2e_dv1``, trains ``sac``, ``droq`` and
+finetuning of ``p2e_dv2`` and ``p2e_dv1``, trains the decoupled
+player/trainer loops ``ppo_decoupled`` and ``sac_decoupled`` (which, as in
+the JAX package, have no evaluation), trains ``sac``, ``droq`` and
 ``dreamer_v3`` offline (``algo.offline.enabled=true``, on a dataset
 ``buffer.export`` or ``python -m sheeprl_tpu_torch export`` wrote), and
 serves ``dreamer_v3``, ``ppo``, ``a2c``, ``sac`` and ``ppo_recurrent`` (as
@@ -105,17 +107,13 @@ def check_configs(cfg: dotdict) -> None:
     algorithm reads them."""
     from sheeprl_tpu_torch.utils.registry import find_algorithm
 
-    if cfg.algo.name in ("ppo_decoupled", "sac_decoupled"):
-        raise NotImplementedError(
-            f"exp={cfg.algo.name}: the decoupled player/trainer is not ported yet (see ROADMAP.md Queue 1, the "
-            "Parallel slice of the decoupled player/trainer)"
-        )
-    if find_algorithm(cfg.algo.name) is None:
+    entry = find_algorithm(cfg.algo.name)
+    if entry is None:
         raise NotImplementedError(
             f"Algorithm {cfg.algo.name!r} is not ported yet (see ROADMAP.md Queue 1); the port trains: dreamer_v3, "
-            "dreamer_v3_jepa, p2e_dv3_exploration, p2e_dv3_finetuning, ppo, a2c, sac, droq, sac_ae, dreamer_v2, "
-            "dreamer_v1, ppo_recurrent, p2e_dv2_exploration, p2e_dv2_finetuning, p2e_dv1_exploration, "
-            "p2e_dv1_finetuning"
+            "dreamer_v3_jepa, p2e_dv3_exploration, p2e_dv3_finetuning, ppo, ppo_decoupled, a2c, sac, "
+            "sac_decoupled, droq, sac_ae, dreamer_v2, dreamer_v1, ppo_recurrent, p2e_dv2_exploration, "
+            "p2e_dv2_finetuning, p2e_dv1_exploration, p2e_dv1_finetuning"
         )
     if cfg.get("matmul_precision", "default") not in MATMUL_PRECISION:
         raise ValueError(
@@ -123,7 +121,9 @@ def check_configs(cfg: dotdict) -> None:
             "must be one of: default, high, highest, tensorfloat32, bfloat16, float32"
         )
     strategy = str(cfg.fabric.get("strategy", "auto")).lower()
-    if strategy not in KNOWN_STRATEGIES:
+    if entry["decoupled"]:
+        _check_decoupled(cfg, strategy)
+    elif strategy not in KNOWN_STRATEGIES:
         warnings.warn(
             f"Unknown fabric.strategy {strategy!r}; the runtime treats it as 'auto' (known: {KNOWN_STRATEGIES})",
             UserWarning,
@@ -149,6 +149,27 @@ def check_configs(cfg: dotdict) -> None:
         if not _IS_MLFLOW_AVAILABLE:
             warnings.warn("MLFlow is not installed; setting model_manager.disabled=True", UserWarning)
             cfg.model_manager.disabled = True
+
+
+def _check_decoupled(cfg: dotdict, strategy: str) -> None:
+    """The JAX ``check_configs``' rules for a decoupled (player/trainer)
+    algorithm: a data-parallel strategy and, where ``fabric.devices`` is an
+    explicit count, at least two devices (``auto`` reaches the loop, which
+    checks the count it resolves to)."""
+    algo_name = cfg.algo.name
+    if strategy not in ("auto", "dp", "ddp"):
+        raise ValueError(
+            f"Decoupled algorithm '{algo_name}' needs a data-parallel mesh (fabric.strategy=auto|dp), got {strategy!r}"
+        )
+    devices = cfg.fabric.devices
+    n = devices if isinstance(devices, int) else 0
+    if isinstance(devices, str) and devices not in ("auto", "-1"):
+        n = int(devices)
+    if 0 < n < 2:
+        raise RuntimeError(
+            f"Decoupled algorithm '{algo_name}' needs at least 2 devices (1 player + >=1 trainer), "
+            f"got fabric.devices={devices}"
+        )
 
 
 def _check_diagnostics(cfg: dotdict) -> None:
@@ -255,8 +276,10 @@ def _check_resilience(cfg: dotdict) -> None:
 def _check_offline(cfg: dotdict) -> None:
     """The JAX ``check_configs``' offline gates, with its errors: the mode
     swaps the whole entry point, so a bad knob fails before the log dir
-    exists.  ``cql_alpha`` set while the mode is off warns: the penalty is a
-    train-step knob, and applies to the online critic update too."""
+    exists (a decoupled algorithm is none of ``OFFLINE_ALGOS``, so the first
+    gate refuses it, as in the JAX package).  ``cql_alpha`` set while the
+    mode is off warns: the penalty is a train-step knob, and applies to the
+    online critic update too."""
     from sheeprl_tpu_torch.offline.train import OFFLINE_ALGOS
 
     offline_cfg = cfg.algo.get("offline") or {}
@@ -451,15 +474,14 @@ def eval_algorithm(cfg: dotdict) -> Any:
     evaluation; returns what it returns (the test reward)."""
     import importlib
 
-    from sheeprl_tpu_torch.utils.registry import find_evaluation
+    from sheeprl_tpu_torch.utils.registry import evaluation_registry, find_evaluation
 
     entry = find_evaluation(cfg.algo.name)
     if entry is None:
-        raise NotImplementedError(f"Evaluation of {cfg.algo.name!r} is not ported yet (see ROADMAP.md Queue 1); "
-                                  "the port evaluates: dreamer_v3, dreamer_v3_jepa, p2e_dv3_exploration, "
-                                  "p2e_dv3_finetuning, ppo, a2c, sac, droq, sac_ae, dreamer_v2, dreamer_v1, "
-                                  "ppo_recurrent, p2e_dv2_exploration, p2e_dv2_finetuning, p2e_dv1_exploration, "
-                                  "p2e_dv1_finetuning")
+        # the JAX package's refusal (it registers no evaluation of the
+        # decoupled loops, whose checkpoints then have none either)
+        registered = sorted({m["name"] for v in evaluation_registry.values() for m in v})
+        raise ValueError(f"Evaluation for algorithm '{cfg.algo.name}' is not registered. Available: {registered}")
     entrypoint = getattr(importlib.import_module(entry["module"]), entry["entrypoint"])
     runtime = instantiate(cfg.fabric)
     return runtime.launch(entrypoint, cfg, runtime.load(cfg.checkpoint_path))

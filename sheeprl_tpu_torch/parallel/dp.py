@@ -41,8 +41,8 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-__all__ = ["Collective", "all_gather_cat", "body_of", "fold_seed", "local_sample_size", "pmean_tree",
-           "prefetch_staged", "replicas_equal", "run_shards", "shard_generators", "split", "stage",
+__all__ = ["Collective", "all_gather_cat", "body_of", "copy_state_", "fold_seed", "local_sample_size", "pmean_tree",
+           "prefetch_staged", "replicas_equal", "run_shards", "shard_generators", "split", "stage", "state_tensors",
            "train_batches"]
 
 
@@ -232,7 +232,11 @@ def train_batches(samples: Iterable[Any], devices: Sequence[torch.device],
                                                 devices)])
 
 
-def _state_tensors(obj: Any) -> List[torch.Tensor]:
+def state_tensors(obj: Any) -> List[torch.Tensor]:
+    """Every tensor of ``obj``'s state in a fixed order: a module's
+    parameters then buffers, an optimizer's state entries by parameter and
+    by name (Adam's ``exp_avg``, ``exp_avg_sq``, ``step``), tensors as they
+    are; dicts by key, lists and tuples in order."""
     if isinstance(obj, torch.nn.Module):
         return list(obj.parameters()) + list(obj.buffers())
     if isinstance(obj, torch.optim.Optimizer):
@@ -244,9 +248,9 @@ def _state_tensors(obj: Any) -> List[torch.Tensor]:
     if isinstance(obj, torch.Tensor):
         return [obj]
     if isinstance(obj, dict):
-        return [t for k in sorted(obj) for t in _state_tensors(obj[k])]
+        return [t for k in sorted(obj) for t in state_tensors(obj[k])]
     if isinstance(obj, (list, tuple)):
-        return [t for v in obj for t in _state_tensors(v)]
+        return [t for v in obj for t in state_tensors(v)]
     return []
 
 
@@ -257,12 +261,27 @@ def replicas_equal(replicas: Sequence[Any]) -> bool:
     def as_bytes(t: torch.Tensor) -> torch.Tensor:
         return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8)
 
-    first = _state_tensors(replicas[0])
+    first = state_tensors(replicas[0])
     for other in replicas[1:]:
-        tensors = _state_tensors(other)
+        tensors = state_tensors(other)
         if len(tensors) != len(first):
             return False
         for a, b in zip(first, tensors):
             if a.shape != b.shape or a.dtype != b.dtype or not torch.equal(as_bytes(a), as_bytes(b)):
                 return False
     return True
+
+
+@torch.no_grad()
+def copy_state_(dst: Any, src: Any) -> None:
+    """``src``'s state (modules, optimizers, tensors, as :func:`state_tensors`
+    orders them) copied into ``dst``'s tensors in place, bitwise, across
+    devices if they differ: the decoupled loops' trainer-to-player hand-off
+    and their rollback to a host copy."""
+    targets, sources = state_tensors(dst), state_tensors(src)
+    if len(targets) != len(sources):
+        raise ValueError(f"cannot copy a state of {len(sources)} tensors into one of {len(targets)}")
+    for t, s in zip(targets, sources):
+        if t.shape != s.shape or t.dtype != s.dtype:
+            raise ValueError(f"cannot copy a {s.dtype} {tuple(s.shape)} tensor into a {t.dtype} {tuple(t.shape)} one")
+    torch._foreach_copy_(targets, sources)

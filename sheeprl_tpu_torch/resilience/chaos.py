@@ -7,8 +7,8 @@
 * ``nan_grads``: poison every float leaf of the train batch
   (``Diagnostics.maybe_inject_nan``);
 * ``trainer_exception``: raise :class:`ChaosTrainerError` at the train
-  dispatch boundary (``Diagnostics.maybe_chaos_trainer_fault``; only the
-  decoupled loops call it, which come with ROADMAP's Parallel item);
+  dispatch boundary (``Diagnostics.maybe_chaos_trainer_fault``, which the
+  decoupled loops call: their quarantine rolls the trainer back);
 * ``slow_write``: the next checkpoint write sleeps ``chaos.slow_write_s``
   (in the async writer's thread, or on the critical path when saves block);
 * ``preempt``: behave as if a preemption signal arrived (the emergency
@@ -18,7 +18,9 @@ Every firing journals ``fault_injection`` with ``kind=<fault>`` and
 ``source=chaos``.  :func:`run_drill` runs a schedule through the port's CLI
 in a child process and checks the recovery invariants: the exit code, the
 journal's event chain, the run's end status and a final checkpoint that
-verifies.  ``python -m sheeprl_tpu_torch.tools.chaos_drill`` is its command.
+verifies.  ``python -m sheeprl_tpu_torch.tools.chaos_drill`` is its command;
+without overrides it drills :data:`DEFAULT_OVERRIDES`, a decoupled PPO run
+of one player and one trainer.
 """
 
 from __future__ import annotations
@@ -102,6 +104,34 @@ class ChaosMonitor:
 
 # ---------------------------------------------------------------------------
 # the drill
+
+#: the drill's default workload: a tiny decoupled PPO run (one player, one
+#: trainer) on the dummy env, the topology the fence and the rollback are
+#: about.  The JAX package's list less ``fabric.accelerator=cpu``: the drill
+#: is an entry point, so it runs on the card unless the overrides say
+#: otherwise (and raises where there is none)
+DEFAULT_OVERRIDES = [
+    "exp=ppo_decoupled",
+    "env=dummy",
+    "env.id=discrete_dummy",
+    "env.num_envs=2",
+    "env.capture_video=False",
+    "buffer.memmap=False",
+    "metric.log_level=1",
+    "metric.log_every=1",
+    "fabric.devices=2",
+    "algo.rollout_steps=8",
+    "algo.per_rank_batch_size=4",
+    "algo.update_epochs=1",
+    "algo.dense_units=8",
+    "algo.mlp_layers=1",
+    "algo.mlp_keys.encoder=[state]",
+    "algo.cnn_keys.encoder=[]",
+    "algo.run_test=False",
+    "algo.total_steps=96",
+    "checkpoint.every=16",
+    "checkpoint.save_last=True",
+]
 
 #: per fault: the exit codes allowed, and the journal event kinds that must
 #: follow the injection in this order
@@ -201,10 +231,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         chaos_drill --drill preempt [--iter 2] -- exp=dreamer_v3 env=dummy ...
         chaos_drill --schedule '[{iter: 2, fault: slow_write}, {iter: 4, fault: preempt}]' -- <overrides>
 
-    The workload is the overrides after ``--``: the JAX package's default,
-    a decoupled PPO run on two devices, waits for the port's decoupled
-    loops (ROADMAP's Parallel item), so the drill refuses to run without
-    them.  Exit 0: every invariant held; 1: one failed.
+    The workload is the overrides after ``--``, or without them
+    :data:`DEFAULT_OVERRIDES` (a decoupled PPO run of one player and one
+    trainer, on the card: append ``fabric.accelerator=cpu`` after ``--``
+    to the default list to drill it on the CPU).  Exit 0: every invariant
+    held; 1: one failed.
     """
     import argparse
 
@@ -228,13 +259,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     schedule = parse_schedule(raw)
     if not schedule:
         parser.error("empty chaos schedule")
-    if not overrides:
-        parser.error("no workload: the default drill is a decoupled PPO run on two devices (exp=ppo_decoupled "
-                     "fabric.devices=2), which the port cannot run until ROADMAP's Parallel slice of the decoupled "
-                     "player/trainer; pass the run's "
-                     "overrides after --, e.g. -- exp=dreamer_v3 env=dummy ...")
-
-    verdict = run_drill(schedule, overrides, timeout_s=args.timeout)
+    verdict = run_drill(schedule, overrides or DEFAULT_OVERRIDES, timeout_s=args.timeout)
     print(json.dumps(verdict), flush=True)
     for name, result in verdict["checks"].items():
         mark = "ok " if result["ok"] else "FAIL"

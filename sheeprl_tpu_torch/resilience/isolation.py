@@ -21,9 +21,9 @@ mechanisms, both configured by ``diagnostics.resilience.isolation``:
   A halting sentinel or a chaos ``trainer_exception`` restores from it,
   journals ``rollback`` and goes on; ``retry_budget`` bounds the incidents.
 
-The coupled loops never call the hooks (as in the JAX package): their runs
-carry only the counters and the closing summary.  The decoupled loops that
-call them come with ROADMAP's Parallel item.
+Only the decoupled loops (``algos/ppo/ppo_decoupled.py``,
+``algos/sac/sac_decoupled.py``) call the hooks, as in the JAX package: the
+coupled loops' runs carry only the counters and the closing summary.
 """
 
 from __future__ import annotations

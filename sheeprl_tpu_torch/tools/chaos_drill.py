@@ -6,11 +6,12 @@ check the recovery invariants (counterpart of the repo's
     python -m sheeprl_tpu_torch.tools.chaos_drill --drill preempt --iter 3 -- exp=dreamer_v3 env=dummy ...
     python -m sheeprl_tpu_torch.tools.chaos_drill \\
         --schedule '[{iter: 2, fault: slow_write}, {iter: 4, fault: preempt}]' -- <run overrides>
+    python -m sheeprl_tpu_torch.tools.chaos_drill --drill trainer_exception
 
 Faults: ``nan_grads``, ``trainer_exception``, ``slow_write``, ``preempt``.
-The run's overrides after ``--`` are required: the JAX package's default
-workload, a decoupled PPO run on two devices, waits for ROADMAP's Parallel
-item.  Exit 0: every invariant held.
+Without overrides after ``--`` the workload is the JAX package's default, a
+decoupled PPO run of one player and one trainer, on the card (the CPU with
+``-- <that list> fabric.accelerator=cpu``).  Exit 0: every invariant held.
 """
 
 import sys

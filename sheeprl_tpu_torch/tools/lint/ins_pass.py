@@ -41,11 +41,13 @@ PACKAGE_PREFIX = "sheeprl_tpu_torch/"
 # the file, whether it instruments a rollout).  _on_policy_main runs PPO,
 # A2C and PPO-recurrent; off_policy_main SAC, DroQ and SAC-AE; _dreamer_main
 # DreamerV3, JEPA, P2E-DV3/DV2/DV1, DreamerV2 and DreamerV1; offline/train.py
-# the offline loops.  ppo_decoupled.py and sac_decoupled.py join with
-# Parallel.
+# the offline loops; the decoupled player/trainer loops instrument the
+# player's policy forward and the trainer shards' update in their ``main``.
 FLAGSHIP = {
     "algos/ppo/ppo.py": ("_on_policy_main", True),
+    "algos/ppo/ppo_decoupled.py": ("main", True),
     "algos/sac/sac.py": ("off_policy_main", True),
+    "algos/sac/sac_decoupled.py": ("main", True),
     "algos/dreamer_v3/dreamer_v3.py": ("_dreamer_main", False),
     "offline/train.py": (None, False),
 }

@@ -234,6 +234,9 @@ class CheckpointCallback:
         if self.keep_last:
             self._delete_old_checkpoints(Path(ckpt_path).parent)
 
+    #: the decoupled loops' player saves, as the JAX callback names them
+    on_checkpoint_player = on_checkpoint_coupled
+
     def _delete_old_checkpoints(self, ckpt_folder: Path) -> None:
         from sheeprl_tpu_torch.resilience.manifest import MANIFEST_SUFFIX, reap_orphan_tmps
 

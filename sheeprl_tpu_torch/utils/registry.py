@@ -8,8 +8,8 @@ from __future__ import annotations
 import importlib
 from typing import Any, Callable, Dict, List, Optional
 
-#: module path -> [{name, entrypoint, decoupled}]; the port has no decoupled
-#: (player/trainer) loop yet, so every entry says False
+#: module path -> [{name, entrypoint, decoupled}]; ``decoupled`` marks the
+#: player/trainer loops (``ppo_decoupled``, ``sac_decoupled``)
 algorithm_registry: Dict[str, List[Dict[str, Any]]] = {}
 evaluation_registry: Dict[str, List[Dict[str, Any]]] = {}
 #: the modules the port has; importing one registers it
@@ -17,8 +17,9 @@ PORTED_ALGORITHM_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
                             "sheeprl_tpu_torch.algos.dreamer_v3_jepa.dreamer_v3_jepa",
                             "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration",
                             "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_finetuning",
-                            "sheeprl_tpu_torch.algos.ppo.ppo", "sheeprl_tpu_torch.algos.a2c.a2c",
-                            "sheeprl_tpu_torch.algos.sac.sac", "sheeprl_tpu_torch.algos.droq.droq",
+                            "sheeprl_tpu_torch.algos.ppo.ppo", "sheeprl_tpu_torch.algos.ppo.ppo_decoupled",
+                            "sheeprl_tpu_torch.algos.a2c.a2c", "sheeprl_tpu_torch.algos.sac.sac",
+                            "sheeprl_tpu_torch.algos.sac.sac_decoupled", "sheeprl_tpu_torch.algos.droq.droq",
                             "sheeprl_tpu_torch.algos.sac_ae.sac_ae", "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2",
                             "sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1",
                             "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
@@ -37,18 +38,21 @@ PORTED_EVALUATION_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.evaluate",
                              "sheeprl_tpu_torch.algos.p2e_dv2.evaluate", "sheeprl_tpu_torch.algos.p2e_dv1.evaluate")
 
 
-def _register(registry: Dict[str, List[Dict[str, Any]]], fn: Callable, name: str) -> Callable:
-    entry = {"name": name, "entrypoint": fn.__name__, "decoupled": False}
+def _register(registry: Dict[str, List[Dict[str, Any]]], fn: Callable, name: str,
+              decoupled: bool = False) -> Callable:
+    entry = {"name": name, "entrypoint": fn.__name__, "decoupled": decoupled}
     registered = registry.setdefault(fn.__module__, [])
     if entry not in registered:
         registered.append(entry)
     return fn
 
 
-def register_algorithm() -> Callable:
+def register_algorithm(decoupled: bool = False) -> Callable:
     """Register ``fn`` as the entry point of the algorithm named after its
-    module (``.../dreamer_v3/dreamer_v3.py`` -> ``dreamer_v3``)."""
-    return lambda fn: _register(algorithm_registry, fn, fn.__module__.split(".")[-1])
+    module (``.../dreamer_v3/dreamer_v3.py`` -> ``dreamer_v3``); ``decoupled``
+    marks a player/trainer loop, which ``cli.check_configs`` holds to its
+    own rules."""
+    return lambda fn: _register(algorithm_registry, fn, fn.__module__.split(".")[-1], decoupled)
 
 
 def register_evaluation(algorithms: str | List[str]) -> Callable:

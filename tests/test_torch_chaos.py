@@ -4,7 +4,8 @@ parsing, ``check_configs``, fire-once, the facade's scheduled trainer
 exception and its quarantine) run on both packages; and the drill runs a
 tiny coupled PPO schedule of ``slow_write`` then ``preempt`` through each
 package's CLI in a child process, both judged alike: exit 75, the two
-chains, status ``preempted``, a checkpoint that verifies."""
+chains, status ``preempted``, a checkpoint that verifies; the default
+workload, decoupled PPO, drills a ``trainer_exception`` on the CPU."""
 
 from __future__ import annotations
 
@@ -205,13 +206,22 @@ def test_the_drill_judges_a_missing_journal_and_a_wrong_exit(tmp_path):
     assert verdict["checks"]["journal"]["ok"] is False
 
 
-def test_main_without_overrides_refuses_and_names_the_parallel_item(capsys):
-    """The JAX drill's default workload is a decoupled PPO run on two
-    devices; the port cannot run it yet and says so instead of swapping in
-    another workload."""
-    with pytest.raises(SystemExit) as exit_:
-        chaos.main(["--drill", "preempt"])
-    assert exit_.value.code == 2
-    assert re.search(r"ppo_decoupled .*Parallel", capsys.readouterr().err)
+def test_main_without_overrides_refuses_and_names_the_parallel_item(tmp_path, monkeypatch, capsys):
+    """The drill's default workload is the JAX package's, a decoupled PPO
+    run of one player and one trainer: the port's list is the JAX list less
+    ``fabric.accelerator=cpu`` (the drill runs on the card unless told
+    otherwise).  With that entry appended the default drill of a
+    ``trainer_exception`` passes on the CPU: exit 0, the chain
+    ``fault_injection -> rollback -> run_end``, a final checkpoint that
+    verifies.  A drill given both a fault and a schedule is still refused."""
+    assert chaos.DEFAULT_OVERRIDES == [o for o in jax_chaos.DEFAULT_OVERRIDES if o != "fabric.accelerator=cpu"]
+    assert "exp=ppo_decoupled" in chaos.DEFAULT_OVERRIDES and "fabric.devices=2" in chaos.DEFAULT_OVERRIDES
+    monkeypatch.chdir(tmp_path)
+    code = chaos.main(["--drill", "trainer_exception", "--", *chaos.DEFAULT_OVERRIDES, "fabric.accelerator=cpu"])
+    out = capsys.readouterr().out
+    verdict = json.loads(out.splitlines()[0])
+    assert code == 0 and verdict["ok"] and "chaos drill: PASSED" in out
+    assert verdict["checks"]["chain:trainer_exception"]["ok"] and verdict["checks"]["final_checkpoint_verifies"]["ok"]
+    assert re.search(r"ppo_decoupled/discrete_dummy/chaos_drill", verdict["journal"])
     with pytest.raises(SystemExit):
         chaos.main(["--drill", "preempt", "--schedule", "[]", "--", "exp=ppo"])

@@ -645,5 +645,7 @@ def test_run_refuses_options_it_does_not_port(tmp_path, monkeypatch):
     with pytest.warns(UserWarning, match="requests float64; the run trains in float32"):
         out = cli.run(RUN + ["fabric.precision=64-true", "root_dir=x64"])
     assert out["gradient_steps"] > 0 and np.isfinite(out["metric_rows"]).all()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli.run(RUN + ["exp=ppo_decoupled"])
+    # the decoupled player/trainer is ported (tests/test_torch_decoupled_*.py):
+    # one device is refused by the JAX check_configs' rule
+    with pytest.raises(RuntimeError, match="Decoupled algorithm 'ppo_decoupled' needs at least 2 devices"):
+        cli.run(RUN + ["exp=ppo_decoupled", "fabric.devices=1"])

@@ -524,11 +524,18 @@ def make_train_step(agent, optimizer, cfg):
         return health_stats(data, data, data)
     return update
 """
+DECOUPLED = """\
+@register_algorithm(decoupled=True)
+def main(runtime, cfg):
+    train_step = diag.instrument("train_step", update, kind="train")
+    policy = diag.instrument("policy_step", None, kind="rollout")
+"""
 
 
 def _flagships(**replace):
     files = {"algos/ppo/ppo.py": ON_POLICY, "algos/sac/sac.py": OFF_POLICY, "algos/dreamer_v3/dreamer_v3.py": DREAMER,
-             "offline/train.py": OFFLINE, "algos/a2c/a2c.py": A2C}
+             "offline/train.py": OFFLINE, "algos/a2c/a2c.py": A2C, "algos/ppo/ppo_decoupled.py": DECOUPLED,
+             "algos/sac/sac_decoupled.py": DECOUPLED}
     files.update(replace)
     return RepoIndex.from_sources({f"sheeprl_tpu_torch/{k}": v for k, v in files.items() if v is not None})
 
@@ -792,10 +799,8 @@ PORT_READERS = {
     "diagnostics.resilience.isolation.max_staleness": ("resilience/isolation.py:83", '"max_staleness"'),
     "diagnostics.resilience.isolation.retry_budget": ("resilience/isolation.py:84", '"retry_budget"'),
     "diagnostics.resilience.isolation.refresh_every": ("resilience/isolation.py:86", '"refresh_every"'),
-    # instantiate(cfg.fabric) hands it to the Runtime, which places the shards
-    "fabric.devices": ("parallel/runtime.py:96", "shard_count(devices, accelerator)"),
-    "metric.logger.root_dir": ("cli.py:483", '("root_dir", "save_dir")'),
-    "metric.logger.save_dir": ("cli.py:483", '("root_dir", "save_dir")'),
+    "metric.logger.root_dir": ("cli.py:510", '("root_dir", "save_dir")'),
+    "metric.logger.save_dir": ("cli.py:510", '("root_dir", "save_dir")'),
 }
 
 

@@ -9,8 +9,8 @@ shards; ``pmean_tree`` and ``all_gather_cat`` under ``run_shards`` against
 quantile over the gathered lambda values (``tests/test_parallel/
 test_dp_sharding.py::test_dv3_moments_quantile_is_global``, ported); the
 local sample sizes; the sharding audit; and each refusal: FSDP, more than
-one node, the decoupled loops, the device ring over an env count the shards
-do not divide.  Every coupled family trains over shards
+one node, one device for a decoupled loop (which runs at two), the device
+ring over an env count the shards do not divide.  Every coupled family trains over shards
 (tests/test_torch_parallel_{steps,loops,offline,dv3_family,dv2_family}.py).
 """
 
@@ -33,6 +33,7 @@ from sheeprl_tpu_torch.config import compose
 from sheeprl_tpu_torch.parallel import dp
 from sheeprl_tpu_torch.parallel.mesh import model_axis_size, placement, replicate, shard_along
 from sheeprl_tpu_torch.parallel.runtime import Runtime
+from test_torch_droq import bounded  # noqa: F401 (a fixture: both packages' continuous dummy env in [-1, 1])
 from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
 N_DEV = 8
@@ -316,11 +317,29 @@ def test_runtime_refuses_fsdp_and_more_than_one_node_by_their_roadmap_items():
         Runtime(num_nodes=2, accelerator="cpu")
 
 
+DECOUPLED_TINY = {
+    "ppo_decoupled": ["env.id=discrete_dummy", "env.num_envs=2", "algo.rollout_steps=8", "algo.per_rank_batch_size=4",
+                      "algo.dense_units=8", "algo.mlp_keys.encoder=[state]", "algo.cnn_keys.encoder=[]",
+                      "algo.total_steps=32", "checkpoint.every=16"],
+    "sac_decoupled": ["env.id=continuous_dummy", "env.num_envs=2", "env.executor=sync", "algo.hidden_size=8",
+                      "algo.per_rank_batch_size=4", "algo.mlp_keys.encoder=[state]", "algo.learning_starts=8",
+                      "algo.total_steps=24", "buffer.size=32", "checkpoint.every=8"],
+}
+
+
 @pytest.mark.parametrize("exp", ["ppo_decoupled", "sac_decoupled"])
-def test_the_decoupled_loops_are_refused_by_name(exp, tmp_path, monkeypatch):
+def test_the_decoupled_loops_are_refused_by_name(exp, tmp_path, monkeypatch, bounded):
+    """The decoupled player/trainer loops run at ``fabric.devices=2`` (one
+    player, one trainer shard) on the CPU; one device is refused by the
+    algorithm's name, with the JAX ``check_configs``' error."""
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=f"exp={exp}: the decoupled player/trainer is not ported"):
-        cli.run([f"exp={exp}", *TINY_CPU, "fabric.devices=2"])
+    with pytest.raises(RuntimeError, match=f"Decoupled algorithm '{exp}' needs at least 2 devices"):
+        cli.run([f"exp={exp}", *TINY_CPU, *DECOUPLED_TINY[exp], "fabric.devices=1"])
+    out = cli.run([f"exp={exp}", *TINY_CPU, *DECOUPLED_TINY[exp], "fabric.devices=2", "algo.run_test=False"])
+    assert out["shards"] == 2 and out["trainer_shards"] == 1 and out["replicas_equal"]
+    assert len(out["metric_rows"]) > 0 and np.isfinite(out["metric_rows"]).all()
+    assert all(promoted for _, promoted in out["gate"]) and len(out["handoff_ms"]) == len(out["gate"])
+    assert out["checkpoints"] and out["player"] is not out["trainer"][0][0]
 
 
 def test_the_device_ring_over_shards_is_refused_and_fabric_strategy_checked_as_jax_does(tmp_path, monkeypatch):

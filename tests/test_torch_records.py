@@ -511,4 +511,5 @@ def test_available_agents_are_the_jax_packages_ported_rows():
                   for module, metadata in jax_algorithm_registry.items() for m in metadata if m["name"] in names)
     got = sorted((module.removeprefix("sheeprl_tpu_torch."), name, entrypoint, decoupled)
                  for module, name, entrypoint, decoupled in rows)
-    assert got == want and len(got) == 16
+    assert got == want and len(got) == 18
+    assert sorted(name for _, name, _, decoupled in got if decoupled) == ["ppo_decoupled", "sac_decoupled"]
