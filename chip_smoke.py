@@ -101,6 +101,20 @@ Phases, in order; any failure raises and the script exits non-zero:
             shards on the one card, bitwise equal after it); no path
             launches the LayerNorm-GRU kernel (the JAX loops reach no Pallas
             call);
+3g. fsdp — FSDP over two shards of the one card, ``(data, model) = (1,
+            2)``, under deadlines (``FSDP_DEADLINES_S``, 45 s in all):
+            ``python -m sheeprl_tpu_torch run exp=dreamer_v3
+            fabric.devices=2 fabric.fsdp=2`` at DreamerV3-S in a child whose
+            interpreter made its imports with the others
+            (``FSDP_DV3_OVERRIDES``; its LayerNorm-GRU launches 2 x 79 a
+            gradient step on the gathered weight plus the player's, its
+            ``fsdp_shard_map`` printed, its two-part checkpoint group each
+            file verified) while this process runs one DreamerV3-S fp32
+            gradient step at ``fsdp=2`` against one device's on the same 16
+            sequences and noise (within ``PARALLEL_STEP_RTOL``, 79 + 2 x 79
+            launches) and the same step at two data shards, each's peak of
+            allocated bytes; then the child's group resumed at
+            ``fabric.devices=1 fabric.fsdp=1``;
 4. slice  — compose ``exp=dreamer_v3 env=dummy``, build DreamerV3-S on the card
             from a seed, write a run directory in the JAX package's checkpoint
             format, start the port's ``serve`` entry point and send /act
@@ -834,6 +848,20 @@ DECOUPLED_SAC_OVERRIDES = ["exp=sac_decoupled", "env=dummy", "env.id=continuous_
                            "run_name=chip_smoke_decoupled_sac", "seed=5",
                            "diagnostics.telemetry.mfu.cost_analysis=False"]
 DECOUPLED_DEADLINES_S = {"decoupled": 45.0, "decoupled_ppo": 15.0, "decoupled_sac": 20.0}
+
+# the fsdp group (45 s), fabric.fsdp=2 over two shards (a (data, model) =
+# (1, 2) layout, both shards on the one card): (1) DreamerV3-S through `run`
+# at fabric.devices=2 fabric.fsdp=2 in a child of start_child_runners (the
+# parallel group's workload, a partial-shard checkpoint group written at
+# policy step 264, mid-training), its fsdp_shard_map journaled; while it
+# runs, in this process, (2) one DreamerV3-S fp32 step at fsdp=2 against one
+# device's on the same global batch and noise (_two_shards_against_one), and
+# the same step at two data shards, each's peak of allocated bytes; then (3)
+# the child's group resumed at fabric.devices=1 fabric.fsdp=1
+FSDP_DV3_OVERRIDES = [*(o for o in PARALLEL_DV3_OVERRIDES if not o.startswith(("run_name=", "checkpoint.every="))),
+                      "run_name=chip_smoke_fsdp", "fabric.fsdp=2", "checkpoint.every=264"]
+FSDP_AXIS = 2
+FSDP_DEADLINES_S = {"fsdp": 45.0, "fsdp_step": 20.0, "fsdp_resume": 15.0}
 
 # phase 18 (records): a profiled DreamerV3-S run with the model registry
 # asked for (learning from policy step 256 of 4 envs: 1 iteration of 4
@@ -3963,7 +3991,7 @@ def _decisive(noise: dict, gen) -> dict:
 
 
 def _two_shards_against_one(cfg, build_agent, make_train_step, metric_order, tau: float, where: str,
-                            device_name: str = "cuda") -> dict:
+                            device_name: str = "cuda", fsdp: int = 1) -> dict:
     """One fp32 gradient step of a Dreamer-family step over two shards
     (each with its replica, ``parallel/dp.py``) against one device's step on
     the same global batch and the same noise (noise that decides every
@@ -3972,18 +4000,25 @@ def _two_shards_against_one(cfg, build_agent, make_train_step, metric_order, tau
     (and the Moments' ``low``/``high`` where the family keeps them) within
     ``PARALLEL_STEP_RTOL``, the shards' metrics and replicas bitwise equal,
     the kernel's launches counted from 0 around the three steps as each
-    shard's dynamic scan and imagination predict."""
+    shard's dynamic scan and imagination predict.  With ``fsdp`` = 2 the two
+    shards are a model axis: each one's optimizers cut for its index
+    (``parallel/fsdp.py``), the gathered parameters and optimizer state
+    equal across them.  ``peak_bytes``: the most bytes the allocator held
+    during the shards' step above what it held before it (the step's
+    optimizer state, created at its first update, its activations and
+    gradients)."""
     import copy
 
     import numpy as np
     import torch
 
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import learner_replicas_equal, make_optimizers
+    from sheeprl_tpu_torch.parallel.fsdp import shard_optimizer
     from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import synthetic_batch
     from sheeprl_tpu_torch.algos.ppo.agent import actions_dim_of
     from sheeprl_tpu_torch.envs.env import make_env
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
-    from sheeprl_tpu_torch.parallel.dp import replicas_equal, run_shards, split
+    from sheeprl_tpu_torch.parallel.dp import run_shards, split
     from sheeprl_tpu_torch.parallel.mesh import replicate
 
     device = torch.device(device_name)
@@ -3997,13 +4032,20 @@ def _two_shards_against_one(cfg, build_agent, make_train_step, metric_order, tau
     agent = build_agent(actions_dim, is_continuous, cfg, obs_space, None, device)
     shards = replicate(copy.deepcopy(agent), [device] * PARALLEL_SHARDS)
     optimizers = [make_optimizers(cfg, a) for a in (agent, *shards)]
+    if fsdp > 1:
+        optimizers[1:] = [{k: shard_optimizer(o, d % fsdp, fsdp, cfg.fabric.get("fsdp_min_shard_bytes"))
+                           for k, o in opts.items()} for d, opts in enumerate(optimizers[1:])]
     steps = [make_train_step(a, o, cfg, is_continuous) for a, o in zip((agent, *shards), optimizers)]
     t0 = time.monotonic()
     fused_layernorm_gru.launches = 0  # the comparison's launches start here
     one_moments, one_metrics = steps[0](agent.initial_moments(device), batch, tau, None, noise)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(device)
+    torch.cuda.reset_peak_memory_stats(device)
     outs = run_shards([step.body(agent.initial_moments(device), block, tau, None, n) for step, block, n in
                        zip(steps[1:], split(batch, PARALLEL_SHARDS, 1), _parallel_noise(noise, T, B, PARALLEL_SHARDS))])
     torch.cuda.synchronize()
+    peak_bytes = torch.cuda.max_memory_allocated(device) - before
     launches = fused_layernorm_gru.launches  # and end here
     seconds = time.monotonic() - t0
     (moments, metrics), (_, other) = outs
@@ -4012,7 +4054,7 @@ def _two_shards_against_one(cfg, build_agent, make_train_step, metric_order, tau
     rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-3)))
     moments_rel = max((abs(float(moments[k]) - float(one_moments[k])) / max(abs(float(one_moments[k])), 1e-3)
                        for k in one_moments), default=0.0)
-    equal = replicas_equal([[*a, *o.values()] for a, o in zip(shards, optimizers[1:])])
+    equal = learner_replicas_equal(shards, optimizers[1:])
     hidden = cfg.algo.world_model.recurrent_model.recurrent_state_size
     joint = hidden + cfg.algo.world_model.recurrent_model.dense_units
     per_shard = T * _launch_chunks(B // PARALLEL_SHARDS, hidden, joint) + H * _launch_chunks(
@@ -4028,7 +4070,8 @@ def _two_shards_against_one(cfg, build_agent, make_train_step, metric_order, tau
                              f"{dict(zip(metric_order, got.tolist()))}")
     return {"metric_rel_err": rel, "moments_rel_err": moments_rel, "launches": launches, "predicted": predicted,
             "one_device": one, "per_shard": per_shard, "seconds": seconds, "batch": B,
-            "shard_batch": B // PARALLEL_SHARDS, "moments": {k: float(v) for k, v in moments.items()}}
+            "shard_batch": B // PARALLEL_SHARDS, "moments": {k: float(v) for k, v in moments.items()},
+            "peak_bytes": peak_bytes}
 
 
 def run_parallel_step(device_name: str = "cuda") -> dict:
@@ -4700,6 +4743,133 @@ def run_decoupled(build_dir: Path, runner, device_name: str = "cuda") -> dict:
                       "checkpoint": Path(verdict["checks"]["final_checkpoint_verifies"]["detail"]["checkpoint"]).name,
                       "child_s": child["seconds"], "imports_s": child["imports_s"], "passed": drill["printed"][-1]},
             "seconds": seconds, "in_process_s": in_process_s}
+
+
+def run_fsdp_step(device_name: str = "cuda") -> dict:
+    """(2) One DreamerV3-S fp32 gradient step at ``fabric.fsdp=2`` (two
+    shards of 8 sequences, each's optimizers cut for its model index)
+    against one device's on the same 16-sequence batch and noise, held at
+    ``PARALLEL_STEP_RTOL`` (``_two_shards_against_one``), then the same step
+    at two data shards (``fsdp=1``): each's peak of allocated bytes above
+    what the allocator held before the shards' step."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_ORDER, make_train_step
+    from sheeprl_tpu_torch.config import compose
+
+    cfg = compose(PARALLEL_STEP_OVERRIDES + [f"fabric.accelerator={device_name}", f"fabric.fsdp={FSDP_AXIS}",
+                                             f"fabric.devices={PARALLEL_SHARDS}"])
+    _dv3_s_widths(cfg)
+    fsdp = _two_shards_against_one(cfg, build_agent, make_train_step, METRIC_ORDER, 0.02, "DreamerV3-S FSDP",
+                                   device_name, fsdp=FSDP_AXIS)
+    dp = _two_shards_against_one(cfg, build_agent, make_train_step, METRIC_ORDER, 0.02, "DreamerV3-S", device_name)
+    return {**fsdp, "dp_peak_bytes": dp["peak_bytes"], "dp_launches": dp["launches"]}
+
+
+def run_fsdp_resume(ckpt: str, root: Path, device_name: str = "cuda") -> dict:
+    """(3) The child's partial-shard group resumed at ``fabric.devices=1
+    fabric.fsdp=1`` through ``run``: the group reassembled, the agent and its
+    whole optimizers loaded from it, the remaining iterations' player steps
+    through the kernel (its launches counted from 0 around the run)."""
+    import numpy as np
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.resilience.sharded import load_sharded_checkpoint
+
+    overrides = [o for o in FSDP_DV3_OVERRIDES if not o.startswith(("fabric.devices=", "fabric.fsdp="))] + [
+        "fabric.devices=1", "fabric.fsdp=1", f"fabric.accelerator={device_name}", f"root_dir={root / 'resumed'}",
+        f"checkpoint.resume_from={ckpt}"]
+    cfg = compose(overrides)
+    _dv3_s_widths(cfg)
+    saved = load_sharded_checkpoint(ckpt)
+    fused_layernorm_gru.launches = 0  # the main path starts here
+    out = cli.run(overrides)
+    launches = fused_layernorm_gru.launches  # and ends here
+    hidden = cfg.algo.world_model.recurrent_model.recurrent_state_size
+    joint = hidden + cfg.algo.world_model.recurrent_model.dense_units
+    predicted = out["player_steps"] * _launch_chunks(out["player_width"], hidden, joint)
+    if (out["shards"] != 1 or out["start_iter"] != saved["iter_num"] + 1 or out["player_steps"] < 1
+            or launches != predicted or not np.isfinite(out["metric_rows"]).all()):
+        raise AssertionError(f"fsdp group resumed at one device from {ckpt}: start_iter {out['start_iter']} (saved "
+                             f"iteration {saved['iter_num']}), shards {out['shards']}, player steps "
+                             f"{out['player_steps']}, ln_gru launches {launches} (predicted {predicted})")
+    return {"start_iter": out["start_iter"], "player_steps": out["player_steps"], "launches": launches,
+            "predicted": predicted}
+
+
+def run_fsdp(build_dir: Path, runner, device_name: str = "cuda") -> dict:
+    """This slice's group, 45 s in all (``FSDP_DEADLINES_S``): (1) ``python
+    -m sheeprl_tpu_torch run exp=dreamer_v3 fabric.devices=2 fabric.fsdp=2``
+    at DreamerV3-S in a child handed to ``runner`` (an interpreter of
+    ``start_child_runners`` that made its imports before the group), its
+    LayerNorm-GRU launches (counted from 0 in the child) equal to 2 x 79 a
+    gradient step plus the player's, its journal's ``fsdp_shard_map`` and
+    ``sharding_audit``, its two-part checkpoint group verified file by file;
+    while it runs, (2) ``run_fsdp_step`` in this process; then (3)
+    ``run_fsdp_resume`` from the child's group."""
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.diagnostics.journal import read_journal
+    from sheeprl_tpu_torch.resilience.coordination import group_status, rank_shard_path
+    from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
+    from sheeprl_tpu_torch.resilience.sharded import partial_layout
+    from sheeprl_tpu_torch.resilience.supervisor import child_env
+
+    root = (build_dir / "fsdp").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    overrides = FSDP_DV3_OVERRIDES + [f"root_dir={root / 'dv3'}", f"fabric.accelerator={device_name}"]
+    cfg = compose(overrides)
+    _dv3_s_widths(cfg)
+    record = root / "dv3_child.json"
+
+    def tail() -> str:
+        log = Path(f"{record}.log")
+        return log.read_text()[-3000:] if log.exists() else "no child log"
+
+    _wait_ready([runner])
+    t0 = time.monotonic()
+    with deadline(FSDP_DEADLINES_S["fsdp"], "fsdp", tail):
+        proc = subprocess.Popen([sys.executable, "-c", _CHILD_HANDOFF, runner[0], str(record), "run", *overrides],
+                                cwd=str(ROOT), env=child_env())
+        atexit.register(proc.kill)  # a no-op once it has exited
+        with deadline(FSDP_DEADLINES_S["fsdp_step"], "fsdp_step"):
+            step = run_fsdp_step(device_name)
+        in_process_s = time.monotonic() - t0
+        rc = proc.wait()
+        child_s = time.monotonic() - t0
+        child = json.loads(record.read_text()) if record.is_file() else {"exit_code": rc}
+        if rc != 0 or child.get("exit_code") != 0:
+            raise AssertionError(f"fsdp DreamerV3-S child: exit {rc} / {child.get('exit_code')}\n{tail()}")
+        ckpts = sorted((root / "dv3").rglob("ckpt_*_0.ckpt"))
+        with deadline(FSDP_DEADLINES_S["fsdp_resume"], "fsdp_resume"):
+            resumed = run_fsdp_resume(str(ckpts[0]), root, device_name) if len(ckpts) == 1 else None
+    seconds = time.monotonic() - t0
+    predicted = _child_launches(cfg, {**child, "gradient_steps": child["gradient_steps"] * PARALLEL_SHARDS})
+    # the child's run directory (the resumed run keeps the archived root_dir)
+    events = read_journal(str(ckpts[0].parent.parent / "journal.jsonl")) if ckpts else [{}]
+    maps = [e for e in events if e["event"] == "fsdp_shard_map"]
+    audits = [e for e in events if e["event"] == "sharding_audit"]
+    group = [rank_shard_path(str(ckpts[0]), r) for r in range(FSDP_AXIS)] if len(ckpts) == 1 else []
+    layout = partial_layout(group[0]) if group else None
+    if (child["shards"] != PARALLEL_SHARDS or child["gradient_steps"] < 1 or child["launches"] != predicted
+            or len(maps) != 1 or maps[0]["axis_size"] != FSDP_AXIS or len(audits) != 1
+            or events[-1].get("status") != "completed" or resumed is None or not layout
+            or any(verify_checkpoint(f) != (True, "verified") for f in group)
+            or group_status(group[0]) != (True, "group_verified")):
+        raise AssertionError(f"fsdp DreamerV3-S child: {child['shards']} shards, {child['gradient_steps']} gradient "
+                             f"steps, {child['launches']} ln_gru launches (predicted {predicted}), shard maps {maps}, "
+                             f"audits {len(audits)}, checkpoints {ckpts}, run_end {events[-1]}")
+    sizes = {Path(f).name: os.path.getsize(f) for f in group}
+    shutil.rmtree(root, ignore_errors=True)
+    return {"child": child, "predicted": predicted, "per_gradient_step": PARALLEL_SHARDS * MINEDOJO_LAUNCHES_PER_STEP,
+            "shard_map": {k: maps[0][k] for k in ("axis_size", "min_shard_bytes", "trees")},
+            "audit": {k: audits[0][k] for k in ("n_shards", "n_leaves", "total_bytes", "total_bytes_per_device",
+                                                "flagged_replicated")},
+            "group": sizes, "sliced_leaves": len(layout), "step": step, "resumed": resumed, "seconds": seconds,
+            "in_process_s": in_process_s, "child_s": child_s,
+            "launches": {"fsdp_dv3": child["launches"], "fsdp_step": step["launches"],
+                         "fsdp_dp_step": step["dp_launches"], "fsdp_resume": resumed["launches"]}}
 
 
 def _off_policy_run(overrides, where: str, resume: bool = True) -> dict:
@@ -5986,8 +6156,8 @@ def main() -> int:
     os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     os.environ["PYTHONPYCACHEPREFIX"] = str(build_dir / "pycache")
     # two for the resilience group's children, one each for the parallel,
-    # parallel_families and decoupled groups
-    runners = start_child_runners(build_dir, count=5)
+    # parallel_families, decoupled and fsdp groups
+    runners = start_child_runners(build_dir, count=6)
     lint = start_lint(build_dir)
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
@@ -6176,6 +6346,35 @@ def main() -> int:
           f"process {decoupled['in_process_s']:.1f} s beside the drill's child)  [{card}]", flush=True)
 
     mark('decoupled')
+    fsdp = run_fsdp(build_dir, runners[5])
+    child, fstep, fmap = fsdp["child"], fsdp["step"], fsdp["shard_map"]
+    print(f"[fsdp] python -m sheeprl_tpu_torch run exp=dreamer_v3 fabric.devices=2 fabric.fsdp=2 (DreamerV3-S, batch "
+          f"16 x 64 a shard, horizon 15, fp32, (data, model) = (1, 2), both shards on the one card): {child['shards']} "
+          f"shard steps built, {child['gradient_steps']} gradient steps, player calls {child['player_calls']}, ln_gru "
+          f"launches {child['launches']} = predicted {fsdp['predicted']} ({fsdp['per_gradient_step']} a gradient "
+          f"step: the dynamic scan and the imagination once a shard, on the gathered weight); the child "
+          f"{child['seconds']} s (imports made before the group, {child['imports_s']} s)  [{card}]", flush=True)
+    print(f"[fsdp] fsdp_shard_map: axis_size {fmap['axis_size']}, min_shard_bytes {fmap['min_shard_bytes']}, "
+          f"{json.dumps(fmap['trees'])}; sharding_audit {json.dumps(fsdp['audit'])}  [{card}]", flush=True)
+    print(f"[fsdp] partial-shard checkpoint group {json.dumps(fsdp['group'])} bytes ({fsdp['sliced_leaves']} leaves "
+          f"sliced), each file verified, the group complete; resumed at fabric.devices=1 fabric.fsdp=1 from it: "
+          f"start_iter {fsdp['resumed']['start_iter']}, {fsdp['resumed']['player_steps']} player steps, ln_gru "
+          f"launches {fsdp['resumed']['launches']} = predicted {fsdp['resumed']['predicted']}  [{card}]", flush=True)
+    print(f"[fsdp] one DreamerV3-S fp32 gradient step at fabric.fsdp=2 (2 shards of {fstep['shard_batch']} sequences, "
+          f"each's optimizer state sliced) against one device's on the same {fstep['batch']}-sequence batch and noise "
+          f"(noise deciding every draw): metrics max relative error {fstep['metric_rel_err']:.3g}, Moments low/high "
+          f"{fstep['moments_rel_err']:.3g} (tol {PARALLEL_STEP_RTOL:g}); the shards' metrics bitwise equal, their "
+          f"gathered parameters and optimizer state equal; ln_gru launches {fstep['launches']} = predicted "
+          f"{fstep['predicted']} (79 + 2 x {fstep['per_shard']}); {fstep['seconds']:.2f} s  [{card}]", flush=True)
+    print(f"[fsdp] torch.cuda.max_memory_allocated over the two shards' step above what was allocated before it: "
+          f"fsdp=2 {fstep['peak_bytes']} bytes, two data shards {fstep['dp_peak_bytes']} bytes "
+          f"({fstep['peak_bytes'] / max(1, fstep['dp_peak_bytes']):.3f} of it; both shards on the one card)  [{card}]",
+          flush=True)
+    print(f"[fsdp] group {fsdp['seconds']:.1f} s of its {FSDP_DEADLINES_S['fsdp']:g} s (the child's "
+          f"{fsdp['child_s']:.1f} s; in this process {fsdp['in_process_s']:.1f} s beside the child)  [{card}]",
+          flush=True)
+
+    mark('fsdp')
     slice_report = run_slice(build_dir)
     print(
         f"[slice] DreamerV3-S serve: {slice_report['requests']} /act from {slice_report['sessions']} sessions, "
@@ -6790,7 +6989,7 @@ def main() -> int:
                "minedojo": minedojo["ln_gru_launches"],
                **{f"resilience_child_{i}": n for i, n in enumerate(resilience["launches"])},
                "parallel_dv3": parallel["child"]["launches"], "parallel_step": parallel["step"]["launches"],
-               **parallel["launches"], **families["launches"], **decoupled["launches"]}
+               **parallel["launches"], **families["launches"], **decoupled["launches"], **fsdp["launches"]}
     print(f"[launches] ln_gru launches by path: {', '.join(f'{k} {v}' for k, v in by_path.items())}; "
           f"{sum(by_path.values())} in all  [{card}]", flush=True)
     case_keys = ("B", "K", "H", "dtype", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms", "bound_ms", "bound_by")
@@ -6812,7 +7011,7 @@ def main() -> int:
         "cases": [{k: c[k] for k in case_keys} for c in cases],
         "phase": "kernel+lint+slice+serve-ops+train+chunked+resume+eval+offline+drill+jepa+p2e+sac+droq+sac_ae+offline_sac"
                  "+offline_droq+bf16+dv2+dv1+ppo_recurrent+p2e_dv2+p2e_dv1+minedojo+records"
-                 "+resilience+parallel+parallel_families+decoupled",
+                 "+resilience+parallel+parallel_families+decoupled+fsdp",
     }]
     mark("kernels line")
     print(f"[timing] wall seconds by group of phases: "

@@ -32,6 +32,7 @@ from sheeprl_tpu_torch.algos.dreamer_v3.agent import (
     init_weights,
     resolve_actor_cls,
 )
+from sheeprl_tpu_torch.parallel.dp import draw
 
 PlayerDV1 = PlayerDV3
 
@@ -46,7 +47,7 @@ def gaussian_state(raw: torch.Tensor, min_std: float = 0.1, noise: Optional[torc
     if not sample:
         return (mean, std), mean
     if noise is None:
-        noise = torch.randn(mean.shape, dtype=mean.dtype, device=mean.device, generator=generator)
+        noise = draw(torch.randn, mean.shape, generator, dtype=mean.dtype, device=mean.device)
     return (mean, std), mean + std * noise.to(mean.dtype)
 
 

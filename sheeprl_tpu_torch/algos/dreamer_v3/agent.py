@@ -45,12 +45,14 @@ from torch.overrides import TorchFunctionMode
 from sheeprl_tpu_torch.models.blocks import LayerNormChannelLast, LayerNormGRUCell, get_activation
 from sheeprl_tpu_torch.ops.distributions import TruncatedNormal
 from sheeprl_tpu_torch.ops.numerics import safeatanh, symlog
+from sheeprl_tpu_torch.parallel.dp import draw
 from sheeprl_tpu_torch.parallel.precision import call_cast
 
 
 def gumbel_like(x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Standard Gumbel noise shaped like ``x``, from ``generator``."""
-    u = torch.rand(x.shape, dtype=x.dtype, device=x.device, generator=generator)
+    """Standard Gumbel noise shaped like ``x`` (rows first), from
+    ``generator`` (or a shard's block of a ``parallel/dp.py::GlobalStream``)."""
+    u = draw(torch.rand, x.shape, generator, dtype=x.dtype, device=x.device)
     tiny = torch.finfo(x.dtype).tiny
     return -torch.log((-torch.log(u.clamp_min(tiny))).clamp_min(tiny))
 
@@ -523,13 +525,12 @@ class Actor(nn.Module):
             if greedy:
                 actions = mean
             elif self.dist == "trunc_normal":
-                u = noise[0] if noise is not None else 1e-6 + (1 - 2e-6) * torch.rand(
-                    mean.shape, dtype=mean.dtype, device=mean.device, generator=generator)
+                u = noise[0] if noise is not None else 1e-6 + (1 - 2e-6) * draw(
+                    torch.rand, mean.shape, generator, dtype=mean.dtype, device=mean.device)
                 actions = TruncatedNormal(mean, std, -1.0, 1.0).rsample(u)
             else:
-                eps = noise[0] if noise is not None else torch.randn(
-                    mean.shape, dtype=mean.dtype, device=mean.device, generator=generator
-                )
+                eps = noise[0] if noise is not None else draw(
+                    torch.randn, mean.shape, generator, dtype=mean.dtype, device=mean.device)
                 actions = mean + std * eps.to(mean.dtype)
             if self.dist == "tanh_normal":
                 actions = torch.tanh(actions)

@@ -51,11 +51,13 @@ from sheeprl_tpu_torch.diagnostics.sentinel import select_finite, sentinel_spec,
 from sheeprl_tpu_torch.models.blocks import LayerNormGRUCell
 from sheeprl_tpu_torch.ops.distributions import Bernoulli, MSEDistribution, SymlogDistribution, TwoHotEncodingDistribution
 from sheeprl_tpu_torch.ops.numerics import compute_lambda_values
-from sheeprl_tpu_torch.parallel.dp import (all_gather_cat, body_of, local_sample_size, pmean_tree, replicas_equal,
-                                            run_one, run_shards, shard_generators, train_batches)
-from sheeprl_tpu_torch.parallel.mesh import replicate
+from sheeprl_tpu_torch.parallel.dp import (all_gather_cat, apply_update, body_of, global_streams, gradient_norm,
+                                            local_sample_size, pmean_tree, reduce_gradients, replicas_equal, run_one,
+                                            run_shards, shard_generators, train_batches, whole_gradients)
+from sheeprl_tpu_torch.parallel.fsdp import (fsdp_active, gathered_optimizers, layout_of, shard_map_summary,
+                                              shard_optimizer, sliced_state_equal)
+from sheeprl_tpu_torch.parallel.mesh import model_axis_size, replicate
 from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
-from sheeprl_tpu_torch.utils.optim import clip_by_global_norm, global_norm
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
 METRIC_ORDER = [
@@ -98,6 +100,11 @@ def make_optimizers(cfg, agent: Agent) -> Dict[str, torch.optim.Optimizer]:
 
 
 def optimizer_params(optimizer: torch.optim.Optimizer) -> List[torch.Tensor]:
+    """The module parameters ``optimizer`` trains (what a loss is
+    differentiated over): an FSDP-sliced optimizer's whole ones."""
+    layout = layout_of(optimizer)
+    if layout is not None:
+        return list(layout.params)
     return [p for group in optimizer.param_groups for p in group["params"]]
 
 
@@ -107,31 +114,23 @@ def gradients(loss: torch.Tensor, params: Sequence[torch.Tensor]) -> List[torch.
     return [torch.zeros_like(p) if g is None else g for p, g in zip(params, grads)]
 
 
-def apply_gradients(optimizer: torch.optim.Optimizer, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor],
-                    clip: float) -> None:
-    """One optimizer step on ``grads`` clipped by their global norm (optax's
-    ``chain(clip_by_global_norm(clip), ...)``)."""
-    for p, g in zip(params, clip_by_global_norm(grads, clip)):
-        p.grad = g
-    optimizer.step()
-    optimizer.zero_grad(set_to_none=True)
-
-
 def make_update(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg) -> Callable:
     """``norm = yield from update(name, loss)`` inside a step body: the
     gradient of ``loss`` over the optimizer ``name``'s parameters, its mean
     over the shards (``pmean``, before the clip, as the JAX chain clips
-    inside its update), clipped by its global norm as the config section
-    says, one step; the norm of the mean before clipping.  The plain update
-    of the family's steps that keep no health stats (DreamerV1, DreamerV2,
-    the Plan2Explore families)."""
+    inside its update; under FSDP each model shard's slices of it),
+    clipped by its global norm as the config section says, one step; the
+    norm of the mean before clipping (``parallel/dp.py``'s
+    ``reduce_gradients``, ``gradient_norm``, ``apply_update``).  The plain
+    update of the family's steps that keep no health stats (DreamerV1,
+    DreamerV2, the Plan2Explore families)."""
     clip = {name: float(section.clip_gradients) for name, section in agent.optimizer_configs(cfg).items()}
     params = {name: optimizer_params(opt) for name, opt in optimizers.items()}
 
     def update(name: str, loss: torch.Tensor):
-        grads = yield from pmean_tree(gradients(loss, params[name]))
-        norm = global_norm(grads)
-        apply_gradients(optimizers[name], params[name], grads, clip[name])
+        grads = yield from reduce_gradients(gradients(loss, params[name]), optimizers[name])
+        norm = yield from gradient_norm(grads, optimizers[name])
+        yield from apply_update(optimizers[name], params[name], grads, clip[name], norm)
         return norm
 
     return update
@@ -418,18 +417,23 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
         over the shards (``pmean``, before the clip, as the JAX chain clips
         inside its update), clipped by their global norm, one optimizer
         step; returns the norm of the mean before clipping (of the world
-        model's own parameters for ``world_model``).  A generator: ``norm =
-        yield from update(name, loss)``."""
-        grads = yield from pmean_tree(gradients(loss, params[name]))
-        norm = global_norm(grads)
+        model's own parameters for ``world_model``).  Under FSDP the
+        gradient is each model shard's slices, and the norms (the clip's
+        and the metric's) and the health stats' gradients are the whole
+        gradient's.  A generator: ``norm = yield from update(name, loss)``."""
+        opt = optimizers[name]
+        grads = yield from reduce_gradients(gradients(loss, params[name]), opt)
+        norm = yield from gradient_norm(grads, opt)
+        metric_norm = norm
         if term_params and name == "world_model":
-            norm = global_norm([g for p, g in zip(params[name], grads) if id(p) not in term_params])
+            metric_norm = yield from gradient_norm(grads, opt, [id(p) not in term_params for p in params[name]])
         if health.enabled:
-            step_grads[name] = grads  # before clipping, as the JAX chain clips inside its update
+            # before clipping, as the JAX chain clips inside its update
+            step_grads[name] = yield from whole_gradients(grads, opt)
             with torch.no_grad():
                 torch._foreach_copy_(before[name], params[name])
-        apply_gradients(optimizers[name], params[name], grads, clip[name])
-        return norm
+        yield from apply_update(opt, params[name], grads, clip[name], norm)
+        return metric_norm
 
     def body(moments_state: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], tau: float,
              generator: Optional[torch.Generator] = None, noise: Optional[Dict[str, Any]] = None):
@@ -614,8 +618,23 @@ def shard_learner(runtime, cfg, diag, agent: Agent, agent_state: Optional[Mappin
     batches, tau)`` is one gradient step over the shards, shard d's on
     ``batches[d]`` with the Moments replicated (every shard updates them on
     the gathered lambda values), and returns shard 0's Moments and metrics
-    (reduced over the shards); the caller instruments it."""
+    (reduced over the shards); the caller instruments it.
+
+    Under FSDP (``runtime.fsdp`` = k > 1, ``parallel/fsdp.py``) each shard's
+    optimizers are cut for its model index ``d % k`` after loading: their
+    state is held sliced by the rule (the step counter and the leaves the
+    rule replicates whole), each model shard steps its slices, and the
+    modules keep every parameter whole, gathered after each update, so the
+    player acts with the whole parameters.  The Moments stay replicated.
+    The step is global-view: its draws come from the run's one ``generator``
+    at the global batch's shapes, each shard taking its block
+    (``dp.global_streams``), not from folded per-shard streams.  The rule's
+    layout of the parameters and optimizer state is journaled once
+    (``fsdp_shard_map``)."""
+    from sheeprl_tpu_torch.interop.flax_params import optax_state
+
     devices = runtime.devices
+    fsdp = model_axis_size(runtime)
     replicas = replicate(agent, devices)
     optimizer_sets = [make_optimizers(cfg, replica) for replica in replicas]
     moments_state = agent.initial_moments(runtime.device)
@@ -623,13 +642,22 @@ def shard_learner(runtime, cfg, diag, agent: Agent, agent_state: Optional[Mappin
         for replica, opts, d in zip(replicas, optimizer_sets, devices):
             loaded = load_learner_state(agent_state, replica, opts, d)
             moments_state = loaded if replica is agent else moments_state
+    if fsdp_active(fsdp):
+        floor = runtime.fsdp_min_shard_bytes
+        # the rule's layout of the state as a checkpoint holds it
+        opt_trees = nest({name: optax_state(opt, agent.optimizer_spec(name)) for name, opt in optimizer_sets[0].items()})
+        diag.on_fsdp_shard_map(shard_map_summary({"params": agent.trees(), "opt_state": opt_trees}, fsdp, floor))
+        optimizer_sets = [{name: shard_optimizer(opt, d % fsdp, fsdp, floor) for name, opt in opts.items()}
+                          for d, opts in enumerate(optimizer_sets)]
     steps = [make_train_step_fn(replica, opts, cfg, is_continuous) for replica, opts in zip(replicas, optimizer_sets)]
     generators = shard_generators(generator, cfg.seed, devices)
 
     def dp_train_step(moments_state: Dict[str, Any], batches: List[Dict[str, torch.Tensor]], tau: float):
+        streams = (global_streams(generator, [batch["actions"].shape[1] for batch in batches]) if fsdp_active(fsdp)
+                   else generators)
         return run_shards([
             body_of(step)(tree_map(lambda t, d=d: t.to(d), moments_state), batch, tau, g)
-            for step, batch, g, d in zip(steps, batches, generators, devices)
+            for step, batch, g, d in zip(steps, batches, streams, devices)
         ])[0]
 
     dp_train_step.metric_order, dp_train_step.health_names = steps[0].metric_order, steps[0].health_names
@@ -644,10 +672,14 @@ def shard_learner(runtime, cfg, diag, agent: Agent, agent_state: Optional[Mappin
 
 def learner_replicas_equal(replicas: Sequence[Agent], optimizer_sets: Sequence[Dict[str, torch.optim.Optimizer]]
                            ) -> bool:
-    """Whether every replica holds shard 0's bytes (parameters, optimizer
-    state)."""
-    return len(replicas) == 1 or replicas_equal([[*replica, *opts.values()]
-                                                 for replica, opts in zip(replicas, optimizer_sets)])
+    """Whether every replica holds shard 0's bytes: the parameters, and the
+    optimizer state (under FSDP the gathered state of every data row's model
+    shards equals shard 0's row's, ``fsdp.sliced_state_equal``)."""
+    if len(replicas) == 1:
+        return True
+    if layout_of(next(iter(optimizer_sets[0].values()), None)) is not None:
+        return replicas_equal([list(replica) for replica in replicas]) and sliced_state_equal(optimizer_sets)
+    return replicas_equal([[*replica, *opts.values()] for replica, opts in zip(replicas, optimizer_sets)])
 
 
 def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train_step_fn: Callable, *,
@@ -790,7 +822,6 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     replicas, optimizer_sets, moments_state, dp_train_step = shard_learner(
         runtime, cfg, diag, agent, agent_state, make_train_step_fn, is_continuous, generator)
     train_step = diag.instrument("train_step", dp_train_step, kind="train")
-    optimizers = optimizer_sets[0]
     metric_order, health_out = train_step.metric_order, train_step.health_names
 
     buffer_size = cfg.buffer.size // num_envs if not cfg.dry_run else dry_run_buffer_size
@@ -1061,11 +1092,13 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
             or (iter_num == total_iters and cfg.checkpoint.save_last)
         ):
             last_checkpoint = policy_step_count
+            # under FSDP the optimizer state is gathered on the host
+            with gathered_optimizers(optimizer_sets) as whole:
+                # optax's layout, so that the JAX package resumes it too
+                opt_states = nest({name: optax_state(opt, agent.optimizer_spec(name)) for name, opt in whole.items()})
             ckpt_state = {
                 **agent.trees(),
-                # optax's layout, so that the JAX package resumes it too
-                "opt_states": nest({name: optax_state(opt, agent.optimizer_spec(name))
-                                    for name, opt in optimizers.items()}),
+                "opt_states": opt_states,
                 **({"moments": moments_state} if moments_state else {}),
                 "ratio": ratio.state_dict(),
                 "iter_num": iter_num,

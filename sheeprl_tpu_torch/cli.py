@@ -130,6 +130,7 @@ def check_configs(cfg: dotdict) -> None:
         )
     if cfg.metric.log_level not in (0, 1):
         raise ValueError(f"metric.log_level must be 0 or 1, got {cfg.metric.log_level}")
+    _check_fsdp(cfg)
     _check_offline(cfg)
     _check_diagnostics(cfg)
     _check_resilience(cfg)
@@ -229,12 +230,40 @@ def _check_diagnostics(cfg: dotdict) -> None:
             "diagnostics.health.inject_entropy_collapse_iter requires diagnostics.health.detectors.entropy_floor "
             "— a drill against a disarmed detector could never fire"
         )
-    fsdp = cfg.fabric.get("fsdp", 1)
-    if fsdp is not None and int(fsdp) < 1:
-        raise ValueError(f"distribution.fsdp_axis_size must be >= 1, got {int(fsdp)}")
+
+
+#: the algorithms whose loop places the train state under FSDP: the JAX
+#: ``check_configs``' literal set (``algo.name``; the Plan2Explore
+#: experiments name theirs ``p2e_dv*_exploration`` / ``_finetuning``, which
+#: the set does not hold, so the JAX package refuses them too)
+FSDP_SUPPORTED = ("dreamer_v3", "dreamer_v3_jepa", "p2e_dv1", "p2e_dv2", "p2e_dv3")
+
+
+def _check_fsdp(cfg: dotdict) -> None:
+    """The JAX ``check_configs``' FSDP rules and errors, at compose time: the
+    axis size and the floor in range; with ``fabric.fsdp > 1`` an algorithm
+    of :data:`FSDP_SUPPORTED`, no offline mode, and an axis size that
+    divides ``fabric.devices``."""
+    fsdp_raw = cfg.fabric.get("fsdp", 1)
+    fsdp = 1 if fsdp_raw is None else int(fsdp_raw)
+    if fsdp < 1:
+        raise ValueError(f"distribution.fsdp_axis_size must be >= 1, got {fsdp}")
     min_shard = cfg.fabric.get("fsdp_min_shard_bytes")
     if min_shard is not None and int(min_shard) < 0:
         raise ValueError(f"distribution.fsdp_min_shard_bytes must be >= 0, got {min_shard!r}")
+    if fsdp <= 1:
+        return
+    if cfg.algo.name not in FSDP_SUPPORTED:
+        raise ValueError(f"distribution.fsdp_axis_size > 1 supports the DV3 family {list(FSDP_SUPPORTED)}, got "
+                         f"algo.name={cfg.algo.name!r}")
+    if (cfg.algo.get("offline") or {}).get("enabled"):
+        raise ValueError("distribution.fsdp_axis_size > 1 is not supported with algo.offline.enabled=true (the "
+                         "offline loop is single-device)")
+    n_dev = cfg.fabric.get("devices", 1)
+    if isinstance(n_dev, str) and n_dev not in ("auto", "-1"):
+        n_dev = int(n_dev)
+    if isinstance(n_dev, int) and n_dev > 0 and n_dev % fsdp != 0:
+        raise ValueError(f"distribution.fsdp_axis_size ({fsdp}) must divide fabric.devices ({n_dev})")
 
 
 def _check_rssm_chunks(cfg: dotdict) -> None:

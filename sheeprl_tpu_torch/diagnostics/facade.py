@@ -397,6 +397,18 @@ class Diagnostics:
         if self.memory is not None:
             self.memory.register_shards(devices, replicated)
 
+    def on_fsdp_shard_map(self, summary: Mapping[str, Any]) -> None:
+        """How the FSDP rule laid out the train state
+        (``parallel/fsdp.py::shard_map_summary``): journals the
+        ``fsdp_shard_map`` event and arms the memory monitor's FSDP
+        accounting (its gauges, the audit's ``min_shard_bytes``
+        exemption)."""
+        if not self.enabled:
+            return
+        if self.memory is not None:
+            self.memory.note_fsdp(summary)
+        self._journal_event("fsdp_shard_map", **dict(summary))
+
     def track_buffer(self, name: str, buffer: Any) -> None:
         if self.memory is not None:
             self.memory.track_buffer(name, buffer)

@@ -30,7 +30,11 @@
   parameters, optimizer state, Moments) with its bytes and placement, and
   the dispatch's batch blocks with their devices; replicated leaves of at
   least ``diagnostics.memory.replicated_warn_bytes`` are flagged when the
-  data axis has more than one shard.  The summary carries its digest.  The
+  data axis has more than one shard.  Under FSDP (armed by the facade's
+  ``on_fsdp_shard_map``: ``note_fsdp``) a model shard's optimizer slices
+  count at their own bytes, only leaves the rule cannot cut are flagged,
+  and ``Telemetry/fsdp_axis_size`` and ``Telemetry/params_bytes_per_device``
+  join the interval's gauges.  The summary carries its digest.  The
   JAX package's donation audit has no eager counterpart (no buffer is
   donated): ``memory_breakdown`` and ``memory_summary`` say it did not run.
 """
@@ -127,7 +131,8 @@ def _named_leaves(obj: Any, prefix: str) -> Iterator[Tuple[str, torch.Tensor]]:
 
 
 def sharding_table(devices: List[Any], replicated: Mapping[str, List[Any]], batch: Any, top_n: int = 20,
-                   replicated_warn_bytes: Optional[int] = None) -> Dict[str, Any]:
+                   replicated_warn_bytes: Optional[int] = None, fsdp_axis_size: Optional[int] = None,
+                   fsdp_min_shard_bytes: Optional[int] = None) -> Dict[str, Any]:
     """Per-leaf bytes and placement (the ``sharding_audit`` payload, the JAX
     ``sharding_table``'s keys): each leaf of shard 0's replica of every
     ``replicated`` tree, held once per shard (``n_devices`` shards, its full
@@ -135,17 +140,36 @@ def sharding_table(devices: List[Any], replicated: Mapping[str, List[Any]], batc
     block, on its device).  Largest per-shard cost first, cut to ``top_n``
     rows; ``flagged_replicated`` names, over every leaf, the replicated ones
     of at least ``replicated_warn_bytes`` when there is more than one
-    shard."""
+    shard.
+
+    Under FSDP (``fsdp_axis_size > 1``) an optimizer state tensor that is a
+    model shard's slice counts at its own bytes on each shard, not
+    replicated; the parameters are whole on every shard (each shard's
+    modules hold them for its step).  The flag then names only the leaves
+    the rule cannot cut: replicated, at least ``fsdp_min_shard_bytes`` (a
+    smaller leaf is replicated on purpose) and with no dimension divisible
+    by the axis; with the JAX package's hint."""
+    from sheeprl_tpu_torch.parallel.fsdp import shard_axis, sliced_state_ids
+
     n = len(devices)
     where = ", ".join(str(d) for d in devices)
+    fsdp_on = fsdp_axis_size is not None and int(fsdp_axis_size) > 1
+    sliced = set().union(*(sliced_state_ids(per_shard[0]) for per_shard in replicated.values())) if fsdp_on else set()
     rows: List[Dict[str, Any]] = []
     for name, per_shard in replicated.items():
         for path, t in _named_leaves(per_shard[0], name):
             nbytes = t.numel() * t.element_size()
-            if nbytes:
-                rows.append({"path": path, "shape": list(t.shape), "dtype": str(t.dtype).replace("torch.", ""),
-                             "bytes": nbytes * n, "sharding": f"replicated over the {n} shards: {where}"[:120],
-                             "n_devices": n, "replicated": n > 1, "bytes_per_device": nbytes})
+            if not nbytes:
+                continue
+            row = {"path": path, "shape": list(t.shape), "dtype": str(t.dtype).replace("torch.", ""),
+                   "bytes": nbytes * n, "sharding": f"replicated over the {n} shards: {where}"[:120],
+                   "n_devices": n, "replicated": n > 1, "bytes_per_device": nbytes}
+            if id(t) in sliced:
+                row.update(sharding=f"model shard's slice (1/{int(fsdp_axis_size)}) on each of the {n} shards",
+                           replicated=False)
+            elif fsdp_on:
+                row["rule_axis"] = shard_axis(tuple(t.shape), t.dtype, int(fsdp_axis_size), fsdp_min_shard_bytes)
+            rows.append(row)
     for path, t in _named_leaves(batch, "batch"):
         nbytes = t.numel() * t.element_size()
         if nbytes and t.dim() > 0:
@@ -162,11 +186,19 @@ def sharding_table(devices: List[Any], replicated: Mapping[str, List[Any]], batc
         "rows": rows[: max(1, int(top_n))],
     }
     if replicated_warn_bytes is not None:
-        out["flagged_replicated"] = [r["path"] for r in rows if r["replicated"] and r["bytes_per_device"]
-                                     >= replicated_warn_bytes]
+        exempt_below = int(fsdp_min_shard_bytes or 0) if fsdp_on else 0
+        out["flagged_replicated"] = [r["path"] for r in rows if r["replicated"] and r.get("rule_axis") is None
+                                     and r["bytes_per_device"] >= max(replicated_warn_bytes, exempt_below)]
         if out["flagged_replicated"]:
-            out["hint"] = ("large replicated leaves over a multi-shard data axis: FSDP (fabric.fsdp > 1), which "
-                           "would shard them, is not ported yet (ROADMAP.md Queue 1, Parallel: FSDP)")
+            if fsdp_on:
+                out["hint"] = (f"replicated leaves >= distribution.fsdp_min_shard_bytes under "
+                               f"fsdp_axis_size={int(fsdp_axis_size)}: no dimension is divisible by the model axis "
+                               "— consider padding the layer width or lowering the axis size (howto/sharding.md)")
+            else:
+                out["hint"] = ("large replicated leaves on a multi-device mesh: set distribution.fsdp_axis_size > 1 "
+                               "(fabric.fsdp) to shard them over a second 'model' mesh axis (howto/sharding.md)")
+    for r in rows:
+        r.pop("rule_axis", None)
     return out
 
 
@@ -280,6 +312,8 @@ class MemoryMonitor:
         self._train_calls = 0
         self._breakdown_emitted = False
         self._shards: Optional[Tuple[List[Any], Dict[str, List[Any]]]] = None
+        # armed by the facade's on_fsdp_shard_map: {"axis_size", "min_shard_bytes", "params_bytes_per_device"}
+        self._fsdp: Optional[Dict[str, int]] = None
         self._sharding: Any = SHARDING_NOT_RUN
         self._hbm_source: Optional[str] = None
         self._latest: Dict[str, float] = {}
@@ -326,13 +360,28 @@ class MemoryMonitor:
         with self._lock:
             self._shards = (list(devices), dict(replicated))
 
+    def note_fsdp(self, summary: Mapping[str, Any]) -> None:
+        """Arm the FSDP accounting (the facade's ``on_fsdp_shard_map``): the
+        ``Telemetry/fsdp_axis_size`` and ``Telemetry/params_bytes_per_device``
+        gauges (the parameters' bytes a model shard owns under the rule, the
+        summary's), and the sharding audit's ``min_shard_bytes`` exemption."""
+        if not self.enabled:
+            return
+        params = (summary.get("trees") or {}).get("params") or {}
+        with self._lock:
+            self._fsdp = {"axis_size": int(summary.get("axis_size", 1) or 1),
+                          "min_shard_bytes": int(summary.get("min_shard_bytes", 0) or 0),
+                          "params_bytes_per_device": params.get("bytes_per_device")}
+
     def _sharding_audit(self, inst: Any, args: Tuple[Any, ...]) -> None:
         with self._lock:
             shards = self._shards
+            fsdp = dict(self._fsdp) if self._fsdp else {}
         if shards is None:
             return
         table = sharding_table(shards[0], shards[1], list(args), top_n=self.audit_top_n,
-                               replicated_warn_bytes=self.replicated_warn_bytes)
+                               replicated_warn_bytes=self.replicated_warn_bytes,
+                               fsdp_axis_size=fsdp.get("axis_size"), fsdp_min_shard_bytes=fsdp.get("min_shard_bytes"))
         with self._lock:
             self._sharding = {k: table[k] for k in ("n_shards", "n_leaves", "total_bytes",
                                                      "total_bytes_per_device", "flagged_replicated")}
@@ -454,8 +503,11 @@ class MemoryMonitor:
                 components[f"{name}_{kind}"] = size
         with self._lock:
             sharding = self._sharding
+            fsdp = dict(self._fsdp) if self._fsdp else None
         out: Dict[str, Any] = {"components": components, "sharding_audit": sharding,
                                "donation_audit": DONATION_NOT_RUN}
+        if fsdp:
+            out["fsdp_axis_size"] = fsdp["axis_size"]
         stats = device_memory_stats(self._device)
         if stats:
             out["device_memory"] = stats
@@ -484,6 +536,12 @@ class MemoryMonitor:
         rss = host_rss_bytes()
         if rss is not None:
             out["Telemetry/host_rss_bytes"] = float(rss)
+        with self._lock:
+            fsdp = dict(self._fsdp) if self._fsdp else None
+        if fsdp is not None:
+            out["Telemetry/fsdp_axis_size"] = float(fsdp["axis_size"])
+            if fsdp.get("params_bytes_per_device") is not None:
+                out["Telemetry/params_bytes_per_device"] = float(fsdp["params_bytes_per_device"])
         with self._lock:
             buffers = dict(self._buffers)
         for name, buf in buffers.items():

@@ -18,6 +18,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sheeprl_tpu_torch.parallel.dp import draw
+
 
 def _erase_rectangles(x: torch.Tensor, erase_frac: float) -> torch.Tensor:
     """``x`` (``[T, B, C, H, W]``) with all but a centred rectangle of
@@ -51,7 +53,8 @@ def make_two_views(obs: Mapping[str, torch.Tensor], erase_frac: float = 0.6, vec
         if noise is not None and k in noise:
             nq, nk = (n.to(v.dtype) for n in noise[k])
         else:
-            nq, nk = (torch.randn(v.shape, generator=generator, device=v.device).to(v.dtype) for _ in range(2))
+            nq, nk = (draw(torch.randn, v.shape, generator, device=v.device, batch_dims=2).to(v.dtype)
+                      for _ in range(2))
         obs_q[k] = v + nq * vec_dropout
         obs_k[k] = v + nk * vec_dropout
     return obs_q, obs_k

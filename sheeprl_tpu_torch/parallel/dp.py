@@ -19,6 +19,18 @@ collective with the same value on each shard:
 - ``gather``: the shards' tensors stacked on a new leading axis on shard 0's
   device, a copy to each shard.
 
+Under FSDP (``fabric.fsdp > 1``, ``parallel/fsdp.py``) the shards also sit
+on a model axis, and an optimizer cut by ``fsdp.shard_optimizer`` steps its
+model shard's slices: :func:`reduce_gradients` answers with the mean over
+all N shards, each model shard keeping its slice (``reduce_scatter``);
+:func:`gradient_norm` sums the slices' squares over the model axis
+(``model_sum``), so the clip and the ``Grads/*`` norms see the whole
+gradient; :func:`apply_update` steps the slices and gathers every sliced
+parameter back into each shard's modules (``model_gather``).  That step is
+global-view, as the JAX FSDP step is: with :func:`global_streams` every
+draw is the one-device step's draw on the global batch, cut into the
+shards' blocks.
+
 With one shard every collective returns its operand as it is: the one-device
 step runs the same body.  The reductions are plain copies and sums, as the
 JAX ``pmean`` is XLA's collective and not a Pallas kernel; they take the same
@@ -35,15 +47,16 @@ shims a JAX API that moved."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Generator, Iterable, Iterator, List, NamedTuple, Sequence
+from typing import Any, Callable, Generator, Iterable, Iterator, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-__all__ = ["Collective", "all_gather_cat", "body_of", "copy_state_", "fold_seed", "local_sample_size", "pmean_tree",
-           "prefetch_staged", "replicas_equal", "run_shards", "shard_generators", "split", "stage", "state_tensors",
-           "train_batches"]
+__all__ = ["Collective", "GlobalStream", "all_gather_cat", "apply_update", "body_of", "copy_state_", "draw",
+           "fold_seed", "global_streams", "gradient_norm", "local_sample_size", "pmean_tree", "prefetch_staged",
+           "reduce_gradients", "replicas_equal", "run_shards", "shard_generators", "split", "stage", "state_tensors",
+           "train_batches", "whole_gradients"]
 
 
 class Collective(NamedTuple):
@@ -92,7 +105,77 @@ def _gather(values: List[torch.Tensor]) -> List[torch.Tensor]:
     return [stacked] + [stacked.to(v.device, copy=True) for v in values[1:]]
 
 
-_COLLECTIVES = {"pmean": _pmean, "gather": _gather}
+def _model_groups(n: int, size: int) -> List[range]:
+    """The shards of each data row: ``size`` consecutive shards, model
+    index ``d % size`` (``parallel/mesh.py``'s layout)."""
+    return [range(r, r + size) for r in range(0, n, size)]
+
+
+def _reduce_scatter(trees: List[Any]) -> List[Any]:
+    """Operands ``(grads, axes, size)``: the mean of the shards' gradients
+    over all of them (summed in shard order on shard 0's device), and to
+    each shard its model index's slice of each leaf the rule cuts
+    (``axes[i]``), every other leaf whole; the slices are copies, so a
+    shard keeps only its own."""
+    from sheeprl_tpu_torch.parallel.fsdp import leaf_slice
+
+    grads = [list(t[0]) for t in trees]
+    axes, size = trees[0][1], trees[0][2]
+    n = len(grads)
+    root = [g.detach() for g in grads[0]]
+    acc = [g.clone() for g in root] if n == 1 else torch._foreach_add(root, [g.to(r.device) for g, r in
+                                                                             zip(grads[1], root)])
+    for other in grads[2:]:
+        torch._foreach_add_(acc, [g.to(r.device) for g, r in zip(other, root)])
+    if n > 1:
+        torch._foreach_div_(acc, float(n))
+    out = []
+    for d in range(n):
+        index = d % size
+        mine = []
+        for a, axis, g in zip(acc, axes, grads[d]):
+            if axis is None:
+                mine.append(a if d == 0 else a.to(g.device, copy=True))
+            else:
+                mine.append(leaf_slice(a, axis, index, size).to(g.device, copy=True))
+        out.append(mine)
+    return out
+
+
+def _model_sum(trees: List[Any]) -> List[torch.Tensor]:
+    """Operands ``(x, size)``: the sum of ``x`` over each data row's model
+    shards, in model order on the row's first device, a copy to each."""
+    size = trees[0][1]
+    out: List[Any] = [None] * len(trees)
+    for group in _model_groups(len(trees), size):
+        first = trees[group[0]][0]
+        total = first.detach().clone()
+        for d in group[1:]:
+            total = total + trees[d][0].detach().to(first.device)
+        for d in group:
+            out[d] = total if d == group[0] else total.to(trees[d][0].device, copy=True)
+    return out
+
+
+def _model_gather(trees: List[Any]) -> List[Any]:
+    """Operands ``(leaves, axes, size)``: each leaf the rule cuts joined
+    from the row's model shards' slices along its axis (on the row's first
+    device, a copy to each), every other leaf each shard's own."""
+    axes, size = trees[0][1], trees[0][2]
+    out: List[Any] = [None] * len(trees)
+    for group in _model_groups(len(trees), size):
+        device = trees[group[0]][0][0].device if trees[group[0]][0] else None
+        joined = [None if axis is None else torch.cat([trees[d][0][i].detach().to(device) for d in group], dim=axis)
+                  for i, axis in enumerate(axes)]
+        for d in group:
+            own = trees[d][0]
+            out[d] = [own[i] if axis is None else (j if d == group[0] else j.to(own[i].device, copy=True))
+                      for i, (axis, j) in enumerate(zip(axes, joined))]
+    return out
+
+
+_COLLECTIVES = {"pmean": _pmean, "gather": _gather, "reduce_scatter": _reduce_scatter, "model_sum": _model_sum,
+                "model_gather": _model_gather}
 
 
 def run_shards(bodies: Sequence[Generator[Collective, Any, Any]]) -> List[Any]:
@@ -120,6 +203,138 @@ def run_shards(bodies: Sequence[Generator[Collective, Any, Any]]) -> List[Any]:
         if len(ops) != 1:
             raise RuntimeError(f"the shards reached different collectives: {sorted(ops)}")
         sends = _COLLECTIVES[requests[0].op]([r.tree for r in requests])
+
+
+def reduce_gradients(grads: Sequence[torch.Tensor], optimizer: Any) -> Generator[Collective, Any, List[Any]]:
+    """``grads = yield from reduce_gradients(grads, optimizer)``: their mean
+    over the shards (:func:`pmean_tree`); for an optimizer cut by
+    ``fsdp.shard_optimizer``, this model shard's slices of the mean
+    (``reduce_scatter``)."""
+    from sheeprl_tpu_torch.parallel.fsdp import layout_of
+
+    layout = layout_of(optimizer)
+    if layout is None:
+        return (yield from pmean_tree(list(grads)))
+    return (yield Collective("reduce_scatter", (list(grads), layout.axes, layout.size)))
+
+
+def gradient_norm(grads: Sequence[torch.Tensor], optimizer: Any,
+                  keep: Optional[Sequence[bool]] = None) -> Generator[Collective, Any, torch.Tensor]:
+    """The global norm of the reduced gradient (``optax.global_norm``), of
+    the leaves ``keep`` marks (all by default).  Under FSDP the squares of
+    the shard's slices are summed over the model axis and the whole leaves
+    counted once, so every model shard holds the norm of the whole
+    gradient."""
+    from sheeprl_tpu_torch.parallel.fsdp import layout_of
+    from sheeprl_tpu_torch.utils.optim import global_norm
+
+    layout = layout_of(optimizer)
+    keep = [True] * len(grads) if keep is None else list(keep)
+    if layout is None:
+        return global_norm([g for g, k in zip(grads, keep) if k])
+    sliced = [(g.float() ** 2).sum() for g, a, k in zip(grads, layout.axes, keep) if k and a is not None]
+    whole = [(g.float() ** 2).sum() for g, a, k in zip(grads, layout.axes, keep) if k and a is None]
+    part = sum(sliced) if sliced else torch.zeros((), device=grads[0].device)
+    total = yield Collective("model_sum", (part, layout.size))
+    return torch.sqrt(total + sum(whole)) if whole else torch.sqrt(total)
+
+
+def whole_gradients(grads: Sequence[torch.Tensor], optimizer: Any) -> Generator[Collective, Any, List[Any]]:
+    """The reduced gradient whole on every shard (the health stats read it):
+    the grads themselves without FSDP, the model shards' slices joined
+    under it (``model_gather``)."""
+    from sheeprl_tpu_torch.parallel.fsdp import layout_of
+
+    layout = layout_of(optimizer)
+    if layout is None:
+        return list(grads)
+    return (yield Collective("model_gather", (list(grads), layout.axes, layout.size)))
+
+
+def apply_update(optimizer: Any, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], clip: float,
+                 norm: torch.Tensor) -> Generator[Collective, Any, None]:
+    """One optimizer step on the reduced ``grads`` clipped by their global
+    ``norm`` (optax's ``chain(clip_by_global_norm(clip), ...)``).  Without
+    FSDP ``params`` take the clipped gradients (``clip_by_global_norm``,
+    which reads their norm itself).  Under FSDP the optimizer steps this
+    model shard's slices with them clipped by ``norm``, the norm of the
+    whole gradient (:func:`gradient_norm`), and every sliced parameter is
+    gathered back whole into the shard's modules (``model_gather``)."""
+    from sheeprl_tpu_torch.parallel.fsdp import layout_of
+    from sheeprl_tpu_torch.utils.optim import clip_by_global_norm
+
+    layout = layout_of(optimizer)
+    if layout is None:
+        for p, g in zip(params, clip_by_global_norm(grads, clip)):
+            p.grad = g
+        optimizer.step()
+        optimizer.zero_grad(set_to_none=True)
+        return
+    views = [v for group in optimizer.param_groups for v in group["params"]]
+    keep = norm < clip
+    for v, g in zip(views, grads):
+        v.grad = torch.where(keep, g, g / norm.to(g.dtype) * clip)
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=True)
+    joined = yield Collective("model_gather", (views, layout.axes, layout.size))
+    with torch.no_grad():
+        for p, whole, axis in zip(layout.params, joined, layout.axes):
+            if axis is not None:
+                p.copy_(whole)
+
+
+class GlobalStream:
+    """One random stream for the global batch, cut into the shards' blocks:
+    handed to a shard's step body as its ``generator``.  The j-th draw of a
+    step is drawn once, at the global shape, from the run's ``generator``
+    (on its device) by the first shard to reach it, and each shard takes
+    its block: the global rows ``(outer, shard, row)`` of a draw whose
+    leading ``batch_dims`` dimensions hold ``(outer, row)`` with the
+    shard's ``rows`` rows fastest (a ``[B, ...]`` scan step, the ``T * B``
+    rows of the imagination laid out ``t * B + b``, a ``[T, B, ...]``
+    draw).  The shards reach the same draws in the same order, so the
+    blocks put together are what the one-device step draws on the global
+    batch from the same generator."""
+
+    def __init__(self, generator: torch.Generator, index: int, shards: int, rows: int, draws: List[Any]):
+        self.generator, self.index, self.shards, self.rows = generator, index, shards, rows
+        self._draws = draws
+        self._count = 0
+
+    def draw(self, fn: Callable, shape: Sequence[int], dtype: Any, device: Any, batch_dims: int) -> torch.Tensor:
+        shape = tuple(int(s) for s in shape)
+        j, self._count = self._count, self._count + 1
+        if j == len(self._draws):
+            global_shape = shape[:batch_dims - 1] + (shape[batch_dims - 1] * self.shards,) + shape[batch_dims:]
+            self._draws.append(fn(global_shape, dtype=dtype, device=self.generator.device, generator=self.generator))
+        lead = int(np.prod(shape[:batch_dims]))
+        if lead % self.rows:
+            raise ValueError(f"a draw of {lead} rows is not laid out in blocks of the shard's {self.rows} rows")
+        whole = self._draws[j]
+        block = whole.reshape((lead // self.rows, self.shards, self.rows) + shape[batch_dims:])[:, self.index]
+        if self.index == self.shards - 1:
+            self._draws[j] = None  # every shard has its block
+        return block.reshape(shape).to(device)
+
+
+def global_streams(generator: torch.Generator, rows: Sequence[int]) -> List[GlobalStream]:
+    """One :class:`GlobalStream` per shard over ``generator``, shard d's
+    block ``rows[d]`` rows wide (the shards' blocks are equal)."""
+    if len(set(rows)) != 1:
+        raise ValueError(f"the shards' blocks differ in rows: {list(rows)}")
+    draws: List[Any] = []
+    return [GlobalStream(generator, d, len(rows), int(r), draws) for d, r in enumerate(rows)]
+
+
+def draw(fn: Callable, shape: Sequence[int], generator: Any, *, dtype: Any = None, device: Any = None,
+         batch_dims: int = 1) -> torch.Tensor:
+    """``fn(shape, dtype=, device=, generator=)`` (``torch.rand``,
+    ``torch.randn``): from a ``torch.Generator`` (or None) as it is, from a
+    :class:`GlobalStream` the shard's block of the global draw, whose
+    leading ``batch_dims`` dimensions hold the rows."""
+    if isinstance(generator, GlobalStream):
+        return generator.draw(fn, shape, dtype, device, batch_dims)
+    return fn(tuple(shape), dtype=dtype, device=device, generator=generator)
 
 
 def run_one(body: Generator[Collective, Any, Any]) -> Any:

@@ -1,4 +1,4 @@
-"""The data axis (counterpart of ``sheeprl_tpu/parallel/mesh.py``).
+"""The shards' layout (counterpart of ``sheeprl_tpu/parallel/mesh.py``).
 
 The JAX package is single-controller: one process drives every local
 device through a 1-D ``data`` mesh, the batch sharded over it and the
@@ -12,8 +12,11 @@ JAX refuses more shards than devices (``sheeprl_tpu/parallel/runtime.py:84``):
 this placement is the port's one departure, the counterpart of the JAX
 tests' ``--xla_force_host_platform_device_count``.
 
-``model_axis_size`` is 1: FSDP's ``model`` axis is not ported (ROADMAP.md
-Queue 1, Parallel: FSDP)."""
+Under FSDP (``fabric.fsdp`` = k > 1) the N shards form the JAX mesh's
+``(data, model)`` layout of ``(N // k, k)``: shard d sits at data row
+``d // k`` and model index ``d % k`` (the JAX ``reshape(n // fsdp, fsdp)``
+order, :func:`mesh_position`), and ``parallel/fsdp.py`` slices the
+optimizer state over the model axis."""
 
 from __future__ import annotations
 
@@ -43,9 +46,16 @@ def shared_devices(devices: Sequence[torch.device]) -> List[str]:
     return sorted({d for d in names if names.count(d) > 1})
 
 
-def model_axis_size() -> int:
-    """Extent of FSDP's ``model`` axis: 1 (FSDP is not ported)."""
-    return 1
+def model_axis_size(runtime: Any = None) -> int:
+    """Extent of FSDP's ``model`` axis: the runtime's ``fsdp`` (1 without
+    a runtime, or without FSDP)."""
+    return int(getattr(runtime, "fsdp", 1) or 1)
+
+
+def mesh_position(shard: int, model_axis: int) -> tuple:
+    """Shard ``shard``'s ``(data row, model index)`` in the ``(N // k, k)``
+    layout, ``k = model_axis``: the JAX mesh's row-major order."""
+    return shard // model_axis, shard % model_axis
 
 
 def _move(obj: Any, device: torch.device) -> Any:

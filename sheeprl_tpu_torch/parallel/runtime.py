@@ -1,5 +1,7 @@
 """The ``Runtime`` (counterpart of ``sheeprl_tpu/parallel/runtime.py``):
-the data axis of ``fabric.devices`` shards (``parallel/mesh.py``), the
+the data axis of ``fabric.devices`` shards and, with ``fabric.fsdp`` = k >
+1, their ``(data, model)`` layout of ``(N // k, k)`` (``parallel/mesh.py``,
+``parallel/fsdp.py``), the
 precision policy (``param_dtype``, ``compute_dtype``, the dtypes the run
 trains in: ``64-true`` trains in float32, as the JAX package does; see
 ``parallel/precision.py``), the seeding, checkpoint save/load and the
@@ -10,12 +12,14 @@ does: ``devices`` lists each shard's device in shard order, ``device`` is
 shard 0's (the player's), ``world_size`` is the shard count, the process
 is rank 0, and ``all_gather`` / ``broadcast`` / ``barrier`` are the
 identities of one process.  ``save`` writes the state it is given (the
-loops pass shard 0's replica) as one file with its manifest; ``load``
-returns one tree, which the loops replicate, so a checkpoint crosses
-between shard counts.  Every save writes a manifest sidecar, through the
-diagnostics' resilience layer when it is open (``diagnostics``, attached
-by ``cli.run_algorithm``).  FSDP (``fabric.fsdp > 1``) and more than one
-node are refused, each naming its ROADMAP item."""
+loops pass shard 0's replica, with the optimizer state gathered under FSDP)
+as one file with its manifest, through the diagnostics' resilience layer
+when it is open (``diagnostics``, attached by ``cli.run_algorithm``);
+under FSDP as a partial-shard group of k files, synchronously, as the JAX
+runtime writes it (``resilience/sharded.py``).  ``load`` returns one tree,
+a partial group reassembled, which the loops place, so a checkpoint
+crosses between shard counts, axis sizes and packages.  More than one node
+is refused, naming its ROADMAP item."""
 
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.parallel.mesh import placement, shared_devices
+from sheeprl_tpu_torch.parallel.mesh import mesh_position, placement, shared_devices
 from sheeprl_tpu_torch.parallel.precision import resolve_precision, training_dtypes
 
 _NOT_PORTED = "is not ported yet: see ROADMAP.md Queue 1"
@@ -75,12 +79,7 @@ class Runtime:
         fsdp: int = 1,
         fsdp_min_shard_bytes: Optional[int] = None,
     ):
-        del strategy, fsdp_min_shard_bytes
-        if int(fsdp or 1) != 1:
-            raise NotImplementedError(
-                f"fabric.fsdp={fsdp}: FSDP (multi-device sharding of the parameters and optimizer state) "
-                f"{_NOT_PORTED}, Parallel: FSDP"
-            )
+        del strategy
         if int(num_nodes) != 1:
             raise NotImplementedError(
                 f"fabric.num_nodes={num_nodes}: multi-device training over more than one node {_NOT_PORTED}, "
@@ -93,13 +92,22 @@ class Runtime:
                 "does without jax_enable_x64 (its float64 casts truncate to float32)",
                 UserWarning,
             )
-        self.devices = placement(shard_count(devices, accelerator), accelerator)
+        n = shard_count(devices, accelerator)
+        self.fsdp = int(fsdp or 1)
+        self.fsdp_min_shard_bytes = None if fsdp_min_shard_bytes is None else int(fsdp_min_shard_bytes)
+        if n % self.fsdp != 0:
+            raise ValueError(f"fsdp axis size ({self.fsdp}) must divide the device count ({n})")
+        self.devices = placement(n, accelerator)
         self.device = self.devices[0]
         self.callbacks = list(callbacks or [])
         self.diagnostics = None
         if self.world_size > 1:
             print(f"[data axis] {self.world_size} shards: "
                   + ", ".join(f"shard {i} -> {d}" for i, d in enumerate(self.devices)), flush=True)
+            if self.fsdp > 1:
+                print(f"[fsdp] (data, model) = ({self.world_size // self.fsdp}, {self.fsdp}): "
+                      + ", ".join(f"shard {i} at {mesh_position(i, self.fsdp)}" for i in range(self.world_size)),
+                      flush=True)
             shared = shared_devices(self.devices)
             if shared:
                 warnings.warn(
@@ -146,7 +154,15 @@ class Runtime:
     def save(self, path: str, state: Dict[str, Any]) -> None:
         """Checkpoint write with its manifest: through the diagnostics'
         resilience layer (async writer or blocking, journaled) when it is
-        open, else a blocking save that writes the manifest all the same."""
+        open, else a blocking save that writes the manifest all the same.
+        Under FSDP a partial-shard group (``ckpt_<step>_<k>.ckpt``, one a
+        model shard, each holding the slices the rule gives it, shard 0
+        written last), synchronously, as the JAX runtime writes it."""
+        if self.fsdp > 1:
+            from sheeprl_tpu_torch.resilience.sharded import save_sharded_checkpoint
+
+            save_sharded_checkpoint(path, state, axis_size=self.fsdp, min_shard_bytes=self.fsdp_min_shard_bytes)
+            return
         routed = self.diagnostics is not None and self.diagnostics.save_checkpoint(path, state)
         if not routed:
             from sheeprl_tpu_torch.resilience.manifest import save_verified_checkpoint
@@ -154,6 +170,11 @@ class Runtime:
             save_verified_checkpoint(path, state)
 
     def load(self, path: str) -> Dict[str, Any]:
+        """A checkpoint's tree; a partial-shard group (the port's or the JAX
+        package's) reassembled whole, whatever this run's axis size."""
+        from sheeprl_tpu_torch.resilience.sharded import is_partial_checkpoint, load_sharded_checkpoint
         from sheeprl_tpu_torch.utils.checkpoint import load_state
 
+        if is_partial_checkpoint(path):
+            return load_sharded_checkpoint(path)
         return load_state(path)

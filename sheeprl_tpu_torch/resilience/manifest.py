@@ -10,7 +10,10 @@ its ``verify_checkpoint`` calls a port checkpoint ``verified``.  Resume
 verifies a checkpoint against it (size, then the content digest) and, given
 a directory, takes the newest checkpoint that verifies.  A checkpoint
 without a manifest (an older port run's) is "legacy": it verifies by
-unpickling.
+unpickling.  A checkpoint written as a group (FSDP's partial shards,
+``resilience/sharded.py``; the JAX package's multi-host groups) records
+``{"group": {"world_size", "rank", "group_step", ...}}`` in each file's
+manifest, and resume takes it only whole (``resilience/coordination.py``).
 """
 
 from __future__ import annotations
@@ -144,11 +147,13 @@ def code_fingerprint() -> str:
 
 
 def write_manifest(ckpt_path: str, state: Optional[Mapping[str, Any]] = None, step: Optional[int] = None,
-                   digest: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:
+                   digest: Optional[Mapping[str, Any]] = None,
+                   group: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:
     """Write the sidecar of an already-landed checkpoint (atomic
     tmp+rename: a crash leaves a checkpoint without a manifest, never a
     manifest of a half-written file).  ``digest`` is ``save_state``'s
-    ``{"sha256", "bytes"}``; without it the file is re-read."""
+    ``{"sha256", "bytes"}``; without it the file is re-read.  ``group`` is
+    the file's group record (None for a checkpoint of one file)."""
     ckpt_path = str(ckpt_path)
     entry: Dict[str, Any] = {
         "format": MANIFEST_FORMAT,
@@ -160,6 +165,8 @@ def write_manifest(ckpt_path: str, state: Optional[Mapping[str, Any]] = None, st
     }
     if state is not None:
         entry["tree"] = tree_spec(state)
+    if group is not None:
+        entry["group"] = dict(group)
     out_path = manifest_path(ckpt_path)
     tmp = out_path + ".tmp"
     with open(tmp, "w", encoding="utf-8") as fp:
@@ -170,15 +177,17 @@ def write_manifest(ckpt_path: str, state: Optional[Mapping[str, Any]] = None, st
     return entry
 
 
-def save_verified_checkpoint(path: str, state: Mapping[str, Any], step: Optional[int] = None) -> Dict[str, Any]:
-    """Atomic checkpoint save and its manifest; returns ``{path, step,
-    bytes, write_ms}`` (a ``ckpt_end`` event's payload).  The digest is
-    taken while the pickle streams out."""
+def save_verified_checkpoint(path: str, state: Mapping[str, Any], step: Optional[int] = None,
+                             group: Optional[Mapping[str, Any]] = None) -> Dict[str, Any]:
+    """Atomic checkpoint save and its manifest (with ``group``, the file's
+    group record); returns ``{path, step, bytes, write_ms}`` (a
+    ``ckpt_end`` event's payload).  The digest is taken while the pickle
+    streams out."""
     from sheeprl_tpu_torch.utils.checkpoint import save_state
 
     t0 = time.perf_counter()
     digest = save_state(path, state, digest=True)
-    entry = write_manifest(path, state=state, step=step, digest=digest)
+    entry = write_manifest(path, state=state, step=step, digest=digest, group=group)
     return {"path": str(path), "step": entry["step"], "bytes": entry["bytes"],
             "write_ms": round((time.perf_counter() - t0) * 1e3, 3)}
 
@@ -268,15 +277,28 @@ def list_checkpoints(root: str) -> List[str]:
 
 def newest_verified_checkpoint(root: str, deep: bool = True) -> Tuple[Optional[str], List[Dict[str, str]]]:
     """The newest checkpoint under ``root`` that verifies, and a
-    ``{path, reason}`` record of every newer one that did not.  (The JAX
-    package also holds a multi-host group to all its shards; the port writes
-    one file a checkpoint.)"""
+    ``{path, reason}`` record of every newer one that did not.  A grouped
+    checkpoint is a candidate only as its rank-0 file (the other ranks'
+    files are no candidates, and get no record) and only when every file
+    of its group verifies with the same ``group_step``: a torn group is
+    skipped with ``reason=incomplete_group`` and an older complete one is
+    taken."""
+    from sheeprl_tpu_torch.resilience.coordination import group_status, shard_rank
+
     skipped: List[Dict[str, str]] = []
     for candidate in list_checkpoints(root):
+        rank = shard_rank(candidate)  # from the manifest: no hashing of files that are no candidates
+        if rank is not None and rank != 0:
+            continue
         ok, reason = verify_checkpoint(candidate, deep=deep)
-        if ok:
-            return candidate, skipped
-        skipped.append({"path": candidate, "reason": reason})
+        if not ok:
+            skipped.append({"path": candidate, "reason": reason})
+            continue
+        complete, group_reason = group_status(candidate, deep=deep, assume_verified=(0,))
+        if not complete:
+            skipped.append({"path": candidate, "reason": group_reason})
+            continue
+        return candidate, skipped
     return None, skipped
 
 

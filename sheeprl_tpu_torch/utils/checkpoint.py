@@ -47,6 +47,12 @@ class ForeignObject(tuple):
     def __setstate__(self, state: Any) -> None:
         self.__dict__["state"] = state
 
+    def __reduce__(self):
+        # pickled back as the class it stands for (:class:`_Pickler`), so a
+        # tree read from a checkpoint is written again as it was
+        state = self.__dict__.get("state")
+        return (copyreg.__newobj__, (type(self), *self)) + (() if state is None else (state,))
+
     def __repr__(self) -> str:
         return f"ForeignObject<{self.qualname}>{tuple(self)!r}"
 
@@ -69,7 +75,9 @@ def npify(tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: npify(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(npify(v) for v in tree)
+        items = [npify(v) for v in tree]
+        # a NamedTuple, or the stand-in of one read from a checkpoint, keeps its class
+        return type(tree)(*items) if hasattr(tree, "_fields") or isinstance(tree, ForeignObject) else type(tree)(items)
     if hasattr(tree, "detach") and hasattr(tree, "cpu"):
         tree = tree.detach().cpu()
         # numpy has no bfloat16: stored as float32, which holds it exactly
@@ -105,13 +113,17 @@ _OPTAX_CLASSES: Dict[Tuple[str, str], type] = {}
 
 
 class _Pickler(pickle._Pickler):
-    """The pure-Python pickler, writing an :class:`OptaxState` class as a
-    global reference to the optax class it stands for.  The C pickler
-    imports every class it writes by reference to check it, and the port
-    has no optax."""
+    """The pure-Python pickler, writing an :class:`OptaxState` class (or a
+    :class:`ForeignObject` one) as a global reference to the class it stands
+    for.  The C pickler imports every class it writes by reference to check
+    it, and the port has no optax."""
 
     def save_global(self, obj: Any, name: Optional[str] = None) -> None:
-        ref = getattr(obj, "pickle_as", None) if isinstance(obj, type) and issubclass(obj, OptaxState) else None
+        ref = None
+        if isinstance(obj, type) and issubclass(obj, OptaxState):
+            ref = obj.pickle_as
+        elif isinstance(obj, type) and issubclass(obj, ForeignObject) and obj.qualname:
+            ref = tuple(obj.qualname.rsplit(".", 1))
         if ref is None:
             super().save_global(obj, name)
             return
@@ -238,14 +250,37 @@ class CheckpointCallback:
     on_checkpoint_player = on_checkpoint_coupled
 
     def _delete_old_checkpoints(self, ckpt_folder: Path) -> None:
-        from sheeprl_tpu_torch.resilience.manifest import MANIFEST_SUFFIX, reap_orphan_tmps
+        """``keep_last`` pruning by checkpoint group (the files that share a
+        step: one, or an FSDP partial-shard group's k), as the JAX callback
+        prunes: a group lives and dies whole; the protected checkpoint's
+        group survives; when no kept group verifies (shallow), the newest
+        older group that does is spared, so resume keeps a target; a
+        deleted file takes its manifest with it."""
+        from sheeprl_tpu_torch.resilience.manifest import MANIFEST_SUFFIX, reap_orphan_tmps, verify_checkpoint
 
         # interrupted writes' leftovers, old enough not to be the async
         # writer's own
         reap_orphan_tmps(str(ckpt_folder), max_age_s=TMP_ORPHAN_AGE_S)
-        ckpts = [p for p in ckpt_folder.glob("ckpt_*.ckpt") if _STEP_RE.search(p.name)]
-        ckpts.sort(key=lambda p: int(_STEP_RE.search(p.name).group(1)))
-        for old in ckpts[: max(0, len(ckpts) - int(self.keep_last))]:
-            if os.path.abspath(old) not in PROTECTED_CHECKPOINTS:
-                old.unlink()
+        groups: Dict[int, list] = {}
+        for p in ckpt_folder.glob("ckpt_*.ckpt"):
+            match = _STEP_RE.search(p.name)
+            if match:
+                groups.setdefault(int(match.group(1)), []).append(p)
+        ordered = sorted(groups)
+        keep = int(self.keep_last)
+        keepers, doomed = ordered[-keep:], ordered[:-keep]
+        if not doomed:
+            return
+
+        def group_verifies(step: int) -> bool:
+            return all(verify_checkpoint(str(p), deep=False)[0] for p in groups[step])
+
+        spared = set()
+        if not any(group_verifies(step) for step in keepers):
+            spared = {next((step for step in reversed(doomed) if group_verifies(step)), None)}
+        for step in doomed:
+            if step in spared or any(os.path.abspath(p) in PROTECTED_CHECKPOINTS for p in groups[step]):
+                continue
+            for old in groups[step]:
+                old.unlink(missing_ok=True)
                 Path(str(old) + MANIFEST_SUFFIX).unlink(missing_ok=True)

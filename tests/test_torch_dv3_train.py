@@ -637,9 +637,9 @@ def test_run_refuses_options_it_does_not_port(tmp_path, monkeypatch):
     with pytest.warns(UserWarning, match="MLFlow is not installed; setting model_manager.disabled=True"):
         cli.check_configs(cfg)
     assert cfg.model_manager.disabled is True
-    # FSDP (the data axis and the device ring over it are ported:
-    # tests/test_torch_parallel_offline.py)
-    with pytest.raises(NotImplementedError, match="multi-device"):
+    # FSDP is ported (tests/test_torch_fsdp*.py): an axis that does not
+    # divide the one device is refused with the JAX check_configs' error
+    with pytest.raises(ValueError, match=r"fsdp_axis_size \(2\) must divide fabric.devices \(1\)"):
         cli.run(RUN + ["fabric.fsdp=2"])
     # 64-true trains in float32, as the JAX package does without x64
     with pytest.warns(UserWarning, match="requests float64; the run trains in float32"):

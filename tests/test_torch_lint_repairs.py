@@ -235,9 +235,8 @@ REFUSED = [
 @pytest.mark.parametrize("overrides", [pytest.param(o, id=" ".join(o)) for o in REFUSED])
 def test_check_configs_refuses_what_the_jax_check_configs_refuses(overrides):
     """Each value the JAX ``check_configs`` refuses, the port's refuses with
-    the same exception type and message, before a log dir exists (the
-    JAX function's ``fabric.fsdp > 1`` refusal is the port's
-    ``parallel/runtime.py``, with the rest of Parallel)."""
+    the same exception type and message, before a log dir exists (its
+    ``fabric.fsdp > 1`` refusals: ``tests/test_torch_fsdp.py``)."""
     from sheeprl_tpu.cli import check_configs as jax_check_configs
     from sheeprl_tpu.config import compose as jax_compose
     from sheeprl_tpu_torch.config import compose

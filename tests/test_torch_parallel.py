@@ -282,7 +282,7 @@ def test_the_sharding_audit_tables_the_replicas_and_the_batch_blocks():
     weight = table["rows"][0]
     assert weight["path"] == "params/0/weight" and weight["replicated"] and weight["n_devices"] == 2
     assert weight["bytes_per_device"] == 64 * 64 * 4 and weight["bytes"] == 2 * 64 * 64 * 4
-    assert table["flagged_replicated"] == ["params/0/weight"] and "FSDP" in table["hint"]
+    assert table["flagged_replicated"] == ["params/0/weight"] and "(fabric.fsdp)" in table["hint"]
     one = sharding_table([CPU], {"params": replicas[:1]}, [], replicated_warn_bytes=1024)
     assert one["flagged_replicated"] == [] and not one["rows"][0]["replicated"]
     # the monitor journals it once, at the first train dispatch, and its
@@ -311,8 +311,12 @@ TINY_CPU = ["env=dummy", "env.capture_video=False", "fabric.accelerator=cpu", "m
 
 
 def test_runtime_refuses_fsdp_and_more_than_one_node_by_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="FSDP .*multi-device.*Parallel: FSDP"):
-        Runtime(devices=2, fsdp=2, accelerator="cpu")
+    # FSDP is ported: an axis that divides the shards is taken, one that
+    # does not is refused as the JAX runtime refuses it
+    with pytest.warns(UserWarning, match="more than one shard"):
+        assert Runtime(devices=2, fsdp=2, accelerator="cpu").fsdp == 2
+    with pytest.raises(ValueError, match=r"fsdp axis size \(3\) must divide the device count \(2\)"):
+        Runtime(devices=2, fsdp=3, accelerator="cpu")
     with pytest.raises(NotImplementedError, match="num_nodes=2.*multi-device.*Parallel: multi-host"):
         Runtime(num_nodes=2, accelerator="cpu")
 

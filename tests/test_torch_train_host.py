@@ -205,8 +205,13 @@ def test_runtime_seeds_a_generator_and_refuses_what_it_does_not_port():
     assert torch.equal(a, b) and runtime.world_size == 1 and runtime.is_global_zero
     with pytest.warns(UserWarning, match="trains in float32"):  # 64-true: as the JAX package trains it
         assert Runtime(accelerator="cpu", precision="64-true").compute_dtype == torch.float32
-    # the data axis is ported (tests/test_torch_parallel.py); FSDP is not
+    # the data axis and FSDP are ported (tests/test_torch_parallel.py,
+    # tests/test_torch_fsdp*.py): two shards on a (data, model) = (1, 2)
+    # layout; more than one node is not
     with pytest.warns(UserWarning, match="more than one shard"):
         assert Runtime(accelerator="cpu", devices=2).world_size == 2
-    with pytest.raises(NotImplementedError):
-        Runtime(accelerator="cpu", devices=2, fsdp=2)
+    with pytest.warns(UserWarning, match="more than one shard"):
+        two_axis = Runtime(accelerator="cpu", devices=2, fsdp=2, fsdp_min_shard_bytes=256)
+    assert (two_axis.world_size, two_axis.fsdp, two_axis.fsdp_min_shard_bytes) == (2, 2, 256)
+    with pytest.raises(NotImplementedError, match="num_nodes=2"):
+        Runtime(accelerator="cpu", num_nodes=2)
