@@ -61,7 +61,8 @@ Phases, in order; any failure raises and the script exits non-zero:
             one DreamerV3-S fp32 gradient step over two shards of 8
             sequences against one device's on the same 16 sequences and
             noise (metrics and Moments within ``PARALLEL_STEP_RTOL``, the
-            replicas bitwise equal), PPO and SAC at ``fabric.devices=2``
+            replicas bitwise equal, shard 0's parameters and Adam state
+            against one device's, ``UPDATE_MOMENT_RTOL``), PPO and SAC at ``fabric.devices=2``
             through ``run``, each resumed at ``fabric.devices=1`` from its
             two-shard checkpoint, and the two-shard PPO update on the card
             against the CPU;
@@ -75,7 +76,8 @@ Phases, in order; any failure raises and the script exits non-zero:
             over the two shards) while this process runs one DreamerV2 fp32
             gradient step over two shards of 8 sequences against one
             device's on the same 16 (metrics within ``PARALLEL_STEP_RTOL``,
-            the replicas bitwise equal, 65 + 2 x 65 launches), offline
+            the replicas bitwise equal, the update against one device's,
+            65 + 2 x 65 launches), offline
             DreamerV3-S and offline SAC over two shards through ``run`` on
             datasets written here (2 x 79 launches a DreamerV3-S gradient
             step), the two-shard offline SAC call on the card against the
@@ -111,9 +113,13 @@ Phases, in order; any failure raises and the script exits non-zero:
             ``fsdp_shard_map`` printed, its two-part checkpoint group each
             file verified) while this process runs one DreamerV3-S fp32
             gradient step at ``fsdp=2`` against one device's on the same 16
-            sequences and noise (within ``PARALLEL_STEP_RTOL``, 79 + 2 x 79
-            launches) and the same step at two data shards, each's peak of
-            allocated bytes; then the child's group resumed at
+            sequences and noise, every update clipped (within
+            ``PARALLEL_STEP_RTOL``, shard 0's parameters and the Adam state
+            gathered over the model shards against one device's, 79 + 2 x
+            79 launches), the same step with its draws from one generator
+            (``dp.global_streams``: each draw's blocks joined bitwise the
+            one-device draw) and the step at two data shards, each's peak
+            of allocated bytes; then the child's group resumed at
             ``fabric.devices=1 fabric.fsdp=1``;
 4. slice  — compose ``exp=dreamer_v3 env=dummy``, build DreamerV3-S on the card
             from a seed, write a run directory in the JAX package's checkpoint
@@ -861,6 +867,20 @@ DECOUPLED_DEADLINES_S = {"decoupled": 45.0, "decoupled_ppo": 15.0, "decoupled_sa
 FSDP_DV3_OVERRIDES = [*(o for o in PARALLEL_DV3_OVERRIDES if not o.startswith(("run_name=", "checkpoint.every="))),
                       "run_name=chip_smoke_fsdp", "fabric.fsdp=2", "checkpoint.every=264"]
 FSDP_AXIS = 2
+# a two-shard step's update against one device's (``_update_against_one``):
+# each optimizer's Adam moments, gathered over the model shards, held to
+# their tree's norm.  They are the gradient's (0.1 g, 0.001 g^2), which the
+# shards sum in another order; the actor's gradient is a near cancellation
+# (its norm ~2.5e-05 at DreamerV3-S's first step against a loss of terms
+# ~100x larger), so its moments moved 2.27e-04-2.38e-04 on NVIDIA H100 80GB HBM3 at
+# 700 W, the others at most 5e-06.  3e-3 is ~13x that; a clip by one model
+# shard's own norm, or the slices gathered in the wrong order, moved them
+# 0.11-0.45 in a copy of the tree run on the CPU
+UPDATE_MOMENT_RTOL = 3e-3
+# the in-process fsdp=2 step clips every update (a clip below each of its
+# gradient norms), so Adam's moments after it show the clip's factor: a
+# clip by one model shard's own slices' norm moves them by ~30 %
+FSDP_STEP_CLIP = 1e-3
 FSDP_DEADLINES_S = {"fsdp": 45.0, "fsdp_step": 20.0, "fsdp_resume": 15.0}
 
 # phase 18 (records): a profiled DreamerV3-S run with the model registry
@@ -3990,8 +4010,90 @@ def _decisive(noise: dict, gen) -> dict:
             "actor": [[decisive(h) for h in heads] for heads in noise["actor"]]}
 
 
+def _recorded_draws(draws: list):
+    """A patch of the DreamerV3 samplers' ``draw`` (``agent.py``) that
+    appends each call's ``(generator, batch_dims, result)`` to ``draws``."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import agent as agent_mod
+
+    real = agent_mod.draw
+
+    def draw(fn, shape, generator, *, dtype=None, device=None, batch_dims=1):
+        out = real(fn, shape, generator, dtype=dtype, device=device, batch_dims=batch_dims)
+        draws.append((generator, batch_dims, out))
+        return out
+
+    return mock.patch.object(agent_mod, "draw", draw)
+
+
+def _joined_draws(draws: list, streams: list) -> list:
+    """The shards' blocks of each draw (``_recorded_draws`` of ``streams``'
+    steps, in the order the lockstep ran them) put back into the global
+    draw: block d of the rows ``(outer, shard, row)`` to shard d."""
+    import torch
+
+    per_shard = [[(dims, t) for g, dims, t in draws if g is stream] for stream in streams]
+    joined = []
+    for blocks in zip(*per_shard):
+        dims, first = blocks[0]
+        lead, rows = first.shape[:dims].numel(), streams[0].rows
+        parts = [t.reshape((lead // rows, 1, rows) + tuple(t.shape[dims:])) for _, t in blocks]
+        whole = torch.cat(parts, dim=1)
+        joined.append(whole.reshape(first.shape[:dims - 1] + (first.shape[dims - 1] * len(blocks),)
+                                    + first.shape[dims:]))
+    return joined
+
+
+def _update_against_one(one_agent, one_optimizers, shard_agent, optimizer_sets) -> dict:
+    """The update a shard took against one device's: shard 0's parameters
+    against the one-device agent's (within ``STEP_PARAM_ATOL`` but for a
+    ``STEP_PARAM_OUTLIERS`` fraction, Adam's first step where a gradient is
+    within rounding of 0; the largest difference printed, not held), and
+    the optimizers' state gathered over the model shards
+    (``fsdp.gathered_optimizers``, the optimizers themselves without FSDP)
+    against the one-device optimizers' (each state tensor's tree held at
+    ``UPDATE_MOMENT_RTOL`` of its norm, the step counters equal)."""
+    import torch
+
+    from sheeprl_tpu_torch.parallel.fsdp import gathered_optimizers
+
+    with torch.no_grad():
+        diff = torch.cat([(a.detach().float() - b.detach().float()).abs().flatten()
+                          for m, n in zip(shard_agent, one_agent) for a, b in zip(m.parameters(), n.parameters())])
+    out = {"param_max_abs": float(diff.max()),
+           "param_outliers": float((diff > STEP_PARAM_ATOL).float().mean()), "moments_rel": {}, "counts_equal": True}
+    with gathered_optimizers(optimizer_sets) as whole:
+        for name, one_opt in one_optimizers.items():
+            one_params = [p for g in one_opt.param_groups for p in g["params"]]
+            got_params = [p for g in whole[name].param_groups for p in g["params"]]
+            sums: dict = {}
+            for p, q in zip(one_params, got_params):
+                want, got = one_opt.state.get(p, {}), whole[name].state.get(q, {})
+                for key, w in want.items():
+                    g = got.get(key)
+                    if not isinstance(w, torch.Tensor) or w.shape != p.shape:
+                        out["counts_equal"] &= g is not None and float(w) == float(g)
+                        continue
+                    d = (g.to(w.device).float() - w.float()).pow(2).sum()
+                    num, den = sums.get(key, (0.0, 0.0))
+                    sums[key] = (num + float(d), den + float(w.float().pow(2).sum()))
+            for key, (num, den) in sums.items():
+                out["moments_rel"][f"{name}/{key}"] = (num / max(den, 1e-30)) ** 0.5
+    return out
+
+
+def _print_update(group: str, label: str, update: dict, card: str) -> None:
+    """One line of ``_update_against_one``'s readings."""
+    moments = {k: float(f"{v:.3g}") for k, v in update["moments_rel"].items()}
+    print(f"[{group}] the {label} step's update against one device's: shard 0's parameters max abs difference "
+          f"{update['param_max_abs']:.3g} (printed, not held: Adam's first step), fraction over "
+          f"{STEP_PARAM_ATOL:g} {update['param_outliers']:.3g} (tol {STEP_PARAM_OUTLIERS:g}); the gathered "
+          f"optimizer state's relative error {json.dumps(moments)} (tol {UPDATE_MOMENT_RTOL:g}), step counters equal"
+          + (f"; {update['draws']} draws, each shard's blocks joined bitwise the one-device draw, the generators "
+             f"ending alike" if "draws" in update else "") + f"  [{card}]", flush=True)
+
+
 def _two_shards_against_one(cfg, build_agent, make_train_step, metric_order, tau: float, where: str,
-                            device_name: str = "cuda", fsdp: int = 1) -> dict:
+                            device_name: str = "cuda", fsdp: int = 1, from_generator: bool = False) -> dict:
     """One fp32 gradient step of a Dreamer-family step over two shards
     (each with its replica, ``parallel/dp.py``) against one device's step on
     the same global batch and the same noise (noise that decides every
@@ -3999,14 +4101,19 @@ def _two_shards_against_one(cfg, build_agent, make_train_step, metric_order, tau
     tie would otherwise split a sample), from the same weights: the metrics
     (and the Moments' ``low``/``high`` where the family keeps them) within
     ``PARALLEL_STEP_RTOL``, the shards' metrics and replicas bitwise equal,
-    the kernel's launches counted from 0 around the three steps as each
-    shard's dynamic scan and imagination predict.  With ``fsdp`` = 2 the two
-    shards are a model axis: each one's optimizers cut for its index
+    the update against one device's (``_update_against_one``), the kernel's
+    launches counted from 0 around the three steps as each shard's dynamic
+    scan and imagination predict.  With ``fsdp`` = 2 the two shards are a
+    model axis: each one's optimizers cut for its index
     (``parallel/fsdp.py``), the gathered parameters and optimizer state
-    equal across them.  ``peak_bytes``: the most bytes the allocator held
-    during the shards' step above what it held before it (the step's
-    optimizer state, created at its first update, its activations and
-    gradients)."""
+    equal across them.  ``from_generator`` (FSDP only): no injected noise,
+    the one-device step draws from a generator and the shards from
+    ``dp.global_streams`` over a generator of the same seed, as the loop
+    runs them; each draw's blocks joined must be the one-device draw
+    bitwise, and the generators end in the same state.  ``peak_bytes``: the
+    most bytes the allocator held during the shards' step above what it
+    held before it (the step's optimizer state, created at its first
+    update, its activations and gradients)."""
     import copy
 
     import numpy as np
@@ -4018,7 +4125,7 @@ def _two_shards_against_one(cfg, build_agent, make_train_step, metric_order, tau
     from sheeprl_tpu_torch.algos.ppo.agent import actions_dim_of
     from sheeprl_tpu_torch.envs.env import make_env
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
-    from sheeprl_tpu_torch.parallel.dp import run_shards, split
+    from sheeprl_tpu_torch.parallel.dp import global_streams, run_shards, split
     from sheeprl_tpu_torch.parallel.mesh import replicate
 
     device = torch.device(device_name)
@@ -4036,17 +4143,28 @@ def _two_shards_against_one(cfg, build_agent, make_train_step, metric_order, tau
         optimizers[1:] = [{k: shard_optimizer(o, d % fsdp, fsdp, cfg.fabric.get("fsdp_min_shard_bytes"))
                            for k, o in opts.items()} for d, opts in enumerate(optimizers[1:])]
     steps = [make_train_step(a, o, cfg, is_continuous) for a, o in zip((agent, *shards), optimizers)]
+    blocks = split(batch, PARALLEL_SHARDS, 1)
+    draws: list = []
+    if from_generator:
+        one_gen, shard_gen = (torch.Generator(device=device).manual_seed(29) for _ in range(2))
+        streams = global_streams(shard_gen, [B // PARALLEL_SHARDS] * PARALLEL_SHARDS)
+        one_args, shard_args = (one_gen, None), [(s, None) for s in streams]
+        recording = _recorded_draws(draws)
+    else:
+        one_args, shard_args = (None, noise), [(None, n) for n in _parallel_noise(noise, T, B, PARALLEL_SHARDS)]
+        recording = contextlib.nullcontext()
     t0 = time.monotonic()
-    fused_layernorm_gru.launches = 0  # the comparison's launches start here
-    one_moments, one_metrics = steps[0](agent.initial_moments(device), batch, tau, None, noise)
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated(device)
-    torch.cuda.reset_peak_memory_stats(device)
-    outs = run_shards([step.body(agent.initial_moments(device), block, tau, None, n) for step, block, n in
-                       zip(steps[1:], split(batch, PARALLEL_SHARDS, 1), _parallel_noise(noise, T, B, PARALLEL_SHARDS))])
-    torch.cuda.synchronize()
-    peak_bytes = torch.cuda.max_memory_allocated(device) - before
-    launches = fused_layernorm_gru.launches  # and end here
+    with recording:
+        fused_layernorm_gru.launches = 0  # the comparison's launches start here
+        one_moments, one_metrics = steps[0](agent.initial_moments(device), batch, tau, *one_args)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        outs = run_shards([step.body(agent.initial_moments(device), block, tau, *args)
+                           for step, block, args in zip(steps[1:], blocks, shard_args)])
+        torch.cuda.synchronize()
+        peak_bytes = torch.cuda.max_memory_allocated(device) - before
+        launches = fused_layernorm_gru.launches  # and end here
     seconds = time.monotonic() - t0
     (moments, metrics), (_, other) = outs
     n = len(metric_order)
@@ -4055,6 +4173,17 @@ def _two_shards_against_one(cfg, build_agent, make_train_step, metric_order, tau
     moments_rel = max((abs(float(moments[k]) - float(one_moments[k])) / max(abs(float(one_moments[k])), 1e-3)
                        for k in one_moments), default=0.0)
     equal = learner_replicas_equal(shards, optimizers[1:])
+    update = _update_against_one(agent, optimizers[0], shards[0], optimizers[1:])
+    update_ok = (update["param_outliers"] <= STEP_PARAM_OUTLIERS and update["counts_equal"]
+                 and max(update["moments_rel"].values()) <= UPDATE_MOMENT_RTOL)
+    draws_ok = True
+    if from_generator:
+        one_draws = [t for g, _, t in draws if g is one_gen]
+        joined = _joined_draws(draws, streams)
+        draws_ok = (len(joined) == len(one_draws) > 0 and all(torch.equal(a, b) for a, b in zip(joined, one_draws))
+                    and torch.equal(torch.rand(4, generator=one_gen, device=device),
+                                    torch.rand(4, generator=shard_gen, device=device)))
+        update["draws"] = len(one_draws)
     hidden = cfg.algo.world_model.recurrent_model.recurrent_state_size
     joint = hidden + cfg.algo.world_model.recurrent_model.dense_units
     per_shard = T * _launch_chunks(B // PARALLEL_SHARDS, hidden, joint) + H * _launch_chunks(
@@ -4062,16 +4191,16 @@ def _two_shards_against_one(cfg, build_agent, make_train_step, metric_order, tau
     one = T * _launch_chunks(B, hidden, joint) + H * _launch_chunks(T * B, hidden, joint)
     predicted = one + PARALLEL_SHARDS * per_shard
     if (not np.isfinite(got).all() or rel > PARALLEL_STEP_RTOL or moments_rel > PARALLEL_STEP_RTOL or not equal
-            or not torch.equal(metrics, other) or launches != predicted):
+            or not torch.equal(metrics, other) or launches != predicted or not update_ok or not draws_ok):
         raise AssertionError(f"two-shard {where} step against one device: metrics relative error {rel} "
                              f"(tol {PARALLEL_STEP_RTOL}), Moments {moments_rel}, replicas equal {equal}, shards' "
                              f"metrics equal {torch.equal(metrics, other)}, launches {launches} (predicted "
-                             f"{predicted})\n{dict(zip(metric_order, want.tolist()))}\n"
-                             f"{dict(zip(metric_order, got.tolist()))}")
+                             f"{predicted}), update {update}, draws equal {draws_ok}\n"
+                             f"{dict(zip(metric_order, want.tolist()))}\n{dict(zip(metric_order, got.tolist()))}")
     return {"metric_rel_err": rel, "moments_rel_err": moments_rel, "launches": launches, "predicted": predicted,
             "one_device": one, "per_shard": per_shard, "seconds": seconds, "batch": B,
             "shard_batch": B // PARALLEL_SHARDS, "moments": {k: float(v) for k, v in moments.items()},
-            "peak_bytes": peak_bytes}
+            "peak_bytes": peak_bytes, "update": update}
 
 
 def run_parallel_step(device_name: str = "cuda") -> dict:
@@ -4749,20 +4878,29 @@ def run_fsdp_step(device_name: str = "cuda") -> dict:
     """(2) One DreamerV3-S fp32 gradient step at ``fabric.fsdp=2`` (two
     shards of 8 sequences, each's optimizers cut for its model index)
     against one device's on the same 16-sequence batch and noise, held at
-    ``PARALLEL_STEP_RTOL`` (``_two_shards_against_one``), then the same step
-    at two data shards (``fsdp=1``): each's peak of allocated bytes above
-    what the allocator held before the shards' step."""
+    ``PARALLEL_STEP_RTOL`` (``_two_shards_against_one``) with the update
+    (parameters and gathered Adam state) against one device's, every
+    update clipped (``FSDP_STEP_CLIP``), the same
+    step with its draws from one generator (``dp.global_streams``, as the
+    loop runs it), then the step at two data shards (``fsdp=1``): each's
+    peak of allocated bytes above what the allocator held before the
+    shards' step."""
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import METRIC_ORDER, make_train_step
     from sheeprl_tpu_torch.config import compose
 
     cfg = compose(PARALLEL_STEP_OVERRIDES + [f"fabric.accelerator={device_name}", f"fabric.fsdp={FSDP_AXIS}",
-                                             f"fabric.devices={PARALLEL_SHARDS}"])
+                                             f"fabric.devices={PARALLEL_SHARDS}"]
+                  + [f"algo.{k}.clip_gradients={FSDP_STEP_CLIP}" for k in ("world_model", "actor", "critic")])
     _dv3_s_widths(cfg)
     fsdp = _two_shards_against_one(cfg, build_agent, make_train_step, METRIC_ORDER, 0.02, "DreamerV3-S FSDP",
                                    device_name, fsdp=FSDP_AXIS)
+    drawn = _two_shards_against_one(cfg, build_agent, make_train_step, METRIC_ORDER, 0.02,
+                                    "DreamerV3-S FSDP from one generator", device_name, fsdp=FSDP_AXIS,
+                                    from_generator=True)
     dp = _two_shards_against_one(cfg, build_agent, make_train_step, METRIC_ORDER, 0.02, "DreamerV3-S", device_name)
-    return {**fsdp, "dp_peak_bytes": dp["peak_bytes"], "dp_launches": dp["launches"]}
+    return {**fsdp, "dp_peak_bytes": dp["peak_bytes"], "dp_launches": dp["launches"], "dp_update": dp["update"],
+            "from_generator": {k: drawn[k] for k in ("metric_rel_err", "moments_rel_err", "launches", "update")}}
 
 
 def run_fsdp_resume(ckpt: str, root: Path, device_name: str = "cuda") -> dict:
@@ -4863,13 +5001,14 @@ def run_fsdp(build_dir: Path, runner, device_name: str = "cuda") -> dict:
     sizes = {Path(f).name: os.path.getsize(f) for f in group}
     shutil.rmtree(root, ignore_errors=True)
     return {"child": child, "predicted": predicted, "per_gradient_step": PARALLEL_SHARDS * MINEDOJO_LAUNCHES_PER_STEP,
-            "shard_map": {k: maps[0][k] for k in ("axis_size", "min_shard_bytes", "trees")},
-            "audit": {k: audits[0][k] for k in ("n_shards", "n_leaves", "total_bytes", "total_bytes_per_device",
-                                                "flagged_replicated")},
+            "shard_map": {k: maps[0][k] for k in ("axis_size", "min_shard_bytes", "trees", "held_bytes_per_device")},
+            "audit": {k: audits[0].get(k) for k in ("n_shards", "n_leaves", "total_bytes", "total_bytes_per_device",
+                                                    "flagged_replicated", "hint")},
             "group": sizes, "sliced_leaves": len(layout), "step": step, "resumed": resumed, "seconds": seconds,
             "in_process_s": in_process_s, "child_s": child_s,
             "launches": {"fsdp_dv3": child["launches"], "fsdp_step": step["launches"],
-                         "fsdp_dp_step": step["dp_launches"], "fsdp_resume": resumed["launches"]}}
+                         "fsdp_dp_step": step["dp_launches"], "fsdp_generator_step": step["from_generator"]["launches"],
+                         "fsdp_resume": resumed["launches"]}}
 
 
 def _off_policy_run(overrides, where: str, resume: bool = True) -> dict:
@@ -6257,6 +6396,7 @@ def main() -> int:
           f"{PARALLEL_STEP_RTOL:g}: fp32 sums in another order); the shards' metrics and replicas bitwise equal; "
           f"ln_gru launches {pstep['launches']} = predicted {pstep['predicted']} (79 + 2 x {pstep['per_shard']}); "
           f"{pstep['seconds']:.2f} s  [{card}]", flush=True)
+    _print_update("parallel", "two-shard DreamerV3-S", pstep["update"], card)
     for name in ("ppo", "sac"):
         row = parallel[name]
         print(f"[parallel] run exp={name} fabric.devices=2 ({' '.join(o for o in (PARALLEL_PPO_OVERRIDES if name == 'ppo' else PARALLEL_SAC_OVERRIDES) if o.startswith(('env.num_envs', 'algo.')))}): "
@@ -6289,6 +6429,7 @@ def main() -> int:
           f"{PARALLEL_STEP_RTOL:g}); the shards' metrics and replicas bitwise equal; ln_gru launches "
           f"{fstep['launches']} = predicted {fstep['predicted']} ({fstep['one_device']} + 2 x {fstep['per_shard']}); "
           f"{fstep['seconds']:.2f} s  [{card}]", flush=True)
+    _print_update("parallel_families", "two-shard DreamerV2", fstep["update"], card)
     for name in ("dv3", "sac"):
         row = offline_dp[name]
         print(f"[parallel_families] offline {'DreamerV3-S' if name == 'dv3' else 'SAC (cql_alpha=1)'} over 2 "
@@ -6354,8 +6495,10 @@ def main() -> int:
           f"launches {child['launches']} = predicted {fsdp['predicted']} ({fsdp['per_gradient_step']} a gradient "
           f"step: the dynamic scan and the imagination once a shard, on the gathered weight); the child "
           f"{child['seconds']} s (imports made before the group, {child['imports_s']} s)  [{card}]", flush=True)
-    print(f"[fsdp] fsdp_shard_map: axis_size {fmap['axis_size']}, min_shard_bytes {fmap['min_shard_bytes']}, "
-          f"{json.dumps(fmap['trees'])}; sharding_audit {json.dumps(fsdp['audit'])}  [{card}]", flush=True)
+    print(f"[fsdp] fsdp_shard_map (the rule's layout, a checkpoint group's): axis_size {fmap['axis_size']}, "
+          f"min_shard_bytes {fmap['min_shard_bytes']}, {json.dumps(fmap['trees'])}; the bytes a shard holds "
+          f"(parameters whole, the optimizer state sliced) {json.dumps(fmap['held_bytes_per_device'])}; "
+          f"sharding_audit {json.dumps(fsdp['audit'])}  [{card}]", flush=True)
     print(f"[fsdp] partial-shard checkpoint group {json.dumps(fsdp['group'])} bytes ({fsdp['sliced_leaves']} leaves "
           f"sliced), each file verified, the group complete; resumed at fabric.devices=1 fabric.fsdp=1 from it: "
           f"start_iter {fsdp['resumed']['start_iter']}, {fsdp['resumed']['player_steps']} player steps, ln_gru "
@@ -6366,6 +6509,14 @@ def main() -> int:
           f"{fstep['moments_rel_err']:.3g} (tol {PARALLEL_STEP_RTOL:g}); the shards' metrics bitwise equal, their "
           f"gathered parameters and optimizer state equal; ln_gru launches {fstep['launches']} = predicted "
           f"{fstep['predicted']} (79 + 2 x {fstep['per_shard']}); {fstep['seconds']:.2f} s  [{card}]", flush=True)
+    for label, update in (("fsdp=2", fstep["update"]), ("fsdp=2 from one generator", fstep["from_generator"]["update"]),
+                          ("two data shards", fstep["dp_update"])):
+        _print_update("fsdp", label, update, card)
+    gstep = fstep["from_generator"]
+    print(f"[fsdp] the fsdp=2 step with its draws from one generator (dp.global_streams, no injected noise) against "
+          f"one device's from a generator of the same seed: metrics max relative error {gstep['metric_rel_err']:.3g}, "
+          f"Moments {gstep['moments_rel_err']:.3g} (tol {PARALLEL_STEP_RTOL:g}); ln_gru launches {gstep['launches']}"
+          f"  [{card}]", flush=True)
     print(f"[fsdp] torch.cuda.max_memory_allocated over the two shards' step above what was allocated before it: "
           f"fsdp=2 {fstep['peak_bytes']} bytes, two data shards {fstep['dp_peak_bytes']} bytes "
           f"({fstep['peak_bytes'] / max(1, fstep['dp_peak_bytes']):.3f} of it; both shards on the one card)  [{card}]",

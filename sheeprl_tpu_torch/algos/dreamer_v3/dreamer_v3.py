@@ -130,7 +130,7 @@ def make_update(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], cfg)
     def update(name: str, loss: torch.Tensor):
         grads = yield from reduce_gradients(gradients(loss, params[name]), optimizers[name])
         norm = yield from gradient_norm(grads, optimizers[name])
-        yield from apply_update(optimizers[name], params[name], grads, clip[name], norm)
+        yield from apply_update(optimizers[name], grads, clip[name], norm)
         return norm
 
     return update
@@ -432,7 +432,7 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
             step_grads[name] = yield from whole_gradients(grads, opt)
             with torch.no_grad():
                 torch._foreach_copy_(before[name], params[name])
-        yield from apply_update(opt, params[name], grads, clip[name], norm)
+        yield from apply_update(opt, grads, clip[name], norm)
         return metric_norm
 
     def body(moments_state: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor], tau: float,
@@ -625,12 +625,15 @@ def shard_learner(runtime, cfg, diag, agent: Agent, agent_state: Optional[Mappin
     state is held sliced by the rule (the step counter and the leaves the
     rule replicates whole), each model shard steps its slices, and the
     modules keep every parameter whole, gathered after each update, so the
-    player acts with the whole parameters.  The Moments stay replicated.
+    player acts with the whole parameters: the parameters and gradients are
+    not sharded at rest, only the optimizer state is.  The Moments stay
+    replicated.
     The step is global-view: its draws come from the run's one ``generator``
     at the global batch's shapes, each shard taking its block
     (``dp.global_streams``), not from folded per-shard streams.  The rule's
     layout of the parameters and optimizer state is journaled once
-    (``fsdp_shard_map``)."""
+    (``fsdp_shard_map``), with the bytes a shard holds of each
+    (``held_bytes_per_device``)."""
     from sheeprl_tpu_torch.interop.flax_params import optax_state
 
     devices = runtime.devices
@@ -646,7 +649,12 @@ def shard_learner(runtime, cfg, diag, agent: Agent, agent_state: Optional[Mappin
         floor = runtime.fsdp_min_shard_bytes
         # the rule's layout of the state as a checkpoint holds it
         opt_trees = nest({name: optax_state(opt, agent.optimizer_spec(name)) for name, opt in optimizer_sets[0].items()})
-        diag.on_fsdp_shard_map(shard_map_summary({"params": agent.trees(), "opt_state": opt_trees}, fsdp, floor))
+        summary = shard_map_summary({"params": agent.trees(), "opt_state": opt_trees}, fsdp, floor)
+        # the rule's layout is a checkpoint group's; in memory a shard holds
+        # the parameters whole and its slices of the optimizer state
+        summary["held_bytes_per_device"] = {"params": summary["trees"]["params"]["bytes"],
+                                            "opt_state": summary["trees"]["opt_state"]["bytes_per_device"]}
+        diag.on_fsdp_shard_map(summary)
         optimizer_sets = [{name: shard_optimizer(opt, d % fsdp, fsdp, floor) for name, opt in opts.items()}
                           for d, opts in enumerate(optimizer_sets)]
     steps = [make_train_step_fn(replica, opts, cfg, is_continuous) for replica, opts in zip(replicas, optimizer_sets)]

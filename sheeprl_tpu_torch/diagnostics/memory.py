@@ -32,8 +32,10 @@
   least ``diagnostics.memory.replicated_warn_bytes`` are flagged when the
   data axis has more than one shard.  Under FSDP (armed by the facade's
   ``on_fsdp_shard_map``: ``note_fsdp``) a model shard's optimizer slices
-  count at their own bytes, only leaves the rule cannot cut are flagged,
-  and ``Telemetry/fsdp_axis_size`` and ``Telemetry/params_bytes_per_device``
+  count at their own bytes, leaves under the floor are exempt, and the
+  parameters, which every shard holds whole, stay flagged with a hint that
+  says so; ``Telemetry/fsdp_axis_size`` and
+  ``Telemetry/params_bytes_per_device`` (the parameter bytes a shard holds)
   join the interval's gauges.  The summary carries its digest.  The
   JAX package's donation audit has no eager counterpart (no buffer is
   donated): ``memory_breakdown`` and ``memory_summary`` say it did not run.
@@ -145,10 +147,12 @@ def sharding_table(devices: List[Any], replicated: Mapping[str, List[Any]], batc
     Under FSDP (``fsdp_axis_size > 1``) an optimizer state tensor that is a
     model shard's slice counts at its own bytes on each shard, not
     replicated; the parameters are whole on every shard (each shard's
-    modules hold them for its step).  The flag then names only the leaves
-    the rule cannot cut: replicated, at least ``fsdp_min_shard_bytes`` (a
-    smaller leaf is replicated on purpose) and with no dimension divisible
-    by the axis; with the JAX package's hint."""
+    modules hold them at rest and for its step: the port slices only the
+    optimizer state).  The flag then names the replicated leaves of at
+    least ``fsdp_min_shard_bytes`` (a smaller leaf is replicated on
+    purpose): those the rule cannot cut (no dimension divisible by the
+    axis), with the JAX package's hint, and those it would cut that the
+    port keeps whole, with a hint naming that design."""
     from sheeprl_tpu_torch.parallel.fsdp import shard_axis, sliced_state_ids
 
     n = len(devices)
@@ -187,16 +191,23 @@ def sharding_table(devices: List[Any], replicated: Mapping[str, List[Any]], batc
     }
     if replicated_warn_bytes is not None:
         exempt_below = int(fsdp_min_shard_bytes or 0) if fsdp_on else 0
-        out["flagged_replicated"] = [r["path"] for r in rows if r["replicated"] and r.get("rule_axis") is None
-                                     and r["bytes_per_device"] >= max(replicated_warn_bytes, exempt_below)]
-        if out["flagged_replicated"]:
-            if fsdp_on:
-                out["hint"] = (f"replicated leaves >= distribution.fsdp_min_shard_bytes under "
-                               f"fsdp_axis_size={int(fsdp_axis_size)}: no dimension is divisible by the model axis "
-                               "— consider padding the layer width or lowering the axis size (howto/sharding.md)")
-            else:
-                out["hint"] = ("large replicated leaves on a multi-device mesh: set distribution.fsdp_axis_size > 1 "
-                               "(fabric.fsdp) to shard them over a second 'model' mesh axis (howto/sharding.md)")
+        flagged = [r for r in rows if r["replicated"]
+                   and r["bytes_per_device"] >= max(replicated_warn_bytes, exempt_below)]
+        out["flagged_replicated"] = [r["path"] for r in flagged]
+        hints = []
+        if flagged and not fsdp_on:
+            hints.append("large replicated leaves on a multi-device mesh: set distribution.fsdp_axis_size > 1 "
+                         "(fabric.fsdp) to shard them over a second 'model' mesh axis (howto/sharding.md)")
+        if fsdp_on and any(r.get("rule_axis") is None for r in flagged):
+            hints.append(f"replicated leaves >= distribution.fsdp_min_shard_bytes under "
+                         f"fsdp_axis_size={int(fsdp_axis_size)}: no dimension is divisible by the model axis "
+                         "— consider padding the layer width or lowering the axis size (howto/sharding.md)")
+        if any(r.get("rule_axis") is not None for r in flagged):
+            hints.append("parameters the rule would cut, kept whole on every shard: the port's FSDP slices only "
+                         "the optimizer state (parameters and gradients are whole on each shard, at rest and in "
+                         "the step)")
+        if hints:
+            out["hint"] = "; ".join(hints)
     for r in rows:
         r.pop("rule_axis", None)
     return out
@@ -363,15 +374,17 @@ class MemoryMonitor:
     def note_fsdp(self, summary: Mapping[str, Any]) -> None:
         """Arm the FSDP accounting (the facade's ``on_fsdp_shard_map``): the
         ``Telemetry/fsdp_axis_size`` and ``Telemetry/params_bytes_per_device``
-        gauges (the parameters' bytes a model shard owns under the rule, the
-        summary's), and the sharding audit's ``min_shard_bytes`` exemption."""
+        gauges, and the sharding audit's ``min_shard_bytes`` exemption.  The
+        bytes gauge reads what a shard holds (the summary's
+        ``held_bytes_per_device``: the parameters whole), not the rule's
+        ``bytes_per_device``, the layout of a checkpoint group."""
         if not self.enabled:
             return
-        params = (summary.get("trees") or {}).get("params") or {}
+        held = summary.get("held_bytes_per_device") or {}
         with self._lock:
             self._fsdp = {"axis_size": int(summary.get("axis_size", 1) or 1),
                           "min_shard_bytes": int(summary.get("min_shard_bytes", 0) or 0),
-                          "params_bytes_per_device": params.get("bytes_per_device")}
+                          "params_bytes_per_device": held.get("params")}
 
     def _sharding_audit(self, inst: Any, args: Tuple[Any, ...]) -> None:
         with self._lock:

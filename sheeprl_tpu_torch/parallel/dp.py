@@ -251,31 +251,25 @@ def whole_gradients(grads: Sequence[torch.Tensor], optimizer: Any) -> Generator[
     return (yield Collective("model_gather", (list(grads), layout.axes, layout.size)))
 
 
-def apply_update(optimizer: Any, params: Sequence[torch.Tensor], grads: Sequence[torch.Tensor], clip: float,
+def apply_update(optimizer: Any, grads: Sequence[torch.Tensor], clip: float,
                  norm: torch.Tensor) -> Generator[Collective, Any, None]:
-    """One optimizer step on the reduced ``grads`` clipped by their global
-    ``norm`` (optax's ``chain(clip_by_global_norm(clip), ...)``).  Without
-    FSDP ``params`` take the clipped gradients (``clip_by_global_norm``,
-    which reads their norm itself).  Under FSDP the optimizer steps this
-    model shard's slices with them clipped by ``norm``, the norm of the
-    whole gradient (:func:`gradient_norm`), and every sliced parameter is
-    gathered back whole into the shard's modules (``model_gather``)."""
+    """One optimizer step on the reduced ``grads`` clipped by ``norm``, the
+    global norm of the whole gradient (:func:`gradient_norm`; optax's
+    ``chain(clip_by_global_norm(clip), ...)``).  The optimizer steps what
+    its groups hold: the parameters, or under FSDP this model shard's
+    slices of them, after which every sliced parameter is gathered back
+    whole into the shard's modules (``model_gather``)."""
     from sheeprl_tpu_torch.parallel.fsdp import layout_of
-    from sheeprl_tpu_torch.utils.optim import clip_by_global_norm
 
-    layout = layout_of(optimizer)
-    if layout is None:
-        for p, g in zip(params, clip_by_global_norm(grads, clip)):
-            p.grad = g
-        optimizer.step()
-        optimizer.zero_grad(set_to_none=True)
-        return
     views = [v for group in optimizer.param_groups for v in group["params"]]
     keep = norm < clip
     for v, g in zip(views, grads):
         v.grad = torch.where(keep, g, g / norm.to(g.dtype) * clip)
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
+    layout = layout_of(optimizer)
+    if layout is None:
+        return
     joined = yield Collective("model_gather", (views, layout.axes, layout.size))
     with torch.no_grad():
         for p, whole, axis in zip(layout.params, joined, layout.axes):

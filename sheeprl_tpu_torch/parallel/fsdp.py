@@ -18,8 +18,12 @@ counter and the leaves the rule replicates stay whole.  In memory a slice
 is cut from the torch leaf (``Linear`` ``[out, in]``, ``Conv`` OIHW): the
 set of divisible dimensions is the flax layout's, so the counts and the
 per-shard bytes are the JAX summary's.  The modules hold each parameter
-whole for the step (gathered from the model shards after every update), so
-the player acts with the whole parameters.  A checkpoint gathers the
+whole, at rest and for the step (gathered from the model shards after every
+update), so the player acts with the whole parameters: only the optimizer
+state is sharded, and :func:`shard_map_summary`'s parameter bytes per
+device are the rule's layout (a checkpoint group's), not what a shard holds
+in memory (the whole parameters, ``held_bytes_per_device`` in the
+``fsdp_shard_map`` event).  A checkpoint gathers the
 optimizer state on the host (:func:`gathered_optimizers`) into the tree the
 port writes, and the sharded writer slices that tree in its flax layout,
 as the JAX writer slices its own."""

@@ -189,17 +189,23 @@ def test_the_sharding_audit_counts_slices_exempts_the_floor_and_hints_as_jax():
     # Adam's moments of the cut weight: a slice on each shard, at its own bytes
     sliced = [r for p, r in rows.items() if p.startswith("opt_state") and r["shape"] == [32, 64]]
     assert len(sliced) == 2 and all(not r["replicated"] and r["bytes_per_device"] == 32 * 64 * 4 for r in sliced)
-    # flagged: only the leaves over the floor the rule cannot cut (the 63x63
-    # weight and its moments), with the JAX FSDP hint
+    # flagged: the leaves over the floor the rule cannot cut (the 63x63
+    # weight and its moments), with the JAX FSDP hint, and the 64x64 weight
+    # the rule would cut but every shard holds whole (the port slices only
+    # the optimizer state), with a hint that says so; never the bias under
+    # the floor
     assert sorted(table["flagged_replicated"]) == ["opt_state/group0/2/exp_avg", "opt_state/group0/2/exp_avg_sq",
-                                                  "params/1/weight"]
+                                                  "params/0/weight", "params/1/weight"]
     from sheeprl_tpu.parallel.mesh import replicated_sharding
 
     mesh = make_mesh(n_devices=2, axis_names=("data", "model"), axis_sizes=(1, 2))
     weight = jax.device_put(np.zeros((63, 63), np.float32), replicated_sharding(mesh))
     jax_hint = jax_sharding_table(({"w": weight},), {}, replicated_warn_bytes=1024, fsdp_axis_size=2,
                                   fsdp_min_shard_bytes=1024).get("hint")
-    assert table["hint"] == jax_hint
+    jax_part, port_part = table["hint"].split("; ", 1)
+    assert jax_part == jax_hint
+    assert port_part.startswith("parameters the rule would cut, kept whole on every shard")
+    assert "params/0/bias" not in table["flagged_replicated"]
     # without FSDP the hint names the knob the port acts on
     plain = sharding_table(cpu, {"params": replicas}, [], replicated_warn_bytes=1024)
     assert "params/0/weight" in plain["flagged_replicated"] and "(fabric.fsdp)" in plain["hint"]
@@ -237,4 +243,10 @@ def test_a_runs_fsdp_shard_map_renders_alike_in_both_memory_reports(tmp_path, mo
     metrics = [json.loads(line) for line in open(Path(run_dir) / "journal.jsonl")]
     gauges = [e["metrics"] for e in metrics if e["event"] == "metrics"]
     assert gauges and all(g.get("Telemetry/fsdp_axis_size") == 2.0 for g in gauges)
-    assert all(g.get("Telemetry/params_bytes_per_device", 0) > 0 for g in gauges)
+    # the parameter bytes a shard holds: every parameter whole, the rule's
+    # layout (the shard map's bytes_per_device) is the checkpoint group's
+    shard_map = next(e for e in metrics if e["event"] == "fsdp_shard_map")
+    whole = shard_map["trees"]["params"]["bytes"]
+    assert shard_map["held_bytes_per_device"]["params"] == whole > shard_map["trees"]["params"]["bytes_per_device"]
+    assert shard_map["held_bytes_per_device"]["opt_state"] == shard_map["trees"]["opt_state"]["bytes_per_device"]
+    assert all(g.get("Telemetry/params_bytes_per_device") == float(whole) for g in gauges)

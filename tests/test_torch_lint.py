@@ -795,7 +795,7 @@ PORT_READERS = {
     "algo.scan_unroll": ("models/blocks.py:123", "algo.scan_unroll"),
     # the harvest reads a list's and a string's methods as keys
     "batch_buckets.append": ("serving/server.py:270", 'cfg.get("batch_buckets")'),
-    "buffer.type.lower": ("algos/dreamer_v3/dreamer_v3.py:757", 'cfg.buffer.get("type")'),
+    "buffer.type.lower": ("algos/dreamer_v3/dreamer_v3.py:765", 'cfg.buffer.get("type")'),
     "diagnostics.resilience.isolation.max_staleness": ("resilience/isolation.py:83", '"max_staleness"'),
     "diagnostics.resilience.isolation.retry_budget": ("resilience/isolation.py:84", '"retry_budget"'),
     "diagnostics.resilience.isolation.refresh_every": ("resilience/isolation.py:86", '"refresh_every"'),
