@@ -882,6 +882,31 @@ UPDATE_MOMENT_RTOL = 3e-3
 # clip by one model shard's own slices' norm moves them by ~30 %
 FSDP_STEP_CLIP = 1e-3
 FSDP_DEADLINES_S = {"fsdp": 45.0, "fsdp_step": 20.0, "fsdp_resume": 15.0}
+# the multihost group: (1) the parallel group's DreamerV3-S workload as two
+# ranks of `python -m sheeprl_tpu_torch run fabric.num_nodes=2` (one shard a
+# rank, both on cuda:0, a gloo group from torchrun's variables on a free
+# localhost port; NCCL refuses two ranks on one card), each in a child of
+# start_child_runners, its coordinated checkpoint groups written at policy
+# steps 264 and 272; while they run, (2) two fresh processes take one
+# DreamerV3-S fp32 gradient step as two ranks, held to the one-process
+# two-shard step on the same blocks and noise in this process
+MULTIHOST_DV3_OVERRIDES = [*(o for o in PARALLEL_DV3_OVERRIDES
+                             if not o.startswith(("run_name=", "checkpoint.every=", "checkpoint.save_last="))),
+                           "run_name=chip_smoke_multihost", "fabric.num_nodes=2", "checkpoint.every=264",
+                           "checkpoint.save_last=True"]
+MULTIHOST_RANKS = 2
+# the two-rank step runs twice on the same blocks and noise: the first in a
+# fresh process pays its lazy set-up, the second times the gloo collectives
+MULTIHOST_STEPS = 2
+MULTIHOST_DEADLINES_S = {"multihost": 45.0, "multihost_step": 40.0}
+# a rank of the two-rank step: this checkout's chip_smoke imported from its
+# root, ``multihost_step_rank(record, device, overrides)``
+_MULTIHOST_STEP = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+chip_smoke.multihost_step_rank(sys.argv[2], sys.argv[3], json.loads(sys.argv[4]))
+"""
 
 # phase 18 (records): a profiled DreamerV3-S run with the model registry
 # asked for (learning from policy step 256 of 4 envs: 1 iteration of 4
@@ -4104,9 +4129,14 @@ def _two_shards_against_one(cfg, build_agent, make_train_step, metric_order, tau
     the update against one device's (``_update_against_one``), the kernel's
     launches counted from 0 around the three steps as each shard's dynamic
     scan and imagination predict.  With ``fsdp`` = 2 the two shards are a
-    model axis: each one's optimizers cut for its index
-    (``parallel/fsdp.py``), the gathered parameters and optimizer state
-    equal across them.  ``from_generator`` (FSDP only): no injected noise,
+    model axis placed as the loop places them (``fsdp.shard_replicas``):
+    each one's modules hold only its index's slices of the leaves the rule
+    cuts between steps, gathered whole for the step (``dp.holding_whole``),
+    its optimizers cut for its index (``parallel/fsdp.py``); after the step
+    each shard again holds only its slices (the whole leaves whole), its
+    parameter bytes summed from its tensors equal to the rule's
+    ``tree_bytes_per_device`` (``rest``), the gathered parameters and
+    optimizer state equal across them.  ``from_generator`` (FSDP only): no injected noise,
     the one-device step draws from a generator and the shards from
     ``dp.global_streams`` over a generator of the same seed, as the loop
     runs them; each draw's blocks joined must be the one-device draw
@@ -4120,12 +4150,12 @@ def _two_shards_against_one(cfg, build_agent, make_train_step, metric_order, tau
     import torch
 
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import learner_replicas_equal, make_optimizers
-    from sheeprl_tpu_torch.parallel.fsdp import shard_optimizer
+    from sheeprl_tpu_torch.parallel.fsdp import rest_of, shard_replicas, tree_bytes_per_device, whole_params
     from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import synthetic_batch
     from sheeprl_tpu_torch.algos.ppo.agent import actions_dim_of
     from sheeprl_tpu_torch.envs.env import make_env
     from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
-    from sheeprl_tpu_torch.parallel.dp import global_streams, run_shards, split
+    from sheeprl_tpu_torch.parallel.dp import global_streams, holding_whole, run_shards, split
     from sheeprl_tpu_torch.parallel.mesh import replicate
 
     device = torch.device(device_name)
@@ -4139,9 +4169,10 @@ def _two_shards_against_one(cfg, build_agent, make_train_step, metric_order, tau
     agent = build_agent(actions_dim, is_continuous, cfg, obs_space, None, device)
     shards = replicate(copy.deepcopy(agent), [device] * PARALLEL_SHARDS)
     optimizers = [make_optimizers(cfg, a) for a in (agent, *shards)]
+    floor = cfg.fabric.get("fsdp_min_shard_bytes")
+    cut = [[] for _ in shards]
     if fsdp > 1:
-        optimizers[1:] = [{k: shard_optimizer(o, d % fsdp, fsdp, cfg.fabric.get("fsdp_min_shard_bytes"))
-                           for k, o in opts.items()} for d, opts in enumerate(optimizers[1:])]
+        optimizers[1:], cut = shard_replicas(shards, optimizers[1:], fsdp, floor)
     steps = [make_train_step(a, o, cfg, is_continuous) for a, o in zip((agent, *shards), optimizers)]
     blocks = split(batch, PARALLEL_SHARDS, 1)
     draws: list = []
@@ -4160,8 +4191,8 @@ def _two_shards_against_one(cfg, build_agent, make_train_step, metric_order, tau
         torch.cuda.synchronize()
         before = torch.cuda.memory_allocated(device)
         torch.cuda.reset_peak_memory_stats(device)
-        outs = run_shards([step.body(agent.initial_moments(device), block, tau, *args)
-                           for step, block, args in zip(steps[1:], blocks, shard_args)])
+        outs = run_shards([holding_whole(step.body(agent.initial_moments(device), block, tau, *args), params)
+                           for step, block, args, params in zip(steps[1:], blocks, shard_args, cut)])
         torch.cuda.synchronize()
         peak_bytes = torch.cuda.max_memory_allocated(device) - before
         launches = fused_layernorm_gru.launches  # and end here
@@ -4173,7 +4204,22 @@ def _two_shards_against_one(cfg, build_agent, make_train_step, metric_order, tau
     moments_rel = max((abs(float(moments[k]) - float(one_moments[k])) / max(abs(float(one_moments[k])), 1e-3)
                        for k in one_moments), default=0.0)
     equal = learner_replicas_equal(shards, optimizers[1:])
-    update = _update_against_one(agent, optimizers[0], shards[0], optimizers[1:])
+    rest = None
+    if fsdp > 1:
+        # between steps a shard holds only its slices: every cut leaf its
+        # rest, every other whole; its bytes are the rule's
+        at_rest = all(p.shape == rest_of(p).tensor.shape and p.data_ptr() == rest_of(p).tensor.data_ptr()
+                      for params in cut for p in params)
+        whole_leaves = all(rest_of(p) is None for shard, params in zip(shards, cut) for m in shard
+                           for p in m.parameters() if id(p) not in {id(q) for q in params})
+        held = [sum(p.numel() * p.element_size() for m in shard for p in m.parameters()) for shard in shards]
+        rule = tree_bytes_per_device(agent.trees(), fsdp, floor)
+        whole_bytes = sum(p.numel() * p.element_size() for m in agent for p in m.parameters())
+        rest = {"at_rest": at_rest and whole_leaves, "held_bytes": held, "rule_bytes": rule,
+                "whole_bytes": whole_bytes, "cut_leaves": len(cut[0])}
+        equal = equal and rest["at_rest"] and held == [rule] * len(shards) and rule < whole_bytes
+    with whole_params(cut[:max(fsdp, 1)]):
+        update = _update_against_one(agent, optimizers[0], shards[0], optimizers[1:])
     update_ok = (update["param_outliers"] <= STEP_PARAM_OUTLIERS and update["counts_equal"]
                  and max(update["moments_rel"].values()) <= UPDATE_MOMENT_RTOL)
     draws_ok = True
@@ -4193,14 +4239,15 @@ def _two_shards_against_one(cfg, build_agent, make_train_step, metric_order, tau
     if (not np.isfinite(got).all() or rel > PARALLEL_STEP_RTOL or moments_rel > PARALLEL_STEP_RTOL or not equal
             or not torch.equal(metrics, other) or launches != predicted or not update_ok or not draws_ok):
         raise AssertionError(f"two-shard {where} step against one device: metrics relative error {rel} "
-                             f"(tol {PARALLEL_STEP_RTOL}), Moments {moments_rel}, replicas equal {equal}, shards' "
+                             f"(tol {PARALLEL_STEP_RTOL}), Moments {moments_rel}, replicas equal {equal} (rest "
+                             f"{rest}), shards' "
                              f"metrics equal {torch.equal(metrics, other)}, launches {launches} (predicted "
                              f"{predicted}), update {update}, draws equal {draws_ok}\n"
                              f"{dict(zip(metric_order, want.tolist()))}\n{dict(zip(metric_order, got.tolist()))}")
     return {"metric_rel_err": rel, "moments_rel_err": moments_rel, "launches": launches, "predicted": predicted,
             "one_device": one, "per_shard": per_shard, "seconds": seconds, "batch": B,
             "shard_batch": B // PARALLEL_SHARDS, "moments": {k: float(v) for k, v in moments.items()},
-            "peak_bytes": peak_bytes, "update": update}
+            "peak_bytes": peak_bytes, "update": update, "rest": rest}
 
 
 def run_parallel_step(device_name: str = "cuda") -> dict:
@@ -5009,6 +5056,265 @@ def run_fsdp(build_dir: Path, runner, device_name: str = "cuda") -> dict:
             "launches": {"fsdp_dv3": child["launches"], "fsdp_step": step["launches"],
                          "fsdp_dp_step": step["dp_launches"], "fsdp_generator_step": step["from_generator"]["launches"],
                          "fsdp_resume": resumed["launches"]}}
+
+
+def _torchrun_env(port: int, rank: int) -> dict:
+    """torchrun's variables for rank ``rank`` of ``MULTIHOST_RANKS`` on a
+    localhost port: what ``parallel/runtime.py`` joins its gloo group from;
+    the ranks share one host, so gloo's interface is the loopback (not the
+    one the host's name resolves to)."""
+    return {"MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port), "RANK": str(rank),
+            "WORLD_SIZE": str(MULTIHOST_RANKS), "GLOO_SOCKET_IFNAME": "lo"}
+
+
+def _multihost_step_inputs(cfg, device_name: str) -> dict:
+    """The two-rank step's weights, global batch and noise, made alike in
+    every process from the seeds ``_two_shards_against_one`` uses: the
+    agent from ``cfg.seed``, the batch and the decisive noise from one
+    generator, both cut into the ranks' blocks."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.step_profile import synthetic_batch
+    from sheeprl_tpu_torch.algos.ppo.agent import actions_dim_of
+    from sheeprl_tpu_torch.envs.env import make_env
+    from sheeprl_tpu_torch.parallel.dp import split
+
+    device = torch.device(device_name)
+    env = make_env(cfg, cfg.seed, 0)()
+    obs_space, (actions_dim, is_continuous, _) = env.observation_space, actions_dim_of(env.action_space)
+    env.close()
+    T, B = cfg.algo.per_rank_sequence_length, cfg.algo.per_rank_batch_size
+    gen = torch.Generator(device=device).manual_seed(13)
+    batch = synthetic_batch(cfg, actions_dim, gen, device)
+    noise = _decisive(_train_noise(cfg, actions_dim, gen, device_name), gen)
+    return {"agent": build_agent(actions_dim, is_continuous, cfg, obs_space, None, device),
+            "is_continuous": is_continuous, "blocks": split(batch, MULTIHOST_RANKS, 1),
+            "noise": _parallel_noise(noise, T, B, MULTIHOST_RANKS), "device": device}
+
+
+def _state_digests(objs) -> list:
+    """The sha256 of every tensor of ``objs``' state (``dp.state_tensors``'
+    order: parameters, buffers, optimizer state), read on the host."""
+    import hashlib
+
+    from sheeprl_tpu_torch.parallel.dp import state_tensors
+
+    import torch
+
+    return [hashlib.sha256(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy()).hexdigest()
+            for t in state_tensors(objs)]
+
+
+def _multihost_step_overrides(device_name: str) -> list:
+    """The two-rank step's config: the parallel group's step at DreamerV3-S
+    over ``MULTIHOST_RANKS`` shards, one a process."""
+    return PARALLEL_STEP_OVERRIDES + [f"fabric.accelerator={device_name}", "fabric.num_nodes=2",
+                                      f"fabric.devices={MULTIHOST_RANKS}"]
+
+
+def multihost_step_rank(record: str, device_name: str, overrides: list) -> None:
+    """One rank of the two-rank DreamerV3-S fp32 gradient step, in a process
+    ``run_multihost`` starts with torchrun's variables: the ``Runtime``
+    joins the gloo group (one shard a rank, both on ``cuda:0``), the rank
+    runs its global shard's block of the step's batch and noise through
+    ``run_shards`` (its collectives crossing the processes), and writes its
+    state's digests, metrics, Moments, LayerNorm-GRU launches and seconds
+    to ``record``."""
+    t0 = time.monotonic()
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers, make_train_step
+    from sheeprl_tpu_torch.ops.ln_gru import fused_layernorm_gru
+    from sheeprl_tpu_torch.parallel.dp import run_shards
+    from sheeprl_tpu_torch.parallel.runtime import Runtime
+
+    from sheeprl_tpu_torch.config import compose
+
+    imports_s = time.monotonic() - t0
+    cfg = compose(overrides)
+    runtime = Runtime(devices=MULTIHOST_RANKS, num_nodes=2, accelerator=device_name)
+    inputs = _multihost_step_inputs(cfg, device_name)
+    agent, shard = inputs["agent"], runtime.shard_offset
+    optimizers = make_optimizers(cfg, agent)
+    step = make_train_step(agent, optimizers, cfg, inputs["is_continuous"])
+    runtime.barrier()
+    fused_layernorm_gru.launches = 0  # the steps' launches start here
+    moments, step_s = agent.initial_moments(inputs["device"]), []
+    for _ in range(MULTIHOST_STEPS):
+        t1 = time.monotonic()
+        ((moments, metrics),) = run_shards([step.body(moments, inputs["blocks"][shard], 0.02, None,
+                                                      inputs["noise"][shard])])
+        if inputs["device"].type == "cuda":
+            torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t1)
+    launches = fused_layernorm_gru.launches  # and end here
+    out = {"rank": runtime.global_rank, "shard": shard, "digests": _state_digests([*agent, *optimizers.values()]),
+           "metrics": metrics.cpu().tolist(), "moments": {k: float(v) for k, v in moments.items()},
+           "launches": launches, "step_s": step_s, "imports_s": imports_s, "seconds": time.monotonic() - t0}
+    with open(record, "w") as fp:
+        json.dump(out, fp)
+    runtime.barrier()
+
+
+def multihost_step_reference(cfg, device_name: str = "cuda") -> dict:
+    """The one-process two-shard step the two ranks are held to: the same
+    weights, blocks and noise over two shards of this process on the one
+    card, each shard's digests, metrics and Moments."""
+    import torch
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import make_optimizers, make_train_step
+    from sheeprl_tpu_torch.parallel.dp import run_shards
+    from sheeprl_tpu_torch.parallel.mesh import replicate
+
+    inputs = _multihost_step_inputs(cfg, device_name)
+    device = inputs["device"]
+    shards = replicate(inputs["agent"], [device] * MULTIHOST_RANKS)
+    optimizers = [make_optimizers(cfg, a) for a in shards]
+    steps = [make_train_step(a, o, cfg, inputs["is_continuous"]) for a, o in zip(shards, optimizers)]
+    moments, step_s = [a.initial_moments(device) for a in shards], []
+    for _ in range(MULTIHOST_STEPS):
+        t1 = time.monotonic()
+        outs = run_shards([step.body(mo, block, 0.02, None, noise)
+                           for step, mo, block, noise in zip(steps, moments, inputs["blocks"], inputs["noise"])])
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        step_s.append(time.monotonic() - t1)
+        moments = [mo for mo, _ in outs]
+    return {"digests": [_state_digests([*a, *o.values()]) for a, o in zip(shards, optimizers)],
+            "metrics": [m.cpu().tolist() for _, m in outs], "step_s": step_s}
+
+
+def _trees_equal(a, b) -> bool:
+    import numpy as np
+
+    if isinstance(a, dict):
+        return isinstance(b, dict) and sorted(a) == sorted(b) and all(_trees_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return isinstance(b, (list, tuple)) and len(a) == len(b) and all(_trees_equal(x, y) for x, y in zip(a, b))
+    x, y = np.asarray(a), np.asarray(b)
+    return x.shape == y.shape and x.dtype == y.dtype and x.tobytes() == y.tobytes()
+
+
+def run_multihost(build_dir: Path, runners: list, device_name: str = "cuda") -> dict:
+    """This slice's group, 45 s in all (``MULTIHOST_DEADLINES_S``): (1) two
+    ranks of ``python -m sheeprl_tpu_torch run exp=dreamer_v3
+    fabric.num_nodes=2`` at DreamerV3-S (``MULTIHOST_DV3_OVERRIDES``), one
+    shard a rank on the one card, each handed to one of ``runners`` (the
+    interpreters of ``start_child_runners``, which made their imports before
+    the group) with torchrun's variables on a free port: each rank's
+    LayerNorm-GRU launches (counted from 0 in its process) equal to 79 a
+    gradient step plus its player's, one ``version_0``, the last
+    coordinated group of two files complete (``group_status``) and each
+    file verified, the two ranks' parameters, optimizer state and Moments
+    in it bitwise equal; while they run, (2) two ranks of one DreamerV3-S
+    fp32 gradient step (``multihost_step_rank``, fresh processes) against
+    the one-process two-shard step on the same blocks and noise in this
+    process (``multihost_step_reference``): every state tensor's digest and
+    the metrics bitwise equal, else the metrics within
+    ``PARALLEL_STEP_RTOL`` with the tensors that differ named."""
+    from sheeprl_tpu_torch.config import compose
+    from sheeprl_tpu_torch.resilience.coordination import group_status, rank_shard_path
+    from sheeprl_tpu_torch.resilience.manifest import verify_checkpoint
+    from sheeprl_tpu_torch.resilience.supervisor import child_env
+    from sheeprl_tpu_torch.utils.checkpoint import load_state
+
+    root = (build_dir / "multihost").resolve()
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    overrides = MULTIHOST_DV3_OVERRIDES + [f"root_dir={root / 'dv3'}", f"fabric.accelerator={device_name}"]
+    cfg = compose(overrides)
+    _dv3_s_widths(cfg)
+    step_overrides = _multihost_step_overrides(device_name)
+    step_cfg = compose(step_overrides)
+    _dv3_s_widths(step_cfg)
+    records = [root / f"dv3_rank{r}.json" for r in range(MULTIHOST_RANKS)]
+    step_records = [root / f"step_rank{r}.json" for r in range(MULTIHOST_RANKS)]
+
+    def tail() -> str:
+        logs = [Path(f"{r}.log") for r in records] + [root / f"step_rank{r}.log" for r in range(MULTIHOST_RANKS)]
+        return "\n".join(f"--- {log.name}\n{log.read_text()[-2000:]}" for log in logs if log.exists())
+
+    _wait_ready(runners)
+    t0 = time.monotonic()
+    port, step_port = _free_port(), _free_port()
+    with deadline(MULTIHOST_DEADLINES_S["multihost"], "multihost", tail):
+        ranks = [subprocess.Popen([sys.executable, "-c", _CHILD_HANDOFF, runner[0], str(record), "run", *overrides],
+                                  cwd=str(ROOT), env={**child_env(), **_torchrun_env(port, r)})
+                 for r, (runner, record) in enumerate(zip(runners, records))]
+        step_logs = [open(root / f"step_rank{r}.log", "w") for r in range(MULTIHOST_RANKS)]
+        step_ranks = [subprocess.Popen([sys.executable, "-c", _MULTIHOST_STEP, str(ROOT), str(record), device_name,
+                                        json.dumps(step_overrides)],
+                                       cwd=str(ROOT), env={**child_env(), **_torchrun_env(step_port, r)},
+                                       stdout=log, stderr=subprocess.STDOUT)
+                      for r, (record, log) in enumerate(zip(step_records, step_logs))]
+        for proc in ranks + step_ranks:
+            atexit.register(proc.kill)  # a no-op once it has exited
+        with deadline(MULTIHOST_DEADLINES_S["multihost_step"], "multihost_step", tail):
+            reference = multihost_step_reference(step_cfg, device_name)
+            step_rcs = [p.wait() for p in step_ranks]
+        in_process_s = time.monotonic() - t0
+        for log in step_logs:
+            log.close()
+        rcs = [p.wait() for p in ranks]
+    seconds = time.monotonic() - t0
+    children = [json.loads(r.read_text()) if r.is_file() else {"exit_code": rc} for r, rc in zip(records, rcs)]
+    if any(rcs) or any(c.get("exit_code") != 0 for c in children) or any(step_rcs) or \
+            not all(r.is_file() for r in step_records):
+        raise AssertionError(f"multihost ranks: exit codes {rcs} / {[c.get('exit_code') for c in children]}, step "
+                             f"ranks {step_rcs}\n{tail()}")
+    predicted = [_child_launches(cfg, c) for c in children]
+    base = root / "dv3" / cfg.run_name
+    versions = sorted(d.name for d in base.iterdir() if d.name.startswith("version_"))
+    last = max(base.glob("version_0/checkpoint/ckpt_*_0.ckpt"), key=lambda p: int(p.name.split("_")[1]))
+    group = [rank_shard_path(str(last), r) for r in range(MULTIHOST_RANKS)]
+    states = [load_state(f) for f in group]
+    keys = ("world_model", "actor", "critic", "target_critic", "opt_states", "moments")
+    ranks_equal = all(_trees_equal(states[0][k], s[k]) for s in states[1:] for k in keys)
+    if (versions != ["version_0"] or [c["launches"] for c in children] != predicted
+            or any(c["shards"] != 1 or c["gradient_steps"] < 1 for c in children)
+            or any(verify_checkpoint(f) != (True, "verified") for f in group)
+            or group_status(group[0]) != (True, "group_verified") or not ranks_equal):
+        raise AssertionError(f"multihost DreamerV3-S ranks: versions {versions}, launches "
+                             f"{[c['launches'] for c in children]} (predicted {predicted}), shards "
+                             f"{[c['shards'] for c in children]}, gradient steps "
+                             f"{[c['gradient_steps'] for c in children]}, group {group} "
+                             f"{group_status(group[0])}, ranks equal {ranks_equal}")
+    # the two-rank step against the one-process two-shard step
+    import numpy as np
+
+    steps = sorted((json.loads(r.read_text()) for r in step_records), key=lambda s: s["shard"])
+    bitwise = all(s["digests"] == reference["digests"][s["shard"]] and s["metrics"] == reference["metrics"][s["shard"]]
+                  for s in steps)
+    want, got = np.asarray(reference["metrics"][0]), np.asarray(steps[0]["metrics"])
+    rel = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-3)))
+    differ = [i for i, (a, b) in enumerate(zip(steps[0]["digests"], reference["digests"][0])) if a != b]
+    hidden = step_cfg.algo.world_model.recurrent_model.recurrent_state_size
+    joint = hidden + step_cfg.algo.world_model.recurrent_model.dense_units
+    T, B, H = step_cfg.algo.per_rank_sequence_length, step_cfg.algo.per_rank_batch_size, step_cfg.algo.horizon
+    per_rank = MULTIHOST_STEPS * (T * _launch_chunks(B // MULTIHOST_RANKS, hidden, joint) + H * _launch_chunks(
+        T * B // MULTIHOST_RANKS, hidden, joint))
+    if (steps[0]["digests"] != steps[1]["digests"] or steps[0]["metrics"] != steps[1]["metrics"]
+            or any(s["launches"] != per_rank for s in steps) or not np.isfinite(got).all()
+            or (not bitwise and rel > PARALLEL_STEP_RTOL)):
+        raise AssertionError(f"two-rank DreamerV3-S step: ranks' states equal "
+                             f"{steps[0]['digests'] == steps[1]['digests']}, launches "
+                             f"{[s['launches'] for s in steps]} (predicted {per_rank}), bitwise to one process "
+                             f"{bitwise}, metrics relative error {rel} (tol {PARALLEL_STEP_RTOL}), differing tensors "
+                             f"{differ[:20]}")
+    sizes = {Path(f).name: os.path.getsize(f) for f in group}
+    shutil.rmtree(root, ignore_errors=True)
+    return {"children": children, "predicted": predicted, "versions": versions, "group": sizes,
+            "group_step": int(last.name.split("_")[1]), "ranks_equal": ranks_equal,
+            "step": {"bitwise": bitwise, "metric_rel_err": rel, "differing_tensors": len(differ),
+                     "tensors": len(steps[0]["digests"]), "launches": [s["launches"] for s in steps],
+                     "per_rank": per_rank, "step_s": [[round(t, 4) for t in s["step_s"]] for s in steps],
+                     "one_process_step_s": [round(t, 4) for t in reference["step_s"]],
+                     "imports_s": [round(s["imports_s"], 1) for s in steps],
+                     "rank_s": [round(s["seconds"], 1) for s in steps]},
+            "seconds": seconds, "in_process_s": in_process_s,
+            "launches": {**{f"multihost_rank{r}": c["launches"] for r, c in enumerate(children)},
+                         **{f"multihost_step_rank{s['rank']}": s["launches"] for s in steps}}}
 
 
 def _off_policy_run(overrides, where: str, resume: bool = True) -> dict:
@@ -6295,8 +6601,9 @@ def main() -> int:
     os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
     os.environ["PYTHONPYCACHEPREFIX"] = str(build_dir / "pycache")
     # two for the resilience group's children, one each for the parallel,
-    # parallel_families, decoupled and fsdp groups
-    runners = start_child_runners(build_dir, count=6)
+    # parallel_families, decoupled and fsdp groups, two for the multihost
+    # group's ranks
+    runners = start_child_runners(build_dir, count=8)
     lint = start_lint(build_dir)
     card = _card_line()
     kind = torch.cuda.get_device_name(0)
@@ -6496,15 +6803,21 @@ def main() -> int:
           f"step: the dynamic scan and the imagination once a shard, on the gathered weight); the child "
           f"{child['seconds']} s (imports made before the group, {child['imports_s']} s)  [{card}]", flush=True)
     print(f"[fsdp] fsdp_shard_map (the rule's layout, a checkpoint group's): axis_size {fmap['axis_size']}, "
-          f"min_shard_bytes {fmap['min_shard_bytes']}, {json.dumps(fmap['trees'])}; the bytes a shard holds "
-          f"(parameters whole, the optimizer state sliced) {json.dumps(fmap['held_bytes_per_device'])}; "
+          f"min_shard_bytes {fmap['min_shard_bytes']}, {json.dumps(fmap['trees'])}; the bytes a shard holds between "
+          f"steps (its slices of the parameters and the optimizer state) {json.dumps(fmap['held_bytes_per_device'])}; "
           f"sharding_audit {json.dumps(fsdp['audit'])}  [{card}]", flush=True)
     print(f"[fsdp] partial-shard checkpoint group {json.dumps(fsdp['group'])} bytes ({fsdp['sliced_leaves']} leaves "
           f"sliced), each file verified, the group complete; resumed at fabric.devices=1 fabric.fsdp=1 from it: "
           f"start_iter {fsdp['resumed']['start_iter']}, {fsdp['resumed']['player_steps']} player steps, ln_gru "
           f"launches {fsdp['resumed']['launches']} = predicted {fsdp['resumed']['predicted']}  [{card}]", flush=True)
+    rest = fstep["rest"]
+    print(f"[fsdp] at rest after the in-process fsdp=2 step: each shard's modules hold only their slices of the "
+          f"{rest['cut_leaves']} leaves the rule cuts, the other leaves whole ({rest['at_rest']}); parameter bytes a "
+          f"shard holds, summed from its tensors, {rest['held_bytes']} = tree_bytes_per_device {rest['rule_bytes']} "
+          f"(the whole parameters {rest['whole_bytes']} bytes, {rest['rule_bytes'] / rest['whole_bytes']:.4f} of "
+          f"them)  [{card}]", flush=True)
     print(f"[fsdp] one DreamerV3-S fp32 gradient step at fabric.fsdp=2 (2 shards of {fstep['shard_batch']} sequences, "
-          f"each's optimizer state sliced) against one device's on the same {fstep['batch']}-sequence batch and noise "
+          f"each's parameters and optimizer state sliced at rest) against one device's on the same {fstep['batch']}-sequence batch and noise "
           f"(noise deciding every draw): metrics max relative error {fstep['metric_rel_err']:.3g}, Moments low/high "
           f"{fstep['moments_rel_err']:.3g} (tol {PARALLEL_STEP_RTOL:g}); the shards' metrics bitwise equal, their "
           f"gathered parameters and optimizer state equal; ln_gru launches {fstep['launches']} = predicted "
@@ -6526,6 +6839,30 @@ def main() -> int:
           flush=True)
 
     mark('fsdp')
+    multihost = run_multihost(build_dir, runners[6:8])
+    mh_step = multihost["step"]
+    for r, child in enumerate(multihost["children"]):
+        print(f"[multihost] rank {r} of python -m sheeprl_tpu_torch run exp=dreamer_v3 fabric.num_nodes=2 "
+              f"fabric.devices=2 (DreamerV3-S, batch 16 x 64 a rank, horizon 15, fp32, one shard a rank on the one "
+              f"card, gloo over localhost): {child['gradient_steps']} gradient steps, player calls "
+              f"{child['player_calls']}, ln_gru launches {child['launches']} = predicted {multihost['predicted'][r]} "
+              f"(79 a gradient step + the player's); {child['seconds']} s (imports made before the group, "
+              f"{child['imports_s']} s)  [{card}]", flush=True)
+    print(f"[multihost] one run dir {multihost['versions']}; the coordinated group at policy step "
+          f"{multihost['group_step']} {json.dumps(multihost['group'])} bytes, each file verified, group_status "
+          f"complete; the two ranks' parameters, optimizer state and Moments in it bitwise equal "
+          f"({multihost['ranks_equal']})  [{card}]", flush=True)
+    print(f"[multihost] one DreamerV3-S fp32 gradient step as two ranks (fresh processes, one shard of 8 sequences "
+          f"each, imports {mh_step['imports_s']} s, process {mh_step['rank_s']} s; {MULTIHOST_STEPS} steps on the "
+          f"same blocks and noise, each {mh_step['step_s']} s with its gloo collectives, against "
+          f"{mh_step['one_process_step_s']} s in this process) against the one-process two-shard steps: bitwise "
+          f"{mh_step['bitwise']} ({mh_step['differing_tensors']} of {mh_step['tensors']} state tensors differ), "
+          f"metrics max relative error {mh_step['metric_rel_err']:.3g} (tol {PARALLEL_STEP_RTOL:g}); ln_gru launches "
+          f"{mh_step['launches']} = predicted {mh_step['per_rank']} a rank  [{card}]", flush=True)
+    print(f"[multihost] group {multihost['seconds']:.1f} s of its {MULTIHOST_DEADLINES_S['multihost']:g} s (in this "
+          f"process {multihost['in_process_s']:.1f} s beside the ranks)  [{card}]", flush=True)
+
+    mark('multihost')
     slice_report = run_slice(build_dir)
     print(
         f"[slice] DreamerV3-S serve: {slice_report['requests']} /act from {slice_report['sessions']} sessions, "
@@ -7140,7 +7477,8 @@ def main() -> int:
                "minedojo": minedojo["ln_gru_launches"],
                **{f"resilience_child_{i}": n for i, n in enumerate(resilience["launches"])},
                "parallel_dv3": parallel["child"]["launches"], "parallel_step": parallel["step"]["launches"],
-               **parallel["launches"], **families["launches"], **decoupled["launches"], **fsdp["launches"]}
+               **parallel["launches"], **families["launches"], **decoupled["launches"], **fsdp["launches"],
+               **multihost["launches"]}
     print(f"[launches] ln_gru launches by path: {', '.join(f'{k} {v}' for k, v in by_path.items())}; "
           f"{sum(by_path.values())} in all  [{card}]", flush=True)
     case_keys = ("B", "K", "H", "dtype", "max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms", "bound_ms", "bound_by")
@@ -7162,7 +7500,7 @@ def main() -> int:
         "cases": [{k: c[k] for k in case_keys} for c in cases],
         "phase": "kernel+lint+slice+serve-ops+train+chunked+resume+eval+offline+drill+jepa+p2e+sac+droq+sac_ae+offline_sac"
                  "+offline_droq+bf16+dv2+dv1+ppo_recurrent+p2e_dv2+p2e_dv1+minedojo+records"
-                 "+resilience+parallel+parallel_families+decoupled+fsdp",
+                 "+resilience+parallel+parallel_families+decoupled+fsdp+multihost",
     }]
     mark("kernels line")
     print(f"[timing] wall seconds by group of phases: "

@@ -27,7 +27,7 @@ from sheeprl_tpu_torch.algos.a2c.loss import policy_loss, value_loss
 from sheeprl_tpu_torch.algos.ppo.ppo import OnPolicyFamily, _module_groups, _on_policy_main
 from sheeprl_tpu_torch.diagnostics.health import explained_variance, health_names, health_spec, health_stats
 from sheeprl_tpu_torch.diagnostics.sentinel import finite_flag, select_finite, sentinel_spec, skip_update_guard
-from sheeprl_tpu_torch.parallel.dp import pmean_tree, run_one
+from sheeprl_tpu_torch.parallel.dp import agreed, pmean_tree, run_one
 from sheeprl_tpu_torch.parallel.precision import call_cast, cast_floating, compute_dtype_of
 from sheeprl_tpu_torch.utils.optim import clip_by_global_norm, global_norm
 from sheeprl_tpu_torch.utils.registry import register_algorithm
@@ -78,8 +78,8 @@ def make_train_step(agent: A2CAgent, optimizer: torch.optim.Optimizer, cfg):
         v = value_loss(values.float(), data["returns"], reduction)
         grads = list(torch.autograd.grad(pg + vf_coef * v, params))
         grads, (pg, v) = yield from pmean_tree((grads, (pg, v)))
-        gnorm = global_norm(grads)
-        for p, g in zip(params, clip_by_global_norm(grads, max_grad_norm) if max_grad_norm > 0 else grads):
+        gnorm = yield from agreed(global_norm(grads))
+        for p, g in zip(params, clip_by_global_norm(grads, max_grad_norm, gnorm) if max_grad_norm > 0 else grads):
             p.grad = g
         if health.enabled:
             with torch.no_grad():

@@ -52,10 +52,11 @@ from sheeprl_tpu_torch.models.blocks import LayerNormGRUCell
 from sheeprl_tpu_torch.ops.distributions import Bernoulli, MSEDistribution, SymlogDistribution, TwoHotEncodingDistribution
 from sheeprl_tpu_torch.ops.numerics import compute_lambda_values
 from sheeprl_tpu_torch.parallel.dp import (all_gather_cat, apply_update, body_of, global_streams, gradient_norm,
-                                            local_sample_size, pmean_tree, reduce_gradients, replicas_equal, run_one,
-                                            run_shards, shard_generators, train_batches, whole_gradients)
-from sheeprl_tpu_torch.parallel.fsdp import (fsdp_active, gathered_optimizers, layout_of, shard_map_summary,
-                                              shard_optimizer, sliced_state_equal)
+                                            holding_whole, local_sample_size, pmean_tree, reduce_gradients,
+                                            replicas_equal, run_one, run_shards, shard_generators, train_batches,
+                                            whole_gradients)
+from sheeprl_tpu_torch.parallel.fsdp import (fsdp_active, gathered_optimizers, layout_of, rest_of, shard_map_summary,
+                                              shard_replicas, sliced_state_equal, whole_params)
 from sheeprl_tpu_torch.parallel.mesh import model_axis_size, replicate
 from sheeprl_tpu_torch.parallel.precision import call_cast, compute_dtype_of
 from sheeprl_tpu_torch.utils.registry import register_algorithm
@@ -403,13 +404,17 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
         position = {id(p): (name, i) for name in TRAINED for i, p in enumerate(params[name])}
         where = {g: [position[id(p)] for p in ps] for g, ps in groups.items()}
         health_out = health_names(list(groups), health.per_module)
-        # the parameters before each update, for the applied delta
-        before = {name: [torch.empty_like(p) for p in params[name]] for name in TRAINED}
+        # the parameters before each update, for the applied delta (copied
+        # at each update: under FSDP the modules hold them whole only for
+        # the step)
+        before: Dict[str, List[torch.Tensor]] = {}
         unit_dims = health_unit_dims(agent, groups)
     else:
         health_out = []
     if sentinel.skip_update:
-        guarded, snapshot = skip_update_guard(agent, optimizers.values())
+        # the snapshot is taken at each step (under FSDP the modules hold
+        # the parameters whole only for the step)
+        guarded, _ = skip_update_guard(agent, optimizers.values())
     step_grads: Dict[str, List[torch.Tensor]] = {}
 
     def update(name: str, loss: torch.Tensor):
@@ -431,7 +436,7 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
             # before clipping, as the JAX chain clips inside its update
             step_grads[name] = yield from whole_gradients(grads, opt)
             with torch.no_grad():
-                torch._foreach_copy_(before[name], params[name])
+                before[name] = [p.detach().clone() for p in params[name]]
         yield from apply_update(opt, grads, clip[name], norm)
         return metric_norm
 
@@ -446,7 +451,7 @@ def make_train_step(agent: Agent, optimizers: Dict[str, torch.optim.Optimizer], 
             # before the Polyak update, as in JAX: a skipped step reverts the
             # target critic too
             with torch.no_grad():
-                torch._foreach_copy_(snapshot, guarded)
+                snapshot = [t.detach().clone() for t in guarded]
             prev_moments = moments_state
 
         polyak(critic, target_critic, tau)
@@ -621,19 +626,23 @@ def shard_learner(runtime, cfg, diag, agent: Agent, agent_state: Optional[Mappin
     (reduced over the shards); the caller instruments it.
 
     Under FSDP (``runtime.fsdp`` = k > 1, ``parallel/fsdp.py``) each shard's
-    optimizers are cut for its model index ``d % k`` after loading: their
-    state is held sliced by the rule (the step counter and the leaves the
-    rule replicates whole), each model shard steps its slices, and the
-    modules keep every parameter whole, gathered after each update, so the
-    player acts with the whole parameters: the parameters and gradients are
-    not sharded at rest, only the optimizer state is.  The Moments stay
-    replicated.
+    modules keep, between steps, only its model index's (``d % k``) slices
+    of the parameters the rule cuts, the target critic's and every other
+    module's too (``fsdp.shard_params``), and its optimizers are cut for
+    that index after loading: their state is held sliced by the rule (the
+    step counter and the leaves the rule replicates whole), each model
+    shard steps its slices.  A step gathers the parameters whole for its
+    length (``dp.holding_whole``); the player and a checkpoint join shard
+    0's row's slices for each use (``train_step.whole``, a context: on the
+    parameters' device for the player, on the CPU for a checkpoint); the
+    Moments stay replicated.
     The step is global-view: its draws come from the run's one ``generator``
     at the global batch's shapes, each shard taking its block
     (``dp.global_streams``), not from folded per-shard streams.  The rule's
     layout of the parameters and optimizer state is journaled once
     (``fsdp_shard_map``), with the bytes a shard holds of each
-    (``held_bytes_per_device``)."""
+    (``held_bytes_per_device``: the rule's bytes).  Without FSDP
+    ``train_step.whole`` does nothing."""
     from sheeprl_tpu_torch.interop.flax_params import optax_state
 
     devices = runtime.devices
@@ -645,30 +654,30 @@ def shard_learner(runtime, cfg, diag, agent: Agent, agent_state: Optional[Mappin
         for replica, opts, d in zip(replicas, optimizer_sets, devices):
             loaded = load_learner_state(agent_state, replica, opts, d)
             moments_state = loaded if replica is agent else moments_state
+    cut: List[List[torch.Tensor]] = [[] for _ in replicas]
     if fsdp_active(fsdp):
         floor = runtime.fsdp_min_shard_bytes
-        # the rule's layout of the state as a checkpoint holds it
+        # the rule's layout of the state as a checkpoint holds it, which is
+        # what a shard holds of each between steps
         opt_trees = nest({name: optax_state(opt, agent.optimizer_spec(name)) for name, opt in optimizer_sets[0].items()})
         summary = shard_map_summary({"params": agent.trees(), "opt_state": opt_trees}, fsdp, floor)
-        # the rule's layout is a checkpoint group's; in memory a shard holds
-        # the parameters whole and its slices of the optimizer state
-        summary["held_bytes_per_device"] = {"params": summary["trees"]["params"]["bytes"],
-                                            "opt_state": summary["trees"]["opt_state"]["bytes_per_device"]}
+        summary["held_bytes_per_device"] = {tree: summary["trees"][tree]["bytes_per_device"]
+                                            for tree in ("params", "opt_state")}
         diag.on_fsdp_shard_map(summary)
-        optimizer_sets = [{name: shard_optimizer(opt, d % fsdp, fsdp, floor) for name, opt in opts.items()}
-                          for d, opts in enumerate(optimizer_sets)]
+        optimizer_sets, cut = shard_replicas(replicas, optimizer_sets, fsdp, floor)
     steps = [make_train_step_fn(replica, opts, cfg, is_continuous) for replica, opts in zip(replicas, optimizer_sets)]
-    generators = shard_generators(generator, cfg.seed, devices)
+    generators = shard_generators(generator, cfg.seed, devices, runtime.shard_offset)
 
     def dp_train_step(moments_state: Dict[str, Any], batches: List[Dict[str, torch.Tensor]], tau: float):
         streams = (global_streams(generator, [batch["actions"].shape[1] for batch in batches]) if fsdp_active(fsdp)
                    else generators)
         return run_shards([
-            body_of(step)(tree_map(lambda t, d=d: t.to(d), moments_state), batch, tau, g)
-            for step, batch, g, d in zip(steps, batches, streams, devices)
+            holding_whole(body_of(step)(tree_map(lambda t, d=d: t.to(d), moments_state), batch, tau, g), params)
+            for step, batch, g, d, params in zip(steps, batches, streams, devices, cut)
         ])[0]
 
     dp_train_step.metric_order, dp_train_step.health_names = steps[0].metric_order, steps[0].health_names
+    dp_train_step.whole = lambda device=None: whole_params(cut[:fsdp], device)
     diag.register_footprint("params", [m for replica in replicas for m in replica])
     diag.register_footprint("opt_state", [o for opts in optimizer_sets for o in opts.values()])
     diag.register_footprint("moments", moments_state)
@@ -681,12 +690,18 @@ def shard_learner(runtime, cfg, diag, agent: Agent, agent_state: Optional[Mappin
 def learner_replicas_equal(replicas: Sequence[Agent], optimizer_sets: Sequence[Dict[str, torch.optim.Optimizer]]
                            ) -> bool:
     """Whether every replica holds shard 0's bytes: the parameters, and the
-    optimizer state (under FSDP the gathered state of every data row's model
-    shards equals shard 0's row's, ``fsdp.sliced_state_equal``)."""
+    optimizer state.  Under FSDP the shards of each model index hold the
+    same slices (and every shard the same whole leaves), and the gathered
+    state of every data row's model shards equals shard 0's row's
+    (``fsdp.sliced_state_equal``)."""
     if len(replicas) == 1:
         return True
-    if layout_of(next(iter(optimizer_sets[0].values()), None)) is not None:
-        return replicas_equal([list(replica) for replica in replicas]) and sliced_state_equal(optimizer_sets)
+    layout = layout_of(next(iter(optimizer_sets[0].values()), None))
+    if layout is not None:
+        whole = [[p for m in replica for p in m.parameters() if rest_of(p) is None] for replica in replicas]
+        return (all(replicas_equal([list(replica) for replica in replicas[m::layout.size]])
+                    for m in range(layout.size))
+                and replicas_equal(whole) and sliced_state_equal(optimizer_sets))
     return replicas_equal([[*replica, *opts.values()] for replica, opts in zip(replicas, optimizer_sets)])
 
 
@@ -739,7 +754,14 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     steps in lockstep (``parallel/dp.py``, :func:`shard_learner`); with
     ``buffer.device=True`` the replay ring is sharded by env, and shard d's
     block is drawn from its own envs on its own device; the player acts with shard 0's
-    replica and the checkpoint holds shard 0's state.  The counter that
+    replica (under FSDP its parameters joined whole for each use) and the
+    checkpoint holds shard 0's state.  Over processes (``fabric.num_nodes >
+    1``) each process steps its own envs, seeded as the JAX loop seeds a
+    rank, draws its ``1 / P`` of the global batch from its own replay
+    (``dp.local_sample_size``) and trains its own shards, whose collectives
+    cross the processes; rank 0 archives the config and logs, every rank
+    writes its file of each coordinated checkpoint group, and rank 0 alone
+    runs the test episode and the model registry.  The counter that
     times the target critic's update starts at 0 in every run, resumed or
     not, as in every JAX loop of the family.
 
@@ -780,8 +802,9 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
 
     logger = get_logger(runtime, cfg)
     log_dir = get_log_dir(runtime, cfg.root_dir, cfg.run_name)
-    save_configs(cfg, log_dir)
-    logger.log_hyperparams(cfg.as_dict())
+    if runtime.is_global_zero:
+        save_configs(cfg, log_dir)
+        logger.log_hyperparams(cfg.as_dict())
     diag = get_diagnostics(runtime, cfg, log_dir)
     aggregator = instantiate(cfg.metric.aggregator)
     if cfg.metric.log_level == 0:
@@ -831,6 +854,9 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
         runtime, cfg, diag, agent, agent_state, make_train_step_fn, is_continuous, generator)
     train_step = diag.instrument("train_step", dp_train_step, kind="train")
     metric_order, health_out = train_step.metric_order, train_step.health_names
+    # the player acts with shard 0's parameters, joined whole for each use
+    # under FSDP
+    params_whole = dp_train_step.whole
 
     buffer_size = cfg.buffer.size // num_envs if not cfg.dry_run else dry_run_buffer_size
     rb, use_device_buffer = make_dreamer_replay_buffer(
@@ -876,7 +902,8 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
     step_data["truncated"] = np.zeros((1, num_envs, 1), np.float32)
     step_data["terminated"] = np.zeros((1, num_envs, 1), np.float32)
     step_data["is_first"] = np.ones_like(step_data["terminated"])
-    player.init_states()
+    with params_whole():
+        player.init_states()
     # with the chunked scan every replay row also holds the player's
     # post-step state; rows without one (prefill, bookkeeping) hold zeros
     # and valid=0
@@ -958,7 +985,8 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
                 torch_obs = prepare_obs(stager, obs, cnn_keys, mlp_keys, num_envs)
                 # the mask_* observations feed MinedojoActor's masking
                 mask = {k: v for k, v in torch_obs.items() if k.startswith("mask")} or None
-                actions_t = player.get_actions(torch_obs, generator, mask=mask)
+                with params_whole():
+                    actions_t = player.get_actions(torch_obs, generator, mask=mask)
                 player_steps += 1
                 diag.note_fetch()  # the iteration's one blocking copy below
                 if use_device_buffer:
@@ -1052,7 +1080,8 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
             step_data["is_first"][:, dones_idxes] = 1
             reset_mask = np.zeros((num_envs, 1), np.float32)
             reset_mask[dones_idxes] = 1.0
-            player.init_states(torch.from_numpy(reset_mask).to(device))
+            with params_whole():
+                player.init_states(torch.from_numpy(reset_mask).to(device))
 
         # ---- or after the env step's rows reached the replay -------------
         if train_after_env_step:
@@ -1104,8 +1133,10 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
             with gathered_optimizers(optimizer_sets) as whole:
                 # optax's layout, so that the JAX package resumes it too
                 opt_states = nest({name: optax_state(opt, agent.optimizer_spec(name)) for name, opt in whole.items()})
+            with params_whole("cpu"):
+                trees = agent.trees()
             ckpt_state = {
-                **agent.trees(),
+                **trees,
                 "opt_states": opt_states,
                 **({"moments": moments_state} if moments_state else {}),
                 "ratio": ratio.state_dict(),
@@ -1126,17 +1157,19 @@ def _dreamer_main(runtime, cfg, build_agent_fn: Callable[..., Agent], make_train
 
     envs.close()
     test_reward, test_steps = None, 0
-    if cfg.algo.run_test:
-        if final_test_fn is None:
-            player.actor = getattr(agent, player_actor_fn(True))
-            test_reward, test_steps = test(player, cfg, log_dir, generator, greedy=False)
-        else:
-            test_reward, test_steps = final_test_fn(player, agent, cfg, log_dir, generator)
+    if runtime.is_global_zero and cfg.algo.run_test:
+        with params_whole():
+            if final_test_fn is None:
+                player.actor = getattr(agent, player_actor_fn(True))
+                test_reward, test_steps = test(player, cfg, log_dir, generator, greedy=False)
+            else:
+                test_reward, test_steps = final_test_fn(player, agent, cfg, log_dir, generator)
         logger.log_metrics({"Test/cumulative_reward": test_reward}, policy_step_count)
-    if register_models and not cfg.model_manager.get("disabled", True):
+    if register_models and runtime.is_global_zero and not cfg.model_manager.get("disabled", True):
         from sheeprl_tpu_torch.utils.mlflow import log_models
 
-        log_models(cfg, agent.trees(), log_dir)
+        with params_whole("cpu"):
+            log_models(cfg, agent.trees(), log_dir)
     logger.finalize()
     diag.close("completed")
     rows = np.asarray(metric_rows, np.float32).reshape(-1, len(metric_order) + len(health_out))

@@ -32,7 +32,8 @@ from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_lo
 from sheeprl_tpu_torch.algos.ppo.utils import env_actions_of, test
 from sheeprl_tpu_torch.diagnostics.health import health_names, health_spec, health_stats, unit_dim
 from sheeprl_tpu_torch.diagnostics.sentinel import finite_flag, select_finite, sentinel_spec, skip_update_guard
-from sheeprl_tpu_torch.parallel.dp import pmean_tree, replicas_equal, run_one, run_shards, shard_generators, stage
+from sheeprl_tpu_torch.parallel.dp import (agreed, pmean_tree, replicas_equal, run_one, run_shards, shard_generators,
+                                            stage)
 from sheeprl_tpu_torch.parallel.mesh import replicate
 from sheeprl_tpu_torch.parallel.precision import call_cast, cast_floating, compute_dtype_of
 from sheeprl_tpu_torch.utils.optim import clip_by_global_norm, global_norm
@@ -164,8 +165,8 @@ def make_train_step(agent: PPOAgent, optimizer: torch.optim.Optimizer, cfg, num_
                 total, aux = yield from loss_fn(mb, clip_coef, ent_coef, vf_coef)
                 grads = list(torch.autograd.grad(total, params))
                 grads, aux = yield from pmean_tree((grads, aux))
-                gnorm = global_norm(grads)
-                clipped = clip_by_global_norm(grads, max_grad_norm) if max_grad_norm > 0 else grads
+                gnorm = yield from agreed(global_norm(grads))
+                clipped = clip_by_global_norm(grads, max_grad_norm, gnorm) if max_grad_norm > 0 else grads
                 for p, g in zip(params, clipped):
                     p.grad = g
                 if health.enabled:
@@ -427,7 +428,12 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn,
     builds each one's update), hands shard d its block d of the rollout's
     rows (``family.shard``) and its own random stream, and runs the shards'
     updates in lockstep (``parallel/dp.py``); the rollout acts with shard
-    0's replica, and the checkpoint holds its state.
+    0's replica, and the checkpoint holds its state.  Over processes
+    (``fabric.num_nodes > 1``) each process rolls out its own envs (seeded
+    as the JAX loop seeds a rank) and cuts its rollout over its own shards,
+    whose update's collectives cross the processes; rank 0 archives the
+    config, logs, runs the test episode and the model registry, and every
+    rank writes its file of each coordinated checkpoint group.
     Returns what the run did: its counters, the metric rows of every
     iteration, the logged metrics, the checkpoints and the log dir."""
     from sheeprl_tpu_torch.config import instantiate
@@ -447,13 +453,15 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn,
     device, devices, world = runtime.device, runtime.devices, runtime.world_size
     num_envs = int(cfg.env.num_envs)
     total_local = int(cfg.algo.rollout_steps) * num_envs
-    family.shard_layout(cfg, world)
+    # each process cuts its own rollout over its own shards
+    family.shard_layout(cfg, len(devices))
 
     generator = runtime.seed_everything(cfg.seed)
     logger = get_logger(runtime, cfg)
     log_dir = get_log_dir(runtime, cfg.root_dir, cfg.run_name)
-    save_configs(cfg, log_dir)
-    logger.log_hyperparams(cfg.as_dict())
+    if runtime.is_global_zero:
+        save_configs(cfg, log_dir)
+        logger.log_hyperparams(cfg.as_dict())
     diag = get_diagnostics(runtime, cfg, log_dir)
     aggregator = instantiate(cfg.metric.aggregator)
     if cfg.metric.log_level == 0:
@@ -485,17 +493,17 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn,
         for replica, opt in zip(replicas, optimizers):
             opt.load_state_dict(optimizer_state_dict(state["opt_state"], opt, family.spec(replica)))
     optimizer = optimizers[0]
-    updates = [make_update_fn(replica, opt, cfg, total_iters, world_size=world)
+    updates = [make_update_fn(replica, opt, cfg, total_iters, world_size=len(devices))
                for replica, opt in zip(replicas, optimizers)]
-    generators = shard_generators(generator, cfg.seed, devices)
+    generators = shard_generators(generator, cfg.seed, devices, runtime.shard_offset)
 
     def dp_update(iter_num: int, data: Dict[str, Any], generator: torch.Generator) -> torch.Tensor:
         """The update over the shards, each on its block of ``data`` with its
         replica and random stream (shard 0's is ``generator``); shard 0's
         metrics, which are reduced over the shards."""
         blocks = family.shard(data, devices)
-        return run_shards([u.body(iter_num, block, g) for u, block, g in
-                           zip(updates, blocks, [generator, *generators[1:]])])[0]
+        streams = [generator, *generators[1:]] if runtime.shard_offset == 0 else generators
+        return run_shards([u.body(iter_num, block, g) for u, block, g in zip(updates, blocks, streams)])[0]
 
     for attr in ("metric_order", "health_names", "updates_per_iteration", "schedule"):
         setattr(dp_update, attr, getattr(updates[0], attr))
@@ -537,7 +545,7 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn,
             if shape_drill:
                 # pads rows the minibatch indexing never reads: the math is
                 # unchanged, the step's signature is new
-                data = diag.maybe_inject_shape_change(iter_num, data, pad=runtime.world_size)
+                data = diag.maybe_inject_shape_change(iter_num, data, pad=len(devices))
 
         # ---- the update: its device work ends inside the timer ------------
         # (between two CUDA events on the card, read at log time)
@@ -599,11 +607,11 @@ def _on_policy_main(runtime, cfg, build_agent_fn, make_update_fn,
 
     envs.close()
     test_reward = None
-    if cfg.algo.run_test:
+    if runtime.is_global_zero and cfg.algo.run_test:
         agent.eval()
         test_reward = family.test(agent, make_env(cfg, cfg.seed, 0, log_dir, "test")(), cfg, device, stager)
         logger.log_metrics({"Test/cumulative_reward": test_reward}, policy_step_count)
-    if family.registers_models and not cfg.model_manager.get("disabled", True):
+    if family.registers_models and runtime.is_global_zero and not cfg.model_manager.get("disabled", True):
         from sheeprl_tpu_torch.utils.mlflow import log_models
 
         log_models(cfg, {"agent": family.to_flax(agent)}, log_dir)

@@ -37,9 +37,9 @@ from sheeprl_tpu_torch.algos.ppo.ppo import OnPolicyFamily, _on_policy_main, lin
 from sheeprl_tpu_torch.algos.ppo_recurrent.agent import RecurrentPPOAgent, build_agent, prev_actions_of
 from sheeprl_tpu_torch.algos.ppo_recurrent.utils import test
 from sheeprl_tpu_torch.diagnostics.sentinel import finite_flag, sentinel_spec
-from sheeprl_tpu_torch.parallel.dp import pmean_tree, run_one, stage
+from sheeprl_tpu_torch.parallel.dp import agreed, pmean_tree, run_one, stage
 from sheeprl_tpu_torch.parallel.precision import call_cast, cast_floating, compute_dtype_of
-from sheeprl_tpu_torch.utils.optim import clip_by_global_norm
+from sheeprl_tpu_torch.utils.optim import clip_by_global_norm, global_norm
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 
 METRIC_ORDER = ["Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss"]
@@ -115,7 +115,9 @@ def make_train_step(agent: RecurrentPPOAgent, optimizer: torch.optim.Optimizer, 
                 total, aux = yield from loss_fn(mb, clip_coef, ent_coef, vf_coef)
                 grads = list(torch.autograd.grad(total, params))
                 grads, aux = yield from pmean_tree((grads, aux))
-                for p, g in zip(params, clip_by_global_norm(grads, max_grad_norm) if max_grad_norm > 0 else grads):
+                if max_grad_norm > 0:
+                    grads = clip_by_global_norm(grads, max_grad_norm, (yield from agreed(global_norm(grads))))
+                for p, g in zip(params, grads):
                     p.grad = g
                 if set_lr is not None:
                     set_lr()

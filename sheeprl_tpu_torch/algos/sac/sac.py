@@ -270,6 +270,7 @@ class SACFamily:
         # the data axis: one family per shard, each with its replica (this
         # one is shard 0's), and the shards' random streams
         self.shards: List["SACFamily"] = [self]
+        self.world_size = 1
         self.generators: Optional[List[torch.Generator]] = None
 
     def build(self, cfg, obs_space, action_space, state, device):
@@ -334,11 +335,15 @@ class SACFamily:
         other.shards = [other]
         return other.make_update()
 
-    def shard_over(self, devices: Sequence[torch.device], generator: torch.Generator, seed: int) -> "SACFamily":
-        """One replica per shard of ``devices`` (this family is shard 0's)
-        and the shards' random streams (:func:`~sheeprl_tpu_torch.parallel.dp.shard_generators`)."""
+    def shard_over(self, devices: Sequence[torch.device], generator: torch.Generator, seed: int,
+                   offset: int = 0, world_size: Optional[int] = None) -> "SACFamily":
+        """One replica per shard of ``devices``, this process's shards from
+        global shard ``offset`` of ``world_size`` (this family is its first
+        shard's), and the shards' random streams
+        (:func:`~sheeprl_tpu_torch.parallel.dp.shard_generators`)."""
         self.shards = [self] + [self.replica(d) for d in devices[1:]]
-        self.generators = shard_generators(generator, seed, devices)
+        self.generators = shard_generators(generator, seed, devices, offset)
+        self.world_size = int(world_size or len(devices))
         return self
 
     def dp_step(self, data: Dict[str, torch.Tensor], generator: torch.Generator) -> torch.Tensor:
@@ -381,7 +386,7 @@ class SACFamily:
     def train(self, rb, batch_size: int, gradient_steps: int, generator: torch.Generator, inject) -> torch.Tensor:
         """``gradient_steps`` steps on ``batch_size`` rows a shard: the
         global batch is drawn at once and cut over the shards."""
-        sample = rb.sample(batch_size=local_sample_size(batch_size * len(self.shards)), n_samples=gradient_steps,
+        sample = rb.sample(batch_size=local_sample_size(batch_size * self.world_size), n_samples=gradient_steps,
                            sample_next_obs=self.sample_next_obs())
         data = self.stager({k: np.asarray(sample[k], np.float32) for k in
                             ("observations", "next_observations", "actions", "rewards", "terminated")})
@@ -420,8 +425,10 @@ def off_policy_main(runtime, cfg, family_cls) -> Dict[str, Any]:
     envs step, on the transitions through the previous step, and after the
     write when the buffer was still empty.  ``checkpoint.resume_from`` (a
     file, resolved by ``cli.run``) restores the agent, the optimizers (either
-    package's state), the counters, the Ratio and the replay buffer.
-    Returns what the run did."""
+    package's state), the counters, the Ratio and the replay buffer.  Over
+    processes each steps its own envs, draws its ``1 / P`` of the global
+    batch from its own replay, and rank 0 alone archives the config, logs,
+    tests and registers.  Returns what the run did."""
     from sheeprl_tpu_torch.config import instantiate
     from sheeprl_tpu_torch.data.buffers import ReplayBuffer
     from sheeprl_tpu_torch.data.slab import step_slab
@@ -441,8 +448,9 @@ def off_policy_main(runtime, cfg, family_cls) -> Dict[str, Any]:
     generator = runtime.seed_everything(cfg.seed)
     logger = get_logger(runtime, cfg)
     log_dir = get_log_dir(runtime, cfg.root_dir, cfg.run_name)
-    save_configs(cfg, log_dir)
-    logger.log_hyperparams(cfg.as_dict())
+    if runtime.is_global_zero:
+        save_configs(cfg, log_dir)
+        logger.log_hyperparams(cfg.as_dict())
     diag = get_diagnostics(runtime, cfg, log_dir)
     aggregator = instantiate(cfg.metric.aggregator)
     if cfg.metric.log_level == 0:
@@ -461,12 +469,12 @@ def off_policy_main(runtime, cfg, family_cls) -> Dict[str, Any]:
     state = runtime.load(resume_from) if resume_from else None
     family = family_cls(cfg, observation_space, action_space, state, device).make_update()
     family.stager = ObsStager(device)
-    family.shard_over(runtime.devices, generator, cfg.seed)
+    family.shard_over(runtime.devices, generator, cfg.seed, runtime.shard_offset, runtime.world_size)
     family.step = diag.instrument("train_step", family.step, kind="train")
     family.act = diag.instrument("policy_step", family.act, kind="rollout")
     metric_order, health_out = family.metric_order, family.health_names
     n_losses = len(metric_order)
-    world = len(family.shards)
+    world = runtime.world_size
     diag.register_footprint("params", [m for shard in family.shards for m in shard.modules()])
     diag.register_footprint("opt_state", [o for shard in family.shards for o in shard.optimizers.values()])
     diag.register_shards(runtime.devices, {"params": [shard.modules() for shard in family.shards],
@@ -611,10 +619,10 @@ def off_policy_main(runtime, cfg, family_cls) -> Dict[str, Any]:
 
     envs.close()
     test_reward = None
-    if cfg.algo.run_test:
+    if runtime.is_global_zero and cfg.algo.run_test:
         test_reward = family.test(make_env(cfg, cfg.seed, 0, log_dir, "test")(), cfg)
         logger.log_metrics({"Test/cumulative_reward": test_reward}, policy_step_count)
-    if family.registers_models and not cfg.model_manager.get("disabled", True):
+    if family.registers_models and runtime.is_global_zero and not cfg.model_manager.get("disabled", True):
         from sheeprl_tpu_torch.utils.mlflow import log_models
 
         log_models(cfg, {"agent": family.trees()}, log_dir)

@@ -131,6 +131,7 @@ def check_configs(cfg: dotdict) -> None:
     if cfg.metric.log_level not in (0, 1):
         raise ValueError(f"metric.log_level must be 0 or 1, got {cfg.metric.log_level}")
     _check_fsdp(cfg)
+    _check_processes(cfg, entry["decoupled"])
     _check_offline(cfg)
     _check_diagnostics(cfg)
     _check_resilience(cfg)
@@ -264,6 +265,31 @@ def _check_fsdp(cfg: dotdict) -> None:
         n_dev = int(n_dev)
     if isinstance(n_dev, int) and n_dev > 0 and n_dev % fsdp != 0:
         raise ValueError(f"distribution.fsdp_axis_size ({fsdp}) must divide fabric.devices ({n_dev})")
+
+
+def _check_processes(cfg: dotdict, decoupled: bool) -> None:
+    """What a run over more than one process (``fabric.num_nodes > 1`` with
+    torchrun's variables, or a caller's ``torch.distributed`` group) does
+    not port yet, refused by name with its ROADMAP item: FSDP
+    (``fabric.fsdp > 1``), the decoupled loops, and the replay ring on the
+    device (``buffer.device=True``)."""
+    from sheeprl_tpu_torch.parallel.runtime import processes_for
+
+    processes = processes_for(cfg.fabric.get("num_nodes", 1))
+    if processes <= 1:
+        return
+    fsdp = int(cfg.fabric.get("fsdp", 1) or 1)
+    if fsdp > 1:
+        raise NotImplementedError(f"fabric.fsdp={fsdp} over {processes} processes: FSDP across processes is not "
+                                  "ported yet: see ROADMAP.md Queue 1, Parallel: FSDP across processes")
+    if decoupled:
+        raise NotImplementedError(f"exp={cfg.algo.name} over {processes} processes: the decoupled loops across "
+                                  "processes are not ported yet: see ROADMAP.md Queue 1, Parallel: decoupled "
+                                  "across processes")
+    if bool((cfg.get("buffer") or {}).get("device", False)):
+        raise NotImplementedError(f"buffer.device=True over {processes} processes: the device replay ring across "
+                                  "processes is not ported yet: see ROADMAP.md Queue 1, Parallel: device replay "
+                                  "across processes")
 
 
 def _check_rssm_chunks(cfg: dotdict) -> None:

@@ -130,24 +130,30 @@ class Diagnostics:
         self._closed = False
 
     # -- lifecycle ---------------------------------------------------------
-    def open(self, log_dir: str, device: Any = None) -> "Diagnostics":
+    def open(self, log_dir: str, device: Any = None, rank: int = 0) -> "Diagnostics":
         """Open every pillar inside ``log_dir`` (idempotent); ``device`` is
-        the run's (the MFU peak and the device-memory source)."""
+        the run's (the MFU peak and the device-memory source), ``rank`` its
+        process's.  The journal and the endpoint are rank 0's; the tracer
+        runs on every rank with ``trace.all_ranks`` (a non-zero rank writes
+        ``trace_rank<r>.json``, never an explicit ``trace.path``, which every
+        rank would open), the telemetry accounting everywhere."""
         if not self.enabled or self.log_dir is not None:
             return self
         self.log_dir = str(log_dir)
         self.run_id = run_id_of(self.log_dir)
         self.device = device
-        if self._trace_cfg.get("enabled", False):
+        rank_zero = int(rank) == 0
+        if self._trace_cfg.get("enabled", False) and (rank_zero or self._trace_cfg.get("all_ranks", True)):
             self.tracer = PhaseTracer(
-                self._trace_cfg.get("path") or os.path.join(self.log_dir, TRACE_NAME),
-                pid=0,
+                (self._trace_cfg.get("path") or os.path.join(self.log_dir, TRACE_NAME)) if rank_zero
+                else os.path.join(self.log_dir, f"trace_rank{int(rank)}.json"),
+                pid=int(rank),
                 max_events=self._trace_cfg.get("max_events"),
                 rotate_keep=int(self._trace_cfg.get("rotate_keep", 2)),
                 run_id=self.run_id,
                 role=self.role,
             )
-        if self._journal_cfg.get("enabled", True):
+        if rank_zero and self._journal_cfg.get("enabled", True):
             self.journal = RunJournal(
                 os.path.join(self.log_dir, JOURNAL_NAME),
                 fsync_every=int(self._journal_cfg.get("fsync_every", 1)),
@@ -199,7 +205,7 @@ class Diagnostics:
             )
             if self.goodput is not None:
                 self.telemetry._goodput = self.goodput
-            if self.telemetry.http_enabled:
+            if self.telemetry.http_enabled and rank_zero:
                 self._start_metrics_server()
         return self
 
@@ -434,13 +440,14 @@ class Diagnostics:
         self.tracer.instant("checkpoint", step=step)
 
     # -- resilience hooks ----------------------------------------------------
-    def save_checkpoint(self, path: str, state: Mapping[str, Any]) -> bool:
+    def save_checkpoint(self, path: str, state: Mapping[str, Any], group: Optional[Mapping[str, Any]] = None) -> bool:
         """Route one save through the resilience layer (async writer or
-        blocking with journaling; a manifest either way).  False when the
-        layer is off or unopened: ``Runtime.save`` then saves itself."""
+        blocking with journaling; a manifest either way, with ``group``, a
+        coordinated save's group record).  False when the layer is off or
+        unopened: ``Runtime.save`` then saves itself."""
         if self.resilience is None or not self.resilience._opened:
             return False
-        self.resilience.save(path, state)
+        self.resilience.save(path, state, group=group)
         return True
 
     # -- fault isolation hooks (the decoupled loops' fence and rollback) -----

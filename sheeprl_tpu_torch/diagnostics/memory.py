@@ -31,12 +31,12 @@
   the dispatch's batch blocks with their devices; replicated leaves of at
   least ``diagnostics.memory.replicated_warn_bytes`` are flagged when the
   data axis has more than one shard.  Under FSDP (armed by the facade's
-  ``on_fsdp_shard_map``: ``note_fsdp``) a model shard's optimizer slices
-  count at their own bytes, leaves under the floor are exempt, and the
-  parameters, which every shard holds whole, stay flagged with a hint that
-  says so; ``Telemetry/fsdp_axis_size`` and
-  ``Telemetry/params_bytes_per_device`` (the parameter bytes a shard holds)
-  join the interval's gauges.  The summary carries its digest.  The
+  ``on_fsdp_shard_map``: ``note_fsdp``) a model shard's slices (the
+  parameters its modules hold between steps, the optimizer state) count at
+  their own bytes, leaves under the floor are exempt, and what stays
+  replicated is flagged; ``Telemetry/fsdp_axis_size`` and
+  ``Telemetry/params_bytes_per_device`` (the parameter bytes a shard holds:
+  the rule's) join the interval's gauges.  The summary carries its digest.  The
   JAX package's donation audit has no eager counterpart (no buffer is
   donated): ``memory_breakdown`` and ``memory_summary`` say it did not run.
 """
@@ -144,15 +144,13 @@ def sharding_table(devices: List[Any], replicated: Mapping[str, List[Any]], batc
     of at least ``replicated_warn_bytes`` when there is more than one
     shard.
 
-    Under FSDP (``fsdp_axis_size > 1``) an optimizer state tensor that is a
-    model shard's slice counts at its own bytes on each shard, not
-    replicated; the parameters are whole on every shard (each shard's
-    modules hold them at rest and for its step: the port slices only the
-    optimizer state).  The flag then names the replicated leaves of at
-    least ``fsdp_min_shard_bytes`` (a smaller leaf is replicated on
-    purpose): those the rule cannot cut (no dimension divisible by the
-    axis), with the JAX package's hint, and those it would cut that the
-    port keeps whole, with a hint naming that design."""
+    Under FSDP (``fsdp_axis_size > 1``) a tensor that is a model shard's
+    slice (a parameter the shard's modules hold cut between steps, its
+    optimizer state) counts at its own bytes on each shard, not
+    replicated.  The flag then names the replicated leaves of at least
+    ``fsdp_min_shard_bytes`` (a smaller leaf is replicated on purpose),
+    which the rule cannot cut (no dimension divisible by the axis), with
+    the JAX package's hint."""
     from sheeprl_tpu_torch.parallel.fsdp import shard_axis, sliced_state_ids
 
     n = len(devices)
@@ -202,10 +200,6 @@ def sharding_table(devices: List[Any], replicated: Mapping[str, List[Any]], batc
             hints.append(f"replicated leaves >= distribution.fsdp_min_shard_bytes under "
                          f"fsdp_axis_size={int(fsdp_axis_size)}: no dimension is divisible by the model axis "
                          "— consider padding the layer width or lowering the axis size (howto/sharding.md)")
-        if any(r.get("rule_axis") is not None for r in flagged):
-            hints.append("parameters the rule would cut, kept whole on every shard: the port's FSDP slices only "
-                         "the optimizer state (parameters and gradients are whole on each shard, at rest and in "
-                         "the step)")
         if hints:
             out["hint"] = "; ".join(hints)
     for r in rows:
@@ -375,9 +369,8 @@ class MemoryMonitor:
         """Arm the FSDP accounting (the facade's ``on_fsdp_shard_map``): the
         ``Telemetry/fsdp_axis_size`` and ``Telemetry/params_bytes_per_device``
         gauges, and the sharding audit's ``min_shard_bytes`` exemption.  The
-        bytes gauge reads what a shard holds (the summary's
-        ``held_bytes_per_device``: the parameters whole), not the rule's
-        ``bytes_per_device``, the layout of a checkpoint group."""
+        bytes gauge reads what a shard holds between steps (the summary's
+        ``held_bytes_per_device``), the rule's ``bytes_per_device``."""
         if not self.enabled:
             return
         held = summary.get("held_bytes_per_device") or {}

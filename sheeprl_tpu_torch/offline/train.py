@@ -75,8 +75,9 @@ def _open_run(runtime, cfg):
     offline = cfg.algo.get("offline") or {}
     logger = get_logger(runtime, cfg)
     log_dir = get_log_dir(runtime, cfg.root_dir, cfg.run_name)
-    save_configs(cfg, log_dir)
-    logger.log_hyperparams(cfg.as_dict())
+    if runtime.is_global_zero:
+        save_configs(cfg, log_dir)
+        logger.log_hyperparams(cfg.as_dict())
     diag = get_diagnostics(runtime, cfg, log_dir)
     dataset = OfflineDataset(str(offline.get("dataset_dir")), deep_verify=bool(offline.get("deep_verify", True)))
     # one journaled record per torn or corrupt shard, then the open summary:
@@ -220,7 +221,7 @@ def _offline_flat(runtime, cfg) -> Dict[str, Any]:
         from sheeprl_tpu_torch.algos.sac.sac import SACFamily as family_cls
     family = family_cls(cfg, obs_space, action_space, state, device).make_update()
     # one replica a shard, each with its random stream (shard 0's is the run's)
-    family.shard_over(runtime.devices, generator, cfg.seed)
+    family.shard_over(runtime.devices, generator, cfg.seed, runtime.shard_offset, runtime.world_size)
     update = diag.instrument("train_step", family.step, kind="train")
     metric_order, health_out = family.metric_order, family.health_names
     n_losses = len(metric_order)
@@ -303,7 +304,7 @@ def _offline_flat(runtime, cfg) -> Dict[str, Any]:
                 "policy_step": policy_step_count,
                 "last_log": last_log,
                 "last_checkpoint": last_checkpoint,
-                "batch_size": batch_rows,  # the global batch
+                "batch_size": int(cfg.algo.per_rank_batch_size) * runtime.world_size,  # the global batch
             }
             checkpoints.append(_save_offline_checkpoint(runtime, diag, log_dir, ckpt_state, policy_step_count,
                                                         iter_num, preempt_now))
@@ -474,7 +475,7 @@ def _offline_dreamer(runtime, cfg) -> Dict[str, Any]:
                 "offline": True,  # the counters below count gradient steps
                 "iter_num": iter_num,
                 "policy_step": policy_step_count,
-                "batch_size": batch_cols,  # the global batch
+                "batch_size": int(cfg.algo.per_rank_batch_size) * runtime.world_size,  # the global batch
                 "last_log": last_log,
                 "last_checkpoint": last_checkpoint,
             }

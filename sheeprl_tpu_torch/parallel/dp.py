@@ -18,18 +18,40 @@ collective with the same value on each shard:
   equal.
 - ``gather``: the shards' tensors stacked on a new leading axis on shard 0's
   device, a copy to each shard.
+- ``first``: shard 0's tensor, a copy to each shard (:func:`agreed`: the
+  clip's norm, so that a card's float reduction, which can round the same
+  reduced gradient apart from one call to the next, cannot part the
+  replicas).
 
 Under FSDP (``fabric.fsdp > 1``, ``parallel/fsdp.py``) the shards also sit
-on a model axis, and an optimizer cut by ``fsdp.shard_optimizer`` steps its
+on a model axis, and between steps each shard's modules hold only their
+model index's slices of the parameters the rule cuts.  A step body runs
+under :func:`holding_whole`: it begins with a ``model_gather`` of those
+parameters whole into the shard's modules and ends by cutting them back to
+the shard's slices.  An optimizer cut by ``fsdp.shard_optimizer`` steps its
 model shard's slices: :func:`reduce_gradients` answers with the mean over
 all N shards, each model shard keeping its slice (``reduce_scatter``);
 :func:`gradient_norm` sums the slices' squares over the model axis
 (``model_sum``), so the clip and the ``Grads/*`` norms see the whole
-gradient; :func:`apply_update` steps the slices and gathers every sliced
-parameter back into each shard's modules (``model_gather``).  That step is
-global-view, as the JAX FSDP step is: with :func:`global_streams` every
-draw is the one-device step's draw on the global batch, cut into the
-shards' blocks.
+gradient; :func:`apply_update` steps the slices and gathers the updated
+ones whole again for the rest of the step (``model_gather``), which reads
+them (the DreamerV3 family's behaviour learning runs on the world model
+as just updated, as the JAX step's imagination reads its updated, sharded
+world model).  That step is global-view, as the JAX FSDP step is: with
+:func:`global_streams` every draw is the one-device step's draw on the
+global batch, cut into the shards' blocks.
+
+Over processes (``fabric.num_nodes > 1``, ``parallel/runtime.py``) each
+process drives its own shards, and :func:`run_shards` answers ``pmean``,
+``gather`` and ``first`` across them: every process's operands travel as host bytes
+through the gloo group (one ``all_gather`` of their packed bytes a
+collective), and each process then computes the collective in global shard
+order on its first shard's device, exactly as one process computes it over
+all the shards.  So every rank's replicas hold the same bytes, which are
+the bytes of the one-process run with the same global shard count.  That
+moves every operand to every process (N times a ring all-reduce's bytes);
+FSDP's collectives stay within one process (``fabric.fsdp > 1`` over
+processes is refused).
 
 With one shard every collective returns its operand as it is: the one-device
 step runs the same body.  The reductions are plain copies and sums, as the
@@ -53,10 +75,10 @@ import numpy as np
 import torch
 from torch.utils import _pytree as pytree
 
-__all__ = ["Collective", "GlobalStream", "all_gather_cat", "apply_update", "body_of", "copy_state_", "draw",
-           "fold_seed", "global_streams", "gradient_norm", "local_sample_size", "pmean_tree", "prefetch_staged",
-           "reduce_gradients", "replicas_equal", "run_shards", "shard_generators", "split", "stage", "state_tensors",
-           "train_batches", "whole_gradients"]
+__all__ = ["Collective", "GlobalStream", "agreed", "all_gather_cat", "apply_update", "body_of", "copy_state_",
+           "draw", "fold_seed", "global_streams", "gradient_norm", "holding_whole", "local_sample_size",
+           "pmean_tree", "prefetch_staged", "process_count", "reduce_gradients", "replicas_equal", "run_shards",
+           "shard_generators", "split", "stage", "state_tensors", "train_batches", "whole_gradients"]
 
 
 class Collective(NamedTuple):
@@ -103,6 +125,20 @@ def _gather(values: List[torch.Tensor]) -> List[torch.Tensor]:
     root = values[0].device
     stacked = torch.stack([v.detach().to(root) for v in values])
     return [stacked] + [stacked.to(v.device, copy=True) for v in values[1:]]
+
+
+def agreed(x: torch.Tensor) -> Generator[Collective, Any, torch.Tensor]:
+    """``x`` as global shard 0 holds it, on every shard: ``x = yield from
+    agreed(x)`` for a value each shard computes alike from reduced operands
+    and the update then reads (a gradient's global norm, which sets the
+    clip).  A card's float reduction may round the same operands apart from
+    one call to the next, which would part the replicas; with one shard
+    ``x`` itself."""
+    return (yield Collective("first", x))
+
+
+def _first(values: List[torch.Tensor]) -> List[torch.Tensor]:
+    return [values[0]] + [values[0].detach().to(v.device, copy=True) for v in values[1:]]
 
 
 def _model_groups(n: int, size: int) -> List[range]:
@@ -174,8 +210,64 @@ def _model_gather(trees: List[Any]) -> List[Any]:
     return out
 
 
-_COLLECTIVES = {"pmean": _pmean, "gather": _gather, "reduce_scatter": _reduce_scatter, "model_sum": _model_sum,
-                "model_gather": _model_gather}
+_COLLECTIVES = {"pmean": _pmean, "gather": _gather, "first": _first, "reduce_scatter": _reduce_scatter,
+                "model_sum": _model_sum, "model_gather": _model_gather}
+
+
+def process_count() -> int:
+    """The processes of the run's ``torch.distributed`` group (1 without
+    one)."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def _pack(leaves: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The leaves' bytes on the host, one flat ``uint8`` tensor."""
+    if not leaves:
+        return torch.zeros(0, dtype=torch.uint8)
+    return torch.cat([t.detach().to("cpu").contiguous().reshape(-1).view(torch.uint8) for t in leaves])
+
+
+def _unpack(buf: torch.Tensor, like: Sequence[torch.Tensor], device: torch.device) -> List[torch.Tensor]:
+    """Tensors shaped and typed as ``like`` from ``_pack``'s bytes, on
+    ``device``."""
+    out, offset = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        out.append(buf[offset:offset + n].clone().view(t.dtype).reshape(t.shape).to(device))
+        offset += n
+    return out
+
+
+def _across_processes(op: str, trees: List[Any], processes: int) -> List[Any]:
+    """The collective ``op`` over every process's shards (``trees``: this
+    process's operands, in local shard order): each process's operands
+    gathered as host bytes, then computed in global shard order on this
+    process's first shard's device, its own shards' results returned."""
+    import torch.distributed as dist
+
+    if op not in ("pmean", "gather", "first"):
+        raise NotImplementedError(f"the {op!r} collective over {processes} processes is not ported "
+                                  "(fabric.fsdp > 1 across processes: see ROADMAP.md Queue 1)")
+    flat = [pytree.tree_flatten(t) for t in trees]
+    leaves = [leaf for f in flat for leaf in f[0]]
+    if not all(isinstance(leaf, torch.Tensor) for leaf in leaves):
+        raise TypeError(f"a {op!r} operand over processes holds tensors only")
+    mine = _pack(leaves)
+    bufs = [torch.empty_like(mine) for _ in range(processes)]
+    dist.all_gather(bufs, mine)
+    rank, local, root = dist.get_rank(), len(trees), leaves[0].device
+    global_trees: List[Any] = []
+    for r, buf in enumerate(bufs):
+        if r == rank:
+            global_trees.extend(trees)
+            continue
+        remote = iter(_unpack(buf, leaves, root))
+        global_trees.extend(pytree.tree_unflatten([next(remote) for _ in f[0]], f[1]) for f in flat)
+    # the collective sends each shard's result to its operand's device: this
+    # process's shards' own devices
+    return _COLLECTIVES[op](global_trees)[rank * local:(rank + 1) * local]
 
 
 def run_shards(bodies: Sequence[Generator[Collective, Any, Any]]) -> List[Any]:
@@ -183,7 +275,9 @@ def run_shards(bodies: Sequence[Generator[Collective, Any, Any]]) -> List[Any]:
     collective (in shard order), the collective is computed over all of
     them, and each resumes with its shard's result.  Returns every shard's
     return value.  The shards must reach the same collectives in the same
-    order and return together."""
+    order and return together; over processes every process's shards must,
+    and the collectives cross them (:func:`_across_processes`)."""
+    processes = process_count()
     bodies = list(bodies)
     sends: List[Any] = [None] * len(bodies)
     while True:
@@ -202,7 +296,8 @@ def run_shards(bodies: Sequence[Generator[Collective, Any, Any]]) -> List[Any]:
         ops = {r.op for r in requests}
         if len(ops) != 1:
             raise RuntimeError(f"the shards reached different collectives: {sorted(ops)}")
-        sends = _COLLECTIVES[requests[0].op]([r.tree for r in requests])
+        op, trees = requests[0].op, [r.tree for r in requests]
+        sends = _COLLECTIVES[op](trees) if processes == 1 else _across_processes(op, trees, processes)
 
 
 def reduce_gradients(grads: Sequence[torch.Tensor], optimizer: Any) -> Generator[Collective, Any, List[Any]]:
@@ -221,22 +316,22 @@ def reduce_gradients(grads: Sequence[torch.Tensor], optimizer: Any) -> Generator
 def gradient_norm(grads: Sequence[torch.Tensor], optimizer: Any,
                   keep: Optional[Sequence[bool]] = None) -> Generator[Collective, Any, torch.Tensor]:
     """The global norm of the reduced gradient (``optax.global_norm``), of
-    the leaves ``keep`` marks (all by default).  Under FSDP the squares of
-    the shard's slices are summed over the model axis and the whole leaves
-    counted once, so every model shard holds the norm of the whole
-    gradient."""
+    the leaves ``keep`` marks (all by default), global shard 0's on every
+    shard (:func:`agreed`).  Under FSDP the squares of the shard's slices are
+    summed over the model axis and the whole leaves counted once, so every
+    model shard holds the norm of the whole gradient."""
     from sheeprl_tpu_torch.parallel.fsdp import layout_of
     from sheeprl_tpu_torch.utils.optim import global_norm
 
     layout = layout_of(optimizer)
     keep = [True] * len(grads) if keep is None else list(keep)
     if layout is None:
-        return global_norm([g for g, k in zip(grads, keep) if k])
+        return (yield from agreed(global_norm([g for g, k in zip(grads, keep) if k])))
     sliced = [(g.float() ** 2).sum() for g, a, k in zip(grads, layout.axes, keep) if k and a is not None]
     whole = [(g.float() ** 2).sum() for g, a, k in zip(grads, layout.axes, keep) if k and a is None]
     part = sum(sliced) if sliced else torch.zeros((), device=grads[0].device)
     total = yield Collective("model_sum", (part, layout.size))
-    return torch.sqrt(total + sum(whole)) if whole else torch.sqrt(total)
+    return (yield from agreed(torch.sqrt(total + sum(whole)) if whole else torch.sqrt(total)))
 
 
 def whole_gradients(grads: Sequence[torch.Tensor], optimizer: Any) -> Generator[Collective, Any, List[Any]]:
@@ -257,8 +352,10 @@ def apply_update(optimizer: Any, grads: Sequence[torch.Tensor], clip: float,
     global norm of the whole gradient (:func:`gradient_norm`; optax's
     ``chain(clip_by_global_norm(clip), ...)``).  The optimizer steps what
     its groups hold: the parameters, or under FSDP this model shard's
-    slices of them, after which every sliced parameter is gathered back
-    whole into the shard's modules (``model_gather``)."""
+    slices of them (their rests), after which the step's whole copies of
+    the sliced parameters are gathered from the updated slices
+    (``model_gather``) for the rest of the step; :func:`holding_whole` cuts
+    them back to the slices when the step ends."""
     from sheeprl_tpu_torch.parallel.fsdp import layout_of
 
     views = [v for group in optimizer.param_groups for v in group["params"]]
@@ -275,6 +372,27 @@ def apply_update(optimizer: Any, grads: Sequence[torch.Tensor], clip: float,
         for p, whole, axis in zip(layout.params, joined, layout.axes):
             if axis is not None:
                 p.copy_(whole)
+
+
+def holding_whole(body: Generator[Collective, Any, Any], params: Sequence[torch.Tensor]
+                  ) -> Generator[Collective, Any, Any]:
+    """``body`` (a shard's step) with ``params``, the parameters of the
+    shard's modules that FSDP cuts (``fsdp.shard_params``), whole for its
+    length: a ``model_gather`` of their rests at its start, each one cut
+    back to its rest at its end (``fsdp.release_params``, which keeps what
+    the step wrote).  Without cut parameters (one device, the data axis)
+    the body itself."""
+    from sheeprl_tpu_torch.parallel.fsdp import release_params, rest_of
+
+    if not params:
+        return (yield from body)
+    rests = [rest_of(p) for p in params]
+    joined = yield Collective("model_gather", ([r.tensor for r in rests], [r.axis for r in rests], rests[0].size))
+    for p, whole in zip(params, joined):
+        p.data = whole
+    out = yield from body
+    release_params(params)
+    return out
 
 
 class GlobalStream:
@@ -357,21 +475,28 @@ def fold_seed(seed: int, shard: int) -> int:
     return int(np.random.SeedSequence([int(seed), int(shard)]).generate_state(1, dtype=np.uint64)[0] >> 1)
 
 
-def shard_generators(generator: torch.Generator, seed: int, devices: Sequence[torch.device]) -> List[torch.Generator]:
-    """One random stream per shard: shard 0 draws from the run's
-    ``generator`` (so one shard draws what the one-device run draws), shard
-    i from a generator on its device seeded with :func:`fold_seed`."""
-    return [generator] + [torch.Generator(device=d).manual_seed(fold_seed(seed, i))
-                          for i, d in enumerate(devices) if i > 0]
+def shard_generators(generator: torch.Generator, seed: int, devices: Sequence[torch.device],
+                     offset: int = 0) -> List[torch.Generator]:
+    """One random stream per shard of this process (``devices``, global
+    shards ``offset, offset + 1, ...``): global shard 0 draws from the run's
+    ``generator`` (so one shard draws what the one-device run draws),
+    global shard g from a generator on its device seeded with
+    :func:`fold_seed` of g."""
+    return [generator if offset + i == 0 else torch.Generator(device=d).manual_seed(fold_seed(seed, offset + i))
+            for i, d in enumerate(devices)]
 
 
 def local_sample_size(global_batch: int) -> int:
     """Rows this process draws from its replay buffer so that the trained
-    global batch is ``global_batch``: all of them, as one process drives
-    every shard (the JAX function with ``process_count() == 1``, host or
-    device-resident replay alike).  The loops draw through it so that the
-    multi-host slice divides by the process count in one place."""
-    return int(global_batch)
+    global batch is ``global_batch``: ``global_batch / process count`` (the
+    JAX function), every row with one process (host or device-resident
+    replay alike; the device ring is one process's, ``buffer.device=True``
+    over processes being refused).  Raises where the count does not
+    divide."""
+    n = process_count()
+    if int(global_batch) % n != 0:
+        raise ValueError(f"global batch ({global_batch}) must be divisible by the process count ({n})")
+    return int(global_batch) // n
 
 
 def split(tree: Any, n: int, axis: int = 0) -> List[Any]:

@@ -11,22 +11,25 @@ they never disagree about a leaf.
 
 The port's placement (one process drives the N shards, ``parallel/dp.py``):
 shard d sits at ``(d // fsdp, d % fsdp)`` of the ``(N // fsdp, fsdp)``
-layout (``parallel/mesh.py``).  Each shard's optimizer is
-:func:`shard_optimizer`'s: the same optimizer over the slices the rule gives
-its model index, with its state (Adam's moments) held sliced; the step
-counter and the leaves the rule replicates stay whole.  In memory a slice
-is cut from the torch leaf (``Linear`` ``[out, in]``, ``Conv`` OIHW): the
-set of divisible dimensions is the flax layout's, so the counts and the
-per-shard bytes are the JAX summary's.  The modules hold each parameter
-whole, at rest and for the step (gathered from the model shards after every
-update), so the player acts with the whole parameters: only the optimizer
-state is sharded, and :func:`shard_map_summary`'s parameter bytes per
-device are the rule's layout (a checkpoint group's), not what a shard holds
-in memory (the whole parameters, ``held_bytes_per_device`` in the
-``fsdp_shard_map`` event).  A checkpoint gathers the
-optimizer state on the host (:func:`gathered_optimizers`) into the tree the
-port writes, and the sharded writer slices that tree in its flax layout,
-as the JAX writer slices its own."""
+layout (``parallel/mesh.py``).  Between steps each shard's modules hold,
+of every parameter the rule cuts, only its model index's slice (ZeRO-3, the
+JAX ``shard_tree`` placement): :func:`shard_params` gives each such
+parameter its *rest*, a slice of its own storage, and
+:func:`release_params` makes the parameter hold it.  A step gathers them
+whole for its length (``parallel/dp.py::holding_whole``: a ``model_gather``
+at its start, the rests cut again from the whole at its end), as the JAX
+step's forward is global-view; the player and a checkpoint read them whole
+through :func:`whole_params`, a transient join of the model shards' rests.
+Each shard's optimizer is :func:`shard_optimizer`'s: the same optimizer
+over the rests (the whole leaves themselves), its state (Adam's moments)
+held sliced; the step counter and the leaves the rule replicates stay
+whole.  In memory a slice is cut from the torch leaf (``Linear`` ``[out,
+in]``, ``Conv`` OIHW): the set of divisible dimensions is the flax
+layout's, so the counts and the per-shard bytes are the JAX summary's
+(:func:`tree_bytes_per_device`).  A checkpoint joins the rests on the host
+(:func:`whole_params` onto the CPU, :func:`gathered_optimizers`) into the
+tree the port writes, and the sharded writer slices that tree in its flax
+layout, as the JAX writer slices its own."""
 
 from __future__ import annotations
 
@@ -139,16 +142,103 @@ def shard_map_summary(trees: Mapping[str, Any], axis_size: int,
 
 class Layout(NamedTuple):
     """A sliced optimizer's place on the model axis (``optimizer.fsdp``):
-    the whole parameters of the modules (what the step differentiates),
-    each one's rule axis (None: whole on every shard), this shard's model
-    index, the axis's extent, and the optimizer it was cut from (which
-    keeps no state: :func:`gathered_optimizers` fills it for a checkpoint)."""
+    the module parameters it trains (what the step differentiates, whole
+    for the step), each one's rule axis (None: whole on every shard), this
+    shard's model index, the axis's extent, and the optimizer it was cut
+    from (which keeps no state: :func:`gathered_optimizers` fills it for a
+    checkpoint)."""
 
     params: List[Any]
     axes: List[Optional[int]]
     index: int
     size: int
     template: Any
+
+
+class Rest(NamedTuple):
+    """What a cut parameter holds between steps: model shard ``index``'s
+    slice of it along ``axis`` (of ``size``), a tensor of its own that the
+    shard's optimizer steps."""
+
+    tensor: Any
+    axis: int
+    index: int
+    size: int
+
+
+_rests: Any = None  # parameter -> Rest, by identity (torch's WeakIdKeyDictionary, made at first use)
+
+
+def _registry() -> Any:
+    global _rests
+    if _rests is None:
+        from torch.utils.weak import WeakIdKeyDictionary
+
+        _rests = WeakIdKeyDictionary()
+    return _rests
+
+
+def rest_of(param: Any) -> Optional[Rest]:
+    """The :class:`Rest` of a parameter :func:`shard_params` cut, else None."""
+    return _registry().get(param)
+
+
+def shard_params(params: Sequence[Any], index: int, size: int, min_shard_bytes: Optional[int] = None) -> List[Any]:
+    """The parameters of ``params`` (whole at the call) that the rule cuts,
+    each once, in order: each given its :class:`Rest`, a copy of model
+    shard ``index``'s slice.  They stay whole until :func:`release_params`;
+    a parameter cut before keeps its rest."""
+    registry, out, seen = _registry(), [], set()
+    for p in params:
+        if id(p) in seen:
+            continue
+        seen.add(id(p))
+        if p in registry:
+            out.append(p)
+            continue
+        axis = shard_axis(tuple(p.shape), p.dtype, size, min_shard_bytes)
+        if axis is not None:
+            registry[p] = Rest(leaf_slice(p.detach(), axis, index, size).clone(), axis, index, size)
+            out.append(p)
+    return out
+
+
+def release_params(params: Sequence[Any]) -> None:
+    """Each cut parameter holds its rest again: the rest is first cut from
+    what the parameter holds whole (the step's updates, a Polyak or EMA
+    target's included), then the parameter's data becomes it."""
+    import torch
+
+    registry = _registry()
+    with torch.no_grad():
+        for p in params:
+            rest = registry[p]
+            if p.shape != rest.tensor.shape:
+                rest.tensor.copy_(leaf_slice(p.detach(), rest.axis, rest.index, rest.size))
+            p.data = rest.tensor
+
+
+@contextlib.contextmanager
+def whole_params(row: Sequence[Sequence[Any]], device: Any = None) -> Iterator[None]:
+    """The first model shard's cut parameters (``row[0]``) whole for the
+    block, joined from the model shards' rests (``row[m]``: model shard m's
+    cut parameters, in the same order) on ``device`` (each parameter's own
+    by default): the player's transient gather, and onto the CPU a
+    checkpoint's.  They hold their rests again after it."""
+    import torch
+
+    first = list(row[0]) if row else []
+    registry = _registry()
+    with torch.no_grad():
+        for i, p in enumerate(first):
+            rest = registry[p]
+            target = rest.tensor.device if device is None else torch.device(device)
+            p.data = torch.cat([registry[shard[i]].tensor.to(target) for shard in row], dim=rest.axis)
+    try:
+        yield
+    finally:
+        for p in first:
+            p.data = registry[p].tensor
 
 
 def layout_of(optimizer: Any) -> Optional[Layout]:
@@ -158,24 +248,26 @@ def layout_of(optimizer: Any) -> Optional[Layout]:
 
 def shard_optimizer(optimizer: Any, index: int, size: int, min_shard_bytes: Optional[int] = None) -> Any:
     """``optimizer`` cut for model shard ``index`` of ``size``: an optimizer
-    of its class and options over views of its parameters (each the rule's
-    slice, or the whole leaf), its state sliced the same way (entries of the
-    parameter's shape; the step counter whole).  A step on the views writes
-    this shard's slices of the module parameters in place; the step body
-    gathers the rest (``parallel/dp.py::apply_update``).  The whole
-    optimizer gives up its state and becomes the layout's template."""
+    of its class and options over each parameter's rest (:func:`shard_params`;
+    a leaf the rule keeps whole, the parameter itself), its state sliced the
+    same way (entries of the parameter's shape; the step counter whole).
+    Call it while the parameters are whole.  A step on the rests updates
+    this shard's slices; the step body gathers the rest
+    (``parallel/dp.py::apply_update``).  The whole optimizer gives up its
+    state and becomes the layout's template."""
     import torch
 
     params: List[torch.Tensor] = []
     axes: List[Optional[int]] = []
     groups = []
     for group in optimizer.param_groups:
+        shard_params(group["params"], index, size, min_shard_bytes)
         views = []
         for p in group["params"]:
-            axis = shard_axis(tuple(p.shape), p.dtype, size, min_shard_bytes)
+            rest = rest_of(p)
             params.append(p)
-            axes.append(axis)
-            views.append(p.detach() if axis is None else leaf_slice(p.detach(), axis, index, size))
+            axes.append(None if rest is None else rest.axis)
+            views.append(p.detach() if rest is None else rest.tensor)
         groups.append({**{k: v for k, v in group.items() if k != "params"}, "params": views})
     # a shallow copy keeps the class's own attributes and hooks; the groups
     # and the state are the slices'
@@ -192,6 +284,24 @@ def shard_optimizer(optimizer: Any, index: int, size: int, min_shard_bytes: Opti
     optimizer.state.clear()
     sliced.fsdp = Layout(params, axes, index, size, optimizer)
     return sliced
+
+
+def shard_replicas(replicas: Sequence[Any], optimizer_sets: Sequence[Mapping[str, Any]], size: int,
+                   min_shard_bytes: Optional[int] = None) -> Tuple[List[Dict[str, Any]], List[List[Any]]]:
+    """Every shard's state placed by the rule over a model axis of ``size``:
+    shard d's modules (``replicas[d]``, an iterable of modules, whole at the
+    call) left holding model index ``d % size``'s slices of the parameters
+    the rule cuts (:func:`shard_params`, :func:`release_params`) and its
+    optimizers (``optimizer_sets[d]``, by name, loaded) cut for that index
+    (:func:`shard_optimizer`).  Returns the cut optimizers and each shard's
+    cut parameters (what ``parallel/dp.py::holding_whole`` gathers for a
+    step and :func:`whole_params` joins)."""
+    sliced, cut = [], []
+    for d, (replica, opts) in enumerate(zip(replicas, optimizer_sets)):
+        cut.append(shard_params([p for m in replica for p in m.parameters()], d % size, size, min_shard_bytes))
+        sliced.append({name: shard_optimizer(opt, d % size, size, min_shard_bytes) for name, opt in opts.items()})
+        release_params(cut[-1])
+    return sliced, cut
 
 
 def _rows(optimizer_sets: Sequence[Mapping[str, Any]]) -> List[Mapping[str, Any]]:
@@ -238,16 +348,21 @@ def gathered_optimizers(optimizer_sets: Sequence[Mapping[str, Any]]) -> Iterator
 
 
 def sliced_state_ids(objs: Any) -> Set[int]:
-    """The ``id`` of every optimizer state tensor that is a model shard's
-    slice (``objs``: optimizers, in dicts, lists and tuples)."""
+    """The ``id`` of every tensor that is a model shard's slice (``objs``:
+    modules and optimizers, in dicts, lists and tuples): the cut parameters
+    the modules hold at rest, and the optimizer state of the cut leaves."""
     out: Set[int] = set()
     if isinstance(objs, Mapping):
         objs = list(objs.values())
     if not isinstance(objs, (list, tuple)):
         objs = [objs]
+    registry = _registry()
     for obj in objs:
         if isinstance(obj, (Mapping, list, tuple)):
             out |= sliced_state_ids(obj)
+            continue
+        if hasattr(obj, "parameters") and not hasattr(obj, "param_groups"):
+            out |= {id(p) for p in obj.parameters() if p in registry and p.shape == registry[p].tensor.shape}
             continue
         layout = layout_of(obj)
         if layout is None:

@@ -2,7 +2,7 @@
 
 The JAX package is single-controller: one process drives every local
 device through a 1-D ``data`` mesh, the batch sharded over it and the
-parameters replicated.  The port keeps that design in one process: a data
+parameters replicated.  The port keeps that design in each process: a data
 axis of N shards, shard i placed on ``cuda:(i mod device_count)`` (or the
 CPU under ``fabric.accelerator=cpu``), each shard with a replica of its own
 of the parameters and optimizer state.  With fewer devices than shards a
@@ -12,11 +12,17 @@ JAX refuses more shards than devices (``sheeprl_tpu/parallel/runtime.py:84``):
 this placement is the port's one departure, the counterpart of the JAX
 tests' ``--xla_force_host_platform_device_count``.
 
+Over P processes (``parallel/runtime.py``) the N shards are cut into P
+runs of ``n = N // P``: process p holds the global shards ``[p * n, (p +
+1) * n)`` (:func:`global_shard`), its local shard i on ``cuda:(i mod
+device_count)`` (the CPU under ``fabric.accelerator=cpu``), so two
+processes on one card both place their shards on ``cuda:0``.
+
 Under FSDP (``fabric.fsdp`` = k > 1) the N shards form the JAX mesh's
 ``(data, model)`` layout of ``(N // k, k)``: shard d sits at data row
 ``d // k`` and model index ``d % k`` (the JAX ``reshape(n // fsdp, fsdp)``
 order, :func:`mesh_position`), and ``parallel/fsdp.py`` slices the
-optimizer state over the model axis."""
+parameters and the optimizer state over the model axis."""
 
 from __future__ import annotations
 
@@ -28,9 +34,10 @@ from torch import nn
 
 
 def placement(n: int, accelerator: Any) -> List[torch.device]:
-    """The device of each of ``n`` shards, in shard order: all the CPU under
-    ``accelerator=cpu``, else ``cuda:(i mod torch.cuda.device_count())``.
-    One shard keeps the current CUDA device (``torch.device("cuda")``)."""
+    """The device of each of a process's ``n`` shards, in shard order: all
+    the CPU under ``accelerator=cpu``, else ``cuda:(i mod
+    torch.cuda.device_count())`` by local index.  One shard keeps the
+    current CUDA device (``torch.device("cuda")``)."""
     from sheeprl_tpu_torch.parallel.runtime import resolve_device
 
     first = resolve_device(accelerator)
@@ -38,6 +45,12 @@ def placement(n: int, accelerator: Any) -> List[torch.device]:
         return [first] * n
     count = torch.cuda.device_count()
     return [torch.device("cuda", i % count) for i in range(n)]
+
+
+def global_shard(process: int, local: int, per_process: int) -> int:
+    """The global index of process ``process``'s local shard ``local``,
+    each process holding ``per_process`` consecutive shards."""
+    return int(process) * int(per_process) + int(local)
 
 
 def shared_devices(devices: Sequence[torch.device]) -> List[str]:

@@ -92,12 +92,12 @@ class AsyncCheckpointWriter:
 
     # -- producer side (the training loop) ----------------------------------
     def submit(self, path: str, state: Mapping[str, Any], step: Optional[int] = None,
-               delay_s: Optional[float] = None) -> float:
+               delay_s: Optional[float] = None, group: Optional[Mapping[str, Any]] = None) -> float:
         """Snapshot ``state`` to host and enqueue its write; returns the
         seconds the caller paid.  Blocks only while ``max_pending``
         snapshots already wait.  ``delay_s`` is the chaos ``slow_write``:
         the writer thread sleeps it before the write, off the critical
-        path."""
+        path.  ``group`` is the file's group record (a coordinated save's)."""
         t0 = self._clock()
         snapshot = host_snapshot(state)
         with self._cond:
@@ -105,7 +105,7 @@ class AsyncCheckpointWriter:
                 raise RuntimeError("AsyncCheckpointWriter is closed")
             while len(self._queue) >= self.max_pending and not self._closed:
                 self._cond.wait(timeout=1.0)
-            self._queue.append((str(path), snapshot, step, time.time(), delay_s))
+            self._queue.append((str(path), snapshot, step, time.time(), delay_s, group))
             if self._thread is None:
                 self._thread = threading.Thread(target=self._worker, name="sheeprl-ckpt-writer", daemon=True)
                 self._thread.start()
@@ -123,7 +123,7 @@ class AsyncCheckpointWriter:
                 raise RuntimeError("AsyncCheckpointWriter is closed")
             while len(self._queue) >= self.max_pending and not self._closed:
                 self._cond.wait(timeout=1.0)
-            self._queue.append((_TASK, fn, None, time.time(), None))
+            self._queue.append((_TASK, fn, None, time.time(), None, None))
             if self._thread is None:
                 self._thread = threading.Thread(target=self._worker, name="sheeprl-ckpt-writer", daemon=True)
                 self._thread.start()
@@ -137,7 +137,7 @@ class AsyncCheckpointWriter:
                     self._cond.wait(timeout=1.0)
                 if not self._queue:
                     return  # closed and drained
-                path, snapshot, step, enqueued_t, delay_s = self._queue.popleft()
+                path, snapshot, step, enqueued_t, delay_s, group = self._queue.popleft()
                 self._writing = True
                 self._cond.notify_all()
             try:
@@ -147,14 +147,14 @@ class AsyncCheckpointWriter:
                     except Exception as err:
                         warnings.warn(f"async writer task failed: {err!r} (the run continues)", RuntimeWarning)
                 else:
-                    self._write_one(path, snapshot, step, enqueued_t, delay_s)
+                    self._write_one(path, snapshot, step, enqueued_t, delay_s, group)
             finally:
                 with self._cond:
                     self._writing = False
                     self._cond.notify_all()
 
     def _write_one(self, path: str, snapshot: Any, step: Optional[int], enqueued_t: float,
-                   delay_s: Optional[float] = None) -> None:
+                   delay_s: Optional[float] = None, group: Optional[Mapping[str, Any]] = None) -> None:
         from sheeprl_tpu_torch.resilience.manifest import checkpoint_step, save_verified_checkpoint
 
         if delay_s:
@@ -164,7 +164,7 @@ class AsyncCheckpointWriter:
         queued_s = round(max(0.0, time.time() - enqueued_t), 3)
         self._journal("ckpt_begin", path=path, step=step, blocking=False, queued_s=queued_s)
         try:
-            result = save_verified_checkpoint(path, snapshot, step=step)
+            result = save_verified_checkpoint(path, snapshot, step=step, group=group)
         except Exception as err:  # the writer thread must outlive a failed write
             with self._cond:
                 self.failed_total += 1

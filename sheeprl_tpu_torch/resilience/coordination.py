@@ -1,16 +1,16 @@
-"""Checkpoint groups (counterpart of ``sheeprl_tpu/resilience/coordination.py``,
-its single-process part).
+"""Checkpoint groups (counterpart of ``sheeprl_tpu/resilience/coordination.py``).
 
 A checkpoint written as a group is one ``ckpt_<step>_<rank>.ckpt`` file a
 rank, each with a manifest sidecar whose ``group`` record is ``{"world_size",
-"rank", "group_step"}``.  The port writes groups for FSDP's partial-shard
-checkpoints (``resilience/sharded.py``: "rank" is the model-axis shard
-index of the one process) and reads the JAX package's.  Resume selection
-(``resilience/manifest.py``) takes a step only when every rank's file
-verifies with the same ``group_step``, and only its rank-0 file; a torn
-group is skipped with ``reason=incomplete_group``.  The multi-host save
-(the JAX ``coordinated_save``) waits for Parallel: multi-host (ROADMAP.md
-Queue 1)."""
+"rank", "group_step"}``.  The port writes groups over processes
+(:func:`coordinated_save`, the multi-process ``Runtime.save``: each
+process's file holds its own state, replay included) and for FSDP's
+partial-shard checkpoints (``resilience/sharded.py``: "rank" is the
+model-axis shard index of the one process), and reads the JAX package's.
+Resume selection (``resilience/manifest.py``) takes a step only when every
+rank's file verifies with the same ``group_step``, and only its rank-0
+file (a non-zero rank then reads its own, ``Runtime.load``); a torn group
+is skipped with ``reason=incomplete_group``."""
 
 from __future__ import annotations
 
@@ -18,7 +18,8 @@ import os
 import re
 from typing import Any, Dict, Mapping, Optional, Tuple
 
-from sheeprl_tpu_torch.resilience.manifest import read_manifest, verify_checkpoint
+from sheeprl_tpu_torch.resilience.manifest import (checkpoint_step, read_manifest, save_verified_checkpoint,
+                                                   verify_checkpoint)
 
 _RANK_RE = re.compile(r"^(?P<stem>.*ckpt_\d+)_(?P<rank>\d+)\.ckpt$")
 _FALLBACK_RANK_RE = re.compile(r"^(?P<stem>.*)\.rank\d+(?P<ext>\.[^.]+)$")
@@ -80,3 +81,24 @@ def shard_rank(ckpt_path: str) -> Optional[int]:
     except (TypeError, ValueError):
         return 0
 
+
+
+def coordinated_save(runtime, path: str, state: Mapping[str, Any]) -> None:
+    """The multi-process ``Runtime.save``: an entry barrier (no file is
+    written while another rank still trains), the step agreed by broadcast
+    from rank 0, every rank's ``ckpt_<step>_<rank>.ckpt`` with its group
+    manifest, an exit barrier.  Rank 0 writes through the diagnostics'
+    resilience layer when it is open (async writer, ``ckpt_begin`` /
+    ``ckpt_end`` journaled), the others blocking: they wait at the exit
+    barrier anyway, and a blocking write is its own proof for the group's
+    completeness check."""
+    world, rank = int(runtime.process_count), int(runtime.global_rank)
+    runtime.barrier()
+    step = runtime.broadcast(checkpoint_step(path, state), src=0)
+    group = group_record(world, rank, step)
+    shard = rank_shard_path(path, rank)
+    diagnostics = getattr(runtime, "diagnostics", None)
+    routed = rank == 0 and diagnostics is not None and diagnostics.save_checkpoint(shard, state, group=group)
+    if not routed:
+        save_verified_checkpoint(shard, state, step=step, group=group)
+    runtime.barrier()

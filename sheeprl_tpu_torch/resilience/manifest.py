@@ -11,7 +11,8 @@ verifies a checkpoint against it (size, then the content digest) and, given
 a directory, takes the newest checkpoint that verifies.  A checkpoint
 without a manifest (an older port run's) is "legacy": it verifies by
 unpickling.  A checkpoint written as a group (FSDP's partial shards,
-``resilience/sharded.py``; the JAX package's multi-host groups) records
+``resilience/sharded.py``; a multi-process run's coordinated groups,
+either package's) records
 ``{"group": {"world_size", "rank", "group_step", ...}}`` in each file's
 manifest, and resume takes it only whole (``resilience/coordination.py``).
 """

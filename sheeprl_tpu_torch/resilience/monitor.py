@@ -133,13 +133,13 @@ class ResilienceMonitor:
             self._sync_fn()
 
     # -- checkpoint routing (Runtime.save) -----------------------------------
-    def save(self, path: str, state: Mapping[str, Any]) -> None:
+    def save(self, path: str, state: Mapping[str, Any], group: Optional[Mapping[str, Any]] = None) -> None:
         from sheeprl_tpu_torch.resilience.manifest import checkpoint_step, save_verified_checkpoint
 
         step = checkpoint_step(path, state)
         delay_s, self._slow_write_pending = self._slow_write_pending, None
         if self._writer is not None:
-            self._writer.submit(path, state, step=step, delay_s=delay_s)
+            self._writer.submit(path, state, step=step, delay_s=delay_s, group=group)
             return
         if delay_s:
             # chaos slow_write on a blocking save: the sleep is on the
@@ -147,7 +147,7 @@ class ResilienceMonitor:
             time.sleep(delay_s)
         self._journal("ckpt_begin", path=str(path), step=step, blocking=True, queued_s=0.0)
         try:
-            result = save_verified_checkpoint(path, state, step=step)
+            result = save_verified_checkpoint(path, state, step=step, group=group)
         except Exception as err:
             # ckpt_begin is never left dangling; a blocking save failure
             # still aborts the run

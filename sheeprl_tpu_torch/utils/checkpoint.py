@@ -239,11 +239,14 @@ class CheckpointCallback:
         finally:
             for b, last, value in saved:
                 b.buffer["truncated"][last] = value
-        if self.export and replay_buffer is not None:
+        # rank 0 exports and prunes for the group: the ranks' groups share
+        # the directory
+        rank_zero = getattr(runtime, "is_global_zero", True)
+        if self.export and replay_buffer is not None and rank_zero:
             from sheeprl_tpu_torch.offline.export import checkpoint_export
 
             checkpoint_export(self, runtime, ckpt_path, replay_buffer)
-        if self.keep_last:
+        if self.keep_last and rank_zero:
             self._delete_old_checkpoints(Path(ckpt_path).parent)
 
     #: the decoupled loops' player saves, as the JAX callback names them

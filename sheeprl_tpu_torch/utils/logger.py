@@ -119,13 +119,18 @@ def _plain(params: Any) -> Any:
 
 def get_log_dir(runtime, root_dir: str, run_name: str) -> str:
     """``logs/runs/<root_dir>/<run_name>/version_N``, N one past the
-    highest present (an absolute ``root_dir`` replaces ``logs/runs``)."""
-    base = os.path.join("logs", "runs", root_dir, run_name)
-    os.makedirs(base, exist_ok=True)
-    versions = [int(d.split("_")[1]) for d in os.listdir(base) if d.startswith("version_") and d.split("_")[1].isdigit()]
-    log_dir = os.path.join(base, f"version_{max(versions) + 1 if versions else 0}")
-    os.makedirs(log_dir, exist_ok=True)
-    return log_dir
+    highest present (an absolute ``root_dir`` replaces ``logs/runs``),
+    made by rank 0 and broadcast, so that every rank of a multi-process run
+    trains against the one directory."""
+    log_dir = None
+    if getattr(runtime, "is_global_zero", True):
+        base = os.path.join("logs", "runs", root_dir, run_name)
+        os.makedirs(base, exist_ok=True)
+        versions = [int(d.split("_")[1]) for d in os.listdir(base)
+                    if d.startswith("version_") and d.split("_")[1].isdigit()]
+        log_dir = os.path.join(base, f"version_{max(versions) + 1 if versions else 0}")
+        os.makedirs(log_dir, exist_ok=True)
+    return runtime.broadcast(log_dir) if hasattr(runtime, "broadcast") else log_dir
 
 
 class JournalingLogger(NoOpLogger):
@@ -163,10 +168,11 @@ class JournalingLogger(NoOpLogger):
 
 def get_logger(runtime, cfg) -> NoOpLogger:
     """The configured logger behind the journaling proxy (a no-op backend
-    with ``metric.logger=null``), or a no-op one at ``metric.log_level=0``."""
+    with ``metric.logger=null``), or a no-op one at ``metric.log_level=0``
+    and on every rank but 0."""
     from sheeprl_tpu_torch.config import instantiate
 
-    if cfg.metric.get("log_level", 1) == 0:
+    if cfg.metric.get("log_level", 1) == 0 or not getattr(runtime, "is_global_zero", True):
         return NoOpLogger()
     inner = NoOpLogger() if cfg.metric.get("logger") is None else instantiate(dict(cfg.metric.logger))
     return JournalingLogger(inner, runtime)

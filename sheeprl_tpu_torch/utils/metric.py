@@ -1,6 +1,7 @@
 """Metric aggregation (counterpart of ``sheeprl_tpu/utils/metric.py``): a
 named registry of small host-side metrics with a global disable switch and
-NaN filtering at compute time."""
+NaN filtering at compute time, and its rank-independent form, which gathers
+every process's values through the runtime."""
 
 from __future__ import annotations
 
@@ -88,3 +89,27 @@ class MetricAggregator:
             return {}
         out = {name: metric.compute() for name, metric in self.metrics.items()}
         return {k: v for k, v in out.items() if not np.isnan(v)}
+
+
+class RankIndependentMetricAggregator:
+    """A :class:`MetricAggregator` whose values stay per process: ``compute``
+    gathers every process's through ``runtime.all_gather`` (the JAX
+    package's, ``sheeprl_tpu/utils/metric.py``), each name mapped to the
+    list of the ranks' values in rank order (one value with one process)."""
+
+    def __init__(self, runtime: Any, metrics: Optional[Dict[str, Any]] = None):
+        self._runtime = runtime
+        self._aggregator = MetricAggregator(metrics)
+
+    def update(self, name: str, value: Any) -> None:
+        self._aggregator.update(name, value)
+
+    def compute(self) -> Dict[str, List[float]]:
+        local = self._aggregator.compute()
+        if getattr(self._runtime, "process_count", 1) == 1:
+            return {k: [v] for k, v in local.items()}
+        gathered = self._runtime.all_gather(local)
+        return {k: [float(x) for x in np.asarray(v).reshape(-1)] for k, v in gathered.items()}
+
+    def reset(self) -> None:
+        self._aggregator.reset()

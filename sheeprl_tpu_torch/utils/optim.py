@@ -306,10 +306,12 @@ def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.sqrt(sum((t.float() ** 2).sum() for t in tensors))
 
 
-def clip_by_global_norm(tensors: Sequence[torch.Tensor], max_norm: float) -> List[torch.Tensor]:
+def clip_by_global_norm(tensors: Sequence[torch.Tensor], max_norm: float,
+                        norm: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
     """``optax.clip_by_global_norm``: each tensor scaled by
-    ``max_norm / norm`` when the global norm reaches ``max_norm``, as is
-    otherwise.  Stays on the device: no host sync."""
-    norm = global_norm(tensors)
+    ``max_norm / norm`` when the global norm (``norm``, the tensors' own by
+    default) reaches ``max_norm``, as is otherwise.  Stays on the device: no
+    host sync."""
+    norm = global_norm(tensors) if norm is None else norm
     keep = norm < max_norm
     return [torch.where(keep, t, t / norm.to(t.dtype) * max_norm) for t in tensors]

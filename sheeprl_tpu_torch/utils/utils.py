@@ -113,13 +113,13 @@ def get_diagnostics(runtime, cfg: Mapping[str, Any], log_dir: str):
     """The run's opened :class:`~sheeprl_tpu_torch.diagnostics.Diagnostics`:
     the one ``cli.run_algorithm`` attached to the runtime, or one built here
     from ``cfg`` for a direct caller; opened (idempotently) in ``log_dir``
-    on the runtime's device."""
+    on the runtime's device, as its process's rank."""
     from sheeprl_tpu_torch.diagnostics import build_diagnostics
 
     diag = getattr(runtime, "diagnostics", None)
     if diag is None:
         diag = runtime.diagnostics = build_diagnostics(cfg)
-    return diag.open(log_dir, device=runtime.device)
+    return diag.open(log_dir, device=runtime.device, rank=getattr(runtime, "global_rank", 0))
 
 
 def save_configs(cfg: dotdict, log_dir: str) -> None:

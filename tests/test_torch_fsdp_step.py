@@ -6,8 +6,9 @@ Two consecutive DreamerV3 steps from converted params: the JAX step on a
 state placed by the partition rule (global view: it draws as one device
 does), the port's as two shards in lockstep (``parallel/dp.py``), each
 with its optimizers cut for its model index (``parallel/fsdp.py``), on
-the shards' blocks of the same global batch, and the port's one-device
-step on that whole batch.  The draws are injected: the JAX keys' draws at
+the shards' blocks of the same global batch (each shard's modules holding
+only its slices between steps, gathered whole for a step), and the port's
+one-device step on that whole batch.  The draws are injected: the JAX keys' draws at
 the global batch's shapes, unfolded, each shard taking its block.  The
 clips are set low, so that every update clips and a clip by a shard's own
 slices' norm (rather than the whole gradient's) fails here.  Then the
@@ -35,8 +36,8 @@ from sheeprl_tpu.parallel.mesh import make_mesh, replicated_sharding
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import (METRIC_ORDER, learner_replicas_equal, make_optimizers,
                                                            make_train_step)
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import init_moments_state
-from sheeprl_tpu_torch.parallel.dp import global_streams, run_shards, split
-from sheeprl_tpu_torch.parallel.fsdp import gathered_optimizers, layout_of, shard_optimizer
+from sheeprl_tpu_torch.parallel.dp import global_streams, holding_whole, run_shards, split
+from sheeprl_tpu_torch.parallel.fsdp import gathered_optimizers, layout_of, shard_replicas, whole_params
 from sheeprl_tpu_torch.parallel.mesh import replicate
 from test_torch_threads import one_torch_thread  # noqa: F401  (one torch thread a worker)
 
@@ -85,21 +86,25 @@ def _blocks_of(noise, T, B, shards):
 
 def _fsdp_learner(setup, shards: int = SHARDS, fsdp: int = SHARDS):
     """The port's FSDP shards (``shards`` of them, a ``(shards / fsdp,
-    fsdp)`` layout): replicas of the converted agent, each's optimizers cut
-    for its model index, and their steps."""
+    fsdp)`` layout), as the loop places them (``fsdp.shard_replicas``):
+    replicas of the converted agent, each's modules holding its model
+    index's slices between steps and its optimizers cut for that index;
+    their steps, each run with its parameters gathered whole for its length
+    (``dp.holding_whole``); and the shards' cut parameters."""
     cfg = setup.cfg
     replicas = replicate(setup.agent(), [torch.device("cpu")] * shards)
-    optimizer_sets = [{k: shard_optimizer(o, d % fsdp, fsdp, MIN_SHARD) for k, o in make_optimizers(cfg, r).items()}
-                      for d, r in enumerate(replicas)]
+    optimizer_sets, cut = shard_replicas(replicas, [make_optimizers(cfg, r) for r in replicas], fsdp, MIN_SHARD)
     steps = [make_train_step(r, o, cfg, setup.is_continuous) for r, o in zip(replicas, optimizer_sets)]
-    return replicas, optimizer_sets, steps
+    return replicas, optimizer_sets, steps, cut
 
 
-def _assert_trees(replicas, optimizer_sets, params, opt_states, moments, state):
-    """Parameters (2e-6), Adam (1e-4 of each tree's scale) and Moments
-    (1e-5) of the port's shard 0 against the reference's."""
+def _assert_trees(replicas, optimizer_sets, params, opt_states, moments, state, cut):
+    """Parameters (2e-6, shard 0's joined from its row's slices), Adam
+    (1e-4 of each tree's scale) and Moments (1e-5) of the port's shard 0
+    against the reference's."""
     want = dv3._leaves({k: params[k] for k in ("world_model", "actor", "critic", "target_critic")})
-    got = dv3._leaves(dv3.to_flax(*replicas[0]))
+    with whole_params(cut[:SHARDS], "cpu"):
+        got = dv3._leaves(dv3.to_flax(*replicas[0]))
     assert sorted(got) == sorted(want)
     for path, value in want.items():
         np.testing.assert_allclose(got[path], value, atol=2e-6, rtol=1e-5, err_msg=path)
@@ -117,6 +122,12 @@ def _assert_trees(replicas, optimizer_sets, params, opt_states, moments, state):
 
 
 def test_two_fsdp_steps_match_the_jax_fsdp_step_and_the_one_device_step(setup, monkeypatch):
+    two_fsdp_steps(setup, monkeypatch)
+
+
+def two_fsdp_steps(setup, monkeypatch, between=None):
+    """Two FSDP steps of the port's shards against the JAX FSDP step and
+    the one-device step; ``between(replicas, cut)`` runs after each."""
     cfg = setup.cfg
     params = jax.tree_util.tree_map(jnp.asarray, setup.params)
     opt_states = {k: setup.opts[k].init(params[k]) for k in setup.opts}
@@ -124,7 +135,7 @@ def test_two_fsdp_steps_match_the_jax_fsdp_step_and_the_one_device_step(setup, m
     opt_states = jax_fsdp.shard_tree(opt_states, setup.mesh, MIN_SHARD)
     moments = jax.device_put(jax_utils.init_moments_state(), replicated_sharding(setup.mesh))
 
-    replicas, optimizer_sets, steps = _fsdp_learner(setup)
+    replicas, optimizer_sets, steps, cut = _fsdp_learner(setup)
     # the rule cut some of every optimizer's parameters, and kept some whole
     for opt in optimizer_sets[0].values():
         axes = layout_of(opt).axes
@@ -145,12 +156,15 @@ def test_two_fsdp_steps_match_the_jax_fsdp_step_and_the_one_device_step(setup, m
         params, opt_states, moments, jax_metrics = setup.fsdp_step(
             params, opt_states, moments, jax_stage(batch, setup.mesh, batch_axis=1), sub, jnp.float32(tau))[:4]
         noise = _global_noise(setup, sub, monkeypatch)
-        outs = run_shards([step.body({k: v.clone() for k, v in state.items()}, block, tau, None, n)
-                           for step, block, n in zip(steps, blocks, _blocks_of(noise, dv3.T, SHARDS * dv3.B, SHARDS))])
+        outs = run_shards([holding_whole(step.body({k: v.clone() for k, v in state.items()}, block, tau, None, n), c)
+                           for step, block, n, c in zip(steps, blocks, _blocks_of(noise, dv3.T, SHARDS * dv3.B, SHARDS),
+                                                        cut)])
         state, metrics = outs[0]
         one_state, one_metrics = one_step(one_state, whole, tau, None, noise)
         assert torch.equal(outs[1][1], metrics)
         assert learner_replicas_equal(replicas, optimizer_sets), "the model shards' gathered state diverged"
+        if between is not None:
+            between(replicas, cut)
         norms = metrics[METRIC_ORDER.index("Grads/world_model"):METRIC_ORDER.index("Grads/critic") + 1]
         assert (norms > CLIP).all(), f"step {i}: an update did not clip ({norms})"
         for ref, name in ((np.asarray(jax_metrics), "the JAX FSDP step"), (one_metrics.numpy(), "one device")):
@@ -158,8 +172,8 @@ def test_two_fsdp_steps_match_the_jax_fsdp_step_and_the_one_device_step(setup, m
                                        err_msg=f"step {i} against {name}: {METRIC_ORDER}")
 
     jax_adam = {k: {"exp_avg": opt_states[k][1][0].mu, "exp_avg_sq": opt_states[k][1][0].nu} for k in setup.opts}
-    _assert_trees(replicas, optimizer_sets, params, jax_adam, moments, state)
-    _assert_trees(replicas, optimizer_sets, dv3.to_flax(*one), dv3._adam_moments(one, one_opts), one_state, state)
+    _assert_trees(replicas, optimizer_sets, params, jax_adam, moments, state, cut)
+    _assert_trees(replicas, optimizer_sets, dv3.to_flax(*one), dv3._adam_moments(one, one_opts), one_state, state, cut)
 
 
 @pytest.mark.parametrize("shards", [2, 4], ids=["(1, 2)", "(2, 2)"])
@@ -170,7 +184,7 @@ def test_an_fsdp_step_draws_the_one_device_steps_draws_from_one_generator(setup,
     two (the gradients reduced over all four shards, the slices gathered
     within each row)."""
     cfg = setup.cfg
-    replicas, optimizer_sets, steps = _fsdp_learner(setup, shards)
+    replicas, optimizer_sets, steps, cut = _fsdp_learner(setup, shards)
     one = setup.agent()
     one_step = make_train_step(one, make_optimizers(cfg, one), cfg, setup.is_continuous)
     batch = {k: torch.from_numpy(np.concatenate([dv3._batch(setup, 11 + i)[k] for i in range(shards)],
@@ -180,13 +194,16 @@ def test_an_fsdp_step_draws_the_one_device_steps_draws_from_one_generator(setup,
     state, one_state = init_moments_state(), init_moments_state()
     for tau in (1.0, 0.02):
         streams = global_streams(gen, [b["actions"].shape[1] for b in blocks])
-        state, metrics = run_shards([step.body({k: v.clone() for k, v in state.items()}, block, tau, g)
-                                     for step, block, g in zip(steps, blocks, streams)])[0]
+        state, metrics = run_shards([
+            holding_whole(step.body({k: v.clone() for k, v in state.items()}, block, tau, g), c)
+            for step, block, g, c in zip(steps, blocks, streams, cut)])[0]
         one_state, one_metrics = one_step(one_state, batch, tau, one_gen)
         np.testing.assert_allclose(metrics.numpy(), one_metrics.numpy(), atol=1e-4, rtol=1e-4)
     # the generators stand where the one-device step left its own
     assert torch.equal(torch.rand(4, generator=gen), torch.rand(4, generator=one_gen))
-    got, want = dv3._leaves(dv3.to_flax(*replicas[0])), dv3._leaves(dv3.to_flax(*one))
+    with whole_params(cut[:SHARDS], "cpu"):
+        got = dv3._leaves(dv3.to_flax(*replicas[0]))
+    want = dv3._leaves(dv3.to_flax(*one))
     assert sorted(got) == sorted(want)
     for path in want:
         np.testing.assert_allclose(got[path], want[path], atol=2e-6, rtol=1e-5, err_msg=path)

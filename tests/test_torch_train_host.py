@@ -207,11 +207,11 @@ def test_runtime_seeds_a_generator_and_refuses_what_it_does_not_port():
         assert Runtime(accelerator="cpu", precision="64-true").compute_dtype == torch.float32
     # the data axis and FSDP are ported (tests/test_torch_parallel.py,
     # tests/test_torch_fsdp*.py): two shards on a (data, model) = (1, 2)
-    # layout; more than one node is not
+    # layout; more than one node without torchrun's variables is one process
     with pytest.warns(UserWarning, match="more than one shard"):
         assert Runtime(accelerator="cpu", devices=2).world_size == 2
     with pytest.warns(UserWarning, match="more than one shard"):
         two_axis = Runtime(accelerator="cpu", devices=2, fsdp=2, fsdp_min_shard_bytes=256)
     assert (two_axis.world_size, two_axis.fsdp, two_axis.fsdp_min_shard_bytes) == (2, 2, 256)
-    with pytest.raises(NotImplementedError, match="num_nodes=2"):
-        Runtime(accelerator="cpu", num_nodes=2)
+    with pytest.warns(UserWarning, match="num_nodes=2"):
+        assert Runtime(accelerator="cpu", num_nodes=2).world_size == 1
